@@ -2,7 +2,8 @@
 the reference binding, interfaces/python/fastllama.py:194-479), on PyTorch:
 
     from fastllama_tpu_torch import Model
-    model = Model(path="./model-fltpu", n_ctx=512)          # on the card
+    model = Model(path="./ggml-model-q4_0.bin", n_ctx=512)  # on the card
+    model.attach_lora("./adapter.bin")                      # ggla adapter
     model.ingest("system prompt", is_system_prompt=True)
     model.generate(num_tokens=100, streaming_fn=fn, stop_words=["User:"])
 

@@ -389,7 +389,7 @@ class FastLlama:
 
     def attach_lora(self, filepath: str) -> bool:
         """Runtime adapter attach (reference: bridge passthrough to
-        Model::attach_lora). Not ported yet: the model raises."""
+        Model::attach_lora)."""
         self.logger.reset()
         return self.model.attach_lora(filepath)
 

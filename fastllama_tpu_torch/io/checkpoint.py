@@ -5,9 +5,9 @@ A checkpoint is a directory holding
   weights.bin     — 64-byte-aligned concatenated tensor payloads
   vocab.bin       — n_vocab x { len u32, bytes, score f32 }
 with tensors in the device layout (split-K packed nibble planes + scale
-planes, quant/tensor.py), so loading is a memory map and a copy to the
-device per tensor, with no repacking. Files written by either package load
-in both. Affine (q4_1) matmul tensors are not read by this slice.
+planes and, for affine q4_1 tensors, mins planes; quant/tensor.py), so
+loading is a memory map and a copy to the device per tensor, with no
+repacking. Files written by either package load in both.
 """
 from __future__ import annotations
 
@@ -75,6 +75,22 @@ class CheckpointWriter:
             name, pack_codes_split_k(np.ascontiguousarray(codes.T)),
             np.ascontiguousarray(scales.T.astype(np.float32)))
 
+    def add_q41_matmul(self, name: str, codes: np.ndarray, scales: np.ndarray,
+                       mins: np.ndarray):
+        """Affine (q4_1/GPTQ) weight: codes uint8 [N, K], scales/mins
+        [N, K/32]. Stored transposed + split-K packed like q4_matmul, plus a
+        mins plane."""
+        n, k = codes.shape
+        self.tensors[name] = {
+            "kind": "q41_matmul", "shape": [k, n],
+            "qs": self._write_payload(
+                pack_codes_split_k(np.ascontiguousarray(codes.T))),
+            "scales": self._write_payload(
+                np.ascontiguousarray(scales.T.astype(np.float32))),
+            "mins": self._write_payload(
+                np.ascontiguousarray(mins.T.astype(np.float32))),
+        }
+
     def add_q4_embedding(self, name: str, codes: np.ndarray, scales: np.ndarray):
         self.add_q4_embedding_planes(name, split_pack_lastdim(codes), scales)
 
@@ -138,16 +154,19 @@ class Checkpoint:
     def kind(self, name: str) -> str:
         return self.tensors[name]["kind"]
 
-    def raw_q4_planes(self, name: str) -> tuple[np.ndarray, np.ndarray]:
-        """Unpadded device-layout planes (qs, scales) of a q4_matmul tensor."""
+    def raw_q4_planes(self, name: str) -> tuple[np.ndarray, ...]:
+        """Unpadded device-layout planes: (qs, scales) for q4_matmul or
+        (qs, scales, mins) for q41_matmul."""
         meta = self.tensors[name]
-        if meta["kind"] != "q4_matmul":
-            raise NotImplementedError(
-                f"{name} is {meta['kind']}; the PyTorch port reads q4_0 "
-                "matmul tensors only (q4_1 is queued in ROADMAP.md, queue B9)")
+        if meta["kind"] not in ("q4_matmul", "q41_matmul"):
+            raise ValueError(f"{name} is {meta['kind']}, not a q4 matmul")
         k, n = meta["shape"]
-        return (self._payload(meta["qs"], np.uint8, (k // 2, n)),
-                self._payload(meta["scales"], np.float32, (k // QK4_0, n)))
+        planes = (self._payload(meta["qs"], np.uint8, (k // 2, n)),
+                  self._payload(meta["scales"], np.float32, (k // QK4_0, n)))
+        if meta["kind"] == "q41_matmul":
+            planes += (self._payload(meta["mins"], np.float32,
+                                     (k // QK4_0, n)),)
+        return planes
 
     def raw_dense(self, name: str) -> np.ndarray:
         meta = self.tensors[name]
@@ -177,7 +196,9 @@ def load_params(ckpt: Checkpoint, device=None,
     """Build the fused-layout LlamaParams on `device` from a checkpoint:
     QKV and w1/w3 fused along N (models/fuse.py column orders), matmul
     planes padded to good_pad_k / good_pad_n as the JAX loader pads them."""
-    from ..models.fuse import fuse_packed, qkv_col_order, w13_col_order
+    from ..models.fuse import (
+        fuse_dense, fuse_packed, qkv_col_order, w13_col_order,
+    )
     from ..models.llama import LayerParams, LlamaParams
 
     dev = resolve_device(device)
@@ -189,12 +210,19 @@ def load_params(ckpt: Checkpoint, device=None,
     def single(nm):
         if ckpt.kind(nm) == "dense":
             return dense(nm)                           # stored [K, N]
-        return matmul_weight_from_planes(*ckpt.raw_q4_planes(nm), device=dev)
+        planes = ckpt.raw_q4_planes(nm)
+        if len(planes) == 3:
+            return fuse_packed([planes], np.arange(planes[0].shape[1]),
+                               device=dev)
+        return matmul_weight_from_planes(*planes, device=dev)
 
     def fused(names, order):
-        if {ckpt.kind(nm) for nm in names} == {"dense"}:
-            return torch.from_numpy(np.concatenate(
-                [ckpt.raw_dense(nm) for nm in names], axis=1)[:, order]).to(dev)
+        kinds = {ckpt.kind(nm) for nm in names}
+        if kinds == {"dense"}:
+            return fuse_dense([ckpt.raw_dense(nm) for nm in names], order,
+                              device=dev)
+        if len(kinds) != 1:
+            raise ValueError(f"cannot fuse mixed tensor kinds {kinds}")
         return fuse_packed([ckpt.raw_q4_planes(nm) for nm in names], order,
                            device=dev)
 

@@ -1,5 +1,7 @@
-// Kernel B1: the decode-size q4_0 matmul (W4A16 skinny GEMM / GEMV).
+// Kernels B1 and B9: the decode-size 4-bit matmuls (W4A16 skinny GEMM /
+// GEMV) for q4_0 and for affine (q4_1 / GPTQ) weights, one template.
 //
+// B1 (q4_gemv):
 // Replaces fastllama_tpu/kernels/q4_matmul.py::q4_matmul_pallas (variant
 // v1, _q4mm_kernel_v1). Computes y[M, n_out] f32 = x[M, K] @ ((q - 8) * d)
 // for M <= 64, reading the split-K packed weight planes as stored:
@@ -11,7 +13,17 @@
 // f32, so only the f32 summation order differs from a dense matmul. In f32
 // mode nothing is rounded.
 //
-// Bound on the H100: bytes. At M = 1 the kernel does 2 flops per weight
+// B9 (q41_gemv) replaces q41_matmul_pallas (_q41mm_kernel) in the same
+// file: the weight is w = q * d + m with a second f32 plane mins
+// [K_pad/32, N], and the kernel computes
+//   y = R(x) @ R(q * d) + bsum(x) @ m
+// where R rounds to bf16 in bf16 mode (identity in f32 mode) and bsum[m, kb]
+// is the sum of the UNROUNDED f32 x over q block kb; the product with the
+// mins is a plain f32 one. So the offset plane never meets a bf16 rounding
+// (which x @ R(q * d + m) would give it). Padded blocks have d = m = 0 and
+// code 0, so they add nothing.
+//
+// Bound on the H100 (both): bytes. At M = 1 the kernel does 2 flops per weight
 // element and reads 0.625 bytes per element (packed nibbles plus an f32
 // scale per 32), far below the ~295 flop/byte ridge: the time is the weight
 // planes over 3.35 TB/s, and reaching it takes many loads in flight. So:
@@ -26,7 +38,9 @@
 //     counter per tile) adds the [splits, M, N] partials in split order, so
 //     the result is deterministic run to run and there is no second launch.
 // The block's slice of x is staged once in shared memory (rounded to bf16
-// in bf16 mode); past x's K it reads as zero, so x is never padded.
+// in bf16 mode); past x's K it reads as zero, so x is never padded. B9 also
+// stages the block sums of its slice (one f32 per row and q block, summed
+// from the unrounded x in k order) and adds bsum * m once per q block.
 
 #include "common.cuh"
 
@@ -49,17 +63,19 @@ template <> struct Packed<8> {
   }
 };
 
-template <int MT, int COLS>
+template <int MT, int COLS, bool AFFINE>
 __global__ void __launch_bounds__(kThreads)
 q4_gemv_kernel(const float* __restrict__ x, int M, int Kx,
                const uint8_t* __restrict__ qs,
-               const float* __restrict__ scales, int N, int NB,
+               const float* __restrict__ scales,
+               const float* __restrict__ mins, int N, int NB,
                int kb_per_split, float* __restrict__ partial,
                int* __restrict__ counters, float* __restrict__ y, int n_out,
                int bf16) {
   using PT = typename Packed<COLS>::T;
   constexpr int BN = 32 * COLS;
-  extern __shared__ float smem[];        // x slice, then warp partials
+  extern __shared__ float smem[];        // x slice [, block sums], then
+                                         // warp partials
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n = blockIdx.x * BN + lane * COLS;
   const int split = blockIdx.y;
@@ -73,6 +89,18 @@ q4_gemv_kernel(const float* __restrict__ x, int M, int Kx,
     const int m = m0 + r, k = kb0 * 32 + c;
     const float v = (m < M && k < Kx) ? x[(size_t)m * Kx + k] : 0.f;
     smem[i] = bf16 ? fltorch::round_bf16(v) : v;
+  }
+  float* bsum = smem + MT * width;       // [MT][nkb], AFFINE only
+  if constexpr (AFFINE) {
+    for (int i = threadIdx.x; i < MT * nkb; i += kThreads) {
+      const int r = i / nkb, b = i - r * nkb;
+      const int m = m0 + r, k0 = (kb0 + b) * 32;
+      float s = 0.f;
+      if (m < M)
+        for (int j = 0; j < 32 && k0 + j < Kx; ++j)
+          s += x[(size_t)m * Kx + k0 + j];
+      bsum[i] = s;
+    }
   }
   __syncthreads();
 
@@ -97,13 +125,27 @@ q4_gemv_kernel(const float* __restrict__ x, int M, int Kx,
             scales + (size_t)kb * N + n + c4));
         d[c4] = v.x; d[c4 + 1] = v.y; d[c4 + 2] = v.z; d[c4 + 3] = v.w;
       }
+      if constexpr (AFFINE) {
+#pragma unroll
+        for (int c4 = 0; c4 < COLS; c4 += 4) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(
+              mins + (size_t)kb * N + n + c4));
+          const float mn[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int r = 0; r < MT; ++r)
+              acc[r][c4 + c] += bsum[r * nkb + b] * mn[c];
+        }
+      }
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
 #pragma unroll
         for (int c = 0; c < COLS; ++c) {
           const int byte = Packed<COLS>::byte(q[j], c);
-          float wlo = (float)((byte & 15) - 8) * d[c];
-          float whi = (float)((byte >> 4) - 8) * d[c];
+          constexpr int kZero = AFFINE ? 0 : 8;
+          float wlo = (float)((byte & 15) - kZero) * d[c];
+          float whi = (float)((byte >> 4) - kZero) * d[c];
           if (bf16) {
             wlo = fltorch::round_bf16(wlo);
             whi = fltorch::round_bf16(whi);
@@ -157,26 +199,52 @@ q4_gemv_kernel(const float* __restrict__ x, int M, int Kx,
   if (threadIdx.x == 0) counters[tile] = 0;
 }
 
-template <int MT, int COLS>
+template <int MT, int COLS, bool AFFINE>
 int launch_gemv(const float* x, int M, int Kx, const uint8_t* qs,
-                const float* scales, int N, int NB, int splits,
+                const float* scales, const float* mins, int N, int NB,
+                int splits,
                 int kb_per_split, float* partial, int* counters, float* y,
                 int n_out, int bf16, cudaStream_t stream) {
   constexpr int BN = 32 * COLS;
-  const size_t x_bytes = (size_t)MT * kb_per_split * 32 * sizeof(float);
+  const size_t x_bytes = (size_t)MT * kb_per_split * (AFFINE ? 33 : 32) *
+                         sizeof(float);    // x slice [+ block sums]
   const size_t red_bytes = (size_t)kWarps * MT * BN * sizeof(float);
   const size_t smem = x_bytes > red_bytes ? x_bytes : red_bytes;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        q4_gemv_kernel<MT, COLS>,
+        q4_gemv_kernel<MT, COLS, AFFINE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((N + BN - 1) / BN, splits, (M + MT - 1) / MT);
-  q4_gemv_kernel<MT, COLS><<<grid, kThreads, smem, stream>>>(
-      x, M, Kx, qs, scales, N, NB, kb_per_split, partial, counters, y, n_out,
-      bf16);
+  q4_gemv_kernel<MT, COLS, AFFINE><<<grid, kThreads, smem, stream>>>(
+      x, M, Kx, qs, scales, mins, N, NB, kb_per_split, partial, counters, y,
+      n_out, bf16);
   return (int)cudaGetLastError();
+}
+
+// Tiles by M: 1 row x 256 columns, 4 x 256, or 16 x 128.
+template <bool AFFINE>
+int dispatch_gemv(const void* x, int M, int Kx, const void* qs,
+                  const void* scales, const void* mins, int N, int NB,
+                  int splits, int kb_per_split, void* partial, void* counters,
+                  void* y, int n_out, int bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  const uint8_t* q = (const uint8_t*)qs;
+  const float* sc = (const float*)scales;
+  const float* mn = (const float*)mins;
+  float* p = (float*)partial;
+  int* c = (int*)counters;
+  float* yf = (float*)y;
+  if (M == 1)
+    return launch_gemv<1, 8, AFFINE>(xf, M, Kx, q, sc, mn, N, NB, splits,
+                                     kb_per_split, p, c, yf, n_out, bf16, s);
+  if (M <= 4)
+    return launch_gemv<4, 8, AFFINE>(xf, M, Kx, q, sc, mn, N, NB, splits,
+                                     kb_per_split, p, c, yf, n_out, bf16, s);
+  return launch_gemv<16, 4, AFFINE>(xf, M, Kx, q, sc, mn, N, NB, splits,
+                                    kb_per_split, p, c, yf, n_out, bf16, s);
 }
 
 }  // namespace
@@ -191,19 +259,18 @@ extern "C" int q4_gemv(const void* x, int M, int Kx, const void* qs,
                        const void* scales, int N, int NB, int splits,
                        int kb_per_split, void* partial, void* counters,
                        void* y, int n_out, int bf16, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* xf = (const float*)x;
-  const uint8_t* q = (const uint8_t*)qs;
-  const float* sc = (const float*)scales;
-  float* p = (float*)partial;
-  int* c = (int*)counters;
-  float* yf = (float*)y;
-  if (M == 1)
-    return launch_gemv<1, 8>(xf, M, Kx, q, sc, N, NB, splits, kb_per_split,
-                             p, c, yf, n_out, bf16, s);
-  if (M <= 4)
-    return launch_gemv<4, 8>(xf, M, Kx, q, sc, N, NB, splits, kb_per_split,
-                             p, c, yf, n_out, bf16, s);
-  return launch_gemv<16, 4>(xf, M, Kx, q, sc, N, NB, splits, kb_per_split, p,
-                            c, yf, n_out, bf16, s);
+  return dispatch_gemv<false>(x, M, Kx, qs, scales, nullptr, N, NB, splits,
+                              kb_per_split, partial, counters, y, n_out, bf16,
+                              stream);
+}
+
+// B9: as q4_gemv with the mins plane f32 [NB, N] after the scales.
+extern "C" int q41_gemv(const void* x, int M, int Kx, const void* qs,
+                        const void* scales, const void* mins, int N, int NB,
+                        int splits, int kb_per_split, void* partial,
+                        void* counters, void* y, int n_out, int bf16,
+                        void* stream) {
+  return dispatch_gemv<true>(x, M, Kx, qs, scales, mins, N, NB, splits,
+                             kb_per_split, partial, counters, y, n_out, bf16,
+                             stream);
 }

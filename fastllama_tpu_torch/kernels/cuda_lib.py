@@ -23,20 +23,26 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("q4_decode", "quant_rows", "q4_int8", "decode_attention")
+SOURCES = ("q4_decode", "quant_rows", "q4_int8", "q4_prefill",
+           "decode_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = {
     "q4_gemv": [P, I, I, P, P, I, I, I, I, P, P, P, I, I, P],
+    "q41_gemv": [P, I, I, P, P, P, I, I, I, I, P, P, P, I, I, P],
     "quant_rows_int8": [P, I, I, I, P, P, P],
     "q4_int8_gemm": [P, P, I, I, P, P, I, P, P, P, I, P],
+    "q4_prefill_gemm": [P, I, I, P, P, I, I, P, P, P, I, I, P],
     "decode_attention_fused": [P, P, P, P, P, P, I, I, I, I, F, I, P, P],
+    "decode_attention": [P, P, P, P, I, I, I, I, F, I, P, P],
 }
-LIB_OF = {"q4_gemv": "q4_decode", "quant_rows_int8": "quant_rows",
-          "q4_int8_gemm": "q4_int8",
-          "decode_attention_fused": "decode_attention"}
+LIB_OF = {"q4_gemv": "q4_decode", "q41_gemv": "q4_decode",
+          "quant_rows_int8": "quant_rows", "q4_int8_gemm": "q4_int8",
+          "q4_prefill_gemm": "q4_prefill",
+          "decode_attention_fused": "decode_attention",
+          "decode_attention": "decode_attention"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None   # wall time of the last build() call

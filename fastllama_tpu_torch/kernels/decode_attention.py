@@ -1,6 +1,14 @@
-"""Fused decode attention (kernel B4) and its plain version.
+"""Decode attention: kernels B4 (fused) and B10 (attention alone) and their
+plain versions.
 
-Ports fastllama_tpu/kernels/decode_attention.py::decode_attention_fused:
+B10 ports fastllama_tpu/kernels/decode_attention.py::decode_attention: the
+caller has roped q and k and written the current K/V row; the kernel attends
+rows s <= n_past[b] (inclusive) with q, scores, softmax and the
+probabilities all f32, whatever the cache dtype. The forward takes it for a
+decode step whose layer adds LoRA terms to q, k or v, which B4 cannot (it
+reads the raw fused projection).
+
+B4 ports fastllama_tpu/kernels/decode_attention.py::decode_attention_fused:
 one decode step of one layer takes the raw fused projection qkv [B, 1, 3F]
 ([Q | K | V] blocks, models/fuse.py), ropes q and the new k with per-lane
 tables, writes the new K/V row at clip(n_past, 0, S-1) into the flat
@@ -8,8 +16,8 @@ tables, writes the new K/V row at clip(n_past, 0, S-1) into the flat
 in analytically, and returns ctx [B, 1, F] f32. Scores and softmax are f32;
 the two cache dots take the cache dtype, with q and p cast down to it.
 
-The CUDA kernel is csrc/decode_attention.cu; the wrapper launches it for
-CUDA tensors and runs decode_attention_fused_plain for CPU tensors.
+Both CUDA kernels are in csrc/decode_attention.cu; each wrapper launches
+its kernel for CUDA tensors and runs its plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -120,3 +128,76 @@ def decode_attention_fused(qkv: torch.Tensor, k_cache: torch.Tensor,
 
 
 decode_attention_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B10: attention alone over an already-written cache
+# ---------------------------------------------------------------------------
+
+def masked_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, positions: torch.Tensor,
+                     n_head: int, scale: float) -> torch.Tensor:
+    """softmax(q . K[s <= position] * scale) @ V in f32: q [B, T, H, Dh],
+    caches [B, S, H*Dh], positions [B, T] -> ctx [B, T, H, Dh]. The forward's
+    prefill attention, and B10's plain version at T = 1."""
+    b, s, f = k_cache.shape
+    hd = f // n_head
+    keys = k_cache.reshape(b, s, n_head, hd).to(torch.float32)
+    vals = v_cache.reshape(b, s, n_head, hd).to(torch.float32)
+    scores = torch.einsum("bthd,bshd->bhts", q.to(torch.float32),
+                          keys) * scale
+    mask = (torch.arange(s, device=q.device)[None, None, None, :]
+            <= positions[:, None, :, None])
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    return torch.einsum("bhts,bshd->bthd", torch.softmax(scores, dim=-1), vals)
+
+
+def decode_attention_plain(q, k_cache, v_cache, n_past, *, head_dim: int,
+                           scale: float):
+    """Plain PyTorch version of kernel B10 (same arguments and result)."""
+    b, _, f = k_cache.shape
+    h = f // head_dim
+    ctx = masked_attention(q.reshape(b, 1, h, head_dim), k_cache, v_cache,
+                           n_past.to(torch.int64)[:, None], h, scale)
+    return ctx.reshape(b, 1, f)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, n_past: torch.Tensor, *,
+                     head_dim: int, scale: float) -> torch.Tensor:
+    """Kernel B10. q f32 [B, 1, F] after RoPE; caches [B, S, F] bf16 or f32
+    holding the current token at row n_past[b]; n_past int32 [B] >= 0 (a
+    slot with n_past >= S attends all S rows).
+    Returns ctx f32 [B, 1, F]."""
+    b, s, f = k_cache.shape
+    _require(q.shape == (b, 1, f) and q.dtype == torch.float32,
+             "q must be f32 [B, 1, F]")
+    _require(v_cache.shape == k_cache.shape
+             and v_cache.dtype == k_cache.dtype
+             and k_cache.dtype in (torch.bfloat16, torch.float32),
+             "caches must match, bf16 or f32 [B, S, F]")
+    _require(n_past.shape == (b,) and n_past.dtype == torch.int32,
+             "n_past must be int32 [B]")
+    _require(f % head_dim == 0, "F must be a multiple of head_dim")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, n_past,
+                                      head_dim=head_dim, scale=scale)
+    tensors = (q, k_cache, v_cache, n_past)
+    _require(q.device.type == "cuda"
+             and all(t.device == q.device and t.is_contiguous()
+                     for t in tensors),
+             "all tensors must be contiguous on one CUDA device")
+    _require(head_dim % 32 == 0 and head_dim <= 256 and s <= 12288,
+             "head_dim must be a multiple of 32 and <= 256, S <= 12288")
+    out = torch.empty((b, 1, f), dtype=torch.float32, device=q.device)
+    rc = cuda_lib.fn("decode_attention")(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        n_past.data_ptr(), b, s, f, head_dim, float(scale),
+        int(k_cache.dtype == torch.bfloat16), out.data_ptr(),
+        cuda_lib.stream_handle(q.device))
+    cuda_lib.check(rc, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

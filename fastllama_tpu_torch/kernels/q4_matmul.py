@@ -1,14 +1,16 @@
-"""q4_0 matmuls: the dispatcher, three Hopper kernels and their plain versions.
+"""4-bit matmuls: the dispatcher, five Hopper kernels and their plain versions.
 
 Ports fastllama_tpu/kernels/q4_matmul.py. The weight is a QuantMatmulWeight
-(quant/tensor.py: split-K packed nibbles [K_pad/2, N_pad] and f32 scales
-[K_pad/32, N_pad]); activations are f32 [M, K] and outputs f32
-[M, n_logical].
+(quant/tensor.py: split-K packed nibbles [K_pad/2, N_pad], f32 scales
+[K_pad/32, N_pad] and, for an affine q4_1 weight, f32 mins of the same
+shape); activations are f32 [M, K] and outputs f32 [M, n_logical].
 
 Kernels (CUDA C++ for sm_90a, sources in csrc/, built by cuda_lib):
   B1 q4_matmul_decode        csrc/q4_decode.cu   (q4_matmul_pallas v1)
   B2 quant_rows_int8         csrc/quant_rows.cu  (quant_rows_int8)
   B3 q4_matmul_prefill_int8  csrc/q4_int8.cu     (q4_matmul_prefill_int8 nat)
+  B5 q4_matmul_prefill       csrc/q4_prefill.cu  (q4_matmul_prefill_pallas nat)
+  B9 q41_matmul_decode       csrc/q4_decode.cu   (q41_matmul_pallas)
 
 Each wrapper launches its kernel for a CUDA tensor and raises on anything it
 does not take; for a CPU tensor it runs its plain PyTorch version, which the
@@ -22,7 +24,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..quant.tensor import QBLOCK, QuantMatmulWeight, dequant_matmul_weight
+from ..quant.tensor import (
+    QBLOCK, QuantMatmulWeight, unpack_codes, dequant_matmul_weight,
+)
 from . import cuda_lib
 
 # Dispatch table (fixed; see q4_matmul).
@@ -36,12 +40,22 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _check_weight(w: QuantMatmulWeight, device: torch.device) -> None:
-    """Validate the weight planes for a launch on `device`; the result is
-    remembered on the weight (its planes are not replaced after loading),
-    so each decode step does not pay for the checks again."""
+def _check_weight(w: QuantMatmulWeight, device: torch.device,
+                  affine: bool = False) -> None:
+    """Validate the weight planes for a launch on `device` by a q4_0
+    kernel (no mins plane) or an affine one (a mins plane shaped as the
+    scales); the result is remembered on the weight (its planes are not
+    replaced after loading), so each decode step does not pay for the
+    checks again."""
+    _require((w.mins is not None) == affine,
+             "an affine (q4_1) weight needs the q4_1 kernel and a q4_0 "
+             "weight the q4_0 kernels")
     if getattr(w, "_checked_on", None) == device:
         return
+    _require(w.mins is None or (
+        w.mins.dtype == torch.float32 and w.mins.is_contiguous()
+        and w.mins.device == device and w.mins.shape == w.scales.shape),
+        f"mins must be contiguous f32 [K/32, N] on {device}")
     _require(w.qs.dtype == torch.uint8 and w.qs.is_contiguous()
              and w.qs.device == device,
              f"qs must be contiguous uint8 on {device}")
@@ -64,7 +78,8 @@ def _pad_k(x: torch.Tensor, k_stored: int) -> torch.Tensor:
 
 def q4_matmul_dequant(x: torch.Tensor, w: QuantMatmulWeight,
                       w_dtype=torch.bfloat16) -> torch.Tensor:
-    """y = w_dtype(x) @ w_dtype((q - 8) * d) with f32 accumulation.
+    """y = w_dtype(x) @ w_dtype(W) with f32 accumulation, W = (q - 8) * d
+    or, for an affine weight, q * d + m.
 
     bf16 x bf16 products are exact in f32, so upcasting both operands and
     running an f32 matmul is the JAX dot with preferred_element_type=f32."""
@@ -83,10 +98,10 @@ def _b1_tile(m: int) -> tuple[int, int]:
 
 
 def _splitk(m: int, n: int, nb: int) -> tuple[int, int]:
-    """(splits, q blocks per split) for B1's tiles (1, 4 or 16 rows by 256,
-    256 or 128 columns, see csrc/q4_decode.cu): about 4 blocks per SM of
-    the H100 (132 SMs), at least one q block per warp (8) and at most 32 q
-    blocks of x staged per block."""
+    """(splits, q blocks per split) for B1's and B9's tiles (1, 4 or 16
+    rows by 256, 256 or 128 columns, see csrc/q4_decode.cu): about 4 blocks
+    per SM of the H100 (132 SMs), at least one q block per warp (8) and at
+    most 32 q blocks of x staged per block."""
     rows, cols = _b1_tile(m)
     tiles = -(-n // cols) * -(-m // rows)
     per = -(-nb // max(1, -(-528 // tiles)))
@@ -94,21 +109,11 @@ def _splitk(m: int, n: int, nb: int) -> tuple[int, int]:
     return -(-nb // per), per
 
 
-def q4_matmul_decode(x: torch.Tensor, w: QuantMatmulWeight,
-                     w_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel B1: x f32 [M <= 64, K] -> y f32 [M, n_logical].
-
-    Split-K partials are added by the last block of each output tile in a
-    fixed order (deterministic; the sum order differs from a dense matmul,
-    so compare at f32 reassociation tolerance)."""
-    _require(x.dim() == 2 and x.dtype == torch.float32,
-             "x must be f32 [M, K]")
-    _require(w_dtype in (torch.bfloat16, torch.float32),
-             "w_dtype must be bfloat16 or float32")
-    if x.device.type == "cpu":
-        return q4_matmul_dequant(x, w, w_dtype)
+def _launch_gemv(x: torch.Tensor, w: QuantMatmulWeight, w_dtype,
+                 affine: bool) -> torch.Tensor:
+    """Checks and launch shared by B1 (q4_gemv) and B9 (q41_gemv)."""
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
-    _check_weight(w, x.device)
+    _check_weight(w, x.device, affine)
     m, kx = x.shape
     kh, n = w.qs.shape
     nb = kh // (QBLOCK // 2)
@@ -123,17 +128,77 @@ def q4_matmul_decode(x: torch.Tensor, w: QuantMatmulWeight,
                                torch.float32)
     counters = cuda_lib.tile_counters(dev, -(-n // cols) * -(-m // rows))
     y = torch.empty((m, w.n_logical), dtype=torch.float32, device=dev)
-    rc = cuda_lib.fn("q4_gemv")(
-        x.data_ptr(), m, kx, w.qs.data_ptr(), w.scales.data_ptr(), n, nb,
-        splits, per, partial.data_ptr(), counters.data_ptr(), y.data_ptr(),
-        w.n_logical, int(w_dtype == torch.bfloat16),
-        cuda_lib.stream_handle(dev))
-    cuda_lib.check(rc, "q4_gemv")
+    name = "q41_gemv" if affine else "q4_gemv"
+    planes = ((w.qs.data_ptr(), w.scales.data_ptr(), w.mins.data_ptr())
+              if affine else (w.qs.data_ptr(), w.scales.data_ptr()))
+    rc = cuda_lib.fn(name)(
+        x.data_ptr(), m, kx, *planes, n, nb, splits, per,
+        partial.data_ptr(), counters.data_ptr(), y.data_ptr(), w.n_logical,
+        int(w_dtype == torch.bfloat16), cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, name)
+    return y
+
+
+def _check_matmul_args(x: torch.Tensor, w_dtype) -> None:
+    _require(x.dim() == 2 and x.dtype == torch.float32,
+             "x must be f32 [M, K]")
+    _require(w_dtype in (torch.bfloat16, torch.float32),
+             "w_dtype must be bfloat16 or float32")
+
+
+def q4_matmul_decode(x: torch.Tensor, w: QuantMatmulWeight,
+                     w_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel B1: x f32 [M <= 64, K] -> y f32 [M, n_logical].
+
+    Split-K partials are added by the last block of each output tile in a
+    fixed order (deterministic; the sum order differs from a dense matmul,
+    so compare at f32 reassociation tolerance)."""
+    _check_matmul_args(x, w_dtype)
+    if x.device.type == "cpu":
+        _require(w.mins is None, "B1 takes q4_0 weights (no mins plane)")
+        return q4_matmul_dequant(x, w, w_dtype)
+    y = _launch_gemv(x, w, w_dtype, affine=False)
     q4_matmul_decode.launches += 1
     return y
 
 
 q4_matmul_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B9: decode-size affine (q4_1 / GPTQ) matmul
+# ---------------------------------------------------------------------------
+
+def q41_matmul_decode_plain(x: torch.Tensor, w: QuantMatmulWeight,
+                            w_dtype=torch.bfloat16) -> torch.Tensor:
+    """y = w_dtype(x) @ w_dtype(q * d) + bsum(x) @ m, where bsum is the sum
+    of the UNROUNDED f32 x over each 32-block of K and its product with the
+    f32 mins is a true f32 one. In bf16 mode this is more exact than
+    q4_matmul_dequant, which rounds x and q * d + m as a whole."""
+    kh, n = w.qs.shape
+    nb = kh // (QBLOCK // 2)
+    xp = _pad_k(x.to(torch.float32), w.k)
+    codes = unpack_codes(w.qs.reshape(nb, QBLOCK // 2, n), 1)
+    qd = (codes.to(torch.float32) * w.scales.reshape(nb, 1, n)).to(w_dtype)
+    y = xp.to(w_dtype).to(torch.float32) @ qd.reshape(w.k, n).to(torch.float32)
+    bsum = xp.reshape(xp.shape[0], nb, QBLOCK).sum(-1)
+    return (y + bsum @ w.mins)[:, :w.n_logical]
+
+
+def q41_matmul_decode(x: torch.Tensor, w: QuantMatmulWeight,
+                      w_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel B9: x f32 [M <= 64, K], affine weight -> y f32 [M, n_logical]
+    (q41_matmul_decode_plain's formula; B1's tiles and split-K)."""
+    _check_matmul_args(x, w_dtype)
+    _require(w.mins is not None, "B9 takes affine weights (a mins plane)")
+    if x.device.type == "cpu":
+        return q41_matmul_decode_plain(x, w, w_dtype)
+    y = _launch_gemv(x, w, w_dtype, affine=True)
+    q41_matmul_decode.launches += 1
+    return y
+
+
+q41_matmul_decode.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +314,47 @@ q4_matmul_prefill_int8.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# B5: bf16 / f32 prefill matmul
+# ---------------------------------------------------------------------------
+
+def q4_matmul_prefill(x: torch.Tensor, w: QuantMatmulWeight,
+                      w_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel B5: x f32 [M, K], q4_0 weight -> y f32 [M, n_logical] =
+    w_dtype(x) @ w_dtype((q - 8) * d) with f32 accumulation, in natural K
+    order; a true f32 product (no TF32) in f32 mode. Its plain version is
+    q4_matmul_dequant. Any M >= 1 is taken; the dispatcher sends M >= 256."""
+    _check_matmul_args(x, w_dtype)
+    _require(w.mins is None, "B5 takes q4_0 weights (no mins plane)")
+    if x.device.type == "cpu":
+        return q4_matmul_dequant(x, w, w_dtype)
+    _require(x.device.type == "cuda" and x.is_contiguous()
+             and x.data_ptr() % 16 == 0,
+             "x must be a contiguous, 16-byte aligned CUDA tensor")
+    _check_weight(w, x.device)
+    m, kx = x.shape
+    n = w.qs.shape[1]
+    k = w.k
+    _require(m >= 1 and kx <= k and kx % 4 == 0,
+             f"x K={kx} must be a multiple of 4 and <= the stored K={k}")
+    _require(k % 32 == 0, "stored K must be a multiple of 32")
+    dev = x.device
+    bf16 = w_dtype == torch.bfloat16
+    wt = cuda_lib.scratch(dev, "q4_prefill.wt", n * k, w_dtype)
+    xb = cuda_lib.scratch(dev, "q4_prefill.xb", m * k if bf16 else 1, w_dtype)
+    y = torch.empty((m, w.n_logical), dtype=torch.float32, device=dev)
+    rc = cuda_lib.fn("q4_prefill_gemm")(
+        x.data_ptr(), m, kx, w.qs.data_ptr(), w.scales.data_ptr(), n, k,
+        wt.data_ptr(), xb.data_ptr(), y.data_ptr(), w.n_logical, int(bf16),
+        cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, "q4_prefill_gemm")
+    q4_matmul_prefill.launches += 1
+    return y
+
+
+q4_matmul_prefill.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Dispatcher
 # ---------------------------------------------------------------------------
 
@@ -262,16 +368,20 @@ def use_int8(m: int, w_dtype, prefill_int8: bool | None) -> bool:
 def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
               w_dtype=torch.bfloat16,
               prefill_int8: bool | None = None) -> torch.Tensor:
-    """x [..., K_logical] -> [..., n_logical] f32, chosen by M = prod(lead):
+    """x [..., K_logical] -> [..., n_logical] f32, chosen by the weight and
+    M = prod(lead):
 
-      M <= 64                           -> B1 q4_matmul_decode
-      M >= 256 and int8 (use_int8)      -> B2 quant_rows_int8 + B3
-      otherwise                         -> q4_matmul_dequant (dequant +
-                                           torch.matmul), which includes
-                                           64 < M < 256 and M >= 256 with
-                                           int8 off (f32 mode, or
-                                           prefill_int8=False) until the
-                                           bf16 prefill kernel B5 lands.
+      q4_0, M <= 64                      -> B1 q4_matmul_decode
+      q4_0, M >= 256 and int8 (use_int8) -> B2 quant_rows_int8 + B3
+      q4_0, M >= 256 otherwise           -> B5 q4_matmul_prefill (at every
+                                            such M: on the H100 it beats the
+                                            dequant path at each M measured,
+                                            see PERF.md)
+      q4_1, M <= 64                      -> B9 q41_matmul_decode
+      q4_1 at M > 64, q4_0 at 64 < M < 256
+                                         -> q4_matmul_dequant (dequant +
+                                            torch.matmul, as the JAX package
+                                            leaves these to XLA)
 
     The stored-K padding of the weight is handled inside (x counts as zero
     there) and outputs have the logical width."""
@@ -280,11 +390,14 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
     for d in lead:
         m *= d
     x2 = x.reshape(m, x.shape[-1]).to(torch.float32).contiguous()
+    affine = w.mins is not None
     if m <= DECODE_MAX_M:
-        y = q4_matmul_decode(x2, w, w_dtype)
+        y = (q41_matmul_decode if affine else q4_matmul_decode)(x2, w, w_dtype)
+    elif affine or m < PREFILL_MIN_M:
+        y = q4_matmul_dequant(x2, w, w_dtype)
     elif use_int8(m, w_dtype, prefill_int8):
         xq, dx = quant_rows_int8(x2, w.k)
         y = q4_matmul_prefill_int8(xq, dx, w)
     else:
-        y = q4_matmul_dequant(x2, w, w_dtype)
+        y = q4_matmul_prefill(x2, w, w_dtype)
     return y.reshape(*lead, w.n_logical)

@@ -10,10 +10,12 @@ JAX package:
   * LoRA adapters as separate additive LoraTerm fields
 
 Kernel use (the same on every device; on the CPU each wrapper runs its
-plain version): every q4 matmul goes through kernels/q4_matmul.q4_matmul
-(B1, or B2+B3 for large-M int8 prefill); a decode step (T = 1) in bf16
-weight mode without q/k/v LoRA runs the fused decode attention B4.
-Prefill attention is plain PyTorch: masked f32 softmax over the cache.
+plain version): every 4-bit matmul goes through kernels/q4_matmul.q4_matmul
+(B1 or B9 at decode size, B2+B3 or B5 for large-M prefill); a decode step
+(T = 1) in bf16 weight mode runs the fused decode attention B4 in a layer
+without q/k/v LoRA and, in a layer with it, adds the LoRA terms, ropes,
+writes the cache row and runs the decode attention B10. Prefill attention
+(and f32-mode decode) is plain PyTorch: masked f32 softmax over the cache.
 """
 from __future__ import annotations
 
@@ -26,7 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import HyperParams, resolve_device
-from ..kernels.decode_attention import decode_attention_fused
+from ..kernels.decode_attention import (
+    decode_attention, decode_attention_fused, masked_attention,
+)
 from ..kernels.q4_matmul import q4_matmul
 from ..kernels.rope import lane_tables, rope_interleaved, rope_interleaved_lanes
 from ..quant.tensor import (
@@ -74,6 +78,10 @@ class LayerParams:
     lora_w1: LoraTerm | None = None
     lora_w2: LoraTerm | None = None
     lora_w3: LoraTerm | None = None
+
+
+LORA_FIELDS = ("lora_wq", "lora_wk", "lora_wv", "lora_wo", "lora_w1",
+               "lora_w2", "lora_w3")
 
 
 @dataclasses.dataclass
@@ -158,7 +166,6 @@ def _attention(x: torch.Tensor, layer: LayerParams, n_past: int,
     b, t, _ = x.shape
     h = cfg.n_head
     kv_k, kv_v = kv
-    s = kv_k.shape[1]
     qkv = apply_linear(x, layer.wqkv, cfg)
 
     def finish(ctx):
@@ -190,25 +197,30 @@ def _attention(x: torch.Tensor, layer: LayerParams, n_past: int,
             k = k + apply_lora(x, layer.lora_wk).reshape(b, t, h, hd)
         if layer.lora_wv is not None:
             v = v + apply_lora(x, layer.lora_wv).reshape(b, t, h, hd)
-        if rope_bt is None:
+        # the per-lane form is the rope_interleaved rotation bit for bit
+        # (the minus sign is folded into the table); q and k in one call
+        lanes = rope_bt if rope_bt is not None else (
+            None if rope_ls is None else
+            (rope_ls[0][:, None, None, :], rope_ls[1][:, None, None, :]))
+        if lanes is None:
             q = rope_interleaved(q, positions, cfg.n_rot)
             k = rope_interleaved(k, positions, cfg.n_rot)
         else:
-            q = rope_interleaved_lanes(q, rope_bt[0], rope_bt[1], cfg.n_rot)
-            k = rope_interleaved_lanes(k, rope_bt[0], rope_bt[1], cfg.n_rot)
+            qk = rope_interleaved_lanes(torch.cat([q, k], dim=2), lanes[0],
+                                        lanes[1], cfg.n_rot)
+            q, k = qk[:, :, :h], qk[:, :, h:]
 
     kv_k[:, n_past:n_past + t] = k.reshape(b, t, -1).to(kv_k.dtype)
     kv_v[:, n_past:n_past + t] = v.reshape(b, t, -1).to(kv_v.dtype)
 
-    keys = kv_k.reshape(b, s, h, hd).to(torch.float32)
-    vals = kv_v.reshape(b, s, h, hd).to(torch.float32)
     scale = 1.0 / math.sqrt(hd)
-    scores = torch.einsum("bthd,bshd->bhts", q.to(torch.float32), keys) * scale
-    mask = (torch.arange(s, device=x.device)[None, None, None, :]
-            <= positions[:, None, :, None])
-    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1)
-    return finish(torch.einsum("bhts,bshd->bthd", probs, vals))
+    if rope_ls is not None:
+        # a bf16 decode step whose layer has q/k/v LoRA: kernel B10 over
+        # the cache that now holds this token's row
+        return finish(decode_attention(
+            q.reshape(b, 1, -1).contiguous(), kv_k, kv_v, n_past_vec,
+            head_dim=hd, scale=scale))
+    return finish(masked_attention(q, kv_k, kv_v, positions, h, scale))
 
 
 def _ffn(x: torch.Tensor, layer: LayerParams, cfg: ForwardConfig) -> torch.Tensor:
@@ -295,18 +307,35 @@ def init_kv_cache(hp: HyperParams, batch: int, n_ctx: int,
 # Carrying weights across from the JAX package
 # ---------------------------------------------------------------------------
 
-def _linear_from_numpy(leaf, dev) -> Linear:
-    if isinstance(leaf, dict):
-        return QuantMatmulWeight(
-            qs=torch.from_numpy(np.array(leaf["qs"], np.uint8)).to(dev),
-            scales=torch.from_numpy(
-                np.array(leaf["scales"], np.float32)).to(dev),
-            n_logical=int(leaf["n_logical"]))
-    return torch.from_numpy(np.array(leaf)).to(dev)
-
-
 def _f32(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+
+def _linear_from_numpy(leaf, dev) -> Linear:
+    if isinstance(leaf, dict):
+        mins = leaf.get("mins")
+        return QuantMatmulWeight(
+            qs=torch.from_numpy(np.array(leaf["qs"], np.uint8)).to(dev),
+            scales=_f32(leaf["scales"], dev),
+            mins=None if mins is None else _f32(mins, dev),
+            n_logical=int(leaf["n_logical"]))
+    return _dense(leaf, dev)
+
+
+def _dense(a, dev) -> torch.Tensor:
+    """A dense array in its own dtype. A bf16 JAX array arrives with the
+    ml_dtypes bfloat16 dtype, which torch.from_numpy does not take: it goes
+    through f32 (exact) and back."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(dev).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _lora_from_numpy(leaf, dev) -> LoraTerm | None:
+    if leaf is None:
+        return None
+    return LoraTerm(**{k: _dense(v, dev) for k, v in leaf.items()})
 
 
 def params_from_numpy(tree: dict, device=None) -> LlamaParams:
@@ -320,8 +349,12 @@ def params_from_numpy(tree: dict, device=None) -> LlamaParams:
             "layers": [{"attention_norm": [D], "wqkv": LEAF, "wo": LEAF,
                         "ffn_norm": [D], "w13": LEAF, "w2": LEAF}, ...]}
     where a quantized LEAF is {"qs": uint8 [K_pad/2, N_pad] split-K packed,
-    "scales": f32 [K_pad/32, N_pad], "n_logical": int} and a dense LEAF is
-    a [K, N] array. The caller converts the JAX arrays with np.asarray."""
+    "scales": f32 [K_pad/32, N_pad], "n_logical": int} plus, for an affine
+    (q4_1) weight, "mins": f32 [K_pad/32, N_pad], and a dense LEAF is a
+    [K, N] array. A layer may carry "lora_wq" ... "lora_w3" and the tree
+    "lora_output", each {"delta": [K, N]} or {"a": [K, r], "b": [r, N]}, so
+    a JAX model with an adapter attached carries across. The caller converts
+    the JAX arrays with np.asarray."""
     dev = resolve_device(device)
     emb = tree["tok_embeddings"]
     if isinstance(emb, dict):
@@ -329,7 +362,7 @@ def params_from_numpy(tree: dict, device=None) -> LlamaParams:
             qs=torch.from_numpy(np.array(emb["qs"], np.uint8)).to(dev),
             scales=_f32(emb["scales"], dev))
     else:
-        emb = torch.from_numpy(np.array(emb)).to(dev)
+        emb = _dense(emb, dev)
     layers = [LayerParams(
         attention_norm=_f32(lt["attention_norm"], dev),
         wqkv=_linear_from_numpy(lt["wqkv"], dev),
@@ -337,7 +370,10 @@ def params_from_numpy(tree: dict, device=None) -> LlamaParams:
         ffn_norm=_f32(lt["ffn_norm"], dev),
         w13=_linear_from_numpy(lt["w13"], dev),
         w2=_linear_from_numpy(lt["w2"], dev),
+        **{f: _lora_from_numpy(lt.get(f), dev) for f in LORA_FIELDS},
     ) for lt in tree["layers"]]
     return LlamaParams(tok_embeddings=emb, norm=_f32(tree["norm"], dev),
                        output=_linear_from_numpy(tree["output"], dev),
-                       layers=layers)
+                       layers=layers,
+                       lora_output=_lora_from_numpy(tree.get("lora_output"),
+                                                    dev))

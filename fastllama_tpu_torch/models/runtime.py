@@ -8,16 +8,19 @@ npz layout, so a session saved by the JAX package loads here.
 """
 from __future__ import annotations
 
+import re
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from ..config import HyperParams, RuntimeConfig, resolve_device
-from ..engine.logger import Logger, NULL_LOGGER
+from ..engine.logger import Logger, NULL_LOGGER, ProgressTag
 from ..engine.tokenizer import Vocab
+from ..io.ggml_reader import MAGIC_GGLA, read_ggml_file
 from .llama import (
-    ForwardConfig, LlamaParams, forward, init_kv_cache, position_tables,
+    LORA_FIELDS, ForwardConfig, LlamaParams, LoraTerm, forward, init_kv_cache,
+    position_tables,
 )
 
 
@@ -35,6 +38,7 @@ class LlamaModel:
         self.rcfg = rcfg
         self.logger = logger
         self.is_valid = True
+        self._lora_path: str | None = None
         self.kv = init_kv_cache(self.hp, 1, rcfg.n_ctx,
                                 getattr(torch, rcfg.kv_dtype), self.device)
         self.n_cached = 0    # tokens resident in the cache (state save/load)
@@ -117,15 +121,104 @@ class LlamaModel:
     # -- LoRA ---------------------------------------------------------------
 
     def attach_lora(self, path: str) -> bool:
-        raise NotImplementedError(
-            "LoRA attach needs the ggml (ggla) reader, which the PyTorch port "
-            "does not have yet (ROADMAP.md, queue A: the ggml/GGJT reader)")
+        """Attach a ggla adapter. Each adapter tensor becomes a separate
+        additive LoraTerm applied alongside the fused matmuls (cast to the
+        weight dtype), so attach is lossless on quantized bases and detach
+        restores bit-identical outputs in O(1). Terms are staged and set
+        only when every group resolved: a bad adapter leaves the model
+        untouched. Failures are logged and return False."""
+        if self._lora_path:
+            self.logger.log_err("attach_lora",
+                                "an adapter is already attached; detach first\n")
+            return False
+        try:
+            gg = read_ggml_file(path)
+        except (OSError, ValueError) as e:
+            self.logger.log_err("attach_lora", f"failed to read '{path}': {e}\n")
+            return False
+        if gg.magic != MAGIC_GGLA:
+            self.logger.log_err("attach_lora", f"'{path}' is not a ggla adapter\n")
+            return False
+        use_cache = gg.lora_params["use_cache_matrix"]
+
+        # group adapter tensors by base weight name
+        groups: dict[str, dict[str, str]] = {}
+        for name in gg.tensors:
+            for suffix, key in ((".lora", "delta"), (".loraA", "a"),
+                                (".loraB", "b")):
+                if name.endswith(suffix):
+                    groups.setdefault(name[:-len(suffix)], {})[key] = name
+                    break
+            else:
+                self.logger.log_err("attach_lora",
+                                    f"unrecognized adapter tensor '{name}'\n")
+                return False
+
+        w_dtype = getattr(torch, self.rcfg.weight_dtype)
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.device).to(w_dtype)
+
+        staged: list[tuple[object, str, LoraTerm]] = []
+        for base_name, g in groups.items():
+            slot = self._lora_slot(base_name)
+            if slot is None:
+                self.logger.log_err(
+                    "attach_lora", f"unknown base tensor '{base_name}' — are "
+                    "you sure that this adapter is for this model?\n")
+                return False
+            if use_cache:
+                if "delta" not in g:
+                    self.logger.log_err("attach_lora",
+                                        f"missing cached ΔW for '{base_name}'\n")
+                    return False
+                # ΔW arrives [N, K] and is stored [K, N]
+                term = LoraTerm(delta=put(gg.dense(g["delta"]).T))
+            else:
+                if "a" not in g or "b" not in g:
+                    self.logger.log_err("attach_lora",
+                                        f"missing A/B pair for '{base_name}'\n")
+                    return False
+                # loraA arrives [K, r] (pre-scaled A^T), loraB [N, r]
+                term = LoraTerm(a=put(gg.dense(g["a"])),
+                                b=put(gg.dense(g["b"]).T))
+            staged.append((*slot, term))
+            self.logger.progress(ProgressTag.ATTACH_LORA, len(staged),
+                                 len(groups))
+
+        for holder, attr, term in staged:
+            setattr(holder, attr, term)
+        self._lora_path = path
+        return True
 
     def detach_lora(self) -> bool:
-        raise NotImplementedError(
-            "LoRA detach needs the ggml (ggla) reader, which the PyTorch port "
-            "does not have yet (ROADMAP.md, queue A: the ggml/GGJT reader)")
+        """O(1) detach: drop every LoraTerm."""
+        if not self._lora_path:
+            self.logger.log_err("detach_lora", "no adapter attached\n")
+            return False
+        self.params.lora_output = None
+        for layer in self.params.layers:
+            for attr in LORA_FIELDS:
+                setattr(layer, attr, None)
+        self.logger.progress(ProgressTag.DETACH_LORA, 1, 1)
+        self._lora_path = None
+        return True
 
     @property
     def lora_path(self) -> str | None:
-        return None
+        return self._lora_path
+
+    def _lora_slot(self, ggml_name: str):
+        """Map a ggml base-tensor name to (holder, lora_field)."""
+        if ggml_name == "output.weight":
+            return self.params, "lora_output"
+        m = re.match(
+            r"layers\.(\d+)\.(attention\.(wq|wk|wv|wo)|feed_forward\.(w1|w2|w3))"
+            r"\.weight$", ggml_name)
+        if not m:
+            return None
+        li = int(m.group(1))
+        if li >= len(self.params.layers):
+            return None
+        return self.params.layers[li], "lora_" + (m.group(3) or m.group(4))

@@ -8,11 +8,13 @@ quantization block along K, the byte at row 16*b + j (j in [0,16)) packs
     low  nibble -> element k = 32*b + j        (the block's first half)
     high nibble -> element k = 32*b + 16 + j   (the block's second half)
 
-Scales are a dense f32 plane [K//32, N]. Stored dims may be padded past the
-logical ones (good_pad_k / good_pad_n); the padding is inert (codes 8,
-scales 0), activations are zero-padded up to the stored K and outputs are
-sliced to n_logical (kernels/q4_matmul.q4_matmul). The padding was chosen
-for TPU tiles; a layout made for Hopper is later work.
+Scales are a dense f32 plane [K//32, N]; an affine (q4_1 / GPTQ) weight
+carries a second such plane of mins. Stored dims may be padded past the
+logical ones (good_pad_k / good_pad_n); the padding is inert (q4_0: codes 8,
+scales 0; affine: codes 0, scales 0, mins 0), activations count as zero up
+to the stored K and outputs are sliced to n_logical
+(kernels/q4_matmul.q4_matmul). The padding was chosen for TPU tiles; a
+layout made for Hopper is later work.
 """
 from __future__ import annotations
 
@@ -29,15 +31,18 @@ QBLOCK = QK4_0  # 32
 
 @dataclasses.dataclass
 class QuantMatmulWeight:
-    """A q4_0-quantized matmul RHS of logical shape [K, N] (y = x @ W).
+    """A 4-bit quantized matmul RHS of logical shape [K, N] (y = x @ W).
 
     Attributes:
-      qs: uint8 [K_pad//2, N_pad] split-K packed nibbles (value = signed+8).
+      qs: uint8 [K_pad//2, N_pad] split-K packed nibbles.
       scales: f32 [K_pad//32, N_pad] per-block scale d.
+      mins: f32 [K_pad//32, N_pad] per-block offset m of an affine (q4_1 /
+        GPTQ) weight w = q * d + m; None for symmetric q4_0, w = (q - 8) * d.
       n_logical: true output width (callers receive y[..., :n_logical]).
     """
     qs: torch.Tensor
     scales: torch.Tensor
+    mins: torch.Tensor | None = None
     n_logical: int = 0
 
     def __post_init__(self):
@@ -81,6 +86,16 @@ def split_pack_lastdim(codes: np.ndarray) -> np.ndarray:
     blocks = codes.reshape(*lead, k // QBLOCK, QBLOCK)
     packed = (blocks[..., : QBLOCK // 2] | (blocks[..., QBLOCK // 2:] << 4))
     return packed.astype(np.uint8).reshape(*lead, k // 2)
+
+
+def split_unpack_lastdim(packed: np.ndarray) -> np.ndarray:
+    """Inverse of split_pack_lastdim (numpy)."""
+    packed = np.asarray(packed, np.uint8)
+    kh = packed.shape[-1]
+    lead = packed.shape[:-1]
+    blocks = packed.reshape(*lead, kh // (QBLOCK // 2), QBLOCK // 2)
+    out = np.concatenate([blocks & 0x0F, blocks >> 4], axis=-1)
+    return out.reshape(*lead, kh * 2)
 
 
 def pad_multiple(x: int, m: int) -> int:
@@ -163,6 +178,42 @@ def make_matmul_weight(codes: np.ndarray, scales: np.ndarray,
                                      device=device)
 
 
+def make_matmul_weight_q41(codes: np.ndarray, scales: np.ndarray,
+                           mins: np.ndarray, pad_k: int = 0, pad_n: int = 256,
+                           device=None) -> QuantMatmulWeight:
+    """Affine-quantized RHS (q4_1 / GPTQ): w = q * d + m per 32-block.
+
+    codes uint8 [N, K], scales/mins f32 [N, K//32]. Padding is inert: codes
+    0, d 0, m 0 (pad_k=0 = auto, good_pad_k; pad_n=0 = good_pad_n). The
+    defaults are the JAX package's, so the planes are the same bytes."""
+    dev = resolve_device(device)
+    n, k = codes.shape
+    k_pad = good_pad_k(k) if not pad_k else pad_multiple(k, pad_k)
+    n_pad = good_pad_n(n) if not pad_n else pad_multiple(n, pad_n)
+    codes_t = np.zeros((k_pad, n_pad), np.uint8)
+    codes_t[:k, :n] = np.asarray(codes, np.uint8).T
+    planes = []
+    for plane in (scales, mins):
+        out = np.zeros((k_pad // QBLOCK, n_pad), np.float32)
+        out[: k // QBLOCK, :n] = np.asarray(plane, np.float32).T
+        planes.append(torch.from_numpy(out).to(dev))
+    return QuantMatmulWeight(
+        qs=torch.from_numpy(pack_codes_split_k(codes_t)).to(dev),
+        scales=planes[0], mins=planes[1], n_logical=n)
+
+
+def matmul_weight_to_codes(w: QuantMatmulWeight, k_logical: int | None = None
+                           ) -> tuple[np.ndarray, np.ndarray]:
+    """Device layout -> row-major (codes [N, K], scales [N, K//32]) numpy.
+    Padding is stripped (N via n_logical; K via k_logical if given)."""
+    packed = w.qs.cpu().numpy()                       # [K_pad/2, N_pad]
+    codes_t = split_unpack_lastdim(packed.T).T        # [K_pad, N_pad]
+    scales_t = w.scales.cpu().numpy()
+    k = k_logical or codes_t.shape[0]
+    return (np.ascontiguousarray(codes_t[:k, :w.n_logical].T),
+            np.ascontiguousarray(scales_t[: k // QBLOCK, :w.n_logical].T))
+
+
 def make_embedding(codes: np.ndarray, scales: np.ndarray,
                    device=None) -> QuantEmbedding:
     """Build the row-major gather layout. codes uint8 [V, D], scales [V, D//32]."""
@@ -177,7 +228,7 @@ def make_embedding(codes: np.ndarray, scales: np.ndarray,
 # torch dequantization (the plain path and the tests)
 # ---------------------------------------------------------------------------
 
-def _unpack_codes(packed: torch.Tensor, dim: int) -> torch.Tensor:
+def unpack_codes(packed: torch.Tensor, dim: int) -> torch.Tensor:
     """Packed bytes -> codes 0..15 (int32): the 16 low nibbles then the 16
     high nibbles of each block, concatenated along the 16-long `dim`."""
     p = packed.to(torch.int32)
@@ -186,11 +237,16 @@ def _unpack_codes(packed: torch.Tensor, dim: int) -> torch.Tensor:
 
 def dequant_matmul_weight(w: QuantMatmulWeight,
                           dtype=torch.bfloat16) -> torch.Tensor:
-    """Materialize the dense stored [K_pad, N_pad] weight (q - 8) * d."""
+    """Materialize the dense stored [K_pad, N_pad] weight: (q - 8) * d, or
+    q * d + m for an affine weight (computed in f32, then cast)."""
     kh, n = w.qs.shape
     nb = kh // (QBLOCK // 2)
-    codes = _unpack_codes(w.qs.reshape(nb, QBLOCK // 2, n), 1)  # [nb, 32, N]
-    dense = (codes.to(torch.float32) - 8.0) * w.scales.reshape(nb, 1, n)
+    codes = unpack_codes(w.qs.reshape(nb, QBLOCK // 2, n), 1)  # [nb, 32, N]
+    scale = w.scales.reshape(nb, 1, n)
+    if w.mins is None:
+        dense = (codes.to(torch.float32) - 8.0) * scale
+    else:
+        dense = codes.to(torch.float32) * scale + w.mins.reshape(nb, 1, n)
     return dense.reshape(nb * QBLOCK, n).to(dtype)
 
 
@@ -201,6 +257,6 @@ def dequant_embedding_rows(table: QuantEmbedding, ids: torch.Tensor,
     scales = table.scales[ids]                                  # [..., D/32]
     lead = packed.shape[:-1]
     nb = packed.shape[-1] // (QBLOCK // 2)
-    codes = _unpack_codes(packed.reshape(*lead, nb, QBLOCK // 2), -1) - 8
+    codes = unpack_codes(packed.reshape(*lead, nb, QBLOCK // 2), -1) - 8
     dense = codes.to(torch.float32) * scales[..., None]
     return dense.reshape(*lead, nb * QBLOCK).to(dtype)

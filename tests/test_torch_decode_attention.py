@@ -1,5 +1,6 @@
-"""PyTorch port: the fused decode attention (B4 plain version) against the
-JAX package's Pallas kernel in interpret mode."""
+"""PyTorch port: the decode attention kernels' plain versions (B4 fused,
+B10 attention alone) against the JAX package's Pallas kernels in interpret
+mode."""
 import math
 
 import numpy as np
@@ -8,7 +9,8 @@ import torch
 import jax.numpy as jnp
 
 from fastllama_tpu.kernels.decode_attention import (
-    decode_attention_fused as jax_fused, rope_lane_tables as jax_tables,
+    decode_attention as jax_attn, decode_attention_fused as jax_fused,
+    rope_lane_tables as jax_tables,
 )
 from fastllama_tpu_torch.kernels import decode_attention as tda
 
@@ -108,3 +110,84 @@ def test_b4_kernel_matches_plain(cuda_device, cache):
     want = tda.decode_attention_fused_plain(args[0], k2, v2, n, cos, sin, **kw)
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+# -- B10: attention alone over an already-written cache ----------------------
+
+def b10_both(q, kc, vc, n_past, hd, cache):
+    scale = 1.0 / math.sqrt(hd)
+    np_ = np.asarray(n_past, np.int32)
+    jdt, tdt = getattr(jnp, cache), getattr(torch, cache)
+    want = jax_attn(jnp.asarray(q), jnp.asarray(kc, jdt), jnp.asarray(vc, jdt),
+                    jnp.asarray(np_), head_dim=hd, scale=scale,
+                    interpret=True)
+    got = tda.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(kc).to(tdt),
+        torch.from_numpy(vc).to(tdt), torch.from_numpy(np_), head_dim=hd,
+        scale=scale)
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("n_past", [[0], [1], [77], [127], [0, 127], [5, 64]])
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+def test_b10_plain_matches_pallas_interpret(n_past, cache):
+    """Rows s <= n_past (inclusive) attended; q, scores and p stay f32 for
+    both cache types, so both agree to f32 rounding (the cache values are
+    the same bf16 numbers on both sides)."""
+    b, s, hd, h = len(n_past), 128, 128, 2
+    rng = np.random.default_rng(20)
+    q = rng.standard_normal((b, 1, h * hd)).astype(np.float32)
+    _, kc, vc = inputs(b, s, h * hd, seed=21)
+    got, want = b10_both(q, kc, vc, n_past, hd, cache)
+    assert got.shape == (b, 1, h * hd)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_b10_mask_is_inclusive():
+    """The row at n_past itself takes part: changing it changes the result,
+    changing the row after it does not."""
+    hd = 32
+    rng = np.random.default_rng(22)
+    q = torch.from_numpy(rng.standard_normal((1, 1, hd)).astype(np.float32))
+    kc = torch.from_numpy(rng.standard_normal((1, 8, hd)).astype(np.float32))
+    vc = torch.from_numpy(rng.standard_normal((1, 8, hd)).astype(np.float32))
+    n = torch.tensor([3], dtype=torch.int32)
+    base = tda.decode_attention(q, kc, vc, n, head_dim=hd, scale=0.2)
+    vc2 = vc.clone()
+    vc2[0, 4] += 1.0
+    assert torch.equal(tda.decode_attention(q, kc, vc2, n, head_dim=hd,
+                                            scale=0.2), base)
+    vc2[0, 3] += 1.0
+    assert not torch.equal(tda.decode_attention(q, kc, vc2, n, head_dim=hd,
+                                                scale=0.2), base)
+
+
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+def test_b10_inactive_slot_is_finite(cache):
+    """A slot with n_past >= S attends all S rows and gives finite numbers
+    on both packages (the engine discards them)."""
+    b, s, hd, h = 2, 128, 128, 1
+    rng = np.random.default_rng(23)
+    q = rng.standard_normal((b, 1, h * hd)).astype(np.float32)
+    _, kc, vc = inputs(b, s, h * hd, seed=24)
+    got, want = b10_both(q, kc, vc, [5, s + 40], hd, cache)
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+def test_b10_kernel_matches_plain(cuda_device, cache):
+    b, s, hd, h = 2, 128, 128, 2
+    rng = np.random.default_rng(25)
+    dt = getattr(torch, cache)
+    q = torch.from_numpy(rng.standard_normal((b, 1, h * hd)).astype(
+        np.float32)).to(cuda_device)
+    _, kc, vc = inputs(b, s, h * hd, seed=26)
+    kc = torch.from_numpy(kc).to(cuda_device).to(dt)
+    vc = torch.from_numpy(vc).to(cuda_device).to(dt)
+    n = torch.tensor([0, 300], dtype=torch.int32, device=cuda_device)
+    scale = 1.0 / math.sqrt(hd)
+    got = tda.decode_attention(q, kc, vc, n, head_dim=hd, scale=scale)
+    want = tda.decode_attention_plain(q, kc, vc, n, head_dim=hd, scale=scale)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

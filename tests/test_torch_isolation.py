@@ -26,7 +26,7 @@ def test_package_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     res = json.loads(out.strip().splitlines()[-1])
-    assert len(res["mods"]) >= 17
+    assert len(res["mods"]) >= 19
     leaked = [m for m in res["loaded"] if _forbidden(m)]
     assert leaked == []
 

@@ -1,5 +1,6 @@
-"""PyTorch port: the q4 matmuls (B1-B3 plain versions and the dispatcher)
-against the JAX package's kernels (Pallas interpret mode) and XLA paths."""
+"""PyTorch port: the q4_0 matmuls (B1-B3 and B5 plain versions and the
+dispatcher) against the JAX package's kernels (Pallas interpret mode) and
+XLA paths. The affine kernel B9 is in test_torch_q41.py."""
 import numpy as np
 import pytest
 import torch
@@ -125,32 +126,81 @@ def test_b3_plain_exact_accumulators_vs_int8_xla(m, k, n):
     assert np.all(np.abs(got - want) <= 2 * np.spacing(np.abs(want)))
 
 
-@pytest.mark.parametrize("m,mode,int8,path", [
-    (1, "bfloat16", None, "decode"),
-    (64, "float32", None, "decode"),
-    (65, "bfloat16", None, "dequant"),
-    (255, "bfloat16", True, "dequant"),
-    (256, "bfloat16", None, "int8"),
-    (256, "bfloat16", False, "dequant"),
-    (256, "float32", None, "dequant"),
-    (512, "float32", True, "int8"),
+# (M, K_logical, N_logical): K and N padding both exercised at the last
+@pytest.mark.parametrize("m,k,n", [(256, 256, 256), (264, 352, 96)])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_b5_plain_matches_pallas(m, k, n, mode):
+    """B5's plain version (q4_matmul_dequant) against the natural-order
+    prefill kernel in interpret mode, fed as the JAX dispatch feeds it: x
+    zero-padded to the stored K and cast to w_dtype. Both round x and
+    (q - 8) * d to w_dtype and accumulate in f32, so they agree to f32
+    reassociation (1e-5 of the max) in both modes."""
+    wt, wj = weights(k, n, seed=10)
+    x = acts(m, k, seed=11)
+    jdt, tdt = getattr(jnp, mode), getattr(torch, mode)
+    got = tqm.q4_matmul_prefill(torch.from_numpy(x), wt, tdt).numpy()
+    assert got.shape == (m, n)
+    xp = jnp.pad(jnp.asarray(x), ((0, 0), (0, wj.k - k))).astype(jdt)
+    want = jqm.q4_matmul_prefill_pallas(xp, wj.qs, wj.scales, interpret=True,
+                                        w_dtype=jdt)
+    assert_close(got, np.asarray(want)[:, :n], 1e-5)
+
+
+def q41_weight(k, n):
+    rng = np.random.default_rng(12)
+    return tt.make_matmul_weight_q41(
+        rng.integers(0, 16, (n, k), dtype=np.uint8),
+        rng.uniform(0.01, 0.1, (n, k // 32)).astype(np.float32),
+        rng.uniform(-0.5, 0.5, (n, k // 32)).astype(np.float32), device="cpu")
+
+
+@pytest.mark.parametrize("affine,m,mode,int8,path", [
+    (False, 1, "bfloat16", None, "B1"),
+    (False, 64, "float32", None, "B1"),
+    (False, 65, "bfloat16", None, "dequant"),
+    (False, 255, "bfloat16", True, "dequant"),
+    (False, 256, "bfloat16", None, "B3"),
+    (False, 256, "bfloat16", True, "B3"),
+    (False, 512, "float32", True, "B3"),
+    (False, 256, "bfloat16", False, "B5"),
+    (False, 256, "float32", None, "B5"),
+    (False, 4096, "bfloat16", False, "B5"),
+    (True, 1, "bfloat16", None, "B9"),
+    (True, 64, "float32", None, "B9"),
+    (True, 65, "bfloat16", None, "dequant"),
+    (True, 256, "bfloat16", None, "dequant"),
+    (True, 512, "float32", True, "dequant"),
 ])
-def test_dispatch_table(monkeypatch, m, mode, int8, path):
+def test_dispatch_table(monkeypatch, affine, m, mode, int8, path):
     called = []
-    for name, tag in (("q4_matmul_decode", "decode"),
+    for name, tag in (("q4_matmul_decode", "B1"),
                       ("q4_matmul_dequant", "dequant"),
-                      ("q4_matmul_prefill_int8", "int8")):
+                      ("q4_matmul_prefill_int8", "B3"),
+                      ("q4_matmul_prefill", "B5"),
+                      ("q41_matmul_decode", "B9")):
         orig = getattr(tqm, name)
         monkeypatch.setattr(tqm, name, lambda *a, _o=orig, _t=tag, **kw:
                             called.append(_t) or _o(*a, **kw))
-    wt, _ = weights(64, 32)
+    wt = q41_weight(64, 32) if affine else weights(64, 32)[0]
     y = tqm.q4_matmul(torch.zeros((1, m, 64)), wt,
                       w_dtype=getattr(torch, mode), prefill_int8=int8)
     assert y.shape == (1, m, 32)
-    assert called[0] == path          # (B1's CPU path then runs its plain)
+    assert called[0] == path          # (a CPU path then runs its plain)
 
 
-@pytest.mark.parametrize("m,int8", [(100, False), (256, True)])
+def test_kernels_refuse_the_other_weight_kind():
+    """B1 and B5 take q4_0 weights, B9 affine ones; each raises on the
+    other kind instead of computing with the wrong formula."""
+    x = torch.zeros((1, 64))
+    with pytest.raises(ValueError, match="q4_0"):
+        tqm.q4_matmul_decode(x, q41_weight(64, 32))
+    with pytest.raises(ValueError, match="q4_0"):
+        tqm.q4_matmul_prefill(x, q41_weight(64, 32))
+    with pytest.raises(ValueError, match="affine"):
+        tqm.q41_matmul_decode(x, weights(64, 32)[0])
+
+
+@pytest.mark.parametrize("m,int8", [(100, False), (256, True), (256, False)])
 def test_dispatcher_matches_jax_q4_matmul(m, int8):
     wt, wj = weights(352, 96, seed=6)
     x = acts(m, 352, seed=7)
@@ -174,7 +224,7 @@ def test_dispatcher_matches_jax_q4_matmul(m, int8):
 def test_b1_kernel_matches_plain(cuda_device, m, mode):
     wt, _ = weights(352, 96, seed=8)
     w = tt.QuantMatmulWeight(wt.qs.to(cuda_device), wt.scales.to(cuda_device),
-                             wt.n_logical)
+                             n_logical=wt.n_logical)
     x = torch.from_numpy(acts(m, 352)).to(cuda_device)
     got = tqm.q4_matmul_decode(x, w, getattr(torch, mode))
     want = tqm.q4_matmul_dequant(x, w, getattr(torch, mode))
@@ -185,10 +235,23 @@ def test_b1_kernel_matches_plain(cuda_device, m, mode):
 def test_b2_b3_kernels_bit_exact(cuda_device):
     wt, _ = weights(352, 96, seed=9)
     w = tt.QuantMatmulWeight(wt.qs.to(cuda_device), wt.scales.to(cuda_device),
-                             wt.n_logical)
+                             n_logical=wt.n_logical)
     x = torch.from_numpy(acts(256, 352, scale=3.0)).to(cuda_device)
     xq, dx = tqm.quant_rows_int8(x, w.k)
     xq0, dx0 = tqm.quant_rows_int8_plain(x, w.k)
     assert torch.equal(xq, xq0) and torch.equal(dx, dx0)
     assert torch.equal(tqm.q4_matmul_prefill_int8(xq, dx, w),
                        tqm.q4_matmul_prefill_int8_plain(xq, dx, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 200, 256])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_b5_kernel_matches_plain(cuda_device, m, mode):
+    wt, _ = weights(352, 96, seed=13)
+    w = tt.QuantMatmulWeight(wt.qs.to(cuda_device), wt.scales.to(cuda_device),
+                             n_logical=wt.n_logical)
+    x = torch.from_numpy(acts(m, 352)).to(cuda_device)
+    got = tqm.q4_matmul_prefill(x, w, getattr(torch, mode))
+    want = tqm.q4_matmul_dequant(x, w, getattr(torch, mode))
+    assert_close(got.cpu().numpy(), want.cpu().numpy(), 1e-5)

@@ -11,6 +11,7 @@ from fastllama_tpu.engine.tokenizer import Vocab
 from fastllama_tpu.io.checkpoint import CheckpointWriter as JaxWriter
 from fastllama_tpu.quant.q4 import quantize_q4_0
 from fastllama_tpu_torch.io.checkpoint import CheckpointWriter as TorchWriter
+from fastllama_tpu.models.loader import load_model as jax_load_model
 from fastllama_tpu_torch.models.loader import load_model
 
 torch.set_num_threads(1)
@@ -144,10 +145,15 @@ def test_perplexity_equal(models):
 
 
 def test_loader_refuses_ggml_files(tmp_path):
+    """A file that is neither an fltpu directory nor a ggml-family file is
+    refused by its magic, as the JAX loader refuses it (GGJT files load:
+    tests/test_torch_ggml_io.py)."""
     f = tmp_path / "model.bin"
-    f.write_bytes(b"tjgg" + b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    f.write_bytes(b"nope" + b"\0" * 64)
+    with pytest.raises(ValueError, match="not a ggml file"):
         load_model(str(f), device="cpu")
+    with pytest.raises(ValueError, match="not a ggml file"):
+        jax_load_model(str(f))
 
 
 def test_default_device_is_the_card():
