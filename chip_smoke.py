@@ -6,10 +6,14 @@
 Phases (any failure exits nonzero before the last line):
   1. print the card (nvidia-smi name, power limit) and build the CUDA
      kernels from kernels/csrc/ (one nvcc per source, in parallel);
-  2. hold each kernel (B1-B5, B9, B10) against its plain PyTorch version on
-     the card at the 7B shapes of the paths below, and time kernel, plain
+  2. hold each kernel (B1-B10) against its plain PyTorch version on the
+     card at the 7B shapes of the paths below, and time kernel, plain
      version and bound (the larger of bytes / 3.35 TB/s and operations /
-     peak rate); for B10 also one scaled_dot_product_attention call;
+     peak rate); for B10 also one scaled_dot_product_attention call. The
+     engine's kernels: B6, B7 and B8 on bf16 and f32 pools (8 sequences of
+     ragged lengths over a shuffled page table, sentinel and out-of-pool
+     page ids, NaN in every page no sequence reaches), B4 and B10 at B = 8
+     with per-slot depths, one slot inactive;
   3. the q4_0 session at full 7B width (32 layers, bf16 weights and KV,
      n_ctx 512, seeded random weights made on the card): LlamaModel +
      FastLlama ingest a 300-token prompt with n_batch 512 and generate 64
@@ -27,6 +31,17 @@ Phases (any failure exits nonzero before the last line):
      GGJT file and a 2-layer q4_1 GGJT file at 7B widths, each loaded with
      Model(path=...), ingested and decoded; prefill and first decode logits
      are held against the same file loaded on the CPU (plain versions);
+  6. the continuous-batching engine at full 7B width (32 layers, q4_0, bf16,
+     8 slots, n_ctx 512, pages of 64 rows): twelve requests of mixed prompt
+     length, 48 tokens each, through BatchEngine with kv_mode "paged",
+     "paged" with chunked admission, and "slab"; sampled twice with one
+     seed (equal streams), then greedy. Every request must finish, every
+     page must be free again, B6 and B7 must launch once per layer and
+     decode step, B8 once per layer and chunked admission, B4 in the slab
+     run only. Prints tok/s, ms per engine step, the device time per step
+     from a torch.profiler trace, the time to the first streamed token of
+     a 300-token request in an idle engine, drain depth 0 against 2, and
+     holds a two-layer f32 engine's three modes to equal greedy streams;
   then one line {"kernels": [...]}, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 """
@@ -438,9 +453,255 @@ def check_kernels(torch, dev, gen, out_dir):
                 print(f"B9 {b9[-1]}", flush=True)
         del ws, w
     results["B9"] = b9
+    check_engine_kernels(torch, dev, gen, results)
     with open(os.path.join(out_dir, "kernel_checks.json"), "w") as fh:
         json.dump(results, fh, indent=1)
     return results
+
+
+# engine shapes at 7B: 8 slots, n_ctx 512, pages of 64 rows
+ENG_SLOTS, ENG_CTX, ENG_PS = 8, 512, 64
+
+
+def check_engine_kernels(torch, dev, gen, results):
+    """Phase 2, the engine's kernels at 7B shapes: B6, B7 and B8 against
+    their plain versions (bf16 and f32 pools), and B4 and B10 at B = 8 with
+    per-slot depths, one of them n_ctx + 1 (an inactive slot)."""
+    from fastllama_tpu_torch.kernels import decode_attention as da
+    from fastllama_tpu_torch.kernels import kv_write as kw
+    from fastllama_tpu_torch.kernels import paged_attention as pa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, d, ps, b = 32, 128, ENG_PS, ENG_SLOTS
+    pp = ENG_CTX // ps
+    n_pages = b * pp                      # + the trash page
+    f = h * d
+
+    def i32(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+
+    def pool(dt):
+        return torch.randn((h, n_pages + 1, ps, d), generator=gen,
+                           device=dev).to(dt)
+
+    b6, b7, b8 = [], [], []
+    perm = torch.randperm(n_pages, generator=gen, device=dev)
+    tables = perm.reshape(b, pp).to(torch.int32).contiguous()
+    ragged = [0, 1, ps - 1, ps, 300, pp * ps, 200, 37]
+    for dt in (torch.bfloat16, torch.float32):
+        isz = dt.itemsize
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        pools = [(pool(dt), pool(dt)) for _ in range(3 if isz == 2 else 2)]
+        q = torch.randn((b, h, d), generator=gen, device=dev)
+        for label, lens in (("ragged " + str(ragged), ragged),
+                            ("8x300", [300] * b)):
+            lengths = i32(lens)
+            kp, vp = pools[0]
+            # pages no sequence reaches (and the trash page) hold NaN: no
+            # stale value may reach the output
+            kq, vq = kp.clone(), vp.clone()
+            used = torch.zeros(n_pages + 1, dtype=torch.bool, device=dev)
+            for row, n in zip(tables.tolist(), lens):
+                if n:
+                    used[row[:-(-n // ps)]] = True
+            kq[:, ~used] = float("nan")
+            vq[:, ~used] = float("nan")
+            ctx = pa.paged_decode_attention(q, kq, vq, lengths, tables)
+            ref = pa.paged_decode_attention_plain(q, kp, vp, lengths, tables)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(ctx).all()),
+                    f"B6 {name} {label}: not finite")
+            err = (ctx - ref).abs().max().item()
+            # bf16 pools: p is rounded to bf16 before the PV dot and one f32
+            # ulp of exp can move that rounding by one bf16 ulp (2^-8), as
+            # for B4; f32 pools: exp within a few ulp and the sum order
+            tol = ((2 ** -7 if isz == 2 else 5e-5) * ref.abs().max().item()
+                   + 1e-6)
+            require(err <= tol, f"B6 {name} {label}: err {err} > {tol}")
+            for i, n in enumerate(lens):
+                if n == 0:
+                    require(bool((ctx[i] == 0).all()),
+                            f"B6 {name}: a sequence of length 0 is not zeros")
+            it = iter(range(10**9))
+
+            def run6():
+                kk, vv = pools[next(it) % len(pools)]
+                pa.paged_decode_attention(q, kk, vv, lengths, tables)
+            ms = time_ms(torch, run6, calls=8 * len(pools))
+            plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_plain(
+                q, kp, vp, lengths, tables), calls=2)
+            rows = sum(lens)
+            bnd, by = bound_ms(2 * b * f * 4 + 2 * rows * f * isz + b * 4
+                               + b * pp * 4, 4.0 * rows * f,
+                               "bf16" if isz == 2 else "f32")
+            row = dict(shape=f"B={b} H={h} d={d} ps={ps} pp={pp} {name} "
+                       f"lengths={label}", max_abs_err=err, tol=tol, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                       library_ms=None)
+            if label == "8x300":
+                # beside it, not the same function: one SDPA call over keys
+                # already gathered from the pages into [B, H, 300, d]
+                idx = tables.long()
+                keys, vals = (x[:, idx].permute(1, 0, 2, 3, 4).reshape(
+                    b, h, pp * ps, d)[:, :, :300].to(torch.bfloat16)
+                    .contiguous() for x in (kp, vp))
+                qh = q.reshape(b, h, 1, d).to(torch.bfloat16)
+                row["sdpa_over_gathered_keys_ms"] = time_ms(
+                    torch, lambda: sdpa(qh, keys, vals), calls=20)
+            b6.append(row)
+            print(f"B6 {row}", flush=True)
+
+        # B7: one row per sequence; sentinel ids hit the trash page, an id
+        # past the pool writes nothing; every other page bit for bit
+        k_new = torch.randn((b, h, d), generator=gen, device=dev)
+        v_new = torch.randn((b, h, d), generator=gen, device=dev)
+        pids = i32([5, n_pages, 17, 0, n_pages, n_pages + 3, 63, 31])
+        offs = i32([0, 0, ps - 1, 9, 3, 1, 40, 63])
+        (k1, v1), (k2, v2) = ((x.clone(), y.clone()) for x, y in pools[:2])
+        k2.copy_(k1)
+        v2.copy_(v1)
+        before = k1[:, :n_pages].clone()
+        kw.paged_kv_write(k1, v1, k_new, v_new, pids, offs)
+        kw.paged_kv_write_plain(k2, v2, k_new, v_new, pids, offs)
+        torch.cuda.synchronize()
+        require(torch.equal(k1[:, :n_pages], k2[:, :n_pages])
+                and torch.equal(v1[:, :n_pages], v2[:, :n_pages]),
+                f"B7 {name}: pages differ from the plain version's")
+        require(torch.equal(k1[:, 5, 0], k_new[0].to(dt))
+                and int((k1[:, :n_pages] != before).any(-1).sum()) <= 5 * h,
+                f"B7 {name}: wrote other rows than the five addressed")
+        ms = time_ms(torch, lambda: kw.paged_kv_write(
+            k1, v1, k_new, v_new, pids, offs), calls=32)
+        plain_ms = time_ms(torch, lambda: kw.paged_kv_write_plain(
+            k2, v2, k_new, v_new, pids, offs), calls=4)
+        flat = (pids.long() * ps + offs.long()).clamp_max(n_pages * ps)
+        kt, vt = (x.transpose(0, 1).to(dt).contiguous()
+                  for x in (k_new, v_new))
+
+        def index_copy():
+            k2.view(h, -1, d).index_copy_(1, flat, kt)
+            v2.view(h, -1, d).index_copy_(1, flat, vt)
+        bnd, by = bound_ms(2 * b * f * (4 + isz) + 2 * b * 4, 0.0, "f32")
+        b7.append(dict(shape=f"B={b} H={h} d={d} ps={ps} {name}",
+                       max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bnd, bound_by=by, library_ms=None,
+                       two_index_copy_calls_ms=time_ms(torch, index_copy,
+                                                       calls=16)))
+        print(f"B7 {b7[-1]}", flush=True)
+
+        # B8: a 512-row prompt into 8 shuffled pages, one block to the trash
+        # page and one past the pool
+        t = ENG_CTX
+        k_rows = torch.randn((t, f), generator=gen, device=dev).to(dt)
+        v_rows = torch.randn((t, f), generator=gen, device=dev).to(dt)
+        blocks = i32([9, 2, n_pages, 40, 41, n_pages + 1, 7, 22])
+        k2.copy_(k1)
+        v2.copy_(v1)
+        kw.paged_kv_write_rows(k1, v1, k_rows, v_rows, blocks)
+        kw.paged_kv_write_rows_plain(k2, v2, k_rows, v_rows, blocks)
+        torch.cuda.synchronize()
+        require(torch.equal(k1[:, :n_pages], k2[:, :n_pages])
+                and torch.equal(v1[:, :n_pages], v2[:, :n_pages]),
+                f"B8 {name}: pages differ from the plain version's")
+        require(torch.equal(k1[3, 40, 5], k_rows[3 * ps + 5, 3 * d:4 * d]),
+                f"B8 {name}: row 5 of block 3 is not in page 40")
+        ms = time_ms(torch, lambda: kw.paged_kv_write_rows(
+            k1, v1, k_rows, v_rows, blocks), calls=16)
+        plain_ms = time_ms(torch, lambda: kw.paged_kv_write_rows_plain(
+            k2, v2, k_rows, v_rows, blocks), calls=4)
+        bsel = blocks.long().clamp_max(n_pages)
+        kb, vb = (x.reshape(pp, ps, h, d).permute(2, 0, 1, 3).contiguous()
+                  for x in (k_rows, v_rows))
+
+        def index_copy_pages():
+            k2.index_copy_(1, bsel, kb)
+            v2.index_copy_(1, bsel, vb)
+        real = 6 * ps                     # rows of the six blocks written
+        bnd, by = bound_ms(2 * 2 * real * f * isz + pp * 4, 0.0, "f32")
+        b8.append(dict(shape=f"T={t} H={h} d={d} ps={ps} {name}",
+                       max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bnd, bound_by=by, library_ms=None,
+                       two_index_copy_calls_ms=time_ms(
+                           torch, index_copy_pages, calls=16)))
+        print(f"B8 {b8[-1]}", flush=True)
+        del pools, k1, v1, k2, v2
+    results["B6"], results["B7"], results["B8"] = b6, b7, b8
+
+    # B4 and B10 at B = 8 with per-slot depths; slot 4 is inactive
+    s_len = ENG_CTX
+    scale = 1 / math.sqrt(d)
+    n_caches = 3                          # 3 x 2 x 33.5 MB > L2
+    caches = [tuple(torch.randn((b, s_len, f), generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+              for _ in range(n_caches)]
+    for label, depths in (("mixed", [0, 1, 300, 511, s_len + 1, 64, 200,
+                                     450]), ("8x300", [300] * b)):
+        npv = i32(depths)
+        cos, sin = da.rope_lane_tables(npv.clamp_max(s_len - 1), d, d)
+        qkv = torch.randn((b, 1, 3 * f), generator=gen, device=dev)
+        kc, vc = caches[0]
+        kc2, vc2 = kc.clone(), vc.clone()
+        kw4 = dict(head_dim=d, n_rot=d, scale=scale)
+        ctx = da.decode_attention_fused(qkv, kc, vc, npv, cos, sin, **kw4)
+        ref = da.decode_attention_fused_plain(qkv, kc2, vc2, npv, cos, sin,
+                                              **kw4)
+        torch.cuda.synchronize()
+        err = (ctx - ref).abs().max().item()
+        tol = 2 ** -7 * ref.abs().max().item() + 1e-6
+        require(bool(torch.isfinite(ctx).all()), f"B4 B=8 {label}: not finite")
+        require(err <= tol, f"B4 B=8 {label}: err {err} > {tol}")
+        require(torch.equal(kc, kc2) and torch.equal(vc, vc2),
+                f"B4 B=8 {label}: caches differ")
+        it = iter(range(10**9))
+
+        def run4():
+            kk, vv = caches[next(it) % n_caches]
+            da.decode_attention_fused(qkv, kk, vv, npv, cos, sin, **kw4)
+        ms = time_ms(torch, run4, calls=8 * n_caches)
+        plain_ms = time_ms(torch, lambda: da.decode_attention_fused_plain(
+            qkv, kc2, vc2, npv, cos, sin, **kw4), calls=2)
+        rows = sum(min(n, s_len) for n in depths)
+        bnd, by = bound_ms(b * 3 * f * 4 + 2 * rows * f * 2 + 2 * b * f * 2
+                           + 2 * b * d * 4 + b * 4 + b * f * 4,
+                           4.0 * rows * f, "bf16")
+        results["B4"].append(dict(
+            shape=f"B={b} S={s_len} H={h} d={d} depths {label} {depths}",
+            max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+            bound_by=by))
+        print(f"B4 {results['B4'][-1]}", flush=True)
+
+        q = torch.randn((b, 1, f), generator=gen, device=dev)
+        ctx = da.decode_attention(q, kc, vc, npv, head_dim=d, scale=scale)
+        ref = da.decode_attention_plain(q, kc, vc, npv, head_dim=d,
+                                        scale=scale)
+        torch.cuda.synchronize()
+        err = (ctx - ref).abs().max().item()
+        tol = 5e-5 * ref.abs().max().item() + 1e-6
+        require(bool(torch.isfinite(ctx).all()),
+                f"B10 B=8 {label}: not finite")
+        require(err <= tol, f"B10 B=8 {label}: err {err} > {tol}")
+        it = iter(range(10**9))
+
+        def run10():
+            kk, vv = caches[next(it) % n_caches]
+            da.decode_attention(q, kk, vv, npv, head_dim=d, scale=scale)
+        ms = time_ms(torch, run10, calls=8 * n_caches)
+        plain_ms = time_ms(torch, lambda: da.decode_attention_plain(
+            q, kc, vc, npv, head_dim=d, scale=scale), calls=2)
+        rows = sum(min(n + 1, s_len) for n in depths)
+        bnd, by = bound_ms(2 * b * f * 4 + 2 * rows * f * 2 + b * 4,
+                           4.0 * rows * f, "bf16")
+        row = dict(shape=f"B={b} S={s_len} H={h} d={d} depths {label} "
+                   f"{depths}", max_abs_err=err, tol=tol, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+        if label == "8x300":
+            qh = q.reshape(b, h, 1, d).to(torch.bfloat16)
+            keys, vals = (x[:, :301].reshape(b, 301, h, d).transpose(1, 2)
+                          for x in (kc, vc))
+            row["library_ms"] = time_ms(torch, lambda: sdpa(qh, keys, vals),
+                                        calls=20)
+        results["B10"].append(row)
+        print(f"B10 {row}", flush=True)
+    del caches
 
 
 # ---------------------------------------------------------------------------
@@ -659,7 +920,6 @@ def profile_decode(torch, sess, n_steps: int) -> dict:
     """Device time per decode step by kernel (torch.profiler over n_steps
     more greedy steps, after the counted run). Empty if the profiler sees no
     device activity."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -667,6 +927,19 @@ def profile_decode(torch, sess, n_steps: int) -> dict:
         require(sess.generate(lambda s: None, num_tokens=n_steps, temp=0.0),
                 "profiled generate failed")
         torch.cuda.synchronize()
+    dev_ms, launches, top = device_time_by_kernel(prof, n_steps)
+    if dev_ms <= 0:
+        return {}
+    return {"device_ms_per_token": dev_ms,
+            "kernels": [{"name": k, "ms_per_token": ms, "calls_per_token": n}
+                        for k, ms, n in top]}
+
+
+def device_time_by_kernel(prof, n_steps: int):
+    """From a torch.profiler trace of n_steps steps: (device ms per step,
+    device launches per step, the twelve kernels with the most device time
+    as (name, ms per step, calls per step))."""
+    from torch.autograd import DeviceType
     by_name = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -674,16 +947,13 @@ def profile_decode(torch, sess, n_steps: int) -> dict:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        by_name[e.key] = (by_name.get(e.key, (0.0, 0))[0] + us,
-                          by_name.get(e.key, (0.0, 0))[1] + e.count)
+        old = by_name.get(e.key, (0.0, 0))
+        by_name[e.key] = (old[0] + us, old[1] + e.count)
     total_us = sum(v[0] for v in by_name.values())
-    if total_us <= 0:
-        return {}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"device_ms_per_token": total_us / 1e3 / n_steps,
-            "kernels": [{"name": k[:90], "ms_per_token": v[0] / 1e3 / n_steps,
-                         "calls_per_token": v[1] / n_steps}
-                        for k, v in top]}
+    return (total_us / 1e3 / n_steps,
+            sum(v[1] for v in by_name.values()) / n_steps,
+            [(k[:90], v[0] / 1e3 / n_steps, v[1] / n_steps) for k, v in top])
 
 
 def write_checkpoint(path, hp, seed):
@@ -843,6 +1113,270 @@ def file_entry_points(torch, tmp):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+# prompt lengths in tokens: eight requests fill the slots (three of them long
+# enough for the int8 prefill kernels), four more queue behind them
+ENG_PROMPTS = [300, 40, 270, 120, 20, 260, 90, 60, 30, 280, 100, 50]
+ENG_GEN = 48
+
+
+def engine_requests(sched, **kw):
+    return [sched.Request(prompt=prompt_of(n - 2, seed=100 + i),
+                          max_tokens=ENG_GEN, **kw)
+            for i, n in enumerate(ENG_PROMPTS)]
+
+
+def common_prefix(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def all_kernels():
+    from fastllama_tpu_torch.kernels import decode_attention as da
+    from fastllama_tpu_torch.kernels import kv_write as kw
+    from fastllama_tpu_torch.kernels import paged_attention as pa
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    return dict(counted_kernels(qm, da), B6=pa.paged_decode_attention,
+                B7=kw.paged_kv_write, B8=kw.paged_kv_write_rows)
+
+
+def engine_run(torch, sched, make, label, n_layer, chunked, f32=False,
+               **req_kw):
+    """One engine, ENG_PROMPTS through it, with every launch counted.
+    Returns (token streams, result row)."""
+    kernels = all_kernels()
+    eng = make()
+    reqs = engine_requests(sched, **req_kw)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in kernels.items()}
+    streams = [list(r.tokens_out) for r in reqs]
+    require(all(r.done for r in reqs), f"engine {label}: a request is not done")
+    require(all(len(t) == ENG_GEN for t in streams),
+            f"engine {label}: token counts {[len(t) for t in streams]}")
+    require(all(r.n_prompt == n for r, n in zip(reqs, ENG_PROMPTS)),
+            f"engine {label}: prompt lengths {[r.n_prompt for r in reqs]}")
+    if eng.pager is not None:
+        require(eng.pager.free_pages == eng.pager.total_pages,
+                f"engine {label}: {eng.pager.free_pages} pages free of "
+                f"{eng.pager.total_pages} after the run")
+        require(counts["B6"] == counts["B7"] > 0
+                and counts["B6"] % n_layer == 0 and counts["B4"] == 0
+                and counts["B10"] == 0,
+                f"engine {label}: decode launches {counts}")
+        require(counts["B8"] == (n_layer * len(reqs) if chunked else 0),
+                f"engine {label}: B8 launched {counts['B8']} times")
+        steps = counts["B6"] // n_layer
+    else:
+        # the slab step runs the fused B4 in bf16 mode and plain attention
+        # in f32 mode (no attention kernel to count the steps by)
+        require((counts["B4"] == 0 if f32 else
+                 counts["B4"] > 0 and counts["B4"] % n_layer == 0)
+                and counts["B1"] > 0
+                and counts["B6"] == counts["B7"] == counts["B8"] == 0,
+                f"engine {label}: decode launches {counts}")
+        steps = None if f32 else counts["B4"] // n_layer
+    n_tok = sum(len(t) for t in streams)
+    row = dict(label=label, wall_s=wall, tokens=n_tok, decode_steps=steps,
+               tok_s_with_admissions=n_tok / wall, launches=counts)
+    print(f"engine {label}: {json.dumps(row)}", flush=True)
+    return streams, row
+
+
+def engine_steady(torch, sched, make, profile_steps=8, timed_steps=30):
+    """Eight slots decoding at once, no admission in the window: the host
+    clock per engine step (ending in a synchronize) and, from a
+    torch.profiler trace of a few more steps, the device time per step."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = make()
+    reqs = [sched.Request(prompt=prompt_of(98, seed=200 + i), max_tokens=300,
+                          temp=0.8) for i in range(ENG_SLOTS)]
+    for r in reqs:
+        eng.submit(r)
+    while sum(s.live for s in eng.slots) < ENG_SLOTS:
+        eng.step()
+    for _ in range(10):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        eng.step()
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / timed_steps * 1e3
+    out = dict(ms_per_step=ms_step, tok_s=ENG_SLOTS / ms_step * 1e3)
+    if profile_steps:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(profile_steps):
+                eng.step()
+            torch.cuda.synchronize()
+        dev_ms, launches, top = device_time_by_kernel(prof, profile_steps)
+        if dev_ms > 0:
+            out.update(
+                device_ms_per_step=dev_ms,
+                device_idle_share=1.0 - dev_ms / ms_step,
+                launches_per_step=launches,
+                kernels=[{"name": k, "ms_per_step": ms, "calls_per_step": n}
+                         for k, ms, n in top])
+    require(all(s.live for s in eng.slots),
+            "steady engine: a slot stopped inside the measured window")
+    return out
+
+
+def engine_ttft(torch, sched, make, repeats=3):
+    """Host clock from run() of one 300-token request in an idle engine to
+    its first streamed text (ms, one value per repeat after a warm-up): the
+    admission, the first token sampled on the device, and the engine steps
+    until the drain hands it to the host."""
+    eng = make()
+    out = []
+    for i in range(repeats + 1):
+        stamps = []
+        req = sched.Request(
+            prompt=prompt_of(ENG_PROMPTS[0] - 2, seed=300 + i), max_tokens=2,
+            temp=0.0, streaming_fn=lambda s, st=stamps: st.append(
+                time.perf_counter()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run([req])
+        require(bool(stamps), "engine TTFT: nothing was streamed")
+        out.append((stamps[0] - t0) * 1e3)
+    return out[1:]
+
+
+def engine_path(torch, dev, gen):
+    import dataclasses
+    from fastllama_tpu_torch.config import PRESETS, RuntimeConfig
+    from fastllama_tpu_torch.engine import scheduler as sched
+
+    hp = PRESETS["7B"]
+    vocab = synthetic_vocab(hp.n_vocab)
+    params = rand_params(torch, hp, gen, dev)
+    res = {"n_layer": hp.n_layer, "n_slots": ENG_SLOTS, "n_ctx": ENG_CTX,
+           "page_size": ENG_PS, "prompts": ENG_PROMPTS, "gen": ENG_GEN}
+
+    def maker(params, hp, mode, chunked=False, depth=None, seed=3,
+              mode_dtype="bfloat16"):
+        rcfg = RuntimeConfig(n_ctx=ENG_CTX, n_batch=256 if chunked else 512,
+                             kv_dtype=mode_dtype, weight_dtype=mode_dtype)
+        return lambda: sched.BatchEngine(
+            hp, params, vocab, n_slots=ENG_SLOTS, n_ctx=ENG_CTX, rcfg=rcfg,
+            sampling_seed=seed, kv_mode=mode, page_size=ENG_PS,
+            drain_depth=depth, chunked_admission=chunked)
+
+    modes = {"paged": maker(params, hp, "paged"),
+             "paged_chunked": maker(params, hp, "paged", chunked=True),
+             "slab": maker(params, hp, "slab")}
+    engine_run(torch, sched, modes["slab"], "warm-up", hp.n_layer, False)
+    sampled, greedy, rows = {}, {}, {}
+    for name, make in modes.items():
+        chunked = name == "paged_chunked"
+        sampled[name], rows[name] = engine_run(
+            torch, sched, make, name + " temp 0.8", hp.n_layer, chunked)
+        again, _ = engine_run(torch, sched, make, name + " temp 0.8 again",
+                              hp.n_layer, chunked)
+        require(again == sampled[name],
+                f"engine {name}: the same seed gave other sampled streams")
+        greedy[name], rows[name + "_greedy"] = engine_run(
+            torch, sched, make, name + " greedy", hp.n_layer, chunked,
+            temp=0.0)
+    res["runs"] = rows
+
+    # greedy streams across the modes. In bf16 the three modes round at
+    # different places (the fused slab kernel folds the new token in
+    # unrounded and the paged prefill attends the unrounded block, while the
+    # paged step and the chunked row cache read rows rounded to bf16), so a
+    # near-tie of two logits can flip and the streams part from there on:
+    # the first token must agree for most requests, and the common prefixes
+    # are reported. The f32 engines below must agree token for token.
+    pairs = {}
+    for a, b in (("paged", "paged_chunked"), ("paged", "slab"),
+                 ("paged_chunked", "slab")):
+        pre = [common_prefix(x, y) for x, y in zip(greedy[a], greedy[b])]
+        pairs[f"{a} vs {b}"] = pre
+        require(sum(p >= 1 for p in pre) >= len(pre) // 2,
+                f"engine greedy {a} vs {b}: first tokens differ, prefixes "
+                f"{pre}")
+    res["greedy_common_prefix_bf16"] = pairs
+
+    # one request against the single-stream session on the same prompt: the
+    # prefill is the same launch sequence (the same first token); the decode
+    # steps run B1 at M = 1 against M = 8
+    model, sess = make_session(hp, params, dev)
+    out = []
+    require(sess.ingest(prompt_of(ENG_PROMPTS[0] - 2, seed=100)),
+            "session ingest failed")
+    require(sess.generate(out.append, num_tokens=ENG_GEN, temp=0.0),
+            "session generate failed")
+    single = list(sess._last_n)[-ENG_GEN:]
+    pre = common_prefix(single, greedy["slab"][0])
+    require(pre >= 1, "engine slab greedy: the first token differs from the "
+            f"single-stream session's ({single[:4]} / {greedy['slab'][0][:4]})")
+    res["greedy_prefix_vs_single_stream"] = pre
+    del sess, model
+
+    # steady decode: ms per step, device time, drain depth 0 against 2
+    steady = {}
+    for name in ("paged", "slab"):
+        steady[name] = engine_steady(torch, sched, modes[name])
+        print(f"engine steady {name}: {json.dumps(steady[name])}", flush=True)
+    ttft = {name: engine_ttft(torch, sched, make)
+            for name, make in modes.items()}
+    print(f"engine TTFT ms (300-token prompt, idle engine): "
+          f"{json.dumps(ttft)}", flush=True)
+    drain = []
+    for depth in (0, 2, 2, 0):
+        r = engine_steady(torch, sched,
+                          maker(params, hp, "paged", depth=depth),
+                          profile_steps=0, timed_steps=60)
+        drain.append(dict(drain_depth=depth, **r))
+    print(f"engine drain depth: {json.dumps(drain)}", flush=True)
+    res.update(steady=steady, drain_depth=drain, ttft_ms=ttft,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, modes
+    torch.cuda.empty_cache()
+
+    # f32 mode at full width, two layers: nothing is rounded to bf16, so the
+    # three modes must give the same greedy streams (f32 sum order can still
+    # flip an exact near-tie: at most two of the twelve requests may differ)
+    hp2 = dataclasses.replace(hp, n_layer=2)
+    params2 = rand_params(torch, hp2, gen, dev)
+    f32 = {}
+    for name, kw in (("paged", {}), ("paged_chunked", {"chunked": True}),
+                     ("slab", {})):
+        mode = "slab" if name == "slab" else "paged"
+        f32[name], _ = engine_run(
+            torch, sched, maker(params2, hp2, mode, mode_dtype="float32",
+                                **kw),
+            name + " f32 2 layers greedy", hp2.n_layer, bool(kw), f32=True,
+            temp=0.0)
+    same = {}
+    for a, b in (("paged", "paged_chunked"), ("paged", "slab")):
+        n_same = sum(x == y for x, y in zip(f32[a], f32[b]))
+        same[f"{a} vs {b}"] = n_same
+        require(n_same >= len(ENG_PROMPTS) - 2,
+                f"engine f32 {a} vs {b}: only {n_same} of "
+                f"{len(ENG_PROMPTS)} greedy streams are equal")
+    res["f32_equal_streams_of_12"] = same
+    print(f"engine path: {json.dumps({k: v for k, v in res.items() if k != 'runs'})}",
+          flush=True)
+    del params2
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -883,6 +1417,7 @@ def main() -> int:
     try:
         q41_res = q41_lora_path(torch, dev, gen, tmp)
         file_res = file_entry_points(torch, tmp)
+        engine_res = engine_path(torch, dev, gen)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -893,14 +1428,20 @@ def main() -> int:
     launches = dict(main_res["launches"],
                     B5=main_res["bf16_prefill"]["launches"]["B5"],
                     B9=q41_res["attached"]["launches"]["B9"],
-                    B10=q41_res["attached"]["launches"]["B10"])
+                    B10=q41_res["attached"]["launches"]["B10"],
+                    B6=engine_res["runs"]["paged"]["launches"]["B6"],
+                    B7=engine_res["runs"]["paged"]["launches"]["B7"],
+                    B8=engine_res["runs"]["paged_chunked"]["launches"]["B8"])
     main_rows = {"B1": pick(checks["B1"], "qkv M=1"),
                  "B2": pick(checks["B2"], "K=4096"),
                  "B3": pick(checks["B3"], "qkv"),
                  "B4": pick(checks["B4"], "n_past=300"),
                  "B5": pick(checks["B5"], "qkv M=512 K=4096 N=12288 bf16"),
                  "B9": pick(checks["B9"], "qkv M=1 K=4096 N=12288 bf16"),
-                 "B10": pick(checks["B10"], "n_past=300")}
+                 "B10": pick(checks["B10"], "n_past=300"),
+                 "B6": pick(checks["B6"], "bf16 lengths=8x300"),
+                 "B7": pick(checks["B7"], "bf16"),
+                 "B8": pick(checks["B8"], "bf16")}
     meta = {
         "B1": ("q4_matmul_decode", "csrc/q4_decode.cu",
                "fastllama_tpu/kernels/q4_matmul.py:433"),
@@ -916,6 +1457,12 @@ def main() -> int:
                "fastllama_tpu/kernels/q4_matmul.py:395"),
         "B10": ("decode_attention", "csrc/decode_attention.cu",
                 "fastllama_tpu/kernels/decode_attention.py:72"),
+        "B6": ("paged_decode_attention", "csrc/paged_attention.cu",
+               "fastllama_tpu/kernels/paged_attention.py:333"),
+        "B7": ("paged_kv_write", "csrc/kv_write.cu",
+               "fastllama_tpu/kernels/kv_write.py:55"),
+        "B8": ("paged_kv_write_rows", "csrc/kv_write.cu",
+               "fastllama_tpu/kernels/kv_write.py:115"),
     }
     kernels = []
     for key, (name, src, replaces) in meta.items():
@@ -931,7 +1478,8 @@ def main() -> int:
         require(launches[key] > 0, f"kernel {key} was launched on no path")
     summary = {"card": smi, "build_s": cuda_lib.build_seconds,
                "kernel_checks": checks, "main_path": main_res,
-               "q41_lora_path": q41_res, "file_entry_points": file_res}
+               "q41_lora_path": q41_res, "file_entry_points": file_res,
+               "engine_path": engine_res}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(summary, fh, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -3,10 +3,10 @@
 Serves q4_0, q4_1 and f16 LLaMA models (ggml-family files or fltpu
 checkpoint directories), with runtime LoRA adapters, on an NVIDIA H100
 (sm_90a) through the same entry points as the JAX package (Model,
-FastLlama, LlamaModel), with the JAX
-package's Pallas kernels rewritten as hand-written CUDA kernels
-(kernels/csrc/). It imports neither JAX nor the JAX package. Entry points
-run on the CUDA card by default; pass device="cpu" to run the plain
+FastLlama, LlamaModel, and engine.scheduler.BatchEngine for many streams at
+once), with the JAX package's Pallas kernels rewritten as hand-written CUDA
+kernels (kernels/csrc/). It imports neither JAX nor the JAX package. Entry
+points run on the CUDA card by default; pass device="cpu" to run the plain
 PyTorch path (the tests do).
 """
 from .api import Model

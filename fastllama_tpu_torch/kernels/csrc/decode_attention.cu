@@ -42,31 +42,9 @@
 
 namespace {
 
-constexpr int kThreads = 256, kWarps = kThreads / 32, kMaxD = 256;
+using fltorch::Vec16;
 
-// 16-byte vector of cache elements, widened to f32.
-template <typename T> struct Vec16;
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-template <> struct Vec16<float> {
-  static constexpr int kN = 4;
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-};
+constexpr int kThreads = 256, kWarps = kThreads / 32, kMaxD = 256;
 
 // scores[s] = dot(qv, K[s]) * scale for the n rows of one (b, h) at kbase
 // (row stride F), then p = exp(score - max) in place; `extra` is a score

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("q4_decode", "quant_rows", "q4_int8", "q4_prefill",
-           "decode_attention")
+           "decode_attention", "paged_attention", "kv_write")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -37,12 +37,17 @@ ARGTYPES = {
     "q4_prefill_gemm": [P, I, I, P, P, I, I, P, P, P, I, I, P],
     "decode_attention_fused": [P, P, P, P, P, P, I, I, I, I, F, I, P, P],
     "decode_attention": [P, P, P, P, I, I, I, I, F, I, P, P],
+    "paged_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, F, I, P, P],
+    "paged_kv_write": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "paged_kv_write_rows": [P, P, P, P, P, I, I, I, I, I, P],
 }
 LIB_OF = {"q4_gemv": "q4_decode", "q41_gemv": "q4_decode",
           "quant_rows_int8": "quant_rows", "q4_int8_gemm": "q4_int8",
           "q4_prefill_gemm": "q4_prefill",
           "decode_attention_fused": "decode_attention",
-          "decode_attention": "decode_attention"}
+          "decode_attention": "decode_attention",
+          "paged_decode_attention": "paged_attention",
+          "paged_kv_write": "kv_write", "paged_kv_write_rows": "kv_write"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None   # wall time of the last build() call

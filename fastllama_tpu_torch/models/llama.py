@@ -5,8 +5,12 @@ function that runs eagerly on the parameters' device. Semantics as in the
 JAX package:
   * rms_norm eps = 1e-6; interleaved RoPE; silu-gated FFN; f32 softmax
   * QKV and w1/w3 pre-fused (models/fuse.py)
-  * per-layer slab KV caches [B, S, H*Dh], written at n_past ("dus" write);
-    here the caches are updated in place and returned
+  * per-layer slab KV caches [B, S, H*Dh], written at n_past: one shared
+    int offset (the session), or an int32 [B] tensor of per-slot depths (the
+    batching engine), whose rows at or past S are dropped; the caches are
+    updated in place and returned
+  * forward_paged_decode / forward_paged_prefill run the same layers over
+    the paged pools of engine/paged_kv.py
   * LoRA adapters as separate additive LoraTerm fields
 
 Kernel use (the same on every device; on the CPU each wrapper runs its
@@ -14,8 +18,9 @@ plain version): every 4-bit matmul goes through kernels/q4_matmul.q4_matmul
 (B1 or B9 at decode size, B2+B3 or B5 for large-M prefill); a decode step
 (T = 1) in bf16 weight mode runs the fused decode attention B4 in a layer
 without q/k/v LoRA and, in a layer with it, adds the LoRA terms, ropes,
-writes the cache row and runs the decode attention B10. Prefill attention
-(and f32-mode decode) is plain PyTorch: masked f32 softmax over the cache.
+writes the cache row and runs the decode attention B10. The paged decode
+step writes the new row with B7 and attends with B6. Prefill attention (and
+f32-mode slab decode) is plain PyTorch: masked f32 softmax over the cache.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ from ..config import HyperParams, resolve_device
 from ..kernels.decode_attention import (
     decode_attention, decode_attention_fused, masked_attention,
 )
+from ..kernels.kv_write import paged_kv_write, scatter_rows_drop
+from ..kernels.paged_attention import paged_decode_attention
 from ..kernels.q4_matmul import q4_matmul
 from ..kernels.rope import lane_tables, rope_interleaved, rope_interleaved_lanes
 from ..quant.tensor import (
@@ -158,22 +165,57 @@ def _no_qkv_lora(layer: LayerParams) -> bool:
             and layer.lora_wv is None)
 
 
-def _attention(x: torch.Tensor, layer: LayerParams, n_past: int,
+def _project_out(ctx: torch.Tensor, layer: LayerParams, cfg: ForwardConfig,
+                 b: int, t: int) -> torch.Tensor:
+    """The attention output projection: ctx [B, T, H, Dh] or [B, T, F] ->
+    wo (plus its LoRA term) in the residual dtype."""
+    ctx = ctx.reshape(b, t, -1).to(cfg.act_tdtype)
+    out = apply_linear(ctx, layer.wo, cfg)
+    if layer.lora_wo is not None:
+        out = out + apply_lora(ctx, layer.lora_wo)
+    return out.to(cfg.act_tdtype)
+
+
+def _qkv_lora(x: torch.Tensor, layer: LayerParams, q, k, v):
+    """q, k, v [B, T, H, Dh] plus the layer's attention-projection LoRA
+    terms."""
+    b, t, h, hd = q.shape
+    if layer.lora_wq is not None:
+        q = q + apply_lora(x, layer.lora_wq).reshape(b, t, h, hd)
+    if layer.lora_wk is not None:
+        k = k + apply_lora(x, layer.lora_wk).reshape(b, t, h, hd)
+    if layer.lora_wv is not None:
+        v = v + apply_lora(x, layer.lora_wv).reshape(b, t, h, hd)
+    return q, k, v
+
+
+def _write_rows_drop(cache: torch.Tensor, val: torch.Tensor,
+                     positions: torch.Tensor) -> None:
+    """cache[b, positions[b, t]] = val[b, t], in place, for positions inside
+    the cache; a row whose position is at or past S is not written (the JAX
+    scatter with mode="drop": an inactive engine slot runs at n_ctx + 1, and
+    a padded chunk tail can pass n_ctx)."""
+    b, s, f = cache.shape
+    pos = positions.to(torch.int64)
+    ok = ((pos >= 0) & (pos < s)).reshape(-1)
+    flat = (pos + torch.arange(b, device=pos.device)[:, None] * s).reshape(-1)
+    scatter_rows_drop(cache.view(1, b * s, f), flat, ok,
+                      val.reshape(1, -1, f))
+
+
+def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
                positions: torch.Tensor, kv: KVPair, cfg: ForwardConfig,
                rope_ls, rope_bt, n_past_vec):
-    """Self-attention for one layer. x [B, T, D]; positions [B, T].
-    Returns attn_out [B, T, D]; kv is updated in place."""
+    """Self-attention for one layer. x [B, T, D]; positions [B, T];
+    write_kv(cache, rows [B, T, F]) stores the window's rows. Returns
+    attn_out [B, T, D]; kv is updated in place."""
     b, t, _ = x.shape
     h = cfg.n_head
     kv_k, kv_v = kv
     qkv = apply_linear(x, layer.wqkv, cfg)
 
     def finish(ctx):
-        ctx = ctx.reshape(b, t, -1).to(cfg.act_tdtype)
-        out = apply_linear(ctx, layer.wo, cfg)
-        if layer.lora_wo is not None:
-            out = out + apply_lora(ctx, layer.lora_wo)
-        return out.to(cfg.act_tdtype)
+        return _project_out(ctx, layer, cfg, b, t)
 
     if rope_ls is not None and _no_qkv_lora(layer):
         hd = qkv.shape[-1] // (3 * h)
@@ -189,14 +231,8 @@ def _attention(x: torch.Tensor, layer: LayerParams, n_past: int,
         q, k = qk[:, :, :h], qk[:, :, h:]
         v = qkv[..., 2 * d:].reshape(b, t, h, hd)
     else:
-        q, k, v = split_qkv(qkv, h)
+        q, k, v = _qkv_lora(x, layer, *split_qkv(qkv, h))
         hd = q.shape[-1]
-        if layer.lora_wq is not None:
-            q = q + apply_lora(x, layer.lora_wq).reshape(b, t, h, hd)
-        if layer.lora_wk is not None:
-            k = k + apply_lora(x, layer.lora_wk).reshape(b, t, h, hd)
-        if layer.lora_wv is not None:
-            v = v + apply_lora(x, layer.lora_wv).reshape(b, t, h, hd)
         # the per-lane form is the rope_interleaved rotation bit for bit
         # (the minus sign is folded into the table); q and k in one call
         lanes = rope_bt if rope_bt is not None else (
@@ -210,8 +246,8 @@ def _attention(x: torch.Tensor, layer: LayerParams, n_past: int,
                                         lanes[1], cfg.n_rot)
             q, k = qk[:, :, :h], qk[:, :, h:]
 
-    kv_k[:, n_past:n_past + t] = k.reshape(b, t, -1).to(kv_k.dtype)
-    kv_v[:, n_past:n_past + t] = v.reshape(b, t, -1).to(kv_v.dtype)
+    write_kv(kv_k, k.reshape(b, t, -1).to(kv_k.dtype))
+    write_kv(kv_v, v.reshape(b, t, -1).to(kv_v.dtype))
 
     scale = 1.0 / math.sqrt(hd)
     if rope_ls is not None:
@@ -240,7 +276,20 @@ def _n_out(w: Linear) -> int:
     return w.n_logical if isinstance(w, QuantMatmulWeight) else w.shape[1]
 
 
-def forward(params: LlamaParams, tokens: torch.Tensor, n_past: int,
+def _position_lanes(tables: PositionTables | None, positions: torch.Tensor,
+                    hd: int, n_rot: int):
+    """Per-lane RoPE tables (cos, sin_signed) [*positions.shape, hd] for an
+    int32 position grid on the device: gathered from the model's tables, the
+    positions clipped to their length, or computed when there are none."""
+    if tables is None:
+        return lane_tables(positions, hd, n_rot)
+    idx = positions.clamp(0, tables.cos.shape[0] - 1).reshape(-1)
+    return (tables.cos.index_select(0, idx).reshape(*positions.shape, hd),
+            tables.sin.index_select(0, idx).reshape(*positions.shape, hd))
+
+
+def forward(params: LlamaParams, tokens: torch.Tensor,
+            n_past: "int | torch.Tensor",
             kv_caches: list[KVPair], cfg: ForwardConfig,
             last_idx: int | None = None,
             tables: PositionTables | None = None):
@@ -249,36 +298,59 @@ def forward(params: LlamaParams, tokens: torch.Tensor, n_past: int,
     Args:
       tokens: [B, T] int (padded tokens allowed: their logits and cache rows
         are garbage that later writes overwrite).
-      n_past: tokens already in the cache (one shared offset).
+      n_past: tokens already in the cache. An int is one shared offset (the
+        session). An int32 tensor [B] (or [1]) gives each row its own depth
+        (the batching engine): the rows are written by a scatter that drops
+        positions at or past S, and nothing is read back to the host.
       kv_caches: per-layer (k, v), each [B, S, H*Dh]; updated in place.
       last_idx: index of the last valid token in the T window (default T-1);
         the non-all-logits head and the embeddings tap read this row.
-      tables: position_tables covering n_past + T positions (built here
-        when None).
+      tables: position_tables covering the window (built here when None).
+        With per-row depths the tables are gathered at the positions clipped
+        to the tables' length, where the JAX package computes the angles from
+        the position itself: a clipped row is one whose write is dropped.
     Returns (logits [B, T or 1, n_vocab] f32, kv_caches, embeddings [B, D]).
     """
     b, t = tokens.shape
     if last_idx is None:
         last_idx = t - 1
     hd = _n_out(params.layers[0].wqkv) // (3 * cfg.n_head)
-    if tables is None:
-        tables = position_tables(n_past + t, hd, cfg.n_rot, tokens.device)
-    window = slice(n_past, n_past + t)
-    positions = tables.positions[window][None, :].expand(b, t)
     x = embed_tokens(params.tok_embeddings, tokens, cfg.act_tdtype)
-
     rope_ls = rope_bt = n_past_vec = None
-    if t == 1 and cfg.w_tdtype != torch.float32:
-        n_past_vec = tables.positions[window].expand(b).contiguous()
-        rope_ls = (tables.cos[window].expand(b, hd).contiguous(),
-                   tables.sin[window].expand(b, hd).contiguous())
-    elif t > 1:
-        rope_bt = (tables.cos[window][None, :, None, :],
-                   tables.sin[window][None, :, None, :])
+    decode_kernels = t == 1 and cfg.w_tdtype != torch.float32
+
+    if isinstance(n_past, torch.Tensor):
+        positions = (n_past.to(torch.int32).reshape(-1, 1) + torch.arange(
+            t, dtype=torch.int32, device=tokens.device)[None, :]).expand(b, t)
+        if decode_kernels or t > 1:
+            cos, sin = _position_lanes(tables, positions, hd, cfg.n_rot)
+            if t == 1:
+                n_past_vec = positions[:, 0].contiguous()
+                rope_ls = (cos[:, 0].contiguous(), sin[:, 0].contiguous())
+            else:
+                rope_bt = (cos[:, :, None, :], sin[:, :, None, :])
+
+        def write_kv(cache, rows):
+            _write_rows_drop(cache, rows, positions)
+    else:
+        if tables is None:
+            tables = position_tables(n_past + t, hd, cfg.n_rot, tokens.device)
+        window = slice(n_past, n_past + t)
+        positions = tables.positions[window][None, :].expand(b, t)
+        if decode_kernels:
+            n_past_vec = tables.positions[window].expand(b).contiguous()
+            rope_ls = (tables.cos[window].expand(b, hd).contiguous(),
+                       tables.sin[window].expand(b, hd).contiguous())
+        elif t > 1:
+            rope_bt = (tables.cos[window][None, :, None, :],
+                       tables.sin[window][None, :, None, :])
+
+        def write_kv(cache, rows):
+            cache[:, window] = rows
 
     for layer, kv in zip(params.layers, kv_caches):
         attn_in = rms_norm(x, layer.attention_norm, cfg.rms_eps)
-        x = x + _attention(attn_in, layer, n_past, positions, kv, cfg,
+        x = x + _attention(attn_in, layer, write_kv, positions, kv, cfg,
                            rope_ls, rope_bt, n_past_vec)
         x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
 
@@ -291,6 +363,106 @@ def forward(params: LlamaParams, tokens: torch.Tensor, n_past: int,
         logits = logits + apply_lora(head_in.to(torch.float32),
                                      params.lora_output)
     return logits.to(torch.float32), kv_caches, embeddings
+
+
+# ---------------------------------------------------------------------------
+# The paged paths (engine/paged_kv.py pools)
+# ---------------------------------------------------------------------------
+
+def _roped_qkv(x, layer: LayerParams, cfg: ForwardConfig, rope_bt):
+    """(q, k, v) [B, T, H, Dh] of one layer: the fused projection, the
+    q/k/v LoRA terms, then RoPE on q and k in one per-lane pass."""
+    h = cfg.n_head
+    q, k, v = _qkv_lora(x, layer, *split_qkv(apply_linear(x, layer.wqkv, cfg),
+                                             h))
+    qk = rope_interleaved_lanes(torch.cat([q, k], dim=2), rope_bt[0],
+                                rope_bt[1], cfg.n_rot)
+    return qk[:, :, :h], qk[:, :, h:], v
+
+
+def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
+                         lengths: torch.Tensor, page_tables: torch.Tensor,
+                         k_pages: list[torch.Tensor],
+                         v_pages: list[torch.Tensor],
+                         page_ids: torch.Tensor, offsets: torch.Tensor,
+                         cfg: ForwardConfig,
+                         tables: PositionTables | None = None):
+    """One decode step over a paged KV cache (engine/paged_kv.py).
+
+    Args:
+      tokens: [B, 1]; lengths: int32 [B] tokens already resident (the new
+        token's position); page_tables: int32 [B, pages_per_seq];
+        k_pages/v_pages: per layer [H, P, ps, Dh], updated in place;
+        page_ids/offsets: int32 [B] physical write location of the new token
+        (from PagedKVManager; the sentinel id for an inactive slot).
+    Each layer writes the new row with kernel B7 and attends lengths + 1
+    keys with kernel B6 (their plain versions for CPU tensors).
+    Returns (logits [B, 1, V] f32, k_pages, v_pages).
+    """
+    b = tokens.shape[0]
+    hd = k_pages[0].shape[3]
+    x = embed_tokens(params.tok_embeddings, tokens, cfg.act_tdtype)
+    cos, sin = _position_lanes(tables, lengths[:, None], hd, cfg.n_rot)
+    rope_bt = (cos[:, :, None, :], sin[:, :, None, :])
+    attend = lengths + 1
+
+    for layer, kp, vp in zip(params.layers, k_pages, v_pages):
+        attn_in = rms_norm(x, layer.attention_norm, cfg.rms_eps)
+        q, k, v = _roped_qkv(attn_in, layer, cfg, rope_bt)
+        paged_kv_write(kp, vp, k[:, 0].contiguous(), v[:, 0].contiguous(),
+                       page_ids, offsets)
+        ctx = paged_decode_attention(q[:, 0].contiguous(), kp, vp, attend,
+                                     page_tables)
+        x = x + _project_out(ctx, layer, cfg, b, 1)
+        x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
+
+    x = rms_norm(x, params.norm, cfg.rms_eps)
+    logits = apply_linear(x, params.output, cfg)
+    return logits.to(torch.float32), k_pages, v_pages
+
+
+def forward_paged_prefill(params: LlamaParams, tokens: torch.Tensor,
+                          last_idx: int, page_ids: torch.Tensor,
+                          offsets: torch.Tensor,
+                          k_pages: list[torch.Tensor],
+                          v_pages: list[torch.Tensor], cfg: ForwardConfig,
+                          tables: PositionTables | None = None):
+    """Prefill a FRESH sequence into the paged cache.
+
+    A fresh slot needs no cache reads: causal self-attention over the prompt
+    block itself (plain PyTorch, masked f32 softmax over the unrounded K and
+    V of the block), with the block's K/V scattered into the sequence's pages
+    by write_tokens_paged. tokens [1, T] (bucketed; the padded tail carries
+    sentinel page ids). Returns (last_logits [1, V] f32, k_pages, v_pages).
+    """
+    from ..engine.paged_kv import write_tokens_paged
+    b, t = tokens.shape
+    hd = k_pages[0].shape[3]
+    dev = tokens.device
+    positions = torch.arange(t, dtype=torch.int32, device=dev)[None, :].expand(
+        b, t)
+    cos, sin = _position_lanes(tables, positions, hd, cfg.n_rot)
+    rope_bt = (cos[:, :, None, :], sin[:, :, None, :])
+    causal = positions[0][None, :] <= positions[0][:, None]      # [T, T]
+    scale = 1.0 / math.sqrt(hd)
+    x = embed_tokens(params.tok_embeddings, tokens, cfg.act_tdtype)
+
+    for layer, kp, vp in zip(params.layers, k_pages, v_pages):
+        attn_in = rms_norm(x, layer.attention_norm, cfg.rms_eps)
+        q, k, v = _roped_qkv(attn_in, layer, cfg, rope_bt)
+        write_tokens_paged(kp, vp, k, v, page_ids[None, :], offsets[None, :])
+        scores = torch.einsum("bthd,bshd->bhts", q.to(torch.float32),
+                              k.to(torch.float32)) * scale
+        scores = torch.where(causal[None, None], scores,
+                             torch.full_like(scores, -1e30))
+        ctx = torch.einsum("bhts,bshd->bthd", torch.softmax(scores, dim=-1),
+                           v.to(torch.float32))
+        x = x + _project_out(ctx, layer, cfg, b, t)
+        x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
+
+    x = rms_norm(x, params.norm, cfg.rms_eps)
+    logits = apply_linear(x[:, last_idx:last_idx + 1], params.output, cfg)
+    return logits[:, 0].to(torch.float32), k_pages, v_pages
 
 
 def init_kv_cache(hp: HyperParams, batch: int, n_ctx: int,

@@ -1,5 +1,5 @@
-"""PyTorch port: neither the package nor chip_smoke.py imports JAX or the
-JAX package."""
+"""PyTorch port: neither the package, chip_smoke.py nor the scripts under
+tools_torch/ import JAX or the JAX package."""
 import ast
 import json
 import subprocess
@@ -26,7 +26,10 @@ def test_package_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     res = json.loads(out.strip().splitlines()[-1])
-    assert len(res["mods"]) >= 19
+    assert len(res["mods"]) >= 29
+    for mod in ("engine.scheduler", "engine.paged_kv", "engine.sampling",
+                "kernels.paged_attention", "kernels.kv_write"):
+        assert f"fastllama_tpu_torch.{mod}" in res["mods"]
     leaked = [m for m in res["loaded"] if _forbidden(m)]
     assert leaked == []
 
@@ -42,6 +45,7 @@ def _imports(path: Path) -> list[str]:
 
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py"] + sorted(
-    (ROOT / "fastllama_tpu_torch").rglob("*.py")), ids=lambda p: p.name)
+    (ROOT / "fastllama_tpu_torch").rglob("*.py")) + sorted(
+    (ROOT / "tools_torch").glob("*.py")), ids=lambda p: p.name)
 def test_sources_import_no_jax(path):
     assert [n for n in _imports(path) if _forbidden(n)] == []

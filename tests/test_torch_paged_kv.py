@@ -1,0 +1,513 @@
+"""PyTorch port: the paged KV cache (engine/paged_kv.py), the plain versions
+of kernels B6, B7 and B8 against the Pallas kernels in interpret mode, and
+the paged forward passes against the JAX package's."""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from fastllama_tpu.config import HyperParams
+from fastllama_tpu.engine import paged_kv as jpk
+from fastllama_tpu.kernels import kv_write as jkw
+from fastllama_tpu.kernels import paged_attention as jpa
+from fastllama_tpu.models import llama as jl
+from fastllama_tpu_torch.engine import paged_kv as tpk
+from fastllama_tpu_torch.kernels import kv_write as tkw
+from fastllama_tpu_torch.kernels import paged_attention as tpa
+from fastllama_tpu_torch.models import llama as tl
+
+from test_torch_model import to_numpy_tree
+from test_torch_scheduler import HP, jax_params
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only on the GPU")
+    return torch.device("cuda")
+
+
+def to_t(a, dtype=None):
+    """numpy or JAX array -> torch tensor (bf16 through f32, exactly)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    t = torch.from_numpy(np.array(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def f32(t):
+    return t.to(torch.float32).numpy()
+
+
+# ---------------------------------------------------------------------------
+# the allocator, on both packages
+# ---------------------------------------------------------------------------
+
+def manager(side, **kw):
+    hp = HyperParams(n_vocab=64, n_embd=64, n_head=4, n_layer=2, n_rot=16)
+    if side == "jax":
+        return jpk.PagedKVManager(hp, dtype=jnp.float32, **kw)
+    return tpk.PagedKVManager(hp, dtype=torch.float32, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("side", ["jax", "torch"])
+def test_allocator_alloc_free(side):
+    m = manager(side, n_slots=3, page_size=8, total_pages=6, pages_per_seq=3)
+    assert m.free_pages == 6 and m.sentinel == 6
+    assert tuple(m.k_pages[0].shape) == (4, 7, 8, 16)   # + the trash page
+    assert m.alloc_for(0, 1)          # 1 page
+    assert m.alloc_for(0, 8)          # still 1 page
+    assert m.alloc_for(0, 9)          # 2 pages
+    assert m.free_pages == 4
+    assert m.alloc_for(1, 24)         # 3 pages
+    assert m.free_pages == 1
+    assert not m.alloc_for(2, 16)     # needs 2, only 1 free: nothing taken
+    assert m.free_pages == 1
+    m.free_slot(1)
+    assert m.free_pages == 4
+    assert m.alloc_for(2, 16)
+
+
+@pytest.mark.parametrize("side", ["jax", "torch"])
+def test_allocator_pages_per_seq_cap(side):
+    m = manager(side, n_slots=1, page_size=8, total_pages=16,
+                pages_per_seq=2)
+    assert m.alloc_for(0, 16)
+    assert not m.alloc_for(0, 17)     # over the per-sequence cap
+
+
+@pytest.mark.parametrize("side", ["jax", "torch"])
+def test_token_page_offsets(side):
+    m = manager(side, n_slots=1, page_size=4, total_pages=8, pages_per_seq=4)
+    assert m.alloc_for(0, 10)
+    pages, offs = m.token_page_offsets(0, 2, 6)   # tokens 2..7
+    assert list(offs) == [2, 3, 0, 1, 2, 3]
+    assert pages.dtype == np.int32 and offs.dtype == np.int32
+    assert pages[0] == pages[1] == m.page_tables[0, 0]
+    assert pages[2] == pages[5] == m.page_tables[0, 1]
+
+
+def test_allocators_hand_out_the_same_pages():
+    """The same calls give the same tables on both packages (the engines'
+    streams depend on nothing else of the allocator)."""
+    ms = [manager(s, n_slots=3, page_size=8, total_pages=9, pages_per_seq=4)
+          for s in ("jax", "torch")]
+    for m in ms:
+        m.alloc_for(0, 20)
+        m.alloc_for(2, 9)
+        m.free_slot(0)
+        m.alloc_for(1, 30)
+        m.alloc_for(2, 17)
+    np.testing.assert_array_equal(ms[0].page_tables, ms[1].page_tables)
+    assert ms[0].free_pages == ms[1].free_pages
+
+
+def test_load_from_numpy_rebuilds_the_allocator():
+    rng = np.random.default_rng(2)
+    jm = manager("jax", n_slots=2, page_size=8, total_pages=6,
+                 pages_per_seq=3)
+    jm.alloc_for(0, 10)
+    jm.alloc_for(1, 3)
+    jm.lengths[:] = [10, 3]
+    jm.k_pages = [jnp.asarray(rng.standard_normal(p.shape), jnp.float32)
+                  for p in jm.k_pages]
+    tm = manager("torch", n_slots=2, page_size=8, total_pages=6,
+                 pages_per_seq=3)
+    tm.load_from_numpy([np.asarray(p) for p in jm.k_pages],
+                       [np.asarray(p) for p in jm.v_pages], jm.page_tables,
+                       jm.lengths)
+    np.testing.assert_array_equal(tm.k_pages[1].numpy(),
+                                  np.asarray(jm.k_pages[1]))
+    assert tm.free_pages == jm.free_pages == 3
+    assert tm.alloc_for(0, 17) and jm.alloc_for(0, 17)
+    np.testing.assert_array_equal(tm.page_tables, jm.page_tables)
+    tm.free_slot(0)
+    assert tm.free_pages == 5
+
+
+# ---------------------------------------------------------------------------
+# write_tokens_paged, B7 and B8
+# ---------------------------------------------------------------------------
+
+def test_write_tokens_paged_matches_jax():
+    """The scatter with ids past the pool dropped: several tokens, one
+    dropped in the middle, one sequence dropped whole."""
+    rng = np.random.default_rng(0)
+    h, p, ps, d = 2, 6, 4, 8
+    kp = rng.standard_normal((h, p, ps, d)).astype(np.float32)
+    vp = rng.standard_normal((h, p, ps, d)).astype(np.float32)
+    k_new = rng.standard_normal((2, 3, h, d)).astype(np.float32)
+    v_new = rng.standard_normal((2, 3, h, d)).astype(np.float32)
+    pids = np.array([[3, 6, 1], [9, 9, 9]], np.int32)      # 6, 9: dropped
+    offs = np.array([[0, 2, 3], [1, 1, 1]], np.int32)
+    want = jpk.write_tokens_paged(*(jnp.asarray(a) for a in (
+        kp, vp, k_new, v_new, pids, offs)))
+    tk, tv = to_t(kp), to_t(vp)
+    got = tpk.write_tokens_paged(tk, tv, to_t(k_new), to_t(v_new),
+                                 to_t(pids), to_t(offs))
+    assert got[0] is tk and got[1] is tv                   # in place
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(want[1]))
+    # nothing kept: the pools stay as they are
+    tk2 = to_t(kp)
+    tpk.write_tokens_paged(tk2, to_t(vp), to_t(k_new), to_t(v_new),
+                           to_t(np.full((2, 3), 7, np.int32)), to_t(offs))
+    np.testing.assert_array_equal(tk2.numpy(), kp)
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_b7_plain_matches_pallas_and_scatter(pool):
+    """paged_kv_write's plain version against the Pallas kernel (interpret
+    mode) and the scatter: every page but the trash page bit for bit."""
+    rng = np.random.default_rng(3)
+    h, p, ps, d = 4, 5, 16, 128        # page 4 = trash (sentinel id)
+    b = 4
+    jdt = getattr(jnp, pool)
+    kp = jnp.asarray(rng.standard_normal((h, p, ps, d)), jdt)
+    vp = jnp.asarray(rng.standard_normal((h, p, ps, d)), jdt)
+    k_new = rng.standard_normal((b, h, d)).astype(np.float32)
+    v_new = rng.standard_normal((b, h, d)).astype(np.float32)
+    pids = np.array([1, 3, 4, 4], np.int32)     # slots 2, 3 inactive
+    offs = np.array([9, 3, 7, 7], np.int32)
+
+    pk, pv = jkw.paged_kv_write(kp, vp, jnp.asarray(k_new),
+                                jnp.asarray(v_new), jnp.asarray(pids),
+                                jnp.asarray(offs), interpret=True)
+    sk, sv = jpk.write_tokens_paged(
+        kp, vp, jnp.asarray(k_new)[:, None], jnp.asarray(v_new)[:, None],
+        jnp.asarray(pids)[:, None], jnp.asarray(offs)[:, None])
+    tk, tv = to_t(kp), to_t(vp)
+    out = tkw.paged_kv_write(tk, tv, to_t(k_new), to_t(v_new), to_t(pids),
+                             to_t(offs))
+    assert out[0] is tk and out[1] is tv
+    for got, pal, sc in ((tk, pk, sk), (tv, pv, sv)):
+        np.testing.assert_array_equal(f32(got)[:, :4], f32(to_t(pal))[:, :4])
+        np.testing.assert_array_equal(f32(got)[:, :4], f32(to_t(sc))[:, :4])
+    np.testing.assert_array_equal(
+        f32(tk)[:, 1, 9], f32(to_t(k_new[0]).to(getattr(torch, pool))))
+
+
+def test_b7_drops_ids_outside_the_pool():
+    rng = np.random.default_rng(4)
+    h, p, ps, d = 2, 3, 4, 8
+    kp = to_t(rng.standard_normal((h, p, ps, d)).astype(np.float32))
+    vp = kp.clone()
+    before = kp.clone()
+    new = to_t(rng.standard_normal((3, h, d)).astype(np.float32))
+    tkw.paged_kv_write(kp, vp, new, new, to_t(np.array([3, -1, 7], np.int32)),
+                       to_t(np.array([0, 1, 2], np.int32)))
+    assert torch.equal(kp, before) and torch.equal(vp, before)
+    tkw.paged_kv_write(kp, vp, new, new, to_t(np.array([3, 1, 7], np.int32)),
+                       to_t(np.array([0, 1, 2], np.int32)))
+    assert torch.equal(kp[:, 1, 1], new[1])
+    assert int((kp != before).any(-1).sum()) == h          # one row per head
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_b8_plain_matches_pallas_and_scatter(pool):
+    """paged_kv_write_rows' plain version against the Pallas kernel
+    (interpret mode) and the scatter; a sentinel block lands in the trash
+    page, every other page bit for bit."""
+    rng = np.random.default_rng(1)
+    h, p, ps, d = 4, 6, 8, 128          # page 5 = trash
+    jdt = getattr(jnp, pool)
+    kp = jnp.asarray(rng.standard_normal((h, p, ps, d)), jdt)
+    vp = jnp.asarray(rng.standard_normal((h, p, ps, d)), jdt)
+    t = 32
+    rows_k = jnp.asarray(rng.standard_normal((t, h * d)), jdt)
+    rows_v = jnp.asarray(rng.standard_normal((t, h * d)), jdt)
+    block_pages = np.array([2, 0, 5, 4], np.int32)
+    pk, pv = jkw.paged_kv_write_rows(kp, vp, rows_k, rows_v,
+                                     jnp.asarray(block_pages),
+                                     interpret=True)
+    pages = np.repeat(block_pages, ps)[None, :]
+    offs = np.tile(np.arange(ps, dtype=np.int32), 4)[None, :]
+    sk, sv = jpk.write_tokens_paged(
+        kp, vp, rows_k.reshape(1, t, h, d), rows_v.reshape(1, t, h, d),
+        jnp.asarray(pages), jnp.asarray(offs))
+    tk, tv = to_t(kp), to_t(vp)
+    out = tkw.paged_kv_write_rows(tk, tv, to_t(rows_k), to_t(rows_v),
+                                  to_t(block_pages))
+    assert out[0] is tk and out[1] is tv
+    for got, pal, sc in ((tk, pk, sk), (tv, pv, sv)):
+        np.testing.assert_array_equal(f32(got)[:, :5], f32(to_t(pal))[:, :5])
+        np.testing.assert_array_equal(f32(got)[:, :5], f32(to_t(sc))[:, :5])
+    # an id past the pool writes nothing
+    tk2 = to_t(kp)
+    tkw.paged_kv_write_rows(tk2, to_t(vp), to_t(rows_k), to_t(rows_v),
+                            to_t(np.array([6, 9, -1, 60], np.int32)))
+    np.testing.assert_array_equal(f32(tk2), f32(to_t(kp)))
+
+
+def test_write_wrappers_reject_wrong_shapes():
+    kp = torch.zeros((2, 3, 4, 8))
+    ids = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="f32"):
+        tkw.paged_kv_write(kp, kp.clone(), torch.zeros((2, 2, 8),
+                           dtype=torch.bfloat16), torch.zeros((2, 2, 8)),
+                           ids, ids)
+    with pytest.raises(ValueError, match="multiple of the page size"):
+        tkw.paged_kv_write_rows(kp, kp.clone(), torch.zeros((6, 16)),
+                                torch.zeros((6, 16)), ids)
+    with pytest.raises(ValueError, match="pools must match"):
+        tkw.paged_kv_write(kp, kp.to(torch.bfloat16), torch.zeros((2, 2, 8)),
+                           torch.zeros((2, 2, 8)), ids, ids)
+
+
+# ---------------------------------------------------------------------------
+# B6
+# ---------------------------------------------------------------------------
+
+def attention_case(pool, seed=7):
+    rng = np.random.default_rng(seed)
+    h, d, ps, pages, pp, b = 4, 128, 8, 24, 4, 5
+    jdt = getattr(jnp, pool)
+    kp = jnp.asarray(rng.standard_normal((h, pages, ps, d)), jdt)
+    vp = jnp.asarray(rng.standard_normal((h, pages, ps, d)), jdt)
+    tables = rng.permutation(pages)[: b * pp].reshape(b, pp).astype(np.int32)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    lengths = np.array([5, 1, 32, 8, 7], np.int32)   # partial/single/full
+    return q, kp, vp, lengths, tables
+
+
+@pytest.mark.parametrize("pool,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("group_size", [0, 2])
+def test_b6_plain_matches_pallas(pool, tol, group_size):
+    """paged_decode_attention's plain version against the Pallas kernel in
+    interpret mode, double-buffered (group_size 0) and single-bank with two
+    heads per cell. f32 pools: 1e-5. bf16 pools: both cast q and p to bf16
+    before the dots, but XLA's and PyTorch's exp differ by an f32 ulp, which
+    can move a rounded p by one bf16 ulp (2^-8 relative): 2e-2 absolute on
+    outputs of order 1."""
+    q, kp, vp, lengths, tables = attention_case(pool)
+    want = np.asarray(jpa.paged_decode_attention(
+        jnp.asarray(q), kp, vp, jnp.asarray(lengths), jnp.asarray(tables),
+        group_size=group_size, interpret=True))
+    got = tpa.paged_decode_attention(to_t(q), to_t(kp), to_t(vp),
+                                     to_t(lengths), to_t(tables)).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_b6_plain_matches_the_references_at_f32():
+    q, kp, vp, lengths, tables = attention_case("float32", seed=8)
+    want = np.asarray(jpk.paged_attention_reference(
+        jnp.asarray(q), kp, vp, jnp.asarray(lengths), jnp.asarray(tables)))
+    args = (to_t(q), to_t(kp), to_t(vp), to_t(lengths), to_t(tables))
+    np.testing.assert_allclose(tpa.paged_decode_attention(*args).numpy(),
+                               want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tpk.paged_attention_reference(*args).numpy(),
+                               want, rtol=1e-5, atol=1e-5)
+
+
+def test_b6_plain_length_zero_and_stale_pages():
+    """A sequence of length 0 yields zeros, and nothing in a page past the
+    length (NaN here) reaches the output."""
+    q, kp, vp, lengths, tables = attention_case("float32", seed=9)
+    lengths = np.array([0, 1, 9, 8, 3], np.int32)
+    tk, tv = to_t(kp), to_t(vp)
+    used = set()
+    for row, n in zip(tables, lengths):
+        used.update(row[:-(-int(n) // 8)].tolist() if n else [])
+    stale = [p for p in range(tk.shape[1]) if p not in used]
+    clean = tpa.paged_decode_attention(to_t(q), tk, tv, to_t(lengths),
+                                       to_t(tables))
+    tk[:, stale] = float("nan")
+    tv[:, stale] = float("nan")
+    got = tpa.paged_decode_attention(to_t(q), tk, tv, to_t(lengths),
+                                     to_t(tables))
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, clean)
+    assert (got[0] == 0).all()
+
+
+def test_b6_wrapper_rejects_wrong_types():
+    q, kp, vp, lengths, tables = attention_case("float32")
+    with pytest.raises(ValueError, match="lengths"):
+        tpa.paged_decode_attention(to_t(q), to_t(kp), to_t(vp),
+                                   to_t(lengths).long(), to_t(tables))
+    with pytest.raises(ValueError, match="pools must match"):
+        tpa.paged_decode_attention(to_t(q), to_t(kp)[:2], to_t(vp),
+                                   to_t(lengths), to_t(tables))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_b6_kernel_matches_plain(cuda_device, pool):
+    q, kp, vp, lengths, tables = attention_case(pool)
+    lengths[0] = 0
+    args = [to_t(a).to(cuda_device) for a in (q, kp, vp, lengths, tables)]
+    got = tpa.paged_decode_attention(*args)
+    want = tpa.paged_decode_attention_plain(*args)
+    tol = 2e-2 if pool == "bfloat16" else 1e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_b7_b8_kernels_match_plain(cuda_device, pool):
+    rng = np.random.default_rng(12)
+    h, p, ps, d = 4, 6, 8, 128
+    dt = getattr(torch, pool)
+    pools = [to_t(rng.standard_normal((h, p, ps, d)).astype(np.float32))
+             .to(dt).to(cuda_device) for _ in range(2)]
+    ref = [x.clone() for x in pools]
+    new = [to_t(rng.standard_normal((3, h, d)).astype(np.float32))
+           .to(cuda_device) for _ in range(2)]
+    pids = to_t(np.array([2, 5, 9], np.int32)).to(cuda_device)
+    offs = to_t(np.array([7, 0, 1], np.int32)).to(cuda_device)
+    tkw.paged_kv_write(*pools, *new, pids, offs)
+    tkw.paged_kv_write_plain(*ref, *new, pids, offs)
+    rows = [to_t(rng.standard_normal((16, h * d)).astype(np.float32)).to(dt)
+            .to(cuda_device) for _ in range(2)]
+    blocks = to_t(np.array([4, 5], np.int32)).to(cuda_device)
+    tkw.paged_kv_write_rows(*pools, *rows, blocks)
+    tkw.paged_kv_write_rows_plain(*ref, *rows, blocks)
+    for got, want in zip(pools, ref):
+        assert torch.equal(got[:, :5], want[:, :5])
+
+
+# ---------------------------------------------------------------------------
+# the paged forward passes
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def params():
+    jp = jax_params()
+    return jp, tl.params_from_numpy(to_numpy_tree(jp), device="cpu")
+
+
+def paged_prefill_then_decode(params, mode):
+    """A 5-token prompt prefilled into pages (bucket 8, sentinel tail), then
+    two decode steps of a batch of two slots (the second inactive), on both
+    packages. Returns [(port logits, jax logits)], port and jax managers."""
+    jp, tp = params
+    jcfg = jl.ForwardConfig(n_head=HP.n_head, n_rot=HP.n_rot, w_dtype=mode,
+                            use_pallas=False, prefill_int8=False)
+    tcfg = tl.ForwardConfig(n_head=HP.n_head, n_rot=HP.n_rot, w_dtype=mode,
+                            prefill_int8=False)
+    kw = dict(n_slots=2, page_size=4, total_pages=8, pages_per_seq=4)
+    jm = jpk.PagedKVManager(HP, dtype=getattr(jnp, mode), **kw)
+    tm = tpk.PagedKVManager(HP, dtype=getattr(torch, mode), device="cpu",
+                            **kw)
+    prompt = [1, 5, 9, 20, 7]
+    t0, bucket = len(prompt), 8
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :t0] = prompt
+    out = []
+    for m in (jm, tm):
+        assert m.alloc_for(0, t0)
+    pages = np.full(bucket, jm.sentinel, np.int32)
+    offs = np.zeros(bucket, np.int32)
+    pages[:t0], offs[:t0] = jm.token_page_offsets(0, 0, t0)
+    jlog, jm.k_pages, jm.v_pages = jl.forward_paged_prefill(
+        jp, jnp.asarray(toks), jnp.int32(t0 - 1), jnp.asarray(pages),
+        jnp.asarray(offs), jm.k_pages, jm.v_pages, jcfg)
+    tlog, _, _ = tl.forward_paged_prefill(
+        tp, to_t(toks).long(), t0 - 1, to_t(pages), to_t(offs), tm.k_pages,
+        tm.v_pages, tcfg)
+    out.append((tlog.numpy(), np.asarray(jlog)))
+    n = t0
+    for tok in (11, 30):
+        for m in (jm, tm):
+            assert m.alloc_for(0, n + 1)
+        wp, wo = jm.token_page_offsets(0, n, 1)
+        lengths = np.array([n, 0], np.int32)
+        page_ids = np.array([wp[0], jm.sentinel], np.int32)
+        offsets = np.array([wo[0], 0], np.int32)
+        step = np.array([[tok], [0]], np.int32)
+        jlog, jm.k_pages, jm.v_pages = jl.forward_paged_decode(
+            jp, jnp.asarray(step), jnp.asarray(lengths),
+            jnp.asarray(jm.page_tables), jm.k_pages, jm.v_pages,
+            jnp.asarray(page_ids), jnp.asarray(offsets), jcfg)
+        tlog, _, _ = tl.forward_paged_decode(
+            tp, to_t(step).long(), to_t(lengths), to_t(tm.page_tables),
+            tm.k_pages, tm.v_pages, to_t(page_ids), to_t(offsets), tcfg)
+        out.append((tlog.numpy()[0], np.asarray(jlog)[0]))
+        n += 1
+    return out, tm, jm
+
+
+def test_paged_forward_f32_matches_jax(params):
+    steps, tm, jm = paged_prefill_then_decode(params, "float32")
+    for tlog, jlog in steps:
+        assert tlog.shape == jlog.shape
+        np.testing.assert_allclose(tlog, jlog, rtol=2e-4, atol=2e-4)
+    # the pools: every page but the trash page
+    for li in range(HP.n_layer):
+        for tpool, jpool in ((tm.k_pages[li], jm.k_pages[li]),
+                             (tm.v_pages[li], jm.v_pages[li])):
+            np.testing.assert_allclose(tpool.numpy()[:, :8],
+                                       np.asarray(jpool)[:, :8],
+                                       rtol=2e-4, atol=2e-4)
+
+
+def test_paged_forward_bf16_matches_jax(params):
+    """bf16 weights and pools. The prefill takes the same roundings on both
+    sides (1e-4 of the largest logit). The decode step runs B6's plain
+    version here, which casts q and p to bf16 as the TPU kernel does, and
+    the f32 jnp reference in JAX on the CPU: bf16 tolerance, 3e-2 of the
+    largest logit, as for the slab decode step (test_torch_model)."""
+    steps, tm, jm = paged_prefill_then_decode(params, "bfloat16")
+    tlog, jlog = steps[0]
+    np.testing.assert_allclose(tlog, jlog, rtol=0,
+                               atol=1e-4 * np.abs(jlog).max())
+    for tlog, jlog in steps[1:]:
+        np.testing.assert_allclose(tlog, jlog, rtol=0,
+                                   atol=3e-2 * np.abs(jlog).max())
+    np.testing.assert_allclose(
+        f32(tm.k_pages[0])[:, :8],
+        np.asarray(jm.k_pages[0]).astype(np.float32)[:, :8],
+        rtol=0, atol=2 ** -6)
+
+
+def test_paged_decode_matches_slab_forward(params):
+    """The port's own two caches agree: a prompt prefilled into the slab
+    cache and mirrored into pages, then one decode step each way."""
+    _, tp = params
+    cfg = tl.ForwardConfig(n_head=HP.n_head, n_rot=HP.n_rot,
+                           w_dtype="float32")
+    prompt = torch.tensor([[1, 5, 9, 20, 7]])
+    t0 = prompt.shape[1]
+    kv = tl.init_kv_cache(HP, 1, 16, dtype=torch.float32, device="cpu")
+    tl.forward(tp, prompt, 0, kv, cfg)
+    mgr = tpk.PagedKVManager(HP, n_slots=1, page_size=4, total_pages=8,
+                             pages_per_seq=4, dtype=torch.float32,
+                             device="cpu")
+    assert mgr.alloc_for(0, t0 + 1)
+    pages, offs = mgr.token_page_offsets(0, 0, t0)
+    for li in range(HP.n_layer):
+        k, v = (c[:, :t0].reshape(1, t0, HP.n_head, -1) for c in kv[li])
+        tpk.write_tokens_paged(mgr.k_pages[li], mgr.v_pages[li], k, v,
+                               to_t(pages[None]), to_t(offs[None]))
+    tok = torch.tensor([[11]])
+    want, _, _ = tl.forward(tp, tok, t0, kv, cfg)
+    wp, wo = mgr.token_page_offsets(0, t0, 1)
+    got, _, _ = tl.forward_paged_decode(
+        tp, tok, to_t(np.array([t0], np.int32)), to_t(mgr.page_tables),
+        mgr.k_pages, mgr.v_pages, to_t(wp), to_t(wo), cfg)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_paged_forward_ignores_lora_output(params):
+    """The paged forward passes of the JAX package add no lora_output term
+    to the head (forward does); the port follows them."""
+    import dataclasses
+    jp, tp = params
+    rng = np.random.default_rng(6)
+    delta = (rng.standard_normal((HP.n_embd, HP.n_vocab)) * 0.1).astype(
+        np.float32)
+    jp2 = dataclasses.replace(jp, lora_output=jl.LoraTerm(
+        delta=jnp.asarray(delta)))
+    tp2 = dataclasses.replace(tp, lora_output=tl.LoraTerm(
+        delta=torch.from_numpy(delta)))
+    plain, _, _ = paged_prefill_then_decode((jp, tp), "float32")
+    with_term, _, _ = paged_prefill_then_decode((jp2, tp2), "float32")
+    for (t0, j0), (t1, j1) in zip(plain, with_term):
+        np.testing.assert_array_equal(j0, j1)
+        np.testing.assert_array_equal(t0, t1)
