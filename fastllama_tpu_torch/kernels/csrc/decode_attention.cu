@@ -25,8 +25,8 @@
 // live in shared memory (4 bytes per row, S <= 12288). PV: each warp takes
 // every eighth row, its lanes read one row's head slice contiguously, and
 // the 8 warps' partial contexts are added through shared memory. At B = 1
-// the 7B model gives only 32 blocks for 132 SMs; splitting S across blocks
-// is later work.
+// the 7B model gives only 32 blocks for 132 SMs; B10 below splits S across
+// blocks, B4 keeps this design until its own redesign.
 //
 // B10 (decode_attention) replaces decode_attention (_decode_attn_kernel) of
 // the same file: attention alone, over caches that already hold the current
@@ -36,7 +36,24 @@
 //   ctx      = softmax(scores) @ V[b, :n_past + 1, h]
 // Everything is f32 after the load: neither q nor p is cast to the cache
 // type. A slot with n_past >= S attends all S rows and gives finite numbers.
-// It shares B4's row loops (attend_scores, attend_values) and its bound.
+//
+// B10's design is flash-decoding, with loops of its own (B4 keeps the ones
+// above). One block per (h, b) walking every row left three quarters of the
+// SMs idle at B = 1 (32 blocks) and read key rows 8 KB apart within a warp.
+// Here the grid is (h, b, split): the host cuts S (never n_past, which would
+// cost a host sync) into `splits` chunks of `chunk` <= 64 rows. A block
+// takes the rows of its chunk that are <= min(n_past, S - 1): it first puts
+// every K and V row of the chunk in flight at once (cp.async, 16 bytes a
+// lane, coalesced) into shared memory, so the chunk costs one memory round
+// trip; then 16 lanes take one row and reduce its dot by shuffles, 8 such
+// groups take 8 rows at a time, the chunk's scores sit in shared memory,
+// p = exp(score - m), and the same groups accumulate p * V. A chunk past the
+// length (the neutral partial: m = -inf, l = 0) exits at once; a sequence
+// whose rows fit one chunk is written by that block directly. Otherwise
+// each block writes its partial (m, l, ctx[D]) to scratch [B, H, splits,
+// D + 2], and the last of the sequence's active blocks, elected by an atomic
+// counter that it resets, merges the partials in chunk order, loading 8 of
+// them at a time in one round trip: deterministic, one launch, graph-safe.
 
 #include "common.cuh"
 
@@ -187,69 +204,254 @@ int launch(const void* qkv, void* kc, void* vc, const void* n_past,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attn_only_kernel(const float* __restrict__ q, const T* __restrict__ kc,
-                 const T* __restrict__ vc, const int* __restrict__ n_past,
-                 int S, int F, int d, float scale, float* __restrict__ out) {
-  extern __shared__ float scores[];              // [S]
-  __shared__ float q_s[kMaxD];
-  __shared__ float ctx_s[kWarps][kMaxD];
-  __shared__ float red[32];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int n = min(max(n_past[b], 0) + 1, S);   // rows s <= n_past
-  const size_t head_off = (size_t)h * d;
-  for (int l = tid; l < d; l += kThreads) q_s[l] = q[(size_t)b * F + head_off + l];
-  __syncthreads();
-  float m, lsum;
-  attend_scores<T>(q_s, kc + (size_t)b * S * F + head_off, n, F, d, scale,
-                   -INFINITY, scores, red, m, lsum);
-  const float l_tot = fltorch::block_sum(lsum, red);             // syncs
-  attend_values<T, false>(scores, vc + (size_t)b * S * F + head_off, n, F, d,
-                          ctx_s);
-  __syncthreads();
-  for (int l = tid; l < d; l += kThreads) {
-    float c = 0.f;
+// ---- B10 ----------------------------------------------------------------
+
+constexpr int kSplitThreads = 128;               // 8 groups of 16 lanes
+constexpr int kGroups = kSplitThreads / 16, kMaxChunk = 64;
+constexpr int kMaxSplits = 12288 / kMaxChunk;    // S <= 12288
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ float group16_sum(float v) {
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) c += ctx_s[w][l];
-    out[(size_t)b * F + head_off + l] = c / l_tot;
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// EPL consecutive cache elements of one lane from shared memory, widened.
+template <typename T, int EPL>
+__device__ __forceinline__ void lane_row(const T* p, float* out) {
+  if constexpr (EPL * sizeof(T) % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < EPL; i += Vec16<T>::kN) Vec16<T>::load(p + i, out + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) out[i] = fltorch::to_f32(p[i]);
   }
 }
 
-template <typename T>
-int launch_attn_only(const void* q, const void* kc, const void* vc,
-                     const void* n_past, int B, int S, int F, int d,
-                     float scale, void* out, cudaStream_t stream) {
-  dim3 grid(F / d, B);
-  const size_t smem = (size_t)S * sizeof(float);
-  if (smem > 48 * 1024) {
+template <typename T, int EPL>
+__global__ void __launch_bounds__(kSplitThreads)
+attn_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
+                  const T* __restrict__ vc, const int* __restrict__ n_past,
+                  int S, int F, int chunk, float scale,
+                  float* __restrict__ partial, int* __restrict__ counters,
+                  float* __restrict__ out) {
+  constexpr int D = 16 * EPL;
+  constexpr int kRowChunks = D * (int)sizeof(T) / 16;   // 16-byte pieces
+  extern __shared__ __align__(16) uint8_t kv_raw[];     // K, V [chunk][D]
+  __shared__ float sc[kMaxChunk];
+  __shared__ float red[kGroups][D];
+  __shared__ float ml[2];
+  __shared__ int is_last;
+  const int h = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int H = gridDim.x, nsp = gridDim.z;
+  const int tid = threadIdx.x, grp = tid >> 4, gl = tid & 15;
+  const int n = min(max(n_past[b], 0) + 1, S);   // rows s <= n_past
+  const int act = (n + chunk - 1) / chunk;       // chunks holding rows
+  if (sp >= act) return;                         // past the length
+  const int s0 = sp * chunk, cnt = min(s0 + chunk, n) - s0;
+  const size_t head_off = (size_t)h * D;
+  T* ks = reinterpret_cast<T*>(kv_raw);
+  T* vs = ks + (size_t)chunk * D;
+
+  // every K and V row of the chunk in flight at once, K and V as two
+  // groups: the scores need only K, so V keeps arriving meanwhile
+  const size_t base = ((size_t)b * S + s0) * F + head_off;
+  for (int i = tid; i < cnt * kRowChunks; i += kSplitThreads) {
+    const int r = i / kRowChunks, c = i - r * kRowChunks;
+    cp_async16(ks + (size_t)r * D + c * (16 / sizeof(T)),
+               kc + base + (size_t)r * F + c * (16 / sizeof(T)));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int i = tid; i < cnt * kRowChunks; i += kSplitThreads) {
+    const int r = i / kRowChunks, c = i - r * kRowChunks;
+    cp_async16(vs + (size_t)r * D + c * (16 / sizeof(T)),
+               vc + base + (size_t)r * F + c * (16 / sizeof(T)));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  float qv[EPL];
+  const float* qrow = q + (size_t)b * F + head_off + gl * EPL;
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) qv[i] = qrow[i];
+  asm volatile("cp.async.wait_group 1;\n" ::);
+  __syncthreads();
+
+  // scores: group g takes rows g, g + 8, ...; the trip count is the same
+  // for every lane of the block, so the shuffles are uniform
+  for (int r0 = 0; r0 < cnt; r0 += kGroups) {
+    const int r = r0 + grp;
+    float acc = 0.f;
+    if (r < cnt) {
+      float kv[EPL];
+      lane_row<T, EPL>(ks + (size_t)r * D + gl * EPL, kv);
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) acc += qv[i] * kv[i];
+    }
+    acc = group16_sum(acc);
+    if (r < cnt && gl == 0) sc[r] = acc * scale;
+  }
+  __syncthreads();
+  if (tid < 32) {                                // softmax over <= 64 rows
+    const float a = tid < cnt ? sc[tid] : -INFINITY;
+    const float c = tid + 32 < cnt ? sc[tid + 32] : -INFINITY;
+    const float m = fltorch::warp_max(fmaxf(a, c));
+    const float pa = tid < cnt ? expf(a - m) : 0.f;
+    const float pc = tid + 32 < cnt ? expf(c - m) : 0.f;
+    if (tid < cnt) sc[tid] = pa;
+    if (tid + 32 < cnt) sc[tid + 32] = pc;
+    const float l = fltorch::warp_sum(pa + pc);
+    if (tid == 0) {
+      ml[0] = m;
+      ml[1] = l;
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  float acc[EPL];
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) acc[i] = 0.f;
+  for (int r = grp; r < cnt; r += kGroups) {
+    const float p = sc[r];
+    float vv[EPL];
+    lane_row<T, EPL>(vs + (size_t)r * D + gl * EPL, vv);
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) acc[i] += p * vv[i];
+  }
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) red[grp][gl * EPL + i] = acc[i];
+  __syncthreads();
+  float* o = out + (size_t)b * F + head_off;
+  if (act == 1) {                                // one chunk: no merge
+    for (int l = tid; l < D; l += kSplitThreads) {
+      float c = 0.f;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) c += red[g][l];
+      o[l] = c / ml[1];
+    }
+    return;
+  }
+  float* part = partial + (((size_t)b * H + h) * nsp + sp) * (D + 2);
+  for (int l = tid; l < D; l += kSplitThreads) {
+    float c = 0.f;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) c += red[g][l];
+    part[2 + l] = c;
+  }
+  if (tid == 0) {
+    part[0] = ml[0];
+    part[1] = ml[1];
+  }
+
+  // The last of the act blocks of this (b, h) merges them in chunk order.
+  __threadfence();
+  __syncthreads();
+  const int ctr = b * H + h;
+  if (tid == 0) is_last = atomicAdd(&counters[ctr], 1) == act - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const float* pb = partial + ((size_t)b * H + h) * nsp * (D + 2);
+  // chunks in order, 8 at a time: the (m, l, ctx) of a batch are loaded
+  // together (one round trip), merged two-pass within the batch and online
+  // (rescaled by the running max) across batches
+  constexpr int kBatch = 8;
+  for (int l = tid; l < D; l += kSplitThreads) {
+    float M = -INFINITY, L = 0.f, C = 0.f;
+    for (int i0 = 0; i0 < act; i0 += kBatch) {
+      float mi[kBatch], li[kBatch], ci[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const float* pi = pb + (size_t)(i0 + j) * (D + 2);
+        const bool ok = i0 + j < act;
+        mi[j] = ok ? __ldcg(pi) : -INFINITY;
+        li[j] = ok ? __ldcg(pi + 1) : 0.f;
+        ci[j] = ok ? __ldcg(pi + 2 + l) : 0.f;
+      }
+      float mb = M;
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) mb = fmaxf(mb, mi[j]);
+      const float r = expf(M - mb);              // 0 on the first batch
+      L *= r;
+      C *= r;
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const float e = i0 + j < act ? expf(mi[j] - mb) : 0.f;
+        L += li[j] * e;
+        C += ci[j] * e;
+      }
+      M = mb;
+    }
+    o[l] = C / L;
+  }
+  if (tid == 0) counters[ctr] = 0;
+}
+
+template <typename T, int EPL>
+int launch_split(const void* q, const void* kc, const void* vc,
+                 const void* n_past, int B, int S, int F, int splits,
+                 int chunk, float scale, void* partial, void* counters,
+                 void* out, cudaStream_t stream) {
+  const size_t smem = (size_t)2 * chunk * 16 * EPL * sizeof(T);
+  if (smem + 16 * 1024 > 48 * 1024) {    // with the static shared memory
     cudaError_t err = cudaFuncSetAttribute(
-        attn_only_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        attn_split_kernel<T, EPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  attn_only_kernel<T><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(F / (16 * EPL), B, splits);
+  attn_split_kernel<T, EPL><<<grid, kSplitThreads, smem, stream>>>(
       (const float*)q, (const T*)kc, (const T*)vc, (const int*)n_past, S, F,
-      d, scale, (float*)out);
+      chunk, scale, (float*)partial, (int*)counters, (float*)out);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_split(const void* q, const void* kc, const void* vc,
+                   const void* n_past, int B, int S, int F, int d, int splits,
+                   int chunk, float scale, void* partial, void* counters,
+                   void* out, cudaStream_t s) {
+#define FLTORCH_B10_CASE(EPL)                                                 \
+  case 16 * EPL:                                                              \
+    return launch_split<T, EPL>(q, kc, vc, n_past, B, S, F, splits, chunk,    \
+                                scale, partial, counters, out, s);
+  switch (d) {
+    FLTORCH_B10_CASE(2) FLTORCH_B10_CASE(4) FLTORCH_B10_CASE(6)
+    FLTORCH_B10_CASE(8) FLTORCH_B10_CASE(10) FLTORCH_B10_CASE(12)
+    FLTORCH_B10_CASE(14) FLTORCH_B10_CASE(16)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FLTORCH_B10_CASE
 }
 
 }  // namespace
 
 // B10. q f32 [B, F] (already roped), caches [B, S, F] of type bf16
 // (cache_bf16 = 1) or f32 with the current row written, n_past int32 [B]
-// (>= 0), out f32 [B, F]; d <= 256 and a multiple of 32.
+// (>= 0), out f32 [B, F]; d <= 256 and a multiple of 32. The caller cuts S
+// into `splits` chunks of `chunk` <= 64 rows (splits * chunk >= S) and
+// passes partial f32 [B, F / d, splits, d + 2] scratch and counters int32
+// zeros [B * F / d] (left zeroed).
 // Returns the CUDA error code of the launch.
 extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
                                 const void* n_past, int B, int S, int F,
-                                int d, float scale, int cache_bf16, void* out,
-                                void* stream) {
+                                int d, int splits, int chunk, float scale,
+                                int cache_bf16, void* partial, void* counters,
+                                void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (chunk < 1 || chunk > kMaxChunk || splits < 1 || splits > kMaxSplits ||
+      d > kMaxD || d % 32)
+    return (int)cudaErrorInvalidValue;
   if (cache_bf16)
-    return launch_attn_only<__nv_bfloat16>(q, kc, vc, n_past, B, S, F, d,
-                                           scale, out, s);
-  return launch_attn_only<float>(q, kc, vc, n_past, B, S, F, d, scale, out, s);
+    return dispatch_split<__nv_bfloat16>(q, kc, vc, n_past, B, S, F, d,
+                                         splits, chunk, scale, partial,
+                                         counters, out, s);
+  return dispatch_split<float>(q, kc, vc, n_past, B, S, F, d, splits, chunk,
+                               scale, partial, counters, out, s);
 }
 
 // B4. qkv f32 [B, 3F], caches [B, S, F] of type bf16 (cache_bf16 = 1) or f32,

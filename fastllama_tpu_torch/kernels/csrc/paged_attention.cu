@@ -1,5 +1,5 @@
-// Kernel B6: one decode step's attention for one layer over the paged KV
-// pools.
+// Kernels B6 and B11: one decode step's attention for one layer over the
+// paged KV pools, head-major (B6) or flat-lane (B11).
 //
 // Replaces fastllama_tpu/kernels/paged_attention.py::paged_decode_attention
 // (_paged_attn_db_kernel and its single-bank fallback). For each (sequence
@@ -26,6 +26,17 @@
 // the 8 warps' partial contexts are added through shared memory. The TPU
 // kernel's head groups, scratch banks and double-buffered page gather have
 // no counterpart: blocks run in parallel and read the pools directly.
+//
+// B11 (paged_decode_attention_flat) replaces paged_decode_attention_flat
+// (_paged_attn_flat_kernel) of the same file: B6's contract over flat-lane
+// pools [P, ps, H * D], where the heads of one row sit side by side as in the
+// slab cache. No dispatch of the JAX package reaches it (the round-5 layout
+// experiment). The TPU kernel copies each page as one contiguous DMA; here
+// the only difference from B6 is where a key row lives:
+//   B6:  kp[((h * P + page) * ps + r) * D]      head stride P*ps*D, row D
+//   B11: kp[(page * ps + r) * H * D + h * D]    head stride D, row H*D
+// so both run the same kernel with the two strides as arguments, and B11 on
+// flat pools equals B6 on the head-major transpose bit for bit.
 
 #include "common.cuh"
 
@@ -40,7 +51,8 @@ __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                   const T* __restrict__ vp, const int* __restrict__ lengths,
                   const int* __restrict__ tables, int H, int P, int ps,
-                  int pp, int d, float scale, float* __restrict__ out) {
+                  int pp, int d, size_t head_stride, int row_stride,
+                  float scale, float* __restrict__ out) {
   extern __shared__ float smem[];                // scores [pp * ps], pages [pp]
   float* scores = smem;
   int* pages = reinterpret_cast<int*>(smem + (size_t)pp * ps);
@@ -58,11 +70,11 @@ paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     q_s[l] = fltorch::to_f32(fltorch::from_f32<T>(q[q_off + l]));
   __syncthreads();
 
-  const size_t head_base = (size_t)h * P * ps * d;
+  const size_t head_base = (size_t)h * head_stride;
   constexpr int VN = Vec16<T>::kN;
   for (int s = tid; s < n; s += kThreads) {
     const T* row =
-        kp + head_base + ((size_t)pages[s / ps] * ps + (s % ps)) * d;
+        kp + head_base + ((size_t)pages[s / ps] * ps + (s % ps)) * row_stride;
     float acc = 0.f;
 #pragma unroll 4
     for (int l = 0; l < d; l += VN) {
@@ -93,7 +105,7 @@ paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   for (int s = warp; s < n; s += kWarps) {
     const float p = fltorch::to_f32(fltorch::from_f32<T>(scores[s]));
     const T* row = vp + head_base +
-                   ((size_t)pages[s / ps] * ps + (s % ps)) * d +
+                   ((size_t)pages[s / ps] * ps + (s % ps)) * row_stride +
                    lane * per_lane;
 #pragma unroll
     for (int i = 0; i < kMaxD / 32; ++i)
@@ -114,7 +126,7 @@ paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ kp,
 template <typename T>
 int launch(const void* q, const void* kp, const void* vp, const void* lengths,
            const void* tables, int B, int H, int P, int ps, int pp, int d,
-           float scale, void* out, cudaStream_t stream) {
+           int flat, float scale, void* out, cudaStream_t stream) {
   dim3 grid(H, B);
   const size_t smem = ((size_t)pp * ps + pp) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -125,25 +137,47 @@ int launch(const void* q, const void* kp, const void* vp, const void* lengths,
   }
   paged_attn_kernel<T><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const T*)kp, (const T*)vp, (const int*)lengths,
-      (const int*)tables, H, P, ps, pp, d, scale, (float*)out);
+      (const int*)tables, H, P, ps, pp, d,
+      flat ? (size_t)d : (size_t)P * ps * d, flat ? H * d : d, scale,
+      (float*)out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// B6. q f32 [B, H, d] (already roped), pools [H, P, ps, d] of type bf16
-// (pool_bf16 = 1) or f32 with the current row written, lengths int32 [B],
-// tables int32 [B, pp], out f32 [B, H, d]; d <= 256 and a multiple of 32.
+// B6 (flat = 0): pools [H, P, ps, d]; B11 (flat = 1): pools [P, ps, H * d].
+// q f32 [B, H, d] (already roped), pools of type bf16 (pool_bf16 = 1) or f32
+// with the current row written, lengths int32 [B], tables int32 [B, pp], out
+// f32 [B, H, d]; d <= 256 and a multiple of 32.
 // Returns the CUDA error code of the launch.
+static int paged_entry(const void* q, const void* kp, const void* vp,
+                       const void* lengths, const void* tables, int B, int H,
+                       int P, int ps, int pp, int d, int flat, float scale,
+                       int pool_bf16, void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pool_bf16)
+    return launch<__nv_bfloat16>(q, kp, vp, lengths, tables, B, H, P, ps, pp,
+                                 d, flat, scale, out, s);
+  return launch<float>(q, kp, vp, lengths, tables, B, H, P, ps, pp, d, flat,
+                       scale, out, s);
+}
+
 extern "C" int paged_decode_attention(const void* q, const void* kp,
                                       const void* vp, const void* lengths,
                                       const void* tables, int B, int H, int P,
                                       int ps, int pp, int d, float scale,
                                       int pool_bf16, void* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (pool_bf16)
-    return launch<__nv_bfloat16>(q, kp, vp, lengths, tables, B, H, P, ps, pp,
-                                 d, scale, out, s);
-  return launch<float>(q, kp, vp, lengths, tables, B, H, P, ps, pp, d, scale,
-                       out, s);
+  return paged_entry(q, kp, vp, lengths, tables, B, H, P, ps, pp, d, 0, scale,
+                     pool_bf16, out, stream);
+}
+
+extern "C" int paged_decode_attention_flat(const void* q, const void* kp,
+                                           const void* vp,
+                                           const void* lengths,
+                                           const void* tables, int B, int H,
+                                           int P, int ps, int pp, int d,
+                                           float scale, int pool_bf16,
+                                           void* out, void* stream) {
+  return paged_entry(q, kp, vp, lengths, tables, B, H, P, ps, pp, d, 1, scale,
+                     pool_bf16, out, stream);
 }

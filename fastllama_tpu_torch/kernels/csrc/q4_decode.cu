@@ -41,6 +41,45 @@
 // in bf16 mode); past x's K it reads as zero, so x is never padded. B9 also
 // stages the block sums of its slice (one f32 per row and q block, summed
 // from the unrounded x in k order) and adds bsum * m once per q block.
+//
+// B1 in bf16 mode (q4_gemv_mma) runs on the tensor cores instead. At M = 8
+// the FFMA kernel above spent 16 scalar products (half of them on zero
+// rows) and a shared-memory read of x per weight element, so it was bound by
+// instruction issue (0.114 ms on qkv against a 0.0094 ms byte bound). Here
+// y^T = W^T x^T with mma.sync m16n8k16 bf16 -> f32:
+//   * the dequantized weight is the A operand (16 output columns x 16 k),
+//     the rows of x are the N side (8 per MMA: M <= 8 is one n-tile, M <= 16
+//     two, larger M 4 and a grid of 32-row tiles);
+//   * one q block's 16 packed byte rows give k = 0..15 (low nibbles) and
+//     k = 16..31 (high nibbles): two k16 steps from the same bytes;
+//   * a warp owns 64 adjacent columns (4 m-tiles). The 4 warps of a block
+//     form cw column groups of 4 / cw warps: a wide plane takes cw = 4 (256
+//     adjacent columns, every warp streams all q blocks of the split), a
+//     narrow one cw = 1 (64 columns, the warps take every fourth q block
+//     and add up through shared memory), so that few splits (at most 8)
+//     fill the card. A warp's A fragments need packed rows
+//     2t, 2t+1, 2t+8, 2t+9 (t = lane % 4) of two columns per m-tile; the
+//     columns of m-tile mt are permuted so that a lane's 8 columns are
+//     adjacent bytes: column g*8 + 2*mt + (i >= 8) holds MMA row i (g = lane
+//     / 4, i = g or g + 8). So a lane reads each of its 4 rows as one 8-byte
+//     word, and a 16-byte pad per 64-byte row (stride 80) keeps those reads
+//     free of bank conflicts (tests/test_torch_q4_matmul.py holds a copy of
+//     this map in Python);
+//   * each warp streams its q blocks through its own 4-stage cp.async ring
+//     of [16 rows x 64 columns] bytes plus the 64 scales (3 q blocks in
+//     flight per warp, 24 KB of ring per block, so that 5-7 blocks fit on
+//     an SM), so no block barrier sits in the loop;
+//   * x is staged once per block as bf16 in fragment order (coalesced
+//     float4 reads; one 16-byte shared read per lane, n-tile and q block);
+//   * dequantization is the instruction cost, kept to about four per
+//     element while bf16((q - 8) * d) stays exact: the nibble is placed in a
+//     float's mantissa by one byte permute (2^23 + q), one subtraction gives
+//     q - 8, one f32 multiply by d, and cvt.rn.bf16x2 packs two values;
+//   * split-K and the last block's ordered reduction are as above.
+// Products of two bf16 values are exact in f32, so only the summation order
+// differs from the dense product. f32 mode stays on the FFMA kernel (the
+// tensor cores have no exact f32 product; TF32 would round the operands),
+// and B9 stays on it too.
 
 #include "common.cuh"
 
@@ -247,7 +286,327 @@ int dispatch_gemv(const void* x, int M, int Kx, const void* qs,
                                     kb_per_split, p, c, yf, n_out, bf16, s);
 }
 
+// ---- B1, bf16 mode: tensor cores ------------------------------------------
+
+constexpr int kMmaWarps = 4, kMmaThreads = kMmaWarps * 32;
+constexpr int kWarpCols = 64;            // columns of one warp
+constexpr int kStages = 4;
+constexpr int kRowStride = 80;           // bytes per packed row in a stage
+constexpr int kStageBytes = 16 * kRowStride + kWarpCols * 4;  // + scales
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to bf16 (round to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// q - 8 as an exact f32 for the nibble in byte C of `nibs` (each byte holds
+// one nibble): the byte goes into the mantissa of 2^23 (one byte permute
+// with `magic` = 0x4B000000), then 2^23 + 8 is subtracted. `magic` comes in
+// as a kernel argument so that it sits in a register and the permute's
+// selector C is the instruction's immediate (a literal magic would take the
+// immediate and cost a register move of the selector per element).
+template <int C>
+__device__ __forceinline__ float nib_minus8(uint32_t nibs, uint32_t magic) {
+  return __uint_as_float(__byte_perm(nibs, magic, 0x7440 | C)) - 8388616.f;
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads)
+q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
+              const uint8_t* __restrict__ qs,
+              const float* __restrict__ scales, int N, int NB, int cw,
+              int kb_per_split, float* __restrict__ partial,
+              int* __restrict__ counters, float* __restrict__ y, int n_out,
+              uint32_t magic) {
+  constexpr int MT = 8 * NT;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = kMmaWarps / cw;         // warps per column group
+  const int bn = cw * kWarpCols;         // columns of the block
+  const int n0 = blockIdx.x * bn, split = blockIdx.y, m0 = blockIdx.z * MT;
+  const int nw = n0 + (warp % cw) * kWarpCols;   // this warp's columns
+  const int kg = warp / cw;              // its q blocks: kg, kg + kw, ...
+  const int kb0 = split * kb_per_split;
+  const int nkb = min(NB, kb0 + kb_per_split) - kb0;
+  const int cnt = nkb > kg ? (nkb - kg + kw - 1) / kw : 0;
+  uint8_t* ring = smem_raw + (size_t)warp * kStages * kStageBytes;
+  uint32_t* xs = reinterpret_cast<uint32_t*>(
+      smem_raw + (size_t)kMmaWarps * kStages * kStageBytes);
+
+  // A lane copies two 16-byte pieces of the packed rows (rows lane / 4 and
+  // 8 + lane / 4, bytes (lane % 4) * 16) and, in lanes < 16, one of the
+  // scales; its sources advance by kw q blocks per stage. Columns past N
+  // read as zeros (N is a multiple of 16).
+  const int off = (lane & 3) * 16;
+  const bool q_ok = nw + off < N, s_ok = lane < 16 && nw + lane * 4 < N;
+  const uint8_t* q_src = qs + ((size_t)(kb0 + kg) * 16 + (lane >> 2)) * N +
+                         nw + off;            // advanced stage by stage
+  const float* s_src = scales + (size_t)(kb0 + kg) * N + nw + lane * 4;
+  const size_t q_step = (size_t)kw * 16 * N, s_step = (size_t)kw * N;
+  const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
+  const uint32_t q_dst = ring_s + (lane >> 2) * kRowStride + off;
+  const uint32_t s_dst = ring_s + 16 * kRowStride + lane * 16;
+  constexpr uint32_t kRing = kStages * kStageBytes;
+  auto load_stage = [&](uint32_t slot, const uint8_t* qp, const float* sp) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+                 "r"(q_dst + slot), "l"(q_ok ? qp : qs), "r"(q_ok ? 16 : 0));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+                 "r"(q_dst + slot + 8 * kRowStride),
+                 "l"(q_ok ? qp + 8 * (size_t)N : qs), "r"(q_ok ? 16 : 0));
+    if (lane < 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+                   "r"(s_dst + slot), "l"(s_ok ? sp : scales),
+                   "r"(s_ok ? 16 : 0));
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < cnt) load_stage(i * kStageBytes, q_src, s_src);
+    q_src += q_step;
+    s_src += s_step;
+    cp_async_commit();
+  }
+
+  // x slice as bf16 pairs in B-fragment order: word ((b * NT + nt) * 32 +
+  // lane) * 4 + w holds x[m0 + nt * 8 + lane / 4][k, k + 1] with k = 32 * b
+  // + 16 * (w / 2) + 2 * (lane % 4) + 8 * (w % 2), zeros past Kx. Read as
+  // coalesced float4s of the rows < M; the words of rows >= M are left as
+  // they are: they only reach accumulator columns that are never stored.
+  const int rows = min(MT, M - m0), quads = nkb * 8;
+  for (int i = threadIdx.x; i < rows * quads; i += kMmaThreads) {
+    const int r = i / quads, qd = i - r * quads;
+    const int k = kb0 * 32 + qd * 4;
+    const float* xr = x + (size_t)(m0 + r) * Kx;
+    float v[4];
+    if ((Kx & 3) == 0 && k + 3 < Kx) {
+      const float4 f = *reinterpret_cast<const float4*>(xr + k);
+      v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = k + e < Kx ? xr[k + e] : 0.f;
+    }
+    const int b = qd >> 3, nt = r >> 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kk = ((qd & 7) * 4 + 2 * h) & 15, step = (qd & 7) >> 2;
+      const int L = (r & 7) * 4 + ((kk & 7) >> 1);
+      xs[((b * NT + nt) * 32 + L) * 4 + 2 * step + (kk >> 3)] =
+          pack_bf16(v[2 * h], v[2 * h + 1]);
+    }
+  }
+  __syncthreads();
+
+  float acc[4][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+
+  // this lane's reads: rows 2t, 2t+1, 2t+8, 2t+9 at bytes g*8 .. g*8+7, the
+  // scales of those 8 columns, and its B fragments (kw q blocks apart)
+  const uint8_t* a_rd = ring + 2 * t * kRowStride + g * 8;
+  const float* s_rd = reinterpret_cast<const float*>(ring + 16 * kRowStride)
+                      + g * 8;
+  const uint4* x_rd = reinterpret_cast<const uint4*>(xs) + kg * NT * 32 + lane;
+  uint32_t rd_slot = 0, wr_slot = (kStages - 1) * kStageBytes;
+  for (int i = 0; i < cnt; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncwarp();
+    if (i + kStages - 1 < cnt) load_stage(wr_slot, q_src, s_src);
+    cp_async_commit();
+    q_src += q_step;
+    s_src += s_step;
+    wr_slot = wr_slot + kStageBytes == kRing ? 0 : wr_slot + kStageBytes;
+    const int slot = rd_slot;
+    rd_slot = rd_slot + kStageBytes == kRing ? 0 : rd_slot + kStageBytes;
+    // low and high nibbles of the lane's 4 rows x 8 columns
+    uint32_t lo[4][2], hi[4][2];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const uint2 v = *reinterpret_cast<const uint2*>(
+          a_rd + slot + ((r & 1) + 8 * (r >> 1)) * kRowStride);
+      lo[r][0] = v.x & 0x0F0F0F0Fu;
+      lo[r][1] = v.y & 0x0F0F0F0Fu;
+      hi[r][0] = (v.x >> 4) & 0x0F0F0F0Fu;
+      hi[r][1] = (v.y >> 4) & 0x0F0F0F0Fu;
+    }
+    const float* sd = reinterpret_cast<const float*>(
+        reinterpret_cast<const uint8_t*>(s_rd) + slot);
+    const float4 da = *reinterpret_cast<const float4*>(sd);
+    const float4 db = *reinterpret_cast<const float4*>(sd + 4);
+    const float d[8] = {da.x, da.y, da.z, da.w, db.x, db.y, db.z, db.w};
+    uint4 xb[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) xb[nt] = x_rd[nt * 32];
+    x_rd += kw * NT * 32;
+#pragma unroll
+    for (int step = 0; step < 2; ++step) {
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t a[4];
+#pragma unroll
+        for (int reg = 0; reg < 4; ++reg) {
+          // a0: column 2mt, rows 2t/2t+1; a1: column 2mt+1, the same rows;
+          // a2, a3: rows 2t+8/2t+9
+          const int c = 2 * mt + (reg & 1), r = 2 * (reg >> 1);
+          const uint32_t* src0 = step ? hi[r] : lo[r];
+          const uint32_t* src1 = step ? hi[r + 1] : lo[r + 1];
+          float v0, v1;
+          switch (c & 3) {
+            case 0: v0 = nib_minus8<0>(src0[c >> 2], magic);
+                    v1 = nib_minus8<0>(src1[c >> 2], magic); break;
+            case 1: v0 = nib_minus8<1>(src0[c >> 2], magic);
+                    v1 = nib_minus8<1>(src1[c >> 2], magic); break;
+            case 2: v0 = nib_minus8<2>(src0[c >> 2], magic);
+                    v1 = nib_minus8<2>(src1[c >> 2], magic); break;
+            default: v0 = nib_minus8<3>(src0[c >> 2], magic);
+                     v1 = nib_minus8<3>(src1[c >> 2], magic); break;
+          }
+          a[reg] = pack_bf16(v0 * d[c], v1 * d[c]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_bf16(acc[mt][nt], a, step ? xb[nt].z : xb[nt].x,
+                   step ? xb[nt].w : xb[nt].y);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                       // ring and x slice no longer needed
+
+  // D fragment c of (mt, nt): MMA row i = g + 8 * (c / 2) -> column
+  // g * 8 + 2 * mt + c / 2 of the warp; MMA column 2t + c % 2 -> row
+  // nt * 8 + 2t + c % 2. The warps of one column group add up through
+  // shared memory in warp order.
+  float* red = reinterpret_cast<float*>(smem_raw);   // [warp][MT][64]
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        red[(warp * MT + nt * 8 + 2 * t + (c & 1)) * kWarpCols + g * 8 +
+            2 * mt + (c >> 1)] = acc[mt][nt][c];
+  __syncthreads();
+  for (int i = threadIdx.x; i < MT * bn; i += kMmaThreads) {
+    const int r = i / bn, col = i - r * bn;
+    const int m = m0 + r, nn = n0 + col;
+    if (m >= M || nn >= N) continue;
+    const int cg = col / kWarpCols, cc = col % kWarpCols;
+    float sum = 0.f;
+    for (int w = cg; w < kMmaWarps; w += cw)
+      sum += red[(w * MT + r) * kWarpCols + cc];
+    partial[((size_t)split * M + m) * N + nn] = sum;
+  }
+
+  // The last block of this output tile to finish adds the splits' partials
+  // in split order (deterministic) and resets the tile's counter. Each
+  // thread takes 4 adjacent columns at a time, with the loads of up to 8
+  // splits in flight together.
+  __shared__ int is_last;
+  __threadfence();
+  __syncthreads();
+  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(&counters[tile], 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const int nq = bn / 4, splits = gridDim.y;
+  for (int i = threadIdx.x; i < rows * nq; i += kMmaThreads) {
+    const int m = m0 + i / nq, nn = n0 + (i % nq) * 4;
+    if (nn >= N) continue;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int sp = 0; sp < splits; ++sp) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(
+          partial + ((size_t)sp * M + m) * N + nn));
+      sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+    }
+    const float vs[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (nn + e < n_out) y[(size_t)m * n_out + nn + e] = vs[e];
+  }
+  if (threadIdx.x == 0) counters[tile] = 0;
+}
+
+template <int NT>
+int launch_mma(const float* x, int M, int Kx, const uint8_t* qs,
+               const float* scales, int N, int NB, int cw, int splits,
+               int kb_per_split, float* partial, int* counters, float* y,
+               int n_out, cudaStream_t stream) {
+  // the ring and the x slice, reused afterwards for the warps' sums
+  const size_t ring_x = (size_t)kMmaWarps * kStages * kStageBytes +
+                        (size_t)kb_per_split * NT * 128 * sizeof(uint32_t);
+  const size_t red = (size_t)kMmaWarps * 8 * NT * kWarpCols * sizeof(float);
+  const size_t smem = ring_x > red ? ring_x : red;
+  if (smem + 1024 > 48 * 1024) {         // with the static shared memory
+    cudaError_t err = cudaFuncSetAttribute(
+        q4_mma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int bn = cw * kWarpCols;
+  dim3 grid((N + bn - 1) / bn, splits, (M + 8 * NT - 1) / (8 * NT));
+  q4_mma_kernel<NT><<<grid, kMmaThreads, smem, stream>>>(
+      x, M, Kx, qs, scales, N, NB, cw, kb_per_split, partial, counters, y,
+      n_out, 0x4B000000u);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// B1 in bf16 mode. As q4_gemv, with N a multiple of 16, 16-byte aligned
+// planes and the plan of q4_matmul.b1_mma_plan: nt = 1, 2 or 4 n-tiles of 8
+// rows per block (M <= 8, <= 16, else 32-row tiles), cw = 1, 2 or 4 column
+// groups of 64 columns per block (the 4 warps split the block's q blocks
+// among the 4 / cw warps of a group), kb_per_split <= 64 / nt, counters one
+// per output tile.
+// Returns the CUDA error code of the launch.
+extern "C" int q4_gemv_mma(const void* x, int M, int Kx, const void* qs,
+                           const void* scales, int N, int NB, int cw,
+                           int splits, int kb_per_split, int nt,
+                           void* partial, void* counters, void* y, int n_out,
+                           void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  const uint8_t* q = (const uint8_t*)qs;
+  const float* sc = (const float*)scales;
+  float* p = (float*)partial;
+  int* c = (int*)counters;
+  float* yf = (float*)y;
+  if (N % 16 || (cw != 1 && cw != 2 && cw != 4) || kb_per_split * nt > 64)
+    return (int)cudaErrorInvalidValue;
+  switch (nt) {
+    case 1: return launch_mma<1>(xf, M, Kx, q, sc, N, NB, cw, splits,
+                                 kb_per_split, p, c, yf, n_out, s);
+    case 2: return launch_mma<2>(xf, M, Kx, q, sc, N, NB, cw, splits,
+                                 kb_per_split, p, c, yf, n_out, s);
+    case 4: return launch_mma<4>(xf, M, Kx, q, sc, N, NB, cw, splits,
+                                 kb_per_split, p, c, yf, n_out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // x f32 [M, Kx] (Kx <= 32 * NB; the stored-K tail reads as zeros),
 // partial f32 [splits, M, N] scratch, counters int32 zeros (one per output

@@ -31,22 +31,27 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = {
     "q4_gemv": [P, I, I, P, P, I, I, I, I, P, P, P, I, I, P],
+    "q4_gemv_mma": [P, I, I, P, P, I, I, I, I, I, I, P, P, P, I, P],
     "q41_gemv": [P, I, I, P, P, P, I, I, I, I, P, P, P, I, I, P],
     "quant_rows_int8": [P, I, I, I, P, P, P],
     "q4_int8_gemm": [P, P, I, I, P, P, I, P, P, P, I, P],
     "q4_prefill_gemm": [P, I, I, P, P, I, I, P, P, P, I, I, P],
     "decode_attention_fused": [P, P, P, P, P, P, I, I, I, I, F, I, P, P],
-    "decode_attention": [P, P, P, P, I, I, I, I, F, I, P, P],
+    "decode_attention": [P, P, P, P, I, I, I, I, I, I, F, I, P, P, P, P],
     "paged_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, F, I, P, P],
+    "paged_decode_attention_flat": [P, P, P, P, P, I, I, I, I, I, I, F, I, P,
+                                    P],
     "paged_kv_write": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "paged_kv_write_rows": [P, P, P, P, P, I, I, I, I, I, P],
 }
-LIB_OF = {"q4_gemv": "q4_decode", "q41_gemv": "q4_decode",
+LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
+          "q41_gemv": "q4_decode",
           "quant_rows_int8": "quant_rows", "q4_int8_gemm": "q4_int8",
           "q4_prefill_gemm": "q4_prefill",
           "decode_attention_fused": "decode_attention",
           "decode_attention": "decode_attention",
           "paged_decode_attention": "paged_attention",
+          "paged_decode_attention_flat": "paged_attention",
           "paged_kv_write": "kv_write", "paged_kv_write_rows": "kv_write"}
 
 _libs: dict[str, ctypes.CDLL] = {}

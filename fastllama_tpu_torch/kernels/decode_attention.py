@@ -6,7 +6,10 @@ caller has roped q and k and written the current K/V row; the kernel attends
 rows s <= n_past[b] (inclusive) with q, scores, softmax and the
 probabilities all f32, whatever the cache dtype. The forward takes it for a
 decode step whose layer adds LoRA terms to q, k or v, which B4 cannot (it
-reads the raw fused projection).
+reads the raw fused projection). On the card it splits the keys: S is cut
+into chunks of at most 64 rows (b10_splits), each block attends one chunk of
+one head and the last block of a head merges the partial softmaxes in chunk
+order (csrc/decode_attention.cu).
 
 B4 ports fastllama_tpu/kernels/decode_attention.py::decode_attention_fused:
 one decode step of one layer takes the raw fused projection qkv [B, 1, 3F]
@@ -162,6 +165,17 @@ def decode_attention_plain(q, k_cache, v_cache, n_past, *, head_dim: int,
     return ctx.reshape(b, 1, f)
 
 
+B10_CHUNK = 64        # rows per block at most (the kernel's kMaxChunk)
+
+
+def b10_splits(s: int) -> tuple[int, int]:
+    """(splits, chunk) of B10's grid for a cache of S rows: chunk i takes
+    rows [i * chunk, min((i + 1) * chunk, S)), every chunk holds at least one
+    row and chunk <= 64. From S alone, so the host never reads n_past."""
+    splits = -(-s // B10_CHUNK)
+    return splits, -(-s // splits)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, n_past: torch.Tensor, *,
                      head_dim: int, scale: float) -> torch.Tensor:
@@ -189,12 +203,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
              "all tensors must be contiguous on one CUDA device")
     _require(head_dim % 32 == 0 and head_dim <= 256 and s <= 12288,
              "head_dim must be a multiple of 32 and <= 256, S <= 12288")
-    out = torch.empty((b, 1, f), dtype=torch.float32, device=q.device)
+    dev = q.device
+    h = f // head_dim
+    splits, chunk = b10_splits(s)
+    partial = cuda_lib.scratch(dev, "decode_attention.partial",
+                               b * h * splits * (head_dim + 2), torch.float32)
+    counters = cuda_lib.tile_counters(dev, b * h)
+    out = torch.empty((b, 1, f), dtype=torch.float32, device=dev)
     rc = cuda_lib.fn("decode_attention")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        n_past.data_ptr(), b, s, f, head_dim, float(scale),
-        int(k_cache.dtype == torch.bfloat16), out.data_ptr(),
-        cuda_lib.stream_handle(q.device))
+        n_past.data_ptr(), b, s, f, head_dim, splits, chunk, float(scale),
+        int(k_cache.dtype == torch.bfloat16), partial.data_ptr(),
+        counters.data_ptr(), out.data_ptr(), cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, "decode_attention")
     decode_attention.launches += 1
     return out

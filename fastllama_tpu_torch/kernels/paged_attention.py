@@ -1,4 +1,4 @@
-"""Paged decode attention: kernel B6 and its plain version.
+"""Paged decode attention: kernels B6 and B11 and their plain versions.
 
 B6 ports fastllama_tpu/kernels/paged_attention.py::paged_decode_attention:
 one decode step's attention for one layer over the page pools,
@@ -13,8 +13,15 @@ dots, scores, softmax and accumulation are f32, a masked probability is
 exactly 0 and the denominator is max(sum p, 1e-30), so a sequence of length
 0 yields zeros. Pages past ceil(len/ps) are never read.
 
-The CUDA kernel is in csrc/paged_attention.cu; the wrapper launches it for
-CUDA tensors and runs the plain version for CPU tensors.
+B11 ports fastllama_tpu/kernels/paged_attention.py::
+paged_decode_attention_flat: the same contract over flat-lane pools
+[P, ps, H*D] (a page row holds every head side by side, as the slab cache
+does). No dispatch of the JAX package reaches it: it is the record of a
+round-5 layout experiment on the TPU, ported so that every TPU kernel has its
+counterpart. On the card it runs B6's kernel with B11's strides.
+
+Both CUDA kernels are in csrc/paged_attention.cu; each wrapper launches its
+kernel for CUDA tensors and runs its plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -59,30 +66,29 @@ def paged_decode_attention_plain(q, k_pages, v_pages, lengths, page_indices):
     return ctx / denom
 
 
-def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                           v_pages: torch.Tensor, lengths: torch.Tensor,
-                           page_indices: torch.Tensor) -> torch.Tensor:
-    """Kernel B6. q f32 [B, H, D] after RoPE; pools [H, P, ps, D] bf16 or
-    f32 holding the current token's row; lengths int32 [B], the number of
-    keys to attend (clipped to pp * ps); page_indices int32 [B, pp].
-    Returns ctx f32 [B, H, D]."""
+def _check_args(q, k_pages, v_pages, lengths, page_indices, flat: bool):
+    """Checks shared by B6 and B11: (P, ps) of the pools."""
     b, h, d = q.shape
     _require(q.dtype == torch.float32, "q must be f32 [B, H, D]")
-    _require(k_pages.dim() == 4 and v_pages.shape == k_pages.shape
+    want = "[P, ps, H*D]" if flat else f"[{h}, P, ps, {d}]"
+    shaped = (k_pages.dim() == 3 and k_pages.shape[2] == h * d) if flat else (
+        k_pages.dim() == 4 and k_pages.shape[0] == h
+        and k_pages.shape[3] == d)
+    _require(shaped and v_pages.shape == k_pages.shape
              and v_pages.dtype == k_pages.dtype
-             and k_pages.dtype in (torch.bfloat16, torch.float32)
-             and k_pages.shape[0] == h and k_pages.shape[3] == d,
-             f"pools must match, bf16 or f32 [{h}, P, ps, {d}]: got "
+             and k_pages.dtype in (torch.bfloat16, torch.float32),
+             f"pools must match, bf16 or f32 {want}: got "
              f"{tuple(k_pages.shape)} {k_pages.dtype}")
     _require(lengths.shape == (b,) and lengths.dtype == torch.int32,
              "lengths must be int32 [B]")
     _require(page_indices.dim() == 2 and page_indices.shape[0] == b
              and page_indices.dtype == torch.int32,
              "page_indices must be int32 [B, pages_per_seq]")
-    if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pages, v_pages, lengths,
-                                            page_indices)
-    _, p, ps, _ = k_pages.shape
+    return tuple(k_pages.shape[:2] if flat else k_pages.shape[1:3])
+
+
+def _launch(name, q, k_pages, v_pages, lengths, page_indices, p, ps):
+    b, h, d = q.shape
     pp = page_indices.shape[1]
     tensors = (q, k_pages, v_pages, lengths, page_indices)
     _require(q.device.type == "cuda"
@@ -94,14 +100,71 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
              f"pages_per_seq * page_size <= 12288: got D = {d}, "
              f"{pp} x {ps}")
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
-    rc = cuda_lib.fn("paged_decode_attention")(
+    rc = cuda_lib.fn(name)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         lengths.data_ptr(), page_indices.data_ptr(), b, h, p, ps, pp, d,
         1.0 / math.sqrt(d), int(k_pages.dtype == torch.bfloat16),
         out.data_ptr(), cuda_lib.stream_handle(q.device))
-    cuda_lib.check(rc, "paged_decode_attention")
+    cuda_lib.check(rc, name)
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, lengths: torch.Tensor,
+                           page_indices: torch.Tensor) -> torch.Tensor:
+    """Kernel B6. q f32 [B, H, D] after RoPE; pools [H, P, ps, D] bf16 or
+    f32 holding the current token's row; lengths int32 [B], the number of
+    keys to attend (clipped to pp * ps); page_indices int32 [B, pp].
+    Returns ctx f32 [B, H, D]."""
+    p, ps = _check_args(q, k_pages, v_pages, lengths, page_indices, False)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pages, v_pages, lengths,
+                                            page_indices)
+    out = _launch("paged_decode_attention", q, k_pages, v_pages, lengths,
+                  page_indices, p, ps)
     paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B11: flat-lane pools
+# ---------------------------------------------------------------------------
+
+def head_major(pool: torch.Tensor, n_head: int) -> torch.Tensor:
+    """A flat-lane pool [P, ps, H*D] as the head-major [H, P, ps, D] view
+    (no copy)."""
+    p, ps, f = pool.shape
+    return pool.view(p, ps, n_head, f // n_head).permute(2, 0, 1, 3)
+
+
+def paged_decode_attention_flat_plain(q, k_pages, v_pages, lengths,
+                                      page_indices):
+    """Plain PyTorch version of kernel B11: B6's plain version over a
+    head-major copy of the flat-lane pools (a copy, so that the sums run in
+    the same order as B6's and the two agree bit for bit)."""
+    h = q.shape[1]
+    return paged_decode_attention_plain(
+        q, head_major(k_pages, h).contiguous(),
+        head_major(v_pages, h).contiguous(), lengths, page_indices)
+
+
+def paged_decode_attention_flat(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor, lengths: torch.Tensor,
+                                page_indices: torch.Tensor) -> torch.Tensor:
+    """Kernel B11: B6's contract over flat-lane pools [P, ps, H*D] bf16 or
+    f32. q f32 [B, H, D], lengths int32 [B], page_indices int32 [B, pp].
+    Returns ctx f32 [B, H, D]."""
+    p, ps = _check_args(q, k_pages, v_pages, lengths, page_indices, True)
+    if q.device.type == "cpu":
+        return paged_decode_attention_flat_plain(q, k_pages, v_pages,
+                                                 lengths, page_indices)
+    out = _launch("paged_decode_attention_flat", q, k_pages, v_pages, lengths,
+                  page_indices, p, ps)
+    paged_decode_attention_flat.launches += 1
+    return out
+
+
+paged_decode_attention_flat.launches = 0

@@ -6,7 +6,8 @@ Ports fastllama_tpu/kernels/q4_matmul.py. The weight is a QuantMatmulWeight
 shape); activations are f32 [M, K] and outputs f32 [M, n_logical].
 
 Kernels (CUDA C++ for sm_90a, sources in csrc/, built by cuda_lib):
-  B1 q4_matmul_decode        csrc/q4_decode.cu   (q4_matmul_pallas v1)
+  B1 q4_matmul_decode        csrc/q4_decode.cu   (q4_matmul_pallas v1;
+                             tensor cores in bf16 mode, FFMA in f32 mode)
   B2 quant_rows_int8         csrc/quant_rows.cu  (quant_rows_int8)
   B3 q4_matmul_prefill_int8  csrc/q4_int8.cu     (q4_matmul_prefill_int8 nat)
   B5 q4_matmul_prefill       csrc/q4_prefill.cu  (q4_matmul_prefill_pallas nat)
@@ -93,12 +94,13 @@ def q4_matmul_dequant(x: torch.Tensor, w: QuantMatmulWeight,
 # ---------------------------------------------------------------------------
 
 def _b1_tile(m: int) -> tuple[int, int]:
-    """(rows, columns) of one B1 block for M rows."""
+    """(rows, columns) of one block of the FFMA kernel (B1 in f32 mode, B9)
+    for M rows."""
     return (1, 256) if m == 1 else (4, 256) if m <= 4 else (16, 128)
 
 
 def _splitk(m: int, n: int, nb: int) -> tuple[int, int]:
-    """(splits, q blocks per split) for B1's and B9's tiles (1, 4 or 16
+    """(splits, q blocks per split) for the FFMA kernel's tiles (1, 4 or 16
     rows by 256, 256 or 128 columns, see csrc/q4_decode.cu): about 4 blocks
     per SM of the H100 (132 SMs), at least one q block per warp (8) and at
     most 32 q blocks of x staged per block."""
@@ -109,9 +111,42 @@ def _splitk(m: int, n: int, nb: int) -> tuple[int, int]:
     return -(-nb // per), per
 
 
+# B1 in bf16 mode (the tensor-core kernel q4_gemv_mma): 4 warps per block,
+# each owning 64 columns; cw column groups of 4 / cw warps per block
+B1_MMA_WARPS = 4
+B1_MMA_WARP_COLS = 64
+B1_MMA_TARGET_BLOCKS = 792       # 6 per SM of the H100 (132 SMs) ...
+B1_MMA_MIN_BLOCKS = 660          # ... and at least 5 per SM
+B1_MMA_MAX_SPLITS = 8
+
+
+def b1_mma_plan(m: int, n: int, nb: int) -> tuple[int, int, int, int]:
+    """(n-tiles, column groups cw, splits, q blocks per split) of the
+    tensor-core B1 for M rows, N stored columns and nb q blocks. A block
+    takes 8 * n-tiles rows (1 n-tile for M <= 8, 2 for M <= 16, else 4:
+    32-row tiles) and 64 * cw columns. Splits aim at 6 blocks per SM (at
+    most 8); the widest cw (4, 2, 1) that reaches 5 wins, so a narrow plane
+    splits K among the warps of a block rather than across many blocks; the
+    staged x slice (q blocks per split * n-tiles * 512 bytes) stays within
+    32 KB."""
+    nt = 1 if m <= 8 else 2 if m <= 16 else 4
+    row_tiles = -(-m // (8 * nt))
+    cap = 64 // nt
+    for cw in (4, 2, 1):
+        tiles = -(-n // (B1_MMA_WARP_COLS * cw)) * row_tiles
+        splits = min(B1_MMA_MAX_SPLITS,
+                     max(1, -(-B1_MMA_TARGET_BLOCKS // tiles)))
+        per = min(cap, -(-nb // splits))
+        splits = -(-nb // per)
+        if tiles * splits >= B1_MMA_MIN_BLOCKS or cw == 1:
+            return nt, cw, splits, per
+    raise AssertionError("unreachable")
+
+
 def _launch_gemv(x: torch.Tensor, w: QuantMatmulWeight, w_dtype,
                  affine: bool) -> torch.Tensor:
-    """Checks and launch shared by B1 (q4_gemv) and B9 (q41_gemv)."""
+    """Checks and launch shared by B1 (q4_gemv_mma in bf16 mode, q4_gemv in
+    f32 mode) and B9 (q41_gemv)."""
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
     _check_weight(w, x.device, affine)
     m, kx = x.shape
@@ -121,20 +156,31 @@ def _launch_gemv(x: torch.Tensor, w: QuantMatmulWeight, w_dtype,
              f"x must be contiguous with 1 <= M <= {DECODE_MAX_M}")
     _require(kx <= kh * 2, f"x K={kx} exceeds the stored K={kh * 2}")
     _require(n % 8 == 0, "stored N must be a multiple of 8")
-    splits, per = _splitk(m, n, nb)
-    rows, cols = _b1_tile(m)
     dev = x.device
+    y = torch.empty((m, w.n_logical), dtype=torch.float32, device=dev)
+    if not affine and w_dtype == torch.bfloat16:
+        _require(n % 16 == 0 and w.qs.data_ptr() % 16 == 0
+                 and w.scales.data_ptr() % 16 == 0,
+                 "the tensor-core B1 needs N % 16 == 0 and 16-byte aligned "
+                 "weight planes")
+        nt, cw, splits, per = b1_mma_plan(m, n, nb)
+        tiles = -(-n // (B1_MMA_WARP_COLS * cw)) * -(-m // (8 * nt))
+        name, plan, mode = "q4_gemv_mma", (cw, splits, per, nt), ()
+    else:
+        splits, per = _splitk(m, n, nb)
+        rows, cols = _b1_tile(m)
+        tiles = -(-n // cols) * -(-m // rows)
+        name = "q41_gemv" if affine else "q4_gemv"
+        plan, mode = (splits, per), (int(w_dtype == torch.bfloat16),)
     partial = cuda_lib.scratch(dev, "q4_gemv.partial", splits * m * n,
                                torch.float32)
-    counters = cuda_lib.tile_counters(dev, -(-n // cols) * -(-m // rows))
-    y = torch.empty((m, w.n_logical), dtype=torch.float32, device=dev)
-    name = "q41_gemv" if affine else "q4_gemv"
+    counters = cuda_lib.tile_counters(dev, tiles)
     planes = ((w.qs.data_ptr(), w.scales.data_ptr(), w.mins.data_ptr())
               if affine else (w.qs.data_ptr(), w.scales.data_ptr()))
     rc = cuda_lib.fn(name)(
-        x.data_ptr(), m, kx, *planes, n, nb, splits, per,
-        partial.data_ptr(), counters.data_ptr(), y.data_ptr(), w.n_logical,
-        int(w_dtype == torch.bfloat16), cuda_lib.stream_handle(dev))
+        x.data_ptr(), m, kx, *planes, n, nb, *plan, partial.data_ptr(),
+        counters.data_ptr(), y.data_ptr(), w.n_logical, *mode,
+        cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, name)
     return y
 
@@ -150,9 +196,12 @@ def q4_matmul_decode(x: torch.Tensor, w: QuantMatmulWeight,
                      w_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel B1: x f32 [M <= 64, K] -> y f32 [M, n_logical].
 
-    Split-K partials are added by the last block of each output tile in a
-    fixed order (deterministic; the sum order differs from a dense matmul,
-    so compare at f32 reassociation tolerance)."""
+    bf16 mode runs the tensor-core kernel (mma.sync bf16, exact products);
+    f32 mode runs the FFMA kernel, since the tensor cores have no exact f32
+    product (TF32 would round the operands): a dispatch by w_dtype, not a
+    fallback. Split-K partials are added by the last block of each output
+    tile in a fixed order (deterministic; the sum order differs from a dense
+    matmul, so compare at f32 reassociation tolerance)."""
     _check_matmul_args(x, w_dtype)
     if x.device.type == "cpu":
         _require(w.mins is None, "B1 takes q4_0 weights (no mins plane)")

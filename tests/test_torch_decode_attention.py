@@ -191,3 +191,105 @@ def test_b10_kernel_matches_plain(cuda_device, cache):
     got = tda.decode_attention(q, kc, vc, n, head_dim=hd, scale=scale)
     want = tda.decode_attention_plain(q, kc, vc, n, head_dim=hd, scale=scale)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# -- B10's split over the keys: the planner and the merge rule ----------------
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 512, 12288])
+def test_b10_splits_cover_every_row_once(s):
+    splits, chunk = tda.b10_splits(s)
+    assert 1 <= chunk <= tda.B10_CHUNK
+    rows = [r for i in range(splits)
+            for r in range(i * chunk, min((i + 1) * chunk, s))]
+    assert rows == list(range(s))
+    assert all(i * chunk < s for i in range(splits))   # no chunk is empty
+    if s == 512:
+        assert (splits, chunk) == (8, 64)
+
+
+def split_merge(q, k, v, n_past, scale):
+    """The kernel's split-and-merge rule in float64 numpy for one (b, h):
+    q [D], caches k, v [S, D]. Per chunk of b10_splits: m_i = max score,
+    l_i = sum exp(score - m_i), c_i = sum exp(score - m_i) v, or the neutral
+    (-inf, 0, 0) for a chunk past the length (its block exits; it adds
+    nothing). Then, over the chunks in order, 8 at a time: within a batch
+    M = the running max, weights exp(m_i - M); across batches the running
+    sums are rescaled by exp(M_old - M_new); ctx = C / L."""
+    s_len = k.shape[0]
+    n = min(max(int(n_past), 0) + 1, s_len)
+    splits, chunk = tda.b10_splits(s_len)
+    parts = []
+    for i in range(splits):
+        rows = np.arange(i * chunk, min((i + 1) * chunk, n))
+        if rows.size == 0:
+            parts.append((-np.inf, 0.0, np.zeros(k.shape[1])))
+            continue
+        sc = k[rows] @ q * scale
+        m = sc.max()
+        p = np.exp(sc - m)
+        parts.append((m, p.sum(), p @ v[rows]))
+    big, l_tot, ctx = -np.inf, 0.0, np.zeros(k.shape[1])
+    for i0 in range(0, splits, 8):
+        batch = parts[i0:i0 + 8]
+        mb = max([big] + [m for m, _, _ in batch])
+        r = np.exp(big - mb)
+        l_tot, ctx = l_tot * r, ctx * r
+        for m, l, c in batch:
+            e = np.exp(m - mb)                  # 0 for a neutral chunk
+            l_tot += l * e
+            ctx = ctx + c * e
+        big = mb
+    return ctx / l_tot
+
+
+@pytest.mark.parametrize("s,n_past", [(512, 0), (512, 1), (512, 63),
+                                      (512, 64), (512, 300), (512, 511),
+                                      (512, 700), (1024, 700), (1024, 1023)])
+def test_b10_split_merge_rule_equals_plain(s, n_past):
+    """The merge of per-chunk partial softmaxes (neutral chunks included;
+    S = 1024 takes two batches of 8 chunks) equals the plain B10 at every
+    depth, n_past >= S included: to 1e-5 of the largest output, f64 merge
+    against the f32 plain version."""
+    b, hd, h = 1, 32, 2
+    rng = np.random.default_rng(27)
+    q = rng.standard_normal((b, 1, h * hd)).astype(np.float32)
+    _, kc, vc = inputs(b, s, h * hd, seed=28)
+    scale = 1.0 / math.sqrt(hd)
+    want = tda.decode_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        torch.tensor([n_past], dtype=torch.int32), head_dim=hd,
+        scale=scale).numpy().reshape(h, hd)
+    got = np.stack([split_merge(
+        q[0, 0, i * hd:(i + 1) * hd].astype(np.float64),
+        kc[0, :, i * hd:(i + 1) * hd].astype(np.float64),
+        vc[0, :, i * hd:(i + 1) * hd].astype(np.float64), n_past, scale)
+        for i in range(h)])
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [512, 1024])
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+def test_b10_split_kernel_matches_plain_at_every_depth(cuda_device, cache, s):
+    """Eight slots at the depths where chunks begin, end and go neutral, one
+    of them past S (S = 1024: two merge batches); 5e-5 of the largest output
+    (f32 rounding of exp and the sum order)."""
+    depths = [0, 1, 63, 64, 300, 511, 512, 700]
+    b, hd, h = len(depths), 128, 2
+    rng = np.random.default_rng(29)
+    dt = getattr(torch, cache)
+    q = torch.from_numpy(rng.standard_normal((b, 1, h * hd)).astype(
+        np.float32)).to(cuda_device)
+    _, kc, vc = inputs(b, s, h * hd, seed=30)
+    kc = torch.from_numpy(kc).to(cuda_device).to(dt)
+    vc = torch.from_numpy(vc).to(cuda_device).to(dt)
+    n = torch.tensor(depths, dtype=torch.int32, device=cuda_device)
+    scale = 1.0 / math.sqrt(hd)
+    got = tda.decode_attention(q, kc, vc, n, head_dim=hd, scale=scale)
+    want = tda.decode_attention_plain(q, kc, vc, n, head_dim=hd, scale=scale)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=5e-5 * want.abs().max().item())
+    assert torch.equal(got, tda.decode_attention(q, kc, vc, n, head_dim=hd,
+                                                 scale=scale))

@@ -347,6 +347,107 @@ def test_b6_kernel_matches_plain(cuda_device, pool):
     assert (got[0] == 0).all()
 
 
+# ---------------------------------------------------------------------------
+# B11: flat-lane pools [P, ps, H*D]
+# ---------------------------------------------------------------------------
+
+def flat_case(pool, seed=31):
+    """Five sequences over a shuffled table of flat-lane pools (+ the trash
+    page): lengths 0, partial, pp * ps (every page), and table entries that
+    are read holding the sentinel (the trash page) and an id past the pool
+    (clipped into it on both packages)."""
+    rng = np.random.default_rng(seed)
+    h, d, ps, pp, b = 4, 128, 8, 4, 5
+    p = b * pp + 1
+    jdt = getattr(jnp, pool)
+    kp = jnp.asarray(rng.standard_normal((p, ps, h * d)), jdt)
+    vp = jnp.asarray(rng.standard_normal((p, ps, h * d)), jdt)
+    tables = rng.permutation(b * pp).reshape(b, pp).astype(np.int32)
+    tables[1, 0] = p - 1
+    tables[4, 1] = p + 5
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    lengths = np.array([0, 3, pp * ps, 9, 17], np.int32)
+    return q, kp, vp, lengths, tables
+
+
+@pytest.mark.parametrize("pool,tol", [("float32", 5e-5), ("bfloat16", 2 ** -7)])
+@pytest.mark.parametrize("group_size", [0, 1])
+def test_b11_plain_matches_pallas(pool, tol, group_size):
+    """paged_decode_attention_flat's plain version against the Pallas kernel
+    in interpret mode. Tolerance relative to the largest output: f32 pools
+    5e-5 (exp and the sum order); bf16 pools 2^-7, since both cast p to bf16
+    before the PV dot and XLA's and PyTorch's exp differ by an f32 ulp, which
+    can move a rounded p by one bf16 ulp (2^-8)."""
+    q, kp, vp, lengths, tables = flat_case(pool)
+    want = np.asarray(jpa.paged_decode_attention_flat(
+        jnp.asarray(q), kp, vp, jnp.asarray(lengths), jnp.asarray(tables),
+        group_size=group_size, interpret=True))
+    got = tpa.paged_decode_attention_flat(
+        to_t(q), to_t(kp), to_t(vp), to_t(lengths), to_t(tables)).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * np.abs(want).max())
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_b11_plain_equals_b6_on_the_transpose(pool):
+    """B11 over flat pools is B6 over the head-major copy, bit for bit, and
+    NaN in every page no sequence reaches stays out of the output."""
+    q, kp, vp, lengths, tables = flat_case(pool, seed=32)
+    tk, tv = to_t(kp), to_t(vp)
+    h = q.shape[1]
+    hk, hv = (tpa.head_major(x, h).contiguous() for x in (tk, tv))
+    want = tpa.paged_decode_attention(to_t(q), hk, hv, to_t(lengths),
+                                      to_t(tables))
+    used = set()
+    for row, n in zip(tables, lengths):
+        used.update(np.clip(row[:-(-int(n) // 8)], 0, tk.shape[0] - 1)
+                    .tolist() if n else [])
+    stale = [p for p in range(tk.shape[0]) if p not in used]
+    tk[stale] = float("nan")
+    tv[stale] = float("nan")
+    got = tpa.paged_decode_attention_flat(to_t(q), tk, tv, to_t(lengths),
+                                          to_t(tables))
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def test_b11_wrapper_rejects_wrong_shapes_and_types():
+    q, kp, vp, lengths, tables = flat_case("float32")
+    args = [to_t(a) for a in (q, kp, vp, lengths, tables)]
+    with pytest.raises(ValueError, match="pools must match"):
+        tpa.paged_decode_attention_flat(args[0], args[1][..., :256],
+                                        *args[2:])
+    with pytest.raises(ValueError, match="pools must match"):
+        tpa.paged_decode_attention_flat(args[0], args[1],
+                                        args[2].to(torch.bfloat16), *args[3:])
+    with pytest.raises(ValueError, match="pools must match"):   # head-major
+        tpa.paged_decode_attention_flat(
+            args[0], *(tpa.head_major(x, 4) for x in args[1:3]), *args[3:])
+    with pytest.raises(ValueError, match="q must be f32"):
+        tpa.paged_decode_attention_flat(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="lengths"):
+        tpa.paged_decode_attention_flat(*args[:3], args[3].long(), args[4])
+    with pytest.raises(ValueError, match="page_indices"):
+        tpa.paged_decode_attention_flat(*args[:4], args[4][:, None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_b11_kernel_matches_plain_and_b6(cuda_device, pool):
+    q, kp, vp, lengths, tables = flat_case(pool)
+    args = [to_t(a).to(cuda_device) for a in (q, kp, vp, lengths, tables)]
+    got = tpa.paged_decode_attention_flat(*args)
+    want = tpa.paged_decode_attention_flat_plain(*args)
+    tol = (2 ** -7 if pool == "bfloat16" else 5e-5) * want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    assert (got[0] == 0).all()
+    hk, hv = (tpa.head_major(x, 4).contiguous() for x in args[1:3])
+    assert torch.equal(got, tpa.paged_decode_attention(args[0], hk, hv,
+                                                       *args[3:]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pool", ["float32", "bfloat16"])
 def test_b7_b8_kernels_match_plain(cuda_device, pool):
