@@ -9,16 +9,20 @@ Phases (any failure exits nonzero before the last line):
   2. hold each kernel (B1-B11) against its plain PyTorch version on the
      card at the 7B shapes of the paths below, and time kernel, plain
      version and bound (the larger of bytes / 3.35 TB/s and operations /
-     peak rate); for B10 and B11 also one scaled_dot_product_attention call.
-     B1 at M = 1, 2, 4, 8, 16 and 64 on every plane in bf16 (tensor cores;
-     the FFMA design timed beside it on qkv and the head at M = 1 and 8),
-     f32 mode at M = 1 and 8 on wo; B10 at n_past 0, 1, 63, 64, 300, 511
-     and past S. The engine's kernels: B6, B7, B8 and B11 (flat-lane pools,
-     bit for bit against B6 on the same pools; no path of the JAX package
-     reaches it, so its launches are this phase's) on bf16 and f32 pools (8
-     sequences of ragged lengths over a shuffled page table, sentinel and
-     out-of-pool page ids, NaN in every page no sequence reaches), B4 and
-     B10 at B = 8 with per-slot depths, one slot inactive;
+     peak rate); for B4, B10 and B11 also one scaled_dot_product_attention
+     call, for B1 and B9 one torch.ops.aten._weight_int4pack_mm call on the
+     same codes (yardsticks; the port calls neither). B1 at M = 1, 2, 4, 8,
+     16 and 64 and B9 also at 9, 17 and 40, on every plane in bf16 (tensor
+     cores; the FFMA design timed beside them in the same call), f32 mode
+     at M = 1 and 8 on wo (B1) and qkv (B9), B9 also on planes padded to
+     256 columns; B4 (bf16 and f32 caches, caches bit for bit) and B10 at
+     n_past 0, 1, 63, 64, (65,) 300, 511 and past S; B1, B4, B9 and B10 run
+     twice and must agree bit for bit. The engine's kernels: B6, B7, B8 and
+     B11 (flat-lane pools, bit for bit against B6 on the same pools; no path
+     of the JAX package reaches it, so its launches are this phase's) on
+     bf16 and f32 pools (8 sequences of ragged lengths over a shuffled page
+     table, sentinel and out-of-pool page ids, NaN in every page no sequence
+     reaches), B4 and B10 at B = 8 with per-slot depths, one slot inactive;
   3. the q4_0 session at full 7B width (32 layers, bf16 weights and KV,
      n_ctx 512, seeded random weights made on the card): LlamaModel +
      FastLlama ingest a 300-token prompt with n_batch 512 and generate 64
@@ -114,14 +118,16 @@ def time_ms(torch, fn, calls: int, replays: int = 3) -> float:
 # synthetic weights
 # ---------------------------------------------------------------------------
 
-def rand_weight(torch, k, n, gen, dev, affine=False):
+def rand_weight(torch, k, n, gen, dev, affine=False, pad_n=None):
     """A q4_0 matmul weight with the stored padding the loader applies:
     random codes and scales in [1e-3, 0.02] (as the JAX package's bench
     builds them), logical width n. affine: a q4_1 weight, with mins in
-    about [-8 d, -7 d] so that q * d + m is centred like (q - 8) * d."""
+    about [-8 d, -7 d] so that q * d + m is centred like (q - 8) * d.
+    pad_n: N padded to a multiple of it instead of good_pad_n's rule."""
     from fastllama_tpu_torch.quant.tensor import (
         QuantMatmulWeight, good_pad_k, good_pad_n)
-    kp, np_ = good_pad_k(k), good_pad_n(n)
+    kp = good_pad_k(k)
+    np_ = good_pad_n(n) if pad_n is None else -(-n // pad_n) * pad_n
     qs = torch.randint(0, 256, (kp // 2, np_), generator=gen, device=dev,
                        dtype=torch.uint8)
     sc = torch.rand((kp // 32, np_), generator=gen, device=dev) * 0.019 + 1e-3
@@ -187,14 +193,17 @@ def copies_for(nbytes: int) -> int:
     return max(2, math.ceil(160e6 / nbytes))
 
 
-# B1's row counts: the single stream (1), the engine (8) and the tiles' edges
+# B1's row counts: the single stream (1), the engine (8) and the tiles' edges;
+# B9 adds the rows just past an n-tile (9, 17) and a partial 32-row tile (40)
 B1_ROWS = (1, 2, 4, 8, 16, 64)
+B9_ROWS = (1, 2, 4, 8, 9, 16, 17, 40, 64)
 
 
-def ffma_b1(torch, qm, x, w):
-    """One launch of the FFMA kernel (q4_gemv) in bf16 mode, the design B1's
-    bf16 mode had before its tensor-core kernel: a yardstick timed beside
-    it, not counted as a B1 launch."""
+def ffma_gemv(torch, qm, x, w):
+    """One launch of the FFMA kernel in bf16 mode (q4_gemv for a q4_0
+    weight, q41_gemv for an affine one), the design that B1's and B9's bf16
+    mode had before the tensor-core kernel (f32 mode's kernel still): a
+    yardstick timed beside them, not counted as a launch of either."""
     from fastllama_tpu_torch.kernels import cuda_lib
     m, kx = x.shape
     kh, n = w.qs.shape
@@ -204,12 +213,76 @@ def ffma_b1(torch, qm, x, w):
                                torch.float32)
     counters = cuda_lib.tile_counters(x.device, -(-n // cols) * -(-m // rows))
     y = torch.empty((m, w.n_logical), dtype=torch.float32, device=x.device)
-    cuda_lib.check(cuda_lib.fn("q4_gemv")(
-        x.data_ptr(), m, kx, w.qs.data_ptr(), w.scales.data_ptr(), n,
-        kh // 16, splits, per, partial.data_ptr(), counters.data_ptr(),
-        y.data_ptr(), w.n_logical, 1, cuda_lib.stream_handle(x.device)),
-        "q4_gemv")
+    planes = (w.qs, w.scales) if w.mins is None else (w.qs, w.scales, w.mins)
+    name = "q4_gemv" if w.mins is None else "q41_gemv"
+    cuda_lib.check(cuda_lib.fn(name)(
+        x.data_ptr(), m, kx, *(p.data_ptr() for p in planes), n, kh // 16,
+        splits, per, partial.data_ptr(), counters.data_ptr(), y.data_ptr(),
+        w.n_logical, 1, cuda_lib.stream_handle(x.device)), name)
     return y
+
+
+def int4pack_planes(torch, w):
+    """w's codes, scales and offsets in the form that
+    torch.ops.aten._weight_int4pack_mm takes: groups of 32 along K, each
+    weight (q - 8) * scale + zero with a bf16 scale and zero per group; zero
+    is 0 for q4_0 and m + 8 d for q4_1 (q * d + m). Returns (packed weight,
+    scales-and-zeros [K/32, N, 2])."""
+    from fastllama_tpu_torch.quant.tensor import unpack_codes
+    kh, n = w.qs.shape
+    nb = kh // 16
+    codes = (unpack_codes(w.qs.reshape(nb, 16, n), 1).reshape(nb * 32, n)
+             .t().contiguous())                         # int32 [N, K]
+    try:      # [N, K / 2] uint8, the even k in the high nibble
+        packed = torch.ops.aten._convert_weight_to_int4pack(
+            (codes[:, ::2] << 4 | codes[:, 1::2]).to(torch.uint8), 8)
+    except RuntimeError:              # PyTorch before 2.5: int32 [N, K]
+        packed = torch.ops.aten._convert_weight_to_int4pack(codes, 8)
+    zero = (torch.zeros_like(w.scales) if w.mins is None
+            else w.mins + 8.0 * w.scales)
+    return packed, torch.stack([w.scales, zero], -1).to(torch.bfloat16)
+
+
+def int4pack_packs(torch, ws):
+    """int4pack_planes of every weight copy, or the error that the card's
+    PyTorch gave (the yardstick is then "none")."""
+    try:
+        return [int4pack_planes(torch, w) for w in ws]
+    except (RuntimeError, AttributeError, TypeError) as e:
+        return f"{type(e).__name__}: {e}"[:300]
+
+
+def int4pack_row(torch, packs, x, y_ref, n):
+    """library_ms of one torch.ops.aten._weight_int4pack_mm call on the same
+    codes (bf16 x, scales and zeros, bf16 result; weights cycled as the
+    kernels' are) and its error against the kernel's plain version. Its
+    tolerance is bf16's, 2^-7 of the largest output, since its scales, zeros
+    and output are bf16. Beside the kernel only: the port never calls it."""
+    if isinstance(packs, str):
+        return dict(library_ms=None, library_error=packs)
+    mm = torch.ops.aten._weight_int4pack_mm
+    xb = x.to(torch.bfloat16)
+    k_stored = packs[0][1].shape[0] * 32
+    if xb.shape[1] < k_stored:
+        xb = torch.nn.functional.pad(xb, (0, k_stored - xb.shape[1]))
+    try:
+        y = mm(xb, packs[0][0], 32, packs[0][1])
+    except RuntimeError as e:
+        return dict(library_ms=None,
+                    library_error=f"RuntimeError: {e}"[:300])
+    err = (y.float()[:, :n] - y_ref).abs().max().item()
+    tol = 2 ** -7 * y_ref.abs().max().item()
+    it = iter(range(10**9))
+
+    def run():
+        pw, sz = packs[next(it) % len(packs)]
+        mm(xb, pw, 32, sz)
+    ms = time_ms(torch, run, calls=4 * len(packs))
+    if err > tol:
+        return dict(library_ms=None, library_error=(
+            f"differs from the plain version by {err} > {tol}"),
+            library_unchecked_ms=ms)
+    return dict(library_ms=ms, library_max_abs_err=err, library_tol=tol)
 
 
 def sdpa_over(torch, q, kvs):
@@ -232,62 +305,133 @@ def sdpa_cycled(torch, q, caches, rows, h, d):
 
 
 def check_kernels(torch, dev, gen, out_dir):
-    from fastllama_tpu_torch.kernels import decode_attention as da
+    """Phase 2: every kernel against its plain version on the card, timed."""
+    results = {}
+    check_decode_matmuls(torch, dev, gen, results)
+    check_prefill_matmuls(torch, dev, gen, results)
+    check_decode_attention(torch, dev, gen, results)
+    check_engine_kernels(torch, dev, gen, results)
+    with open(os.path.join(out_dir, "kernel_checks.json"), "w") as fh:
+        json.dump(results, fh, indent=1)
+    return results
+
+
+def absum_of(torch, qm, x, wd, n, mode):
+    """The largest sum |x| @ |W| of the rounded operands: the scale of the
+    f32 reassociation tolerance."""
+    return (qm._pad_k(x.abs(), wd.shape[0]).to(mode).float()
+            @ wd.float().abs())[:, :n].max().item()
+
+
+# (name, K logical, N logical) of the main path's matmuls at 7B
+PLANES_7B = [("qkv", 4096, 12288), ("wo", 4096, 4096), ("w13", 4096, 22016),
+             ("w2", 11008, 4096), ("head", 4096, 32000)]
+
+
+def check_decode_matmuls(torch, dev, gen, results):
+    """B1 and B9 on every 7B plane: bf16 mode (tensor cores) at B1_ROWS /
+    B9_ROWS, with the FFMA design and one _weight_int4pack_mm call timed
+    beside them; f32 mode (FFMA) at M = 1 and 8 on wo (B1) and qkv (B9);
+    B9 also on the planes padded to 256 columns as make_matmul_weight_q41
+    pads them."""
     from fastllama_tpu_torch.kernels import q4_matmul as qm
 
-    def absum_of(x, wd, n, mode):
-        """The largest sum |x| @ |W| of the rounded operands: the scale of
-        the f32 reassociation tolerance."""
-        return (qm._pad_k(x.abs(), wd.shape[0]).to(mode).float()
-                @ wd.float().abs())[:, :n].max().item()
+    def b1_case(x, w, mode):
+        y = qm.q4_matmul_decode(x, w, mode)
+        y_ref = qm.q4_matmul_dequant(x, w, mode)
+        tol = 1e-5 * absum_of(torch, qm, x, qm.dequant_matmul_weight(w, mode),
+                              w.n_logical, mode)
+        return y, y_ref, tol
 
-    results = {}
-    # (name, K logical, N logical) of the main path's matmuls at 7B
-    shapes = [("qkv", 4096, 12288), ("wo", 4096, 4096), ("w13", 4096, 22016),
-              ("w2", 11008, 4096), ("head", 4096, 32000)]
-    b1 = []
-    for name, k, n in shapes:
-        w = rand_weight(torch, k, n, gen, dev)
-        wbytes = weight_bytes(w)
-        ws = [w] + [rand_weight(torch, k, n, gen, dev)
-                    for _ in range(copies_for(wbytes) - 1)]
-        for m in B1_ROWS:
-            x = torch.randn((m, k), generator=gen, device=dev)
-            for mode in ((torch.bfloat16, torch.float32) if m in (1, 8)
-                         and name == "wo" else (torch.bfloat16,)):
-                y = qm.q4_matmul_decode(x, w, mode)
-                y_ref = qm.q4_matmul_dequant(x, w, mode)
-                # reassociation tolerance: 1e-5 of the absolute-sum |x| @ |W|
-                err = (y - y_ref).abs().max().item()
-                tol = 1e-5 * absum_of(x, qm.dequant_matmul_weight(w, mode),
-                                      n, mode)
-                require(bool(torch.isfinite(y).all()), f"B1 {name} not finite")
-                require(err <= tol, f"B1 {name} M={m} {mode}: err {err} > {tol}")
-                require(torch.equal(y, qm.q4_matmul_decode(x, w, mode)),
-                        f"B1 {name} M={m} {mode}: not deterministic")
-                it = iter(range(10**9))
-                ms = time_ms(torch, lambda: qm.q4_matmul_decode(
-                    x, ws[next(it) % len(ws)], mode), calls=4 * len(ws))
-                plain_ms = time_ms(torch, lambda: qm.q4_matmul_dequant(
-                    x, w, mode), calls=2)
-                kind = "bf16" if mode == torch.bfloat16 else "f32"
-                bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
-                                   2.0 * m * k * n, kind)
-                row = dict(shape=f"{name} M={m} K={k} N={n} {kind}",
-                           max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bnd, bound_by=by, bound_share=bnd / ms)
-                if kind == "bf16" and name in ("qkv", "head") and m in (1, 8):
-                    # the FFMA design that bf16 mode ran before the tensor
-                    # cores (still f32 mode's kernel), in this same call
+    def b9_case(x, w, mode):
+        y = qm.q41_matmul_decode(x, w, mode)
+        y_ref = qm.q41_matmul_decode_plain(x, w, mode)
+        # 1e-5 of sum |x| |R(q d)| + sum |bsum| |m|, both terms' scale
+        qd = qm.dequant_matmul_weight(type(w)(
+            qs=w.qs, scales=w.scales, mins=torch.zeros_like(w.mins)), mode)
+        nb = w.k // 32
+        bsum = qm._pad_k(x, w.k).reshape(x.shape[0], nb, 32).sum(-1).abs()
+        tol = 1e-5 * (absum_of(torch, qm, x, qd, w.n_logical, mode) + (
+            bsum @ w.mins.abs())[:, :w.n_logical].max().item())
+        return y, y_ref, tol
+
+    for key, affine, fn, case, rows_of, f32_plane in (
+            ("B1", False, qm.q4_matmul_decode, b1_case, B1_ROWS, "wo"),
+            ("B9", True, qm.q41_matmul_decode, b9_case, B9_ROWS, "qkv")):
+        out = []
+        for name, k, n in PLANES_7B:
+            w = rand_weight(torch, k, n, gen, dev, affine)
+            wbytes = weight_bytes(w)
+            ws = [w] + [rand_weight(torch, k, n, gen, dev, affine)
+                        for _ in range(copies_for(wbytes) - 1)]
+            packs = int4pack_packs(torch, ws)
+            for m in rows_of:
+                x = torch.randn((m, k), generator=gen, device=dev)
+                modes = ((torch.bfloat16, torch.float32)
+                         if m in (1, 8) and name == f32_plane
+                         else (torch.bfloat16,))
+                for mode in modes:
+                    y, y_ref, tol = case(x, w, mode)
+                    err = (y - y_ref).abs().max().item()
+                    require(bool(torch.isfinite(y).all()),
+                            f"{key} {name} not finite")
+                    require(err <= tol, f"{key} {name} M={m} {mode}: err "
+                            f"{err} > {tol}")
+                    require(torch.equal(y, fn(x, w, mode)),
+                            f"{key} {name} M={m} {mode}: not deterministic")
                     it = iter(range(10**9))
-                    row["ffma_design_ms"] = time_ms(torch, lambda: ffma_b1(
-                        torch, qm, x, ws[next(it) % len(ws)]),
-                        calls=4 * len(ws))
-                b1.append(row)
-                print(f"B1 {row}", flush=True)
-        del ws, w
-    results["B1"] = b1
+                    ms = time_ms(torch, lambda: fn(
+                        x, ws[next(it) % len(ws)], mode), calls=4 * len(ws))
+                    plain = qm.q41_matmul_decode_plain if affine else \
+                        qm.q4_matmul_dequant
+                    plain_ms = time_ms(torch, lambda: plain(x, w, mode),
+                                       calls=2)
+                    kind = "bf16" if mode == torch.bfloat16 else "f32"
+                    bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
+                                       2.0 * m * k * n, kind)
+                    row = dict(shape=f"{name} M={m} K={k} N={n} {kind}",
+                               max_abs_err=err, tol=tol, ms=ms,
+                               plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                               bound_share=bnd / ms)
+                    if kind == "bf16":
+                        # the FFMA design (f32 mode's kernel) in this call,
+                        # and the library's W4A16 matmul on the same codes
+                        it = iter(range(10**9))
+                        row["ffma_design_ms"] = time_ms(
+                            torch, lambda: ffma_gemv(
+                                torch, qm, x, ws[next(it) % len(ws)]),
+                            calls=4 * len(ws))
+                        if m in B1_ROWS:
+                            row.update(int4pack_row(torch, packs, x, y_ref,
+                                                    n))
+                    out.append(row)
+                    print(f"{key} {row}", flush=True)
+            del ws, w, packs
+        results[key] = out
 
+    # B9 on planes padded to 256 columns (make_matmul_weight_q41's rule):
+    # 22016 and 32000 columns take other block layouts than 22528 and 32768
+    from fastllama_tpu_torch.quant.tensor import good_pad_k
+    for name, k, n in (("w13", 4096, 22016), ("head", 4096, 32000)):
+        w = rand_weight(torch, k, n, gen, dev, True, pad_n=256)
+        require(w.qs.shape == (good_pad_k(k) // 2, n), "B9 256-padded plane")
+        for m in (1, 8, 17, 64):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            y, y_ref, tol = b9_case(x, w, torch.bfloat16)
+            err = (y - y_ref).abs().max().item()
+            require(bool(torch.isfinite(y).all()) and err <= tol,
+                    f"B9 {name} N={n} (padded to 256) M={m}: err {err} > "
+                    f"{tol}")
+            results["B9"].append(dict(
+                shape=f"{name} M={m} K={k} N={n} padded to 256 bf16",
+                max_abs_err=err, tol=tol))
+        del w
+
+
+def check_prefill_matmuls(torch, dev, gen, results):
+    """B2 and B3 (bit for bit) and B5 against their plain versions."""
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    shapes = PLANES_7B
     b2, b3 = [], []
     m = 512
     for name, k, n in shapes[:4]:
@@ -327,61 +471,126 @@ def check_kernels(torch, dev, gen, out_dir):
         del ws, w
     results["B2"], results["B3"] = b2, b3
 
+    # B5: bf16 / f32 prefill matmul against dequant + torch.matmul (its
+    # plain version and the path it replaces); tolerance as B1
+    b5 = []
+    for name, k, n in shapes[:4]:
+        w = rand_weight(torch, k, n, gen, dev)
+        wbytes = weight_bytes(w)
+        ws = [w] + [rand_weight(torch, k, n, gen, dev)
+                    for _ in range(copies_for(wbytes) - 1)]
+        cases = [(512, torch.bfloat16)]
+        if name == "qkv":
+            cases += [(256, torch.bfloat16), (2048, torch.bfloat16),
+                      (512, torch.float32)]
+        for m, mode in cases:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            y = qm.q4_matmul_prefill(x, w, mode)
+            y_ref = qm.q4_matmul_dequant(x, w, mode)
+            err = (y - y_ref).abs().max().item()
+            tol = 1e-5 * absum_of(torch, qm, x,
+                                  qm.dequant_matmul_weight(w, mode), n, mode)
+            require(bool(torch.isfinite(y).all()), f"B5 {name} not finite")
+            require(err <= tol, f"B5 {name} M={m} {mode}: err {err} > {tol}")
+            it = iter(range(10**9))
+            ms = time_ms(torch, lambda: qm.q4_matmul_prefill(
+                x, ws[next(it) % len(ws)], mode), calls=len(ws))
+            plain_ms = time_ms(torch, lambda: qm.q4_matmul_dequant(
+                x, w, mode), calls=2)
+            kind = "bf16" if mode == torch.bfloat16 else "f32"
+            bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
+                               2.0 * m * k * n, kind)
+            b5.append(dict(shape=f"{name} M={m} K={k} N={n} {kind}",
+                           max_abs_err=err, tol=tol, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bnd, bound_by=by))
+            print(f"B5 {b5[-1]}", flush=True)
+        del ws, w
+    results["B5"] = b5
+
+
+def check_decode_attention(torch, dev, gen, results):
+    """B4 and B10 at B = 1 over 16 cycled 7B-width caches (bf16), and B4 on
+    f32 caches; engine batch shapes in check_engine_kernels."""
+    from fastllama_tpu_torch.kernels import decode_attention as da
     b4 = []
     s_len, h, d = 512, 32, 128
     f = h * d
+    scale = 1 / math.sqrt(d)
+    kw4 = dict(head_dim=d, n_rot=d, scale=scale)
     n_caches = 16
     caches = [(torch.randn((1, s_len, f), generator=gen, device=dev)
                .to(torch.bfloat16),
                torch.randn((1, s_len, f), generator=gen, device=dev)
                .to(torch.bfloat16)) for _ in range(n_caches)]
-    for n_past in (0, 1, 300, 511):
+    f32_caches = tuple(torch.randn((1, s_len, f), generator=gen, device=dev)
+                       for _ in range(2))
+
+    def b4_check(qkv, kc, vc, npv, cos, sin, label):
+        """B4 on clones of the caches against its plain version: output
+        within tolerance, caches bit for bit after the call, and the same
+        output and caches from a second run."""
+        runs = []
+        for _ in range(2):
+            k1, v1 = kc.clone(), vc.clone()
+            runs.append((da.decode_attention_fused(qkv, k1, v1, npv, cos, sin,
+                                                   **kw4), k1, v1))
+        k2, v2 = kc.clone(), vc.clone()
+        ref = da.decode_attention_fused_plain(qkv, k2, v2, npv, cos, sin,
+                                              **kw4)
+        ctx, k1, v1 = runs[0]
+        err = (ctx - ref).abs().max().item()
+        # bf16: each chunk rounds its p = exp(score - chunk max) to bf16
+        # before the PV dot where the plain version rounds exp(score - max),
+        # and one f32 ulp of exp can move a rounding by one bf16 ulp (2^-8);
+        # f32: exp within a few ulp and the sum order, as for B10
+        rel = 2 ** -7 if kc.dtype == torch.bfloat16 else 5e-5
+        tol = rel * ref.abs().max().item() + 1e-6
+        require(bool(torch.isfinite(ctx).all()), f"B4 {label}: not finite")
+        require(err <= tol, f"B4 {label}: err {err} > {tol}")
+        require(torch.equal(k1, k2) and torch.equal(v1, v2),
+                f"B4 {label}: caches differ")
+        require(all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])),
+                f"B4 {label}: not deterministic")
+        return err, tol
+
+    # the depths where the 64-row chunks begin and end, the last row, and
+    # one past S (an inactive slot: all S rows attended, row S - 1 written)
+    for n_past in (0, 1, 63, 64, 65, 300, 511, s_len + 88):
         qkv = torch.randn((1, 1, 3 * f), generator=gen, device=dev)
         npv = torch.tensor([n_past], dtype=torch.int32, device=dev)
         cos, sin = da.rope_lane_tables(npv, d, d)
         kc, vc = caches[0]
-        kc2, vc2 = kc.clone(), vc.clone()
-        ctx = da.decode_attention_fused(qkv, kc, vc, npv, cos, sin,
-                                        head_dim=d, n_rot=d,
-                                        scale=1 / math.sqrt(d))
-        ctx_ref = da.decode_attention_fused_plain(qkv, kc2, vc2, npv, cos,
-                                                  sin, head_dim=d, n_rot=d,
-                                                  scale=1 / math.sqrt(d))
-        err = (ctx - ctx_ref).abs().max().item()
-        # bf16 tolerance: p is rounded to bf16 before the PV dot, and one
-        # f32 ulp of exp can move that rounding by one bf16 ulp (2^-8)
-        tol = 2 ** -7 * ctx_ref.abs().max().item() + 1e-6
-        require(err <= tol, f"B4 n_past={n_past}: err {err} > {tol}")
-        require(torch.equal(kc, kc2) and torch.equal(vc, vc2),
-                f"B4 n_past={n_past}: caches differ")
+        err, tol = b4_check(qkv, kc, vc, npv, cos, sin, f"n_past={n_past}")
+        ferr, ftol = b4_check(qkv, *f32_caches, npv, cos, sin,
+                              f"n_past={n_past} f32 caches")
         it = iter(range(10**9))
 
         def run():
             kk, vv = caches[next(it) % n_caches]
-            da.decode_attention_fused(qkv, kk, vv, npv, cos, sin, head_dim=d,
-                                      n_rot=d, scale=1 / math.sqrt(d))
+            da.decode_attention_fused(qkv, kk, vv, npv, cos, sin, **kw4)
         ms = time_ms(torch, run, calls=2 * n_caches)
         plain_ms = time_ms(torch, lambda: da.decode_attention_fused_plain(
-            qkv, kc2, vc2, npv, cos, sin, head_dim=d, n_rot=d,
-            scale=1 / math.sqrt(d)), calls=5)
+            qkv, kc.clone(), vc.clone(), npv, cos, sin, **kw4), calls=5)
+        rows = min(n_past, s_len)
         qr = torch.randn((1, h, 1, d), generator=gen, device=dev
                          ).to(torch.bfloat16)
-        sdpa_ms = sdpa_cycled(torch, qr, caches, max(n_past, 1), h, d)
-        bnd, by = bound_ms(3 * f * 4 + 2 * n_past * f * 2 + 2 * f * 2
-                           + 2 * d * 4 + 4 + f * 4, 4.0 * n_past * f, "bf16")
+        sdpa_ms = sdpa_cycled(torch, qr, caches, max(rows, 1), h, d)
+        bnd, by = bound_ms(3 * f * 4 + 2 * rows * f * 2 + 2 * f * 2
+                           + 2 * d * 4 + 4 + f * 4, 4.0 * rows * f, "bf16")
         b4.append(dict(shape=f"B=1 S={s_len} H={h} d={d} n_past={n_past}",
-                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                       max_abs_err=err, tol=tol, f32_max_abs_err=ferr,
+                       f32_tol=ftol, ms=ms, plain_ms=plain_ms,
                        sdpa_attention_only_ms=sdpa_ms, bound_ms=bnd,
                        bound_by=by))
         print(f"B4 {b4[-1]}", flush=True)
     results["B4"] = b4
+    del f32_caches
 
     # B10: attention alone over a written cache (rows s <= n_past). q, the
     # scores and p are f32 for both cache types, so the tolerance is f32
     # rounding: exp within a few ulp and the sum order, 5e-5 of the largest
     # output.
     b10 = []
-    scale = 1 / math.sqrt(d)
 
     def b10_check(q, kc, vc, npv, label):
         ctx = da.decode_attention(q, kc, vc, npv, head_dim=d, scale=scale)
@@ -432,86 +641,6 @@ def check_kernels(torch, dev, gen, out_dir):
         print(f"B10 {b10[-1]}", flush=True)
     results["B10"] = b10
     del caches
-
-    # B5: bf16 / f32 prefill matmul against dequant + torch.matmul (its
-    # plain version and the path it replaces); tolerance as B1
-    b5 = []
-    for name, k, n in shapes[:4]:
-        w = rand_weight(torch, k, n, gen, dev)
-        wbytes = weight_bytes(w)
-        ws = [w] + [rand_weight(torch, k, n, gen, dev)
-                    for _ in range(copies_for(wbytes) - 1)]
-        cases = [(512, torch.bfloat16)]
-        if name == "qkv":
-            cases += [(256, torch.bfloat16), (2048, torch.bfloat16),
-                      (512, torch.float32)]
-        for m, mode in cases:
-            x = torch.randn((m, k), generator=gen, device=dev)
-            y = qm.q4_matmul_prefill(x, w, mode)
-            y_ref = qm.q4_matmul_dequant(x, w, mode)
-            err = (y - y_ref).abs().max().item()
-            tol = 1e-5 * absum_of(x, qm.dequant_matmul_weight(w, mode), n,
-                                  mode)
-            require(bool(torch.isfinite(y).all()), f"B5 {name} not finite")
-            require(err <= tol, f"B5 {name} M={m} {mode}: err {err} > {tol}")
-            it = iter(range(10**9))
-            ms = time_ms(torch, lambda: qm.q4_matmul_prefill(
-                x, ws[next(it) % len(ws)], mode), calls=len(ws))
-            plain_ms = time_ms(torch, lambda: qm.q4_matmul_dequant(
-                x, w, mode), calls=2)
-            kind = "bf16" if mode == torch.bfloat16 else "f32"
-            bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
-                               2.0 * m * k * n, kind)
-            b5.append(dict(shape=f"{name} M={m} K={k} N={n} {kind}",
-                           max_abs_err=err, tol=tol, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bnd, bound_by=by))
-            print(f"B5 {b5[-1]}", flush=True)
-        del ws, w
-    results["B5"] = b5
-
-    # B9: decode-size affine matmul against its plain version (the kernel's
-    # formula, not the dequant form); tolerance as B1, over both terms
-    b9 = []
-    for name, k, n in shapes:
-        w = rand_weight(torch, k, n, gen, dev, affine=True)
-        wbytes = weight_bytes(w)
-        ws = [w] + [rand_weight(torch, k, n, gen, dev, affine=True)
-                    for _ in range(copies_for(wbytes) - 1)]
-        nb = w.k // 32
-        for m in (1, 64):
-            x = torch.randn((m, k), generator=gen, device=dev)
-            for mode in ((torch.bfloat16, torch.float32) if m == 1
-                         and name == "qkv" else (torch.bfloat16,)):
-                y = qm.q41_matmul_decode(x, w, mode)
-                y_ref = qm.q41_matmul_decode_plain(x, w, mode)
-                qd = qm.dequant_matmul_weight(
-                    type(w)(qs=w.qs, scales=w.scales,
-                            mins=torch.zeros_like(w.mins)), mode)
-                bsum = qm._pad_k(x, w.k).reshape(m, nb, 32).sum(-1).abs()
-                absum = absum_of(x, qd, n, mode) + (
-                    bsum @ w.mins.abs())[:, :n].max().item()
-                err = (y - y_ref).abs().max().item()
-                tol = 1e-5 * absum
-                require(bool(torch.isfinite(y).all()), f"B9 {name} not finite")
-                require(err <= tol, f"B9 {name} M={m} {mode}: err {err} > {tol}")
-                it = iter(range(10**9))
-                ms = time_ms(torch, lambda: qm.q41_matmul_decode(
-                    x, ws[next(it) % len(ws)], mode), calls=4 * len(ws))
-                plain_ms = time_ms(torch, lambda: qm.q41_matmul_decode_plain(
-                    x, w, mode), calls=2)
-                kind = "bf16" if mode == torch.bfloat16 else "f32"
-                bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
-                                   2.0 * m * k * n, kind)
-                b9.append(dict(shape=f"{name} M={m} K={k} N={n} {kind}",
-                               max_abs_err=err, tol=tol, ms=ms,
-                               plain_ms=plain_ms, bound_ms=bnd, bound_by=by))
-                print(f"B9 {b9[-1]}", flush=True)
-        del ws, w
-    results["B9"] = b9
-    check_engine_kernels(torch, dev, gen, results)
-    with open(os.path.join(out_dir, "kernel_checks.json"), "w") as fh:
-        json.dump(results, fh, indent=1)
-    return results
 
 
 # engine shapes at 7B: 8 slots, n_ctx 512, pages of 64 rows
@@ -769,10 +898,12 @@ def check_engine_kernels(torch, dev, gen, results):
         qkv = torch.randn((b, 1, 3 * f), generator=gen, device=dev)
         kc, vc = caches[0]
         kc2, vc2 = kc.clone(), vc.clone()
+        kc3, vc3 = kc.clone(), vc.clone()
         kw4 = dict(head_dim=d, n_rot=d, scale=scale)
         ctx = da.decode_attention_fused(qkv, kc, vc, npv, cos, sin, **kw4)
         ref = da.decode_attention_fused_plain(qkv, kc2, vc2, npv, cos, sin,
                                               **kw4)
+        again = da.decode_attention_fused(qkv, kc3, vc3, npv, cos, sin, **kw4)
         torch.cuda.synchronize()
         err = (ctx - ref).abs().max().item()
         tol = 2 ** -7 * ref.abs().max().item() + 1e-6
@@ -780,6 +911,9 @@ def check_engine_kernels(torch, dev, gen, results):
         require(err <= tol, f"B4 B=8 {label}: err {err} > {tol}")
         require(torch.equal(kc, kc2) and torch.equal(vc, vc2),
                 f"B4 B=8 {label}: caches differ")
+        require(torch.equal(ctx, again) and torch.equal(kc, kc3)
+                and torch.equal(vc, vc3), f"B4 B=8 {label}: not deterministic")
+        del kc3, vc3
         it = iter(range(10**9))
 
         def run4():

@@ -17,17 +17,6 @@
 // row is written after every read of the cache, so the attention always
 // sees the cache as it was before this step.
 //
-// Bound on the H100: bytes. The step reads 2 * n_past * H * Dh cache
-// elements once and does ~4 flops per element. One 256-thread block per
-// (b, h). Scores: each thread takes whole cache rows (s = tid, tid + 256,
-// ...) and reads a row's head slice as independent 16-byte loads, so many
-// loads are in flight and no per-row warp reduction is needed; the scores
-// live in shared memory (4 bytes per row, S <= 12288). PV: each warp takes
-// every eighth row, its lanes read one row's head slice contiguously, and
-// the 8 warps' partial contexts are added through shared memory. At B = 1
-// the 7B model gives only 32 blocks for 132 SMs; B10 below splits S across
-// blocks, B4 keeps this design until its own redesign.
-//
 // B10 (decode_attention) replaces decode_attention (_decode_attn_kernel) of
 // the same file: attention alone, over caches that already hold the current
 // token's row (the caller ropes and writes it, as it must when LoRA terms
@@ -37,23 +26,43 @@
 // Everything is f32 after the load: neither q nor p is cast to the cache
 // type. A slot with n_past >= S attends all S rows and gives finite numbers.
 //
-// B10's design is flash-decoding, with loops of its own (B4 keeps the ones
-// above). One block per (h, b) walking every row left three quarters of the
-// SMs idle at B = 1 (32 blocks) and read key rows 8 KB apart within a warp.
-// Here the grid is (h, b, split): the host cuts S (never n_past, which would
-// cost a host sync) into `splits` chunks of `chunk` <= 64 rows. A block
-// takes the rows of its chunk that are <= min(n_past, S - 1): it first puts
-// every K and V row of the chunk in flight at once (cp.async, 16 bytes a
-// lane, coalesced) into shared memory, so the chunk costs one memory round
-// trip; then 16 lanes take one row and reduce its dot by shuffles, 8 such
-// groups take 8 rows at a time, the chunk's scores sit in shared memory,
-// p = exp(score - m), and the same groups accumulate p * V. A chunk past the
-// length (the neutral partial: m = -inf, l = 0) exits at once; a sequence
-// whose rows fit one chunk is written by that block directly. Otherwise
-// each block writes its partial (m, l, ctx[D]) to scratch [B, H, splits,
-// D + 2], and the last of the sequence's active blocks, elected by an atomic
-// counter that it resets, merges the partials in chunk order, loading 8 of
-// them at a time in one round trip: deterministic, one launch, graph-safe.
+// Bound on the H100 (both): bytes. A step reads 2 * n_past * H * Dh cache
+// elements once and does ~4 flops per element. Both kernels are one
+// flash-decoding kernel (attn_split_kernel; B4 sets FUSED). One block per
+// (h, b) walking every row left three quarters of the SMs idle at B = 1 (32
+// blocks) and read key rows 8 KB apart within a warp. Here the grid is
+// (h, b, split): the host cuts S (never n_past, which would cost a host
+// sync) into `splits` chunks of `chunk` <= 64 rows. A block takes the rows
+// of its chunk that it attends: it first puts every K and V row of the
+// chunk in flight at once (cp.async, 16 bytes a lane, coalesced) into shared
+// memory, so the chunk costs one memory round trip; then 16 lanes take one
+// row and reduce its dot by shuffles, 8 such groups take 8 rows at a time,
+// the chunk's scores sit in shared memory, p = exp(score - m), and the same
+// groups accumulate p * V. A chunk past the length (the neutral partial:
+// m = -inf, l = 0) exits at once; a sequence whose rows fit one chunk is
+// finished by that block directly. Otherwise each block writes its partial
+// (m, l, ctx[D]) to scratch [B, H, splits, D + 2], and the last of the
+// sequence's active blocks, elected by an atomic counter that it resets,
+// merges the partials in chunk order, loading 8 of them at a time in one
+// round trip: deterministic, one launch, graph-safe.
+//
+// What FUSED (B4) adds to that:
+//   * every block ropes its own copy of q from the raw qkv (a lane's pairs
+//     (l, l^1) lie among its own elements) and casts it to T for the scores;
+//   * a chunk's p-cast is T(exp(score - m_chunk)), not the unsplit
+//     T(exp(score - m)) with the global max: the chunk's partial is then
+//     rescaled by exp(m_chunk - M) in f32. That moves one bf16 rounding of
+//     each p, within B4's tolerance of 2^-7 of the largest output; l stays
+//     the sum of the unrounded p, as in the plain version;
+//   * the new token is one more partial, folded in unrounded after the
+//     chunks: m = s_new, l = 1, ctx = v_new;
+//   * the block that finishes a (b, h) (the merging block, or the single
+//     block of a one-chunk sequence) ropes k_new, computes s_new and writes
+//     T(k_new) and T(v_new) at row w. Every other block of the (b, h) has
+//     read its rows before it counted in, so the write cannot reach a read
+//     of this step, also at n_past >= S where w = S - 1 is attended;
+//   * a (b, h) with no rows (n_past = 0) still has its one block, which
+//     writes the row and ctx = v_new.
 
 #include "common.cuh"
 
@@ -61,150 +70,7 @@ namespace {
 
 using fltorch::Vec16;
 
-constexpr int kThreads = 256, kWarps = kThreads / 32, kMaxD = 256;
-
-// scores[s] = dot(qv, K[s]) * scale for the n rows of one (b, h) at kbase
-// (row stride F), then p = exp(score - max) in place; `extra` is a score
-// outside the cache that joins the max (-INFINITY for none). Returns the max
-// in m and this thread's share of sum p in lsum. Each thread takes whole rows
-// and reads a row's head slice as independent 16-byte loads.
-template <typename T>
-__device__ __forceinline__ void attend_scores(
-    const float* qv, const T* kbase, int n, int F, int d, float scale,
-    float extra, float* scores, float* red, float& m, float& lsum) {
-  constexpr int VN = Vec16<T>::kN;
-  const int tid = threadIdx.x;
-  for (int s = tid; s < n; s += kThreads) {
-    const T* kr_row = kbase + (size_t)s * F;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int l = 0; l < d; l += VN) {
-      float v[VN];
-      Vec16<T>::load(kr_row + l, v);
-#pragma unroll
-      for (int i = 0; i < VN; ++i) acc += qv[l + i] * v[i];
-    }
-    scores[s] = acc * scale;
-  }
-  float mx = extra;
-  for (int s = tid; s < n; s += kThreads) mx = fmaxf(mx, scores[s]);
-  m = fltorch::block_max(mx, red);                               // syncs
-  lsum = 0.f;
-  for (int s = tid; s < n; s += kThreads) {
-    const float p = expf(scores[s] - m);
-    scores[s] = p;
-    lsum += p;
-  }
-}
-
-// ctx_s[warp][l] = this warp's share of sum_s p_s * V[s, l] over the n rows
-// at vbase; CAST_P rounds p to the cache type first (B4). Each warp takes
-// every eighth row and its lanes read one row's head slice contiguously.
-// The caller synchronizes (scores complete) before and after.
-template <typename T, bool CAST_P>
-__device__ __forceinline__ void attend_values(
-    const float* scores, const T* vbase, int n, int F, int d,
-    float (*ctx_s)[kMaxD]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per_lane = d / 32;                   // d <= 256: at most 8
-  float acc[kMaxD / 32];
-#pragma unroll
-  for (int i = 0; i < kMaxD / 32; ++i) acc[i] = 0.f;
-#pragma unroll 2
-  for (int s = warp; s < n; s += kWarps) {
-    const float p = CAST_P ? fltorch::to_f32(fltorch::from_f32<T>(scores[s]))
-                           : scores[s];
-    const T* vr_row = vbase + (size_t)s * F + lane * per_lane;
-#pragma unroll
-    for (int i = 0; i < kMaxD / 32; ++i)
-      if (i < per_lane) acc[i] += p * fltorch::to_f32(vr_row[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < kMaxD / 32; ++i)
-    if (i < per_lane) ctx_s[warp][lane * per_lane + i] = acc[i];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const float* __restrict__ qkv, T* __restrict__ kc,
-                   T* __restrict__ vc, const int* __restrict__ n_past,
-                   const float* __restrict__ cos_t,
-                   const float* __restrict__ sin_t, int S, int F, int d,
-                   float scale, float* __restrict__ out) {
-  extern __shared__ float scores[];              // [S]
-  __shared__ float q_s[kMaxD], k_s[kMaxD], v_s[kMaxD], qc_s[kMaxD];
-  __shared__ float ctx_s[kWarps][kMaxD];
-  __shared__ float red[32];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int np = n_past[b];
-  const int n = min(max(np, 0), S);              // rows attended
-  const int w_row = min(max(np, 0), S - 1);      // row written
-  const float* row = qkv + (size_t)b * 3 * F + (size_t)h * d;
-  const float* cs = cos_t + (size_t)b * d;
-  const float* sn = sin_t + (size_t)b * d;
-
-  for (int l = tid; l < d; l += kThreads) {
-    q_s[l] = row[l];
-    k_s[l] = row[F + l];
-    v_s[l] = row[2 * F + l];
-  }
-  __syncthreads();
-  float qr = 0.f, kr = 0.f;
-  if (tid < d) {
-    // fma(x, cos, round(partner * sin)): the roundings XLA:CPU gives the
-    // JAX kernel's x * cos + partner * sin; the rotated k is stored in the
-    // cache, so it matches the reference and the plain version bit for bit
-    qr = __fmaf_rn(q_s[tid], cs[tid], __fmul_rn(q_s[tid ^ 1], sn[tid]));
-    kr = __fmaf_rn(k_s[tid], cs[tid], __fmul_rn(k_s[tid ^ 1], sn[tid]));
-  }
-  __syncthreads();
-  if (tid < d) {
-    q_s[tid] = qr;
-    k_s[tid] = kr;
-    qc_s[tid] = fltorch::to_f32(fltorch::from_f32<T>(qr));
-  }
-  const float s_new = fltorch::block_sum(qr * kr, red) * scale;   // syncs
-
-  const size_t head_off = (size_t)h * d;
-  float m, lsum;
-  attend_scores<T>(qc_s, kc + (size_t)b * S * F + head_off, n, F, d, scale,
-                   s_new, scores, red, m, lsum);
-  const float e_new = expf(s_new - m);
-  const float l_tot = fltorch::block_sum(lsum, red) + e_new;     // syncs
-  attend_values<T, true>(scores, vc + (size_t)b * S * F + head_off, n, F, d,
-                         ctx_s);
-  __syncthreads();
-  for (int l = tid; l < d; l += kThreads) {
-    float c = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) c += ctx_s[w][l];
-    out[(size_t)b * F + head_off + l] = (c + e_new * v_s[l]) / l_tot;
-    const size_t wi = ((size_t)b * S + w_row) * F + head_off + l;
-    kc[wi] = fltorch::from_f32<T>(k_s[l]);
-    vc[wi] = fltorch::from_f32<T>(v_s[l]);
-  }
-}
-
-template <typename T>
-int launch(const void* qkv, void* kc, void* vc, const void* n_past,
-           const void* cos_t, const void* sin_t, int B, int S, int F, int d,
-           float scale, void* out, cudaStream_t stream) {
-  dim3 grid(F / d, B);
-  const size_t smem = (size_t)S * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        decode_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  decode_attn_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const float*)qkv, (T*)kc, (T*)vc, (const int*)n_past,
-      (const float*)cos_t, (const float*)sin_t, S, F, d, scale, (float*)out);
-  return (int)cudaGetLastError();
-}
-
-// ---- B10 ----------------------------------------------------------------
+constexpr int kMaxD = 256;
 
 constexpr int kSplitThreads = 128;               // 8 groups of 16 lanes
 constexpr int kGroups = kSplitThreads / 16, kMaxChunk = 64;
@@ -234,13 +100,57 @@ __device__ __forceinline__ void lane_row(const T* p, float* out) {
   }
 }
 
+// rope(x) of a lane's EPL elements (EPL is even, so the partner l ^ 1 of
+// each is the lane's own): fma(x, cos, round(partner * sin)), the roundings
+// XLA:CPU gives the JAX kernel's x * cos + partner * sin; the rotated k is
+// stored in the cache, so it matches the reference and the plain version
+// bit for bit.
+template <int EPL>
+__device__ __forceinline__ void rope_lane(const float* x, const float* cs,
+                                          const float* sn, float* out) {
+#pragma unroll
+  for (int i = 0; i < EPL; ++i)
+    out[i] = __fmaf_rn(x[i], cs[i], __fmul_rn(x[i ^ 1], sn[i]));
+}
+
+// B4's new token, in the block that finishes a (b, h): ropes the lane's
+// slice of k_new, writes T(k_new) and T(v_new) into cache row `row` (group
+// 0 of the block) and returns s_new = dot(q, k_new) * scale to every
+// thread. All threads of the block call it (the dot is reduced by shuffles).
 template <typename T, int EPL>
+__device__ __forceinline__ float new_token(const float* kvrow, int F,
+                                           const float* qr, const float* cs,
+                                           const float* sn, T* krow, T* vrow,
+                                           float scale) {
+  const int gl = threadIdx.x & 15;
+  float x[EPL], kr[EPL];
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) x[i] = kvrow[gl * EPL + i];
+  rope_lane<EPL>(x, cs, sn, kr);
+  float dot = 0.f;
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) dot += qr[i] * kr[i];
+  dot = group16_sum(dot);
+  if (threadIdx.x < 16) {
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) {
+      krow[gl * EPL + i] = fltorch::from_f32<T>(kr[i]);
+      vrow[gl * EPL + i] = fltorch::from_f32<T>(kvrow[F + gl * EPL + i]);
+    }
+  }
+  return dot * scale;
+}
+
+// q: B10 the roped q [B, F]; B4 the raw projection qkv [B, 3F] and the
+// tables cos_t, sin_t [B, D] (B10 passes none).
+template <typename T, int EPL, bool FUSED>
 __global__ void __launch_bounds__(kSplitThreads)
-attn_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
-                  const T* __restrict__ vc, const int* __restrict__ n_past,
-                  int S, int F, int chunk, float scale,
-                  float* __restrict__ partial, int* __restrict__ counters,
-                  float* __restrict__ out) {
+attn_split_kernel(const float* __restrict__ q, T* __restrict__ kc,
+                  T* __restrict__ vc, const int* __restrict__ n_past,
+                  const float* __restrict__ cos_t,
+                  const float* __restrict__ sin_t, int S, int F, int chunk,
+                  float scale, float* __restrict__ partial,
+                  int* __restrict__ counters, float* __restrict__ out) {
   constexpr int D = 16 * EPL;
   constexpr int kRowChunks = D * (int)sizeof(T) / 16;   // 16-byte pieces
   extern __shared__ __align__(16) uint8_t kv_raw[];     // K, V [chunk][D]
@@ -251,10 +161,13 @@ attn_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
   const int h = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int H = gridDim.x, nsp = gridDim.z;
   const int tid = threadIdx.x, grp = tid >> 4, gl = tid & 15;
-  const int n = min(max(n_past[b], 0) + 1, S);   // rows s <= n_past
-  const int act = (n + chunk - 1) / chunk;       // chunks holding rows
+  const int np = max(n_past[b], 0);
+  // rows attended: B10 s <= n_past, B4 s < n_past (plus the new token)
+  const int n = min(FUSED ? np : np + 1, S);
+  // chunks holding rows; B4 keeps one block for a (b, h) with none
+  const int act = max(1, (n + chunk - 1) / chunk);
   if (sp >= act) return;                         // past the length
-  const int s0 = sp * chunk, cnt = min(s0 + chunk, n) - s0;
+  const int s0 = sp * chunk, cnt = max(0, min(s0 + chunk, n) - s0);
   const size_t head_off = (size_t)h * D;
   T* ks = reinterpret_cast<T*>(kv_raw);
   T* vs = ks + (size_t)chunk * D;
@@ -274,10 +187,19 @@ attn_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
                vc + base + (size_t)r * F + c * (16 / sizeof(T)));
   }
   asm volatile("cp.async.commit_group;\n" ::);
-  float qv[EPL];
-  const float* qrow = q + (size_t)b * F + head_off + gl * EPL;
+  // qr: q in f32 (B4: roped); qv: what the scores take (B4: T(qr))
+  float qr[EPL], qv[EPL];
+  const float* qrow = q + (size_t)b * (FUSED ? 3 * F : F) + head_off;
+  const float* cs = FUSED ? cos_t + (size_t)b * D + gl * EPL : nullptr;
+  const float* sn = FUSED ? sin_t + (size_t)b * D + gl * EPL : nullptr;
 #pragma unroll
-  for (int i = 0; i < EPL; ++i) qv[i] = qrow[i];
+  for (int i = 0; i < EPL; ++i) qv[i] = qrow[gl * EPL + i];
+  if constexpr (FUSED) {
+    rope_lane<EPL>(qv, cs, sn, qr);
+#pragma unroll
+    for (int i = 0; i < EPL; ++i)
+      qv[i] = fltorch::to_f32(fltorch::from_f32<T>(qr[i]));
+  }
   asm volatile("cp.async.wait_group 1;\n" ::);
   __syncthreads();
 
@@ -316,7 +238,8 @@ attn_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
   for (int i = 0; i < EPL; ++i) acc[i] = 0.f;
   for (int r = grp; r < cnt; r += kGroups) {
-    const float p = sc[r];
+    const float p =
+        FUSED ? fltorch::to_f32(fltorch::from_f32<T>(sc[r])) : sc[r];
     float vv[EPL];
     lane_row<T, EPL>(vs + (size_t)r * D + gl * EPL, vv);
 #pragma unroll
@@ -326,12 +249,31 @@ attn_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
   for (int i = 0; i < EPL; ++i) red[grp][gl * EPL + i] = acc[i];
   __syncthreads();
   float* o = out + (size_t)b * F + head_off;
+  // B4: the new token's k and v in qkv, and the cache row it goes to
+  const float* kvrow = qrow + F;
+  const size_t w_off = ((size_t)b * S + min(np, S - 1)) * F + head_off;
   if (act == 1) {                                // one chunk: no merge
-    for (int l = tid; l < D; l += kSplitThreads) {
-      float c = 0.f;
+    if constexpr (FUSED) {
+      // fold the new token into the chunk's partial; an empty chunk has
+      // m = -inf, l = 0, ctx = 0 and weighs exp(-inf) = 0
+      const float s_new = new_token<T, EPL>(kvrow, F, qr, cs, sn, kc + w_off,
+                                            vc + w_off, scale);
+      const float M = fmaxf(ml[0], s_new);
+      const float a = expf(ml[0] - M), e = expf(s_new - M);
+      const float L = ml[1] * a + e;
+      for (int l = tid; l < D; l += kSplitThreads) {
+        float c = 0.f;
 #pragma unroll
-      for (int g = 0; g < kGroups; ++g) c += red[g][l];
-      o[l] = c / ml[1];
+        for (int g = 0; g < kGroups; ++g) c += red[g][l];
+        o[l] = (c * a + e * kvrow[F + l]) / L;
+      }
+    } else {
+      for (int l = tid; l < D; l += kSplitThreads) {
+        float c = 0.f;
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) c += red[g][l];
+        o[l] = c / ml[1];
+      }
     }
     return;
   }
@@ -356,6 +298,10 @@ attn_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
   if (!is_last) return;
   __threadfence();
   const float* pb = partial + ((size_t)b * H + h) * nsp * (D + 2);
+  float s_new = 0.f;
+  if constexpr (FUSED)                           // every read is done
+    s_new = new_token<T, EPL>(kvrow, F, qr, cs, sn, kc + w_off, vc + w_off,
+                              scale);
   // chunks in order, 8 at a time: the (m, l, ctx) of a batch are loaded
   // together (one round trip), merged two-pass within the batch and online
   // (rescaled by the running max) across batches
@@ -386,39 +332,51 @@ attn_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
       }
       M = mb;
     }
+    if constexpr (FUSED) {                       // the new token, last
+      const float mb = fmaxf(M, s_new);
+      const float r = expf(M - mb), e = expf(s_new - mb);
+      L = L * r + e;
+      C = C * r + e * kvrow[F + l];
+    }
     o[l] = C / L;
   }
   if (tid == 0) counters[ctr] = 0;
 }
 
-template <typename T, int EPL>
-int launch_split(const void* q, const void* kc, const void* vc,
-                 const void* n_past, int B, int S, int F, int splits,
-                 int chunk, float scale, void* partial, void* counters,
-                 void* out, cudaStream_t stream) {
+template <typename T, int EPL, bool FUSED>
+int launch_split(const void* q, void* kc, void* vc, const void* n_past,
+                 const void* cos_t, const void* sin_t, int B, int S, int F,
+                 int splits, int chunk, float scale, void* partial,
+                 void* counters, void* out, cudaStream_t stream) {
   const size_t smem = (size_t)2 * chunk * 16 * EPL * sizeof(T);
   if (smem + 16 * 1024 > 48 * 1024) {    // with the static shared memory
     cudaError_t err = cudaFuncSetAttribute(
-        attn_split_kernel<T, EPL>,
+        attn_split_kernel<T, EPL, FUSED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid(F / (16 * EPL), B, splits);
-  attn_split_kernel<T, EPL><<<grid, kSplitThreads, smem, stream>>>(
-      (const float*)q, (const T*)kc, (const T*)vc, (const int*)n_past, S, F,
-      chunk, scale, (float*)partial, (int*)counters, (float*)out);
+  attn_split_kernel<T, EPL, FUSED><<<grid, kSplitThreads, smem, stream>>>(
+      (const float*)q, (T*)kc, (T*)vc, (const int*)n_past,
+      (const float*)cos_t, (const float*)sin_t, S, F, chunk, scale,
+      (float*)partial, (int*)counters, (float*)out);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_split(const void* q, const void* kc, const void* vc,
-                   const void* n_past, int B, int S, int F, int d, int splits,
-                   int chunk, float scale, void* partial, void* counters,
-                   void* out, cudaStream_t s) {
+template <typename T, bool FUSED>
+int dispatch_split(const void* q, void* kc, void* vc, const void* n_past,
+                   const void* cos_t, const void* sin_t, int B, int S, int F,
+                   int d, int splits, int chunk, float scale, void* partial,
+                   void* counters, void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (chunk < 1 || chunk > kMaxChunk || splits < 1 || splits > kMaxSplits ||
+      d > kMaxD || d % 32)
+    return (int)cudaErrorInvalidValue;
 #define FLTORCH_B10_CASE(EPL)                                                 \
   case 16 * EPL:                                                              \
-    return launch_split<T, EPL>(q, kc, vc, n_past, B, S, F, splits, chunk,    \
-                                scale, partial, counters, out, s);
+    return launch_split<T, EPL, FUSED>(q, kc, vc, n_past, cos_t, sin_t, B, S, \
+                                       F, splits, chunk, scale, partial,      \
+                                       counters, out, s);
   switch (d) {
     FLTORCH_B10_CASE(2) FLTORCH_B10_CASE(4) FLTORCH_B10_CASE(6)
     FLTORCH_B10_CASE(8) FLTORCH_B10_CASE(10) FLTORCH_B10_CASE(12)
@@ -442,31 +400,34 @@ extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
                                 int d, int splits, int chunk, float scale,
                                 int cache_bf16, void* partial, void* counters,
                                 void* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (chunk < 1 || chunk > kMaxChunk || splits < 1 || splits > kMaxSplits ||
-      d > kMaxD || d % 32)
-    return (int)cudaErrorInvalidValue;
+  void* k = const_cast<void*>(kc);               // read only (not FUSED)
+  void* v = const_cast<void*>(vc);
   if (cache_bf16)
-    return dispatch_split<__nv_bfloat16>(q, kc, vc, n_past, B, S, F, d,
-                                         splits, chunk, scale, partial,
-                                         counters, out, s);
-  return dispatch_split<float>(q, kc, vc, n_past, B, S, F, d, splits, chunk,
-                               scale, partial, counters, out, s);
+    return dispatch_split<__nv_bfloat16, false>(
+        q, k, v, n_past, nullptr, nullptr, B, S, F, d, splits, chunk, scale,
+        partial, counters, out, stream);
+  return dispatch_split<float, false>(q, k, v, n_past, nullptr, nullptr, B, S,
+                                      F, d, splits, chunk, scale, partial,
+                                      counters, out, stream);
 }
 
 // B4. qkv f32 [B, 3F], caches [B, S, F] of type bf16 (cache_bf16 = 1) or f32,
-// n_past int32 [B], cos/sin f32 [B, d], out f32 [B, F]; d <= 256 and a
-// multiple of 32.
+// updated in place, n_past int32 [B], cos/sin f32 [B, d], out f32 [B, F];
+// d <= 256 and a multiple of 32; splits, chunk, partial and counters as for
+// B10.
 // Returns the CUDA error code of the launch.
 extern "C" int decode_attention_fused(const void* qkv, void* kc, void* vc,
                                       const void* n_past, const void* cos_t,
                                       const void* sin_t, int B, int S, int F,
-                                      int d, float scale, int cache_bf16,
+                                      int d, int splits, int chunk,
+                                      float scale, int cache_bf16,
+                                      void* partial, void* counters,
                                       void* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   if (cache_bf16)
-    return launch<__nv_bfloat16>(qkv, kc, vc, n_past, cos_t, sin_t, B, S, F,
-                                 d, scale, out, s);
-  return launch<float>(qkv, kc, vc, n_past, cos_t, sin_t, B, S, F, d, scale,
-                       out, s);
+    return dispatch_split<__nv_bfloat16, true>(
+        qkv, kc, vc, n_past, cos_t, sin_t, B, S, F, d, splits, chunk, scale,
+        partial, counters, out, stream);
+  return dispatch_split<float, true>(qkv, kc, vc, n_past, cos_t, sin_t, B, S,
+                                     F, d, splits, chunk, scale, partial,
+                                     counters, out, stream);
 }

@@ -13,9 +13,10 @@
 // f32, so only the f32 summation order differs from a dense matmul. In f32
 // mode nothing is rounded.
 //
-// B9 (q41_gemv) replaces q41_matmul_pallas (_q41mm_kernel) in the same
-// file: the weight is w = q * d + m with a second f32 plane mins
-// [K_pad/32, N], and the kernel computes
+// B9 (q41_gemv in f32 mode, q41_gemv_mma in bf16 mode) replaces
+// q41_matmul_pallas (_q41mm_kernel) in the same file: the weight is
+// w = q * d + m with a second f32 plane mins [K_pad/32, N], and the kernel
+// computes
 //   y = R(x) @ R(q * d) + bsum(x) @ m
 // where R rounds to bf16 in bf16 mode (identity in f32 mode) and bsum[m, kb]
 // is the sum of the UNROUNDED f32 x over q block kb; the product with the
@@ -42,10 +43,11 @@
 // stages the block sums of its slice (one f32 per row and q block, summed
 // from the unrounded x in k order) and adds bsum * m once per q block.
 //
-// B1 in bf16 mode (q4_gemv_mma) runs on the tensor cores instead. At M = 8
-// the FFMA kernel above spent 16 scalar products (half of them on zero
-// rows) and a shared-memory read of x per weight element, so it was bound by
-// instruction issue (0.114 ms on qkv against a 0.0094 ms byte bound). Here
+// B1 and B9 in bf16 mode (q4_gemv_mma, q41_gemv_mma) run on the tensor
+// cores instead. At M = 8 the FFMA kernel above spends 16 scalar products
+// (half of them on zero rows) and a shared-memory read of x per weight
+// element, so it is bound by instruction issue, an order of magnitude off
+// the byte bound on the H100. Here
 // y^T = W^T x^T with mma.sync m16n8k16 bf16 -> f32:
 //   * the dequantized weight is the A operand (16 output columns x 16 k),
 //     the rows of x are the N side (8 per MMA: M <= 8 is one n-tile, M <= 16
@@ -78,8 +80,29 @@
 //   * split-K and the last block's ordered reduction are as above.
 // Products of two bf16 values are exact in f32, so only the summation order
 // differs from the dense product. f32 mode stays on the FFMA kernel (the
-// tensor cores have no exact f32 product; TF32 would round the operands),
-// and B9 stays on it too.
+// tensor cores have no exact f32 product; TF32 would round the operands).
+//
+// B9 in bf16 mode is the same tensor-core kernel with AFFINE set, for the
+// same reason: the weight bytes grow by a fifth (24 against 20 per 32
+// weights), the instructions per q block by 16 * NT FFMAs. What AFFINE
+// changes:
+//   * the nibble becomes q, not q - 8 (2^23 is subtracted after the byte
+//     permute, not 2^23 + 8), so R(q * d) is still one f32 multiply and one
+//     rounding, exact as the plain version computes it;
+//   * each ring stage carries the 64 mins of the warp's columns beside the
+//     64 scales (a third 16-byte cp.async, in lanes 16-31: 1792 bytes a
+//     stage, 28 KB of ring per block);
+//   * the block stages bsum, the f32 sums of its UNROUNDED x slice over each
+//     q block, [q blocks of the split][rows of the tile], while it stages x:
+//     the 8 lanes that load one row's q block add their float4s and reduce
+//     by three shuffles. Rows >= M of the tile get 0;
+//   * after the two k16 MMAs of a q block, a lane adds bsum[row] * m[col] to
+//     each of its accumulators: its D fragments cover the same 8 columns
+//     whose scales it reads, so the term costs 16 * NT FFMAs per q block
+//     beside about 224 dequantization instructions. The term goes into the
+//     MMA's accumulator itself, not a separate one: a second accumulator
+//     would cost 16 * NT more registers (64 at M > 16) for a difference of
+//     summation order only; the mins product is a true f32 one either way.
 
 #include "common.cuh"
 
@@ -292,7 +315,10 @@ constexpr int kMmaWarps = 4, kMmaThreads = kMmaWarps * 32;
 constexpr int kWarpCols = 64;            // columns of one warp
 constexpr int kStages = 4;
 constexpr int kRowStride = 80;           // bytes per packed row in a stage
-constexpr int kStageBytes = 16 * kRowStride + kWarpCols * 4;  // + scales
+// a stage: 16 packed rows, the 64 scales and, for an affine weight, 64 mins
+template <bool AFFINE>
+constexpr int kStageBytes =
+    16 * kRowStride + (AFFINE ? 2 : 1) * kWarpCols * 4;
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -316,26 +342,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// q - 8 as an exact f32 for the nibble in byte C of `nibs` (each byte holds
-// one nibble): the byte goes into the mantissa of 2^23 (one byte permute
-// with `magic` = 0x4B000000), then 2^23 + 8 is subtracted. `magic` comes in
-// as a kernel argument so that it sits in a register and the permute's
-// selector C is the instruction's immediate (a literal magic would take the
-// immediate and cost a register move of the selector per element).
-template <int C>
-__device__ __forceinline__ float nib_minus8(uint32_t nibs, uint32_t magic) {
-  return __uint_as_float(__byte_perm(nibs, magic, 0x7440 | C)) - 8388616.f;
+// q - 8 (q4_0) or q (AFFINE) as an exact f32 for the nibble in byte C of
+// `nibs` (each byte holds one nibble): the byte goes into the mantissa of
+// 2^23 (one byte permute with `magic` = 0x4B000000), then 2^23 + 8 (or
+// 2^23) is subtracted. `magic` comes in as a kernel argument so that it sits
+// in a register and the permute's selector C is the instruction's immediate
+// (a literal magic would take the immediate and cost a register move of the
+// selector per element).
+template <int C, bool AFFINE>
+__device__ __forceinline__ float nib_val(uint32_t nibs, uint32_t magic) {
+  return __uint_as_float(__byte_perm(nibs, magic, 0x7440 | C)) -
+         (AFFINE ? 8388608.f : 8388616.f);
 }
 
-template <int NT>
+template <int NT, bool AFFINE>
 __global__ void __launch_bounds__(kMmaThreads)
 q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
               const uint8_t* __restrict__ qs,
-              const float* __restrict__ scales, int N, int NB, int cw,
+              const float* __restrict__ scales,
+              const float* __restrict__ mins, int N, int NB, int cw,
               int kb_per_split, float* __restrict__ partial,
               int* __restrict__ counters, float* __restrict__ y, int n_out,
               uint32_t magic) {
   constexpr int MT = 8 * NT;
+  constexpr int kSB = kStageBytes<AFFINE>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -347,38 +377,43 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   const int kb0 = split * kb_per_split;
   const int nkb = min(NB, kb0 + kb_per_split) - kb0;
   const int cnt = nkb > kg ? (nkb - kg + kw - 1) / kw : 0;
-  uint8_t* ring = smem_raw + (size_t)warp * kStages * kStageBytes;
+  uint8_t* ring = smem_raw + (size_t)warp * kStages * kSB;
   uint32_t* xs = reinterpret_cast<uint32_t*>(
-      smem_raw + (size_t)kMmaWarps * kStages * kStageBytes);
+      smem_raw + (size_t)kMmaWarps * kStages * kSB);
+  // AFFINE: the block sums of x, [q block of the split][row of the tile]
+  float* bs = reinterpret_cast<float*>(xs + (size_t)kb_per_split * NT * 128);
 
   // A lane copies two 16-byte pieces of the packed rows (rows lane / 4 and
-  // 8 + lane / 4, bytes (lane % 4) * 16) and, in lanes < 16, one of the
-  // scales; its sources advance by kw q blocks per stage. Columns past N
-  // read as zeros (N is a multiple of 16).
-  const int off = (lane & 3) * 16;
-  const bool q_ok = nw + off < N, s_ok = lane < 16 && nw + lane * 4 < N;
+  // 8 + lane / 4, bytes (lane % 4) * 16) and one 16-byte piece of the
+  // scales (lanes < 16) or, for an affine weight, of the mins (lanes >= 16,
+  // stored right after the scales); its sources advance by kw q blocks per
+  // stage. Columns past N read as zeros (N is a multiple of 16).
+  const int off = (lane & 3) * 16, sl = lane & 15;
+  const bool has_s = AFFINE || lane < 16;
+  const bool q_ok = nw + off < N, s_ok = has_s && nw + sl * 4 < N;
   const uint8_t* q_src = qs + ((size_t)(kb0 + kg) * 16 + (lane >> 2)) * N +
                          nw + off;            // advanced stage by stage
-  const float* s_src = scales + (size_t)(kb0 + kg) * N + nw + lane * 4;
+  const float* s_src = (AFFINE && lane >= 16 ? mins : scales) +
+                       (size_t)(kb0 + kg) * N + nw + sl * 4;
   const size_t q_step = (size_t)kw * 16 * N, s_step = (size_t)kw * N;
   const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
   const uint32_t q_dst = ring_s + (lane >> 2) * kRowStride + off;
   const uint32_t s_dst = ring_s + 16 * kRowStride + lane * 16;
-  constexpr uint32_t kRing = kStages * kStageBytes;
+  constexpr uint32_t kRing = kStages * kSB;
   auto load_stage = [&](uint32_t slot, const uint8_t* qp, const float* sp) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
                  "r"(q_dst + slot), "l"(q_ok ? qp : qs), "r"(q_ok ? 16 : 0));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
                  "r"(q_dst + slot + 8 * kRowStride),
                  "l"(q_ok ? qp + 8 * (size_t)N : qs), "r"(q_ok ? 16 : 0));
-    if (lane < 16)
+    if (has_s)
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
                    "r"(s_dst + slot), "l"(s_ok ? sp : scales),
                    "r"(s_ok ? 16 : 0));
   };
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
-    if (i < cnt) load_stage(i * kStageBytes, q_src, s_src);
+    if (i < cnt) load_stage(i * kSB, q_src, s_src);
     q_src += q_step;
     s_src += s_step;
     cp_async_commit();
@@ -389,27 +424,46 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   // + 16 * (w / 2) + 2 * (lane % 4) + 8 * (w % 2), zeros past Kx. Read as
   // coalesced float4s of the rows < M; the words of rows >= M are left as
   // they are: they only reach accumulator columns that are never stored.
+  // Every thread runs the same trip count, so that in AFFINE mode the 8
+  // adjacent lanes holding the 8 float4s of one row's q block (quads is a
+  // multiple of 8 and so is the stride) can add them up by shuffles.
   const int rows = min(MT, M - m0), quads = nkb * 8;
-  for (int i = threadIdx.x; i < rows * quads; i += kMmaThreads) {
+  for (int i0 = 0; i0 < rows * quads; i0 += kMmaThreads) {
+    const int i = i0 + threadIdx.x;
+    const bool ok = i < rows * quads;
     const int r = i / quads, qd = i - r * quads;
-    const int k = kb0 * 32 + qd * 4;
-    const float* xr = x + (size_t)(m0 + r) * Kx;
-    float v[4];
-    if ((Kx & 3) == 0 && k + 3 < Kx) {
-      const float4 f = *reinterpret_cast<const float4*>(xr + k);
-      v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-    } else {
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (ok) {
+      const int k = kb0 * 32 + qd * 4;
+      const float* xr = x + (size_t)(m0 + r) * Kx;
+      if ((Kx & 3) == 0 && k + 3 < Kx) {
+        const float4 f = *reinterpret_cast<const float4*>(xr + k);
+        v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+      } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = k + e < Kx ? xr[k + e] : 0.f;
-    }
-    const int b = qd >> 3, nt = r >> 3;
+        for (int e = 0; e < 4; ++e) v[e] = k + e < Kx ? xr[k + e] : 0.f;
+      }
+      const int b = qd >> 3, nt = r >> 3;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kk = ((qd & 7) * 4 + 2 * h) & 15, step = (qd & 7) >> 2;
-      const int L = (r & 7) * 4 + ((kk & 7) >> 1);
-      xs[((b * NT + nt) * 32 + L) * 4 + 2 * step + (kk >> 3)] =
-          pack_bf16(v[2 * h], v[2 * h + 1]);
+      for (int h = 0; h < 2; ++h) {
+        const int kk = ((qd & 7) * 4 + 2 * h) & 15, step = (qd & 7) >> 2;
+        const int L = (r & 7) * 4 + ((kk & 7) >> 1);
+        xs[((b * NT + nt) * 32 + L) * 4 + 2 * step + (kk >> 3)] =
+            pack_bf16(v[2 * h], v[2 * h + 1]);
+      }
     }
+    if constexpr (AFFINE) {
+      float sum = (v[0] + v[1]) + (v[2] + v[3]);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      if (ok && (qd & 7) == 0) bs[(qd >> 3) * MT + r] = sum;
+    }
+  }
+  if constexpr (AFFINE) {
+    // rows >= M: a zero sum, so the mins term adds nothing there
+    for (int i = threadIdx.x; i < (MT - rows) * nkb; i += kMmaThreads)
+      bs[(i % nkb) * MT + rows + i / nkb] = 0.f;
   }
   __syncthreads();
 
@@ -422,12 +476,15 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
       for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
 
   // this lane's reads: rows 2t, 2t+1, 2t+8, 2t+9 at bytes g*8 .. g*8+7, the
-  // scales of those 8 columns, and its B fragments (kw q blocks apart)
+  // scales (and mins) of those 8 columns, its B fragments and, AFFINE, the
+  // block sums of its accumulator rows 2t, 2t+1 of each n-tile (all kw q
+  // blocks apart)
   const uint8_t* a_rd = ring + 2 * t * kRowStride + g * 8;
   const float* s_rd = reinterpret_cast<const float*>(ring + 16 * kRowStride)
                       + g * 8;
   const uint4* x_rd = reinterpret_cast<const uint4*>(xs) + kg * NT * 32 + lane;
-  uint32_t rd_slot = 0, wr_slot = (kStages - 1) * kStageBytes;
+  const float* bs_rd = bs + kg * MT + 2 * t;
+  uint32_t rd_slot = 0, wr_slot = (kStages - 1) * kSB;
   for (int i = 0; i < cnt; ++i) {
     cp_async_wait<kStages - 2>();
     __syncwarp();
@@ -435,9 +492,9 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
     cp_async_commit();
     q_src += q_step;
     s_src += s_step;
-    wr_slot = wr_slot + kStageBytes == kRing ? 0 : wr_slot + kStageBytes;
+    wr_slot = wr_slot + kSB == kRing ? 0 : wr_slot + kSB;
     const int slot = rd_slot;
-    rd_slot = rd_slot + kStageBytes == kRing ? 0 : rd_slot + kStageBytes;
+    rd_slot = rd_slot + kSB == kRing ? 0 : rd_slot + kSB;
     // low and high nibbles of the lane's 4 rows x 8 columns
     uint32_t lo[4][2], hi[4][2];
 #pragma unroll
@@ -472,14 +529,14 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
           const uint32_t* src1 = step ? hi[r + 1] : lo[r + 1];
           float v0, v1;
           switch (c & 3) {
-            case 0: v0 = nib_minus8<0>(src0[c >> 2], magic);
-                    v1 = nib_minus8<0>(src1[c >> 2], magic); break;
-            case 1: v0 = nib_minus8<1>(src0[c >> 2], magic);
-                    v1 = nib_minus8<1>(src1[c >> 2], magic); break;
-            case 2: v0 = nib_minus8<2>(src0[c >> 2], magic);
-                    v1 = nib_minus8<2>(src1[c >> 2], magic); break;
-            default: v0 = nib_minus8<3>(src0[c >> 2], magic);
-                     v1 = nib_minus8<3>(src1[c >> 2], magic); break;
+            case 0: v0 = nib_val<0, AFFINE>(src0[c >> 2], magic);
+                    v1 = nib_val<0, AFFINE>(src1[c >> 2], magic); break;
+            case 1: v0 = nib_val<1, AFFINE>(src0[c >> 2], magic);
+                    v1 = nib_val<1, AFFINE>(src1[c >> 2], magic); break;
+            case 2: v0 = nib_val<2, AFFINE>(src0[c >> 2], magic);
+                    v1 = nib_val<2, AFFINE>(src1[c >> 2], magic); break;
+            default: v0 = nib_val<3, AFFINE>(src0[c >> 2], magic);
+                     v1 = nib_val<3, AFFINE>(src1[c >> 2], magic); break;
           }
           a[reg] = pack_bf16(v0 * d[c], v1 * d[c]);
         }
@@ -488,6 +545,25 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
           mma_bf16(acc[mt][nt], a, step ? xb[nt].z : xb[nt].x,
                    step ? xb[nt].w : xb[nt].y);
       }
+    }
+    if constexpr (AFFINE) {
+      // + bsum[row] * m[col]: D fragment c of (mt, nt) is row nt*8 + 2t +
+      // c%2 and column g*8 + 2mt + c/2 (see below), so the 8 mins of the
+      // lane's columns and 2 block sums per n-tile suffice
+      const float4 ma = *reinterpret_cast<const float4*>(sd + 64);
+      const float4 mb = *reinterpret_cast<const float4*>(sd + 68);
+      const float mn[8] = {ma.x, ma.y, ma.z, ma.w, mb.x, mb.y, mb.z, mb.w};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 bv = *reinterpret_cast<const float2*>(bs_rd + nt * 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[mt][nt][c] = fmaf(c & 1 ? bv.y : bv.x, mn[2 * mt + (c >> 1)],
+                                  acc[mt][nt][c]);
+      }
+      bs_rd += kw * MT;
     }
   }
   cp_async_wait<0>();
@@ -550,28 +626,59 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   if (threadIdx.x == 0) counters[tile] = 0;
 }
 
-template <int NT>
+template <int NT, bool AFFINE>
 int launch_mma(const float* x, int M, int Kx, const uint8_t* qs,
-               const float* scales, int N, int NB, int cw, int splits,
-               int kb_per_split, float* partial, int* counters, float* y,
-               int n_out, cudaStream_t stream) {
-  // the ring and the x slice, reused afterwards for the warps' sums
-  const size_t ring_x = (size_t)kMmaWarps * kStages * kStageBytes +
-                        (size_t)kb_per_split * NT * 128 * sizeof(uint32_t);
+               const float* scales, const float* mins, int N, int NB, int cw,
+               int splits, int kb_per_split, float* partial, int* counters,
+               float* y, int n_out, cudaStream_t stream) {
+  // the ring, the x slice and (AFFINE) the block sums, reused afterwards for
+  // the warps' sums
+  const size_t ring_x = (size_t)kMmaWarps * kStages * kStageBytes<AFFINE> +
+                        (size_t)kb_per_split * NT * 128 * sizeof(uint32_t) +
+                        (AFFINE ? (size_t)kb_per_split * 8 * NT * 4 : 0);
   const size_t red = (size_t)kMmaWarps * 8 * NT * kWarpCols * sizeof(float);
   const size_t smem = ring_x > red ? ring_x : red;
   if (smem + 1024 > 48 * 1024) {         // with the static shared memory
     cudaError_t err = cudaFuncSetAttribute(
-        q4_mma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        q4_mma_kernel<NT, AFFINE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int bn = cw * kWarpCols;
   dim3 grid((N + bn - 1) / bn, splits, (M + 8 * NT - 1) / (8 * NT));
-  q4_mma_kernel<NT><<<grid, kMmaThreads, smem, stream>>>(
-      x, M, Kx, qs, scales, N, NB, cw, kb_per_split, partial, counters, y,
-      n_out, 0x4B000000u);
+  q4_mma_kernel<NT, AFFINE><<<grid, kMmaThreads, smem, stream>>>(
+      x, M, Kx, qs, scales, mins, N, NB, cw, kb_per_split, partial, counters,
+      y, n_out, 0x4B000000u);
   return (int)cudaGetLastError();
+}
+
+template <bool AFFINE>
+int dispatch_mma(const void* x, int M, int Kx, const void* qs,
+                 const void* scales, const void* mins, int N, int NB, int cw,
+                 int splits, int kb_per_split, int nt, void* partial,
+                 void* counters, void* y, int n_out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  const uint8_t* q = (const uint8_t*)qs;
+  const float* sc = (const float*)scales;
+  const float* mn = (const float*)mins;
+  float* p = (float*)partial;
+  int* c = (int*)counters;
+  float* yf = (float*)y;
+  if (N % 16 || (cw != 1 && cw != 2 && cw != 4) || kb_per_split * nt > 64)
+    return (int)cudaErrorInvalidValue;
+  switch (nt) {
+    case 1: return launch_mma<1, AFFINE>(xf, M, Kx, q, sc, mn, N, NB, cw,
+                                         splits, kb_per_split, p, c, yf,
+                                         n_out, s);
+    case 2: return launch_mma<2, AFFINE>(xf, M, Kx, q, sc, mn, N, NB, cw,
+                                         splits, kb_per_split, p, c, yf,
+                                         n_out, s);
+    case 4: return launch_mma<4, AFFINE>(xf, M, Kx, q, sc, mn, N, NB, cw,
+                                         splits, kb_per_split, p, c, yf,
+                                         n_out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -588,24 +695,21 @@ extern "C" int q4_gemv_mma(const void* x, int M, int Kx, const void* qs,
                            int splits, int kb_per_split, int nt,
                            void* partial, void* counters, void* y, int n_out,
                            void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* xf = (const float*)x;
-  const uint8_t* q = (const uint8_t*)qs;
-  const float* sc = (const float*)scales;
-  float* p = (float*)partial;
-  int* c = (int*)counters;
-  float* yf = (float*)y;
-  if (N % 16 || (cw != 1 && cw != 2 && cw != 4) || kb_per_split * nt > 64)
-    return (int)cudaErrorInvalidValue;
-  switch (nt) {
-    case 1: return launch_mma<1>(xf, M, Kx, q, sc, N, NB, cw, splits,
-                                 kb_per_split, p, c, yf, n_out, s);
-    case 2: return launch_mma<2>(xf, M, Kx, q, sc, N, NB, cw, splits,
-                                 kb_per_split, p, c, yf, n_out, s);
-    case 4: return launch_mma<4>(xf, M, Kx, q, sc, N, NB, cw, splits,
-                                 kb_per_split, p, c, yf, n_out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch_mma<false>(x, M, Kx, qs, scales, nullptr, N, NB, cw, splits,
+                             kb_per_split, nt, partial, counters, y, n_out,
+                             stream);
+}
+
+// B9 in bf16 mode: as q4_gemv_mma with the mins plane f32 [NB, N] (16-byte
+// aligned) after the scales.
+extern "C" int q41_gemv_mma(const void* x, int M, int Kx, const void* qs,
+                            const void* scales, const void* mins, int N,
+                            int NB, int cw, int splits, int kb_per_split,
+                            int nt, void* partial, void* counters, void* y,
+                            int n_out, void* stream) {
+  return dispatch_mma<true>(x, M, Kx, qs, scales, mins, N, NB, cw, splits,
+                            kb_per_split, nt, partial, counters, y, n_out,
+                            stream);
 }
 
 // x f32 [M, Kx] (Kx <= 32 * NB; the stored-K tail reads as zeros),
@@ -623,7 +727,8 @@ extern "C" int q4_gemv(const void* x, int M, int Kx, const void* qs,
                               stream);
 }
 
-// B9: as q4_gemv with the mins plane f32 [NB, N] after the scales.
+// B9 (f32 mode; bf16 mode as a yardstick): as q4_gemv with the mins plane
+// f32 [NB, N] after the scales.
 extern "C" int q41_gemv(const void* x, int M, int Kx, const void* qs,
                         const void* scales, const void* mins, int N, int NB,
                         int splits, int kb_per_split, void* partial,

@@ -32,11 +32,13 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = {
     "q4_gemv": [P, I, I, P, P, I, I, I, I, P, P, P, I, I, P],
     "q4_gemv_mma": [P, I, I, P, P, I, I, I, I, I, I, P, P, P, I, P],
+    "q41_gemv_mma": [P, I, I, P, P, P, I, I, I, I, I, I, P, P, P, I, P],
     "q41_gemv": [P, I, I, P, P, P, I, I, I, I, P, P, P, I, I, P],
     "quant_rows_int8": [P, I, I, I, P, P, P],
     "q4_int8_gemm": [P, P, I, I, P, P, I, P, P, P, I, P],
     "q4_prefill_gemm": [P, I, I, P, P, I, I, P, P, P, I, I, P],
-    "decode_attention_fused": [P, P, P, P, P, P, I, I, I, I, F, I, P, P],
+    "decode_attention_fused": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P,
+                               P, P, P],
     "decode_attention": [P, P, P, P, I, I, I, I, I, I, F, I, P, P, P, P],
     "paged_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, F, I, P, P],
     "paged_decode_attention_flat": [P, P, P, P, P, I, I, I, I, I, I, F, I, P,
@@ -45,7 +47,7 @@ ARGTYPES = {
     "paged_kv_write_rows": [P, P, P, P, P, I, I, I, I, I, P],
 }
 LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
-          "q41_gemv": "q4_decode",
+          "q41_gemv": "q4_decode", "q41_gemv_mma": "q4_decode",
           "quant_rows_int8": "quant_rows", "q4_int8_gemm": "q4_int8",
           "q4_prefill_gemm": "q4_prefill",
           "decode_attention_fused": "decode_attention",

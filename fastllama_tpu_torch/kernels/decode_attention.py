@@ -17,7 +17,11 @@ one decode step of one layer takes the raw fused projection qkv [B, 1, 3F]
 tables, writes the new K/V row at clip(n_past, 0, S-1) into the flat
 [B, S, F] caches IN PLACE, attends rows < n_past with the new token folded
 in analytically, and returns ctx [B, 1, F] f32. Scores and softmax are f32;
-the two cache dots take the cache dtype, with q and p cast down to it.
+the two cache dots take the cache dtype, with q and p cast down to it. On
+the card it splits the keys as B10 does (the same kernel, its FUSED
+variant): each chunk casts its own p = exp(score - chunk max), the new
+token joins the merge as one more partial, and the block that finishes a
+head writes the new cache row after every block of it has read its rows.
 
 Both CUDA kernels are in csrc/decode_attention.cu; each wrapper launches
 its kernel for CUDA tensors and runs its plain version for CPU tensors.
@@ -94,7 +98,7 @@ def decode_attention_fused(qkv: torch.Tensor, k_cache: torch.Tensor,
                            scale: float) -> torch.Tensor:
     """Kernel B4. qkv f32 [B, 1, 3F]; caches [B, S, F] bf16 or f32, updated
     in place; n_past int32 [B]; cos/sin f32 [B, head_dim]. Returns ctx f32
-    [B, 1, F]."""
+    [B, 1, F]. On the card the keys are split as for B10 (b10_splits)."""
     b, s, f = k_cache.shape
     _require(qkv.shape == (b, 1, 3 * f) and qkv.dtype == torch.float32,
              "qkv must be f32 [B, 1, 3F]")
@@ -119,12 +123,19 @@ def decode_attention_fused(qkv: torch.Tensor, k_cache: torch.Tensor,
              "all tensors must be contiguous on one CUDA device")
     _require(head_dim % 32 == 0 and head_dim <= 256 and s <= 12288,
              "head_dim must be a multiple of 32 and <= 256, S <= 12288")
-    out = torch.empty((b, 1, f), dtype=torch.float32, device=qkv.device)
+    dev = qkv.device
+    splits, chunk = b10_splits(s)
+    partial = cuda_lib.scratch(dev, "decode_attention.partial",
+                               b * (f // head_dim) * splits * (head_dim + 2),
+                               torch.float32)
+    counters = cuda_lib.tile_counters(dev, b * (f // head_dim))
+    out = torch.empty((b, 1, f), dtype=torch.float32, device=dev)
     rc = cuda_lib.fn("decode_attention_fused")(
         qkv.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         n_past.data_ptr(), cos.data_ptr(), sin.data_ptr(), b, s, f, head_dim,
-        float(scale), int(k_cache.dtype == torch.bfloat16), out.data_ptr(),
-        cuda_lib.stream_handle(qkv.device))
+        splits, chunk, float(scale), int(k_cache.dtype == torch.bfloat16),
+        partial.data_ptr(), counters.data_ptr(), out.data_ptr(),
+        cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, "decode_attention_fused")
     decode_attention_fused.launches += 1
     return out
@@ -169,9 +180,10 @@ B10_CHUNK = 64        # rows per block at most (the kernel's kMaxChunk)
 
 
 def b10_splits(s: int) -> tuple[int, int]:
-    """(splits, chunk) of B10's grid for a cache of S rows: chunk i takes
-    rows [i * chunk, min((i + 1) * chunk, S)), every chunk holds at least one
-    row and chunk <= 64. From S alone, so the host never reads n_past."""
+    """(splits, chunk) of B10's and B4's grid for a cache of S rows: chunk
+    i takes rows [i * chunk, min((i + 1) * chunk, S)), every chunk holds at
+    least one row and chunk <= 64. From S alone, so the host never reads
+    n_past."""
     splits = -(-s // B10_CHUNK)
     return splits, -(-s // splits)
 

@@ -11,7 +11,9 @@ Kernels (CUDA C++ for sm_90a, sources in csrc/, built by cuda_lib):
   B2 quant_rows_int8         csrc/quant_rows.cu  (quant_rows_int8)
   B3 q4_matmul_prefill_int8  csrc/q4_int8.cu     (q4_matmul_prefill_int8 nat)
   B5 q4_matmul_prefill       csrc/q4_prefill.cu  (q4_matmul_prefill_pallas nat)
-  B9 q41_matmul_decode       csrc/q4_decode.cu   (q41_matmul_pallas)
+  B9 q41_matmul_decode       csrc/q4_decode.cu   (q41_matmul_pallas; B1's
+                             tensor-core kernel with the mins term in bf16
+                             mode, FFMA in f32 mode)
 
 Each wrapper launches its kernel for a CUDA tensor and raises on anything it
 does not take; for a CPU tensor it runs its plain PyTorch version, which the
@@ -111,8 +113,9 @@ def _splitk(m: int, n: int, nb: int) -> tuple[int, int]:
     return -(-nb // per), per
 
 
-# B1 in bf16 mode (the tensor-core kernel q4_gemv_mma): 4 warps per block,
-# each owning 64 columns; cw column groups of 4 / cw warps per block
+# B1 and B9 in bf16 mode (the tensor-core kernel, q4_gemv_mma and
+# q41_gemv_mma): 4 warps per block, each owning 64 columns; cw column groups
+# of 4 / cw warps per block
 B1_MMA_WARPS = 4
 B1_MMA_WARP_COLS = 64
 B1_MMA_TARGET_BLOCKS = 792       # 6 per SM of the H100 (132 SMs) ...
@@ -122,13 +125,15 @@ B1_MMA_MAX_SPLITS = 8
 
 def b1_mma_plan(m: int, n: int, nb: int) -> tuple[int, int, int, int]:
     """(n-tiles, column groups cw, splits, q blocks per split) of the
-    tensor-core B1 for M rows, N stored columns and nb q blocks. A block
-    takes 8 * n-tiles rows (1 n-tile for M <= 8, 2 for M <= 16, else 4:
+    tensor-core B1 and B9 for M rows, N stored columns and nb q blocks. A
+    block takes 8 * n-tiles rows (1 n-tile for M <= 8, 2 for M <= 16, else 4:
     32-row tiles) and 64 * cw columns. Splits aim at 6 blocks per SM (at
     most 8); the widest cw (4, 2, 1) that reaches 5 wins, so a narrow plane
     splits K among the warps of a block rather than across many blocks; the
     staged x slice (q blocks per split * n-tiles * 512 bytes) stays within
-    32 KB."""
+    32 KB. B9's larger stage (the mins beside the scales: 28 KB of ring
+    per block instead of 24) and its block sums (at most 2 KB) leave the
+    plan as it is: the blocks per SM it aims at still fit."""
     nt = 1 if m <= 8 else 2 if m <= 16 else 4
     row_tiles = -(-m // (8 * nt))
     cap = 64 // nt
@@ -146,7 +151,7 @@ def b1_mma_plan(m: int, n: int, nb: int) -> tuple[int, int, int, int]:
 def _launch_gemv(x: torch.Tensor, w: QuantMatmulWeight, w_dtype,
                  affine: bool) -> torch.Tensor:
     """Checks and launch shared by B1 (q4_gemv_mma in bf16 mode, q4_gemv in
-    f32 mode) and B9 (q41_gemv)."""
+    f32 mode) and B9 (q41_gemv_mma in bf16 mode, q41_gemv in f32 mode)."""
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
     _check_weight(w, x.device, affine)
     m, kx = x.shape
@@ -158,29 +163,28 @@ def _launch_gemv(x: torch.Tensor, w: QuantMatmulWeight, w_dtype,
     _require(n % 8 == 0, "stored N must be a multiple of 8")
     dev = x.device
     y = torch.empty((m, w.n_logical), dtype=torch.float32, device=dev)
-    if not affine and w_dtype == torch.bfloat16:
-        _require(n % 16 == 0 and w.qs.data_ptr() % 16 == 0
-                 and w.scales.data_ptr() % 16 == 0,
-                 "the tensor-core B1 needs N % 16 == 0 and 16-byte aligned "
-                 "weight planes")
+    planes = (w.qs, w.scales, w.mins) if affine else (w.qs, w.scales)
+    if w_dtype == torch.bfloat16:
+        _require(n % 16 == 0 and all(p.data_ptr() % 16 == 0 for p in planes),
+                 "the tensor-core kernel needs N % 16 == 0 and 16-byte "
+                 "aligned weight planes")
         nt, cw, splits, per = b1_mma_plan(m, n, nb)
         tiles = -(-n // (B1_MMA_WARP_COLS * cw)) * -(-m // (8 * nt))
-        name, plan, mode = "q4_gemv_mma", (cw, splits, per, nt), ()
+        name = "q41_gemv_mma" if affine else "q4_gemv_mma"
+        plan, mode = (cw, splits, per, nt), ()
     else:
         splits, per = _splitk(m, n, nb)
         rows, cols = _b1_tile(m)
         tiles = -(-n // cols) * -(-m // rows)
         name = "q41_gemv" if affine else "q4_gemv"
-        plan, mode = (splits, per), (int(w_dtype == torch.bfloat16),)
+        plan, mode = (splits, per), (0,)          # f32 mode: nothing rounded
     partial = cuda_lib.scratch(dev, "q4_gemv.partial", splits * m * n,
                                torch.float32)
     counters = cuda_lib.tile_counters(dev, tiles)
-    planes = ((w.qs.data_ptr(), w.scales.data_ptr(), w.mins.data_ptr())
-              if affine else (w.qs.data_ptr(), w.scales.data_ptr()))
     rc = cuda_lib.fn(name)(
-        x.data_ptr(), m, kx, *planes, n, nb, *plan, partial.data_ptr(),
-        counters.data_ptr(), y.data_ptr(), w.n_logical, *mode,
-        cuda_lib.stream_handle(dev))
+        x.data_ptr(), m, kx, *(p.data_ptr() for p in planes), n, nb, *plan,
+        partial.data_ptr(), counters.data_ptr(), y.data_ptr(), w.n_logical,
+        *mode, cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, name)
     return y
 
@@ -237,7 +241,9 @@ def q41_matmul_decode_plain(x: torch.Tensor, w: QuantMatmulWeight,
 def q41_matmul_decode(x: torch.Tensor, w: QuantMatmulWeight,
                       w_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel B9: x f32 [M <= 64, K], affine weight -> y f32 [M, n_logical]
-    (q41_matmul_decode_plain's formula; B1's tiles and split-K)."""
+    (q41_matmul_decode_plain's formula). bf16 mode runs B1's tensor-core
+    kernel with the mins term added to its accumulators, f32 mode the FFMA
+    kernel, as B1 does (a dispatch by w_dtype, not a fallback)."""
     _check_matmul_args(x, w_dtype)
     _require(w.mins is not None, "B9 takes affine weights (a mins plane)")
     if x.device.type == "cpu":

@@ -293,3 +293,142 @@ def test_b10_split_kernel_matches_plain_at_every_depth(cuda_device, cache, s):
                                atol=5e-5 * want.abs().max().item())
     assert torch.equal(got, tda.decode_attention(q, kc, vc, n, head_dim=hd,
                                                  scale=scale))
+
+
+# -- B4's split over the keys: the per-chunk p-cast and the new token --------
+
+def _round_to(a, cache):
+    """a rounded to the cache type, back as float64."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(
+        getattr(torch, cache)).double().numpy()
+
+
+def _rope_f32(x, cos, sin):
+    """fma(x, cos, round(partner * sin)) in f32 (the kernel's per-lane form):
+    the f32 product x * cos is exact in float64, so one add and one rounding
+    give the fused multiply-add."""
+    partner = x[np.arange(x.shape[-1]) ^ 1]
+    return (x.astype(np.float64) * cos
+            + (partner * sin).astype(np.float32)).astype(np.float32)
+
+
+def b4_split_rule(qkv, kc, vc, n_past, cos, sin, hd, scale, cache):
+    """The kernel's rule for one sequence and one head in numpy: q and k_new
+    roped in f32; chunks of b10_splits(S) over rows s < n_past (one chunk,
+    empty, when there are none); per chunk m_i = max score (scores from
+    T(q)), p = exp(score - m_i) in f32, l_i = sum p, c_i = sum T(p) V; the
+    chunks merged in order 8 at a time (as for B10), then the new token as
+    one more partial (s_new, 1, v_new), unrounded. Returns (ctx [hd], the
+    written row T(k_new), T(v_new))."""
+    q, k, v = qkv[:hd], qkv[hd:2 * hd], qkv[2 * hd:]
+    qr, kr = _rope_f32(q, cos, sin), _rope_f32(k, cos, sin)
+    qv = _round_to(qr, cache)
+    s_len = kc.shape[0]
+    n = min(max(n_past, 0), s_len)
+    splits, chunk = tda.b10_splits(s_len)
+    act = max(1, -(-n // chunk))
+    parts = []
+    for i in range(act):
+        rows = np.arange(i * chunk, min((i + 1) * chunk, n))
+        if rows.size == 0:
+            parts.append((-np.inf, 0.0, np.zeros(hd)))
+            continue
+        sc = (kc[rows] @ qv * scale).astype(np.float32)
+        m = sc.max()
+        p = np.exp(sc - m, dtype=np.float32)
+        parts.append((float(m), float(p.sum(dtype=np.float64)),
+                      _round_to(p, cache) @ vc[rows]))
+    s_new = float(np.dot(qr.astype(np.float64), kr) * scale)
+    if act == 1:
+        m, l, c = parts[0]
+        big = max(m, s_new)
+        a, e = np.exp(m - big), np.exp(s_new - big)
+        return (c * a + e * v) / (l * a + e), _round_to(kr, cache), \
+            _round_to(v, cache)
+    big, l_tot, ctx = -np.inf, 0.0, np.zeros(hd)
+    for i0 in range(0, act, 8):
+        batch = parts[i0:i0 + 8]
+        mb = max([big] + [m for m, _, _ in batch])
+        r = np.exp(big - mb)
+        l_tot, ctx = l_tot * r, ctx * r
+        for m, l, c in batch:
+            e = np.exp(m - mb)
+            l_tot += l * e
+            ctx = ctx + c * e
+        big = mb
+    mb = max(big, s_new)
+    r, e = np.exp(big - mb), np.exp(s_new - mb)
+    return ((ctx * r + e * v) / (l_tot * r + e), _round_to(kr, cache),
+            _round_to(v, cache))
+
+
+B4_S = 576          # 9 chunks of 64: two merge batches
+
+
+@pytest.mark.parametrize("n_past", [0, 1, 63, 64, 65, B4_S - 1, B4_S,
+                                    B4_S + 88])
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+def test_b4_split_rule_equals_plain_and_pallas(n_past, cache):
+    """B4's split-key rule (b4_split_rule) equals the plain B4, and the
+    plain B4 equals _fused_kernel_grouped in interpret mode, within 2^-7 of
+    the largest output for bf16 caches (each chunk rounds its own p =
+    exp(score - chunk max) to bf16 where the unsplit kernel rounds exp(score
+    - max): one bf16 rounding of each p moves) and 5e-5 for f32 caches (f32
+    rounding and sum order); the written K/V rows are equal bit for bit on
+    all three, at the depths where chunks begin and end, the last row, and
+    past S (an inactive slot: all S rows attended, row S - 1 written)."""
+    b, h, hd = 1, 2, 128
+    f = h * hd
+    qkv, kc, vc = inputs(b, B4_S, f, seed=40 + n_past)
+    # the caches before the step (an f32 torch tensor shares kc's memory,
+    # and the step writes row S - 1, which it attends, at n_past >= S)
+    kcr, vcr = _round_to(kc[0], cache), _round_to(vc[0], cache)
+    ctx, k, v, jctx, jk, jv = run_both(qkv, kc, vc, [n_past], hd, hd, cache)
+    tol = (2 ** -7 if cache == "bfloat16" else 5e-5) * np.abs(ctx).max()
+    np.testing.assert_allclose(ctx, jctx, rtol=0, atol=tol)
+    np.testing.assert_array_equal(k, jk)
+    np.testing.assert_array_equal(v, jv)
+    w = min(n_past, B4_S - 1)
+    # the tables run_both fed to both kernels
+    cos, sin = (np.asarray(t)[0] for t in jax_tables(
+        jnp.asarray([n_past], jnp.int32), hd, hd))
+    for i in range(h):
+        c = slice(i * hd, (i + 1) * hd)
+        got, k_row, v_row = b4_split_rule(
+            qkv[0, 0].reshape(3, f)[:, c].reshape(-1), kcr[:, c], vcr[:, c],
+            n_past, cos, sin, hd, 1.0 / math.sqrt(hd), cache)
+        np.testing.assert_allclose(got, ctx[0, 0, c], rtol=0, atol=tol)
+        np.testing.assert_array_equal(k_row, k[0, w, c])
+        np.testing.assert_array_equal(v_row, v[0, w, c])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [512, 576])
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+def test_b4_split_kernel_matches_plain_at_every_depth(cuda_device, cache, s):
+    """Eight slots at the depths where chunks begin and end, the last row
+    and past S (S = 576: two merge batches); 2^-7 (bf16) or 5e-5 (f32) of
+    the largest output, caches equal bit for bit after the call, the same
+    output and caches run to run."""
+    depths = [0, 1, 63, 64, 65, 300, s - 1, s + 88]
+    b, hd, h = len(depths), 128, 2
+    dt = getattr(torch, cache)
+    qkv, kc, vc = inputs(b, s, h * hd, seed=41)
+    qkv = torch.from_numpy(qkv).to(cuda_device)
+    kc = torch.from_numpy(kc).to(cuda_device).to(dt)
+    vc = torch.from_numpy(vc).to(cuda_device).to(dt)
+    n = torch.tensor(depths, dtype=torch.int32, device=cuda_device)
+    cos, sin = tda.rope_lane_tables(n, hd, hd)
+    kw = dict(head_dim=hd, n_rot=hd, scale=1 / math.sqrt(hd))
+    caches = [(kc.clone(), vc.clone()) for _ in range(3)]
+    got = tda.decode_attention_fused(qkv, *caches[0], n, cos, sin, **kw)
+    again = tda.decode_attention_fused(qkv, *caches[1], n, cos, sin, **kw)
+    want = tda.decode_attention_fused_plain(qkv, *caches[2], n, cos, sin,
+                                            **kw)
+    assert torch.isfinite(got).all()
+    rel = 2 ** -7 if cache == "bfloat16" else 5e-5
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=rel * want.abs().max().item())
+    assert all(torch.equal(a, c) for a, c in zip(caches[0], caches[2]))
+    assert torch.equal(got, again)
+    assert all(torch.equal(a, c) for a, c in zip(caches[0], caches[1]))
