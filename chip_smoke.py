@@ -11,23 +11,30 @@ Phases (any failure exits nonzero before the last line):
      version and bound (the larger of bytes / 3.35 TB/s and operations /
      peak rate); for B4, B10 and B11 also one scaled_dot_product_attention
      call, for B1 and B9 one torch.ops.aten._weight_int4pack_mm call on the
-     same codes (yardsticks; the port calls neither). B1 at M = 1, 2, 4, 8,
+     same codes, for B3 one torch._int_mm call (the int8 product alone)
+     (yardsticks; the port calls none of them). B1 at M = 1, 2, 4, 8,
      16 and 64 and B9 also at 9, 17 and 40, on every plane in bf16 (tensor
      cores; the FFMA design timed beside them in the same call), f32 mode
      at M = 1 and 8 on wo (B1) and qkv (B9), B9 also on planes padded to
-     256 columns; B4 (bf16 and f32 caches, caches bit for bit) and B10 at
+     256 columns, B1 also on the 13B planes; B3 bit for bit on the 7B and
+     13B planes at M = 512 and 256, its requantization and product timed
+     apart from a torch.profiler trace; B4 (bf16 and f32 caches, caches bit
+     for bit) and B10 at
      n_past 0, 1, 63, 64, (65,) 300, 511 and past S; B1, B4, B9 and B10 run
      twice and must agree bit for bit. The engine's kernels: B6, B7, B8 and
      B11 (flat-lane pools, bit for bit against B6 on the same pools; no path
      of the JAX package reaches it, so its launches are this phase's) on
      bf16 and f32 pools (8 sequences of ragged lengths over a shuffled page
      table, sentinel and out-of-pool page ids, NaN in every page no sequence
-     reaches), B4 and B10 at B = 8 with per-slot depths, one slot inactive;
+     reaches; B6 also at B = 1, at the steady window's depths, at 40
+     heads and with q a strided view), B4 and B10 at B = 8 with per-slot
+     depths, one slot inactive;
   3. the q4_0 session at full 7B width (32 layers, bf16 weights and KV,
      n_ctx 512, seeded random weights made on the card): LlamaModel +
      FastLlama ingest a 300-token prompt with n_batch 512 and generate 64
-     tokens greedily; prints TTFT, decode tok/s and each kernel's launches
-     in this run (B1-B4 must be > 0); then the same parameters under
+     tokens greedily; prints TTFT (and the device time of its window by
+     kernel, from a torch.profiler trace), decode tok/s and each kernel's
+     launches in this run (B1-B4 must be > 0); then the same parameters under
      RuntimeConfig(prefill_int8=False), the bf16-exact prefill: B5 must
      launch 128 times per window and B2/B3 not at all;
   4. the q4_1 + LoRA session at the same width and depth (affine weights
@@ -323,9 +330,11 @@ def absum_of(torch, qm, x, wd, n, mode):
             @ wd.float().abs())[:, :n].max().item()
 
 
-# (name, K logical, N logical) of the main path's matmuls at 7B
+# (name, K logical, N logical) of the main path's matmuls at 7B and 13B
 PLANES_7B = [("qkv", 4096, 12288), ("wo", 4096, 4096), ("w13", 4096, 22016),
              ("w2", 11008, 4096), ("head", 4096, 32000)]
+PLANES_13B = [("qkv13", 5120, 15360), ("wo13", 5120, 5120),
+              ("w13_13", 5120, 27648), ("w2_13", 13824, 5120)]
 
 
 def check_decode_matmuls(torch, dev, gen, results):
@@ -427,48 +436,96 @@ def check_decode_matmuls(torch, dev, gen, results):
                 max_abs_err=err, tol=tol))
         del w
 
+    # B1 (tensor cores, b1_mma_plan's layouts) on the 13B planes, once
+    for name, k, n in PLANES_13B:
+        w = rand_weight(torch, k, n, gen, dev)
+        for m in B1_ROWS:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            y, y_ref, tol = b1_case(x, w, torch.bfloat16)
+            err = (y - y_ref).abs().max().item()
+            require(bool(torch.isfinite(y).all()) and err <= tol,
+                    f"B1 13B {name} M={m}: err {err} > {tol}")
+            results["B1"].append(dict(shape=f"{name} M={m} K={k} N={n} bf16",
+                                      max_abs_err=err, tol=tol))
+        del w
+
 
 def check_prefill_matmuls(torch, dev, gen, results):
-    """B2 and B3 (bit for bit) and B5 against their plain versions."""
+    """B2 and B3 (bit for bit) and B5 against their plain versions; B3 on
+    the 7B and 13B planes at M = 512 and 256, its two launches timed apart
+    and torch._int_mm (the int8 product alone) beside it."""
+    from fastllama_tpu_torch.kernels import cuda_lib
     from fastllama_tpu_torch.kernels import q4_matmul as qm
     shapes = PLANES_7B
     b2, b3 = [], []
-    m = 512
-    for name, k, n in shapes[:4]:
+    for name, k, n in shapes[:4] + PLANES_13B:
         w = rand_weight(torch, k, n, gen, dev)
-        x = torch.randn((m, k), generator=gen, device=dev) * 3.0
-        xq, dx = qm.quant_rows_int8(x, w.k)
-        xq_ref, dx_ref = qm.quant_rows_int8_plain(x, w.k)
-        require(torch.equal(xq, xq_ref) and torch.equal(dx, dx_ref),
-                f"B2 {name}: not bit-exact")
-        if name in ("qkv", "w2"):          # the two K's of the main path
-            ms = time_ms(torch, lambda: qm.quant_rows_int8(x, w.k), calls=20)
-            plain_ms = time_ms(torch, lambda: qm.quant_rows_int8_plain(
-                x, w.k), calls=5)
-            bnd, by = bound_ms(m * k * 4 + m * w.k + m * 4, 4.0 * m * k,
-                               "f32")
-            b2.append(dict(shape=f"M={m} K={k} -> {w.k}", max_abs_err=0.0,
-                           ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-                           bound_by=by))
-            print(f"B2 {b2[-1]}", flush=True)
-        y = qm.q4_matmul_prefill_int8(xq, dx, w)
-        y_ref = qm.q4_matmul_prefill_int8_plain(xq, dx, w)
-        require(torch.equal(y, y_ref), f"B3 {name}: not bit-exact "
-                f"(max err {(y - y_ref).abs().max().item()})")
         wbytes = w.qs.numel() + w.scales.numel() * 4
         ws = [w] + [rand_weight(torch, k, n, gen, dev)
                     for _ in range(copies_for(wbytes) - 1)]
-        it = iter(range(10**9))
-        ms = time_ms(torch, lambda: qm.q4_matmul_prefill_int8(
-            xq, dx, ws[next(it) % len(ws)]), calls=2 * len(ws))
-        plain_ms = time_ms(torch, lambda: qm.q4_matmul_prefill_int8_plain(
-            xq, dx, w), calls=2)
-        bnd, by = bound_ms(m * w.k + m * 4 + wbytes + m * n * 4,
-                           2.0 * m * w.k * n, "int8")
-        b3.append(dict(shape=f"{name} M={m} K={w.k} N={n}", max_abs_err=0.0,
-                       ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by))
-        print(f"B3 {b3[-1]}", flush=True)
-        del ws, w
+        w8, _ = qm.requant_weight_int8(w)
+        w8_cm = w8.t().contiguous().t()           # [K, N], column-major
+        # M = 512: the single stream's bucket and a monolithic admission;
+        # M = 256: the chunked admission's chunks
+        for m in (512, 256):
+            x = torch.randn((m, k), generator=gen, device=dev) * 3.0
+            xq, dx = qm.quant_rows_int8(x, w.k)
+            xq_ref, dx_ref = qm.quant_rows_int8_plain(x, w.k)
+            require(torch.equal(xq, xq_ref) and torch.equal(dx, dx_ref),
+                    f"B2 {name} M={m}: not bit-exact")
+            if m == 512 and name in ("qkv", "w2"):   # the main path's K's
+                ms = time_ms(torch, lambda: qm.quant_rows_int8(x, w.k),
+                             calls=20)
+                plain_ms = time_ms(torch, lambda: qm.quant_rows_int8_plain(
+                    x, w.k), calls=5)
+                bnd, by = bound_ms(m * k * 4 + m * w.k + m * 4, 4.0 * m * k,
+                                   "f32")
+                b2.append(dict(shape=f"M={m} K={k} -> {w.k}", max_abs_err=0.0,
+                               ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                               bound_by=by))
+                print(f"B2 {b2[-1]}", flush=True)
+            y = qm.q4_matmul_prefill_int8(xq, dx, w)
+            y_ref = qm.q4_matmul_prefill_int8_plain(xq, dx, w)
+            require(torch.equal(y, y_ref), f"B3 {name} M={m}: not bit-exact "
+                    f"(max err {(y - y_ref).abs().max().item()})")
+            require(torch.equal(y, qm.q4_matmul_prefill_int8(xq, dx, w)),
+                    f"B3 {name} M={m}: not deterministic")
+            # the library's int8 product (cuBLASLt through torch._int_mm):
+            # the exact int32 accumulators alone, no requantization or scales
+            acc = torch._int_mm(xq, w8_cm)
+            require(torch.equal(acc.double(), qm.int8_accumulators(xq, w8)),
+                    f"B3 {name} M={m}: _int_mm is not the exact product")
+            tile = qm.B3_TILES[qm.b3_plan(m, w.qs.shape[1],
+                                          cuda_lib.sm_count(dev))]
+            it = iter(range(10**9))
+
+            def cycled():
+                return qm.q4_matmul_prefill_int8(xq, dx,
+                                                 ws[next(it) % len(ws)])
+            ms = time_ms(torch, cycled, calls=2 * len(ws))
+            # its two launches apart, by kernel name in a profiler trace
+            split = device_ms_by_name(torch, cycled, 2 * len(ws),
+                                      ("requant_kernel", "int8_wgmma_kernel"))
+            plain_ms = (time_ms(torch, lambda: qm.q4_matmul_prefill_int8_plain(
+                xq, dx, w), calls=2)
+                if m == 512 and name in {p[0] for p in shapes} else None)
+            # the function's operations: the logical K and N, not the
+            # stored padding
+            ops = 2.0 * m * k * n
+            bnd, by = bound_ms(m * w.k + m * 4 + wbytes + m * n * 4, ops,
+                               "int8")
+            gemm_ms = split["int8_wgmma_kernel"]
+            row = dict(shape=f"{name} M={m} K={k} N={n}", max_abs_err=0.0,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                       library_ms=time_ms(torch, lambda: torch._int_mm(
+                           xq, w8_cm), calls=10),
+                       requant_ms=split["requant_kernel"], gemm_ms=gemm_ms,
+                       tile_n=tile,
+                       gemm_int8_peak_share=ops / PEAK_OPS["int8"] * 1e3
+                       / gemm_ms)
+            b3.append(row)
+            print(f"B3 {row}", flush=True)
+        del ws, w, w8, w8_cm
     results["B2"], results["B3"] = b2, b3
 
     # B5: bf16 / f32 prefill matmul against dequant + torch.matmul (its
@@ -672,13 +729,15 @@ def check_engine_kernels(torch, dev, gen, results):
     perm = torch.randperm(n_pages, generator=gen, device=dev)
     tables = perm.reshape(b, pp).to(torch.int32).contiguous()
     ragged = [0, 1, ps - 1, ps, 300, pp * ps, 200, 37]
+    steady = [100, 107, 114, 121, 128, 135, 142, 150]
     for dt in (torch.bfloat16, torch.float32):
         isz = dt.itemsize
         name = "bf16" if dt == torch.bfloat16 else "f32"
         pools = [(pool(dt), pool(dt)) for _ in range(3 if isz == 2 else 2)]
         q = torch.randn((b, h, d), generator=gen, device=dev)
         for label, lens in (("ragged " + str(ragged), ragged),
-                            ("8x300", [300] * b)):
+                            ("8x300", [300] * b),
+                            ("steady " + str(steady), steady)):
             lengths = i32(lens)
             kp, vp = pools[0]
             # pages no sequence reaches (and the trash page) hold NaN: no
@@ -735,6 +794,16 @@ def check_engine_kernels(torch, dev, gen, results):
                 del gathered
             b6.append(row)
             print(f"B6 {row}", flush=True)
+        # q as the forward passes it: a view of a wider tensor (batch and
+        # head strides), bit for bit against the same values made contiguous
+        q_wide = torch.randn((b, 2 * h, d), generator=gen, device=dev)
+        lengths = i32(ragged)
+        require(torch.equal(
+            pa.paged_decode_attention(q_wide[:, h:], *pools[0], lengths,
+                                      tables),
+            pa.paged_decode_attention(q_wide[:, h:].contiguous(), *pools[0],
+                                      lengths, tables)),
+            f"B6 {name}: a strided q gives another result")
 
         # B11: the same pools in the flat-lane layout [P, ps, H*D]; a read
         # table entry holds the sentinel (the trash page) and another an id
@@ -880,6 +949,51 @@ def check_engine_kernels(torch, dev, gen, results):
                            torch, index_copy_pages, calls=16)))
         print(f"B8 {b8[-1]}", flush=True)
         del pools, k1, v1, k2, v2
+    # B6 at B = 1 (300 keys; small pools, cycled through more than the
+    # L2) with SDPA over the gathered keys beside it, and at 13B's 40 heads
+    pools1 = [tuple(torch.randn((h, pp + 1, ps, d), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2)) for _ in range(16)]
+    q1 = torch.randn((1, h, d), generator=gen, device=dev)
+    t1 = torch.arange(pp, dtype=torch.int32, device=dev)[None]
+    n1 = i32([300])
+    ctx = pa.paged_decode_attention(q1, *pools1[0], n1, t1)
+    ref = pa.paged_decode_attention_plain(q1, *pools1[0], n1, t1)
+    err = (ctx - ref).abs().max().item()
+    tol = 2 ** -7 * ref.abs().max().item() + 1e-6
+    require(err <= tol, f"B6 B=1 x 300: err {err} > {tol}")
+    it = iter(range(10**9))
+    ms = time_ms(torch, lambda: pa.paged_decode_attention(
+        q1, *pools1[next(it) % len(pools1)], n1, t1), calls=4 * len(pools1))
+    plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_plain(
+        q1, *pools1[0], n1, t1), calls=2)
+    bnd, by = bound_ms(2 * f * 4 + 2 * 300 * f * 2 + 4 + pp * 4,
+                       4.0 * 300 * f, "bf16")
+    gathered = [tuple(x[:, :pp].reshape(1, h, pp * ps, d)[:, :, :300]
+                      .contiguous() for x in kv) for kv in pools1]
+    b6.append(dict(shape=f"B=1 H={h} d={d} ps={ps} pp={pp} bf16 "
+                   "lengths=1x300", max_abs_err=err, tol=tol, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                   library_ms=None, sdpa_over_gathered_keys_ms=sdpa_over(
+                       torch, q1.reshape(1, h, 1, d).to(torch.bfloat16),
+                       gathered)))
+    print(f"B6 {b6[-1]}", flush=True)
+    del pools1, gathered
+    h13 = 40
+    k13, v13 = (torch.randn((h13, 2 * pp + 1, ps, d), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+    q13 = torch.randn((2, h13, d), generator=gen, device=dev)
+    t13 = torch.randperm(2 * pp, generator=gen, device=dev).reshape(
+        2, pp).to(torch.int32)
+    for lens in ([300, 1], [pp * ps, ps + 1]):
+        ctx = pa.paged_decode_attention(q13, k13, v13, i32(lens), t13)
+        ref = pa.paged_decode_attention_plain(q13, k13, v13, i32(lens), t13)
+        err = (ctx - ref).abs().max().item()
+        tol = 2 ** -7 * ref.abs().max().item() + 1e-6
+        require(err <= tol, f"B6 H=40 {lens}: err {err} > {tol}")
+        b6.append(dict(shape=f"B=2 H={h13} d={d} ps={ps} pp={pp} bf16 "
+                       f"lengths={lens}", max_abs_err=err, tol=tol))
+    del k13, v13
     results["B6"], results["B7"], results["B8"] = b6, b7, b8
     results["B11"] = b11
     results["B11_phase2_launches"] = b11_launches
@@ -1069,6 +1183,7 @@ def main_path(torch, dev, gen):
     ms_tok = [r[1] / N_DECODE * 1e3 for r in runs]
     wbytes = model_weight_bytes(params)
     profile = profile_decode(torch, sess, n_steps=8)
+    prefill = profile_prefill(torch, sess, prompt)
     busy = profile.get("device_ms_per_token")
     med_ms = float(np.median(ms_tok))
     res = dict(n_layer=hp.n_layer, n_prompt=N_PROMPT,
@@ -1081,7 +1196,7 @@ def main_path(torch, dev, gen):
                device_busy_ms_per_token=busy,
                device_idle_share=(None if busy is None else
                                   1.0 - busy / med_ms),
-               decode_profile=profile,
+               decode_profile=profile, prefill_profile=prefill,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"main path: {json.dumps(res)}", flush=True)
     del sess, model
@@ -1102,7 +1217,8 @@ def main_path(torch, dev, gen):
                            for _ in range(2)]
     res["bf16_prefill"] = dict(
         ttft_ms=float(np.median(ettfts)), ttft_ms_runs=ettfts,
-        int8_ttft_ms=res["ttft_ms"], launches=ecounts)
+        int8_ttft_ms=res["ttft_ms"], launches=ecounts,
+        prefill_profile=profile_prefill(torch, sess, prompt))
     print(f"bf16-exact prefill: {json.dumps(res['bf16_prefill'])}", flush=True)
     del sess, model, params
     torch.cuda.empty_cache()
@@ -1195,10 +1311,28 @@ def profile_decode(torch, sess, n_steps: int) -> dict:
                         for k, ms, n in top]}
 
 
-def device_time_by_kernel(prof, n_steps: int):
-    """From a torch.profiler trace of n_steps steps: (device ms per step,
-    device launches per step, the twelve kernels with the most device time
-    as (name, ms per step, calls per step))."""
+def profile_prefill(torch, sess, prompt) -> dict:
+    """The TTFT window (reset, ingest, first token) under torch.profiler:
+    device ms by kernel, so the prefill's device time reads apart from the
+    host clock. Empty if the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    sess.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        require(sess.ingest(prompt), "profiled ingest failed")
+        require(sess.generate(lambda s: None, num_tokens=1, temp=0.0),
+                "profiled first token failed")
+        torch.cuda.synchronize()
+    dev_ms, launches, top = device_time_by_kernel(prof, 1)
+    if dev_ms <= 0:
+        return {}
+    return {"device_ms": dev_ms, "launches": launches,
+            "kernels": [{"name": k, "ms": ms, "calls": n} for k, ms, n in top]}
+
+
+def kernel_device_us(prof) -> dict:
+    """{kernel name: (device µs, launches)} from a torch.profiler trace."""
     from torch.autograd import DeviceType
     by_name = {}
     for e in prof.key_averages():
@@ -1209,6 +1343,38 @@ def device_time_by_kernel(prof, n_steps: int):
             us = getattr(e, "self_cuda_time_total", 0)
         old = by_name.get(e.key, (0.0, 0))
         by_name[e.key] = (old[0] + us, old[1] + e.count)
+    return by_name
+
+
+def device_ms_by_name(torch, fn, calls: int, names) -> dict:
+    """Device ms per fn() call of the kernels whose names contain each of
+    `names`, from a torch.profiler trace of `calls` calls (after two warm-up
+    calls): the launches of one wrapper timed apart. Fails if a name is
+    missing from the trace."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = kernel_device_us(prof)
+    out = {}
+    for want in names:
+        hits = [v for k, v in by_name.items() if want in k]
+        require(hits and sum(c for _, c in hits) == calls,
+                f"profiler: {want} not seen {calls} times in the trace")
+        out[want] = sum(us for us, _ in hits) / 1e3 / calls
+    return out
+
+
+def device_time_by_kernel(prof, n_steps: int):
+    """From a torch.profiler trace of n_steps steps: (device ms per step,
+    device launches per step, the twelve kernels with the most device time
+    as (name, ms per step, calls per step))."""
+    by_name = kernel_device_us(prof)
     total_us = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return (total_us / 1e3 / n_steps,
@@ -1697,7 +1863,7 @@ def main() -> int:
                     B11=checks["B11_phase2_launches"])
     main_rows = {"B1": pick(checks["B1"], "qkv M=1"),
                  "B2": pick(checks["B2"], "K=4096"),
-                 "B3": pick(checks["B3"], "qkv"),
+                 "B3": pick(checks["B3"], "qkv M=512 K=4096"),
                  "B4": pick(checks["B4"], "n_past=300"),
                  "B5": pick(checks["B5"], "qkv M=512 K=4096 N=12288 bf16"),
                  "B9": pick(checks["B9"], "qkv M=1 K=4096 N=12288 bf16"),

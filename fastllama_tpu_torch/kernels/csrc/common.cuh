@@ -87,4 +87,84 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return warp_max(v);
 }
 
+// Asynchronous 16-byte copy from global to shared memory (cp.async, L2 only).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// Sum over the 16 lanes of a half warp (every lane gets the result).
+__device__ __forceinline__ float group16_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// EPL consecutive cache elements of one lane from shared memory, widened.
+template <typename T, int EPL>
+__device__ __forceinline__ void lane_row(const T* p, float* out) {
+  if constexpr (EPL * sizeof(T) % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < EPL; i += Vec16<T>::kN) Vec16<T>::load(p + i, out + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) out[i] = to_f32(p[i]);
+  }
+}
+
+// Of the `act` blocks that write a partial for one counter, true in the
+// last to count in (after its partial is written), which then merges them
+// all; block-uniform. `flag` is an int of the block's shared memory. The
+// merging block resets the counter when it is done.
+__device__ __forceinline__ bool last_of_split(int* counters, int ctr, int act,
+                                              int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *flag = atomicAdd(&counters[ctr], 1) == act - 1;
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();
+  return true;
+}
+
+// The merge of `act` partials (m, l, ctx[D]) at pb, D + 2 floats apart,
+// for element e of ctx: chunks in order, 8 at a time (the (m, l, ctx) of a
+// batch are loaded together, one round trip), two-pass within the batch
+// and online (rescaled by the running max) across batches. Gives the
+// merged max M, sum L and unnormalized ctx C.
+template <int D>
+__device__ __forceinline__ void merge_partials(const float* pb, int act,
+                                               int e, float& M, float& L,
+                                               float& C) {
+  constexpr int kBatch = 8;
+  M = -INFINITY;
+  L = 0.f;
+  C = 0.f;
+  for (int i0 = 0; i0 < act; i0 += kBatch) {
+    float mi[kBatch], li[kBatch], ci[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const float* pi = pb + (size_t)(i0 + j) * (D + 2);
+      const bool ok = i0 + j < act;
+      mi[j] = ok ? __ldcg(pi) : -INFINITY;
+      li[j] = ok ? __ldcg(pi + 1) : 0.f;
+      ci[j] = ok ? __ldcg(pi + 2 + e) : 0.f;
+    }
+    float mb = M;
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) mb = fmaxf(mb, mi[j]);
+    const float r = expf(M - mb);              // 0 on the first batch
+    L *= r;
+    C *= r;
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const float w = i0 + j < act ? expf(mi[j] - mb) : 0.f;
+      L += li[j] * w;
+      C += ci[j] * w;
+    }
+    M = mb;
+  }
+}
+
 }  // namespace fltorch

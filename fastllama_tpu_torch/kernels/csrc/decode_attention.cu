@@ -69,36 +69,15 @@
 namespace {
 
 using fltorch::Vec16;
+using fltorch::cp_async16;
+using fltorch::group16_sum;
+using fltorch::lane_row;
 
 constexpr int kMaxD = 256;
 
 constexpr int kSplitThreads = 128;               // 8 groups of 16 lanes
 constexpr int kGroups = kSplitThreads / 16, kMaxChunk = 64;
 constexpr int kMaxSplits = 12288 / kMaxChunk;    // S <= 12288
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ float group16_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// EPL consecutive cache elements of one lane from shared memory, widened.
-template <typename T, int EPL>
-__device__ __forceinline__ void lane_row(const T* p, float* out) {
-  if constexpr (EPL * sizeof(T) % 16 == 0) {
-#pragma unroll
-    for (int i = 0; i < EPL; i += Vec16<T>::kN) Vec16<T>::load(p + i, out + i);
-  } else {
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) out[i] = fltorch::to_f32(p[i]);
-  }
-}
 
 // rope(x) of a lane's EPL elements (EPL is even, so the partner l ^ 1 of
 // each is the lane's own): fma(x, cos, round(partner * sin)), the roundings
@@ -290,48 +269,16 @@ attn_split_kernel(const float* __restrict__ q, T* __restrict__ kc,
   }
 
   // The last of the act blocks of this (b, h) merges them in chunk order.
-  __threadfence();
-  __syncthreads();
   const int ctr = b * H + h;
-  if (tid == 0) is_last = atomicAdd(&counters[ctr], 1) == act - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
+  if (!fltorch::last_of_split(counters, ctr, act, &is_last)) return;
   const float* pb = partial + ((size_t)b * H + h) * nsp * (D + 2);
   float s_new = 0.f;
   if constexpr (FUSED)                           // every read is done
     s_new = new_token<T, EPL>(kvrow, F, qr, cs, sn, kc + w_off, vc + w_off,
                               scale);
-  // chunks in order, 8 at a time: the (m, l, ctx) of a batch are loaded
-  // together (one round trip), merged two-pass within the batch and online
-  // (rescaled by the running max) across batches
-  constexpr int kBatch = 8;
   for (int l = tid; l < D; l += kSplitThreads) {
-    float M = -INFINITY, L = 0.f, C = 0.f;
-    for (int i0 = 0; i0 < act; i0 += kBatch) {
-      float mi[kBatch], li[kBatch], ci[kBatch];
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const float* pi = pb + (size_t)(i0 + j) * (D + 2);
-        const bool ok = i0 + j < act;
-        mi[j] = ok ? __ldcg(pi) : -INFINITY;
-        li[j] = ok ? __ldcg(pi + 1) : 0.f;
-        ci[j] = ok ? __ldcg(pi + 2 + l) : 0.f;
-      }
-      float mb = M;
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) mb = fmaxf(mb, mi[j]);
-      const float r = expf(M - mb);              // 0 on the first batch
-      L *= r;
-      C *= r;
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const float e = i0 + j < act ? expf(mi[j] - mb) : 0.f;
-        L += li[j] * e;
-        C += ci[j] * e;
-      }
-      M = mb;
-    }
+    float M, L, C;
+    fltorch::merge_partials<D>(pb, act, l, M, L, C);
     if constexpr (FUSED) {                       // the new token, last
       const float mb = fmaxf(M, s_new);
       const float r = expf(M - mb), e = expf(s_new - mb);

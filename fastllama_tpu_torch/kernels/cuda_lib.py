@@ -35,14 +35,15 @@ ARGTYPES = {
     "q41_gemv_mma": [P, I, I, P, P, P, I, I, I, I, I, I, P, P, P, I, P],
     "q41_gemv": [P, I, I, P, P, P, I, I, I, I, P, P, P, I, I, P],
     "quant_rows_int8": [P, I, I, I, P, P, P],
-    "q4_int8_gemm": [P, P, I, I, P, P, I, P, P, P, I, P],
+    "q4_int8_gemm": [P, P, I, I, P, P, I, P, P, P, I, I, P],
     "q4_prefill_gemm": [P, I, I, P, P, I, I, P, P, P, I, I, P],
     "decode_attention_fused": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P,
                                P, P, P],
     "decode_attention": [P, P, P, P, I, I, I, I, I, I, F, I, P, P, P, P],
-    "paged_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, F, I, P, P],
-    "paged_decode_attention_flat": [P, P, P, P, P, I, I, I, I, I, I, F, I, P,
-                                    P],
+    "paged_decode_attention": [P, I, I, P, P, P, P, I, I, I, I, I, I, I, I,
+                               F, I, P, P, P, P],
+    "paged_decode_attention_flat": [P, I, I, P, P, P, P, I, I, I, I, I, I, I,
+                                    I, F, I, P, P, P, P],
     "paged_kv_write": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "paged_kv_write_rows": [P, P, P, P, P, I, I, I, I, I, P],
 }
@@ -153,6 +154,19 @@ def scratch(device, name: str, n: int, dtype):
                           device=device)
         _scratch[key] = buf
     return buf[:nbytes].view(dtype)
+
+
+_sms: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The card's SM count (132 on the H100 SXM), read once per device."""
+    n = _sms.get(device.index)
+    if n is None:
+        import torch
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sms[device.index] = n
+    return n
 
 
 def stream_handle(device) -> int:

@@ -11,7 +11,11 @@ before (kernels/kv_write.py runs first). The numerical contract is the TPU
 kernel's: q and the probabilities are cast to the pool dtype before the two
 dots, scores, softmax and accumulation are f32, a masked probability is
 exactly 0 and the denominator is max(sum p, 1e-30), so a sequence of length
-0 yields zeros. Pages past ceil(len/ps) are never read.
+0 yields zeros. Pages past ceil(len/ps) are never read. On the card the
+keys are split: the pp * ps rows of a sequence are cut into chunks of whole
+pages (b6_plan, from the shapes alone), each block attends one chunk of one
+head with its own p = exp(score - chunk max) cast to the pool dtype, and the
+last block of a head merges the partial softmaxes in chunk order.
 
 B11 ports fastllama_tpu/kernels/paged_attention.py::
 paged_decode_attention_flat: the same contract over flat-lane pools
@@ -25,6 +29,7 @@ kernel for CUDA tensors and runs its plain version for CPU tensors.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -87,24 +92,61 @@ def _check_args(q, k_pages, v_pages, lengths, page_indices, flat: bool):
     return tuple(k_pages.shape[:2] if flat else k_pages.shape[1:3])
 
 
-def _launch(name, q, k_pages, v_pages, lengths, page_indices, p, ps):
+# B6's and B11's split (see csrc/paged_attention.cu): chunks of at least
+# B6_CHUNK rows where the pages allow (a chunk is a multiple of the page
+# size or a divisor of it), K and V of a chunk staged at once within
+# B6_SMEM_CAP bytes. tools_torch/paged_chunk_sweep.py times the others.
+B6_CHUNK = 64
+B6_MAX_CHUNK = 256
+B6_SMEM_CAP = 96 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def b6_plan(pp: int, ps: int, d: int, itemsize: int) -> tuple[int, int]:
+    """(splits, chunk) of B6's and B11's grid for pp pages of ps rows, head
+    dim d and pool elements of `itemsize` bytes: the smallest chunk of at
+    least B6_CHUNK rows (or the largest there is). From the shapes alone,
+    so the host never reads the lengths; chunk i takes rows [i * chunk,
+    (i + 1) * chunk)."""
+    s = pp * ps
+    cands = [c for c in range(1, min(B6_MAX_CHUNK, s) + 1)
+             if (c % ps == 0 or ps % c == 0)
+             and 2 * c * d * itemsize <= B6_SMEM_CAP]
+    chunk = next((c for c in cands if c >= B6_CHUNK), cands[-1])
+    return -(-s // chunk), chunk
+
+
+def _launch(name, q, k_pages, v_pages, lengths, page_indices, p, ps,
+            chunk=None):
+    """One launch of B6 or B11 (`name`); `chunk` overrides the plan's rows
+    per block (tools_torch/paged_chunk_sweep.py)."""
     b, h, d = q.shape
     pp = page_indices.shape[1]
-    tensors = (q, k_pages, v_pages, lengths, page_indices)
-    _require(q.device.type == "cuda"
+    tensors = (k_pages, v_pages, lengths, page_indices)
+    _require(q.device.type == "cuda" and q.stride(2) == 1
              and all(t.device == q.device and t.is_contiguous()
                      for t in tensors),
-             "all tensors must be contiguous on one CUDA device")
+             "the pools, lengths and tables must be contiguous and q unit "
+             "stride along D, all on one CUDA device")
     _require(d % 32 == 0 and d <= 256 and pp * ps <= 12288,
              "head_dim must be a multiple of 32 and <= 256 and "
              f"pages_per_seq * page_size <= 12288: got D = {d}, "
              f"{pp} x {ps}")
-    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    dev = q.device
+    if chunk is None:
+        splits, chunk = b6_plan(pp, ps, d, k_pages.element_size())
+    else:
+        splits = -(-(pp * ps) // chunk)
+    partial = cuda_lib.scratch(dev, "paged_attention.partial",
+                               b * h * splits * (d + 2), torch.float32)
+    counters = cuda_lib.tile_counters(dev, b * h)
+    out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
     rc = cuda_lib.fn(name)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        lengths.data_ptr(), page_indices.data_ptr(), b, h, p, ps, pp, d,
-        1.0 / math.sqrt(d), int(k_pages.dtype == torch.bfloat16),
-        out.data_ptr(), cuda_lib.stream_handle(q.device))
+        q.data_ptr(), q.stride(0), q.stride(1), k_pages.data_ptr(),
+        v_pages.data_ptr(), lengths.data_ptr(), page_indices.data_ptr(), b,
+        h, p, ps, pp, d, splits, chunk, 1.0 / math.sqrt(d),
+        int(k_pages.dtype == torch.bfloat16), partial.data_ptr(),
+        counters.data_ptr(), out.data_ptr(), cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, name)
     return out
 
@@ -112,8 +154,9 @@ def _launch(name, q, k_pages, v_pages, lengths, page_indices, p, ps):
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, lengths: torch.Tensor,
                            page_indices: torch.Tensor) -> torch.Tensor:
-    """Kernel B6. q f32 [B, H, D] after RoPE; pools [H, P, ps, D] bf16 or
-    f32 holding the current token's row; lengths int32 [B], the number of
+    """Kernel B6. q f32 [B, H, D] after RoPE (any batch and head strides,
+    unit stride along D); pools [H, P, ps, D] bf16 or f32 holding the
+    current token's row; lengths int32 [B], the number of
     keys to attend (clipped to pp * ps); page_indices int32 [B, pp].
     Returns ctx f32 [B, H, D]."""
     p, ps = _check_args(q, k_pages, v_pages, lengths, page_indices, False)

@@ -333,12 +333,31 @@ def q4_matmul_prefill_int8_plain(xq: torch.Tensor, dx: torch.Tensor,
     return y[:, :w.n_logical]
 
 
+# B3's product variants (`tile` of csrc/q4_int8.cu): the output columns of
+# a 128-row tile, one block an SM
+B3_BM = 128
+B3_TILES = (256, 128)
+
+
+def b3_plan(m: int, n: int, sms: int) -> int:
+    """The product variant (an index into B3_TILES) for M rows and N stored
+    columns on a card of `sms` SMs: the fewest waves of tiles, each wave
+    weighed by its tile's width (a tile's time follows its operations); a
+    tie takes 256 columns, which reads the activations half as often."""
+    def cost(i):
+        tiles = -(-m // B3_BM) * -(-n // B3_TILES[i])
+        return -(-tiles // sms) * B3_TILES[i]
+    return min(range(len(B3_TILES)), key=cost)
+
+
 def q4_matmul_prefill_int8(xq: torch.Tensor, dx: torch.Tensor,
                            w: QuantMatmulWeight) -> torch.Tensor:
     """Kernel B3: xq int8 [M, K_stored], dx f32 [M] -> y f32 [M, n_logical].
 
     Exact int32 accumulators; y = (acc * dx) * s8, the JAX order, so the
-    kernel and its plain version agree bit for bit."""
+    kernel and its plain version agree bit for bit. On the card: a
+    requantization pass (s8 and the [N, K] int8 plane into scratch), then
+    the product over that plane on wgmma fed by TMA."""
     _require(xq.dim() == 2 and xq.dtype == torch.int8
              and dx.dtype == torch.float32 and dx.shape == (xq.shape[0],),
              "xq must be int8 [M, K] and dx f32 [M]")
@@ -351,15 +370,17 @@ def q4_matmul_prefill_int8(xq: torch.Tensor, dx: torch.Tensor,
     _check_weight(w, xq.device)
     m, k = xq.shape
     n = w.qs.shape[1]
-    _require(k % 64 == 0, "stored K must be a multiple of 64")
+    _require(k % 64 == 0 and n % 4 == 0,
+             "stored K must be a multiple of 64 and stored N of 4")
     dev = xq.device
-    s8inv = cuda_lib.scratch(dev, "q4_int8.s8inv", 2 * n, torch.float32)
+    s8 = cuda_lib.scratch(dev, "q4_int8.s8", n, torch.float32)
     w8t = cuda_lib.scratch(dev, "q4_int8.w8t", n * k, torch.int8)
     y = torch.empty((m, w.n_logical), dtype=torch.float32, device=dev)
     rc = cuda_lib.fn("q4_int8_gemm")(
         xq.data_ptr(), dx.data_ptr(), m, k, w.qs.data_ptr(),
-        w.scales.data_ptr(), n, s8inv.data_ptr(), w8t.data_ptr(),
-        y.data_ptr(), w.n_logical, cuda_lib.stream_handle(dev))
+        w.scales.data_ptr(), n, s8.data_ptr(), w8t.data_ptr(), y.data_ptr(),
+        w.n_logical, b3_plan(m, n, cuda_lib.sm_count(dev)),
+        cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, "q4_int8_gemm")
     q4_matmul_prefill_int8.launches += 1
     return y
@@ -429,9 +450,13 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
       q4_0, M <= 64                      -> B1 q4_matmul_decode
       q4_0, M >= 256 and int8 (use_int8) -> B2 quant_rows_int8 + B3
       q4_0, M >= 256 otherwise           -> B5 q4_matmul_prefill (at every
-                                            such M: on the H100 it beats the
-                                            dequant path at each M measured,
-                                            see PERF.md)
+                                            such M: in bf16 mode it beats the
+                                            dequant path at each M measured
+                                            on the H100; in f32 mode its FFMA
+                                            tile is slower, 2.132 against
+                                            1.848 ms on the 7B qkv plane at
+                                            M = 512, see PERF.md and
+                                            ROADMAP.md)
       q4_1, M <= 64                      -> B9 q41_matmul_decode
       q4_1 at M > 64, q4_0 at 64 < M < 256
                                          -> q4_matmul_dequant (dequant +

@@ -411,8 +411,7 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
         q, k, v = _roped_qkv(attn_in, layer, cfg, rope_bt)
         paged_kv_write(kp, vp, k[:, 0].contiguous(), v[:, 0].contiguous(),
                        page_ids, offsets)
-        ctx = paged_decode_attention(q[:, 0].contiguous(), kp, vp, attend,
-                                     page_tables)
+        ctx = paged_decode_attention(q[:, 0], kp, vp, attend, page_tables)
         x = x + _project_out(ctx, layer, cfg, b, 1)
         x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
 

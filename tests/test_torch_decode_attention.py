@@ -6,6 +6,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from fastllama_tpu.kernels.decode_attention import (
@@ -40,9 +41,13 @@ def run_both(qkv, kc, vc, n_past, hd, n_rot, cache):
         jnp.asarray(qkv), jnp.asarray(kc, jdt), jnp.asarray(vc, jdt),
         jnp.asarray(np_), cos, sin, head_dim=hd, n_rot=n_rot, scale=scale,
         interpret=True)
+    # JAX on the CPU may alias the numpy caches and dispatches
+    # asynchronously: let it finish before the torch side writes, and give
+    # the torch side its own copies (an f32 tensor would share kc's memory)
+    jctx, jk, jv = jax.block_until_ready((jctx, jk, jv))
     tdt = getattr(torch, cache)
-    tk = torch.from_numpy(kc).to(tdt)
-    tv = torch.from_numpy(vc).to(tdt)
+    tk = torch.from_numpy(kc.copy()).to(tdt)
+    tv = torch.from_numpy(vc.copy()).to(tdt)
     tn = torch.from_numpy(np_)
     # the tables agree to f32 rounding (cos/sin/pow differ by an ulp between
     # the two libraries); the kernel is then fed the same tables
@@ -380,8 +385,8 @@ def test_b4_split_rule_equals_plain_and_pallas(n_past, cache):
     b, h, hd = 1, 2, 128
     f = h * hd
     qkv, kc, vc = inputs(b, B4_S, f, seed=40 + n_past)
-    # the caches before the step (an f32 torch tensor shares kc's memory,
-    # and the step writes row S - 1, which it attends, at n_past >= S)
+    # the caches before the step (the step writes row S - 1, which it
+    # attends, at n_past >= S)
     kcr, vcr = _round_to(kc[0], cache), _round_to(vc[0], cache)
     ctx, k, v, jctx, jk, jv = run_both(qkv, kc, vc, [n_past], hd, hd, cache)
     tol = (2 ** -7 if cache == "bfloat16" else 5e-5) * np.abs(ctx).max()

@@ -348,6 +348,139 @@ def test_b6_kernel_matches_plain(cuda_device, pool):
 
 
 # ---------------------------------------------------------------------------
+# B6's split over the keys (csrc/paged_attention.cu) and its plan
+# ---------------------------------------------------------------------------
+
+def _as_pool(a, pool):
+    """f32 numpy values rounded to the pool dtype (and back to f32)."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(
+        getattr(torch, pool)).to(torch.float32).numpy()
+
+
+def b6_split_rule(q, kp, vp, length, table, chunk, pool):
+    """The card kernel's arithmetic for one sequence, in numpy f32: q [H, D],
+    pools [H, P, ps, D] holding pool-dtype values. Keys are cut into chunks
+    of `chunk` rows; chunk c has its own max m_c, p = exp(score - m_c) cast
+    to the pool dtype for the PV dot and l_c the sum of the unrounded p;
+    the partials merge in chunk order, 8 at a time (two-pass within a
+    batch, rescaled by the running max across batches), and ctx = C /
+    max(L, 1e-30). Only rows < length of pages the table names are read."""
+    h, p, ps, d = kp.shape
+    n = int(np.clip(length, 0, table.shape[0] * ps))
+    scale = np.float32(1.0 / np.sqrt(d))
+    pages = np.clip(table, 0, p - 1)
+    rows = [(pages[s // ps], s % ps) for s in range(n)]
+    qr = _as_pool(q, pool)
+    out = np.zeros((h, d), np.float32)
+    for hh in range(h):
+        parts = []
+        for s0 in range(0, max(n, 1), chunk):
+            rr = rows[s0:s0 + chunk]
+            if not rr:
+                parts.append((np.float32(-np.inf), np.float32(0),
+                              np.zeros(d, np.float32)))
+                continue
+            k = np.stack([kp[hh, a, b] for a, b in rr])
+            v = np.stack([vp[hh, a, b] for a, b in rr])
+            sc = (k @ qr[hh]).astype(np.float32) * scale
+            m = sc.max()
+            pr = np.exp(sc - m).astype(np.float32)
+            parts.append((m, pr.sum(dtype=np.float32),
+                          (_as_pool(pr, pool) @ v).astype(np.float32)))
+        big_m, big_l, big_c = np.float32(-np.inf), np.float32(0), 0.0
+        for i0 in range(0, len(parts), 8):
+            batch = parts[i0:i0 + 8]
+            mb = max([big_m] + [m for m, _, _ in batch])
+            r = np.exp(np.float32(big_m - mb)) if big_m > -np.inf else 0
+            big_l, big_c = big_l * r, big_c * r
+            for m, l, c in batch:
+                e = np.exp(np.float32(m - mb)) if m > -np.inf else 0
+                big_l, big_c = big_l + l * e, big_c + c * e
+            big_m = mb
+        out[hh] = big_c / max(big_l, np.float32(1e-30))
+    return out
+
+
+def split_case(pool, seed=61):
+    """Six sequences at the page and chunk edges over a shuffled table of
+    64-row pages (+ the trash page), 10 pages each (ten 64-row chunks: two
+    merge batches); NaN in every page no sequence reaches."""
+    rng = np.random.default_rng(seed)
+    h, d, ps, pp = 2, 128, 64, 10
+    lengths = np.array([0, 1, ps - 1, ps, ps + 1, pp * ps], np.int32)
+    b = len(lengths)
+    p = b * pp + 1
+    kp = _as_pool(rng.standard_normal((h, p, ps, d)), pool)
+    vp = _as_pool(rng.standard_normal((h, p, ps, d)), pool)
+    tables = rng.permutation(b * pp).reshape(b, pp).astype(np.int32)
+    used = {int(pg) for row, n in zip(tables, lengths)
+            for pg in row[:-(-int(n) // ps)]}
+    stale = [pg for pg in range(p) if pg not in used]
+    kq, vq = kp.copy(), vp.copy()
+    kq[:, stale] = np.nan
+    vq[:, stale] = np.nan
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    return q, kp, vp, kq, vq, lengths, tables
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_b6_split_rule_equals_plain_and_pallas(pool):
+    """B6's split-key rule (b6_split_rule, 64-row chunks as b6_plan gives
+    for 64-row pages) equals the plain B6, and the plain B6 equals the
+    Pallas kernel in interpret mode, at lengths 0, 1, ps - 1, ps, ps + 1 and
+    pp * ps: within 2^-7 of the largest output for bf16 pools (each chunk
+    rounds its own p = exp(score - chunk max) to bf16 where the unsplit
+    kernels round exp(score - max): one bf16 rounding of each p moves) and
+    5e-5 for f32 pools (f32 rounding and sum order). The rule and the
+    plain version read pools with NaN in every page no sequence reaches."""
+    q, kp, vp, kq, vq, lengths, tables = split_case(pool)
+    jdt = getattr(jnp, pool)
+    want = np.asarray(jpa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+        jnp.asarray(lengths), jnp.asarray(tables), interpret=True))
+    dt = getattr(torch, pool)
+    plain = tpa.paged_decode_attention(
+        to_t(q), to_t(kq).to(dt), to_t(vq).to(dt), to_t(lengths),
+        to_t(tables)).numpy()
+    assert np.isfinite(plain).all() and (plain[0] == 0).all()
+    tol = (2 ** -7 if pool == "bfloat16" else 5e-5) * np.abs(want).max()
+    np.testing.assert_allclose(plain, want, rtol=0, atol=tol)
+    assert tpa.b6_plan(10, 64, 128, 2 if pool == "bfloat16" else 4) == (
+        10, 64)
+    for i, n in enumerate(lengths):
+        got = b6_split_rule(q[i], kq, vq, n, tables[i], 64, pool)
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, plain[i], rtol=0, atol=tol)
+    assert (b6_split_rule(q[0], kq, vq, 0, tables[0], 64, pool) == 0).all()
+
+
+@pytest.mark.parametrize("ps", [1, 8, 16, 48, 64, 128, 256])
+@pytest.mark.parametrize("pp", [1, 3, 8, 64])
+def test_b6_plan_covers_every_row_once(ps, pp):
+    """b6_plan's chunks cover the pp * ps rows once, each a multiple of the
+    page size or a divisor of it (a page lookup per page), at most 256 rows
+    and K and V of a chunk within the shared-memory cap, for head dims 64,
+    128 (7B, 13B) and 256 and both pool types; the engine's shape (8 pages
+    of 64 rows) gives 64-row chunks. The plan reads no head count: the grid
+    is (H, B, splits), so 32 and 40 heads split alike."""
+    s = pp * ps
+    for d in (64, 128, 256):
+        for isz in (2, 4):
+            splits, chunk = tpa.b6_plan(pp, ps, d, isz)
+            assert 1 <= chunk <= tpa.B6_MAX_CHUNK
+            assert chunk % ps == 0 or ps % chunk == 0
+            assert 2 * chunk * d * isz <= tpa.B6_SMEM_CAP
+            assert splits == -(-s // chunk) and splits <= 12288
+            covered = [r for c in range(splits)
+                       for r in range(c * chunk, min((c + 1) * chunk, s))]
+            assert covered == list(range(s))
+            if s >= tpa.B6_CHUNK and d * isz <= 512:
+                assert chunk >= min(tpa.B6_CHUNK, s) or ps % chunk == 0
+    assert tpa.b6_plan(8, 64, 128, 2) == (8, 64)       # the engine, bf16
+    assert tpa.b6_plan(8, 64, 128, 4) == (8, 64)       # f32 pools
+
+
+# ---------------------------------------------------------------------------
 # B11: flat-lane pools [P, ps, H*D]
 # ---------------------------------------------------------------------------
 
@@ -446,6 +579,56 @@ def test_b11_kernel_matches_plain_and_b6(cuda_device, pool):
     hk, hv = (tpa.head_major(x, 4).contiguous() for x in args[1:3])
     assert torch.equal(got, tpa.paged_decode_attention(args[0], hk, hv,
                                                        *args[3:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps,pp", [(64, 10), (16, 24), (128, 3)])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_b6_b11_split_kernels_at_every_page_edge(cuda_device, pool, ps, pp):
+    """B6 and B11 on the card against their plain versions at every page
+    and chunk edge (64-row chunks: whole pages of 16 and 64 rows, half
+    pages of 128), NaN in every page no sequence reaches, q a strided view
+    as the forward passes it: 2^-7 (bf16) or 5e-5 (f32) of the largest
+    output; B11 on the flat-lane transpose equal to B6 bit for bit; B6
+    equal run to run; a sequence of length 0 gives zeros."""
+    rng = np.random.default_rng(71)
+    h, d = 4, 128
+    s = pp * ps
+    lengths = sorted({0, 1, ps - 1, ps, ps + 1, 63, 64, 65, s - 1, s})
+    b = len(lengths)
+    dt = getattr(torch, pool)
+    p = b * pp + 1
+    kp, vp = (torch.from_numpy(rng.standard_normal((h, p, ps, d)).astype(
+        np.float32)).to(dt).to(cuda_device) for _ in range(2))
+    tables = torch.from_numpy(rng.permutation(b * pp).reshape(b, pp).astype(
+        np.int32)).to(cuda_device)
+    used = torch.zeros(p, dtype=torch.bool, device=cuda_device)
+    for row, n in zip(tables.tolist(), lengths):
+        if n:
+            used[row[:-(-n // ps)]] = True
+    kq, vq = kp.clone(), vp.clone()
+    kq[:, ~used] = float("nan")
+    vq[:, ~used] = float("nan")
+    wide = torch.from_numpy(rng.standard_normal((b, 2 * h, d)).astype(
+        np.float32)).to(cuda_device)
+    q = wide[:, h:]
+    n = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    got = tpa.paged_decode_attention(q, kq, vq, n, tables)
+    want = tpa.paged_decode_attention_plain(q, kp, vp, n, tables)
+    tol = (2 ** -7 if pool == "bfloat16" else 5e-5) * want.abs().max().item()
+    assert torch.isfinite(got).all() and (got[0] == 0).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    assert torch.equal(got, tpa.paged_decode_attention(q, kq, vq, n, tables))
+    assert torch.equal(got, tpa.paged_decode_attention(q.contiguous(), kq, vq,
+                                                       n, tables))
+    flat = [x.permute(1, 2, 0, 3).reshape(p, ps, h * d).contiguous()
+            for x in (kq, vq)]
+    got11 = tpa.paged_decode_attention_flat(q, *flat, n, tables)
+    assert torch.equal(got11, got)
+    torch.testing.assert_close(
+        got11, tpa.paged_decode_attention_flat_plain(
+            q, *(x.permute(1, 2, 0, 3).reshape(p, ps, h * d).contiguous()
+                 for x in (kp, vp)), n, tables), rtol=0, atol=tol)
 
 
 @pytest.mark.cuda

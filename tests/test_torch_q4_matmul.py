@@ -110,7 +110,8 @@ def _jax_int8_accumulators(x, wj):
     return acc
 
 
-@pytest.mark.parametrize("m,k,n", [(256, 256, 256), (256, 352, 96)])
+@pytest.mark.parametrize("m,k,n", [(256, 256, 256), (256, 352, 96),
+                                   (256, 13824, 64)])     # 13B w2's K
 def test_b3_plain_exact_accumulators_vs_int8_xla(m, k, n):
     wt, wj = weights(k, n, seed=4)
     x = acts(m, k, seed=5, scale=2.0)
@@ -259,12 +260,14 @@ def test_b5_kernel_matches_plain(cuda_device, m, mode):
 
 # -- B1's tensor-core kernel: its planner and fragment map -------------------
 
-# (K, N) stored planes at 7B widths: qkv, wo, w13, w2, head
+# (K, N) stored planes at 7B widths: qkv, wo, w13, w2, head; at 13B: qkv,
+# wo, w13, w2
 PLANES_7B = [(4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096),
              (4096, 32768)]
+PLANES_13B = [(5120, 15360), (5120, 5120), (5120, 27648), (13824, 5120)]
 
 
-@pytest.mark.parametrize("k,n", PLANES_7B)
+@pytest.mark.parametrize("k,n", PLANES_7B + PLANES_13B)
 def test_b1_mma_plan_covers_every_row_column_and_q_block_once(k, n):
     """Row tiles x (column tile, column group, column) x (split, warp of
     the group, q block) of the plan cover each (row, column, q block)
@@ -436,3 +439,184 @@ def test_b1_mma_kernel_matches_plain_at_every_tile(cuda_device, m):
     want = tqm.q4_matmul_dequant(x, w, torch.bfloat16)
     assert_close(got.cpu().numpy(), want.cpu().numpy(), 1e-5)
     assert torch.equal(got, tqm.q4_matmul_decode(x, w, torch.bfloat16))
+
+
+# -- B3's wgmma kernel: its plan, the swizzles and the fragment map ---------
+
+def sw128(row, byte):
+    """Byte offset of (row, byte) in a K-major int8 tile of 128-byte rows as
+    TMA writes it with the 128-byte swizzle (tile base 1024-aligned): the
+    16-byte chunk index XOR the row within its 8-row group."""
+    return row * 128 + (((byte >> 4) ^ (row & 7)) << 4) + (byte & 15)
+
+
+def wgmma_read(start, row, kbyte):
+    """The byte wgmma reads for (row, kbyte) of a K-major operand whose
+    128-byte-swizzle descriptor starts at `start` (the tile base plus the k
+    step's byte offset; 8-row groups 1024 bytes apart): the plain address,
+    then the swizzle the hardware applies (address bits 4-6 XOR bits 7-9)."""
+    addr = start + (row // 8) * 1024 + (row % 8) * 128 + kbyte
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def d_fragment(i, t):
+    """(row, column) of accumulator register i of thread t of a warpgroup in
+    wgmma's m64nN D fragment (csrc/q4_int8.cu's epilogue)."""
+    return (16 * (t // 32) + (t % 32) // 4 + 8 * ((i // 2) % 2),
+            8 * (i // 4) + 2 * (t % 4) + i % 2)
+
+
+def b3_emulate(xq, w8, dx, s8, n_out, bn):
+    """The wgmma kernel's data movement and arithmetic in numpy: 128 x bn
+    output tiles, K in 128-byte stages written through sw128 into a shared
+    buffer, four k32 steps read back through wgmma_read by two warpgroups of
+    64 rows, int32 sums in the D fragment, then (f32(acc) * dx) * s8 where
+    row < M and column < n_out (zeros past the edges, as TMA fills)."""
+    m, k = xq.shape
+    n = w8.shape[1]
+    y = np.zeros((m, n_out), np.float32)
+    w8t = np.ascontiguousarray(w8.T)
+    t = np.arange(128)[:, None]
+    i = np.arange(bn // 2)[None, :]
+    fr, fc = d_fragment(i, t)
+    for m0 in range(0, m, 128):
+        for n0 in range(0, n, bn):
+            acc = np.zeros((2, 128, bn // 2), np.int64)
+            for k0 in range(0, k, 128):
+                def stage(mat, r0, rows):
+                    tile = np.zeros((rows, 128), np.int64)
+                    part = mat[r0:r0 + rows, k0:k0 + 128]
+                    tile[:part.shape[0], :part.shape[1]] = part
+                    buf = np.zeros(rows * 128, np.int64)
+                    rr, bb = np.meshgrid(np.arange(rows), np.arange(128),
+                                         indexing="ij")
+                    buf[sw128(rr, bb)] = tile
+                    return buf
+                a_buf, b_buf = stage(xq, m0, 128), stage(w8t, n0, bn)
+                for ks in range(0, 128, 32):
+                    kk = np.arange(32)
+                    for wg in range(2):
+                        a = a_buf[wgmma_read(wg * 64 * 128 + ks,
+                                             fr[..., None], kk)]
+                        b = b_buf[wgmma_read(ks, fc[..., None], kk)]
+                        acc[wg] += (a * b).sum(-1)
+            for wg in range(2):
+                rows = m0 + wg * 64 + fr
+                cols = n0 + fc
+                ok = (rows < m) & (cols < n_out)
+                v = (acc[wg].astype(np.float32)
+                     * dx[np.minimum(rows, m - 1)]) \
+                    * s8[np.minimum(cols, n - 1)]
+                y[rows[ok], cols[ok]] = v[ok]
+    return y
+
+
+def test_b3_swizzle_maps_are_bijections_and_wgmma_reads_the_k_slice():
+    """TMA's 128-byte swizzle places a 256-row tile bijectively; wgmma,
+    with the descriptor's start advanced by 32 bytes a k step, reads
+    exactly the logical (row, k) byte for every row of a 64- or 256-row
+    operand; the requant pass's staging tile (chunk ^ (row / 4) % 32 in
+    512-byte rows) is a bijection whose stores (rows 4 l + c of lanes l)
+    and row reads meet no bank conflict (8 distinct 16-byte bank groups in
+    every quarter warp)."""
+    rr, bb = np.meshgrid(np.arange(256), np.arange(128), indexing="ij")
+    assert sorted(sw128(rr, bb).ravel()) == list(range(256 * 128))
+    for ks in range(0, 128, 32):
+        kk = np.arange(32)[None, :]
+        rows = np.arange(256)[:, None]
+        assert (wgmma_read(ks, rows, kk) == sw128(rows, ks + kk)).all()
+    off = lambda row, chunk: row * 512 + ((chunk ^ ((row >> 2) & 31)) << 4)
+    rows, chunks = np.meshgrid(np.arange(128), np.arange(32), indexing="ij")
+    assert sorted((off(rows, chunks) // 16).ravel()) == list(range(4096))
+    lanes = np.arange(32)
+    for c in range(4):
+        for chunk in range(32):
+            banks = (off(4 * lanes + c, chunk) // 16) % 8
+            assert all(len(set(banks[q:q + 8])) == 8 for q in (0, 8, 16, 24))
+    for row in range(128):
+        assert len(set(off(row, lanes) % 128 // 16)) == 8
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+def test_b3_d_fragment_covers_the_tile_once(bn):
+    t = np.arange(128)[:, None]
+    i = np.arange(bn // 2)[None, :]
+    r, c = d_fragment(i, t)
+    cells = sorted(zip(r.ravel().tolist(), c.ravel().tolist()))
+    assert cells == [(a, b) for a in range(64) for b in range(bn)]
+
+
+@pytest.mark.parametrize("m,n_logical,bn", [(130, 200, 128), (256, 256, 256),
+                                            (100, 96, 256)])
+def test_b3_emulation_equals_plain(m, n_logical, bn):
+    """The kernel's maps and order of operations (b3_emulate) give
+    q4_matmul_prefill_int8_plain's output bit for bit, across partial row
+    and column tiles and K padded from 320 to the stored 512."""
+    k = 320
+    wt, _ = weights(k, n_logical, seed=21)
+    x = acts(m, k, seed=22, scale=2.0)
+    xq, dx = tqm.quant_rows_int8(torch.from_numpy(x), wt.k)
+    w8, s8 = tqm.requant_weight_int8(wt)
+    want = tqm.q4_matmul_prefill_int8_plain(xq, dx, wt).numpy()
+    got = b3_emulate(xq.numpy().astype(np.int64), w8.numpy().astype(np.int64),
+                     dx.numpy(), s8.numpy(), n_logical, bn)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_b3_requant_byte_rounds_half_to_even():
+    """The requant pass's arithmetic without conversions: (2^23 + q) -
+    (2^23 + 8) is q - 8 exactly, the product is the plain version's f32
+    rounding, and adding 1.5 * 2^23 leaves round_half_even of it in the
+    low byte, at every code and at scales that make exact ties."""
+    rng = np.random.default_rng(23)
+    sc = np.concatenate([rng.uniform(0, 127 / 8, 4000),
+                         np.arange(1, 32) / 2.0]).astype(np.float32)
+    q = np.arange(16, dtype=np.uint32)[:, None]
+    v = ((0x4B000000 | q).view(np.float32) - np.float32(8388616.0))
+    assert (v == (q.astype(np.float32) - 8)).all()
+    prod = (v * sc[None, :]).astype(np.float32)
+    low = ((prod + np.float32(12582912.0)).astype(np.float32)
+           .view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+    want = torch.round(torch.from_numpy(prod)).to(torch.int8).numpy()
+    np.testing.assert_array_equal(low, want)
+
+
+@pytest.mark.parametrize("k,n", PLANES_7B[:4] + PLANES_13B)
+def test_b3_plan_covers_every_output_once(k, n):
+    """The grid of B3's product (row tiles of 128 by the planned variant's
+    columns) covers M x N once at the prefill's and the admissions' M; the
+    7B qkv plane takes 128-column tiles at M = 512 (3 waves on 132 SMs
+    against 2 of 256 columns weighing 4) and 256 at M = 256."""
+    for m in (256, 300, 512, 513, 1024, 2048):
+        bn = tqm.B3_TILES[tqm.b3_plan(m, n, 132)]
+        gy = -(-n // bn)
+        assert gy <= 65535
+        rows = [z * tqm.B3_BM + r for z in range(-(-m // tqm.B3_BM))
+                for r in range(tqm.B3_BM) if z * tqm.B3_BM + r < m]
+        cols = [y * bn + c for y in range(gy) for c in range(bn)
+                if y * bn + c < n]
+        assert rows == list(range(m)) and cols == list(range(n))
+    assert tqm.B3_TILES[tqm.b3_plan(512, 12288, 132)] == 128
+    assert tqm.B3_TILES[tqm.b3_plan(256, 12288, 132)] == 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [256, 300, 512, 513, 1024])
+@pytest.mark.parametrize("k,n", [(11008, 4096), (5120, 15360)])
+def test_b3_kernel_bit_exact_at_7b_and_13b_planes(cuda_device, m, k, n):
+    """B3 (requant pass + wgmma product) on a 7B plane (w2) and a 13B plane
+    (qkv) equals its plain version bit for bit, across partial row tiles,
+    and run to run."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(m + k)
+    kp, np_ = tt.good_pad_k(k), tt.good_pad_n(n)
+    w = tt.QuantMatmulWeight(
+        qs=torch.randint(0, 256, (kp // 2, np_), generator=g,
+                         device=cuda_device, dtype=torch.uint8),
+        scales=torch.rand((kp // 32, np_), generator=g, device=cuda_device)
+        * 0.019 + 1e-3, n_logical=n)
+    x = torch.randn((m, k), generator=g, device=cuda_device) * 3.0
+    xq, dx = tqm.quant_rows_int8(x, w.k)
+    got = tqm.q4_matmul_prefill_int8(xq, dx, w)
+    assert torch.equal(got, tqm.q4_matmul_prefill_int8_plain(xq, dx, w))
+    assert torch.equal(got, tqm.q4_matmul_prefill_int8(xq, dx, w))
