@@ -11,14 +11,18 @@ Phases (any failure exits nonzero before the last line):
      version and bound (the larger of bytes / 3.35 TB/s and operations /
      peak rate); for B4, B10 and B11 also one scaled_dot_product_attention
      call, for B1 and B9 one torch.ops.aten._weight_int4pack_mm call on the
-     same codes, for B3 one torch._int_mm call (the int8 product alone)
+     same codes, for B3 one torch._int_mm call (the int8 product alone),
+     for B5 one torch.mm of the rounded x by the dequantized weight
      (yardsticks; the port calls none of them). B1 at M = 1, 2, 4, 8,
      16 and 64 and B9 also at 9, 17 and 40, on every plane in bf16 (tensor
      cores; the FFMA design timed beside them in the same call), f32 mode
      at M = 1 and 8 on wo (B1) and qkv (B9), B9 also on planes padded to
      256 columns, B1 also on the 13B planes; B3 bit for bit on the 7B and
      13B planes at M = 512 and 256, its requantization and product timed
-     apart from a torch.profiler trace; B4 (bf16 and f32 caches, caches bit
+     apart from a torch.profiler trace; B5 (q4_0 and q4_1, bf16 and f32
+     mode) on the 7B and 13B planes at M = 65, 128, 192, 255, 256, 512
+     and 513, timed beside the dequant path it replaces at 64 < M < 256
+     and for q4_1 (q4_matmul_dequant); B4 (bf16 and f32 caches, caches bit
      for bit) and B10 at
      n_past 0, 1, 63, 64, (65,) 300, 511 and past S; B1, B4, B9 and B10 run
      twice and must agree bit for bit. The engine's kernels: B6, B7, B8 and
@@ -28,7 +32,14 @@ Phases (any failure exits nonzero before the last line):
      table, sentinel and out-of-pool page ids, NaN in every page no sequence
      reaches; B6 also at B = 1, at the steady window's depths, at 40
      heads and with q a strided view), B4 and B10 at B = 8 with per-slot
-     depths, one slot inactive;
+     depths, one slot inactive; the fused paged step (RoPE, B7's write and
+     B6's attention in one kernel) at lengths 0, 1, ps - 1, ps, ps + 1,
+     300 and pp * ps - 1 with an inactive sentinel slot, bf16 and f32
+     pools, 32 and 40 heads: its written rows bit for bit against its plain
+     version and the standalone B7, ctx within B6's tolerance, timed beside
+     the unfused step (the forward's glue, B7 and B6). Afterwards no phase
+     may call the dequant path on the card (q4_matmul_dequant.cuda_calls
+     must read 0 after phase 6);
   3. the q4_0 session at full 7B width (32 layers, bf16 weights and KV,
      n_ctx 512, seeded random weights made on the card): LlamaModel +
      FastLlama ingest a 300-token prompt with n_batch 512 and generate 64
@@ -40,8 +51,9 @@ Phases (any failure exits nonzero before the last line):
   4. the q4_1 + LoRA session at the same width and depth (affine weights
      made on the card): a ggla adapter (A/B form, rank 8, wq and wv of
      every layer) written by the port's write_ggla is attached through
-     attach_lora; while attached a decode step must launch B9 129 times,
-     B10 32 times and B4 never; after detach_lora the same prompt's logits
+     attach_lora; its 512-row prefill window runs B5 (affine) 128 times;
+     while attached a decode step must launch B9 129 times, B10 32 times
+     and B4 never; after detach_lora the same prompt's logits
      must equal those taken before the attach bit for bit, on B4 again;
   5. the file entry points: a 2-layer fltpu checkpoint, an 8-layer q4_0
      GGJT file and a 2-layer q4_1 GGJT file at 7B widths, each loaded with
@@ -52,12 +64,15 @@ Phases (any failure exits nonzero before the last line):
      length, 48 tokens each, through BatchEngine with kv_mode "paged",
      "paged" with chunked admission, and "slab"; sampled twice with one
      seed (equal streams), then greedy. Every request must finish, every
-     page must be free again, B6 and B7 must launch once per layer and
-     decode step, B8 once per layer and chunked admission, B4 in the slab
-     run only. Prints tok/s, ms per engine step, the device time per step
-     from a torch.profiler trace, the time to the first streamed token of
-     a 300-token request in an idle engine, drain depth 0 against 2, and
-     holds a two-layer f32 engine's three modes to equal greedy streams;
+     page must be free again, the fused paged step must launch once per
+     layer and decode step (B6 and B7 never), B8 once per layer and
+     chunked admission, B4 in the slab run only. Prints tok/s, ms per
+     engine step, the device time and launches per step from a
+     torch.profiler trace, the time to the first streamed token of a
+     300-token request in an idle engine, drain depth 0 against 2; holds a
+     two-layer f32 engine's three modes to equal greedy streams; and runs
+     a two-layer paged engine whose layers carry q/k/v LoRA terms, whose
+     steps take RoPE, B7 and B6 apart (the standalone kernels' caller);
   then one line {"kernels": [...]}, the nvidia-smi line, and last
   {"ok": true, "device": {...}}.
 """
@@ -318,6 +333,7 @@ def check_kernels(torch, dev, gen, out_dir):
     check_prefill_matmuls(torch, dev, gen, results)
     check_decode_attention(torch, dev, gen, results)
     check_engine_kernels(torch, dev, gen, results)
+    check_fused_paged_step(torch, dev, gen, results)
     with open(os.path.join(out_dir, "kernel_checks.json"), "w") as fh:
         json.dump(results, fh, indent=1)
     return results
@@ -528,40 +544,72 @@ def check_prefill_matmuls(torch, dev, gen, results):
         del ws, w, w8, w8_cm
     results["B2"], results["B3"] = b2, b3
 
-    # B5: bf16 / f32 prefill matmul against dequant + torch.matmul (its
-    # plain version and the path it replaces); tolerance as B1
+    check_b5(torch, dev, gen, results)
+
+
+# B5's rows: the engine's 128 bucket and its edges (65-255: q4_0 without
+# int8 and every q4_1 prefill), the chunked admission (256) and the 512
+# bucket, and a row past a tile
+B5_ROWS = (65, 128, 192, 255, 256, 512, 513)
+
+
+def check_b5(torch, dev, gen, results):
+    """B5 on the 7B and 13B planes at B5_ROWS, q4_0 and q4_1, bf16 and f32
+    mode: held against its plain version (q4_matmul_dequant, which is also
+    the path it replaces at 64 < M < 256 and for q4_1) within f32
+    reassociation (1e-5 of the largest |x| @ |W|); timed beside that path
+    and beside the product alone as one library call (torch.mm of the
+    rounded x by the already dequantized weight, f32 output); the cast and
+    the product timed apart from a profiler trace at M = 128 and 512 on
+    qkv."""
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
     b5 = []
-    for name, k, n in shapes[:4]:
-        w = rand_weight(torch, k, n, gen, dev)
-        wbytes = weight_bytes(w)
-        ws = [w] + [rand_weight(torch, k, n, gen, dev)
-                    for _ in range(copies_for(wbytes) - 1)]
-        cases = [(512, torch.bfloat16)]
-        if name == "qkv":
-            cases += [(256, torch.bfloat16), (2048, torch.bfloat16),
-                      (512, torch.float32)]
-        for m, mode in cases:
-            x = torch.randn((m, k), generator=gen, device=dev)
-            y = qm.q4_matmul_prefill(x, w, mode)
-            y_ref = qm.q4_matmul_dequant(x, w, mode)
-            err = (y - y_ref).abs().max().item()
-            tol = 1e-5 * absum_of(torch, qm, x,
-                                  qm.dequant_matmul_weight(w, mode), n, mode)
-            require(bool(torch.isfinite(y).all()), f"B5 {name} not finite")
-            require(err <= tol, f"B5 {name} M={m} {mode}: err {err} > {tol}")
-            it = iter(range(10**9))
-            ms = time_ms(torch, lambda: qm.q4_matmul_prefill(
-                x, ws[next(it) % len(ws)], mode), calls=len(ws))
-            plain_ms = time_ms(torch, lambda: qm.q4_matmul_dequant(
-                x, w, mode), calls=2)
-            kind = "bf16" if mode == torch.bfloat16 else "f32"
-            bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
-                               2.0 * m * k * n, kind)
-            b5.append(dict(shape=f"{name} M={m} K={k} N={n} {kind}",
-                           max_abs_err=err, tol=tol, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bnd, bound_by=by))
-            print(f"B5 {b5[-1]}", flush=True)
-        del ws, w
+    for name, k, n in PLANES_7B[:4] + PLANES_13B:
+        for affine in (False, True):
+            w = rand_weight(torch, k, n, gen, dev, affine)
+            wbytes = weight_bytes(w)
+            ws = [w] + [rand_weight(torch, k, n, gen, dev, affine)
+                        for _ in range(copies_for(wbytes) - 1)]
+            quant = "q4_1" if affine else "q4_0"
+            for mode in (torch.bfloat16, torch.float32):
+                kind = "bf16" if mode == torch.bfloat16 else "f32"
+                wd = qm.dequant_matmul_weight(w, mode)
+                for m in B5_ROWS:
+                    x = torch.randn((m, k), generator=gen, device=dev)
+                    y = qm.q4_matmul_prefill(x, w, mode)
+                    y_ref = qm.q4_matmul_dequant(x, w, mode)
+                    err = (y - y_ref).abs().max().item()
+                    tol = 1e-5 * absum_of(torch, qm, x, wd, n, mode)
+                    label = f"B5 {name} M={m} {kind} {quant}"
+                    require(bool(torch.isfinite(y).all()),
+                            f"{label}: not finite")
+                    require(err <= tol, f"{label}: err {err} > {tol}")
+                    it = iter(range(10**9))
+                    ms = time_ms(torch, lambda: qm.q4_matmul_prefill(
+                        x, ws[next(it) % len(ws)], mode), calls=len(ws))
+                    dequant_ms = time_ms(torch, lambda: qm.q4_matmul_dequant(
+                        x, w, mode), calls=2)
+                    xr = qm._pad_k(x, w.k).to(mode)
+                    kw = {"out_dtype": torch.float32} if kind == "bf16" else {}
+                    library_ms = time_ms(torch, lambda: torch.mm(xr, wd, **kw),
+                                         calls=4)
+                    bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
+                                       2.0 * m * k * n, kind)
+                    row = dict(shape=f"{name} M={m} K={k} N={n} {kind} "
+                               f"{quant}", max_abs_err=err, tol=tol, ms=ms,
+                               plain_ms=dequant_ms, dequant_path_ms=dequant_ms,
+                               bound_ms=bnd, bound_by=by,
+                               library_ms=library_ms)
+                    if name == "qkv" and not affine and kind == "bf16" \
+                            and m in (128, 512):
+                        row.update(device_ms_by_name(
+                            torch, lambda: qm.q4_matmul_prefill(
+                                x, ws[next(it) % len(ws)], mode),
+                            2 * len(ws), ("cast_kernel", "bf16_wgmma_kernel")))
+                    b5.append(row)
+                    print(f"B5 {row}", flush=True)
+                del wd
+            del ws, w
     results["B5"] = b5
 
 
@@ -1082,6 +1130,153 @@ def check_engine_kernels(torch, dev, gen, results):
 # phases 3 and 4
 # ---------------------------------------------------------------------------
 
+def check_fused_paged_step(torch, dev, gen, results):
+    """Phase 2, the fused paged step (RoPE + B7's write + B6's attention in
+    one launch) at 7B and 13B heads, bf16 and f32 pools: eight slots at
+    lengths 0, 1, ps - 1, ps, ps + 1, 300 and pp * ps - 1 plus an inactive
+    slot (sentinel page id, length 0), NaN in every page no sequence
+    reaches. Held against its plain version (ctx within B6's tolerance on
+    the active slots, every written row bit for bit) and against the
+    standalone B7 + B6 on the same roped q and k (ctx within B6's
+    tolerance, the pools bit for bit); timed at 8 x 300 and at the steady
+    window's depths beside the unfused step (the forward's glue: split,
+    concatenation, RoPE, two copies; then B7 and B6)."""
+    from fastllama_tpu_torch.kernels import kv_write as kw
+    from fastllama_tpu_torch.kernels import paged_attention as pa
+    from fastllama_tpu_torch.kernels.decode_attention import _rope_fma
+    from fastllama_tpu_torch.kernels.rope import (
+        lane_tables, rope_interleaved_lanes)
+    d, ps, b = 128, ENG_PS, ENG_SLOTS
+    pp = ENG_CTX // ps
+    n_pages = b * pp                      # + the trash page
+
+    def i32(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+
+    def write_at(tables, lens, active):
+        tl = tables.tolist()
+        return (i32([tl[i][n // ps] if a else n_pages
+                     for i, (n, a) in enumerate(zip(lens, active))]),
+                i32([n % ps if a else 0 for n, a in zip(lens, active)]))
+
+    def roped(qkv, cos, sin, h):
+        f = h * d
+        q, k, v = (qkv[:, i * f:(i + 1) * f].reshape(b, h, d)
+                   for i in range(3))
+        partner = torch.arange(d, device=dev) ^ 1
+        c, sn = cos[:, None, :], sin[:, None, :]
+        return (*(_rope_fma(t, t[..., partner], c, sn) for t in (q, k)),
+                v.contiguous())
+
+    rows = []
+    lens_check = [0, 1, ps - 1, ps, ps + 1, 300, pp * ps - 1, 0]
+    active = [True] * 7 + [False]
+    for h in (32, 40):
+        f = h * d
+        for dt in (torch.bfloat16, torch.float32):
+            name = f"H={h} {'bf16' if dt == torch.bfloat16 else 'f32'}"
+            kp, vp = (torch.randn((h, n_pages + 1, ps, d), generator=gen,
+                                  device=dev).to(dt) for _ in range(2))
+            tables = torch.randperm(n_pages, generator=gen, device=dev)\
+                .reshape(b, pp).to(torch.int32).contiguous()
+            lengths = i32(lens_check)
+            pids, offs = write_at(tables, lens_check, active)
+            qkv = torch.randn((b, 3 * f), generator=gen, device=dev)
+            cos, sin = lane_tables(lengths, d, d)
+            used = torch.zeros(n_pages + 1, dtype=torch.bool, device=dev)
+            for row, n, a in zip(tables.tolist(), lens_check, active):
+                if a:
+                    used[row[:n // ps + 1]] = True
+            kq, vq = kp.clone(), vp.clone()
+            kq[:, ~used] = float("nan")
+            vq[:, ~used] = float("nan")
+            ctx = pa.paged_decode_step_fused(qkv, kq, vq, lengths, tables,
+                                             pids, offs, cos, sin)
+            k2, v2 = kp.clone(), vp.clone()
+            ref = pa.paged_decode_step_fused_plain(qkv, k2, v2, lengths,
+                                                   tables, pids, offs, cos,
+                                                   sin)
+            qr, kr, v = roped(qkv, cos, sin, h)
+            k3, v3 = kp.clone(), vp.clone()
+            kw.paged_kv_write(k3, v3, kr, v, pids, offs)
+            unfused = pa.paged_decode_attention(qr, k3, v3, lengths + 1,
+                                                tables)
+            torch.cuda.synchronize()
+            act = torch.tensor(active, device=dev)
+            require(bool(torch.isfinite(ctx).all()),
+                    f"fused step {name}: not finite")
+            tol = ((2 ** -7 if dt == torch.bfloat16 else 5e-5)
+                   * ref[act].abs().max().item() + 1e-6)
+            err = (ctx - ref)[act].abs().max().item()
+            err_b = (ctx - unfused)[act].abs().max().item()
+            require(err <= tol, f"fused step {name}: err {err} > {tol}")
+            require(err_b <= tol, f"fused step {name}: against B7 + B6 "
+                    f"err {err_b} > {tol}")
+            idx = used[:n_pages].nonzero().flatten()
+            require(all(torch.equal(x[:, idx], y[:, idx]) and
+                        torch.equal(x[:, idx], z[:, idx])
+                        for x, y, z in ((kq, k2, k3), (vq, v2, v3))),
+                    f"fused step {name}: written pages differ from the "
+                    "plain write's or B7's")
+            row = dict(shape=f"B={b} {name} d={d} ps={ps} pp={pp} "
+                       f"lengths={lens_check} (last slot inactive)",
+                       max_abs_err=err, err_vs_b7_b6=err_b, tol=tol)
+            if h == 32:
+                for label, lens in (("8x300", [300] * b),
+                                    ("steady", [100, 107, 114, 121, 128, 135,
+                                                142, 150])):
+                    tl = i32(lens)
+                    pi, of = write_at(tables, lens, [True] * b)
+                    cs, sn = lane_tables(tl, d, d)
+                    pools = [(kp, vp)] + [tuple(
+                        torch.randn((h, n_pages + 1, ps, d), generator=gen,
+                                    device=dev).to(dt) for _ in range(2))
+                        for _ in range(2)]
+                    it = iter(range(10**9))
+
+                    def fused():
+                        kk, vv = pools[next(it) % len(pools)]
+                        pa.paged_decode_step_fused(qkv, kk, vv, tl, tables,
+                                                   pi, of, cs, sn)
+
+                    def glue_b7_b6():
+                        # the forward's unfused step, from the same qkv
+                        kk, vv = pools[next(it) % len(pools)]
+                        q, k, v = qkv.view(b, 1, 3, h, d).unbind(2)
+                        qk = rope_interleaved_lanes(
+                            torch.cat([q, k], dim=2), cs[:, None, None, :],
+                            sn[:, None, None, :], d)
+                        kw.paged_kv_write(kk, vv, qk[:, 0, h:].contiguous(),
+                                          v[:, 0].contiguous(), pi, of)
+                        pa.paged_decode_attention(qk[:, 0, :h], kk, vv,
+                                                  tl + 1, tables)
+                    ms = time_ms(torch, fused, calls=8 * len(pools))
+                    unfused_ms = time_ms(torch, glue_b7_b6,
+                                         calls=8 * len(pools))
+                    plain_ms = time_ms(torch, lambda: pa
+                                       .paged_decode_step_fused_plain(
+                                           qkv, k2, v2, tl, tables, pi, of,
+                                           cs, sn), calls=2)
+                    n_rows = sum(lens)
+                    isz = dt.itemsize
+                    bnd, by = bound_ms(
+                        b * 3 * f * 4 + 2 * b * d * 4 + 2 * n_rows * f * isz
+                        + 2 * b * f * isz + b * f * 4 + 3 * b * 4
+                        + b * pp * 4, 4.0 * (n_rows + b) * f,
+                        "bf16" if isz == 2 else "f32")
+                    rows.append(dict(
+                        shape=f"B={b} {name} d={d} ps={ps} pp={pp} "
+                        f"lengths={label}", max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, unfused_glue_b7_b6_ms=unfused_ms,
+                        bound_ms=bnd, bound_by=by, library_ms=None))
+                    print(f"fused step {rows[-1]}", flush=True)
+                    del pools
+            rows.append(row)
+            print(f"fused step {row}", flush=True)
+            del kp, vp, kq, vq, k2, v2, k3, v3
+    results["PS"] = rows
+
+
 def counted_kernels(qm, da):
     return {"B1": qm.q4_matmul_decode, "B2": qm.quant_rows_int8,
             "B3": qm.q4_matmul_prefill_int8, "B4": da.decode_attention_fused,
@@ -1099,6 +1294,7 @@ def read_counts(qm, da):
 
 
 N_PROMPT, N_DECODE = 300, 64
+PREFILL_MATMULS = 4 * 32     # a 512-row window: four matmuls a layer
 # launches of one 300-token prefill window plus N_DECODE decode steps: four
 # matmuls per layer and the head per step, the head once per window
 DECODE_MATMULS = 129 * N_DECODE + 1
@@ -1207,8 +1403,8 @@ def main_path(torch, dev, gen):
     reset_counts(qm, da)
     exact = timed_run(torch, sess, prompt)
     ecounts = read_counts(qm, da)
-    require(ecounts["B5"] == 128, f"B5 launched {ecounts['B5']} times in one "
-            "prefill window, not 128")
+    require(ecounts["B5"] == PREFILL_MATMULS, f"B5 launched {ecounts['B5']} "
+            f"times in one prefill window, not {PREFILL_MATMULS}")
     require(ecounts["B2"] == 0 and ecounts["B3"] == 0,
             "int8 prefill kernels launched with prefill_int8=False")
     require(ecounts["B1"] == DECODE_MATMULS and ecounts["B4"] == LAYER_CALLS,
@@ -1250,7 +1446,8 @@ def q41_lora_path(torch, dev, gen, tmp):
         reset_counts(qm, da)
         first = timed_run(torch, sess, prompt)
         counts = read_counts(qm, da)
-        want = {"B9": DECODE_MATMULS, "B1": 0, "B2": 0, "B3": 0, "B5": 0,
+        want = {"B9": DECODE_MATMULS, "B1": 0, "B2": 0, "B3": 0,
+                "B5": PREFILL_MATMULS,
                 "B4": 0 if attached else LAYER_CALLS,
                 "B10": LAYER_CALLS if attached else 0}
         require(counts == want, f"q4_1 {label}: launches {counts}, "
@@ -1571,13 +1768,15 @@ def all_kernels():
     from fastllama_tpu_torch.kernels import q4_matmul as qm
     return dict(counted_kernels(qm, da), B6=pa.paged_decode_attention,
                 B7=kw.paged_kv_write, B8=kw.paged_kv_write_rows,
-                B11=pa.paged_decode_attention_flat)
+                B11=pa.paged_decode_attention_flat,
+                PS=pa.paged_decode_step_fused)
 
 
 def engine_run(torch, sched, make, label, n_layer, chunked, f32=False,
-               **req_kw):
-    """One engine, ENG_PROMPTS through it, with every launch counted.
-    Returns (token streams, result row)."""
+               lora=False, **req_kw):
+    """One engine, ENG_PROMPTS through it, with every launch counted (a
+    paged engine steps through the fused step, or with q/k/v LoRA terms
+    (lora) through B7 + B6). Returns (token streams, result row)."""
     kernels = all_kernels()
     eng = make()
     reqs = engine_requests(sched, **req_kw)
@@ -1600,20 +1799,24 @@ def engine_run(torch, sched, make, label, n_layer, chunked, f32=False,
         require(eng.pager.free_pages == eng.pager.total_pages,
                 f"engine {label}: {eng.pager.free_pages} pages free of "
                 f"{eng.pager.total_pages} after the run")
-        require(counts["B6"] == counts["B7"] > 0
-                and counts["B6"] % n_layer == 0 and counts["B4"] == 0
-                and counts["B10"] == 0,
+        step = "B6" if lora else "PS"
+        standalone = counts["B6"] == counts["B7"] > 0 and counts["PS"] == 0
+        fused = counts["PS"] > 0 and counts["B6"] == counts["B7"] == 0
+        require((standalone if lora else fused)
+                and counts[step] % n_layer == 0
+                and counts["B4"] == 0 and counts["B10"] == 0,
                 f"engine {label}: decode launches {counts}")
         require(counts["B8"] == (n_layer * len(reqs) if chunked else 0),
                 f"engine {label}: B8 launched {counts['B8']} times")
-        steps = counts["B6"] // n_layer
+        steps = counts[step] // n_layer
     else:
         # the slab step runs the fused B4 in bf16 mode and plain attention
         # in f32 mode (no attention kernel to count the steps by)
         require((counts["B4"] == 0 if f32 else
                  counts["B4"] > 0 and counts["B4"] % n_layer == 0)
                 and counts["B1"] > 0
-                and counts["B6"] == counts["B7"] == counts["B8"] == 0,
+                and counts["B6"] == counts["B7"] == counts["B8"] == 0
+                and counts["PS"] == 0,
                 f"engine {label}: decode launches {counts}")
         steps = None if f32 else counts["B4"] // n_layer
     n_tok = sum(len(t) for t in streams)
@@ -1798,6 +2001,23 @@ def engine_path(torch, dev, gen):
                 f"engine f32 {a} vs {b}: only {n_same} of "
                 f"{len(ENG_PROMPTS)} greedy streams are equal")
     res["f32_equal_streams_of_12"] = same
+
+    # the paged step of a layer with q/k/v LoRA terms (rank 8 on wq and wv
+    # of both layers): RoPE, B7 and B6 apart, the caller of the standalone
+    # kernels; bf16, greedy
+    from fastllama_tpu_torch.models.llama import LoraTerm
+    rank = 8
+    for layer in params2.layers:
+        for field in ("lora_wq", "lora_wv"):
+            setattr(layer, field, LoraTerm(
+                a=torch.randn((hp.n_embd, rank), generator=gen, device=dev)
+                * 0.02,
+                b=torch.randn((rank, hp.n_embd), generator=gen, device=dev)
+                * 0.02))
+    _, res["runs"]["paged_lora_2_layers"] = engine_run(
+        torch, sched, maker(params2, hp2, "paged"),
+        "paged LoRA 2 layers greedy", hp2.n_layer, False, lora=True,
+        temp=0.0)
     print(f"engine path: {json.dumps({k: v for k, v in res.items() if k != 'runs'})}",
           flush=True)
     del params2
@@ -1840,6 +2060,9 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     checks = check_kernels(torch, dev, gen, out_dir)
+    # phase 2 calls the dequant path as a plain version and a yardstick; no
+    # path from here on may call it on the card
+    qm.q4_matmul_dequant.cuda_calls = 0
     main_res = main_path(torch, dev, gen)
     tmp = tempfile.mkdtemp(prefix="fltorch_smoke_")
     try:
@@ -1849,6 +2072,10 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    require(qm.q4_matmul_dequant.cuda_calls == 0,
+            f"the dequant path ran {qm.q4_matmul_dequant.cuda_calls} times "
+            "on the card in phases 3-6")
+
     def pick(rows, key):
         return next(r for r in rows if key in r["shape"])
 
@@ -1857,21 +2084,27 @@ def main() -> int:
                     B5=main_res["bf16_prefill"]["launches"]["B5"],
                     B9=q41_res["attached"]["launches"]["B9"],
                     B10=q41_res["attached"]["launches"]["B10"],
-                    B6=engine_res["runs"]["paged"]["launches"]["B6"],
-                    B7=engine_res["runs"]["paged"]["launches"]["B7"],
+                    B6=engine_res["runs"]["paged_lora_2_layers"]["launches"]
+                    ["B6"],
+                    B7=engine_res["runs"]["paged_lora_2_layers"]["launches"]
+                    ["B7"],
+                    PS=engine_res["runs"]["paged"]["launches"]["PS"],
                     B8=engine_res["runs"]["paged_chunked"]["launches"]["B8"],
                     B11=checks["B11_phase2_launches"])
     main_rows = {"B1": pick(checks["B1"], "qkv M=1"),
                  "B2": pick(checks["B2"], "K=4096"),
                  "B3": pick(checks["B3"], "qkv M=512 K=4096"),
                  "B4": pick(checks["B4"], "n_past=300"),
-                 "B5": pick(checks["B5"], "qkv M=512 K=4096 N=12288 bf16"),
+                 "B5": pick(checks["B5"],
+                            "qkv M=512 K=4096 N=12288 bf16 q4_0"),
                  "B9": pick(checks["B9"], "qkv M=1 K=4096 N=12288 bf16"),
                  "B10": pick(checks["B10"], "n_past=300"),
                  "B6": pick(checks["B6"], "bf16 lengths=8x300"),
                  "B7": pick(checks["B7"], "bf16"),
                  "B8": pick(checks["B8"], "bf16"),
-                 "B11": pick(checks["B11"], "bf16 flat pools lengths=8x300")}
+                 "B11": pick(checks["B11"], "bf16 flat pools lengths=8x300"),
+                 "PS": pick(checks["PS"], "H=32 bf16 d=128 ps=64 pp=8 "
+                            "lengths=8x300")}
     meta = {
         "B1": ("q4_matmul_decode", "csrc/q4_decode.cu",
                "fastllama_tpu/kernels/q4_matmul.py:433"),
@@ -1895,6 +2128,10 @@ def main() -> int:
                "fastllama_tpu/kernels/kv_write.py:115"),
         "B11": ("paged_decode_attention_flat", "csrc/paged_attention.cu",
                 "fastllama_tpu/kernels/paged_attention.py:283"),
+        # B7 folded into B6's kernel with RoPE; it also replaces the B6
+        # launch of that step (fastllama_tpu/kernels/paged_attention.py:333)
+        "PS": ("paged_decode_step_fused", "csrc/paged_attention.cu",
+               "fastllama_tpu/kernels/kv_write.py:55"),
     }
     kernels = []
     for key, (name, src, replaces) in meta.items():
@@ -1916,6 +2153,15 @@ def main() -> int:
                                    "launches counted in phase 2")
             require(launches[key] > 0, "kernel B11 was not launched")
             continue
+        if key == "PS":
+            kernels[-1]["folds"] = ("fastllama_tpu/kernels/kv_write.py:55 "
+                                    "(B7) + fastllama_tpu/kernels/"
+                                    "paged_attention.py:333 (B6)")
+        if key in ("B6", "B7"):
+            kernels[-1]["path"] = ("the paged step of layers with q/k/v "
+                                   "LoRA terms (phase 6, 2 layers); the "
+                                   "paged engine's other steps run the "
+                                   "fused step")
         if key == "B1":
             m8 = pick(checks["B1"], "qkv M=8 ")
             kernels[-1].update(ms_at_engine_m8=m8["ms"],

@@ -87,6 +87,19 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return warp_max(v);
 }
 
+// rope(x) of a lane's EPL elements (EPL is even, so the partner l ^ 1 of
+// each is the lane's own): fma(x, cos, round(partner * sin)), the roundings
+// XLA:CPU gives the JAX kernel's x * cos + partner * sin; the rotated k is
+// stored in the cache (B4) or the pools (the fused paged step), so it
+// matches the reference and the plain versions bit for bit.
+template <int EPL>
+__device__ __forceinline__ void rope_lane(const float* x, const float* cs,
+                                          const float* sn, float* out) {
+#pragma unroll
+  for (int i = 0; i < EPL; ++i)
+    out[i] = __fmaf_rn(x[i], cs[i], __fmul_rn(x[i ^ 1], sn[i]));
+}
+
 // Asynchronous 16-byte copy from global to shared memory (cp.async, L2 only).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);

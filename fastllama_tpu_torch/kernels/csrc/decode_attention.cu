@@ -72,25 +72,13 @@ using fltorch::Vec16;
 using fltorch::cp_async16;
 using fltorch::group16_sum;
 using fltorch::lane_row;
+using fltorch::rope_lane;
 
 constexpr int kMaxD = 256;
 
 constexpr int kSplitThreads = 128;               // 8 groups of 16 lanes
 constexpr int kGroups = kSplitThreads / 16, kMaxChunk = 64;
 constexpr int kMaxSplits = 12288 / kMaxChunk;    // S <= 12288
-
-// rope(x) of a lane's EPL elements (EPL is even, so the partner l ^ 1 of
-// each is the lane's own): fma(x, cos, round(partner * sin)), the roundings
-// XLA:CPU gives the JAX kernel's x * cos + partner * sin; the rotated k is
-// stored in the cache, so it matches the reference and the plain version
-// bit for bit.
-template <int EPL>
-__device__ __forceinline__ void rope_lane(const float* x, const float* cs,
-                                          const float* sn, float* out) {
-#pragma unroll
-  for (int i = 0; i < EPL; ++i)
-    out[i] = __fmaf_rn(x[i], cs[i], __fmul_rn(x[i ^ 1], sn[i]));
-}
 
 // B4's new token, in the block that finishes a (b, h): ropes the lane's
 // slice of k_new, writes T(k_new) and T(v_new) into cache row `row` (group

@@ -1,0 +1,166 @@
+// Hopper building blocks shared by the port's wgmma kernels (B3 in
+// q4_int8.cu, B5 in q4_prefill.cu): mbarriers, TMA tile loads and their
+// tensor maps, shared-memory matrix descriptors and the wgmma fences.
+#pragma once
+
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at
+                    // run time through the runtime, so no -lcuda
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+// Make the barriers' initialisation visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. Built with
+// -DFLTORCH_MBAR_TRAP (a debugging aid), a wait that spins for seconds traps
+// rather than hanging the card; a trap leaves the CUDA context unusable, so
+// the libraries are built without it.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+#ifdef FLTORCH_MBAR_TRAP
+  for (long long spin = 0;; ++spin) {
+#else
+  for (;;) {
+#endif
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+#ifdef FLTORCH_MBAR_TRAP
+    if (spin > (1LL << 22)) __trap();
+#endif
+  }
+}
+
+// Order this thread's generic-proxy writes to shared memory before later
+// reads by the async proxy (wgmma reading a tile the threads wrote).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1) : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile with the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), the
+// leading offset unused for this layout. Advancing K by 32 bytes within the
+// swizzle row adds to the start address.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Descriptor of an MN-major tile of 16-bit elements with the 128-byte
+// swizzle (the transposed operand, wgmma's tnsp bit set): atoms of 8 rows
+// of K by 64 elements of M or N (128 bytes a row, 1024 bytes an atom, the
+// 16-byte chunk c of row r stored at chunk c ^ r), `lbo` bytes between
+// atoms along M/N and `sbo` bytes between atoms along K (8 rows of K).
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t saddr, int lbo,
+                                                  int sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin the accumulators: the compiler sees wgmma as an ordinary asm that is
+// done when it returns, so without this it may read (or move) them before
+// the wait that completes the asynchronous products.
+template <int R> __device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int R> __device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ---------------------------------------------------------------------------
+// host side: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 2-D map of a row-major [rows, cols] matrix of `type` (elements of
+// `elem_bytes`, cols contiguous, rows elem_bytes * cols apart) in boxes of
+// box_cols by box_rows, zeros past the edges; `swizzle` as the reader
+// needs it (128 bytes for a wgmma operand read as it lands, none for a
+// tile that threads read).
+inline bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                     int elem_bytes, int rows, int cols, int box_cols,
+                     int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper

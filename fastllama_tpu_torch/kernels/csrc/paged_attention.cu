@@ -1,5 +1,6 @@
 // Kernels B6 and B11: one decode step's attention for one layer over the
-// paged KV pools, head-major (B6) or flat-lane (B11).
+// paged KV pools, head-major (B6) or flat-lane (B11); and B6's kernel with
+// FUSED, the fused paged decode step that takes in B7's write.
 //
 // Replaces fastllama_tpu/kernels/paged_attention.py::paged_decode_attention
 // (_paged_attn_db_kernel and its single-bank fallback). For each (sequence
@@ -51,6 +52,32 @@
 //   B11: kp[(page * ps + r) * H * D + h * D]    head stride D, row H*D
 // so both run the same kernel with the two strides as arguments, and B11 on
 // flat pools equals B6 on the head-major transpose bit for bit.
+//
+// The fused paged step (paged_decode_step_fused, FUSED) replaces, for a
+// layer without q/k/v LoRA terms, the sequence RoPE (elementwise) ->
+// fastllama_tpu/kernels/kv_write.py::paged_kv_write (B7, one launch) ->
+// B6, which is the JAX paged step's order: the new row is written, then
+// lengths + 1 keys are attended. Bound: as B6 (bytes), and at the engine's
+// sizes the launches themselves: B7 moved ~400 KB a step, far less than a
+// launch costs, so its design for this card is to stop being a launch.
+// The kernel takes the raw fused projection qkv [B, 3F] (F = H * D) and
+// the per-row RoPE lanes cos/sin [B, D]:
+//   * every block ropes its own copy of q (rope_lane, B4's FMA form) and
+//     casts it to T for the scores;
+//   * the chunks attend the lengths[b] resident rows through the page
+//     table exactly as B6 does (the same plan, the same chunks);
+//   * the new token is one more partial, folded in ROUNDED to T, the paged
+//     rule: s_new = dot(T(q), T(k_rope)) * scale, ctx += p * T(v), where B6
+//     would read the row back from the pool; only the rounding of its own
+//     p differs (the partial's p is exp(s_new - M) unrounded), within B6's
+//     tolerance;
+//   * the block that finishes a (b, h) writes T(k_rope) and T(v) at
+//     (page_ids[b], offsets[b]) with B7's rules (the sentinel's trash
+//     page; an id outside [0, P) or an offset outside [0, ps) writes
+//     nothing). No block of the step reads that row: the chunks cover rows
+//     < lengths[b] only, and pages are not shared between sequences (the
+//     trash page is in no table; engine/paged_kv.py), so no other
+//     sequence's blocks read it either.
 
 #include "common.cuh"
 
@@ -59,20 +86,63 @@ namespace {
 using fltorch::cp_async16;
 using fltorch::group16_sum;
 using fltorch::lane_row;
+using fltorch::rope_lane;
 
 constexpr int kThreads = 128;                    // 8 groups of 16 lanes
 constexpr int kGroups = kThreads / 16, kMaxChunk = 256, kMaxD = 256;
 constexpr int kMaxSplits = 12288;                // pp * ps <= 12288
 
+// What FUSED adds to B6's arguments (null for B6 and B11).
+struct NewToken {
+  const int* page_ids;       // [B] write page of the new row
+  const int* offsets;        // [B] its row in that page
+  const float* cos_t;        // [B, D] RoPE lanes
+  const float* sin_t;
+};
+
+// The fused step's new token, in the block that finishes a (b, h): ropes
+// the lane's slice of k (krow: the head's k in qkv), writes T(k_rope) and
+// T(v) into the pool row (group 0 of the block; kdst null: no write) and
+// returns s_new = dot(T(q), T(k_rope)) * scale to every thread. All threads
+// of the block call it (the dot is reduced by shuffles).
 template <typename T, int EPL>
+__device__ __forceinline__ float new_token(const float* krow,
+                                           const float* vrow,
+                                           const float* qv, const float* cs,
+                                           const float* sn, T* kdst, T* vdst,
+                                           float scale) {
+  const int gl = threadIdx.x & 15;
+  float x[EPL], kr[EPL];
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) x[i] = krow[gl * EPL + i];
+  rope_lane<EPL>(x, cs, sn, kr);
+  float dot = 0.f;
+#pragma unroll
+  for (int i = 0; i < EPL; ++i)
+    dot += qv[i] * fltorch::to_f32(fltorch::from_f32<T>(kr[i]));
+  dot = group16_sum(dot);
+  if (kdst != nullptr && threadIdx.x < 16) {
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) {
+      kdst[gl * EPL + i] = fltorch::from_f32<T>(kr[i]);
+      vdst[gl * EPL + i] = fltorch::from_f32<T>(vrow[gl * EPL + i]);
+    }
+  }
+  return dot * scale;
+}
+
+// q: B6/B11 the roped q (batch stride q_bs, head stride q_hs); FUSED the
+// raw qkv [B, 3F] (q_bs = 3F, q_hs = D), with nt's write location and
+// RoPE lanes.
+template <typename T, int EPL, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const float* __restrict__ q, int q_bs, int q_hs,
-                   const T* __restrict__ kp, const T* __restrict__ vp,
+                   T* __restrict__ kp, T* __restrict__ vp,
                    const int* __restrict__ lengths,
-                   const int* __restrict__ tables, int P, int ps, int pp,
-                   size_t head_stride, int row_stride, int chunk, float scale,
-                   float* __restrict__ partial, int* __restrict__ counters,
-                   float* __restrict__ out) {
+                   const int* __restrict__ tables, NewToken nt, int P, int ps,
+                   int pp, size_t head_stride, int row_stride, int chunk,
+                   float scale, float* __restrict__ partial,
+                   int* __restrict__ counters, float* __restrict__ out) {
   constexpr int D = 16 * EPL;
   constexpr int kRowChunks = D * (int)sizeof(T) / 16;   // 16-byte pieces
   constexpr int kPer = 16 / (int)sizeof(T);             // elements a piece
@@ -85,6 +155,8 @@ paged_split_kernel(const float* __restrict__ q, int q_bs, int q_hs,
   const int h = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int H = gridDim.x, nsp = gridDim.z;
   const int tid = threadIdx.x, grp = tid >> 4, gl = tid & 15;
+  // rows attended through the table: B6 lengths[b] (the caller's count,
+  // the new row included), FUSED the lengths[b] resident rows
   const int n = min(max(lengths[b], 0), pp * ps);
   const int act = max(1, (n + chunk - 1) / chunk);   // chunks holding rows
   if (sp >= act) return;                              // past the length
@@ -113,10 +185,20 @@ paged_split_kernel(const float* __restrict__ q, int q_bs, int q_hs,
   }
   asm volatile("cp.async.commit_group;\n" ::);
   float qv[EPL];                                 // T(q), widened
-  const float* qrow = q + (size_t)b * q_bs + (size_t)h * q_hs + gl * EPL;
+  const float* qrow = q + (size_t)b * q_bs + (size_t)h * q_hs;
+  const float* cs = FUSED ? nt.cos_t + (size_t)b * D + gl * EPL : nullptr;
+  const float* sn = FUSED ? nt.sin_t + (size_t)b * D + gl * EPL : nullptr;
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) qv[i] = qrow[gl * EPL + i];
+  if constexpr (FUSED) {
+    float qr[EPL];
+    rope_lane<EPL>(qv, cs, sn, qr);
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) qv[i] = qr[i];
+  }
 #pragma unroll
   for (int i = 0; i < EPL; ++i)
-    qv[i] = fltorch::to_f32(fltorch::from_f32<T>(qrow[i]));
+    qv[i] = fltorch::to_f32(fltorch::from_f32<T>(qv[i]));
   asm volatile("cp.async.wait_group 1;\n" ::);
   __syncthreads();
 
@@ -161,22 +243,52 @@ paged_split_kernel(const float* __restrict__ q, int q_bs, int q_hs,
   for (int i = 0; i < EPL; ++i) red[grp][gl * EPL + i] = acc[i];
   __syncthreads();
   float* o = out + ((size_t)b * H + h) * D;
+  // FUSED: the head's new k and v in qkv and the pool row they go to
+  const float* krow = qrow + (size_t)H * D;
+  const float* vrow = krow + (size_t)H * D;
+  T* kdst = nullptr;
+  T* vdst = nullptr;
+  if constexpr (FUSED) {
+    const int pid = nt.page_ids[b], off = nt.offsets[b];
+    if (pid >= 0 && pid < P && off >= 0 && off < ps) {
+      const size_t w = hb + ((size_t)pid * ps + off) * row_stride;
+      kdst = kp + w;
+      vdst = vp + w;
+    }
+  }
   if (act == 1) {                                // one chunk: no merge
-    const float lt = fmaxf(l, 1e-30f);
-    for (int e = tid; e < D; e += kThreads) {
-      float c = 0.f;
+    if constexpr (FUSED) {
+      // fold the new token into the chunk's partial; an empty chunk has
+      // m = -inf, l = 0, ctx = 0 and weighs exp(-inf) = 0
+      const float s_new = new_token<T, EPL>(krow, vrow, qv, cs, sn, kdst,
+                                            vdst, scale);
+      const float M = fmaxf(m, s_new);
+      const float a = expf(m - M), e = expf(s_new - M);
+      const float L = l * a + e;
+      for (int x = tid; x < D; x += kThreads) {
+        float c = 0.f;
 #pragma unroll
-      for (int g = 0; g < kGroups; ++g) c += red[g][e];
-      o[e] = c / lt;
+        for (int g = 0; g < kGroups; ++g) c += red[g][x];
+        const float v = fltorch::to_f32(fltorch::from_f32<T>(vrow[x]));
+        o[x] = (c * a + e * v) / L;
+      }
+    } else {
+      const float lt = fmaxf(l, 1e-30f);
+      for (int x = tid; x < D; x += kThreads) {
+        float c = 0.f;
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) c += red[g][x];
+        o[x] = c / lt;
+      }
     }
     return;
   }
   float* part = partial + (((size_t)b * H + h) * nsp + sp) * (D + 2);
-  for (int e = tid; e < D; e += kThreads) {
+  for (int x = tid; x < D; x += kThreads) {
     float c = 0.f;
 #pragma unroll
-    for (int g = 0; g < kGroups; ++g) c += red[g][e];
-    part[2 + e] = c;
+    for (int g = 0; g < kGroups; ++g) c += red[g][x];
+    part[2 + x] = c;
   }
   if (tid == 0) {
     part[0] = m;
@@ -187,48 +299,61 @@ paged_split_kernel(const float* __restrict__ q, int q_bs, int q_hs,
   const int ctr = b * H + h;
   if (!fltorch::last_of_split(counters, ctr, act, &is_last)) return;
   const float* pb = partial + ((size_t)b * H + h) * nsp * (D + 2);
-  for (int e = tid; e < D; e += kThreads) {
+  float s_new = 0.f;
+  if constexpr (FUSED)
+    s_new = new_token<T, EPL>(krow, vrow, qv, cs, sn, kdst, vdst, scale);
+  for (int x = tid; x < D; x += kThreads) {
     float M, L, C;
-    fltorch::merge_partials<D>(pb, act, e, M, L, C);
-    o[e] = C / fmaxf(L, 1e-30f);
+    fltorch::merge_partials<D>(pb, act, x, M, L, C);
+    if constexpr (FUSED) {                       // the new token, last
+      const float mb = fmaxf(M, s_new);
+      const float r = expf(M - mb), e = expf(s_new - mb);
+      const float v = fltorch::to_f32(fltorch::from_f32<T>(vrow[x]));
+      L = L * r + e;
+      C = C * r + e * v;
+      o[x] = C / L;
+    } else {
+      o[x] = C / fmaxf(L, 1e-30f);
+    }
   }
   if (tid == 0) counters[ctr] = 0;
 }
 
-template <typename T, int EPL>
+template <typename T, int EPL, bool FUSED>
 int launch(const void* q, int q_bs, int q_hs, const void* kp, const void* vp,
-           const void* lengths, const void* tables, int B, int H, int P,
-           int ps, int pp, size_t head_stride, int row_stride, int splits,
-           int chunk, float scale, void* partial, void* counters, void* out,
-           cudaStream_t stream) {
+           const void* lengths, const void* tables, NewToken nt, int B, int H,
+           int P, int ps, int pp, size_t head_stride, int row_stride,
+           int splits, int chunk, float scale, void* partial, void* counters,
+           void* out, cudaStream_t stream) {
   const size_t smem = (size_t)2 * chunk * 16 * EPL * sizeof(T);
   if (smem + 8 * 1024 > 48 * 1024) {     // with the static shared memory
     cudaError_t err = cudaFuncSetAttribute(
-        paged_split_kernel<T, EPL>,
+        paged_split_kernel<T, EPL, FUSED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid(H, B, splits);
-  paged_split_kernel<T, EPL><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, q_bs, q_hs, (const T*)kp, (const T*)vp,
-      (const int*)lengths, (const int*)tables, P, ps, pp, head_stride,
-      row_stride, chunk, scale, (float*)partial, (int*)counters, (float*)out);
+  paged_split_kernel<T, EPL, FUSED><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, q_bs, q_hs, (T*)kp, (T*)vp, (const int*)lengths,
+      (const int*)tables, nt, P, ps, pp, head_stride, row_stride, chunk,
+      scale, (float*)partial, (int*)counters, (float*)out);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool FUSED>
 int dispatch(const void* q, int q_bs, int q_hs, const void* kp,
-             const void* vp, const void* lengths, const void* tables, int B,
-             int H, int P, int ps, int pp, int d, int flat, int splits,
-             int chunk, float scale, void* partial, void* counters, void* out,
-             cudaStream_t s) {
+             const void* vp, const void* lengths, const void* tables,
+             NewToken nt, int B, int H, int P, int ps, int pp, int d,
+             int flat, int splits, int chunk, float scale, void* partial,
+             void* counters, void* out, cudaStream_t s) {
   const size_t head_stride = flat ? (size_t)d : (size_t)P * ps * d;
   const int row_stride = flat ? H * d : d;
 #define FLTORCH_B6_CASE(EPL)                                                  \
   case 16 * EPL:                                                              \
-    return launch<T, EPL>(q, q_bs, q_hs, kp, vp, lengths, tables, B, H, P,    \
-                          ps, pp, head_stride, row_stride, splits, chunk,     \
-                          scale, partial, counters, out, s);
+    return launch<T, EPL, FUSED>(q, q_bs, q_hs, kp, vp, lengths, tables, nt,  \
+                                 B, H, P, ps, pp, head_stride, row_stride,    \
+                                 splits, chunk, scale, partial, counters,     \
+                                 out, s);
   switch (d) {
     FLTORCH_B6_CASE(2) FLTORCH_B6_CASE(4) FLTORCH_B6_CASE(6)
     FLTORCH_B6_CASE(8) FLTORCH_B6_CASE(10) FLTORCH_B6_CASE(12)
@@ -248,11 +373,13 @@ int dispatch(const void* q, int q_bs, int q_hs, const void* kp,
 // pp * ps rows into `splits` chunks of `chunk` <= 256 rows (chunk a multiple
 // of ps or a divisor of it, splits * chunk >= pp * ps) and passes partial
 // f32 [B, H, splits, d + 2] scratch and counters int32 zeros [B * H] (left
-// zeroed). Returns the CUDA error code of the launch.
+// zeroed). FUSED (the fused step, head-major pools only) takes qkv in q and
+// nt as above. Returns the CUDA error code of the launch.
+template <bool FUSED>
 static int paged_entry(const void* q, int q_bs, int q_hs, const void* kp,
                        const void* vp, const void* lengths,
-                       const void* tables, int B, int H, int P, int ps,
-                       int pp, int d, int flat, int splits, int chunk,
+                       const void* tables, NewToken nt, int B, int H, int P,
+                       int ps, int pp, int d, int flat, int splits, int chunk,
                        float scale, int pool_bf16, void* partial,
                        void* counters, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -261,12 +388,13 @@ static int paged_entry(const void* q, int q_bs, int q_hs, const void* kp,
       || d > kMaxD || d % 32)
     return (int)cudaErrorInvalidValue;
   if (pool_bf16)
-    return dispatch<__nv_bfloat16>(q, q_bs, q_hs, kp, vp, lengths, tables, B,
-                                   H, P, ps, pp, d, flat, splits, chunk, scale,
-                                   partial, counters, out, s);
-  return dispatch<float>(q, q_bs, q_hs, kp, vp, lengths, tables, B, H, P, ps,
-                         pp, d, flat, splits, chunk, scale, partial, counters,
-                         out, s);
+    return dispatch<__nv_bfloat16, FUSED>(q, q_bs, q_hs, kp, vp, lengths,
+                                          tables, nt, B, H, P, ps, pp, d,
+                                          flat, splits, chunk, scale, partial,
+                                          counters, out, s);
+  return dispatch<float, FUSED>(q, q_bs, q_hs, kp, vp, lengths, tables, nt, B,
+                                H, P, ps, pp, d, flat, splits, chunk, scale,
+                                partial, counters, out, s);
 }
 
 extern "C" int paged_decode_attention(
@@ -274,9 +402,9 @@ extern "C" int paged_decode_attention(
     const void* lengths, const void* tables, int B, int H, int P, int ps,
     int pp, int d, int splits, int chunk, float scale, int pool_bf16,
     void* partial, void* counters, void* out, void* stream) {
-  return paged_entry(q, q_bs, q_hs, kp, vp, lengths, tables, B, H, P, ps, pp,
-                     d, 0, splits, chunk, scale, pool_bf16, partial, counters,
-                     out, stream);
+  return paged_entry<false>(q, q_bs, q_hs, kp, vp, lengths, tables,
+                            NewToken{}, B, H, P, ps, pp, d, 0, splits, chunk,
+                            scale, pool_bf16, partial, counters, out, stream);
 }
 
 extern "C" int paged_decode_attention_flat(
@@ -284,7 +412,24 @@ extern "C" int paged_decode_attention_flat(
     const void* lengths, const void* tables, int B, int H, int P, int ps,
     int pp, int d, int splits, int chunk, float scale, int pool_bf16,
     void* partial, void* counters, void* out, void* stream) {
-  return paged_entry(q, q_bs, q_hs, kp, vp, lengths, tables, B, H, P, ps, pp,
-                     d, 1, splits, chunk, scale, pool_bf16, partial, counters,
-                     out, stream);
+  return paged_entry<false>(q, q_bs, q_hs, kp, vp, lengths, tables,
+                            NewToken{}, B, H, P, ps, pp, d, 1, splits, chunk,
+                            scale, pool_bf16, partial, counters, out, stream);
+}
+
+// The fused paged step. qkv f32 [B, 3 * H * d] (contiguous), pools [H, P,
+// ps, d] updated in place, lengths int32 [B] (the resident rows, without
+// the new token), tables, splits, chunk, partial and counters as for B6,
+// page_ids and offsets int32 [B], cos and sin f32 [B, d], out f32 [B, H, d].
+extern "C" int paged_decode_step_fused(
+    const void* qkv, void* kp, void* vp, const void* lengths,
+    const void* tables, const void* page_ids, const void* offsets,
+    const void* cos_t, const void* sin_t, int B, int H, int P, int ps, int pp,
+    int d, int splits, int chunk, float scale, int pool_bf16, void* partial,
+    void* counters, void* out, void* stream) {
+  const NewToken nt{(const int*)page_ids, (const int*)offsets,
+                    (const float*)cos_t, (const float*)sin_t};
+  return paged_entry<true>(qkv, 3 * H * d, d, kp, vp, lengths, tables, nt, B,
+                           H, P, ps, pp, d, 0, splits, chunk, scale,
+                           pool_bf16, partial, counters, out, stream);
 }

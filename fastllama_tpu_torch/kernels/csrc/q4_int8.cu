@@ -44,9 +44,7 @@
 // memory.
 
 #include "common.cuh"
-
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at
-                    // run time through the runtime, so no -lcuda
+#include "hopper.cuh"
 
 namespace {
 
@@ -196,82 +194,17 @@ template <int BN, int STAGES> struct GemmCfg {
   static constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. Built with
-// -DFLTORCH_MBAR_TRAP (a debugging aid), a wait that spins for seconds traps
-// rather than hanging the card; a trap leaves the CUDA context unusable, so
-// the library is built without it.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-#ifdef FLTORCH_MBAR_TRAP
-  for (long long spin = 0;; ++spin) {
-#else
-  for (;;) {
-#endif
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-#ifdef FLTORCH_MBAR_TRAP
-    if (spin > (1LL << 22)) __trap();
-#endif
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-      "r"(c1) : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile with the 128-byte
-// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), the
-// leading offset unused for this layout. Advancing K by 32 bytes within the
-// swizzle row adds to the start address.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pin the accumulators: the compiler sees wgmma as an ordinary asm that is
-// done when it returns, so without this it may read (or move) them before
-// the wait that completes the asynchronous products.
-template <int R> __device__ __forceinline__ void fence_regs(int* d) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::sw128_desc;
+using hopper::tma_load_2d;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
 
 // wgmma.mma_async m64nNk32 s32 += s8 x s8, A and B from shared memory
 // (descriptors), D in 64 (N = 128) or 128 (N = 256) registers a thread.
@@ -388,7 +321,7 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
       mbar_init(bars + 8 * s, 1);
       mbar_init(bars + 8 * (S + s), kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    hopper::mbar_init_fence();
   }
   __syncthreads();
 
@@ -434,47 +367,14 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 // host side
 // ---------------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A 2-D map of an int8 [rows, cols] matrix (cols contiguous) in boxes of
 // box_cols by box_rows with the 128-byte swizzle (the wgmma operands), zeros
 // past the edges.
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
               int box_cols, int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::make_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows,
+                          cols, box_cols, box_rows,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int BN, int STAGES>

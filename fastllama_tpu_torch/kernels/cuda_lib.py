@@ -3,9 +3,9 @@
 Every `csrc/*.cu` file is compiled on first use, one `nvcc` process per
 source, all started together, into `kernels/_build/` (listed in
 .gitignore), for `sm_90a` with plain C entry points. A library is rebuilt
-only when its source, the shared header or the flags change: the file name
-carries a hash of all three. Nothing here runs at import time, so the CPU
-tests import every module without a compiler.
+only when its source, a header under csrc/ or the flags change: the file
+name carries a hash of all three. Nothing here runs at import time, so the
+CPU tests import every module without a compiler.
 
 Each C entry point returns the CUDA error code of its launches;
 `check(rc, name)` turns a nonzero code into an exception. Pointers are
@@ -36,7 +36,8 @@ ARGTYPES = {
     "q41_gemv": [P, I, I, P, P, P, I, I, I, I, P, P, P, I, I, P],
     "quant_rows_int8": [P, I, I, I, P, P, P],
     "q4_int8_gemm": [P, P, I, I, P, P, I, P, P, P, I, I, P],
-    "q4_prefill_gemm": [P, I, I, P, P, I, I, P, P, P, I, I, P],
+    "q4_prefill_gemm": [P, I, I, P, P, P, I, I, P, I, I, I, P, P, P, I, I,
+                        P],
     "decode_attention_fused": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P,
                                P, P, P],
     "decode_attention": [P, P, P, P, I, I, I, I, I, I, F, I, P, P, P, P],
@@ -44,6 +45,8 @@ ARGTYPES = {
                                F, I, P, P, P, P],
     "paged_decode_attention_flat": [P, I, I, P, P, P, P, I, I, I, I, I, I, I,
                                     I, F, I, P, P, P, P],
+    "paged_decode_step_fused": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                I, I, F, I, P, P, P, P],
     "paged_kv_write": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "paged_kv_write_rows": [P, P, P, P, P, I, I, I, I, I, P],
 }
@@ -55,6 +58,7 @@ LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
           "decode_attention": "decode_attention",
           "paged_decode_attention": "paged_attention",
           "paged_decode_attention_flat": "paged_attention",
+          "paged_decode_step_fused": "paged_attention",
           "paged_kv_write": "kv_write", "paged_kv_write_rows": "kv_write"}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -73,7 +77,8 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

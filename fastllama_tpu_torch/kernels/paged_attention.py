@@ -24,7 +24,16 @@ does). No dispatch of the JAX package reaches it: it is the record of a
 round-5 layout experiment on the TPU, ported so that every TPU kernel has its
 counterpart. On the card it runs B6's kernel with B11's strides.
 
-Both CUDA kernels are in csrc/paged_attention.cu; each wrapper launches its
+paged_decode_step_fused is one decode step of one layer over the pools in
+one launch: RoPE on q and the new k, B7's write of the new row
+(kernels/kv_write.py) and B6's attention over lengths + 1 keys, in the
+JAX paged step's order. On the card it is B6's kernel with FUSED: the
+chunks attend the resident rows as B6's do, the new token is one more
+partial folded in rounded to the pool dtype (as B6 would read it back), and
+the block that finishes a head writes the row. The forward takes it for a
+layer without q/k/v LoRA terms; B7 and B6 stay the LoRA step's.
+
+The CUDA kernels are in csrc/paged_attention.cu; each wrapper launches its
 kernel for CUDA tensors and runs its plain version for CPU tensors.
 """
 from __future__ import annotations
@@ -35,6 +44,8 @@ import math
 import torch
 
 from . import cuda_lib
+from .decode_attention import _rope_fma
+from .kv_write import paged_kv_write_plain
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -117,17 +128,20 @@ def b6_plan(pp: int, ps: int, d: int, itemsize: int) -> tuple[int, int]:
 
 
 def _launch(name, q, k_pages, v_pages, lengths, page_indices, p, ps,
-            chunk=None):
-    """One launch of B6 or B11 (`name`); `chunk` overrides the plan's rows
-    per block (tools_torch/paged_chunk_sweep.py)."""
+            chunk=None, fused=()):
+    """One launch of B6, B11 or the fused step (`name`); `chunk` overrides
+    the plan's rows per block (tools_torch/paged_chunk_sweep.py); `fused`
+    holds the fused step's (qkv, page_ids, offsets, cos, sin), q then only
+    gives the shapes."""
     b, h, d = q.shape
     pp = page_indices.shape[1]
-    tensors = (k_pages, v_pages, lengths, page_indices)
+    tensors = (k_pages, v_pages, lengths, page_indices, *fused)
     _require(q.device.type == "cuda" and q.stride(2) == 1
              and all(t.device == q.device and t.is_contiguous()
                      for t in tensors),
-             "the pools, lengths and tables must be contiguous and q unit "
-             "stride along D, all on one CUDA device")
+             "the pools, lengths, tables (and the fused step's inputs) must "
+             "be contiguous and q unit stride along D, all on one CUDA "
+             "device")
     _require(d % 32 == 0 and d <= 256 and pp * ps <= 12288,
              "head_dim must be a multiple of 32 and <= 256 and "
              f"pages_per_seq * page_size <= 12288: got D = {d}, "
@@ -141,10 +155,14 @@ def _launch(name, q, k_pages, v_pages, lengths, page_indices, p, ps,
                                b * h * splits * (d + 2), torch.float32)
     counters = cuda_lib.tile_counters(dev, b * h)
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
+    head = ((q.data_ptr(), q.stride(0), q.stride(1), k_pages.data_ptr(),
+             v_pages.data_ptr(), lengths.data_ptr(), page_indices.data_ptr())
+            if not fused else
+            (fused[0].data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             lengths.data_ptr(), page_indices.data_ptr(),
+             *(t.data_ptr() for t in fused[1:])))
     rc = cuda_lib.fn(name)(
-        q.data_ptr(), q.stride(0), q.stride(1), k_pages.data_ptr(),
-        v_pages.data_ptr(), lengths.data_ptr(), page_indices.data_ptr(), b,
-        h, p, ps, pp, d, splits, chunk, 1.0 / math.sqrt(d),
+        *head, b, h, p, ps, pp, d, splits, chunk, 1.0 / math.sqrt(d),
         int(k_pages.dtype == torch.bfloat16), partial.data_ptr(),
         counters.data_ptr(), out.data_ptr(), cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, name)
@@ -170,6 +188,72 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The fused paged step: RoPE + B7's write + B6's attention in one launch
+# ---------------------------------------------------------------------------
+
+def paged_decode_step_fused_plain(qkv, k_pages, v_pages, lengths,
+                                  page_indices, page_ids, offsets, cos, sin):
+    """Plain version of the fused step (same arguments and effects): the
+    composition of today's plain versions. q and k roped in B4's FMA form
+    (the kernel's rope_lane, so the written rows agree bit for bit), B7's
+    plain write of T(k_rope) and T(v), then B6's plain attention over
+    lengths + 1 keys, which reads the new row back from the pools."""
+    b = qkv.shape[0]
+    h, _, _, d = k_pages.shape
+    f = h * d
+    q, k, v = (qkv[:, i * f:(i + 1) * f].reshape(b, h, d) for i in range(3))
+    partner = torch.arange(d, device=qkv.device) ^ 1
+    c, sn = cos[:, None, :], sin[:, None, :]
+    qr, kr = (_rope_fma(t, t[..., partner], c, sn) for t in (q, k))
+    paged_kv_write_plain(k_pages, v_pages, kr, v, page_ids, offsets)
+    return paged_decode_attention_plain(qr, k_pages, v_pages, lengths + 1,
+                                        page_indices)
+
+
+def paged_decode_step_fused(qkv: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, lengths: torch.Tensor,
+                            page_indices: torch.Tensor,
+                            page_ids: torch.Tensor, offsets: torch.Tensor,
+                            cos: torch.Tensor, sin: torch.Tensor
+                            ) -> torch.Tensor:
+    """One paged decode step of one layer (B7's write folded into B6's
+    kernel with RoPE). qkv f32 [B, 3*H*D] the raw fused projection; pools
+    [H, P, ps, D] bf16 or f32, updated in place at (page_ids[b],
+    offsets[b]) (int32 [B]; B7's rules: the sentinel's trash page, nothing
+    written outside the pool); lengths int32 [B] the resident rows (the new
+    token's position); page_indices int32 [B, pp]; cos/sin f32 [B, D] the
+    per-row RoPE lanes (n_rot is in them). The scale is B6's, 1/sqrt(D).
+    Returns ctx f32 [B, H, D]."""
+    b = qkv.shape[0]
+    _require(k_pages.dim() == 4, "pools must be [H, P, ps, D]")
+    h, _, _, d = k_pages.shape
+    _require(qkv.shape == (b, 3 * h * d) and qkv.dtype == torch.float32,
+             f"qkv must be f32 [B, {3 * h * d}]")
+    _require(cos.shape == (b, d) and sin.shape == (b, d)
+             and cos.dtype == torch.float32 and sin.dtype == torch.float32,
+             f"cos/sin must be f32 [B, {d}]")
+    _require(page_ids.shape == (b,) and offsets.shape == (b,)
+             and page_ids.dtype == torch.int32
+             and offsets.dtype == torch.int32,
+             "page_ids and offsets must be int32 [B]")
+    q_shape = qkv[:, :h * d].view(b, h, d)
+    p, ps = _check_args(q_shape, k_pages, v_pages, lengths, page_indices,
+                        False)
+    if qkv.device.type == "cpu":
+        return paged_decode_step_fused_plain(qkv, k_pages, v_pages, lengths,
+                                             page_indices, page_ids, offsets,
+                                             cos, sin)
+    out = _launch("paged_decode_step_fused", q_shape, k_pages, v_pages,
+                  lengths, page_indices, p, ps,
+                  fused=(qkv, page_ids, offsets, cos, sin))
+    paged_decode_step_fused.launches += 1
+    return out
+
+
+paged_decode_step_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------

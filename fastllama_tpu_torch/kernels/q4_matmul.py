@@ -10,7 +10,8 @@ Kernels (CUDA C++ for sm_90a, sources in csrc/, built by cuda_lib):
                              tensor cores in bf16 mode, FFMA in f32 mode)
   B2 quant_rows_int8         csrc/quant_rows.cu  (quant_rows_int8)
   B3 q4_matmul_prefill_int8  csrc/q4_int8.cu     (q4_matmul_prefill_int8 nat)
-  B5 q4_matmul_prefill       csrc/q4_prefill.cu  (q4_matmul_prefill_pallas nat)
+  B5 q4_matmul_prefill       csrc/q4_prefill.cu  (q4_matmul_prefill_pallas nat;
+                             also the affine weight's R(x) @ R(q * d + m))
   B9 q41_matmul_decode       csrc/q4_decode.cu   (q41_matmul_pallas; B1's
                              tensor-core kernel with the mins term in bf16
                              mode, FFMA in f32 mode)
@@ -85,10 +86,18 @@ def q4_matmul_dequant(x: torch.Tensor, w: QuantMatmulWeight,
     or, for an affine weight, q * d + m.
 
     bf16 x bf16 products are exact in f32, so upcasting both operands and
-    running an f32 matmul is the JAX dot with preferred_element_type=f32."""
+    running an f32 matmul is the JAX dot with preferred_element_type=f32.
+    The plain version of B1, B5 and the tests; no dispatch reaches it on
+    the card, and `.cuda_calls` counts its calls on CUDA tensors so that a
+    run can show it."""
+    if x.device.type == "cuda":
+        q4_matmul_dequant.cuda_calls += 1
     x2 = _pad_k(x, w.k).to(w_dtype).to(torch.float32)
     dense = dequant_matmul_weight(w, w_dtype).to(torch.float32)
     return (x2 @ dense)[:, :w.n_logical]
+
+
+q4_matmul_dequant.cuda_calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -393,37 +402,110 @@ q4_matmul_prefill_int8.launches = 0
 # B5: bf16 / f32 prefill matmul
 # ---------------------------------------------------------------------------
 
+# B5's kernels (csrc/q4_prefill.cu) are built for one tile: 128 x 128
+# outputs; bf16 mode: two consumer warpgroups of 64 rows, K in 64-deep
+# stages through a ring of 4, one persistent block an SM; f32 mode: K in
+# 32-deep steps (one q block), two blocks an SM. The plan chooses the
+# split of K.
+B5_BM, B5_BN, B5_BK, B5_F32_BK = 128, 128, 64, 32
+B5_MAX_SPLITS = 8
+B5_MIN_STAGES_PER_SPLIT = 4          # bf16: the ring fills
+B5_MIN_STEPS_PER_SPLIT = 8           # f32
+# the cost of a split's merge (the last split of a tile reads the others'
+# partial tiles) in the mode's stages, fitted to chip_smoke.py's B5 times
+# on the H100 (PERF.md)
+B5_MERGE_STAGES = 4
+B5_F32_MERGE_STEPS = 1
+
+
+def b5_plan(m: int, n: int, k: int, sms: int,
+            f32: bool = False) -> tuple[int, int]:
+    """(splits, K stages per split) of B5 for M rows, N stored columns and
+    the K it runs over, on a card of `sms` SMs; a stage is 64 deep in bf16
+    mode and 32 in f32 mode. A split pays when the 128 x 128 tiles alone
+    leave SMs idle (M <= 128: 96 tiles on the 7B qkv plane, 32 on wo). The
+    cost is the rounds of work a busy SM takes (bf16: the persistent
+    blocks' items, f32: blocks, one at a time at the FFMA rate) times a
+    round's stages, a split's merge added to each round where K is split;
+    the fewest splits win a tie. Every split keeps enough stages for its
+    pipeline to fill."""
+    tiles = -(-m // B5_BM) * -(-n // B5_BN)
+    nk = -(-k // (B5_F32_BK if f32 else B5_BK))
+    least = B5_MIN_STEPS_PER_SPLIT if f32 else B5_MIN_STAGES_PER_SPLIT
+    best = None
+    for s in range(1, B5_MAX_SPLITS + 1):
+        per = -(-nk // s)
+        if s > 1 and per < least:
+            break
+        splits = -(-nk // per)
+        rounds = -(-(tiles * splits) // sms)
+        if f32:
+            cost = rounds * per + (splits > 1) * B5_F32_MERGE_STEPS
+        else:
+            cost = rounds * (per + (splits > 1) * B5_MERGE_STAGES)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
+
+
 def q4_matmul_prefill(x: torch.Tensor, w: QuantMatmulWeight,
                       w_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel B5: x f32 [M, K], q4_0 weight -> y f32 [M, n_logical] =
-    w_dtype(x) @ w_dtype((q - 8) * d) with f32 accumulation, in natural K
-    order; a true f32 product (no TF32) in f32 mode. Its plain version is
-    q4_matmul_dequant. Any M >= 1 is taken; the dispatcher sends M >= 256."""
+    """Kernel B5: x f32 [M, K], q4_0 or affine (q4_1) weight -> y f32
+    [M, n_logical] = w_dtype(x) @ w_dtype(W) with f32 accumulation, W =
+    (q - 8) * d or q * d + m, in natural K order; a true f32 product (no
+    TF32) in f32 mode. Its plain version is q4_matmul_dequant. Any M >= 1
+    is taken; the dispatcher sends M > 64 without int8.
+
+    bf16 mode: x cast to bf16, then one persistent wgmma product whose
+    weight tiles are dequantized in shared memory. f32 mode: an FFMA tile
+    that dequantizes in shared memory too. Both split K where the tiles
+    alone leave SMs idle (b5_plan) and add the splits in order."""
     _check_matmul_args(x, w_dtype)
-    _require(w.mins is None, "B5 takes q4_0 weights (no mins plane)")
     if x.device.type == "cpu":
         return q4_matmul_dequant(x, w, w_dtype)
+    y = _launch_b5(x, w, w_dtype)
+    q4_matmul_prefill.launches += 1
+    return y
+
+
+def _launch_b5(x, w, w_dtype, blocks=None):
+    """One launch of B5 on the card; `blocks` overrides the bf16 kernel's
+    persistent grid (at most one block an SM; tools_torch/b5_sweep.py
+    launches one block a work item beside it)."""
     _require(x.device.type == "cuda" and x.is_contiguous()
              and x.data_ptr() % 16 == 0,
              "x must be a contiguous, 16-byte aligned CUDA tensor")
-    _check_weight(w, x.device)
+    affine = w.mins is not None
+    _check_weight(w, x.device, affine)
     m, kx = x.shape
     n = w.qs.shape[1]
     k = w.k
+    planes = (w.qs, w.scales, w.mins) if affine else (w.qs, w.scales)
     _require(m >= 1 and kx <= k and kx % 4 == 0,
              f"x K={kx} must be a multiple of 4 and <= the stored K={k}")
-    _require(k % 32 == 0, "stored K must be a multiple of 32")
+    _require(k % 32 == 0 and n % 16 == 0
+             and all(p.data_ptr() % 16 == 0 for p in planes),
+             "stored K must be a multiple of 32, stored N of 16 and the "
+             "weight planes 16-byte aligned")
     dev = x.device
     bf16 = w_dtype == torch.bfloat16
-    wt = cuda_lib.scratch(dev, "q4_prefill.wt", n * k, w_dtype)
-    xb = cuda_lib.scratch(dev, "q4_prefill.xb", m * k if bf16 else 1, w_dtype)
+    sms = cuda_lib.sm_count(dev)
+    splits, k_steps = b5_plan(m, n, -(-kx // 32) * 32, sms, f32=not bf16)
+    tiles = -(-m // B5_BM) * -(-n // B5_BN)
+    xb = cuda_lib.scratch(dev, "q4_prefill.xb", m * k if bf16 else 1,
+                          torch.bfloat16)
+    partial = cuda_lib.scratch(
+        dev, "q4_prefill.partial",
+        tiles * splits * B5_BM * B5_BN if splits > 1 else 1, torch.float32)
+    counters = cuda_lib.tile_counters(dev, tiles)
     y = torch.empty((m, w.n_logical), dtype=torch.float32, device=dev)
     rc = cuda_lib.fn("q4_prefill_gemm")(
-        x.data_ptr(), m, kx, w.qs.data_ptr(), w.scales.data_ptr(), n, k,
-        wt.data_ptr(), xb.data_ptr(), y.data_ptr(), w.n_logical, int(bf16),
+        x.data_ptr(), m, kx, w.qs.data_ptr(), w.scales.data_ptr(),
+        w.mins.data_ptr() if affine else None, n, k, xb.data_ptr(), splits,
+        k_steps, blocks or min(tiles * splits, sms), partial.data_ptr(),
+        counters.data_ptr(), y.data_ptr(), w.n_logical, int(bf16),
         cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, "q4_prefill_gemm")
-    q4_matmul_prefill.launches += 1
     return y
 
 
@@ -448,20 +530,19 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
     M = prod(lead):
 
       q4_0, M <= 64                      -> B1 q4_matmul_decode
-      q4_0, M >= 256 and int8 (use_int8) -> B2 quant_rows_int8 + B3
-      q4_0, M >= 256 otherwise           -> B5 q4_matmul_prefill (at every
-                                            such M: in bf16 mode it beats the
-                                            dequant path at each M measured
-                                            on the H100; in f32 mode its FFMA
-                                            tile is slower, 2.132 against
-                                            1.848 ms on the 7B qkv plane at
-                                            M = 512, see PERF.md and
-                                            ROADMAP.md)
       q4_1, M <= 64                      -> B9 q41_matmul_decode
-      q4_1 at M > 64, q4_0 at 64 < M < 256
-                                         -> q4_matmul_dequant (dequant +
-                                            torch.matmul, as the JAX package
-                                            leaves these to XLA)
+      q4_0, M >= 256 and int8 (use_int8) -> B2 quant_rows_int8 + B3
+      every other M > 64: q4_0 at 64 < M < 256, q4_0 at M >= 256 without
+      int8, q4_1 at M > 64               -> B5 q4_matmul_prefill
+
+    B5 at 64 < M < 256 and for q4_1 keeps the reference's function: there
+    the JAX package runs q4_matmul_xla, R(x) @ R(W) with f32 accumulation,
+    which is B5's (W = (q - 8) * d, or q * d + m for q4_1; the JAX package
+    never sends q4_1 to int8, nor does the port). On the H100 B5 is faster
+    than the dequant path (q4_matmul_dequant, dequant + torch.matmul) at
+    every M and plane timed, in both modes (PERF.md, the B5 table). On the
+    CPU B5 runs its plain version, which is that dequant path, so every CPU
+    result is the one before.
 
     The stored-K padding of the weight is handled inside (x counts as zero
     there) and outputs have the logical width."""
@@ -473,9 +554,7 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
     affine = w.mins is not None
     if m <= DECODE_MAX_M:
         y = (q41_matmul_decode if affine else q4_matmul_decode)(x2, w, w_dtype)
-    elif affine or m < PREFILL_MIN_M:
-        y = q4_matmul_dequant(x2, w, w_dtype)
-    elif use_int8(m, w_dtype, prefill_int8):
+    elif not affine and use_int8(m, w_dtype, prefill_int8):
         xq, dx = quant_rows_int8(x2, w.k)
         y = q4_matmul_prefill_int8(xq, dx, w)
     else:

@@ -37,7 +37,9 @@ from ..kernels.decode_attention import (
     decode_attention, decode_attention_fused, masked_attention,
 )
 from ..kernels.kv_write import paged_kv_write, scatter_rows_drop
-from ..kernels.paged_attention import paged_decode_attention
+from ..kernels.paged_attention import (
+    paged_decode_attention, paged_decode_step_fused,
+)
 from ..kernels.q4_matmul import q4_matmul
 from ..kernels.rope import lane_tables, rope_interleaved, rope_interleaved_lanes
 from ..quant.tensor import (
@@ -395,8 +397,11 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
         k_pages/v_pages: per layer [H, P, ps, Dh], updated in place;
         page_ids/offsets: int32 [B] physical write location of the new token
         (from PagedKVManager; the sentinel id for an inactive slot).
-    Each layer writes the new row with kernel B7 and attends lengths + 1
-    keys with kernel B6 (their plain versions for CPU tensors).
+    A layer without q/k/v LoRA terms runs the fused step (RoPE, the new
+    row's write and the attention over lengths + 1 keys in one kernel,
+    paged_decode_step_fused); a layer with them adds the terms to q, k and
+    v first, then writes the row with kernel B7 and attends with kernel B6
+    (plain versions for CPU tensors).
     Returns (logits [B, 1, V] f32, k_pages, v_pages).
     """
     b = tokens.shape[0]
@@ -408,10 +413,16 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
 
     for layer, kp, vp in zip(params.layers, k_pages, v_pages):
         attn_in = rms_norm(x, layer.attention_norm, cfg.rms_eps)
-        q, k, v = _roped_qkv(attn_in, layer, cfg, rope_bt)
-        paged_kv_write(kp, vp, k[:, 0].contiguous(), v[:, 0].contiguous(),
-                       page_ids, offsets)
-        ctx = paged_decode_attention(q[:, 0], kp, vp, attend, page_tables)
+        if _no_qkv_lora(layer):
+            qkv = apply_linear(attn_in, layer.wqkv, cfg)
+            ctx = paged_decode_step_fused(
+                qkv.reshape(b, -1).to(torch.float32), kp, vp, lengths,
+                page_tables, page_ids, offsets, cos[:, 0], sin[:, 0])
+        else:
+            q, k, v = _roped_qkv(attn_in, layer, cfg, rope_bt)
+            paged_kv_write(kp, vp, k[:, 0].contiguous(),
+                           v[:, 0].contiguous(), page_ids, offsets)
+            ctx = paged_decode_attention(q[:, 0], kp, vp, attend, page_tables)
         x = x + _project_out(ctx, layer, cfg, b, 1)
         x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
 

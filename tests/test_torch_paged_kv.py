@@ -656,6 +656,212 @@ def test_b7_b8_kernels_match_plain(cuda_device, pool):
 
 
 # ---------------------------------------------------------------------------
+# the fused paged step: RoPE + B7's write + B6's attention in one kernel
+# ---------------------------------------------------------------------------
+
+def fused_case(pool, lengths, h=2, seed=71):
+    """qkv, head-major pools of 64-row pages (+ the trash page) over a
+    shuffled table of pp = 10 pages a sequence, each active slot's write at
+    its table's row `length`, the last slot inactive (sentinel page, length
+    0), NaN in every page no slot reads, per-row RoPE lanes (n_rot =
+    D / 2) at the lengths. numpy f32 arrays, the pools' values rounded to
+    the pool dtype."""
+    rng = np.random.default_rng(seed)
+    d, ps, pp = 128, 64, 10
+    lengths = np.array(list(lengths) + [0], np.int32)
+    b = len(lengths)
+    p = b * pp + 1
+    kp = _as_pool(rng.standard_normal((h, p, ps, d)), pool)
+    vp = _as_pool(rng.standard_normal((h, p, ps, d)), pool)
+    tables = rng.permutation(b * pp).reshape(b, pp).astype(np.int32)
+    page_ids = np.array([tables[i, n // ps] for i, n in enumerate(lengths)],
+                        np.int32)
+    page_ids[-1] = p - 1
+    offsets = (lengths % ps).astype(np.int32)
+    # the pages each slot's plain step reads (the inactive slot's plain B6
+    # reads one row of its first page)
+    used = {int(pg) for row, n in zip(tables, lengths)
+            for pg in row[:int(n) // ps + 1]}
+    stale = [pg for pg in range(p - 1) if pg not in used]
+    kp[:, stale] = np.nan
+    vp[:, stale] = np.nan
+    qkv = rng.standard_normal((b, 3 * h * d)).astype(np.float32)
+    cos, sin = (t.numpy() for t in tl.lane_tables(
+        torch.from_numpy(lengths), d, d // 2))
+    return qkv, kp, vp, lengths, tables, page_ids, offsets, cos, sin, used
+
+
+def roped_qk(qkv, cos, sin, h):
+    """q and k of the raw projection roped in B4's FMA form (the kernels'
+    rope_lane), f32 [B, H, D] each; v [B, H, D]."""
+    from fastllama_tpu_torch.kernels.decode_attention import _rope_fma
+    b = qkv.shape[0]
+    d = cos.shape[1]
+    t = torch.from_numpy(qkv).reshape(b, 3, h, d)
+    partner = torch.arange(d) ^ 1
+    c, sn = torch.from_numpy(cos)[:, None], torch.from_numpy(sin)[:, None]
+    q, k = (_rope_fma(x, x[..., partner], c, sn).numpy()
+            for x in (t[:, 0], t[:, 1]))
+    return q, k, t[:, 2].numpy()
+
+
+def run_fused_plain(case, pool):
+    qkv, kp, vp, lengths, tables, page_ids, offsets, cos, sin, _ = case
+    dt = getattr(torch, pool)
+    tk, tv = to_t(kp).to(dt), to_t(vp).to(dt)
+    ctx = tpa.paged_decode_step_fused(
+        to_t(qkv), tk, tv, to_t(lengths), to_t(tables), to_t(page_ids),
+        to_t(offsets), to_t(cos), to_t(sin))
+    return ctx.numpy(), f32(tk), f32(tv)
+
+
+@pytest.mark.parametrize("pool,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_fused_step_plain_matches_jax_write_then_attention(pool, tol):
+    """The fused step's plain version against the JAX paged step's order:
+    paged_kv_write (Pallas, interpret mode) of the roped k and v, then
+    paged_decode_attention (Pallas, interpret mode) over lengths + 1 keys
+    with the roped q. The pools equal the JAX write's bit for bit on every
+    page but the trash page; ctx within B6's plain-against-Pallas tolerance
+    (test_b6_plain_matches_pallas) on the active slots. JAX reads pools
+    without NaN (its kernel copies whole pages)."""
+    case = fused_case(pool, [1, 63, 64, 65, 300])
+    qkv, kp, vp, lengths, tables, page_ids, offsets, cos, sin, used = case
+    h = kp.shape[0]
+    q, k, v = roped_qk(qkv, cos, sin, h)
+    jdt = getattr(jnp, pool)
+    clean = [np.nan_to_num(a, nan=0.0) for a in (kp, vp)]
+    jk, jv = jkw.paged_kv_write(
+        jnp.asarray(clean[0], jdt), jnp.asarray(clean[1], jdt),
+        jnp.asarray(k), jnp.asarray(v), jnp.asarray(page_ids),
+        jnp.asarray(offsets), interpret=True)
+    want = np.asarray(jpa.paged_decode_attention(
+        jnp.asarray(q), jk, jv, jnp.asarray(lengths + 1), jnp.asarray(tables),
+        interpret=True))
+    ctx, tk, tv = run_fused_plain(case, pool)
+    idx = sorted(used)
+    np.testing.assert_array_equal(tk[:, idx], f32(to_t(jk))[:, idx])
+    np.testing.assert_array_equal(tv[:, idx], f32(to_t(jv))[:, idx])
+    assert np.isfinite(ctx).all()
+    np.testing.assert_allclose(ctx[:-1], want[:-1], rtol=tol, atol=tol)
+
+
+def fused_split_rule(q, k, v, kp, vp, length, table, chunk, pool):
+    """The fused kernel's arithmetic for one sequence in numpy f32: B6's
+    chunks over the `length` resident rows (b6_split_rule's partials and
+    merge), then the new token folded in last, rounded to the pool dtype:
+    s_new = dot(T(q), T(k)) * scale, M' = max(M, s_new), L' = L exp(M -
+    M') + exp(s_new - M'), C' = C exp(M - M') + exp(s_new - M') T(v)."""
+    h, _, ps, d = kp.shape
+    n = int(np.clip(length, 0, table.shape[0] * ps))
+    scale = np.float32(1.0 / np.sqrt(d))
+    pages = np.clip(table, 0, kp.shape[1] - 1)
+    rows = [(pages[s // ps], s % ps) for s in range(n)]
+    qr, kr, vr = (_as_pool(a, pool) for a in (q, k, v))
+    out = np.zeros((h, d), np.float32)
+    for hh in range(h):
+        big_m, big_l, big_c = np.float32(-np.inf), np.float32(0), \
+            np.zeros(d, np.float32)
+        parts = []
+        for s0 in range(0, n, chunk):
+            rr = rows[s0:s0 + chunk]
+            kk = np.stack([kp[hh, a, b] for a, b in rr])
+            vv = np.stack([vp[hh, a, b] for a, b in rr])
+            sc = (kk @ qr[hh]).astype(np.float32) * scale
+            m = sc.max()
+            pr = np.exp(sc - m).astype(np.float32)
+            parts.append((m, pr.sum(dtype=np.float32),
+                          (_as_pool(pr, pool) @ vv).astype(np.float32)))
+        for i0 in range(0, len(parts), 8):
+            batch = parts[i0:i0 + 8]
+            mb = max([big_m] + [m for m, _, _ in batch])
+            r = np.exp(np.float32(big_m - mb)) if big_m > -np.inf else 0
+            big_l, big_c = big_l * r, big_c * r
+            for m, l, c in batch:
+                e = np.exp(np.float32(m - mb))
+                big_l, big_c = big_l + l * e, big_c + c * e
+            big_m = mb
+        s_new = np.float32(qr[hh] @ kr[hh]) * scale
+        mb = max(big_m, s_new)
+        r = np.exp(np.float32(big_m - mb)) if big_m > -np.inf else 0
+        e = np.exp(np.float32(s_new - mb))
+        out[hh] = (big_c * r + e * vr[hh]) / (big_l * r + e)
+    return out
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_fused_split_rule_folds_the_new_token_rounded(pool):
+    """The fused kernel's rule (fused_split_rule: B6's 64-row chunks over
+    the resident rows, the new token one more partial rounded to the pool
+    dtype) equals the fused step's plain version (B7's write, then B6 over
+    lengths + 1 keys, which reads the new row back from the pool) within
+    B6's tolerance at lengths 0, 1, 63, 64, 65 and pp * ps - 1: 2^-7 of the
+    largest output for bf16 pools (the new token's own p is not rounded,
+    and each chunk rounds p against its own max) and 5e-5 for f32 pools.
+    The rule reads pools with NaN in every page no sequence reaches."""
+    case = fused_case(pool, [0, 1, 63, 64, 65, 639], seed=72)
+    qkv, kp, vp, lengths, tables, _, _, cos, sin, _ = case
+    h = kp.shape[0]
+    q, k, v = roped_qk(qkv, cos, sin, h)
+    ctx, _, _ = run_fused_plain(case, pool)
+    tol = (2 ** -7 if pool == "bfloat16" else 5e-5) * np.abs(ctx).max()
+    for i in range(len(lengths) - 1):
+        got = fused_split_rule(q[i], k[i], v[i], kp, vp, lengths[i],
+                               tables[i], 64, pool)
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, ctx[i], rtol=0, atol=tol)
+    np.testing.assert_array_equal(
+        fused_split_rule(q[0], k[0], v[0], kp, vp, 0, tables[0], 64, pool),
+        _as_pool(v[0], pool))
+
+
+def test_fused_step_wrapper_rejects_wrong_shapes():
+    case = fused_case("float32", [5])
+    qkv, kp, vp, lengths, tables, page_ids, offsets, cos, sin, _ = case
+    args = [to_t(a) for a in (qkv, kp, vp, lengths, tables, page_ids,
+                              offsets, cos, sin)]
+    with pytest.raises(ValueError, match="qkv"):
+        tpa.paged_decode_step_fused(args[0][:, :-1], *args[1:])
+    with pytest.raises(ValueError, match="cos"):
+        tpa.paged_decode_step_fused(*args[:7], args[7][:, :64], args[8])
+    with pytest.raises(ValueError, match="page_ids"):
+        tpa.paged_decode_step_fused(*args[:5], args[5].long(), *args[6:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [2, 40])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_fused_step_kernel_matches_plain(cuda_device, pool, h):
+    """The fused step on the card against its plain version at lengths 0,
+    1, ps - 1, ps, ps + 1, 300 and pp * ps - 1 and an inactive slot: the
+    written rows bit for bit, ctx within B6's tolerance on the active
+    slots, finite everywhere; and against the standalone B7 + B6 on the
+    same roped q and k."""
+    case = fused_case(pool, [0, 1, 63, 64, 65, 300, 639], h=h, seed=73)
+    qkv, kp, vp, lengths, tables, page_ids, offsets, cos, sin, used = case
+    dt = getattr(torch, pool)
+    dev = cuda_device
+    t = [to_t(a).to(dev) for a in (qkv, lengths, tables, page_ids, offsets,
+                                   cos, sin)]
+    pools = [to_t(a).to(dt).to(dev) for a in (kp, vp)]
+    ref_pools = [x.clone() for x in pools]
+    b7_pools = [x.clone() for x in pools]
+    got = tpa.paged_decode_step_fused(t[0], *pools, *t[1:])
+    want = tpa.paged_decode_step_fused_plain(t[0], *ref_pools, *t[1:])
+    q, k, v = (to_t(a).to(dev) for a in roped_qk(qkv, cos, sin, h))
+    tkw.paged_kv_write(*b7_pools, k, v, t[3], t[4])
+    b6 = tpa.paged_decode_attention(q, *b7_pools, t[1] + 1, t[2])
+    idx = sorted(used)
+    for x, y, z in zip(pools, ref_pools, b7_pools):
+        assert torch.equal(x[:, idx], y[:, idx])
+        assert torch.equal(x[:, idx], z[:, idx])
+    tol = (2 ** -7 if pool == "bfloat16" else 5e-5) \
+        * want[:-1].abs().max().item() + 1e-6
+    assert bool(torch.isfinite(got).all())
+    assert (got - want)[:-1].abs().max().item() <= tol
+    assert (got - b6)[:-1].abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
 # the paged forward passes
 # ---------------------------------------------------------------------------
 
@@ -795,3 +1001,52 @@ def test_paged_forward_ignores_lora_output(params):
     for (t0, j0), (t1, j1) in zip(plain, with_term):
         np.testing.assert_array_equal(j0, j1)
         np.testing.assert_array_equal(t0, t1)
+
+
+def greedy_paged_stream(params, monkeypatch, fused, steps=6):
+    """A 5-token prompt prefilled into pages, then `steps` greedy decode
+    steps of two slots (the second inactive) through forward_paged_decode,
+    f32. fused=False sends every layer down the unfused route (RoPE, B7,
+    B6), as a layer with q/k/v LoRA terms goes. Returns the tokens and the
+    last logits."""
+    _, tp = params
+    if not fused:
+        monkeypatch.setattr(tl, "_no_qkv_lora", lambda layer: False)
+    cfg = tl.ForwardConfig(n_head=HP.n_head, n_rot=HP.n_rot,
+                           w_dtype="float32", prefill_int8=False)
+    m = tpk.PagedKVManager(HP, n_slots=2, page_size=4, total_pages=8,
+                           pages_per_seq=4, dtype=torch.float32,
+                           device="cpu")
+    prompt = [1, 5, 9, 20, 7]
+    n = len(prompt)
+    assert m.alloc_for(0, n)
+    pages, offs = m.token_page_offsets(0, 0, n)
+    logits, _, _ = tl.forward_paged_prefill(
+        tp, torch.tensor([prompt]), n - 1, to_t(pages), to_t(offs),
+        m.k_pages, m.v_pages, cfg)
+    tokens = [int(logits[0].argmax())]
+    for _ in range(steps):
+        assert m.alloc_for(0, n + 1)
+        wp, wo = m.token_page_offsets(0, n, 1)
+        logits, _, _ = tl.forward_paged_decode(
+            tp, torch.tensor([[tokens[-1]], [0]]),
+            to_t(np.array([n, 0], np.int32)), to_t(m.page_tables),
+            m.k_pages, m.v_pages, to_t(np.array([wp[0], m.sentinel],
+                                                np.int32)),
+            to_t(np.array([wo[0], 0], np.int32)), cfg)
+        tokens.append(int(logits[0, 0].argmax()))
+        n += 1
+    monkeypatch.undo()
+    return tokens, logits[0, 0].numpy()
+
+
+def test_fused_paged_decode_equals_the_unfused_route(params, monkeypatch):
+    """A 2-layer f32 forward_paged_decode on the fused route (one fused
+    step a layer) gives the unfused route's greedy tokens, token for token,
+    and logits within f32 rounding (the two differ in RoPE's rounding of
+    the new k, an FMA against a product and a sum, and in the order of
+    f32 sums)."""
+    fused, lf = greedy_paged_stream(params, monkeypatch, fused=True)
+    unfused, lu = greedy_paged_stream(params, monkeypatch, fused=False)
+    assert fused == unfused
+    np.testing.assert_allclose(lf, lu, rtol=0, atol=1e-4 * np.abs(lu).max())

@@ -117,8 +117,9 @@ def test_b9_plain_is_more_exact_than_dequant_at_bf16():
 
 @pytest.mark.parametrize("m", [65, 256])
 def test_q41_prefill_matches_jax_dequant_path(m):
-    """Affine weights above M = 64 take dequant (q * d + m) + matmul on both
-    packages."""
+    """Affine weights above M = 64 take the dequant path's function, R(x)
+    @ R(q * d + m) with f32 accumulation, on both packages: the JAX one as
+    dequant + dot, the port through B5 (on the CPU its plain version)."""
     wt, wj, _ = weights(352, 96, seed=5)
     x = acts(m, 352, seed=6)
     got = tqm.q4_matmul(torch.from_numpy(x), wt, w_dtype=torch.bfloat16,
@@ -126,6 +127,23 @@ def test_q41_prefill_matches_jax_dequant_path(m):
     want = jqm.q4_matmul(jnp.asarray(x), wj, use_pallas=False,
                          w_dtype=jnp.bfloat16, prefill_int8=None)
     assert_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("m", [65, 128, 300])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_b5_affine_plain_matches_jax_q4_matmul_xla(m, mode):
+    """B5 on a q4_1 weight (its plain version on the CPU) against the JAX
+    package's q4_matmul_xla, the function the JAX dispatch runs for an
+    affine weight at M > 64: R(x) @ R(q * d + m), f32 accumulation, x
+    zero-padded to the stored K. Equal to f32 reassociation."""
+    wt, wj, _ = weights(352, 96, seed=15)
+    x = acts(m, 352, seed=16)
+    got = tqm.q4_matmul_prefill(torch.from_numpy(x), wt,
+                                getattr(torch, mode)).numpy()
+    assert got.shape == (m, 96)
+    xp = jnp.pad(jnp.asarray(x), ((0, 0), (0, wj.k - 352)))
+    want = np.asarray(jqm.q4_matmul_xla(xp, wj, w_dtype=getattr(jnp, mode)))
+    assert_close(got, want[:, :96], 1e-5)
 
 
 @pytest.mark.cuda

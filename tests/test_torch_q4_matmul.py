@@ -158,8 +158,8 @@ def q41_weight(k, n):
 @pytest.mark.parametrize("affine,m,mode,int8,path", [
     (False, 1, "bfloat16", None, "B1"),
     (False, 64, "float32", None, "B1"),
-    (False, 65, "bfloat16", None, "dequant"),
-    (False, 255, "bfloat16", True, "dequant"),
+    (False, 65, "bfloat16", None, "B5"),
+    (False, 255, "bfloat16", True, "B5"),
     (False, 256, "bfloat16", None, "B3"),
     (False, 256, "bfloat16", True, "B3"),
     (False, 512, "float32", True, "B3"),
@@ -168,9 +168,9 @@ def q41_weight(k, n):
     (False, 4096, "bfloat16", False, "B5"),
     (True, 1, "bfloat16", None, "B9"),
     (True, 64, "float32", None, "B9"),
-    (True, 65, "bfloat16", None, "dequant"),
-    (True, 256, "bfloat16", None, "dequant"),
-    (True, 512, "float32", True, "dequant"),
+    (True, 65, "bfloat16", None, "B5"),
+    (True, 256, "bfloat16", None, "B5"),
+    (True, 512, "float32", True, "B5"),
 ])
 def test_dispatch_table(monkeypatch, affine, m, mode, int8, path):
     called = []
@@ -190,15 +190,18 @@ def test_dispatch_table(monkeypatch, affine, m, mode, int8, path):
 
 
 def test_kernels_refuse_the_other_weight_kind():
-    """B1 and B5 take q4_0 weights, B9 affine ones; each raises on the
-    other kind instead of computing with the wrong formula."""
-    x = torch.zeros((1, 64))
+    """B1 takes q4_0 weights, B9 affine ones; each raises on the other kind
+    instead of computing with the wrong formula. B5 takes both and computes
+    each kind's own function (q4_matmul_dequant's)."""
+    x = torch.from_numpy(acts(3, 64))
     with pytest.raises(ValueError, match="q4_0"):
         tqm.q4_matmul_decode(x, q41_weight(64, 32))
-    with pytest.raises(ValueError, match="q4_0"):
-        tqm.q4_matmul_prefill(x, q41_weight(64, 32))
     with pytest.raises(ValueError, match="affine"):
         tqm.q41_matmul_decode(x, weights(64, 32)[0])
+    for w in (q41_weight(64, 32), weights(64, 32)[0]):
+        np.testing.assert_array_equal(
+            tqm.q4_matmul_prefill(x, w).numpy(),
+            tqm.q4_matmul_dequant(x, w).numpy())
 
 
 @pytest.mark.parametrize("m,int8", [(100, False), (256, True), (256, False)])
@@ -620,3 +623,202 @@ def test_b3_kernel_bit_exact_at_7b_and_13b_planes(cuda_device, m, k, n):
     got = tqm.q4_matmul_prefill_int8(xq, dx, w)
     assert torch.equal(got, tqm.q4_matmul_prefill_int8_plain(xq, dx, w))
     assert torch.equal(got, tqm.q4_matmul_prefill_int8(xq, dx, w))
+
+
+# -- B5's wgmma kernel: its planner, converter tile and descriptor ----------
+
+# (K, N) stored planes at 7B (qkv, wo, w13, w2) and 13B
+B5_PLANES = PLANES_7B[:4] + PLANES_13B
+
+
+@pytest.mark.parametrize("k,n", B5_PLANES)
+@pytest.mark.parametrize("f32", [False, True])
+def test_b5_plan_covers_every_output_and_q_block_once(k, n, f32):
+    """Row tiles x column tiles x K splits of B5 cover each output once and
+    each q block of K once at every M from 65 to 513, in bf16 mode (64-deep
+    stages of two q blocks, at least B5_MIN_STAGES_PER_SPLIT a split) and
+    f32 mode (steps of one q block, at least B5_MIN_STEPS_PER_SPLIT); on
+    the 7B qkv plane M = 128 splits K four ways in bf16 mode (96 tiles on
+    132 SMs) and M = 512 does not split (384 tiles)."""
+    nb = k // 32
+    qb = (tqm.B5_F32_BK if f32 else tqm.B5_BK) // 32
+    least = (tqm.B5_MIN_STEPS_PER_SPLIT if f32
+             else tqm.B5_MIN_STAGES_PER_SPLIT)
+    for m in range(65, 514):
+        splits, per = tqm.b5_plan(m, n, k, 132, f32=f32)
+        nk = -(-nb // qb)
+        assert 1 <= splits <= tqm.B5_MAX_SPLITS and splits == -(-nk // per)
+        rows = [z * tqm.B5_BM + r for z in range(-(-m // tqm.B5_BM))
+                for r in range(tqm.B5_BM) if z * tqm.B5_BM + r < m]
+        cols = [y * tqm.B5_BN + c for y in range(-(-n // tqm.B5_BN))
+                for c in range(tqm.B5_BN) if y * tqm.B5_BN + c < n]
+        assert rows == list(range(m)) and cols == list(range(n))
+        blocks = []
+        for z in range(splits):
+            stages = range(z * per, min(nk, (z + 1) * per))
+            assert splits == 1 or len(stages) >= least
+            blocks += [qb * kt + j for kt in stages for j in range(qb)
+                       if qb * kt + j < nb]
+        assert blocks == list(range(nb))
+    if not f32:
+        assert tqm.b5_plan(128, 12288, 4096, 132) == (4, 16)
+        assert tqm.b5_plan(512, 12288, 4096, 132)[0] == 1
+
+
+def b5_w_off(k, n):
+    """Byte offset of weight (k, n) of a stage's converted bf16 tile [64 K,
+    128 N] as the converter writes it (csrc/q4_prefill.cu w_off, n any
+    column): atoms of 8 K rows by 64 columns (1024 bytes; 2048 bytes per 8 K
+    rows), 128-byte rows, the 16-byte chunk XOR the row within the atom."""
+    return ((k >> 3) * 2048 + (n >> 6) * 1024 + (k & 7) * 128
+            + ((((n & 63) >> 3) ^ (k & 7)) << 4) + (n & 7) * 2)
+
+
+def wgmma_read_mn(start, lbo, sbo, k, n):
+    """The byte wgmma reads for B element (k, n), k < 16, of an MN-major
+    16-bit operand whose 128-byte-swizzle descriptor starts at `start` with
+    leading offset lbo (between 64-element atoms along N) and stride offset
+    sbo (between 8-row groups along K): the canonical layout's address, then
+    the swizzle the hardware applies (address bits 4-6 XOR bits 7-9)."""
+    addr = start + (n // 64) * lbo + (k // 8) * sbo + (k % 8) * 128 + \
+        (n % 64) * 2
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def test_b5_converter_tile_is_a_bijection_and_wgmma_reads_the_k_slice():
+    """The converter's tile places the 64 x 128 weights of a stage
+    bijectively in 16 KB; wgmma's MN-major descriptor (LBO 1024, SBO 2048,
+    start advanced by 4096 bytes a k16 step) reads exactly the (k, n) the
+    converter wrote for every k of each of the four k16 steps; a warp's
+    8-byte stores (lane l: columns 4 l .. 4 l + 3 of one K row) fill two
+    whole 128-byte wavefronts, every 4-byte bank once per half warp."""
+    kk, nn = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+    assert sorted((b5_w_off(kk, nn) // 2).ravel()) == list(range(64 * 128))
+    for step in range(4):
+        k16, n = np.meshgrid(np.arange(16), np.arange(128), indexing="ij")
+        got = wgmma_read_mn(step * 2 * 2048, 1024, 2048, k16, n)
+        assert (got == b5_w_off(step * 16 + k16, n)).all()
+    lanes = np.arange(32)
+    for k in range(64):
+        offs = b5_w_off(k, 4 * lanes)
+        for half in (offs[:16], offs[16:]):
+            banks = np.concatenate([half // 4, half // 4 + 1]) % 32
+            assert sorted(banks.tolist()) == list(range(32))
+
+
+@pytest.mark.parametrize("affine", [False, True])
+def test_b5_converter_arithmetic_equals_dequant_bit_for_bit(affine):
+    """The converter's weight without a conversion instruction: 2^23 + q
+    minus 2^23 (+ 8) is q (q - 8) exactly, then __fmul_rn by d (and
+    __fadd_rn of m), each rounded in f32 (numpy f32 ops: no FMA), then one
+    rounding to bf16, gives dequant_matmul_weight's bf16 weight bit for bit
+    at every code."""
+    rng = np.random.default_rng(24)
+    d = rng.uniform(1e-3, 0.02, 4096).astype(np.float32)
+    mn = (d * rng.uniform(-8, -7, 4096)).astype(np.float32)
+    q = np.arange(16, dtype=np.uint32)[:, None]
+    magic = (0x4B000000 | q).view(np.float32)
+    if affine:
+        v = (magic - np.float32(8388608.0)) * d[None, :] + mn[None, :]
+    else:
+        v = (magic - np.float32(8388616.0)) * d[None, :]
+    assert v.dtype == np.float32
+    got = torch.from_numpy(v).to(torch.bfloat16)
+    qs = torch.from_numpy(np.tile(q.astype(np.uint8) | (q.astype(np.uint8)
+                                                       << 4), (1, 1)))
+    w = tt.QuantMatmulWeight(
+        qs=qs.expand(16, 4096).contiguous(),
+        scales=torch.from_numpy(d)[None, :].contiguous(),
+        mins=torch.from_numpy(mn)[None, :].contiguous() if affine else None,
+        n_logical=4096)
+    want = tt.dequant_matmul_weight(w, torch.bfloat16)[:16]
+    assert torch.equal(got, want)
+
+
+def b5_emulate(x, w, sms):
+    """B5's bf16 kernel in numpy: 128 x 128 tiles, K split as b5_plan says
+    for `sms` SMs, 64-deep stages whose weights the converter writes
+    through b5_w_off into a byte tile and wgmma reads back through
+    wgmma_read_mn four k16 steps a stage, f32 sums per split, the splits
+    added in order; zeros past M, N and K as TMA fills."""
+    m, kx = x.shape
+    kh, n = w.qs.shape
+    k = kh * 2
+    kc = -(-kx // 32) * 32
+    splits, per = tqm.b5_plan(m, n, kc, sms)
+    nk = -(-kc // 64)
+    xb = torch.from_numpy(np.pad(x, ((0, 0), (0, k - kx)))).to(
+        torch.bfloat16).float().numpy()
+    wd = tt.dequant_matmul_weight(w, torch.bfloat16).float().numpy()
+    y = np.zeros((m, n), np.float32)
+    k16, nn = np.meshgrid(np.arange(16), np.arange(128), indexing="ij")
+    for m0 in range(0, m, 128):
+        for n0 in range(0, n, 128):
+            parts = []
+            for z in range(splits):
+                acc = np.zeros((128, 128), np.float32)
+                for kt in range(z * per, min(nk, (z + 1) * per)):
+                    tile = np.zeros((64, 128), np.float32)
+                    part = wd[kt * 64:kt * 64 + 64, n0:n0 + 128]
+                    tile[:part.shape[0], :part.shape[1]] = part
+                    buf = np.zeros(8192, np.float32)
+                    kk, cc = np.meshgrid(np.arange(64), np.arange(128),
+                                         indexing="ij")
+                    buf[b5_w_off(kk, cc) // 2] = tile
+                    a = np.zeros((128, 64), np.float32)
+                    xa = xb[m0:m0 + 128, kt * 64:kt * 64 + 64]
+                    a[:xa.shape[0], :xa.shape[1]] = xa
+                    for step in range(4):
+                        b = buf[wgmma_read_mn(step * 4096, 1024, 2048, k16,
+                                              nn) // 2]
+                        acc += a[:, step * 16:step * 16 + 16] @ b
+                parts.append(acc)
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p
+            y[m0:m0 + 128, n0:n0 + 128] = total[:m - m0, :n - n0]
+    return y[:, :w.n_logical]
+
+
+@pytest.mark.parametrize("m,sms", [(130, 132), (65, 4), (260, 1)])
+@pytest.mark.parametrize("affine", [False, True])
+def test_b5_emulation_equals_plain(m, sms, affine):
+    """The kernel's maps and order of operations (b5_emulate) against
+    q4_matmul_dequant within f32 reassociation, across partial row and
+    column tiles, K padded from 608 to the stored K, and K split in two
+    (four tiles on 132 SMs, two on 4) or not (six tiles on one SM)."""
+    wt = q41_weight(608, 200) if affine else weights(608, 200, seed=25)[0]
+    x = acts(m, 608, seed=26)
+    want = tqm.q4_matmul_dequant(torch.from_numpy(x), wt).numpy()
+    assert (tqm.b5_plan(m, wt.qs.shape[1], 608, sms)[0] > 1) == (sms > 1)
+    assert_close(b5_emulate(x, wt, sms), want, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [65, 128, 255, 256, 513])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("k,n", [(4096, 12288), (13824, 5120)])
+def test_b5_kernel_matches_plain_at_7b_and_13b_planes(cuda_device, m, mode,
+                                                      affine, k, n):
+    """B5 (q4_0 and q4_1, bf16 and f32 mode) on 7B and 13B planes against
+    its plain version within f32 reassociation (1e-5 of the largest
+    |x| @ |W|), across split and unsplit K and partial row tiles."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(m + k + affine)
+    kp, np_ = tt.good_pad_k(k), tt.good_pad_n(n)
+    sc = torch.rand((kp // 32, np_), generator=g, device=cuda_device) \
+        * 0.019 + 1e-3
+    w = tt.QuantMatmulWeight(
+        qs=torch.randint(0, 256, (kp // 2, np_), generator=g,
+                         device=cuda_device, dtype=torch.uint8),
+        scales=sc, mins=(sc * -7.5) if affine else None, n_logical=n)
+    x = torch.randn((m, k), generator=g, device=cuda_device)
+    dt = getattr(torch, mode)
+    got = tqm.q4_matmul_prefill(x, w, dt)
+    want = tqm.q4_matmul_dequant(x, w, dt)
+    wd = tt.dequant_matmul_weight(w, dt).float()
+    scale = (tqm._pad_k(x.abs(), kp).to(dt).float() @ wd.abs())[:, :n].max()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-5 * scale.item()
+    assert torch.equal(got, tqm.q4_matmul_prefill(x, w, dt))
