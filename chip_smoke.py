@@ -73,8 +73,34 @@ Phases (any failure exits nonzero before the last line):
      two-layer f32 engine's three modes to equal greedy streams; and runs
      a two-layer paged engine whose layers carry q/k/v LoRA terms, whose
      steps take RoPE, B7 and B6 apart (the standalone kernels' caller);
-  then one line {"kernels": [...]}, the nvidia-smi line, and last
-  {"ok": true, "device": {...}}.
+  7. the converters and the native repack: native/fastllama_native.cpp
+     built with g++ (seconds printed) and its quantizer held bit for bit
+     against numpy's on a w13-sized tensor; a 2-layer f16 GGJT file at 7B
+     widths quantized by the port's quantize (an fltpu directory) and
+     export_ggjt (a q4_0 GGJT), phase 5's fltpu directory exported to GGJT;
+     each GGJT loaded with Model(path=...) on the card by the native "q4p"
+     route (the log must say so) and by the numpy route: planes byte-equal,
+     prefill and first decode logits bit-equal (and equal to the quantized
+     fltpu directory's); load seconds of both routes and the quantize and
+     export seconds printed;
+  8. the C ABI: libfastllama_c.so built from native/c_api.cpp,
+     examples/c/main.c and perplexity.c compiled unchanged against the
+     port's header and library; main.c runs on phase 5's 8-layer q4_0 GGJT
+     with a 300-token prompt and 64 greedy tokens (n_ctx 512, n_batch 64)
+     and must stream the text fastllama_tpu_torch.Model streams here with
+     the same arguments; code run by FASTLLAMA_C_INIT in the C program's
+     interpreter reports the card and B1's and B4's launches (> 0);
+     perplexity.c over the prompt must be within 1e-3 relative of
+     Model.perplexity; the C program's and the Python API's host seconds
+     and tokens per second are printed side by side;
+  9. traces (inside phases 3 and 6): phase 3's session with profile_dir
+     set for 8 greedy tokens, whose device_op_breakdown must name B1's and
+     B4's kernels with a device total within 10% of the script's own
+     profile of 8 steps; phase 6's paged engine, one run() of 2 requests x
+     8 tokens with profile_dir, whose breakdown must name the fused paged
+     step's kernel; both top-10 lists printed;
+  then the whole script's seconds, one line {"kernels": [...]}, the
+  nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1379,6 +1405,8 @@ def main_path(torch, dev, gen):
     ms_tok = [r[1] / N_DECODE * 1e3 for r in runs]
     wbytes = model_weight_bytes(params)
     profile = profile_decode(torch, sess, n_steps=8)
+    require(profile, "the profiler saw no device time in the decode steps")
+    traced = trace_session(torch, model, sess, profile["device_ms_per_token"])
     prefill = profile_prefill(torch, sess, prompt)
     busy = profile.get("device_ms_per_token")
     med_ms = float(np.median(ms_tok))
@@ -1393,7 +1421,7 @@ def main_path(torch, dev, gen):
                device_idle_share=(None if busy is None else
                                   1.0 - busy / med_ms),
                decode_profile=profile, prefill_profile=prefill,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+               traced_generate=traced, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"main path: {json.dumps(res)}", flush=True)
     del sess, model
 
@@ -1704,7 +1732,7 @@ def file_entry_point(torch, tmp, label, n_layer, write, tol=1e-2,
     lm_cpu = load_model(path, lm_gpu.rcfg, device="cpu")
     errs = card_vs_cpu(lm_gpu, lm_cpu)
     require(max(errs) <= tol, f"{label}: card vs CPU logits rel err {errs}")
-    res = dict(n_layer=n_layer, write_s=write_s, load_s=load_s,
+    res = dict(path=path, n_layer=n_layer, write_s=write_s, load_s=load_s,
                text_len=len("".join(out)),
                rel_err_prefill=errs[0], rel_err_decode=errs[1])
     del model, lm_gpu, lm_cpu
@@ -1734,6 +1762,453 @@ def file_entry_points(torch, tmp):
             lambda path, hp: write_ggjt_file(path, hp, 7, affine=True),
             tol=3e-2, f32_too=True),
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the converters and the native repack
+# ---------------------------------------------------------------------------
+
+def write_f16_file(path, hp, seed):
+    """A GGJT file of f16 tensors at full width, norms one: random f16 bit
+    patterns with the exponent field at most 7 (|w| < 2^-7, finite, signs
+    and mantissas uniform), made as integers since normal samples of 666M
+    weights take most of this phase's time."""
+    from fastllama_tpu_torch.io.ggml_writer import write_ggjt
+    rng = np.random.default_rng(seed)
+
+    def w(n, k):
+        bits = rng.integers(0, 1 << 16, (n, k), dtype=np.uint16)
+        return ("f16", (bits & np.uint16(0x9FFF)).view(np.float16))
+
+    d, f = hp.n_embd, hp.n_ff
+    ones = ("f32", np.ones(d, np.float32))
+    tensors = {"tok_embeddings.weight": w(hp.n_vocab, d), "norm.weight": ones,
+               "output.weight": w(hp.n_vocab, d)}
+    for i in range(hp.n_layer):
+        p = f"layers.{i}."
+        tensors[p + "attention_norm.weight"] = ones
+        tensors[p + "ffn_norm.weight"] = ones
+        for nm in ("wq", "wk", "wv", "wo"):
+            tensors[p + f"attention.{nm}.weight"] = w(d, d)
+        tensors[p + "feed_forward.w1.weight"] = w(f, d)
+        tensors[p + "feed_forward.w3.weight"] = w(f, d)
+        tensors[p + "feed_forward.w2.weight"] = w(d, f)
+    write_ggjt(path, hp, synthetic_vocab(hp.n_vocab), tensors)
+
+
+class LogLines:
+    """A Logger whose info channel is kept, to read which repack route a
+    load took."""
+
+    def __init__(self):
+        import fastllama_tpu_torch
+        self.lines = []
+        self.logger = fastllama_tpu_torch.Logger(
+            log_fn=lambda fn, msg: self.lines.append(msg))
+
+    def route(self):
+        return [ln.split(":", 1)[1].strip() for ln in self.lines
+                if ln.startswith("q4_0 repack:")]
+
+
+def load_timed(torch, path, numpy_route=False):
+    """Model(path=...) on the card through the native repack or (numpy_route)
+    the numpy one; returns (model, load seconds, the route the log names)."""
+    import fastllama_tpu_torch
+    from fastllama_tpu_torch.quant import native
+    saved = native._LIB
+    if numpy_route:
+        native._LIB = None               # _TRIED stays set: available() False
+    log = LogLines()
+    try:
+        t0 = time.perf_counter()
+        model = fastllama_tpu_torch.Model(path=path, n_ctx=512, n_batch=64,
+                                          logger=log.logger)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        native._LIB = saved
+    return model, load_s, log.route()
+
+
+def model_planes(lm):
+    p = lm.params
+    out = [p.tok_embeddings.qs, p.tok_embeddings.scales, p.output.qs,
+           p.output.scales]
+    for layer in p.layers:
+        for f in ("wqkv", "wo", "w13", "w2"):
+            out += [getattr(layer, f).qs, getattr(layer, f).scales]
+    return out
+
+
+def eval_logits(lm):
+    """Prefill (21 tokens) and first decode logits of a loaded model."""
+    toks = [1] + list(range(300, 320))
+    lm.reset()
+    return lm.eval(0, toks), lm.eval(len(toks), [toks[-1]])
+
+
+def converters_path(torch, tmp, fltpu_path):
+    """Phase 7: the native library, a 2-layer f16 file at 7B widths
+    quantized by the port's quantize (fltpu) and export_ggjt (GGJT), phase
+    5's fltpu directory exported to GGJT; each GGJT loaded on the card by
+    the native route and the numpy route: equal planes, equal logits."""
+    import dataclasses
+    from fastllama_tpu_torch import native as native_build
+    from fastllama_tpu_torch.config import PRESETS, FType
+    from fastllama_tpu_torch.io.convert import export_ggjt, quantize
+    from fastllama_tpu_torch.quant import native, q4
+
+    lib = native_build.build_native()
+    require(native.available(), "the native repack library did not load")
+    # built at first use, by phase 5's first GGJT load (None: a build of an
+    # earlier run in this checkout was found)
+    build_s = native_build.build_seconds.get("fastllama_native")
+    print(f"native repack built in {build_s} s ({lib}, flags "
+          f"{' '.join(native_build.CXXFLAGS)})", flush=True)
+
+    # the quantizers alone on one w13-sized tensor: bit-equal, timed
+    x = (np.random.default_rng(12).standard_normal((11008, 4096),
+                                                   dtype=np.float32) * 0.02)
+    t0 = time.perf_counter()
+    nat = native.quantize_q4_0(x)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = q4.quantize_q4_0(x)
+    np_s = time.perf_counter() - t0
+    require(all(np.array_equal(a, b) for a, b in zip(nat, ref)),
+            "native q4_0 quantization differs from numpy's")
+    del x, nat, ref
+
+    hp = dataclasses.replace(PRESETS["7B"], n_layer=2, ftype=FType.MOSTLY_F16)
+    f16 = os.path.join(tmp, "f16_2_layers.bin")
+    t0 = time.perf_counter()
+    write_f16_file(f16, hp, seed=8)
+    write_s = time.perf_counter() - t0
+    outs = {"quantized.fltpu": os.path.join(tmp, "quantized.fltpu"),
+            "quantized.ggjt": os.path.join(tmp, "quantized.bin"),
+            "exported.ggjt": os.path.join(tmp, "exported.bin")}
+    t0 = time.perf_counter()
+    quantize(f16, outs["quantized.fltpu"], FType.MOSTLY_Q4_0)
+    quantize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export_ggjt(f16, outs["quantized.ggjt"], FType.MOSTLY_Q4_0)
+    export_f16_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export_ggjt(fltpu_path, outs["exported.ggjt"], FType.MOSTLY_Q4_0)
+    export_fltpu_s = time.perf_counter() - t0
+
+    loads = {}
+    for label in ("quantized.ggjt", "exported.ggjt"):
+        path = outs[label]
+        # native, numpy, numpy, native: the first load of a file pays for
+        # reading it into the page cache and growing the allocator
+        m_nat, nat_load_s, nat_route = load_timed(torch, path)
+        m_np, np_load_s, np_route = load_timed(torch, path, numpy_route=True)
+        again = [load_timed(torch, path, numpy_route=True)[1],
+                 load_timed(torch, path)[1]]
+        require(nat_route == ["native"] and np_route == ["numpy"],
+                f"{label}: repack routes {nat_route} / {np_route}")
+        pa, pb = model_planes(m_nat._model), model_planes(m_np._model)
+        require(len(pa) == len(pb) and all(
+            a.device.type == "cuda" and torch.equal(a, b)
+            for a, b in zip(pa, pb)),
+            f"{label}: native-route planes differ from the numpy route's")
+        la, lb = eval_logits(m_nat._model), eval_logits(m_np._model)
+        require(all(np.array_equal(a, b) for a, b in zip(la, lb))
+                and all(np.isfinite(a).all() for a in la),
+                f"{label}: native-route logits differ from the numpy route's")
+        loads[label] = dict(native_load_s=[nat_load_s, again[1]],
+                            numpy_load_s=[np_load_s, again[0]],
+                            planes=len(pa), logits_bit_equal=True)
+        if label == "quantized.ggjt":
+            lq = eval_logits(load_timed(torch, outs["quantized.fltpu"])[0]
+                             ._model)
+            require(all(np.array_equal(a, b) for a, b in zip(la, lq)),
+                    "quantize (fltpu) and export_ggjt (GGJT) of one f16 file "
+                    "give other logits")
+        del m_nat, m_np
+        torch.cuda.empty_cache()
+    res = dict(build_s=build_s, cxxflags=native_build.CXXFLAGS,
+               quantize_q4_0_11008x4096_s={"native": nat_s, "numpy": np_s},
+               f16_write_s=write_s, quantize_s=quantize_s,
+               export_ggjt_f16_s=export_f16_s,
+               export_ggjt_fltpu_s=export_fltpu_s, loads=loads,
+               f16_file_bytes=os.path.getsize(f16))
+    print(f"converters and native repack: {json.dumps(res)}", flush=True)
+    os.remove(f16)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the C ABI on the card
+# ---------------------------------------------------------------------------
+
+# Python run by the C ABI's boot hook in the C program's embedded
+# interpreter: after each generate / perplexity it prints one line to stderr
+# with the card, the kernels' launch counts since the process started, the
+# host time of the call, and the kernel library's load time.
+C_INIT = r"""
+import json, sys, time, torch
+import fastllama_tpu_torch as _F
+from fastllama_tpu_torch.kernels import cuda_lib as _cl
+from fastllama_tpu_torch.kernels import decode_attention as _da
+from fastllama_tpu_torch.kernels import q4_matmul as _qm
+_K = {"B1": _qm.q4_matmul_decode, "B2": _qm.quant_rows_int8,
+      "B3": _qm.q4_matmul_prefill_int8, "B4": _da.decode_attention_fused,
+      "B5": _qm.q4_matmul_prefill, "B9": _qm.q41_matmul_decode,
+      "B10": _da.decode_attention}
+def _wrap(name):
+    inner = getattr(_F.Model, name)
+    def call(self, *a, **k):
+        t0 = time.perf_counter()
+        r = inner(self, *a, **k)
+        torch.cuda.synchronize()
+        print("C_ABI_RUN " + json.dumps({
+            "call": name, "s": time.perf_counter() - t0,
+            "device": torch.cuda.get_device_name(),
+            "on_card": self._model.device.type == "cuda",
+            "launches": {k_: f.launches for k_, f in _K.items()},
+            "kernel_lib_s": _cl.build_seconds}), file=sys.stderr, flush=True)
+        return r
+    setattr(_F.Model, name, call)
+_wrap("generate")
+_wrap("perplexity")
+"""
+
+
+# The Python API in a fresh process, as main.c drives the C ABI: load, stop
+# word, ingest, one greedy generate, timed as the boot hook above times it.
+PY_RUN = r"""
+import json, sys, time, torch
+import fastllama_tpu_torch
+path, prompt, n = sys.argv[1], sys.argv[2], int(sys.argv[3])
+m = fastllama_tpu_torch.Model(path=path, n_ctx=512)
+m.set_stop_words("###")
+assert m.ingest(prompt)
+chunks = []
+t0 = time.perf_counter()
+assert m.generate(num_tokens=n, top_k=40, top_p=0.95, temp=0.0,
+                  repeat_penalty=1.0, streaming_fn=chunks.append)
+torch.cuda.synchronize()
+print(json.dumps({"s": time.perf_counter() - t0, "text": "".join(chunks)}))
+"""
+
+
+# The python command line as a C program linked to the shared libpython the
+# C ABI embeds: PY_RUN through it costs what the embedded interpreter
+# costs, without the ABI.
+EMBED_HOST_C = r"""
+#include <Python.h>
+int main(int argc, char** argv) { return Py_BytesMain(argc, argv); }
+"""
+
+
+def c_runs(stderr: str) -> list:
+    return [json.loads(ln.split("C_ABI_RUN ", 1)[1])
+            for ln in stderr.splitlines() if ln.startswith("C_ABI_RUN ")]
+
+
+def c_abi_path(torch, tmp, model_path):
+    """Phase 8: libfastllama_c.so from the port's sources; examples/c/main.c
+    and perplexity.c compiled unchanged against it and run on phase 5's
+    8-layer q4_0 GGJT; held against fastllama_tpu_torch.Model here."""
+    import fastllama_tpu_torch
+    from fastllama_tpu_torch import native as native_build
+
+    lib = native_build.build_c_abi()
+    build_s = native_build.build_seconds.get("fastllama_c")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    progs = {}
+    for name in ("main", "perplexity"):
+        progs[name] = os.path.join(tmp, f"fl_{name}")
+        cc = subprocess.run(
+            ["gcc", os.path.join(repo, "examples", "c", f"{name}.c"),
+             f"-I{native_build.HEADER_DIR}", f"-L{lib.parent}",
+             "-lfastllama_c", "-o", progs[name]],
+            capture_output=True, text=True)
+        require(cc.returncode == 0, f"examples/c/{name}.c did not compile "
+                f"against the port's header and library:\n{cc.stderr}")
+    env = native_build.c_program_env(lib.parent)
+    env["FASTLLAMA_C_INIT"] = C_INIT
+    prompt = prompt_of(N_PROMPT - 2, seed=9)
+
+    t0 = time.perf_counter()
+    r = subprocess.run([progs["main"], model_path, prompt, str(N_DECODE), "0"],
+                       capture_output=True, env=env, timeout=600)
+    c_wall = time.perf_counter() - t0
+    err = r.stderr.decode(errors="replace")
+    require(r.returncode == 0, f"main.c exited {r.returncode}:\n{err[-4000:]}")
+    runs = c_runs(err)
+    require(len(runs) == 1 and runs[0]["on_card"], f"main.c runs: {runs}")
+    crun = runs[0]
+    require(crun["launches"]["B1"] > 0 and crun["launches"]["B4"] > 0,
+            f"the C program launched {crun['launches']}: B1 and B4 expected")
+    require(f"logits: {32000} values" in err, "main.c: no logits view line")
+
+    # the same through the Python API in a fresh process: the same cold start
+    t0 = time.perf_counter()
+    rpy = subprocess.run([sys.executable, "-c", PY_RUN, model_path, prompt,
+                          str(N_DECODE)], capture_output=True, text=True,
+                         timeout=600, cwd=repo)
+    py_wall = time.perf_counter() - t0
+    require(rpy.returncode == 0, f"the Python API run failed:\n"
+            f"{rpy.stderr[-4000:]}")
+    py_cold = json.loads(rpy.stdout.strip().splitlines()[-1])
+
+    # ... and in a C program that is the python command over libpython
+    host_src = os.path.join(tmp, "py_host.c")
+    with open(host_src, "w") as fh:
+        fh.write(EMBED_HOST_C)
+    host = os.path.join(tmp, "py_host")
+    cc = subprocess.run(["gcc", host_src, "-o", host,
+                         *native_build.embed_flags()],
+                        capture_output=True, text=True)
+    require(cc.returncode == 0, f"py_host.c did not build:\n{cc.stderr}")
+    env_host = native_build.c_program_env(lib.parent)
+    rh = subprocess.run([host, "-c", PY_RUN, model_path, prompt,
+                         str(N_DECODE)], capture_output=True, text=True,
+                        timeout=600, cwd=repo, env=env_host)
+    require(rh.returncode == 0, f"the Python API run in py_host failed:\n"
+            f"{rh.stderr[-4000:]}")
+    py_host = json.loads(rh.stdout.strip().splitlines()[-1])
+
+    # the same file and arguments through the Python API, in this process
+    t0 = time.perf_counter()
+    model = fastllama_tpu_torch.Model(path=model_path, n_ctx=512)
+    load_s = time.perf_counter() - t0
+    chunks = []
+    model.set_stop_words("###")
+    require(model.ingest(prompt), "Model.ingest failed")
+    n_prompt = model.session.n_past + len(model.session._embd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    require(model.generate(num_tokens=N_DECODE, top_k=40, top_p=0.95,
+                           temp=0.0, repeat_penalty=1.0,
+                           streaming_fn=chunks.append), "Model.generate")
+    torch.cuda.synchronize()
+    py_gen_s = time.perf_counter() - t0
+    n_gen = model.session.n_past - n_prompt + 1
+    text = "".join(chunks).encode()
+    require(len(text) > 0 and r.stdout.rstrip(b"\n") == text
+            and py_cold["text"].encode() == text
+            and py_host["text"].encode() == text,
+            f"main.c streamed {r.stdout[:120]!r}..., the Python API "
+            f"{text[:120]!r}... ({py_cold['text'][:120]!r}... in a fresh "
+            "process)")
+    del model
+
+    # perplexity.c over a file holding the prompt
+    text_file = os.path.join(tmp, "prompt.txt")
+    with open(text_file, "w") as fh:
+        fh.write(prompt)
+    t0 = time.perf_counter()
+    rp = subprocess.run([progs["perplexity"], model_path, text_file],
+                        capture_output=True, env=env, timeout=600)
+    ppl_wall = time.perf_counter() - t0
+    perr = rp.stderr.decode(errors="replace")
+    out = rp.stdout.decode(errors="replace")
+    require(rp.returncode == 0,
+            f"perplexity.c exited {rp.returncode}:\n{perr[-4000:]}")
+    require(c_runs(perr) and c_runs(perr)[0]["on_card"],
+            "perplexity.c did not run on the card")
+    c_ppl = float(out.split("perplexity: ", 1)[1].split()[0])
+    model = fastllama_tpu_torch.Model(path=model_path, n_ctx=512,
+                                      should_get_all_logits=True)
+    py_ppl = model.perplexity(prompt)
+    require(abs(c_ppl - py_ppl) <= 1e-3 * abs(py_ppl),
+            f"perplexity.c {c_ppl} against Model.perplexity {py_ppl}")
+    del model
+    torch.cuda.empty_cache()
+    res = dict(c_abi_build_s=build_s, prompt_tokens=n_prompt,
+               tokens=n_gen, c_program_wall_s=c_wall,
+               c_generate_s=crun["s"], c_tok_s=n_gen / crun["s"],
+               c_launches=crun["launches"], c_device=crun["device"],
+               c_kernel_lib_s=crun["kernel_lib_s"],
+               python_process_wall_s=py_wall,
+               python_process_generate_s=py_cold["s"],
+               python_process_tok_s=n_gen / py_cold["s"],
+               python_shared_libpython_generate_s=py_host["s"],
+               python_shared_libpython_tok_s=n_gen / py_host["s"],
+               python_warm_load_s=load_s, python_warm_generate_s=py_gen_s,
+               python_warm_tok_s=n_gen / py_gen_s, streams_equal=True,
+               c_perplexity=c_ppl, python_perplexity=py_ppl,
+               perplexity_c_wall_s=ppl_wall)
+    print(f"C ABI: {json.dumps(res)}", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9: traces
+# ---------------------------------------------------------------------------
+
+def traced_breakdown(trace_dir, label, want):
+    """device_op_breakdown of a trace; fails unless every name in `want` is
+    a key. Prints the top 10."""
+    from fastllama_tpu_torch.utils.trace import (
+        device_op_breakdown, print_breakdown,
+    )
+    total, agg, cnt = device_op_breakdown(trace_dir)
+    missing = [k for k in want if k not in agg]
+    require(not missing, f"trace {label}: no {missing} in {sorted(agg)}")
+    print(f"trace {label}:", flush=True)
+    print_breakdown(total, agg, cnt, top=10, file=sys.stdout)
+    return total, [{"name": k, "us": v, "calls": cnt[k]}
+                   for k, v in agg.most_common(10)]
+
+
+def trace_session(torch, model, sess, profile_ms, n_steps=8):
+    """Phase 9, the session: profile_dir set for n_steps greedy tokens; the
+    breakdown names B1's and B4's kernels and its device total is within
+    10% of profile_decode's over as many steps of the same session."""
+    import dataclasses
+    t0 = time.perf_counter()
+    trace_dir = tempfile.mkdtemp(prefix="fltorch_trace_")
+    try:
+        model.rcfg = dataclasses.replace(model.rcfg, profile_dir=trace_dir)
+        require(sess.generate(lambda s: None, num_tokens=n_steps, temp=0.0),
+                "traced generate failed")
+        model.rcfg = dataclasses.replace(model.rcfg, profile_dir="")
+        total, top = traced_breakdown(
+            os.path.join(trace_dir, "generate"), "generate",
+            ("q4_mma_kernel", "attn_split_kernel"))
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    ref_ms = profile_ms * n_steps
+    require(abs(total / 1e3 - ref_ms) <= 0.1 * ref_ms,
+            f"traced generate: {total / 1e3} ms of device time against "
+            f"{ref_ms} ms in the script's own profile")
+    return dict(steps=n_steps, device_ms=total / 1e3, profile_ms=ref_ms,
+                top=top, seconds=time.perf_counter() - t0)
+
+
+def trace_engine(torch, sched, make_traced):
+    """Phase 9, the engine: one short run() (2 requests, 8 tokens) with
+    profile_dir; its breakdown names the fused paged step's kernel, which
+    launched (and standalone B6 did not)."""
+    kernels = all_kernels()
+    t0 = time.perf_counter()
+    trace_dir = tempfile.mkdtemp(prefix="fltorch_trace_")
+    try:
+        eng = make_traced(trace_dir)
+        reqs = [sched.Request(prompt=prompt_of(40, seed=400 + i),
+                              max_tokens=8, temp=0.0) for i in range(2)]
+        for fn in kernels.values():
+            fn.launches = 0
+        eng.run(reqs)
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        require(all(len(r.tokens_out) == 8 for r in reqs),
+                "traced engine run: a request did not finish")
+        require(counts["PS"] > 0 and counts["B6"] == 0,
+                f"traced engine run: launches {counts}")
+        total, top = traced_breakdown(
+            os.path.join(trace_dir, "engine_run"), "engine_run",
+            ("paged_split_kernel", "q4_mma_kernel"))
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    return dict(device_ms=total / 1e3, launches=counts, top=top,
+                seconds=time.perf_counter() - t0)
+
 
 
 # ---------------------------------------------------------------------------
@@ -1899,9 +2374,10 @@ def engine_path(torch, dev, gen):
            "page_size": ENG_PS, "prompts": ENG_PROMPTS, "gen": ENG_GEN}
 
     def maker(params, hp, mode, chunked=False, depth=None, seed=3,
-              mode_dtype="bfloat16"):
+              mode_dtype="bfloat16", profile_dir=""):
         rcfg = RuntimeConfig(n_ctx=ENG_CTX, n_batch=256 if chunked else 512,
-                             kv_dtype=mode_dtype, weight_dtype=mode_dtype)
+                             kv_dtype=mode_dtype, weight_dtype=mode_dtype,
+                             profile_dir=profile_dir)
         return lambda: sched.BatchEngine(
             hp, params, vocab, n_slots=ENG_SLOTS, n_ctx=ENG_CTX, rcfg=rcfg,
             sampling_seed=seed, kv_mode=mode, page_size=ENG_PS,
@@ -1974,7 +2450,10 @@ def engine_path(torch, dev, gen):
                           profile_steps=0, timed_steps=60)
         drain.append(dict(drain_depth=depth, **r))
     print(f"engine drain depth: {json.dumps(drain)}", flush=True)
+    traced = trace_engine(torch, sched, lambda d: maker(
+        params, hp, "paged", profile_dir=d)())
     res.update(steady=steady, drain_depth=drain, ttft_ms=ttft,
+               traced_engine_run=traced,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     del params, modes
     torch.cuda.empty_cache()
@@ -2026,6 +2505,7 @@ def engine_path(torch, dev, gen):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2059,22 +2539,37 @@ def main() -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    phase_s = {"1 build": time.perf_counter() - t_start}
+    t0 = time.perf_counter()
     checks = check_kernels(torch, dev, gen, out_dir)
+    phase_s["2 kernel checks"] = time.perf_counter() - t0
     # phase 2 calls the dequant path as a plain version and a yardstick; no
     # path from here on may call it on the card
     qm.q4_matmul_dequant.cuda_calls = 0
-    main_res = main_path(torch, dev, gen)
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[label] = time.perf_counter() - t0
+        return out
+
+    main_res = timed("3 q4_0 session (+ 9 traced)", main_path, torch, dev,
+                     gen)
     tmp = tempfile.mkdtemp(prefix="fltorch_smoke_")
     try:
-        q41_res = q41_lora_path(torch, dev, gen, tmp)
-        file_res = file_entry_points(torch, tmp)
-        engine_res = engine_path(torch, dev, gen)
+        q41_res = timed("4 q4_1 + LoRA", q41_lora_path, torch, dev, gen, tmp)
+        file_res = timed("5 files", file_entry_points, torch, tmp)
+        engine_res = timed("6 engine (+ 9 traced)", engine_path, torch, dev,
+                           gen)
+        conv_res = timed("7 converters", converters_path, torch, tmp,
+                         file_res["fltpu"]["path"])
+        c_res = timed("8 C ABI", c_abi_path, torch, tmp,
+                      file_res["ggjt_q4_0"]["path"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     require(qm.q4_matmul_dequant.cuda_calls == 0,
             f"the dequant path ran {qm.q4_matmul_dequant.cuda_calls} times "
-            "on the card in phases 3-6")
+            "on the card in phases 3-8")
 
     def pick(rows, key):
         return next(r for r in rows if key in r["shape"])
@@ -2162,6 +2657,8 @@ def main() -> int:
                                    "LoRA terms (phase 6, 2 layers); the "
                                    "paged engine's other steps run the "
                                    "fused step")
+        if key in c_res["c_launches"]:
+            kernels[-1]["launches_c_program"] = c_res["c_launches"][key]
         if key == "B1":
             m8 = pick(checks["B1"], "qkv M=8 ")
             kernels[-1].update(ms_at_engine_m8=m8["ms"],
@@ -2170,9 +2667,13 @@ def main() -> int:
     summary = {"card": smi, "build_s": cuda_lib.build_seconds,
                "kernel_checks": checks, "main_path": main_res,
                "q41_lora_path": q41_res, "file_entry_points": file_res,
-               "engine_path": engine_res}
+               "engine_path": engine_res, "converters": conv_res,
+               "c_abi": c_res, "seconds": time.perf_counter() - t_start,
+               "phase_seconds": phase_s}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(summary, fh, indent=1)
+    print(f"chip_smoke: whole script {summary['seconds']:.1f} s, by phase "
+          f"{json.dumps(phase_s)}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -81,12 +81,33 @@ class RuntimeConfig:
     # kernels B2+B3). None = on in bf16 mode, off in f32 mode; True/False
     # pin the path on every device.
     prefill_int8: bool | None = None
+    # Tracing (reference analog: ggml perf counters + graph_print): when
+    # set, FastLlama.generate / BatchEngine.run wrap their hot regions in
+    # torch.profiler traces under this directory (utils/trace.py).
+    profile_dir: str = ""
+
+
+# The device an entry point takes when its caller names none (None: the
+# card). Set only by set_default_device, for an embedder that cannot pass
+# device= through its own interface (the C ABI's FASTLLAMA_C_INIT hook).
+_default_device = None
+
+
+def set_default_device(device) -> None:
+    """Make `device` ("cpu", "cuda", ...) what every entry point of this
+    process runs on when its caller passes device=None; None restores the
+    card."""
+    global _default_device
+    _default_device = device
 
 
 def resolve_device(device=None):
-    """The device an entry point runs on: the card unless the caller asks
-    for the CPU. A missing card raises; nothing falls back to the CPU."""
+    """The device an entry point runs on: the card unless the caller (or
+    set_default_device) asks for the CPU. A missing card raises; nothing
+    falls back to the CPU."""
     import torch
+    if device is None:
+        device = _default_device
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -43,6 +43,7 @@ from ..models.llama import (
     ForwardConfig, LlamaParams, forward, forward_paged_decode,
     forward_paged_prefill, init_kv_cache, position_tables,
 )
+from ..utils.trace import trace_region
 from .logger import Logger, NULL_LOGGER
 from .paged_kv import PagedKVManager, write_tokens_paged
 from .sampling import draw_uniforms, sample_device
@@ -633,8 +634,9 @@ class BatchEngine:
         """Submit requests and run until all complete."""
         for r in requests:
             self.submit(r)
-        while not all(r.done for r in requests):
-            self.step()
+        with trace_region(self.rcfg.profile_dir, "engine_run"):
+            while not all(r.done for r in requests):
+                self.step()
         self._pending_drain = None
         self._inflight.clear()
         return list(requests)

@@ -31,6 +31,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from ..models.runtime import LlamaModel
+from ..utils.trace import trace_region
 from .logger import Logger, ProgressTag
 from .sampling import SamplingParams, sample_host
 from .token_buffer import TokenBuffer, TokenBufferPartialState
@@ -190,6 +191,14 @@ class FastLlama:
         if not self.model.is_valid:
             self.logger.log_err("generate", "tried to generate using invalid model\n")
             return False
+        with trace_region(self.model.rcfg.profile_dir, "generate"):
+            return self._generate_traced(streaming_fn, num_tokens, top_k,
+                                         top_p, temp, repeat_penalty,
+                                         stop_words, interrupt_fn)
+
+    def _generate_traced(self, streaming_fn, num_tokens, top_k, top_p, temp,
+                         repeat_penalty, stop_words,
+                         interrupt_fn=None) -> bool:
         vocab = self.model.vocab
         stop_bytes = [w.encode("utf-8") for w in stop_words]
         max_buf = max((len(tokenize(vocab, w, bos=False)) for w in stop_words),

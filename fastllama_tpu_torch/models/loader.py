@@ -25,6 +25,7 @@ from ..io.checkpoint import load_params, open_checkpoint
 from ..io.ggml_reader import (
     GGML_TYPE_Q4_0, GGML_TYPE_Q4_1, GgmlCheckpoint, read_ggml_checkpoint,
 )
+from ..quant import native
 from ..quant.tensor import make_embedding
 from .fuse import make_layer_params, matmul_from_spec
 from .llama import LlamaParams
@@ -32,11 +33,17 @@ from .runtime import LlamaModel
 
 
 def _ggml_spec(ckpt: GgmlCheckpoint, name: str) -> tuple:
-    """Weight spec for make_layer_params, repacked by numpy: "q4", "q41" or
-    "dense". (The JAX loader first tries its native threaded repack, the
-    "q4p" spec of quant/native.py; that library is ported with the C ABI.)"""
+    """Weight spec for make_layer_params: a q4_0 tensor takes the native
+    threaded repack ("q4p" device planes) when the library is available,
+    else numpy ("q4"); q4_1 is "q41" and anything else "dense". Both q4_0
+    routes give the same bytes."""
     ttype = ckpt.tensor_type(name)
     if ttype == GGML_TYPE_Q4_0:
+        single = ckpt.raw_single(name) if native.available() else None
+        if single is not None:
+            wire, (n, k) = single
+            return ("q4p", *native.repack_q4_wire(wire, n, k, n_pad=n,
+                                                  k_pad=k))
         return ("q4", *ckpt.q4_0(name))
     if ttype == GGML_TYPE_Q4_1:
         return ("q41", *ckpt.q4_1(name))
@@ -44,6 +51,21 @@ def _ggml_spec(ckpt: GgmlCheckpoint, name: str) -> tuple:
     if dense.ndim == 2:
         dense = np.ascontiguousarray(dense.T)      # the model wants [K, N]
     return ("dense", dense)
+
+
+def repack_route(ckpt: GgmlCheckpoint) -> str | None:
+    """Which route _ggml_spec takes for this file's q4_0 matmul weights:
+    "native" (the threaded C++ repack), "numpy" (no C++ compiler, or a
+    tensor split across shard files), or None when it holds none."""
+    names = [nm for nm in ckpt.tensor_names()
+             if nm != "tok_embeddings.weight"
+             and ckpt.tensor_type(nm) == GGML_TYPE_Q4_0]
+    if not names:
+        return None
+    if native.available() and all(ckpt.raw_single(nm) is not None
+                                  for nm in names):
+        return "native"
+    return "numpy"
 
 
 def _ggml_embedding(ckpt: GgmlCheckpoint, dev):
@@ -112,6 +134,9 @@ def load_model(path: str, rcfg: RuntimeConfig = RuntimeConfig(),
         ckpt = read_ggml_checkpoint(path)
         hp = ckpt.hyperparams
         vocab = ckpt.vocab
+        route = repack_route(ckpt)
+        if route is not None:
+            logger.log("Model", f"q4_0 repack: {route}\n")
         params = _load_ggml_params(ckpt, dev, logger)
     logger.log("Model", f"n_vocab = {hp.n_vocab}\n")
     logger.log("Model", f"n_embd  = {hp.n_embd}\n")

@@ -202,16 +202,23 @@ def make_matmul_weight_q41(codes: np.ndarray, scales: np.ndarray,
         scales=planes[0], mins=planes[1], n_logical=n)
 
 
+def planes_to_codes(qs: np.ndarray, scales: np.ndarray, k_logical: int,
+                    n_logical: int) -> tuple[np.ndarray, np.ndarray]:
+    """Device-layout planes (qs [K/2, N], scales [K/32, N], either possibly
+    padded) -> row-major (codes [N, K], scales [N, K//32]) numpy, the
+    padding stripped to the logical dims."""
+    codes_t = split_unpack_lastdim(np.asarray(qs, np.uint8).T).T   # [K, N]
+    return (np.ascontiguousarray(codes_t[:k_logical, :n_logical].T),
+            np.ascontiguousarray(
+                np.asarray(scales)[: k_logical // QBLOCK, :n_logical].T))
+
+
 def matmul_weight_to_codes(w: QuantMatmulWeight, k_logical: int | None = None
                            ) -> tuple[np.ndarray, np.ndarray]:
     """Device layout -> row-major (codes [N, K], scales [N, K//32]) numpy.
     Padding is stripped (N via n_logical; K via k_logical if given)."""
-    packed = w.qs.cpu().numpy()                       # [K_pad/2, N_pad]
-    codes_t = split_unpack_lastdim(packed.T).T        # [K_pad, N_pad]
-    scales_t = w.scales.cpu().numpy()
-    k = k_logical or codes_t.shape[0]
-    return (np.ascontiguousarray(codes_t[:k, :w.n_logical].T),
-            np.ascontiguousarray(scales_t[: k // QBLOCK, :w.n_logical].T))
+    return planes_to_codes(w.qs.cpu().numpy(), w.scales.cpu().numpy(),
+                           k_logical or w.k, w.n_logical)
 
 
 def make_embedding(codes: np.ndarray, scales: np.ndarray,
