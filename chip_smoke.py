@@ -37,9 +37,12 @@ Phases (any failure exits nonzero before the last line):
      300 and pp * ps - 1 with an inactive sentinel slot, bf16 and f32
      pools, 32 and 40 heads: its written rows bit for bit against its plain
      version and the standalone B7, ctx within B6's tolerance, timed beside
-     the unfused step (the forward's glue, B7 and B6). Afterwards no phase
+     the unfused step (the forward's glue, B7 and B6). The 7B planes a rank
+     holds under tensor parallelism (cut by parallel/sharding.shard_params
+     at tp = 2 and 4): B1 at M = 1 and 8, B2 + B3 bit for bit at M = 512
+     and 256, B5 at M = 128 and 512, each timed. Afterwards no phase
      may call the dequant path on the card (q4_matmul_dequant.cuda_calls
-     must read 0 after phase 6);
+     must read 0 after phase 10);
   3. the q4_0 session at full 7B width (32 layers, bf16 weights and KV,
      n_ctx 512, seeded random weights made on the card): LlamaModel +
      FastLlama ingest a 300-token prompt with n_batch 512 and generate 64
@@ -99,6 +102,22 @@ Phases (any failure exits nonzero before the last line):
      profile of 8 steps; phase 6's paged engine, one run() of 2 requests x
      8 tokens with profile_dir, whose breakdown must name the fused paged
      step's kernel; both top-10 lists printed;
+ 10. multi-GPU serving (parallel/) in worlds of ranks spawned with
+     torch.multiprocessing, gloo, every rank on cuda:0 (time-slicing the
+     card: their ms per token are printed as such, not as a TP speed), on
+     phase 5's 8-layer q4_0 and 2-layer q4_1 GGJT files, each held against
+     the one-card run of the same file: world (1, 2) the TP session
+     (300-token prompt, int8 then bf16-exact prefill, 64 greedy tokens;
+     first-token logits within phase 5's 1e-2; saved, then loaded into a
+     one-card Model: its next logits within 1e-2 of the world's), TP + LoRA
+     on the q4_1 file (detach bit for bit on every rank), the engine paged
+     and slab; world (2, 1) the SP session (seq_parallel, n_ctx 2048, a
+     1024-token prompt in n_batch 512 chunks, 32 greedy tokens) and the
+     engine with dp 2; world (2, 2) the engine on the q4_1 file in f32,
+     whose greedy streams must equal one card's. Every rank's launches are
+     read (B1-B4 > 0 in the TP session, the fused paged step > 0, the
+     dequant path 0), and the bytes gloo's CUDA all-gathers and ring sends
+     copied through the host are printed;
   then the whole script's seconds, one line {"kernels": [...]}, the
   nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -357,9 +376,12 @@ def check_kernels(torch, dev, gen, out_dir):
     results = {}
     check_decode_matmuls(torch, dev, gen, results)
     check_prefill_matmuls(torch, dev, gen, results)
+    check_shard_planes(torch, dev, gen, results)
     check_decode_attention(torch, dev, gen, results)
     check_engine_kernels(torch, dev, gen, results)
     check_fused_paged_step(torch, dev, gen, results)
+    check_shard_attention(torch, dev, gen, results)
+    check_fused_paged_step(torch, dev, gen, results, heads=SHARD_HEADS)
     with open(os.path.join(out_dir, "kernel_checks.json"), "w") as fh:
         json.dump(results, fh, indent=1)
     return results
@@ -370,6 +392,17 @@ def absum_of(torch, qm, x, wd, n, mode):
     f32 reassociation tolerance."""
     return (qm._pad_k(x.abs(), wd.shape[0]).to(mode).float()
             @ wd.float().abs())[:, :n].max().item()
+
+
+def b9_tol(torch, qm, x, w, mode):
+    """B9's tolerance: 1e-5 of sum |x| |R(q d)| + sum |bsum| |m|, both
+    terms' scale."""
+    qd = qm.dequant_matmul_weight(type(w)(
+        qs=w.qs, scales=w.scales, mins=torch.zeros_like(w.mins)), mode)
+    nb = w.k // 32
+    bsum = qm._pad_k(x, w.k).reshape(x.shape[0], nb, 32).sum(-1).abs()
+    return 1e-5 * (absum_of(torch, qm, x, qd, w.n_logical, mode) + (
+        bsum @ w.mins.abs())[:, :w.n_logical].max().item())
 
 
 # (name, K logical, N logical) of the main path's matmuls at 7B and 13B
@@ -397,14 +430,7 @@ def check_decode_matmuls(torch, dev, gen, results):
     def b9_case(x, w, mode):
         y = qm.q41_matmul_decode(x, w, mode)
         y_ref = qm.q41_matmul_decode_plain(x, w, mode)
-        # 1e-5 of sum |x| |R(q d)| + sum |bsum| |m|, both terms' scale
-        qd = qm.dequant_matmul_weight(type(w)(
-            qs=w.qs, scales=w.scales, mins=torch.zeros_like(w.mins)), mode)
-        nb = w.k // 32
-        bsum = qm._pad_k(x, w.k).reshape(x.shape[0], nb, 32).sum(-1).abs()
-        tol = 1e-5 * (absum_of(torch, qm, x, qd, w.n_logical, mode) + (
-            bsum @ w.mins.abs())[:, :w.n_logical].max().item())
-        return y, y_ref, tol
+        return y, y_ref, b9_tol(torch, qm, x, w, mode)
 
     for key, affine, fn, case, rows_of, f32_plane in (
             ("B1", False, qm.q4_matmul_decode, b1_case, B1_ROWS, "wo"),
@@ -1156,9 +1182,11 @@ def check_engine_kernels(torch, dev, gen, results):
 # phases 3 and 4
 # ---------------------------------------------------------------------------
 
-def check_fused_paged_step(torch, dev, gen, results):
+def check_fused_paged_step(torch, dev, gen, results, heads=(32, 40)):
     """Phase 2, the fused paged step (RoPE + B7's write + B6's attention in
-    one launch) at 7B and 13B heads, bf16 and f32 pools: eight slots at
+    one launch) at 7B and 13B heads, or at the heads a rank holds under
+    tensor parallelism (SHARD_HEADS; rows to results["shard_local"]), bf16
+    and f32 pools: eight slots at
     lengths 0, 1, ps - 1, ps, ps + 1, 300 and pp * ps - 1 plus an inactive
     slot (sentinel page id, length 0), NaN in every page no sequence
     reaches. Held against its plain version (ctx within B6's tolerance on
@@ -1197,7 +1225,7 @@ def check_fused_paged_step(torch, dev, gen, results):
     rows = []
     lens_check = [0, 1, ps - 1, ps, ps + 1, 300, pp * ps - 1, 0]
     active = [True] * 7 + [False]
-    for h in (32, 40):
+    for h in heads:
         f = h * d
         for dt in (torch.bfloat16, torch.float32):
             name = f"H={h} {'bf16' if dt == torch.bfloat16 else 'f32'}"
@@ -1247,7 +1275,7 @@ def check_fused_paged_step(torch, dev, gen, results):
             row = dict(shape=f"B={b} {name} d={d} ps={ps} pp={pp} "
                        f"lengths={lens_check} (last slot inactive)",
                        max_abs_err=err, err_vs_b7_b6=err_b, tol=tol)
-            if h == 32:
+            if h != 40:
                 for label, lens in (("8x300", [300] * b),
                                     ("steady", [100, 107, 114, 121, 128, 135,
                                                 142, 150])):
@@ -1300,7 +1328,10 @@ def check_fused_paged_step(torch, dev, gen, results):
             rows.append(row)
             print(f"fused step {row}", flush=True)
             del kp, vp, kq, vq, k2, v2, k3, v3
-    results["PS"] = rows
+    if heads == SHARD_HEADS:
+        results["shard_local"] += [dict(kernel="PS", **r) for r in rows]
+    else:
+        results["PS"] = rows
 
 
 def counted_kernels(qm, da):
@@ -2504,6 +2535,712 @@ def engine_path(torch, dev, gen):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 2, continued: the planes a rank holds under tensor parallelism
+# ---------------------------------------------------------------------------
+
+# the tensor-parallel degrees whose rank-local 7B planes phase 2 holds
+SHARD_TPS = (2, 4)
+SHARD_HEADS = tuple(32 // tp for tp in SHARD_TPS)     # 7B's 32 heads split
+
+
+def clone_weight(w):
+    from fastllama_tpu_torch.quant.tensor import QuantMatmulWeight
+    return QuantMatmulWeight(
+        qs=w.qs.clone(), scales=w.scales.clone(),
+        mins=None if w.mins is None else w.mins.clone(),
+        n_logical=w.n_logical)
+
+
+def shard_planes(torch, dev, gen, tp, affine=False):
+    """(name, weight) of the 7B planes model-axis rank tp - 1 holds, cut by
+    the port's shard_params from one random 7B layer and head (q4_1 where
+    affine): K padding stripped before the split (wo, w2), fused columns
+    re-laid and N re-padded per shard (qkv, w13, head)."""
+    from fastllama_tpu_torch.config import PRESETS
+    from fastllama_tpu_torch.models.llama import LayerParams, LlamaParams
+    from fastllama_tpu_torch.parallel.sharding import shard_params
+    from fastllama_tpu_torch.quant.tensor import QuantEmbedding
+    hp = PRESETS["7B"]
+    d, f, v = hp.n_embd, hp.n_ff, hp.n_vocab
+    layer = LayerParams(
+        attention_norm=torch.ones(d, device=dev),
+        wqkv=rand_weight(torch, d, 3 * d, gen, dev, affine),
+        wo=rand_weight(torch, d, d, gen, dev, affine),
+        ffn_norm=torch.ones(d, device=dev),
+        w13=rand_weight(torch, d, 2 * f, gen, dev, affine),
+        w2=rand_weight(torch, f, d, gen, dev, affine))
+    emb = QuantEmbedding(
+        qs=torch.zeros((v, d // 2), dtype=torch.uint8, device=dev),
+        scales=torch.zeros((v, d // 32), device=dev))
+    p = shard_params(LlamaParams(tok_embeddings=emb,
+                                 norm=torch.ones(d, device=dev),
+                                 output=rand_weight(torch, d, v, gen, dev,
+                                                    affine),
+                                 layers=[layer]), tp - 1, tp)
+    lay = p.layers[0]
+    return [("qkv", lay.wqkv), ("wo", lay.wo), ("w13", lay.w13),
+            ("w2", lay.w2), ("head", p.output)]
+
+
+# each kernel's rows on a rank's planes: B1 (decode, the engine's step), B3
+# (with B2; the 512 bucket, the chunked admission) and B5 (bf16-exact
+# prefill) on q4_0; B9 (decode, the engine's step) on q4_1
+SHARD_CASES = {False: (("B1", 1), ("B1", 8), ("B3", 512), ("B3", 256),
+                       ("B5", 128), ("B5", 512)),
+               True: (("B9", 1), ("B9", 8))}
+
+
+def check_shard_planes(torch, dev, gen, results):
+    """B1 (M = 1, 8; bf16), B3 (M = 512, 256; bit for bit, with B2) and B5
+    (M = 128, 512; bf16) on the q4_0 planes a rank holds at tp = 2 and 4,
+    and B9 (M = 1, 8; bf16) on the q4_1 planes, against their plain
+    versions as on the whole planes; each timed over cycled copies of the
+    plane, the plain version and the bound beside it."""
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    bf16 = torch.bfloat16
+    rows = results.setdefault("shard_local", [])
+    for tp in SHARD_TPS:
+        for affine, cases in SHARD_CASES.items():
+            quant = "q4_1" if affine else "q4_0"
+            for name, w in shard_planes(torch, dev, gen, tp, affine):
+                k, n, n_st = w.k, w.n_logical, w.qs.shape[1]
+                wbytes = weight_bytes(w)
+                ws = [w] + [clone_weight(w)
+                            for _ in range(copies_for(wbytes) - 1)]
+                wd = qm.dequant_matmul_weight(w, bf16)
+                for key, m in cases:
+                    label = f"{key} tp={tp} {name} M={m} K={k} N={n} " \
+                            f"(stored {n_st}) {quant}"
+                    x = torch.randn((m, k), generator=gen, device=dev)
+                    it = iter(range(10**9))
+                    if key == "B3":
+                        x = x * 3.0
+                        xq, dx = qm.quant_rows_int8(x, w.k)
+                        xq_ref, dx_ref = qm.quant_rows_int8_plain(x, w.k)
+                        require(torch.equal(xq, xq_ref)
+                                and torch.equal(dx, dx_ref),
+                                f"B2 {label}: not bit-exact")
+                        y = qm.q4_matmul_prefill_int8(xq, dx, w)
+                        y_ref = qm.q4_matmul_prefill_int8_plain(xq, dx, w)
+                        err, tol = (y - y_ref).abs().max().item(), 0.0
+                        require(torch.equal(y, y_ref), f"{label}: not "
+                                f"bit-exact (max err {err})")
+
+                        def run():
+                            return qm.q4_matmul_prefill_int8(
+                                xq, dx, ws[next(it) % len(ws)])
+
+                        def plain():
+                            return qm.q4_matmul_prefill_int8_plain(xq, dx, w)
+
+                        def again():
+                            return qm.q4_matmul_prefill_int8(xq, dx, w)
+                        nbytes, kind = (m * w.k + m * 4 + wbytes + m * n * 4,
+                                        "int8")
+                    else:
+                        fn, pfn = {
+                            "B1": (qm.q4_matmul_decode, qm.q4_matmul_dequant),
+                            "B5": (qm.q4_matmul_prefill, qm.q4_matmul_dequant),
+                            "B9": (qm.q41_matmul_decode,
+                                   qm.q41_matmul_decode_plain)}[key]
+                        y = fn(x, w, bf16)
+                        y_ref = pfn(x, w, bf16)
+                        err = (y - y_ref).abs().max().item()
+                        tol = (b9_tol(torch, qm, x, w, bf16) if affine else
+                               1e-5 * absum_of(torch, qm, x, wd, n, bf16))
+                        require(bool(torch.isfinite(y).all()) and err <= tol,
+                                f"{label}: err {err} > {tol}")
+
+                        def run(fn=fn):
+                            return fn(x, ws[next(it) % len(ws)], bf16)
+
+                        def plain(pfn=pfn):
+                            return pfn(x, w, bf16)
+
+                        def again(fn=fn):
+                            return fn(x, w, bf16)
+                        nbytes, kind = (wbytes + x.numel() * 4 + m * n * 4,
+                                        "bf16")
+                    require(torch.equal(y, again()),
+                            f"{label}: not deterministic")
+                    ms = time_ms(torch, run, calls=2 * len(ws))
+                    plain_ms = (time_ms(torch, plain, calls=2)
+                                if m in (1, 512) else None)
+                    bnd, by = bound_ms(nbytes, 2.0 * m * k * n, kind)
+                    row = dict(kernel=key, m=m, shape=label, max_abs_err=err,
+                               tol=tol, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bnd, bound_by=by,
+                               bound_share=bnd / ms)
+                    rows.append(row)
+                    print(f"shard-local {row}", flush=True)
+                del ws, w, wd
+
+
+def check_shard_attention(torch, dev, gen, results):
+    """B4 and B10 at the heads a rank holds at tp = 2 and 4 (16 and 8): at
+    B = 1 (the TP session) at the depths where the 64-row chunks begin and
+    end, the last row and past S (an inactive slot), and at B = 8 (the slab
+    engine's step) with per-slot depths, one of them past S; bf16 and f32
+    caches. Held against their plain versions at the whole-width rows'
+    tolerances (B4: output within 2^-7 (bf16) or 5e-5 (f32) of the largest
+    output, caches bit for bit, the same result twice; B10: within 5e-5);
+    timed on bf16 caches at 1 x 300 and 8 x 300 over cycled caches."""
+    from fastllama_tpu_torch.kernels import decode_attention as da
+    rows = results.setdefault("shard_local", [])
+    s_len, d = ENG_CTX, 128
+    scale = 1 / math.sqrt(d)
+    kw4 = dict(head_dim=d, n_rot=d, scale=scale)
+    depth_sets = {1: [[n] for n in (0, 1, 63, 64, 65, 300, 511,
+                                    s_len + 88)],
+                  ENG_SLOTS: [[0, 1, 63, 64, 300, 511, s_len + 1, 200],
+                              [300] * ENG_SLOTS]}
+    for tp in SHARD_TPS:
+        h = 32 // tp
+        f = h * d
+        for b, sets in depth_sets.items():
+            for dt in (torch.bfloat16, torch.float32):
+                kind = "bf16" if dt == torch.bfloat16 else "f32"
+                kc, vc = (torch.randn((b, s_len, f), generator=gen,
+                                      device=dev).to(dt) for _ in range(2))
+                for depths in sets:
+                    label = f"tp={tp} B={b} S={s_len} H={h} d={d} " \
+                            f"depths={depths} {kind} caches"
+                    npv = torch.tensor(depths, dtype=torch.int32, device=dev)
+                    cos, sin = da.rope_lane_tables(
+                        npv.clamp_max(s_len - 1), d, d)
+                    qkv = torch.randn((b, 1, 3 * f), generator=gen,
+                                      device=dev)
+                    runs = []
+                    for _ in range(2):
+                        k1, v1 = kc.clone(), vc.clone()
+                        runs.append((da.decode_attention_fused(
+                            qkv, k1, v1, npv, cos, sin, **kw4), k1, v1))
+                    k2, v2 = kc.clone(), vc.clone()
+                    ref = da.decode_attention_fused_plain(
+                        qkv, k2, v2, npv, cos, sin, **kw4)
+                    ctx, k1, v1 = runs[0]
+                    err = (ctx - ref).abs().max().item()
+                    tol = ((2 ** -7 if kind == "bf16" else 5e-5)
+                           * ref.abs().max().item() + 1e-6)
+                    require(bool(torch.isfinite(ctx).all()),
+                            f"B4 {label}: not finite")
+                    require(err <= tol, f"B4 {label}: err {err} > {tol}")
+                    require(torch.equal(k1, k2) and torch.equal(v1, v2),
+                            f"B4 {label}: caches differ")
+                    require(all(torch.equal(x, y)
+                                for x, y in zip(runs[0], runs[1])),
+                            f"B4 {label}: not deterministic")
+                    del runs, k1, v1, k2, v2
+                    b4 = dict(kernel="B4", shape="B4 " + label,
+                              max_abs_err=err, tol=tol)
+                    q = torch.randn((b, 1, f), generator=gen, device=dev)
+                    ctx = da.decode_attention(q, kc, vc, npv, head_dim=d,
+                                              scale=scale)
+                    ref = da.decode_attention_plain(q, kc, vc, npv,
+                                                    head_dim=d, scale=scale)
+                    err = (ctx - ref).abs().max().item()
+                    tol = 5e-5 * ref.abs().max().item() + 1e-6
+                    require(bool(torch.isfinite(ctx).all()),
+                            f"B10 {label}: not finite")
+                    require(err <= tol, f"B10 {label}: err {err} > {tol}")
+                    require(torch.equal(ctx, da.decode_attention(
+                        q, kc, vc, npv, head_dim=d, scale=scale)),
+                        f"B10 {label}: not deterministic")
+                    b10 = dict(kernel="B10", shape="B10 " + label,
+                               max_abs_err=err, tol=tol)
+                    if kind == "bf16" and depths[0] == 300 \
+                            and len(set(depths)) == 1:
+                        b4.update(_time_attention(
+                            torch, dev, gen, da, b, s_len, h, d, qkv, q, npv,
+                            cos, sin, kc, vc, kw4))
+                        b10.update(b4.pop("b10"))
+                    for row in (b4, b10):
+                        rows.append(row)
+                        print(f"shard-local {row}", flush=True)
+                del kc, vc
+
+
+def _time_attention(torch, dev, gen, da, b, s_len, h, d, qkv, q, npv, cos,
+                    sin, kc, vc, kw4):
+    """B4's and B10's times (ms, plain ms, bound) over bf16 caches cycled
+    through more than the L2, at the depths npv; B10's under "b10"."""
+    f = h * d
+    n = copies_for(2 * kc.numel() * kc.element_size())
+    caches = [(kc, vc)] + [tuple(torch.randn(kc.shape, generator=gen,
+                                             device=dev).to(kc.dtype)
+                                 for _ in range(2)) for _ in range(n - 1)]
+    it = iter(range(10**9))
+
+    def run4():
+        kk, vv = caches[next(it) % n]
+        da.decode_attention_fused(qkv, kk, vv, npv, cos, sin, **kw4)
+
+    def run10():
+        kk, vv = caches[next(it) % n]
+        da.decode_attention(q, kk, vv, npv, head_dim=d, scale=kw4["scale"])
+    depths = npv.tolist()
+    r4 = sum(min(x, s_len) for x in depths)
+    r10 = sum(min(x + 1, s_len) for x in depths)
+    bnd4, by4 = bound_ms(b * 3 * f * 4 + 2 * r4 * f * 2 + 2 * b * f * 2
+                         + 2 * b * d * 4 + b * 4 + b * f * 4, 4.0 * r4 * f,
+                         "bf16")
+    bnd10, by10 = bound_ms(2 * b * f * 4 + 2 * r10 * f * 2 + b * 4,
+                           4.0 * r10 * f, "bf16")
+    out = dict(ms=time_ms(torch, run4, calls=4 * n),
+               plain_ms=time_ms(torch, lambda: da.decode_attention_fused_plain(
+                   qkv, kc.clone(), vc.clone(), npv, cos, sin, **kw4),
+                   calls=2),
+               bound_ms=bnd4, bound_by=by4,
+               b10=dict(ms=time_ms(torch, run10, calls=4 * n),
+                        plain_ms=time_ms(torch, lambda: da
+                                         .decode_attention_plain(
+                                             q, kc, vc, npv, head_dim=d,
+                                             scale=kw4["scale"]), calls=2),
+                        bound_ms=bnd10, bound_by=by10))
+    out["bound_share"] = bnd4 / out["ms"]
+    out["b10"]["bound_share"] = bnd10 / out["b10"]["ms"]
+    del caches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: multi-GPU serving (parallel/), ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# phase 5's bf16 tolerances, card against CPU (q4_0, q4_1)
+PAR_TOL, PAR_TOL_Q41 = 1e-2, 3e-2
+SP_CTX, SP_PROMPT, SP_DECODE = 2048, 1024, 32
+SHARED = "ranks sharing one H100 (time-sliced; not a TP speed)"
+# bf16 mesh engines: streams of the twelve that may leave the one-card
+# engine's greedy stream after their first token
+ENG_BF16_SLACK = 2
+# the run of the (1, 2) world whose launches a kernel's line reports
+TP_PART = {"B1": "int8", "B2": "int8", "B3": "int8", "B4": "int8",
+           "B5": "bf16_exact", "B9": "lora", "B10": "lora",
+           "PS": "engine_paged"}
+
+
+def _rank_main(rank, n, port, fn, args, q):
+    """One rank of a spawned world: gloo over localhost, every rank on the
+    card (cuda:0 here: the world shares it)."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=n)
+        q.put((rank, fn(torch, *args), None))
+    except BaseException:                           # reported to the parent
+        q.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_world(shape, fn, *args, timeout=400.0):
+    """fn(torch, *args) on dp * tp spawned ranks; their results in rank
+    order. Every process started here is stopped before it returns."""
+    import queue
+    import socket
+    import torch.multiprocessing as mp
+    n = shape[0] * shape[1]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, args=(r, n, port, fn, args, q))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    out, err, got = [None] * n, None, 0
+    deadline = time.monotonic() + timeout
+    try:
+        while got < n and err is None:
+            try:
+                rank, res, tb = q.get(timeout=2.0)
+            except queue.Empty:
+                lost = [(r, p.exitcode) for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0)]
+                if lost:
+                    err = f"world {shape}: ranks ended without a result " \
+                          f"(rank, exit code) {lost}"
+                elif time.monotonic() > deadline:
+                    err = f"world {shape}: no result within {timeout} s"
+                continue
+            if tb:
+                err = f"world {shape} rank {rank}:\n{tb}"
+            out[rank] = res
+            got += 1
+    finally:
+        for p in procs:
+            p.join(timeout=10 if err is None else 1)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    require(err is None, str(err))
+    return out
+
+
+def _counts_and_staged():
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    from fastllama_tpu_torch.parallel import collectives
+    return dict(launches={k: fn.launches for k, fn in all_kernels().items()},
+                dequant_cuda_calls=qm.q4_matmul_dequant.cuda_calls,
+                staged_bytes=dict(collectives.STAGED["bytes"]),
+                staged_calls=dict(collectives.STAGED["calls"]))
+
+
+def _reset_counts():
+    from fastllama_tpu_torch.parallel import collectives
+    for fn in all_kernels().values():
+        fn.launches = 0
+    collectives.reset_staged()
+
+
+def _session_run(torch, sess, prompt, n_decode):
+    """Reset, ingest, the first token (its logits), n_decode - 1 more;
+    returns (first logits, stream, ms per decoded token)."""
+    sess.reset()
+    require(sess.ingest(prompt), "ingest failed")
+    require(sess.generate(lambda s: None, num_tokens=1, temp=0.0),
+            "generate failed")
+    first = sess.get_logits().copy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    require(sess.generate(lambda s: None, num_tokens=n_decode - 1, temp=0.0),
+            "generate failed")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (n_decode - 1)
+    require(np.isfinite(first).all(), "logits not finite")
+    return first, list(sess._last_n)[-n_decode:], ms
+
+
+def _engine_streams(torch, hp, params, vocab, rcfg, mode):
+    """ENG_PROMPTS through a greedy BatchEngine of 8 slots (n_ctx 512, pages
+    of 64 rows): streams, free pages by dp group, launches, ms a token."""
+    from fastllama_tpu_torch.engine import scheduler as sched
+    eng = sched.BatchEngine(hp, params, vocab, n_slots=ENG_SLOTS,
+                            n_ctx=ENG_CTX, rcfg=rcfg, kv_mode=mode,
+                            page_size=ENG_PS, temp=0.0)
+    reqs = engine_requests(sched)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = [list(r.tokens_out) for r in reqs]
+    require(all(r.done and len(t) == ENG_GEN for r, t in zip(reqs, streams)),
+            f"engine {mode} {rcfg.mesh_shape}: a request did not finish")
+    res = dict(streams=streams, ms_per_token=wall * 1e3 / sum(map(len, streams)),
+               **_counts_and_staged())
+    if eng.pager is not None:
+        res["free_pages_by_group"] = eng.pager.free_pages_by_group
+        require(eng.pager.free_pages == eng.pager.total_pages,
+                f"engine {mode} {rcfg.mesh_shape}: pages not freed "
+                f"{eng.pager.free_pages_by_group} of {eng.pager.total_pages}")
+        require(res["launches"]["PS"] > 0, f"engine paged {rcfg.mesh_shape}:"
+                " the fused paged step did not launch")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_world(torch, q40, q41, adapter, state):
+    """World (1, 2): the TP session on the 8-layer q4_0 file (int8 prefill,
+    then the bf16-exact prefill; 64 greedy tokens; save), TP + LoRA on the
+    2-layer q4_1 file (attach, detach bit for bit), and the engine, paged
+    and slab."""
+    import fastllama_tpu_torch
+    from fastllama_tpu_torch.config import RuntimeConfig
+    from fastllama_tpu_torch.engine.session import FastLlama
+    from fastllama_tpu_torch.models.runtime import LlamaModel
+    res = {}
+    model = fastllama_tpu_torch.Model(path=q40, n_ctx=512, n_batch=512,
+                                      mesh_shape=(1, 2),
+                                      logger=fastllama_tpu_torch.Logger())
+    lm = model._model
+    prompt = prompt_of(N_PROMPT - 2, seed=4)
+    warm_up(model.session, prompt)
+    _reset_counts()
+    first, stream, ms = _session_run(torch, model.session, prompt, N_DECODE)
+    res["int8"] = dict(first=first, stream=stream, ms_per_token=ms,
+                       device=str(lm.device), **_counts_and_staged())
+    require(model.save_state(state), "save_state failed")
+    require(model.generate(num_tokens=1, temp=0.0), "generate failed")
+    res["next_after_save"] = model.get_logits().copy()
+
+    exact = LlamaModel(lm.hp, lm.params, lm.vocab, RuntimeConfig(
+        n_ctx=512, n_batch=512, prefill_int8=False, mesh_shape=(1, 2)))
+    _reset_counts()
+    first, stream, _ = _session_run(torch, FastLlama(exact, n_keep=64),
+                                    prompt, 2)
+    res["bf16_exact"] = dict(first=first, **_counts_and_staged())
+    del exact
+    res["engine"] = {mode: _engine_streams(
+        torch, lm.hp, lm.params, lm.vocab,
+        RuntimeConfig(n_ctx=ENG_CTX, n_batch=512, mesh_shape=(1, 2)), mode)
+        for mode in ("paged", "slab")}
+    del model, lm
+    torch.cuda.empty_cache()
+
+    q = fastllama_tpu_torch.Model(path=q41, n_ctx=512, n_batch=64,
+                                  mesh_shape=(1, 2),
+                                  logger=fastllama_tpu_torch.Logger())
+    probe = [1] + list(range(300, 320))
+    before = q._model.eval(0, probe)
+    require(q.attach_lora(adapter), "attach_lora failed")
+    _reset_counts()
+    attached = q._model.eval(0, probe)
+    q._model.eval(len(probe), [probe[-1]])
+    res["lora"] = dict(attached=attached, **_counts_and_staged())
+    require(q.detach_lora(), "detach_lora failed")
+    res["lora"]["detach_equal"] = bool(np.array_equal(
+        q._model.eval(0, probe), before))
+    return res
+
+
+def sp_world(torch, q40):
+    """World (2, 1): the SP session (seq_parallel, n_ctx 2048, a 1024-token
+    prompt in n_batch 512 chunks, 32 greedy tokens) and the engine with dp
+    2, paged and slab."""
+    import fastllama_tpu_torch
+    from fastllama_tpu_torch.config import RuntimeConfig
+    model = fastllama_tpu_torch.Model(path=q40, n_ctx=SP_CTX, n_batch=512,
+                                      mesh_shape=(2, 1), seq_parallel=True,
+                                      logger=fastllama_tpu_torch.Logger())
+    lm = model._model
+    _reset_counts()
+    first, stream, ms = _session_run(
+        torch, model.session, prompt_of(SP_PROMPT - 2, seed=9), SP_DECODE)
+    res = {"sp": dict(first=first, stream=stream, ms_per_token=ms,
+                      **_counts_and_staged())}
+    res["engine"] = {mode: _engine_streams(
+        torch, lm.hp, lm.params, lm.vocab,
+        RuntimeConfig(n_ctx=ENG_CTX, n_batch=512, mesh_shape=(2, 1)), mode)
+        for mode in ("paged", "slab")}
+    return res
+
+
+def f32_world(torch, q41):
+    """World (2, 2): the engine on the 2-layer q4_1 file in f32, paged and
+    slab. Each rank loads the file on the host; the engine copies the
+    rank's shard to its card."""
+    import dataclasses
+    from fastllama_tpu_torch.config import RuntimeConfig
+    from fastllama_tpu_torch.models.loader import load_model
+    rcfg = RuntimeConfig(n_ctx=ENG_CTX, n_batch=512, kv_dtype="float32",
+                         weight_dtype="float32")
+    lm = load_model(q41, rcfg, device="cpu")
+    rcfg = dataclasses.replace(rcfg, mesh_shape=(2, 2))
+    return {mode: _engine_streams(torch, lm.hp, lm.params, lm.vocab, rcfg,
+                                  mode) for mode in ("paged", "slab")}
+
+
+def rel_err(a, b) -> float:
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                 / np.abs(np.asarray(b)).max())
+
+
+def parallel_path(torch, tmp, q40, q41):
+    """Phase 10: the port's multi-GPU serving in spawned worlds of ranks
+    that share the card (gloo; NCCL refuses two ranks on one device), each
+    held against the one-card run of the same file. Budget about 150 s."""
+    import fastllama_tpu_torch
+    from fastllama_tpu_torch.config import RuntimeConfig
+    from fastllama_tpu_torch.engine.session import FastLlama
+    from fastllama_tpu_torch.io.ggml_writer import write_ggla
+    from fastllama_tpu_torch.models.loader import load_model
+    from fastllama_tpu_torch.models.runtime import LlamaModel
+    res = {"backend": "gloo", "note": SHARED}
+    print(f"parallel: backend gloo, worlds (data, model) (1, 2), (2, 1), "
+          f"(2, 2); every rank on cuda:0 ({SHARED})", flush=True)
+
+    # one-card references on the same files
+    quiet = fastllama_tpu_torch.Logger()
+    one = fastllama_tpu_torch.Model(path=q40, n_ctx=512, n_batch=512,
+                                    logger=quiet)
+    prompt = prompt_of(N_PROMPT - 2, seed=4)
+    ref_first, ref_stream, ref_ms = _session_run(torch, one.session, prompt,
+                                                 N_DECODE)
+    lm = one._model
+    exact = LlamaModel(lm.hp, lm.params, lm.vocab, RuntimeConfig(
+        n_ctx=512, n_batch=512, prefill_int8=False))
+    ref_exact, _, _ = _session_run(torch, FastLlama(exact, n_keep=64),
+                                   prompt, 2)
+    del exact
+    ref_engine = {mode: _engine_streams(
+        torch, lm.hp, lm.params, lm.vocab,
+        RuntimeConfig(n_ctx=ENG_CTX, n_batch=512), mode)
+        for mode in ("paged", "slab")}
+    long_ctx = LlamaModel(lm.hp, lm.params, lm.vocab,
+                          RuntimeConfig(n_ctx=SP_CTX, n_batch=512))
+    ref_sp, ref_sp_stream, ref_sp_ms = _session_run(
+        torch, FastLlama(long_ctx, n_keep=64),
+        prompt_of(SP_PROMPT - 2, seed=9), SP_DECODE)
+    del long_ctx
+    q = fastllama_tpu_torch.Model(path=q41, n_ctx=512, n_batch=64,
+                                  logger=quiet)
+    rank, hp41 = 8, q._model.hp
+    rng = np.random.default_rng(21)
+    adapter = os.path.join(tmp, "adapter_2_layers.bin")
+    write_ggla(adapter, r=rank, alpha=16, use_cache=False, tensors={
+        f"layers.{i}.attention.{w}.weight.lora{ab}":
+            (rng.standard_normal((hp41.n_embd, rank)) * 0.02)
+            .astype(np.float32)
+        for i in range(hp41.n_layer) for w in ("wq", "wv") for ab in "AB"})
+    require(q.attach_lora(adapter), "one-card attach_lora failed")
+    ref_attached = q._model.eval(0, [1] + list(range(300, 320)))
+    del q
+    f32_rcfg = RuntimeConfig(n_ctx=ENG_CTX, n_batch=512, kv_dtype="float32",
+                             weight_dtype="float32")
+    lm32 = load_model(q41, f32_rcfg)
+    ref_f32 = {mode: _engine_streams(torch, lm32.hp, lm32.params, lm32.vocab,
+                                     f32_rcfg, mode)
+               for mode in ("paged", "slab")}
+    del lm32
+    torch.cuda.empty_cache()
+
+    def prefixes(a, b):
+        return [common_prefix(x, y) for x, y in zip(a, b)]
+
+    def engine_check(label, got, want, equal=False):
+        out = {}
+        for mode in ("paged", "slab"):
+            pre = prefixes(got[mode]["streams"], want[mode]["streams"])
+            # bf16: every request's first token, and all streams but
+            # ENG_BF16_SLACK in full (a sum order may flip a near tie late
+            # in a stream); f32: every stream in full
+            full = sum(p == ENG_GEN for p in pre)
+            require(all(p >= 1 for p in pre) and full >= len(pre) - (
+                0 if equal else ENG_BF16_SLACK),
+                f"{label} {mode}: greedy streams differ from the one-card "
+                f"engine's, common prefixes {pre}")
+            out[mode] = dict(common_prefix=pre,
+                             free_pages_by_group=got[mode].get(
+                                 "free_pages_by_group"),
+                             ms_per_token=got[mode]["ms_per_token"],
+                             one_card_ms_per_token=want[mode]["ms_per_token"],
+                             launches=got[mode]["launches"],
+                             staged_bytes=got[mode]["staged_bytes"])
+        return out
+
+    # world (1, 2): TP session, TP + LoRA, engines
+    t0 = time.perf_counter()
+    state = os.path.join(tmp, "tp_state.npz")
+    ranks = spawn_world((1, 2), tp_world, q40, q41, adapter, state)
+    tp_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    errs = dict(int8=rel_err(r0["int8"]["first"], ref_first),
+                bf16_exact=rel_err(r0["bf16_exact"]["first"], ref_exact),
+                lora_attached=rel_err(r0["lora"]["attached"], ref_attached))
+    require(errs["int8"] <= PAR_TOL and errs["bf16_exact"] <= PAR_TOL
+            and errs["lora_attached"] <= PAR_TOL_Q41,
+            f"TP (1, 2) first-token logits against one card: {errs}")
+    for r in ranks:
+        require(np.array_equal(r["int8"]["first"], r0["int8"]["first"]),
+                "TP ranks returned different logits")
+        require(r["lora"]["detach_equal"],
+                "TP + LoRA: detach did not restore the logits bit for bit")
+        c = r["int8"]["launches"]
+        require(all(c[k] > 0 for k in ("B1", "B2", "B3", "B4")),
+                f"TP session launches {c}")
+        require(r["bf16_exact"]["launches"]["B5"] > 0
+                and r["bf16_exact"]["launches"]["B3"] == 0,
+                f"TP bf16-exact launches {r['bf16_exact']['launches']}")
+        require(r["lora"]["launches"]["B9"] > 0
+                and r["lora"]["launches"]["B10"] > 0,
+                f"TP + LoRA launches {r['lora']['launches']}")
+        for part in ("int8", "bf16_exact", "lora"):
+            require(r[part]["dequant_cuda_calls"] == 0,
+                    f"TP {part}: the dequant path ran on the card")
+    # the TP world's saved session, loaded on one card
+    require(one.load_state(state), "one-card load_state of the TP state")
+    require(one.generate(num_tokens=1, temp=0.0), "generate after load")
+    errs["saved_then_one_card"] = rel_err(one.get_logits(),
+                                          r0["next_after_save"])
+    require(errs["saved_then_one_card"] <= PAR_TOL,
+            f"TP save -> one-card load: next logits rel err "
+            f"{errs['saved_then_one_card']}")
+    del one, lm
+    torch.cuda.empty_cache()
+    res["tp_1x2"] = dict(
+        seconds=tp_s, rel_err=errs,
+        greedy_common_prefix=common_prefix(r0["int8"]["stream"], ref_stream),
+        ms_per_token=r0["int8"]["ms_per_token"], one_card_ms_per_token=ref_ms,
+        device=[r["int8"]["device"] for r in ranks],
+        launches_by_rank=[dict({p: r[p]["launches"] for p in
+                                ("int8", "bf16_exact", "lora")},
+                               engine_paged=r["engine"]["paged"]["launches"])
+                          for r in ranks],
+        staged_bytes_by_rank=[r["int8"]["staged_bytes"] for r in ranks],
+        staged_calls=r0["int8"]["staged_calls"],
+        engine=engine_check("engine (1, 2)", r0["engine"], ref_engine))
+
+    # world (2, 1): SP session, engines with dp 2
+    t0 = time.perf_counter()
+    ranks = spawn_world((2, 1), sp_world, q40)
+    sp_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    e = rel_err(r0["sp"]["first"], ref_sp)
+    require(e <= PAR_TOL, f"SP (2, 1) first-token logits rel err {e}")
+    for r in ranks:
+        require(r["sp"]["launches"]["B4"] == 0
+                and r["sp"]["launches"]["B1"] > 0
+                and r["sp"]["dequant_cuda_calls"] == 0,
+                f"SP session launches {r['sp']['launches']}")
+    res["sp_2x1"] = dict(
+        seconds=sp_s, rel_err=e,
+        greedy_common_prefix=common_prefix(r0["sp"]["stream"], ref_sp_stream),
+        ms_per_token=r0["sp"]["ms_per_token"], one_card_ms_per_token=ref_sp_ms,
+        launches_by_rank=[r["sp"]["launches"] for r in ranks],
+        staged_bytes_by_rank=[r["sp"]["staged_bytes"] for r in ranks],
+        engine=engine_check("engine (2, 1)", r0["engine"], ref_engine))
+
+    # world (2, 2): f32 engines on the 2-layer q4_1 file, streams equal
+    t0 = time.perf_counter()
+    ranks = spawn_world((2, 2), f32_world, q41)
+    res["f32_2x2"] = dict(seconds=time.perf_counter() - t0,
+                          engine=engine_check("engine f32 (2, 2)", ranks[0],
+                                              ref_f32, equal=True))
+    for r in ranks:
+        for mode in ("paged", "slab"):
+            require(r[mode]["streams"] == ranks[0][mode]["streams"],
+                    "engine f32 (2, 2): ranks disagree on the streams")
+            require(r[mode]["dequant_cuda_calls"] == 0,
+                    "engine f32 (2, 2): the dequant path ran on the card")
+    for key in ("tp_1x2", "sp_2x1", "f32_2x2"):
+        brief = {k: v for k, v in res[key].items()
+                 if k not in ("launches_by_rank", "engine")}
+        print(f"parallel {key}: {json.dumps(brief)}", flush=True)
+        for mode, e in res[key]["engine"].items():
+            print(f"parallel {key} engine {mode}: common prefixes "
+                  f"{e['common_prefix']}, free pages by dp group "
+                  f"{e['free_pages_by_group']}, staged bytes "
+                  f"{e['staged_bytes']}", flush=True)
+    for i, by_part in enumerate(res["tp_1x2"]["launches_by_rank"]):
+        print(f"parallel tp_1x2 rank {i} launches: " + json.dumps(
+            {part: {k: v for k, v in c.items() if v}
+             for part, c in by_part.items()}), flush=True)
+    for i, c in enumerate(res["sp_2x1"]["launches_by_rank"]):
+        print(f"parallel sp_2x1 rank {i} launches: "
+              + json.dumps({k: v for k, v in c.items() if v}), flush=True)
+    print("parallel ms per token, " + SHARED + ": " + json.dumps({
+        "TP session (1, 2)": res["tp_1x2"]["ms_per_token"],
+        "one-card session": res["tp_1x2"]["one_card_ms_per_token"],
+        "SP session (2, 1), n_ctx 2048": res["sp_2x1"]["ms_per_token"],
+        "one-card session, n_ctx 2048":
+            res["sp_2x1"]["one_card_ms_per_token"],
+        **{f"engine {k} {m}": res[k]["engine"][m]["ms_per_token"]
+           for k in ("tp_1x2", "sp_2x1") for m in ("paged", "slab")},
+        **{f"engine f32 (2, 2) {m}":
+           res["f32_2x2"]["engine"][m]["ms_per_token"]
+           for m in ("paged", "slab")}}), flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2564,12 +3301,15 @@ def main() -> int:
                          file_res["fltpu"]["path"])
         c_res = timed("8 C ABI", c_abi_path, torch, tmp,
                       file_res["ggjt_q4_0"]["path"])
+        par_res = timed("10 parallel", parallel_path, torch, tmp,
+                        file_res["ggjt_q4_0"]["path"],
+                        file_res["ggjt_q4_1"]["path"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     require(qm.q4_matmul_dequant.cuda_calls == 0,
             f"the dequant path ran {qm.q4_matmul_dequant.cuda_calls} times "
-            "on the card in phases 3-8")
+            "on the card in phases 3-10")
 
     def pick(rows, key):
         return next(r for r in rows if key in r["shape"])
@@ -2635,7 +3375,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "fastllama_tpu_torch/kernels/" + src,
             "replaces": replaces, "launches": launches[key],
-            "max_abs_err": max(r["max_abs_err"] for r in checks[key]),
+            "max_abs_err": max(r["max_abs_err"] for r in checks[key]
+                               + [s for s in checks["shard_local"]
+                                  if s["kernel"] == key]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"), "shape": row["shape"]})
@@ -2657,6 +3399,19 @@ def main() -> int:
                                    "LoRA terms (phase 6, 2 layers); the "
                                    "paged engine's other steps run the "
                                    "fused step")
+        local = {s["shape"]: s["ms"] for s in checks["shard_local"]
+                 if s["kernel"] == key and "ms" in s
+                 and s.get("m", 1) in (1, 512)}
+        if local:
+            # the planes and heads a rank holds at tp = 2 and 4 (phase 2);
+            # the matmuls at the session's rows (decode M = 1, prefill
+            # M = 512)
+            kernels[-1]["shard_local_ms"] = local
+        if key in TP_PART:
+            # this kernel's launches on each rank of the (1, 2) world
+            kernels[-1]["launches_tp_ranks"] = [
+                by_rank[TP_PART[key]][key]
+                for by_rank in par_res["tp_1x2"]["launches_by_rank"]]
         if key in c_res["c_launches"]:
             kernels[-1]["launches_c_program"] = c_res["c_launches"][key]
         if key == "B1":
@@ -2668,7 +3423,8 @@ def main() -> int:
                "kernel_checks": checks, "main_path": main_res,
                "q41_lora_path": q41_res, "file_entry_points": file_res,
                "engine_path": engine_res, "converters": conv_res,
-               "c_abi": c_res, "seconds": time.perf_counter() - t_start,
+               "c_abi": c_res, "parallel": par_res,
+               "seconds": time.perf_counter() - t_start,
                "phase_seconds": phase_s}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(summary, fh, indent=1)

@@ -9,6 +9,12 @@ the reference binding, interfaces/python/fastllama.py:194-479), on PyTorch:
 
 `device=` picks the device; the default is the CUDA card, and a missing
 card raises unless the caller passes device="cpu".
+
+`mesh_shape=(1, tp)` serves the model over tp ranks of an initialized
+torch.distributed world (one process a rank, every rank running this same
+program, e.g. under `torchrun --nproc-per-node tp`); `seq_parallel=True`
+with `mesh_shape=(sp, tp)` shards the sequence over sp. Without an
+initialized process group of that size it raises.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ class Model:
                  weight_dtype: str = "bfloat16",
                  use_pallas: Optional[bool] = None,
                  mesh_shape: tuple = (),
+                 seq_parallel: bool = False,
                  device=None):
         self.logger = logger or DefaultLogger()
         if use_mmap or use_mlock:
@@ -60,16 +67,16 @@ class Model:
                 "Model", "use_pallas is ignored: the PyTorch port picks its "
                 "kernels by shape (kernels/q4_matmul.q4_matmul)\n")
         if mesh_shape and int(np.prod(mesh_shape)) > 1:
-            raise NotImplementedError(
-                "multi-device meshes are not ported yet (ROADMAP.md, queue A: "
-                "parallel)")
+            from .parallel.sharding import require_world
+            require_world(mesh_shape)
         del num_threads, n_load_parallel_blocks, load_parallel
         rcfg = RuntimeConfig(
             n_ctx=n_ctx, n_batch=n_batch, n_keep=tokens_to_keep,
             last_n_size=last_n_size, seed=seed,
             should_get_all_logits=should_get_all_logits,
             embedding_eval_enabled=embedding_eval_enabled,
-            kv_dtype=kv_dtype, weight_dtype=weight_dtype)
+            kv_dtype=kv_dtype, weight_dtype=weight_dtype,
+            mesh_shape=tuple(mesh_shape), seq_parallel=seq_parallel)
         self._model = load_model(path, rcfg, self.logger, device=device)
         self._session = FastLlama(self._model, n_keep=tokens_to_keep,
                                   last_n_size=last_n_size, seed=seed)

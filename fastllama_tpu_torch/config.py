@@ -1,9 +1,7 @@
 """Model hyper-parameters and size registry (PyTorch port).
 
 The same HyperParams / PRESETS / RuntimeConfig as the JAX package's
-config.py, kept as a copy so the port never imports that package. The mesh
-knobs of the JAX RuntimeConfig (mesh_shape, mesh_axes, seq_parallel) are
-absent: the port runs one stream on one card until multi-GPU lands.
+config.py, kept as a copy so the port never imports that package.
 """
 from __future__ import annotations
 
@@ -66,7 +64,8 @@ def model_id_from_layers(n_layer: int) -> str:
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Session/runtime knobs — the reference's builder params
-    (include/bridge.hpp:21-54, interfaces/python/fastllama.py:198-234)."""
+    (include/bridge.hpp:21-54, interfaces/python/fastllama.py:198-234) plus
+    the mesh knobs of multi-GPU serving (parallel/)."""
     n_ctx: int = 512
     n_batch: int = 64                 # prefill chunk (reference n_batch)
     n_keep: int = 64                  # tokens kept on context recycle
@@ -76,6 +75,17 @@ class RuntimeConfig:
     embedding_eval_enabled: bool = False
     kv_dtype: str = "bfloat16"        # reference uses f32 (llama.hpp:104)
     weight_dtype: str = "bfloat16"    # dequant target dtype of the matmuls
+    # (data, model) = (dp, tp) ranks of an initialized torch.distributed
+    # world, one process a rank (parallel/sharding.py); () = one device
+    mesh_shape: tuple[int, ...] = ()
+    # the JAX config's field, kept for parity; neither package reads it
+    # (the mesh's axes are always ("data", "model"))
+    mesh_axes: tuple[str, ...] = ("data", "model")
+    # Single-stream sessions: reinterpret mesh_shape's data axis as the
+    # SEQUENCE axis (parallel/ring.py) — the KV cache shards over positions
+    # and prefill runs ring attention. Ignored by the BatchEngine (its data
+    # axis is the batch).
+    seq_parallel: bool = False
     prefill_buckets: tuple[int, ...] = (16, 64, 128, 256, 512, 1024, 2048)
     # Activation-quantized int8 prefill matmuls (kernels/q4_matmul.py,
     # kernels B2+B3). None = on in bf16 mode, off in f32 mode; True/False

@@ -12,9 +12,14 @@ coexist without reserving the worst case.
   lengths:            [n_slots] tokens resident per slot (host)
 
 Decode attention over the pools is kernels/paged_attention.py (B6), the
-one-token write kernels/kv_write.py (B7), the bulk admission write B8. The
-data-parallel page partitions of the JAX manager (its `dp` argument) belong
-to the parallel slice and are absent here.
+one-token write kernels/kv_write.py (B7), the bulk admission write B8.
+
+Under data parallelism (dp > 1) the page ids are partitioned over the dp
+groups as in the JAX manager: slot s belongs to group s // (n_slots / dp),
+allocates only from that group's partition, and every id is local to the
+group, with a trash page of its own (the sentinel). Every rank keeps the
+whole host allocator (each makes the same decisions); its device pools are
+its own group's partition, [H / tp, total_pages / dp + 1, ps, Dh].
 """
 from __future__ import annotations
 
@@ -76,10 +81,12 @@ def write_tokens_paged(k_pages, v_pages, k_new, v_new, page_ids, offsets):
 class PagedKVManager:
     """Host-side page allocator + device page pools (per layer).
 
-    The pools have one page more than `total_pages`: the trash page, whose
-    id is the `sentinel`. Inactive slots and padded rows write there, so the
-    in-place write kernels need no predicate for them. It is never allocated
-    and never in a page table.
+    The pools have one page more than the group's pages: the trash page,
+    whose id is the `sentinel`. Inactive slots and padded rows write there,
+    so the in-place write kernels need no predicate for them. It is never
+    allocated and never in a page table. dp > 1 partitions the ids over the
+    data-parallel groups (module docstring); `group` is the group whose
+    pools this process holds and `tp` divides their heads.
     """
     hp: HyperParams
     n_slots: int
@@ -88,20 +95,30 @@ class PagedKVManager:
     pages_per_seq: int
     dtype: torch.dtype = torch.bfloat16
     device: object = None
+    dp: int = 1
+    group: int = 0
+    tp: int = 1
 
     def __post_init__(self):
-        h, d = self.hp.n_head, self.hp.head_dim
+        h, d = self.hp.n_head // self.tp, self.hp.head_dim
+        if self.total_pages % self.dp or self.n_slots % self.dp:
+            raise ValueError(
+                f"total_pages={self.total_pages} and n_slots={self.n_slots} "
+                f"must divide dp={self.dp}")
         self.device = resolve_device(self.device)
-        shape = (h, self.total_pages + 1, self.page_size, d)
+        # pages of one dp group; also its local trash-page id
+        self.local_pages = self.total_pages // self.dp
+        shape = (h, self.local_pages + 1, self.page_size, d)
         self.k_pages = [torch.zeros(shape, dtype=self.dtype,
                                     device=self.device)
                         for _ in range(self.hp.n_layer)]
         self.v_pages = [torch.zeros(shape, dtype=self.dtype,
                                     device=self.device)
                         for _ in range(self.hp.n_layer)]
-        self._free = list(range(self.total_pages - 1, -1, -1))
-        # page table per slot (unset entries read page-0 garbage but are
-        # length-masked)
+        self._free = [list(range(self.local_pages - 1, -1, -1))
+                      for _ in range(self.dp)]
+        # page table per slot, in group-local ids (unset entries read
+        # page-0 garbage but are length-masked)
         self.page_tables = np.zeros((self.n_slots, self.pages_per_seq),
                                     np.int32)
         self._owned: list[list[int]] = [[] for _ in range(self.n_slots)]
@@ -109,31 +126,40 @@ class PagedKVManager:
 
     @property
     def sentinel(self) -> int:
-        """The trash-page id."""
-        return self.total_pages
+        """The trash-page id (local to every dp group)."""
+        return self.local_pages
+
+    def group_of(self, slot: int) -> int:
+        return slot // (self.n_slots // self.dp)
 
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
+
+    @property
+    def free_pages_by_group(self) -> list[int]:
+        return [len(f) for f in self._free]
 
     def alloc_for(self, slot: int, new_len: int) -> bool:
-        """Ensure slot has pages covering new_len tokens. Atomic: when the
-        pool is short nothing is allocated and False is returned."""
+        """Ensure slot has pages covering new_len tokens, from its dp
+        group's partition. Atomic: when the partition is short nothing is
+        allocated and False is returned."""
         need = -(-new_len // self.page_size)
         if need > self.pages_per_seq:
             return False
+        free = self._free[self.group_of(slot)]
         have = len(self._owned[slot])
-        if need - have > len(self._free):
+        if need - have > len(free):
             return False
         while have < need:
-            pid = self._free.pop()
+            pid = free.pop()
             self.page_tables[slot, have] = pid
             self._owned[slot].append(pid)
             have += 1
         return True
 
     def free_slot(self, slot: int) -> None:
-        self._free.extend(reversed(self._owned[slot]))
+        self._free[self.group_of(slot)].extend(reversed(self._owned[slot]))
         self._owned[slot] = []
         self.page_tables[slot, :] = 0
         self.lengths[slot] = 0
@@ -151,7 +177,10 @@ class PagedKVManager:
         manager's layout (per layer [H, total_pages + 1, ps, Dh]; tables
         [n_slots, pages_per_seq]; lengths [n_slots]), so a state built by
         the JAX package carries across. The allocator is rebuilt from the
-        tables: slot s owns the first ceil(lengths[s] / ps) of its entries."""
+        tables: slot s owns the first ceil(lengths[s] / ps) of its entries.
+        One dp group only."""
+        if self.dp != 1:
+            raise ValueError("load_from_numpy takes a manager with dp=1")
         for dst, src in ((self.k_pages, k_pages), (self.v_pages, v_pages)):
             for pool, a in zip(dst, src):
                 pool.copy_(torch.from_numpy(
@@ -162,5 +191,5 @@ class PagedKVManager:
             [int(x) for x in self.page_tables[s, :-(-int(n) // self.page_size)]]
             for s, n in enumerate(self.lengths)]
         used = {pid for owned in self._owned for pid in owned}
-        self._free = [pid for pid in range(self.total_pages - 1, -1, -1)
-                      if pid not in used]
+        self._free = [[pid for pid in range(self.total_pages - 1, -1, -1)
+                       if pid not in used]]

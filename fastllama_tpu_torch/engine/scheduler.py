@@ -24,8 +24,19 @@ with new requests admitted into idle slots at any step.
     are matched by request id, so a re-admitted slot never sees a previous
     occupant's tokens.
 
-The multi-device branches of the JAX engine (its shard_map steps) wait for
-the parallel slice, and run() has no trace region (utils/trace is not ported).
+Under rcfg.mesh_shape = (dp, tp) over an initialized torch.distributed
+world (one process a rank, every rank running the same program and given
+the same requests; parallel/multihost.py) each rank holds its tensor-
+parallel shard of the weights and of the KV heads, and the slots of its data
+group (n_slots / dp of them, a contiguous range; their pages come from the
+group's partition of the page ids). A decode step runs the group's slots;
+the sampled tokens are all-gathered over the data axis, so every rank keeps
+the same host state and makes the same stop and admit decisions. The TP
+ranks of a group draw the same sampling noise; the groups fold their index
+into the seed. An admission runs its prefill on the owner group alone and
+broadcasts the first token over the data axis. Chunked admission is
+single-device (as in the JAX package): under a mesh it is refused with a
+warning and admission is monolithic.
 """
 from __future__ import annotations
 
@@ -43,6 +54,7 @@ from ..models.llama import (
     ForwardConfig, LlamaParams, forward, forward_paged_decode,
     forward_paged_prefill, init_kv_cache, position_tables,
 )
+from ..parallel.collectives import all_gather, broadcast
 from ..utils.trace import trace_region
 from .logger import Logger, NULL_LOGGER
 from .paged_kv import PagedKVManager, write_tokens_paged
@@ -117,16 +129,27 @@ class BatchEngine:
         device (None = 0, fully synchronous).
 
         device: the CUDA card unless the caller passes "cpu"; the parameters
-        must already live there.
+        must already live there (under a mesh they may be on the host: each
+        rank copies its shard to its device).
         """
         self.device = resolve_device(device)
-        if params.norm.device.type != self.device.type:
-            raise ValueError(
-                f"the parameters live on {params.norm.device}, the engine "
-                f"runs on {self.device}")
         if kv_mode not in ("slab", "paged"):
             raise ValueError(f"kv_mode must be 'slab' or 'paged': {kv_mode!r}")
         self.hp = hp
+        # -- mesh setup: this rank's shard, its data group's slots --------
+        self.mesh = None
+        self.dp = self.tp = 1
+        self.dp_index = self.tp_index = 0
+        self._dp_group = self._tp_group = None
+        if rcfg.mesh_shape and int(np.prod(rcfg.mesh_shape)) > 1:
+            params = self._setup_mesh(hp, params, n_slots, rcfg, logger)
+        elif params.norm.device.type != self.device.type:
+            raise ValueError(
+                f"the parameters live on {params.norm.device}, the engine "
+                f"runs on {self.device}")
+        # this rank's slots [lo, hi): its data group's
+        per = n_slots // self.dp
+        self._lo, self._hi = self.dp_index * per, (self.dp_index + 1) * per
         self.params = params
         self.vocab = vocab
         self.rcfg = rcfg
@@ -147,20 +170,25 @@ class BatchEngine:
 
         dev = self.device
         kv_dtype = getattr(torch, rcfg.kv_dtype)
+        # the caches' head columns: this rank's
+        hp_local = dataclasses.replace(hp, n_embd=hp.n_embd // self.tp,
+                                       n_head=hp.n_head // self.tp)
         if kv_mode == "paged":
             total_pages = total_pages or (n_slots * n_ctx) // page_size
+            total_pages = -(-total_pages // self.dp) * self.dp
             self.pager = PagedKVManager(
                 hp, n_slots=n_slots, page_size=page_size,
                 total_pages=total_pages,
                 pages_per_seq=-(-n_ctx // page_size), dtype=kv_dtype,
-                device=dev)
+                device=dev, dp=self.dp, group=self.dp_index, tp=self.tp)
             self.kv = None
         else:
             self.pager = None
-            self.kv = init_kv_cache(hp, n_slots, n_ctx, kv_dtype, dev)
+            self.kv = init_kv_cache(hp_local, per, n_ctx, kv_dtype, dev)
         self.cfg = ForwardConfig(
-            n_head=hp.n_head, n_rot=hp.n_rot, w_dtype=rcfg.weight_dtype,
-            prefill_int8=rcfg.prefill_int8)
+            n_head=hp.n_head // self.tp, n_rot=hp.n_rot,
+            w_dtype=rcfg.weight_dtype, prefill_int8=rcfg.prefill_int8,
+            tp_group=self._tp_group)
         self._tables = position_tables(n_ctx, hp.head_dim, hp.n_rot, dev)
 
         # device-side slot state, updated in place
@@ -184,7 +212,9 @@ class BatchEngine:
         # request was admitted
         self._sampling_seed = sampling_seed
         self._gen = torch.Generator(device=dev)
-        self._gen.manual_seed(sampling_seed)
+        # a data group's own noise (the JAX step key folds in the dp index);
+        # the TP ranks of a group draw the same
+        self._gen.manual_seed(sampling_seed + (self.dp_index << 32))
         self._k = min(top_k if top_k > 0 else hp.n_vocab, hp.n_vocab)
 
         self.slots = [_Slot() for _ in range(n_slots)]
@@ -197,26 +227,64 @@ class BatchEngine:
         # slab prefill runs in it and splices its rows into the slab; a
         # chunked admission advances through it one chunk per engine step.
         # It is zeroed once and reused, so its stale rows are finite.
-        self.chunked_admission = chunked_admission
+        self.chunked_admission = chunked_admission and self.mesh is None
+        if chunked_admission and not self.chunked_admission:
+            logger.log_warn(
+                "BatchEngine", "chunked admission is single-device only; "
+                "falling back to monolithic admission\n")
         self._adm: Optional[_Admission] = None
         self._adm_chunk = max(8, min(rcfg.n_batch, n_ctx))
         self._row_kv = None
-        if chunked_admission or self.pager is None:
-            self._row_kv = init_kv_cache(hp, 1, n_ctx, kv_dtype, dev)
+        if self.chunked_admission or self.pager is None:
+            self._row_kv = init_kv_cache(hp_local, 1, n_ctx, kv_dtype, dev)
+
+    def _setup_mesh(self, hp: HyperParams, params: LlamaParams, n_slots: int,
+                    rcfg: RuntimeConfig, logger: Logger) -> LlamaParams:
+        """Build the (dp, tp) mesh and return this rank's shard of the
+        parameters on its device."""
+        from ..parallel.multihost import hybrid_mesh
+        from ..parallel.sharding import (
+            mesh_coords, params_to, rank_device, shard_params,
+        )
+        dp, tp = (rcfg.mesh_shape if len(rcfg.mesh_shape) == 2
+                  else (1, rcfg.mesh_shape[0]))
+        if n_slots % dp:
+            raise ValueError(f"n_slots={n_slots} not divisible by dp={dp}")
+        if hp.n_head % tp:
+            raise ValueError(f"n_head={hp.n_head} not divisible by tp={tp}")
+        self.device = rank_device(self.device)
+        self.mesh = hybrid_mesh(dp, tp, self.device.type)
+        self.dp, self.tp = dp, tp
+        self.dp_index, self.tp_index = mesh_coords(self.mesh)
+        data_axis, model_axis = self.mesh.mesh_dim_names
+        if dp > 1:
+            self._dp_group = self.mesh[data_axis].get_group()
+        if tp > 1:
+            self._tp_group = self.mesh[model_axis].get_group()
+        logger.log("BatchEngine", f"sharded over mesh dp={dp} tp={tp} on "
+                   f"{self.device}\n")
+        return params_to(shard_params(params, self.tp_index, tp), self.device)
 
     # -- device steps --------------------------------------------------------
 
     def _sample_and_advance(self, logits: torch.Tensor) -> torch.Tensor:
         """Per-slot sampling on the device and the state advance shared by
-        the slab and the paged step. Returns this step's tokens [B, 1], a
-        tensor of its own (the drain keeps it while d_tokens moves on)."""
+        the slab and the paged step: this rank's slots sample, then the
+        tokens are all-gathered over the data axis. Returns this step's
+        tokens [B, 1] of every slot, a tensor of its own (the drain keeps it
+        while d_tokens moves on)."""
         active = self.d_active
+        mine = slice(self._lo, self._hi)
         nxt = sample_device(
-            logits[:, -1, :], self.d_lastn,
-            draw_uniforms(self._gen, self.n_slots, self._k, self.device),
-            top_k=self.top_k, top_p=self.d_topp, temp=self.d_temps,
-            repeat_penalty=self.d_rp, top_k_v=self.d_topk)
-        nxt = torch.where(active, nxt, 0)
+            logits[:, -1, :], self.d_lastn[mine],
+            draw_uniforms(self._gen, self._hi - self._lo, self._k,
+                          self.device),
+            top_k=self.top_k, top_p=self.d_topp[mine],
+            temp=self.d_temps[mine], repeat_penalty=self.d_rp[mine],
+            top_k_v=self.d_topk[mine])
+        nxt = torch.where(active[mine], nxt, 0)
+        if self._dp_group is not None:
+            nxt = all_gather(nxt, self._dp_group, dim=0)
         self.d_lastn.copy_(torch.where(
             active[:, None],
             torch.cat([self.d_lastn[:, 1:], nxt[:, None]], dim=1),
@@ -227,17 +295,20 @@ class BatchEngine:
 
     def _decode_slab(self) -> torch.Tensor:
         # inactive slots: position beyond n_ctx -> their KV writes drop
-        eff_past = torch.where(self.d_active, self.d_npast, self.n_ctx + 1)
-        logits, _, _ = forward(self.params, self.d_tokens, eff_past, self.kv,
-                               self.cfg, tables=self._tables)
+        mine = slice(self._lo, self._hi)
+        eff_past = torch.where(self.d_active[mine], self.d_npast[mine],
+                               self.n_ctx + 1)
+        logits, _, _ = forward(self.params, self.d_tokens[mine], eff_past,
+                               self.kv, self.cfg, tables=self._tables)
         tok_out = self._sample_and_advance(logits)
         self.d_npast.add_(self.d_active.to(torch.int32))
         return tok_out
 
     def _decode_paged(self, lengths, tables, page_ids, offs) -> torch.Tensor:
         logits, _, _ = forward_paged_decode(
-            self.params, self.d_tokens, lengths, tables, self.pager.k_pages,
-            self.pager.v_pages, page_ids, offs, self.cfg, self._tables)
+            self.params, self.d_tokens[self._lo:self._hi], lengths, tables,
+            self.pager.k_pages, self.pager.v_pages, page_ids, offs, self.cfg,
+            self._tables)
         return self._sample_and_advance(logits)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -256,6 +327,7 @@ class BatchEngine:
         return logits[:, -1, :]
 
     def _splice_slab(self, slot: int, n_rows: int) -> None:
+        slot -= self._lo                  # this rank's slab holds its slots
         for (k_all, v_all), (k1, v1) in zip(self.kv, self._row_kv):
             k_all[slot, :n_rows] = k1[0, :n_rows]
             v_all[slot, :n_rows] = v1[0, :n_rows]
@@ -389,10 +461,13 @@ class BatchEngine:
         req.n_prompt = len(ids)
 
     def _activate_slot(self, slot_idx: int, req: Request,
-                       logits_for_slot: torch.Tensor, t: int) -> None:
+                       logits_for_slot: Optional[torch.Tensor],
+                       t: int) -> None:
         """Shared admission tail: fresh per-slot sampling state, the first
         token sampled ON DEVICE (no host round-trip), device slot state
-        armed, and the first-token drain entry queued."""
+        armed, and the first-token drain entry queued. Under data
+        parallelism only the owner group has the logits (the others pass
+        None) and broadcasts the token over the data axis."""
         slot = self.slots[slot_idx]
         req_temp, req_topk, req_topp, req_rp = self._req_sampling(req)
         self.d_temps[slot_idx] = req_temp
@@ -401,14 +476,20 @@ class BatchEngine:
         self.d_rp[slot_idx] = req_rp
         self.d_lastn[slot_idx] = -1
 
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self._sampling_seed * 1000003 + 100000 + req.rid)
-        first = sample_device(
-            logits_for_slot, self.d_lastn[slot_idx:slot_idx + 1],
-            draw_uniforms(gen, 1, self._k, self.device),
-            top_k=self.top_k, top_p=req_topp, temp=req_temp,
-            repeat_penalty=req_rp,
-            top_k_v=self.d_topk[slot_idx:slot_idx + 1])
+        if logits_for_slot is None:
+            first = torch.zeros(1, dtype=torch.int64, device=self.device)
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self._sampling_seed * 1000003 + 100000 + req.rid)
+            first = sample_device(
+                logits_for_slot, self.d_lastn[slot_idx:slot_idx + 1],
+                draw_uniforms(gen, 1, self._k, self.device),
+                top_k=self.top_k, top_p=req_topp, temp=req_temp,
+                repeat_penalty=req_rp,
+                top_k_v=self.d_topk[slot_idx:slot_idx + 1]).to(torch.int64)
+        if self._dp_group is not None:          # from the owner data group
+            first = broadcast(first, slot_idx // (self._hi - self._lo),
+                              self._dp_group)
 
         # host counters start one behind: the first-token drain advances them
         slot.n_past = t - 1
@@ -448,14 +529,18 @@ class BatchEngine:
             offs = np.zeros(bucket, np.int32)
             pages[:t], offs[:t] = \
                 self.pager.token_page_offsets(slot_idx, 0, t)
-            logits_for_slot, _, _ = forward_paged_prefill(
-                self.params, self._to_device(toks), t - 1,
-                self._to_device(pages), self._to_device(offs),
-                self.pager.k_pages, self.pager.v_pages, self.cfg,
-                self._tables)
+            logits_for_slot = None
+            if self._lo <= slot_idx < self._hi:
+                logits_for_slot, _, _ = forward_paged_prefill(
+                    self.params, self._to_device(toks), t - 1,
+                    self._to_device(pages), self._to_device(offs),
+                    self.pager.k_pages, self.pager.v_pages, self.cfg,
+                    self._tables)
             self.pager.lengths[slot_idx] = t
-        else:
+        elif self._lo <= slot_idx < self._hi:
             logits_for_slot = self._prefill_slab(toks, slot_idx, t - 1)
+        else:
+            logits_for_slot = None       # another data group's slot
 
         self._activate_slot(slot_idx, req, logits_for_slot, t)
         return True
@@ -547,6 +632,14 @@ class BatchEngine:
             if not any(s.live for s in self.slots):
                 return
             packed[3 * b:] = self.pager.page_tables.reshape(-1)
+            if self.dp > 1:
+                # this rank's slots; their ids are local to its group
+                lo, hi = self._lo, self._hi
+                packed = np.concatenate(
+                    [packed[:b][lo:hi], packed[b:2 * b][lo:hi],
+                     packed[2 * b:3 * b][lo:hi],
+                     self.pager.page_tables[lo:hi].reshape(-1)])
+                b = hi - lo
             d = self._to_device(packed)
             tok_out = self._decode_paged(
                 d[:b], d[3 * b:].view(b, pp), d[b:2 * b], d[2 * b:3 * b])

@@ -336,14 +336,19 @@ class FastLlama:
                            else np.zeros(0, np.float32)),
                 "system_prompt": np.asarray(self._system_prompt, np.int32),
             }
+            # under a mesh every rank gathers the state; rank 0 writes it
             arrays.update(self.model.kv_state())
-            with open(filepath, "wb") as f:
-                np.savez(f, **arrays)
-            self.logger.log("save_state", f"saved session to {filepath}\n")
-            return True
+            ok = True
+            if self.model.is_writer:
+                with open(filepath, "wb") as f:
+                    np.savez(f, **arrays)
         except OSError as e:
             self.logger.log_err("save_state", f"unable to save state: {e}\n")
-            return False
+            ok = False
+        self.model.barrier()
+        if ok:
+            self.logger.log("save_state", f"saved session to {filepath}\n")
+        return ok
 
     def load_state(self, filepath: str) -> bool:
         try:

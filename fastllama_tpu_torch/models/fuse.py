@@ -1,7 +1,6 @@
 """Weight fusion: [Q | K | V] and [w1 | w3] as single matmul weights.
 
-Port of fastllama_tpu/models/fuse.py (shard_col_order comes with the
-multi-device port). QKV share their input, as do w1/w3, so they are fused
+Port of fastllama_tpu/models/fuse.py. QKV share their input, as do w1/w3, so they are fused
 at load time (7 -> 4 matmul launches per layer). The column order is plain
 block concatenation, so the splits after the fused matmul are contiguous
 slices; fusing packed planes along N is a pure column permutation (split-K
@@ -28,6 +27,21 @@ def qkv_col_order(n_head: int, hd: int) -> np.ndarray:
 def w13_col_order(n_ff: int) -> np.ndarray:
     """Fused column order: plain [w1 | w3] blocks."""
     return np.arange(2 * n_ff, dtype=np.int64)
+
+
+def shard_col_order(n_total: int, n_parts: int, tp: int) -> np.ndarray:
+    """Permutation taking the block-fused layout [P0 | P1 | ...] (n_parts
+    equal blocks of width n_total/n_parts) to per-shard blocks
+    [P0_s0 | P1_s0 | ... | P0_s1 | ...], so that a CONTIGUOUS 1/tp column
+    slice holds every part's s-th column range and the shard-local split
+    code stays the single-device one."""
+    width = n_total // n_parts
+    if width % tp:
+        raise ValueError(f"part width {width} not divisible by tp={tp}")
+    w_loc = width // tp
+    starts = (np.arange(n_parts)[None, :] * width
+              + np.arange(tp)[:, None] * w_loc)          # [tp, n_parts]
+    return (starts.reshape(-1, 1) + np.arange(w_loc)[None, :]).reshape(-1)
 
 
 def _pad_packed(qs: np.ndarray, scales: np.ndarray, k_logical: int,

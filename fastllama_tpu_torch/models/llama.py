@@ -12,6 +12,11 @@ JAX package:
   * forward_paged_decode / forward_paged_prefill run the same layers over
     the paged pools of engine/paged_kv.py
   * LoRA adapters as separate additive LoraTerm fields
+  * under a mesh (parallel/), ForwardConfig carries the process groups:
+    tp_group (Megatron tensor parallelism: a vocab-sharded embedding, a psum
+    after wo and after w2, the logits all-gathered) and sp_group (sequence
+    parallelism: ring-attention prefill and split-S decode, parallel/ring);
+    with no group every path is the single-device one
 
 Kernel use (the same on every device; on the CPU each wrapper runs its
 plain version): every 4-bit matmul goes through kernels/q4_matmul.q4_matmul
@@ -42,6 +47,7 @@ from ..kernels.paged_attention import (
 )
 from ..kernels.q4_matmul import q4_matmul
 from ..kernels.rope import lane_tables, rope_interleaved, rope_interleaved_lanes
+from ..parallel.collectives import all_gather, axis_index, psum
 from ..quant.tensor import (
     QuantEmbedding, QuantMatmulWeight, dequant_embedding_rows,
 )
@@ -100,6 +106,9 @@ class LlamaParams:
     output: Linear                     # [n_embd, n_vocab]
     layers: list[LayerParams]
     lora_output: LoraTerm | None = None
+    # (rank, tp) once parallel/sharding.shard_params made these a model-axis
+    # rank's own parameters; None for the whole model
+    tp_shard: tuple[int, int] | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +120,17 @@ class ForwardConfig:
     act_dtype: str = "float32"      # residual-stream dtype
     all_logits: bool = False        # reference should_put_all_logits
     prefill_int8: bool | None = None
+    # Tensor-parallel process group (parallel/sharding.py): n_head is then
+    # the rank's LOCAL head count. None = single-device semantics.
+    tp_group: object = None
+    # Sequence-parallel group (parallel/ring.py) and its size: the KV
+    # cache's sequence axis is sharded over it (cache row == global
+    # position) and a prefill window arrives T-sharded. sp_chunked seeds the
+    # ring's online softmax with the cache prefix (rows < n_past), so
+    # windows can arrive in n_batch chunks.
+    sp_group: object = None
+    sp_size: int = 1
+    sp_chunked: bool = False
 
     @property
     def w_tdtype(self) -> torch.dtype:
@@ -154,12 +174,44 @@ def apply_linear(x: torch.Tensor, w: Linear, cfg: ForwardConfig) -> torch.Tensor
 
 
 def embed_tokens(table: Embedding, tokens: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
+                 dtype: torch.dtype,
+                 cfg: ForwardConfig | None = None) -> torch.Tensor:
     n = table.qs.shape[0] if isinstance(table, QuantEmbedding) else table.shape[0]
+    valid = None
+    if cfg is not None and cfg.tp_group is not None:
+        # vocab-sharded lookup: each rank gathers its rows for the ids in
+        # its range, zeros the rest, and a psum assembles the embedding
+        tokens = tokens - axis_index(cfg.tp_group) * n
+        valid = (tokens >= 0) & (tokens < n)
     tokens = torch.clamp(tokens, 0, n - 1)
     if isinstance(table, QuantEmbedding):
-        return dequant_embedding_rows(table, tokens, dtype=dtype)
-    return table[tokens].to(dtype)
+        emb = dequant_embedding_rows(table, tokens, dtype=dtype)
+    else:
+        emb = table[tokens].to(dtype)
+    if valid is None:
+        return emb
+    return psum(torch.where(valid[..., None], emb, 0).to(dtype),
+                cfg.tp_group)
+
+
+def _tp_sum(out: torch.Tensor, cfg: ForwardConfig) -> torch.Tensor:
+    """The sum of a reduction-sharded matmul's partials over the TP group
+    (wo and w2 hold a rank's rows)."""
+    return out if cfg.tp_group is None else psum(out, cfg.tp_group)
+
+
+def _head(head_in: torch.Tensor, params: "LlamaParams",
+          cfg: ForwardConfig, lora: bool = False) -> torch.Tensor:
+    """The output head, f32 [..., n_vocab]: the vocab-sharded head's local
+    logits (its n_logical is the local width, so no padded column leaves
+    the rank) all-gathered over the TP group."""
+    logits = apply_linear(head_in, params.output, cfg)
+    if lora and params.lora_output is not None:
+        logits = logits + apply_lora(head_in.to(torch.float32),
+                                     params.lora_output)
+    if cfg.tp_group is not None:
+        logits = all_gather(logits, cfg.tp_group, dim=-1)
+    return logits.to(torch.float32)
 
 
 def _no_qkv_lora(layer: LayerParams) -> bool:
@@ -175,7 +227,7 @@ def _project_out(ctx: torch.Tensor, layer: LayerParams, cfg: ForwardConfig,
     out = apply_linear(ctx, layer.wo, cfg)
     if layer.lora_wo is not None:
         out = out + apply_lora(ctx, layer.lora_wo)
-    return out.to(cfg.act_tdtype)
+    return _tp_sum(out, cfg).to(cfg.act_tdtype)
 
 
 def _qkv_lora(x: torch.Tensor, layer: LayerParams, q, k, v):
@@ -248,10 +300,14 @@ def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
                                         lanes[1], cfg.n_rot)
             q, k = qk[:, :, :h], qk[:, :, h:]
 
+    scale = 1.0 / math.sqrt(hd)
+    if cfg.sp_group is not None:
+        return finish(_sp_attention(q, k, v, kv_k, kv_v, positions, cfg,
+                                    scale))
+
     write_kv(kv_k, k.reshape(b, t, -1).to(kv_k.dtype))
     write_kv(kv_v, v.reshape(b, t, -1).to(kv_v.dtype))
 
-    scale = 1.0 / math.sqrt(hd)
     if rope_ls is not None:
         # a bf16 decode step whose layer has q/k/v LoRA: kernel B10 over
         # the cache that now holds this token's row
@@ -259,6 +315,28 @@ def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
             q.reshape(b, 1, -1).contiguous(), kv_k, kv_v, n_past_vec,
             head_dim=hd, scale=scale))
     return finish(masked_attention(q, kv_k, kv_v, positions, h, scale))
+
+
+def _sp_attention(q, k, v, kv_k, kv_v, positions, cfg: ForwardConfig,
+                  scale: float) -> torch.Tensor:
+    """Attention over a sequence-sharded cache (parallel/ring.py): the
+    decode step writes its row on the owner rank and merges the ranks'
+    partials; a prefill window runs the ring, seeded with the cache prefix
+    when chunked (its start: this rank's first position less its chunk
+    offset)."""
+    from ..parallel.ring import (
+        ring_prefill, sp_decode_attention, sp_write_decode,
+    )
+    t = q.shape[1]
+    if t == 1:
+        sp_write_decode(kv_k, kv_v, k, v, positions[:, 0], cfg.sp_group)
+        return sp_decode_attention(q, kv_k, kv_v, positions[:, 0],
+                                   cfg.sp_group, cfg.n_head, scale)
+    win_start = None
+    if cfg.sp_chunked:
+        win_start = positions[:, 0] - axis_index(cfg.sp_group) * t
+    return ring_prefill(q, k, v, kv_k, kv_v, positions, cfg.sp_group,
+                        cfg.sp_size, scale, win_start)
 
 
 def _ffn(x: torch.Tensor, layer: LayerParams, cfg: ForwardConfig) -> torch.Tensor:
@@ -271,7 +349,7 @@ def _ffn(x: torch.Tensor, layer: LayerParams, cfg: ForwardConfig) -> torch.Tenso
     out = apply_linear(act, layer.w2, cfg)
     if layer.lora_w2 is not None:
         out = out + apply_lora(act, layer.lora_w2)
-    return out.to(cfg.act_tdtype)
+    return _tp_sum(out, cfg).to(cfg.act_tdtype)
 
 
 def _n_out(w: Linear) -> int:
@@ -317,9 +395,12 @@ def forward(params: LlamaParams, tokens: torch.Tensor,
     if last_idx is None:
         last_idx = t - 1
     hd = _n_out(params.layers[0].wqkv) // (3 * cfg.n_head)
-    x = embed_tokens(params.tok_embeddings, tokens, cfg.act_tdtype)
+    x = embed_tokens(params.tok_embeddings, tokens, cfg.act_tdtype, cfg)
     rope_ls = rope_bt = n_past_vec = None
-    decode_kernels = t == 1 and cfg.w_tdtype != torch.float32
+    # no fused decode kernel over a sequence-sharded cache: SP decode is
+    # the split-S merge of parallel/ring.py
+    decode_kernels = (t == 1 and cfg.w_tdtype != torch.float32
+                      and cfg.sp_group is None)
 
     if isinstance(n_past, torch.Tensor):
         positions = (n_past.to(torch.int32).reshape(-1, 1) + torch.arange(
@@ -334,6 +415,16 @@ def forward(params: LlamaParams, tokens: torch.Tensor,
 
         def write_kv(cache, rows):
             _write_rows_drop(cache, rows, positions)
+    elif cfg.sp_group is not None:
+        # SP: the window arrives T-sharded, so this rank's chunk starts at
+        # its offset; a padded tail may run past the tables (its rows drop)
+        start = n_past + (axis_index(cfg.sp_group) * t if t > 1 else 0)
+        positions = torch.arange(start, start + t, dtype=torch.int32,
+                                 device=tokens.device)[None, :].expand(b, t)
+        if t > 1:
+            cos, sin = _position_lanes(tables, positions, hd, cfg.n_rot)
+            rope_bt = (cos[:, :, None, :], sin[:, :, None, :])
+        write_kv = None
     else:
         if tables is None:
             tables = position_tables(n_past + t, hd, cfg.n_rot, tokens.device)
@@ -357,14 +448,22 @@ def forward(params: LlamaParams, tokens: torch.Tensor,
         x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
 
     x = rms_norm(x, params.norm, cfg.rms_eps)
-    x_last = x[:, last_idx:last_idx + 1]
+    if cfg.sp_group is not None and t > 1:
+        # last_idx is GLOBAL: its owner rank contributes the row, zeros
+        # elsewhere, and the psum makes it whole on every rank
+        base = axis_index(cfg.sp_group) * t
+        loc = min(max(last_idx - base, 0), t - 1)
+        x_last = x[:, loc:loc + 1]
+        if not base <= last_idx < base + t:
+            x_last = torch.zeros_like(x_last)
+        x_last = psum(x_last, cfg.sp_group)
+    else:
+        x_last = x[:, last_idx:last_idx + 1]
     embeddings = x_last[:, 0, :].to(torch.float32)
-    head_in = x if cfg.all_logits else x_last
-    logits = apply_linear(head_in, params.output, cfg)
-    if params.lora_output is not None:
-        logits = logits + apply_lora(head_in.to(torch.float32),
-                                     params.lora_output)
-    return logits.to(torch.float32), kv_caches, embeddings
+    logits = _head(x if cfg.all_logits else x_last, params, cfg, lora=True)
+    if cfg.sp_group is not None and cfg.all_logits and t > 1:
+        logits = all_gather(logits, cfg.sp_group, dim=1)
+    return logits, kv_caches, embeddings
 
 
 # ---------------------------------------------------------------------------
@@ -406,7 +505,7 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
     """
     b = tokens.shape[0]
     hd = k_pages[0].shape[3]
-    x = embed_tokens(params.tok_embeddings, tokens, cfg.act_tdtype)
+    x = embed_tokens(params.tok_embeddings, tokens, cfg.act_tdtype, cfg)
     cos, sin = _position_lanes(tables, lengths[:, None], hd, cfg.n_rot)
     rope_bt = (cos[:, :, None, :], sin[:, :, None, :])
     attend = lengths + 1
@@ -427,8 +526,7 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
         x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
 
     x = rms_norm(x, params.norm, cfg.rms_eps)
-    logits = apply_linear(x, params.output, cfg)
-    return logits.to(torch.float32), k_pages, v_pages
+    return _head(x, params, cfg), k_pages, v_pages
 
 
 def forward_paged_prefill(params: LlamaParams, tokens: torch.Tensor,
@@ -455,7 +553,7 @@ def forward_paged_prefill(params: LlamaParams, tokens: torch.Tensor,
     rope_bt = (cos[:, :, None, :], sin[:, :, None, :])
     causal = positions[0][None, :] <= positions[0][:, None]      # [T, T]
     scale = 1.0 / math.sqrt(hd)
-    x = embed_tokens(params.tok_embeddings, tokens, cfg.act_tdtype)
+    x = embed_tokens(params.tok_embeddings, tokens, cfg.act_tdtype, cfg)
 
     for layer, kp, vp in zip(params.layers, k_pages, v_pages):
         attn_in = rms_norm(x, layer.attention_norm, cfg.rms_eps)
@@ -471,8 +569,8 @@ def forward_paged_prefill(params: LlamaParams, tokens: torch.Tensor,
         x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
 
     x = rms_norm(x, params.norm, cfg.rms_eps)
-    logits = apply_linear(x[:, last_idx:last_idx + 1], params.output, cfg)
-    return logits[:, 0].to(torch.float32), k_pages, v_pages
+    logits = _head(x[:, last_idx:last_idx + 1], params, cfg)
+    return logits[:, 0], k_pages, v_pages
 
 
 def init_kv_cache(hp: HyperParams, batch: int, n_ctx: int,

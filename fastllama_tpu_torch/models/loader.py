@@ -120,15 +120,19 @@ def _load_ggml_params(ckpt: GgmlCheckpoint, dev, logger: Logger) -> LlamaParams:
 def load_model(path: str, rcfg: RuntimeConfig = RuntimeConfig(),
                logger: Logger = NULL_LOGGER, device=None) -> LlamaModel:
     """Load a checkpoint onto `device` (the CUDA card unless the caller
-    passes device="cpu")."""
+    passes device="cpu"). Under rcfg.mesh_shape each rank loads the
+    checkpoint on the host and LlamaModel copies only its own shard to its
+    card."""
     dev = resolve_device(device)
+    host = (torch.device("cpu")
+            if rcfg.mesh_shape and int(np.prod(rcfg.mesh_shape)) > 1 else dev)
     t0 = time.time()
     logger.log("Model", f"loading model from {path} - please wait ...\n")
     p = Path(path)
     if p.is_dir() and (p / "manifest.json").exists():
         ckpt = open_checkpoint(p)
         hp = ckpt.hp
-        params = load_params(ckpt, device=dev, logger=logger)
+        params = load_params(ckpt, device=host, logger=logger)
         vocab = ckpt.vocab
     else:
         ckpt = read_ggml_checkpoint(path)
@@ -137,7 +141,7 @@ def load_model(path: str, rcfg: RuntimeConfig = RuntimeConfig(),
         route = repack_route(ckpt)
         if route is not None:
             logger.log("Model", f"q4_0 repack: {route}\n")
-        params = _load_ggml_params(ckpt, dev, logger)
+        params = _load_ggml_params(ckpt, host, logger)
     logger.log("Model", f"n_vocab = {hp.n_vocab}\n")
     logger.log("Model", f"n_embd  = {hp.n_embd}\n")
     logger.log("Model", f"n_layer = {hp.n_layer} "

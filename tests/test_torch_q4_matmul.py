@@ -268,9 +268,16 @@ def test_b5_kernel_matches_plain(cuda_device, m, mode):
 PLANES_7B = [(4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096),
              (4096, 32768)]
 PLANES_13B = [(5120, 15360), (5120, 5120), (5120, 27648), (13824, 5120)]
+# the 7B planes a rank holds under tensor parallelism (parallel/sharding.py:
+# K padding stripped before the split, N re-padded per shard), tp = 2 then
+# tp = 4: qkv, wo, w13, w2, head
+PLANES_7B_TP = [(4096, 6144), (2048, 4096), (4096, 11264), (5504, 4096),
+                (4096, 16384),
+                (4096, 3072), (1024, 4096), (4096, 5632), (2752, 4096),
+                (4096, 8192)]
 
 
-@pytest.mark.parametrize("k,n", PLANES_7B + PLANES_13B)
+@pytest.mark.parametrize("k,n", PLANES_7B + PLANES_13B + PLANES_7B_TP)
 def test_b1_mma_plan_covers_every_row_column_and_q_block_once(k, n):
     """Row tiles x (column tile, column group, column) x (split, warp of
     the group, q block) of the plan cover each (row, column, q block)
@@ -584,7 +591,8 @@ def test_b3_requant_byte_rounds_half_to_even():
     np.testing.assert_array_equal(low, want)
 
 
-@pytest.mark.parametrize("k,n", PLANES_7B[:4] + PLANES_13B)
+@pytest.mark.parametrize("k,n", PLANES_7B[:4] + PLANES_13B
+                         + PLANES_7B_TP[:4] + PLANES_7B_TP[5:9])
 def test_b3_plan_covers_every_output_once(k, n):
     """The grid of B3's product (row tiles of 128 by the planned variant's
     columns) covers M x N once at the prefill's and the admissions' M; the
@@ -631,7 +639,8 @@ def test_b3_kernel_bit_exact_at_7b_and_13b_planes(cuda_device, m, k, n):
 B5_PLANES = PLANES_7B[:4] + PLANES_13B
 
 
-@pytest.mark.parametrize("k,n", B5_PLANES)
+@pytest.mark.parametrize("k,n", B5_PLANES + PLANES_7B_TP[:4]
+                         + PLANES_7B_TP[5:9])
 @pytest.mark.parametrize("f32", [False, True])
 def test_b5_plan_covers_every_output_and_q_block_once(k, n, f32):
     """Row tiles x column tiles x K splits of B5 cover each output once and

@@ -159,10 +159,71 @@ def test_chat_cli_through_stdin(inputs, tmp_path, monkeypatch, capsys):
 
 
 def test_chat_cli_tp_and_no_card(inputs, monkeypatch):
-    with pytest.raises(NotImplementedError):
+    """--tp 2 outside a launch of two ranks (no process group) raises, as
+    --device unset without a card does: nothing runs one device instead."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.warns(UserWarning, match="single-process"), \
+            pytest.raises(RuntimeError, match="process group"):
         run_main(t_chat, [inputs["q4_0"], "--tp", "2", "--device", "cpu"],
                  monkeypatch, stdin="")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_main(t_chat, [inputs["q4_0"]], monkeypatch, stdin="")
+
+
+def test_chat_cli_tp_under_torchrun(tmp_path, monkeypatch, capsys):
+    """chat.py --tp 2 launched by torchrun (two CPU ranks over gloo): rank 0
+    reads the piped lines and broadcasts them, and the transcript (printed
+    by rank 0 alone) is the one-device chat's, /save and /load included."""
+    import subprocess
+    from fastllama_tpu_torch.config import HyperParams
+    from fastllama_tpu_torch.io.ggml_writer import write_ggjt
+    from _torch_world import free_port
+    from test_torch_parallel_worlds import vocab_tokens
+    from fastllama_tpu_torch.engine.tokenizer import Vocab
+    hp = HyperParams(n_vocab=512, n_embd=256, n_head=8, n_layer=2, n_rot=16)
+    rng = np.random.default_rng(4)
+
+    def q(n, k):
+        return ("q4_0", rng.integers(0, 16, (n, k), dtype=np.uint8),
+                rng.uniform(1e-3, 0.02, (n, k // 32)).astype(np.float32) * 8)
+    ones = ("f32", np.ones(hp.n_embd, np.float32))
+    d, f = hp.n_embd, hp.n_ff
+    tensors = {"tok_embeddings.weight": q(hp.n_vocab, d), "norm.weight": ones,
+               "output.weight": q(hp.n_vocab, d)}
+    for i in range(hp.n_layer):
+        p = f"layers.{i}."
+        tensors.update({p + "attention_norm.weight": ones,
+                        p + "ffn_norm.weight": ones,
+                        p + "feed_forward.w1.weight": q(f, d),
+                        p + "feed_forward.w3.weight": q(f, d),
+                        p + "feed_forward.w2.weight": q(d, f)})
+        for nm in ("wq", "wk", "wv", "wo"):
+            tensors[p + f"attention.{nm}.weight"] = q(d, d)
+    model = tmp_path / "tiny.bin"
+    write_ggjt(model, hp, Vocab.from_tokens(vocab_tokens(hp.n_vocab)),
+               tensors)
+    args = [str(model), "--temp", "0", "--num-tokens", "4", "--n-ctx", "64",
+            "--system-prompt", " w5 w6", "--device", "cpu"]
+
+    def session(side):
+        (tmp_path / side).mkdir()
+        state = tmp_path / side / "state.bin"
+        return "\n".join([" w1 w2", f"/save {state}", " w3", "/reset",
+                          f"/load {state}", " w3", "/quit"]) + "\n"
+    assert run_main(t_chat, args, monkeypatch, stdin=session("one")) == 0
+    one = capsys.readouterr().out
+    env = {k: v for k, v in __import__("os").environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    env["OMP_NUM_THREADS"] = "1"
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-port", str(free_port()),
+         str(REPO / "tools_torch" / "chat.py"), *args, "--tp", "2"],
+        input=session("tp"), capture_output=True, text=True, timeout=240,
+        env=env, cwd=tmp_path)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert run.stdout == one
+    assert "saved" in one and "loaded" in one and one.count("Assistant: ") == 3

@@ -5,9 +5,12 @@ fastllama_tpu_torch.Model) — the counterpart of the reference's CLI chat
 
     python tools_torch/chat.py ./models/7B.fltpu --n-ctx 512    # on the card
     python tools_torch/chat.py ./models/7B.fltpu --device cpu   # plain PyTorch
+    torchrun --nproc-per-node 2 tools_torch/chat.py ./models/7B.fltpu --tp 2
 
 It runs on the CUDA card unless --device names another device; with no card
-it fails rather than fall back to the CPU.
+it fails rather than fall back to the CPU. --tp N serves the model over N
+ranks (tensor parallelism) launched by torchrun: every rank runs this
+program, rank 0 reads each line and broadcasts it, and rank 0 alone prints.
 
 Special commands (parity with examples/python/example-lora-adapter.py:29-41):
     /load_lora <path>   attach a ggla adapter
@@ -42,23 +45,45 @@ def main() -> int:
     ap.add_argument("--stop-word", action="append", default=[],
                     help="may be given multiple times")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (not ported yet: > 1 "
-                         "raises)")
+                    help="tensor-parallel degree: shards the model over a "
+                         "(1, tp) mesh of torchrun's ranks")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args()
 
+    read_line, say, logger = input, print, None
     if args.tp > 1:
-        raise NotImplementedError(
-            "tensor parallelism is not ported yet (ROADMAP.md, queue A: "
-            "parallel)")
+        import torch.distributed as dist
+        from fastllama_tpu_torch import Logger
+        from fastllama_tpu_torch.parallel import multihost
+        multihost.initialize(backend="gloo" if args.device == "cpu" else None)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            logger = Logger()                   # silent
+
+            def say(*a, **kw):
+                return None
+
+        def read_line(prompt):
+            # rank 0 reads; every rank gets the line (None: end of input)
+            line = [None]
+            if not dist.is_initialized() or dist.get_rank() == 0:
+                try:
+                    line[0] = input(prompt)
+                except (EOFError, KeyboardInterrupt):
+                    pass
+            if dist.is_initialized():
+                dist.broadcast_object_list(line, src=0)
+            if line[0] is None:
+                raise EOFError
+            return line[0]
 
     from fastllama_tpu_torch import Model
 
-    print("loading model (the first call on a card builds its kernels)...")
+    say("loading model (the first call on a card builds its kernels)...")
     model = Model(args.model, n_ctx=args.n_ctx, n_batch=args.n_batch,
                   tokens_to_keep=args.n_keep, seed=args.seed,
-                  device=args.device)
+                  mesh_shape=(1, args.tp) if args.tp > 1 else (),
+                  logger=logger, device=args.device)
     if args.system_prompt:
         if not model.ingest(args.system_prompt, is_system_prompt=True):
             print("failed to ingest system prompt", file=sys.stderr)
@@ -67,11 +92,11 @@ def main() -> int:
         model.set_stop_words(*args.stop_word)
 
     def stream(chunk: str) -> None:
-        print(chunk, end="", flush=True)
+        say(chunk, end="", flush=True)
 
     while True:
         try:
-            user = input("\n\nUser: ")
+            user = read_line("\n\nUser: ")
         except (EOFError, KeyboardInterrupt):
             break
         if not user.strip():
@@ -82,26 +107,26 @@ def main() -> int:
             if cmd == "quit":
                 break
             elif cmd == "load_lora":
-                print("attached" if model.attach_lora(arg) else "attach failed")
+                say("attached" if model.attach_lora(arg) else "attach failed")
             elif cmd == "unload_lora":
-                print("detached" if model.detach_lora() else "detach failed")
+                say("detached" if model.detach_lora() else "detach failed")
             elif cmd == "save":
-                print("saved" if model.save_state(arg) else "save failed")
+                say("saved" if model.save_state(arg) else "save failed")
             elif cmd == "load":
-                print("loaded" if model.load_state(arg) else "load failed")
+                say("loaded" if model.load_state(arg) else "load failed")
             elif cmd == "reset":
                 model.reset()
                 if args.system_prompt:
                     model.ingest(args.system_prompt, is_system_prompt=True)
-                print("reset")
+                say("reset")
             else:
-                print(f"unknown command /{cmd}")
+                say(f"unknown command /{cmd}")
             continue
 
         if not model.ingest(user):
-            print("ingest failed", file=sys.stderr)
+            say("ingest failed", file=sys.stderr)
             continue
-        print("\nAssistant: ", end="", flush=True)
+        say("\nAssistant: ", end="", flush=True)
         model.generate(num_tokens=args.num_tokens, temp=args.temp,
                        top_k=args.top_k, top_p=args.top_p,
                        repeat_penalty=args.repeat_penalty,
