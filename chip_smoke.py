@@ -6,7 +6,7 @@
 Phases (any failure exits nonzero before the last line):
   1. print the card (nvidia-smi name, power limit) and build the CUDA
      kernels from kernels/csrc/ (one nvcc per source, in parallel);
-  2. hold each kernel (B1-B11) against its plain PyTorch version on the
+  2. hold each kernel (B1-B12) against its plain PyTorch version on the
      card at the 7B shapes of the paths below, and time kernel, plain
      version and bound (the larger of bytes / 3.35 TB/s and operations /
      peak rate); for B4, B10 and B11 also one scaled_dot_product_attention
@@ -40,7 +40,13 @@ Phases (any failure exits nonzero before the last line):
      the unfused step (the forward's glue, B7 and B6). The 7B planes a rank
      holds under tensor parallelism (cut by parallel/sharding.shard_params
      at tp = 2 and 4): B1 at M = 1 and 8, B2 + B3 bit for bit at M = 512
-     and 256, B5 at M = 128 and 512, each timed. Afterwards no phase
+     and 256, B5 at M = 128 and 512, each timed. B12 (the fresh-prompt
+     flash prefill attention) on the forward's operands (f32 strided
+     views) at 32 heads and T = 128, 512, 1024, 2048, at 40 heads (13B)
+     and 16 and 8 heads (a rank at tp 2 and 4) at T = 512, timed beside
+     its plain version, the masked f32 softmax over an n_ctx-row cache it
+     replaced and scaled_dot_product_attention (is_causal, bf16; the
+     yardstick). Afterwards no phase
      may call the dequant path on the card (q4_matmul_dequant.cuda_calls
      must read 0 after phase 10);
   3. the q4_0 session at full 7B width (32 layers, bf16 weights and KV,
@@ -48,13 +54,17 @@ Phases (any failure exits nonzero before the last line):
      FastLlama ingest a 300-token prompt with n_batch 512 and generate 64
      tokens greedily; prints TTFT (and the device time of its window by
      kernel, from a torch.profiler trace), decode tok/s and each kernel's
-     launches in this run (B1-B4 must be > 0); then the same parameters under
-     RuntimeConfig(prefill_int8=False), the bf16-exact prefill: B5 must
-     launch 128 times per window and B2/B3 not at all;
+     launches in this run (B1-B4 must be > 0, B12 32: once a layer in
+     the fresh 512-row window); the window's device time is profiled on
+     B12 and, in the same call, on the masked route it replaced; then the
+     same parameters under RuntimeConfig(prefill_int8=False), the
+     bf16-exact prefill: B5 must launch 128 times per window, B12 32 and
+     B2/B3 not at all;
   4. the q4_1 + LoRA session at the same width and depth (affine weights
      made on the card): a ggla adapter (A/B form, rank 8, wq and wv of
      every layer) written by the port's write_ggla is attached through
-     attach_lora; its 512-row prefill window runs B5 (affine) 128 times;
+     attach_lora; its 512-row prefill window runs B5 (affine) 128 times
+     and B12 32 times (attached or not: the gate ignores LoRA);
      while attached a decode step must launch B9 129 times, B10 32 times
      and B4 never; after detach_lora the same prompt's logits
      must equal those taken before the attach bit for bit, on B4 again;
@@ -69,7 +79,10 @@ Phases (any failure exits nonzero before the last line):
      seed (equal streams), then greedy. Every request must finish, every
      page must be free again, the fused paged step must launch once per
      layer and decode step (B6 and B7 never), B8 once per layer and
-     chunked admission, B4 in the slab run only. Prints tok/s, ms per
+     chunked admission, B4 in the slab run only, B12 once per layer and
+     monolithic admission whose prompt bucket passes its gate (seven of
+     the twelve; never in chunked admission or f32 mode). Prints tok/s,
+     ms per
      engine step, the device time and launches per step from a
      torch.profiler trace, the time to the first streamed token of a
      300-token request in an idle engine, drain depth 0 against 2; holds a
@@ -116,7 +129,9 @@ Phases (any failure exits nonzero before the last line):
      engine with dp 2; world (2, 2) the engine on the q4_1 file in f32,
      whose greedy streams must equal one card's. Every rank's launches are
      read (B1-B4 > 0 in the TP session, the fused paged step > 0, the
-     dequant path 0), and the bytes gloo's CUDA all-gathers and ring sends
+     dequant path 0; B12 once a layer in each TP window and TP or dp
+     admission past its gate, never in the SP session or f32), and the
+     bytes gloo's CUDA all-gathers and ring sends
      copied through the host are printed;
   then the whole script's seconds, one line {"kernels": [...]}, the
   nvidia-smi line, and last {"ok": true, "device": {...}}.
@@ -378,6 +393,7 @@ def check_kernels(torch, dev, gen, out_dir):
     check_prefill_matmuls(torch, dev, gen, results)
     check_shard_planes(torch, dev, gen, results)
     check_decode_attention(torch, dev, gen, results)
+    check_flash_prefill(torch, dev, gen, results)
     check_engine_kernels(torch, dev, gen, results)
     check_fused_paged_step(torch, dev, gen, results)
     check_shard_attention(torch, dev, gen, results)
@@ -798,6 +814,82 @@ def check_decode_attention(torch, dev, gen, results):
         print(f"B10 {b10[-1]}", flush=True)
     results["B10"] = b10
     del caches
+
+
+# B12's shapes: (label, heads, T) at 7B (32 heads: the TTFT window's 512
+# bucket, the 128 bucket, and longer windows), 13B (40 heads) and the heads
+# a rank holds at tp = 2 and 4 (16 and 8)
+B12_SHAPES = [("7B", 32, 128), ("7B", 32, 512), ("7B", 32, 1024),
+              ("7B", 32, 2048), ("13B", 40, 512), ("tp=2", 16, 512),
+              ("tp=4", 8, 512)]
+
+
+def check_flash_prefill(torch, dev, gen, results):
+    """B12 against its plain version at the shapes of B12_SHAPES (B = 1, Dh
+    128), on the forward's operands: q and k the halves of a roped f32
+    [1, T, 2H, Dh] tensor, v a strided slice of the f32 fused projection.
+    Within 2^-7 of the largest output (one bf16 ulp of the output, 2^-8
+    relative, from a tie or the f32 sum order), bf16-valued, the same
+    result twice. Timed over input sets cycled past the L2, beside its
+    plain version, the masked f32 softmax over an n_ctx-row cache that the
+    forward took before (S = max(T, 512)), and
+    scaled_dot_product_attention(is_causal=True) on bf16 [1, H, T, Dh]
+    (the yardstick; the port never calls it)."""
+    from fastllama_tpu_torch.kernels import decode_attention as da
+    from fastllama_tpu_torch.kernels import flash_prefill as fp
+    d = 128
+    rows = []
+    for label, h, t in B12_SHAPES:
+        f = h * d
+        nread = 3 * t * f * 4
+        sets = []
+        for _ in range(copies_for(nread)):
+            qk = torch.randn((1, t, 2 * h, d), generator=gen, device=dev)
+            qkv = torch.randn((1, t, 3 * f), generator=gen, device=dev)
+            sets.append((qk[:, :, :h], qk[:, :, h:],
+                         qkv[..., 2 * f:].reshape(1, t, h, d)))
+        q, k, v = sets[0]
+        shape = f"{label} H={h} d={d} T={t}"
+        out = fp.flash_prefill(q, k, v)
+        again = fp.flash_prefill(q, k, v)
+        ref = fp.flash_prefill_plain(q, k, v)
+        err = (out - ref).abs().max().item()
+        tol = 2 ** -7 * ref.abs().max().item()
+        require(bool(torch.isfinite(out).all()), f"B12 {shape}: not finite")
+        require(err <= tol, f"B12 {shape}: err {err} > {tol}")
+        require(torch.equal(out, out.to(torch.bfloat16).float()),
+                f"B12 {shape}: output not bf16-valued")
+        require(torch.equal(out, again), f"B12 {shape}: not deterministic")
+        it = iter(range(10**9))
+
+        def run():
+            fp.flash_prefill(*sets[next(it) % len(sets)])
+        ms = time_ms(torch, run, calls=4 * len(sets))
+        plain_ms = time_ms(torch, lambda: fp.flash_prefill_plain(q, k, v),
+                           calls=3)
+        s_len = max(t, ENG_CTX)
+        kc, vc = (torch.randn((1, s_len, f), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(2))
+        pos = torch.arange(t, device=dev)[None, :]
+        masked_ms = time_ms(torch, lambda: da.masked_attention(
+            q, kc, vc, pos, h, 1 / math.sqrt(d)), calls=3)
+        del kc, vc
+        sd = [tuple(x.to(torch.bfloat16).transpose(1, 2).contiguous()
+                    for x in st) for st in sets]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        sdpa_ms = time_ms(torch, lambda: sdpa(*sd[next(it) % len(sd)],
+                                              is_causal=True),
+                          calls=4 * len(sd))
+        del sd, sets
+        pairs = t * (t + 1) / 2
+        bnd, by = bound_ms(nread + t * f * 4, 4.0 * h * d * pairs, "bf16")
+        rows.append(dict(shape=shape + " f32", max_abs_err=err, tol=tol,
+                         ms=ms, plain_ms=plain_ms,
+                         replaced_masked_ms=masked_ms,
+                         replaced_masked_rows=s_len, library_ms=sdpa_ms,
+                         bound_ms=bnd, bound_by=by))
+        print(f"B12 {rows[-1]}", flush=True)
+    results["B12"] = rows
 
 
 # engine shapes at 7B: 8 slots, n_ctx 512, pages of 64 rows
@@ -1335,10 +1427,11 @@ def check_fused_paged_step(torch, dev, gen, results, heads=(32, 40)):
 
 
 def counted_kernels(qm, da):
+    from fastllama_tpu_torch.kernels.flash_prefill import flash_prefill
     return {"B1": qm.q4_matmul_decode, "B2": qm.quant_rows_int8,
             "B3": qm.q4_matmul_prefill_int8, "B4": da.decode_attention_fused,
             "B5": qm.q4_matmul_prefill, "B9": qm.q41_matmul_decode,
-            "B10": da.decode_attention}
+            "B10": da.decode_attention, "B12": flash_prefill}
 
 
 def reset_counts(qm, da):
@@ -1352,6 +1445,7 @@ def read_counts(qm, da):
 
 N_PROMPT, N_DECODE = 300, 64
 PREFILL_MATMULS = 4 * 32     # a 512-row window: four matmuls a layer
+FLASH_WINDOW = 32            # B12 once a layer in a fresh 512-row window
 # launches of one 300-token prefill window plus N_DECODE decode steps: four
 # matmuls per layer and the head per step, the head once per window
 DECODE_MATMULS = 129 * N_DECODE + 1
@@ -1426,6 +1520,8 @@ def main_path(torch, dev, gen):
     require(first[3].shape == (hp.n_vocab,), "main-path logits: wrong shape")
     for k in ("B1", "B2", "B3", "B4"):
         require(counts[k] > 0, f"kernel {k} was not launched on the main path")
+    require(counts["B12"] == FLASH_WINDOW, f"B12 launched {counts['B12']} "
+            f"times in the TTFT window, not {FLASH_WINDOW}")
     for k in ("B5", "B9", "B10"):
         require(counts[k] == 0, f"kernel {k} launched on the q4_0 int8 path")
     # two more runs for the spread of the host-clock numbers
@@ -1439,6 +1535,7 @@ def main_path(torch, dev, gen):
     require(profile, "the profiler saw no device time in the decode steps")
     traced = trace_session(torch, model, sess, profile["device_ms_per_token"])
     prefill = profile_prefill(torch, sess, prompt)
+    prefill_masked = profile_prefill(torch, sess, prompt, flash=False)
     busy = profile.get("device_ms_per_token")
     med_ms = float(np.median(ms_tok))
     res = dict(n_layer=hp.n_layer, n_prompt=N_PROMPT,
@@ -1452,6 +1549,7 @@ def main_path(torch, dev, gen):
                device_idle_share=(None if busy is None else
                                   1.0 - busy / med_ms),
                decode_profile=profile, prefill_profile=prefill,
+               prefill_profile_masked_route=prefill_masked,
                traced_generate=traced, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"main path: {json.dumps(res)}", flush=True)
     del sess, model
@@ -1466,6 +1564,8 @@ def main_path(torch, dev, gen):
             f"times in one prefill window, not {PREFILL_MATMULS}")
     require(ecounts["B2"] == 0 and ecounts["B3"] == 0,
             "int8 prefill kernels launched with prefill_int8=False")
+    require(ecounts["B12"] == FLASH_WINDOW, f"bf16-exact window: B12 "
+            f"launched {ecounts['B12']} times, not {FLASH_WINDOW}")
     require(ecounts["B1"] == DECODE_MATMULS and ecounts["B4"] == LAYER_CALLS,
             f"bf16-exact run: unexpected decode launches {ecounts}")
     ettfts = [exact[0]] + [timed_run(torch, sess, prompt)[0]
@@ -1473,7 +1573,9 @@ def main_path(torch, dev, gen):
     res["bf16_prefill"] = dict(
         ttft_ms=float(np.median(ettfts)), ttft_ms_runs=ettfts,
         int8_ttft_ms=res["ttft_ms"], launches=ecounts,
-        prefill_profile=profile_prefill(torch, sess, prompt))
+        prefill_profile=profile_prefill(torch, sess, prompt),
+        prefill_profile_masked_route=profile_prefill(torch, sess, prompt,
+                                                     flash=False))
     print(f"bf16-exact prefill: {json.dumps(res['bf16_prefill'])}", flush=True)
     del sess, model, params
     torch.cuda.empty_cache()
@@ -1505,8 +1607,9 @@ def q41_lora_path(torch, dev, gen, tmp):
         reset_counts(qm, da)
         first = timed_run(torch, sess, prompt)
         counts = read_counts(qm, da)
+        # the gate does not look at LoRA: B12 attends the window attached
         want = {"B9": DECODE_MATMULS, "B1": 0, "B2": 0, "B3": 0,
-                "B5": PREFILL_MATMULS,
+                "B5": PREFILL_MATMULS, "B12": FLASH_WINDOW,
                 "B4": 0 if attached else LAYER_CALLS,
                 "B10": LAYER_CALLS if attached else 0}
         require(counts == want, f"q4_1 {label}: launches {counts}, "
@@ -1567,19 +1670,31 @@ def profile_decode(torch, sess, n_steps: int) -> dict:
                         for k, ms, n in top]}
 
 
-def profile_prefill(torch, sess, prompt) -> dict:
+def profile_prefill(torch, sess, prompt, flash=True) -> dict:
     """The TTFT window (reset, ingest, first token) under torch.profiler:
     device ms by kernel, so the prefill's device time reads apart from the
-    host clock. Empty if the profiler sees no device activity."""
+    host clock. flash=False runs the window on the route B12 replaced (the
+    masked f32 softmax over the cache), by taking the flash flag off the
+    model's configs for this window: the before of B12's after, in the
+    same call. Empty if the profiler sees no device activity."""
+    import dataclasses
     from torch.profiler import ProfilerActivity, profile
+    model = sess.model
+    cfgs = model._cfg
+    if not flash:
+        model._cfg = {key: dataclasses.replace(c, flash_prefill=False)
+                      for key, c in cfgs.items()}
     sess.reset()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        require(sess.ingest(prompt), "profiled ingest failed")
-        require(sess.generate(lambda s: None, num_tokens=1, temp=0.0),
-                "profiled first token failed")
-        torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            require(sess.ingest(prompt), "profiled ingest failed")
+            require(sess.generate(lambda s: None, num_tokens=1, temp=0.0),
+                    "profiled first token failed")
+            torch.cuda.synchronize()
+    finally:
+        model._cfg = cfgs
     dev_ms, launches, top = device_time_by_kernel(prof, 1)
     if dev_ms <= 0:
         return {}
@@ -2278,6 +2393,18 @@ def all_kernels():
                 PS=pa.paged_decode_step_fused)
 
 
+def flash_admissions(eng, reqs) -> int:
+    """Requests whose monolithic admission enters B12 (models/llama.
+    _flash_viable): a prompt bucket of at least 128 rows, a multiple of
+    128 (head_dim is 128 and the mode bf16 wherever this is asked)."""
+    n = 0
+    for r in reqs:
+        bucket = next((b for b in eng._buckets if b >= r.n_prompt),
+                      eng.n_ctx)
+        n += bucket >= 128 and bucket % 128 == 0
+    return n
+
+
 def engine_run(torch, sched, make, label, n_layer, chunked, f32=False,
                lora=False, **req_kw):
     """One engine, ENG_PROMPTS through it, with every launch counted (a
@@ -2295,6 +2422,11 @@ def engine_run(torch, sched, make, label, n_layer, chunked, f32=False,
     wall = time.perf_counter() - t0
     counts = {k: fn.launches for k, fn in kernels.items()}
     require(counts["B11"] == 0, f"engine {label}: B11 launched")
+    # B12 once a layer in each monolithic bf16 admission whose bucket
+    # passes the gate; never in chunked admission or f32 mode
+    want = 0 if chunked or f32 else n_layer * flash_admissions(eng, reqs)
+    require(counts["B12"] == want, f"engine {label}: B12 launched "
+            f"{counts['B12']} times, not {want}")
     streams = [list(r.tokens_out) for r in reqs]
     require(all(r.done for r in reqs), f"engine {label}: a request is not done")
     require(all(len(t) == ENG_GEN for t in streams),
@@ -2434,8 +2566,9 @@ def engine_path(torch, dev, gen):
 
     # greedy streams across the modes. In bf16 the three modes round at
     # different places (the fused slab kernel folds the new token in
-    # unrounded and the paged prefill attends the unrounded block, while the
-    # paged step and the chunked row cache read rows rounded to bf16), so a
+    # unrounded and the paged prefill attends the unrounded block below
+    # B12's gate, while the paged step and the chunked row cache read rows
+    # rounded to bf16), so a
     # near-tie of two logits can flip and the streams part from there on:
     # the first token must agree for most requests, and the common prefixes
     # are reported. The f32 engines below must agree token for token.
@@ -2494,15 +2627,17 @@ def engine_path(torch, dev, gen):
     # flip an exact near-tie: at most two of the twelve requests may differ)
     hp2 = dataclasses.replace(hp, n_layer=2)
     params2 = rand_params(torch, hp2, gen, dev)
-    f32 = {}
+    f32, f32_b12 = {}, {}
     for name, kw in (("paged", {}), ("paged_chunked", {"chunked": True}),
                      ("slab", {})):
         mode = "slab" if name == "slab" else "paged"
-        f32[name], _ = engine_run(
+        f32[name], row = engine_run(
             torch, sched, maker(params2, hp2, mode, mode_dtype="float32",
                                 **kw),
             name + " f32 2 layers greedy", hp2.n_layer, bool(kw), f32=True,
             temp=0.0)
+        f32_b12[name] = row["launches"]["B12"]
+    res["f32_b12_launches"] = f32_b12
     same = {}
     for a, b in (("paged", "paged_chunked"), ("paged", "slab")):
         n_same = sum(x == y for x, y in zip(f32[a], f32[b]))
@@ -2818,7 +2953,7 @@ ENG_BF16_SLACK = 2
 # the run of the (1, 2) world whose launches a kernel's line reports
 TP_PART = {"B1": "int8", "B2": "int8", "B3": "int8", "B4": "int8",
            "B5": "bf16_exact", "B9": "lora", "B10": "lora",
-           "PS": "engine_paged"}
+           "PS": "engine_paged", "B12": "int8"}
 
 
 def _rank_main(rank, n, port, fn, args, q):
@@ -2935,6 +3070,7 @@ def _engine_streams(torch, hp, params, vocab, rcfg, mode):
     require(all(r.done and len(t) == ENG_GEN for r, t in zip(reqs, streams)),
             f"engine {mode} {rcfg.mesh_shape}: a request did not finish")
     res = dict(streams=streams, ms_per_token=wall * 1e3 / sum(map(len, streams)),
+               flash_admissions=flash_admissions(eng, reqs),
                **_counts_and_staged())
     if eng.pager is not None:
         res["free_pages_by_group"] = eng.pager.free_pages_by_group
@@ -2962,6 +3098,7 @@ def tp_world(torch, q40, q41, adapter, state):
                                       mesh_shape=(1, 2),
                                       logger=fastllama_tpu_torch.Logger())
     lm = model._model
+    res["n_layer"] = lm.hp.n_layer
     prompt = prompt_of(N_PROMPT - 2, seed=4)
     warm_up(model.session, prompt)
     _reset_counts()
@@ -3016,7 +3153,7 @@ def sp_world(torch, q40):
     first, stream, ms = _session_run(
         torch, model.session, prompt_of(SP_PROMPT - 2, seed=9), SP_DECODE)
     res = {"sp": dict(first=first, stream=stream, ms_per_token=ms,
-                      **_counts_and_staged())}
+                      **_counts_and_staged()), "n_layer": lm.hp.n_layer}
     res["engine"] = {mode: _engine_streams(
         torch, lm.hp, lm.params, lm.vocab,
         RuntimeConfig(n_ctx=ENG_CTX, n_batch=512, mesh_shape=(2, 1)), mode)
@@ -3147,6 +3284,19 @@ def parallel_path(torch, tmp, q40, q41):
         c = r["int8"]["launches"]
         require(all(c[k] > 0 for k in ("B1", "B2", "B3", "B4")),
                 f"TP session launches {c}")
+        # B12 at the rank's 16 heads: once a layer in each fresh window
+        # and in every monolithic admission past the gate
+        n_layer = r0["n_layer"]
+        require(c["B12"] == n_layer
+                and r["bf16_exact"]["launches"]["B12"] == n_layer
+                and r["lora"]["launches"]["B12"] == 0,
+                f"TP B12 launches {c['B12']}, bf16-exact "
+                f"{r['bf16_exact']['launches']['B12']}, LoRA probe "
+                f"{r['lora']['launches']['B12']}")
+        for mode, e in r["engine"].items():
+            require(e["launches"]["B12"] == n_layer * e["flash_admissions"],
+                    f"TP engine {mode}: B12 launched "
+                    f"{e['launches']['B12']} times")
         require(r["bf16_exact"]["launches"]["B5"] > 0
                 and r["bf16_exact"]["launches"]["B3"] == 0,
                 f"TP bf16-exact launches {r['bf16_exact']['launches']}")
@@ -3186,7 +3336,16 @@ def parallel_path(torch, tmp, q40, q41):
     r0 = ranks[0]
     e = rel_err(r0["sp"]["first"], ref_sp)
     require(e <= PAR_TOL, f"SP (2, 1) first-token logits rel err {e}")
+    # SP windows take the ring, never B12; the dp 2 engine's admissions
+    # run on their slot's rank
+    for mode in ("paged", "slab"):
+        got = sum(r["engine"][mode]["launches"]["B12"] for r in ranks)
+        want = r0["n_layer"] * r0["engine"][mode]["flash_admissions"]
+        require(got == want, f"engine (2, 1) {mode}: B12 launched {got} "
+                f"times over the ranks, not {want}")
     for r in ranks:
+        require(r["sp"]["launches"]["B12"] == 0,
+                f"SP session: B12 launched {r['sp']['launches']['B12']}")
         require(r["sp"]["launches"]["B4"] == 0
                 and r["sp"]["launches"]["B1"] > 0
                 and r["sp"]["dequant_cuda_calls"] == 0,
@@ -3211,6 +3370,8 @@ def parallel_path(torch, tmp, q40, q41):
                     "engine f32 (2, 2): ranks disagree on the streams")
             require(r[mode]["dequant_cuda_calls"] == 0,
                     "engine f32 (2, 2): the dequant path ran on the card")
+            require(r[mode]["launches"]["B12"] == 0,
+                    "engine f32 (2, 2): B12 launched in f32 mode")
     for key in ("tp_1x2", "sp_2x1", "f32_2x2"):
         brief = {k: v for k, v in res[key].items()
                  if k not in ("launches_by_rank", "engine")}
@@ -3339,7 +3500,8 @@ def main() -> int:
                  "B8": pick(checks["B8"], "bf16"),
                  "B11": pick(checks["B11"], "bf16 flat pools lengths=8x300"),
                  "PS": pick(checks["PS"], "H=32 bf16 d=128 ps=64 pp=8 "
-                            "lengths=8x300")}
+                            "lengths=8x300"),
+                 "B12": pick(checks["B12"], "7B H=32 d=128 T=512 f32")}
     meta = {
         "B1": ("q4_matmul_decode", "csrc/q4_decode.cu",
                "fastllama_tpu/kernels/q4_matmul.py:433"),
@@ -3367,6 +3529,9 @@ def main() -> int:
         # launch of that step (fastllama_tpu/kernels/paged_attention.py:333)
         "PS": ("paged_decode_step_fused", "csrc/paged_attention.cu",
                "fastllama_tpu/kernels/kv_write.py:55"),
+        # the library Pallas TPU flash_attention the JAX function calls
+        "B12": ("flash_prefill", "csrc/flash_prefill.cu",
+                "fastllama_tpu/models/llama.py:288"),
     }
     kernels = []
     for key, (name, src, replaces) in meta.items():
@@ -3414,6 +3579,19 @@ def main() -> int:
                 for by_rank in par_res["tp_1x2"]["launches_by_rank"]]
         if key in c_res["c_launches"]:
             kernels[-1]["launches_c_program"] = c_res["c_launches"][key]
+        if key == "B12":
+            runs = engine_res["runs"]
+            kernels[-1].update(
+                replaced_ms=row["replaced_masked_ms"],
+                launches_by_path={
+                    "ttft_window_int8": main_res["launches"]["B12"],
+                    "ttft_window_bf16_exact":
+                        main_res["bf16_prefill"]["launches"]["B12"],
+                    "ttft_window_q4_1_lora":
+                        q41_res["attached"]["launches"]["B12"],
+                    **{f"engine_{m}": runs[m]["launches"]["B12"]
+                       for m in ("paged", "paged_chunked", "slab")},
+                    "engine_f32_2_layers": engine_res["f32_b12_launches"]})
         if key == "B1":
             m8 = pick(checks["B1"], "qkv M=8 ")
             kernels[-1].update(ms_at_engine_m8=m8["ms"],

@@ -189,6 +189,10 @@ class BatchEngine:
             n_head=hp.n_head // self.tp, n_rot=hp.n_rot,
             w_dtype=rcfg.weight_dtype, prefill_int8=rcfg.prefill_int8,
             tp_group=self._tp_group)
+        # the monolithic admissions' prefill (a fresh row or slot: n_past
+        # == 0), which may attend through the flash kernel, as the JAX
+        # engine's three prefill builders do; chunked admission keeps cfg
+        self._prefill_cfg = dataclasses.replace(self.cfg, flash_prefill=True)
         self._tables = position_tables(n_ctx, hp.head_dim, hp.n_rot, dev)
 
         # device-side slot state, updated in place
@@ -322,7 +326,8 @@ class BatchEngine:
         window keep the previous occupant's values: finite, masked by the
         slot's depth and overwritten as it decodes."""
         logits, _, _ = forward(self.params, self._to_device(toks), 0,
-                               self._row_kv, self.cfg, last_idx, self._tables)
+                               self._row_kv, self._prefill_cfg, last_idx,
+                               self._tables)
         self._splice_slab(slot, toks.shape[1])
         return logits[:, -1, :]
 
@@ -534,8 +539,8 @@ class BatchEngine:
                 logits_for_slot, _, _ = forward_paged_prefill(
                     self.params, self._to_device(toks), t - 1,
                     self._to_device(pages), self._to_device(offs),
-                    self.pager.k_pages, self.pager.v_pages, self.cfg,
-                    self._tables)
+                    self.pager.k_pages, self.pager.v_pages,
+                    self._prefill_cfg, self._tables)
             self.pager.lengths[slot_idx] = t
         elif self._lo <= slot_idx < self._hi:
             logits_for_slot = self._prefill_slab(toks, slot_idx, t - 1)

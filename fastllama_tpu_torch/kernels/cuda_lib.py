@@ -24,11 +24,13 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("q4_decode", "quant_rows", "q4_int8", "q4_prefill",
-           "decode_attention", "paged_attention", "kv_write")
+           "decode_attention", "paged_attention", "kv_write",
+           "flash_prefill")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+L = ctypes.c_longlong
 ARGTYPES = {
     "q4_gemv": [P, I, I, P, P, I, I, I, I, P, P, P, I, I, P],
     "q4_gemv_mma": [P, I, I, P, P, I, I, I, I, I, I, P, P, P, I, P],
@@ -49,6 +51,8 @@ ARGTYPES = {
                                 I, I, F, I, P, P, P, P],
     "paged_kv_write": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "paged_kv_write_rows": [P, P, P, P, P, I, I, I, I, I, P],
+    "flash_prefill": [P, P, P, L, L, L, L, L, L, L, L, L, I, I, I, I, F, P,
+                      P],
 }
 LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
           "q41_gemv": "q4_decode", "q41_gemv_mma": "q4_decode",
@@ -59,7 +63,8 @@ LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
           "paged_decode_attention": "paged_attention",
           "paged_decode_attention_flat": "paged_attention",
           "paged_decode_step_fused": "paged_attention",
-          "paged_kv_write": "kv_write", "paged_kv_write_rows": "kv_write"}
+          "paged_kv_write": "kv_write", "paged_kv_write_rows": "kv_write",
+          "flash_prefill": "flash_prefill"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None   # wall time of the last build() call

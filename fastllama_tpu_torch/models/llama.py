@@ -24,8 +24,11 @@ plain version): every 4-bit matmul goes through kernels/q4_matmul.q4_matmul
 (T = 1) in bf16 weight mode runs the fused decode attention B4 in a layer
 without q/k/v LoRA and, in a layer with it, adds the LoRA terms, ropes,
 writes the cache row and runs the decode attention B10. The paged decode
-step writes the new row with B7 and attends with B6. Prefill attention (and
-f32-mode slab decode) is plain PyTorch: masked f32 softmax over the cache.
+step writes the new row with B7 and attends with B6. A fresh-prompt prefill
+whose caller sets ForwardConfig.flash_prefill attends over its own window
+with the flash kernel B12 where _flash_viable holds (the JAX package's
+gate); every other prefill window (and f32-mode slab decode) is plain
+PyTorch: masked f32 softmax over the cache.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from ..config import HyperParams, resolve_device
 from ..kernels.decode_attention import (
     decode_attention, decode_attention_fused, masked_attention,
 )
+from ..kernels.flash_prefill import flash_prefill
 from ..kernels.kv_write import paged_kv_write, scatter_rows_drop
 from ..kernels.paged_attention import (
     paged_decode_attention, paged_decode_step_fused,
@@ -131,6 +135,12 @@ class ForwardConfig:
     sp_group: object = None
     sp_size: int = 1
     sp_chunked: bool = False
+    # Caller's promise that this forward only ever runs with n_past == 0
+    # (fresh-prompt prefill). Lets attention use the flash kernel B12 over
+    # just the in-window K/V (online softmax, no [T, S] scores in device
+    # memory) instead of attending into the (empty) cache. Set by the
+    # prefill entry points; decode calls must leave it False.
+    flash_prefill: bool = False
 
     @property
     def w_tdtype(self) -> torch.dtype:
@@ -257,6 +267,17 @@ def _write_rows_drop(cache: torch.Tensor, val: torch.Tensor,
                       val.reshape(1, -1, f))
 
 
+def _flash_viable(cfg: ForwardConfig, t: int, hd: int) -> bool:
+    """The JAX package's gate for the flash-prefill path: the caller's
+    n_past == 0 promise, no sequence parallelism, lane-aligned shapes, the
+    bf16 weight mode (the f32 parity contract keeps the masked f32 path).
+    Where JAX also asks for the TPU backend, the wrapper here picks the
+    kernel or its plain version by the tensors' device."""
+    return (cfg.flash_prefill and cfg.sp_group is None
+            and t >= 128 and t % 128 == 0
+            and hd % 128 == 0 and cfg.w_tdtype != torch.float32)
+
+
 def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
                positions: torch.Tensor, kv: KVPair, cfg: ForwardConfig,
                rope_ls, rope_bt, n_past_vec):
@@ -308,6 +329,11 @@ def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
     write_kv(kv_k, k.reshape(b, t, -1).to(kv_k.dtype))
     write_kv(kv_v, v.reshape(b, t, -1).to(kv_v.dtype))
 
+    if _flash_viable(cfg, t, hd):
+        # a fresh prompt (n_past == 0, the caller's promise): the window's
+        # own K/V is the whole context, so B12 attends it in place of the
+        # masked softmax over the cache
+        return finish(flash_prefill(q, k, v))
     if rope_ls is not None:
         # a bf16 decode step whose layer has q/k/v LoRA: kernel B10 over
         # the cache that now holds this token's row
@@ -538,10 +564,12 @@ def forward_paged_prefill(params: LlamaParams, tokens: torch.Tensor,
     """Prefill a FRESH sequence into the paged cache.
 
     A fresh slot needs no cache reads: causal self-attention over the prompt
-    block itself (plain PyTorch, masked f32 softmax over the unrounded K and
-    V of the block), with the block's K/V scattered into the sequence's pages
-    by write_tokens_paged. tokens [1, T] (bucketed; the padded tail carries
-    sentinel page ids). Returns (last_logits [1, V] f32, k_pages, v_pages).
+    block itself, with the block's K/V scattered into the sequence's pages
+    by write_tokens_paged. Where _flash_viable holds (cfg.flash_prefill, as
+    the engine's admission sets it) the block attends through B12;
+    otherwise through a masked f32 softmax over the unrounded K and V of
+    the block. tokens [1, T] (bucketed; the padded tail carries sentinel
+    page ids). Returns (last_logits [1, V] f32, k_pages, v_pages).
     """
     from ..engine.paged_kv import write_tokens_paged
     b, t = tokens.shape
@@ -553,18 +581,23 @@ def forward_paged_prefill(params: LlamaParams, tokens: torch.Tensor,
     rope_bt = (cos[:, :, None, :], sin[:, :, None, :])
     causal = positions[0][None, :] <= positions[0][:, None]      # [T, T]
     scale = 1.0 / math.sqrt(hd)
+    flash = _flash_viable(cfg, t, hd)
     x = embed_tokens(params.tok_embeddings, tokens, cfg.act_tdtype, cfg)
 
     for layer, kp, vp in zip(params.layers, k_pages, v_pages):
         attn_in = rms_norm(x, layer.attention_norm, cfg.rms_eps)
         q, k, v = _roped_qkv(attn_in, layer, cfg, rope_bt)
         write_tokens_paged(kp, vp, k, v, page_ids[None, :], offsets[None, :])
-        scores = torch.einsum("bthd,bshd->bhts", q.to(torch.float32),
-                              k.to(torch.float32)) * scale
-        scores = torch.where(causal[None, None], scores,
-                             torch.full_like(scores, -1e30))
-        ctx = torch.einsum("bhts,bshd->bthd", torch.softmax(scores, dim=-1),
-                           v.to(torch.float32))
+        if flash:
+            ctx = flash_prefill(q, k, v)
+        else:
+            scores = torch.einsum("bthd,bshd->bhts", q.to(torch.float32),
+                                  k.to(torch.float32)) * scale
+            scores = torch.where(causal[None, None], scores,
+                                 torch.full_like(scores, -1e30))
+            ctx = torch.einsum("bhts,bshd->bthd",
+                               torch.softmax(scores, dim=-1),
+                               v.to(torch.float32))
         x = x + _project_out(ctx, layer, cfg, b, t)
         x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
 

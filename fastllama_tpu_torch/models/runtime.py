@@ -58,8 +58,11 @@ class LlamaModel:
         self._tp_group = self._sp_group = None
         if rcfg.mesh_shape and int(np.prod(rcfg.mesh_shape)) > 1:
             base.update(self._setup_mesh(hp, rcfg))
-        self._cfg = {al: ForwardConfig(all_logits=al, **base)
-                     for al in (False, True)}
+        # one config per (all_logits, flash_prefill) combination; the flash
+        # variants only ever run with n_past == 0 (eval dispatches)
+        self._cfg = {
+            (al, fl): ForwardConfig(all_logits=al, flash_prefill=fl, **base)
+            for al in (False, True) for fl in (False, True)}
         local = dataclasses.replace(self.hp, n_embd=hp.n_embd // self.tp,
                                     n_head=hp.n_head // self.tp)
         self.kv = init_kv_cache(local, 1, rcfg.n_ctx // self.sp,
@@ -159,7 +162,8 @@ class LlamaModel:
         with torch.inference_mode():
             logits, self.kv, self._embeddings = forward(
                 self.params, torch.from_numpy(buf).to(self.device), n_past,
-                self.kv, self._cfg[all_logits], t - 1, self._tables)
+                self.kv, self._cfg[(all_logits, n_past == 0 and t > 1)],
+                t - 1, self._tables)
             out = logits[0].cpu().numpy()
         self.n_cached = max(self.n_cached, n_past + t)
         return out[:t] if all_logits else out[-1]

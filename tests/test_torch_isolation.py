@@ -29,9 +29,10 @@ def test_package_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     res = json.loads(out.strip().splitlines()[-1])
-    assert len(res["mods"]) >= 39
+    assert len(res["mods"]) >= 40
     for mod in ("engine.scheduler", "engine.paged_kv", "engine.sampling",
-                "kernels.paged_attention", "kernels.kv_write", "native",
+                "kernels.paged_attention", "kernels.kv_write",
+                "kernels.flash_prefill", "native",
                 "quant.native", "io.convert", "utils.trace", "parallel",
                 "parallel.sharding", "parallel.ring", "parallel.multihost",
                 "parallel.collectives"):

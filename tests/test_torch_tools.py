@@ -5,6 +5,7 @@ driven through piped stdin with --device cpu."""
 import io
 import json
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +29,7 @@ from tools_torch import chat as t_chat  # noqa: E402
 from tools_torch import convert as t_convert  # noqa: E402
 from tools_torch import convert_lora as t_convert_lora  # noqa: E402
 from tools_torch import export_hf as t_export_hf  # noqa: E402
+from tools_torch import profile_prefill as t_profile_prefill  # noqa: E402
 from tools_torch import quantize as t_quantize  # noqa: E402
 
 torch.set_num_threads(1)
@@ -227,3 +229,30 @@ def test_chat_cli_tp_under_torchrun(tmp_path, monkeypatch, capsys):
     assert run.returncode == 0, run.stderr[-3000:]
     assert run.stdout == one
     assert "saved" in one and "loaded" in one and one.count("Assistant: ") == 3
+
+
+def test_profile_prefill_arguments():
+    """tools_torch/profile_prefill.py: the JAX tool's window options with
+    its defaults, --mode int8 or bf16 only, a window that fits the cache."""
+    args = t_profile_prefill.parse_args([])
+    assert (args.seq, args.n_ctx, args.layers, args.mode, args.reps) == (
+        512, 512, 32, "int8", 4)
+    assert Path(args.out) == Path(tempfile.gettempdir(), "profile_prefill")
+    args = t_profile_prefill.parse_args(
+        ["--seq", "1024", "--n-ctx", "2048", "--layers", "2", "--mode",
+         "bf16", "--reps", "1", "--out", "prof"])
+    assert (args.seq, args.n_ctx, args.layers, args.mode, args.reps,
+            args.out) == (1024, 2048, 2, "bf16", 1, "prof")
+    for bad in (["--mode", "xla"], ["--seq", "1024"], ["--seq", "0"],
+                ["--layers", "0"]):
+        with pytest.raises(SystemExit):
+            t_profile_prefill.parse_args(bad)
+
+
+def test_profile_prefill_needs_a_card(capsys):
+    """Without a card the profiler refuses (exit code 2) before building
+    or tracing anything: a CPU run is no device measurement."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert t_profile_prefill.main(["--layers", "1"]) == 2
+    assert "no CUDA card" in capsys.readouterr().err
