@@ -41,12 +41,13 @@ Phases (any failure exits nonzero before the last line):
      holds under tensor parallelism (cut by parallel/sharding.shard_params
      at tp = 2 and 4): B1 at M = 1 and 8, B2 + B3 bit for bit at M = 512
      and 256, B5 at M = 128 and 512, each timed. B12 (the fresh-prompt
-     flash prefill attention) on the forward's operands (f32 strided
-     views) at 32 heads and T = 128, 512, 1024, 2048, at 40 heads (13B)
-     and 16 and 8 heads (a rank at tp 2 and 4) at T = 512, timed beside
-     its plain version, the masked f32 softmax over an n_ctx-row cache it
-     replaced and scaled_dot_product_attention (is_causal, bf16; the
-     yardstick). Afterwards no phase
+     flash prefill attention) on the forward's operands (bf16 q, K and V
+     rows of bf16 slab caches) at 32 heads and T = 128, 512, 1024, 2048,
+     at 40 heads (13B), 16 and 8 heads (a rank at tp 2 and 4) and Dh 256
+     (16 heads) at T = 512, timed beside its plain version, the masked
+     f32 softmax over an n_ctx-row cache it replaced and
+     scaled_dot_product_attention (is_causal, bf16; the yardstick), with
+     its bound for bf16 and for f32 operands. Afterwards no phase
      may call the dequant path on the card (q4_matmul_dequant.cuda_calls
      must read 0 after phase 10);
   3. the q4_0 session at full 7B width (32 layers, bf16 weights and KV,
@@ -816,38 +817,44 @@ def check_decode_attention(torch, dev, gen, results):
     del caches
 
 
-# B12's shapes: (label, heads, T) at 7B (32 heads: the TTFT window's 512
-# bucket, the 128 bucket, and longer windows), 13B (40 heads) and the heads
-# a rank holds at tp = 2 and 4 (16 and 8)
-B12_SHAPES = [("7B", 32, 128), ("7B", 32, 512), ("7B", 32, 1024),
-              ("7B", 32, 2048), ("13B", 40, 512), ("tp=2", 16, 512),
-              ("tp=4", 8, 512)]
+# B12's shapes: (label, heads, T, Dh) at 7B (32 heads: the TTFT window's
+# 512 bucket, the 128 bucket, and longer windows), 13B (40 heads), the heads
+# a rank holds at tp = 2 and 4 (16 and 8), and a head width of 256 (which
+# the gate admits: Dh % 128 == 0)
+B12_SHAPES = [("7B", 32, 128, 128), ("7B", 32, 512, 128),
+              ("7B", 32, 1024, 128), ("7B", 32, 2048, 128),
+              ("13B", 40, 512, 128), ("tp=2", 16, 512, 128),
+              ("tp=4", 8, 512, 128), ("Dh256", 16, 512, 256)]
 
 
 def check_flash_prefill(torch, dev, gen, results):
-    """B12 against its plain version at the shapes of B12_SHAPES (B = 1, Dh
-    128), on the forward's operands: q and k the halves of a roped f32
-    [1, T, 2H, Dh] tensor, v a strided slice of the f32 fused projection.
-    Within 2^-7 of the largest output (one bf16 ulp of the output, 2^-8
-    relative, from a tie or the f32 sum order), bf16-valued, the same
-    result twice. Timed over input sets cycled past the L2, beside its
-    plain version, the masked f32 softmax over an n_ctx-row cache that the
-    forward took before (S = max(T, 512)), and
-    scaled_dot_product_attention(is_causal=True) on bf16 [1, H, T, Dh]
-    (the yardstick; the port never calls it)."""
+    """B12 against its plain version at the shapes of B12_SHAPES (B = 1), on
+    the operands the forward passes: q the bf16 half of a roped
+    [1, T, 2H, Dh] tensor, K and V rows 0..T-1 of bf16 slab caches
+    [1, S, H Dh] (S = max(T, 512)). Within 2^-7 of the largest output (one
+    bf16 ulp of the output, 2^-8 relative, from a tie or the f32 sum
+    order), bf16-valued, the same result twice. Timed over input sets
+    cycled past the L2, beside its plain version, the masked f32 softmax
+    over the cache that the forward took before B12, and
+    scaled_dot_product_attention(is_causal=True) on bf16 [1, H, T, Dh] (the
+    yardstick; the port never calls it). The bound counts bf16 q, k, v and
+    the f32 output; bound_f32_ms the f32 operands B12 read before."""
+    from fastllama_tpu_torch.kernels import cuda_lib
     from fastllama_tpu_torch.kernels import decode_attention as da
     from fastllama_tpu_torch.kernels import flash_prefill as fp
-    d = 128
     rows = []
-    for label, h, t in B12_SHAPES:
+    for label, h, t, d in B12_SHAPES:
         f = h * d
-        nread = 3 * t * f * 4
+        s_len = max(t, ENG_CTX)
+        nread = 3 * t * f * 2
         sets = []
         for _ in range(copies_for(nread)):
-            qk = torch.randn((1, t, 2 * h, d), generator=gen, device=dev)
-            qkv = torch.randn((1, t, 3 * f), generator=gen, device=dev)
-            sets.append((qk[:, :, :h], qk[:, :, h:],
-                         qkv[..., 2 * f:].reshape(1, t, h, d)))
+            qk = torch.randn((1, t, 2 * h, d), generator=gen,
+                             device=dev).to(torch.bfloat16)
+            kc, vc = (torch.randn((1, s_len, f), generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(2))
+            sets.append((qk[:, :, :h], kc[:, :t].view(1, t, h, d),
+                         vc[:, :t].view(1, t, h, d)))
         q, k, v = sets[0]
         shape = f"{label} H={h} d={d} T={t}"
         out = fp.flash_prefill(q, k, v)
@@ -867,27 +874,30 @@ def check_flash_prefill(torch, dev, gen, results):
         ms = time_ms(torch, run, calls=4 * len(sets))
         plain_ms = time_ms(torch, lambda: fp.flash_prefill_plain(q, k, v),
                            calls=3)
-        s_len = max(t, ENG_CTX)
         kc, vc = (torch.randn((1, s_len, f), generator=gen, device=dev)
                   .to(torch.bfloat16) for _ in range(2))
         pos = torch.arange(t, device=dev)[None, :]
+        qf = q.float()
         masked_ms = time_ms(torch, lambda: da.masked_attention(
-            q, kc, vc, pos, h, 1 / math.sqrt(d)), calls=3)
-        del kc, vc
-        sd = [tuple(x.to(torch.bfloat16).transpose(1, 2).contiguous()
-                    for x in st) for st in sets]
+            qf, kc, vc, pos, h, 1 / math.sqrt(d)), calls=3)
+        del kc, vc, qf
+        sd = [tuple(x.transpose(1, 2).contiguous() for x in st)
+              for st in sets]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         sdpa_ms = time_ms(torch, lambda: sdpa(*sd[next(it) % len(sd)],
                                               is_causal=True),
                           calls=4 * len(sd))
         del sd, sets
-        pairs = t * (t + 1) / 2
-        bnd, by = bound_ms(nread + t * f * 4, 4.0 * h * d * pairs, "bf16")
-        rows.append(dict(shape=shape + " f32", max_abs_err=err, tol=tol,
-                         ms=ms, plain_ms=plain_ms,
+        ops = 4.0 * h * d * t * (t + 1) / 2
+        bnd, by = bound_ms(nread + t * f * 4, ops, "bf16")
+        bnd_f32, by_f32 = bound_ms(2 * nread + t * f * 4, ops, "bf16")
+        plan = fp.b12_plan(1, h, t, d, cuda_lib.sm_count(dev))
+        rows.append(dict(shape=shape + " bf16", max_abs_err=err, tol=tol,
+                         ms=ms, plain_ms=plain_ms, plan=list(plan),
                          replaced_masked_ms=masked_ms,
                          replaced_masked_rows=s_len, library_ms=sdpa_ms,
-                         bound_ms=bnd, bound_by=by))
+                         bound_ms=bnd, bound_by=by, bound_f32_ms=bnd_f32,
+                         bound_f32_by=by_f32))
         print(f"B12 {rows[-1]}", flush=True)
     results["B12"] = rows
 
@@ -1090,19 +1100,21 @@ def check_engine_kernels(torch, dev, gen, results):
             k1, v1, k_new, v_new, pids, offs), calls=32)
         plain_ms = time_ms(torch, lambda: kw.paged_kv_write_plain(
             k2, v2, k_new, v_new, pids, offs), calls=4)
+        # the library's indexed write of the same rows: index_put_ into
+        # each pool's [P ps, H, D] view, a sentinel id onto the trash page
+        # and an id past the pool clamped onto it too
         flat = (pids.long() * ps + offs.long()).clamp_max(n_pages * ps)
-        kt, vt = (x.transpose(0, 1).to(dt).contiguous()
-                  for x in (k_new, v_new))
+        kt, vt = (x.to(dt) for x in (k_new, v_new))
 
-        def index_copy():
-            k2.view(h, -1, d).index_copy_(1, flat, kt)
-            v2.view(h, -1, d).index_copy_(1, flat, vt)
+        def index_put():
+            k2.view(h, -1, d).transpose(0, 1).index_put_((flat,), kt)
+            v2.view(h, -1, d).transpose(0, 1).index_put_((flat,), vt)
         bnd, by = bound_ms(2 * b * f * (4 + isz) + 2 * b * 4, 0.0, "f32")
         b7.append(dict(shape=f"B={b} H={h} d={d} ps={ps} {name}",
                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bnd, bound_by=by, library_ms=None,
-                       two_index_copy_calls_ms=time_ms(torch, index_copy,
-                                                       calls=16)))
+                       bound_ms=bnd, bound_by=by,
+                       library_ms=time_ms(torch, index_put, calls=16),
+                       library_call="index_put_, one call a pool"))
         print(f"B7 {b7[-1]}", flush=True)
 
         # B8: a 512-row prompt into 8 shuffled pages, one block to the trash
@@ -1136,9 +1148,11 @@ def check_engine_kernels(torch, dev, gen, results):
         bnd, by = bound_ms(2 * 2 * real * f * isz + pp * 4, 0.0, "f32")
         b8.append(dict(shape=f"T={t} H={h} d={d} ps={ps} {name}",
                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bnd, bound_by=by, library_ms=None,
-                       two_index_copy_calls_ms=time_ms(
-                           torch, index_copy_pages, calls=16)))
+                       bound_ms=bnd, bound_by=by,
+                       library_ms=time_ms(torch, index_copy_pages,
+                                          calls=16),
+                       library_call="index_copy_ of whole pages, one call "
+                                    "a pool"))
         print(f"B8 {b8[-1]}", flush=True)
         del pools, k1, v1, k2, v2
     # B6 at B = 1 (300 keys; small pools, cycled through more than the
@@ -3501,7 +3515,7 @@ def main() -> int:
                  "B11": pick(checks["B11"], "bf16 flat pools lengths=8x300"),
                  "PS": pick(checks["PS"], "H=32 bf16 d=128 ps=64 pp=8 "
                             "lengths=8x300"),
-                 "B12": pick(checks["B12"], "7B H=32 d=128 T=512 f32")}
+                 "B12": pick(checks["B12"], "7B H=32 d=128 T=512 bf16")}
     meta = {
         "B1": ("q4_matmul_decode", "csrc/q4_decode.cu",
                "fastllama_tpu/kernels/q4_matmul.py:433"),

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's wgmma kernels (B3 in
-// q4_int8.cu, B5 in q4_prefill.cu): mbarriers, TMA tile loads and their
-// tensor maps, shared-memory matrix descriptors and the wgmma fences.
+// q4_int8.cu, B5 in q4_prefill.cu, B12 in flash_prefill.cu): mbarriers, TMA
+// tile loads and their tensor maps, shared-memory matrix descriptors and
+// the wgmma fences.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at
@@ -70,6 +71,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
       "r"(c1) : "memory");
+}
+
+// A box of a 4-D map (coordinates innermost first) into shared memory.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
 // Shared-memory matrix descriptor of a K-major tile with the 128-byte
@@ -159,6 +171,29 @@ inline bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D map of a strided [d3, d2, d1, d0] tensor of `type` (d0 contiguous,
+// `strides` the byte strides of d1, d2 and d3: multiples of 16) in boxes of
+// box[0..3] elements, with the 128-byte swizzle (box[0] * elem_bytes must
+// then be at most 128).
+inline bool make_map_4d(CUtensorMap* map, const void* ptr,
+                        CUtensorMapDataType type, const long long dims[4],
+                        const long long strides[3], const int box[4]) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t gd[4], gs[3];
+  cuuint32_t bx[4];
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    gd[i] = (cuuint64_t)dims[i];
+    bx[i] = (cuuint32_t)box[i];
+  }
+  for (int i = 0; i < 3; ++i) gs[i] = (cuuint64_t)strides[i];
+  return fn(map, type, 4, const_cast<void*>(ptr), gd, gs, bx, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -51,8 +51,8 @@ ARGTYPES = {
                                 I, I, F, I, P, P, P, P],
     "paged_kv_write": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "paged_kv_write_rows": [P, P, P, P, P, I, I, I, I, I, P],
-    "flash_prefill": [P, P, P, L, L, L, L, L, L, L, L, L, I, I, I, I, F, P,
-                      P],
+    "flash_prefill": [P, P, P, L, L, L, L, L, L, L, L, L, I, I, I, I, I, I,
+                      I, F, P, P, P, P],
 }
 LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
           "q41_gemv": "q4_decode", "q41_gemv_mma": "q4_decode",

@@ -66,10 +66,14 @@ def lane_tables(positions: torch.Tensor, head_dim: int,
 
 
 def rope_interleaved_lanes(x: torch.Tensor, cos_l: torch.Tensor,
-                           sin_s: torch.Tensor, n_rot: int) -> torch.Tensor:
+                           sin_s: torch.Tensor, n_rot: int,
+                           out_dtype: torch.dtype | None = None
+                           ) -> torch.Tensor:
     """Interleaved RoPE in natural lane order: x*cos + x[l^1]*sin_s (the
-    partner gather is exact, like the JAX 0/1 matmul at HIGHEST)."""
+    partner gather is exact, like the JAX 0/1 matmul at HIGHEST), computed
+    in f32 and stored as out_dtype (x's by default): bf16 for the flash
+    prefill's operands, one rounding of the same f32 value."""
     del n_rot                      # lanes >= n_rot carry cos 1, sin 0
     xf = x.to(torch.float32)
     partner = xf[..., torch.arange(x.shape[-1], device=x.device) ^ 1]
-    return (xf * cos_l + partner * sin_s).to(x.dtype)
+    return (xf * cos_l + partner * sin_s).to(out_dtype or x.dtype)

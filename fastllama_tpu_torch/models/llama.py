@@ -27,7 +27,9 @@ writes the cache row and runs the decode attention B10. The paged decode
 step writes the new row with B7 and attends with B6. A fresh-prompt prefill
 whose caller sets ForwardConfig.flash_prefill attends over its own window
 with the flash kernel B12 where _flash_viable holds (the JAX package's
-gate); every other prefill window (and f32-mode slab decode) is plain
+gate), on bf16 operands: the RoPE pass stores q and k in bf16, and a bf16
+slab cache hands over the K/V rows it has just stored; every other prefill
+window (and f32-mode slab decode) is plain
 PyTorch: masked f32 softmax over the cache.
 """
 from __future__ import annotations
@@ -44,6 +46,7 @@ from ..config import HyperParams, resolve_device
 from ..kernels.decode_attention import (
     decode_attention, decode_attention_fused, masked_attention,
 )
+from ..kernels.flash_prefill import HEAD_DIMS as FLASH_HEAD_DIMS
 from ..kernels.flash_prefill import flash_prefill
 from ..kernels.kv_write import paged_kv_write, scatter_rows_drop
 from ..kernels.paged_attention import (
@@ -272,10 +275,26 @@ def _flash_viable(cfg: ForwardConfig, t: int, hd: int) -> bool:
     n_past == 0 promise, no sequence parallelism, lane-aligned shapes, the
     bf16 weight mode (the f32 parity contract keeps the masked f32 path).
     Where JAX also asks for the TPU backend, the wrapper here picks the
-    kernel or its plain version by the tensors' device."""
+    kernel or its plain version by the tensors' device. One departure: of
+    the head widths that are multiples of 128 it admits those B12 is built
+    for (128, 256); a wider head takes the masked route, within bf16
+    tolerance of the JAX flash path."""
     return (cfg.flash_prefill and cfg.sp_group is None
             and t >= 128 and t % 128 == 0
-            and hd % 128 == 0 and cfg.w_tdtype != torch.float32)
+            and hd in FLASH_HEAD_DIMS and cfg.w_tdtype != torch.float32)
+
+
+def _flash_operands(q, k, v, kv_k, kv_v):
+    """bf16 q, k, v [B, T, H, Dh] for B12 on the slab path. At n_past 0
+    (the flash route's promise) write_kv has just stored bf16(k) and
+    bf16(v) in rows 0..T-1 of a bf16 cache, the values the kernel needs:
+    K and V are views of those rows (strides S F, F, Dh, 1), and q is the
+    RoPE pass's bf16 output. Other caches (f32, f16) give casts."""
+    b, t, h, hd = q.shape
+    if kv_k.dtype == torch.bfloat16 and kv_k.shape[1] >= t:
+        return (q.to(torch.bfloat16), kv_k[:, :t].view(b, t, h, hd),
+                kv_v[:, :t].view(b, t, h, hd))
+    return tuple(x.to(torch.bfloat16) for x in (q, k, v))
 
 
 def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
@@ -288,6 +307,11 @@ def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
     h = cfg.n_head
     kv_k, kv_v = kv
     qkv = apply_linear(x, layer.wqkv, cfg)
+    flash = _flash_viable(cfg, t, qkv.shape[-1] // (3 * h))
+    # on the flash route into a bf16 cache RoPE stores q and k in bf16: the
+    # kernel's operands, and the values the cache write rounds k to
+    rope_dtype = (torch.bfloat16 if flash and kv_k.dtype == torch.bfloat16
+                  else None)
 
     def finish(ctx):
         return _project_out(ctx, layer, cfg, b, t)
@@ -302,7 +326,8 @@ def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
         d = qkv.shape[-1] // 3
         hd = d // h
         qk = qkv[..., :2 * d].reshape(b, t, 2 * h, hd)
-        qk = rope_interleaved_lanes(qk, rope_bt[0], rope_bt[1], cfg.n_rot)
+        qk = rope_interleaved_lanes(qk, rope_bt[0], rope_bt[1], cfg.n_rot,
+                                    rope_dtype)
         q, k = qk[:, :, :h], qk[:, :, h:]
         v = qkv[..., 2 * d:].reshape(b, t, h, hd)
     else:
@@ -318,7 +343,7 @@ def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
             k = rope_interleaved(k, positions, cfg.n_rot)
         else:
             qk = rope_interleaved_lanes(torch.cat([q, k], dim=2), lanes[0],
-                                        lanes[1], cfg.n_rot)
+                                        lanes[1], cfg.n_rot, rope_dtype)
             q, k = qk[:, :, :h], qk[:, :, h:]
 
     scale = 1.0 / math.sqrt(hd)
@@ -329,11 +354,11 @@ def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
     write_kv(kv_k, k.reshape(b, t, -1).to(kv_k.dtype))
     write_kv(kv_v, v.reshape(b, t, -1).to(kv_v.dtype))
 
-    if _flash_viable(cfg, t, hd):
+    if flash:
         # a fresh prompt (n_past == 0, the caller's promise): the window's
         # own K/V is the whole context, so B12 attends it in place of the
         # masked softmax over the cache
-        return finish(flash_prefill(q, k, v))
+        return finish(flash_prefill(*_flash_operands(q, k, v, kv_k, kv_v)))
     if rope_ls is not None:
         # a bf16 decode step whose layer has q/k/v LoRA: kernel B10 over
         # the cache that now holds this token's row
@@ -496,14 +521,16 @@ def forward(params: LlamaParams, tokens: torch.Tensor,
 # The paged paths (engine/paged_kv.py pools)
 # ---------------------------------------------------------------------------
 
-def _roped_qkv(x, layer: LayerParams, cfg: ForwardConfig, rope_bt):
+def _roped_qkv(x, layer: LayerParams, cfg: ForwardConfig, rope_bt,
+               rope_dtype=None):
     """(q, k, v) [B, T, H, Dh] of one layer: the fused projection, the
-    q/k/v LoRA terms, then RoPE on q and k in one per-lane pass."""
+    q/k/v LoRA terms, then RoPE on q and k in one per-lane pass (stored as
+    rope_dtype, f32 by default)."""
     h = cfg.n_head
     q, k, v = _qkv_lora(x, layer, *split_qkv(apply_linear(x, layer.wqkv, cfg),
                                              h))
     qk = rope_interleaved_lanes(torch.cat([q, k], dim=2), rope_bt[0],
-                                rope_bt[1], cfg.n_rot)
+                                rope_bt[1], cfg.n_rot, rope_dtype)
     return qk[:, :, :h], qk[:, :, h:], v
 
 
@@ -582,14 +609,19 @@ def forward_paged_prefill(params: LlamaParams, tokens: torch.Tensor,
     causal = positions[0][None, :] <= positions[0][:, None]      # [T, T]
     scale = 1.0 / math.sqrt(hd)
     flash = _flash_viable(cfg, t, hd)
+    # on the flash route into bf16 pools RoPE stores q and k in bf16 (the
+    # pool write rounds k so anyway); v is cast for the kernel, whose K/V
+    # rows are the window's own (the pages hold them in another order)
+    rope_dtype = (torch.bfloat16
+                  if flash and k_pages[0].dtype == torch.bfloat16 else None)
     x = embed_tokens(params.tok_embeddings, tokens, cfg.act_tdtype, cfg)
 
     for layer, kp, vp in zip(params.layers, k_pages, v_pages):
         attn_in = rms_norm(x, layer.attention_norm, cfg.rms_eps)
-        q, k, v = _roped_qkv(attn_in, layer, cfg, rope_bt)
+        q, k, v = _roped_qkv(attn_in, layer, cfg, rope_bt, rope_dtype)
         write_tokens_paged(kp, vp, k, v, page_ids[None, :], offsets[None, :])
         if flash:
-            ctx = flash_prefill(q, k, v)
+            ctx = flash_prefill(*(x_.to(torch.bfloat16) for x_ in (q, k, v)))
         else:
             scores = torch.einsum("bthd,bshd->bhts", q.to(torch.float32),
                                   k.to(torch.float32)) * scale

@@ -1,15 +1,19 @@
 """Spawned torch.distributed worlds for the port's parallel tests.
 
 run_world(n, fn, *args) starts n processes (torch.multiprocessing, spawn),
-joins them into one gloo world on localhost, calls fn(rank, *args) in each
-and returns the ranks' results in rank order. A rank that raises fails the
-call with its traceback. This module and the case functions below import
+joins them into one gloo world (a file rendezvous in a fresh temporary
+directory, so no port is picked and released before the ranks bind it),
+calls fn(rank, *args) in each and returns the ranks' results in rank
+order. A rank that raises fails the call with its traceback. This module and the case functions below import
 the port only (never JAX), so a rank starts in seconds; the tests compare
 what they return with the JAX package in the test process.
 """
 from __future__ import annotations
 
+import os
+import shutil
 import socket
+import tempfile
 import traceback
 
 import numpy as np
@@ -21,12 +25,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _entry(rank, n, port, fn, args, q):
+def _entry(rank, n, rdzv, fn, args, q):
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
-        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+        dist.init_process_group("gloo", init_method=f"file://{rdzv}",
                                 rank=rank, world_size=n)
         q.put((rank, fn(rank, *args), None))
     except BaseException:                       # noqa: BLE001 - reported
@@ -41,8 +45,9 @@ def run_world(n: int, fn, *args, timeout: float = 240.0) -> list:
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    port = free_port()
-    procs = [ctx.Process(target=_entry, args=(r, n, port, fn, args, q),
+    tmp = tempfile.mkdtemp(prefix="torch_world_")
+    rdzv = os.path.join(tmp, "rendezvous")
+    procs = [ctx.Process(target=_entry, args=(r, n, rdzv, fn, args, q),
                          daemon=True) for r in range(n)]
     for p in procs:
         p.start()
@@ -61,6 +66,7 @@ def run_world(n: int, fn, *args, timeout: float = 240.0) -> list:
             p.join(timeout=5 if not errs else 0.1)
             if p.is_alive():
                 p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
     if errs:
         raise RuntimeError("\n".join(errs))
     return out

@@ -182,7 +182,6 @@ def test_chat_cli_tp_under_torchrun(tmp_path, monkeypatch, capsys):
     import subprocess
     from fastllama_tpu_torch.config import HyperParams
     from fastllama_tpu_torch.io.ggml_writer import write_ggjt
-    from _torch_world import free_port
     from test_torch_parallel_worlds import vocab_tokens
     from fastllama_tpu_torch.engine.tokenizer import Vocab
     hp = HyperParams(n_vocab=512, n_embd=256, n_head=8, n_layer=2, n_rot=16)
@@ -220,9 +219,12 @@ def test_chat_cli_tp_under_torchrun(tmp_path, monkeypatch, capsys):
     env = {k: v for k, v in __import__("os").environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
     env["OMP_NUM_THREADS"] = "1"
+    # --standalone: the rendezvous store binds a free port itself, where a
+    # port picked here and released could be taken by another process
+    # before torchrun binds it
     run = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "2", "--master-port", str(free_port()),
+         "2", "--standalone",
          str(REPO / "tools_torch" / "chat.py"), *args, "--tp", "2"],
         input=session("tp"), capture_output=True, text=True, timeout=240,
         env=env, cwd=tmp_path)

@@ -77,6 +77,19 @@ def main() -> int:
                 raise EOFError
             return line[0]
 
+    try:
+        return _chat(args, read_line, say, logger)
+    finally:
+        if args.tp > 1 and dist.is_initialized():
+            # every rank leaves together: a rank that exits while another
+            # still holds the group (rank 0 hosts its store) can abort at
+            # interpreter shutdown in a gloo thread ("terminate called
+            # without an active exception")
+            dist.barrier()
+            dist.destroy_process_group()
+
+
+def _chat(args, read_line, say, logger) -> int:
     from fastllama_tpu_torch import Model
 
     say("loading model (the first call on a card builds its kernels)...")
