@@ -6,7 +6,9 @@
 Phases (any failure exits nonzero before the last line):
   1. print the card (nvidia-smi name, power limit) and build the CUDA
      kernels from kernels/csrc/ (one nvcc per source, in parallel);
-  2. hold each kernel (B1-B12) against its plain PyTorch version on the
+  2. hold each kernel (B1-B14: fourteen functions of the repo reach
+     pl.pallas_call, twelve in the JAX package and two in
+     tools/bench_q4_floor.py) against its plain PyTorch version on the
      card at the 7B shapes of the paths below, and time kernel, plain
      version and bound (the larger of bytes / 3.35 TB/s and operations /
      peak rate); for B4, B10 and B11 also one scaled_dot_product_attention
@@ -47,9 +49,17 @@ Phases (any failure exits nonzero before the last line):
      (16 heads) at T = 512, timed beside its plain version, the masked
      f32 softmax over an n_ctx-row cache it replaced and
      scaled_dot_product_attention (is_causal, bf16; the yardstick), with
-     its bound for bf16 and for f32 operands. Afterwards no phase
-     may call the dequant path on the card (q4_matmul_dequant.cuda_calls
-     must read 0 after phase 10);
+     its bound for bf16 and for f32 operands. B13 and B14 (the probes of
+     B1's access pattern: B1's tensor-core kernel reading the packed byte
+     whole, or both nibbles, with no scales) on the 7B planes qkv, wo,
+     w13, w2 at M = 1, 8, 64 and the 13B planes at M = 8, within 1e-5 of
+     sum |x| |code|, bit-equal twice, timed beside B1 on the same plane
+     and M (no library call reads packed bytes as integer weights). At
+     13B widths also B2 (timed at K = 5120 and 13824), B9 at M = 1 and 8
+     on the q4_1 planes, B4 and B10 at 40 heads (n_past 0, 300, 511, past
+     S; 8 x 300), the standalone B7 and B8 on 40-head pools. Afterwards
+     no phase may call the dequant path on the card
+     (q4_matmul_dequant.cuda_calls must read 0 after phase 10);
   3. the q4_0 session at full 7B width (32 layers, bf16 weights and KV,
      n_ctx 512, seeded random weights made on the card): LlamaModel +
      FastLlama ingest a 300-token prompt with n_batch 512 and generate 64
@@ -134,6 +144,24 @@ Phases (any failure exits nonzero before the last line):
      admission past its gate, never in the SP session or f32), and the
      bytes gloo's CUDA all-gathers and ring sends
      copied through the host are printed;
+ 11. the bench and profile path: bench_torch.py and bench_torch.py
+     --dims=13b (the 13B session, 40 layers), each of whose stdout must
+     hold one JSON line with bench.py's keys, finite and positive
+     (printed); tools_torch/bench_q4_floor.py at its defaults in this
+     process (B13, B14 and B1 at K 4096, N 12288, M 8; their launches
+     counted from 0 there, the path of B13's and B14's kernels-line
+     entries); the other tools_torch scripts of the path (bench_kernels,
+     bench_prefill, bench_paged_attn, bench_engine plain and
+     --stall-bench --chunked, profile_decode at 7B and 13B widths,
+     profile_paged) at 2-4 layers and examples_torch/python/
+     example-batch.py and perplexity.py on phase 5's 8-layer q4_0 GGJT.
+     Each runs as a subprocess, one at a time, that must exit 0; each
+     prints its launches at its exit, counted in its own process: a
+     bench_torch run must show B4 once a layer a decode step, B1 for each
+     layer's four matmuls and the head, B12 once a layer a prefill window,
+     B5 in the bf16 windows, B2 and B3 in the int8 ones and nothing else;
+     every other script the kernels of its path; none but bench_kernels
+     (which holds B1 against it) the dequant path;
   then the whole script's seconds, one line {"kernels": [...]}, the
   nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -149,6 +177,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from fastllama_tpu_torch.utils.trace import copies_for, time_ms
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -170,55 +200,17 @@ def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(torch, fn, calls: int, replays: int = 3) -> float:
-    """Device time of one fn() call, by CUDA events around replays of a CUDA
-    graph that holds `calls` calls, so the host's per-call cost (Python,
-    ctypes, allocator) is not in the number."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(replays):
-        graph.replay()
-    b.record()
-    torch.cuda.synchronize()
-    del graph
-    return a.elapsed_time(b) / (replays * calls)
-
-
 # ---------------------------------------------------------------------------
 # synthetic weights
 # ---------------------------------------------------------------------------
 
 def rand_weight(torch, k, n, gen, dev, affine=False, pad_n=None):
-    """A q4_0 matmul weight with the stored padding the loader applies:
-    random codes and scales in [1e-3, 0.02] (as the JAX package's bench
-    builds them), logical width n. affine: a q4_1 weight, with mins in
-    about [-8 d, -7 d] so that q * d + m is centred like (q - 8) * d.
-    pad_n: N padded to a multiple of it instead of good_pad_n's rule."""
-    from fastllama_tpu_torch.quant.tensor import (
-        QuantMatmulWeight, good_pad_k, good_pad_n)
-    kp = good_pad_k(k)
-    np_ = good_pad_n(n) if pad_n is None else -(-n // pad_n) * pad_n
-    qs = torch.randint(0, 256, (kp // 2, np_), generator=gen, device=dev,
-                       dtype=torch.uint8)
-    sc = torch.rand((kp // 32, np_), generator=gen, device=dev) * 0.019 + 1e-3
-    mins = None
-    if affine:
-        mins = sc * (torch.rand((kp // 32, np_), generator=gen, device=dev)
-                     - 8.0)
-    return QuantMatmulWeight(qs=qs, scales=sc, mins=mins, n_logical=n)
+    """A q4_0 (affine: q4_1) matmul weight of logical shape [k, n] with the
+    loader's stored padding, from the package's synthetic builder
+    (models/synthetic.rand_weight: random codes, scales in [1e-3, 0.02] as
+    the JAX package's bench builds them)."""
+    from fastllama_tpu_torch.models import synthetic
+    return synthetic.rand_weight(k, n, gen, dev, affine, pad_n)
 
 
 def weight_bytes(w) -> int:
@@ -227,28 +219,14 @@ def weight_bytes(w) -> int:
 
 
 def rand_params(torch, hp, gen, dev, affine=False):
-    from fastllama_tpu_torch.models.llama import LayerParams, LlamaParams
-    from fastllama_tpu_torch.quant.tensor import QuantEmbedding
-    d, f = hp.n_embd, hp.n_ff
-    layers = [LayerParams(
-        attention_norm=torch.ones(d, device=dev),
-        wqkv=rand_weight(torch, d, 3 * d, gen, dev, affine),
-        wo=rand_weight(torch, d, d, gen, dev, affine),
-        ffn_norm=torch.ones(d, device=dev),
-        w13=rand_weight(torch, d, 2 * f, gen, dev, affine),
-        w2=rand_weight(torch, f, d, gen, dev, affine))
-        for _ in range(hp.n_layer)]
-    emb = QuantEmbedding(
-        qs=torch.randint(0, 256, (hp.n_vocab, d // 2), generator=gen,
-                         device=dev, dtype=torch.uint8),
-        scales=torch.rand((hp.n_vocab, d // 32), generator=gen, device=dev)
-        * 0.019 + 1e-3)
-    out = rand_weight(torch, d, hp.n_vocab, gen, dev, affine)
-    out.scales[:, 2] = 0.0        # EOS logit 0: greedy runs its full length
+    """models/synthetic.rand_params with the head's EOS column zeroed, so
+    that greedy decoding runs its full length."""
+    from fastllama_tpu_torch.models import synthetic
+    params = synthetic.rand_params(hp, gen, dev, affine)
+    params.output.scales[:, 2] = 0.0      # EOS logit 0
     if affine:
-        out.mins[:, 2] = 0.0
-    return LlamaParams(tok_embeddings=emb, norm=torch.ones(d, device=dev),
-                       output=out, layers=layers)
+        params.output.mins[:, 2] = 0.0
+    return params
 
 
 def synthetic_vocab(n_vocab: int):
@@ -269,12 +247,6 @@ def prompt_of(n_chars: int, seed: int) -> str:
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
-
-def copies_for(nbytes: int) -> int:
-    """Distinct weight copies to cycle through so that timed launches find
-    their weights in device memory, not in the 50 MB L2."""
-    return max(2, math.ceil(160e6 / nbytes))
-
 
 # B1's row counts: the single stream (1), the engine (8) and the tiles' edges;
 # B9 adds the rows just past an n-tile (9, 17) and a partial 32-row tile (40)
@@ -360,7 +332,7 @@ def int4pack_row(torch, packs, x, y_ref, n):
     def run():
         pw, sz = packs[next(it) % len(packs)]
         mm(xb, pw, 32, sz)
-    ms = time_ms(torch, run, calls=4 * len(packs))
+    ms = time_ms(run, calls=4 * len(packs))
     if err > tol:
         return dict(library_ms=None, library_error=(
             f"differs from the plain version by {err} > {tol}"),
@@ -374,7 +346,7 @@ def sdpa_over(torch, q, kvs):
     the yardstick too reads device memory rather than the L2."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     it = iter(range(10**9))
-    return time_ms(torch, lambda: sdpa(q, *kvs[next(it) % len(kvs)]),
+    return time_ms(lambda: sdpa(q, *kvs[next(it) % len(kvs)]),
                    calls=4 * len(kvs))
 
 
@@ -391,6 +363,7 @@ def check_kernels(torch, dev, gen, out_dir):
     """Phase 2: every kernel against its plain version on the card, timed."""
     results = {}
     check_decode_matmuls(torch, dev, gen, results)
+    check_floor_probes(torch, dev, gen, results)
     check_prefill_matmuls(torch, dev, gen, results)
     check_shard_planes(torch, dev, gen, results)
     check_decode_attention(torch, dev, gen, results)
@@ -399,6 +372,7 @@ def check_kernels(torch, dev, gen, out_dir):
     check_fused_paged_step(torch, dev, gen, results)
     check_shard_attention(torch, dev, gen, results)
     check_fused_paged_step(torch, dev, gen, results, heads=SHARD_HEADS)
+    check_13b_kernels(torch, dev, gen, results)
     with open(os.path.join(out_dir, "kernel_checks.json"), "w") as fh:
         json.dump(results, fh, indent=1)
     return results
@@ -474,11 +448,11 @@ def check_decode_matmuls(torch, dev, gen, results):
                     require(torch.equal(y, fn(x, w, mode)),
                             f"{key} {name} M={m} {mode}: not deterministic")
                     it = iter(range(10**9))
-                    ms = time_ms(torch, lambda: fn(
+                    ms = time_ms(lambda: fn(
                         x, ws[next(it) % len(ws)], mode), calls=4 * len(ws))
                     plain = qm.q41_matmul_decode_plain if affine else \
                         qm.q4_matmul_dequant
-                    plain_ms = time_ms(torch, lambda: plain(x, w, mode),
+                    plain_ms = time_ms(lambda: plain(x, w, mode),
                                        calls=2)
                     kind = "bf16" if mode == torch.bfloat16 else "f32"
                     bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
@@ -492,7 +466,7 @@ def check_decode_matmuls(torch, dev, gen, results):
                         # and the library's W4A16 matmul on the same codes
                         it = iter(range(10**9))
                         row["ffma_design_ms"] = time_ms(
-                            torch, lambda: ffma_gemv(
+                            lambda: ffma_gemv(
                                 torch, qm, x, ws[next(it) % len(ws)]),
                             calls=4 * len(ws))
                         if m in B1_ROWS:
@@ -535,6 +509,157 @@ def check_decode_matmuls(torch, dev, gen, results):
         del w
 
 
+# B13's and B14's rows: the single stream (1), the engine and the JAX
+# tool's default (8), B1's largest (64)
+PROBE_ROWS = (1, 8, 64)
+# what no library call computes: the packed bytes as integer weights
+NO_PROBE_LIBRARY = ("none: no PyTorch call reads packed bytes as integer "
+                    "weights")
+
+
+def check_floor_probes(torch, dev, gen, results):
+    """B13 (q4_floor) and B14 (q4_nosc) on the 7B planes qkv, wo, w13 and
+    w2 at PROBE_ROWS and on the 13B planes at M = 8: held against their
+    plain versions within 1e-5 of sum |R(x_half)| |code| (the products are
+    exact, so only the summation order differs), each run twice and
+    bit-equal; timed beside B1 on the same plane and M, over weight copies
+    cycled past the L2, with their bound (qs, x and out over the HBM rate:
+    B13's x is its low halves only; B1's adds the scale plane)."""
+    from fastllama_tpu_torch.kernels import q4_floor as qf
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    out = {"B13": [], "B14": []}
+    probes = {"B13": (qf.q4_floor, qf.q4_floor_plain),
+              "B14": (qf.q4_nosc, qf.q4_nosc_plain)}
+    cases = [(p, PROBE_ROWS) for p in PLANES_7B[:4]] + [
+        (p, (8,)) for p in PLANES_13B]
+    for (name, k, n), rows in cases:
+        w = rand_weight(torch, k, n, gen, dev)
+        wbytes = weight_bytes(w)
+        ws = [w] + [rand_weight(torch, k, n, gen, dev)
+                    for _ in range(copies_for(wbytes) - 1)]
+        for m in rows:
+            x = torch.randn((m, w.k), generator=gen, device=dev)
+            xr = x.to(torch.bfloat16).float().abs()
+            lo, hi = qf.split_activation(xr)
+            q = w.qs.to(torch.int32)
+            absum = {"B13": (lo @ w.qs.float()).max().item(),
+                     "B14": (lo @ (q & 15).float()
+                             + hi @ (q >> 4).float()).max().item()}
+            it = iter(range(10**9))
+            b1_ms = time_ms(lambda: qm.q4_matmul_decode(
+                x, ws[next(it) % len(ws)]), calls=4 * len(ws))
+            b1_bound, _ = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
+                                   2.0 * m * k * n, "bf16")
+            for key, (fn, plain) in probes.items():
+                y = fn(x, w.qs)
+                again = fn(x, w.qs)
+                ref = plain(x, w.qs)
+                err = (y - ref).abs().max().item()
+                tol = 1e-5 * absum[key]
+                label = f"{key} {name} M={m} K={w.k} N={w.qs.shape[1]}"
+                require(bool(torch.isfinite(y).all()), f"{label}: not finite")
+                require(err <= tol, f"{label}: err {err} > {tol}")
+                require(torch.equal(y, again), f"{label}: not deterministic")
+                ms = time_ms(lambda: fn(x, ws[next(it) % len(ws)].qs),
+                             calls=4 * len(ws))
+                plain_ms = time_ms(lambda: plain(x, w.qs), calls=2)
+                # B13's function reads x's low halves only, B14's all of x
+                ops = 2.0 * m * w.qs.numel() * (1 if key == "B13" else 2)
+                x_bytes = x.numel() * (2 if key == "B13" else 4)
+                bnd, by = bound_ms(w.qs.numel() + x_bytes
+                                   + m * w.qs.shape[1] * 4, ops, "bf16")
+                row = dict(shape=f"{name} M={m} K={w.k} N={w.qs.shape[1]}",
+                           max_abs_err=err, tol=tol, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                           bound_share=bnd / ms, library_ms=None,
+                           library_call=NO_PROBE_LIBRARY, b1_ms=b1_ms,
+                           b1_bound_ms=b1_bound)
+                out[key].append(row)
+                print(f"{key} {row}", flush=True)
+        del ws, w
+    results.update(out)
+
+
+def check_13b_kernels(torch, dev, gen, results):
+    """The kernels not held elsewhere at 13B widths (PRESETS["13B"]: 40
+    heads of 128, n_embd 5120, n_ff 13824), at the 7B rows' tolerances:
+    B9 at M = 1 and 8 on the four 13B q4_1 planes; B4 and B10 at 40 heads,
+    B = 1 at n_past 0, 300, 511 and past S and B = 8 at 8 x 300 (bf16 and
+    f32 caches); the standalone B7 and B8 (T = 512) on 40-head bf16 pools,
+    bit for bit. (B2 runs on the 13B planes in check_prefill_matmuls,
+    B1, B3, B5, B6, B12 and the fused step in their own checks.) One row a
+    kernel and case in results["13B"]."""
+    from fastllama_tpu_torch.kernels import kv_write as kw
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    rows = results.setdefault("13B", [])
+    for name, k, n in PLANES_13B:
+        w = rand_weight(torch, k, n, gen, dev, affine=True)
+        for m in (1, 8):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            y = qm.q41_matmul_decode(x, w, torch.bfloat16)
+            ref = qm.q41_matmul_decode_plain(x, w, torch.bfloat16)
+            err = (y - ref).abs().max().item()
+            tol = b9_tol(torch, qm, x, w, torch.bfloat16)
+            label = f"B9 13B {name} M={m} K={k} N={n} bf16"
+            require(bool(torch.isfinite(y).all()) and err <= tol,
+                    f"{label}: err {err} > {tol}")
+            require(torch.equal(y, qm.q41_matmul_decode(x, w,
+                                                        torch.bfloat16)),
+                    f"{label}: not deterministic")
+            ms = time_ms(lambda: qm.q41_matmul_decode(
+                x, w, torch.bfloat16), calls=8)
+            rows.append(dict(kernel="B9", shape=label, max_abs_err=err,
+                             tol=tol, ms_l2_warm=ms))
+            print(f"13B {rows[-1]}", flush=True)
+        del w
+    s_len = ENG_CTX
+    check_attention_heads(torch, dev, gen, rows, "13B", 40, {
+        1: [[0], [300], [511], [s_len + 88]], ENG_SLOTS: [[300] * ENG_SLOTS]})
+
+    h, d, ps, b = 40, 128, ENG_PS, ENG_SLOTS
+    pp = ENG_CTX // ps
+    n_pages = b * pp
+    f = h * d
+
+    def i32(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+    k1, v1 = (torch.randn((h, n_pages + 1, ps, d), generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    k2, v2 = k1.clone(), v1.clone()
+    k_new, v_new = (torch.randn((b, h, d), generator=gen, device=dev)
+                    for _ in range(2))
+    pids = i32([5, n_pages, 17, 0, n_pages, n_pages + 3, 63, 31])
+    offs = i32([0, 0, ps - 1, 9, 3, 1, 40, 63])
+    kw.paged_kv_write(k1, v1, k_new, v_new, pids, offs)
+    kw.paged_kv_write_plain(k2, v2, k_new, v_new, pids, offs)
+    torch.cuda.synchronize()
+    require(torch.equal(k1[:, :n_pages], k2[:, :n_pages])
+            and torch.equal(v1[:, :n_pages], v2[:, :n_pages]),
+            "B7 13B (40 heads): pages differ from the plain version's")
+    ms = time_ms(lambda: kw.paged_kv_write(
+        k1, v1, k_new, v_new, pids, offs), calls=32)
+    rows.append(dict(kernel="B7", shape=f"B7 13B B={b} H={h} d={d} ps={ps} "
+                     "bf16", max_abs_err=0.0, ms_l2_warm=ms))
+    print(f"13B {rows[-1]}", flush=True)
+    k_rows, v_rows = (torch.randn((ENG_CTX, f), generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(2))
+    blocks = i32([9, 2, n_pages, 40, 41, n_pages + 1, 7, 22])
+    kw.paged_kv_write_rows(k1, v1, k_rows, v_rows, blocks)
+    kw.paged_kv_write_rows_plain(k2, v2, k_rows, v_rows, blocks)
+    torch.cuda.synchronize()
+    require(torch.equal(k1[:, :n_pages], k2[:, :n_pages])
+            and torch.equal(v1[:, :n_pages], v2[:, :n_pages]),
+            "B8 13B (40 heads): pages differ from the plain version's")
+    require(torch.equal(k1[3, 40, 5], k_rows[3 * ps + 5, 3 * d:4 * d]),
+            "B8 13B: row 5 of block 3 is not in page 40")
+    ms = time_ms(lambda: kw.paged_kv_write_rows(
+        k1, v1, k_rows, v_rows, blocks), calls=16)
+    rows.append(dict(kernel="B8", shape=f"B8 13B T={ENG_CTX} H={h} d={d} "
+                     f"ps={ps} bf16", max_abs_err=0.0, ms_l2_warm=ms))
+    print(f"13B {rows[-1]}", flush=True)
+    del k1, v1, k2, v2
+
+
 def check_prefill_matmuls(torch, dev, gen, results):
     """B2 and B3 (bit for bit) and B5 against their plain versions; B3 on
     the 7B and 13B planes at M = 512 and 256, its two launches timed apart
@@ -558,10 +683,11 @@ def check_prefill_matmuls(torch, dev, gen, results):
             xq_ref, dx_ref = qm.quant_rows_int8_plain(x, w.k)
             require(torch.equal(xq, xq_ref) and torch.equal(dx, dx_ref),
                     f"B2 {name} M={m}: not bit-exact")
-            if m == 512 and name in ("qkv", "w2"):   # the main path's K's
-                ms = time_ms(torch, lambda: qm.quant_rows_int8(x, w.k),
+            # the main path's K's at 7B and 13B
+            if m == 512 and name in ("qkv", "w2", "qkv13", "w2_13"):
+                ms = time_ms(lambda: qm.quant_rows_int8(x, w.k),
                              calls=20)
-                plain_ms = time_ms(torch, lambda: qm.quant_rows_int8_plain(
+                plain_ms = time_ms(lambda: qm.quant_rows_int8_plain(
                     x, w.k), calls=5)
                 bnd, by = bound_ms(m * k * 4 + m * w.k + m * 4, 4.0 * m * k,
                                    "f32")
@@ -587,11 +713,11 @@ def check_prefill_matmuls(torch, dev, gen, results):
             def cycled():
                 return qm.q4_matmul_prefill_int8(xq, dx,
                                                  ws[next(it) % len(ws)])
-            ms = time_ms(torch, cycled, calls=2 * len(ws))
+            ms = time_ms(cycled, calls=2 * len(ws))
             # its two launches apart, by kernel name in a profiler trace
             split = device_ms_by_name(torch, cycled, 2 * len(ws),
                                       ("requant_kernel", "int8_wgmma_kernel"))
-            plain_ms = (time_ms(torch, lambda: qm.q4_matmul_prefill_int8_plain(
+            plain_ms = (time_ms(lambda: qm.q4_matmul_prefill_int8_plain(
                 xq, dx, w), calls=2)
                 if m == 512 and name in {p[0] for p in shapes} else None)
             # the function's operations: the logical K and N, not the
@@ -602,7 +728,7 @@ def check_prefill_matmuls(torch, dev, gen, results):
             gemm_ms = split["int8_wgmma_kernel"]
             row = dict(shape=f"{name} M={m} K={k} N={n}", max_abs_err=0.0,
                        ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                       library_ms=time_ms(torch, lambda: torch._int_mm(
+                       library_ms=time_ms(lambda: torch._int_mm(
                            xq, w8_cm), calls=10),
                        requant_ms=split["requant_kernel"], gemm_ms=gemm_ms,
                        tile_n=tile,
@@ -654,13 +780,13 @@ def check_b5(torch, dev, gen, results):
                             f"{label}: not finite")
                     require(err <= tol, f"{label}: err {err} > {tol}")
                     it = iter(range(10**9))
-                    ms = time_ms(torch, lambda: qm.q4_matmul_prefill(
+                    ms = time_ms(lambda: qm.q4_matmul_prefill(
                         x, ws[next(it) % len(ws)], mode), calls=len(ws))
-                    dequant_ms = time_ms(torch, lambda: qm.q4_matmul_dequant(
+                    dequant_ms = time_ms(lambda: qm.q4_matmul_dequant(
                         x, w, mode), calls=2)
                     xr = qm._pad_k(x, w.k).to(mode)
                     kw = {"out_dtype": torch.float32} if kind == "bf16" else {}
-                    library_ms = time_ms(torch, lambda: torch.mm(xr, wd, **kw),
+                    library_ms = time_ms(lambda: torch.mm(xr, wd, **kw),
                                          calls=4)
                     bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
                                        2.0 * m * k * n, kind)
@@ -742,8 +868,8 @@ def check_decode_attention(torch, dev, gen, results):
         def run():
             kk, vv = caches[next(it) % n_caches]
             da.decode_attention_fused(qkv, kk, vv, npv, cos, sin, **kw4)
-        ms = time_ms(torch, run, calls=2 * n_caches)
-        plain_ms = time_ms(torch, lambda: da.decode_attention_fused_plain(
+        ms = time_ms(run, calls=2 * n_caches)
+        plain_ms = time_ms(lambda: da.decode_attention_fused_plain(
             qkv, kc.clone(), vc.clone(), npv, cos, sin, **kw4), calls=5)
         rows = min(n_past, s_len)
         qr = torch.randn((1, h, 1, d), generator=gen, device=dev
@@ -791,8 +917,8 @@ def check_decode_attention(torch, dev, gen, results):
         def run10():
             kk, vv = caches[next(it) % n_caches]
             da.decode_attention(q, kk, vv, npv, head_dim=d, scale=scale)
-        ms = time_ms(torch, run10, calls=2 * n_caches)
-        plain_ms = time_ms(torch, lambda: da.decode_attention_plain(
+        ms = time_ms(run10, calls=2 * n_caches)
+        plain_ms = time_ms(lambda: da.decode_attention_plain(
             q, kc, vc, npv, head_dim=d, scale=scale), calls=5)
         rows = min(n_past + 1, s_len)
         qh = q.reshape(1, h, 1, d).to(torch.bfloat16)
@@ -871,20 +997,20 @@ def check_flash_prefill(torch, dev, gen, results):
 
         def run():
             fp.flash_prefill(*sets[next(it) % len(sets)])
-        ms = time_ms(torch, run, calls=4 * len(sets))
-        plain_ms = time_ms(torch, lambda: fp.flash_prefill_plain(q, k, v),
+        ms = time_ms(run, calls=4 * len(sets))
+        plain_ms = time_ms(lambda: fp.flash_prefill_plain(q, k, v),
                            calls=3)
         kc, vc = (torch.randn((1, s_len, f), generator=gen, device=dev)
                   .to(torch.bfloat16) for _ in range(2))
         pos = torch.arange(t, device=dev)[None, :]
         qf = q.float()
-        masked_ms = time_ms(torch, lambda: da.masked_attention(
+        masked_ms = time_ms(lambda: da.masked_attention(
             qf, kc, vc, pos, h, 1 / math.sqrt(d)), calls=3)
         del kc, vc, qf
         sd = [tuple(x.transpose(1, 2).contiguous() for x in st)
               for st in sets]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        sdpa_ms = time_ms(torch, lambda: sdpa(*sd[next(it) % len(sd)],
+        sdpa_ms = time_ms(lambda: sdpa(*sd[next(it) % len(sd)],
                                               is_causal=True),
                           calls=4 * len(sd))
         del sd, sets
@@ -972,8 +1098,8 @@ def check_engine_kernels(torch, dev, gen, results):
             def run6():
                 kk, vv = pools[next(it) % len(pools)]
                 pa.paged_decode_attention(q, kk, vv, lengths, tables)
-            ms = time_ms(torch, run6, calls=8 * len(pools))
-            plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_plain(
+            ms = time_ms(run6, calls=8 * len(pools))
+            plain_ms = time_ms(lambda: pa.paged_decode_attention_plain(
                 q, kp, vp, lengths, tables), calls=2)
             rows = sum(lens)
             bnd, by = bound_ms(2 * b * f * 4 + 2 * rows * f * isz + b * 4
@@ -1051,8 +1177,8 @@ def check_engine_kernels(torch, dev, gen, results):
             def run11():
                 kk, vv = flats[next(it) % len(flats)]
                 pa.paged_decode_attention_flat(q, kk, vv, lengths, t11)
-            ms = time_ms(torch, run11, calls=8 * len(flats))
-            plain_ms = time_ms(torch, lambda: pa
+            ms = time_ms(run11, calls=8 * len(flats))
+            plain_ms = time_ms(lambda: pa
                                .paged_decode_attention_flat_plain(
                                    q, kf, vf, lengths, t11), calls=2)
             rows = sum(lens)
@@ -1096,9 +1222,9 @@ def check_engine_kernels(torch, dev, gen, results):
         require(torch.equal(k1[:, 5, 0], k_new[0].to(dt))
                 and int((k1[:, :n_pages] != before).any(-1).sum()) <= 5 * h,
                 f"B7 {name}: wrote other rows than the five addressed")
-        ms = time_ms(torch, lambda: kw.paged_kv_write(
+        ms = time_ms(lambda: kw.paged_kv_write(
             k1, v1, k_new, v_new, pids, offs), calls=32)
-        plain_ms = time_ms(torch, lambda: kw.paged_kv_write_plain(
+        plain_ms = time_ms(lambda: kw.paged_kv_write_plain(
             k2, v2, k_new, v_new, pids, offs), calls=4)
         # the library's indexed write of the same rows: index_put_ into
         # each pool's [P ps, H, D] view, a sentinel id onto the trash page
@@ -1113,7 +1239,7 @@ def check_engine_kernels(torch, dev, gen, results):
         b7.append(dict(shape=f"B={b} H={h} d={d} ps={ps} {name}",
                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                        bound_ms=bnd, bound_by=by,
-                       library_ms=time_ms(torch, index_put, calls=16),
+                       library_ms=time_ms(index_put, calls=16),
                        library_call="index_put_, one call a pool"))
         print(f"B7 {b7[-1]}", flush=True)
 
@@ -1133,9 +1259,9 @@ def check_engine_kernels(torch, dev, gen, results):
                 f"B8 {name}: pages differ from the plain version's")
         require(torch.equal(k1[3, 40, 5], k_rows[3 * ps + 5, 3 * d:4 * d]),
                 f"B8 {name}: row 5 of block 3 is not in page 40")
-        ms = time_ms(torch, lambda: kw.paged_kv_write_rows(
+        ms = time_ms(lambda: kw.paged_kv_write_rows(
             k1, v1, k_rows, v_rows, blocks), calls=16)
-        plain_ms = time_ms(torch, lambda: kw.paged_kv_write_rows_plain(
+        plain_ms = time_ms(lambda: kw.paged_kv_write_rows_plain(
             k2, v2, k_rows, v_rows, blocks), calls=4)
         bsel = blocks.long().clamp_max(n_pages)
         kb, vb = (x.reshape(pp, ps, h, d).permute(2, 0, 1, 3).contiguous()
@@ -1149,7 +1275,7 @@ def check_engine_kernels(torch, dev, gen, results):
         b8.append(dict(shape=f"T={t} H={h} d={d} ps={ps} {name}",
                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                        bound_ms=bnd, bound_by=by,
-                       library_ms=time_ms(torch, index_copy_pages,
+                       library_ms=time_ms(index_copy_pages,
                                           calls=16),
                        library_call="index_copy_ of whole pages, one call "
                                     "a pool"))
@@ -1169,9 +1295,9 @@ def check_engine_kernels(torch, dev, gen, results):
     tol = 2 ** -7 * ref.abs().max().item() + 1e-6
     require(err <= tol, f"B6 B=1 x 300: err {err} > {tol}")
     it = iter(range(10**9))
-    ms = time_ms(torch, lambda: pa.paged_decode_attention(
+    ms = time_ms(lambda: pa.paged_decode_attention(
         q1, *pools1[next(it) % len(pools1)], n1, t1), calls=4 * len(pools1))
-    plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_plain(
+    plain_ms = time_ms(lambda: pa.paged_decode_attention_plain(
         q1, *pools1[0], n1, t1), calls=2)
     bnd, by = bound_ms(2 * f * 4 + 2 * 300 * f * 2 + 4 + pp * 4,
                        4.0 * 300 * f, "bf16")
@@ -1239,8 +1365,8 @@ def check_engine_kernels(torch, dev, gen, results):
         def run4():
             kk, vv = caches[next(it) % n_caches]
             da.decode_attention_fused(qkv, kk, vv, npv, cos, sin, **kw4)
-        ms = time_ms(torch, run4, calls=8 * n_caches)
-        plain_ms = time_ms(torch, lambda: da.decode_attention_fused_plain(
+        ms = time_ms(run4, calls=8 * n_caches)
+        plain_ms = time_ms(lambda: da.decode_attention_fused_plain(
             qkv, kc2, vc2, npv, cos, sin, **kw4), calls=2)
         rows = sum(min(n, s_len) for n in depths)
         bnd, by = bound_ms(b * 3 * f * 4 + 2 * rows * f * 2 + 2 * b * f * 2
@@ -1267,8 +1393,8 @@ def check_engine_kernels(torch, dev, gen, results):
         def run10():
             kk, vv = caches[next(it) % n_caches]
             da.decode_attention(q, kk, vv, npv, head_dim=d, scale=scale)
-        ms = time_ms(torch, run10, calls=8 * n_caches)
-        plain_ms = time_ms(torch, lambda: da.decode_attention_plain(
+        ms = time_ms(run10, calls=8 * n_caches)
+        plain_ms = time_ms(lambda: da.decode_attention_plain(
             q, kc, vc, npv, head_dim=d, scale=scale), calls=2)
         rows = sum(min(n + 1, s_len) for n in depths)
         bnd, by = bound_ms(2 * b * f * 4 + 2 * rows * f * 2 + b * 4,
@@ -1410,10 +1536,10 @@ def check_fused_paged_step(torch, dev, gen, results, heads=(32, 40)):
                                           v[:, 0].contiguous(), pi, of)
                         pa.paged_decode_attention(qk[:, 0, :h], kk, vv,
                                                   tl + 1, tables)
-                    ms = time_ms(torch, fused, calls=8 * len(pools))
-                    unfused_ms = time_ms(torch, glue_b7_b6,
+                    ms = time_ms(fused, calls=8 * len(pools))
+                    unfused_ms = time_ms(glue_b7_b6,
                                          calls=8 * len(pools))
-                    plain_ms = time_ms(torch, lambda: pa
+                    plain_ms = time_ms(lambda: pa
                                        .paged_decode_step_fused_plain(
                                            qkv, k2, v2, tl, tables, pi, of,
                                            cs, sn), calls=2)
@@ -1731,28 +1857,43 @@ def kernel_device_us(prof) -> dict:
     return by_name
 
 
-def device_ms_by_name(torch, fn, calls: int, names) -> dict:
+def device_ms_by_name(torch, fn, calls: int, names,
+                      traces: int = 3) -> dict:
     """Device ms per fn() call of the kernels whose names contain each of
-    `names`, from a torch.profiler trace of `calls` calls (after two warm-up
-    calls): the launches of one wrapper timed apart. Fails if a name is
-    missing from the trace."""
-    from torch.profiler import ProfilerActivity, profile
+    `names`, from a torch.profiler trace of `calls` calls: the launches of
+    one wrapper timed apart.
+
+    The trace records its second step of `calls` calls; the first runs
+    with the tracer already on and is dropped. The tracer on the H100 has
+    still lost a whole call's launches from a trace now and then, so a
+    trace that holds another count of a name than `calls` is printed and
+    taken again, up to `traces` times, and the call fails if none holds
+    every name exactly `calls` times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    by_name = kernel_device_us(prof)
-    out = {}
-    for want in names:
-        hits = [v for k, v in by_name.items() if want in k]
-        require(hits and sum(c for _, c in hits) == calls,
-                f"profiler: {want} not seen {calls} times in the trace")
-        out[want] = sum(us for us, _ in hits) / 1e3 / calls
-    return out
+    for attempt in range(1, traces + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        by_name = kernel_device_us(prof)
+        hits = {want: [v for k, v in by_name.items() if want in k]
+                for want in names}
+        seen = {want: sum(c for _, c in h) for want, h in hits.items()}
+        if all(n == calls for n in seen.values()):
+            return {want: sum(us for us, _ in h) / 1e3 / calls
+                    for want, h in hits.items()}
+        print(f"profiler: trace {attempt} of {traces} holds {seen} "
+              f"launches, not {calls} each", flush=True)
+    raise SmokeFailure(f"profiler: {names} not seen {calls} times each in "
+                       f"any of {traces} traces")
 
 
 def device_time_by_kernel(prof, n_steps: int):
@@ -2299,6 +2440,194 @@ def c_abi_path(torch, tmp, model_path):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the bench and profile path
+# ---------------------------------------------------------------------------
+
+# bench.py's keys (bench_torch.py prints them); vs_baseline only where
+# baseline_ref.json has a rate for the dims (7B)
+BENCH_KEYS = ("metric", "value", "unit", "steady_state_tokens_per_sec",
+              "ttft_ms_p50", "ttft_ms_p50_int8", "ttft_ms_p50_bf16")
+# bench_torch.py's decode steps (the first, 5 warm, 64 and 192 timed, 8
+# traced, one after each of the 2 x 5 timed TTFT prefills) and its prefill
+# windows (2 routes x (1 first + 5 timed))
+BENCH_STEPS = 1 + 5 + 64 + 3 * 64 + 8 + 2 * 5
+BENCH_WINDOWS = 2 * (1 + 5)
+# the kernels a bench_torch run never reaches
+OFF_BENCH_PATH = ("B6", "B7", "B8", "B9", "B10", "B11", "PS", "B13", "B14")
+# each tool of tools_torch/ at a small depth, run as a subprocess on the
+# card: (script, arguments, the kernels it must launch)
+BENCH_TOOLS = [
+    ("bench_kernels.py", ["--layers", "4"], ("B1",)),
+    ("bench_prefill.py", ["--layers", "2"], ("B1", "B2", "B3", "B12")),
+    ("bench_paged_attn.py", ["--reps", "8"], ("B4", "B6", "B10", "PS")),
+    ("bench_engine.py", ["--layers", "2", "--max-tokens", "16"],
+     ("B1", "B4")),
+    ("bench_engine.py", ["--layers", "2", "--max-tokens", "16",
+                         "--stall-bench", "--chunked", "--kv-mode", "paged",
+                         "--admissions", "1"], ("B1", "B8", "PS")),
+    ("profile_decode.py", ["--layers", "2", "--steps", "4"], ("B1", "B4")),
+    ("profile_decode.py", ["--dims", "13b", "--layers", "2", "--steps",
+                           "4"], ("B1", "B4")),
+    ("profile_paged.py", ["--layers", "2", "--steps", "4"], ("B1", "PS")),
+]
+# runs the script argv[1] as __main__ with argv[2:], and at its exit prints
+# every kernel wrapper's launches (counts_now) on stderr as one line
+COUNTED = """import atexit, json, os, runpy, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+atexit.register(lambda: print("launches " + json.dumps(
+    chip_smoke.counts_now()), file=sys.stderr, flush=True))
+sys.argv = sys.argv[1:]
+sys.path.insert(0, os.path.dirname(os.path.abspath(sys.argv[0])))
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def counts_now() -> dict:
+    """Every kernel wrapper's launches by its table name (B1-B14, PS) and
+    the dequant path's calls on the card ("dequant")."""
+    from fastllama_tpu_torch.kernels import q4_floor as qf
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    out = {k: fn.launches for k, fn in all_kernels().items()}
+    out.update(B13=qf.q4_floor.launches, B14=qf.q4_nosc.launches,
+               dequant=qm.q4_matmul_dequant.cuda_calls)
+    return out
+
+
+def run_counted(script, args, cwd, timeout=600.0):
+    """Run `script args` from cwd as a subprocess, alone on the card, under
+    COUNTED; returns (returncode, stdout, stderr, seconds, launches: the
+    counts it printed at its exit, None where it printed none)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", COUNTED, script, *args],
+                            cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    counted = [ln for ln in err.splitlines() if ln.startswith("launches {")]
+    launches = json.loads(counted[-1].split(" ", 1)[1]) if counted else None
+    return proc.returncode, out, err, time.perf_counter() - t0, launches
+
+
+def bench_line(out: str, dims: str) -> dict:
+    """bench_torch.py's JSON line (the last of its stdout): bench.py's keys,
+    finite positive numbers."""
+    lines = [ln for ln in out.strip().splitlines() if ln.startswith("{")]
+    require(len(lines) == 1, f"bench_torch {dims}: {len(lines)} JSON lines")
+    line = json.loads(lines[0])
+    want = set(BENCH_KEYS) | ({"vs_baseline"} if dims == "7b" else set())
+    require(set(line) == want, f"bench_torch {dims}: keys {sorted(line)}")
+    require(line["metric"] == f"decode_tokens_per_sec_per_chip_{dims}_q4_0"
+            and line["unit"] == "tokens/s", f"bench_torch {dims}: {line}")
+    for key in want - {"metric", "unit"}:
+        require(math.isfinite(line[key]) and line[key] > 0,
+                f"bench_torch {dims}: {key} = {line[key]}")
+    return line
+
+
+def bench_launches(n: dict, n_layer: int, dims: str) -> None:
+    """A bench_torch run's launches: B4 once a layer in each decode step, B1
+    for the four matmuls of each layer and the head in each step and the
+    head once a prefill window, B12 once a layer and B5 four times a layer
+    in each window of its route, B2 and B3 in the int8 windows; nothing
+    else, and never the dequant path."""
+    want = dict(B1=(4 * n_layer + 1) * BENCH_STEPS + BENCH_WINDOWS,
+                B4=n_layer * BENCH_STEPS, B12=n_layer * BENCH_WINDOWS,
+                B5=4 * n_layer * BENCH_WINDOWS // 2, dequant=0,
+                **{k: 0 for k in OFF_BENCH_PATH})
+    got = {k: n[k] for k in want}
+    require(got == want, f"bench_torch {dims} launches {got}, not {want}")
+    require(n["B2"] > 0 and n["B3"] > 0,
+            f"bench_torch {dims}: no int8 prefill kernels ({n})")
+
+
+def bench_path(torch, tmp, model_path):
+    """Phase 11: bench_torch.py at 7B and 13B (--dims=13b: the 13B session);
+    tools_torch/bench_q4_floor.py (B13, B14 and B1 at its defaults K 4096,
+    N 12288, M 8) in this process, every count set to 0 just before and
+    read just after; the other tools at a small depth and examples_torch/
+    python/example-batch.py and perplexity.py on phase 5's 8-layer q4_0
+    GGJT. Each runs as a subprocess alone on the card (so the times the
+    tools print are uncontended), must exit 0 and must have launched the
+    kernels of its path, and none but bench_kernels (which holds B1
+    against it) the dequant path; its launches are counted in its own
+    process (COUNTED)."""
+    import contextlib
+    import io
+    from fastllama_tpu_torch.config import PRESETS
+    from fastllama_tpu_torch.kernels import q4_floor as qf
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    from tools_torch import bench_q4_floor
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    res = {"bench": {}, "tools": {}}
+    for dims, preset in (("7b", "7B"), ("13b", "13B")):
+        rc, out, err, sec, n = run_counted(
+            "bench_torch.py", ["--dims=13b"] if dims == "13b" else [], root,
+            timeout=400.0)
+        print(f"bench_torch {dims} ({sec:.1f} s): stderr tail:\n"
+              + "\n".join(err.strip().splitlines()[-15:]), flush=True)
+        require(rc == 0, f"bench_torch {dims} exited {rc}: {err[-2000:]}")
+        line = bench_line(out, dims)
+        require(n is not None, f"bench_torch {dims} printed no launches")
+        bench_launches(n, PRESETS[preset].n_layer, dims)
+        dev_ms = [ln for ln in err.splitlines()
+                  if ln.startswith("device_ms_per_token")]
+        res["bench"][dims] = dict(line=line, seconds=sec, launches=n,
+                                  device_ms_per_token=dev_ms[-1] if dev_ms
+                                  else None)
+        print(f"bench_torch {dims}: {json.dumps(line)}", flush=True)
+
+    for fn in (qf.q4_floor, qf.q4_nosc, qm.q4_matmul_decode):
+        fn.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_q4_floor.main([])
+    launches = {"B13": qf.q4_floor.launches, "B14": qf.q4_nosc.launches,
+                "B1": qm.q4_matmul_decode.launches}
+    print(buf.getvalue(), end="", flush=True)
+    require(rc == 0, f"bench_q4_floor exited {rc}")
+    require(all(launches.values()), f"bench_q4_floor launches {launches}")
+    res["q4_floor"] = dict(json.loads(buf.getvalue().strip().splitlines()[-1]),
+                           launches_counted=launches)
+
+    text = os.path.join(tmp, "perplexity.txt")
+    with open(text, "w") as fh:
+        fh.write(prompt_of(3000, seed=11))
+    ex = os.path.join("examples_torch", "python")
+    runs = [(os.path.join("tools_torch", t), a, want)
+            for t, a, want in BENCH_TOOLS] + [
+        (os.path.join(ex, "example-batch.py"), [model_path], ("B1", "B4")),
+        (os.path.join(ex, "perplexity.py"), [model_path, text],
+         ("B2", "B3", "B12"))]
+    for script, args, want in runs:
+        rc, out, err, sec, n = run_counted(script, args, root)
+        label = " ".join([script] + args).replace(
+            model_path, "<8-layer q4_0 GGJT>").replace(text, "<text>")
+        tail = "\n".join(out.strip().splitlines()[-6:])
+        print(f"{label} ({sec:.1f} s, exit {rc}, launches {n}):\n{tail}",
+              flush=True)
+        require(rc == 0, f"{label} exited {rc}: {err[-2000:]}")
+        require(n is not None and all(n[k] > 0 for k in want),
+                f"{label}: launches {n}, none of some of {want}")
+        require("bench_kernels" in script or n["dequant"] == 0,
+                f"{label}: the dequant path ran {n['dequant']} times")
+        res["tools"][label] = dict(seconds=sec, stdout=out, launches=n)
+    ppl = res["tools"][next(k for k in res["tools"] if "perplexity" in k)]
+    require("Final perplexity:" in ppl["stdout"],
+            "perplexity.py printed no perplexity")
+    # each kernel's launches over the whole bench path
+    res["launches"] = {
+        k: sum(r["launches"][k] for r in list(res["bench"].values())
+               + list(res["tools"].values())) + launches.get(k, 0)
+        for k in res["bench"]["7b"]["launches"] if k != "dequant"}
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 9: traces
 # ---------------------------------------------------------------------------
 
@@ -2813,8 +3142,8 @@ def check_shard_planes(torch, dev, gen, results):
                                         "bf16")
                     require(torch.equal(y, again()),
                             f"{label}: not deterministic")
-                    ms = time_ms(torch, run, calls=2 * len(ws))
-                    plain_ms = (time_ms(torch, plain, calls=2)
+                    ms = time_ms(run, calls=2 * len(ws))
+                    plain_ms = (time_ms(plain, calls=2)
                                 if m in (1, 512) else None)
                     bnd, by = bound_ms(nbytes, 2.0 * m * k * n, kind)
                     row = dict(kernel=key, m=m, shape=label, max_abs_err=err,
@@ -2831,83 +3160,92 @@ def check_shard_attention(torch, dev, gen, results):
     B = 1 (the TP session) at the depths where the 64-row chunks begin and
     end, the last row and past S (an inactive slot), and at B = 8 (the slab
     engine's step) with per-slot depths, one of them past S; bf16 and f32
-    caches. Held against their plain versions at the whole-width rows'
-    tolerances (B4: output within 2^-7 (bf16) or 5e-5 (f32) of the largest
-    output, caches bit for bit, the same result twice; B10: within 5e-5);
-    timed on bf16 caches at 1 x 300 and 8 x 300 over cycled caches."""
-    from fastllama_tpu_torch.kernels import decode_attention as da
-    rows = results.setdefault("shard_local", [])
-    s_len, d = ENG_CTX, 128
-    scale = 1 / math.sqrt(d)
-    kw4 = dict(head_dim=d, n_rot=d, scale=scale)
+    caches (check_attention_heads)."""
+    s_len = ENG_CTX
     depth_sets = {1: [[n] for n in (0, 1, 63, 64, 65, 300, 511,
                                     s_len + 88)],
                   ENG_SLOTS: [[0, 1, 63, 64, 300, 511, s_len + 1, 200],
                               [300] * ENG_SLOTS]}
+    rows = results.setdefault("shard_local", [])
     for tp in SHARD_TPS:
-        h = 32 // tp
-        f = h * d
-        for b, sets in depth_sets.items():
-            for dt in (torch.bfloat16, torch.float32):
-                kind = "bf16" if dt == torch.bfloat16 else "f32"
-                kc, vc = (torch.randn((b, s_len, f), generator=gen,
-                                      device=dev).to(dt) for _ in range(2))
-                for depths in sets:
-                    label = f"tp={tp} B={b} S={s_len} H={h} d={d} " \
-                            f"depths={depths} {kind} caches"
-                    npv = torch.tensor(depths, dtype=torch.int32, device=dev)
-                    cos, sin = da.rope_lane_tables(
-                        npv.clamp_max(s_len - 1), d, d)
-                    qkv = torch.randn((b, 1, 3 * f), generator=gen,
-                                      device=dev)
-                    runs = []
-                    for _ in range(2):
-                        k1, v1 = kc.clone(), vc.clone()
-                        runs.append((da.decode_attention_fused(
-                            qkv, k1, v1, npv, cos, sin, **kw4), k1, v1))
-                    k2, v2 = kc.clone(), vc.clone()
-                    ref = da.decode_attention_fused_plain(
-                        qkv, k2, v2, npv, cos, sin, **kw4)
-                    ctx, k1, v1 = runs[0]
-                    err = (ctx - ref).abs().max().item()
-                    tol = ((2 ** -7 if kind == "bf16" else 5e-5)
-                           * ref.abs().max().item() + 1e-6)
-                    require(bool(torch.isfinite(ctx).all()),
-                            f"B4 {label}: not finite")
-                    require(err <= tol, f"B4 {label}: err {err} > {tol}")
-                    require(torch.equal(k1, k2) and torch.equal(v1, v2),
-                            f"B4 {label}: caches differ")
-                    require(all(torch.equal(x, y)
-                                for x, y in zip(runs[0], runs[1])),
-                            f"B4 {label}: not deterministic")
-                    del runs, k1, v1, k2, v2
-                    b4 = dict(kernel="B4", shape="B4 " + label,
-                              max_abs_err=err, tol=tol)
-                    q = torch.randn((b, 1, f), generator=gen, device=dev)
-                    ctx = da.decode_attention(q, kc, vc, npv, head_dim=d,
-                                              scale=scale)
-                    ref = da.decode_attention_plain(q, kc, vc, npv,
-                                                    head_dim=d, scale=scale)
-                    err = (ctx - ref).abs().max().item()
-                    tol = 5e-5 * ref.abs().max().item() + 1e-6
-                    require(bool(torch.isfinite(ctx).all()),
-                            f"B10 {label}: not finite")
-                    require(err <= tol, f"B10 {label}: err {err} > {tol}")
-                    require(torch.equal(ctx, da.decode_attention(
-                        q, kc, vc, npv, head_dim=d, scale=scale)),
-                        f"B10 {label}: not deterministic")
-                    b10 = dict(kernel="B10", shape="B10 " + label,
-                               max_abs_err=err, tol=tol)
-                    if kind == "bf16" and depths[0] == 300 \
-                            and len(set(depths)) == 1:
-                        b4.update(_time_attention(
-                            torch, dev, gen, da, b, s_len, h, d, qkv, q, npv,
-                            cos, sin, kc, vc, kw4))
-                        b10.update(b4.pop("b10"))
-                    for row in (b4, b10):
-                        rows.append(row)
-                        print(f"shard-local {row}", flush=True)
-                del kc, vc
+        check_attention_heads(torch, dev, gen, rows, f"tp={tp}", 32 // tp,
+                              depth_sets)
+
+
+def check_attention_heads(torch, dev, gen, rows, tag, h, depth_sets):
+    """B4 and B10 at h heads of 128 over 512-row caches, B slots each at
+    the depths of depth_sets {B: [depths, ...]}, bf16 and f32 caches: held
+    against their plain versions at the whole-width rows' tolerances (B4:
+    output within 2^-7 (bf16) or 5e-5 (f32) of the largest output, caches
+    bit for bit, the same result twice; B10: within 5e-5); timed on bf16
+    caches where every slot is at 300 rows, over cycled caches. One row a
+    kernel and case, labelled with `tag`, appended to rows."""
+    from fastllama_tpu_torch.kernels import decode_attention as da
+    s_len, d = ENG_CTX, 128
+    scale = 1 / math.sqrt(d)
+    kw4 = dict(head_dim=d, n_rot=d, scale=scale)
+    f = h * d
+    for b, sets in depth_sets.items():
+        for dt in (torch.bfloat16, torch.float32):
+            kind = "bf16" if dt == torch.bfloat16 else "f32"
+            kc, vc = (torch.randn((b, s_len, f), generator=gen,
+                                  device=dev).to(dt) for _ in range(2))
+            for depths in sets:
+                label = f"{tag} B={b} S={s_len} H={h} d={d} " \
+                        f"depths={depths} {kind} caches"
+                npv = torch.tensor(depths, dtype=torch.int32, device=dev)
+                cos, sin = da.rope_lane_tables(
+                    npv.clamp_max(s_len - 1), d, d)
+                qkv = torch.randn((b, 1, 3 * f), generator=gen,
+                                  device=dev)
+                runs = []
+                for _ in range(2):
+                    k1, v1 = kc.clone(), vc.clone()
+                    runs.append((da.decode_attention_fused(
+                        qkv, k1, v1, npv, cos, sin, **kw4), k1, v1))
+                k2, v2 = kc.clone(), vc.clone()
+                ref = da.decode_attention_fused_plain(
+                    qkv, k2, v2, npv, cos, sin, **kw4)
+                ctx, k1, v1 = runs[0]
+                err = (ctx - ref).abs().max().item()
+                tol = ((2 ** -7 if kind == "bf16" else 5e-5)
+                       * ref.abs().max().item() + 1e-6)
+                require(bool(torch.isfinite(ctx).all()),
+                        f"B4 {label}: not finite")
+                require(err <= tol, f"B4 {label}: err {err} > {tol}")
+                require(torch.equal(k1, k2) and torch.equal(v1, v2),
+                        f"B4 {label}: caches differ")
+                require(all(torch.equal(x, y)
+                            for x, y in zip(runs[0], runs[1])),
+                        f"B4 {label}: not deterministic")
+                del runs, k1, v1, k2, v2
+                b4 = dict(kernel="B4", shape="B4 " + label,
+                          max_abs_err=err, tol=tol)
+                q = torch.randn((b, 1, f), generator=gen, device=dev)
+                ctx = da.decode_attention(q, kc, vc, npv, head_dim=d,
+                                          scale=scale)
+                ref = da.decode_attention_plain(q, kc, vc, npv,
+                                                head_dim=d, scale=scale)
+                err = (ctx - ref).abs().max().item()
+                tol = 5e-5 * ref.abs().max().item() + 1e-6
+                require(bool(torch.isfinite(ctx).all()),
+                        f"B10 {label}: not finite")
+                require(err <= tol, f"B10 {label}: err {err} > {tol}")
+                require(torch.equal(ctx, da.decode_attention(
+                    q, kc, vc, npv, head_dim=d, scale=scale)),
+                    f"B10 {label}: not deterministic")
+                b10 = dict(kernel="B10", shape="B10 " + label,
+                           max_abs_err=err, tol=tol)
+                if kind == "bf16" and depths[0] == 300 \
+                        and len(set(depths)) == 1:
+                    b4.update(_time_attention(
+                        torch, dev, gen, da, b, s_len, h, d, qkv, q, npv,
+                        cos, sin, kc, vc, kw4))
+                    b10.update(b4.pop("b10"))
+                for row in (b4, b10):
+                    rows.append(row)
+                    print(f"{tag} {row}", flush=True)
+            del kc, vc
 
 
 def _time_attention(torch, dev, gen, da, b, s_len, h, d, qkv, q, npv, cos,
@@ -2936,13 +3274,13 @@ def _time_attention(torch, dev, gen, da, b, s_len, h, d, qkv, q, npv, cos,
                          "bf16")
     bnd10, by10 = bound_ms(2 * b * f * 4 + 2 * r10 * f * 2 + b * 4,
                            4.0 * r10 * f, "bf16")
-    out = dict(ms=time_ms(torch, run4, calls=4 * n),
-               plain_ms=time_ms(torch, lambda: da.decode_attention_fused_plain(
+    out = dict(ms=time_ms(run4, calls=4 * n),
+               plain_ms=time_ms(lambda: da.decode_attention_fused_plain(
                    qkv, kc.clone(), vc.clone(), npv, cos, sin, **kw4),
                    calls=2),
                bound_ms=bnd4, bound_by=by4,
-               b10=dict(ms=time_ms(torch, run10, calls=4 * n),
-                        plain_ms=time_ms(torch, lambda: da
+               b10=dict(ms=time_ms(run10, calls=4 * n),
+                        plain_ms=time_ms(lambda: da
                                          .decode_attention_plain(
                                              q, kc, vc, npv, head_dim=d,
                                              scale=kw4["scale"]), calls=2),
@@ -3422,15 +3760,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
-    try:
-        import fastllama_tpu_torch  # noqa: F401
-        from fastllama_tpu_torch.kernels import cuda_lib
-        from fastllama_tpu_torch.kernels import decode_attention as da
-        from fastllama_tpu_torch.kernels import q4_matmul as qm
-    except ImportError as e:
-        print(f"chip_smoke: fastllama_tpu_torch not importable: {e}",
-              file=sys.stderr)
-        return 2
+    from fastllama_tpu_torch.kernels import cuda_lib
+    from fastllama_tpu_torch.kernels import decode_attention as da
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3479,12 +3811,18 @@ def main() -> int:
         par_res = timed("10 parallel", parallel_path, torch, tmp,
                         file_res["ggjt_q4_0"]["path"],
                         file_res["ggjt_q4_1"]["path"])
+        # phase 11's bench_q4_floor holds B1 against the dequant path in
+        # this process, as phase 2 does: the count of phases 3-10 is read
+        # before it (phase 11's subprocesses count their own)
+        dequant_calls = qm.q4_matmul_dequant.cuda_calls
+        bench_res = timed("11 bench path", bench_path, torch, tmp,
+                          file_res["ggjt_q4_0"]["path"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    require(qm.q4_matmul_dequant.cuda_calls == 0,
-            f"the dequant path ran {qm.q4_matmul_dequant.cuda_calls} times "
-            "on the card in phases 3-10")
+    require(dequant_calls == 0,
+            f"the dequant path ran {dequant_calls} times on the card in "
+            "phases 3-10")
 
     def pick(rows, key):
         return next(r for r in rows if key in r["shape"])
@@ -3500,7 +3838,9 @@ def main() -> int:
                     ["B7"],
                     PS=engine_res["runs"]["paged"]["launches"]["PS"],
                     B8=engine_res["runs"]["paged_chunked"]["launches"]["B8"],
-                    B11=checks["B11_phase2_launches"])
+                    B11=checks["B11_phase2_launches"],
+                    **{k: bench_res["q4_floor"]["launches_counted"][k]
+                       for k in ("B13", "B14")})
     main_rows = {"B1": pick(checks["B1"], "qkv M=1"),
                  "B2": pick(checks["B2"], "K=4096"),
                  "B3": pick(checks["B3"], "qkv M=512 K=4096"),
@@ -3515,7 +3855,10 @@ def main() -> int:
                  "B11": pick(checks["B11"], "bf16 flat pools lengths=8x300"),
                  "PS": pick(checks["PS"], "H=32 bf16 d=128 ps=64 pp=8 "
                             "lengths=8x300"),
-                 "B12": pick(checks["B12"], "7B H=32 d=128 T=512 bf16")}
+                 "B12": pick(checks["B12"], "7B H=32 d=128 T=512 bf16"),
+                 # bench_q4_floor's default shape: the 7B qkv plane at M = 8
+                 "B13": pick(checks["B13"], "qkv M=8 "),
+                 "B14": pick(checks["B14"], "qkv M=8 ")}
     meta = {
         "B1": ("q4_matmul_decode", "csrc/q4_decode.cu",
                "fastllama_tpu/kernels/q4_matmul.py:433"),
@@ -3546,6 +3889,10 @@ def main() -> int:
         # the library Pallas TPU flash_attention the JAX function calls
         "B12": ("flash_prefill", "csrc/flash_prefill.cu",
                 "fastllama_tpu/models/llama.py:288"),
+        # the probes of tools/bench_q4_floor.py (_run launches them at :87
+        # and :90); B1's kernel in its kFloor and kNosc modes
+        "B13": ("q4_floor", "csrc/q4_decode.cu", "tools/bench_q4_floor.py:37"),
+        "B14": ("q4_nosc", "csrc/q4_decode.cu", "tools/bench_q4_floor.py:49"),
     }
     kernels = []
     for key, (name, src, replaces) in meta.items():
@@ -3556,7 +3903,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": max(r["max_abs_err"] for r in checks[key]
                                + [s for s in checks["shard_local"]
-                                  if s["kernel"] == key]),
+                                  + checks["13B"] if s["kernel"] == key]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"), "shape": row["shape"]})
@@ -3606,6 +3953,15 @@ def main() -> int:
                     **{f"engine_{m}": runs[m]["launches"]["B12"]
                        for m in ("paged", "paged_chunked", "slab")},
                     "engine_f32_2_layers": engine_res["f32_b12_launches"]})
+        if key in ("B13", "B14"):
+            kernels[-1].update(
+                path="tools_torch/bench_q4_floor.py (phase 11, its default "
+                     "K 4096, N 12288, M 8)",
+                library_call=NO_PROBE_LIBRARY, b1_ms=row["b1_ms"],
+                b1_bound_ms=row["b1_bound_ms"])
+        # its launches on phase 11's bench path (every script summed)
+        kernels[-1].setdefault("launches_by_path", {})["bench_path"] = (
+            bench_res["launches"][key])
         if key == "B1":
             m8 = pick(checks["B1"], "qkv M=8 ")
             kernels[-1].update(ms_at_engine_m8=m8["ms"],
@@ -3615,7 +3971,7 @@ def main() -> int:
                "kernel_checks": checks, "main_path": main_res,
                "q41_lora_path": q41_res, "file_entry_points": file_res,
                "engine_path": engine_res, "converters": conv_res,
-               "c_abi": c_res, "parallel": par_res,
+               "c_abi": c_res, "parallel": par_res, "bench_path": bench_res,
                "seconds": time.perf_counter() - t_start,
                "phase_seconds": phase_s}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

@@ -1,5 +1,6 @@
 // Kernels B1 and B9: the decode-size 4-bit matmuls (W4A16 skinny GEMM /
-// GEMV) for q4_0 and for affine (q4_1 / GPTQ) weights, one template.
+// GEMV) for q4_0 and for affine (q4_1 / GPTQ) weights, one template; and
+// B13 and B14, two probes of B1's tensor-core kernel (below).
 //
 // B1 (q4_gemv):
 // Replaces fastllama_tpu/kernels/q4_matmul.py::q4_matmul_pallas (variant
@@ -103,6 +104,25 @@
 //     MMA's accumulator itself, not a separate one: a second accumulator
 //     would cost 16 * NT more registers (64 at M > 16) for a difference of
 //     summation order only; the mins product is a true f32 one either way.
+//
+// B13 (q4_floor_mma) and B14 (q4_nosc_mma) replace the two Pallas kernels of
+// tools/bench_q4_floor.py, _floor_kernel and _nosc_kernel: probes that time
+// how fast B1's access pattern moves the packed bytes when the body does
+// less. They are the same kernel as B1 in bf16 mode (MODE kFloor and kNosc):
+// its grid and plan, its ring of the 16 packed rows of a q block, its x
+// slice and its ordered split-K merge, with the body cut as the JAX tool
+// cuts it:
+//   * kNosc: out = R(x_lo) @ (q & 15) + R(x_hi) @ (q >> 4), both nibbles
+//     against the low and high halves of each q block of x (x_lo, x_hi of
+//     split_activation), with no -8, and no scale plane loaded or applied;
+//   * kFloor: out = R(x_lo) @ q, the whole packed byte (0-255) as one bf16
+//     operand against the low halves: one k16 step a q block, no nibble
+//     split, no scales.
+// The codes are exact in bf16 and so are the products in f32, so only the
+// summation order differs from the plain version. A ring stage holds the
+// packed rows alone (no scale cp.async). The x slice is staged whole as B1
+// stages it (kFloor reads its low halves only), so the gaps between B13,
+// B14 and B1 are the unpack and the scale path, not x.
 
 #include "common.cuh"
 
@@ -315,10 +335,16 @@ constexpr int kMmaWarps = 4, kMmaThreads = kMmaWarps * 32;
 constexpr int kWarpCols = 64;            // columns of one warp
 constexpr int kStages = 4;
 constexpr int kRowStride = 80;           // bytes per packed row in a stage
-// a stage: 16 packed rows, the 64 scales and, for an affine weight, 64 mins
-template <bool AFFINE>
-constexpr int kStageBytes =
-    16 * kRowStride + (AFFINE ? 2 : 1) * kWarpCols * 4;
+// The tensor-core kernel's modes: B1 (q4_0), B9 (affine) and the probes B13
+// (kFloor) and B14 (kNosc)
+enum Mode { kQ40 = 0, kQ41 = 1, kNosc = 2, kFloor = 3 };
+// f32 planes of 64 values beside the packed rows in a ring stage: the
+// scales and, for an affine weight, the mins; none for the probes
+template <int MODE>
+constexpr int kPlanes = MODE == kQ41 ? 2 : MODE == kQ40 ? 1 : 0;
+// a stage: 16 packed rows and the planes
+template <int MODE>
+constexpr int kStageBytes = 16 * kRowStride + kPlanes<MODE> * kWarpCols * 4;
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -342,20 +368,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// q - 8 (q4_0) or q (AFFINE) as an exact f32 for the nibble in byte C of
-// `nibs` (each byte holds one nibble): the byte goes into the mantissa of
-// 2^23 (one byte permute with `magic` = 0x4B000000), then 2^23 + 8 (or
-// 2^23) is subtracted. `magic` comes in as a kernel argument so that it sits
-// in a register and the permute's selector C is the instruction's immediate
-// (a literal magic would take the immediate and cost a register move of the
-// selector per element).
-template <int C, bool AFFINE>
+// q - 8 (q4_0) or q itself (RAW: an affine code, a probe's nibble or whole
+// byte) as an exact f32 for byte C of `nibs`: the byte goes into the
+// mantissa of 2^23 (one byte permute with `magic` = 0x4B000000), then
+// 2^23 + 8 (or 2^23) is subtracted. `magic` comes in as a kernel argument
+// so that it sits in a register and the permute's selector C is the
+// instruction's immediate (a literal magic would take the immediate and
+// cost a register move of the selector per element).
+template <int C, bool RAW>
 __device__ __forceinline__ float nib_val(uint32_t nibs, uint32_t magic) {
   return __uint_as_float(__byte_perm(nibs, magic, 0x7440 | C)) -
-         (AFFINE ? 8388608.f : 8388616.f);
+         (RAW ? 8388608.f : 8388616.f);
 }
 
-template <int NT, bool AFFINE>
+template <int NT, int MODE>
 __global__ void __launch_bounds__(kMmaThreads)
 q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
               const uint8_t* __restrict__ qs,
@@ -364,8 +390,12 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
               int kb_per_split, float* __restrict__ partial,
               int* __restrict__ counters, float* __restrict__ y, int n_out,
               uint32_t magic) {
+  constexpr bool AFFINE = MODE == kQ41;
+  constexpr bool SCALED = kPlanes<MODE> > 0;
+  constexpr bool RAW = MODE != kQ40;
+  constexpr int kSteps = MODE == kFloor ? 1 : 2;   // k16 steps a q block
   constexpr int MT = 8 * NT;
-  constexpr int kSB = kStageBytes<AFFINE>;
+  constexpr int kSB = kStageBytes<MODE>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -387,14 +417,16 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   // 8 + lane / 4, bytes (lane % 4) * 16) and one 16-byte piece of the
   // scales (lanes < 16) or, for an affine weight, of the mins (lanes >= 16,
   // stored right after the scales); its sources advance by kw q blocks per
-  // stage. Columns past N read as zeros (N is a multiple of 16).
+  // stage. Columns past N read as zeros (N is a multiple of 16). The probes
+  // copy the packed rows alone.
   const int off = (lane & 3) * 16, sl = lane & 15;
-  const bool has_s = AFFINE || lane < 16;
+  const bool has_s = SCALED && (AFFINE || lane < 16);
   const bool q_ok = nw + off < N, s_ok = has_s && nw + sl * 4 < N;
   const uint8_t* q_src = qs + ((size_t)(kb0 + kg) * 16 + (lane >> 2)) * N +
                          nw + off;            // advanced stage by stage
-  const float* s_src = (AFFINE && lane >= 16 ? mins : scales) +
-                       (size_t)(kb0 + kg) * N + nw + sl * 4;
+  const float* s_src = SCALED ? (AFFINE && lane >= 16 ? mins : scales) +
+                                   (size_t)(kb0 + kg) * N + nw + sl * 4
+                              : nullptr;
   const size_t q_step = (size_t)kw * 16 * N, s_step = (size_t)kw * N;
   const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
   const uint32_t q_dst = ring_s + (lane >> 2) * kRowStride + off;
@@ -415,7 +447,7 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   for (int i = 0; i < kStages - 1; ++i) {
     if (i < cnt) load_stage(i * kSB, q_src, s_src);
     q_src += q_step;
-    s_src += s_step;
+    if constexpr (SCALED) s_src += s_step;
     cp_async_commit();
   }
 
@@ -491,32 +523,42 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
     if (i + kStages - 1 < cnt) load_stage(wr_slot, q_src, s_src);
     cp_async_commit();
     q_src += q_step;
-    s_src += s_step;
+    if constexpr (SCALED) s_src += s_step;
     wr_slot = wr_slot + kSB == kRing ? 0 : wr_slot + kSB;
     const int slot = rd_slot;
     rd_slot = rd_slot + kSB == kRing ? 0 : rd_slot + kSB;
-    // low and high nibbles of the lane's 4 rows x 8 columns
+    // low and high nibbles of the lane's 4 rows x 8 columns (kFloor: the
+    // whole bytes in lo)
     uint32_t lo[4][2], hi[4][2];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const uint2 v = *reinterpret_cast<const uint2*>(
           a_rd + slot + ((r & 1) + 8 * (r >> 1)) * kRowStride);
-      lo[r][0] = v.x & 0x0F0F0F0Fu;
-      lo[r][1] = v.y & 0x0F0F0F0Fu;
-      hi[r][0] = (v.x >> 4) & 0x0F0F0F0Fu;
-      hi[r][1] = (v.y >> 4) & 0x0F0F0F0Fu;
+      if constexpr (MODE == kFloor) {
+        lo[r][0] = v.x;
+        lo[r][1] = v.y;
+      } else {
+        lo[r][0] = v.x & 0x0F0F0F0Fu;
+        lo[r][1] = v.y & 0x0F0F0F0Fu;
+        hi[r][0] = (v.x >> 4) & 0x0F0F0F0Fu;
+        hi[r][1] = (v.y >> 4) & 0x0F0F0F0Fu;
+      }
     }
     const float* sd = reinterpret_cast<const float*>(
         reinterpret_cast<const uint8_t*>(s_rd) + slot);
-    const float4 da = *reinterpret_cast<const float4*>(sd);
-    const float4 db = *reinterpret_cast<const float4*>(sd + 4);
-    const float d[8] = {da.x, da.y, da.z, da.w, db.x, db.y, db.z, db.w};
+    float d[8];
+    if constexpr (SCALED) {
+      const float4 da = *reinterpret_cast<const float4*>(sd);
+      const float4 db = *reinterpret_cast<const float4*>(sd + 4);
+      d[0] = da.x; d[1] = da.y; d[2] = da.z; d[3] = da.w;
+      d[4] = db.x; d[5] = db.y; d[6] = db.z; d[7] = db.w;
+    }
     uint4 xb[NT];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) xb[nt] = x_rd[nt * 32];
     x_rd += kw * NT * 32;
 #pragma unroll
-    for (int step = 0; step < 2; ++step) {
+    for (int step = 0; step < kSteps; ++step) {
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
         uint32_t a[4];
@@ -529,16 +571,19 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
           const uint32_t* src1 = step ? hi[r + 1] : lo[r + 1];
           float v0, v1;
           switch (c & 3) {
-            case 0: v0 = nib_val<0, AFFINE>(src0[c >> 2], magic);
-                    v1 = nib_val<0, AFFINE>(src1[c >> 2], magic); break;
-            case 1: v0 = nib_val<1, AFFINE>(src0[c >> 2], magic);
-                    v1 = nib_val<1, AFFINE>(src1[c >> 2], magic); break;
-            case 2: v0 = nib_val<2, AFFINE>(src0[c >> 2], magic);
-                    v1 = nib_val<2, AFFINE>(src1[c >> 2], magic); break;
-            default: v0 = nib_val<3, AFFINE>(src0[c >> 2], magic);
-                     v1 = nib_val<3, AFFINE>(src1[c >> 2], magic); break;
+            case 0: v0 = nib_val<0, RAW>(src0[c >> 2], magic);
+                    v1 = nib_val<0, RAW>(src1[c >> 2], magic); break;
+            case 1: v0 = nib_val<1, RAW>(src0[c >> 2], magic);
+                    v1 = nib_val<1, RAW>(src1[c >> 2], magic); break;
+            case 2: v0 = nib_val<2, RAW>(src0[c >> 2], magic);
+                    v1 = nib_val<2, RAW>(src1[c >> 2], magic); break;
+            default: v0 = nib_val<3, RAW>(src0[c >> 2], magic);
+                     v1 = nib_val<3, RAW>(src1[c >> 2], magic); break;
           }
-          a[reg] = pack_bf16(v0 * d[c], v1 * d[c]);
+          if constexpr (SCALED)
+            a[reg] = pack_bf16(v0 * d[c], v1 * d[c]);
+          else
+            a[reg] = pack_bf16(v0, v1);
         }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
@@ -626,33 +671,33 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   if (threadIdx.x == 0) counters[tile] = 0;
 }
 
-template <int NT, bool AFFINE>
+template <int NT, int MODE>
 int launch_mma(const float* x, int M, int Kx, const uint8_t* qs,
                const float* scales, const float* mins, int N, int NB, int cw,
                int splits, int kb_per_split, float* partial, int* counters,
                float* y, int n_out, cudaStream_t stream) {
   // the ring, the x slice and (AFFINE) the block sums, reused afterwards for
   // the warps' sums
-  const size_t ring_x = (size_t)kMmaWarps * kStages * kStageBytes<AFFINE> +
+  const size_t ring_x = (size_t)kMmaWarps * kStages * kStageBytes<MODE> +
                         (size_t)kb_per_split * NT * 128 * sizeof(uint32_t) +
-                        (AFFINE ? (size_t)kb_per_split * 8 * NT * 4 : 0);
+                        (MODE == kQ41 ? (size_t)kb_per_split * 8 * NT * 4 : 0);
   const size_t red = (size_t)kMmaWarps * 8 * NT * kWarpCols * sizeof(float);
   const size_t smem = ring_x > red ? ring_x : red;
   if (smem + 1024 > 48 * 1024) {         // with the static shared memory
     cudaError_t err = cudaFuncSetAttribute(
-        q4_mma_kernel<NT, AFFINE>,
+        q4_mma_kernel<NT, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int bn = cw * kWarpCols;
   dim3 grid((N + bn - 1) / bn, splits, (M + 8 * NT - 1) / (8 * NT));
-  q4_mma_kernel<NT, AFFINE><<<grid, kMmaThreads, smem, stream>>>(
+  q4_mma_kernel<NT, MODE><<<grid, kMmaThreads, smem, stream>>>(
       x, M, Kx, qs, scales, mins, N, NB, cw, kb_per_split, partial, counters,
       y, n_out, 0x4B000000u);
   return (int)cudaGetLastError();
 }
 
-template <bool AFFINE>
+template <int MODE>
 int dispatch_mma(const void* x, int M, int Kx, const void* qs,
                  const void* scales, const void* mins, int N, int NB, int cw,
                  int splits, int kb_per_split, int nt, void* partial,
@@ -668,13 +713,13 @@ int dispatch_mma(const void* x, int M, int Kx, const void* qs,
   if (N % 16 || (cw != 1 && cw != 2 && cw != 4) || kb_per_split * nt > 64)
     return (int)cudaErrorInvalidValue;
   switch (nt) {
-    case 1: return launch_mma<1, AFFINE>(xf, M, Kx, q, sc, mn, N, NB, cw,
+    case 1: return launch_mma<1, MODE>(xf, M, Kx, q, sc, mn, N, NB, cw,
                                          splits, kb_per_split, p, c, yf,
                                          n_out, s);
-    case 2: return launch_mma<2, AFFINE>(xf, M, Kx, q, sc, mn, N, NB, cw,
+    case 2: return launch_mma<2, MODE>(xf, M, Kx, q, sc, mn, N, NB, cw,
                                          splits, kb_per_split, p, c, yf,
                                          n_out, s);
-    case 4: return launch_mma<4, AFFINE>(xf, M, Kx, q, sc, mn, N, NB, cw,
+    case 4: return launch_mma<4, MODE>(xf, M, Kx, q, sc, mn, N, NB, cw,
                                          splits, kb_per_split, p, c, yf,
                                          n_out, s);
     default: return (int)cudaErrorInvalidValue;
@@ -695,7 +740,7 @@ extern "C" int q4_gemv_mma(const void* x, int M, int Kx, const void* qs,
                            int splits, int kb_per_split, int nt,
                            void* partial, void* counters, void* y, int n_out,
                            void* stream) {
-  return dispatch_mma<false>(x, M, Kx, qs, scales, nullptr, N, NB, cw, splits,
+  return dispatch_mma<kQ40>(x, M, Kx, qs, scales, nullptr, N, NB, cw, splits,
                              kb_per_split, nt, partial, counters, y, n_out,
                              stream);
 }
@@ -707,9 +752,33 @@ extern "C" int q41_gemv_mma(const void* x, int M, int Kx, const void* qs,
                             int NB, int cw, int splits, int kb_per_split,
                             int nt, void* partial, void* counters, void* y,
                             int n_out, void* stream) {
-  return dispatch_mma<true>(x, M, Kx, qs, scales, mins, N, NB, cw, splits,
+  return dispatch_mma<kQ41>(x, M, Kx, qs, scales, mins, N, NB, cw, splits,
                             kb_per_split, nt, partial, counters, y, n_out,
                             stream);
+}
+
+// B13: out f32 [M, n_out] = R(x_lo) @ qs, the packed bytes as weights, and
+// B14: R(x_lo) @ (qs & 15) + R(x_hi) @ (qs >> 4); x f32 [M, Kx] read in
+// place (x_lo, x_hi: the low and high halves of each 32-column q block),
+// qs uint8 [NB * 16, N]; no scale plane. The plan, partial and counters as
+// for q4_gemv_mma. Returns the CUDA error code of the launch.
+extern "C" int q4_floor_mma(const void* x, int M, int Kx, const void* qs,
+                            int N, int NB, int cw, int splits,
+                            int kb_per_split, int nt, void* partial,
+                            void* counters, void* y, int n_out,
+                            void* stream) {
+  return dispatch_mma<kFloor>(x, M, Kx, qs, nullptr, nullptr, N, NB, cw,
+                              splits, kb_per_split, nt, partial, counters, y,
+                              n_out, stream);
+}
+
+extern "C" int q4_nosc_mma(const void* x, int M, int Kx, const void* qs,
+                           int N, int NB, int cw, int splits,
+                           int kb_per_split, int nt, void* partial,
+                           void* counters, void* y, int n_out, void* stream) {
+  return dispatch_mma<kNosc>(x, M, Kx, qs, nullptr, nullptr, N, NB, cw,
+                             splits, kb_per_split, nt, partial, counters, y,
+                             n_out, stream);
 }
 
 // x f32 [M, Kx] (Kx <= 32 * NB; the stored-K tail reads as zeros),

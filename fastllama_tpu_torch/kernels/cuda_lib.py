@@ -36,6 +36,8 @@ ARGTYPES = {
     "q4_gemv_mma": [P, I, I, P, P, I, I, I, I, I, I, P, P, P, I, P],
     "q41_gemv_mma": [P, I, I, P, P, P, I, I, I, I, I, I, P, P, P, I, P],
     "q41_gemv": [P, I, I, P, P, P, I, I, I, I, P, P, P, I, I, P],
+    "q4_floor_mma": [P, I, I, P, I, I, I, I, I, I, P, P, P, I, P],
+    "q4_nosc_mma": [P, I, I, P, I, I, I, I, I, I, P, P, P, I, P],
     "quant_rows_int8": [P, I, I, I, P, P, P],
     "q4_int8_gemm": [P, P, I, I, P, P, I, P, P, P, I, I, P],
     "q4_prefill_gemm": [P, I, I, P, P, P, I, I, P, I, I, I, P, P, P, I, I,
@@ -56,6 +58,7 @@ ARGTYPES = {
 }
 LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
           "q41_gemv": "q4_decode", "q41_gemv_mma": "q4_decode",
+          "q4_floor_mma": "q4_decode", "q4_nosc_mma": "q4_decode",
           "quant_rows_int8": "quant_rows", "q4_int8_gemm": "q4_int8",
           "q4_prefill_gemm": "q4_prefill",
           "decode_attention_fused": "decode_attention",

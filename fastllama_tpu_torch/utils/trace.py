@@ -17,6 +17,11 @@ dump (ggml.h:303-305, 325-327, 704-707) plus wall-clock phase logs
     the host) into per-kernel totals, every launch of one kernel under its
     base name without template arguments. A trace of a CPU-only run has no
     device events; then the innermost CPU operators stand in for them.
+  * `time_ms(fn, calls)` / `copies_for(nbytes)`: the device time of one call
+    on the card (CUDA events around replays of a CUDA graph of the calls)
+    and the number of input copies to cycle through so that timed calls
+    read device memory, not the L2; the bench tools and chip_smoke.py time
+    kernels with them.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import contextlib
 import glob
 import gzip
 import json
+import math
 import os
 import time
 from pathlib import Path
@@ -134,3 +140,37 @@ def print_breakdown(total: float, agg, cnt, steps: int = 1, top: int = 40,
     for k, v in agg.most_common(top):
         print(f"  {v / steps:10.1f} us/step  x{cnt[k] // steps:<5d} {k}",
               file=file)
+
+
+def time_ms(fn, calls: int, replays: int = 3) -> float:
+    """Device time of one fn() call, by CUDA events around replays of a CUDA
+    graph that holds `calls` calls, so the host's per-call cost (Python,
+    ctypes, allocator) is not in the number."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / (replays * calls)
+
+
+def copies_for(nbytes: int) -> int:
+    """Distinct input copies to cycle through so that timed launches find
+    their inputs in device memory, not in the H100's 50 MB L2."""
+    return max(2, math.ceil(160e6 / nbytes))

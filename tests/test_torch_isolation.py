@@ -1,5 +1,6 @@
-"""PyTorch port: neither the package, chip_smoke.py nor the scripts under
-tools_torch/ import JAX or the JAX package, and the C++ sources of the
+"""PyTorch port: neither the package, chip_smoke.py, bench_torch.py, the
+scripts under tools_torch/ nor the examples under examples_torch/ import
+JAX or the JAX package, and the C++ sources of the
 port's native libraries (the Python the C ABI embeds, its capsule name)
 name neither."""
 import ast
@@ -32,7 +33,8 @@ def test_package_imports_no_jax():
     assert len(res["mods"]) >= 40
     for mod in ("engine.scheduler", "engine.paged_kv", "engine.sampling",
                 "kernels.paged_attention", "kernels.kv_write",
-                "kernels.flash_prefill", "native",
+                "kernels.flash_prefill", "kernels.q4_floor",
+                "models.synthetic", "native",
                 "quant.native", "io.convert", "utils.trace", "parallel",
                 "parallel.sharding", "parallel.ring", "parallel.multihost",
                 "parallel.collectives"):
@@ -51,16 +53,23 @@ def _imports(path: Path) -> list[str]:
     return names
 
 
-@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py"] + sorted(
+@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
+                                  ROOT / "bench_torch.py"] + sorted(
     (ROOT / "fastllama_tpu_torch").rglob("*.py")) + sorted(
-    (ROOT / "tools_torch").glob("*.py")), ids=lambda p: p.name)
+    (ROOT / "tools_torch").glob("*.py")) + sorted(
+    (ROOT / "examples_torch" / "python").glob("*.py")),
+    ids=lambda p: p.name)
 def test_sources_import_no_jax(path):
     assert [n for n in _imports(path) if _forbidden(n)] == []
 
 
 NATIVE_SOURCES = sorted((ROOT / "fastllama_tpu_torch" / "native").glob("*.cpp"))
 PORT_TOOLS = [ROOT / "tools_torch" / f"{n}.py" for n in (
-    "quantize", "convert", "convert_lora", "export_hf", "chat")]
+    "quantize", "convert", "convert_lora", "export_hf", "chat",
+    "_trace_util", "bench_q4_floor", "bench_kernels", "bench_prefill",
+    "bench_paged_attn", "bench_engine", "profile_decode", "profile_paged",
+    "bench_reference")] + [ROOT / "bench_torch.py"] + sorted(
+    (ROOT / "examples_torch" / "python").glob("*.py"))
 
 
 @pytest.mark.parametrize("path", NATIVE_SOURCES + PORT_TOOLS,

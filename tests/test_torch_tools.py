@@ -258,3 +258,129 @@ def test_profile_prefill_needs_a_card(capsys):
         pytest.skip("a card is present")
     assert t_profile_prefill.main(["--layers", "1"]) == 2
     assert "no CUDA card" in capsys.readouterr().err
+
+
+# -- the bench and profile path ----------------------------------------------
+
+BENCH_SCRIPTS = [REPO / "bench_torch.py"] + [
+    REPO / "tools_torch" / f"{n}.py" for n in (
+        "_trace_util", "bench_q4_floor", "bench_kernels", "bench_prefill",
+        "bench_paged_attn", "bench_engine", "profile_decode",
+        "profile_paged", "bench_reference")]
+# the tools that run on the card: each takes --device, with the card the
+# default; the smallest arguments each accepts
+ON_CARD = {"bench_torch": [],
+           "bench_q4_floor": ["64", "32", "1"],
+           "bench_kernels": ["--layers", "1", "--m", "1"],
+           "bench_prefill": ["--layers", "1", "--seq", "128"],
+           "bench_paged_attn": ["--batch", "1", "--n-ctx", "128"],
+           "bench_engine": ["--layers", "1", "--slots", "2"],
+           "profile_decode": ["--layers", "1", "--steps", "1"],
+           "profile_paged": ["--layers", "1", "--slots", "1"]}
+
+
+def load_tool(name):
+    import importlib
+    return importlib.import_module(
+        name if name == "bench_torch" else f"tools_torch.{name}")
+
+
+@pytest.mark.parametrize("path", BENCH_SCRIPTS, ids=lambda p: p.name)
+def test_bench_scripts_parse(path):
+    import ast
+    ast.parse(path.read_text())
+
+
+@pytest.mark.parametrize("name", sorted(ON_CARD) + ["bench_reference"])
+def test_bench_tools_help(name, capsys):
+    with pytest.raises(SystemExit) as e:
+        load_tool(name).main(["--help"])
+    assert e.value.code == 0
+    assert "usage:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", sorted(ON_CARD))
+def test_bench_tools_need_a_card(name):
+    """Without --device each runs on the card; with none it raises before
+    it builds a model (bench_reference times the reference's CPU library
+    and runs nothing on the card)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        load_tool(name).main(ON_CARD[name])
+
+
+def test_bench_tools_refuse_the_unported_variants(capsys):
+    """v3 (bench_q4_floor) and v0 / v2 (bench_kernels) are refuted TPU
+    variants of B1's function; the tools name B1 when they refuse them."""
+    floor = load_tool("bench_q4_floor")
+    args = floor.parse_args([])
+    assert (args.k, args.n, args.m, args.modes) == (
+        4096, 12288, 8, ["floor", "nosc", "v1"])
+    assert floor.parse_args(["512", "256", "1", "nosc"]).modes == ["nosc"]
+    for bad, tool in ((["512", "256", "8", "floor,v3"], floor),
+                      (["--variants", "v0,v1"], load_tool("bench_kernels"))):
+        with pytest.raises(SystemExit):
+            tool.parse_args(bad)
+        assert "B1" in capsys.readouterr().err
+
+
+def test_bench_q4_floor_on_the_cpu(capsys):
+    """--device cpu: the plain versions, each held against itself, and the
+    last line's rows and launch counts (no kernel launched)."""
+    assert load_tool("bench_q4_floor").main(
+        ["256", "128", "2", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert [r["mode"] for r in out["bench_q4_floor"]] == ["floor", "nosc",
+                                                          "v1"]
+    assert all(r["relerr"] == 0.0 for r in out["bench_q4_floor"])
+    assert out["launches"] == {"q4_floor": 0, "q4_nosc": 0,
+                               "q4_matmul_decode": 0}
+
+
+def test_profile_tools_keep_the_jax_tools_options():
+    """profile_decode and profile_paged take the JAX tools' options and
+    defaults (the XLA-only --hlo and --copt left out), their traces under
+    the temporary directory."""
+    dec = load_tool("profile_decode").parse_args([])
+    assert (dec.steps, dec.batch, dec.dims, dec.layers) == (8, 1, "7b", 0)
+    assert Path(dec.out) == Path(tempfile.gettempdir(), "profile_decode")
+    pag = load_tool("profile_paged").parse_args([])
+    assert (pag.steps, pag.slots, pag.layers, pag.n_ctx, pag.kv_mode,
+            pag.page_size, pag.prompt_words, pag.prompt_tokens) == (
+        8, 8, 32, 512, "paged", 64, 2, 0)
+    for tool, bad in (("profile_decode", ["--hlo", "x"]),
+                      ("profile_decode", ["--copt", "a=b"]),
+                      ("profile_decode", ["--dims", "30b"]),
+                      ("profile_paged", ["--kv-mode", "flat"])):
+        with pytest.raises(SystemExit):
+            load_tool(tool).parse_args(bad)
+
+
+def test_build_prompt_tokens_reaches_its_target():
+    from fastllama_tpu_torch.engine.tokenizer import tokenize
+    tu = load_tool("_trace_util")
+    vocab = tu.bench_vocab()
+    assert vocab.size == 259 + 741
+    prompt = tu.build_prompt_tokens(vocab, 100)
+    n = len(tokenize(vocab, " " + prompt, bos=True))
+    assert n >= 100 and len(prompt.split()) % 8 == 0
+
+
+def test_bench_reference_writes_the_jax_tools_file(tmp_path, monkeypatch):
+    """gen_model at a tiny size writes the JAX tool's bytes (the JAX tool's
+    7B HyperParams swapped for the tiny one)."""
+    from fastllama_tpu.config import FType as JFType
+    from fastllama_tpu.config import HyperParams as JHyperParams
+    from fastllama_tpu_torch.config import FType, HyperParams
+    from tools import bench_reference as j_ref
+    dims = dict(n_vocab=300, n_ctx=64, n_embd=64, n_mult=32, n_head=4,
+                n_layer=2, n_rot=16)
+    monkeypatch.setattr(j_ref, "HyperParams", lambda **kw: JHyperParams(
+        **dims, ftype=JFType.MOSTLY_Q4_0))
+    j_ref.gen_model(str(tmp_path / "jax.bin"))
+    load_tool("bench_reference").gen_model(
+        str(tmp_path / "torch.bin"),
+        HyperParams(**dims, ftype=FType.MOSTLY_Q4_0))
+    assert (tmp_path / "jax.bin").read_bytes() == \
+        (tmp_path / "torch.bin").read_bytes()

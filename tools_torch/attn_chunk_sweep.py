@@ -113,7 +113,7 @@ def main():
                     ("b4_ms", "decode_attention_fused", qkv, (cos, sin)),
                     ("b10_ms", "decode_attention", q, ())):
                 it = iter(range(10**9))
-                row[key] = cs.time_ms(torch, lambda: launch(
+                row[key] = cs.time_ms(lambda: launch(
                     name, chunk, first, *caches[next(it) % n_caches], npv,
                     *tab), calls=8 * n_caches)
             print(json.dumps(row), flush=True)

@@ -203,12 +203,12 @@ def main() -> int:
                 cs.copies_for(3 * t * h * d * 2))]
             it = iter(range(10**9))
             for name, (fn, plan) in runs.items():
-                row[name]["ms"] = cs.time_ms(torch, lambda: launch(
+                row[name]["ms"] = cs.time_ms(lambda: launch(
                     fn, *sets[next(it) % len(sets)], plan),
                     calls=4 * len(sets))
             sd = [tuple(x.transpose(1, 2).contiguous() for x in st)
                   for st in sets]
-            row["sdpa_ms"] = cs.time_ms(torch, lambda: sdpa(
+            row["sdpa_ms"] = cs.time_ms(lambda: sdpa(
                 *sd[next(it) % len(sd)], is_causal=True), calls=4 * len(sd))
         print(json.dumps(row), flush=True)
     print(smi)

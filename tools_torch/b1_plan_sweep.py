@@ -76,7 +76,7 @@ def main():
                                      f"err {err} > {tol}")
                 it = iter(range(10**9))
                 times[(cw, splits, per)] = cs.time_ms(
-                    torch, lambda: launch(x, ws[next(it) % len(ws)], nt, cw,
+                    lambda: launch(x, ws[next(it) % len(ws)], nt, cw,
                                           splits, per), calls=4 * len(ws))
             best = sorted(times.items(), key=lambda kv: kv[1])[:4]
             row = dict(plane=name, m=m, plan=plan[1:],

@@ -127,7 +127,7 @@ def main():
                         raise SystemExit(f"b5_sweep: {label} {name} M={m}: "
                                          f"err {err} > {tol}")
                 it = iter(range(10**9))
-                row[label] = cs.time_ms(torch, lambda: qm._launch_b5(
+                row[label] = cs.time_ms(lambda: qm._launch_b5(
                     x, ws[next(it) % len(ws)], bf16, blocks), calls=len(ws))
             cuda_lib._libs["q4_prefill"] = built
             print(json.dumps(row), flush=True)

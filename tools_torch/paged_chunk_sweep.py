@@ -64,7 +64,7 @@ def main():
                 raise SystemExit(f"B6 b={b} {lens} chunk={chunk}: err {err}"
                                  f" > {tol}")
             it = iter(range(10**9))
-            ms = cs.time_ms(torch, lambda: pa._launch(
+            ms = cs.time_ms(lambda: pa._launch(
                 "paged_decode_attention", q, *pools[next(it) % len(pools)],
                 lengths, tables, n_pages + 1, PS, chunk=chunk),
                 calls=8 * len(pools))
