@@ -19,12 +19,16 @@ As bench.py: n_ctx 512, synthetic q4_0 weights made on the card from a seed
 (models/synthetic.build_model; decode speed does not depend on the weights'
 values), bf16 weights and KV cache. The decode step is models/llama.forward
 with n_past an int32 tensor on the device: the greedy token (argmax) and the
-position both advance there, with no host read inside the timed loop. value
-is 64 steps over their host clock less one readback floor (a host read of a
-token already computed); steady_state_tokens_per_sec the slope between 64
-and 192 steps. The decode path is host-bound on this port (the card idles
-most of a step), so the slope is the host's enqueue rate, not a device
-rate: device_ms_per_token is that. TTFT is a 512-token prefill (n_past 0,
+position both advance there, with no host read inside the timed loop, and
+the whole step is one captured CUDA graph (utils/step_graph.StepGraph), as
+bench.py jits its step. value is 64 steps over their host clock less one
+readback floor (a host read of a token already computed);
+steady_state_tokens_per_sec the slope between 64 and 192 steps. With the
+step replayed from its graph the host enqueues a step (the replay and three
+small copies) well inside the card's time for it, so both rates read the
+card's pace: within a few percent of 1000 / device_ms_per_token (the
+device time of a step from a profile), where the eager step's host cost
+held them to a third of it. TTFT is a 512-token prefill (n_past 0,
 flash prefill: B12) plus one decode step, p50 of 5 trials less the floor:
 ttft_ms_p50 / _int8 with the int8 prefill matmuls (B2 + B3), _bf16 with the
 bf16-exact ones (B5). The TTFT's decode step runs at n_past 512 in the
@@ -62,6 +66,7 @@ from fastllama_tpu_torch.models.llama import (  # noqa: E402
     ForwardConfig, forward, init_kv_cache, position_tables,
 )
 from fastllama_tpu_torch.models.synthetic import build_model  # noqa: E402
+from fastllama_tpu_torch.utils.step_graph import StepGraph  # noqa: E402
 from fastllama_tpu_torch.utils.trace import (  # noqa: E402
     device_op_breakdown, trace_region,
 )
@@ -78,14 +83,28 @@ def log(*a):
 
 def decode_step_fn(params, hp: HyperParams, n_ctx: int, device):
     """step(tok int64 [1, 1], n_past int32 [1], kv) -> the greedy next token
-    [1, 1]; n_past advances by one in place, on the device."""
+    [1, 1]; n_past advances by one in place, on the device.
+
+    bench.py's jitted decode_step: the forward (forward_jit_decode's step),
+    the argmax and the n_past advance are one captured graph (a StepGraph;
+    on the CPU the same static buffers without a capture), into whose
+    static inputs tok and n_past are copied; the token returned is the
+    graph's output, which the next step overwrites. A new kv is a new key
+    (a capture), so the callers keep one cache."""
     cfg = ForwardConfig(n_head=hp.n_head, n_rot=hp.n_rot)
-    tables = position_tables(n_ctx, hp.head_dim, hp.n_rot, device)
+    dev = resolve_device(device)
+    tables = position_tables(n_ctx, hp.head_dim, hp.n_rot, dev)
+    graph = StepGraph(dev)
 
     def step(tok, n_past, kv):
-        logits, _, _ = forward(params, tok, n_past, kv, cfg, None, tables)
-        n_past.add_(1)
-        return logits[:, -1, :].argmax(-1, keepdim=True)
+        def greedy(tok_in, pos):
+            logits, _, _ = forward(params, tok_in, pos, kv, cfg, None, tables)
+            pos.add_(1)
+            return logits[:, -1, :].argmax(-1, keepdim=True), pos
+        nxt, pos = graph(greedy, cfg, (params, kv, tables), tok, n_past)
+        n_past.copy_(pos)
+        return nxt
+    step.graph = graph
     return step
 
 
@@ -155,14 +174,21 @@ def run(hp: HyperParams, dims: str, device, n_ctx: int = N_CTX,
         f"{time.time() - t0:.1f}s")
     step = decode_step_fn(params, hp, n_ctx, dev)
 
+    # one cache for every run (a new cache would be a new key of the
+    # decode step's graph, a capture inside a TTFT trial); a fresh window
+    # starts from it zeroed, as from a new cache
+    kv = init_kv_cache(hp, 1, n_ctx, torch.bfloat16, dev)
+
     def fresh_kv():
-        kv = init_kv_cache(hp, 1, n_ctx, torch.bfloat16, dev)
+        for k, v in kv:
+            k.zero_()
+            v.zero_()
         if dev.type == "cuda":
             torch.cuda.synchronize()
         return kv
 
     with torch.inference_mode():
-        kv = fresh_kv()
+        fresh_kv()
         tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
         n_past = torch.zeros((1,), dtype=torch.int32, device=dev)
         t0 = time.time()
@@ -219,7 +245,6 @@ def run(hp: HyperParams, dims: str, device, n_ctx: int = N_CTX,
                 f"{k} {v / 8:.1f}" for k, v in agg.most_common(5)))
         else:
             log("device_ms_per_token: not measured (no card)")
-        del kv
 
         tokens = torch.from_numpy(np.random.default_rng(0).integers(
             0, hp.n_vocab, (1, prompt))).to(dev)
@@ -242,7 +267,6 @@ def run(hp: HyperParams, dims: str, device, n_ctx: int = N_CTX,
             log(f"TTFT({prompt}, {label}) trials: "
                 f"{[round(t, 3) for t in times]} ms -> p50 "
                 f"{ttft[label]:.3f} ms")
-            del kv2
     baseline, src = baseline_for(dims, ROOT / "baseline_ref.json")
     log(f"baseline: {baseline} tokens/s ({src})")
     return result_line(dims, tps, dev_tps, ttft["int8"], ttft["bf16"],

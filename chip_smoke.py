@@ -162,6 +162,24 @@ Phases (any failure exits nonzero before the last line):
      B5 in the bf16 windows, B2 and B3 in the int8 ones and nothing else;
      every other script the kernels of its path; none but bench_kernels
      (which holds B1 against it) the dequant path;
+ 12. the compiled decode step (utils/step_graph.StepGraph: CUDA graphs, the
+     counterpart of the JAX package's jitted decode steps) at full 7B width
+     and depth (32 layers, q4_0, bf16 cache, n_ctx 512): 64 greedy session
+     steps replayed (forward_jit_decode) against the eager forward of a
+     second model from the same cache state, logits bit-equal at every
+     step, one capture, each replay B1 129 and B4 32 launches; host and
+     device ms a token and the idle share of FastLlama.generate on both
+     routes; the engine (8 slots, paged and slab, ten requests) through
+     its step graph against the eager step at temp 0 and 0.8 (one seed),
+     drain depth 0 and 2, streams equal and one capture a run, and the
+     steady window on both routes (host ms, device ms and launches a step,
+     one replay a step). Every earlier phase runs its decode steps through
+     the step graphs as a user's calls would (the session, the engine,
+     bench_torch.py, the C ABI's Model; the mesh paths of phase 10 stay
+     eager), and its launch counts hold exactly: a capture adds no launch,
+     each replay the graph's; phase 4 also holds the attached q4_1 + LoRA
+     step to a graph of its own (B9 129 and B10 32 launches a replay) and
+     detach to another (one capture each);
   then the whole script's seconds, one line {"kernels": [...]}, the
   nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -1754,12 +1772,20 @@ def q41_lora_path(torch, dev, gen, tmp):
                 "B10": LAYER_CALLS if attached else 0}
         require(counts == want, f"q4_1 {label}: launches {counts}, "
                 f"expected {want}")
+        # the decode steps replay a graph of this state's own (phase 12):
+        # attach and detach are new keys, as new pytrees retrace under jit
+        per_replay = model._step.launches_per_replay()
+        attn = "decode_attention" if attached else "decode_attention_fused"
+        require(per_replay == {"q41_matmul_decode": 129, attn: 32},
+                f"q4_1 {label}: a replay holds {per_replay}")
         runs = [first] + [timed_run(torch, sess, prompt) for _ in range(2)]
         ms_tok = [r[1] / N_DECODE * 1e3 for r in runs]
         out = dict(ttft_ms=float(np.median([r[0] for r in runs])),
                    ttft_ms_runs=[r[0] for r in runs],
                    decode_ms_per_token=float(np.median(ms_tok)),
-                   decode_ms_per_token_runs=ms_tok, launches=counts)
+                   decode_ms_per_token_runs=ms_tok, launches=counts,
+                   launches_per_replay=per_replay,
+                   step_graph_captures=model._step.captures)
         print(f"q4_1 {label}: {json.dumps(out)}", flush=True)
         return first, out
 
@@ -1775,6 +1801,11 @@ def q41_lora_path(torch, dev, gen, tmp):
     after, res_after = state("after detach", attached=False)
     require(np.array_equal(after[3], before[3]) and after[2] == before[2],
             "logits after detach_lora differ from those before attach_lora")
+    graphs = [r["step_graph_captures"] for r in (res_before, res_lora,
+                                                  res_after)]
+    require(graphs[1] == graphs[0] + 1 and graphs[2] == graphs[1] + 1,
+            f"q4_1: step graph captures {graphs} (before attach, attached, "
+            "after detach): attach and detach must each capture once")
     wbytes = model_weight_bytes(params)
     res = dict(n_layer=hp.n_layer, lora_rank=rank, before_attach=res_before,
                attached=res_lora, after_detach=res_after,
@@ -2270,7 +2301,9 @@ def _wrap(name):
             "device": torch.cuda.get_device_name(),
             "on_card": self._model.device.type == "cuda",
             "launches": {k_: f.launches for k_, f in _K.items()},
-            "kernel_lib_s": _cl.build_seconds}), file=sys.stderr, flush=True)
+            "kernel_lib_s": _cl.build_seconds,
+            "step_build_s": self._model._step.build_s}), file=sys.stderr,
+            flush=True)
         return r
     setattr(_F.Model, name, call)
 _wrap("generate")
@@ -2292,7 +2325,8 @@ t0 = time.perf_counter()
 assert m.generate(num_tokens=n, top_k=40, top_p=0.95, temp=0.0,
                   repeat_penalty=1.0, streaming_fn=chunks.append)
 torch.cuda.synchronize()
-print(json.dumps({"s": time.perf_counter() - t0, "text": "".join(chunks)}))
+print(json.dumps({"s": time.perf_counter() - t0, "text": "".join(chunks),
+                  "step_build_s": m._model._step.build_s}))
 """
 
 
@@ -2389,6 +2423,7 @@ def c_abi_path(torch, tmp, model_path):
                            streaming_fn=chunks.append), "Model.generate")
     torch.cuda.synchronize()
     py_gen_s = time.perf_counter() - t0
+    py_build_s = model._model._step.build_s
     n_gen = model.session.n_past - n_prompt + 1
     text = "".join(chunks).encode()
     require(len(text) > 0 and r.stdout.rstrip(b"\n") == text
@@ -2432,7 +2467,15 @@ def c_abi_path(torch, tmp, model_path):
                python_shared_libpython_generate_s=py_host["s"],
                python_shared_libpython_tok_s=n_gen / py_host["s"],
                python_warm_load_s=load_s, python_warm_generate_s=py_gen_s,
-               python_warm_tok_s=n_gen / py_gen_s, streams_equal=True,
+               python_warm_tok_s=n_gen / py_gen_s,
+               # host seconds of the decode step's warm-up and capture
+               # inside each generate above (phase 12)
+               step_build_s={"c_program": crun["step_build_s"],
+                             "python_process": py_cold["step_build_s"],
+                             "python_shared_libpython":
+                                 py_host["step_build_s"],
+                             "python_warm": py_build_s},
+               streams_equal=True,
                c_perplexity=c_ppl, python_perplexity=py_ppl,
                perplexity_c_wall_s=ppl_wall)
     print(f"C ABI: {json.dumps(res)}", flush=True)
@@ -2822,12 +2865,15 @@ def engine_steady(torch, sched, make, profile_steps=8, timed_steps=30):
     for _ in range(10):
         eng.step()
     torch.cuda.synchronize()
+    replays = None if eng._graph is None else eng._graph.replays
     t0 = time.perf_counter()
     for _ in range(timed_steps):
         eng.step()
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) / timed_steps * 1e3
     out = dict(ms_per_step=ms_step, tok_s=ENG_SLOTS / ms_step * 1e3)
+    if replays is not None:
+        out["replays_per_step"] = (eng._graph.replays - replays) / timed_steps
     if profile_steps:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3754,6 +3800,161 @@ def parallel_path(torch, tmp, q40, q41):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the compiled decode step (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 64
+# ten requests through the eight slots: two admissions while others decode
+GRAPH_PROMPTS = [300, 40, 270, 120, 20, 260, 90, 60, 30, 100]
+GRAPH_GEN = 24
+
+
+def eager_route(model):
+    """Take a model's or an engine's step graph off: its decode steps then
+    run eagerly, as under a mesh (the route the graph replaced)."""
+    if hasattr(model, "_step"):
+        model._step = None
+    else:
+        model._graph = None
+    return model
+
+
+def graph_session(torch, hp, params, dev, prompt):
+    """The session's decode step replayed (forward_jit_decode) against the
+    eager forward (int n_past) from the same cache state: GRAPH_STEPS
+    greedy steps with the same token into both models, logits bit-equal at
+    every step (same kernels, same order, same inputs). Then host and
+    device ms a token of FastLlama.generate on each route."""
+    from fastllama_tpu_torch.engine.tokenizer import tokenize
+    from fastllama_tpu_torch.kernels import decode_attention as da
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    (ga, sa), (gb, sb) = (make_session(hp, params, dev) for _ in range(2))
+    eager_route(gb)
+    ids = tokenize(ga.vocab, " " + prompt, bos=True)
+    first = [m.eval(0, ids) for m in (ga, gb)]
+    require(np.array_equal(*first), "graphs: the two prefills differ")
+    reset_counts(qm, da)
+    tok, n = int(np.argmax(first[0])), len(ids)
+    for i in range(GRAPH_STEPS):
+        la, lb = ga.eval(n + i, [tok]), gb.eval(n + i, [tok])
+        require(np.array_equal(la, lb), f"graphs: step {i}: replayed logits "
+                f"differ from eager (max |diff| {np.abs(la - lb).max()})")
+        tok = int(np.argmax(la))
+    counts = read_counts(qm, da)
+    # a step: four matmuls a layer and the head (B1), B4 once a layer
+    per_step = {"q4_matmul_decode": 4 * hp.n_layer + 1,
+                "decode_attention_fused": hp.n_layer}
+    want = {"B1": 2 * per_step["q4_matmul_decode"] * GRAPH_STEPS,
+            "B4": 2 * hp.n_layer * GRAPH_STEPS}
+    require({k: counts[k] for k in want} == want, f"graphs: launches of "
+            f"both routes {counts}, expected {want}")
+    step = ga._step
+    require(step.captures == 1 and step.replays == GRAPH_STEPS - 1,
+            f"graphs: {step.captures} captures, {step.replays} replays")
+    per_replay = step.launches_per_replay()
+    require(per_replay == per_step, f"graphs: a replay holds {per_replay}")
+    # host clock (generate, median of 2 runs a route, in turns) and the
+    # device time of 8 more steps
+    runs = {"graph": [], "eager": []}
+    for route in ("graph", "eager", "eager", "graph"):
+        runs[route].append(timed_run(torch, sa if route == "graph" else sb,
+                                     prompt))
+    require(runs["graph"][0][2] == runs["eager"][0][2],
+            "graphs: greedy streams differ between the routes")
+    # host cost of a replay's key: walking the state the step reads
+    from fastllama_tpu_torch.utils.step_graph import reached
+    t0 = time.perf_counter()
+    for _ in range(100):
+        tuple(map(id, reached((ga.params, ga.kv, ga._tables))))
+    key_us = (time.perf_counter() - t0) / 100 * 1e6
+    out = dict(steps_bit_equal=GRAPH_STEPS, launches_per_replay=per_replay,
+               key_walk_us=key_us)
+    for route, sess in (("graph", sa), ("eager", sb)):
+        ms = [r[1] / N_DECODE * 1e3 for r in runs[route]]
+        prof = profile_decode(torch, sess, n_steps=8)
+        busy = prof.get("device_ms_per_token")
+        out[route] = dict(
+            decode_ms_per_token=float(np.median(ms)),
+            decode_ms_per_token_runs=ms,
+            ttft_ms_runs=[r[0] for r in runs[route]],
+            device_ms_per_token=busy,
+            device_idle_share=(None if busy is None else
+                               1.0 - busy / float(np.median(ms))))
+    print(f"graphs session: {json.dumps(out)}", flush=True)
+    return out
+
+
+def graph_engine(torch, hp, params, vocab):
+    """The engine's step graph, paged and slab, against the eager step
+    (the engine with its graph taken off): streams equal at temp 0 and at
+    temp 0.8 with one seed, at drain depth 0 and 2, one capture a run;
+    then the steady window on both routes (host ms a step, device ms and
+    launches a step from a profile, replays a step)."""
+    from fastllama_tpu_torch.config import RuntimeConfig
+    from fastllama_tpu_torch.engine import scheduler as sched
+    rcfg = RuntimeConfig(n_ctx=ENG_CTX, n_batch=512, kv_dtype="bfloat16",
+                         weight_dtype="bfloat16")
+
+    def make(mode, depth=None, graph=True):
+        def build():
+            eng = sched.BatchEngine(
+                hp, params, vocab, n_slots=ENG_SLOTS, n_ctx=ENG_CTX,
+                rcfg=rcfg, sampling_seed=5, kv_mode=mode, page_size=ENG_PS,
+                drain_depth=depth)
+            return eng if graph else eager_route(eng)
+        return build
+
+    def streams(build, temp):
+        eng = build()
+        reqs = [sched.Request(prompt=prompt_of(n - 2, seed=500 + i),
+                              max_tokens=GRAPH_GEN, temp=temp)
+                for i, n in enumerate(GRAPH_PROMPTS)]
+        eng.run(reqs)
+        require(all(len(r.tokens_out) == GRAPH_GEN for r in reqs),
+                "graphs engine: a request did not run its length")
+        return eng, [r.tokens_out for r in reqs]
+
+    out = {"equal_streams": []}
+    for mode in ("paged", "slab"):
+        for depth in (0, 2):
+            for temp in (0.0, 0.8):
+                eng, got = streams(make(mode, depth), temp)
+                _, want = streams(make(mode, depth, graph=False), temp)
+                label = f"{mode} depth {depth} temp {temp}"
+                require(got == want, f"graphs engine {label}: the replayed "
+                        "streams differ from the eager step's")
+                require(eng._graph.captures == 1, f"graphs engine {label}: "
+                        f"{eng._graph.captures} captures in one run")
+                out["equal_streams"].append(label)
+    for mode in ("paged", "slab"):
+        for route in ("graph", "eager"):
+            row = engine_steady(torch, sched,
+                                make(mode, graph=route == "graph"))
+            out[f"steady_{mode}_{route}"] = row
+            print(f"graphs engine steady {mode} {route}: {json.dumps(row)}",
+                  flush=True)
+        require(out[f"steady_{mode}_graph"]["replays_per_step"] == 1.0,
+                f"graphs engine {mode}: not one replay a step")
+    return out
+
+
+def graphs_path(torch, dev, gen):
+    """Phase 12: the compiled decode step at full 7B width and depth."""
+    from fastllama_tpu_torch.config import PRESETS
+    hp = PRESETS["7B"]
+    params = rand_params(torch, hp, gen, dev)
+    res = {"n_layer": hp.n_layer,
+           "session": graph_session(torch, hp, params, dev,
+                                    prompt_of(N_PROMPT - 2, seed=1)),
+           "engine": graph_engine(torch, hp, params,
+                                  synthetic_vocab(hp.n_vocab))}
+    print(f"graphs path: {json.dumps(res)}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3817,6 +4018,7 @@ def main() -> int:
         dequant_calls = qm.q4_matmul_dequant.cuda_calls
         bench_res = timed("11 bench path", bench_path, torch, tmp,
                           file_res["ggjt_q4_0"]["path"])
+        graph_res = timed("12 graphs", graphs_path, torch, dev, gen)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3972,6 +4174,7 @@ def main() -> int:
                "q41_lora_path": q41_res, "file_entry_points": file_res,
                "engine_path": engine_res, "converters": conv_res,
                "c_abi": c_res, "parallel": par_res, "bench_path": bench_res,
+               "graphs": graph_res,
                "seconds": time.perf_counter() - t_start,
                "phase_seconds": phase_s}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

@@ -55,6 +55,7 @@ from ..models.llama import (
     forward_paged_prefill, init_kv_cache, position_tables,
 )
 from ..parallel.collectives import all_gather, broadcast
+from ..utils.step_graph import StepGraph
 from ..utils.trace import trace_region
 from .logger import Logger, NULL_LOGGER
 from .paged_kv import PagedKVManager, write_tokens_paged
@@ -220,6 +221,13 @@ class BatchEngine:
         # the TP ranks of a group draw the same
         self._gen.manual_seed(sampling_seed + (self.dp_index << 32))
         self._k = min(top_k if top_k > 0 else hp.n_vocab, hp.n_vocab)
+        # the decode step (forward, sampling and the state advance, as the
+        # JAX engine's jitted step) replays a captured graph that draws
+        # from self._gen. Under a mesh it stays eager by construction:
+        # parallel/collectives stages gloo's collectives through the host,
+        # which a graph cannot hold.
+        self._graph = (StepGraph(dev, generators=(self._gen,))
+                       if self.mesh is None else None)
 
         self.slots = [_Slot() for _ in range(n_slots)]
         self.pending: "queue.Queue[Request]" = queue.Queue()
@@ -308,12 +316,34 @@ class BatchEngine:
         self.d_npast.add_(self.d_active.to(torch.int32))
         return tok_out
 
-    def _decode_paged(self, lengths, tables, page_ids, offs) -> torch.Tensor:
+    def _decode_paged(self, packed: torch.Tensor) -> torch.Tensor:
+        """The paged step over `packed`, int32 on the device: [lengths |
+        write page ids | offsets | page tables] of this rank's b slots."""
+        b = self._hi - self._lo
+        pp = self.pager.pages_per_seq
         logits, _, _ = forward_paged_decode(
-            self.params, self.d_tokens[self._lo:self._hi], lengths, tables,
-            self.pager.k_pages, self.pager.v_pages, page_ids, offs, self.cfg,
-            self._tables)
+            self.params, self.d_tokens[self._lo:self._hi], packed[:b],
+            packed[3 * b:].view(b, pp), self.pager.k_pages,
+            self.pager.v_pages, packed[b:2 * b], packed[2 * b:3 * b],
+            self.cfg, self._tables)
         return self._sample_and_advance(logits)
+
+    def _run_step(self, step, *inputs) -> torch.Tensor:
+        """One decode step: `step(*inputs)` replayed from the step graph
+        (inputs copied into its static buffers), or run eagerly under a
+        mesh. Returns this step's tokens [B, 1] in a tensor of their own:
+        the graph's output is overwritten by the next step, while the drain
+        keeps each step's tokens for up to 2 * drain_depth steps."""
+        if self._graph is None:
+            return step(*(x.to(self.device) for x in inputs))
+        pools = (None if self.pager is None else
+                 (self.pager.k_pages, self.pager.v_pages))
+        state = (self.params, self.kv, pools, self._tables,
+                 self.d_tokens, self.d_npast, self.d_active, self.d_lastn,
+                 self.d_temps, self.d_topk, self.d_topp, self.d_rp,
+                 self._gen)
+        static = (self.kv_mode, self.cfg, self.n_ctx, self.top_k, self._k)
+        return self._graph(step, static, state, *inputs).clone()
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -616,7 +646,12 @@ class BatchEngine:
             # and go to the device in one copy:
             # [lengths | page ids | offsets | page tables]
             b, pp = self.n_slots, self.pager.pages_per_seq
-            packed = np.zeros(3 * b + b * pp, np.int32)
+            # staged in host memory for the step's one non_blocking copy:
+            # pinned on the card, from PyTorch's caching host allocator,
+            # which reuses it only once that copy is done
+            staged = torch.zeros(3 * b + b * pp, dtype=torch.int32,
+                                 pin_memory=self.device.type == "cuda")
+            packed = staged.numpy()
             lengths, pages, offs = packed[:b], packed[b:2 * b], \
                 packed[2 * b:3 * b]
             pages[:] = self.pager.sentinel
@@ -640,19 +675,16 @@ class BatchEngine:
             if self.dp > 1:
                 # this rank's slots; their ids are local to its group
                 lo, hi = self._lo, self._hi
-                packed = np.concatenate(
+                staged = torch.from_numpy(np.concatenate(
                     [packed[:b][lo:hi], packed[b:2 * b][lo:hi],
                      packed[2 * b:3 * b][lo:hi],
-                     self.pager.page_tables[lo:hi].reshape(-1)])
-                b = hi - lo
-            d = self._to_device(packed)
-            tok_out = self._decode_paged(
-                d[:b], d[3 * b:].view(b, pp), d[b:2 * b], d[2 * b:3 * b])
+                     self.pager.page_tables[lo:hi].reshape(-1)]))
+            tok_out = self._run_step(self._decode_paged, staged)
             for i, slot in enumerate(self.slots):
                 if slot.req is not None and slot.live:
                     self.pager.lengths[i] += 1
         else:
-            tok_out = self._decode_slab()
+            tok_out = self._run_step(self._decode_slab)
         self._inflight.append(
             (tok_out,
              [s.req.rid if s.req is not None and s.live else -1

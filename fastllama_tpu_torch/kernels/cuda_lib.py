@@ -138,10 +138,36 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError_t {rc}")
 
 
+# Every kernel wrapper registers its count here: (wrapper, attribute), the
+# attribute a plain int the wrapper adds one to where it launches its
+# kernel ("launches"; the dequant path's "cuda_calls"). utils/step_graph
+# reads them around a capture and adds a graph's launches at each replay.
+COUNTED: list[tuple[object, str]] = []
+
+
+def counted(wrapper, attr: str = "launches"):
+    """Register `wrapper`'s count `attr`, starting at 0."""
+    setattr(wrapper, attr, 0)
+    COUNTED.append((wrapper, attr))
+    return wrapper
+
+
+def counts() -> list[int]:
+    """Every registered count, in COUNTED's order."""
+    return [getattr(w, a) for w, a in COUNTED]
+
+
 # Per-device scratch shared by every launch on that device, so such launches
-# must stay on one stream (they are stream-ordered there).
+# must stay on one stream (they are stream-ordered there). A captured graph
+# holds the buffers it was captured with (buffers()), so a later eager
+# launch that grows one never frees memory a graph still writes.
 _counters: dict[int, object] = {}
 _scratch: dict[tuple[int, str], object] = {}
+
+
+def buffers() -> list:
+    """The tile counters and scratch tensors that exist now, every device."""
+    return [*_counters.values(), *_scratch.values()]
 
 
 def tile_counters(device, n: int):

@@ -141,7 +141,7 @@ def decode_attention_fused(qkv: torch.Tensor, k_cache: torch.Tensor,
     return out
 
 
-decode_attention_fused.launches = 0
+cuda_lib.counted(decode_attention_fused)
 
 
 # ---------------------------------------------------------------------------
@@ -232,4 +232,4 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out
 
 
-decode_attention.launches = 0
+cuda_lib.counted(decode_attention)

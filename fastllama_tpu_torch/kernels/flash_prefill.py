@@ -194,4 +194,4 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-flash_prefill.launches = 0
+cuda_lib.counted(flash_prefill)

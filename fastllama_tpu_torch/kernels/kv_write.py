@@ -122,7 +122,7 @@ def paged_kv_write(k_pages: torch.Tensor, v_pages: torch.Tensor,
     return k_pages, v_pages
 
 
-paged_kv_write.launches = 0
+cuda_lib.counted(paged_kv_write)
 
 
 # ---------------------------------------------------------------------------
@@ -182,4 +182,4 @@ def paged_kv_write_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
     return k_pages, v_pages
 
 
-paged_kv_write_rows.launches = 0
+cuda_lib.counted(paged_kv_write_rows)

@@ -187,7 +187,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
-paged_decode_attention.launches = 0
+cuda_lib.counted(paged_decode_attention)
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +253,7 @@ def paged_decode_step_fused(qkv: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
-paged_decode_step_fused.launches = 0
+cuda_lib.counted(paged_decode_step_fused)
 
 
 # ---------------------------------------------------------------------------
@@ -294,4 +294,4 @@ def paged_decode_attention_flat(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
-paged_decode_attention_flat.launches = 0
+cuda_lib.counted(paged_decode_attention_flat)

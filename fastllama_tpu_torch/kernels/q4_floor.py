@@ -114,7 +114,7 @@ def q4_floor(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     return y
 
 
-q4_floor.launches = 0
+cuda_lib.counted(q4_floor)
 
 
 def q4_nosc(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
@@ -128,4 +128,4 @@ def q4_nosc(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     return y
 
 
-q4_nosc.launches = 0
+cuda_lib.counted(q4_nosc)

@@ -97,7 +97,7 @@ def q4_matmul_dequant(x: torch.Tensor, w: QuantMatmulWeight,
     return (x2 @ dense)[:, :w.n_logical]
 
 
-q4_matmul_dequant.cuda_calls = 0
+cuda_lib.counted(q4_matmul_dequant, "cuda_calls")
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +224,7 @@ def q4_matmul_decode(x: torch.Tensor, w: QuantMatmulWeight,
     return y
 
 
-q4_matmul_decode.launches = 0
+cuda_lib.counted(q4_matmul_decode)
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +262,7 @@ def q41_matmul_decode(x: torch.Tensor, w: QuantMatmulWeight,
     return y
 
 
-q41_matmul_decode.launches = 0
+cuda_lib.counted(q41_matmul_decode)
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +306,7 @@ def quant_rows_int8(x: torch.Tensor, k_out: int | None = None
     return xq, dx
 
 
-quant_rows_int8.launches = 0
+cuda_lib.counted(quant_rows_int8)
 
 
 # ---------------------------------------------------------------------------
@@ -395,7 +395,7 @@ def q4_matmul_prefill_int8(xq: torch.Tensor, dx: torch.Tensor,
     return y
 
 
-q4_matmul_prefill_int8.launches = 0
+cuda_lib.counted(q4_matmul_prefill_int8)
 
 
 # ---------------------------------------------------------------------------
@@ -509,7 +509,7 @@ def _launch_b5(x, w, w_dtype, blocks=None):
     return y
 
 
-q4_matmul_prefill.launches = 0
+cuda_lib.counted(q4_matmul_prefill)
 
 
 # ---------------------------------------------------------------------------

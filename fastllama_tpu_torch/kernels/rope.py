@@ -17,7 +17,8 @@ import torch
 
 
 def _freqs(n: int, n_rot: int, device) -> torch.Tensor:
-    base = torch.tensor(10000.0, dtype=torch.float32, device=device)
+    # made on the device (a fill, no host copy), so a captured step holds it
+    base = torch.full((), 10000.0, dtype=torch.float32, device=device)
     return base ** (-2.0 * torch.arange(n, dtype=torch.float32, device=device)
                     / n_rot)
 

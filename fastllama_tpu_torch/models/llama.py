@@ -263,6 +263,17 @@ def _write_rows_drop(cache: torch.Tensor, val: torch.Tensor,
     scatter with mode="drop": an inactive engine slot runs at n_ctx + 1, and
     a padded chunk tail can pass n_ctx)."""
     b, s, f = cache.shape
+    if positions.shape[1] == 1:
+        # a decode step writes one row a sequence, so no two writes meet: a
+        # dropped row rewrites the nearest cache row with what it holds, in
+        # a few small launches where scatter_rows_drop's general form (its
+        # rows may meet) takes many more; a step with q/k/v LoRA or f32
+        # attention makes two of these writes a layer
+        pos = positions[:, 0]
+        sel = (torch.arange(b, device=pos.device), pos.clamp(0, s - 1))
+        ok = ((pos >= 0) & (pos < s))[:, None]
+        cache[sel] = torch.where(ok, val[:, 0].to(cache.dtype), cache[sel])
+        return
     pos = positions.to(torch.int64)
     ok = ((pos >= 0) & (pos < s)).reshape(-1)
     flat = (pos + torch.arange(b, device=pos.device)[:, None] * s).reshape(-1)
@@ -515,6 +526,34 @@ def forward(params: LlamaParams, tokens: torch.Tensor,
     if cfg.sp_group is not None and cfg.all_logits and t > 1:
         logits = all_gather(logits, cfg.sp_group, dim=1)
     return logits, kv_caches, embeddings
+
+
+def forward_jit_decode(params: LlamaParams, tokens: torch.Tensor,
+                       n_past: torch.Tensor, kv_caches: list[KVPair],
+                       cfg: ForwardConfig,
+                       tables: PositionTables | None = None, *, graph):
+    """One decode step (tokens [B, 1]) of `forward` with n_past an int32
+    tensor [B], replayed from `graph` (a utils.step_graph.StepGraph the
+    caller owns, the counterpart of jax.jit's cache): the first call with a
+    new key runs the step and captures it, every later one copies tokens
+    and n_past into the graph's static buffers and replays.
+
+    The tensor form of n_past is the one a graph can hold (a Python int is
+    baked into a capture); at B = 1 it gives the int form's logits bit for
+    bit: the RoPE lanes are gathered from the same position tables, and B4
+    writes the cache row in place as it does there. The JAX
+    forward_jit_decode differs from forward_jit only by XLA compiler
+    options (utils/xla_opts.py: MSA operand pre-staging on the TPU), which
+    have no meaning on the card; the KV cache it donates is updated in
+    place here. Returns (logits [B, 1, V] f32, kv_caches, embeddings
+    [B, D]): the graph's static outputs, which the next call overwrites."""
+    def step(tok, pos):
+        logits, _, emb = forward(params, tok, pos, kv_caches, cfg, None,
+                                 tables)
+        return logits, emb
+    logits, emb = graph(step, cfg, (params, kv_caches, tables), tokens,
+                        n_past)
+    return logits, kv_caches, emb
 
 
 # ---------------------------------------------------------------------------

@@ -27,9 +27,10 @@ from ..config import HyperParams, RuntimeConfig, resolve_device
 from ..engine.logger import Logger, NULL_LOGGER, ProgressTag
 from ..engine.tokenizer import Vocab
 from ..io.ggml_reader import MAGIC_GGLA, read_ggml_file
+from ..utils.step_graph import StepGraph
 from .llama import (
-    LORA_FIELDS, ForwardConfig, LlamaParams, LoraTerm, forward, init_kv_cache,
-    position_tables,
+    LORA_FIELDS, ForwardConfig, LlamaParams, LoraTerm, forward,
+    forward_jit_decode, init_kv_cache, position_tables,
 )
 
 
@@ -72,6 +73,15 @@ class LlamaModel:
         self._embeddings = torch.zeros((1, hp.n_embd), dtype=torch.float32)
         self._buckets = sorted({min(b, rcfg.n_ctx)
                                 for b in rcfg.prefill_buckets} | {1, rcfg.n_ctx})
+        # single-token windows replay a captured step (forward_jit_decode),
+        # the token and position staged in host buffers (pinned on the
+        # card) for its input copies. Under a mesh the step stays eager by
+        # construction: parallel/collectives stages gloo's collectives
+        # through the host, which a graph cannot hold.
+        self._step = StepGraph(self.device) if self.mesh is None else None
+        pin = self.device.type == "cuda"
+        self._tok_in = torch.zeros((1, 1), dtype=torch.int64, pin_memory=pin)
+        self._pos_in = torch.zeros((1,), dtype=torch.int32, pin_memory=pin)
 
     def _setup_mesh(self, hp: HyperParams, rcfg: RuntimeConfig) -> dict:
         """Build the mesh, take this rank's shard of the parameters onto its
@@ -159,18 +169,31 @@ class LlamaModel:
         if self.sp > 1 and b > 1:
             tl = b // self.sp
             buf = buf[:, self.sp_index * tl:(self.sp_index + 1) * tl]
+        cfg = self._cfg[(all_logits, n_past == 0 and t > 1)]
         with torch.inference_mode():
-            logits, self.kv, self._embeddings = forward(
-                self.params, torch.from_numpy(buf).to(self.device), n_past,
-                self.kv, self._cfg[(all_logits, n_past == 0 and t > 1)],
-                t - 1, self._tables)
-            out = logits[0].cpu().numpy()
+            if b == 1 and self._step is not None:
+                # the session's decode step, as JAX's forward_jit_decode;
+                # the logits leave in one device->host copy
+                self._tok_in[0, 0] = int(buf[0, 0])
+                self._pos_in[0] = n_past
+                logits, self.kv, self._embeddings = forward_jit_decode(
+                    self.params, self._tok_in, self._pos_in, self.kv, cfg,
+                    self._tables, graph=self._step)
+            else:
+                logits, self.kv, self._embeddings = forward(
+                    self.params, torch.from_numpy(buf).to(self.device),
+                    n_past, self.kv, cfg, t - 1, self._tables)
+            # a copy on every device (on the CPU .cpu() would alias the
+            # step graph's output, which the next step overwrites)
+            out = logits[0].to("cpu", copy=True).numpy()
         self.n_cached = max(self.n_cached, n_past + t)
         return out[:t] if all_logits else out[-1]
 
     def get_embeddings(self) -> np.ndarray:
-        """Final-norm hidden state of the last evaluated token."""
-        return self._embeddings[0].cpu().numpy()
+        """Final-norm hidden state of the last evaluated token (a copy: after
+        a decode step it is the step graph's output, which the next step
+        overwrites)."""
+        return self._embeddings[0].to("cpu", copy=True).numpy()
 
     # -- state --------------------------------------------------------------
 

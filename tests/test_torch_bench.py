@@ -106,6 +106,30 @@ def test_decode_step_matches_jax_forward(jax_params, port_params):
     assert got == want
 
 
+def test_decode_step_replays_one_graph(port_params):
+    """bench_torch's decode step is one step graph (bench.py's jitted
+    decode_step): the forward, the argmax and the n_past advance inside
+    it. Over a run it keeps one key: the token it returns is the graph's
+    output, copied back in as the next input, and the caller's n_past
+    tensor advances in place; a TTFT trial's new n_past tensor and its
+    token from the prefill are inputs, not a new key; a new cache is."""
+    step = bench_torch.decode_step_fn(port_params, HP, 32, "cpu")
+    kv = tl.init_kv_cache(HP, 1, 32, torch.bfloat16, "cpu")
+    tok = torch.zeros((1, 1), dtype=torch.int64)
+    n_past = torch.zeros((1,), dtype=torch.int32)
+    with torch.inference_mode():
+        outs = [step(tok, n_past, kv)]
+        for _ in range(4):
+            outs.append(step(outs[-1], n_past, kv))
+        assert int(n_past[0]) == 5
+        assert all(o is outs[0] for o in outs)
+        at = torch.full((1,), 20, dtype=torch.int32)
+        step(torch.tensor([[7]]), at, kv)
+        assert int(at[0]) == 21 and step.graph.captures == 1
+        step(tok, n_past, tl.init_kv_cache(HP, 1, 32, torch.bfloat16, "cpu"))
+    assert step.graph.captures == 2
+
+
 @pytest.mark.parametrize("int8", [True, False])
 def test_ttft_step_matches_jax_forward(jax_params, port_params, int8):
     """bench_torch's TTFT prefill (a fresh 256-token window, flash prefill,

@@ -4,6 +4,7 @@ the JAX package's tool of the same name writes, byte for byte. chat is
 driven through piped stdin with --device cpu."""
 import io
 import json
+import os
 import sys
 import tempfile
 from pathlib import Path
@@ -175,10 +176,28 @@ def test_chat_cli_tp_and_no_card(inputs, monkeypatch):
         run_main(t_chat, [inputs["q4_0"]], monkeypatch, stdin="")
 
 
+def torchrun_report(run, want: str, log_dir: Path) -> str:
+    """What a failed torchrun chat left: its exit code, a diff of its
+    transcript against the one-device one, each rank's stderr (the files
+    torchrun's --tee writes under log_dir/<run>/attempt_0/<rank>/) and
+    torchrun's own."""
+    import difflib
+    diff = "".join(difflib.unified_diff(
+        want.splitlines(keepends=True), run.stdout.splitlines(keepends=True),
+        "one device", "torchrun --tp 2"))
+    ranks = "".join(f"--- {p.relative_to(log_dir)} ---\n"
+                    f"{p.read_text(errors='replace')[-3000:]}\n"
+                    for p in sorted(log_dir.rglob("stderr.log")))
+    return (f"exit code {run.returncode}\n--- transcript diff ---\n"
+            f"{diff or '(equal)'}\n{ranks or '(no rank logs)'}"
+            f"--- torchrun's stderr ---\n{run.stderr[-3000:]}")
+
+
 def test_chat_cli_tp_under_torchrun(tmp_path, monkeypatch, capsys):
     """chat.py --tp 2 launched by torchrun (two CPU ranks over gloo): rank 0
     reads the piped lines and broadcasts them, and the transcript (printed
     by rank 0 alone) is the one-device chat's, /save and /load included."""
+    import signal
     import subprocess
     from fastllama_tpu_torch.config import HyperParams
     from fastllama_tpu_torch.io.ggml_writer import write_ggjt
@@ -216,20 +235,31 @@ def test_chat_cli_tp_under_torchrun(tmp_path, monkeypatch, capsys):
                           f"/load {state}", " w3", "/quit"]) + "\n"
     assert run_main(t_chat, args, monkeypatch, stdin=session("one")) == 0
     one = capsys.readouterr().out
-    env = {k: v for k, v in __import__("os").environ.items()
+    env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
     env["OMP_NUM_THREADS"] = "1"
     # --standalone: the rendezvous store binds a free port itself, where a
     # port picked here and released could be taken by another process
     # before torchrun binds it
-    run = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "2", "--standalone",
-         str(REPO / "tools_torch" / "chat.py"), *args, "--tp", "2"],
-        input=session("tp"), capture_output=True, text=True, timeout=240,
-        env=env, cwd=tmp_path)
-    assert run.returncode == 0, run.stderr[-3000:]
-    assert run.stdout == one
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           "2", "--standalone", "--log-dir", str(tmp_path / "logs"),
+           "--tee", "2", str(REPO / "tools_torch" / "chat.py"), *args,
+           "--tp", "2"]
+    # its own session, so that a run past the limit is stopped with both
+    # ranks (a killed torchrun would leave them waiting on each other)
+    proc = subprocess.Popen(cmd, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=tmp_path,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(session("tp"), timeout=240)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        err += "\n(stopped after 240 s)"
+    run = subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+    assert run.returncode == 0 and run.stdout == one, torchrun_report(
+        run, one, tmp_path / "logs")
     assert "saved" in one and "loaded" in one and one.count("Assistant: ") == 3
 
 

@@ -21,6 +21,7 @@ Special commands (parity with examples/python/example-lora-adapter.py:29-41):
     /quit
 """
 import argparse
+import os
 import sys
 from pathlib import Path
 
@@ -78,15 +79,23 @@ def main() -> int:
             return line[0]
 
     try:
-        return _chat(args, read_line, say, logger)
+        code = _chat(args, read_line, say, logger)
     finally:
         if args.tp > 1 and dist.is_initialized():
-            # every rank leaves together: a rank that exits while another
-            # still holds the group (rank 0 hosts its store) can abort at
-            # interpreter shutdown in a gloo thread ("terminate called
-            # without an active exception")
+            # every rank leaves together, the group torn down first
             dist.barrier()
             dist.destroy_process_group()
+    if args.tp > 1 and __name__ == "__main__":
+        # A rank of a gloo world could still abort after the group was
+        # destroyed, with no Python frame left: C++ state of
+        # torch.distributed destroyed at process exit with a thread still
+        # joinable ("terminate called without an active exception",
+        # SIGABRT), after a complete transcript. Leaving with os._exit
+        # once the output is flushed runs no such destructor.
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+    return code
 
 
 def _chat(args, read_line, say, logger) -> int:
