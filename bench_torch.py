@@ -29,7 +29,9 @@ small copies) well inside the card's time for it, so both rates read the
 card's pace: within a few percent of 1000 / device_ms_per_token (the
 device time of a step from a profile), where the eager step's host cost
 held them to a third of it. TTFT is a 512-token prefill (n_past 0,
-flash prefill: B12) plus one decode step, p50 of 5 trials less the floor:
+flash prefill: B12; replayed from a graph of its own with the argmax
+inside, as bench.py jits its prefill_step) plus one decode step, p50 of 5
+trials less the floor:
 ttft_ms_p50 / _int8 with the int8 prefill matmuls (B2 + B3), _bf16 with the
 bf16-exact ones (B5). The TTFT's decode step runs at n_past 512 in the
 512-row cache, as bench.py's does: there the port's B4 writes row S - 1 as
@@ -112,14 +114,25 @@ def prefill_step_fn(params, hp: HyperParams, n_ctx: int, device,
                     int8: bool):
     """prefill(tokens [1, T], kv) -> the greedy first token [1, 1]: a fresh
     window (n_past 0) with flash prefill (B12) and the int8 (B2 + B3) or the
-    bf16-exact (B5) prefill matmuls pinned, as bench.py pins them."""
+    bf16-exact (B5) prefill matmuls pinned, as bench.py pins them.
+
+    bench.py's jitted prefill_step: the forward and the argmax are one
+    captured graph (a StepGraph, as decode_step_fn), into whose static
+    input the tokens are copied; the token returned is the graph's output,
+    which the next call overwrites. kv is part of the key: the callers keep
+    one cache and zero it for a fresh window."""
     cfg = ForwardConfig(n_head=hp.n_head, n_rot=hp.n_rot, flash_prefill=True,
                         prefill_int8=int8)
-    tables = position_tables(n_ctx, hp.head_dim, hp.n_rot, device)
+    dev = resolve_device(device)
+    tables = position_tables(n_ctx, hp.head_dim, hp.n_rot, dev)
+    graph = StepGraph(dev)
 
     def prefill(tokens, kv):
-        logits, _, _ = forward(params, tokens, 0, kv, cfg, None, tables)
-        return logits[:, -1, :].argmax(-1, keepdim=True)
+        def window(tok):
+            logits, _, _ = forward(params, tok, 0, kv, cfg, None, tables)
+            return logits[:, -1, :].argmax(-1, keepdim=True)
+        return graph(window, cfg, (params, kv, tables), tokens)
+    prefill.graph = graph
     return prefill
 
 

@@ -57,7 +57,14 @@ Phases (any failure exits nonzero before the last line):
      and M (no library call reads packed bytes as integer weights). At
      13B widths also B2 (timed at K = 5120 and 13824), B9 at M = 1 and 8
      on the q4_1 planes, B4 and B10 at 40 heads (n_past 0, 300, 511, past
-     S; 8 x 300), the standalone B7 and B8 on 40-head pools. Afterwards
+     S; 8 x 300), the standalone B7 and B8 on 40-head pools. The slab
+     row write slab_write_rows (csrc/kv_write.cu; no TPU kernel's port:
+     the K/V write of every window and step replayed at a tensor offset,
+     the counterpart of the JAX forward's dropping scatter) bit for bit
+     against its plain version at the paths' shapes (a 512-row window's k
+     view and v, 64-row chunks inside the cache and past S, a LoRA step's
+     row, eight slots with two past S, f32), timed beside index_copy_; it
+     is the kernels line's "RW". Afterwards
      no phase may call the dequant path on the card
      (q4_matmul_dequant.cuda_calls must read 0 after phase 10);
   3. the q4_0 session at full 7B width (32 layers, bf16 weights and KV,
@@ -171,15 +178,41 @@ Phases (any failure exits nonzero before the last line):
      device ms a token and the idle share of FastLlama.generate on both
      routes; the engine (8 slots, paged and slab, ten requests) through
      its step graph against the eager step at temp 0 and 0.8 (one seed),
-     drain depth 0 and 2, streams equal and one capture a run, and the
+     drain depth 2 (depth 0 in phase 13's engine runs), streams equal and
+     one capture a run, and the
      steady window on both routes (host ms, device ms and launches a step,
      one replay a step). Every earlier phase runs its decode steps through
      the step graphs as a user's calls would (the session, the engine,
      bench_torch.py, the C ABI's Model; the mesh paths of phase 10 stay
      eager), and its launch counts hold exactly: a capture adds no launch,
      each replay the graph's; phase 4 also holds the attached q4_1 + LoRA
-     step to a graph of its own (B9 129 and B10 32 launches a replay) and
-     detach to another (one capture each);
+     step to a graph of its own (B9 129 and B10 32 launches a replay, one
+     capture) and detach back to the first graph (no capture);
+ 13. the compiled prefill windows and admissions (utils/step_graph.
+     GraphCache: one graph a bucket and configuration, the counterparts of
+     the JAX package's forward_jit and its engine's jitted prefill, chunk
+     and splice steps) at full 7B width and depth: the q4_0 session's
+     300-token prompt at n_batch 512 (one window) and 64 (five), int8 and
+     bf16-exact prefill, two TTFTs and 64 greedy tokens a route in turns
+     on two models, the second with its graphs taken off (eager), every
+     window's and step's logits bit-equal and the streams equal; TTFT host
+     ms and the TTFT window's device ms on both routes, the window graphs'
+     captures, replays, build seconds and pool memory; at n_batch 64 int8
+     also a window after load_state and a generation of 240 tokens that
+     recycles the context, bit-equal to eager. The engine (8 slots, paged,
+     paged chunked and slab; phase 6's twelve requests with mixed top_p
+     and repeat_penalty, at temp 0 then 0.8 on one engine a route) with
+     its admissions replayed against the engine with every graph taken
+     off: streams equal, one admission graph a bucket (or the chunk and
+     the splice) and no eviction, run() wall time on both routes, each
+     engine step of one 300-token admission on the host clock and in a
+     profile (tools_torch/engine_admission.admit_once); bench_torch.py's
+     TTFTs (phase 11) are its replayed windows'. Every earlier phase runs
+     its windows and admissions through these graphs as a user's calls
+     would (the mesh paths of phase 10 stay eager), and the exact counts
+     of phases 3, 4, 6 and 11 hold: slab_write_rows launches once a layer
+     for K and once for V in every window (64 a 7B window) and in every
+     B10 layer of an attached step;
   then the whole script's seconds, one line {"kernels": [...]}, the
   nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -391,6 +424,7 @@ def check_kernels(torch, dev, gen, out_dir):
     check_shard_attention(torch, dev, gen, results)
     check_fused_paged_step(torch, dev, gen, results, heads=SHARD_HEADS)
     check_13b_kernels(torch, dev, gen, results)
+    check_row_write(torch, dev, gen, results)
     with open(os.path.join(out_dir, "kernel_checks.json"), "w") as fh:
         json.dump(results, fh, indent=1)
     return results
@@ -1584,12 +1618,79 @@ def check_fused_paged_step(torch, dev, gen, results, heads=(32, 40)):
         results["PS"] = rows
 
 
+def check_row_write(torch, dev, gen, results):
+    """slab_write_rows (csrc/kv_write.cu: the slab caches' K/V row write at
+    an offset held on the device, every captured window's and B10 layer's)
+    bit for bit against its plain version (the dropping scatter) at the
+    shapes the paths give it: the fresh 512-row window's k (a strided view
+    of the RoPE pass's output) and v, a 64-row chunk inside the cache and
+    one whose tail passes S, a LoRA decode step's row, eight engine slots
+    at depths 0-511 and past S (dropped), f32 caches. Timed at the
+    window's shape beside index_copy_ (the same write where nothing can
+    drop) and the plain version; bound: the rows read once and written
+    once."""
+    from fastllama_tpu_torch.kernels import kv_write as kw
+    f, s = 4096, 512
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def rand(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    rows = []
+    cases = (("T=512 n_past=0 k view bf16", 1, 512, [0], bf, True),
+             ("T=512 n_past=0 v bf16", 1, 512, [0], bf, False),
+             ("T=64 n_past=300 bf16", 1, 64, [300], bf, False),
+             ("T=64 n_past=480 tail past S bf16", 1, 64, [480], bf, False),
+             ("T=1 n_past=300 bf16", 1, 1, [300], bf, False),
+             ("B=8 T=1 n_past=0..511, 512, 513 f32", 8, 1,
+              [0, 1, 63, 64, 300, 511, 512, 513], f32, False),
+             ("T=512 n_past=0 f32", 1, 512, [0], f32, False))
+    for label, b, t, n_past, dt, view in cases:
+        cache = rand((b, s, f), dt)
+        src = rand((b, t, 2 * f if view else f), dt)
+        val = src[:, :, f:] if view else src
+        n = i32(n_past)
+        got, want = cache.clone(), cache.clone()
+        kw.slab_write_rows(got, val, n)
+        kw.slab_write_rows_plain(want, val, n)
+        require(torch.equal(got, want), f"slab_write_rows {label}: the "
+                "cache differs from the plain version's")
+        rows.append(dict(kernel="RW", shape=label, max_abs_err=0.0))
+    # timed at the fresh window: caches cycled through more than the L2
+    t = 512
+    nbytes = 2 * t * f * 2
+    caches = [torch.zeros((1, s, f), dtype=bf, device=dev)
+              for _ in range(copies_for(nbytes))]
+    val = rand((1, t, f), bf)
+    n0 = i32([0])
+    idx = torch.arange(t, device=dev)
+    it = iter(range(10**9))
+    ms = time_ms(lambda: kw.slab_write_rows(
+        caches[next(it) % len(caches)], val, n0), calls=4 * len(caches))
+    lib_ms = time_ms(lambda: caches[next(it) % len(caches)].index_copy_(
+        1, idx, val), calls=4 * len(caches))
+    plain_ms = time_ms(lambda: kw.slab_write_rows_plain(caches[0], val, n0),
+                       calls=2)
+    bnd, by = bound_ms(nbytes + 4, 0.0, "bf16")
+    rows[0].update(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                   library_ms=lib_ms,
+                   library_call="index_copy_ of the window's rows (no drop)")
+    print(f"RW {rows[0]}", flush=True)
+    del caches
+    results["RW"] = rows
+
+
 def counted_kernels(qm, da):
     from fastllama_tpu_torch.kernels.flash_prefill import flash_prefill
+    from fastllama_tpu_torch.kernels.kv_write import slab_write_rows
     return {"B1": qm.q4_matmul_decode, "B2": qm.quant_rows_int8,
             "B3": qm.q4_matmul_prefill_int8, "B4": da.decode_attention_fused,
             "B5": qm.q4_matmul_prefill, "B9": qm.q41_matmul_decode,
-            "B10": da.decode_attention, "B12": flash_prefill}
+            "B10": da.decode_attention, "B12": flash_prefill,
+            "RW": slab_write_rows}
 
 
 def reset_counts(qm, da):
@@ -1604,6 +1705,10 @@ def read_counts(qm, da):
 N_PROMPT, N_DECODE = 300, 64
 PREFILL_MATMULS = 4 * 32     # a 512-row window: four matmuls a layer
 FLASH_WINDOW = 32            # B12 once a layer in a fresh 512-row window
+# slab_write_rows: the K and V rows of each layer of a window replayed at a
+# tensor offset (models/llama.forward_jit), and of a decode step's layer
+# with q/k/v LoRA (B10's)
+WINDOW_ROWS = 2 * 32
 # launches of one 300-token prefill window plus N_DECODE decode steps: four
 # matmuls per layer and the head per step, the head once per window
 DECODE_MATMULS = 129 * N_DECODE + 1
@@ -1614,8 +1719,9 @@ def make_session(hp, params, dev, **rcfg_kw):
     from fastllama_tpu_torch.config import RuntimeConfig
     from fastllama_tpu_torch.engine.session import FastLlama
     from fastllama_tpu_torch.models.runtime import LlamaModel
-    rcfg = RuntimeConfig(n_ctx=512, n_batch=512, kv_dtype="bfloat16",
-                         weight_dtype="bfloat16", **rcfg_kw)
+    rcfg = RuntimeConfig(**{**dict(n_ctx=512, n_batch=512,
+                                   kv_dtype="bfloat16",
+                                   weight_dtype="bfloat16"), **rcfg_kw})
     model = LlamaModel(hp, params, synthetic_vocab(hp.n_vocab), rcfg,
                        device=dev)
     return model, FastLlama(model, n_keep=64, seed=0)
@@ -1628,7 +1734,8 @@ def timed_run(torch, sess, prompt):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     require(sess.ingest(prompt), "ingest failed")
-    n_prompt = len(sess._embd)
+    # the windows ingest ran, and the last one, which generate runs
+    n_prompt = sess.n_past + len(sess._embd)
     require(sess.generate(lambda s: None, num_tokens=1, temp=0.0),
             "generate (first token) failed")
     ttft_ms = (time.perf_counter() - t0) * 1e3
@@ -1682,6 +1789,8 @@ def main_path(torch, dev, gen):
             f"times in the TTFT window, not {FLASH_WINDOW}")
     for k in ("B5", "B9", "B10"):
         require(counts[k] == 0, f"kernel {k} launched on the q4_0 int8 path")
+    require(counts["RW"] == WINDOW_ROWS, f"slab_write_rows launched "
+            f"{counts['RW']} times in the TTFT window, not {WINDOW_ROWS}")
     # two more runs for the spread of the host-clock numbers
     runs = [first] + [timed_run(torch, sess, prompt) for _ in range(2)]
     require(runs[0][2] == runs[1][2] == runs[2][2],
@@ -1769,14 +1878,18 @@ def q41_lora_path(torch, dev, gen, tmp):
         want = {"B9": DECODE_MATMULS, "B1": 0, "B2": 0, "B3": 0,
                 "B5": PREFILL_MATMULS, "B12": FLASH_WINDOW,
                 "B4": 0 if attached else LAYER_CALLS,
-                "B10": LAYER_CALLS if attached else 0}
+                "B10": LAYER_CALLS if attached else 0,
+                # the window's rows, and attached each B10 layer's K/V row
+                "RW": WINDOW_ROWS + (2 * LAYER_CALLS if attached else 0)}
         require(counts == want, f"q4_1 {label}: launches {counts}, "
                 f"expected {want}")
         # the decode steps replay a graph of this state's own (phase 12):
         # attach and detach are new keys, as new pytrees retrace under jit
-        per_replay = model._step.launches_per_replay()
+        per_replay = model._graphs.last.launches_per_replay()
         attn = "decode_attention" if attached else "decode_attention_fused"
-        require(per_replay == {"q41_matmul_decode": 129, attn: 32},
+        # attached, each B10 layer writes its K and V rows (slab_write_rows)
+        rows = {"slab_write_rows": 64} if attached else {}
+        require(per_replay == {"q41_matmul_decode": 129, attn: 32, **rows},
                 f"q4_1 {label}: a replay holds {per_replay}")
         runs = [first] + [timed_run(torch, sess, prompt) for _ in range(2)]
         ms_tok = [r[1] / N_DECODE * 1e3 for r in runs]
@@ -1785,7 +1898,8 @@ def q41_lora_path(torch, dev, gen, tmp):
                    decode_ms_per_token=float(np.median(ms_tok)),
                    decode_ms_per_token_runs=ms_tok, launches=counts,
                    launches_per_replay=per_replay,
-                   step_graph_captures=model._step.captures)
+                   step_graph_captures=sum(
+                       g.captures for g in model._graphs.entries("decode")))
         print(f"q4_1 {label}: {json.dumps(out)}", flush=True)
         return first, out
 
@@ -1803,9 +1917,12 @@ def q41_lora_path(torch, dev, gen, tmp):
             "logits after detach_lora differ from those before attach_lora")
     graphs = [r["step_graph_captures"] for r in (res_before, res_lora,
                                                   res_after)]
-    require(graphs[1] == graphs[0] + 1 and graphs[2] == graphs[1] + 1,
+    # attach is a new key; detach resets the layers' fields in place, so
+    # the first key comes back and its graph, still in the session's
+    # cache, replays (as jax.jit's cache would hit)
+    require(graphs[1] == graphs[0] + 1 and graphs[2] == graphs[1],
             f"q4_1: step graph captures {graphs} (before attach, attached, "
-            "after detach): attach and detach must each capture once")
+            "after detach): attach must capture once, detach none")
     wbytes = model_weight_bytes(params)
     res = dict(n_layer=hp.n_layer, lora_rank=rank, before_attach=res_before,
                attached=res_lora, after_detach=res_after,
@@ -1855,9 +1972,13 @@ def profile_prefill(torch, sess, prompt, flash=True) -> dict:
     if not flash:
         model._cfg = {key: dataclasses.replace(c, flash_prefill=False)
                       for key, c in cfgs.items()}
-    sess.reset()
-    torch.cuda.synchronize()
     try:
+        if not flash:
+            # its window's graph is built outside the trace: the profile
+            # reads a replay, as the flash route's
+            warm_up(sess, prompt)
+        sess.reset()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             require(sess.ingest(prompt), "profiled ingest failed")
@@ -2302,7 +2423,8 @@ def _wrap(name):
             "on_card": self._model.device.type == "cuda",
             "launches": {k_: f.launches for k_, f in _K.items()},
             "kernel_lib_s": _cl.build_seconds,
-            "step_build_s": self._model._step.build_s}), file=sys.stderr,
+            "step_build_s": self._model._graphs.build_s}),
+            file=sys.stderr,
             flush=True)
         return r
     setattr(_F.Model, name, call)
@@ -2326,7 +2448,7 @@ assert m.generate(num_tokens=n, top_k=40, top_p=0.95, temp=0.0,
                   repeat_penalty=1.0, streaming_fn=chunks.append)
 torch.cuda.synchronize()
 print(json.dumps({"s": time.perf_counter() - t0, "text": "".join(chunks),
-                  "step_build_s": m._model._step.build_s}))
+                  "step_build_s": m._model._graphs.build_s}))
 """
 
 
@@ -2423,7 +2545,7 @@ def c_abi_path(torch, tmp, model_path):
                            streaming_fn=chunks.append), "Model.generate")
     torch.cuda.synchronize()
     py_gen_s = time.perf_counter() - t0
-    py_build_s = model._model._step.build_s
+    py_build_s = model._model._graphs.build_s
     n_gen = model.session.n_past - n_prompt + 1
     text = "".join(chunks).encode()
     require(len(text) > 0 and r.stdout.rstrip(b"\n") == text
@@ -2468,8 +2590,9 @@ def c_abi_path(torch, tmp, model_path):
                python_shared_libpython_tok_s=n_gen / py_host["s"],
                python_warm_load_s=load_s, python_warm_generate_s=py_gen_s,
                python_warm_tok_s=n_gen / py_gen_s,
-               # host seconds of the decode step's warm-up and capture
-               # inside each generate above (phase 12)
+               # host seconds of the graphs' warm-ups and captures (the
+               # decode step's and the last prompt window's) inside each
+               # generate above (phases 12 and 13)
                step_build_s={"c_program": crun["step_build_s"],
                              "python_process": py_cold["step_build_s"],
                              "python_shared_libpython":
@@ -2496,7 +2619,8 @@ BENCH_KEYS = ("metric", "value", "unit", "steady_state_tokens_per_sec",
 BENCH_STEPS = 1 + 5 + 64 + 3 * 64 + 8 + 2 * 5
 BENCH_WINDOWS = 2 * (1 + 5)
 # the kernels a bench_torch run never reaches
-OFF_BENCH_PATH = ("B6", "B7", "B8", "B9", "B10", "B11", "PS", "B13", "B14")
+OFF_BENCH_PATH = ("B6", "B7", "B8", "B9", "B10", "B11", "PS", "B13", "B14",
+                  "RW")
 # each tool of tools_torch/ at a small depth, run as a subprocess on the
 # card: (script, arguments, the kernels it must launch)
 BENCH_TOOLS = [
@@ -2537,14 +2661,24 @@ def counts_now() -> dict:
     return out
 
 
+def start_counted(script, args, cwd):
+    """Start `script args` from cwd as a subprocess under COUNTED."""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", COUNTED, script, *args], cwd=cwd,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 def run_counted(script, args, cwd, timeout=600.0):
     """Run `script args` from cwd as a subprocess, alone on the card, under
-    COUNTED; returns (returncode, stdout, stderr, seconds, launches: the
-    counts it printed at its exit, None where it printed none)."""
-    t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-c", COUNTED, script, *args],
-                            cwd=cwd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    COUNTED; returns finish_counted's tuple."""
+    return finish_counted(start_counted(script, args, cwd), timeout)
+
+
+def finish_counted(started, timeout=600.0):
+    """Wait for a start_counted subprocess (killed past `timeout` s); returns
+    (returncode, stdout, stderr, seconds, launches: the counts it printed at
+    its exit, None where it printed none)."""
+    t0, proc = started
     try:
         out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -2593,11 +2727,14 @@ def bench_path(torch, tmp, model_path):
     N 12288, M 8) in this process, every count set to 0 just before and
     read just after; the other tools at a small depth and examples_torch/
     python/example-batch.py and perplexity.py on phase 5's 8-layer q4_0
-    GGJT. Each runs as a subprocess alone on the card (so the times the
-    tools print are uncontended), must exit 0 and must have launched the
-    kernels of its path, and none but bench_kernels (which holds B1
-    against it) the dequant path; its launches are counted in its own
-    process (COUNTED)."""
+    GGJT. bench_torch.py and the bench_* tools run as subprocesses alone on
+    the card (so the times they print are uncontended); the profilers and
+    the examples, whose times nothing records, run together (their
+    processes reach the card in parallel; the times they print are
+    contended). Each must exit 0 and must have launched the kernels of its
+    path, and none but bench_kernels (which holds B1 against it) the
+    dequant path; its launches are counted in its own process
+    (COUNTED)."""
     import contextlib
     import io
     from fastllama_tpu_torch.config import PRESETS
@@ -2646,8 +2783,12 @@ def bench_path(torch, tmp, model_path):
         (os.path.join(ex, "example-batch.py"), [model_path], ("B1", "B4")),
         (os.path.join(ex, "perplexity.py"), [model_path, text],
          ("B2", "B3", "B12"))]
-    for script, args, want in runs:
-        rc, out, err, sec, n = run_counted(script, args, root)
+    alone = [r for r in runs if os.path.basename(r[0]).startswith("bench_")]
+    results = [(r, run_counted(r[0], r[1], root)) for r in alone]
+    started = [(r, start_counted(r[0], r[1], root))
+               for r in runs if r not in alone]
+    results += [(r, finish_counted(st)) for r, st in started]
+    for (script, args, want), (rc, out, err, sec, n) in results:
         label = " ".join([script] + args).replace(
             model_path, "<8-layer q4_0 GGJT>").replace(text, "<text>")
         tail = "\n".join(out.strip().splitlines()[-6:])
@@ -2865,15 +3006,17 @@ def engine_steady(torch, sched, make, profile_steps=8, timed_steps=30):
     for _ in range(10):
         eng.step()
     torch.cuda.synchronize()
-    replays = None if eng._graph is None else eng._graph.replays
+    def replays():
+        return sum(g.replays for g in eng._graphs.entries("decode"))
+    before = None if eng._graphs is None else replays()
     t0 = time.perf_counter()
     for _ in range(timed_steps):
         eng.step()
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) / timed_steps * 1e3
     out = dict(ms_per_step=ms_step, tok_s=ENG_SLOTS / ms_step * 1e3)
-    if replays is not None:
-        out["replays_per_step"] = (eng._graph.replays - replays) / timed_steps
+    if before is not None:
+        out["replays_per_step"] = (replays() - before) / timed_steps
     if profile_steps:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3811,12 +3954,10 @@ GRAPH_GEN = 24
 
 
 def eager_route(model):
-    """Take a model's or an engine's step graph off: its decode steps then
-    run eagerly, as under a mesh (the route the graph replaced)."""
-    if hasattr(model, "_step"):
-        model._step = None
-    else:
-        model._graph = None
+    """Take a model's or an engine's graphs off: its windows and decode
+    steps, or its admissions and decode steps, then run eagerly, as under a
+    mesh (the route the graphs replaced)."""
+    model._graphs = None
     return model
 
 
@@ -3849,8 +3990,9 @@ def graph_session(torch, hp, params, dev, prompt):
             "B4": 2 * hp.n_layer * GRAPH_STEPS}
     require({k: counts[k] for k in want} == want, f"graphs: launches of "
             f"both routes {counts}, expected {want}")
-    step = ga._step
-    require(step.captures == 1 and step.replays == GRAPH_STEPS - 1,
+    step = ga._graphs.last
+    require(ga._graphs.entries("decode") == [step] and step.captures == 1
+            and step.replays == GRAPH_STEPS - 1,
             f"graphs: {step.captures} captures, {step.replays} replays")
     per_replay = step.launches_per_replay()
     require(per_replay == per_step, f"graphs: a replay holds {per_replay}")
@@ -3888,7 +4030,8 @@ def graph_session(torch, hp, params, dev, prompt):
 def graph_engine(torch, hp, params, vocab):
     """The engine's step graph, paged and slab, against the eager step
     (the engine with its graph taken off): streams equal at temp 0 and at
-    temp 0.8 with one seed, at drain depth 0 and 2, one capture a run;
+    temp 0.8 with one seed, at drain depth 2 (phase 13 holds depth 0),
+    one capture a run;
     then the steady window on both routes (host ms a step, device ms and
     launches a step from a profile, replays a step)."""
     from fastllama_tpu_torch.config import RuntimeConfig
@@ -3916,16 +4059,19 @@ def graph_engine(torch, hp, params, vocab):
         return eng, [r.tokens_out for r in reqs]
 
     out = {"equal_streams": []}
+    # drain depth 2 here; phase 13's engine runs hold depth 0 (paged and
+    # slab, temp 0 and 0.8, the same replayed steps and admissions)
     for mode in ("paged", "slab"):
-        for depth in (0, 2):
+        for depth in (2,):
             for temp in (0.0, 0.8):
                 eng, got = streams(make(mode, depth), temp)
                 _, want = streams(make(mode, depth, graph=False), temp)
                 label = f"{mode} depth {depth} temp {temp}"
                 require(got == want, f"graphs engine {label}: the replayed "
                         "streams differ from the eager step's")
-                require(eng._graph.captures == 1, f"graphs engine {label}: "
-                        f"{eng._graph.captures} captures in one run")
+                decode = [g.captures for g in eng._graphs.entries("decode")]
+                require(decode == [1], f"graphs engine {label}: decode "
+                        f"step captures {decode} in one run")
                 out["equal_streams"].append(label)
     for mode in ("paged", "slab"):
         for route in ("graph", "eager"):
@@ -3950,6 +4096,203 @@ def graphs_path(torch, dev, gen):
            "engine": graph_engine(torch, hp, params,
                                   synthetic_vocab(hp.n_vocab))}
     print(f"graphs path: {json.dumps(res)}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the compiled prefill windows and admissions (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+# the session's (n_batch, int8 prefill) configurations: one 512-row window
+# or five of 64 rows for the 300-token prompt
+WINDOW_CONFIGS = ((512, True), (512, False), (64, True), (64, False))
+
+
+def recorded_evals(model) -> list:
+    """Every eval's logits of `model` from now on (a copy each)."""
+    out = []
+    inner = model.eval
+
+    def ev(*a, **k):
+        r = inner(*a, **k)
+        out.append(r.copy())
+        return r
+    model.eval = ev
+    return out
+
+
+def graph_windows(torch, hp, params, dev, n_batch, int8, extras):
+    """One session configuration on both routes (two models, the second's
+    graphs taken off): the 300-token TTFT and 64 greedy tokens twice a
+    route in turns, every window's and step's logits bit-equal between
+    the routes and the streams equal; the TTFT window's device ms on each
+    route from a profile; the window graphs' captures, replays, build
+    seconds and pool. extras: also a window after load_state and a
+    generation that recycles the context, both bit-equal."""
+    t_config = time.perf_counter()
+    (ga, sa), (gb, sb) = (make_session(hp, params, dev, n_batch=n_batch,
+                                       prefill_int8=int8) for _ in range(2))
+    eager_route(gb)
+    label = f"n_batch {n_batch} {'int8' if int8 else 'bf16-exact'}"
+    prompt = prompt_of(N_PROMPT - 2, seed=1)
+    for sess in (sa, sb):
+        warm_up(sess, prompt)
+    rec = {"graph": recorded_evals(ga), "eager": recorded_evals(gb)}
+    runs = {"graph": [], "eager": []}
+    for route in ("graph", "eager", "eager", "graph"):
+        rec[route].clear()
+        r = timed_run(torch, sa if route == "graph" else sb, prompt)
+        runs[route].append((r, list(rec[route])))
+    (g, gl), (e, el) = runs["graph"][0], runs["eager"][0]
+    n_windows = -(-N_PROMPT // n_batch)
+    require(len(gl) == len(el) == n_windows + N_DECODE
+            and all(np.array_equal(a, b) for a, b in zip(gl, el)),
+            f"prefill graphs {label}: replayed logits differ from eager")
+    require(g[2] == e[2], f"prefill graphs {label}: greedy streams differ")
+    out = dict(windows=n_windows, evals_bit_equal=len(gl))
+    for route, sess in (("graph", sa), ("eager", sb)):
+        ttft = [r[0][0] for r in runs[route]]
+        prof = profile_prefill(torch, sess, prompt)
+        out[route] = dict(ttft_ms=float(np.median(ttft)), ttft_ms_runs=ttft,
+                          window_device_ms=prof.get("device_ms"),
+                          window_launches=prof.get("launches"))
+    cache = ga._graphs
+    out["graphs"] = dict(captures=cache.captures, replays=cache.replays,
+                         evictions=cache.evictions, build_s=cache.build_s,
+                         pool_bytes=cache.pool_bytes(),
+                         boundary_windows=ga.boundary_windows)
+    if extras:
+        state = ga.kv_state()
+        n = state["kv_k"].shape[2]
+        ids = [int(x) for x in np.random.default_rng(3).integers(
+            3, hp.n_vocab, 40)]
+        after = []
+        for m in (ga, gb):
+            m.reset()
+            m.load_kv_state(state)
+            after.append(m.eval(n, ids))
+        require(np.array_equal(*after), f"prefill graphs {label}: the "
+                "window after load_state differs from eager")
+        streams = []
+        for sess in (sa, sb):
+            sess.reset()
+            out_tok = []
+            require(sess.ingest(prompt) and sess.generate(
+                out_tok.append, num_tokens=240, temp=0.0),
+                "recycling generate failed")
+            streams.append((list(sess._last_n), sess.n_past))
+        require(streams[0] == streams[1] and streams[0][1] < N_PROMPT + 240,
+                f"prefill graphs {label}: the recycling streams differ or "
+                f"did not recycle ({streams[0][1]}, {streams[1][1]})")
+        out.update(load_state_window_bit_equal=True,
+                   recycle_streams_equal=True,
+                   graphs_after_extras=dict(
+                       captures=cache.captures, replays=cache.replays,
+                       boundary_windows=ga.boundary_windows))
+    out["seconds"] = time.perf_counter() - t_config
+    print(f"prefill graphs session {label}: {json.dumps(out)}", flush=True)
+    del sa, sb, ga, gb
+    return out
+
+
+def graph_admissions(torch, hp, params, vocab):
+    """The engine (8 slots, n_ctx 512, pages of 64 rows) with its
+    admissions replayed against the same engine with every graph taken
+    off: phase 6's twelve requests (20-300 prompt tokens, 48 tokens each)
+    with top_p 0.95 or 1 and repeat_penalty 1 or 1.1 mixed among them,
+    paged, paged chunked and slab, at temp 0 and then 0.8 (one seed) on
+    one engine a route, streams equal, the wall time of run() on both
+    routes, and the admission graphs' keys (one a bucket, or the chunk and
+    the splice: the knobs make none) with no eviction; then one 300-token
+    admission into the idle engine on both routes, each engine step until
+    its first streamed token on the host clock and in a profile
+    (tools_torch/engine_admission.admit_once)."""
+    from fastllama_tpu_torch.config import RuntimeConfig
+    from fastllama_tpu_torch.engine import scheduler as sched
+    from tools_torch.engine_admission import admission_graphs, admit_once
+
+    def make(mode, chunked, graph):
+        rcfg = RuntimeConfig(n_ctx=ENG_CTX, n_batch=256 if chunked else 512,
+                             kv_dtype="bfloat16", weight_dtype="bfloat16")
+        eng = sched.BatchEngine(
+            hp, params, vocab, n_slots=ENG_SLOTS, n_ctx=ENG_CTX, rcfg=rcfg,
+            sampling_seed=3, kv_mode=mode, page_size=ENG_PS,
+            chunked_admission=chunked)
+        return eng if graph else eager_route(eng)
+
+    def requests(temp):
+        reqs = engine_requests(sched, temp=temp)
+        for i, r in enumerate(reqs):
+            r.top_p = (0.95, 1.0)[i % 2]
+            r.repeat_penalty = (1.0, 1.1)[i // 2 % 2]
+        return reqs
+
+    out = {}
+    for name, mode, chunked in (("paged", "paged", False),
+                                ("paged_chunked", "paged", True),
+                                ("slab", "slab", False)):
+        t_mode = time.perf_counter()
+        row = {}
+        engs = {route: make(mode, chunked, route == "graph")
+                for route in ("graph", "eager")}
+        for temp in (0.0, 0.8):
+            got = {}
+            for route, eng in engs.items():
+                reqs = requests(temp)
+                if route == "graph":
+                    greqs = reqs
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.run(reqs)
+                torch.cuda.synchronize()
+                got[route] = [r.tokens_out for r in reqs]
+                row[f"run_wall_s_temp_{temp}_{route}"] = \
+                    time.perf_counter() - t0
+            require(got["graph"] == got["eager"]
+                    and all(len(t) == ENG_GEN for t in got["graph"]),
+                    f"prefill graphs engine {name} temp {temp}: replayed "
+                    "admissions stream otherwise than eager ones")
+        geng = engs["graph"]
+        adm = admission_graphs(geng)
+        buckets = {next(b for b in geng._buckets if b >= r.n_prompt)
+                   for r in greqs}
+        want = 2 if chunked else len(buckets)
+        require(adm["keys"] == want and adm["evictions"] == 0,
+                f"prefill graphs engine {name}: admission graphs {adm}, "
+                f"expected {want} keys and no eviction")
+        row["admission_graphs"] = dict(adm, build_s=geng._graphs.build_s,
+                                       pool_bytes=geng._graphs.pool_bytes())
+        for route, eng in engs.items():
+            admit_once(eng, 1, False)
+            timed = [admit_once(eng, 2 + i, False) for i in range(2)]
+            traced = admit_once(eng, 9, True)
+            row[f"admission_{route}"] = dict(
+                host_ms_per_step_runs=[[s[0] for s in r] for r in timed],
+                device_ms_per_step=[s[1] for s in traced],
+                launches_per_step=[s[2] for s in traced])
+        del engs, geng
+        row["seconds"] = time.perf_counter() - t_mode
+        out[name] = row
+        print(f"prefill graphs engine {name}: {json.dumps(row)}", flush=True)
+    return out
+
+
+def prefill_graphs_path(torch, dev, gen):
+    """Phase 13: the compiled prefill windows and admissions at full 7B
+    width and depth (32 layers, q4_0, bf16, n_ctx 512)."""
+    from fastllama_tpu_torch.config import PRESETS
+    hp = PRESETS["7B"]
+    params = rand_params(torch, hp, gen, dev)
+    res = {"n_layer": hp.n_layer, "sessions": {}}
+    for n_batch, int8 in WINDOW_CONFIGS:
+        res["sessions"][f"n_batch_{n_batch}_{'int8' if int8 else 'bf16'}"] \
+            = graph_windows(torch, hp, params, dev, n_batch, int8,
+                            extras=(n_batch, int8) == (64, True))
+        torch.cuda.empty_cache()
+    res["engine"] = graph_admissions(torch, hp, params,
+                                     synthetic_vocab(hp.n_vocab))
     del params
     torch.cuda.empty_cache()
     return res
@@ -4019,6 +4362,12 @@ def main() -> int:
         bench_res = timed("11 bench path", bench_path, torch, tmp,
                           file_res["ggjt_q4_0"]["path"])
         graph_res = timed("12 graphs", graphs_path, torch, dev, gen)
+        prefill_res = timed("13 prefill graphs", prefill_graphs_path, torch,
+                            dev, gen)
+        # bench_torch.py's TTFT windows replay their graphs (phase 11)
+        prefill_res["bench_7b_ttft_ms"] = {
+            k: bench_res["bench"]["7b"]["line"][k]
+            for k in ("ttft_ms_p50_int8", "ttft_ms_p50_bf16")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4041,6 +4390,7 @@ def main() -> int:
                     PS=engine_res["runs"]["paged"]["launches"]["PS"],
                     B8=engine_res["runs"]["paged_chunked"]["launches"]["B8"],
                     B11=checks["B11_phase2_launches"],
+                    RW=main_res["launches"]["RW"],
                     **{k: bench_res["q4_floor"]["launches_counted"][k]
                        for k in ("B13", "B14")})
     main_rows = {"B1": pick(checks["B1"], "qkv M=1"),
@@ -4060,7 +4410,8 @@ def main() -> int:
                  "B12": pick(checks["B12"], "7B H=32 d=128 T=512 bf16"),
                  # bench_q4_floor's default shape: the 7B qkv plane at M = 8
                  "B13": pick(checks["B13"], "qkv M=8 "),
-                 "B14": pick(checks["B14"], "qkv M=8 ")}
+                 "B14": pick(checks["B14"], "qkv M=8 "),
+                 "RW": pick(checks["RW"], "T=512 n_past=0 k view")}
     meta = {
         "B1": ("q4_matmul_decode", "csrc/q4_decode.cu",
                "fastllama_tpu/kernels/q4_matmul.py:433"),
@@ -4095,6 +4446,10 @@ def main() -> int:
         # and :90); B1's kernel in its kFloor and kNosc modes
         "B13": ("q4_floor", "csrc/q4_decode.cu", "tools/bench_q4_floor.py:37"),
         "B14": ("q4_nosc", "csrc/q4_decode.cu", "tools/bench_q4_floor.py:49"),
+        # no Pallas kernel: the slab row write at a device offset, the
+        # counterpart of the JAX forward's _write_kv scatter (mode="drop")
+        "RW": ("slab_write_rows", "csrc/kv_write.cu",
+               "fastllama_tpu/models/llama.py:275"),
     }
     kernels = []
     for key, (name, src, replaces) in meta.items():
@@ -4155,6 +4510,16 @@ def main() -> int:
                     **{f"engine_{m}": runs[m]["launches"]["B12"]
                        for m in ("paged", "paged_chunked", "slab")},
                     "engine_f32_2_layers": engine_res["f32_b12_launches"]})
+        if key == "RW":
+            kernels[-1].update(
+                tpu_kernel="none: the XLA scatter of _write_kv (mode='drop'),"
+                           " no pl.pallas_call",
+                launches_by_path={
+                    "q4_1_lora_attached": q41_res["attached"]["launches"]
+                    ["RW"],
+                    **{f"engine_{m}": engine_res["runs"][m]["launches"]["RW"]
+                       for m in ("paged", "paged_chunked", "slab")}},
+                library_call=row["library_call"])
         if key in ("B13", "B14"):
             kernels[-1].update(
                 path="tools_torch/bench_q4_floor.py (phase 11, its default "
@@ -4174,7 +4539,7 @@ def main() -> int:
                "q41_lora_path": q41_res, "file_entry_points": file_res,
                "engine_path": engine_res, "converters": conv_res,
                "c_abi": c_res, "parallel": par_res, "bench_path": bench_res,
-               "graphs": graph_res,
+               "graphs": graph_res, "prefill_graphs": prefill_res,
                "seconds": time.perf_counter() - t_start,
                "phase_seconds": phase_s}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

@@ -55,7 +55,7 @@ from ..models.llama import (
     forward_paged_prefill, init_kv_cache, position_tables,
 )
 from ..parallel.collectives import all_gather, broadcast
-from ..utils.step_graph import StepGraph
+from ..utils.step_graph import GraphCache
 from ..utils.trace import trace_region
 from .logger import Logger, NULL_LOGGER
 from .paged_kv import PagedKVManager, write_tokens_paged
@@ -221,13 +221,6 @@ class BatchEngine:
         # the TP ranks of a group draw the same
         self._gen.manual_seed(sampling_seed + (self.dp_index << 32))
         self._k = min(top_k if top_k > 0 else hp.n_vocab, hp.n_vocab)
-        # the decode step (forward, sampling and the state advance, as the
-        # JAX engine's jitted step) replays a captured graph that draws
-        # from self._gen. Under a mesh it stays eager by construction:
-        # parallel/collectives stages gloo's collectives through the host,
-        # which a graph cannot hold.
-        self._graph = (StepGraph(dev, generators=(self._gen,))
-                       if self.mesh is None else None)
 
         self.slots = [_Slot() for _ in range(n_slots)]
         self.pending: "queue.Queue[Request]" = queue.Queue()
@@ -249,6 +242,19 @@ class BatchEngine:
         self._row_kv = None
         if self.chunked_admission or self.pager is None:
             self._row_kv = init_kv_cache(hp_local, 1, n_ctx, kv_dtype, dev)
+        # the decode step (forward, sampling and the state advance, as the
+        # JAX engine's jitted step; it draws from self._gen) and each
+        # admission's steps (the JAX engine's jitted prefill, chunk and
+        # splice steps, the first token's sampling inside) replay captured
+        # graphs, one a step kind and shape, in one cache and its memory
+        # pool. Its size is every key the engine makes (the decode step, a
+        # monolithic prefill a bucket, the chunk and the final splice), so
+        # no graph is ever dropped. Under a mesh every step stays eager by
+        # construction: parallel/collectives stages gloo's collectives
+        # through the host, which a graph cannot hold.
+        self._graphs = (GraphCache(dev, generators=(self._gen,),
+                                   size=len(self._buckets) + 3)
+                        if self.mesh is None else None)
 
     def _setup_mesh(self, hp: HyperParams, params: LlamaParams, n_slots: int,
                     rcfg: RuntimeConfig, logger: Logger) -> LlamaParams:
@@ -334,7 +340,7 @@ class BatchEngine:
         mesh. Returns this step's tokens [B, 1] in a tensor of their own:
         the graph's output is overwritten by the next step, while the drain
         keeps each step's tokens for up to 2 * drain_depth steps."""
-        if self._graph is None:
+        if self._graphs is None:
             return step(*(x.to(self.device) for x in inputs))
         pools = (None if self.pager is None else
                  (self.pager.k_pages, self.pager.v_pages))
@@ -342,73 +348,112 @@ class BatchEngine:
                  self.d_tokens, self.d_npast, self.d_active, self.d_lastn,
                  self.d_temps, self.d_topk, self.d_topp, self.d_rp,
                  self._gen)
-        static = (self.kv_mode, self.cfg, self.n_ctx, self.top_k, self._k)
-        return self._graph(step, static, state, *inputs).clone()
+        static = ("decode", self.kv_mode, self.cfg, self.n_ctx, self.top_k,
+                  self._k)
+        return self._graphs(step, static, state, *inputs).clone()
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def _host(self, a: np.ndarray) -> torch.Tensor:
+        """`a` in host memory for an admission step's input copy: pinned on
+        the card (PyTorch's caching host allocator reuses it only once the
+        copy is done)."""
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        return x.pin_memory() if self.device.type == "cuda" else x
 
-    def _prefill_slab(self, toks: np.ndarray, slot: int,
-                      last_idx: int) -> torch.Tensor:
+    def _admission_step(self, fn, static, *inputs):
+        """One admission step: `fn(*inputs)` replayed from its graph in the
+        engine's cache (one a step kind and bucket; the inputs copied into
+        its static buffers), or run eagerly under a mesh. The JAX engine's
+        jitted prefill, chunk and splice steps."""
+        if self._graphs is None:
+            return fn(*(x.to(self.device) for x in inputs))
+        pools = (None if self.pager is None else
+                 (self.pager.k_pages, self.pager.v_pages))
+        state = (self.params, self.kv, pools, self._row_kv, self._tables,
+                 self.d_tokens, self.d_npast, self.d_active, self.d_lastn,
+                 self.d_temps, self.d_topk, self.d_topp, self.d_rp)
+        return self._graphs(fn, static + (self.cfg, self.n_ctx, self.top_k,
+                                          self._k), state, *inputs)
+
+    def _prefill_slab(self, toks: torch.Tensor, slot: torch.Tensor,
+                      last_idx: torch.Tensor) -> torch.Tensor:
         """Single-row prefill: run the prompt through the [1, n_ctx] row
         cache, then splice the window's rows into the batched slab at `slot`
-        (the prompt costs 1/n_slots of a full-batch forward). Rows past the
-        window keep the previous occupant's values: finite, masked by the
-        slot's depth and overwritten as it decodes."""
-        logits, _, _ = forward(self.params, self._to_device(toks), 0,
-                               self._row_kv, self._prefill_cfg, last_idx,
-                               self._tables)
+        (int64 [1], this rank's index; the prompt costs 1/n_slots of a
+        full-batch forward). Rows past the window keep the previous
+        occupant's values: finite, masked by the slot's depth and
+        overwritten as it decodes. Returns the last row's logits [1, V]."""
+        logits, _, _ = forward(self.params, toks, 0, self._row_kv,
+                               self._prefill_cfg, last_idx, self._tables)
         self._splice_slab(slot, toks.shape[1])
         return logits[:, -1, :]
 
-    def _splice_slab(self, slot: int, n_rows: int) -> None:
-        slot -= self._lo                  # this rank's slab holds its slots
+    def _splice_slab(self, slot: torch.Tensor, n_rows: int) -> None:
+        """Rows [0, n_rows) of the row cache into the slab at `slot`."""
         for (k_all, v_all), (k1, v1) in zip(self.kv, self._row_kv):
-            k_all[slot, :n_rows] = k1[0, :n_rows]
-            v_all[slot, :n_rows] = v1[0, :n_rows]
+            k_all[:, :n_rows].index_copy_(0, slot, k1[:, :n_rows])
+            v_all[:, :n_rows].index_copy_(0, slot, v1[:, :n_rows])
 
     def _ingest_chunk(self, toks: np.ndarray, n_done: int,
                       last_idx: int) -> torch.Tensor:
-        """One n_batch-wide ingest step over the row cache. The rows are
-        written by the dropping scatter (the padded tail of the last chunk
-        can pass n_ctx); attention is the masked softmax over rows <=
+        """One n_batch-wide ingest step over the row cache at a tensor
+        offset (one graph serves every chunk). The rows are written by
+        slab_write_rows, which drops the padded tail of the last chunk
+        where it passes n_ctx; attention is the masked softmax over rows <=
         position, so partitioning the QUERY rows into chunks leaves each
-        row's math identical to the monolithic prefill (exactly in f32)."""
-        n_past = torch.full((1,), n_done, dtype=torch.int32,
-                            device=self.device)
-        logits, _, _ = forward(self.params, self._to_device(toks), n_past,
-                               self._row_kv, self.cfg, last_idx, self._tables)
-        return logits[:, -1, :]
+        row's math identical to the monolithic prefill (exactly in f32).
+        Returns the logits [1, V]: the graph's output, which the next replay
+        of the engine's cache may overwrite (the final chunk's go straight
+        into the splice step's input)."""
+        def chunk(tok, at):
+            logits, _, _ = forward(self.params, tok, at[0:1], self._row_kv,
+                                   self.cfg, at[1:2], self._tables)
+            return logits[:, -1, :]
+        return self._admission_step(
+            chunk, ("chunk",), self._host(toks),
+            self._host(np.array([n_done, last_idx], np.int32)))
 
-    def _splice_paged(self, slot: int, t: int) -> None:
-        """Write the admission row cache's first t rows into the slot's
-        pages with the bulk kernel B8: the row count is padded up to a page
-        multiple, so every block that holds a real row goes to its real page
-        whole. The tail rows of the last page then hold what the row cache
-        held there (finite: padded-chunk rows or stale ones), which the
-        length mask hides and later decode writes replace. A last block that
-        would pass the row cache (n_ctx not a page multiple) goes row by row
-        through write_tokens_paged."""
+    def _splice_paged(self, blocks: torch.Tensor) -> None:
+        """Write the admission row cache into the slot's pages with the bulk
+        kernel B8: every whole page of the row cache as a block, `blocks`
+        int32 [n_ctx // ps + 2 * (n_ctx % ps)] holding the slot's page for
+        each block that holds a prompt row and -1 for the others (B8 writes
+        nothing there), so the shape is the same for every prompt. The
+        tail rows of the last page then hold what the row cache held there
+        (finite: padded-chunk rows or stale ones), which the length mask
+        hides and later decode writes replace. Where n_ctx is not a page
+        multiple, its last n_ctx % ps rows go row by row through
+        write_tokens_paged, at the page ids and offsets that follow the
+        blocks (-1 where no prompt row lies)."""
         pager = self.pager
         ps = pager.page_size
-        n_bulk = min(-(-t // ps) * ps, (self.n_ctx // ps) * ps)
-        if n_bulk:
-            block_pages = self._to_device(np.ascontiguousarray(
-                pager.page_tables[slot, :n_bulk // ps]))
-            for kp, vp, (k1, v1) in zip(pager.k_pages, pager.v_pages,
-                                        self._row_kv):
-                paged_kv_write_rows(kp, vp, k1[0, :n_bulk], v1[0, :n_bulk],
-                                    block_pages)
-        if n_bulk < t:
-            h, hd = self.hp.n_head, self.hp.head_dim
-            pages, offs = (self._to_device(a[None]) for a in
-                           pager.token_page_offsets(slot, n_bulk, t - n_bulk))
-            for kp, vp, (k1, v1) in zip(pager.k_pages, pager.v_pages,
-                                        self._row_kv):
+        n_full, rem = divmod(self.n_ctx, ps)
+        h, hd = self.hp.n_head, self.hp.head_dim
+        for kp, vp, (k1, v1) in zip(pager.k_pages, pager.v_pages,
+                                    self._row_kv):
+            paged_kv_write_rows(kp, vp, k1[0, :n_full * ps],
+                                v1[0, :n_full * ps], blocks[:n_full])
+            if rem:
+                tail = slice(n_full * ps, self.n_ctx)
                 write_tokens_paged(
-                    kp, vp, k1[:, n_bulk:t].reshape(1, t - n_bulk, h, hd),
-                    v1[:, n_bulk:t].reshape(1, t - n_bulk, h, hd), pages,
-                    offs)
+                    kp, vp, k1[:, tail].reshape(1, rem, h, hd),
+                    v1[:, tail].reshape(1, rem, h, hd),
+                    blocks[None, n_full:n_full + rem],
+                    blocks[None, n_full + rem:])
+
+    def _splice_blocks(self, slot: int, t: int) -> np.ndarray:
+        """_splice_paged's page ids for a prompt of t tokens in `slot`."""
+        pager = self.pager
+        ps = pager.page_size
+        n_full, rem = divmod(self.n_ctx, ps)
+        blocks = np.full(n_full + 2 * rem, -1, np.int32)
+        n_real = min(-(-t // ps), n_full)
+        blocks[:n_real] = pager.page_tables[slot, :n_real]
+        if t > n_full * ps:
+            pages, offs = pager.token_page_offsets(slot, n_full * ps,
+                                                   t - n_full * ps)
+            blocks[n_full:n_full + len(pages)] = pages
+            blocks[n_full + rem:n_full + rem + len(offs)] = offs
+        return blocks
 
     # -- chunked admission ---------------------------------------------------
 
@@ -442,11 +487,21 @@ class BatchEngine:
                         f"request {adm.req.rid}: out of KV pages\n")
                     self._adm = None
                     return
-                self._splice_paged(si, t)
                 self.pager.lengths[si] = t
+
+                def splice(logits, blocks, *tail):
+                    self._splice_paged(blocks)
+                    return self._arm_slot(logits, *tail)
+                extra = (self._host(self._splice_blocks(si, t)),)
             else:
-                self._splice_slab(si, min(adm.n_done, self.n_ctx))
-            self._activate_slot(si, adm.req, adm.last_logits, t)
+                # the whole row cache, as the JAX splice: one shape for
+                # every prompt (rows past it are finite and masked)
+                def splice(logits, *tail):
+                    self._splice_slab(tail[0][1:2], self.n_ctx)
+                    return self._arm_slot(logits, *tail)
+                extra = ()
+            self._activate_slot(si, adm.req, t, "splice", splice,
+                                adm.last_logits, *extra)
             self._adm = None
 
     # -- request lifecycle ---------------------------------------------------
@@ -495,46 +550,66 @@ class BatchEngine:
         req.slot = slot_idx
         req.n_prompt = len(ids)
 
-    def _activate_slot(self, slot_idx: int, req: Request,
-                       logits_for_slot: Optional[torch.Tensor],
-                       t: int) -> None:
-        """Shared admission tail: fresh per-slot sampling state, the first
-        token sampled ON DEVICE (no host round-trip), device slot state
-        armed, and the first-token drain entry queued. Under data
-        parallelism only the owner group has the logits (the others pass
-        None) and broadcasts the token over the data axis."""
-        slot = self.slots[slot_idx]
-        req_temp, req_topk, req_topp, req_rp = self._req_sampling(req)
-        self.d_temps[slot_idx] = req_temp
-        self.d_topk[slot_idx] = req_topk
-        self.d_topp[slot_idx] = req_topp
-        self.d_rp[slot_idx] = req_rp
-        self.d_lastn[slot_idx] = -1
-
-        if logits_for_slot is None:
+    def _arm_slot(self, logits: Optional[torch.Tensor], at: torch.Tensor,
+                  ints: torch.Tensor, knobs: torch.Tensor, u: torch.Tensor,
+                  owner: int = 0) -> torch.Tensor:
+        """The admission tail on the device, at a slot held in a tensor:
+        the request's sampling knobs into the slot's rows, a fresh penalty
+        window, the first token sampled from logits [1, V] (None: another
+        data group's slot, whose token arrives by broadcast from `owner`),
+        the slot's token, depth and active flag armed. at int64 [slot,
+        this rank's slot]; ints int32 [t, top_k, last_idx]; knobs f32
+        [temp, top_p, repeat_penalty]; u the request's uniforms [1, k]. The
+        knobs reach the sampler as device rows, as in the decode step, so
+        one graph serves every request's values. Returns the first token
+        [1] int64."""
+        slot = at[0:1]
+        for row, x in ((self.d_temps, knobs[0:1]), (self.d_topp, knobs[1:2]),
+                       (self.d_rp, knobs[2:3]), (self.d_topk, ints[1:2])):
+            row.index_copy_(0, slot, x)
+        self.d_lastn.index_fill_(0, slot, -1)
+        if logits is None:
             first = torch.zeros(1, dtype=torch.int64, device=self.device)
         else:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self._sampling_seed * 1000003 + 100000 + req.rid)
             first = sample_device(
-                logits_for_slot, self.d_lastn[slot_idx:slot_idx + 1],
-                draw_uniforms(gen, 1, self._k, self.device),
-                top_k=self.top_k, top_p=req_topp, temp=req_temp,
-                repeat_penalty=req_rp,
-                top_k_v=self.d_topk[slot_idx:slot_idx + 1]).to(torch.int64)
+                logits, self.d_lastn.index_select(0, slot), u,
+                top_k=self.top_k, top_p=knobs[1:2], temp=knobs[0:1],
+                repeat_penalty=knobs[2:3], top_k_v=ints[1:2]).to(torch.int64)
         if self._dp_group is not None:          # from the owner data group
-            first = broadcast(first, slot_idx // (self._hi - self._lo),
-                              self._dp_group)
+            first = broadcast(first, owner, self._dp_group)
+        self.d_tokens.index_copy_(0, slot, first[:, None])
+        self.d_npast.index_copy_(0, slot, ints[0:1])
+        self.d_active.index_fill_(0, slot, True)
+        self.d_lastn[:, -1].index_copy_(0, slot, first.to(torch.int32))
+        return first
+
+    def _activate_slot(self, slot_idx: int, req: Request, t: int,
+                       kind: str, fn, *inputs) -> None:
+        """Shared admission tail: `fn(*inputs, at, ints, knobs, u, owner)`
+        runs the admission's last device step, which ends in _arm_slot (the
+        first token sampled ON DEVICE, no host round-trip), as one admission
+        step; then the host arms the slot and queues the first-token drain
+        entry. The first token's noise comes from a generator seeded from
+        the request id (so it does not depend on when the request was
+        admitted), drawn here into the step's input. Under data parallelism
+        only the owner group has logits (its fn computes them; the others'
+        fn passes None)."""
+        slot = self.slots[slot_idx]
+        temp, topk, topp, rp = self._req_sampling(req)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self._sampling_seed * 1000003 + 100000 + req.rid)
+        u = draw_uniforms(gen, 1, self._k, self.device)
+        owner = slot_idx // (self._hi - self._lo)
+        self._admission_step(
+            lambda *x: fn(*x, owner), (kind,), *inputs,
+            self._host(np.array([slot_idx, slot_idx - self._lo], np.int64)),
+            self._host(np.array([t, topk, t - 1], np.int32)),
+            self._host(np.array([temp, topp, rp], np.float32)), u)
 
         # host counters start one behind: the first-token drain advances them
         slot.n_past = t - 1
         slot.generated = 0
         slot.live = True
-
-        self.d_tokens[slot_idx] = first
-        self.d_npast[slot_idx] = t
-        self.d_active[slot_idx] = True
-        self.d_lastn[slot_idx, -1:] = first
         rids = [-1] * self.n_slots
         rids[slot_idx] = req.rid
         # a copy: d_tokens is updated in place by every later step
@@ -547,11 +622,13 @@ class BatchEngine:
         self._setup_slot(slot_idx, req, ids)
         slot = self.slots[slot_idx]
 
-        # bucketed prefill (single live row in every mode)
+        # bucketed prefill (single live row in every mode), the prefill, its
+        # splice and the first token one admission step
         t = len(ids)
         bucket = next((b for b in self._buckets if b >= t), self.n_ctx)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :t] = ids
+        mine = self._lo <= slot_idx < self._hi
         if self.pager is not None:
             # fresh slot: prompt-local attention + page writes
             if not self.pager.alloc_for(slot_idx, t):
@@ -560,24 +637,28 @@ class BatchEngine:
                 self.logger.log_err("BatchEngine",
                                     f"request {req.rid}: out of KV pages\n")
                 return False
-            pages = np.full(bucket, self.pager.sentinel, np.int32)
-            offs = np.zeros(bucket, np.int32)
-            pages[:t], offs[:t] = \
+            pages = np.full(2 * bucket, self.pager.sentinel, np.int32)
+            pages[bucket:] = 0
+            pages[:t], pages[bucket:bucket + t] = \
                 self.pager.token_page_offsets(slot_idx, 0, t)
-            logits_for_slot = None
-            if self._lo <= slot_idx < self._hi:
-                logits_for_slot, _, _ = forward_paged_prefill(
-                    self.params, self._to_device(toks), t - 1,
-                    self._to_device(pages), self._to_device(offs),
-                    self.pager.k_pages, self.pager.v_pages,
-                    self._prefill_cfg, self._tables)
-            self.pager.lengths[slot_idx] = t
-        elif self._lo <= slot_idx < self._hi:
-            logits_for_slot = self._prefill_slab(toks, slot_idx, t - 1)
-        else:
-            logits_for_slot = None       # another data group's slot
 
-        self._activate_slot(slot_idx, req, logits_for_slot, t)
+            def prefill(tok, pg, at, ints, *tail):
+                logits = None
+                if mine:
+                    logits, _, _ = forward_paged_prefill(
+                        self.params, tok, ints[2:3], pg[:bucket],
+                        pg[bucket:], self.pager.k_pages, self.pager.v_pages,
+                        self._prefill_cfg, self._tables)
+                return self._arm_slot(logits, at, ints, *tail)
+            inputs = (self._host(toks), self._host(pages))
+            self.pager.lengths[slot_idx] = t
+        else:
+            def prefill(tok, at, ints, *tail):
+                logits = (self._prefill_slab(tok, at[1:2], ints[2:3])
+                          if mine else None)   # another data group's slot
+                return self._arm_slot(logits, at, ints, *tail)
+            inputs = (self._host(toks),)
+        self._activate_slot(slot_idx, req, t, "prefill", prefill, *inputs)
         return True
 
     def _emit_token(self, slot: _Slot, token: int) -> None:

@@ -23,6 +23,19 @@
 // runs of D contiguous values as 16-byte vectors, so both the read (a run
 // inside a row) and the write (a run inside a page) are whole coalesced
 // segments and no staging through shared memory is needed.
+//
+// slab_write_rows is no TPU kernel's port: it is the in-place write of the
+// JAX forward's _write_kv (fastllama_tpu/models/llama.py:260-275) at a
+// position held on the device, T rows per sequence into the slab caches
+// [B, S, F] at n_past[b] + t, a row whose position falls outside [0, S)
+// dropped (the scatter's mode="drop": a padded chunk tail past n_ctx, an
+// inactive engine slot at n_ctx + 1). XLA's scatter takes one pass; PyTorch
+// has no dropping indexed write, and its general form costs about ten small
+// launches a write, 64 writes a 7B window. One block per row copies it as
+// 16-byte vectors (every row the forward writes, 7B or 13B, whole or a
+// tensor-parallel shard, bf16 or f32, is a 16-byte multiple at a 16-byte
+// aligned address); the positions of one sequence are distinct, so no two
+// blocks meet.
 
 #include "common.cuh"
 
@@ -70,6 +83,20 @@ kv_write_rows_kernel(uint4* __restrict__ kp, uint4* __restrict__ vp,
   }
 }
 
+// c 16-byte units per row; strides in units.
+__global__ void __launch_bounds__(kThreads)
+slab_write_rows_kernel(uint4* __restrict__ cache,
+                       const uint4* __restrict__ rows,
+                       const int* __restrict__ n_past, int S, int c,
+                       long long stride_b, long long stride_t) {
+  const int t = blockIdx.x, b = blockIdx.y;
+  const int p = n_past[b] + t;
+  if (p < 0 || p >= S) return;
+  const uint4* src = rows + b * stride_b + t * stride_t;
+  uint4* dst = cache + ((size_t)b * S + p) * c;
+  for (int i = threadIdx.x; i < c; i += kThreads) dst[i] = src[i];
+}
+
 }  // namespace
 
 // B7. Pools [H, P, ps, d] of type bf16 (pool_bf16 = 1) or f32; k_new, v_new
@@ -106,5 +133,22 @@ extern "C" int paged_kv_write_rows(void* kp, void* vp, const void* k_rows,
   kv_write_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (uint4*)kp, (uint4*)vp, (const uint4*)k_rows, (const uint4*)v_rows,
       (const int*)page_ids, H, P, ps, row_bytes / 16);
+  return (int)cudaGetLastError();
+}
+
+// The slab row write. cache [B, S, F] contiguous; rows [B, T, F] of the
+// cache's type, each row contiguous, row (b, t) at b * stride_b + t *
+// stride_t bytes; n_past int32 [B]. row_bytes, both strides and both base
+// addresses are multiples of 16.
+// Returns the CUDA error code of the launch.
+extern "C" int slab_write_rows(void* cache, const void* rows,
+                               const void* n_past, int B, int S, int T,
+                               int row_bytes, long long stride_b,
+                               long long stride_t, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  dim3 grid(T, B);
+  slab_write_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (uint4*)cache, (const uint4*)rows, (const int*)n_past, S,
+      row_bytes / 16, stride_b / 16, stride_t / 16);
   return (int)cudaGetLastError();
 }

@@ -53,6 +53,7 @@ ARGTYPES = {
                                 I, I, F, I, P, P, P, P],
     "paged_kv_write": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "paged_kv_write_rows": [P, P, P, P, P, I, I, I, I, I, P],
+    "slab_write_rows": [P, P, P, I, I, I, I, L, L, P],
     "flash_prefill": [P, P, P, L, L, L, L, L, L, L, L, L, I, I, I, I, I, I,
                       I, F, P, P, P, P],
 }
@@ -67,6 +68,7 @@ LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
           "paged_decode_attention_flat": "paged_attention",
           "paged_decode_step_fused": "paged_attention",
           "paged_kv_write": "kv_write", "paged_kv_write_rows": "kv_write",
+          "slab_write_rows": "kv_write",
           "flash_prefill": "flash_prefill"}
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -15,6 +15,12 @@ whole pages [H, ps, D], a head-major transpose, at page_ids[T / ps].
 Both update the pools IN PLACE and return them. The CUDA kernels are in
 csrc/kv_write.cu; each wrapper launches its kernel for CUDA tensors and runs
 its plain version for CPU tensors.
+
+slab_write_rows (in the same source; no TPU kernel's port) is the slab
+caches' row write at a position held on the device: the forward's K/V write
+when n_past is a tensor (the engine's per-slot depths, every captured
+window and step), T rows a sequence at n_past[b] + t, rows outside the
+cache dropped, as the JAX forward's scatter with mode="drop".
 """
 from __future__ import annotations
 
@@ -183,3 +189,64 @@ def paged_kv_write_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
 
 
 cuda_lib.counted(paged_kv_write_rows)
+
+
+# ---------------------------------------------------------------------------
+# The slab row write at a device offset
+# ---------------------------------------------------------------------------
+
+def slab_write_rows_plain(cache, rows, n_past):
+    """Plain PyTorch version of slab_write_rows (same arguments and
+    effects): the general dropping scatter over the flat cache."""
+    b, s, f = cache.shape
+    t = rows.shape[1]
+    pos = (n_past.to(torch.int64)[:, None]
+           + torch.arange(t, device=cache.device)[None, :])
+    ok = ((pos >= 0) & (pos < s)).reshape(-1)
+    flat = (pos + torch.arange(b, device=cache.device)[:, None] * s
+            ).reshape(-1)
+    scatter_rows_drop(cache.view(1, b * s, f), flat, ok,
+                      rows.reshape(1, b * t, f))
+    return cache
+
+
+def slab_write_rows(cache: torch.Tensor, rows: torch.Tensor,
+                    n_past: torch.Tensor) -> torch.Tensor:
+    """cache[b, n_past[b] + t] = rows[b, t] in place, for each position in
+    [0, S); a row whose position is outside is not written. cache
+    [B, S, F] contiguous; rows [B, T, F] of the cache's dtype, each row
+    contiguous (a strided view of q/k/v is taken as it is); n_past int32
+    [B]. On the card the rows, their strides and both base addresses are
+    16-byte multiples (the kernel copies 16-byte vectors). One launch,
+    whatever drops. Returns the cache."""
+    b, s, f = cache.shape
+    t = rows.shape[1]
+    _require(rows.dim() == 3 and rows.shape[0] == b and rows.shape[2] == f
+             and rows.dtype == cache.dtype,
+             f"rows must be {cache.dtype} [{b}, T, {f}]: got "
+             f"{tuple(rows.shape)} {rows.dtype}")
+    _require(n_past.shape == (b,) and n_past.dtype == torch.int32,
+             f"n_past must be int32 [{b}]: got {tuple(n_past.shape)} "
+             f"{n_past.dtype}")
+    if cache.device.type == "cpu":
+        return slab_write_rows_plain(cache, rows, n_past)
+    _require(_on_one_cuda_device((cache, n_past))
+             and rows.device == cache.device and rows.stride(2) == 1,
+             "cache and n_past contiguous, rows with contiguous rows, all on "
+             "one CUDA device")
+    item = cache.dtype.itemsize
+    sizes = (f * item, rows.stride(0) * item, rows.stride(1) * item,
+             rows.data_ptr(), cache.data_ptr())
+    _require(all(x % 16 == 0 for x in sizes),
+             f"rows, their strides and both base addresses must be 16-byte "
+             f"multiples: got {sizes}")
+    rc = cuda_lib.fn("slab_write_rows")(
+        cache.data_ptr(), rows.data_ptr(), n_past.data_ptr(), b, s, t,
+        f * item, rows.stride(0) * item, rows.stride(1) * item,
+        cuda_lib.stream_handle(cache.device))
+    cuda_lib.check(rc, "slab_write_rows")
+    slab_write_rows.launches += 1
+    return cache
+
+
+cuda_lib.counted(slab_write_rows)

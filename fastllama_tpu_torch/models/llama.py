@@ -48,7 +48,7 @@ from ..kernels.decode_attention import (
 )
 from ..kernels.flash_prefill import HEAD_DIMS as FLASH_HEAD_DIMS
 from ..kernels.flash_prefill import flash_prefill
-from ..kernels.kv_write import paged_kv_write, scatter_rows_drop
+from ..kernels.kv_write import paged_kv_write, slab_write_rows
 from ..kernels.paged_attention import (
     paged_decode_attention, paged_decode_step_fused,
 )
@@ -259,26 +259,12 @@ def _qkv_lora(x: torch.Tensor, layer: LayerParams, q, k, v):
 def _write_rows_drop(cache: torch.Tensor, val: torch.Tensor,
                      positions: torch.Tensor) -> None:
     """cache[b, positions[b, t]] = val[b, t], in place, for positions inside
-    the cache; a row whose position is at or past S is not written (the JAX
-    scatter with mode="drop": an inactive engine slot runs at n_ctx + 1, and
-    a padded chunk tail can pass n_ctx)."""
-    b, s, f = cache.shape
-    if positions.shape[1] == 1:
-        # a decode step writes one row a sequence, so no two writes meet: a
-        # dropped row rewrites the nearest cache row with what it holds, in
-        # a few small launches where scatter_rows_drop's general form (its
-        # rows may meet) takes many more; a step with q/k/v LoRA or f32
-        # attention makes two of these writes a layer
-        pos = positions[:, 0]
-        sel = (torch.arange(b, device=pos.device), pos.clamp(0, s - 1))
-        ok = ((pos >= 0) & (pos < s))[:, None]
-        cache[sel] = torch.where(ok, val[:, 0].to(cache.dtype), cache[sel])
-        return
-    pos = positions.to(torch.int64)
-    ok = ((pos >= 0) & (pos < s)).reshape(-1)
-    flat = (pos + torch.arange(b, device=pos.device)[:, None] * s).reshape(-1)
-    scatter_rows_drop(cache.view(1, b * s, f), flat, ok,
-                      val.reshape(1, -1, f))
+    the cache; a row whose position is outside [0, S) is not written (the
+    JAX scatter with mode="drop": an inactive engine slot runs at n_ctx + 1,
+    and a padded chunk tail can pass n_ctx). positions [B, T] run
+    consecutively from positions[:, 0]: one launch of slab_write_rows."""
+    slab_write_rows(cache, val.to(cache.dtype),
+                    positions[:, 0].to(torch.int32).contiguous())
 
 
 def _flash_viable(cfg: ForwardConfig, t: int, hd: int) -> bool:
@@ -430,6 +416,15 @@ def _position_lanes(tables: PositionTables | None, positions: torch.Tensor,
             tables.sin.index_select(0, idx).reshape(*positions.shape, hd))
 
 
+def _row_at(x: torch.Tensor, idx: "int | torch.Tensor") -> torch.Tensor:
+    """x[:, idx:idx + 1]: a slice for an int, a gather for an int32 tensor
+    [1] on the device (a captured window's last valid row, which changes
+    from call to call), the same values either way."""
+    if isinstance(idx, torch.Tensor):
+        return x.index_select(1, idx.reshape(1))
+    return x[:, idx:idx + 1]
+
+
 def forward(params: LlamaParams, tokens: torch.Tensor,
             n_past: "int | torch.Tensor",
             kv_caches: list[KVPair], cfg: ForwardConfig,
@@ -441,11 +436,13 @@ def forward(params: LlamaParams, tokens: torch.Tensor,
       tokens: [B, T] int (padded tokens allowed: their logits and cache rows
         are garbage that later writes overwrite).
       n_past: tokens already in the cache. An int is one shared offset (the
-        session). An int32 tensor [B] (or [1]) gives each row its own depth
-        (the batching engine): the rows are written by a scatter that drops
+        session's eager windows). An int32 tensor [B] (or [1]) gives each
+        row its own depth (the batching engine, every captured window and
+        step): the rows are written by slab_write_rows, which drops
         positions at or past S, and nothing is read back to the host.
       kv_caches: per-layer (k, v), each [B, S, H*Dh]; updated in place.
-      last_idx: index of the last valid token in the T window (default T-1);
+      last_idx: index of the last valid token in the T window (default T-1),
+        an int or an int32 tensor [1] on the device (the captured windows');
         the non-all-logits head and the embeddings tap read this row.
       tables: position_tables covering the window (built here when None).
         With per-row depths the tables are gathered at the positions clipped
@@ -520,7 +517,7 @@ def forward(params: LlamaParams, tokens: torch.Tensor,
             x_last = torch.zeros_like(x_last)
         x_last = psum(x_last, cfg.sp_group)
     else:
-        x_last = x[:, last_idx:last_idx + 1]
+        x_last = _row_at(x, last_idx)
     embeddings = x_last[:, 0, :].to(torch.float32)
     logits = _head(x if cfg.all_logits else x_last, params, cfg, lora=True)
     if cfg.sp_group is not None and cfg.all_logits and t > 1:
@@ -528,15 +525,48 @@ def forward(params: LlamaParams, tokens: torch.Tensor,
     return logits, kv_caches, embeddings
 
 
+def forward_jit(params: LlamaParams, tokens: torch.Tensor,
+                n_past: torch.Tensor, kv_caches: list[KVPair],
+                cfg: ForwardConfig, last_idx: torch.Tensor,
+                tables: PositionTables | None = None, *, graphs):
+    """`forward` over a window (tokens [B, T]) with n_past and last_idx
+    int32 tensors [1] on the device, replayed from `graphs` (a
+    utils.step_graph.GraphCache the caller owns): the counterpart of the
+    JAX forward_jit, whose n_past and last_idx are traced, so one compile
+    serves a bucket at any offset. Here one graph serves a (cfg, bucket,
+    state) key at any offset and last row: the first call with a key runs
+    the window and captures it, later calls copy tokens, n_past and
+    last_idx into the graph's static buffers and replay.
+
+    The tensor route gives the int route's logits, embeddings and cache
+    rows bit for bit: the RoPE lanes are gathered from the same position
+    tables, slab_write_rows stores the rows the slice assignment stores,
+    the last row is gathered where the int route slices it, and the mask
+    compares the same positions. A fresh window (cfg.flash_prefill, the
+    caller's n_past == 0 promise) attends through B12 on the rows it has
+    just written. The KV cache the JAX version donates is updated in place
+    here. Returns (logits [B, T or 1, V] f32, kv_caches, embeddings
+    [B, D]): the graph's static outputs, which the next call of any graph
+    of the cache may overwrite."""
+    def window(tok, pos, last):
+        logits, _, emb = forward(params, tok, pos, kv_caches, cfg, last,
+                                 tables)
+        return logits, emb
+    logits, emb = graphs(window, ("window", cfg), (params, kv_caches, tables),
+                         tokens, n_past, last_idx)
+    return logits, kv_caches, emb
+
+
 def forward_jit_decode(params: LlamaParams, tokens: torch.Tensor,
                        n_past: torch.Tensor, kv_caches: list[KVPair],
                        cfg: ForwardConfig,
                        tables: PositionTables | None = None, *, graph):
     """One decode step (tokens [B, 1]) of `forward` with n_past an int32
-    tensor [B], replayed from `graph` (a utils.step_graph.StepGraph the
-    caller owns, the counterpart of jax.jit's cache): the first call with a
-    new key runs the step and captures it, every later one copies tokens
-    and n_past into the graph's static buffers and replays.
+    tensor [B], replayed from `graph` (a utils.step_graph.GraphCache or
+    StepGraph the caller owns, the counterpart of jax.jit's cache): the
+    first call with a new key runs the step and captures it, every later
+    one copies tokens and n_past into the graph's static buffers and
+    replays.
 
     The tensor form of n_past is the one a graph can hold (a Python int is
     baked into a capture); at B = 1 it gives the int form's logits bit for
@@ -546,13 +576,14 @@ def forward_jit_decode(params: LlamaParams, tokens: torch.Tensor,
     options (utils/xla_opts.py: MSA operand pre-staging on the TPU), which
     have no meaning on the card; the KV cache it donates is updated in
     place here. Returns (logits [B, 1, V] f32, kv_caches, embeddings
-    [B, D]): the graph's static outputs, which the next call overwrites."""
+    [B, D]): the graph's static outputs, which the next call of any graph
+    of the cache may overwrite."""
     def step(tok, pos):
         logits, _, emb = forward(params, tok, pos, kv_caches, cfg, None,
                                  tables)
         return logits, emb
-    logits, emb = graph(step, cfg, (params, kv_caches, tables), tokens,
-                        n_past)
+    logits, emb = graph(step, ("decode", cfg), (params, kv_caches, tables),
+                        tokens, n_past)
     return logits, kv_caches, emb
 
 
@@ -622,7 +653,8 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
 
 
 def forward_paged_prefill(params: LlamaParams, tokens: torch.Tensor,
-                          last_idx: int, page_ids: torch.Tensor,
+                          last_idx: "int | torch.Tensor",
+                          page_ids: torch.Tensor,
                           offsets: torch.Tensor,
                           k_pages: list[torch.Tensor],
                           v_pages: list[torch.Tensor], cfg: ForwardConfig,
@@ -635,7 +667,9 @@ def forward_paged_prefill(params: LlamaParams, tokens: torch.Tensor,
     the engine's admission sets it) the block attends through B12;
     otherwise through a masked f32 softmax over the unrounded K and V of
     the block. tokens [1, T] (bucketed; the padded tail carries sentinel
-    page ids). Returns (last_logits [1, V] f32, k_pages, v_pages).
+    page ids); last_idx an int or an int32 tensor [1] on the device (the
+    captured admission's). Returns (last_logits [1, V] f32, k_pages,
+    v_pages).
     """
     from ..engine.paged_kv import write_tokens_paged
     b, t = tokens.shape
@@ -673,7 +707,7 @@ def forward_paged_prefill(params: LlamaParams, tokens: torch.Tensor,
         x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
 
     x = rms_norm(x, params.norm, cfg.rms_eps)
-    logits = _head(x[:, last_idx:last_idx + 1], params, cfg)
+    logits = _head(_row_at(x, last_idx), params, cfg)
     return logits[:, 0], k_pages, v_pages
 
 

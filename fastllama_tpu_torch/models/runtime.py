@@ -27,11 +27,18 @@ from ..config import HyperParams, RuntimeConfig, resolve_device
 from ..engine.logger import Logger, NULL_LOGGER, ProgressTag
 from ..engine.tokenizer import Vocab
 from ..io.ggml_reader import MAGIC_GGLA, read_ggml_file
-from ..utils.step_graph import StepGraph
+from ..utils.step_graph import GraphCache
 from .llama import (
-    LORA_FIELDS, ForwardConfig, LlamaParams, LoraTerm, forward,
+    LORA_FIELDS, ForwardConfig, LlamaParams, LoraTerm, forward, forward_jit,
     forward_jit_decode, init_kv_cache, position_tables,
 )
+
+# graphs a session keeps: its decode step and its multi-token windows, a
+# (config, bucket) pair each (the fresh and the later windows, last-row and
+# all-logits, and the exact shapes at the context boundary); the least
+# recently used past this count is dropped (and recaptured if its shape
+# comes back)
+SESSION_GRAPHS = 13
 
 
 class LlamaModel:
@@ -73,15 +80,23 @@ class LlamaModel:
         self._embeddings = torch.zeros((1, hp.n_embd), dtype=torch.float32)
         self._buckets = sorted({min(b, rcfg.n_ctx)
                                 for b in rcfg.prefill_buckets} | {1, rcfg.n_ctx})
-        # single-token windows replay a captured step (forward_jit_decode),
-        # the token and position staged in host buffers (pinned on the
-        # card) for its input copies. Under a mesh the step stays eager by
-        # construction: parallel/collectives stages gloo's collectives
-        # through the host, which a graph cannot hold.
-        self._step = StepGraph(self.device) if self.mesh is None else None
+        # every window replays a captured graph, as every JAX window runs a
+        # jit: single-token ones the decode step (forward_jit_decode), the
+        # others one graph a (config, bucket) pair (forward_jit), all in one
+        # cache and its one memory pool (eval copies a window's logits off
+        # before the next); the tokens, position and last row are staged in
+        # host buffers (pinned on the card) for the input copies. Under a
+        # mesh every window stays eager by construction:
+        # parallel/collectives stages gloo's collectives through the host,
+        # which a graph cannot hold.
+        self._graphs = (GraphCache(self.device, size=SESSION_GRAPHS)
+                        if self.mesh is None else None)
+        self.boundary_windows = 0    # windows of an exact length (no bucket)
         pin = self.device.type == "cuda"
-        self._tok_in = torch.zeros((1, 1), dtype=torch.int64, pin_memory=pin)
+        self._tok_in = torch.zeros((1, rcfg.n_ctx), dtype=torch.int64,
+                                   pin_memory=pin)
         self._pos_in = torch.zeros((1,), dtype=torch.int32, pin_memory=pin)
+        self._last_in = torch.zeros((1,), dtype=torch.int32, pin_memory=pin)
 
     def _setup_mesh(self, hp: HyperParams, rcfg: RuntimeConfig) -> dict:
         """Build the mesh, take this rank's shard of the parameters onto its
@@ -140,11 +155,14 @@ class LlamaModel:
 
     def _bucket(self, t: int, n_past: int) -> int:
         """Smallest bucket >= t whose window still fits the cache; falls back
-        to the exact remaining room at the context boundary."""
+        to the window's exact length at the context boundary (counted in
+        boundary_windows: each length is a graph of its own, and
+        SESSION_GRAPHS bounds how many a session keeps)."""
         room = self.hp.n_ctx - n_past
         for b in self._buckets:
             if t <= b <= room:
                 return b
+        self.boundary_windows += 1
         return max(t, 1)
 
     def eval(self, n_past: int, tokens: Sequence[int],
@@ -171,27 +189,38 @@ class LlamaModel:
             buf = buf[:, self.sp_index * tl:(self.sp_index + 1) * tl]
         cfg = self._cfg[(all_logits, n_past == 0 and t > 1)]
         with torch.inference_mode():
-            if b == 1 and self._step is not None:
-                # the session's decode step, as JAX's forward_jit_decode;
-                # the logits leave in one device->host copy
-                self._tok_in[0, 0] = int(buf[0, 0])
-                self._pos_in[0] = n_past
-                logits, self.kv, self._embeddings = forward_jit_decode(
-                    self.params, self._tok_in, self._pos_in, self.kv, cfg,
-                    self._tables, graph=self._step)
-            else:
+            if self._graphs is None:        # under a mesh: eager
                 logits, self.kv, self._embeddings = forward(
                     self.params, torch.from_numpy(buf).to(self.device),
                     n_past, self.kv, cfg, t - 1, self._tables)
+            else:
+                # the staged inputs are free again: the last eval ended in
+                # the logits' device->host copy, after its input copies
+                self._tok_in[:, :b] = torch.from_numpy(buf)
+                self._pos_in[0] = n_past
+                self._last_in[0] = t - 1
+                if b == 1:
+                    # the session's decode step, as JAX's
+                    # forward_jit_decode
+                    logits, self.kv, self._embeddings = forward_jit_decode(
+                        self.params, self._tok_in[:, :1], self._pos_in,
+                        self.kv, cfg, self._tables, graph=self._graphs)
+                else:
+                    # a prefill window, as JAX's forward_jit: one graph a
+                    # (config, bucket) pair serves every offset and last row
+                    logits, self.kv, self._embeddings = forward_jit(
+                        self.params, self._tok_in[:, :b], self._pos_in,
+                        self.kv, cfg, self._last_in, self._tables,
+                        graphs=self._graphs)
             # a copy on every device (on the CPU .cpu() would alias the
-            # step graph's output, which the next step overwrites)
+            # graph's output, which the next window overwrites)
             out = logits[0].to("cpu", copy=True).numpy()
         self.n_cached = max(self.n_cached, n_past + t)
         return out[:t] if all_logits else out[-1]
 
     def get_embeddings(self) -> np.ndarray:
-        """Final-norm hidden state of the last evaluated token (a copy: after
-        a decode step it is the step graph's output, which the next step
+        """Final-norm hidden state of the last evaluated token (a copy: it
+        is the last window's graph output, which the next window
         overwrites)."""
         return self._embeddings[0].to("cpu", copy=True).numpy()
 

@@ -1,10 +1,14 @@
-"""StepGraph: a step function captured once as a CUDA graph and replayed.
+"""StepGraph: a step function captured once as a CUDA graph and replayed;
+GraphCache: one StepGraph a key, as jax.jit keeps one compile a static
+signature.
 
-The port's counterpart of what `jax.jit` does for the JAX package's decode
-steps (`models/llama.forward_jit_decode`, the engine's `_build_decode` and
-`_build_decode_paged`, bench.py's `decode_step`): the step's ~450 kernel
-launches are enqueued by one `CUDAGraph.replay()` instead of one Python
-call each.
+The port's counterpart of what `jax.jit` does for the JAX package's steps:
+the decode steps (`models/llama.forward_jit_decode`, the engine's
+`_build_decode` and `_build_decode_paged`, bench.py's `decode_step`) and
+the prefill windows and admissions (`models/llama.forward_jit`, the
+engine's `_build_prefill*`, `_build_ingest_chunk` and `_build_splice*`,
+bench.py's `prefill_step`): a step's hundreds of kernel launches are
+enqueued by one `CUDAGraph.replay()` instead of one Python call each.
 
     graph = StepGraph(device, generators=(gen,))
     out = graph(fn, static, state, *inputs)
@@ -37,6 +41,12 @@ call each.
     (torch.rand(generator=g)); each is registered with the graph, so a
     replay draws what an eager call at the same generator offset draws and
     advances the generator as that call would.
+  * `pool`: a memory pool handle (torch.cuda.graph_pool_handle()) the
+    capture allocates from; graphs that never run at once may share one, so
+    their intermediates take the same memory. A replay then writes its
+    intermediates where another graph of the pool may keep its static
+    outputs: a caller copies (or consumes) a graph's outputs before another
+    graph of the pool replays (GraphCache gives its graphs one pool).
   * On the card a capture or a replay that fails raises; nothing falls back
     to the eager step. On the CPU (a `device="cpu"` run) the same object
     calls fn on the same static buffers every time and copies its results
@@ -46,6 +56,7 @@ call each.
 """
 from __future__ import annotations
 
+import collections
 import time
 
 import torch
@@ -80,15 +91,41 @@ def reached(state) -> list:
     return out
 
 
+def pool_bytes(device, pool) -> "int | None":
+    """The device bytes the caching allocator holds for a CUDA graph memory
+    pool: the sizes of its segments in torch.cuda.memory_snapshot(). 0
+    without a pool (the CPU); None where the snapshot does not name each
+    segment's pool. A measurement (it walks every segment), not for a
+    step's path."""
+    if pool is None or torch.device(device).type != "cuda":
+        return 0
+    segments = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in segments):
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def step_key(static, state, inputs) -> tuple[tuple, list]:
+    """A step's key (the static part, the ids of what `state` reaches, the
+    input shapes and dtypes) and the objects whose ids it holds."""
+    objs = reached(state)
+    return (static, tuple(map(id, objs)),
+            tuple((tuple(x.shape), x.dtype) for x in inputs)), objs
+
+
 class StepGraph:
     """One captured step (see the module docstring)."""
 
-    def __init__(self, device, generators=()):
+    def __init__(self, device, generators=(), pool=None):
         self.device = torch.device(device)
         self.generators = tuple(generators)
+        self.pool = pool
         self.key = None
         self.captures = 0           # keys built: a capture each on the card
-        self.replays = 0            # calls served by a replay
+        self.replays = 0            # calls served by a replay (on the
+                                    # CPU: by the static buffers, the
+                                    # replay's path there)
         self.build_s = 0.0          # host seconds of the builds (warm-ups
                                     # and captures) so far
         self._graph = None
@@ -102,9 +139,10 @@ class StepGraph:
         return {w.__name__: n for w, _, n in self._launches}
 
     def __call__(self, fn, static, state, *inputs):
-        objs = reached(state)
-        key = (static, tuple(map(id, objs)),
-               tuple((tuple(x.shape), x.dtype) for x in inputs))
+        return self.run(fn, *step_key(static, state, inputs), inputs)
+
+    def run(self, fn, key, objs, inputs):
+        """__call__ with the key already made (GraphCache makes it once)."""
         with torch.inference_mode():
             if key != self.key:
                 t0 = time.perf_counter()
@@ -117,9 +155,9 @@ class StepGraph:
                     self._store(fn(*self._inputs))
                 else:
                     self._graph.replay()
-                    self.replays += 1
                     for w, attr, n in self._launches:
                         setattr(w, attr, getattr(w, attr) + n)
+                self.replays += 1
         return self._outputs
 
     def _store(self, out) -> None:
@@ -171,7 +209,8 @@ class StepGraph:
         before = cuda_lib.counts()
         bufs = cuda_lib.buffers()
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
                 out = fn(*self._inputs)
         finally:
             after = cuda_lib.counts()
@@ -188,3 +227,58 @@ class StepGraph:
         # the static outputs are the captured step's; _store fills them
         # with the warm-up's values, the ones a replay would write
         self._outputs = out
+
+
+class GraphCache:
+    """StepGraphs by key, the least recently used dropped past `size`:
+    `cache(fn, static, state, *inputs)` replays the graph of a key it has
+    seen and builds one (a warm-up and a capture, as StepGraph) for a new
+    key. jax.jit's cache of compiles, one a static signature. Each owner
+    keeps one: a session's (its decode step and its prefill windows, one
+    graph a bucket and config) and an engine's (its decode step and its
+    admission steps). `static` is a tuple whose first item names the step
+    (entries() finds a step's graphs by it). Every graph of a cache
+    allocates from one memory pool (`pool`, made here on the card): they
+    never run at once, and each caller consumes a graph's outputs before
+    another graph of the cache replays (StepGraph's `pool`).
+    Counts: captures (keys built), replays, evictions, build_s; last the
+    StepGraph of the latest call; pool_bytes() the pool's device memory."""
+
+    def __init__(self, device, generators=(), size: int = 8):
+        self.device = torch.device(device)
+        self.generators = tuple(generators)
+        self.size = size
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if self.device.type == "cuda" else None)
+        self.graphs: "collections.OrderedDict[tuple, StepGraph]" = \
+            collections.OrderedDict()
+        self.captures = self.replays = self.evictions = 0
+        self.build_s = 0.0
+        self.last: "StepGraph | None" = None
+
+    def entries(self, kind: str) -> list[StepGraph]:
+        """The graphs held for the step named `kind` (static[0])."""
+        return [g for key, g in self.graphs.items() if key[0][0] == kind]
+
+    def pool_bytes(self) -> "int | None":
+        """Device bytes held for the cache's memory pool (0 on the CPU)."""
+        return pool_bytes(self.device, self.pool)
+
+    def __call__(self, fn, static, state, *inputs):
+        key, objs = step_key(static, state, inputs)
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = StepGraph(self.device, self.generators, self.pool)
+            self.graphs[key] = graph
+            while len(self.graphs) > self.size:
+                self.graphs.popitem(last=False)
+                self.evictions += 1
+        else:
+            self.graphs.move_to_end(key)
+        before = (graph.captures, graph.replays, graph.build_s)
+        out = graph.run(fn, key, objs, inputs)
+        self.captures += graph.captures - before[0]
+        self.replays += graph.replays - before[1]
+        self.build_s += graph.build_s - before[2]
+        self.last = graph
+        return out

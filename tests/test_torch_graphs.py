@@ -176,12 +176,13 @@ def test_session_through_the_step_graph_matches_jax(ggjt_path, tmp_path):
     generation that recycles the context (n_ctx 64), save_state, reset,
     load_state, a LoRA attach and its detach between generations. State
     loads, resets and recycles keep the graph (the caches are written in
-    place); attach and detach each build a new key, and detach restores
-    the logits bit for bit."""
+    place); attach builds a new key, detach comes back to the first key
+    (the layers' fields are reset in place), whose graph the session's
+    cache still holds, and restores the logits bit for bit."""
     jm, tm = both_models(ggjt_path)
     js_, ts_ = JaxFastLlama(jm, n_keep=16, seed=5), FastLlama(tm, n_keep=16,
                                                               seed=5)
-    step = tm._step
+    cache = tm._graphs
 
     def both(fn):
         return fn(js_), fn(ts_)
@@ -190,8 +191,10 @@ def test_session_through_the_step_graph_matches_jax(ggjt_path, tmp_path):
         assert s.ingest(" t1 t2", is_system_prompt=True)
     j, t = both(lambda s: greedy_stream(s, " t3 t4", 8))
     assert t == j and t
+    step = cache.last                         # the decode step's graph
     key, built = step.key, step.captures
     assert built == 1 and key is not None
+    assert cache.entries("decode") == [step]
 
     j, t = both(lambda s: greedy_stream(s, " t5", 60))    # recycles
     assert t == j and ts_.n_past <= 64
@@ -204,6 +207,7 @@ def test_session_through_the_step_graph_matches_jax(ggjt_path, tmp_path):
     j2, t2 = both(lambda s: greedy_stream(s, " t6", 6))
     assert (j2, t2) == (j, t)
     assert (step.key, step.captures) == (key, built)
+    assert cache.entries("decode") == [step]
 
     for s in (js_, ts_):
         s.reset()
@@ -215,14 +219,17 @@ def test_session_through_the_step_graph_matches_jax(ggjt_path, tmp_path):
         s.reset()
     j, t = both(lambda s: greedy_stream(s, " t7", 4))
     assert t == j
-    assert step.captures == built + 1 and step.key != key
+    attached = cache.last
+    assert attached is not step and attached.key != key
+    assert attached.captures == 1 and len(cache.entries("decode")) == 2
     np.testing.assert_allclose(ts_.get_logits(), js_.get_logits(),
                                rtol=1e-4, atol=1e-4)
     assert jm.detach_lora() and tm.detach_lora()
     for s in (js_, ts_):
         s.reset()
     assert both(lambda s: greedy_stream(s, " t7", 4)) == base
-    assert step.captures == built + 2
+    assert cache.last is step and step.captures == built
+    assert len(cache.entries("decode")) == 2 and cache.evictions == 0
     np.testing.assert_array_equal(ts_.get_logits(), base_logits)
 
 
@@ -234,9 +241,9 @@ def test_embeddings_are_a_copy_of_the_static_output(ggjt_path):
     greedy_stream(s, " t3", 2)
     first = s.get_embeddings()
     kept = first.copy()
-    assert tm._embeddings is tm._step._outputs[1]
+    assert tm._embeddings is tm._graphs.last._outputs[1]
     greedy_stream(s, " t4", 2)
-    assert tm._embeddings is tm._step._outputs[1]
+    assert tm._embeddings is tm._graphs.last._outputs[1]
     assert not np.array_equal(first, s.get_embeddings())
     np.testing.assert_array_equal(first, kept)
 
@@ -258,7 +265,7 @@ def test_engine_graph_greedy_matches_jax(world, mode, depth):  # noqa: F811
     te.run(tr)
     assert [r.tokens_out for r in tr] == [r.tokens_out for r in jr]
     assert all(len(r.tokens_out) == 7 for r in tr)
-    assert te._graph.captures == 1
+    assert [g.captures for g in te._graphs.entries("decode")] == [1]
 
 
 @pytest.mark.parametrize("depth", [0, 2])
@@ -271,7 +278,7 @@ def test_engine_graph_equals_eager_sampled(world, mode, depth):  # noqa: F811
         eng = port_engine(world, temp=0.8, drain_depth=depth,
                           sampling_seed=3, **MODES[mode])
         if not graph:
-            eng._graph = None
+            eng._graphs = None
         reqs = [ts.Request(prompt=words(i, 2 + i), max_tokens=9)
                 for i in range(5)]
         eng.run(reqs)
@@ -280,7 +287,7 @@ def test_engine_graph_equals_eager_sampled(world, mode, depth):  # noqa: F811
     eeng, want = run(False)
     assert got == want and all(len(t) == 9 for t in got)
     assert torch.equal(geng._gen.get_state(), eeng._gen.get_state())
-    assert geng._graph.captures == 1
+    assert [g.captures for g in geng._graphs.entries("decode")] == [1]
 
 
 def test_engine_step_returns_a_tensor_of_its_own(world):  # noqa: F811
@@ -290,7 +297,7 @@ def test_engine_step_returns_a_tensor_of_its_own(world):  # noqa: F811
     eng.submit(ts.Request(prompt=words(3, 3), max_tokens=20))
     for _ in range(4):
         eng.step()
-    out = eng._graph._outputs
+    out = eng._graphs.entries("decode")[0]._outputs
     assert all(e[0].data_ptr() != out.data_ptr() for e in eng._inflight)
 
 

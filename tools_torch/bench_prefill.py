@@ -7,13 +7,15 @@ of tools/bench_prefill.py).
 
 At 7B widths with synthetic q4_0 weights made on the card
 (models/synthetic.build_model), one fresh window of --seq tokens (n_past
-0) runs through models/llama.forward twice on the same weights: "einsum",
-the masked f32 softmax over the cache, and "flash", ForwardConfig
-.flash_prefill (B12 where the window passes its gate: --seq a multiple of
-128). The prefill matmuls are the default (int8, B2 + B3). Prints each
-route's host clock of a window (best of 3, ended by a synchronize), the
-last-token logits' largest relative difference (bf16 tolerance) and the
-speedup. On --device cpu the plain versions run.
+0) runs twice on the same weights, each replayed from its captured graph
+as the session runs it (models/llama.forward_jit, one graph a route, the
+cache zeroed in place before each window): "einsum", the masked f32
+softmax over the cache, and "flash", ForwardConfig.flash_prefill (B12
+where the window passes its gate: --seq a multiple of 128). The prefill
+matmuls are the default (int8, B2 + B3). Prints each route's host clock of
+a window (best of 3, ended by a synchronize), the last-token logits'
+largest relative difference (bf16 tolerance) and the speedup. On --device
+cpu the plain versions run on the graphs' static buffers.
 """
 import argparse
 import dataclasses
@@ -47,8 +49,9 @@ def main(argv=None) -> int:
     dev = open_device(args.device, "bench_prefill")
     from fastllama_tpu_torch.config import PRESETS
     from fastllama_tpu_torch.models.llama import (
-        ForwardConfig, forward, init_kv_cache, position_tables,
+        ForwardConfig, forward_jit, init_kv_cache, position_tables,
     )
+    from fastllama_tpu_torch.utils.step_graph import GraphCache
     from fastllama_tpu_torch.models.synthetic import build_model
     hp = dataclasses.replace(PRESETS["7B"], n_layer=args.layers)
     t0 = time.time()
@@ -63,19 +66,25 @@ def main(argv=None) -> int:
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
+    graphs = GraphCache(dev)
+    kv = init_kv_cache(hp, 1, args.n_ctx, torch.bfloat16, dev)
+    n_past = torch.zeros((1,), dtype=torch.int32, device=dev)
+    last = torch.full((1,), args.seq - 1, dtype=torch.int32, device=dev)
     results = {}
     with torch.inference_mode():
         for name, cfg in (("einsum", base),
                           ("flash", dataclasses.replace(
                               base, flash_prefill=True))):
             def run():
-                kv = init_kv_cache(hp, 1, args.n_ctx, torch.bfloat16, dev)
+                for k, v in kv:
+                    k.zero_()
+                    v.zero_()
                 sync()
                 t0 = time.perf_counter()
-                lg = forward(params, tokens, 0, kv, cfg, args.seq - 1,
-                             tables)[0]
+                lg = forward_jit(params, tokens, n_past, kv, cfg, last,
+                                 tables, graphs=graphs)[0]
                 sync()
-                return time.perf_counter() - t0, lg
+                return time.perf_counter() - t0, lg.clone()
             run()
             best, lg = min((run() for _ in range(3)),
                            key=lambda r: r[0])

@@ -11,7 +11,13 @@ host clock of the step ending in a synchronize, its device time and its
 device launches from a torch.profiler trace, and the five kernels with the
 most device time. The first step of a monolithic admission holds the
 prefill and one decode step; a chunked admission spreads the prefill over
-its first steps.
+its first steps. The admissions run as the engine runs them: each step of
+an admission (the monolithic prefill with its splice and first token, a
+chunk, the final splice with the first token) replays its captured graph
+in the engine's graph cache (utils/step_graph.GraphCache), the decode
+steps theirs; the first, untimed request of each mode builds the graphs,
+and each mode's line gives the admission graphs' keys, captures and
+replays.
 """
 import json
 import sys
@@ -55,6 +61,17 @@ def admit_once(eng, seed, profile_it):
     return steps
 
 
+ADMISSION_KINDS = ("prefill", "chunk", "splice")
+
+
+def admission_graphs(eng):
+    """The keys, captures and replays of an engine's admission graphs."""
+    adm = [g for kind in ADMISSION_KINDS for g in eng._graphs.entries(kind)]
+    return dict(keys=len(adm), captures=sum(g.captures for g in adm),
+                replays=sum(g.replays for g in adm),
+                evictions=eng._graphs.evictions)
+
+
 def main():
     if not torch.cuda.is_available():
         print("engine_admission: no CUDA card", file=sys.stderr)
@@ -83,7 +100,9 @@ def main():
             "host_ms_per_step_runs": [[round(s[0], 2) for s in run]
                                       for run in timed],
             "traced_steps": [dict(device_ms=round(s[1], 2), launches=s[2],
-                                  top=s[3]) for s in traced]}), flush=True)
+                                  top=s[3]) for s in traced],
+            "admission_graphs": admission_graphs(eng)}),
+            flush=True)
     return 0
 
 

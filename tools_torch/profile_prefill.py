@@ -7,9 +7,12 @@ device time by kernel (the port of tools/profile_prefill.py).
 
 At 7B widths (n_vocab 32000, n_embd 4096, 32 heads of 128, n_ff 11008)
 with seeded random q4_0 weights made on the card, a fresh window of --seq
-tokens (n_past 0, flash_prefill set, as the session's first window runs)
-goes through models/llama.forward --reps times inside
-utils.trace.trace_region. The newest trace's device events are summed by
+tokens (n_past 0, flash_prefill set) runs as the session's first window
+runs: replayed from its captured graph (models/llama.forward_jit, n_past
+and the last row as device tensors), --reps times inside
+utils.trace.trace_region. The host clock of a window (best of 3, ended by a
+synchronize) is printed for the replayed window and for the eager forward
+it replaced. The newest trace's device events are summed by
 kernel (utils.trace.device_op_breakdown) and printed per window, with the
 share of the flash prefill attention B12 (taken where the window passes its
 gate: --seq a multiple of 128, at least 128). --mode int8 runs the
@@ -62,9 +65,10 @@ def main(argv=None) -> int:
     from fastllama_tpu_torch.config import PRESETS
     from fastllama_tpu_torch.kernels import cuda_lib
     from fastllama_tpu_torch.models.llama import (
-        ForwardConfig, _flash_viable, forward, init_kv_cache,
+        ForwardConfig, _flash_viable, forward, forward_jit, init_kv_cache,
         position_tables,
     )
+    from fastllama_tpu_torch.utils.step_graph import GraphCache
     from fastllama_tpu_torch.utils.trace import (
         device_op_breakdown, print_breakdown, trace_region,
     )
@@ -92,19 +96,31 @@ def main(argv=None) -> int:
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         3, hp.n_vocab, (1, args.seq))).to(dev)
 
+    graphs = GraphCache(dev)
+    n_past = torch.zeros((1,), dtype=torch.int32, device=dev)
+    last = torch.full((1,), args.seq - 1, dtype=torch.int32, device=dev)
+
     def window():
+        return forward_jit(params, tokens, n_past, kv, cfg, last, tables,
+                           graphs=graphs)[0]
+
+    def eager():
         return forward(params, tokens, 0, kv, cfg, args.seq - 1, tables)[0]
 
     with torch.inference_mode():
-        window()
-        best = float("inf")
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            window()
-            torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t0)
-        print(f"host clock of a window (best of 3): {best * 1e3:.3f} ms",
+        for label, fn in (("replayed", window), ("eager", eager)):
+            fn()
+            best = float("inf")
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+            print(f"host clock of a window, {label} (best of 3): "
+                  f"{best * 1e3:.3f} ms", flush=True)
+        print(f"graph: {graphs.captures} capture, build "
+              f"{graphs.build_s:.3f} s, pool {graphs.pool_bytes()} bytes",
               flush=True)
         with trace_region(args.out, "prefill"):
             for _ in range(args.reps):
