@@ -8,7 +8,8 @@ Phases (any failure exits nonzero before the last line):
      kernels from kernels/csrc/ (one nvcc per source, in parallel);
   2. hold each kernel (B1-B14: fourteen functions of the repo reach
      pl.pallas_call, twelve in the JAX package and two in
-     tools/bench_q4_floor.py) against its plain PyTorch version on the
+     tools/bench_q4_floor.py; the variant bodies B15-B19 in phase 14)
+     against its plain PyTorch version on the
      card at the 7B shapes of the paths below, and time kernel, plain
      version and bound (the larger of bytes / 3.35 TB/s and operations /
      peak rate); for B4, B10 and B11 also one scaled_dot_product_attention
@@ -155,8 +156,8 @@ Phases (any failure exits nonzero before the last line):
      --dims=13b (the 13B session, 40 layers), each of whose stdout must
      hold one JSON line with bench.py's keys, finite and positive
      (printed); tools_torch/bench_q4_floor.py at its defaults in this
-     process (B13, B14 and B1 at K 4096, N 12288, M 8; their launches
-     counted from 0 there, the path of B13's and B14's kernels-line
+     process (B13, B14, B1, B15 and B17 at K 4096, N 12288, M 8; their
+     launches counted from 0 there, the path of B13's and B14's kernels-line
      entries); the other tools_torch scripts of the path (bench_kernels,
      bench_prefill, bench_paged_attn, bench_engine plain and
      --stall-bench --chunked, profile_decode at 7B and 13B widths,
@@ -213,6 +214,23 @@ Phases (any failure exits nonzero before the last line):
      of phases 3, 4, 6 and 11 hold: slab_write_rows launches once a layer
      for K and once for V in every window (64 a 7B window) and in every
      B10 layer of an attached step;
+ 14. the q4 matmul variants and the kernel switches: B15-B18 (the decode
+     bodies v1/v4/v5, v2, v3 and v7 of the JAX package's
+     q4_matmul_pallas; kernels/q4_variants.py) and the h forms (bf16
+     scales; v0h is B1's 2-byte-scale mode) against their plain versions
+     on the 7B planes at M = 1, 8 and 64 and the 13B qkv plane at M = 8,
+     twice and bit-equal, timed beside B1 and _weight_int4pack_mm; B19
+     (the int8 natx / split body) bit for bit on the 7B and 13B qkv planes
+     at M = 512 (and 256), timed beside B2 + B3 and torch._int_mm;
+     tools_torch/profile_q4_variants.py with every variant name in this
+     process (each variant's kernels launched); the 7B session as
+     Model(use_pallas=False) would run it (300-token prompt, 32 greedy
+     tokens) on the graph and the eager route, logits bit-equal and
+     launches exact (B1 for the decode matmuls and the window's head, B5
+     for the window's matmuls, no B2, B3 or B9); use_pallas=True (B15 in
+     place of B1); one window each under FASTLLAMA_PREFILL_INT8=0 and
+     FASTLLAMA_PREFILL_KERNEL=0 (B5, no B3) and FASTLLAMA_PREFILL_INT8=1
+     with use_pallas=False (B2 + B3);
   then the whole script's seconds, one line {"kernels": [...]}, the
   nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -2620,11 +2638,12 @@ BENCH_STEPS = 1 + 5 + 64 + 3 * 64 + 8 + 2 * 5
 BENCH_WINDOWS = 2 * (1 + 5)
 # the kernels a bench_torch run never reaches
 OFF_BENCH_PATH = ("B6", "B7", "B8", "B9", "B10", "B11", "PS", "B13", "B14",
-                  "RW")
+                  "RW", "B15", "B16", "B17", "B18", "B19")
 # each tool of tools_torch/ at a small depth, run as a subprocess on the
 # card: (script, arguments, the kernels it must launch)
 BENCH_TOOLS = [
-    ("bench_kernels.py", ["--layers", "4"], ("B1",)),
+    # its default variants v0, v1 and v2
+    ("bench_kernels.py", ["--layers", "4"], ("B1", "B15", "B16")),
     ("bench_prefill.py", ["--layers", "2"], ("B1", "B2", "B3", "B12")),
     ("bench_paged_attn.py", ["--reps", "8"], ("B4", "B6", "B10", "PS")),
     ("bench_engine.py", ["--layers", "2", "--max-tokens", "16"],
@@ -2651,13 +2670,11 @@ runpy.run_path(sys.argv[0], run_name="__main__")
 
 
 def counts_now() -> dict:
-    """Every kernel wrapper's launches by its table name (B1-B14, PS) and
-    the dequant path's calls on the card ("dequant")."""
-    from fastllama_tpu_torch.kernels import q4_floor as qf
+    """Every kernel wrapper's launches by its table name (B1-B19, PS, RW)
+    and the dequant path's calls on the card ("dequant")."""
     from fastllama_tpu_torch.kernels import q4_matmul as qm
-    out = {k: fn.launches for k, fn in all_kernels().items()}
-    out.update(B13=qf.q4_floor.launches, B14=qf.q4_nosc.launches,
-               dequant=qm.q4_matmul_dequant.cuda_calls)
+    out = {k: fn.launches for k, fn in every_kernel().items()}
+    out.update(dequant=qm.q4_matmul_dequant.cuda_calls)
     return out
 
 
@@ -2723,7 +2740,7 @@ def bench_launches(n: dict, n_layer: int, dims: str) -> None:
 
 def bench_path(torch, tmp, model_path):
     """Phase 11: bench_torch.py at 7B and 13B (--dims=13b: the 13B session);
-    tools_torch/bench_q4_floor.py (B13, B14 and B1 at its defaults K 4096,
+    tools_torch/bench_q4_floor.py (B13, B14, B1, B15 and B17 at its defaults K 4096,
     N 12288, M 8) in this process, every count set to 0 just before and
     read just after; the other tools at a small depth and examples_torch/
     python/example-batch.py and perplexity.py on phase 5's 8-layer q4_0
@@ -2761,13 +2778,17 @@ def bench_path(torch, tmp, model_path):
                                   else None)
         print(f"bench_torch {dims}: {json.dumps(line)}", flush=True)
 
-    for fn in (qf.q4_floor, qf.q4_nosc, qm.q4_matmul_decode):
+    # its default modes floor, nosc, v0, v1 and v3
+    floor_modes = {"B13": qf.q4_floor, "B14": qf.q4_nosc,
+                   "B1": qm.q4_matmul_decode,
+                   "B15": variant_kernels()["B15"],
+                   "B17": variant_kernels()["B17"]}
+    for fn in floor_modes.values():
         fn.launches = 0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = bench_q4_floor.main([])
-    launches = {"B13": qf.q4_floor.launches, "B14": qf.q4_nosc.launches,
-                "B1": qm.q4_matmul_decode.launches}
+    launches = {k: fn.launches for k, fn in floor_modes.items()}
     print(buf.getvalue(), end="", flush=True)
     require(rc == 0, f"bench_q4_floor exited {rc}")
     require(all(launches.values()), f"bench_q4_floor launches {launches}")
@@ -4298,6 +4319,293 @@ def prefill_graphs_path(torch, dev, gen):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the q4 matmul variants (B15-B19) and the kernel switches
+# ---------------------------------------------------------------------------
+
+VARIANT_ROWS = (1, 8, 64)
+# the decode variants held in phase 14 and their kernels (v0h: B1 with
+# 2-byte scales); v4 and v5 run B15 as v1 does
+VARIANT_KEYS = {"v1": "B15", "v2": "B16", "v3": "B17", "v7": "B18",
+                "v0h": "B1", "v1h": "B15", "v2h": "B16", "v3h": "B17",
+                "v7h": "B18"}
+SWITCH_GEN = 32              # greedy tokens of the use_pallas=False session
+
+
+def variant_kernels():
+    from fastllama_tpu_torch.kernels import q4_variants as qv
+    return {"B15": qv.q4_decode_v1, "B16": qv.q4_decode_v2,
+            "B17": qv.q4_decode_v3, "B18": qv.q4_decode_v7,
+            "B19": qv.q4_prefill_int8_natx}
+
+
+def every_kernel():
+    """Every counted wrapper by its table name: B1-B19, PS and RW."""
+    from fastllama_tpu_torch.kernels import q4_floor as qf
+    return dict(all_kernels(), B13=qf.q4_floor, B14=qf.q4_nosc,
+                **variant_kernels())
+
+
+def reset_every_count():
+    for fn in every_kernel().values():
+        fn.launches = 0
+
+
+def check_variants(torch, dev, gen, results):
+    """B15-B18 and the h forms (bf16 scales; v0h is B1's 2-byte-scale mode)
+    on the 7B planes qkv, wo, w13 and w2 at VARIANT_ROWS and on the 13B qkv
+    plane at M = 8: each within 1e-5 of sum |R(x)| (q + 8) |d| of its plain
+    version (only the f32 summation order differs), run twice and
+    bit-equal, timed over weight copies cycled past the L2 beside B1 (v0)
+    and _weight_int4pack_mm on the same plane and M; plain versions timed
+    at M = 8. B19 bit for bit on qkv at M = 512 and 256 and the 13B qkv at
+    M = 512, timed beside B2 + B3 (nat) and torch._int_mm of its int8
+    plane."""
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    from fastllama_tpu_torch.kernels import q4_variants as qv
+    out = {k: [] for k in ("B15", "B16", "B17", "B18", "B19", "B1h")}
+    cases = [(p, VARIANT_ROWS) for p in PLANES_7B[:4]] + [
+        (PLANES_13B[0], (8,))]
+    for (name, k, n), rows in cases:
+        w = rand_weight(torch, k, n, gen, dev)
+        wbytes = weight_bytes(w)
+        ws = [w] + [rand_weight(torch, k, n, gen, dev)
+                    for _ in range(copies_for(wbytes) - 1)]
+        sc16 = [ww.scales.to(torch.bfloat16) for ww in ws]
+        packs = int4pack_packs(torch, ws)
+        absum_w = (qv._codes(w.qs) + 8.0) * w.scales.abs().repeat_interleave(
+            32, dim=0)
+        n_st = w.qs.shape[1]
+        for m in rows:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            absum = (qm._pad_k(x.abs(), w.k).to(torch.bfloat16).float()
+                     @ absum_w).max().item()
+            it = iter(range(10**9))
+            b1_ms = time_ms(lambda: qm.q4_matmul_decode(
+                x, ws[next(it) % len(ws)]), calls=4 * len(ws))
+            lib = int4pack_row(torch, packs, x,
+                               qm.q4_matmul_dequant(x, w), n)
+            for variant, key in VARIANT_KEYS.items():
+                base, h = variant.rstrip("h"), variant.endswith("h")
+                scs = sc16 if h else [ww.scales for ww in ws]
+
+                def call(i):
+                    return qv.q4_matmul_pallas(x, ws[i].qs, scs[i],
+                                               variant=base)
+                y, again = call(0), call(0)
+                ref = qv.decode_plain(x, w.qs, scs[0], base)
+                err = (y - ref).abs().max().item()
+                tol = 1e-5 * absum
+                label = f"{variant} {name} M={m} K={k} N={n}"
+                require(bool(torch.isfinite(y).all()), f"{label}: not finite")
+                require(err <= tol, f"{label}: err {err} > {tol}")
+                require(torch.equal(y, again), f"{label}: not deterministic")
+                ms = time_ms(lambda: call(next(it) % len(ws)),
+                             calls=4 * len(ws))
+                plain_ms = (time_ms(lambda: qv.decode_plain(
+                    x, w.qs, scs[0], base), calls=2) if m == 8 else None)
+                nbytes = (w.qs.numel() + w.scales.numel() * (2 if h else 4)
+                          + x.numel() * 4 + m * n_st * 4)
+                bnd, by = bound_ms(nbytes, 2.0 * m * k * n, "bf16")
+                row = dict(shape=f"{name} M={m} K={k} N={n}"
+                           + (" bf16 scales" if h else ""), variant=variant,
+                           max_abs_err=err, tol=tol, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                           bound_share=bnd / ms, b1_ms=b1_ms,
+                           vs_b1=ms / b1_ms, **lib)
+                out["B1h" if variant == "v0h" else key].append(row)
+                print(f"{key} {row}", flush=True)
+        del ws, w, sc16, packs, absum_w
+
+    # B19: the int8 natx / split function
+    for (name, k, n), rows in ((PLANES_7B[0], (512, 256)),
+                               (PLANES_13B[0], (512,))):
+        w = rand_weight(torch, k, n, gen, dev)
+        wbytes = weight_bytes(w)
+        ws = [w] + [rand_weight(torch, k, n, gen, dev)
+                    for _ in range(copies_for(wbytes) - 1)]
+        s8, sc = qv.natx_scales(w.scales)
+        w8 = torch.round((qv._codes(w.qs) - 8.0)
+                         * sc.repeat_interleave(32, dim=0)).to(torch.int8)
+        w8_cm = w8.t().contiguous().t()
+        for m in rows:
+            x = torch.randn((m, k), generator=gen, device=dev) * 3.0
+            y = qv.q4_prefill_int8_natx(x, w.qs, w.scales)
+            ref = qv.q4_prefill_int8_natx_plain(x, w.qs, w.scales)
+            label = f"B19 {name} M={m}"
+            require(torch.equal(y, ref), f"{label}: not bit-exact (max err "
+                    f"{(y - ref).abs().max().item()})")
+            require(torch.equal(y, qv.q4_prefill_int8_natx(x, w.qs,
+                                                           w.scales)),
+                    f"{label}: not deterministic")
+            xq, _ = qm.quant_rows_int8(x, w.k)
+            acc = torch._int_mm(xq, w8_cm)
+            require(torch.equal(acc.double(), qm.int8_accumulators(xq, w8)),
+                    f"{label}: _int_mm is not the exact product")
+            it = iter(range(10**9))
+
+            def cycled(fn):
+                ww = ws[next(it) % len(ws)]
+                return fn(x, ww.qs, ww.scales)
+            ms = time_ms(lambda: cycled(qv.q4_prefill_int8_natx),
+                         calls=2 * len(ws))
+            nat_ms = time_ms(lambda: cycled(qv.q4_matmul_prefill_int8),
+                             calls=2 * len(ws))
+            plain_ms = (time_ms(lambda: qv.q4_prefill_int8_natx_plain(
+                x, w.qs, w.scales), calls=2) if name == "qkv" else None)
+            bnd, by = bound_ms(x.numel() * 4 + wbytes + m * w.qs.shape[1] * 4,
+                               2.0 * m * k * n, "int8")
+            row = dict(shape=f"{name} M={m} K={k} N={n}", max_abs_err=0.0,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                       b2_b3_nat_ms=nat_ms,
+                       library_ms=time_ms(lambda: torch._int_mm(xq, w8_cm),
+                                          calls=10),
+                       library_call="torch._int_mm of the int8 plane (the "
+                                    "product alone)")
+            out["B19"].append(row)
+            print(f"B19 {row}", flush=True)
+        del ws, w, w8, w8_cm, s8, sc
+    results.update(out)
+
+
+def profile_variants_tool(torch):
+    """tools_torch/profile_q4_variants.py with every variant name at its
+    defaults (K 4096, N 12288, M 8), in this process, every count set to 0
+    just before and read just after: each variant's kernels must have
+    launched, and no variant's time (graph, or trace where it held every
+    launch) may fall below its HBM bound."""
+    import contextlib
+    import io
+    from tools_torch import profile_q4_variants as pqv
+    reset_every_count()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = pqv.main(["4096", "12288", "8", *pqv.VARIANTS])
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    counts = {k: fn.launches for k, fn in every_kernel().items()}
+    require(rc == 0, f"profile_q4_variants exited {rc}")
+    want = ("B1", "B2", "B3", "B5", "B13", "B14", "B15", "B16", "B17", "B18",
+            "B19")
+    require(all(counts[k] > 0 for k in want),
+            f"profile_q4_variants launches {counts}")
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    # no call beats the HBM bound: its weights are cycled past the L2
+    fast = [r["variant"] for r in line["profile_q4_variants"]
+            if min(r["graph_us"], r["us"]) < r["bound_us"]]
+    require(not fast, f"profile_q4_variants: {fast} below the HBM bound")
+    return dict(rows=line["profile_q4_variants"], launches=counts)
+
+
+def switch_session(torch, hp, params, dev, label, n_gen, eager=False,
+                   env=None, **rcfg):
+    """One session of the 7B model under RuntimeConfig(**rcfg) with the
+    environment `env` set while it runs: reset, the 300-token prompt, the
+    first token and n_gen - 1 more greedy tokens, every count 0 just before
+    and read just after. Returns (counts, every eval's logits, tokens)."""
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        model, sess = make_session(hp, params, dev, **rcfg)
+        if eager:
+            eager_route(model)
+        prompt = prompt_of(N_PROMPT - 2, seed=1)
+        warm_up(sess, prompt)
+        evals = recorded_evals(model)
+        sess.reset()
+        reset_every_count()
+        require(sess.ingest(prompt), f"{label}: ingest failed")
+        require(sess.generate(lambda s: None, num_tokens=n_gen, temp=0.0),
+                f"{label}: generate failed")
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in every_kernel().items()}
+        tokens = list(sess._last_n)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require(all(np.isfinite(e).all() for e in evals),
+            f"{label}: logits not finite")
+    del sess, model
+    return counts, evals, tokens
+
+
+def expect_counts(label, counts, want):
+    """Exact launches: the kernels of `want` as given, every other 0."""
+    full = {k: want.get(k, 0) for k in counts}
+    require(counts == full, f"{label}: launches {counts}, expected {full}")
+
+
+def switches_path(torch, dev, gen):
+    """The kernel switches at full 7B width and depth: Model(use_pallas=
+    False) (q4_matmul_xla's function: B1 for the decode matmuls and the
+    window's head, B5 for the window's matmuls, no B2/B3) on the graph and
+    the eager route, logits bit-equal; use_pallas=True (B15 in place of B1);
+    and one window each under FASTLLAMA_PREFILL_INT8=0,
+    FASTLLAMA_PREFILL_KERNEL=0 (B5, no B2/B3) and FASTLLAMA_PREFILL_INT8=1
+    with use_pallas=False (int8 forced: B2 + B3)."""
+    from fastllama_tpu_torch.config import PRESETS
+    hp = PRESETS["7B"]
+    params = rand_params(torch, hp, gen, dev)
+    steps = SWITCH_GEN - 1                  # decode steps after the window
+    layers = hp.n_layer
+    # a 300-token window: four matmuls a layer at M = 300, B12 and (its
+    # graph's) the slab row write of each layer, the head at M = 1; a decode
+    # step: four matmuls a layer and the head at M = 1, B4 once a layer
+    window = dict(B12=layers, RW=WINDOW_ROWS)
+    decode_q4 = (4 * layers + 1) * steps + 1
+    res = {}
+    runs = {}
+    for route in ("graph", "eager"):
+        runs[route] = switch_session(
+            torch, hp, params, dev, f"use_pallas=False {route}", SWITCH_GEN,
+            eager=route == "eager", use_pallas=False)
+        expect_counts(f"use_pallas=False {route}", runs[route][0], dict(
+            window, B1=decode_q4, B5=4 * layers, B4=layers * steps,
+            RW=WINDOW_ROWS if route == "graph" else 0))
+    (gc, gl, gt), (_, el, et) = runs["graph"], runs["eager"]
+    require(len(gl) == len(el) == SWITCH_GEN and all(
+        np.array_equal(a, b) for a, b in zip(gl, el)),
+        "use_pallas=False: replayed logits differ from the eager route's")
+    require(gt == et, "use_pallas=False: greedy streams differ")
+    res["use_pallas_false"] = dict(launches=gc, evals_bit_equal=len(gl))
+    counts, _, _ = switch_session(torch, hp, params, dev,
+                                  "use_pallas=True", 8, use_pallas=True)
+    expect_counts("use_pallas=True", counts, dict(
+        window, B15=(4 * layers + 1) * 7 + 1, B2=4 * layers, B3=4 * layers,
+        B4=layers * 7))
+    res["use_pallas_true"] = dict(launches=counts)
+    bf16_window = dict(window, B5=4 * layers, B1=1)
+    for env, rcfg, want in (
+            ({"FASTLLAMA_PREFILL_INT8": "0"}, {}, bf16_window),
+            ({"FASTLLAMA_PREFILL_KERNEL": "0"}, {}, bf16_window),
+            ({"FASTLLAMA_PREFILL_INT8": "1"}, {"use_pallas": False},
+             dict(window, B2=4 * layers, B3=4 * layers, B1=1))):
+        label = " ".join(f"{k}={v}" for k, v in env.items()) + (
+            " use_pallas=False" if rcfg else "")
+        counts, _, _ = switch_session(torch, hp, params, dev, label, 1,
+                                      env=env, **rcfg)
+        expect_counts(label, counts, want)
+        res[label] = dict(launches=counts)
+        print(f"switch window {label}: {counts}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def variants_path(torch, dev, gen):
+    """Phase 14: B15-B19 against their plain versions, the variant tool
+    with every variant, and the kernel switches' sessions."""
+    checks = {}
+    check_variants(torch, dev, gen, checks)
+    tool = profile_variants_tool(torch)
+    switches = switches_path(torch, dev, gen)
+    return dict(checks=checks, tool=tool, switches=switches)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4364,6 +4672,8 @@ def main() -> int:
         graph_res = timed("12 graphs", graphs_path, torch, dev, gen)
         prefill_res = timed("13 prefill graphs", prefill_graphs_path, torch,
                             dev, gen)
+        var_res = timed("14 variants and switches", variants_path, torch,
+                        dev, gen)
         # bench_torch.py's TTFT windows replay their graphs (phase 11)
         prefill_res["bench_7b_ttft_ms"] = {
             k: bench_res["bench"]["7b"]["line"][k]
@@ -4392,7 +4702,9 @@ def main() -> int:
                     B11=checks["B11_phase2_launches"],
                     RW=main_res["launches"]["RW"],
                     **{k: bench_res["q4_floor"]["launches_counted"][k]
-                       for k in ("B13", "B14")})
+                       for k in ("B13", "B14")},
+                    **{k: var_res["tool"]["launches"][k]
+                       for k in variant_kernels()})
     main_rows = {"B1": pick(checks["B1"], "qkv M=1"),
                  "B2": pick(checks["B2"], "K=4096"),
                  "B3": pick(checks["B3"], "qkv M=512 K=4096"),
@@ -4411,7 +4723,12 @@ def main() -> int:
                  # bench_q4_floor's default shape: the 7B qkv plane at M = 8
                  "B13": pick(checks["B13"], "qkv M=8 "),
                  "B14": pick(checks["B14"], "qkv M=8 "),
-                 "RW": pick(checks["RW"], "T=512 n_past=0 k view")}
+                 "RW": pick(checks["RW"], "T=512 n_past=0 k view"),
+                 # profile_q4_variants' default shape: the 7B qkv plane at
+                 # M = 8
+                 **{k: pick(var_res["checks"][k], "qkv M=8 K=4096 N=12288")
+                    for k in ("B15", "B16", "B17", "B18")},
+                 "B19": pick(var_res["checks"]["B19"], "qkv M=512 ")}
     meta = {
         "B1": ("q4_matmul_decode", "csrc/q4_decode.cu",
                "fastllama_tpu/kernels/q4_matmul.py:433"),
@@ -4450,6 +4767,20 @@ def main() -> int:
         # counterpart of the JAX forward's _write_kv scatter (mode="drop")
         "RW": ("slab_write_rows", "csrc/kv_write.cu",
                "fastllama_tpu/models/llama.py:275"),
+        # the variant bodies of q4_matmul_pallas (launched at :484 and
+        # :498; v4 :308 and v5 :338 are bit-equal to v1) and of
+        # q4_matmul_prefill_int8 (natx :715, launched at :1034; split :667,
+        # bit-equal, at :1047): B1's and B3's kernels in other modes
+        "B15": ("q4_decode_v1", "csrc/q4_decode.cu",
+                "fastllama_tpu/kernels/q4_matmul.py:161"),
+        "B16": ("q4_decode_v2", "csrc/q4_decode.cu",
+                "fastllama_tpu/kernels/q4_matmul.py:233"),
+        "B17": ("q4_decode_v3", "csrc/q4_decode.cu",
+                "fastllama_tpu/kernels/q4_matmul.py:272"),
+        "B18": ("q4_decode_v7", "csrc/q4_decode.cu",
+                "fastllama_tpu/kernels/q4_matmul.py:189"),
+        "B19": ("q4_prefill_int8_natx", "csrc/q4_int8.cu",
+                "fastllama_tpu/kernels/q4_matmul.py:715"),
     }
     kernels = []
     for key, (name, src, replaces) in meta.items():
@@ -4458,9 +4789,10 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "fastllama_tpu_torch/kernels/" + src,
             "replaces": replaces, "launches": launches[key],
-            "max_abs_err": max(r["max_abs_err"] for r in checks[key]
-                               + [s for s in checks["shard_local"]
-                                  + checks["13B"] if s["kernel"] == key]),
+            "max_abs_err": max(r["max_abs_err"] for r in checks.get(
+                key, var_res["checks"].get(key, [])) + [
+                    s for s in checks["shard_local"] + checks["13B"]
+                    if s["kernel"] == key]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"), "shape": row["shape"]})
@@ -4520,6 +4852,21 @@ def main() -> int:
                     **{f"engine_{m}": engine_res["runs"][m]["launches"]["RW"]
                        for m in ("paged", "paged_chunked", "slab")}},
                 library_call=row["library_call"])
+        if key in variant_kernels():
+            kernels[-1].update(
+                path="tools_torch/profile_q4_variants.py with every variant "
+                     "(phase 14, K 4096, N 12288, M 8)",
+                launches_by_path={
+                    "use_pallas_true_session": var_res["switches"]
+                    ["use_pallas_true"]["launches"][key],
+                    "bench_path": bench_res["launches"].get(key, 0)})
+            if key == "B19":
+                kernels[-1]["b2_b3_nat_ms"] = row["b2_b3_nat_ms"]
+            else:
+                kernels[-1].update(b1_ms=row["b1_ms"], vs_b1=row["vs_b1"])
+            require(launches[key] > 0, f"kernel {key} was launched on no "
+                    "path")
+            continue
         if key in ("B13", "B14"):
             kernels[-1].update(
                 path="tools_torch/bench_q4_floor.py (phase 11, its default "
@@ -4540,6 +4887,7 @@ def main() -> int:
                "engine_path": engine_res, "converters": conv_res,
                "c_abi": c_res, "parallel": par_res, "bench_path": bench_res,
                "graphs": graph_res, "prefill_graphs": prefill_res,
+               "variants": var_res,
                "seconds": time.perf_counter() - t_start,
                "phase_seconds": phase_s}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

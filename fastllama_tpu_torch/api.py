@@ -62,10 +62,6 @@ class Model:
             self.logger.log_warn(
                 "Model", "allocate_extra_mem is ignored: PyTorch owns device "
                 "allocation\n")
-        if use_pallas is not None:
-            self.logger.log_warn(
-                "Model", "use_pallas is ignored: the PyTorch port picks its "
-                "kernels by shape (kernels/q4_matmul.q4_matmul)\n")
         if mesh_shape and int(np.prod(mesh_shape)) > 1:
             from .parallel.sharding import require_world
             require_world(mesh_shape)
@@ -76,7 +72,8 @@ class Model:
             should_get_all_logits=should_get_all_logits,
             embedding_eval_enabled=embedding_eval_enabled,
             kv_dtype=kv_dtype, weight_dtype=weight_dtype,
-            mesh_shape=tuple(mesh_shape), seq_parallel=seq_parallel)
+            use_pallas=use_pallas, mesh_shape=tuple(mesh_shape),
+            seq_parallel=seq_parallel)
         self._model = load_model(path, rcfg, self.logger, device=device)
         self._session = FastLlama(self._model, n_keep=tokens_to_keep,
                                   last_n_size=last_n_size, seed=seed)

@@ -86,6 +86,10 @@ class RuntimeConfig:
     # and prefill runs ring attention. Ignored by the BatchEngine (its data
     # axis is the batch).
     seq_parallel: bool = False
+    # The JAX package's kernel switch (kernels/q4_matmul.q4_matmul): None =
+    # the port's dispatch table, False = q4_matmul_xla's function at every
+    # M (no default int8), True = the Pallas decode kernel's (v1's fold).
+    use_pallas: bool | None = None
     prefill_buckets: tuple[int, ...] = (16, 64, 128, 256, 512, 1024, 2048)
     # Activation-quantized int8 prefill matmuls (kernels/q4_matmul.py,
     # kernels B2+B3). None = on in bf16 mode, off in f32 mode; True/False

@@ -189,7 +189,7 @@ class BatchEngine:
         self.cfg = ForwardConfig(
             n_head=hp.n_head // self.tp, n_rot=hp.n_rot,
             w_dtype=rcfg.weight_dtype, prefill_int8=rcfg.prefill_int8,
-            tp_group=self._tp_group)
+            use_pallas=rcfg.use_pallas, tp_group=self._tp_group)
         # the monolithic admissions' prefill (a fresh row or slot: n_past
         # == 0), which may attend through the flash kernel, as the JAX
         # engine's three prefill builders do; chunked admission keeps cfg

@@ -1,11 +1,13 @@
 // Kernels B1 and B9: the decode-size 4-bit matmuls (W4A16 skinny GEMM /
-// GEMV) for q4_0 and for affine (q4_1 / GPTQ) weights, one template; and
-// B13 and B14, two probes of B1's tensor-core kernel (below).
+// GEMV) for q4_0 and for affine (q4_1 / GPTQ) weights, one template; B13
+// and B14, two probes of B1's tensor-core kernel, and B15-B18, the other
+// variants of the JAX decode kernel, as modes of it (below).
 //
 // B1 (q4_gemv):
-// Replaces fastllama_tpu/kernels/q4_matmul.py::q4_matmul_pallas (variant
-// v1, _q4mm_kernel_v1). Computes y[M, n_out] f32 = x[M, K] @ ((q - 8) * d)
-// for M <= 64, reading the split-K packed weight planes as stored:
+// Replaces fastllama_tpu/kernels/q4_matmul.py::q4_matmul_pallas with the
+// function of its v0 body (_q4mm_kernel) and of q4_matmul_xla; the v1 body's
+// folded offset is B15, below. Computes y[M, n_out] f32 = x[M, K] @
+// ((q - 8) * d) for M <= 64, reading the split-K packed planes as stored:
 //   qs     uint8 [K_pad/2, N]: byte (16*kb + j, n) holds element 32*kb + j in
 //          its low nibble and element 32*kb + 16 + j in its high nibble;
 //   scales f32   [K_pad/32, N].
@@ -123,6 +125,27 @@
 // packed rows alone (no scale cp.async). The x slice is staged whole as B1
 // stages it (kFloor reads its low halves only), so the gaps between B13,
 // B14 and B1 are the unpack and the scale path, not x.
+//
+// B15-B18 (q4_variant_mma) replace the other bodies of q4_matmul_pallas,
+// each by its function (kernels/q4_variants.py), as modes of the same
+// kernel, B1's plan and loads; B1 itself computes v0's function:
+//   * kV1 (B15; v1, and v4 and v5, which are bit-equal to it): R(x) @ R(q d)
+//     - 8 bsum(x) @ d. B9's machinery with -8 d in place of the mins: the
+//     code q unshifted, one rounding of q d, the block sums of the
+//     unrounded x staged beside x, bsum * (-8 d) into the accumulators;
+//   * kV2 (B16): sum_b d_b (R(x_b) @ q_b) - 8 bsum(x) @ d. The codes alone
+//     (exact in bf16) go into a fresh accumulator per m-tile and q block,
+//     both k16 steps, which is then scaled by d into the f32 accumulators
+//     (one m-tile at a time, so only 4 NT more registers);
+//   * kV3 (B17): R(x) @ R(q R(d)) - 8 bsum(x) @ d. The product of the codes
+//     and the rounded scale is one bf16 multiply (__hmul2; the product is
+//     rounded once, as XLA's bf16 multiply rounds it); the fold keeps d;
+//   * kV7 (B18): v1's weights, with the block sums of R(R(x_lo) + R(x_hi))
+//     over the 16 pairs of a q block, summed in f32 while x is staged
+//     (lane i < 4 of a q block's 8 takes its pairs from lane i + 4).
+// SC16 (the "h" forms of the JAX tools, and B1 as v0h): the scales are bf16
+// [NB, N]; a ring stage carries 128 bytes of them (8 lanes' copies), read
+// as one 16-byte word a lane and widened to f32.
 
 #include "common.cuh"
 
@@ -335,16 +358,23 @@ constexpr int kMmaWarps = 4, kMmaThreads = kMmaWarps * 32;
 constexpr int kWarpCols = 64;            // columns of one warp
 constexpr int kStages = 4;
 constexpr int kRowStride = 80;           // bytes per packed row in a stage
-// The tensor-core kernel's modes: B1 (q4_0), B9 (affine) and the probes B13
-// (kFloor) and B14 (kNosc)
-enum Mode { kQ40 = 0, kQ41 = 1, kNosc = 2, kFloor = 3 };
-// f32 planes of 64 values beside the packed rows in a ring stage: the
-// scales and, for an affine weight, the mins; none for the probes
+// The tensor-core kernel's modes: B1 (q4_0), B9 (affine), the probes B13
+// (kFloor) and B14 (kNosc), and the variants B15-B18 (kV1, kV2, kV3, kV7)
+enum Mode { kQ40 = 0, kQ41 = 1, kNosc = 2, kFloor = 3, kV1 = 4, kV2 = 5,
+            kV3 = 6, kV7 = 7 };
+// planes of 64 values beside the packed rows in a ring stage: the scales
+// and, for an affine weight, the mins; none for the probes
 template <int MODE>
-constexpr int kPlanes = MODE == kQ41 ? 2 : MODE == kQ40 ? 1 : 0;
-// a stage: 16 packed rows and the planes
+constexpr int kPlanes = MODE == kQ41 ? 2 : MODE == kNosc || MODE == kFloor
+                                               ? 0 : 1;
+// the modes that add a term bsum(x) * p per q block (p: the mins, or -8 d)
 template <int MODE>
-constexpr int kStageBytes = 16 * kRowStride + kPlanes<MODE> * kWarpCols * 4;
+constexpr bool kBsum = MODE == kQ41 || MODE == kV1 || MODE == kV2 ||
+                       MODE == kV3 || MODE == kV7;
+// a stage: 16 packed rows and the planes (SC16: 2-byte bf16 scales)
+template <int MODE, bool SC16>
+constexpr int kStageBytes =
+    16 * kRowStride + kPlanes<MODE> * kWarpCols * (SC16 ? 2 : 4);
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -381,21 +411,48 @@ __device__ __forceinline__ float nib_val(uint32_t nibs, uint32_t magic) {
          (RAW ? 8388608.f : 8388616.f);
 }
 
-template <int NT, int MODE>
+// The two code values of A register `reg` of m-tile mt at k16 step `step`
+// (0: the low nibbles, 1: the high ones): column 2mt + reg % 2 of the
+// lane's 8, rows 2t and 2t + 1 (reg < 2) or 2t + 8 and 2t + 9. All
+// arguments but the words are constants once the loops are unrolled.
+template <bool RAW>
+__device__ __forceinline__ float2 a_codes(const uint32_t (&lo)[4][2],
+                                          const uint32_t (&hi)[4][2],
+                                          int step, int mt, int reg,
+                                          uint32_t magic) {
+  const int c = 2 * mt + (reg & 1), r = 2 * (reg >> 1);
+  const uint32_t* src0 = step ? hi[r] : lo[r];
+  const uint32_t* src1 = step ? hi[r + 1] : lo[r + 1];
+  switch (c & 3) {
+    case 0: return make_float2(nib_val<0, RAW>(src0[c >> 2], magic),
+                               nib_val<0, RAW>(src1[c >> 2], magic));
+    case 1: return make_float2(nib_val<1, RAW>(src0[c >> 2], magic),
+                               nib_val<1, RAW>(src1[c >> 2], magic));
+    case 2: return make_float2(nib_val<2, RAW>(src0[c >> 2], magic),
+                               nib_val<2, RAW>(src1[c >> 2], magic));
+    default: return make_float2(nib_val<3, RAW>(src0[c >> 2], magic),
+                                nib_val<3, RAW>(src1[c >> 2], magic));
+  }
+}
+
+template <int NT, int MODE, bool SC16>
 __global__ void __launch_bounds__(kMmaThreads)
 q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
               const uint8_t* __restrict__ qs,
-              const float* __restrict__ scales,
+              const void* __restrict__ scales,
               const float* __restrict__ mins, int N, int NB, int cw,
               int kb_per_split, float* __restrict__ partial,
               int* __restrict__ counters, float* __restrict__ y, int n_out,
               uint32_t magic) {
   constexpr bool AFFINE = MODE == kQ41;
   constexpr bool SCALED = kPlanes<MODE> > 0;
+  constexpr bool BSUM = kBsum<MODE>;
   constexpr bool RAW = MODE != kQ40;
   constexpr int kSteps = MODE == kFloor ? 1 : 2;   // k16 steps a q block
   constexpr int MT = 8 * NT;
-  constexpr int kSB = kStageBytes<MODE>;
+  constexpr int kSB = kStageBytes<MODE, SC16>;
+  constexpr int kSel = SC16 ? 2 : 4;               // bytes of a scale
+  constexpr int kEpc = 16 / kSel;                  // scales a 16-byte copy
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -410,29 +467,31 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   uint8_t* ring = smem_raw + (size_t)warp * kStages * kSB;
   uint32_t* xs = reinterpret_cast<uint32_t*>(
       smem_raw + (size_t)kMmaWarps * kStages * kSB);
-  // AFFINE: the block sums of x, [q block of the split][row of the tile]
+  // BSUM: the block sums of x, [q block of the split][row of the tile]
   float* bs = reinterpret_cast<float*>(xs + (size_t)kb_per_split * NT * 128);
 
   // A lane copies two 16-byte pieces of the packed rows (rows lane / 4 and
   // 8 + lane / 4, bytes (lane % 4) * 16) and one 16-byte piece of the
-  // scales (lanes < 16) or, for an affine weight, of the mins (lanes >= 16,
-  // stored right after the scales); its sources advance by kw q blocks per
-  // stage. Columns past N read as zeros (N is a multiple of 16). The probes
-  // copy the packed rows alone.
+  // scales (lanes < 16, or < 8 for 2-byte scales) or, for an affine
+  // weight, of the mins (lanes >= 16, stored right after the scales); its
+  // sources advance by kw q blocks per stage. Columns past N read as zeros
+  // (N is a multiple of 16). The probes copy the packed rows alone.
   const int off = (lane & 3) * 16, sl = lane & 15;
-  const bool has_s = SCALED && (AFFINE || lane < 16);
-  const bool q_ok = nw + off < N, s_ok = has_s && nw + sl * 4 < N;
+  const bool has_s = SCALED && (AFFINE || lane < 64 / kEpc);
+  const bool q_ok = nw + off < N, s_ok = has_s && nw + sl * kEpc < N;
   const uint8_t* q_src = qs + ((size_t)(kb0 + kg) * 16 + (lane >> 2)) * N +
                          nw + off;            // advanced stage by stage
-  const float* s_src = SCALED ? (AFFINE && lane >= 16 ? mins : scales) +
-                                   (size_t)(kb0 + kg) * N + nw + sl * 4
-                              : nullptr;
-  const size_t q_step = (size_t)kw * 16 * N, s_step = (size_t)kw * N;
+  const uint8_t* s_plane = reinterpret_cast<const uint8_t*>(
+      AFFINE && lane >= 16 ? static_cast<const void*>(mins) : scales);
+  const uint8_t* s_src =
+      SCALED ? s_plane + ((size_t)(kb0 + kg) * N + nw + sl * kEpc) * kSel
+             : nullptr;
+  const size_t q_step = (size_t)kw * 16 * N, s_step = (size_t)kw * N * kSel;
   const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
   const uint32_t q_dst = ring_s + (lane >> 2) * kRowStride + off;
   const uint32_t s_dst = ring_s + 16 * kRowStride + lane * 16;
   constexpr uint32_t kRing = kStages * kSB;
-  auto load_stage = [&](uint32_t slot, const uint8_t* qp, const float* sp) {
+  auto load_stage = [&](uint32_t slot, const uint8_t* qp, const uint8_t* sp) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
                  "r"(q_dst + slot), "l"(q_ok ? qp : qs), "r"(q_ok ? 16 : 0));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
@@ -440,7 +499,7 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
                  "l"(q_ok ? qp + 8 * (size_t)N : qs), "r"(q_ok ? 16 : 0));
     if (has_s)
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-                   "r"(s_dst + slot), "l"(s_ok ? sp : scales),
+                   "r"(s_dst + slot), "l"(s_ok ? sp : s_plane),
                    "r"(s_ok ? 16 : 0));
   };
 #pragma unroll
@@ -456,9 +515,12 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   // + 16 * (w / 2) + 2 * (lane % 4) + 8 * (w % 2), zeros past Kx. Read as
   // coalesced float4s of the rows < M; the words of rows >= M are left as
   // they are: they only reach accumulator columns that are never stored.
-  // Every thread runs the same trip count, so that in AFFINE mode the 8
+  // Every thread runs the same trip count, so that in BSUM modes the 8
   // adjacent lanes holding the 8 float4s of one row's q block (quads is a
-  // multiple of 8 and so is the stride) can add them up by shuffles.
+  // multiple of 8 and so is the stride) can add them up by shuffles: the
+  // unrounded x, or for kV7 R(R(x_lo) + R(x_hi)) over the 16 pairs (lane
+  // i < 4 of the 8 holds x_lo[4i..4i+3], lane i + 4 the x_hi they pair
+  // with).
   const int rows = min(MT, M - m0), quads = nkb * 8;
   for (int i0 = 0; i0 < rows * quads; i0 += kMmaThreads) {
     const int i = i0 + threadIdx.x;
@@ -484,16 +546,28 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
             pack_bf16(v[2 * h], v[2 * h + 1]);
       }
     }
-    if constexpr (AFFINE) {
-      float sum = (v[0] + v[1]) + (v[2] + v[3]);
+    if constexpr (BSUM) {
+      float sum;
+      if constexpr (MODE == kV7) {
+        sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float mine = fltorch::round_bf16(v[e]);
+          const float pair = __shfl_xor_sync(0xffffffffu, mine, 4);
+          sum += fltorch::round_bf16(mine + pair);
+        }
+        if (qd & 4) sum = 0.f;             // the x_hi lanes: counted above
+      } else {
+        sum = (v[0] + v[1]) + (v[2] + v[3]);
+      }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       sum += __shfl_xor_sync(0xffffffffu, sum, 4);
       if (ok && (qd & 7) == 0) bs[(qd >> 3) * MT + r] = sum;
     }
   }
-  if constexpr (AFFINE) {
-    // rows >= M: a zero sum, so the mins term adds nothing there
+  if constexpr (BSUM) {
+    // rows >= M: a zero sum, so the term adds nothing there
     for (int i = threadIdx.x; i < (MT - rows) * nkb; i += kMmaThreads)
       bs[(i % nkb) * MT + rows + i / nkb] = 0.f;
   }
@@ -508,12 +582,11 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
       for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
 
   // this lane's reads: rows 2t, 2t+1, 2t+8, 2t+9 at bytes g*8 .. g*8+7, the
-  // scales (and mins) of those 8 columns, its B fragments and, AFFINE, the
+  // scales (and mins) of those 8 columns, its B fragments and, BSUM, the
   // block sums of its accumulator rows 2t, 2t+1 of each n-tile (all kw q
   // blocks apart)
   const uint8_t* a_rd = ring + 2 * t * kRowStride + g * 8;
-  const float* s_rd = reinterpret_cast<const float*>(ring + 16 * kRowStride)
-                      + g * 8;
+  const uint8_t* s_rd = ring + 16 * kRowStride + g * 8 * kSel;
   const uint4* x_rd = reinterpret_cast<const uint4*>(xs) + kg * NT * 32 + lane;
   const float* bs_rd = bs + kg * MT + 2 * t;
   uint32_t rd_slot = 0, wr_slot = (kStages - 1) * kSB;
@@ -544,60 +617,114 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
         hi[r][1] = (v.y >> 4) & 0x0F0F0F0Fu;
       }
     }
-    const float* sd = reinterpret_cast<const float*>(
-        reinterpret_cast<const uint8_t*>(s_rd) + slot);
     float d[8];
     if constexpr (SCALED) {
-      const float4 da = *reinterpret_cast<const float4*>(sd);
-      const float4 db = *reinterpret_cast<const float4*>(sd + 4);
-      d[0] = da.x; d[1] = da.y; d[2] = da.z; d[3] = da.w;
-      d[4] = db.x; d[5] = db.y; d[6] = db.z; d[7] = db.w;
+      if constexpr (SC16) {
+        const uint4 dv = *reinterpret_cast<const uint4*>(s_rd + slot);
+        const uint32_t w[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+          d[2 * e] = f.x;
+          d[2 * e + 1] = f.y;
+        }
+      } else {
+        const float4 da = *reinterpret_cast<const float4*>(s_rd + slot);
+        const float4 db = *reinterpret_cast<const float4*>(s_rd + slot + 16);
+        d[0] = da.x; d[1] = da.y; d[2] = da.z; d[3] = da.w;
+        d[4] = db.x; d[5] = db.y; d[6] = db.z; d[7] = db.w;
+      }
     }
     uint4 xb[NT];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) xb[nt] = x_rd[nt * 32];
     x_rd += kw * NT * 32;
-#pragma unroll
-    for (int step = 0; step < kSteps; ++step) {
+    if constexpr (MODE == kV2) {
+      // the codes alone (exact in bf16) into a fresh accumulator per m-tile
+      // and q block, both k16 steps; the block's product is then scaled
+      // into acc in f32: sum_b d_b * (R(x_b) @ q_b)
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
-        uint32_t a[4];
-#pragma unroll
-        for (int reg = 0; reg < 4; ++reg) {
-          // a0: column 2mt, rows 2t/2t+1; a1: column 2mt+1, the same rows;
-          // a2, a3: rows 2t+8/2t+9
-          const int c = 2 * mt + (reg & 1), r = 2 * (reg >> 1);
-          const uint32_t* src0 = step ? hi[r] : lo[r];
-          const uint32_t* src1 = step ? hi[r + 1] : lo[r + 1];
-          float v0, v1;
-          switch (c & 3) {
-            case 0: v0 = nib_val<0, RAW>(src0[c >> 2], magic);
-                    v1 = nib_val<0, RAW>(src1[c >> 2], magic); break;
-            case 1: v0 = nib_val<1, RAW>(src0[c >> 2], magic);
-                    v1 = nib_val<1, RAW>(src1[c >> 2], magic); break;
-            case 2: v0 = nib_val<2, RAW>(src0[c >> 2], magic);
-                    v1 = nib_val<2, RAW>(src1[c >> 2], magic); break;
-            default: v0 = nib_val<3, RAW>(src0[c >> 2], magic);
-                     v1 = nib_val<3, RAW>(src1[c >> 2], magic); break;
-          }
-          if constexpr (SCALED)
-            a[reg] = pack_bf16(v0 * d[c], v1 * d[c]);
-          else
-            a[reg] = pack_bf16(v0, v1);
-        }
+        float z[NT][4];
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-          mma_bf16(acc[mt][nt], a, step ? xb[nt].z : xb[nt].x,
-                   step ? xb[nt].w : xb[nt].y);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) z[nt][c] = 0.f;
+#pragma unroll
+        for (int step = 0; step < 2; ++step) {
+          uint32_t a[4];
+#pragma unroll
+          for (int reg = 0; reg < 4; ++reg) {
+            const float2 q = a_codes<true>(lo, hi, step, mt, reg, magic);
+            a[reg] = pack_bf16(q.x, q.y);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_bf16(z[nt], a, step ? xb[nt].z : xb[nt].x,
+                     step ? xb[nt].w : xb[nt].y);
+        }
+        // D fragment c: column g*8 + 2mt + c/2 (see below)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[mt][nt][c] =
+                fmaf(z[nt][c], d[2 * mt + (c >> 1)], acc[mt][nt][c]);
+      }
+    } else {
+      // kV3: the scales rounded to bf16, for a bf16 x bf16 -> bf16 product
+      __nv_bfloat162 dh[8];
+      if constexpr (MODE == kV3) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          dh[c] = __bfloat162bfloat162(__float2bfloat16_rn(d[c]));
+      }
+#pragma unroll
+      for (int step = 0; step < kSteps; ++step) {
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          uint32_t a[4];
+#pragma unroll
+          for (int reg = 0; reg < 4; ++reg) {
+            // a0: column 2mt, rows 2t/2t+1; a1: column 2mt+1, the same
+            // rows; a2, a3: rows 2t+8/2t+9
+            const int c = 2 * mt + (reg & 1);
+            const float2 q = a_codes<RAW>(lo, hi, step, mt, reg, magic);
+            if constexpr (MODE == kV3) {
+              // R(q * R(d)): the codes are exact in bf16, one rounding of
+              // the product
+              __nv_bfloat162 p = __hmul2(
+                  __floats2bfloat162_rn(q.x, q.y), dh[c]);
+              a[reg] = *reinterpret_cast<uint32_t*>(&p);
+            } else if constexpr (SCALED) {
+              a[reg] = pack_bf16(q.x * d[c], q.y * d[c]);
+            } else {
+              a[reg] = pack_bf16(q.x, q.y);
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_bf16(acc[mt][nt], a, step ? xb[nt].z : xb[nt].x,
+                     step ? xb[nt].w : xb[nt].y);
+        }
       }
     }
-    if constexpr (AFFINE) {
-      // + bsum[row] * m[col]: D fragment c of (mt, nt) is row nt*8 + 2t +
-      // c%2 and column g*8 + 2mt + c/2 (see below), so the 8 mins of the
-      // lane's columns and 2 block sums per n-tile suffice
-      const float4 ma = *reinterpret_cast<const float4*>(sd + 64);
-      const float4 mb = *reinterpret_cast<const float4*>(sd + 68);
-      const float mn[8] = {ma.x, ma.y, ma.z, ma.w, mb.x, mb.y, mb.z, mb.w};
+    if constexpr (BSUM) {
+      // + bsum[row] * p[col], p the mins (AFFINE) or -8 d (the folded
+      // offset of the variants): D fragment c of (mt, nt) is row nt*8 + 2t
+      // + c%2 and column g*8 + 2mt + c/2 (see below), so the 8 values of
+      // the lane's columns and 2 block sums per n-tile suffice
+      float p[8];
+      if constexpr (AFFINE) {
+        const float4 ma = *reinterpret_cast<const float4*>(s_rd + slot + 256);
+        const float4 mb = *reinterpret_cast<const float4*>(s_rd + slot + 272);
+        p[0] = ma.x; p[1] = ma.y; p[2] = ma.z; p[3] = ma.w;
+        p[4] = mb.x; p[5] = mb.y; p[6] = mb.z; p[7] = mb.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) p[c] = -8.f * d[c];
+      }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const float2 bv = *reinterpret_cast<const float2*>(bs_rd + nt * 8);
@@ -605,7 +732,7 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
         for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            acc[mt][nt][c] = fmaf(c & 1 ? bv.y : bv.x, mn[2 * mt + (c >> 1)],
+            acc[mt][nt][c] = fmaf(c & 1 ? bv.y : bv.x, p[2 * mt + (c >> 1)],
                                   acc[mt][nt][c]);
       }
       bs_rd += kw * MT;
@@ -671,33 +798,34 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   if (threadIdx.x == 0) counters[tile] = 0;
 }
 
-template <int NT, int MODE>
+template <int NT, int MODE, bool SC16>
 int launch_mma(const float* x, int M, int Kx, const uint8_t* qs,
-               const float* scales, const float* mins, int N, int NB, int cw,
+               const void* scales, const float* mins, int N, int NB, int cw,
                int splits, int kb_per_split, float* partial, int* counters,
                float* y, int n_out, cudaStream_t stream) {
-  // the ring, the x slice and (AFFINE) the block sums, reused afterwards for
+  // the ring, the x slice and (BSUM) the block sums, reused afterwards for
   // the warps' sums
-  const size_t ring_x = (size_t)kMmaWarps * kStages * kStageBytes<MODE> +
-                        (size_t)kb_per_split * NT * 128 * sizeof(uint32_t) +
-                        (MODE == kQ41 ? (size_t)kb_per_split * 8 * NT * 4 : 0);
+  const size_t ring_x =
+      (size_t)kMmaWarps * kStages * kStageBytes<MODE, SC16> +
+      (size_t)kb_per_split * NT * 128 * sizeof(uint32_t) +
+      (kBsum<MODE> ? (size_t)kb_per_split * 8 * NT * 4 : 0);
   const size_t red = (size_t)kMmaWarps * 8 * NT * kWarpCols * sizeof(float);
   const size_t smem = ring_x > red ? ring_x : red;
   if (smem + 1024 > 48 * 1024) {         // with the static shared memory
     cudaError_t err = cudaFuncSetAttribute(
-        q4_mma_kernel<NT, MODE>,
+        q4_mma_kernel<NT, MODE, SC16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int bn = cw * kWarpCols;
   dim3 grid((N + bn - 1) / bn, splits, (M + 8 * NT - 1) / (8 * NT));
-  q4_mma_kernel<NT, MODE><<<grid, kMmaThreads, smem, stream>>>(
+  q4_mma_kernel<NT, MODE, SC16><<<grid, kMmaThreads, smem, stream>>>(
       x, M, Kx, qs, scales, mins, N, NB, cw, kb_per_split, partial, counters,
       y, n_out, 0x4B000000u);
   return (int)cudaGetLastError();
 }
 
-template <int MODE>
+template <int MODE, bool SC16 = false>
 int dispatch_mma(const void* x, int M, int Kx, const void* qs,
                  const void* scales, const void* mins, int N, int NB, int cw,
                  int splits, int kb_per_split, int nt, void* partial,
@@ -705,7 +833,6 @@ int dispatch_mma(const void* x, int M, int Kx, const void* qs,
   cudaStream_t s = (cudaStream_t)stream;
   const float* xf = (const float*)x;
   const uint8_t* q = (const uint8_t*)qs;
-  const float* sc = (const float*)scales;
   const float* mn = (const float*)mins;
   float* p = (float*)partial;
   int* c = (int*)counters;
@@ -713,17 +840,31 @@ int dispatch_mma(const void* x, int M, int Kx, const void* qs,
   if (N % 16 || (cw != 1 && cw != 2 && cw != 4) || kb_per_split * nt > 64)
     return (int)cudaErrorInvalidValue;
   switch (nt) {
-    case 1: return launch_mma<1, MODE>(xf, M, Kx, q, sc, mn, N, NB, cw,
-                                         splits, kb_per_split, p, c, yf,
-                                         n_out, s);
-    case 2: return launch_mma<2, MODE>(xf, M, Kx, q, sc, mn, N, NB, cw,
-                                         splits, kb_per_split, p, c, yf,
-                                         n_out, s);
-    case 4: return launch_mma<4, MODE>(xf, M, Kx, q, sc, mn, N, NB, cw,
-                                         splits, kb_per_split, p, c, yf,
-                                         n_out, s);
+    case 1: return launch_mma<1, MODE, SC16>(xf, M, Kx, q, scales, mn, N, NB,
+                                             cw, splits, kb_per_split, p, c,
+                                             yf, n_out, s);
+    case 2: return launch_mma<2, MODE, SC16>(xf, M, Kx, q, scales, mn, N, NB,
+                                             cw, splits, kb_per_split, p, c,
+                                             yf, n_out, s);
+    case 4: return launch_mma<4, MODE, SC16>(xf, M, Kx, q, scales, mn, N, NB,
+                                             cw, splits, kb_per_split, p, c,
+                                             yf, n_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <int MODE>
+int dispatch_scales(int sc16, const void* x, int M, int Kx, const void* qs,
+                    const void* scales, int N, int NB, int cw, int splits,
+                    int kb_per_split, int nt, void* partial, void* counters,
+                    void* y, int n_out, void* stream) {
+  if (sc16)
+    return dispatch_mma<MODE, true>(x, M, Kx, qs, scales, nullptr, N, NB, cw,
+                                    splits, kb_per_split, nt, partial,
+                                    counters, y, n_out, stream);
+  return dispatch_mma<MODE, false>(x, M, Kx, qs, scales, nullptr, N, NB, cw,
+                                   splits, kb_per_split, nt, partial,
+                                   counters, y, n_out, stream);
 }
 
 }  // namespace
@@ -779,6 +920,33 @@ extern "C" int q4_nosc_mma(const void* x, int M, int Kx, const void* qs,
   return dispatch_mma<kNosc>(x, M, Kx, qs, nullptr, nullptr, N, NB, cw,
                              splits, kb_per_split, nt, partial, counters, y,
                              n_out, stream);
+}
+
+// B1 (variant 0) with f32 or 2-byte scales and B15-B18, the modes of the
+// JAX package's q4_matmul_pallas variants (variant 1: v1's folded offset,
+// 2: v2's per-block scaling, 3: v3's bf16 product, 7: v7's block sums of
+// rounded pairs; kernels/q4_variants.py): as q4_gemv_mma, the scales f32
+// (sc16 = 0) or bf16 (sc16 = 1) [NB, N], 16-byte aligned. Returns the CUDA
+// error code of the launch.
+extern "C" int q4_variant_mma(const void* x, int M, int Kx, const void* qs,
+                              const void* scales, int sc16, int N, int NB,
+                              int cw, int splits, int kb_per_split, int nt,
+                              void* partial, void* counters, void* y,
+                              int n_out, int variant, void* stream) {
+  switch (variant) {
+#define FLTORCH_VARIANT(V, MODE)                                             \
+    case V:                                                                  \
+      return dispatch_scales<MODE>(sc16, x, M, Kx, qs, scales, N, NB, cw,    \
+                                   splits, kb_per_split, nt, partial,        \
+                                   counters, y, n_out, stream);
+    FLTORCH_VARIANT(0, kQ40)
+    FLTORCH_VARIANT(1, kV1)
+    FLTORCH_VARIANT(2, kV2)
+    FLTORCH_VARIANT(3, kV3)
+    FLTORCH_VARIANT(7, kV7)
+#undef FLTORCH_VARIANT
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // x f32 [M, Kx] (Kx <= 32 * NB; the stored-K tail reads as zeros),

@@ -36,6 +36,11 @@
 //      s8 and the n < n_out cut. The consumers hold 64 or 128 accumulators
 //      a thread without spilling (nvcc -Xptxas -v), so no setmaxnreg
 //      rebalancing between the roles is needed.
+// B19 (q4_int8_gemm_norm) replaces the natx body
+// (_q4mm_prefill_int8_nat_kernel) and the split body, which is bit-equal to
+// it: the same product on scales the caller has divided, d / s8 (the JAX
+// glue's true division, where B3 multiplies by 1 / s8), with s8 given; the
+// requantization pass in its NORM mode reads them as they are.
 // The requantization is a pass of its own. Fusing it into the product's
 // producer side (no plane, but every row tile of 128 requantizes its
 // weight tile again, on the CUDA cores beside the tensor cores) was
@@ -87,6 +92,10 @@ constexpr int kReqRow = kReqKT * 32;             // bytes of a staged row
 // The tile's 16-byte chunks are swizzled (chunk ^ (row / 4) % 32), so that
 // neither the lanes' stores (rows 4 l + c) nor a warp's read of one row
 // meet bank conflicts.
+// NORM (B19, the natx / split bodies): `scales` holds the normalized scales
+// d / s8 already (divided outside the kernel, as the JAX package's XLA glue
+// divides them), so there is no max pass, no reciprocal and no s8 to write.
+template <bool NORM>
 __global__ void __launch_bounds__(kReqThreads)
 requant_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ scales,
                int NB, int N, int K, int kb_per_block, float* __restrict__ s8,
@@ -96,30 +105,32 @@ requant_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ scales,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n0 = blockIdx.x * kReqTileN, n = n0 + lane * kReqCols;
   const bool ok = n < N;
-  float mx[kReqCols] = {0.f, 0.f, 0.f, 0.f};
-  if (ok) {
-    for (int kb = warp; kb < NB; kb += kReqWarps) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(
-          scales + (size_t)kb * N + n));
-      mx[0] = fmaxf(mx[0], fabsf(v.x));
-      mx[1] = fmaxf(mx[1], fabsf(v.y));
-      mx[2] = fmaxf(mx[2], fabsf(v.z));
-      mx[3] = fmaxf(mx[3], fabsf(v.w));
+  float inv[kReqCols] = {1.f, 1.f, 1.f, 1.f};
+  if constexpr (!NORM) {
+    float mx[kReqCols] = {0.f, 0.f, 0.f, 0.f};
+    if (ok) {
+      for (int kb = warp; kb < NB; kb += kReqWarps) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(
+            scales + (size_t)kb * N + n));
+        mx[0] = fmaxf(mx[0], fabsf(v.x));
+        mx[1] = fmaxf(mx[1], fabsf(v.y));
+        mx[2] = fmaxf(mx[2], fabsf(v.z));
+        mx[3] = fmaxf(mx[3], fabsf(v.w));
+      }
     }
-  }
 #pragma unroll
-  for (int c = 0; c < kReqCols; ++c) red[warp][lane * kReqCols + c] = mx[c];
-  __syncthreads();
-  float inv[kReqCols];
+    for (int c = 0; c < kReqCols; ++c) red[warp][lane * kReqCols + c] = mx[c];
+    __syncthreads();
 #pragma unroll
-  for (int c = 0; c < kReqCols; ++c) {
-    float m = red[0][lane * kReqCols + c];
+    for (int c = 0; c < kReqCols; ++c) {
+      float m = red[0][lane * kReqCols + c];
 #pragma unroll
-    for (int w = 1; w < kReqWarps; ++w)
-      m = fmaxf(m, red[w][lane * kReqCols + c]);
-    const float s = fmaxf(m * (float)(8.0 / 127.0), (float)1e-20);
-    inv[c] = __fdiv_rn(1.0f, s);
-    if (ok && blockIdx.y == 0 && warp == 0) s8[n + c] = s;
+      for (int w = 1; w < kReqWarps; ++w)
+        m = fmaxf(m, red[w][lane * kReqCols + c]);
+      const float s = fmaxf(m * (float)(8.0 / 127.0), (float)1e-20);
+      inv[c] = __fdiv_rn(1.0f, s);
+      if (ok && blockIdx.y == 0 && warp == 0) s8[n + c] = s;
+    }
   }
   const int kb_end = min(NB, (int)(blockIdx.y + 1) * kb_per_block);
   for (int g = blockIdx.y * kb_per_block; g < kb_end; g += kReqKT) {
@@ -128,8 +139,9 @@ requant_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ scales,
       const int kb = g + t;
       const float4 d = ok ? __ldg(reinterpret_cast<const float4*>(
           scales + (size_t)kb * N + n)) : make_float4(0.f, 0.f, 0.f, 0.f);
-      const float sc[kReqCols] = {d.x * inv[0], d.y * inv[1], d.z * inv[2],
-                                  d.w * inv[3]};
+      const float sc[kReqCols] = {
+          NORM ? d.x : d.x * inv[0], NORM ? d.y : d.y * inv[1],
+          NORM ? d.z : d.z * inv[2], NORM ? d.w : d.w * inv[3]};
       uint32_t word[16];
 #pragma unroll
       for (int j = 0; j < 16; ++j)
@@ -400,18 +412,10 @@ int launch_gemm(const void* xq, const float* dx, int M, int K,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// xq int8 [M, K] (K = the stored K, a multiple of 64), dx f32 [M], qs
-// uint8 [K/2, N], scales f32 [K/32, N] (N a multiple of 4), s8 f32 [N]
-// scratch, w8t int8 [N, K] scratch (16-byte aligned), y f32 [M, n_out];
-// tile: the product's variant, 0 = 128 x 256 outputs (4 stages), 1 =
-// 128 x 128 (6 stages). Launches the requantization, then the product;
-// returns the CUDA error code of the launches.
-extern "C" int q4_int8_gemm(const void* xq, const void* dx, int M, int K,
-                            const void* qs, const void* scales, int N,
-                            void* s8, void* w8t, void* y, int n_out,
-                            int tile, void* stream) {
+template <bool NORM>
+int int8_gemm(const void* xq, const void* dx, int M, int K, const void* qs,
+              const void* scales, int N, void* s8, void* w8t, void* y,
+              int n_out, int tile, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (K % 64 || N % 4 || tile < 0 || tile > 1)
     return (int)cudaErrorInvalidValue;
@@ -427,12 +431,13 @@ extern "C" int q4_int8_gemm(const void* xq, const void* dx, int M, int K,
   static bool attr = false;
   if (!attr) {
     cudaError_t err = cudaFuncSetAttribute(
-        requant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        requant_kernel<NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
   dim3 grid(xb, (nb + per - 1) / per);
-  requant_kernel<<<grid, kReqThreads, smem, s>>>(
+  requant_kernel<NORM><<<grid, kReqThreads, smem, s>>>(
       (const uint8_t*)qs, (const float*)scales, nb, N, K, per, (float*)s8,
       (int8_t*)w8t);
   cudaError_t err = cudaGetLastError();
@@ -442,4 +447,31 @@ extern "C" int q4_int8_gemm(const void* xq, const void* dx, int M, int K,
   if (tile == 0)
     return launch_gemm<256, 4>(xq, d, M, K, w8t, sc, N, (float*)y, n_out, s);
   return launch_gemm<128, 6>(xq, d, M, K, w8t, sc, N, (float*)y, n_out, s);
+}
+
+}  // namespace
+
+// xq int8 [M, K] (K = the stored K, a multiple of 64), dx f32 [M], qs
+// uint8 [K/2, N], scales f32 [K/32, N] (N a multiple of 4), s8 f32 [N]
+// scratch, w8t int8 [N, K] scratch (16-byte aligned), y f32 [M, n_out];
+// tile: the product's variant, 0 = 128 x 256 outputs (4 stages), 1 =
+// 128 x 128 (6 stages). Launches the requantization, then the product;
+// returns the CUDA error code of the launches.
+extern "C" int q4_int8_gemm(const void* xq, const void* dx, int M, int K,
+                            const void* qs, const void* scales, int N,
+                            void* s8, void* w8t, void* y, int n_out,
+                            int tile, void* stream) {
+  return int8_gemm<false>(xq, dx, M, K, qs, scales, N, s8, w8t, y, n_out,
+                          tile, stream);
+}
+
+// B19: as q4_int8_gemm with the normalized scales d / s8 f32 [K/32, N] in
+// place of the scales and s8 f32 [N] an input (both made by the caller):
+// w8 = round_half_even((q - 8) * sc_norm), y = (float(acc) * dx) * s8.
+extern "C" int q4_int8_gemm_norm(const void* xq, const void* dx, int M, int K,
+                                 const void* qs, const void* sc_norm, int N,
+                                 const void* s8, void* w8t, void* y,
+                                 int n_out, int tile, void* stream) {
+  return int8_gemm<true>(xq, dx, M, K, qs, sc_norm, N, const_cast<void*>(s8),
+                         w8t, y, n_out, tile, stream);
 }

@@ -38,8 +38,11 @@ ARGTYPES = {
     "q41_gemv": [P, I, I, P, P, P, I, I, I, I, P, P, P, I, I, P],
     "q4_floor_mma": [P, I, I, P, I, I, I, I, I, I, P, P, P, I, P],
     "q4_nosc_mma": [P, I, I, P, I, I, I, I, I, I, P, P, P, I, P],
+    "q4_variant_mma": [P, I, I, P, P, I, I, I, I, I, I, I, P, P, P, I, I,
+                       P],
     "quant_rows_int8": [P, I, I, I, P, P, P],
     "q4_int8_gemm": [P, P, I, I, P, P, I, P, P, P, I, I, P],
+    "q4_int8_gemm_norm": [P, P, I, I, P, P, I, P, P, P, I, I, P],
     "q4_prefill_gemm": [P, I, I, P, P, P, I, I, P, I, I, I, P, P, P, I, I,
                         P],
     "decode_attention_fused": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P,
@@ -60,7 +63,9 @@ ARGTYPES = {
 LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
           "q41_gemv": "q4_decode", "q41_gemv_mma": "q4_decode",
           "q4_floor_mma": "q4_decode", "q4_nosc_mma": "q4_decode",
+          "q4_variant_mma": "q4_decode",
           "quant_rows_int8": "quant_rows", "q4_int8_gemm": "q4_int8",
+          "q4_int8_gemm_norm": "q4_int8",
           "q4_prefill_gemm": "q4_prefill",
           "decode_attention_fused": "decode_attention",
           "decode_attention": "decode_attention",

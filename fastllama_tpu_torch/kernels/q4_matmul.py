@@ -6,8 +6,9 @@ Ports fastllama_tpu/kernels/q4_matmul.py. The weight is a QuantMatmulWeight
 shape); activations are f32 [M, K] and outputs f32 [M, n_logical].
 
 Kernels (CUDA C++ for sm_90a, sources in csrc/, built by cuda_lib):
-  B1 q4_matmul_decode        csrc/q4_decode.cu   (q4_matmul_pallas v1;
-                             tensor cores in bf16 mode, FFMA in f32 mode)
+  B1 q4_matmul_decode        csrc/q4_decode.cu   (q4_matmul_pallas: v0's
+                             function, q4_matmul_xla's; tensor cores in
+                             bf16 mode, FFMA in f32 mode)
   B2 quant_rows_int8         csrc/quant_rows.cu  (quant_rows_int8)
   B3 q4_matmul_prefill_int8  csrc/q4_int8.cu     (q4_matmul_prefill_int8 nat)
   B5 q4_matmul_prefill       csrc/q4_prefill.cu  (q4_matmul_prefill_pallas nat;
@@ -23,6 +24,8 @@ against. Each wrapper counts its launches in a plain int attribute
 `.launches`.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -516,16 +519,30 @@ cuda_lib.counted(q4_matmul_prefill)
 # Dispatcher
 # ---------------------------------------------------------------------------
 
-def use_int8(m: int, w_dtype, prefill_int8: bool | None) -> bool:
-    """The int8 prefill path: M >= PREFILL_MIN_M and int8 enabled (None =
-    on in bf16 mode, off in f32 mode)."""
-    on = (w_dtype != torch.float32) if prefill_int8 is None else prefill_int8
-    return m >= PREFILL_MIN_M and on
+def use_int8(m: int, w_dtype, prefill_int8: bool | None,
+             use_pallas: bool | None = None) -> bool:
+    """The int8 prefill path for a q4_0 weight at M rows, with the JAX
+    package's precedence: at M >= PREFILL_MIN_M, (1) an explicit
+    prefill_int8; else (2) FASTLLAMA_PREFILL_INT8 if it is set ("1" forces
+    int8, any other value pins it off); else (3) the default, on in bf16
+    mode only, and only while use_pallas is not False and
+    FASTLLAMA_PREFILL_KERNEL is not "0" (the JAX package's escape hatches
+    from its kernels, which keep the bf16-exact function)."""
+    if m < PREFILL_MIN_M:
+        return False
+    if prefill_int8 is not None:
+        return prefill_int8
+    forced = os.environ.get("FASTLLAMA_PREFILL_INT8")
+    if forced is not None:
+        return forced == "1"
+    return (w_dtype != torch.float32 and use_pallas is not False
+            and os.environ.get("FASTLLAMA_PREFILL_KERNEL", "1") != "0")
 
 
 def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
               w_dtype=torch.bfloat16,
-              prefill_int8: bool | None = None) -> torch.Tensor:
+              prefill_int8: bool | None = None,
+              use_pallas: bool | None = None) -> torch.Tensor:
     """x [..., K_logical] -> [..., n_logical] f32, chosen by the weight and
     M = prod(lead):
 
@@ -544,6 +561,18 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
     CPU B5 runs its plain version, which is that dequant path, so every CPU
     result is the one before.
 
+    use_pallas is the JAX package's switch between its Pallas kernels and
+    q4_matmul_xla, and selects the same functions here (all on kernels):
+      None  the table above (B1 computes q4_matmul_xla's function);
+      False q4_matmul_xla's function at every M: q4_0 at M <= 64 on B1,
+            q4_1 at every M and q4_0 at M > 64 on B5, and int8 only where
+            prefill_int8 or FASTLLAMA_PREFILL_INT8=1 forces it (B2 + B3);
+      True  the Pallas decode kernel's function at M <= 64 for q4_0 in
+            bf16 mode, v1's folded offset (q4_variants.q4_decode_v1, B15);
+            the table above otherwise.
+    The environment switches (use_int8) are read when a step runs eagerly
+    or is captured, as the JAX package reads them when it traces.
+
     The stored-K padding of the weight is handled inside (x counts as zero
     there) and outputs have the logical width."""
     lead = x.shape[:-1]
@@ -552,9 +581,14 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
         m *= d
     x2 = x.reshape(m, x.shape[-1]).to(torch.float32).contiguous()
     affine = w.mins is not None
-    if m <= DECODE_MAX_M:
-        y = (q41_matmul_decode if affine else q4_matmul_decode)(x2, w, w_dtype)
-    elif not affine and use_int8(m, w_dtype, prefill_int8):
+    if m <= DECODE_MAX_M and not (affine and use_pallas is False):
+        if use_pallas and not affine and w_dtype == torch.bfloat16:
+            from .q4_variants import q4_decode_v1
+            y = q4_decode_v1(x2, w.qs, w.scales, w.n_logical)
+        else:
+            y = (q41_matmul_decode if affine else q4_matmul_decode)(
+                x2, w, w_dtype)
+    elif not affine and use_int8(m, w_dtype, prefill_int8, use_pallas):
         xq, dx = quant_rows_int8(x2, w.k)
         y = q4_matmul_prefill_int8(xq, dx, w)
     else:

@@ -1,0 +1,340 @@
+"""The q4 matmul variants: the JAX package's q4_matmul_pallas(variant=),
+q4_matmul_prefill_pallas(variant=) and q4_matmul_prefill_int8(variant=) on
+raw weight planes, as its variant tools call them
+(tools/profile_q4_variants.py, tools/bench_kernels.py,
+tools/bench_q4_floor.py).
+
+Each body of the JAX package maps onto one Hopper kernel by the function it
+computes. Decode bodies, x f32 [M <= 64, K], qs uint8 [K/2, N] (split-K
+packed), d f32 or bf16 [K/32, N]; R rounds to bf16 and bsum(x) is the f32
+sum of the unrounded x over each 32-block of K:
+
+  v0          R(x) @ R((q - 8) d)                    B1  (q4_matmul_decode)
+  v1, v4, v5  R(x) @ R(q d) - 8 bsum(x) @ d          B15 q4_decode_v1
+  v2          sum_b d_b (R(x_b) @ q_b) - 8 bsum @ d  B16 q4_decode_v2
+  v3          R(x) @ R(q R(d)) - 8 bsum(x) @ d       B17 q4_decode_v3
+  v7          R(x) @ R(q d) - 8 bsum7 @ d            B18 q4_decode_v7
+
+where x_b, q_b are the 32 columns of x and rows of the codes of q block b,
+and bsum7 sums R(R(x_lo) + R(x_hi)) in f32 over the 16 pairs of a block
+(x_lo, x_hi: its low and high halves). v4 and v5 are bit-equal to v1 in
+the JAX package, so they map onto B15 (tests/test_torch_q4_variants.py
+holds the identity). The "h" forms of the tools pass bf16 scales: the same
+functions on f32(d), which the kernels read as 2-byte values. In f32 mode
+(w_dtype float32) nothing is rounded to bf16, so every decode variant is
+x @ ((q - 8) d) in exact arithmetic and the variants differ only in f32
+rounding: f32 mode runs B1's f32 kernel for each of them, with f32 scales.
+
+Prefill bodies, x f32 [M, K]:
+  int8 nat, natp   B2 + B3 (q4_matmul.quant_rows_int8 and
+                   q4_matmul_prefill_int8); natp is bit-equal to nat
+  int8 natx, split B19 q4_prefill_int8_natx (bit-equal to each other)
+  bf16 nat         B5 (q4_matmul.q4_matmul_prefill)
+  bf16 split       _q4mm_prefill_kernel: not ported yet (ROADMAP, B20)
+
+Each wrapper launches its kernel for a CUDA tensor and raises on anything it
+does not take; for a CPU tensor it runs its plain version, which the tests
+hold against the JAX bodies in Pallas interpret mode and chip_smoke.py holds
+the kernel against. Each counts its launches in `.launches`.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..quant.tensor import QBLOCK, QuantMatmulWeight, unpack_codes
+from . import cuda_lib
+from . import q4_matmul as qm
+
+HALF = QBLOCK // 2
+DECODE_VARIANTS = ("v0", "v1", "v2", "v3", "v4", "v5", "v7")
+INT8_VARIANTS = ("nat", "natp", "natx", "split")
+# the kernel of each decode body in bf16 mode: its mode of the tensor-core
+# kernel (csrc/q4_decode.cu, q4_variant_mma's `variant`)
+MODE_OF = {"v0": 0, "v1": 1, "v4": 1, "v5": 1, "v2": 2, "v3": 3, "v7": 7}
+
+
+def _rounded(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _codes(qs: torch.Tensor) -> torch.Tensor:
+    """The codes 0..15 as f32 [K, N] in natural K order."""
+    kh, n = qs.shape
+    nb = kh // HALF
+    return unpack_codes(qs.reshape(nb, HALF, n), 1).reshape(
+        nb * QBLOCK, n).to(torch.float32)
+
+
+def _block_sums(x: torch.Tensor) -> torch.Tensor:
+    """bsum(x): f32 [M, K/32], the unrounded x summed over each q block."""
+    return x.reshape(x.shape[0], -1, QBLOCK).sum(-1)
+
+
+def _pair_sums(x: torch.Tensor) -> torch.Tensor:
+    """bsum7(x): f32 [M, K/32], R(R(x_lo) + R(x_hi)) summed over the 16
+    pairs of each q block (v7's block sums)."""
+    xb = x.reshape(x.shape[0], -1, QBLOCK)
+    return _rounded(_rounded(xb[..., :HALF]) + _rounded(xb[..., HALF:])
+                    ).sum(-1)
+
+
+def decode_plain(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
+                 variant: str, w_dtype=torch.bfloat16) -> torch.Tensor:
+    """The function of decode body `variant` (module docstring): x f32 [M,
+    K <= K_stored] -> f32 [M, N]; x counts as zero past its K. In f32 mode
+    every variant is this module's v0 in f32, B1's f32 function."""
+    _require_variant(variant)
+    k = qs.shape[0] * 2
+    xf = qm._pad_k(x.to(torch.float32), k)
+    d = scales.to(torch.float32)
+    nb = d.shape[0]
+    codes = _codes(qs)                                   # [K, N]
+    d_rep = d.repeat_interleave(QBLOCK, dim=0)           # [K, N]
+    if w_dtype == torch.float32:
+        variant = "v0"
+    if variant == "v0":
+        w = (codes - 8.0) * d_rep
+        if w_dtype != torch.float32:
+            w, xf = _rounded(w), _rounded(xf)
+        return xf @ w
+    corr = -8.0 * ((_pair_sums(xf) if variant == "v7" else _block_sums(xf))
+                   @ d)
+    xr = _rounded(xf)
+    if variant == "v2":
+        n = qs.shape[1]
+        z = torch.einsum("mbj,bjn->mbn", xr.reshape(-1, nb, QBLOCK),
+                         codes.reshape(nb, QBLOCK, n))   # [M, nb, N]
+        return (z * d[None]).sum(1) + corr
+    if variant == "v3":
+        w = _rounded(codes * _rounded(d_rep))
+    else:                                   # v1, v4, v5, v7
+        w = _rounded(codes * d_rep)
+    return xr @ w + corr
+
+
+def _require_variant(variant: str) -> None:
+    qm._require(variant in DECODE_VARIANTS,
+                f"decode variant {variant!r}: the JAX package has "
+                f"{', '.join(DECODE_VARIANTS)}")
+
+
+def _check_planes(x: torch.Tensor, qs: torch.Tensor,
+                  scales: torch.Tensor) -> None:
+    qm._require(x.dim() == 2 and x.dtype == torch.float32,
+                "x must be f32 [M, K]")
+    qm._require(qs.dim() == 2 and qs.dtype == torch.uint8
+                and qs.shape[0] % HALF == 0, "qs must be uint8 [K/2, N]")
+    qm._require(scales.dtype in (torch.float32, torch.bfloat16)
+                and scales.shape == (qs.shape[0] // HALF, qs.shape[1]),
+                "scales must be f32 or bf16 [K/32, N]")
+    qm._require(x.shape[1] <= 2 * qs.shape[0],
+                f"x K={x.shape[1]} exceeds the stored K={2 * qs.shape[0]}")
+
+
+def _launch_decode(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
+                   mode: int, n_out: int) -> torch.Tensor:
+    """One launch of the tensor-core kernel in `mode` (MODE_OF's values) on
+    B1's plan, with f32 or 2-byte scales."""
+    qm._require(x.device.type == "cuda", f"unsupported device {x.device}")
+    qm._require(all(t.is_contiguous() and t.device == x.device
+                    for t in (x, qs, scales)),
+                "x, qs and scales must be contiguous and on one card")
+    m, kx = x.shape
+    kh, n = qs.shape
+    qm._require(1 <= m <= qm.DECODE_MAX_M,
+                f"x must have 1 <= M <= {qm.DECODE_MAX_M} rows (B1's plan)")
+    qm._require(n % 16 == 0 and qs.data_ptr() % 16 == 0
+                and scales.data_ptr() % 16 == 0,
+                "the tensor-core kernel needs N % 16 == 0 and 16-byte "
+                "aligned weight planes")
+    nb = kh // HALF
+    dev = x.device
+    nt, cw, splits, per = qm.b1_mma_plan(m, n, nb)
+    tiles = -(-n // (qm.B1_MMA_WARP_COLS * cw)) * -(-m // (8 * nt))
+    partial = cuda_lib.scratch(dev, "q4_gemv.partial", splits * m * n,
+                               torch.float32)
+    counters = cuda_lib.tile_counters(dev, tiles)
+    y = torch.empty((m, n_out), dtype=torch.float32, device=dev)
+    rc = cuda_lib.fn("q4_variant_mma")(
+        x.data_ptr(), m, kx, qs.data_ptr(), scales.data_ptr(),
+        int(scales.dtype == torch.bfloat16), n, nb, cw, splits, per, nt,
+        partial.data_ptr(), counters.data_ptr(), y.data_ptr(), n_out, mode,
+        cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, "q4_variant_mma")
+    return y
+
+
+def _decode_kernel(variant: str, doc: str):
+    """The wrapper of the bf16-mode kernel of decode body `variant`."""
+    def wrapper(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
+                n_out: int | None = None) -> torch.Tensor:
+        _check_planes(x, qs, scales)
+        n_out = n_out or qs.shape[1]
+        if x.device.type == "cpu":
+            return decode_plain(x, qs, scales, variant)[:, :n_out]
+        y = _launch_decode(x, qs, scales, MODE_OF[variant], n_out)
+        wrapper.launches += 1
+        return y
+    wrapper.__name__ = wrapper.__qualname__ = f"q4_decode_{variant}"
+    wrapper.__doc__ = doc
+    return cuda_lib.counted(wrapper)
+
+
+_SIG = ("x f32 [M <= 64, K], qs uint8 [K/2, N], scales f32 or bf16 "
+        "[K/32, N] -> f32 [M, n_out or N]")
+q4_decode_v1 = _decode_kernel("v1", f"""Kernel B15 (v1, v4, v5): {_SIG}
+    = R(x) @ R(q d) - 8 bsum(x) @ d. B1's tensor-core kernel in mode kV1:
+    the weight rounded without its offset, the -8 folded back per q block
+    as bsum * (-8 d) into the f32 accumulators, as B9 adds its mins.""")
+q4_decode_v2 = _decode_kernel("v2", f"""Kernel B16 (v2): {_SIG} =
+    sum_b d_b (R(x_b) @ q_b) - 8 bsum(x) @ d. Mode kV2: the codes alone
+    (exact in bf16) into a fresh MMA accumulator per q block, scaled by d
+    into the f32 accumulators.""")
+q4_decode_v3 = _decode_kernel("v3", f"""Kernel B17 (v3): {_SIG} =
+    R(x) @ R(q R(d)) - 8 bsum(x) @ d: a bf16 x bf16 product (one rounding)
+    of the codes and the rounded scales (mode kV3, __hmul2); the fold keeps
+    the f32 d.""")
+q4_decode_v7 = _decode_kernel("v7", f"""Kernel B18 (v7): {_SIG} =
+    R(x) @ R(q d) - 8 bsum7(x) @ d, bsum7 from the bf16-rounded pair sums
+    R(R(x_lo) + R(x_hi)), summed in f32 inside the kernel (mode kV7).""")
+DECODE_KERNELS = {"v1": q4_decode_v1, "v4": q4_decode_v1,
+                  "v5": q4_decode_v1, "v2": q4_decode_v2,
+                  "v3": q4_decode_v3, "v7": q4_decode_v7}
+
+
+def q4_decode_v0(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
+                 w_dtype=torch.bfloat16,
+                 n_out: int | None = None) -> torch.Tensor:
+    """v0 on raw planes: B1 (R(x) @ R((q - 8) d); f32 mode x @ ((q - 8) d)),
+    counted in q4_matmul.q4_matmul_decode.launches. f32 scales go through
+    q4_matmul_decode itself; bf16 scales (the v0h form) launch B1's kernel
+    in its 2-byte-scale mode (bf16 mode only)."""
+    _check_planes(x, qs, scales)
+    n_out = n_out or qs.shape[1]
+    if x.device.type == "cpu":
+        return decode_plain(x, qs, scales, "v0", w_dtype)[:, :n_out]
+    if scales.dtype == torch.float32:
+        return qm.q4_matmul_decode(
+            x, QuantMatmulWeight(qs=qs, scales=scales, n_logical=n_out),
+            w_dtype)
+    qm._require(w_dtype == torch.bfloat16,
+                "f32 mode takes f32 scales (B1's f32 kernel)")
+    y = _launch_decode(x, qs, scales, MODE_OF["v0"], n_out)
+    qm.q4_matmul_decode.launches += 1
+    return y
+
+
+def q4_matmul_pallas(x: torch.Tensor, qs: torch.Tensor,
+                     scales: torch.Tensor, *, w_dtype=torch.bfloat16,
+                     variant: str = "v1") -> torch.Tensor:
+    """The port of q4_matmul_pallas(x, qs, scales, w_dtype=, variant=): x
+    f32 [M <= 64, K] -> y f32 [M, N] by the kernel of `variant` (module
+    docstring); f32 mode runs B1's f32 kernel for every variant."""
+    _require_variant(variant)
+    qm._require(w_dtype in (torch.bfloat16, torch.float32),
+                "w_dtype must be bfloat16 or float32")
+    if variant == "v0" or w_dtype == torch.float32:
+        return q4_decode_v0(x, qs, scales, w_dtype)
+    return DECODE_KERNELS[variant](x, qs, scales)
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+PREFILL_CHUNK_M = 512          # natx and split take M <= 512 (the JAX assert)
+
+
+def natx_scales(scales: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s8 f32 [N], the normalized scales d / s8 f32 [K/32, N]) of the natx
+    and split bodies: s8 as B3 takes it, max(max_K |d| * 8/127, 1e-20), and
+    a true division, where B3 multiplies by the reciprocal 1 / s8."""
+    s8 = torch.clamp(scales.abs().amax(dim=0) * (8.0 / 127.0), min=1e-20)
+    return s8, scales / s8
+
+
+def q4_prefill_int8_natx_plain(x: torch.Tensor, qs: torch.Tensor,
+                               scales: torch.Tensor) -> torch.Tensor:
+    """B19's function: xq, dx as B2 makes them (the JAX glue's x / dx and
+    max * f32(1/127)), w8 = round_half_even((q - 8) * (d / s8)), exact
+    integer accumulators, y = (acc * dx) * s8."""
+    xq, dx = qm.quant_rows_int8_plain(x, 2 * qs.shape[0])
+    s8, sc = natx_scales(scales)
+    w8 = torch.round((_codes(qs) - 8.0)
+                     * sc.repeat_interleave(QBLOCK, dim=0))
+    acc = qm.int8_accumulators(xq, w8).to(torch.float32)
+    return (acc * dx[:, None]) * s8[None, :]
+
+
+def q4_prefill_int8_natx(x: torch.Tensor, qs: torch.Tensor,
+                         scales: torch.Tensor,
+                         n_out: int | None = None) -> torch.Tensor:
+    """Kernel B19 (int8 natx and split): x f32 [M <= 512, K], qs uint8
+    [K/2, N], scales f32 [K/32, N] -> f32 [M, n_out or N]. On the card: xq
+    and dx by B2 (bit-equal to the JAX glue), s8 and d / s8 by PyTorch ops
+    (the JAX glue's XLA ops), then B3's requantization pass in its
+    normalized-scales mode and B3's wgmma product unchanged."""
+    _check_planes(x, qs, scales)
+    qm._require(scales.dtype == torch.float32, "scales must be f32")
+    m = x.shape[0]
+    n = qs.shape[1]
+    n_out = n_out or n
+    qm._require(1 <= m <= PREFILL_CHUNK_M,
+                f"natx and split take 1 <= M <= {PREFILL_CHUNK_M} rows")
+    if x.device.type == "cpu":
+        return q4_prefill_int8_natx_plain(x, qs, scales)[:, :n_out]
+    qm._require(x.device.type == "cuda" and all(
+        t.is_contiguous() and t.device == x.device for t in (qs, scales)),
+        "qs and scales must be contiguous on x's card")
+    k = 2 * qs.shape[0]
+    qm._require(k % 64 == 0 and n % 4 == 0,
+                "stored K must be a multiple of 64 and stored N of 4")
+    xq, dx = qm.quant_rows_int8(x.contiguous(), k)
+    s8, sc = natx_scales(scales)
+    dev = x.device
+    w8t = cuda_lib.scratch(dev, "q4_int8.w8t", n * k, torch.int8)
+    y = torch.empty((m, n_out), dtype=torch.float32, device=dev)
+    rc = cuda_lib.fn("q4_int8_gemm_norm")(
+        xq.data_ptr(), dx.data_ptr(), m, k, qs.data_ptr(), sc.data_ptr(), n,
+        s8.data_ptr(), w8t.data_ptr(), y.data_ptr(), n_out,
+        qm.b3_plan(m, n, cuda_lib.sm_count(dev)), cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, "q4_int8_gemm_norm")
+    q4_prefill_int8_natx.launches += 1
+    return y
+
+
+cuda_lib.counted(q4_prefill_int8_natx)
+
+
+def q4_matmul_prefill_int8(x: torch.Tensor, qs: torch.Tensor,
+                           scales: torch.Tensor, *,
+                           variant: str = "nat") -> torch.Tensor:
+    """The port of q4_matmul_prefill_int8(x, qs, scales, variant=): x f32
+    [M, K] -> y f32 [M, N]; nat and natp run B2 + B3, natx and split B19."""
+    qm._require(variant in INT8_VARIANTS,
+                f"int8 variant {variant!r}: the JAX package has "
+                f"{', '.join(INT8_VARIANTS)}")
+    if variant in ("natx", "split"):
+        return q4_prefill_int8_natx(x, qs, scales)
+    _check_planes(x, qs, scales)
+    w = QuantMatmulWeight(qs=qs, scales=scales)
+    xq, dx = qm.quant_rows_int8(x.contiguous(), w.k)
+    return qm.q4_matmul_prefill_int8(xq, dx, w)
+
+
+def q4_matmul_prefill_pallas(x: torch.Tensor, qs: torch.Tensor,
+                             scales: torch.Tensor, *,
+                             w_dtype=torch.bfloat16,
+                             variant: str = "nat") -> torch.Tensor:
+    """The port of q4_matmul_prefill_pallas(x, qs, scales, w_dtype=,
+    variant=): nat runs B5. The split body (_q4mm_prefill_kernel, v1's fold
+    at prefill M) is not ported yet (ROADMAP, B20) and raises."""
+    if variant == "split":
+        raise NotImplementedError(
+            "the prefill split body (_q4mm_prefill_kernel) is not ported "
+            "yet: ROADMAP.md, queue B, B20")
+    qm._require(variant == "nat", f"prefill variant {variant!r}: the JAX "
+                "package has nat and split")
+    _check_planes(x, qs, scales)
+    return qm.q4_matmul_prefill(x, QuantMatmulWeight(qs=qs, scales=scales),
+                                w_dtype)

@@ -127,6 +127,7 @@ class ForwardConfig:
     act_dtype: str = "float32"      # residual-stream dtype
     all_logits: bool = False        # reference should_put_all_logits
     prefill_int8: bool | None = None
+    use_pallas: bool | None = None  # q4_matmul's kernel switch
     # Tensor-parallel process group (parallel/sharding.py): n_head is then
     # the rank's LOCAL head count. None = single-device semantics.
     tp_group: object = None
@@ -182,7 +183,8 @@ def apply_linear(x: torch.Tensor, w: Linear, cfg: ForwardConfig) -> torch.Tensor
     """y = x @ W for quantized or dense weights; f32 result."""
     if isinstance(w, QuantMatmulWeight):
         return q4_matmul(x, w, w_dtype=cfg.w_tdtype,
-                         prefill_int8=cfg.prefill_int8)
+                         prefill_int8=cfg.prefill_int8,
+                         use_pallas=cfg.use_pallas)
     return _dot(x, w)
 
 

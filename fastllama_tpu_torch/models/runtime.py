@@ -58,7 +58,8 @@ class LlamaModel:
         self._lora_path: str | None = None
         self.n_cached = 0    # tokens resident in the cache (state save/load)
         base = dict(n_head=hp.n_head, n_rot=hp.n_rot,
-                    w_dtype=rcfg.weight_dtype, prefill_int8=rcfg.prefill_int8)
+                    w_dtype=rcfg.weight_dtype, prefill_int8=rcfg.prefill_int8,
+                    use_pallas=rcfg.use_pallas)
         # multi-GPU: this rank's shard of the weights and of the cache
         self.mesh = None
         self.sp = self.tp = 1

@@ -68,7 +68,8 @@ PORT_TOOLS = [ROOT / "tools_torch" / f"{n}.py" for n in (
     "quantize", "convert", "convert_lora", "export_hf", "chat",
     "_trace_util", "bench_q4_floor", "bench_kernels", "bench_prefill",
     "bench_paged_attn", "bench_engine", "profile_decode", "profile_paged",
-    "bench_reference")] + [ROOT / "bench_torch.py"] + sorted(
+    "bench_reference", "profile_q4_variants")] + [
+    ROOT / "bench_torch.py"] + sorted(
     (ROOT / "examples_torch" / "python").glob("*.py"))
 
 

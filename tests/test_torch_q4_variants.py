@@ -1,0 +1,447 @@
+"""PyTorch port: the q4 matmul variants (kernels/q4_variants.py: B15-B19,
+the JAX package's q4_matmul_pallas / q4_matmul_prefill_int8 bodies) against
+those bodies in Pallas interpret mode, and the kernel switches (use_pallas,
+FASTLLAMA_PREFILL_INT8, FASTLLAMA_PREFILL_KERNEL) against the JAX
+dispatch."""
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+import fastllama_tpu
+import fastllama_tpu_torch
+from fastllama_tpu.config import HyperParams
+from fastllama_tpu.engine.tokenizer import Vocab
+from fastllama_tpu.io.checkpoint import CheckpointWriter
+from fastllama_tpu.kernels import q4_matmul as jqm
+from fastllama_tpu.quant import tensor as jt
+from fastllama_tpu.quant.q4 import quantize_q4_0, quantize_q4_1
+from fastllama_tpu_torch.kernels import q4_matmul as tqm
+from fastllama_tpu_torch.kernels import q4_variants as qv
+from fastllama_tpu_torch.quant import tensor as tt
+
+torch.set_num_threads(1)
+
+K, N = 512, 256
+DECODE = ("v0", "v1", "v2", "v3", "v4", "v5", "v7")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only on the GPU")
+    return torch.device("cuda")
+
+
+def planes(k=K, n=N, seed=0):
+    """(qs, f32 scales) of a q4_0 weight from numpy-seeded data, as both
+    packages store them (split-K packing)."""
+    rng = np.random.default_rng(seed)
+    codes, scales = quantize_q4_0(
+        (rng.standard_normal((n, k)) * 0.1).astype(np.float32))
+    wj = jt.make_matmul_weight(codes, scales)
+    return np.array(wj.qs), np.array(wj.scales)
+
+
+def acts(m, k=K, seed=1, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((m, k)) * scale).astype(np.float32)
+
+
+def absum(x, qs, sc):
+    """The largest sum |R(x)| (q + 8) |d|: the scale of every term of the
+    variants (the weight and the folded offset)."""
+    xr = torch.from_numpy(x).to(torch.bfloat16).float().abs()
+    w = (qv._codes(torch.from_numpy(qs)) + 8.0) * torch.from_numpy(
+        sc).float().abs().repeat_interleave(32, dim=0)
+    return (xr @ w).max().item()
+
+
+def jax_body(x, qs, sc, variant, w_dtype, m_pad=0):
+    """The JAX body in interpret mode; m_pad > M feeds it x padded with zero
+    rows (row i of the result is then still x's row i)."""
+    m = x.shape[0]
+    if m_pad > m:
+        x = np.pad(x, ((0, m_pad - m), (0, 0)))
+    return np.asarray(jqm.q4_matmul_pallas(
+        jnp.asarray(x), jnp.asarray(qs), jnp.asarray(sc), interpret=True,
+        variant=variant, w_dtype=w_dtype))[:m]
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("mode", ["bfloat16", "float32"])
+@pytest.mark.parametrize("h", [False, True], ids=["f32_scales", "h"])
+@pytest.mark.parametrize("variant", DECODE)
+def test_decode_plain_matches_the_jax_body(variant, h, mode, m):
+    """Each decode body's plain version (the function its kernel computes:
+    v0 B1, v1/v4/v5 B15, v2 B16, v3 B17, v7 B18; "h": bf16 scales) against
+    the JAX body in interpret mode, within 1e-5 of sum |x| |w|: the same
+    roundings, the f32 sums in another order. In f32 mode every variant is
+    B1's f32 function (x @ ((q - 8) d), nothing rounded), which differs
+    from each body by f32 rounding alone, within the same 1e-5. v7 at
+    M = 1 meets the body fed x padded to 8 rows, as the JAX dispatcher
+    feeds it (q4_matmul pads M to 8): on the CPU, at one row, XLA folds
+    the bf16 pair sum x_lo + x_hi into the f32 dot that sums it, unrounded,
+    which the body at every other M (and its dtype rules) rounds."""
+    qs, sc = planes()
+    x = acts(m)
+    jsc = jnp.asarray(sc).astype(jnp.bfloat16) if h else sc
+    tsc = torch.from_numpy(sc).to(torch.bfloat16) if h else torch.from_numpy(
+        sc)
+    want = jax_body(x, qs, jsc, variant, getattr(jnp, mode),
+                    m_pad=8 if (variant, m) == ("v7", 1) else 0)
+    got = qv.q4_matmul_pallas(torch.from_numpy(x), torch.from_numpy(qs), tsc,
+                              w_dtype=getattr(torch, mode),
+                              variant=variant).numpy()
+    assert got.shape == want.shape == (m, N)
+    tol = 1e-5 * absum(x, qs, tsc.float().numpy())
+    assert np.abs(got - want).max() <= tol
+
+
+@pytest.mark.parametrize("variant", ["v0", "v1", "v2", "v3", "v7"])
+def test_variants_differ_from_each_other(variant):
+    """The bodies are distinct functions in bf16 mode (so each needs its
+    own kernel): each plain version differs from v0's (B1's) by more than
+    ten times the tolerance above; v4 and v5 are v1 (below)."""
+    qs, sc = planes()
+    x = acts(8)
+    args = (torch.from_numpy(x), torch.from_numpy(qs), torch.from_numpy(sc))
+    y = qv.decode_plain(*args, variant).numpy()
+    y0 = qv.decode_plain(*args, "v0").numpy()
+    if variant == "v0":
+        np.testing.assert_array_equal(y, tqm.q4_matmul_dequant(
+            args[0], tt.QuantMatmulWeight(qs=args[1], scales=args[2])).numpy())
+    else:
+        assert np.abs(y - y0).max() > 10 * 1e-5 * absum(x, qs, sc)
+
+
+@pytest.mark.parametrize("variant", ["v4", "v5"])
+def test_v4_v5_map_onto_b15_bit_equal(variant):
+    """v4 and v5 are bit-equal to v1 in the JAX package (interpret mode), so
+    the port runs them on v1's kernel, B15, with v1's result."""
+    qs, sc = planes(seed=2)
+    x = acts(8, seed=3)
+    np.testing.assert_array_equal(
+        jax_body(x, qs, sc, variant, jnp.bfloat16),
+        jax_body(x, qs, sc, "v1", jnp.bfloat16))
+    assert qv.DECODE_KERNELS[variant] is qv.q4_decode_v1
+    args = (torch.from_numpy(x), torch.from_numpy(qs), torch.from_numpy(sc))
+    assert torch.equal(qv.q4_matmul_pallas(*args, variant=variant),
+                       qv.q4_matmul_pallas(*args, variant="v1"))
+
+
+# -- the int8 prefill bodies -------------------------------------------------
+
+def jax_int8(x, qs, sc, variant):
+    return np.asarray(jqm.q4_matmul_prefill_int8(
+        jnp.asarray(x), jnp.asarray(qs), jnp.asarray(sc), interpret=True,
+        variant=variant))
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 512, 256), (64, 1024, 128)])
+@pytest.mark.parametrize("variant", ["natx", "split"])
+def test_b19_plain_matches_natx_and_split(variant, m, k, n):
+    """B19's plain version against the natx and split bodies (bit-equal to
+    each other) in interpret mode: bit-equal. They divide the scales by s8
+    (d / s8) where B3 (nat) multiplies by 1 / s8, and differ from nat in
+    many outputs; xq and dx are B2's."""
+    qs, sc = planes(k, n, seed=4)
+    x = acts(m, k, seed=5, scale=2.0)
+    want = jax_int8(x, qs, sc, variant)
+    got = qv.q4_matmul_prefill_int8(torch.from_numpy(x), torch.from_numpy(qs),
+                                    torch.from_numpy(sc),
+                                    variant=variant).numpy()
+    np.testing.assert_array_equal(got, want)
+    nat = qv.q4_matmul_prefill_int8(torch.from_numpy(x), torch.from_numpy(qs),
+                                    torch.from_numpy(sc)).numpy()
+    assert (nat != got).sum() > 0.01 * got.size
+
+
+def test_natp_maps_onto_b3_bit_equal():
+    """natp is bit-equal to nat in the JAX package, so the port runs it on
+    B2 + B3; both agree with the JAX bodies to the B3 tolerance (2 ulp of
+    the final f32 rescale)."""
+    qs, sc = planes(seed=6)
+    x = acts(256, seed=7, scale=2.0)
+    nat, natp = (jax_int8(x, qs, sc, v) for v in ("nat", "natp"))
+    np.testing.assert_array_equal(nat, natp)
+    args = (torch.from_numpy(x), torch.from_numpy(qs), torch.from_numpy(sc))
+    got = qv.q4_matmul_prefill_int8(*args, variant="natp")
+    assert torch.equal(got, qv.q4_matmul_prefill_int8(*args, variant="nat"))
+    assert np.all(np.abs(got.numpy() - natp)
+                  <= 2 * np.spacing(np.abs(natp)))
+
+
+def test_variant_wrappers_refuse_what_they_do_not_take():
+    qs, sc = (torch.from_numpy(a) for a in planes())
+    x = torch.from_numpy(acts(8))
+    with pytest.raises(ValueError, match="v6"):
+        qv.q4_matmul_pallas(x, qs, sc, variant="v6")
+    with pytest.raises(ValueError, match="natq"):
+        qv.q4_matmul_prefill_int8(x, qs, sc, variant="natq")
+    with pytest.raises(NotImplementedError, match="B20"):
+        qv.q4_matmul_prefill_pallas(x, qs, sc, variant="split")
+    with pytest.raises(ValueError, match="M <= 512"):
+        qv.q4_prefill_int8_natx(torch.zeros((513, K)), qs, sc)
+    np.testing.assert_array_equal(
+        qv.q4_matmul_prefill_pallas(x, qs, sc).numpy(),
+        tqm.q4_matmul_dequant(x, tt.QuantMatmulWeight(qs=qs, scales=sc))
+        .numpy())
+
+
+# -- the kernel switches -----------------------------------------------------
+
+def q40_weights(k=352, n=96, seed=8):
+    rng = np.random.default_rng(seed)
+    codes, scales = quantize_q4_0(
+        (rng.standard_normal((n, k)) * 0.1).astype(np.float32))
+    return (tt.make_matmul_weight(codes, scales, device="cpu"),
+            jt.make_matmul_weight(codes, scales))
+
+
+def q41_weights(k=352, n=96, seed=9):
+    rng = np.random.default_rng(seed)
+    codes, scales, mins = quantize_q4_1(
+        (rng.standard_normal((n, k)) * 0.1 + 0.02).astype(np.float32))
+    return (tt.make_matmul_weight_q41(codes, scales, mins, device="cpu"),
+            jt.make_matmul_weight_q41(codes, scales, mins))
+
+
+def close(got, want, rtol):
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=rtol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("mode", ["bfloat16", "float32"])
+@pytest.mark.parametrize("affine,m", [(False, 1), (False, 8), (False, 100),
+                                      (False, 256), (True, 1), (True, 100)])
+def test_use_pallas_false_is_q4_matmul_xla(affine, m, mode):
+    """q4_matmul(use_pallas=False) against the JAX q4_matmul(use_pallas=
+    False) (jitted, as its forward runs it): q4_matmul_xla's function at
+    every M and for both weight kinds, no int8 at M = 256, to f32
+    reassociation (1e-5 of the largest output)."""
+    wt, wj = (q41_weights if affine else q40_weights)()
+    x = acts(m, 352, seed=10)
+    got = tqm.q4_matmul(torch.from_numpy(x), wt, w_dtype=getattr(torch, mode),
+                        use_pallas=False).numpy()
+    want = np.asarray(jax.jit(lambda a, w: jqm.q4_matmul(
+        a, w, use_pallas=False, w_dtype=getattr(jnp, mode)))(
+            jnp.asarray(x), wj))
+    close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_use_pallas_true_is_the_pallas_decode_kernel(m):
+    """q4_matmul(use_pallas=True) at decode M: the JAX Pallas kernel's
+    function (v1's fold, B15) against the JAX q4_matmul(use_pallas=True)
+    in interpret mode, within 1e-5 of sum |x| |w|."""
+    qs, sc = planes(seed=11)
+    wt = tt.QuantMatmulWeight(qs=torch.from_numpy(qs),
+                              scales=torch.from_numpy(sc))
+    wj = jt.QuantMatmulWeight(jnp.asarray(qs), jnp.asarray(sc), None, N)
+    x = acts(m, seed=12)
+    got = tqm.q4_matmul(torch.from_numpy(x), wt, use_pallas=True).numpy()
+    want = np.asarray(jqm.q4_matmul(jnp.asarray(x), wj, use_pallas=True,
+                                    interpret=True))
+    assert np.abs(got - want).max() <= 1e-5 * absum(x, qs, sc)
+
+
+def spy_port(monkeypatch):
+    called = []
+    for name, tag in (("q4_matmul_prefill_int8", "int8"),
+                      ("q4_matmul_prefill", "exact")):
+        orig = getattr(tqm, name)
+        monkeypatch.setattr(tqm, name, lambda *a, _o=orig, _t=tag, **kw:
+                            called.append(_t) or _o(*a, **kw))
+    return called
+
+
+def spy_jax(monkeypatch):
+    """The JAX dispatch's choice at prefill M: its int8 functions (the
+    kernel, or the emulation where the kernel path is not taken) or its
+    bf16-exact ones (the resident-x kernel, or q4_matmul_xla); each spy
+    returns zeros of the output's shape."""
+    called = []
+    for name, tag in (("q4_matmul_prefill_int8", "int8"),
+                      ("q4_matmul_int8_xla", "int8"),
+                      ("q4_matmul_prefill_pallas", "exact")):
+        monkeypatch.setattr(jqm, name, lambda x, qs, *a, _t=tag, **kw:
+                            called.append(_t) or jnp.zeros(
+                                (x.shape[0], qs.shape[1]), jnp.float32))
+    monkeypatch.setattr(jqm, "q4_matmul_xla", lambda x, w, **kw:
+                        called.append("exact") or jnp.zeros(
+                            (x.shape[0], w.qs.shape[1]), jnp.float32))
+    return called
+
+
+@pytest.mark.parametrize("use_pallas", [None, False])
+@pytest.mark.parametrize("prefill_int8", [None, True, False])
+@pytest.mark.parametrize("kernel_env", [None, "0"])
+@pytest.mark.parametrize("int8_env", [None, "1", "0", "yes"])
+def test_prefill_switches_follow_the_jax_dispatch(
+        monkeypatch, int8_env, kernel_env, prefill_int8, use_pallas):
+    """At M = 256 (q4_0, bf16 mode) the port takes int8 (B2 + B3) or the
+    bf16-exact B5 where the JAX dispatch takes its int8 or its exact
+    function, under every combination of FASTLLAMA_PREFILL_INT8 ("1"
+    forces, any other value pins off), FASTLLAMA_PREFILL_KERNEL ("0"
+    turns the default int8 off), an explicit prefill_int8 (which wins) and
+    use_pallas (False turns the default off). The port's None is the JAX
+    package's TPU dispatch, its use_pallas=True on the CPU."""
+    for var, val in (("FASTLLAMA_PREFILL_INT8", int8_env),
+                     ("FASTLLAMA_PREFILL_KERNEL", kernel_env)):
+        if val is None:
+            monkeypatch.delenv(var, raising=False)
+        else:
+            monkeypatch.setenv(var, val)
+    qs, sc = planes(seed=13)
+    wt = tt.QuantMatmulWeight(qs=torch.from_numpy(qs),
+                              scales=torch.from_numpy(sc))
+    wj = jt.QuantMatmulWeight(jnp.asarray(qs), jnp.asarray(sc), None, N)
+    x = acts(256, seed=14)
+    port, jax_ = spy_port(monkeypatch), spy_jax(monkeypatch)
+    tqm.q4_matmul(torch.from_numpy(x), wt, prefill_int8=prefill_int8,
+                  use_pallas=use_pallas)
+    jqm.q4_matmul(jnp.asarray(x), wj, prefill_int8=prefill_int8,
+                  use_pallas=True if use_pallas is None else use_pallas)
+    assert len(port) == len(jax_) == 1 and port == jax_
+
+
+@pytest.mark.parametrize("prefill_int8", [None, True])
+def test_f32_mode_takes_int8_only_when_asked(monkeypatch, prefill_int8):
+    monkeypatch.delenv("FASTLLAMA_PREFILL_INT8", raising=False)
+    monkeypatch.delenv("FASTLLAMA_PREFILL_KERNEL", raising=False)
+    qs, sc = planes(seed=15)
+    wt = tt.QuantMatmulWeight(qs=torch.from_numpy(qs),
+                              scales=torch.from_numpy(sc))
+    wj = jt.QuantMatmulWeight(jnp.asarray(qs), jnp.asarray(sc), None, N)
+    x = acts(256, seed=16)
+    port, jax_ = spy_port(monkeypatch), spy_jax(monkeypatch)
+    tqm.q4_matmul(torch.from_numpy(x), wt, w_dtype=torch.float32,
+                  prefill_int8=prefill_int8)
+    jqm.q4_matmul(jnp.asarray(x), wj, w_dtype=jnp.float32,
+                  prefill_int8=prefill_int8, use_pallas=True)
+    assert port == jax_ == ["int8" if prefill_int8 else "exact"]
+
+
+# -- Model(use_pallas=False) on a tiny checkpoint ----------------------------
+
+HP = HyperParams(n_vocab=320, n_embd=64, n_head=4, n_layer=2, n_rot=16)
+N_FF = 96
+# one token a character (the byte pieces): a window of 272 tokens
+PROMPT = "".join(chr(97 + i * 7 % 26) for i in range(270))
+
+
+def write_tiny(path, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def q(n, k, scale=0.15):
+        return quantize_q4_0(
+            (rng.standard_normal((n, k)) * scale).astype(np.float32))
+    toks = [(b"<unk>", 0.0), (b"<s>", 0.0), (b"</s>", 0.0)]
+    toks += [(bytes([i]), -1e6) for i in range(256)]
+    toks += [(f" w{i}".encode(), 1.0) for i in range(HP.n_vocab - len(toks))]
+    d = HP.n_embd
+    w = CheckpointWriter(path, HP, Vocab.from_tokens(toks))
+    w.add_q4_embedding("tok_embeddings.weight", *q(HP.n_vocab, d, 0.4))
+    w.add_dense("norm.weight", np.ones(d, np.float32))
+    w.add_q4_matmul("output.weight", *q(HP.n_vocab, d))
+    for i in range(HP.n_layer):
+        p = f"layers.{i}."
+        w.add_dense(p + "attention_norm.weight", np.ones(d, np.float32))
+        w.add_dense(p + "ffn_norm.weight", np.ones(d, np.float32))
+        for nm in ("wq", "wk", "wv", "wo"):
+            w.add_q4_matmul(p + f"attention.{nm}.weight", *q(d, d))
+        w.add_q4_matmul(p + "feed_forward.w1.weight", *q(N_FF, d))
+        w.add_q4_matmul(p + "feed_forward.w3.weight", *q(N_FF, d))
+        w.add_q4_matmul(p + "feed_forward.w2.weight", *q(d, N_FF))
+    w.finish()
+
+
+def test_model_use_pallas_false_matches_the_jax_model(tmp_path, monkeypatch):
+    """Model(use_pallas=False) in bf16 mode on both packages: a 272-token
+    window (no int8 prefill in either: the switch turns the default off,
+    so the port's window runs B5 and never B3) and 4 greedy tokens; the
+    last logits agree at the port's bf16 tolerance (3e-2 of the largest)
+    and so do the streams."""
+    monkeypatch.delenv("FASTLLAMA_PREFILL_INT8", raising=False)
+    monkeypatch.delenv("FASTLLAMA_PREFILL_KERNEL", raising=False)
+    write_tiny(tmp_path / "tiny")
+    kw = dict(n_ctx=512, n_batch=512, seed=7, kv_dtype="bfloat16",
+              weight_dtype="bfloat16", use_pallas=False)
+    jm = fastllama_tpu.Model(str(tmp_path / "tiny"),
+                             logger=fastllama_tpu.Logger(), **kw)
+    tm = fastllama_tpu_torch.Model(str(tmp_path / "tiny"), device="cpu",
+                                   logger=fastllama_tpu_torch.Logger(), **kw)
+    assert tm._model.rcfg.use_pallas is False
+    port = spy_port(monkeypatch)
+    streams = []
+    for m in (jm, tm):
+        chunks = []
+        assert m.ingest(PROMPT)
+        assert m.generate(num_tokens=4, temp=0.0,
+                          streaming_fn=chunks.append)
+        streams.append("".join(chunks))
+    assert "exact" in port and "int8" not in port
+    assert streams[0] == streams[1]
+    close(tm.get_logits(), jm.get_logits(), 3e-2)
+
+
+# -- on the card: each kernel against its plain version ----------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 17, 64])
+@pytest.mark.parametrize("variant", ["v1", "v2", "v3", "v7", "v0h", "v1h",
+                                     "v2h", "v3h", "v7h"])
+def test_variant_kernels_match_plain(cuda_device, variant, m):
+    """B15-B18 and the h forms (v0h: B1 with 2-byte scales) on the card at
+    each of B1's n-tile counts: within 1e-5 of sum |x| |w| of the plain
+    version and bit-equal across two runs; each counts its launch."""
+    qs, sc = planes(1024, 512, seed=17)
+    x = acts(m, 1024, seed=18)
+    base, h = variant.rstrip("h"), variant.endswith("h")
+    qd = torch.from_numpy(qs).to(cuda_device)
+    sd = torch.from_numpy(sc).to(cuda_device)
+    if h:
+        sd = sd.to(torch.bfloat16)
+    xd = torch.from_numpy(x).to(cuda_device)
+    counter = (tqm.q4_matmul_decode if base == "v0"
+               else qv.DECODE_KERNELS[base])
+    before = counter.launches
+    got = qv.q4_matmul_pallas(xd, qd, sd, variant=base)
+    assert counter.launches == before + 1
+    want = qv.decode_plain(xd, qd, sd, base)
+    assert (got - want).abs().max().item() <= 1e-5 * absum(
+        x, qs, sd.float().cpu().numpy())
+    assert torch.equal(got, qv.q4_matmul_pallas(xd, qd, sd, variant=base))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 256, 512])
+def test_b19_kernel_bit_exact(cuda_device, m):
+    qs, sc = planes(1024, 512, seed=19)
+    x = torch.from_numpy(acts(m, 1024, seed=20, scale=3.0)).to(cuda_device)
+    qd, sd = (torch.from_numpy(a).to(cuda_device) for a in (qs, sc))
+    before = qv.q4_prefill_int8_natx.launches
+    got = qv.q4_prefill_int8_natx(x, qd, sd)
+    assert qv.q4_prefill_int8_natx.launches == before + 1
+    assert torch.equal(got, qv.q4_prefill_int8_natx_plain(x, qd, sd))
+
+
+@pytest.mark.cuda
+def test_use_pallas_routes_on_the_card(cuda_device):
+    """use_pallas=False: B1 at decode M, B5 at prefill M and no B3;
+    use_pallas=True: B15 at decode M."""
+    qs, sc = planes(1024, 512, seed=21)
+    w = tt.QuantMatmulWeight(qs=torch.from_numpy(qs).to(cuda_device),
+                             scales=torch.from_numpy(sc).to(cuda_device))
+    kernels = (tqm.q4_matmul_decode, tqm.q4_matmul_prefill,
+               tqm.q4_matmul_prefill_int8, qv.q4_decode_v1)
+    for m, use_pallas, want in ((8, False, 0), (256, False, 1),
+                                (8, True, 3)):
+        before = [k.launches for k in kernels]
+        tqm.q4_matmul(torch.randn((m, 1024), device=cuda_device), w,
+                      use_pallas=use_pallas)
+        after = [k.launches for k in kernels]
+        assert [b - a for a, b in zip(before, after)] == [
+            int(i == want) for i in range(4)]

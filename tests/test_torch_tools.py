@@ -296,7 +296,7 @@ BENCH_SCRIPTS = [REPO / "bench_torch.py"] + [
     REPO / "tools_torch" / f"{n}.py" for n in (
         "_trace_util", "bench_q4_floor", "bench_kernels", "bench_prefill",
         "bench_paged_attn", "bench_engine", "profile_decode",
-        "profile_paged", "bench_reference")]
+        "profile_paged", "bench_reference", "profile_q4_variants")]
 # the tools that run on the card: each takes --device, with the card the
 # default; the smallest arguments each accepts
 ON_CARD = {"bench_torch": [],
@@ -306,7 +306,8 @@ ON_CARD = {"bench_torch": [],
            "bench_paged_attn": ["--batch", "1", "--n-ctx", "128"],
            "bench_engine": ["--layers", "1", "--slots", "2"],
            "profile_decode": ["--layers", "1", "--steps", "1"],
-           "profile_paged": ["--layers", "1", "--slots", "1"]}
+           "profile_paged": ["--layers", "1", "--slots", "1"],
+           "profile_q4_variants": ["64", "32", "1"]}
 
 
 def load_tool(name):
@@ -341,18 +342,26 @@ def test_bench_tools_need_a_card(name):
 
 
 def test_bench_tools_refuse_the_unported_variants(capsys):
-    """v3 (bench_q4_floor) and v0 / v2 (bench_kernels) are refuted TPU
-    variants of B1's function; the tools name B1 when they refuse them."""
+    """Every q4_matmul_pallas body is ported (kernels/q4_variants.py), so
+    bench_q4_floor takes the JAX tool's v1 and v3 (and B1 as v0) and
+    bench_kernels the JAX tool's default v0,v1,v2; a name the JAX package
+    does not have (v6) is refused with the list of those it has."""
     floor = load_tool("bench_q4_floor")
     args = floor.parse_args([])
     assert (args.k, args.n, args.m, args.modes) == (
-        4096, 12288, 8, ["floor", "nosc", "v1"])
+        4096, 12288, 8, ["floor", "nosc", "v0", "v1", "v3"])
     assert floor.parse_args(["512", "256", "1", "nosc"]).modes == ["nosc"]
-    for bad, tool in ((["512", "256", "8", "floor,v3"], floor),
-                      (["--variants", "v0,v1"], load_tool("bench_kernels"))):
+    assert floor.parse_args(["512", "256", "8", "floor,v3,v7"]).modes == [
+        "floor", "v3", "v7"]
+    kern = load_tool("bench_kernels")
+    assert kern.parse_args([]).variants == ["v0", "v1", "v2"]
+    assert kern.parse_args(["--variants", "v3,v4,v5,v7"]).variants == [
+        "v3", "v4", "v5", "v7"]
+    for bad, tool in ((["512", "256", "8", "floor,v6"], floor),
+                      (["--variants", "v0,v6"], kern)):
         with pytest.raises(SystemExit):
             tool.parse_args(bad)
-        assert "B1" in capsys.readouterr().err
+        assert "v0, v1, v2, v3, v4, v5, v7" in capsys.readouterr().err
 
 
 def test_bench_q4_floor_on_the_cpu(capsys):
@@ -361,11 +370,49 @@ def test_bench_q4_floor_on_the_cpu(capsys):
     assert load_tool("bench_q4_floor").main(
         ["256", "128", "2", "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert [r["mode"] for r in out["bench_q4_floor"]] == ["floor", "nosc",
-                                                          "v1"]
+    assert [r["mode"] for r in out["bench_q4_floor"]] == [
+        "floor", "nosc", "v0", "v1", "v3"]
     assert all(r["relerr"] == 0.0 for r in out["bench_q4_floor"])
     assert out["launches"] == {"q4_floor": 0, "q4_nosc": 0,
-                               "q4_matmul_decode": 0}
+                               "q4_matmul_decode": 0, "q4_decode_v1": 0,
+                               "q4_decode_v2": 0, "q4_decode_v3": 0,
+                               "q4_decode_v7": 0}
+
+
+def test_profile_q4_variants_takes_the_jax_tools_arguments(capsys):
+    """[K] [N] [M] [variants...] with the JAX tool's defaults (4096, 12288,
+    8, v1 v3) and every variant name it takes; names it does not take, and
+    M past a kernel's limit, are refused."""
+    tool = load_tool("profile_q4_variants")
+    args = tool.parse_args([])
+    assert (args.k, args.n, args.m, args.variants) == (4096, 12288, 8,
+                                                       ["v1", "v3"])
+    every = ["v0", "v1", "v2", "v3", "v4", "v5", "v7", "v0h", "v1h", "v2h",
+             "v3h", "v4h", "v5h", "v7h", "floor", "nosc", "pf", "pfi8",
+             "pfi8s", "xla"]
+    assert list(tool.VARIANTS) == every
+    assert tool.parse_args(["512", "256", "2", *every]).variants == every
+    assert tool.parse_args(["512", "256", "512", "pf", "pfi8",
+                            "pfi8s"]).m == 512
+    for bad in (["512", "256", "8", "v6"], ["512", "256", "65", "v1"],
+                ["512", "256", "513", "pfi8s"], ["500", "256", "8"]):
+        with pytest.raises(SystemExit):
+            tool.parse_args(bad)
+    assert "v6" in capsys.readouterr().err
+
+
+def test_profile_q4_variants_on_the_cpu(capsys):
+    """--device cpu: every variant's plain version, held against itself,
+    on the host clock; the last line's rows and launch counts (no kernel
+    launched)."""
+    tool = load_tool("profile_q4_variants")
+    assert tool.main(["256", "128", "2", *tool.VARIANTS,
+                      "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    rows = out["profile_q4_variants"]
+    assert [r["variant"] for r in rows] == list(tool.VARIANTS)
+    assert all(r["relerr"] == 0.0 and r["us"] > 0 for r in rows)
+    assert not any(out["launches"].values())
 
 
 def test_profile_tools_keep_the_jax_tools_options():

@@ -5,17 +5,20 @@ access pattern move the packed weight bytes when the kernel body does
 
     python3 tools_torch/bench_q4_floor.py [K] [N] [M] [modes] [--device D]
 
-Three kernels over the same grid and loads (B1's tensor-core kernel,
+Kernels over the same grid and loads (B1's tensor-core kernel,
 kernels/csrc/q4_decode.cu):
   floor  B13 (kernels/q4_floor.q4_floor): the whole packed byte as a bf16
          weight against x_lo; no unpack, no scales
   nosc   B14 (q4_floor.q4_nosc): both nibbles against x_lo / x_hi, the
          scale plane never read
-  v1     B1 (q4_matmul.q4_matmul_decode, bf16 mode), the production kernel
-Defaults: K 4096, N 12288, M 8, modes floor,nosc,v1. The gaps between the
-three split B1's time into the access pattern, the unpack and the scales.
-The JAX tool's other TPU variants of B1's function (v3) were refuted on
-the TPU and are not ported; asking for one is an error.
+  v0 .. v5, v7
+         the JAX package's q4_matmul_pallas bodies by the kernel of the
+         same function (kernels/q4_variants.py, bf16 mode): v0 on B1 (the
+         port's production kernel), v1/v4/v5 on B15, v2 on B16, v3 on B17,
+         v7 on B18
+Defaults: K 4096, N 12288, M 8, modes floor,nosc,v0,v1,v3 (the JAX tool's
+floor,nosc,v1,v3 and B1). The gaps between floor, nosc and v0 split B1's
+time into the access pattern, the unpack and the scales.
 
 Each mode is first held against its plain version (max error over the
 largest |output|). Timing: 64 calls chained through x (each call's first
@@ -23,7 +26,7 @@ output column added into x, times 0, so the values stay put), as the JAX
 tool chains them, in a CUDA graph replayed between CUDA events, with the
 weight planes cycled through copies past the 50 MB L2; the chain's own add,
 timed alone the same way, is subtracted. Prints us a call, GB/s of the
-bytes it must move (qs, x and out: floor reads only x_lo, v1 also the
+bytes it must move (qs, x and out: floor reads only x_lo, the variants the
 scales) and the bound at 3.35 TB/s (the H100's HBM rate); the card and
 its power limit first. On --device cpu the plain versions run on the host
 clock. The last line is one JSON object with the rows and each kernel's
@@ -42,7 +45,8 @@ from tools_torch._trace_util import (  # noqa: E402
     copies_for, open_device, time_calls,
 )
 
-MODES = ("floor", "nosc", "v1")
+PROBES = ("floor", "nosc")
+DEFAULT_MODES = "floor,nosc,v0,v1,v3"
 HBM_BYTES_PER_S = 3.35e12
 REPS = 64                    # chained calls in the timed graph
 
@@ -52,17 +56,16 @@ def parse_args(argv=None):
     ap.add_argument("k", nargs="?", type=int, default=4096)
     ap.add_argument("n", nargs="?", type=int, default=12288)
     ap.add_argument("m", nargs="?", type=int, default=8)
-    ap.add_argument("modes", nargs="?", default=",".join(MODES))
+    ap.add_argument("modes", nargs="?", default=DEFAULT_MODES)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
     args.modes = args.modes.split(",")
+    from fastllama_tpu_torch.kernels.q4_variants import DECODE_VARIANTS
     for mode in args.modes:
-        if mode not in MODES:
-            ap.error(f"mode {mode!r}: the port has {', '.join(MODES)}; the "
-                     "JAX tool's other variants of B1's function "
-                     "(q4_matmul_pallas) were refuted on the TPU and are "
-                     "not ported (B1 is v1)")
+        if mode not in PROBES + DECODE_VARIANTS:
+            ap.error(f"mode {mode!r}: the modes are "
+                     f"{', '.join(PROBES + DECODE_VARIANTS)}")
     if args.k % 32 or args.n % 16 or not 1 <= args.m <= 64:
         ap.error("K must be a multiple of 32, N of 16, and 1 <= M <= 64")
     return args
@@ -73,6 +76,7 @@ def main(argv=None) -> int:
     dev = open_device(args.device, "bench_q4_floor")
     from fastllama_tpu_torch.kernels import q4_floor as qf
     from fastllama_tpu_torch.kernels import q4_matmul as qm
+    from fastllama_tpu_torch.kernels import q4_variants as qv
     from fastllama_tpu_torch.quant.tensor import QuantMatmulWeight
     k, n, m = args.k, args.n, args.m
     print(f"K={k} N={n} M={m}", flush=True)
@@ -92,8 +96,10 @@ def main(argv=None) -> int:
                   lambda x, w: qf.q4_floor_plain(x, w.qs)),
         "nosc": (lambda x, w: qf.q4_nosc(x, w.qs),
                  lambda x, w: qf.q4_nosc_plain(x, w.qs)),
-        "v1": (lambda x, w: qm.q4_matmul_decode(x, w, torch.bfloat16),
-               lambda x, w: qm.q4_matmul_dequant(x, w, torch.bfloat16)),
+        **{v: (lambda x, w, v=v: qv.q4_matmul_pallas(x, w.qs, w.scales,
+                                                     variant=v),
+               lambda x, w, v=v: qv.decode_plain(x, w.qs, w.scales, v))
+           for v in qv.DECODE_VARIANTS},
     }
     rows = []
     with torch.inference_mode():
@@ -112,10 +118,10 @@ def main(argv=None) -> int:
                 yy = kern(x, planes[next(it) % len(planes)])
                 x.add_(yy[:, :1], alpha=0.0)
             ms = time_calls(call, REPS, dev) - chain_ms
-            # floor reads only x's low halves (x_lo); v1 also the scales
+            # floor reads only x's low halves (x_lo); the variants the scales
             x_bytes = x.numel() * (2 if mode == "floor" else 4)
             nbytes = qs_bytes + x_bytes + m * n * 4 + (
-                sc_bytes if mode == "v1" else 0)
+                0 if mode in PROBES else sc_bytes)
             bound_us = nbytes / HBM_BYTES_PER_S * 1e6
             row = dict(mode=mode, us=ms * 1e3, gb_per_s=nbytes / ms / 1e6,
                        bound_us=bound_us, bytes=nbytes, relerr=err,
@@ -127,7 +133,10 @@ def main(argv=None) -> int:
                   f"{bound_us:.3f} us)  relerr {err:.2e}", flush=True)
     launches = {"q4_floor": qf.q4_floor.launches,
                 "q4_nosc": qf.q4_nosc.launches,
-                "q4_matmul_decode": qm.q4_matmul_decode.launches}
+                "q4_matmul_decode": qm.q4_matmul_decode.launches,
+                **{fn.__name__: fn.launches for fn in (
+                    qv.q4_decode_v1, qv.q4_decode_v2, qv.q4_decode_v3,
+                    qv.q4_decode_v7)}}
     print(json.dumps({"bench_q4_floor": rows, "launches": launches}))
     return 0
 
