@@ -8,7 +8,8 @@ Phases (any failure exits nonzero before the last line):
      kernels from kernels/csrc/ (one nvcc per source, in parallel);
   2. hold each kernel (B1-B14: fourteen functions of the repo reach
      pl.pallas_call, twelve in the JAX package and two in
-     tools/bench_q4_floor.py; the variant bodies B15-B19 in phase 14)
+     tools/bench_q4_floor.py; the variant bodies B15-B19 in phase 14, B20
+     and the library paged attention B21 in phase 15)
      against its plain PyTorch version on the
      card at the 7B shapes of the paths below, and time kernel, plain
      version and bound (the larger of bytes / 3.35 TB/s and operations /
@@ -231,6 +232,23 @@ Phases (any failure exits nonzero before the last line):
      place of B1); one window each under FASTLLAMA_PREFILL_INT8=0 and
      FASTLLAMA_PREFILL_KERNEL=0 (B5, no B3) and FASTLLAMA_PREFILL_INT8=1
      with use_pallas=False (B2 + B3);
+ 15. B20 (the prefill split body, v1's fold at prefill M: B5's kernel in
+     its split mode) against its plain version on the 7B planes at M =
+     512, 256, 64 and 1 and the 13B qkv at 512, bf16 (1e-4 of max |y|)
+     and f32 (B5's f32 kernel, 1e-5), one plan splitting K, timed beside
+     B5 (nat), B15 at M <= 64 and torch.mm of the dequantized weight, and
+     the entry point's counted run; B21 (engine/paged_kv.
+     paged_attention_tpu, the library paged attention's function) against
+     its plain version at 32 and 40 heads, bf16 and f32 pools, ragged
+     lengths 1, 63, 64, 65, 300, 32767, 0 and 4097 over a shuffled table
+     with NaN in every page no sequence reaches, compute blocks of 1, 2,
+     4, 64 and 512 pages, timed beside B6 at 8 x 300 and alone at the long
+     engine's tables; the 7B paged engine at n_ctx 32768 (pages of 64,
+     128 of them): phase 6's twelve requests greedy with exact launches
+     (B21 and B7 32 a decode step, the fused step none), every step's
+     logits on the step graph bit-equal to eager, the first step's logits
+     within 1e-2 of the largest logit of phase 6's n_ctx 512 engine (the
+     fused step), run() wall time and the steady window of both engines;
   then the whole script's seconds, one line {"kernels": [...]}, the
   nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -2638,14 +2656,15 @@ BENCH_STEPS = 1 + 5 + 64 + 3 * 64 + 8 + 2 * 5
 BENCH_WINDOWS = 2 * (1 + 5)
 # the kernels a bench_torch run never reaches
 OFF_BENCH_PATH = ("B6", "B7", "B8", "B9", "B10", "B11", "PS", "B13", "B14",
-                  "RW", "B15", "B16", "B17", "B18", "B19")
+                  "RW", "B15", "B16", "B17", "B18", "B19", "B20", "B21")
 # each tool of tools_torch/ at a small depth, run as a subprocess on the
 # card: (script, arguments, the kernels it must launch)
 BENCH_TOOLS = [
     # its default variants v0, v1 and v2
     ("bench_kernels.py", ["--layers", "4"], ("B1", "B15", "B16")),
     ("bench_prefill.py", ["--layers", "2"], ("B1", "B2", "B3", "B12")),
-    ("bench_paged_attn.py", ["--reps", "8"], ("B4", "B6", "B10", "PS")),
+    ("bench_paged_attn.py", ["--reps", "8"],
+     ("B4", "B6", "B10", "PS", "B21")),
     ("bench_engine.py", ["--layers", "2", "--max-tokens", "16"],
      ("B1", "B4")),
     ("bench_engine.py", ["--layers", "2", "--max-tokens", "16",
@@ -2670,7 +2689,7 @@ runpy.run_path(sys.argv[0], run_name="__main__")
 
 
 def counts_now() -> dict:
-    """Every kernel wrapper's launches by its table name (B1-B19, PS, RW)
+    """Every kernel wrapper's launches by its table name (B1-B21, PS, RW)
     and the dequant path's calls on the card ("dequant")."""
     from fastllama_tpu_torch.kernels import q4_matmul as qm
     out = {k: fn.launches for k, fn in every_kernel().items()}
@@ -4340,10 +4359,13 @@ def variant_kernels():
 
 
 def every_kernel():
-    """Every counted wrapper by its table name: B1-B19, PS and RW."""
+    """Every counted wrapper by its table name: B1-B21, PS and RW."""
+    from fastllama_tpu_torch.engine import paged_kv as pk
     from fastllama_tpu_torch.kernels import q4_floor as qf
+    from fastllama_tpu_torch.kernels import q4_variants as qv
     return dict(all_kernels(), B13=qf.q4_floor, B14=qf.q4_nosc,
-                **variant_kernels())
+                **variant_kernels(), B20=qv.q4_prefill_split,
+                B21=pk.paged_attention_tpu)
 
 
 def reset_every_count():
@@ -4606,6 +4628,396 @@ def variants_path(torch, dev, gen):
     return dict(checks=checks, tool=tool, switches=switches)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: B20, B21 and the long-context paged engine
+# ---------------------------------------------------------------------------
+
+B20_ROWS = (512, 256, 64, 1)
+# the long-context engine: n_ctx 32768 in pages of 64 rows (pp 512, past
+# the JAX kernel's 24,576-row gate for bf16 pools, so every step attends
+# through B21 with 64-page compute blocks); its pool is set to 128 pages
+# (the default would hold 8 x 32768 rows: about 137 GB at 7B)
+LONG_CTX, LONG_PAGES = 32768, 128
+B21_LENGTHS = (1, ENG_PS - 1, ENG_PS, ENG_PS + 1, 300, LONG_CTX - 1, 0,
+               4097)
+B21_PPCBS = (1, 2, 4, 64, LONG_CTX // ENG_PS)
+B21_LIBRARY = "none: no call attends through page tables (as for B6)"
+
+
+def check_b20(torch, dev, gen, results):
+    """B20 (q4_variants.q4_prefill_split, the prefill split body: v1's fold
+    at prefill M) on the 7B planes qkv, wo, w13, w2 at B20_ROWS and the 13B
+    qkv at M = 512. bf16: against its plain version within 1e-4 of max |y|,
+    run twice and bit-equal, timed beside B5 (nat) and, at M <= 64, B15 on
+    the same plane and M, and beside torch.mm of the rounded x by the
+    dequantized weight (the yardstick, as for B5); f32 mode (B5's f32
+    kernel) within 1e-5 of max |y|. At least one plan splits K (the fold
+    must be added once, not once a split). Then the entry point's counted
+    run: every count 0 just before q4_matmul_prefill_pallas(variant=
+    "split") runs once in bf16 and once in f32 on each 7B plane at M = 512,
+    read just after: B20 one launch a bf16 call, B5 one an f32 call,
+    nothing else."""
+    from fastllama_tpu_torch.kernels import cuda_lib
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    from fastllama_tpu_torch.kernels import q4_variants as qv
+    sms = cuda_lib.sm_count(dev)
+    rows_out, split_plans = [], 0
+    cases = [(p, B20_ROWS) for p in PLANES_7B[:4]] + [(PLANES_13B[0],
+                                                        (512,))]
+    for (name, k, n), ms_rows in cases:
+        w = rand_weight(torch, k, n, gen, dev)
+        wbytes = weight_bytes(w)
+        ws = [w] + [rand_weight(torch, k, n, gen, dev)
+                    for _ in range(copies_for(wbytes) - 1)]
+        wd = qm.dequant_matmul_weight(w, torch.bfloat16)
+        n_st = w.qs.shape[1]
+        for m in ms_rows:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            label = f"B20 {name} M={m} K={k} N={n}"
+            y = qv.q4_prefill_split(x, w.qs, w.scales)
+            ref = qv.q4_prefill_split_plain(x, w.qs, w.scales)
+            err = (y - ref).abs().max().item()
+            tol = 1e-4 * ref.abs().max().item()
+            require(bool(torch.isfinite(y).all()), f"{label}: not finite")
+            require(err <= tol, f"{label}: err {err} > {tol}")
+            require(torch.equal(y, qv.q4_prefill_split(x, w.qs, w.scales)),
+                    f"{label}: not deterministic")
+            y32 = qv.q4_prefill_split(x, w.qs, w.scales, torch.float32)
+            ref32 = qv.q4_prefill_split_plain(x, w.qs, w.scales,
+                                              torch.float32)
+            err32 = (y32 - ref32).abs().max().item()
+            tol32 = 1e-5 * ref32.abs().max().item()
+            require(err32 <= tol32, f"{label} f32: err {err32} > {tol32}")
+            splits, per = qm.b5_plan(m, n_st, -(-k // 32) * 32, sms)
+            split_plans += splits > 1
+            it = iter(range(10**9))
+
+            def cycled(fn):
+                ww = ws[next(it) % len(ws)]
+                return fn(ww)
+            ms = time_ms(lambda: cycled(lambda ww: qv.q4_prefill_split(
+                x, ww.qs, ww.scales)), calls=len(ws))
+            nat_ms = time_ms(lambda: cycled(lambda ww: qm.q4_matmul_prefill(
+                x, ww, torch.bfloat16)), calls=len(ws))
+            b15_ms = (time_ms(lambda: cycled(lambda ww: qv.q4_decode_v1(
+                x, ww.qs, ww.scales)), calls=4 * len(ws)) if m <= 64
+                else None)
+            xr = qm._pad_k(x, w.k).to(torch.bfloat16)
+            library_ms = time_ms(lambda: torch.mm(
+                xr, wd, out_dtype=torch.float32), calls=4)
+            plain_ms = (time_ms(lambda: qv.q4_prefill_split_plain(
+                x, w.qs, w.scales), calls=2) if name == "qkv" else None)
+            f32_ms = (time_ms(lambda: cycled(lambda ww: qv.q4_prefill_split(
+                x, ww.qs, ww.scales, torch.float32)), calls=len(ws))
+                if name == "qkv" and m == 512 else None)
+            nbytes = (wbytes + x.numel() * 4 + m * n_st * 4
+                      + m * (k // 32) * 4)
+            bnd, by = bound_ms(nbytes, 2.0 * m * k * n, "bf16")
+            row = dict(shape=f"{name} M={m} K={k} N={n} bf16",
+                       max_abs_err=err, tol=tol, f32_max_abs_err=err32,
+                       f32_tol=tol32, splits=splits, stages_per_split=per,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                       library_ms=library_ms,
+                       library_call="torch.mm of the rounded x by the "
+                                    "dequantized weight (as for B5)",
+                       b5_nat_ms=nat_ms, vs_b5=ms / nat_ms, b15_ms=b15_ms,
+                       f32_ms=f32_ms)
+            rows_out.append(row)
+            print(f"B20 {row}", flush=True)
+        del ws, w, wd
+    require(split_plans > 0, "B20: no case ran a plan with K splits")
+
+    # the entry point's counted run
+    ws = [rand_weight(torch, k, n, gen, dev) for _, k, n in PLANES_7B[:4]]
+    xs = [torch.randn((512, k), generator=gen, device=dev)
+          for _, k, _ in PLANES_7B[:4]]
+    torch.cuda.synchronize()
+    reset_every_count()
+    for x, w in zip(xs, ws):
+        for mode in (torch.bfloat16, torch.float32):
+            qv.q4_matmul_prefill_pallas(x, w.qs, w.scales, w_dtype=mode,
+                                        variant="split")
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in every_kernel().items()}
+    expect_counts("B20 entry point", counts, dict(B20=4, B5=4))
+    results["B20"] = rows_out
+    results["B20_entry_launches"] = counts
+    del ws, xs
+
+
+def b21_case(torch, dev, gen, h, dt, lens, pp, extra=16):
+    """Pools [h, P, 64, 128] of `dt` for sequences of lengths `lens` over pp
+    pages each: each sequence's live pages from one shuffle, its other
+    table entries any page (never read); NaN in every page no sequence
+    reaches (the kernel's copies) and the clean pools (the plain
+    version's). Returns (q, clean pools, NaN pools, lengths, tables)."""
+    ps, d = ENG_PS, 128
+    need = [min(-(-n // ps), pp) for n in lens]
+    n_pages = sum(need) + extra
+    perm = torch.randperm(n_pages, generator=gen, device=dev).tolist()
+    tables, at = [], 0
+    for k in need:
+        tail = torch.randint(0, n_pages + 1, (pp - k,), generator=gen,
+                             device=dev).tolist()
+        tables.append(perm[at:at + k] + tail)
+        at += k
+    kp, vp = (torch.randn((h, n_pages + 1, ps, d), generator=gen,
+                          device=dev).to(dt) for _ in range(2))
+    used = torch.zeros(n_pages + 1, dtype=torch.bool, device=dev)
+    used[perm[:at]] = True
+    kq, vq = kp.clone(), vp.clone()
+    kq[:, ~used] = float("nan")
+    vq[:, ~used] = float("nan")
+    q = torch.randn((len(lens), h, d), generator=gen, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (q, (kp, vp), (kq, vq), torch.tensor(list(lens), **i32),
+            torch.tensor(tables, **i32))
+
+
+def check_b21(torch, dev, gen, results):
+    """B21 (engine/paged_kv.paged_attention_tpu, the library paged
+    attention's function) against its plain version on bf16 and f32 pools
+    at 32 heads (40 on bf16 pools at the engine's block), Dh 128, pages of
+    64 rows, pp 512 (the long-context engine's tables): eight sequences of
+    lengths B21_LENGTHS over a shuffled table, NaN in every page no
+    sequence reaches, compute blocks of B21_PPCBS pages; within 1e-5 of the
+    largest output (f32 throughout, sums in another order), a sequence of
+    length 0 zeros, run twice and bit-equal. A bf16 q as the JAX tool
+    passes it. Timed at 8 x 300 on pp 8 pools beside B6 on the same pools
+    (the engine's block there: 8 pages), and at 8 x 300 and 8 x 4096 on
+    pp 512 (64-page blocks), each beside its bound (the live K and V bytes
+    over 3.35 TB/s)."""
+    from fastllama_tpu_torch.engine import paged_kv as pk
+    from fastllama_tpu_torch.kernels import paged_attention as pa
+    pp = LONG_CTX // ENG_PS
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    # (heads, pool type, q types, compute blocks): a bf16 q once, on bf16
+    # pools; 40 heads at the engine's block
+    for h, dt, qdts, ppcbs in ((32, bf16, (f32, bf16), B21_PPCBS),
+                               (32, f32, (f32,), B21_PPCBS),
+                               (40, bf16, (f32,),
+                                (pa.library_ppcb(pp, ENG_PS, 128),))):
+        name = f"H={h} {'bf16' if dt == bf16 else 'f32'}"
+        q, clean, nan, lens, tables = b21_case(torch, dev, gen, h, dt,
+                                               B21_LENGTHS, pp)
+        for qdt in qdts:
+            qq = q.to(qdt)
+            ref = pk.paged_attention_tpu_plain(qq, *clean, lens, tables)
+            tol = 1e-5 * ref.abs().max().item() + 1e-6
+            for ppcb in ppcbs:
+                label = (f"B21 {name} q {'bf16' if qdt == bf16 else 'f32'}"
+                         f" ppcb={ppcb}")
+                out = pk.paged_attention_tpu(qq, *nan, lens, tables,
+                                             pages_per_compute_block=ppcb)
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(out).all()),
+                        f"{label}: not finite")
+                err = (out - ref).abs().max().item()
+                require(err <= tol, f"{label}: err {err} > {tol}")
+                require(not out[B21_LENGTHS.index(0)].any(),
+                        f"{label}: a sequence of length 0 is not zeros")
+                require(torch.equal(out, pk.paged_attention_tpu(
+                    qq, *nan, lens, tables, pages_per_compute_block=ppcb)),
+                    f"{label}: not deterministic")
+                rows.append(dict(shape=f"{name} d=128 ps={ENG_PS} pp={pp} "
+                                 f"ppcb={ppcb} lengths={list(B21_LENGTHS)}",
+                                 q=str(qdt), max_abs_err=err, tol=tol))
+        del clean, nan
+
+    # timed: 8 x 300 on pp 8 (beside B6), 8 x 300 and 8 x 4096 on pp 512
+    h, b, d = 32, ENG_SLOTS, 128
+    for label, n_len, tpp in (("8x300", 300, ENG_CTX // ENG_PS),
+                              ("8x300", 300, pp), ("8x4096", 4096, pp)):
+        live = 2 * b * n_len * h * d * 2
+        cases = [b21_case(torch, dev, gen, h, bf16, [n_len] * b, tpp,
+                          extra=0) for _ in range(copies_for(live))]
+        q, clean, _, lens, tables = cases[0]
+        ppcb = pa.library_ppcb(tpp, ENG_PS, d)
+        ref = pk.paged_attention_tpu_plain(q, *clean, lens, tables)
+        out = pk.paged_attention_tpu(q, *clean, lens, tables,
+                                     pages_per_compute_block=ppcb)
+        err = (out - ref).abs().max().item()
+        require(err <= 1e-5 * ref.abs().max().item() + 1e-6,
+                f"B21 timed {label} pp={tpp}: err {err}")
+        it = iter(range(10**9))
+
+        def run(fn):
+            c = cases[next(it) % len(cases)]
+            return fn(c[0], *c[1], c[3], c[4])
+        ms = time_ms(lambda: run(lambda *a: pk.paged_attention_tpu(
+            *a, pages_per_compute_block=ppcb)), calls=8 * len(cases))
+        plain_ms = time_ms(lambda: pk.paged_attention_tpu_plain(
+            q, *clean, lens, tables), calls=2)
+        bnd, by = bound_ms(live, 4.0 * b * n_len * h * d, "f32")
+        row = dict(shape=f"H=32 d=128 ps={ENG_PS} pp={tpp} ppcb={ppcb} bf16 "
+                   f"lengths={label}", max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                   library_ms=None, library_call=B21_LIBRARY)
+        if tpp * ENG_PS <= 12288:
+            row["b6_ms"] = time_ms(lambda: run(pa.paged_decode_attention),
+                                   calls=8 * len(cases))
+        rows.append(row)
+        print(f"B21 {row}", flush=True)
+        del cases
+    results["B21"] = rows
+
+
+def long_context_engine(torch, dev, gen):
+    """The 7B paged engine at n_ctx 32768 (32 layers, bf16 weights and pools,
+    8 slots, pages of 64 rows, 128 pages): phase 6's twelve requests
+    greedy, every count 0 just before and read just after: B21 32 launches
+    a decode step, B7 as many (the row's write before it), the fused step,
+    B6, B4 and B8 none, B12 once a layer in each admission past its gate.
+    Every decode step's logits on the step graph bit-equal to the eager
+    step's and the streams equal; the first decode step's logits within
+    1e-2 of the largest logit of the same requests on phase 6's n_ctx 512
+    engine (the fused step). Then the steady window of both engines in
+    turns (ms a step, tok/s, device ms and launches a step)."""
+    from fastllama_tpu_torch.config import PRESETS, RuntimeConfig
+    from fastllama_tpu_torch.engine import paged_kv as pk
+    from fastllama_tpu_torch.engine import scheduler as sched
+    from fastllama_tpu_torch.kernels import paged_attention as pa
+    hp = PRESETS["7B"]
+    vocab = synthetic_vocab(hp.n_vocab)
+    params = rand_params(torch, hp, gen, dev)
+    rec = torch.empty((ENG_SLOTS, 1, hp.n_vocab), dtype=torch.float32,
+                      device=dev)
+
+    def make(n_ctx, total_pages=0, graph=True):
+        rcfg = RuntimeConfig(n_ctx=n_ctx, n_batch=512, kv_dtype="bfloat16",
+                             weight_dtype="bfloat16")
+
+        def build():
+            eng = sched.BatchEngine(
+                hp, params, vocab, n_slots=ENG_SLOTS, n_ctx=n_ctx, rcfg=rcfg,
+                sampling_seed=3, kv_mode="paged", page_size=ENG_PS,
+                total_pages=total_pages)
+            return eng if graph else eager_route(eng)
+        return build
+
+    long_make = make(LONG_CTX, LONG_PAGES)
+    short_make = make(ENG_CTX)
+    real = sched.forward_paged_decode
+
+    def recording(*a, **kw):
+        out = real(*a, **kw)
+        rec.copy_(out[0])
+        return out
+
+    def drive(build, label):
+        """The twelve requests greedy through a fresh engine, stepped by
+        hand: (engine, requests, each decode step's logits, counts, s)."""
+        eng = build()
+        reqs = engine_requests(sched, temp=0.0)
+        steps = every_kernel()["B21" if eng._paged_attn else "PS"]
+        logits = []
+        torch.cuda.synchronize()
+        reset_every_count()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        while not all(r.done for r in reqs):
+            before = steps.launches
+            eng.step()
+            if steps.launches > before:
+                logits.append(rec.clone())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in every_kernel().items()}
+        eng._pending_drain = None
+        eng._inflight.clear()
+        require(all(len(r.tokens_out) == ENG_GEN for r in reqs),
+                f"{label}: a request did not run its length")
+        require(eng.pager.free_pages == eng.pager.total_pages,
+                f"{label}: {eng.pager.free_pages} pages free of "
+                f"{eng.pager.total_pages}")
+        return eng, reqs, logits, counts, wall
+
+    sched.forward_paged_decode = recording
+    try:
+        eng, reqs, logits, counts, wall = drive(long_make, "long graph")
+        streams = [r.tokens_out for r in reqs]
+        route = eng._paged_attn
+        ppcb = pa.library_ppcb(LONG_CTX // ENG_PS, ENG_PS, hp.head_dim)
+        require(route is not None and route.func is pk.paged_attention_tpu
+                and route.keywords == {"pages_per_compute_block": ppcb}
+                and eng.pager.pages_per_seq == LONG_CTX // ENG_PS,
+                f"long engine: route {route}")
+        n_steps = counts["B21"] // hp.n_layer
+        expect_counts("long engine", counts, dict(
+            B21=hp.n_layer * n_steps, B7=hp.n_layer * n_steps,
+            B1=counts["B1"], B2=counts["B2"], B3=counts["B3"],
+            B5=counts["B5"], RW=counts["RW"],
+            B12=hp.n_layer * flash_admissions(eng, reqs)))
+        require(n_steps == len(logits) and counts["B21"] % hp.n_layer == 0
+                and n_steps > 0, f"long engine: {counts['B21']} B21 "
+                f"launches, {len(logits)} decode steps")
+        decode_graphs = [g.captures for g in eng._graphs.entries("decode")]
+        require(decode_graphs == [1], f"long engine: decode captures "
+                f"{decode_graphs}")
+        del eng
+        eng_e, reqs_e, logits_e, counts_e, wall_e = drive(
+            make(LONG_CTX, LONG_PAGES, graph=False), "long eager")
+        streams_e = [r.tokens_out for r in reqs_e]
+        del eng_e
+        require(streams_e == streams, "long engine: the replayed streams "
+                "differ from the eager step's")
+        require(len(logits_e) == len(logits) and all(
+            torch.equal(a, b) for a, b in zip(logits, logits_e)),
+            "long engine: replayed logits differ from the eager step's")
+        eng_s, reqs_s, logits_s, counts_s, wall_s = drive(short_make,
+                                                          "fused n_ctx 512")
+        streams_s = [r.tokens_out for r in reqs_s]
+        require(eng_s._paged_attn is None and counts_s["B21"] == 0
+                and counts_s["PS"] > 0, f"fused engine: launches {counts_s}")
+        del eng_s
+    finally:
+        sched.forward_paged_decode = real
+    first_err = (logits[0] - logits_s[0]).abs().max().item()
+    first_scale = logits_s[0].abs().max().item()
+    require(first_err <= 1e-2 * first_scale,
+            f"long engine: first decode logits {first_err} from the fused "
+            f"route's (largest {first_scale})")
+    n_tok = sum(len(t) for t in streams)
+    res = dict(n_ctx=LONG_CTX, total_pages=LONG_PAGES, ppcb=ppcb,
+               decode_steps=n_steps, launches=counts,
+               launches_eager=counts_e, launches_fused_512=counts_s,
+               steps_bit_equal=len(logits),
+               first_step_err_vs_fused=first_err,
+               first_step_max_logit=first_scale,
+               greedy_common_prefix_vs_fused=[
+                   common_prefix(a, b) for a, b in zip(streams, streams_s)],
+               wall_s=wall, wall_s_eager=wall_e, wall_s_fused_512=wall_s,
+               tok_s_with_admissions=n_tok / wall,
+               tok_s_with_admissions_fused_512=n_tok / wall_s,
+               pool_gb=2 * hp.n_layer * (LONG_PAGES + 1) * ENG_PS
+               * hp.n_embd * 2 / 1e9)
+    steady = {}
+    for label, build in (("long", long_make), ("fused_512", short_make),
+                         ("long_again", long_make),
+                         ("fused_512_again", short_make)):
+        steady[label] = engine_steady(torch, sched, build)
+        print(f"long-context steady {label}: {json.dumps(steady[label])}",
+              flush=True)
+    res["steady"] = steady
+    print(f"long-context engine: {json.dumps({k: v for k, v in res.items() if k != 'steady'})}",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def long_context_path(torch, dev, gen):
+    """Phase 15: B20 and B21 against their plain versions and the 7B paged
+    engine at n_ctx 32768 on B21."""
+    checks = {}
+    check_b20(torch, dev, gen, checks)
+    check_b21(torch, dev, gen, checks)
+    engine = long_context_engine(torch, dev, gen)
+    return dict(checks=checks, engine=engine)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4674,6 +5086,8 @@ def main() -> int:
                             dev, gen)
         var_res = timed("14 variants and switches", variants_path, torch,
                         dev, gen)
+        long_res = timed("15 B20, B21, long-context engine",
+                         long_context_path, torch, dev, gen)
         # bench_torch.py's TTFT windows replay their graphs (phase 11)
         prefill_res["bench_7b_ttft_ms"] = {
             k: bench_res["bench"]["7b"]["line"][k]
@@ -4704,7 +5118,9 @@ def main() -> int:
                     **{k: bench_res["q4_floor"]["launches_counted"][k]
                        for k in ("B13", "B14")},
                     **{k: var_res["tool"]["launches"][k]
-                       for k in variant_kernels()})
+                       for k in variant_kernels()},
+                    B20=long_res["checks"]["B20_entry_launches"]["B20"],
+                    B21=long_res["engine"]["launches"]["B21"])
     main_rows = {"B1": pick(checks["B1"], "qkv M=1"),
                  "B2": pick(checks["B2"], "K=4096"),
                  "B3": pick(checks["B3"], "qkv M=512 K=4096"),
@@ -4728,7 +5144,10 @@ def main() -> int:
                  # M = 8
                  **{k: pick(var_res["checks"][k], "qkv M=8 K=4096 N=12288")
                     for k in ("B15", "B16", "B17", "B18")},
-                 "B19": pick(var_res["checks"]["B19"], "qkv M=512 ")}
+                 "B19": pick(var_res["checks"]["B19"], "qkv M=512 "),
+                 "B20": pick(long_res["checks"]["B20"], "qkv M=512 "),
+                 "B21": pick(long_res["checks"]["B21"],
+                             "pp=512 ppcb=64 bf16 lengths=8x300")}
     meta = {
         "B1": ("q4_matmul_decode", "csrc/q4_decode.cu",
                "fastllama_tpu/kernels/q4_matmul.py:433"),
@@ -4781,6 +5200,13 @@ def main() -> int:
                 "fastllama_tpu/kernels/q4_matmul.py:189"),
         "B19": ("q4_prefill_int8_natx", "csrc/q4_int8.cu",
                 "fastllama_tpu/kernels/q4_matmul.py:715"),
+        # the prefill split body (q4_matmul_prefill_pallas(variant="split"),
+        # launched at :660): B5's kernel in its split mode
+        "B20": ("q4_prefill_split", "csrc/q4_prefill.cu",
+                "fastllama_tpu/kernels/q4_matmul.py:503"),
+        # the library Pallas TPU paged_attention the JAX function calls
+        "B21": ("paged_attention_tpu", "csrc/paged_flash.cu",
+                "fastllama_tpu/engine/paged_kv.py:55"),
     }
     kernels = []
     for key, (name, src, replaces) in meta.items():
@@ -4790,7 +5216,8 @@ def main() -> int:
             "source": "fastllama_tpu_torch/kernels/" + src,
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": max(r["max_abs_err"] for r in checks.get(
-                key, var_res["checks"].get(key, [])) + [
+                key, var_res["checks"].get(
+                    key, long_res["checks"].get(key, []))) + [
                     s for s in checks["shard_local"] + checks["13B"]
                     if s["kernel"] == key]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -4867,6 +5294,30 @@ def main() -> int:
             require(launches[key] > 0, f"kernel {key} was launched on no "
                     "path")
             continue
+        if key == "B20":
+            kernels[-1].update(
+                path="q4_variants.q4_matmul_prefill_pallas(variant='split') "
+                     "on the 7B planes at M = 512, bf16 and f32 (phase 15's "
+                     "counted run; f32 runs B5's f32 kernel)",
+                library_call=row["library_call"], b5_nat_ms=row["b5_nat_ms"],
+                vs_b5=row["vs_b5"])
+            require(launches[key] > 0, "kernel B20 was launched on no path")
+            continue
+        if key == "B21":
+            eng = long_res["engine"]
+            kernels[-1].update(
+                path="the 7B paged engine at n_ctx 32768 (phase 15: twelve "
+                     "requests, 32 launches a decode step, the fused step "
+                     "0)",
+                library_call=row["library_call"],
+                b6_ms_8x300_pp8=pick(long_res["checks"]["B21"],
+                                     "pp=8 ")["b6_ms"],
+                launches_by_path={"bench_path": bench_res["launches"][key],
+                                  "fused_step_in_that_run":
+                                      eng["launches"]["PS"]})
+            require(launches[key] > 0 and eng["launches"]["PS"] == 0,
+                    "kernel B21: launches on its path")
+            continue
         if key in ("B13", "B14"):
             kernels[-1].update(
                 path="tools_torch/bench_q4_floor.py (phase 11, its default "
@@ -4887,7 +5338,7 @@ def main() -> int:
                "engine_path": engine_res, "converters": conv_res,
                "c_abi": c_res, "parallel": par_res, "bench_path": bench_res,
                "graphs": graph_res, "prefill_graphs": prefill_res,
-               "variants": var_res,
+               "variants": var_res, "long_context": long_res,
                "seconds": time.perf_counter() - t_start,
                "phase_seconds": phase_s}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

@@ -13,8 +13,7 @@ from .api import Model
 from .config import FType, HyperParams, RuntimeConfig
 from .engine.logger import DefaultLogger, Logger, ProgressTag
 from .engine.session import FastLlama
-
-__version__ = "0.1.0"
+from .version import __version__
 
 __all__ = ["__version__", "Model", "FType", "HyperParams", "RuntimeConfig",
            "Logger", "DefaultLogger", "ProgressTag", "FastLlama"]

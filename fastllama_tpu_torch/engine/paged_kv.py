@@ -11,8 +11,11 @@ coexist without reserving the worst case.
   page_tables:        [n_slots, pages_per_seq] physical page ids (host)
   lengths:            [n_slots] tokens resident per slot (host)
 
-Decode attention over the pools is kernels/paged_attention.py (B6), the
-one-token write kernels/kv_write.py (B7), the bulk admission write B8.
+Decode attention over the pools is kernels/paged_attention.py (B6, and
+the fused step with B7's write), or, where that kernel's gate fails (long
+contexts), paged_attention_tpu below (B21, the library kernel's function);
+the one-token write is kernels/kv_write.py (B7), the bulk admission write
+B8.
 
 Under data parallelism (dp > 1) the page ids are partitioned over the dp
 groups as in the JAX manager: slot s belongs to group s // (n_slots / dp),
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import HyperParams, resolve_device
+from ..kernels import cuda_lib
 from ..kernels.kv_write import scatter_rows_drop
 
 
@@ -56,6 +60,149 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices):
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     return torch.einsum("bhs,bhsd->bhd", torch.softmax(scores, dim=-1),
                         gathered(v_pages))
+
+
+# Kernel B21 (csrc/paged_flash.cu) takes these head dims, and the scores of
+# one compute block (pages_per_compute_block * page_size rows, plus 8 * D
+# floats of its merge) in shared memory
+B21_HEAD_DIMS = (64, 128, 256)
+B21_SMEM_BYTES = 227 * 1024
+# the library kernel's mask value (its DEFAULT_MASK_VALUE)
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+
+
+def _check_library_args(q, k_pages, v_pages, lengths, page_indices,
+                        pages_per_compute_block):
+    """The library kernel's argument checks, with its messages
+    (jax.experimental.pallas.ops.tpu.paged_attention.paged_attention)."""
+    if q.dim() != 3 or k_pages.dim() != 4 or page_indices.dim() != 2:
+        raise ValueError("q must be [batch_size, num_q_heads, head_dim], the "
+                         "pages [num_kv_heads, total_num_pages, page_size, "
+                         "head_dim] and page_indices [batch_size, "
+                         "pages_per_sequence]")
+    batch_size, num_q_heads, head_dim = q.shape
+    num_kv_heads, _, _, head_dim_k = k_pages.shape
+    batch_size_paged_indices, pages_per_sequence = page_indices.shape
+    if k_pages.shape != v_pages.shape:
+        raise ValueError(
+            "k_pages and v_pages must have the same shape. Got "
+            f"{tuple(k_pages.shape)} and {tuple(v_pages.shape)}")
+    if num_q_heads % num_kv_heads != 0:
+        raise ValueError(
+            "Number of Q heads must be divisible by number of KV heads. Got"
+            f" {num_q_heads} and {num_kv_heads}.")
+    if head_dim_k != head_dim:
+        raise ValueError(
+            "head_dim of Q must be the same as that of K/V. Got"
+            f" {head_dim} and {head_dim_k}.")
+    if pages_per_sequence % pages_per_compute_block != 0:
+        raise ValueError(
+            "pages_per_compute_block must be divisible by pages per "
+            f"sequence. Got {pages_per_compute_block} and "
+            f"{pages_per_sequence}.")
+    if tuple(lengths.shape) != (batch_size,):
+        raise ValueError("`lengths` and `q` must have the same batch size")
+    if batch_size_paged_indices != batch_size:
+        raise ValueError("`page_indices` and `q` must have the same batch "
+                         "size")
+    if lengths.dtype != torch.int32:
+        raise ValueError(
+            f"The dtype of `lengths` must be int32. Got {lengths.dtype}")
+
+
+def _prescaled(q):
+    """q * (1 / sqrt(D)) in f32, as the JAX wrapper scales it (its f64
+    constant taken to f32; a bf16 q is widened first)."""
+    scale = float(np.float32(1.0 / np.sqrt(q.shape[-1])))
+    return q.to(torch.float32) * scale
+
+
+def paged_attention_tpu_plain(q, k_pages, v_pages, lengths, page_indices):
+    """Plain PyTorch version of kernel B21 (the same arguments but the
+    compute block, which moves f32 rounding only): the gather-based f32
+    attention on the pre-scaled q over K and V rounded to bf16, as the
+    library reads them; rows at or past the length (clipped to pp * ps)
+    take no part, and a sequence of length 0 gives zeros. Hq may be a
+    multiple of Hkv (query head h attends KV head h // (Hq / Hkv))."""
+    b, hq, d = q.shape
+    hkv, p, ps, _ = k_pages.shape
+    g = hq // hkv
+    s_max = page_indices.shape[1] * ps
+    idx = page_indices.to(torch.int64).clamp(0, p - 1)
+
+    def gathered(pool):                # [Hkv, B, pp, ps, D] -> [B, Hkv, S, D]
+        return pool[:, idx].permute(1, 0, 2, 3, 4).reshape(
+            b, hkv, s_max, d).to(torch.bfloat16).to(torch.float32)
+
+    mask = (torch.arange(s_max, device=q.device)[None, None, None, :]
+            < lengths.to(torch.int64)[:, None, None, None])
+    qs = _prescaled(q).reshape(b, hkv, g, d)
+    scores = torch.einsum("bkgd,bksd->bkgs", qs, gathered(k_pages))
+    scores = torch.where(mask, scores, torch.full_like(scores, MASK_VALUE))
+    m = scores.amax(-1, keepdim=True)
+    probs = torch.where(mask, torch.exp(scores - m), torch.zeros_like(scores))
+    denom = probs.sum(-1, keepdim=True)
+    vals = torch.where(mask[:, :, 0, :, None], gathered(v_pages), 0.0)
+    ctx = torch.einsum("bkgs,bksd->bkgd", probs, vals)
+    ctx = torch.where(denom > 0, ctx / denom.clamp_min(1e-30),
+                      torch.zeros_like(ctx))
+    return ctx.reshape(b, hq, d)
+
+
+def paged_attention_tpu(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, lengths: torch.Tensor,
+                        page_indices: torch.Tensor,
+                        pages_per_compute_block: int = 4) -> torch.Tensor:
+    """Kernel B21, the port of paged_attention_tpu (the library Pallas TPU
+    kernel paged_attention, q pre-scaled by 1/sqrt(D) outside it): q [B, Hq,
+    D] f32 or bf16; pools [Hkv, P, ps, D] bf16 or f32; lengths int32 [B];
+    page_indices int32 [B, pages_per_sequence]. Returns f32 [B, Hq, D]
+    (the pre-scale makes q f32, and the library returns q's type). Raises
+    ValueError where the library raises; on the card also for what B21
+    does not take (head dims other than 64, 128 and 256, other pool types,
+    a compute block whose scores exceed shared memory). Keys are taken in
+    compute blocks of pages_per_compute_block pages with the library's
+    online softmax (csrc/paged_flash.cu); for CPU tensors the plain
+    version."""
+    _check_library_args(q, k_pages, v_pages, lengths, page_indices,
+                        pages_per_compute_block)
+    if q.device.type == "cpu":
+        return paged_attention_tpu_plain(q, k_pages, v_pages, lengths,
+                                         page_indices)
+    b, hq, d = q.shape
+    hkv, p, ps, _ = k_pages.shape
+    pp = page_indices.shape[1]
+    dev = q.device
+
+    def need(cond, msg):
+        if not cond:
+            raise ValueError(msg)
+    need(dev.type == "cuda" and all(
+        t.device == dev and t.is_contiguous()
+        for t in (k_pages, v_pages, lengths, page_indices)),
+        "the pools, lengths and page_indices must be contiguous and on q's "
+        "CUDA device")
+    need(k_pages.dtype in (torch.bfloat16, torch.float32)
+         and v_pages.dtype == k_pages.dtype,
+         f"B21 takes bf16 or f32 pools, not {k_pages.dtype}")
+    need(page_indices.dtype == torch.int32, "page_indices must be int32")
+    need(d in B21_HEAD_DIMS, f"B21 takes head_dim {B21_HEAD_DIMS}, not {d}")
+    need((pages_per_compute_block * ps + 8 * d) * 4 <= B21_SMEM_BYTES,
+         f"a compute block of {pages_per_compute_block} x {ps} rows: its "
+         "scores exceed B21's shared memory")
+    qs = _prescaled(q).contiguous()
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+    rc = cuda_lib.fn("paged_attention_tpu")(
+        qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        lengths.data_ptr(), page_indices.data_ptr(), b, hq, hkv, p, ps, pp,
+        d, pages_per_compute_block, int(k_pages.dtype == torch.bfloat16),
+        out.data_ptr(), cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, "paged_attention_tpu")
+    paged_attention_tpu.launches += 1
+    return out
+
+
+cuda_lib.counted(paged_attention_tpu)
 
 
 def write_tokens_paged(k_pages, v_pages, k_new, v_new, page_ids, offsets):

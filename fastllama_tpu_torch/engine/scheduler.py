@@ -9,7 +9,9 @@ with new requests admitted into idle slots at any step.
     inactive slot runs at position n_ctx + 1, past the cache, so its KV write
     is dropped or, in the fused kernel, lands in its own last row).
   * kv_mode "slab" keeps [n_slots, n_ctx] caches; "paged" shares a page pool
-    (engine/paged_kv.py) and steps through forward_paged_decode.
+    (engine/paged_kv.py) and steps through forward_paged_decode, attending
+    as the JAX engine does on a pool of that shape (paged_attn_route: the
+    fused step, or B21 past the JAX kernel's gate).
   * Sampling parameters are per request (temp / top_k / top_p /
     repeat_penalty as per-slot vectors in engine/sampling.sample_device).
     The engine's top_k is the static cap per-request values are clamped to.
@@ -42,6 +44,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import queue
 from typing import Callable, Optional, Sequence
 
@@ -50,6 +53,7 @@ import torch
 
 from ..config import HyperParams, RuntimeConfig, resolve_device
 from ..kernels.kv_write import paged_kv_write_rows
+from ..kernels.paged_attention import library_ppcb, paged_attn_supported
 from ..models.llama import (
     ForwardConfig, LlamaParams, forward, forward_paged_decode,
     forward_paged_prefill, init_kv_cache, position_tables,
@@ -58,10 +62,37 @@ from ..parallel.collectives import all_gather, broadcast
 from ..utils.step_graph import GraphCache
 from ..utils.trace import trace_region
 from .logger import Logger, NULL_LOGGER
-from .paged_kv import PagedKVManager, write_tokens_paged
+from .paged_kv import PagedKVManager, paged_attention_tpu, write_tokens_paged
 from .sampling import draw_uniforms, sample_device
 from .token_buffer import TokenBuffer
 from .tokenizer import EOS_ID, Vocab, tokenize
+
+
+def paged_attn_route(h_local: int, pp: int, ps: int, hd: int,
+                     itemsize: int):
+    """The paged decode step's attention, chosen as the JAX engine chooses
+    on its accelerator (fastllama_tpu/engine/scheduler.py,
+    _build_decode_paged) and from the shapes and pool type alone, never the
+    device, so the CPU runs the route the card runs:
+      * None, the port's own route (the fused step; B7 + B6 on layers with
+        q/k/v LoRA terms), where the JAX kernel's gate holds
+        (paged_attn_supported);
+      * B21 (engine/paged_kv.paged_attention_tpu, the library kernel's
+        function) with the JAX engine's pages_per_compute_block, where the
+        head dim is whole 128-lane tiles and pages whole 8-row groups but
+        the gate fails: long contexts (at Dh 128 past 24,576 rows a
+        sequence for bf16 pools, 12,288 for f32). B21 raises the library's
+        ValueError at the first step where that block does not divide
+        pages_per_seq, as the JAX engine's step does;
+      * None otherwise, where the JAX engine takes its gather-based
+        reference: the port keeps its own route there."""
+    if paged_attn_supported(h_local, pp, ps, hd, itemsize):
+        return None
+    if hd % 128 == 0 and ps % 8 == 0:
+        return functools.partial(
+            paged_attention_tpu,
+            pages_per_compute_block=library_ppcb(pp, ps, hd))
+    return None
 
 
 @dataclasses.dataclass
@@ -183,6 +214,9 @@ class BatchEngine:
                 pages_per_seq=-(-n_ctx // page_size), dtype=kv_dtype,
                 device=dev, dp=self.dp, group=self.dp_index, tp=self.tp)
             self.kv = None
+            self._paged_attn = paged_attn_route(
+                hp.n_head // self.tp, self.pager.pages_per_seq, page_size,
+                hp.head_dim, kv_dtype.itemsize)
         else:
             self.pager = None
             self.kv = init_kv_cache(hp_local, per, n_ctx, kv_dtype, dev)
@@ -331,7 +365,7 @@ class BatchEngine:
             self.params, self.d_tokens[self._lo:self._hi], packed[:b],
             packed[3 * b:].view(b, pp), self.pager.k_pages,
             self.pager.v_pages, packed[b:2 * b], packed[2 * b:3 * b],
-            self.cfg, self._tables)
+            self.cfg, self._tables, paged_attn=self._paged_attn)
         return self._sample_and_advance(logits)
 
     def _run_step(self, step, *inputs) -> torch.Tensor:

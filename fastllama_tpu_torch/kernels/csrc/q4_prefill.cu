@@ -21,7 +21,7 @@
 // bf16 mode, two launches:
 //   1. cast_kernel: R(x) as a bf16 [M, K] plane with zeros past x's K (TMA
 //      copies bytes: the A operand has to be bf16 in global memory);
-//   2. bf16_wgmma_kernel<AFFINE>: persistent, one block an SM walking over
+//   2. bf16_wgmma_kernel<MODE> (kNat, kAffine): persistent, one block an SM walking over
 //      work items (a 128 x 128 output tile and a run of its K stages, 64
 //      deep), warp-specialized:
 //      * one producer thread keeps a ring of 4 stages in flight with TMA:
@@ -51,6 +51,25 @@
 //      the last to finish a tile, elected by a counter it resets, sums
 //      the partials in split order (deterministic, no atomic adds on y).
 //
+// Kernel B20, the split mode (bf16 only; entry q4_prefill_split_gemm):
+// replaces fastllama_tpu/kernels/q4_matmul.py::_q4mm_prefill_kernel, the
+// body of q4_matmul_prefill_pallas(variant="split"), v1's folded offset at
+// prefill M:
+//   y = R(x) @ R(q * d) - 8 * bsum(x) @ d      f32 accumulation
+// with q the code 0..15 (no -8 in the weight) and bsum(x) [K/32, M] the f32
+// sum of the caller's unrounded x over each q block, made by PyTorch ops
+// before the launch (the JAX package makes it with XLA outside its kernel).
+// Three launches: the cast pass, bf16_wgmma_kernel<kSplit>, whose
+// converters write R(__fmul_rn(q, d)) (its split plan and merge are B5's),
+// then fold_kernel, which adds -8 * sum_b bsum[b, m] * d[b, n] to each
+// output once, after the product is whole (so a split plan adds it once,
+// not once a split): an f32 FFMA tile product on the CUDA cores (never
+// TF32), K' = K/32 deep, its sum for an output in block order. The fold
+// is 1/32 of the product's multiply-adds at the f32 rate, plus a read and
+// a write of y. In f32 mode the function is x @ ((q - 8) * d) in exact
+// arithmetic, so the port runs B5's f32 kernel there
+// (kernels/q4_variants.py).
+//
 // f32 mode, one launch: f32_gemm_kernel<AFFINE>, a true f32 product on the
 // CUDA cores (never TF32): a 128 x 128 tile per 256-thread block, 8 x 8
 // outputs a thread, K in 32-deep steps whose x tile and q4 bytes, scales
@@ -76,25 +95,31 @@ using hopper::wgmma_commit;
 using hopper::wgmma_fence;
 using hopper::wgmma_wait;
 
+// The weight functions: (q - 8) * d (q4_0, B5), q * d + m (q4_1, B5's
+// affine weight) and q * d (B20's split mode, the offset folded back in
+// the epilogue).
+enum Mode { kNat = 0, kAffine = 1, kSplit = 2 };
+
 // One weight from its code q (0..15) in the low byte of 2^23's bit pattern:
 // 2^23 + q is exact, so is subtracting 2^23 (+ 8); then the product with d
 // (and the sum with m) in the plain version's f32 roundings.
-template <bool AFFINE>
+template <int MODE>
 __device__ __forceinline__ float weight(uint32_t magic_q, float d, float m) {
   const float f = __uint_as_float(magic_q);
-  if constexpr (AFFINE) return __fadd_rn(__fmul_rn(__fadd_rn(f, -8388608.0f), d), m);
+  if constexpr (MODE == kAffine) return __fadd_rn(__fmul_rn(__fadd_rn(f, -8388608.0f), d), m);
+  if constexpr (MODE == kSplit) return __fmul_rn(__fadd_rn(f, -8388608.0f), d);
   return __fmul_rn(__fadd_rn(f, -8388616.0f), d);
 }
 
 // The four weights of the codes in the four bytes of `nib` (each 0..15),
 // columns c..c+3 with scales d and mins m.
-template <bool AFFINE>
+template <int MODE>
 __device__ __forceinline__ float4 weights4(uint32_t nib, float4 d, float4 m) {
   return make_float4(
-      weight<AFFINE>(__byte_perm(nib, 0x4B000000u, 0x7440), d.x, m.x),
-      weight<AFFINE>(__byte_perm(nib, 0x4B000000u, 0x7441), d.y, m.y),
-      weight<AFFINE>(__byte_perm(nib, 0x4B000000u, 0x7442), d.z, m.z),
-      weight<AFFINE>(__byte_perm(nib, 0x4B000000u, 0x7443), d.w, m.w));
+      weight<MODE>(__byte_perm(nib, 0x4B000000u, 0x7440), d.x, m.x),
+      weight<MODE>(__byte_perm(nib, 0x4B000000u, 0x7441), d.y, m.y),
+      weight<MODE>(__byte_perm(nib, 0x4B000000u, 0x7442), d.z, m.z),
+      weight<MODE>(__byte_perm(nib, 0x4B000000u, 0x7443), d.w, m.w));
 }
 
 __device__ __forceinline__ uint2 pack_bf16x4(float4 v) {
@@ -208,7 +233,7 @@ struct Item {
 // role counts the stages it has passed in g (the ring's slot g % kStages,
 // its phase g / kStages). partial: f32 scratch of splits * 64 * 256 floats
 // a tile (splits > 1 only), counters: int32 zeros, one a tile.
-template <bool AFFINE>
+template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                   const __grid_constant__ CUtensorMap map_q,
@@ -217,6 +242,7 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                   int Kc, int splits, int k_tiles, int n_out,
                   float* __restrict__ partial, int* __restrict__ counters,
                   float* __restrict__ y) {
+  constexpr bool AFFINE = MODE == kAffine;
   using R = Ring<AFFINE>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ int is_last;
@@ -295,9 +321,9 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
         const uint32_t word =
             *reinterpret_cast<const uint32_t*>(q4 + r * kBN + n);
         *reinterpret_cast<uint2*>(wt + w_off(k, n)) = pack_bf16x4(
-            weights4<AFFINE>(word & 0x0F0F0F0Fu, d, mn));
+            weights4<MODE>(word & 0x0F0F0F0Fu, d, mn));
         *reinterpret_cast<uint2*>(wt + w_off(k + 16, n)) = pack_bf16x4(
-            weights4<AFFINE>((word >> 4) & 0x0F0F0F0Fu, d, mn));
+            weights4<MODE>((word >> 4) & 0x0F0F0F0Fu, d, mn));
       }
       hopper::fence_proxy_async();
       mbar_arrive(bars + 8 * (kStages + s));
@@ -469,9 +495,9 @@ f32_gemm_kernel(const float* __restrict__ x, int M, int Kx,
       const float4 mn = AFFINE ? *reinterpret_cast<const float4*>(&sm.mn[st][c])
                                : make_float4(0.f, 0.f, 0.f, 0.f);
       *reinterpret_cast<float4*>(&sm.w[j][c]) =
-          weights4<AFFINE>(word & 0x0F0F0F0Fu, d, mn);
+          weights4<AFFINE ? kAffine : kNat>(word & 0x0F0F0F0Fu, d, mn);
       *reinterpret_cast<float4*>(&sm.w[j + 16][c]) =
-          weights4<AFFINE>((word >> 4) & 0x0F0F0F0Fu, d, mn);
+          weights4<AFFINE ? kAffine : kNat>((word >> 4) & 0x0F0F0F0Fu, d, mn);
     }
     __syncthreads();
 #pragma unroll
@@ -541,19 +567,97 @@ f32_gemm_kernel(const float* __restrict__ x, int M, int Kx,
 }
 
 // ---------------------------------------------------------------------------
+// 4. B20's fold: y += -8 * bsum^T @ d, f32 on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kFoldM = 32, kFoldN = 128, kFoldK = 16, kFoldThreads = 256;
+
+// bsum f32 [nb, M] (row b: the f32 sums of q block b of each row of x),
+// scales f32 [>= nb, N], y f32 [M, n_out] (n_out <= N, N a multiple of 16).
+// Block (i, j) takes rows 32 j .. and columns 128 i ..; thread (ty, tx) =
+// (tid / 32, tid % 32) rows 4 ty + r and columns 4 tx + c. The q blocks
+// go 16 at a time through shared memory, the next 16 loaded into
+// registers while the current are summed; each output's sum runs over b
+// in order (fmaf), and y gains -8 times it once.
+__global__ void __launch_bounds__(kFoldThreads)
+fold_kernel(const float* __restrict__ bsum, const float* __restrict__ scales,
+            int M, int N, int nb, int n_out, float* __restrict__ y) {
+  __shared__ __align__(16) float sb[kFoldK][kFoldM];
+  __shared__ __align__(16) float sd[kFoldK][kFoldN];
+  const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
+  const int m0 = blockIdx.y * kFoldM, n0 = blockIdx.x * kFoldN;
+  // loads: bsum (16 x 32) two a thread, the scales (16 x 128) two float4
+  const int lb = tid >> 4, lm = 2 * (tid & 15);
+  const int ld = tid >> 4, ln = 8 * (tid & 15);
+  float rb[2];
+  float4 rd[2];
+  auto fetch = [&](int b0) {
+    const int b = b0 + lb;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      rb[i] = b < nb && m0 + lm + i < M ? bsum[(size_t)b * M + m0 + lm + i]
+                                        : 0.f;
+    const bool ok = b0 + ld < nb && n0 + ln < N;
+    const float* src = scales + (size_t)(b0 + ld) * N + n0 + ln;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      rd[i] = ok ? *reinterpret_cast<const float4*>(src + 4 * i)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  float c[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[r][j] = 0.f;
+  fetch(0);
+  for (int b0 = 0; b0 < nb; b0 += kFoldK) {
+    __syncthreads();                   // the last chunk's reads are done
+    sb[lb][lm] = rb[0];
+    sb[lb][lm + 1] = rb[1];
+    *reinterpret_cast<float4*>(&sd[ld][ln]) = rd[0];
+    *reinterpret_cast<float4*>(&sd[ld][ln + 4]) = rd[1];
+    __syncthreads();
+    if (b0 + kFoldK < nb) fetch(b0 + kFoldK);
+    const int kk_end = min(kFoldK, nb - b0);
+    for (int kk = 0; kk < kk_end; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&sb[kk][4 * ty]);
+      const float4 d = *reinterpret_cast<const float4*>(&sd[kk][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) c[r][j] = fmaf(av[r], dv[j], c[r][j]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int m = m0 + 4 * ty + r;
+    if (m >= M) continue;
+    float* yr = y + (size_t)m * n_out;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 4 * tx + j;
+      if (n < n_out) yr[n] = yr[n] + -8.f * c[r][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-template <bool AFFINE>
+template <int MODE>
 int launch_bf16(const void* xb, int M, int K, int Kc, const void* qs,
                 const void* scales, const void* mins, int N, int splits,
                 int k_tiles, int blocks, void* partial, void* counters,
                 float* y, int n_out, cudaStream_t stream) {
+  constexpr bool AFFINE = MODE == kAffine;
   using R = Ring<AFFINE>;
   static bool attr = false;
   if (!attr) {
     cudaError_t err = cudaFuncSetAttribute(
-        bf16_wgmma_kernel<AFFINE>,
+        bf16_wgmma_kernel<MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
     if (err != cudaSuccess) return (int)err;
     attr = true;
@@ -570,7 +674,7 @@ int launch_bf16(const void* xb, int M, int K, int Kc, const void* qs,
                         CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K / 32, N, kBN,
                         kBK / 32, none))
     return (int)cudaErrorInvalidValue;
-  bf16_wgmma_kernel<AFFINE><<<blocks, kThreads, R::kSmem, stream>>>(
+  bf16_wgmma_kernel<MODE><<<blocks, kThreads, R::kSmem, stream>>>(
       map_x, map_q, map_s, map_m, M, N, Kc, splits, k_tiles, n_out,
       (float*)partial, (int*)counters, y);
   return (int)cudaGetLastError();
@@ -631,10 +735,45 @@ extern "C" int q4_prefill_gemm(const void* x, int M, int Kx, const void* qs,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int Kc = (Kx + 31) / 32 * 32;      // x is zero from Kx on
-  return mins ? launch_bf16<true>(xb, M, K, Kc, qs, scales, mins, N, splits,
-                                  k_steps, blocks, partial, counters,
-                                  (float*)y, n_out, s)
-              : launch_bf16<false>(xb, M, K, Kc, qs, scales, nullptr, N,
-                                   splits, k_steps, blocks, partial,
-                                   counters, (float*)y, n_out, s);
+  return mins ? launch_bf16<kAffine>(xb, M, K, Kc, qs, scales, mins, N,
+                                     splits, k_steps, blocks, partial,
+                                     counters, (float*)y, n_out, s)
+              : launch_bf16<kNat>(xb, M, K, Kc, qs, scales, nullptr, N,
+                                  splits, k_steps, blocks, partial, counters,
+                                  (float*)y, n_out, s);
+}
+
+// Kernel B20 (bf16 mode): y f32 [M, n_out] = R(x) @ R(q * d) - 8 * bsum @ d
+// for a q4_0 weight, with q4_prefill_gemm's arguments in bf16 mode (x, M,
+// Kx, qs, scales, N, K, xb, the plan's splits, k_steps and blocks, partial,
+// counters, y, n_out) and bsum f32 [K/32, M] (row b the sums of q block b
+// of each row of x; rows at or past Kx's blocks zero). The cast pass, then
+// bf16_wgmma_kernel<kSplit> and fold_kernel. Returns the CUDA error code of
+// the launches.
+extern "C" int q4_prefill_split_gemm(const void* x, int M, int Kx,
+                                     const void* qs, const void* scales,
+                                     int N, int K, const void* bsum,
+                                     void* xb, int splits, int k_steps,
+                                     int blocks, void* partial,
+                                     void* counters, void* y, int n_out,
+                                     void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (K % 32 || Kx % 4 || Kx > K || N % 16 || M < 1 || splits < 1 ||
+      k_steps < 1 || blocks < 1 || !bsum)
+    return (int)cudaErrorInvalidValue;
+  const size_t quads = (size_t)M * (K / 4);
+  cast_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
+      (const float*)x, M, Kx, K, (__nv_bfloat16*)xb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int Kc = (Kx + 31) / 32 * 32;
+  err = (cudaError_t)launch_bf16<kSplit>(xb, M, K, Kc, qs, scales, nullptr,
+                                         N, splits, k_steps, blocks, partial,
+                                         counters, (float*)y, n_out, s);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_out + kFoldN - 1) / kFoldN, (M + kFoldM - 1) / kFoldM);
+  fold_kernel<<<grid, kFoldThreads, 0, s>>>(
+      (const float*)bsum, (const float*)scales, M, N, Kc / 32, n_out,
+      (float*)y);
+  return (int)cudaGetLastError();
 }

@@ -25,7 +25,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("q4_decode", "quant_rows", "q4_int8", "q4_prefill",
            "decode_attention", "paged_attention", "kv_write",
-           "flash_prefill")
+           "flash_prefill", "paged_flash")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,6 +45,8 @@ ARGTYPES = {
     "q4_int8_gemm_norm": [P, P, I, I, P, P, I, P, P, P, I, I, P],
     "q4_prefill_gemm": [P, I, I, P, P, P, I, I, P, I, I, I, P, P, P, I, I,
                         P],
+    "q4_prefill_split_gemm": [P, I, I, P, P, I, I, P, P, I, I, I, P, P, P,
+                              I, P],
     "decode_attention_fused": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P,
                                P, P, P],
     "decode_attention": [P, P, P, P, I, I, I, I, I, I, F, I, P, P, P, P],
@@ -57,6 +59,7 @@ ARGTYPES = {
     "paged_kv_write": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "paged_kv_write_rows": [P, P, P, P, P, I, I, I, I, I, P],
     "slab_write_rows": [P, P, P, I, I, I, I, L, L, P],
+    "paged_attention_tpu": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, P],
     "flash_prefill": [P, P, P, L, L, L, L, L, L, L, L, L, I, I, I, I, I, I,
                       I, F, P, P, P, P],
 }
@@ -67,6 +70,7 @@ LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
           "quant_rows_int8": "quant_rows", "q4_int8_gemm": "q4_int8",
           "q4_int8_gemm_norm": "q4_int8",
           "q4_prefill_gemm": "q4_prefill",
+          "q4_prefill_split_gemm": "q4_prefill",
           "decode_attention_fused": "decode_attention",
           "decode_attention": "decode_attention",
           "paged_decode_attention": "paged_attention",
@@ -74,7 +78,8 @@ LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
           "paged_decode_step_fused": "paged_attention",
           "paged_kv_write": "kv_write", "paged_kv_write_rows": "kv_write",
           "slab_write_rows": "kv_write",
-          "flash_prefill": "flash_prefill"}
+          "flash_prefill": "flash_prefill",
+          "paged_attention_tpu": "paged_flash"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None   # wall time of the last build() call

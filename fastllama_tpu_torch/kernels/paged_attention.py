@@ -35,6 +35,12 @@ layer without q/k/v LoRA terms; B7 and B6 stay the LoRA step's.
 
 The CUDA kernels are in csrc/paged_attention.cu; each wrapper launches its
 kernel for CUDA tensors and runs its plain version for CPU tensors.
+
+paged_attn_group and paged_attn_supported are the JAX package's gate
+between its own kernel and the library kernel (B21,
+engine/paged_kv.paged_attention_tpu), which its engine takes on the pools
+the gate refuses; the port's engine makes the same choice from the same
+shapes (engine/scheduler.paged_attn_route).
 """
 from __future__ import annotations
 
@@ -101,6 +107,44 @@ def _check_args(q, k_pages, v_pages, lengths, page_indices, flat: bool):
              and page_indices.dtype == torch.int32,
              "page_indices must be int32 [B, pages_per_seq]")
     return tuple(k_pages.shape[:2] if flat else k_pages.shape[1:3])
+
+
+# The JAX kernel's VMEM budget for its K+V windows, and the library kernel's
+# budget for one compute block, with the JAX values (fastllama_tpu/kernels/
+# paged_attention.py:_VMEM_BUDGET; fastllama_tpu/engine/scheduler.py, the
+# ppcb cap): TPU memory sizes, kept because they decide which function the
+# engine computes on a pool.
+_VMEM_BUDGET = 12 << 20
+_PPCB_BUDGET = 1 << 21
+
+
+def paged_attn_group(h: int, pp: int, ps: int, d: int, itemsize: int,
+                     banks: int = 1):
+    """Heads per grid cell of the JAX kernel: the largest divisor of h
+    whose K+V windows (banks x [g, pp*ps, d] each) fit the budget; None
+    when even g = 1 does not (the JAX engine then takes the library
+    kernel)."""
+    per_head = banks * 2 * pp * ps * d * itemsize
+    for g in range(h, 0, -1):
+        if h % g == 0 and per_head * g <= _VMEM_BUDGET:
+            return g
+    return None
+
+
+def paged_attn_supported(h: int, pp: int, ps: int, d: int,
+                         itemsize: int = 2) -> bool:
+    """The JAX kernel's gate: a head dim of whole 128-lane tiles, pages of
+    whole 8-row groups, and a head group that fits. At Dh 128 it fails past
+    24,576 rows a sequence for bf16 pools and 12,288 for f32."""
+    return (d % 128 == 0 and ps % 8 == 0
+            and paged_attn_group(h, pp, ps, d, itemsize) is not None)
+
+
+def library_ppcb(pp: int, ps: int, d: int) -> int:
+    """The JAX engine's pages_per_compute_block for the library kernel:
+    whole sequences, capped so a compute block's double-buffered K+V
+    (4 * ppcb * ps * d bytes) stays near 2 MB."""
+    return min(pp, max(1, _PPCB_BUDGET // (4 * ps * d)))
 
 
 # B6's and B11's split (see csrc/paged_attention.cu): chunks of at least

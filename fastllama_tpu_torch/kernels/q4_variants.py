@@ -30,7 +30,13 @@ Prefill bodies, x f32 [M, K]:
                    q4_matmul_prefill_int8); natp is bit-equal to nat
   int8 natx, split B19 q4_prefill_int8_natx (bit-equal to each other)
   bf16 nat         B5 (q4_matmul.q4_matmul_prefill)
-  bf16 split       _q4mm_prefill_kernel: not ported yet (ROADMAP, B20)
+  bf16 split       B20 q4_prefill_split: R(x) @ R(q d) - 8 bsum(x) @ d,
+                   v1's function at M <= 512 (decode_plain's v1 is its
+                   plain version); B5's kernel in its split mode and a
+                   fold kernel (csrc/q4_prefill.cu). In f32
+                   mode the split body is x @ ((q - 8) d) in exact
+                   arithmetic, so it runs B5's f32 kernel (as the decode
+                   variants run B1's)
 
 Each wrapper launches its kernel for a CUDA tensor and raises on anything it
 does not take; for a CPU tensor it runs its plain version, which the tests
@@ -322,19 +328,83 @@ def q4_matmul_prefill_int8(x: torch.Tensor, qs: torch.Tensor,
     return qm.q4_matmul_prefill_int8(xq, dx, w)
 
 
+def q4_prefill_split_plain(x: torch.Tensor, qs: torch.Tensor,
+                           scales: torch.Tensor,
+                           w_dtype=torch.bfloat16) -> torch.Tensor:
+    """B20's function at any M: v1's (decode_plain); in f32 mode B5's f32
+    function, x @ ((q - 8) d)."""
+    return decode_plain(x, qs, scales, "v1", w_dtype)
+
+
+def q4_prefill_split(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
+                     w_dtype=torch.bfloat16,
+                     n_out: int | None = None) -> torch.Tensor:
+    """Kernel B20 (the prefill split body, _q4mm_prefill_kernel): x f32
+    [1 <= M <= 512, K], qs uint8 [K/2, N], scales f32 [K/32, N] -> f32
+    [M, n_out or N] = R(x) @ R(q d) - 8 bsum(x) @ d. bf16 mode: bsum by
+    PyTorch ops (as the JAX host side makes it), then B5's kernel in its
+    split mode (the weight R(q d)) and an f32 kernel that adds the fold
+    once an output, after the product's K splits are summed; counted here.
+    f32 mode: B5's f32 kernel, counted in
+    q4_matmul.q4_matmul_prefill.launches. M > 512 raises, as the JAX
+    body's assert does."""
+    _check_planes(x, qs, scales)
+    qm._require(scales.dtype == torch.float32, "scales must be f32")
+    qm._require(w_dtype in (torch.bfloat16, torch.float32),
+                "w_dtype must be bfloat16 or float32")
+    m, kx = x.shape
+    k, n = 2 * qs.shape[0], qs.shape[1]
+    n_out = n_out or n
+    qm._require(1 <= m <= PREFILL_CHUNK_M,
+                f"the split body takes 1 <= M <= {PREFILL_CHUNK_M} rows")
+    if x.device.type == "cpu":
+        return q4_prefill_split_plain(x, qs, scales, w_dtype)[:, :n_out]
+    w = QuantMatmulWeight(qs=qs, scales=scales, n_logical=n_out)
+    if w_dtype == torch.float32:
+        return qm.q4_matmul_prefill(x, w, w_dtype)
+    qm._require(x.device.type == "cuda" and x.is_contiguous()
+                and x.data_ptr() % 16 == 0,
+                "x must be a contiguous, 16-byte aligned CUDA tensor")
+    qm._check_weight(w, x.device)
+    qm._require(kx % 4 == 0 and k % 32 == 0 and n % 16 == 0
+                and qs.data_ptr() % 16 == 0 and scales.data_ptr() % 16 == 0,
+                "x's K must be a multiple of 4, stored N of 16 and the "
+                "weight planes 16-byte aligned")
+    dev = x.device
+    bsum = _block_sums(qm._pad_k(x, k)).t().contiguous()     # [K/32, M]
+    sms = cuda_lib.sm_count(dev)
+    splits, k_steps = qm.b5_plan(m, n, -(-kx // 32) * 32, sms)
+    tiles = -(-m // qm.B5_BM) * -(-n // qm.B5_BN)
+    xb = cuda_lib.scratch(dev, "q4_prefill.xb", m * k, torch.bfloat16)
+    partial = cuda_lib.scratch(
+        dev, "q4_prefill.partial",
+        tiles * splits * qm.B5_BM * qm.B5_BN if splits > 1 else 1,
+        torch.float32)
+    counters = cuda_lib.tile_counters(dev, tiles)
+    y = torch.empty((m, n_out), dtype=torch.float32, device=dev)
+    rc = cuda_lib.fn("q4_prefill_split_gemm")(
+        x.data_ptr(), m, kx, qs.data_ptr(), scales.data_ptr(), n, k,
+        bsum.data_ptr(), xb.data_ptr(), splits, k_steps,
+        min(tiles * splits, sms), partial.data_ptr(), counters.data_ptr(),
+        y.data_ptr(), n_out, cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, "q4_prefill_split_gemm")
+    q4_prefill_split.launches += 1
+    return y
+
+
+cuda_lib.counted(q4_prefill_split)
+
+
 def q4_matmul_prefill_pallas(x: torch.Tensor, qs: torch.Tensor,
                              scales: torch.Tensor, *,
                              w_dtype=torch.bfloat16,
                              variant: str = "nat") -> torch.Tensor:
     """The port of q4_matmul_prefill_pallas(x, qs, scales, w_dtype=,
-    variant=): nat runs B5. The split body (_q4mm_prefill_kernel, v1's fold
-    at prefill M) is not ported yet (ROADMAP, B20) and raises."""
+    variant=): nat runs B5, split B20 (B5's f32 kernel in f32 mode)."""
+    qm._require(variant in ("nat", "split"), f"prefill variant {variant!r}: "
+                "the JAX package has nat and split")
     if variant == "split":
-        raise NotImplementedError(
-            "the prefill split body (_q4mm_prefill_kernel) is not ported "
-            "yet: ROADMAP.md, queue B, B20")
-    qm._require(variant == "nat", f"prefill variant {variant!r}: the JAX "
-                "package has nat and split")
+        return q4_prefill_split(x, qs, scales, w_dtype)
     _check_planes(x, qs, scales)
     return qm.q4_matmul_prefill(x, QuantMatmulWeight(qs=qs, scales=scales),
                                 w_dtype)

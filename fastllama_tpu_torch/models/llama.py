@@ -612,7 +612,8 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
                          v_pages: list[torch.Tensor],
                          page_ids: torch.Tensor, offsets: torch.Tensor,
                          cfg: ForwardConfig,
-                         tables: PositionTables | None = None):
+                         tables: PositionTables | None = None,
+                         paged_attn=None):
     """One decode step over a paged KV cache (engine/paged_kv.py).
 
     Args:
@@ -621,11 +622,16 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
         k_pages/v_pages: per layer [H, P, ps, Dh], updated in place;
         page_ids/offsets: int32 [B] physical write location of the new token
         (from PagedKVManager; the sentinel id for an inactive slot).
-    A layer without q/k/v LoRA terms runs the fused step (RoPE, the new
-    row's write and the attention over lengths + 1 keys in one kernel,
-    paged_decode_step_fused); a layer with them adds the terms to q, k and
-    v first, then writes the row with kernel B7 and attends with kernel B6
-    (plain versions for CPU tensors).
+      paged_attn: the JAX argument, an attention f(q, kp, vp, lengths,
+        tables) -> f32 [B, H, D] (the engine passes paged_attention_tpu,
+        B21, on the pools the JAX engine gives the library kernel). With
+        one, every layer takes RoPE, B7's write of the new row and
+        paged_attn over lengths + 1 keys.
+    Without one, a layer without q/k/v LoRA terms runs the fused step (RoPE,
+    the new row's write and the attention over lengths + 1 keys in one
+    kernel, paged_decode_step_fused); a layer with them adds the terms to
+    q, k and v first, then writes the row with kernel B7 and attends with
+    kernel B6 (plain versions for CPU tensors).
     Returns (logits [B, 1, V] f32, k_pages, v_pages).
     """
     b = tokens.shape[0]
@@ -637,7 +643,7 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
 
     for layer, kp, vp in zip(params.layers, k_pages, v_pages):
         attn_in = rms_norm(x, layer.attention_norm, cfg.rms_eps)
-        if _no_qkv_lora(layer):
+        if paged_attn is None and _no_qkv_lora(layer):
             qkv = apply_linear(attn_in, layer.wqkv, cfg)
             ctx = paged_decode_step_fused(
                 qkv.reshape(b, -1).to(torch.float32), kp, vp, lengths,
@@ -646,7 +652,8 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
             q, k, v = _roped_qkv(attn_in, layer, cfg, rope_bt)
             paged_kv_write(kp, vp, k[:, 0].contiguous(),
                            v[:, 0].contiguous(), page_ids, offsets)
-            ctx = paged_decode_attention(q[:, 0], kp, vp, attend, page_tables)
+            ctx = (paged_attn or paged_decode_attention)(
+                q[:, 0], kp, vp, attend, page_tables)
         x = x + _project_out(ctx, layer, cfg, b, 1)
         x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
 

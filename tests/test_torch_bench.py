@@ -239,6 +239,6 @@ def test_chip_smoke_reads_a_scripts_launches():
         "tools_torch/bench_q4_floor.py", ["256", "128", "1", "floor",
                                           "--device", "cpu"], str(ROOT))
     assert rc == 0 and '"bench_q4_floor"' in out
-    assert set(n) == {f"B{i}" for i in range(1, 20)} | {"PS", "RW",
+    assert set(n) == {f"B{i}" for i in range(1, 22)} | {"PS", "RW",
                                                          "dequant"}
     assert not any(n.values())

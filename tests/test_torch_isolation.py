@@ -34,6 +34,7 @@ def test_package_imports_no_jax():
     for mod in ("engine.scheduler", "engine.paged_kv", "engine.sampling",
                 "kernels.paged_attention", "kernels.kv_write",
                 "kernels.flash_prefill", "kernels.q4_floor",
+                "kernels.q4_variants", "kernels.cuda_lib", "version",
                 "models.synthetic", "native",
                 "quant.native", "io.convert", "utils.trace", "parallel",
                 "parallel.sharding", "parallel.ring", "parallel.multihost",
@@ -41,6 +42,16 @@ def test_package_imports_no_jax():
         assert f"fastllama_tpu_torch.{mod}" in res["mods"]
     leaked = [m for m in res["loaded"] if _forbidden(m)]
     assert leaked == []
+
+
+def test_version_is_the_jax_packages():
+    """The port carries the JAX package's version (fastllama_tpu/version.py,
+    pyproject.toml) in a version module of its own."""
+    import fastllama_tpu
+    import fastllama_tpu_torch
+    from fastllama_tpu_torch import version
+    assert fastllama_tpu_torch.__version__ == version.__version__
+    assert fastllama_tpu_torch.__version__ == fastllama_tpu.__version__
 
 
 def _imports(path: Path) -> list[str]:

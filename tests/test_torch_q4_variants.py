@@ -1,8 +1,9 @@
-"""PyTorch port: the q4 matmul variants (kernels/q4_variants.py: B15-B19,
-the JAX package's q4_matmul_pallas / q4_matmul_prefill_int8 bodies) against
-those bodies in Pallas interpret mode, and the kernel switches (use_pallas,
-FASTLLAMA_PREFILL_INT8, FASTLLAMA_PREFILL_KERNEL) against the JAX
-dispatch."""
+"""PyTorch port: the q4 matmul variants (kernels/q4_variants.py: B15-B20,
+the JAX package's q4_matmul_pallas / q4_matmul_prefill_int8 /
+q4_matmul_prefill_pallas bodies) against those bodies in Pallas interpret
+mode, the default decode function (C1) against the JAX v1 body, and the
+kernel switches (use_pallas, FASTLLAMA_PREFILL_INT8,
+FASTLLAMA_PREFILL_KERNEL) against the JAX dispatch."""
 import numpy as np
 import pytest
 import torch
@@ -180,14 +181,95 @@ def test_variant_wrappers_refuse_what_they_do_not_take():
         qv.q4_matmul_pallas(x, qs, sc, variant="v6")
     with pytest.raises(ValueError, match="natq"):
         qv.q4_matmul_prefill_int8(x, qs, sc, variant="natq")
-    with pytest.raises(NotImplementedError, match="B20"):
-        qv.q4_matmul_prefill_pallas(x, qs, sc, variant="split")
+    with pytest.raises(ValueError, match="M <= 512"):
+        qv.q4_matmul_prefill_pallas(torch.zeros((513, K)), qs, sc,
+                                    variant="split")
+    with pytest.raises(ValueError, match="nats"):
+        qv.q4_matmul_prefill_pallas(x, qs, sc, variant="nats")
     with pytest.raises(ValueError, match="M <= 512"):
         qv.q4_prefill_int8_natx(torch.zeros((513, K)), qs, sc)
     np.testing.assert_array_equal(
         qv.q4_matmul_prefill_pallas(x, qs, sc).numpy(),
         tqm.q4_matmul_dequant(x, tt.QuantMatmulWeight(qs=qs, scales=sc))
         .numpy())
+
+
+# -- B20: the bf16 prefill split body ----------------------------------------
+
+def jax_split(x, qs, sc, w_dtype):
+    return np.asarray(jqm.q4_matmul_prefill_pallas(
+        jnp.asarray(x), jnp.asarray(qs), jnp.asarray(sc), interpret=True,
+        variant="split", w_dtype=w_dtype))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 256), (64, 1024, 256),
+                                   (256, 512, 256), (512, 512, 256)])
+@pytest.mark.parametrize("mode", ["bfloat16", "float32"])
+def test_b20_plain_matches_the_jax_split_body(mode, m, k, n):
+    """q4_matmul_prefill_pallas(variant="split") (B20 on the card; its plain
+    version here) against the JAX split body (_q4mm_prefill_kernel) in
+    interpret mode. bf16: v1's fold at prefill M, within 1e-4 absolute on
+    outputs of max |y| about 10-17 (the same roundings, the f32 sums in
+    another order: about 1e-5 measured). f32: the port runs B5's f32
+    function x @ ((q - 8) d), equal to the body in exact arithmetic, held
+    at the JAX test's own tolerance (rtol 1e-5, atol 2e-4)."""
+    qs, sc = planes(k, n, seed=22)
+    x = acts(m, k, seed=23)
+    want = jax_split(x, qs, sc, getattr(jnp, mode))
+    got = qv.q4_matmul_prefill_pallas(
+        torch.from_numpy(x), torch.from_numpy(qs), torch.from_numpy(sc),
+        w_dtype=getattr(torch, mode), variant="split").numpy()
+    assert got.shape == want.shape == (m, n)
+    assert np.abs(want).max() > 5.0
+    if mode == "bfloat16":
+        assert np.abs(got - want).max() <= 1e-4
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("m", [8, 64])
+def test_b20_is_v1s_function_at_decode_m(m):
+    """At M <= 64 the JAX split body is bit-equal to the JAX v1 decode body
+    (interpret mode), and the port's B20 plain version is v1's (B15's plain
+    version) at every M; it differs from nat (B5) by far more than its
+    tolerance."""
+    qs, sc = planes(1024, 256, seed=24)
+    x = acts(m, 1024, seed=25)
+    np.testing.assert_array_equal(jax_split(x, qs, sc, jnp.bfloat16),
+                                  jax_body(x, qs, sc, "v1", jnp.bfloat16))
+    args = (torch.from_numpy(x), torch.from_numpy(qs), torch.from_numpy(sc))
+    split = qv.q4_matmul_prefill_pallas(*args, variant="split")
+    assert torch.equal(split, qv.decode_plain(*args, "v1"))
+    nat = qv.q4_matmul_prefill_pallas(*args)
+    assert (split - nat).abs().max().item() > 100 * 1e-4
+
+
+# -- C1: the default decode function -----------------------------------------
+
+# the port's bf16 tolerance between two roundings of one q4 product (the
+# card-vs-CPU rule of chip_smoke.py phase 5): a share of max |y|
+BF16_TOL = 1e-2
+
+
+@pytest.mark.parametrize("k,n", [(1024, 512), (4096, 256)])
+@pytest.mark.parametrize("m", [1, 8])
+def test_default_decode_is_within_bf16_tolerance_of_the_v1_body(m, k, n):
+    """C1, a knowing departure: q4_matmul's default (use_pallas=None) at
+    decode M runs B1, q4_matmul_xla's function (the JAX package's default
+    on the CPU), where a TPU runs v1's fold. The two round the same exact
+    product in two orders: the default sits within 1e-2 of max |y| of the
+    JAX v1 body in interpret mode (about 5e-3 to 7e-3 measured), and
+    is not v1 itself (use_pallas=True is, B15)."""
+    qs, sc = planes(k, n, seed=26)
+    x = acts(m, k, seed=27)
+    wt = tt.QuantMatmulWeight(qs=torch.from_numpy(qs),
+                              scales=torch.from_numpy(sc))
+    got = tqm.q4_matmul(torch.from_numpy(x), wt).numpy()
+    want = jax_body(x, qs, sc, "v1", jnp.bfloat16)
+    err = np.abs(got - want).max()
+    assert 0 < err <= BF16_TOL * np.abs(want).max()
+    np.testing.assert_array_equal(
+        got, tqm.q4_matmul_dequant(torch.from_numpy(x), wt).numpy())
 
 
 # -- the kernel switches -----------------------------------------------------
@@ -426,6 +508,34 @@ def test_b19_kernel_bit_exact(cuda_device, m):
     got = qv.q4_prefill_int8_natx(x, qd, sd)
     assert qv.q4_prefill_int8_natx.launches == before + 1
     assert torch.equal(got, qv.q4_prefill_int8_natx_plain(x, qd, sd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 64, 256, 512])
+@pytest.mark.parametrize("k", [1024, 11008])
+def test_b20_kernel_matches_plain(cuda_device, m, k):
+    """B20 on the card (B5's kernel in its split mode) against its plain
+    version at 1e-4 of max |y| in bf16 (K 11008 at M 1 and 64 runs a plan
+    with K splits: the fold is added once), and in f32 mode (B5's f32
+    kernel, counted as B5) at 1e-5; bit-equal twice, each launch
+    counted."""
+    qs, sc = planes(k, 512, seed=28)
+    x = torch.from_numpy(acts(m, k, seed=29)).to(cuda_device)
+    qd, sd = (torch.from_numpy(a).to(cuda_device) for a in (qs, sc))
+    before = (qv.q4_prefill_split.launches, tqm.q4_matmul_prefill.launches)
+    got = qv.q4_matmul_prefill_pallas(x, qd, sd, variant="split")
+    assert (qv.q4_prefill_split.launches,
+            tqm.q4_matmul_prefill.launches) == (before[0] + 1, before[1])
+    want = qv.q4_prefill_split_plain(x, qd, sd)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert torch.equal(got, qv.q4_matmul_prefill_pallas(x, qd, sd,
+                                                        variant="split"))
+    got32 = qv.q4_matmul_prefill_pallas(x, qd, sd, variant="split",
+                                        w_dtype=torch.float32)
+    assert tqm.q4_matmul_prefill.launches == before[1] + 1
+    want32 = qv.q4_prefill_split_plain(x, qd, sd, torch.float32)
+    assert (got32 - want32).abs().max().item() <= (
+        1e-5 * want32.abs().max().item())
 
 
 @pytest.mark.cuda

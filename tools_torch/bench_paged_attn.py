@@ -10,16 +10,19 @@ At 7B heads (32 of 128) with pages of 64 rows and bf16 pools [H, P, 64,
   own    B6, kernels/paged_attention.paged_decode_attention;
   fused  the engine's fused paged step (RoPE, B7's write and B6 in one
          kernel, paged_decode_step_fused) at the same lengths;
-  plan   the library section of the JAX tool timed the library Pallas
-         paged_attention_tpu under its pages_per_compute_block choices; its
-         place here is B6 under each chunk size its kernel takes (32 to
-         256 rows a block, as tools_torch/paged_chunk_sweep.py; b6_plan's
-         choice marked);
+  paged  the library section of the JAX tool: paged_attention_tpu (B21,
+         engine/paged_kv.py, the library kernel's function) with a bf16 q,
+         as the JAX tool passes it, at pages_per_compute_block 1, 2, 4 and
+         pages_per_seq;
+  plan   B6 under each chunk size its kernel takes (32 to 256 rows a
+         block, as tools_torch/paged_chunk_sweep.py; b6_plan's choice
+         marked);
   slab   B10 (decode_attention) over slab caches [B, S, H*D] at n_past =
          the same depths, and B4 (decode_attention_fused, the slab
          engine's step: RoPE, the row's write and attention) beside it.
 Each kernel is first held against its plain version (2^-7 of the largest
-output for bf16 pools; 5e-5 for B10's f32 scores). Times: --reps calls in a
+output for bf16 pools; 5e-5 for B10's f32 scores; 1e-5 for B21, whose
+probabilities stay f32). Times: --reps calls in a
 CUDA graph replayed between CUDA events, pools and caches cycled past the
 50 MB L2; GB/s of the live K/V bytes. On --device cpu the plain versions
 run on the host clock.
@@ -64,6 +67,7 @@ def check(name, got, ref, rel):
 def main(argv=None) -> int:
     args = parse_args(argv)
     dev = open_device(args.device, "bench_paged_attn")
+    from fastllama_tpu_torch.engine import paged_kv as pk
     from fastllama_tpu_torch.kernels import decode_attention as da
     from fastllama_tpu_torch.kernels import paged_attention as pa
     from fastllama_tpu_torch.kernels.rope import lane_tables
@@ -122,6 +126,21 @@ def main(argv=None) -> int:
                 lambda: pa.paged_decode_step_fused(
                     qkv, *cycled(pools), lengths, tables, pids, offs, cos,
                     sin), args.reps, dev), live)
+
+        qb = q.to(torch.bfloat16)
+        for length in (s - PS, 64):
+            lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
+            for ppcb in sorted({1, 2, 4, pps}):
+                check(f"B21 len={length} ppcb={ppcb}",
+                      pk.paged_attention_tpu(qb, *pools[0], lengths, tables,
+                                             pages_per_compute_block=ppcb),
+                      pk.paged_attention_tpu_plain(qb, *pools[0], lengths,
+                                                   tables), 1e-5)
+                report(f"paged ppcb={ppcb}", length, time_calls(
+                    lambda: pk.paged_attention_tpu(
+                        qb, *cycled(pools), lengths, tables,
+                        pages_per_compute_block=ppcb), args.reps, dev),
+                    kv_bytes * length / s)
 
         if on_card:
             planned = pa.b6_plan(pps, PS, D, 2)[1]
