@@ -238,17 +238,25 @@ Phases (any failure exits nonzero before the last line):
      and f32 (B5's f32 kernel, 1e-5), one plan splitting K, timed beside
      B5 (nat), B15 at M <= 64 and torch.mm of the dequantized weight, and
      the entry point's counted run; B21 (engine/paged_kv.
-     paged_attention_tpu, the library paged attention's function) against
-     its plain version at 32 and 40 heads, bf16 and f32 pools, ragged
-     lengths 1, 63, 64, 65, 300, 32767, 0 and 4097 over a shuffled table
-     with NaN in every page no sequence reaches, compute blocks of 1, 2,
-     4, 64 and 512 pages, timed beside B6 at 8 x 300 and alone at the long
-     engine's tables; the 7B paged engine at n_ctx 32768 (pages of 64,
-     128 of them): phase 6's twelve requests greedy with exact launches
-     (B21 and B7 32 a decode step, the fused step none), every step's
-     logits on the step graph bit-equal to eager, the first step's logits
-     within 1e-2 of the largest logit of phase 6's n_ctx 512 engine (the
-     fused step), run() wall time and the steady window of both engines;
+     paged_attention_tpu, the library paged attention's function, split
+     over the sequence with pages staged by bulk copies) against its plain
+     version at 32 and 40 heads, bf16 and f32 pools, ragged lengths 1, 63,
+     64, 65, 300, 32767, 0 and 4097 over a shuffled table and at B = 1 x
+     32767, with NaN in every page no sequence reaches and in the tails of
+     partly filled pages, compute blocks of 1, 2, 4, 64 and 512 pages,
+     timed beside B6 at 8 x 300 and alone at 8 x 300, 8 x 4096 and 1 x
+     32767 on the long engine's tables; the fused B21 step (B21F: RoPE,
+     B7's write and the pre-scale folded into B21) against its plain
+     version at the same lengths and an inactive slot, pools bit-equal,
+     timed beside B7 + B21; the 7B paged engine at n_ctx 32768 (pages of
+     64, 128 of them): phase 6's twelve requests greedy with exact
+     launches (B21F 32 a decode step; B7, B21 and the fused step none),
+     every step's logits on the step graph bit-equal to eager, the streams
+     equal to phase 6's n_ctx 512 engine's (the fused step), run() wall
+     time and the steady window of both engines; a 2-layer n_ctx 32768
+     engine with q/k/v LoRA terms (B7 and B21 2 a step);
+     and the n_ctx 32768 engine's steady window with 8 sequences at about
+     4096 resident rows (528 pages, 17.7 GB of pools);
   then the whole script's seconds, one line {"kernels": [...]}, the
   nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -2656,7 +2664,8 @@ BENCH_STEPS = 1 + 5 + 64 + 3 * 64 + 8 + 2 * 5
 BENCH_WINDOWS = 2 * (1 + 5)
 # the kernels a bench_torch run never reaches
 OFF_BENCH_PATH = ("B6", "B7", "B8", "B9", "B10", "B11", "PS", "B13", "B14",
-                  "RW", "B15", "B16", "B17", "B18", "B19", "B20", "B21")
+                  "RW", "B15", "B16", "B17", "B18", "B19", "B20", "B21",
+                  "B21F")
 # each tool of tools_torch/ at a small depth, run as a subprocess on the
 # card: (script, arguments, the kernels it must launch)
 BENCH_TOOLS = [
@@ -2689,8 +2698,8 @@ runpy.run_path(sys.argv[0], run_name="__main__")
 
 
 def counts_now() -> dict:
-    """Every kernel wrapper's launches by its table name (B1-B21, PS, RW)
-    and the dequant path's calls on the card ("dequant")."""
+    """Every kernel wrapper's launches by its table name (B1-B21, PS, RW,
+    B21F) and the dequant path's calls on the card ("dequant")."""
     from fastllama_tpu_torch.kernels import q4_matmul as qm
     out = {k: fn.launches for k, fn in every_kernel().items()}
     out.update(dequant=qm.q4_matmul_dequant.cuda_calls)
@@ -3031,14 +3040,23 @@ def engine_run(torch, sched, make, label, n_layer, chunked, f32=False,
     return streams, row
 
 
-def engine_steady(torch, sched, make, profile_steps=8, timed_steps=30):
+def engine_steady(torch, sched, make, profile_steps=8, timed_steps=30,
+                  prompt_chars=98, counted=None):
     """Eight slots decoding at once, no admission in the window: the host
     clock per engine step (ending in a synchronize) and, from a
-    torch.profiler trace of a few more steps, the device time per step."""
+    torch.profiler trace of a few more steps, the device time per step.
+    Prompts of prompt_chars + 2 tokens. counted = (key, kernel name): that
+    wrapper's launches a step in the profiled steps beside the profile's
+    calls of the kernel, and the kernel's time and share of the device
+    time. The profiler loses launches late in a long process: a trace
+    whose calls of the kernel fall short of the count is taken again (up
+    to three traces), and if the last still falls short the kernel's time
+    is its time a launch times the counted launches (kernel_ms_source
+    says which)."""
     from torch.profiler import ProfilerActivity, profile
     eng = make()
-    reqs = [sched.Request(prompt=prompt_of(98, seed=200 + i), max_tokens=300,
-                          temp=0.8) for i in range(ENG_SLOTS)]
+    reqs = [sched.Request(prompt=prompt_of(prompt_chars, seed=200 + i),
+                          max_tokens=300, temp=0.8) for i in range(ENG_SLOTS)]
     for r in reqs:
         eng.submit(r)
     while sum(s.live for s in eng.slots) < ENG_SLOTS:
@@ -3057,7 +3075,10 @@ def engine_steady(torch, sched, make, profile_steps=8, timed_steps=30):
     out = dict(ms_per_step=ms_step, tok_s=ENG_SLOTS / ms_step * 1e3)
     if before is not None:
         out["replays_per_step"] = (replays() - before) / timed_steps
-    if profile_steps:
+    for attempt in range(3 if profile_steps else 0):
+        if counted:
+            wrapper = every_kernel()[counted[0]]
+            before = wrapper.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(profile_steps):
@@ -3071,6 +3092,31 @@ def engine_steady(torch, sched, make, profile_steps=8, timed_steps=30):
                 launches_per_step=launches,
                 kernels=[{"name": k, "ms_per_step": ms, "calls_per_step": n}
                          for k, ms, n in top])
+        if not counted:
+            break
+        mine = [k for k in out.get("kernels", ()) if counted[1] in k["name"]]
+        n_counted = (wrapper.launches - before) / profile_steps
+        n_profiled = sum(k["calls_per_step"] for k in mine)
+        out.update(counted_per_step=n_counted, profiled_per_step=n_profiled,
+                   profile_attempts=attempt + 1)
+        if n_profiled == n_counted or dev_ms <= 0:
+            break
+    if counted and profile_steps and dev_ms > 0 and n_profiled > 0:
+        # a trace that lost launches of the counted kernel is retaken; if
+        # the last one still lacks some, its time a launch is scaled to
+        # the counted launches, and the device total takes the difference
+        kernel_ms = sum(k["ms_per_step"] for k in mine)
+        if n_profiled == n_counted:
+            out["kernel_ms_source"] = "profile"
+        else:
+            scaled = kernel_ms / n_profiled * n_counted
+            out["device_ms_per_step"] = dev_ms = dev_ms + scaled - kernel_ms
+            out["device_idle_share"] = 1.0 - dev_ms / ms_step
+            kernel_ms = scaled
+            out["kernel_ms_source"] = ("profile's ms a launch x counted "
+                                       "launches")
+        out["kernel_ms_per_step"] = kernel_ms
+        out["kernel_share"] = kernel_ms / dev_ms
     require(all(s.live for s in eng.slots),
             "steady engine: a slot stopped inside the measured window")
     return out
@@ -4359,13 +4405,15 @@ def variant_kernels():
 
 
 def every_kernel():
-    """Every counted wrapper by its table name: B1-B21, PS and RW."""
+    """Every counted wrapper by its table name: B1-B21, PS, RW and B21F
+    (the fused B21 step)."""
     from fastllama_tpu_torch.engine import paged_kv as pk
     from fastllama_tpu_torch.kernels import q4_floor as qf
     from fastllama_tpu_torch.kernels import q4_variants as qv
     return dict(all_kernels(), B13=qf.q4_floor, B14=qf.q4_nosc,
                 **variant_kernels(), B20=qv.q4_prefill_split,
-                B21=pk.paged_attention_tpu)
+                B21=pk.paged_attention_tpu,
+                B21F=pk.paged_attention_tpu_fused)
 
 
 def reset_every_count():
@@ -4642,6 +4690,12 @@ B21_LENGTHS = (1, ENG_PS - 1, ENG_PS, ENG_PS + 1, 300, LONG_CTX - 1, 0,
                4097)
 B21_PPCBS = (1, 2, 4, 64, LONG_CTX // ENG_PS)
 B21_LIBRARY = "none: no call attends through page tables (as for B6)"
+# B21's timed shapes on the long engine's tables: (label, sequences, rows)
+B21_TIMED = (("8x300", ENG_SLOTS, 300), ("8x4096", ENG_SLOTS, 4096),
+             ("1x32767", 1, LONG_CTX - 1))
+# the long engine's deep window: eight prompts of LONG_DEEP_ROWS tokens
+# (a prefill bucket of their size) in a pool of LONG_DEEP_PAGES pages
+LONG_DEEP_ROWS, LONG_DEEP_PAGES = 4096, 528
 
 
 def check_b20(torch, dev, gen, results):
@@ -4745,14 +4799,24 @@ def check_b20(torch, dev, gen, results):
     del ws, xs
 
 
-def b21_case(torch, dev, gen, h, dt, lens, pp, extra=16):
+def time_settled(fn, calls):
+    """time_ms of fn, the smaller of two timings in a row: on the H100 the
+    first kernel timed after a plain reference's multi-GB gathers read up
+    to 16% slow, and the next one not (tools_torch/b21_sweep.py's first
+    variant a case)."""
+    return min(time_ms(fn, calls=calls), time_ms(fn, calls=calls))
+
+
+def b21_case(torch, dev, gen, h, dt, lens, pp, extra=16, new_row=0):
     """Pools [h, P, 64, 128] of `dt` for sequences of lengths `lens` over pp
-    pages each: each sequence's live pages from one shuffle, its other
-    table entries any page (never read); NaN in every page no sequence
-    reaches (the kernel's copies) and the clean pools (the plain
-    version's). Returns (q, clean pools, NaN pools, lengths, tables)."""
+    pages each: each sequence's live pages (holding its rows, and the
+    new_row rows past them) from one shuffle, its other table entries any
+    page (never read); NaN in every page no sequence reaches and in the
+    rows past each length in its last page (the kernel's copies), and the
+    clean pools (the plain version's). Returns (q, clean pools, NaN pools,
+    lengths, tables)."""
     ps, d = ENG_PS, 128
-    need = [min(-(-n // ps), pp) for n in lens]
+    need = [min(-(-(n + new_row) // ps), pp) for n in lens]
     n_pages = sum(need) + extra
     perm = torch.randperm(n_pages, generator=gen, device=dev).tolist()
     tables, at = [], 0
@@ -4768,6 +4832,10 @@ def b21_case(torch, dev, gen, h, dt, lens, pp, extra=16):
     kq, vq = kp.clone(), vp.clone()
     kq[:, ~used] = float("nan")
     vq[:, ~used] = float("nan")
+    for n, row in zip(lens, tables):
+        if n % ps and n < pp * ps:
+            kq[:, row[n // ps], n % ps:] = float("nan")
+            vq[:, row[n // ps], n % ps:] = float("nan")
     q = torch.randn((len(lens), h, d), generator=gen, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     return (q, (kp, vp), (kq, vq), torch.tensor(list(lens), **i32),
@@ -4779,81 +4847,87 @@ def check_b21(torch, dev, gen, results):
     attention's function) against its plain version on bf16 and f32 pools
     at 32 heads (40 on bf16 pools at the engine's block), Dh 128, pages of
     64 rows, pp 512 (the long-context engine's tables): eight sequences of
-    lengths B21_LENGTHS over a shuffled table, NaN in every page no
-    sequence reaches, compute blocks of B21_PPCBS pages; within 1e-5 of the
-    largest output (f32 throughout, sums in another order), a sequence of
-    length 0 zeros, run twice and bit-equal. A bf16 q as the JAX tool
-    passes it. Timed at 8 x 300 on pp 8 pools beside B6 on the same pools
-    (the engine's block there: 8 pages), and at 8 x 300 and 8 x 4096 on
-    pp 512 (64-page blocks), each beside its bound (the live K and V bytes
-    over 3.35 TB/s)."""
+    lengths B21_LENGTHS over a shuffled table, and one of 32,767 rows (B =
+    1, its pages split over many blocks), NaN in every page no sequence
+    reaches and past each length in its last page, compute blocks of
+    B21_PPCBS pages; within 1e-5 of the largest output (f32 throughout,
+    sums in another order), a sequence of length 0 zeros, run twice and
+    bit-equal. A bf16 q as the JAX tool passes it. Timed at 8 x 300 on pp
+    8 pools beside B6 on the same pools (the engine's block there: 8
+    pages), and at B21_TIMED on pp 512 (64-page blocks), each beside its
+    bound (the live K and V bytes over 3.35 TB/s); time_settled."""
     from fastllama_tpu_torch.engine import paged_kv as pk
     from fastllama_tpu_torch.kernels import paged_attention as pa
     pp = LONG_CTX // ENG_PS
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
-    # (heads, pool type, q types, compute blocks): a bf16 q once, on bf16
-    # pools; 40 heads at the engine's block
-    for h, dt, qdts, ppcbs in ((32, bf16, (f32, bf16), B21_PPCBS),
-                               (32, f32, (f32,), B21_PPCBS),
-                               (40, bf16, (f32,),
-                                (pa.library_ppcb(pp, ENG_PS, 128),))):
+    # (heads, pool type, lengths, q types, compute blocks): a bf16 q once,
+    # on bf16 pools; 40 heads at the engine's block; one long sequence
+    for h, dt, lens, qdts, ppcbs in (
+            (32, bf16, B21_LENGTHS, (f32, bf16), B21_PPCBS),
+            (32, f32, B21_LENGTHS, (f32,), B21_PPCBS),
+            (40, bf16, B21_LENGTHS, (f32,),
+             (pa.library_ppcb(pp, ENG_PS, 128),)),
+            (32, bf16, (LONG_CTX - 1,), (f32,), B21_PPCBS)):
         name = f"H={h} {'bf16' if dt == bf16 else 'f32'}"
-        q, clean, nan, lens, tables = b21_case(torch, dev, gen, h, dt,
-                                               B21_LENGTHS, pp)
+        q, clean, nan, lens_t, tables = b21_case(torch, dev, gen, h, dt,
+                                                 lens, pp)
         for qdt in qdts:
             qq = q.to(qdt)
-            ref = pk.paged_attention_tpu_plain(qq, *clean, lens, tables)
+            ref = pk.paged_attention_tpu_plain(qq, *clean, lens_t, tables)
             tol = 1e-5 * ref.abs().max().item() + 1e-6
             for ppcb in ppcbs:
-                label = (f"B21 {name} q {'bf16' if qdt == bf16 else 'f32'}"
-                         f" ppcb={ppcb}")
-                out = pk.paged_attention_tpu(qq, *nan, lens, tables,
+                label = (f"B21 {name} B={len(lens)} "
+                         f"q {'bf16' if qdt == bf16 else 'f32'} ppcb={ppcb}")
+                out = pk.paged_attention_tpu(qq, *nan, lens_t, tables,
                                              pages_per_compute_block=ppcb)
                 torch.cuda.synchronize()
                 require(bool(torch.isfinite(out).all()),
                         f"{label}: not finite")
                 err = (out - ref).abs().max().item()
                 require(err <= tol, f"{label}: err {err} > {tol}")
-                require(not out[B21_LENGTHS.index(0)].any(),
+                require(0 not in lens or not out[lens.index(0)].any(),
                         f"{label}: a sequence of length 0 is not zeros")
                 require(torch.equal(out, pk.paged_attention_tpu(
-                    qq, *nan, lens, tables, pages_per_compute_block=ppcb)),
+                    qq, *nan, lens_t, tables, pages_per_compute_block=ppcb)),
                     f"{label}: not deterministic")
                 rows.append(dict(shape=f"{name} d=128 ps={ENG_PS} pp={pp} "
-                                 f"ppcb={ppcb} lengths={list(B21_LENGTHS)}",
+                                 f"ppcb={ppcb} lengths={list(lens)}",
                                  q=str(qdt), max_abs_err=err, tol=tol))
         del clean, nan
 
-    # timed: 8 x 300 on pp 8 (beside B6), 8 x 300 and 8 x 4096 on pp 512
-    h, b, d = 32, ENG_SLOTS, 128
-    for label, n_len, tpp in (("8x300", 300, ENG_CTX // ENG_PS),
-                              ("8x300", 300, pp), ("8x4096", 4096, pp)):
+    # timed: 8 x 300 on pp 8 (beside B6), then B21_TIMED on pp 512
+    h, d = 32, 128
+    for label, b, n_len, tpp in (("8x300", ENG_SLOTS, 300, ENG_CTX // ENG_PS),
+                                 *((lb, bb, nn, pp)
+                                   for lb, bb, nn in B21_TIMED)):
         live = 2 * b * n_len * h * d * 2
         cases = [b21_case(torch, dev, gen, h, bf16, [n_len] * b, tpp,
                           extra=0) for _ in range(copies_for(live))]
         q, clean, _, lens, tables = cases[0]
         ppcb = pa.library_ppcb(tpp, ENG_PS, d)
+        it = iter(range(10**9))
+
+        def run(fn):
+            c = cases[next(it) % len(cases)]
+            return fn(c[0], *c[1], c[3], c[4])
+        # timed before the plain reference's gathers (time_settled)
+        ms = time_settled(lambda: run(lambda *a: pk.paged_attention_tpu(
+            *a, pages_per_compute_block=ppcb)), 8 * len(cases))
         ref = pk.paged_attention_tpu_plain(q, *clean, lens, tables)
         out = pk.paged_attention_tpu(q, *clean, lens, tables,
                                      pages_per_compute_block=ppcb)
         err = (out - ref).abs().max().item()
         require(err <= 1e-5 * ref.abs().max().item() + 1e-6,
                 f"B21 timed {label} pp={tpp}: err {err}")
-        it = iter(range(10**9))
-
-        def run(fn):
-            c = cases[next(it) % len(cases)]
-            return fn(c[0], *c[1], c[3], c[4])
-        ms = time_ms(lambda: run(lambda *a: pk.paged_attention_tpu(
-            *a, pages_per_compute_block=ppcb)), calls=8 * len(cases))
         plain_ms = time_ms(lambda: pk.paged_attention_tpu_plain(
             q, *clean, lens, tables), calls=2)
         bnd, by = bound_ms(live, 4.0 * b * n_len * h * d, "f32")
         row = dict(shape=f"H=32 d=128 ps={ENG_PS} pp={tpp} ppcb={ppcb} bf16 "
                    f"lengths={label}", max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                   library_ms=None, library_call=B21_LIBRARY)
+                   bound_share=bnd / ms, library_ms=None,
+                   library_call=B21_LIBRARY)
         if tpp * ENG_PS <= 12288:
             row["b6_ms"] = time_ms(lambda: run(pa.paged_decode_attention),
                                    calls=8 * len(cases))
@@ -4863,30 +4937,174 @@ def check_b21(torch, dev, gen, results):
     results["B21"] = rows
 
 
+def b21f_case(torch, dev, gen, h, dt, lens, pp, extra=16):
+    """The fused B21 step's inputs: b21_case's pools with room for each
+    sequence's new row, one more sequence (length 0) inactive on the trash
+    page (the pools' last page, in no live table), qkv f32 [B, 3 h 128]
+    and the RoPE lanes at the lengths. Returns (qkv, clean pools, NaN
+    pools, lengths, tables, page ids, offsets, cos, sin)."""
+    from fastllama_tpu_torch.kernels.rope import lane_tables
+    lens = list(lens) + [0]
+    _, clean, nan, lens_t, tables = b21_case(torch, dev, gen, h, dt, lens,
+                                             pp, extra=extra, new_row=1)
+    d, ps = 128, ENG_PS
+    i32 = dict(dtype=torch.int32, device=dev)
+    pid = tables[torch.arange(len(lens), device=dev),
+                 (lens_t // ps).clamp_max(pp - 1).long()].clone()
+    pid[-1] = clean[0].shape[1] - 1
+    off = (lens_t % ps).to(**i32)
+    qkv = torch.randn((len(lens), 3 * h * d), generator=gen, device=dev)
+    cos, sin = lane_tables(lens_t, d, d)
+    return qkv, clean, nan, lens_t, tables, pid.to(**i32), off, cos, sin
+
+
+def check_b21_fused(torch, dev, gen, results):
+    """The fused B21 step (engine/paged_kv.paged_attention_tpu_fused: RoPE,
+    B7's write, the pre-scale and B21 in one launch) against its plain
+    version on bf16 and f32 pools at 32 heads, pp 512: B21_LENGTHS and an
+    inactive slot (the trash page), NaN in every page no sequence reaches
+    and past each length; the pools bit-equal to the plain step's (every
+    row but the NaN ones), ctx within 1e-5 of the largest output on the
+    active slots (the new row, taken from registers, is what B21 reads
+    back) and finite everywhere, bit-equal on a second run. Timed at
+    B21_TIMED beside the plain step and beside B7 + B21 on the same pools
+    (q, k and v from qkv as they are), each beside its bound: the live K
+    and V bytes read, qkv, the lanes and the output moved, the new row
+    written; time_settled."""
+    from fastllama_tpu_torch.engine import paged_kv as pk
+    from fastllama_tpu_torch.kernels import kv_write as kw
+    from fastllama_tpu_torch.kernels import paged_attention as pa
+    pp = LONG_CTX // ENG_PS
+    f32, bf16 = torch.float32, torch.bfloat16
+    ppcb = pa.library_ppcb(pp, ENG_PS, 128)
+    rows = []
+
+    def same(a, b):
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+            a.nan_to_num(), b.nan_to_num())
+
+    for dt in (bf16, f32):
+        name = f"H=32 {'bf16' if dt == bf16 else 'f32'}"
+        qkv, clean, nan, lens, tables, pid, off, cs, sn = b21f_case(
+            torch, dev, gen, 32, dt, B21_LENGTHS, pp)
+        ref_pools = [x.clone() for x in clean]
+        ref = pk.paged_attention_tpu_fused_plain(qkv, *ref_pools, lens,
+                                                 tables, pid, off, cs, sn)
+        first = [x.clone() for x in nan]
+        again = [x.clone() for x in nan]
+        out = pk.paged_attention_tpu_fused(qkv, *first, lens, tables, pid,
+                                           off, cs, sn,
+                                           pages_per_compute_block=ppcb)
+        torch.cuda.synchronize()
+        label = f"B21F {name}"
+        require(bool(torch.isfinite(out).all()), f"{label}: not finite")
+        tol = 1e-5 * ref[:-1].abs().max().item() + 1e-6
+        err = (out - ref)[:-1].abs().max().item()
+        require(err <= tol, f"{label}: err {err} > {tol}")
+        # the pools: the NaN pools with the plain step's written rows
+        for got, base, want in zip(first, nan, ref_pools):
+            exp = base.clone()
+            at = (pid.long(), off.long())
+            exp[:, at[0], at[1]] = want[:, at[0], at[1]]
+            require(same(got, exp), f"{label}: pools differ from the plain "
+                    "step's write")
+        require(torch.equal(out, pk.paged_attention_tpu_fused(
+            qkv, *again, lens, tables, pid, off, cs, sn,
+            pages_per_compute_block=ppcb)), f"{label}: not deterministic")
+        rows.append(dict(shape=f"{name} d=128 ps={ENG_PS} pp={pp} "
+                         f"ppcb={ppcb} lengths={list(B21_LENGTHS)} + "
+                         "inactive", max_abs_err=err, tol=tol))
+        del clean, nan, first, again, ref_pools
+
+    h, d = 32, 128
+    for label, b, n_len in B21_TIMED:
+        live = 2 * b * n_len * h * d * 2
+        cases = [b21f_case(torch, dev, gen, h, bf16, [n_len] * b, pp,
+                           extra=0) for _ in range(copies_for(live))]
+        qkv, clean, _, lens, tables, pid, off, cs, sn = cases[0]
+        it = iter(range(10**9))
+
+        def fused():
+            c = cases[next(it) % len(cases)]
+            return pk.paged_attention_tpu_fused(
+                c[0], *c[1], *c[3:], pages_per_compute_block=ppcb)
+
+        # the unfused route's kernels on the same pools: B7 then B21 over
+        # lengths + 1 keys (q, k and v taken from qkv as they are)
+        split = [(c[0].view(b + 1, 3, h, d)[:, 0],
+                  c[0].view(b + 1, 3, h, d)[:, 1].contiguous(),
+                  c[0].view(b + 1, 3, h, d)[:, 2].contiguous(), c[3] + 1)
+                 for c in cases]
+
+        def unfused():
+            i = next(it) % len(cases)
+            c, (q, k, v, attend) = cases[i], split[i]
+            kw.paged_kv_write(*c[1], k, v, c[5], c[6])
+            return pk.paged_attention_tpu(q, *c[1], attend, c[4],
+                                          pages_per_compute_block=ppcb)
+        # timed before the plain reference's gathers (time_settled)
+        ms = time_settled(fused, 8 * len(cases))
+        route_ms = time_settled(unfused, 8 * len(cases))
+        out = pk.paged_attention_tpu_fused(
+            qkv, *clean, lens, tables, pid, off, cs, sn,
+            pages_per_compute_block=ppcb)
+        ref = pk.paged_attention_tpu_fused_plain(
+            qkv, *[x.clone() for x in clean], lens, tables, pid, off, cs,
+            sn)
+        err = (out - ref)[:-1].abs().max().item()
+        require(err <= 1e-5 * ref[:-1].abs().max().item() + 1e-6,
+                f"B21F timed {label}: err {err}")
+        plain_ms = time_ms(lambda: pk.paged_attention_tpu_fused_plain(
+            qkv, *clean, lens, tables, pid, off, cs, sn), calls=2)
+        moved = (live + (b + 1) * (3 * h * d + 2 * d + h * d) * 4
+                 + 2 * (b + 1) * h * d * 2)
+        bnd, by = bound_ms(moved, 4.0 * b * (n_len + 1) * h * d, "f32")
+        row = dict(shape=f"H=32 d=128 ps={ENG_PS} pp={pp} ppcb={ppcb} bf16 "
+                   f"lengths={label} + inactive", max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                   bound_share=bnd / ms, b7_b21_ms=route_ms,
+                   library_ms=None, library_call=B21_LIBRARY)
+        rows.append(row)
+        print(f"B21F {row}", flush=True)
+        del cases, split
+    results["B21F"] = rows
+
+
 def long_context_engine(torch, dev, gen):
     """The 7B paged engine at n_ctx 32768 (32 layers, bf16 weights and pools,
     8 slots, pages of 64 rows, 128 pages): phase 6's twelve requests
-    greedy, every count 0 just before and read just after: B21 32 launches
-    a decode step, B7 as many (the row's write before it), the fused step,
-    B6, B4 and B8 none, B12 once a layer in each admission past its gate.
-    Every decode step's logits on the step graph bit-equal to the eager
-    step's and the streams equal; the first decode step's logits within
-    1e-2 of the largest logit of the same requests on phase 6's n_ctx 512
-    engine (the fused step). Then the steady window of both engines in
-    turns (ms a step, tok/s, device ms and launches a step)."""
+    greedy, every count 0 just before and read just after: the fused B21
+    step (B21F) 32 launches a decode step, B7, the unfused B21, the fused
+    step, B6, B4 and B8 none, B12 once a layer in each admission past its
+    gate. Every decode step's logits on the step graph bit-equal to the
+    eager step's and the streams equal; the twelve greedy streams equal to
+    the same requests' on phase 6's n_ctx 512 engine (the fused step), the
+    first decode step's logits within 1e-2 of its largest logit. A 2-layer
+    engine at n_ctx 32768 with q/k/v LoRA terms (rank 8 on wq and wv)
+    takes B7 and the unfused B21 on every layer of every step. Then the
+    steady window of both 32-layer engines in turns (ms a step, tok/s,
+    device ms and launches a step, B21F's counted and profiled launches
+    and share), and of the n_ctx 32768 engine with eight sequences at about
+    LONG_DEEP_ROWS resident rows."""
+    import dataclasses
     from fastllama_tpu_torch.config import PRESETS, RuntimeConfig
     from fastllama_tpu_torch.engine import paged_kv as pk
     from fastllama_tpu_torch.engine import scheduler as sched
     from fastllama_tpu_torch.kernels import paged_attention as pa
+    from fastllama_tpu_torch.models.llama import LoraTerm
     hp = PRESETS["7B"]
     vocab = synthetic_vocab(hp.n_vocab)
     params = rand_params(torch, hp, gen, dev)
     rec = torch.empty((ENG_SLOTS, 1, hp.n_vocab), dtype=torch.float32,
                       device=dev)
 
-    def make(n_ctx, total_pages=0, graph=True):
+    def make(n_ctx, total_pages=0, graph=True, hp=hp, params=params,
+             buckets=()):
         rcfg = RuntimeConfig(n_ctx=n_ctx, n_batch=512, kv_dtype="bfloat16",
                              weight_dtype="bfloat16")
+        if buckets:
+            rcfg = dataclasses.replace(
+                rcfg, prefill_buckets=rcfg.prefill_buckets + buckets)
 
         def build():
             eng = sched.BatchEngine(
@@ -4910,7 +5128,9 @@ def long_context_engine(torch, dev, gen):
         hand: (engine, requests, each decode step's logits, counts, s)."""
         eng = build()
         reqs = engine_requests(sched, temp=0.0)
-        steps = every_kernel()["B21" if eng._paged_attn else "PS"]
+        steps = every_kernel()[("B21" if eng.params.layers[0].lora_wq
+                                is not None else "B21F")
+                               if eng._paged_attn else "PS"]
         logits = []
         torch.cuda.synchronize()
         reset_every_count()
@@ -4940,18 +5160,16 @@ def long_context_engine(torch, dev, gen):
         streams = [r.tokens_out for r in reqs]
         route = eng._paged_attn
         ppcb = pa.library_ppcb(LONG_CTX // ENG_PS, ENG_PS, hp.head_dim)
-        require(route is not None and route.func is pk.paged_attention_tpu
-                and route.keywords == {"pages_per_compute_block": ppcb}
+        require(route == sched.B21Route(ppcb)
                 and eng.pager.pages_per_seq == LONG_CTX // ENG_PS,
                 f"long engine: route {route}")
-        n_steps = counts["B21"] // hp.n_layer
+        n_steps = counts["B21F"] // hp.n_layer
         expect_counts("long engine", counts, dict(
-            B21=hp.n_layer * n_steps, B7=hp.n_layer * n_steps,
-            B1=counts["B1"], B2=counts["B2"], B3=counts["B3"],
-            B5=counts["B5"], RW=counts["RW"],
+            B21F=hp.n_layer * n_steps, B1=counts["B1"], B2=counts["B2"],
+            B3=counts["B3"], B5=counts["B5"], RW=counts["RW"],
             B12=hp.n_layer * flash_admissions(eng, reqs)))
-        require(n_steps == len(logits) and counts["B21"] % hp.n_layer == 0
-                and n_steps > 0, f"long engine: {counts['B21']} B21 "
+        require(n_steps == len(logits) and counts["B21F"] % hp.n_layer == 0
+                and n_steps > 0, f"long engine: {counts['B21F']} B21F "
                 f"launches, {len(logits)} decode steps")
         decode_graphs = [g.captures for g in eng._graphs.entries("decode")]
         require(decode_graphs == [1], f"long engine: decode captures "
@@ -4970,8 +5188,33 @@ def long_context_engine(torch, dev, gen):
                                                           "fused n_ctx 512")
         streams_s = [r.tokens_out for r in reqs_s]
         require(eng_s._paged_attn is None and counts_s["B21"] == 0
-                and counts_s["PS"] > 0, f"fused engine: launches {counts_s}")
+                and counts_s["B21F"] == 0 and counts_s["PS"] > 0,
+                f"fused engine: launches {counts_s}")
         del eng_s
+        # q/k/v LoRA terms on both layers of a 2-layer engine: RoPE, B7 and
+        # the unfused B21 on every layer
+        hp2 = dataclasses.replace(hp, n_layer=2)
+        params2 = rand_params(torch, hp2, gen, dev)
+        for layer in params2.layers:
+            for field in ("lora_wq", "lora_wv"):
+                setattr(layer, field, LoraTerm(
+                    a=torch.randn((hp.n_embd, 8), generator=gen, device=dev)
+                    * 0.02,
+                    b=torch.randn((8, hp.n_embd), generator=gen, device=dev)
+                    * 0.02))
+        eng_l, reqs_l, logits_l, counts_l, wall_l = drive(
+            make(LONG_CTX, LONG_PAGES, hp=hp2, params=params2),
+            "long LoRA 2 layers")
+        n_lora = counts_l["B21"] // hp2.n_layer
+        expect_counts("long LoRA engine", counts_l, dict(
+            B21=hp2.n_layer * n_lora, B7=hp2.n_layer * n_lora,
+            B1=counts_l["B1"], B2=counts_l["B2"], B3=counts_l["B3"],
+            B5=counts_l["B5"], RW=counts_l["RW"],
+            B12=hp2.n_layer * flash_admissions(eng_l, reqs_l)))
+        require(n_lora == len(logits_l) and n_lora > 0,
+                f"long LoRA engine: {counts_l['B21']} B21 launches, "
+                f"{len(logits_l)} decode steps")
+        del eng_l, params2
     finally:
         sched.forward_paged_decode = real
     first_err = (logits[0] - logits_s[0]).abs().max().item()
@@ -4979,10 +5222,14 @@ def long_context_engine(torch, dev, gen):
     require(first_err <= 1e-2 * first_scale,
             f"long engine: first decode logits {first_err} from the fused "
             f"route's (largest {first_scale})")
+    require(streams == streams_s, "long engine: greedy streams differ from "
+            "the n_ctx 512 engine's: common prefixes "
+            f"{[common_prefix(a, b) for a, b in zip(streams, streams_s)]}")
     n_tok = sum(len(t) for t in streams)
     res = dict(n_ctx=LONG_CTX, total_pages=LONG_PAGES, ppcb=ppcb,
                decode_steps=n_steps, launches=counts,
                launches_eager=counts_e, launches_fused_512=counts_s,
+               launches_lora_2_layers=counts_l, wall_s_lora_2_layers=wall_l,
                steps_bit_equal=len(logits),
                first_step_err_vs_fused=first_err,
                first_step_max_logit=first_scale,
@@ -4992,14 +5239,24 @@ def long_context_engine(torch, dev, gen):
                tok_s_with_admissions=n_tok / wall,
                tok_s_with_admissions_fused_512=n_tok / wall_s,
                pool_gb=2 * hp.n_layer * (LONG_PAGES + 1) * ENG_PS
+               * hp.n_embd * 2 / 1e9,
+               deep_pool_gb=2 * hp.n_layer * (LONG_DEEP_PAGES + 1) * ENG_PS
                * hp.n_embd * 2 / 1e9)
     steady = {}
     for label, build in (("long", long_make), ("fused_512", short_make),
                          ("long_again", long_make),
-                         ("fused_512_again", short_make)):
-        steady[label] = engine_steady(torch, sched, build)
+                         ("fused_512_again", short_make),
+                         ("long_deep", make(LONG_CTX, LONG_DEEP_PAGES,
+                                            buckets=(LONG_DEEP_ROWS,)))):
+        deep = label == "long_deep"
+        steady[label] = engine_steady(
+            torch, sched, build,
+            prompt_chars=LONG_DEEP_ROWS - 2 if deep else 98,
+            counted=(("B21F", "paged_flash_kernel") if "long" in label
+                     else ("PS", "paged_split_kernel")))
         print(f"long-context steady {label}: {json.dumps(steady[label])}",
               flush=True)
+        torch.cuda.empty_cache()
     res["steady"] = steady
     print(f"long-context engine: {json.dumps({k: v for k, v in res.items() if k != 'steady'})}",
           flush=True)
@@ -5009,11 +5266,13 @@ def long_context_engine(torch, dev, gen):
 
 
 def long_context_path(torch, dev, gen):
-    """Phase 15: B20 and B21 against their plain versions and the 7B paged
-    engine at n_ctx 32768 on B21."""
+    """Phase 15: B20, B21 and the fused B21 step against their plain
+    versions and the 7B paged engine at n_ctx 32768 on the fused B21
+    step."""
     checks = {}
     check_b20(torch, dev, gen, checks)
     check_b21(torch, dev, gen, checks)
+    check_b21_fused(torch, dev, gen, checks)
     engine = long_context_engine(torch, dev, gen)
     return dict(checks=checks, engine=engine)
 
@@ -5120,7 +5379,8 @@ def main() -> int:
                     **{k: var_res["tool"]["launches"][k]
                        for k in variant_kernels()},
                     B20=long_res["checks"]["B20_entry_launches"]["B20"],
-                    B21=long_res["engine"]["launches"]["B21"])
+                    B21=long_res["engine"]["launches_lora_2_layers"]["B21"],
+                    B21F=long_res["engine"]["launches"]["B21F"])
     main_rows = {"B1": pick(checks["B1"], "qkv M=1"),
                  "B2": pick(checks["B2"], "K=4096"),
                  "B3": pick(checks["B3"], "qkv M=512 K=4096"),
@@ -5147,7 +5407,9 @@ def main() -> int:
                  "B19": pick(var_res["checks"]["B19"], "qkv M=512 "),
                  "B20": pick(long_res["checks"]["B20"], "qkv M=512 "),
                  "B21": pick(long_res["checks"]["B21"],
-                             "pp=512 ppcb=64 bf16 lengths=8x300")}
+                             "pp=512 ppcb=64 bf16 lengths=8x300"),
+                 "B21F": pick(long_res["checks"]["B21F"],
+                              "lengths=8x300 + inactive")}
     meta = {
         "B1": ("q4_matmul_decode", "csrc/q4_decode.cu",
                "fastllama_tpu/kernels/q4_matmul.py:433"),
@@ -5207,6 +5469,10 @@ def main() -> int:
         # the library Pallas TPU paged_attention the JAX function calls
         "B21": ("paged_attention_tpu", "csrc/paged_flash.cu",
                 "fastllama_tpu/engine/paged_kv.py:55"),
+        # RoPE, B7's write and the pre-scale folded into B21's kernel; it
+        # replaces the B21 launch of that step
+        "B21F": ("paged_attention_tpu_fused", "csrc/paged_flash.cu",
+                 "fastllama_tpu/engine/paged_kv.py:55"),
     }
     kernels = []
     for key, (name, src, replaces) in meta.items():
@@ -5306,17 +5572,35 @@ def main() -> int:
         if key == "B21":
             eng = long_res["engine"]
             kernels[-1].update(
-                path="the 7B paged engine at n_ctx 32768 (phase 15: twelve "
-                     "requests, 32 launches a decode step, the fused step "
-                     "0)",
+                path="the paged step of layers with q/k/v LoRA terms at "
+                     "n_ctx 32768 (phase 15: a 2-layer 7B-wide engine, "
+                     "twelve requests, 2 launches a decode step); the "
+                     "engine's other steps run the fused B21 step",
                 library_call=row["library_call"],
                 b6_ms_8x300_pp8=pick(long_res["checks"]["B21"],
                                      "pp=8 ")["b6_ms"],
                 launches_by_path={"bench_path": bench_res["launches"][key],
-                                  "fused_step_in_that_run":
-                                      eng["launches"]["PS"]})
-            require(launches[key] > 0 and eng["launches"]["PS"] == 0,
+                                  "b21f_in_that_run":
+                                      eng["launches_lora_2_layers"]["B21F"]})
+            require(launches[key] > 0
+                    and eng["launches_lora_2_layers"]["B21F"] == 0,
                     "kernel B21: launches on its path")
+            continue
+        if key == "B21F":
+            eng = long_res["engine"]
+            kernels[-1].update(
+                path="the 7B paged engine at n_ctx 32768 (phase 15: twelve "
+                     "requests, 32 launches a decode step; B7, B21 and the "
+                     "fused step 0)",
+                folds=("fastllama_tpu/kernels/kv_write.py:55 (B7) + "
+                       "fastllama_tpu/engine/paged_kv.py:55 (B21)"),
+                library_call=row["library_call"],
+                b7_b21_ms=row["b7_b21_ms"],
+                launches_by_path={"bench_path":
+                                      bench_res["launches"].get(key, 0)})
+            require(launches[key] > 0 and eng["launches"]["B21"] == 0
+                    and eng["launches"]["B7"] == 0,
+                    "kernel B21F: launches on its path")
             continue
         if key in ("B13", "B14"):
             kernels[-1].update(

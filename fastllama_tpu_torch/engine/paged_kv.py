@@ -13,9 +13,10 @@ coexist without reserving the worst case.
 
 Decode attention over the pools is kernels/paged_attention.py (B6, and
 the fused step with B7's write), or, where that kernel's gate fails (long
-contexts), paged_attention_tpu below (B21, the library kernel's function);
-the one-token write is kernels/kv_write.py (B7), the bulk admission write
-B8.
+contexts), paged_attention_tpu below (B21, the library kernel's function)
+and its fused step paged_attention_tpu_fused (RoPE, B7's write and the
+pre-scale folded into B21's kernel); the one-token write is
+kernels/kv_write.py (B7), the bulk admission write B8.
 
 Under data parallelism (dp > 1) the page ids are partitioned over the dp
 groups as in the JAX manager: slot s belongs to group s // (n_slots / dp),
@@ -33,7 +34,8 @@ import torch
 
 from ..config import HyperParams, resolve_device
 from ..kernels import cuda_lib
-from ..kernels.kv_write import scatter_rows_drop
+from ..kernels.decode_attention import _rope_fma
+from ..kernels.kv_write import paged_kv_write_plain, scatter_rows_drop
 
 
 def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices):
@@ -62,11 +64,10 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices):
                         gathered(v_pages))
 
 
-# Kernel B21 (csrc/paged_flash.cu) takes these head dims, and the scores of
-# one compute block (pages_per_compute_block * page_size rows, plus 8 * D
-# floats of its merge) in shared memory
+# Kernel B21 (csrc/paged_flash.cu) takes these head dims; its grid, rings
+# and scratch are the kernel library's own (paged_flash_partial_floats,
+# paged_flash_counters)
 B21_HEAD_DIMS = (64, 128, 256)
-B21_SMEM_BYTES = 227 * 1024
 # the library kernel's mask value (its DEFAULT_MASK_VALUE)
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
@@ -110,11 +111,15 @@ def _check_library_args(q, k_pages, v_pages, lengths, page_indices,
             f"The dtype of `lengths` must be int32. Got {lengths.dtype}")
 
 
+def _b21_scale(d: int) -> float:
+    """f32(1 / sqrt(D)): the JAX wrapper's f64 constant taken to f32."""
+    return float(np.float32(1.0 / np.sqrt(d)))
+
+
 def _prescaled(q):
-    """q * (1 / sqrt(D)) in f32, as the JAX wrapper scales it (its f64
-    constant taken to f32; a bf16 q is widened first)."""
-    scale = float(np.float32(1.0 / np.sqrt(q.shape[-1])))
-    return q.to(torch.float32) * scale
+    """q * (1 / sqrt(D)) in f32, as the JAX wrapper scales it (a bf16 q is
+    widened first)."""
+    return q.to(torch.float32) * _b21_scale(q.shape[-1])
 
 
 def paged_attention_tpu_plain(q, k_pages, v_pages, lengths, page_indices):
@@ -149,21 +154,57 @@ def paged_attention_tpu_plain(q, k_pages, v_pages, lengths, page_indices):
     return ctx.reshape(b, hq, d)
 
 
+def _b21_launch(name, head, b, hq, hkv, p, ps, pp, d, k_pages, out):
+    """One launch of B21 or B21F (`name`); `head` holds the entry's leading
+    pointers. The grid and its scratch are sized by the library."""
+    dev = k_pages.device
+    sms = cuda_lib.sm_count(dev)
+    partial = cuda_lib.scratch(
+        dev, "paged_flash.partial",
+        cuda_lib.fn("paged_flash_partial_floats")(d, sms), torch.float32)
+    counters = cuda_lib.tile_counters(
+        dev, cuda_lib.fn("paged_flash_counters")(b, hq, hkv))
+    rc = cuda_lib.fn(name)(
+        *head, b, hq, hkv, p, ps, pp, d, _b21_scale(d),
+        int(k_pages.dtype == torch.bfloat16), sms, partial.data_ptr(),
+        counters.data_ptr(), out.data_ptr(), cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, name)
+    return out
+
+
+def _require(cond, msg):
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_b21_pools(dev, k_pages, v_pages, tensors, d):
+    """What B21 and B21F take on the card beyond the library's checks."""
+    _require(dev.type == "cuda" and all(
+        t.device == dev and t.is_contiguous() for t in tensors),
+        "the pools, lengths, page_indices (and the fused step's inputs) "
+        "must be contiguous and on one CUDA device")
+    _require(k_pages.dtype in (torch.bfloat16, torch.float32)
+             and v_pages.dtype == k_pages.dtype,
+             f"B21 takes bf16 or f32 pools, not {k_pages.dtype}")
+    _require(d in B21_HEAD_DIMS,
+             f"B21 takes head_dim {B21_HEAD_DIMS}, not {d}")
+
+
 def paged_attention_tpu(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, lengths: torch.Tensor,
                         page_indices: torch.Tensor,
                         pages_per_compute_block: int = 4) -> torch.Tensor:
     """Kernel B21, the port of paged_attention_tpu (the library Pallas TPU
     kernel paged_attention, q pre-scaled by 1/sqrt(D) outside it): q [B, Hq,
-    D] f32 or bf16; pools [Hkv, P, ps, D] bf16 or f32; lengths int32 [B];
+    D] f32 or bf16 (on the card any batch stride); pools [Hkv, P, ps, D] bf16 or f32; lengths int32 [B];
     page_indices int32 [B, pages_per_sequence]. Returns f32 [B, Hq, D]
     (the pre-scale makes q f32, and the library returns q's type). Raises
     ValueError where the library raises; on the card also for what B21
-    does not take (head dims other than 64, 128 and 256, other pool types,
-    a compute block whose scores exceed shared memory). Keys are taken in
-    compute blocks of pages_per_compute_block pages with the library's
-    online softmax (csrc/paged_flash.cu); for CPU tensors the plain
-    version."""
+    does not take (head dims other than 64, 128 and 256, other pool
+    types). The compute block moves f32 rounding only and is checked, not
+    used: the kernel splits each sequence over its blocks by pages
+    (csrc/paged_flash.cu) and pre-scales q itself; for CPU tensors the
+    plain version."""
     _check_library_args(q, k_pages, v_pages, lengths, page_indices,
                         pages_per_compute_block)
     if q.device.type == "cpu":
@@ -171,38 +212,115 @@ def paged_attention_tpu(q: torch.Tensor, k_pages: torch.Tensor,
                                          page_indices)
     b, hq, d = q.shape
     hkv, p, ps, _ = k_pages.shape
-    pp = page_indices.shape[1]
-    dev = q.device
-
-    def need(cond, msg):
-        if not cond:
-            raise ValueError(msg)
-    need(dev.type == "cuda" and all(
-        t.device == dev and t.is_contiguous()
-        for t in (k_pages, v_pages, lengths, page_indices)),
-        "the pools, lengths and page_indices must be contiguous and on q's "
-        "CUDA device")
-    need(k_pages.dtype in (torch.bfloat16, torch.float32)
-         and v_pages.dtype == k_pages.dtype,
-         f"B21 takes bf16 or f32 pools, not {k_pages.dtype}")
-    need(page_indices.dtype == torch.int32, "page_indices must be int32")
-    need(d in B21_HEAD_DIMS, f"B21 takes head_dim {B21_HEAD_DIMS}, not {d}")
-    need((pages_per_compute_block * ps + 8 * d) * 4 <= B21_SMEM_BYTES,
-         f"a compute block of {pages_per_compute_block} x {ps} rows: its "
-         "scores exceed B21's shared memory")
-    qs = _prescaled(q).contiguous()
-    out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
-    rc = cuda_lib.fn("paged_attention_tpu")(
-        qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        lengths.data_ptr(), page_indices.data_ptr(), b, hq, hkv, p, ps, pp,
-        d, pages_per_compute_block, int(k_pages.dtype == torch.bfloat16),
-        out.data_ptr(), cuda_lib.stream_handle(dev))
-    cuda_lib.check(rc, "paged_attention_tpu")
+    _check_b21_pools(q.device, k_pages, v_pages,
+                     (k_pages, v_pages, lengths, page_indices), d)
+    _require(page_indices.dtype == torch.int32, "page_indices must be int32")
+    qf = q.to(torch.float32)
+    if (qf.stride(2) != 1 or qf.stride(1) != d or qf.stride(0) % 4
+            or qf.data_ptr() % 16):    # its rows are staged by bulk copies
+        qf = qf.contiguous()
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    _b21_launch("paged_attention_tpu",
+                (qf.data_ptr(), qf.stride(0), k_pages.data_ptr(),
+                 v_pages.data_ptr(), lengths.data_ptr(),
+                 page_indices.data_ptr()),
+                b, hq, hkv, p, ps, page_indices.shape[1], d, k_pages, out)
     paged_attention_tpu.launches += 1
     return out
 
 
 cuda_lib.counted(paged_attention_tpu)
+
+
+def _split_qkv(qkv, hkv, d):
+    """q [B, Hq, D], k and v [B, Hkv, D] of a fused projection [B, (Hq + 2
+    Hkv) D]."""
+    b = qkv.shape[0]
+    hq = qkv.shape[1] // d - 2 * hkv
+    q = qkv[:, :hq * d].reshape(b, hq, d)
+    k = qkv[:, hq * d:(hq + hkv) * d].reshape(b, hkv, d)
+    v = qkv[:, (hq + hkv) * d:].reshape(b, hkv, d)
+    return q, k, v
+
+
+def paged_attention_tpu_fused_plain(qkv, k_pages, v_pages, lengths,
+                                    page_indices, page_ids, offsets, cos,
+                                    sin):
+    """Plain version of the fused B21 step (same arguments but the compute
+    block, same effects): q and k roped in B4's FMA form (the kernel's
+    rope_lane, so the written rows agree bit for bit), B7's plain write of
+    T(k_rope) and T(v), then B21's plain attention over lengths + 1 keys,
+    which pre-scales the roped q and reads the new row back from the
+    pools."""
+    hkv, _, _, d = k_pages.shape
+    q, k, v = _split_qkv(qkv, hkv, d)
+    partner = torch.arange(d, device=qkv.device) ^ 1
+    c, sn = cos[:, None, :], sin[:, None, :]
+    qr, kr = (_rope_fma(t, t[..., partner], c, sn) for t in (q, k))
+    paged_kv_write_plain(k_pages, v_pages, kr, v, page_ids, offsets)
+    return paged_attention_tpu_plain(qr, k_pages, v_pages, lengths + 1,
+                                     page_indices)
+
+
+def paged_attention_tpu_fused(qkv: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, lengths: torch.Tensor,
+                              page_indices: torch.Tensor,
+                              page_ids: torch.Tensor, offsets: torch.Tensor,
+                              cos: torch.Tensor, sin: torch.Tensor,
+                              pages_per_compute_block: int = 4
+                              ) -> torch.Tensor:
+    """The fused B21 step (B21F): one paged decode step of one layer on the
+    library kernel's route, RoPE, B7's write, the pre-scale and B21 in one
+    launch. qkv f32 [B, (Hq + 2 Hkv) D] the raw fused projection (q heads,
+    then k, then v); pools [Hkv, P, ps, D] bf16 or f32, updated in place at
+    (page_ids[b], offsets[b]) (int32 [B]; B7's rules: the sentinel's trash
+    page, nothing written outside the pool); lengths int32 [B] the
+    resident rows (the new token's position); page_indices int32 [B, pp];
+    cos/sin f32 [B, D] the per-row RoPE lanes. Raises B21's ValueErrors
+    (the library's, for q [B, Hq, D]). Returns ctx f32 [B, Hq, D], B21's
+    function over lengths + 1 keys; for CPU tensors the plain version."""
+    b = qkv.shape[0]
+    _require(k_pages.dim() == 4, "pools must be [Hkv, P, ps, D]")
+    hkv, p, ps, d = k_pages.shape
+    f = qkv.shape[1] if qkv.dim() == 2 else 0
+    _require(qkv.dim() == 2 and qkv.dtype == torch.float32
+             and f % d == 0 and f // d > 2 * hkv
+             and (f // d - 2 * hkv) % hkv == 0,
+             f"qkv must be f32 [B, (Hq + 2 * {hkv}) * {d}], Hq a multiple "
+             f"of {hkv}: got {tuple(qkv.shape)} {qkv.dtype}")
+    _require(cos.shape == (b, d) and sin.shape == (b, d)
+             and cos.dtype == torch.float32 and sin.dtype == torch.float32,
+             f"cos/sin must be f32 [B, {d}]")
+    _require(page_ids.shape == (b,) and offsets.shape == (b,)
+             and page_ids.dtype == torch.int32
+             and offsets.dtype == torch.int32,
+             "page_ids and offsets must be int32 [B]")
+    hq = f // d - 2 * hkv
+    _check_library_args(qkv[:, :hq * d].view(b, hq, d), k_pages, v_pages,
+                        lengths, page_indices, pages_per_compute_block)
+    if qkv.device.type == "cpu":
+        return paged_attention_tpu_fused_plain(
+            qkv, k_pages, v_pages, lengths, page_indices, page_ids, offsets,
+            cos, sin)
+    _check_b21_pools(qkv.device, k_pages, v_pages,
+                     (qkv, k_pages, v_pages, lengths, page_indices, page_ids,
+                      offsets, cos, sin), d)
+    _require(page_indices.dtype == torch.int32, "page_indices must be int32")
+    # qkv's and the lanes' rows are staged by bulk copies: 16-byte aligned
+    qkv, cos, sin = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (qkv, cos, sin))
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=qkv.device)
+    _b21_launch("paged_attention_tpu_fused",
+                (qkv.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 lengths.data_ptr(), page_indices.data_ptr(),
+                 page_ids.data_ptr(), offsets.data_ptr(), cos.data_ptr(),
+                 sin.data_ptr()),
+                b, hq, hkv, p, ps, page_indices.shape[1], d, k_pages, out)
+    paged_attention_tpu_fused.launches += 1
+    return out
+
+
+cuda_lib.counted(paged_attention_tpu_fused)
 
 
 def write_tokens_paged(k_pages, v_pages, k_new, v_new, page_ids, offsets):

@@ -11,7 +11,8 @@ with new requests admitted into idle slots at any step.
   * kv_mode "slab" keeps [n_slots, n_ctx] caches; "paged" shares a page pool
     (engine/paged_kv.py) and steps through forward_paged_decode, attending
     as the JAX engine does on a pool of that shape (paged_attn_route: the
-    fused step, or B21 past the JAX kernel's gate).
+    fused step, or B21Route past the JAX kernel's gate: B21, whose layers
+    without q/k/v LoRA terms take the fused B21 step).
   * Sampling parameters are per request (temp / top_k / top_p /
     repeat_penalty as per-slot vectors in engine/sampling.sample_device).
     The engine's top_k is the static cap per-request values are clamped to.
@@ -44,7 +45,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import functools
 import queue
 from typing import Callable, Optional, Sequence
 
@@ -62,7 +62,10 @@ from ..parallel.collectives import all_gather, broadcast
 from ..utils.step_graph import GraphCache
 from ..utils.trace import trace_region
 from .logger import Logger, NULL_LOGGER
-from .paged_kv import PagedKVManager, paged_attention_tpu, write_tokens_paged
+from .paged_kv import (
+    PagedKVManager, paged_attention_tpu, paged_attention_tpu_fused,
+    write_tokens_paged,
+)
 from .sampling import draw_uniforms, sample_device
 from .token_buffer import TokenBuffer
 from .tokenizer import EOS_ID, Vocab, tokenize
@@ -77,8 +80,9 @@ def paged_attn_route(h_local: int, pp: int, ps: int, hd: int,
       * None, the port's own route (the fused step; B7 + B6 on layers with
         q/k/v LoRA terms), where the JAX kernel's gate holds
         (paged_attn_supported);
-      * B21 (engine/paged_kv.paged_attention_tpu, the library kernel's
-        function) with the JAX engine's pages_per_compute_block, where the
+      * a B21Route (B21, engine/paged_kv.paged_attention_tpu, the library
+        kernel's function, and its fused step) with the JAX engine's
+        pages_per_compute_block, where the
         head dim is whole 128-lane tiles and pages whole 8-row groups but
         the gate fails: long contexts (at Dh 128 past 24,576 rows a
         sequence for bf16 pools, 12,288 for f32). B21 raises the library's
@@ -89,10 +93,29 @@ def paged_attn_route(h_local: int, pp: int, ps: int, hd: int,
     if paged_attn_supported(h_local, pp, ps, hd, itemsize):
         return None
     if hd % 128 == 0 and ps % 8 == 0:
-        return functools.partial(
-            paged_attention_tpu,
-            pages_per_compute_block=library_ppcb(pp, ps, hd))
+        return B21Route(library_ppcb(pp, ps, hd))
     return None
+
+
+@dataclasses.dataclass(frozen=True)
+class B21Route:
+    """The library kernel's route, as forward_paged_decode takes it: called,
+    B21 (engine/paged_kv.paged_attention_tpu) over the pools; its step, the
+    fused B21 step (paged_attention_tpu_fused: RoPE, B7's write and the
+    pre-scale folded into B21), which layers without q/k/v LoRA terms take.
+    Both with the JAX engine's compute block."""
+    pages_per_compute_block: int
+
+    def __call__(self, q, k_pages, v_pages, lengths, page_indices):
+        return paged_attention_tpu(
+            q, k_pages, v_pages, lengths, page_indices,
+            pages_per_compute_block=self.pages_per_compute_block)
+
+    def step(self, qkv, k_pages, v_pages, lengths, page_indices, page_ids,
+             offsets, cos, sin):
+        return paged_attention_tpu_fused(
+            qkv, k_pages, v_pages, lengths, page_indices, page_ids, offsets,
+            cos, sin, pages_per_compute_block=self.pages_per_compute_block)
 
 
 @dataclasses.dataclass

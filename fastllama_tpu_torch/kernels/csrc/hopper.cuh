@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the port's wgmma kernels (B3 in
-// q4_int8.cu, B5 in q4_prefill.cu, B12 in flash_prefill.cu): mbarriers, TMA
-// tile loads and their tensor maps, shared-memory matrix descriptors and
-// the wgmma fences.
+// q4_int8.cu, B5 in q4_prefill.cu, B12 in flash_prefill.cu) and B21
+// (paged_flash.cu): mbarriers, TMA tile loads and their tensor maps, 1-D
+// bulk copies, shared-memory matrix descriptors and the wgmma fences.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at
@@ -71,6 +71,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
       "r"(c1) : "memory");
+}
+
+// A contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory, one bulk copy that reports to
+// the barrier (no tensor map: B21 stages a page's rows this way).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // A box of a 4-D map (coordinates innermost first) into shared memory.

@@ -59,7 +59,12 @@ ARGTYPES = {
     "paged_kv_write": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "paged_kv_write_rows": [P, P, P, P, P, I, I, I, I, I, P],
     "slab_write_rows": [P, P, P, I, I, I, I, L, L, P],
-    "paged_attention_tpu": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, P],
+    "paged_attention_tpu": [P, L, P, P, P, P, I, I, I, I, I, I, I, F, I, I,
+                            P, P, P, P],
+    "paged_attention_tpu_fused": [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                  I, I, F, I, I, P, P, P, P],
+    "paged_flash_partial_floats": [I, I],
+    "paged_flash_counters": [I, I, I],
     "flash_prefill": [P, P, P, L, L, L, L, L, L, L, L, L, I, I, I, I, I, I,
                       I, F, P, P, P, P],
 }
@@ -79,7 +84,10 @@ LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
           "paged_kv_write": "kv_write", "paged_kv_write_rows": "kv_write",
           "slab_write_rows": "kv_write",
           "flash_prefill": "flash_prefill",
-          "paged_attention_tpu": "paged_flash"}
+          "paged_attention_tpu": "paged_flash",
+          "paged_attention_tpu_fused": "paged_flash",
+          "paged_flash_partial_floats": "paged_flash",
+          "paged_flash_counters": "paged_flash"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None   # wall time of the last build() call

@@ -624,14 +624,19 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
         (from PagedKVManager; the sentinel id for an inactive slot).
       paged_attn: the JAX argument, an attention f(q, kp, vp, lengths,
         tables) -> f32 [B, H, D] (the engine passes paged_attention_tpu,
-        B21, on the pools the JAX engine gives the library kernel). With
-        one, every layer takes RoPE, B7's write of the new row and
-        paged_attn over lengths + 1 keys.
-    Without one, a layer without q/k/v LoRA terms runs the fused step (RoPE,
-    the new row's write and the attention over lengths + 1 keys in one
-    kernel, paged_decode_step_fused); a layer with them adds the terms to
-    q, k and v first, then writes the row with kernel B7 and attends with
-    kernel B6 (plain versions for CPU tensors).
+        B21, as engine/scheduler.B21Route, on the pools the JAX engine
+        gives the library kernel). With one, a layer with q/k/v LoRA
+        terms takes RoPE, B7's write of the new row and paged_attn over
+        lengths + 1 keys; so does every layer, unless paged_attn has a
+        fused step, paged_attn.step(qkv, kp, vp, lengths, tables,
+        page_ids, offsets, cos, sin) -> f32 [B, H, D] (RoPE, the row's
+        write and the attention over lengths + 1 keys in one kernel: the
+        B21Route's fused B21 step), which the other layers take.
+    Without paged_attn, a layer without q/k/v LoRA terms runs the fused step
+    (RoPE, the new row's write and the attention over lengths + 1 keys in
+    one kernel, paged_decode_step_fused); a layer with them adds the terms
+    to q, k and v first, then writes the row with kernel B7 and attends
+    with kernel B6 (plain versions for CPU tensors).
     Returns (logits [B, 1, V] f32, k_pages, v_pages).
     """
     b = tokens.shape[0]
@@ -640,12 +645,14 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
     cos, sin = _position_lanes(tables, lengths[:, None], hd, cfg.n_rot)
     rope_bt = (cos[:, :, None, :], sin[:, :, None, :])
     attend = lengths + 1
+    fused = (paged_decode_step_fused if paged_attn is None
+             else getattr(paged_attn, "step", None))
 
     for layer, kp, vp in zip(params.layers, k_pages, v_pages):
         attn_in = rms_norm(x, layer.attention_norm, cfg.rms_eps)
-        if paged_attn is None and _no_qkv_lora(layer):
+        if fused is not None and _no_qkv_lora(layer):
             qkv = apply_linear(attn_in, layer.wqkv, cfg)
-            ctx = paged_decode_step_fused(
+            ctx = fused(
                 qkv.reshape(b, -1).to(torch.float32), kp, vp, lengths,
                 page_tables, page_ids, offsets, cos[:, 0], sin[:, 0])
         else:

@@ -231,14 +231,14 @@ def test_chip_smoke_counts_bench_torchs_steps(monkeypatch):
 
 def test_chip_smoke_reads_a_scripts_launches():
     """chip_smoke.run_counted runs a script as __main__ in a subprocess and
-    reads the launch counts it prints at its exit (every kernel's, the slab
-    row write's, and the dequant path's; all 0 on the CPU, where no kernel
-    launches)."""
+    reads the launch counts it prints at its exit (every kernel's, the
+    fused steps' (PS, B21F), the slab row write's, and the dequant path's;
+    all 0 on the CPU, where no kernel launches)."""
     import chip_smoke
     rc, out, _, _, n = chip_smoke.run_counted(
         "tools_torch/bench_q4_floor.py", ["256", "128", "1", "floor",
                                           "--device", "cpu"], str(ROOT))
     assert rc == 0 and '"bench_q4_floor"' in out
-    assert set(n) == {f"B{i}" for i in range(1, 22)} | {"PS", "RW",
-                                                         "dequant"}
+    assert set(n) == {f"B{i}" for i in range(1, 22)} | {
+        "PS", "B21F", "RW", "dequant"}
     assert not any(n.values())

@@ -12,6 +12,7 @@ from fastllama_tpu.kernels import kv_write as jkw
 from fastllama_tpu.kernels import paged_attention as jpa
 from fastllama_tpu.models import llama as jl
 from fastllama_tpu_torch.engine import paged_kv as tpk
+from fastllama_tpu_torch.engine import scheduler as ts
 from fastllama_tpu_torch.kernels import kv_write as tkw
 from fastllama_tpu_torch.kernels import paged_attention as tpa
 from fastllama_tpu_torch.models import llama as tl
@@ -1003,13 +1004,15 @@ def test_paged_forward_ignores_lora_output(params):
         np.testing.assert_array_equal(t0, t1)
 
 
-def greedy_paged_stream(params, monkeypatch, fused, steps=6):
+def greedy_paged_stream(params, monkeypatch, fused, steps=6, b21=False):
     """A 5-token prompt prefilled into pages, then `steps` greedy decode
     steps of two slots (the second inactive) through forward_paged_decode,
     f32. fused=False sends every layer down the unfused route (RoPE, B7,
-    B6), as a layer with q/k/v LoRA terms goes. Returns the tokens and the
-    last logits."""
+    B6), as a layer with q/k/v LoRA terms goes. b21=True takes the engine's
+    route past the JAX kernel's gate: the fused B21 step (or RoPE, B7 and
+    B21). Returns the tokens and the last logits."""
     _, tp = params
+    route = {"paged_attn": ts.B21Route(2)} if b21 else {}
     if not fused:
         monkeypatch.setattr(tl, "_no_qkv_lora", lambda layer: False)
     cfg = tl.ForwardConfig(n_head=HP.n_head, n_rot=HP.n_rot,
@@ -1033,7 +1036,7 @@ def greedy_paged_stream(params, monkeypatch, fused, steps=6):
             to_t(np.array([n, 0], np.int32)), to_t(m.page_tables),
             m.k_pages, m.v_pages, to_t(np.array([wp[0], m.sentinel],
                                                 np.int32)),
-            to_t(np.array([wo[0], 0], np.int32)), cfg)
+            to_t(np.array([wo[0], 0], np.int32)), cfg, **route)
         tokens.append(int(logits[0, 0].argmax()))
         n += 1
     monkeypatch.undo()
@@ -1048,5 +1051,19 @@ def test_fused_paged_decode_equals_the_unfused_route(params, monkeypatch):
     f32 sums)."""
     fused, lf = greedy_paged_stream(params, monkeypatch, fused=True)
     unfused, lu = greedy_paged_stream(params, monkeypatch, fused=False)
+    assert fused == unfused
+    np.testing.assert_allclose(lf, lu, rtol=0, atol=1e-4 * np.abs(lu).max())
+
+
+def test_fused_b21_paged_decode_equals_the_unfused_b21_route(params,
+                                                             monkeypatch):
+    """The same on the route past the JAX kernel's gate: forward_paged_decode
+    with B21 and its fused step (RoPE, B7's write, the pre-scale and B21 in
+    one call a layer) gives the RoPE + B7 + B21 route's greedy tokens, and
+    logits within the same tolerance (1e-4 of the largest)."""
+    fused, lf = greedy_paged_stream(params, monkeypatch, fused=True,
+                                    b21=True)
+    unfused, lu = greedy_paged_stream(params, monkeypatch, fused=False,
+                                      b21=True)
     assert fused == unfused
     np.testing.assert_allclose(lf, lu, rtol=0, atol=1e-4 * np.abs(lu).max())
