@@ -273,7 +273,7 @@ import time
 
 import numpy as np
 
-from fastllama_tpu_torch.utils.trace import copies_for, time_ms
+from fastllama_tpu_torch.utils.trace import copies_for, kernel_key, time_ms
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -2090,6 +2090,38 @@ def device_ms_by_name(torch, fn, calls: int, names,
               f"launches, not {calls} each", flush=True)
     raise SmokeFailure(f"profiler: {names} not seen {calls} times each in "
                        f"any of {traces} traces")
+
+
+def kernels_per_call(torch, fn, calls: int = 4, traces: int = 5) -> dict:
+    """{kernel base name: launches a call} of one fn() call, from a
+    torch.profiler trace of `calls` calls, recorded as device_ms_by_name
+    records its traces (the second of two steps). A trace that holds no
+    kernel or a count that is not a whole multiple of `calls` (the tracer
+    loses launches now and then, late in a long process) is printed and
+    taken again, up to `traces` times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, traces + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        counts = {}
+        for k, (_, c) in kernel_device_us(prof).items():
+            if not k.startswith("ProfilerStep"):   # the schedule's own span
+                counts[kernel_key(k)] = counts.get(kernel_key(k), 0) + c
+        if counts and all(c % calls == 0 for c in counts.values()):
+            return {k: c // calls for k, c in counts.items()}
+        print(f"profiler: trace {attempt} of {traces}: {counts}", flush=True)
+    raise SmokeFailure(f"profiler: no trace of {calls} calls held whole "
+                       f"calls")
 
 
 def device_time_by_kernel(prof, n_steps: int):
@@ -4430,7 +4462,9 @@ def check_variants(torch, dev, gen, results):
     and _weight_int4pack_mm on the same plane and M; plain versions timed
     at M = 8. B19 bit for bit on qkv at M = 512 and 256 and the 13B qkv at
     M = 512, timed beside B2 + B3 (nat) and torch._int_mm of its int8
-    plane."""
+    plane; at qkv M = 512 the kernels of one call from a profile (B2's and
+    one product kernel, no requantization pass) and the memory it
+    allocates (its outputs, no [N, K] int8 plane)."""
     from fastllama_tpu_torch.kernels import q4_matmul as qm
     from fastllama_tpu_torch.kernels import q4_variants as qv
     out = {k: [] for k in ("B15", "B16", "B17", "B18", "B19", "B1h")}
@@ -4525,17 +4559,51 @@ def check_variants(torch, dev, gen, results):
                 x, w.qs, w.scales), calls=2) if name == "qkv" else None)
             bnd, by = bound_ms(x.numel() * 4 + wbytes + m * w.qs.shape[1] * 4,
                                2.0 * m * k * n, "int8")
+            library_ms = time_ms(lambda: torch._int_mm(xq, w8_cm), calls=10)
             row = dict(shape=f"{name} M={m} K={k} N={n}", max_abs_err=0.0,
                        ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                       b2_b3_nat_ms=nat_ms,
-                       library_ms=time_ms(lambda: torch._int_mm(xq, w8_cm),
-                                          calls=10),
+                       b2_b3_nat_ms=nat_ms, vs_b2_b3=ms / nat_ms,
+                       library_ms=library_ms, vs_library=ms / library_ms,
                        library_call="torch._int_mm of the int8 plane (the "
                                     "product alone)")
+            if name == "qkv" and m == 512:
+                row.update(b19_call(torch, x, w))
             out["B19"].append(row)
             print(f"B19 {row}", flush=True)
         del ws, w, w8, w8_cm, s8, sc
     results.update(out)
+
+
+def b19_call(torch, x, w):
+    """What one B19 call launches and allocates: its kernels from a profile
+    (B2's quant_rows_kernel and one product kernel, natx_cluster_kernel),
+    and the bytes the allocator hands out during it (xq, dx and y; no int8
+    [N, K] plane); and how many of its clusters the card holds at once."""
+    from fastllama_tpu_torch.kernels import q4_variants as qv
+    kernels = kernels_per_call(
+        torch, lambda: qv.q4_prefill_int8_natx(x, w.qs, w.scales))
+    require(sorted(kernels.values()) == [1, 1]
+            and "natx_cluster_kernel" in kernels,
+            f"B19: a call launches {kernels}, not B2's kernel and one "
+            "product kernel")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+    qv.q4_prefill_int8_natx(x, w.qs, w.scales)
+    torch.cuda.synchronize()
+    allocated = (torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+                 - before)
+    m, k = x.shape
+    n = w.qs.shape[1]
+    outputs = m * k + 4 * m + 4 * m * n            # xq, dx, y
+    require(allocated < outputs + n * k // 2,
+            f"B19: a call allocated {allocated} bytes, its outputs "
+            f"{outputs}: an [N, K] int8 plane is {n * k}")
+    from fastllama_tpu_torch.kernels import cuda_lib
+    clusters = cuda_lib.fn("q4_int8_natx_clusters")(m)
+    require(clusters > 0, f"B19: cudaOccupancyMaxActiveClusters {clusters}")
+    return dict(kernels_a_call=kernels, allocated_bytes_a_call=allocated,
+                output_bytes=outputs, int8_plane_bytes=n * k,
+                clusters_a_card=clusters)
 
 
 def profile_variants_tool(torch):
@@ -4700,13 +4768,17 @@ LONG_DEEP_ROWS, LONG_DEEP_PAGES = 4096, 528
 
 def check_b20(torch, dev, gen, results):
     """B20 (q4_variants.q4_prefill_split, the prefill split body: v1's fold
-    at prefill M) on the 7B planes qkv, wo, w13, w2 at B20_ROWS and the 13B
-    qkv at M = 512. bf16: against its plain version within 1e-4 of max |y|,
+    at prefill M; at M <= 8 B15's kernel) on the 7B planes qkv, wo, w13, w2
+    at B20_ROWS and the 13B qkv at M = 512. bf16: against its plain version
+    within 1e-4 of max |y|,
     run twice and bit-equal, timed beside B5 (nat) and, at M <= 64, B15 on
     the same plane and M, and beside torch.mm of the rounded x by the
     dequantized weight (the yardstick, as for B5); f32 mode (B5's f32
     kernel) within 1e-5 of max |y|. At least one plan splits K (the fold
-    must be added once, not once a split). Then the entry point's counted
+    must be added once, not once a split). At qkv M = 512 the kernels of
+    one bf16 call from a profile: the cast pass and the product kernel,
+    nothing else (no fold pass, no block sums by PyTorch ops). Then the
+    entry point's counted
     run: every count 0 just before q4_matmul_prefill_pallas(variant=
     "split") runs once in bf16 and once in f32 on each 7B plane at M = 512,
     read just after: B20 one launch a bf16 call, B5 one an f32 call,
@@ -4774,8 +4846,17 @@ def check_b20(torch, dev, gen, results):
                        library_ms=library_ms,
                        library_call="torch.mm of the rounded x by the "
                                     "dequantized weight (as for B5)",
-                       b5_nat_ms=nat_ms, vs_b5=ms / nat_ms, b15_ms=b15_ms,
-                       f32_ms=f32_ms)
+                       vs_library=ms / library_ms, b5_nat_ms=nat_ms,
+                       vs_b5=ms / nat_ms, b15_ms=b15_ms, f32_ms=f32_ms,
+                       kernel="B15's" if m <= qv.B20_ON_B15_MAX_M
+                       else "cast + bf16_wgmma_kernel<kSplit>")
+            if name == "qkv" and m == 512:
+                kernels = kernels_per_call(torch, lambda: qv.q4_prefill_split(
+                    x, w.qs, w.scales))
+                require(kernels == {"cast_kernel": 1, "bf16_wgmma_kernel": 1},
+                        f"B20: a call launches {kernels}, not the cast pass "
+                        "and one product kernel")
+                row["kernels_a_call"] = kernels
             rows_out.append(row)
             print(f"B20 {row}", flush=True)
         del ws, w, wd
@@ -5554,7 +5635,11 @@ def main() -> int:
                     ["use_pallas_true"]["launches"][key],
                     "bench_path": bench_res["launches"].get(key, 0)})
             if key == "B19":
-                kernels[-1]["b2_b3_nat_ms"] = row["b2_b3_nat_ms"]
+                kernels[-1].update(
+                    {k: row[k] for k in ("b2_b3_nat_ms", "vs_b2_b3",
+                                         "vs_library", "kernels_a_call",
+                                         "allocated_bytes_a_call",
+                                         "clusters_a_card")})
             else:
                 kernels[-1].update(b1_ms=row["b1_ms"], vs_b1=row["vs_b1"])
             require(launches[key] > 0, f"kernel {key} was launched on no "
@@ -5566,7 +5651,8 @@ def main() -> int:
                      "on the 7B planes at M = 512, bf16 and f32 (phase 15's "
                      "counted run; f32 runs B5's f32 kernel)",
                 library_call=row["library_call"], b5_nat_ms=row["b5_nat_ms"],
-                vs_b5=row["vs_b5"])
+                vs_b5=row["vs_b5"], vs_library=row["vs_library"],
+                kernels_a_call=row["kernels_a_call"])
             require(launches[key] > 0, "kernel B20 was launched on no path")
             continue
         if key == "B21":

@@ -1,7 +1,9 @@
-// Hopper building blocks shared by the port's wgmma kernels (B3 in
-// q4_int8.cu, B5 in q4_prefill.cu, B12 in flash_prefill.cu) and B21
+// Hopper building blocks shared by the port's wgmma kernels (B3 and B19 in
+// q4_int8.cu, B5 and B20 in q4_prefill.cu, B12 in flash_prefill.cu) and B21
 // (paged_flash.cu): mbarriers, TMA tile loads and their tensor maps, 1-D
-// bulk copies, shared-memory matrix descriptors and the wgmma fences.
+// bulk copies, shared-memory matrix descriptors, the wgmma fences, and the
+// thread block cluster's rank, distributed shared memory, cluster-scope
+// barriers and launch (B19).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at
@@ -116,6 +118,16 @@ __device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t saddr, int lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
 }
 
+// Descriptor of a K-major tile of 16-bit elements without swizzle: core
+// matrices of 8 rows by 16 bytes (128 contiguous bytes), `lbo` bytes apart
+// along K and `sbo` bytes apart along M or N.
+__device__ __forceinline__ uint64_t plain_desc(uint32_t saddr, int lbo,
+                                               int sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -135,6 +147,85 @@ template <int R> __device__ __forceinline__ void fence_regs(int* d) {
 template <int R> __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread block clusters
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address, in the block of cluster rank `rank`, of the
+// local shared address `saddr` (the same offset in that block's window).
+__device__ __forceinline__ uint32_t mapa(uint32_t saddr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(saddr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+// Arrive on a barrier of any block of the cluster (an address from mapa),
+// with the default semantics (a release at CTA scope): it orders nothing
+// this thread wrote for the other block, only what it did before (a slot
+// read to its end).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16) of this block's shared memory at `src` to
+// `dst` in another block of the cluster, one bulk copy that completes its
+// bytes on that block's barrier `bar` (dst and bar from mapa). Writes of
+// this block's threads to src must be fenced to the async proxy first.
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src,
+                                                  int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "r"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// The cluster barrier, every thread of every block of the cluster, whole
+// warps at a time; arrive (releasing the thread's writes) and wait
+// (acquiring every arrived thread's) may be apart.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Launch `kernel` on `grid` in clusters of cluster_x x 1 x 1 blocks.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, dim3 block,
+                           int cluster_x, size_t smem, cudaStream_t stream,
+                           Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // ---------------------------------------------------------------------------

@@ -36,17 +36,30 @@
 //      s8 and the n < n_out cut. The consumers hold 64 or 128 accumulators
 //      a thread without spilling (nvcc -Xptxas -v), so no setmaxnreg
 //      rebalancing between the roles is needed.
-// B19 (q4_int8_gemm_norm) replaces the natx body
-// (_q4mm_prefill_int8_nat_kernel) and the split body, which is bit-equal to
-// it: the same product on scales the caller has divided, d / s8 (the JAX
-// glue's true division, where B3 multiplies by 1 / s8), with s8 given; the
-// requantization pass in its NORM mode reads them as they are.
 // The requantization is a pass of its own. Fusing it into the product's
 // producer side (no plane, but every row tile of 128 requantizes its
 // weight tile again, on the CUDA cores beside the tensor cores) was
 // bit-exact and slower on every 7B plane at M = 256 and 512 (PERF.md). The
 // plane is not cached beside the q4 weight, which would double the weight
 // memory.
+//
+// Kernel B19 (entry q4_int8_gemm_natx): replaces the natx body
+// (fastllama_tpu/kernels/q4_matmul.py::_q4mm_prefill_int8_nat_kernel, glue
+// at q4_matmul_prefill_int8's natx branch) and the split body, bit-equal to
+// it: B3's function on scales divided by s8 (the JAX glue's true division
+// d / s8, where B3 multiplies by 1 / s8). One launch after B2, no int8
+// plane: natx_cluster_kernel, a thread block cluster of C = 1, 2 or 4
+// blocks of 128 rows along M (the least power of two that covers M <= 512,
+// so one cluster holds the whole of M) for each 128-column tile. Block r
+// of the cluster derives s8 for its share of the tile's columns (128 / C
+// of them) from their whole-K scale strips, requantizes that share of
+// every stage's weight tile, rne((q - 8) * __fdiv_rn(d, s8)) as
+// requant_byte does, into its own weight tile, and sends it to the other
+// blocks of the cluster by bulk copies between their shared memories; so
+// each weight tile is requantized once for its column tile, where the
+// fused design above did it once a row tile. Each block's consumers keep
+// B3's wgmma product.
+// Details at natx_cluster_kernel.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -65,6 +78,13 @@ namespace {
 // The _rn intrinsics keep the compiler from contracting into an FMA.
 __device__ __forceinline__ uint32_t requant_byte(uint32_t q, float sc) {
   const float v = __fadd_rn(__uint_as_float(0x4B000000u | q), -8388616.0f);
+  return __float_as_uint(__fadd_rn(__fmul_rn(v, sc), 12582912.0f));
+}
+
+// requant_byte of the code in the low byte of 2^23's bit pattern (as
+// __byte_perm(codes, 0x4B000000, 0x7440 + c) gives it for byte c).
+__device__ __forceinline__ uint32_t requant_magic(uint32_t magic_q, float sc) {
+  const float v = __fadd_rn(__uint_as_float(magic_q), -8388616.0f);
   return __float_as_uint(__fadd_rn(__fmul_rn(v, sc), 12582912.0f));
 }
 
@@ -92,10 +112,6 @@ constexpr int kReqRow = kReqKT * 32;             // bytes of a staged row
 // The tile's 16-byte chunks are swizzled (chunk ^ (row / 4) % 32), so that
 // neither the lanes' stores (rows 4 l + c) nor a warp's read of one row
 // meet bank conflicts.
-// NORM (B19, the natx / split bodies): `scales` holds the normalized scales
-// d / s8 already (divided outside the kernel, as the JAX package's XLA glue
-// divides them), so there is no max pass, no reciprocal and no s8 to write.
-template <bool NORM>
 __global__ void __launch_bounds__(kReqThreads)
 requant_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ scales,
                int NB, int N, int K, int kb_per_block, float* __restrict__ s8,
@@ -105,8 +121,8 @@ requant_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ scales,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n0 = blockIdx.x * kReqTileN, n = n0 + lane * kReqCols;
   const bool ok = n < N;
-  float inv[kReqCols] = {1.f, 1.f, 1.f, 1.f};
-  if constexpr (!NORM) {
+  float inv[kReqCols];
+  {
     float mx[kReqCols] = {0.f, 0.f, 0.f, 0.f};
     if (ok) {
       for (int kb = warp; kb < NB; kb += kReqWarps) {
@@ -139,9 +155,8 @@ requant_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ scales,
       const int kb = g + t;
       const float4 d = ok ? __ldg(reinterpret_cast<const float4*>(
           scales + (size_t)kb * N + n)) : make_float4(0.f, 0.f, 0.f, 0.f);
-      const float sc[kReqCols] = {
-          NORM ? d.x : d.x * inv[0], NORM ? d.y : d.y * inv[1],
-          NORM ? d.z : d.z * inv[2], NORM ? d.w : d.w * inv[3]};
+      const float sc[kReqCols] = {d.x * inv[0], d.y * inv[1], d.z * inv[2],
+                                  d.w * inv[3]};
       uint32_t word[16];
 #pragma unroll
       for (int j = 0; j < 16; ++j)
@@ -376,6 +391,316 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 // ---------------------------------------------------------------------------
+// 3. B19: the natx product, its requantization shared across a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kNxBN = 128;                       // columns of a column tile
+constexpr int kNxStages = 5;                     // xq and weight tiles
+constexpr int kNxRawBytes = 40 * 1024;           // the raw ring
+constexpr int kNxMaxRaw = 16;                    // its slots at C = 4
+constexpr int kNxConvWarps = 8;                  // two groups of four
+constexpr int kNxGroup = 32 * kNxConvWarps / 2;  // threads of a group
+constexpr int kNxConvThreads = 32 * kNxConvWarps;
+constexpr int kNxConsThreads = 128 * kConsumers;
+constexpr int kNxThreads = kNxConsThreads + kNxConvThreads + 64;
+constexpr int kNxTile = kBM * kBK;               // an xq or weight tile
+constexpr int kNxBars = 4 * kNxStages + 2 * kNxMaxRaw;
+constexpr int kNxSmem =
+    2 * kNxStages * kNxTile + kNxRawBytes + 8 * kNxBars + 1024;
+
+// The converters' named barrier (their two groups use 2 and 3).
+__device__ __forceinline__ void natx_conv_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kNxConvThreads) : "memory");
+}
+
+// store_tile for BN = 128 with s8 of the tile's columns in shared memory.
+__device__ __forceinline__ void store_natx(const int* acc, int m0, int n0,
+                                           int t, const float* __restrict__ dx,
+                                           const float* s8s, int M, int n_out,
+                                           float* __restrict__ y) {
+  const int warp = t >> 5, lane = t & 31;
+  const bool pairs = (n_out & 1) == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int m = m0 + warp * 16 + (lane >> 2) + 8 * r;
+    if (m >= M) continue;
+    const float dm = dx[m];
+    float* yr = y + (size_t)m * n_out;
+#pragma unroll
+    for (int j = 0; j < kNxBN / 8; ++j) {
+      const int nl = 8 * j + 2 * (lane & 3), n = n0 + nl;
+      const float v0 = (float)acc[4 * j + 2 * r] * dm * s8s[nl];
+      const float v1 = (float)acc[4 * j + 2 * r + 1] * dm * s8s[nl + 1];
+      if (pairs && n + 1 < n_out) {
+        *reinterpret_cast<float2*>(yr + n) = make_float2(v0, v1);
+      } else {
+        if (n < n_out) yr[n] = v0;
+        if (n + 1 < n_out) yr[n + 1] = v1;
+      }
+    }
+  }
+}
+
+// Grid (C, column tiles) in clusters of C x 1 x 1 blocks (C = gridDim.x, so
+// a cluster holds the whole of M). Block r takes rows 128 r .. 128 r + 127
+// and owns the share of the tile's columns n0 + S r .. n0 + S r + S - 1,
+// S = 128 / C: the rows S r .. S r + S - 1 of every block's weight tile
+// [128 n][128 k] (K contiguous, the layout TMA's 128-byte swizzle gives
+// B3's plane: chunk c of row n at chunk c ^ (n & 7)), S * 128 contiguous
+// bytes. Three rings, so that only the weight tiles wait on the cluster:
+// xq tiles and weight tiles (kNxStages each, 16 KB a slot) and the raw
+// ring (the share's q4 bytes [64 packed rows][S] and scale rows [4][S] a
+// stage, 80 S bytes, 4 C slots in kNxRawBytes: 16 stages ahead at C = 4).
+// (In one ring, where every load waited on all C blocks' releases, the
+// chain load, convert, send, consume, release set the pace; PERF.md.)
+// Roles:
+//  * two producer warps, one thread each: one keeps the xq ring full with TMA
+//    (128-byte swizzle; a slot is free once this block's consumers released
+//    it), the other the raw ring (as stored; free once this block's
+//    converters are done with it); zeros past M, N and K (a zero code, a
+//    zero scale: w8 = 0).
+//  * 8 converter warps. First s8 of the share's columns from their whole-K
+//    strip (a max, exact in any order), stored into the s8s of every block
+//    (st.shared::cluster; the consumers read them after a cluster barrier).
+//    Then warps 0-3 take the even stages and 4-7 the odd ones, two stages
+//    in flight. A stage waits for its raw slot and for its weight slot to be
+//    released by every block's consumers. The group divides the stage's
+//    scales by s8 in place, each once, with __fdiv_rn (the plain version's
+//    IEEE division). A thread then takes units of 4 adjacent columns by 4
+//    packed rows of one q block (lanes: 4 row quarters by 8 column quads, so
+//    its 4-byte loads and stores meet 4-way bank conflicts at most at every
+//    S), requantizes the 32 codes as requant_byte does (a code into 2^23's
+//    bit pattern by one byte permute) and stores each column's 4
+//    low-nibble and 4 high-nibble bytes, a word each, into its own block's
+//    tile. The group
+//    then fences the writes to the async proxy and syncs, and its first
+//    thread frees the raw slot, sends the share to each other block of the
+//    cluster by one bulk copy (shared::cta to shared::cluster, S * 128
+//    bytes), which completes its bytes on that block's conv barrier, and
+//    arrives on its own conv barrier expecting the (C - 1) * S * 128 bytes
+//    the others send. (Stores of 4 bytes each into the other blocks were
+//    several times slower; PERF.md.)
+//  * two consumer warpgroups as in int8_wgmma_kernel: wait for the xq tile
+//    and the whole weight tile (conv), issue four wgmma m64n128k32 a stage,
+//    then release the previous stage: its xq slot here, its weight slot on
+//    every block's wempty barrier (none for the last kNxStages stages,
+//    which nothing waits for).
+// Every thread ends at a cluster barrier, so no block exits while a bulk
+// copy still reads its shared memory or writes another's.
+// Barriers: xfull (one arrival and the TMA bytes), xempty (2 warpgroups),
+// conv (one arrival and the other blocks' bytes), wempty (C x 2
+// warpgroups) a stage slot; rfull (one arrival and the TMA bytes), rempty
+// (one) a raw slot.
+__global__ void __launch_bounds__(kNxThreads, 1)
+natx_cluster_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_s,
+                    const float* __restrict__ scales,
+                    const float* __restrict__ dx, int M, int K, int N,
+                    int n_out, float* __restrict__ y) {
+  constexpr int S = kNxStages;
+  __shared__ __align__(16) float s8s[kNxBN];
+  __shared__ float4 red[kNxConvThreads];
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t xs = (raw + 1023) & ~1023u;     // the xq ring
+  const uint32_t ws = xs + S * kNxTile;          // the weight ring
+  const uint32_t rs = ws + S * kNxTile;          // the raw ring
+  uint8_t* base = smem_raw + (xs - raw);
+  const uint32_t bars = rs + kNxRawBytes;
+  const uint32_t xfull = bars, xempty = xfull + 8 * S, conv = xempty + 8 * S;
+  const uint32_t wempty = conv + 8 * S, rfull = wempty + 8 * S;
+  const uint32_t rempty = rfull + 8 * kNxMaxRaw;
+  const int C = gridDim.x, rank = (int)hopper::cluster_rank();
+  const int share = kNxBN / C, quads = share / 4;
+  const int qlog = 5 - (C >> 1);                  // log2(quads), C = 1, 2, 4
+  const int rslot = (kBK / 2 + kBK / 32 * 4) * share;   // raw bytes a stage
+  const int R = kNxRawBytes / rslot;                      // raw slots: 4 C
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kNxBN;
+  const int ns = n0 + rank * share;               // the share's first column
+  const int nk = (K + kBK - 1) / kBK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(xfull + 8 * s, 1);
+      mbar_init(xempty + 8 * s, kConsumers);
+      mbar_init(conv + 8 * s, 1);
+      mbar_init(wempty + 8 * s, C * kConsumers);
+    }
+    for (int r = 0; r < R; ++r) {
+      mbar_init(rfull + 8 * r, 1);
+      mbar_init(rempty + 8 * r, 1);
+    }
+    hopper::mbar_init_fence();
+  }
+  hopper::cluster_sync();      // every block's barriers exist before use
+
+  if (warp >= (kNxConsThreads + kNxConvThreads) / 32) {   // the producers
+    hopper::cluster_arrive();
+    const bool xq = warp == (kNxConsThreads + kNxConvThreads) / 32;
+    if (xq && lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S;
+        mbar_wait(xempty + 8 * s, ((kt / S) & 1) ^ 1);
+        mbar_expect_tx(xfull + 8 * s, kNxTile);
+        tma_load_2d(xs + s * kNxTile, &map_x, xfull + 8 * s, kt * kBK, m0);
+      }
+    } else if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int r = kt % R;
+        const uint32_t q = rs + r * rslot, full = rfull + 8 * r;
+        mbar_wait(rempty + 8 * r, ((kt / R) & 1) ^ 1);
+        mbar_expect_tx(full, rslot);
+        tma_load_2d(q, &map_q, full, ns, kt * (kBK / 2));
+        tma_load_2d(q + kBK / 2 * share, &map_s, full, ns, kt * (kBK / 32));
+      }
+    }
+    __syncwarp();
+    hopper::cluster_wait();
+  } else if (warp >= kNxConsThreads / 32) {        // the converters
+    const int ct = threadIdx.x - kNxConsThreads;
+    {
+      // s8 of the share: thread ct the column quad ct % quads, q blocks
+      // ct / quads, + step, ...; then the first quads threads reduce
+      const int step = kNxConvThreads / quads, n = ns + 4 * (ct % quads);
+      float4 mx = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (n < N) {
+        for (int kb = ct / quads; kb < K / 32; kb += step) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(
+              scales + (size_t)kb * N + n));
+          mx.x = fmaxf(mx.x, fabsf(v.x));
+          mx.y = fmaxf(mx.y, fabsf(v.y));
+          mx.z = fmaxf(mx.z, fabsf(v.z));
+          mx.w = fmaxf(mx.w, fabsf(v.w));
+        }
+      }
+      red[ct] = mx;
+      natx_conv_sync();
+      if (ct < quads) {
+        for (int j = 1; j < step; ++j) {
+          const float4 v = red[ct + j * quads];
+          mx.x = fmaxf(mx.x, v.x);
+          mx.y = fmaxf(mx.y, v.y);
+          mx.z = fmaxf(mx.z, v.z);
+          mx.w = fmaxf(mx.w, v.w);
+        }
+        const float f = (float)(8.0 / 127.0), lo = (float)1e-20;
+        const float sv[4] = {fmaxf(mx.x * f, lo), fmaxf(mx.y * f, lo),
+                             fmaxf(mx.z * f, lo), fmaxf(mx.w * f, lo)};
+        const uint32_t at = smem_u32(&s8s[rank * share + 4 * ct]);
+        for (int r = 0; r < C; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            hopper::st_cluster(hopper::mapa(at + 4 * c, r),
+                               __float_as_uint(sv[c]));
+      }
+      natx_conv_sync();
+      hopper::cluster_arrive();
+    }
+    const int grp = (warp - kNxConsThreads / 32) >> 2;
+    const int gt = ct % kNxGroup;
+    const int bytes = share * kBK;                   // the share's rows
+    for (int g = grp; g < nk; g += 2) {
+      const int s = g % S, r = g % R;
+      mbar_wait(rfull + 8 * r, (g / R) & 1);           // q4 bytes, scales
+      mbar_wait(wempty + 8 * s, ((g / S) & 1) ^ 1);
+      const uint8_t* q4 = base + (rs - xs) + r * rslot;
+      float* sc = reinterpret_cast<float*>(base + (rs - xs) + r * rslot +
+                                           kBK / 2 * share);
+      uint8_t* wt = base + (ws - xs) + s * kNxTile;
+      // the stage's scales divided by s8 in place, each once (__fdiv_rn:
+      // the plain version's IEEE division)
+      for (int i = gt; i < kBK / 32 * share; i += kNxGroup)
+        sc[i] = __fdiv_rn(sc[i], s8s[rank * share + (i & (share - 1))]);
+      asm volatile("bar.sync %0, %1;\n" ::"r"(2 + grp), "n"(kNxGroup)
+                   : "memory");
+      for (int u = gt; u < 4 * share; u += kNxGroup) {
+        // unit: row quarter qr of q block b, column quad c4 of the share
+        const int qr = u & 3, c4 = (u >> 2) & (quads - 1), b = u >> (2 + qlog);
+        const float4 d = *reinterpret_cast<const float4*>(
+            sc + b * share + 4 * c4);
+        const float scv[4] = {d.x, d.y, d.z, d.w};
+        uint32_t lo[4], hi[4];           // the low and high nibbles
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t word = *reinterpret_cast<const uint32_t*>(
+              q4 + (16 * b + 4 * qr + i) * share + 4 * c4);
+          lo[i] = word & 0x0F0F0F0Fu;
+          hi[i] = (word >> 4) & 0x0F0F0F0Fu;
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          uint32_t l4[4], h4[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            l4[i] = requant_magic(__byte_perm(lo[i], 0x4B000000u, 0x7440 + c),
+                                  scv[c]);
+            h4[i] = requant_magic(__byte_perm(hi[i], 0x4B000000u, 0x7440 + c),
+                                  scv[c]);
+          }
+          // the column's row of the tile; its bytes k = 32 b + 4 qr .. + 3
+          // (chunk 2 b) and 16 further on (chunk 2 b + 1)
+          const int row = rank * share + 4 * c4 + c, sw = row & 7;
+          uint8_t* at = wt + row * kBK + 4 * qr;
+          *reinterpret_cast<uint32_t*>(at + (((2 * b) ^ sw) << 4)) =
+              pack_low_bytes(l4);
+          *reinterpret_cast<uint32_t*>(at + (((2 * b + 1) ^ sw) << 4)) =
+              pack_low_bytes(h4);
+        }
+      }
+      hopper::fence_proxy_async();
+      asm volatile("bar.sync %0, %1;\n" ::"r"(2 + grp), "n"(kNxGroup)
+                   : "memory");
+      if (gt == 0) {
+        mbar_arrive(rempty + 8 * r);
+        const uint32_t mine = ws + s * kNxTile + rank * bytes;
+        for (int p = 0; p < C; ++p)
+          if (p != rank)
+            hopper::bulk_copy_cluster(hopper::mapa(mine, p), mine, bytes,
+                                      hopper::mapa(conv + 8 * s, p));
+        mbar_expect_tx(conv + 8 * s, (C - 1) * bytes);
+      }
+      __syncwarp();
+    }
+    hopper::cluster_wait();
+  } else {                                         // the consumers
+    // warpgroup wg owns rows m0 + 64 wg .. m0 + 64 wg + 63
+    hopper::cluster_arrive();
+    const int wg = warp >> 2, t = threadIdx.x & 127;
+    int acc[kNxBN / 2];
+#pragma unroll
+    for (int i = 0; i < kNxBN / 2; ++i) acc[i] = 0;
+    fence_regs<kNxBN / 2>(acc);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % S, ph = (kt / S) & 1;
+      mbar_wait(xfull + 8 * s, ph);                         // xq landed
+      mbar_wait(conv + 8 * s, ph);          // weight tile
+      const uint32_t a = xs + s * kNxTile + wg * 64 * kBK;
+      const uint32_t b = ws + s * kNxTile;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kBK; k += 32)
+        wgmma_n128(acc, sw128_desc(a + k), sw128_desc(b + k));
+      wgmma_commit();
+      fence_regs<kNxBN / 2>(acc);
+      wgmma_wait<1>();               // the previous stage's products are done
+      if (kt > 0) {
+        const int sp = (kt - 1) % S;
+        if (t == 0) mbar_arrive(xempty + 8 * sp);
+        if (kt - 1 < nk - S && t < C)
+          hopper::mbar_arrive_cluster(hopper::mapa(wempty + 8 * sp, t));
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs<kNxBN / 2>(acc);
+    hopper::cluster_wait();          // every block's s8 share has landed
+    store_natx(acc, m0 + wg * 64, n0, t, dx, s8s, M, n_out, y);
+  }
+  hopper::cluster_sync();
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -412,7 +737,6 @@ int launch_gemm(const void* xq, const float* dx, int M, int K,
   return (int)cudaGetLastError();
 }
 
-template <bool NORM>
 int int8_gemm(const void* xq, const void* dx, int M, int K, const void* qs,
               const void* scales, int N, void* s8, void* w8t, void* y,
               int n_out, int tile, void* stream) {
@@ -431,13 +755,13 @@ int int8_gemm(const void* xq, const void* dx, int M, int K, const void* qs,
   static bool attr = false;
   if (!attr) {
     cudaError_t err = cudaFuncSetAttribute(
-        requant_kernel<NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        requant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
   dim3 grid(xb, (nb + per - 1) / per);
-  requant_kernel<NORM><<<grid, kReqThreads, smem, s>>>(
+  requant_kernel<<<grid, kReqThreads, smem, s>>>(
       (const uint8_t*)qs, (const float*)scales, nb, N, K, per, (float*)s8,
       (int8_t*)w8t);
   cudaError_t err = cudaGetLastError();
@@ -447,6 +771,41 @@ int int8_gemm(const void* xq, const void* dx, int M, int K, const void* qs,
   if (tile == 0)
     return launch_gemm<256, 4>(xq, d, M, K, w8t, sc, N, (float*)y, n_out, s);
   return launch_gemm<128, 6>(xq, d, M, K, w8t, sc, N, (float*)y, n_out, s);
+}
+
+// B19's cluster size: the least power of two of 128-row blocks covering M.
+int natx_cluster(int M) { return M <= kBM ? 1 : M <= 2 * kBM ? 2 : 4; }
+
+cudaError_t natx_attributes() {
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t err = cudaFuncSetAttribute(
+        natx_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kNxSmem);
+    if (err != cudaSuccess) return err;
+    attr = true;
+  }
+  return cudaSuccess;
+}
+
+int launch_natx(const void* xq, const float* dx, int M, int K,
+                const void* qs, const float* scales, int N, float* y,
+                int n_out, cudaStream_t stream) {
+  cudaError_t err = natx_attributes();
+  if (err != cudaSuccess) return (int)err;
+  const int C = natx_cluster(M);
+  const int share = kNxBN / C;
+  const auto none = CU_TENSOR_MAP_SWIZZLE_NONE;
+  CUtensorMap map_x, map_q, map_s;
+  if (!make_map(&map_x, xq, M, K, kBK, kBM) ||
+      !hopper::make_map(&map_q, qs, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2,
+                        N, share, kBK / 2, none) ||
+      !hopper::make_map(&map_s, scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                        K / 32, N, share, kBK / 32, none))
+    return (int)cudaErrorInvalidValue;
+  return (int)hopper::launch_cluster(
+      natx_cluster_kernel, dim3(C, (N + kNxBN - 1) / kNxBN), dim3(kNxThreads),
+      C, kNxSmem, stream, map_x, map_q, map_s, scales, dx, M, K, N, n_out, y);
 }
 
 }  // namespace
@@ -461,17 +820,42 @@ extern "C" int q4_int8_gemm(const void* xq, const void* dx, int M, int K,
                             const void* qs, const void* scales, int N,
                             void* s8, void* w8t, void* y, int n_out,
                             int tile, void* stream) {
-  return int8_gemm<false>(xq, dx, M, K, qs, scales, N, s8, w8t, y, n_out,
-                          tile, stream);
+  return int8_gemm(xq, dx, M, K, qs, scales, N, s8, w8t, y, n_out, tile,
+                   stream);
 }
 
-// B19: as q4_int8_gemm with the normalized scales d / s8 f32 [K/32, N] in
-// place of the scales and s8 f32 [N] an input (both made by the caller):
-// w8 = round_half_even((q - 8) * sc_norm), y = (float(acc) * dx) * s8.
-extern "C" int q4_int8_gemm_norm(const void* xq, const void* dx, int M, int K,
-                                 const void* qs, const void* sc_norm, int N,
-                                 const void* s8, void* w8t, void* y,
-                                 int n_out, int tile, void* stream) {
-  return int8_gemm<true>(xq, dx, M, K, qs, sc_norm, N, const_cast<void*>(s8),
-                         w8t, y, n_out, tile, stream);
+// Kernel B19: xq int8 [M, K] and dx f32 [M] (B2's), qs uint8 [K/2, N], the
+// raw scales f32 [K/32, N] (1 <= M <= 512, K a multiple of 64, N of 16,
+// planes 16-byte aligned), y f32 [M, n_out]: y = (float(acc) * dx) * s8
+// with s8 as B3's and w8 = round_half_even((q - 8) * (d / s8)). One
+// launch; returns its CUDA error code.
+extern "C" int q4_int8_gemm_natx(const void* xq, const void* dx, int M,
+                                 int K, const void* qs, const void* scales,
+                                 int N, void* y, int n_out, void* stream) {
+  if (M < 1 || M > 4 * kBM || K % 64 || N % 16)
+    return (int)cudaErrorInvalidValue;
+  return launch_natx(xq, (const float*)dx, M, K, qs, (const float*)scales,
+                     N, (float*)y, n_out, (cudaStream_t)stream);
+}
+
+// How many of B19's clusters at M rows the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error code.
+extern "C" int q4_int8_natx_clusters(int M) {
+  cudaError_t err = natx_attributes();
+  if (err != cudaSuccess) return -(int)err;
+  const int C = natx_cluster(M);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1);
+  cfg.blockDim = dim3(kNxThreads);
+  cfg.dynamicSmemBytes = kNxSmem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, natx_cluster_kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }

@@ -57,17 +57,32 @@
 // prefill M:
 //   y = R(x) @ R(q * d) - 8 * bsum(x) @ d      f32 accumulation
 // with q the code 0..15 (no -8 in the weight) and bsum(x) [K/32, M] the f32
-// sum of the caller's unrounded x over each q block, made by PyTorch ops
-// before the launch (the JAX package makes it with XLA outside its kernel).
-// Three launches: the cast pass, bf16_wgmma_kernel<kSplit>, whose
-// converters write R(__fmul_rn(q, d)) (its split plan and merge are B5's),
-// then fold_kernel, which adds -8 * sum_b bsum[b, m] * d[b, n] to each
-// output once, after the product is whole (so a split plan adds it once,
-// not once a split): an f32 FFMA tile product on the CUDA cores (never
-// TF32), K' = K/32 deep, its sum for an output in block order. The fold
-// is 1/32 of the product's multiply-adds at the f32 rate, plus a read and
-// a write of y. In f32 mode the function is x @ ((q - 8) * d) in exact
-// arithmetic, so the port runs B5's f32 kernel there
+// sum of the caller's unrounded x over each q block. Two launches: the
+// cast pass, which also makes the fold's A operand from bsum (the JAX
+// package makes bsum with XLA before its kernel), and
+// bf16_wgmma_kernel<kSplit>, whose converters write R(__fmul_rn(q, d)) as
+// B5's do and whose products take the fold as one more k16 slice a stage
+// on the tensor cores, into the same f32 accumulators.
+// The TPU runs the fold as a dot at Precision.HIGHEST (bf16 multi-pass
+// products); here v = bsum and w = -8 d (exact) are each split into three
+// bf16 parts, v = h + m + l (rounded) and w = H + M + L (truncated), exact
+// in the normal range: each part takes the next 8 of f32's 24 significant
+// bits. A stage's
+// fold slice holds, for each of its two q blocks, 8 of the 9 part products
+// (hH, hM, mH, hL, mM, lH, mL, lM; lL, below 2^-31 |v w|, is left out):
+// every one exact in f32 (8 x 8 significant bits), summed in f32 by the
+// tensor cores. The fold's error is thus f32 summation error, as a HIGHEST
+// dot's; the CPU tests hold a model of it against the JAX body. Its A
+// operand [128 rows][16 slots] a stage (K-major, no swizzle) is written by
+// the cast pass, in the layout the slice reads, and staged by a bulk copy;
+// its B operand, 16 more K rows of the converted tile, by two fold warps
+// from the stage's scale rows, beside the converters (written by the
+// converters, both operands cost more; PERF.md). An A fragment in
+// registers made ptxas serialize the wgmmas: a stage's register set must
+// outlive the next stage's issue, which took a branch. A K split folds
+// its own stages' blocks, so each output gains the fold once, in the
+// deterministic split merge. In f32 mode the function is x @ ((q - 8) * d)
+// in exact arithmetic, so the port runs B5's f32 kernel there
 // (kernels/q4_variants.py).
 //
 // f32 mode, one launch: f32_gemm_kernel<AFFINE>, a true f32 product on the
@@ -137,14 +152,74 @@ __device__ __forceinline__ void cp_async16z(void* smem, const void* gmem,
                :: "r"(s), "l"(gmem), "r"(pred ? 16 : 0));
 }
 
+constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 4;
+constexpr int kFoldRows = 16;                    // B20: two q blocks of 8 slots
+constexpr int kFoldBBytes = kFoldRows * kBN * 2; // the fold's B rows
+constexpr int kFoldABytes = kBM * kFoldRows * 2; // and its A tile, a stage
+
+// B20's fold slice: slot j (0..7) of a q block pairs part kFoldA[j] of v =
+// bsum with part kFoldB[j] of w = -8 d (0 the high part, 1 the middle, 2
+// the low), two bits a slot: (h, H), (h, M), (m, H), (h, L), (m, M),
+// (l, H), (m, L), (l, M).
+constexpr uint32_t kFoldA = 0x9910, kFoldB = 0x6184;
+
+__device__ __forceinline__ int fold_part(uint32_t parts, int slot) {
+  return (parts >> (2 * slot)) & 3;
+}
+
+// Part `part` (0 high, 1 middle, 2 low) of v's three bf16 parts, v = h +
+// m + l: h = R(v), m = R(v - h), l = R(v - h - m) (the differences exact).
+__device__ __forceinline__ float split3(float v, int part) {
+  const float h = __bfloat162float(__float2bfloat16_rn(v));
+  const float m = __bfloat162float(__float2bfloat16_rn(v - h));
+  const float l = __bfloat162float(__float2bfloat16_rn((v - h) - m));
+  return part == 0 ? h : part == 1 ? m : l;
+}
+
+// The three bf16 parts of w = -8 d (exact) for 4 columns, by truncation:
+// H keeps the top 16 bits of w's pattern (8 significant bits), M those of
+// the exact rest w - H, and L = w - H - M has at most 8 significant bits
+// left, so w = H + M + L exactly. Each part as the packed pairs of columns
+// (0, 1) and (2, 3).
+__device__ __forceinline__ void fold_weight_parts(float4 d, uint2* part) {
+  const float w[4] = {-8.f * d.x, -8.f * d.y, -8.f * d.z, -8.f * d.w};
+  uint32_t p[3][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t h = __float_as_uint(w[c]) & 0xFFFF0000u;
+    const float r = w[c] - __uint_as_float(h);
+    const uint32_t m = __float_as_uint(r) & 0xFFFF0000u;
+    p[0][c] = h;
+    p[1][c] = m;
+    p[2][c] = __float_as_uint(r - __uint_as_float(m));
+  }
+#pragma unroll
+  for (int pt = 0; pt < 3; ++pt)
+    part[pt] = make_uint2(__byte_perm(p[pt][0], p[pt][1], 0x7632),
+                          __byte_perm(p[pt][2], p[pt][3], 0x7632));
+}
+
 // ---------------------------------------------------------------------------
 // 1. activation cast (bf16 mode)
 // ---------------------------------------------------------------------------
 
 // xb[m, k] = bf16(x[m, k]) for k < Kx, 0 for Kx <= k < K; four elements a
-// thread (Kx and K multiples of 4).
+// thread (Kx and K multiples of 4). FOLD (B20): also the fold's A operand
+// fa: for row m and q block b, the f32 sum v of x[m, 32 b .. 32 b + 31]
+// (zero past Kx; a thread sums its four, then the 8 threads of the block,
+// 8 consecutive lanes as K / 4 is a multiple of 8, by shuffles: a group of
+// 8 lies wholly past M * K / 4 or not at all) as its 8 slots, the kFoldA
+// parts of v, 16 bytes at fold_a_off(m, b, nks); a last block of even
+// index also zeroes the stage's other half.
+__device__ __forceinline__ size_t fold_a_off(int m, int b, int nks) {
+  return ((size_t)(m >> 7) * nks + (b >> 1)) * kFoldABytes +
+         (((m & 127) >> 3) * 2 + (b & 1)) * 128 + (m & 7) * 16;
+}
+
+template <bool FOLD>
 __global__ void cast_kernel(const float* __restrict__ x, int M, int Kx, int K,
-                            __nv_bfloat16* __restrict__ xb) {
+                            __nv_bfloat16* __restrict__ xb,
+                            uint8_t* __restrict__ fa) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int quads = K / 4;
   if (i >= (size_t)M * quads) return;
@@ -152,31 +227,58 @@ __global__ void cast_kernel(const float* __restrict__ x, int M, int Kx, int K,
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   if (k < Kx) v = *reinterpret_cast<const float4*>(x + (size_t)m * Kx + k);
   *reinterpret_cast<uint2*>(xb + (size_t)m * K + k) = pack_bf16x4(v);
+  if constexpr (FOLD) {
+    const unsigned grp = 0xFFu << (threadIdx.x & 24);
+    float sum = ((v.x + v.y) + v.z) + v.w;
+    sum += __shfl_xor_sync(grp, sum, 1);
+    sum += __shfl_xor_sync(grp, sum, 2);
+    sum += __shfl_xor_sync(grp, sum, 4);
+    if ((threadIdx.x & 7) == 0) {
+      const int b = k / 32, nks = (K + kBK - 1) / kBK;
+      float f[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) f[j] = split3(sum, fold_part(kFoldA, j));
+      const uint2 lo = pack_bf16x4(make_float4(f[0], f[1], f[2], f[3]));
+      const uint2 hi = pack_bf16x4(make_float4(f[4], f[5], f[6], f[7]));
+      *reinterpret_cast<uint4*>(fa + fold_a_off(m, b, nks)) =
+          make_uint4(lo.x, lo.y, hi.x, hi.y);
+      if ((b & 1) == 0 && b + 1 == K / 32)
+        *reinterpret_cast<uint4*>(fa + fold_a_off(m, b + 1, nks)) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
 // 2. the bf16 product on wgmma, the weight dequantized in shared memory
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 4;
 constexpr int kConsumers = 2;                    // warpgroups of 64 rows
 constexpr int kConsThreads = 128 * kConsumers;
 constexpr int kConvWarps = 8;
 constexpr int kConvThreads = 32 * kConvWarps;
-constexpr int kThreads = kConsThreads + kConvThreads + 32;   // + producer
 constexpr int kXBytes = kBM * kBK * 2;           // x tile, K-major
 constexpr int kWBytes = kBK * kBN * 2;           // converted weight tile
 constexpr int kQBytes = kBK / 2 * kBN;           // q4 bytes as stored
 constexpr int kSBytes = kBK / 32 * kBN * 4;      // scale (or mins) rows
 constexpr int kAtom = 1024;                      // 8 K rows x 64 columns
 constexpr int kKGroup = kBN / 64 * kAtom;        // bytes per 8 K rows
-
-template <bool AFFINE> struct Ring {
-  static constexpr int kRaw = kQBytes + kSBytes * (AFFINE ? 2 : 1);
-  // [x][converted weight][q4 | scales | mins], 1024-aligned stages (the
-  // swizzle's period, which the descriptors assume)
-  static constexpr int kStage = kXBytes + kWBytes + (kRaw + 1023) / 1024 * 1024;
-  static constexpr int kTx = kXBytes + kRaw;     // TMA bytes a stage
+template <int MODE> struct Ring {
+  static constexpr bool kFold = MODE == kSplit;
+  // B20: two warps that write the fold's B rows beside the converters (the
+  // register file is allocated for 20 warps either way)
+  static constexpr int kFoldWarps = kFold ? 2 : 0;
+  static constexpr int kThreads =
+      kConsThreads + kConvThreads + 32 * kFoldWarps + 32;   // + producer
+  // the converted tile (with B20's fold rows below the stage's 64), B20's
+  // fold A tile, and the raw bytes
+  static constexpr int kW = kWBytes + (kFold ? kFoldBBytes : 0);
+  static constexpr int kA = kFold ? kFoldABytes : 0;
+  static constexpr int kRaw = kQBytes + kSBytes * (MODE == kAffine ? 2 : 1);
+  // [x][converted weight][fold A][q4 | scales | mins], 1024-aligned stages
+  // (the swizzle's period, which the descriptors assume)
+  static constexpr int kStage = kXBytes + kW + kA + (kRaw + 1023) / 1024 * 1024;
+  static constexpr int kTx = kXBytes + kA + kRaw;   // loaded bytes a stage
   static constexpr int kSmem = kStages * kStage + 3 * kStages * 8 + 1024;
 };
 
@@ -234,16 +336,17 @@ struct Item {
 // its phase g / kStages). partial: f32 scratch of splits * 64 * 256 floats
 // a tile (splits > 1 only), counters: int32 zeros, one a tile.
 template <int MODE>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Ring<MODE>::kThreads, 1)
 bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                   const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_s,
                   const __grid_constant__ CUtensorMap map_m, int M, int N,
                   int Kc, int splits, int k_tiles, int n_out,
                   float* __restrict__ partial, int* __restrict__ counters,
-                  float* __restrict__ y) {
+                  float* __restrict__ y, const uint8_t* __restrict__ fa,
+                  int fa_stages) {
   constexpr bool AFFINE = MODE == kAffine;
-  using R = Ring<AFFINE>;
+  using R = Ring<MODE>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ int is_last;
   const uint32_t raw = smem_u32(smem_raw);
@@ -258,14 +361,15 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bars + 8 * s, 1);
-      mbar_init(bars + 8 * (kStages + s), kConvThreads);
+      mbar_init(bars + 8 * (kStages + s),
+                kConvThreads + 32 * R::kFoldWarps);
       mbar_init(bars + 8 * (2 * kStages + s), kConsumers);
     }
     hopper::mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp == (kConsThreads + kConvThreads) / 32) {    // the producer warp
+  if (warp == (R::kThreads - 32) / 32) {              // the producer warp
     if (lane == 0) {
       int g = 0;
       for (int w = blockIdx.x; w < items; w += gridDim.x) {
@@ -274,7 +378,7 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
           const int s = g % kStages;
           mbar_wait(bars + 8 * (2 * kStages + s), ((g / kStages) & 1) ^ 1);
           const uint32_t st = ring + s * R::kStage, full = bars + 8 * s;
-          const uint32_t q = st + kXBytes + kWBytes;
+          const uint32_t q = st + kXBytes + R::kW + R::kA;
           mbar_expect_tx(full, R::kTx);
           tma_load_2d(st, &map_x, full, kt * kBK, t.m0);
           tma_load_2d(q, &map_q, full, t.n0, kt * (kBK / 2));
@@ -282,10 +386,51 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
           if constexpr (AFFINE)
             tma_load_2d(q + kQBytes + kSBytes, &map_m, full, t.n0,
                         kt * (kBK / 32));
+          if constexpr (MODE == kSplit)   // the stage's fold A tile
+            hopper::bulk_load(
+                st + kXBytes + R::kW,
+                fa + ((size_t)(t.m0 / kBM) * fa_stages + kt) * kFoldABytes,
+                kFoldABytes, full);
         }
       }
     }
     return;
+  }
+
+  if constexpr (R::kFoldWarps > 0) {
+    if (warp >= (kConsThreads + kConvThreads) / 32) {    // B20's fold warps
+      // thread f the columns 4 (f % 32) .. + 3 and the fold rows f / 32 +
+      // kFoldWarps i: row r the kFoldB part of -8 d of q block r / 8
+      const int f = threadIdx.x - kConsThreads - kConvThreads;
+      const int n = 4 * (f & 31);
+      int n_st = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x)
+        n_st += Item(w, M, N, nk, k_tiles).nkt;
+      for (int g = 0; g < n_st; ++g) {
+        const int s = g % kStages;
+        mbar_wait(bars + 8 * s, (g / kStages) & 1);
+        uint8_t* st = ring_p + s * R::kStage;
+        const float* sc = reinterpret_cast<const float*>(
+            st + kXBytes + R::kW + R::kA + kQBytes);
+        uint8_t* wt = st + kXBytes;
+        uint2 part[2][3];
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          fold_weight_parts(
+              *reinterpret_cast<const float4*>(sc + b * kBN + n), part[b]);
+#pragma unroll
+        for (int i = 0; i < kFoldRows / R::kFoldWarps; ++i) {
+          const int row = (f >> 5) + R::kFoldWarps * i;
+          const int pt = fold_part(kFoldB, row & 7);
+          const uint2* pb = part[i / (8 / R::kFoldWarps)];   // row / 8
+          *reinterpret_cast<uint2*>(wt + w_off(kBK + row, n)) =
+              pt == 0 ? pb[0] : pt == 1 ? pb[1] : pb[2];
+        }
+        hopper::fence_proxy_async();
+        mbar_arrive(bars + 8 * (kStages + s));
+      }
+      return;
+    }
   }
 
   if (warp >= kConsThreads / 32) {                     // the converters
@@ -303,7 +448,7 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
       const int s = g % kStages;
       mbar_wait(bars + 8 * s, (g / kStages) & 1);
       uint8_t* st = ring_p + s * R::kStage;
-      const uint8_t* q4 = st + kXBytes + kWBytes;
+      const uint8_t* q4 = st + kXBytes + R::kW + R::kA;
       const float* sc = reinterpret_cast<const float*>(q4 + kQBytes);
       uint8_t* wt = st + kXBytes;
       const float4 d0 = *reinterpret_cast<const float4*>(sc + n);
@@ -352,6 +497,11 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
         wgmma_bf16_n128(acc, hopper::sw128_desc(a + 32 * k),
                         hopper::sw128_mn_desc(b + 2 * kKGroup * k, kAtom,
                                               kKGroup));
+      if constexpr (MODE == kSplit)    // the fold slice: A K-major, 8-row
+        wgmma_bf16_n128(                 // groups 256 bytes apart
+            acc, hopper::plain_desc(b + R::kW + wg * 2048, 128, 256),
+            hopper::sw128_mn_desc(b + 2 * kKGroup * (kBK / 16), kAtom,
+                                  kKGroup));
       wgmma_commit();
       fence_regs<64>(acc);
       wgmma_wait<1>();               // the previous stage's products are done
@@ -567,93 +717,18 @@ f32_gemm_kernel(const float* __restrict__ x, int M, int Kx,
 }
 
 // ---------------------------------------------------------------------------
-// 4. B20's fold: y += -8 * bsum^T @ d, f32 on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kFoldM = 32, kFoldN = 128, kFoldK = 16, kFoldThreads = 256;
-
-// bsum f32 [nb, M] (row b: the f32 sums of q block b of each row of x),
-// scales f32 [>= nb, N], y f32 [M, n_out] (n_out <= N, N a multiple of 16).
-// Block (i, j) takes rows 32 j .. and columns 128 i ..; thread (ty, tx) =
-// (tid / 32, tid % 32) rows 4 ty + r and columns 4 tx + c. The q blocks
-// go 16 at a time through shared memory, the next 16 loaded into
-// registers while the current are summed; each output's sum runs over b
-// in order (fmaf), and y gains -8 times it once.
-__global__ void __launch_bounds__(kFoldThreads)
-fold_kernel(const float* __restrict__ bsum, const float* __restrict__ scales,
-            int M, int N, int nb, int n_out, float* __restrict__ y) {
-  __shared__ __align__(16) float sb[kFoldK][kFoldM];
-  __shared__ __align__(16) float sd[kFoldK][kFoldN];
-  const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
-  const int m0 = blockIdx.y * kFoldM, n0 = blockIdx.x * kFoldN;
-  // loads: bsum (16 x 32) two a thread, the scales (16 x 128) two float4
-  const int lb = tid >> 4, lm = 2 * (tid & 15);
-  const int ld = tid >> 4, ln = 8 * (tid & 15);
-  float rb[2];
-  float4 rd[2];
-  auto fetch = [&](int b0) {
-    const int b = b0 + lb;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      rb[i] = b < nb && m0 + lm + i < M ? bsum[(size_t)b * M + m0 + lm + i]
-                                        : 0.f;
-    const bool ok = b0 + ld < nb && n0 + ln < N;
-    const float* src = scales + (size_t)(b0 + ld) * N + n0 + ln;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      rd[i] = ok ? *reinterpret_cast<const float4*>(src + 4 * i)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  };
-  float c[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[r][j] = 0.f;
-  fetch(0);
-  for (int b0 = 0; b0 < nb; b0 += kFoldK) {
-    __syncthreads();                   // the last chunk's reads are done
-    sb[lb][lm] = rb[0];
-    sb[lb][lm + 1] = rb[1];
-    *reinterpret_cast<float4*>(&sd[ld][ln]) = rd[0];
-    *reinterpret_cast<float4*>(&sd[ld][ln + 4]) = rd[1];
-    __syncthreads();
-    if (b0 + kFoldK < nb) fetch(b0 + kFoldK);
-    const int kk_end = min(kFoldK, nb - b0);
-    for (int kk = 0; kk < kk_end; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&sb[kk][4 * ty]);
-      const float4 d = *reinterpret_cast<const float4*>(&sd[kk][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float dv[4] = {d.x, d.y, d.z, d.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[r][j] = fmaf(av[r], dv[j], c[r][j]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int m = m0 + 4 * ty + r;
-    if (m >= M) continue;
-    float* yr = y + (size_t)m * n_out;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (n < n_out) yr[n] = yr[n] + -8.f * c[r][j];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
+// mins: q4_1's mins [K/32, N] (kAffine); fa: B20's fold A plane (kSplit).
 template <int MODE>
 int launch_bf16(const void* xb, int M, int K, int Kc, const void* qs,
                 const void* scales, const void* mins, int N, int splits,
                 int k_tiles, int blocks, void* partial, void* counters,
-                float* y, int n_out, cudaStream_t stream) {
+                float* y, int n_out, cudaStream_t stream,
+                const void* fa = nullptr) {
   constexpr bool AFFINE = MODE == kAffine;
-  using R = Ring<AFFINE>;
+  using R = Ring<MODE>;
   static bool attr = false;
   if (!attr) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -674,9 +749,10 @@ int launch_bf16(const void* xb, int M, int K, int Kc, const void* qs,
                         CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K / 32, N, kBN,
                         kBK / 32, none))
     return (int)cudaErrorInvalidValue;
-  bf16_wgmma_kernel<MODE><<<blocks, kThreads, R::kSmem, stream>>>(
+  bf16_wgmma_kernel<MODE><<<blocks, R::kThreads, R::kSmem, stream>>>(
       map_x, map_q, map_s, map_m, M, N, Kc, splits, k_tiles, n_out,
-      (float*)partial, (int*)counters, y);
+      (float*)partial, (int*)counters, y, (const uint8_t*)fa,
+      (K + kBK - 1) / kBK);
   return (int)cudaGetLastError();
 }
 
@@ -730,8 +806,8 @@ extern "C" int q4_prefill_gemm(const void* x, int M, int Kx, const void* qs,
                                     counters, (float*)y, n_out, s);
   }
   const size_t quads = (size_t)M * (K / 4);
-  cast_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
-      (const float*)x, M, Kx, K, (__nv_bfloat16*)xb);
+  cast_kernel<false><<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
+      (const float*)x, M, Kx, K, (__nv_bfloat16*)xb, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int Kc = (Kx + 31) / 32 * 32;      // x is zero from Kx on
@@ -746,34 +822,27 @@ extern "C" int q4_prefill_gemm(const void* x, int M, int Kx, const void* qs,
 // Kernel B20 (bf16 mode): y f32 [M, n_out] = R(x) @ R(q * d) - 8 * bsum @ d
 // for a q4_0 weight, with q4_prefill_gemm's arguments in bf16 mode (x, M,
 // Kx, qs, scales, N, K, xb, the plan's splits, k_steps and blocks, partial,
-// counters, y, n_out) and bsum f32 [K/32, M] (row b the sums of q block b
-// of each row of x; rows at or past Kx's blocks zero). The cast pass, then
-// bf16_wgmma_kernel<kSplit> and fold_kernel. Returns the CUDA error code of
-// the launches.
+// counters, y, n_out) and fa, scratch of ceil(M / 128) * ceil(K / 64) * 4096
+// bytes (16-byte aligned) for the fold's A tiles, which the cast pass
+// writes. The cast pass, then bf16_wgmma_kernel<kSplit>. Returns the CUDA
+// error code of the launches.
 extern "C" int q4_prefill_split_gemm(const void* x, int M, int Kx,
                                      const void* qs, const void* scales,
-                                     int N, int K, const void* bsum,
-                                     void* xb, int splits, int k_steps,
-                                     int blocks, void* partial,
-                                     void* counters, void* y, int n_out,
-                                     void* stream) {
+                                     int N, int K, void* fa, void* xb,
+                                     int splits, int k_steps, int blocks,
+                                     void* partial, void* counters, void* y,
+                                     int n_out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (K % 32 || Kx % 4 || Kx > K || N % 16 || M < 1 || splits < 1 ||
-      k_steps < 1 || blocks < 1 || !bsum)
+      k_steps < 1 || blocks < 1 || !fa)
     return (int)cudaErrorInvalidValue;
   const size_t quads = (size_t)M * (K / 4);
-  cast_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
-      (const float*)x, M, Kx, K, (__nv_bfloat16*)xb);
+  cast_kernel<true><<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
+      (const float*)x, M, Kx, K, (__nv_bfloat16*)xb, (uint8_t*)fa);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int Kc = (Kx + 31) / 32 * 32;
-  err = (cudaError_t)launch_bf16<kSplit>(xb, M, K, Kc, qs, scales, nullptr,
-                                         N, splits, k_steps, blocks, partial,
-                                         counters, (float*)y, n_out, s);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_out + kFoldN - 1) / kFoldN, (M + kFoldM - 1) / kFoldM);
-  fold_kernel<<<grid, kFoldThreads, 0, s>>>(
-      (const float*)bsum, (const float*)scales, M, N, Kc / 32, n_out,
-      (float*)y);
-  return (int)cudaGetLastError();
+  return launch_bf16<kSplit>(xb, M, K, Kc, qs, scales, nullptr, N, splits,
+                             k_steps, blocks, partial, counters, (float*)y,
+                             n_out, s, fa);
 }

@@ -42,7 +42,8 @@ ARGTYPES = {
                        P],
     "quant_rows_int8": [P, I, I, I, P, P, P],
     "q4_int8_gemm": [P, P, I, I, P, P, I, P, P, P, I, I, P],
-    "q4_int8_gemm_norm": [P, P, I, I, P, P, I, P, P, P, I, I, P],
+    "q4_int8_gemm_natx": [P, P, I, I, P, P, I, P, I, P],
+    "q4_int8_natx_clusters": [I],
     "q4_prefill_gemm": [P, I, I, P, P, P, I, I, P, I, I, I, P, P, P, I, I,
                         P],
     "q4_prefill_split_gemm": [P, I, I, P, P, I, I, P, P, I, I, I, P, P, P,
@@ -73,7 +74,8 @@ LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
           "q4_floor_mma": "q4_decode", "q4_nosc_mma": "q4_decode",
           "q4_variant_mma": "q4_decode",
           "quant_rows_int8": "quant_rows", "q4_int8_gemm": "q4_int8",
-          "q4_int8_gemm_norm": "q4_int8",
+          "q4_int8_gemm_natx": "q4_int8",
+          "q4_int8_natx_clusters": "q4_int8",
           "q4_prefill_gemm": "q4_prefill",
           "q4_prefill_split_gemm": "q4_prefill",
           "decode_attention_fused": "decode_attention",

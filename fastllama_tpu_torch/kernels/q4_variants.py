@@ -28,13 +28,14 @@ rounding: f32 mode runs B1's f32 kernel for each of them, with f32 scales.
 Prefill bodies, x f32 [M, K]:
   int8 nat, natp   B2 + B3 (q4_matmul.quant_rows_int8 and
                    q4_matmul_prefill_int8); natp is bit-equal to nat
-  int8 natx, split B19 q4_prefill_int8_natx (bit-equal to each other)
+  int8 natx, split B2 + B19 q4_prefill_int8_natx (bit-equal to each
+                   other; one cluster kernel, csrc/q4_int8.cu)
   bf16 nat         B5 (q4_matmul.q4_matmul_prefill)
   bf16 split       B20 q4_prefill_split: R(x) @ R(q d) - 8 bsum(x) @ d,
                    v1's function at M <= 512 (decode_plain's v1 is its
-                   plain version); B5's kernel in its split mode and a
-                   fold kernel (csrc/q4_prefill.cu). In f32
-                   mode the split body is x @ ((q - 8) d) in exact
+                   plain version); the cast pass and one product kernel
+                   with the fold on the tensor cores (csrc/q4_prefill.cu).
+                   In f32 mode the split body is x @ ((q - 8) d) in exact
                    arithmetic, so it runs B5's f32 kernel (as the decode
                    variants run B1's)
 
@@ -249,12 +250,17 @@ def q4_matmul_pallas(x: torch.Tensor, qs: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 PREFILL_CHUNK_M = 512          # natx and split take M <= 512 (the JAX assert)
+# B20 runs B15's kernel (the same function, v1's) at M <= this, where the
+# split kernel's 128-row tiles are mostly empty and B15's kernel is faster
+# (chip_smoke.py phase 15 times both; PERF.md)
+B20_ON_B15_MAX_M = 8
 
 
 def natx_scales(scales: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(s8 f32 [N], the normalized scales d / s8 f32 [K/32, N]) of the natx
-    and split bodies: s8 as B3 takes it, max(max_K |d| * 8/127, 1e-20), and
-    a true division, where B3 multiplies by the reciprocal 1 / s8."""
+    and split bodies, as the JAX glue makes them: s8 as B3 takes it,
+    max(max_K |d| * 8/127, 1e-20), and a true division, where B3 multiplies
+    by the reciprocal 1 / s8. B19's kernel derives both itself, bit-equal."""
     s8 = torch.clamp(scales.abs().amax(dim=0) * (8.0 / 127.0), min=1e-20)
     return s8, scales / s8
 
@@ -277,9 +283,10 @@ def q4_prefill_int8_natx(x: torch.Tensor, qs: torch.Tensor,
                          n_out: int | None = None) -> torch.Tensor:
     """Kernel B19 (int8 natx and split): x f32 [M <= 512, K], qs uint8
     [K/2, N], scales f32 [K/32, N] -> f32 [M, n_out or N]. On the card: xq
-    and dx by B2 (bit-equal to the JAX glue), s8 and d / s8 by PyTorch ops
-    (the JAX glue's XLA ops), then B3's requantization pass in its
-    normalized-scales mode and B3's wgmma product unchanged."""
+    and dx by B2 (bit-equal to the JAX glue), then one launch of a cluster
+    kernel that derives s8 and d / s8 (an IEEE division) from the raw
+    scales, requantizes each weight tile once for the cluster of blocks that
+    covers M and runs B3's wgmma product on it; no int8 plane is made."""
     _check_planes(x, qs, scales)
     qm._require(scales.dtype == torch.float32, "scales must be f32")
     m = x.shape[0]
@@ -293,18 +300,17 @@ def q4_prefill_int8_natx(x: torch.Tensor, qs: torch.Tensor,
         t.is_contiguous() and t.device == x.device for t in (qs, scales)),
         "qs and scales must be contiguous on x's card")
     k = 2 * qs.shape[0]
-    qm._require(k % 64 == 0 and n % 4 == 0,
-                "stored K must be a multiple of 64 and stored N of 4")
+    qm._require(k % 64 == 0 and n % 16 == 0 and qs.data_ptr() % 16 == 0
+                and scales.data_ptr() % 16 == 0,
+                "stored K must be a multiple of 64, stored N of 16 and the "
+                "weight planes 16-byte aligned")
     xq, dx = qm.quant_rows_int8(x.contiguous(), k)
-    s8, sc = natx_scales(scales)
     dev = x.device
-    w8t = cuda_lib.scratch(dev, "q4_int8.w8t", n * k, torch.int8)
     y = torch.empty((m, n_out), dtype=torch.float32, device=dev)
-    rc = cuda_lib.fn("q4_int8_gemm_norm")(
-        xq.data_ptr(), dx.data_ptr(), m, k, qs.data_ptr(), sc.data_ptr(), n,
-        s8.data_ptr(), w8t.data_ptr(), y.data_ptr(), n_out,
-        qm.b3_plan(m, n, cuda_lib.sm_count(dev)), cuda_lib.stream_handle(dev))
-    cuda_lib.check(rc, "q4_int8_gemm_norm")
+    rc = cuda_lib.fn("q4_int8_gemm_natx")(
+        xq.data_ptr(), dx.data_ptr(), m, k, qs.data_ptr(), scales.data_ptr(),
+        n, y.data_ptr(), n_out, cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, "q4_int8_gemm_natx")
     q4_prefill_int8_natx.launches += 1
     return y
 
@@ -341,11 +347,13 @@ def q4_prefill_split(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
                      n_out: int | None = None) -> torch.Tensor:
     """Kernel B20 (the prefill split body, _q4mm_prefill_kernel): x f32
     [1 <= M <= 512, K], qs uint8 [K/2, N], scales f32 [K/32, N] -> f32
-    [M, n_out or N] = R(x) @ R(q d) - 8 bsum(x) @ d. bf16 mode: bsum by
-    PyTorch ops (as the JAX host side makes it), then B5's kernel in its
-    split mode (the weight R(q d)) and an f32 kernel that adds the fold
-    once an output, after the product's K splits are summed; counted here.
-    f32 mode: B5's f32 kernel, counted in
+    [M, n_out or N] = R(x) @ R(q d) - 8 bsum(x) @ d. bf16 mode: the cast
+    pass (which also makes the fold's operand from bsum, the block sums the
+    JAX host side makes), then B5's kernel in its split mode: the weight
+    R(q d) and, a stage at a time, the fold as one more tensor-core slice
+    of bf16 parts of bsum and -8 d (8 of their 9 part products: f32
+    summation error, as the JAX body's HIGHEST dot); at M <= 8 B15's
+    kernel; counted here. f32 mode: B5's f32 kernel, counted in
     q4_matmul.q4_matmul_prefill.launches. M > 512 raises, as the JAX
     body's assert does."""
     _check_planes(x, qs, scales)
@@ -371,7 +379,15 @@ def q4_prefill_split(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
                 "x's K must be a multiple of 4, stored N of 16 and the "
                 "weight planes 16-byte aligned")
     dev = x.device
-    bsum = _block_sums(qm._pad_k(x, k)).t().contiguous()     # [K/32, M]
+    if m <= B20_ON_B15_MAX_M:
+        y = _launch_decode(x, qs, scales, MODE_OF["v1"], n_out)
+        q4_prefill_split.launches += 1
+        return y
+    # the fold's A operand, written by the cast pass: 4 KB a (128-row tile,
+    # 64-deep stage) of K
+    fold_a = cuda_lib.scratch(dev, "q4_prefill.fold_a",
+                              -(-m // qm.B5_BM) * -(-k // qm.B5_BK) * 4096,
+                              torch.uint8)
     sms = cuda_lib.sm_count(dev)
     splits, k_steps = qm.b5_plan(m, n, -(-kx // 32) * 32, sms)
     tiles = -(-m // qm.B5_BM) * -(-n // qm.B5_BN)
@@ -384,7 +400,7 @@ def q4_prefill_split(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
     y = torch.empty((m, n_out), dtype=torch.float32, device=dev)
     rc = cuda_lib.fn("q4_prefill_split_gemm")(
         x.data_ptr(), m, kx, qs.data_ptr(), scales.data_ptr(), n, k,
-        bsum.data_ptr(), xb.data_ptr(), splits, k_steps,
+        fold_a.data_ptr(), xb.data_ptr(), splits, k_steps,
         min(tiles * splits, sms), partial.data_ptr(), counters.data_ptr(),
         y.data_ptr(), n_out, cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, "q4_prefill_split_gemm")

@@ -174,6 +174,70 @@ def test_natp_maps_onto_b3_bit_equal():
                   <= 2 * np.spacing(np.abs(natp)))
 
 
+def pack_codes(codes):
+    """qs uint8 [K/2, N] of codes [K, N] (0..15) in the split-K packing:
+    row 16 b + j holds K row 32 b + j low and 32 b + 16 + j high."""
+    k, n = codes.shape
+    c = codes.reshape(k // 32, 2, 16, n).astype(np.uint8)
+    return (c[:, 0] | (c[:, 1] << 4)).reshape(k // 2, n)
+
+
+def reciprocal_traps(k=1024, n=400, seed=30, traps=96):
+    """(qs, scales) of a q4_0 plane whose natx requantization tells d / s8
+    from d * (1 / s8): every column's largest scale is 0.02 (so s8 is one
+    value), and at `traps` (q block, column) places the scale is one whose
+    division and reciprocal product, times the block's code q - 8 (all 32
+    codes of that block), round to different integers. Found by scanning
+    the f32 neighbours of each rounding boundary (k + 1/2) s8 / |q - 8|."""
+    s8 = np.float32(np.float32(0.02) * np.float32(8.0 / 127.0))
+    inv = np.float32(np.float32(1.0) / s8)
+    found = []
+    for qm in (q for q in range(-8, 8) if q):
+        for b in range(128):
+            d0 = np.float32((b + 0.5) / abs(qm) * s8)
+            if d0 >= 0.02:
+                break
+            ds = (np.array([d0]).view(np.int32)
+                  + np.arange(-16, 17, dtype=np.int32)).view(np.float32)
+            wd = np.round(np.float32(qm) * (ds / s8).astype(np.float32))
+            wr = np.round(np.float32(qm) * (ds * inv).astype(np.float32))
+            found += [(d, qm + 8) for d in ds[wd != wr]]
+    rng = np.random.default_rng(seed)
+    nb = k // 32
+    scales = rng.uniform(1e-3, 0.019, (nb, n)).astype(np.float32)
+    scales[0] = 0.02
+    codes = rng.integers(0, 16, (k, n))
+    for i, at in enumerate(rng.choice((nb - 1) * n, traps, replace=False)):
+        b, col = 1 + at // n, at % n
+        scales[b, col], codes[32 * b:32 * b + 32, col] = found[i % len(found)]
+    return pack_codes(codes), scales
+
+
+def natx_by_reciprocal(x, qs, scales):
+    """B19's plain version with B3's reciprocal product in place of the
+    division: what a kernel that multiplied by 1 / s8 would give."""
+    xq, dx = tqm.quant_rows_int8_plain(x, 2 * qs.shape[0])
+    s8, _ = qv.natx_scales(scales)
+    sc = scales * (torch.ones_like(s8) / s8)
+    w8 = torch.round((qv._codes(qs) - 8.0) * sc.repeat_interleave(32, dim=0))
+    acc = tqm.int8_accumulators(xq, w8).to(torch.float32)
+    return (acc * dx[:, None]) * s8[None, :]
+
+
+@pytest.mark.parametrize("m", [1, 65])
+def test_reciprocal_traps_tell_the_division_apart(m):
+    """On reciprocal_traps' plane (N 400: not a multiple of B19's 128-column
+    tile) B19's plain version is bit-equal to the JAX natx body in interpret
+    mode, and a reciprocal in place of its division changes outputs: the
+    plane the `cuda` test holds B19's kernel to bit for bit."""
+    qs, sc = reciprocal_traps()
+    x = acts(m, 1024, seed=31, scale=2.0)
+    args = (torch.from_numpy(x), torch.from_numpy(qs), torch.from_numpy(sc))
+    got = qv.q4_matmul_prefill_int8(*args, variant="natx")
+    np.testing.assert_array_equal(got.numpy(), jax_int8(x, qs, sc, "natx"))
+    assert (got != natx_by_reciprocal(*args)).sum().item() >= 8 * m
+
+
 def test_variant_wrappers_refuse_what_they_do_not_take():
     qs, sc = (torch.from_numpy(a) for a in planes())
     x = torch.from_numpy(acts(8))
@@ -242,6 +306,76 @@ def test_b20_is_v1s_function_at_decode_m(m):
     assert torch.equal(split, qv.decode_plain(*args, "v1"))
     nat = qv.q4_matmul_prefill_pallas(*args)
     assert (split - nat).abs().max().item() > 100 * 1e-4
+
+
+# B20's fold slots (csrc/q4_prefill.cu kFoldA, kFoldB): slot j pairs part
+# FOLD_A[j] of bsum with part FOLD_B[j] of -8 d (0 high, 1 middle, 2 low):
+# hH, hM, mH, hL, mM, lH, mL, lM
+FOLD_A = (0, 0, 1, 0, 1, 2, 1, 2)
+FOLD_B = (0, 1, 0, 2, 1, 0, 2, 1)
+
+
+def bf16_parts(v):
+    """v (f32) as three bf16 parts, high to low, in f32, each rounded (the
+    cast pass's split of bsum): v = h + m + l."""
+    h = v.to(torch.bfloat16).float()
+    m = (v - h).to(torch.bfloat16).float()
+    return h, m, ((v - h) - m).to(torch.bfloat16).float()
+
+
+def truncated_parts(w):
+    """w (f32) as three bf16 parts by truncation (the fold warps' split of
+    -8 d): the top 16 bits of w's pattern, those of the exact rest, and
+    what is left (at most 8 significant bits): w = H + M + L."""
+    h = (w.view(torch.int32) & -65536).view(torch.float32)
+    r = w - h
+    m = (r.view(torch.int32) & -65536).view(torch.float32)
+    return h, m, r - m
+
+
+def b20_model(x, qs, sc):
+    """B20's bf16 arithmetic as its kernel is built: R(x) @ R(q d), exact
+    products summed (float64 here, f32 on the tensor cores), plus the fold:
+    the cast pass's block sums (a thread's four x in order, then the 8
+    threads of a block pairwise, in f32) and -8 d, each as three bf16 parts
+    (rounded, truncated), and for each q block the 8 slot products FOLD_A x
+    FOLD_B, each exact, summed."""
+    x, qs, sc = (torch.from_numpy(a) for a in (x, qs, sc))
+    m, k = x.shape
+    w = (qv._codes(qs) * sc.repeat_interleave(32, dim=0)).to(
+        torch.bfloat16).double()
+    prod = x.to(torch.bfloat16).double() @ w
+    q = x.reshape(m, k // 32, 8, 4)
+    s = ((q[..., 0] + q[..., 1]) + q[..., 2]) + q[..., 3]
+    for _ in range(3):                  # the shuffles: lanes ^ 1, ^ 2, ^ 4
+        s = s[..., 0::2] + s[..., 1::2]
+    vp, wp = bf16_parts(s[..., 0]), truncated_parts(-8.0 * sc)
+    fold = sum(vp[a].double() @ wp[b].double()
+               for a, b in zip(FOLD_A, FOLD_B))
+    return (prod + fold).float().numpy()
+
+
+@pytest.mark.parametrize("m", [1, 64, 512])
+@pytest.mark.parametrize("k", [1024, 4096])
+def test_b20_fold_model_matches_the_jax_split_body(k, m):
+    """The model of B20's kernel (b20_model: the fold as bf16 part products
+    on the tensor cores) against the JAX split body (_q4mm_prefill_kernel,
+    its fold a HIGHEST dot) in interpret mode, within 1e-4 of max |y|, the
+    bound phase 15 holds the kernel to. The 8 slots leave out only l L,
+    below 2^-31 |v w| a block; what remains is f32 summation error (4e-7
+    to 1e-6 of max |y| measured). With the high parts alone (h H) the fold
+    would miss by 6e-3 to 1e-2 of max |y|: far past the bound."""
+    qs, sc = planes(k, 256, seed=32)
+    x = acts(m, k, seed=33)
+    want = jax_split(x, qs, sc, jnp.bfloat16)
+    got = b20_model(x, qs, sc)
+    top = np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-4 * top
+    xt = torch.from_numpy(x).reshape(m, k // 32, 32).sum(-1)
+    coarse = -8.0 * (xt.to(torch.bfloat16).double()
+                     @ torch.from_numpy(sc).to(torch.bfloat16).double())
+    exact = -8.0 * (xt.double() @ torch.from_numpy(sc).double())
+    assert (coarse - exact).abs().max().item() > 1e-4 * top
 
 
 # -- C1: the default decode function -----------------------------------------
@@ -498,9 +632,15 @@ def test_variant_kernels_match_plain(cuda_device, variant, m):
     assert torch.equal(got, qv.q4_matmul_pallas(xd, qd, sd, variant=base))
 
 
+# every cluster shape of B19 (1, 2 and 4 blocks of 128 rows) with its edges
+EDGE_ROWS = [1, 63, 65, 127, 129, 255, 257, 511, 512]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 256, 512])
+@pytest.mark.parametrize("m", EDGE_ROWS)
 def test_b19_kernel_bit_exact(cuda_device, m):
+    """B19 (B2, then one cluster launch) bit for bit against its plain
+    version at every cluster size and ragged M; each call counts one."""
     qs, sc = planes(1024, 512, seed=19)
     x = torch.from_numpy(acts(m, 1024, seed=20, scale=3.0)).to(cuda_device)
     qd, sd = (torch.from_numpy(a).to(cuda_device) for a in (qs, sc))
@@ -508,17 +648,33 @@ def test_b19_kernel_bit_exact(cuda_device, m):
     got = qv.q4_prefill_int8_natx(x, qd, sd)
     assert qv.q4_prefill_int8_natx.launches == before + 1
     assert torch.equal(got, qv.q4_prefill_int8_natx_plain(x, qd, sd))
+    assert torch.equal(got, qv.q4_prefill_int8_natx(x, qd, sd))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 64, 256, 512])
-@pytest.mark.parametrize("k", [1024, 11008])
+@pytest.mark.parametrize("m", [1, 129, 512])
+def test_b19_kernel_divides_at_ragged_n(cuda_device, m):
+    """B19 on reciprocal_traps' plane (N 400, a ragged last column tile;
+    scales whose d / s8 and d (1 / s8) requantize apart): bit-equal to its
+    plain version, which a reciprocal would not be."""
+    qs, sc = reciprocal_traps()
+    x = torch.from_numpy(acts(m, 1024, seed=34, scale=2.0)).to(cuda_device)
+    qd, sd = (torch.from_numpy(a).to(cuda_device) for a in (qs, sc))
+    got = qv.q4_prefill_int8_natx(x, qd, sd)
+    assert torch.equal(got, qv.q4_prefill_int8_natx_plain(x, qd, sd))
+    assert not torch.equal(got, natx_by_reciprocal(x, qd, sd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", EDGE_ROWS)
+@pytest.mark.parametrize("k", [4096, 11008])
 def test_b20_kernel_matches_plain(cuda_device, m, k):
-    """B20 on the card (B5's kernel in its split mode) against its plain
-    version at 1e-4 of max |y| in bf16 (K 11008 at M 1 and 64 runs a plan
-    with K splits: the fold is added once), and in f32 mode (B5's f32
-    kernel, counted as B5) at 1e-5; bit-equal twice, each launch
-    counted."""
+    """B20 on the card (the cast pass and B5's kernel in its split mode,
+    the fold on the tensor cores; B15's kernel at M = 1) against its plain
+    version at 1e-4 of max |y| in bf16 (at N 512 every plan splits K 8
+    ways: the fold is added once), and in f32 mode (B5's f32
+    kernel, counted as B5) at 1e-5; bit-equal twice, each launch counted
+    as B20's."""
     qs, sc = planes(k, 512, seed=28)
     x = torch.from_numpy(acts(m, k, seed=29)).to(cuda_device)
     qd, sd = (torch.from_numpy(a).to(cuda_device) for a in (qs, sc))
