@@ -218,9 +218,12 @@ Phases (any failure exits nonzero before the last line):
  14. the q4 matmul variants and the kernel switches: B15-B18 (the decode
      bodies v1/v4/v5, v2, v3 and v7 of the JAX package's
      q4_matmul_pallas; kernels/q4_variants.py) and the h forms (bf16
-     scales; v0h is B1's 2-byte-scale mode) against their plain versions
-     on the 7B planes at M = 1, 8 and 64 and the 13B qkv plane at M = 8,
-     twice and bit-equal, timed beside B1 and _weight_int4pack_mm; B19
+     scales; v0h is B1's 2-byte-scale mode) against their plain versions,
+     B15 and B17 (their own kernel, csrc/q4_fold.cuh) at M = 1, 8, 16, 33
+     and 64 on the 7B planes and the 13B qkv plane, the others at M = 1, 8
+     and 64 on the 7B planes and M = 8 on the 13B qkv plane, twice and
+     bit-equal, timed beside B1, B13 and _weight_int4pack_mm; B20 at
+     M <= 32 on qkv, one B20 launch and B15's kernel's result; B19
      (the int8 natx / split body) bit for bit on the 7B and 13B qkv planes
      at M = 512 (and 256), timed beside B2 + B3 and torch._int_mm;
      tools_torch/profile_q4_variants.py with every variant name in this
@@ -229,9 +232,12 @@ Phases (any failure exits nonzero before the last line):
      tokens) on the graph and the eager route, logits bit-equal and
      launches exact (B1 for the decode matmuls and the window's head, B5
      for the window's matmuls, no B2, B3 or B9); use_pallas=True (B15 in
-     place of B1); one window each under FASTLLAMA_PREFILL_INT8=0 and
+     place of B1, on the graph and the eager route); one window each
+     under FASTLLAMA_PREFILL_INT8=0 and
      FASTLLAMA_PREFILL_KERNEL=0 (B5, no B3) and FASTLLAMA_PREFILL_INT8=1
-     with use_pallas=False (B2 + B3);
+     with use_pallas=False (B2 + B3); use_pallas=True also on the eager
+     route, bit-equal, and the device time of a decode token and of the
+     n_batch 64 ingest under both switches;
  15. B20 (the prefill split body, v1's fold at prefill M: B5's kernel in
      its split mode) against its plain version on the 7B planes at M =
      512, 256, 64 and 1 and the 13B qkv at 512, bf16 (1e-4 of max |y|)
@@ -2054,7 +2060,7 @@ def kernel_device_us(prof) -> dict:
 
 
 def device_ms_by_name(torch, fn, calls: int, names,
-                      traces: int = 3) -> dict:
+                      traces: int = 5) -> dict:
     """Device ms per fn() call of the kernels whose names contain each of
     `names`, from a torch.profiler trace of `calls` calls: the launches of
     one wrapper timed apart.
@@ -4421,12 +4427,18 @@ def prefill_graphs_path(torch, dev, gen):
 # ---------------------------------------------------------------------------
 
 VARIANT_ROWS = (1, 8, 64)
+# B15 and B17 (v1, v3 and their h forms) at row counts that take their
+# kernel's plans apart: M <= 8 (8 rows of x, mma.sync), two m-tiles a
+# warpgroup (M <= 32) and one (M > 32), up to the 64 rows of one product
+FOLD_ROWS = (1, 8, 16, 33, 64)
+FOLD_KEYS = ("v1", "v1h", "v3", "v3h")
 # the decode variants held in phase 14 and their kernels (v0h: B1 with
 # 2-byte scales); v4 and v5 run B15 as v1 does
 VARIANT_KEYS = {"v1": "B15", "v2": "B16", "v3": "B17", "v7": "B18",
                 "v0h": "B1", "v1h": "B15", "v2h": "B16", "v3h": "B17",
                 "v7h": "B18"}
 SWITCH_GEN = 32              # greedy tokens of the use_pallas=False session
+PALLAS_GEN = 8               # greedy tokens of the use_pallas=True session
 
 
 def variant_kernels():
@@ -4455,22 +4467,31 @@ def reset_every_count():
 
 def check_variants(torch, dev, gen, results):
     """B15-B18 and the h forms (bf16 scales; v0h is B1's 2-byte-scale mode)
-    on the 7B planes qkv, wo, w13 and w2 at VARIANT_ROWS and on the 13B qkv
-    plane at M = 8: each within 1e-5 of sum |R(x)| (q + 8) |d| of its plain
-    version (only the f32 summation order differs), run twice and
-    bit-equal, timed over weight copies cycled past the L2 beside B1 (v0)
-    and _weight_int4pack_mm on the same plane and M; plain versions timed
-    at M = 8. B19 bit for bit on qkv at M = 512 and 256 and the 13B qkv at
+    on the 7B planes qkv, wo, w13 and w2 and the 13B qkv plane: B15 and B17
+    (csrc/q4_fold.cuh) at FOLD_ROWS on every one, B16, B18 and v0h at
+    VARIANT_ROWS on the 7B planes and M = 8 on the 13B one. Each within
+    1e-5 of sum |R(x)| (q + 8) |d| of its plain version (only the f32
+    summation order differs), run twice and bit-equal, timed over weight
+    copies cycled past the L2 (B16, B18 and v0h at M = 1 and 8) beside B1
+    (v0, B15's old skeleton), B13 (that skeleton's loads alone; on the 7B
+    planes at VARIANT_ROWS) and _weight_int4pack_mm on the same plane and
+    M; plain versions timed on qkv at M = 8. B20 at M <= B20_ON_B15_MAX_M
+    on qkv: one B20 launch (none of B15's), bit-equal to B15's kernel on
+    the same inputs. B19 bit for bit on qkv at M = 512 and 256 and the 13B qkv at
     M = 512, timed beside B2 + B3 (nat) and torch._int_mm of its int8
     plane; at qkv M = 512 the kernels of one call from a profile (B2's and
     one product kernel, no requantization pass) and the memory it
     allocates (its outputs, no [N, K] int8 plane)."""
+    from fastllama_tpu_torch.kernels import cuda_lib
+    from fastllama_tpu_torch.kernels import q4_floor as qf
     from fastllama_tpu_torch.kernels import q4_matmul as qm
     from fastllama_tpu_torch.kernels import q4_variants as qv
-    out = {k: [] for k in ("B15", "B16", "B17", "B18", "B19", "B1h")}
-    cases = [(p, VARIANT_ROWS) for p in PLANES_7B[:4]] + [
-        (PLANES_13B[0], (8,))]
-    for (name, k, n), rows in cases:
+    out = {k: [] for k in ("B15", "B16", "B17", "B18", "B19", "B1h",
+                           "B20_on_B15")}
+    sms = cuda_lib.sm_count(dev)
+    for plane, is_13b in [(p, False) for p in PLANES_7B[:4]] + [
+            (PLANES_13B[0], True)]:
+        name, k, n = plane
         w = rand_weight(torch, k, n, gen, dev)
         wbytes = weight_bytes(w)
         ws = [w] + [rand_weight(torch, k, n, gen, dev)
@@ -4479,17 +4500,25 @@ def check_variants(torch, dev, gen, results):
         packs = int4pack_packs(torch, ws)
         absum_w = (qv._codes(w.qs) + 8.0) * w.scales.abs().repeat_interleave(
             32, dim=0)
-        n_st = w.qs.shape[1]
-        for m in rows:
+        n_st, nb = w.qs.shape[1], w.qs.shape[0] // 16
+        for m in FOLD_ROWS:
             x = torch.randn((m, k), generator=gen, device=dev)
             absum = (qm._pad_k(x.abs(), w.k).to(torch.bfloat16).float()
                      @ absum_w).max().item()
             it = iter(range(10**9))
             b1_ms = time_ms(lambda: qm.q4_matmul_decode(
-                x, ws[next(it) % len(ws)]), calls=4 * len(ws))
+                x, ws[next(it) % len(ws)]), calls=2 * len(ws))
+            xk = qm._pad_k(x, w.k)
+            b13_ms = (time_ms(lambda: qf.q4_floor(
+                xk, ws[next(it) % len(ws)].qs), calls=2 * len(ws))
+                if m in VARIANT_ROWS and not is_13b else None)
             lib = int4pack_row(torch, packs, x,
                                qm.q4_matmul_dequant(x, w), n)
             for variant, key in VARIANT_KEYS.items():
+                fold = variant in FOLD_KEYS
+                if m not in (FOLD_ROWS if fold else (8,) if is_13b
+                             else VARIANT_ROWS):
+                    continue
                 base, h = variant.rstrip("h"), variant.endswith("h")
                 scs = sc16 if h else [ww.scales for ww in ws]
 
@@ -4504,10 +4533,14 @@ def check_variants(torch, dev, gen, results):
                 require(bool(torch.isfinite(y).all()), f"{label}: not finite")
                 require(err <= tol, f"{label}: err {err} > {tol}")
                 require(torch.equal(y, again), f"{label}: not deterministic")
-                ms = time_ms(lambda: call(next(it) % len(ws)),
-                             calls=4 * len(ws))
+                # B16, B18 and v0h timed at M = 1 and 8 (their rows of the
+                # table)
+                ms = (time_ms(lambda: call(next(it) % len(ws)),
+                              calls=2 * len(ws)) if fold or m in (1, 8)
+                      else None)
                 plain_ms = (time_ms(lambda: qv.decode_plain(
-                    x, w.qs, scs[0], base), calls=2) if m == 8 else None)
+                    x, w.qs, scs[0], base), calls=2)
+                    if m == 8 and name == "qkv" else None)
                 nbytes = (w.qs.numel() + w.scales.numel() * (2 if h else 4)
                           + x.numel() * 4 + m * n_st * 4)
                 bnd, by = bound_ms(nbytes, 2.0 * m * k * n, "bf16")
@@ -4515,10 +4548,32 @@ def check_variants(torch, dev, gen, results):
                            + (" bf16 scales" if h else ""), variant=variant,
                            max_abs_err=err, tol=tol, ms=ms,
                            plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                           bound_share=bnd / ms, b1_ms=b1_ms,
-                           vs_b1=ms / b1_ms, **lib)
+                           b1_ms=b1_ms, b13_ms=b13_ms, **lib)
+                if ms:
+                    row.update(bound_share=bnd / ms, vs_b1=ms / b1_ms)
+                    if lib.get("library_ms"):
+                        row["vs_library"] = ms / lib["library_ms"]
+                if fold:
+                    row["plan"] = qv.b15_plan(
+                        m, n_st, nb, sms, h, qv.b15_capacity(dev))._asdict()
                 out["B1h" if variant == "v0h" else key].append(row)
                 print(f"{key} {row}", flush=True)
+            if name == "qkv" and m <= qv.B20_ON_B15_MAX_M:
+                # B20 takes B15's kernel at these M: counted as B20 alone
+                before = (qv.q4_prefill_split.launches,
+                          qv.q4_decode_v1.launches)
+                y20 = qv.q4_prefill_split(x, w.qs, w.scales)
+                require((qv.q4_prefill_split.launches,
+                         qv.q4_decode_v1.launches) == (before[0] + 1,
+                                                       before[1]),
+                        f"B20 M={m}: launches not counted as B20's alone")
+                require(torch.equal(y20, qv.q4_decode_v1(x, w.qs, w.scales)),
+                        f"B20 M={m}: not B15's kernel's result")
+                def b20(xx=x):
+                    ww = ws[next(it) % len(ws)]
+                    return qv.q4_prefill_split(xx, ww.qs, ww.scales)
+                out["B20_on_B15"].append(dict(
+                    shape=f"qkv M={m}", ms=time_ms(b20, calls=2 * len(ws))))
         del ws, w, sc16, packs, absum_w
 
     # B19: the int8 natx / split function
@@ -4710,12 +4765,24 @@ def switches_path(torch, dev, gen):
         "use_pallas=False: replayed logits differ from the eager route's")
     require(gt == et, "use_pallas=False: greedy streams differ")
     res["use_pallas_false"] = dict(launches=gc, evals_bit_equal=len(gl))
-    counts, _, _ = switch_session(torch, hp, params, dev,
-                                  "use_pallas=True", 8, use_pallas=True)
-    expect_counts("use_pallas=True", counts, dict(
-        window, B15=(4 * layers + 1) * 7 + 1, B2=4 * layers, B3=4 * layers,
-        B4=layers * 7))
-    res["use_pallas_true"] = dict(launches=counts)
+    runs = {}
+    for route in ("graph", "eager"):
+        runs[route] = switch_session(
+            torch, hp, params, dev, f"use_pallas=True {route}", PALLAS_GEN,
+            eager=route == "eager", use_pallas=True)
+        expect_counts(f"use_pallas=True {route}", runs[route][0], dict(
+            window, B15=(4 * layers + 1) * (PALLAS_GEN - 1) + 1,
+            B2=4 * layers, B3=4 * layers, B4=layers * (PALLAS_GEN - 1),
+            RW=WINDOW_ROWS if route == "graph" else 0))
+    (counts, gl, gt), (_, el, et) = runs["graph"], runs["eager"]
+    require(len(gl) == len(el) == PALLAS_GEN and all(
+        np.array_equal(a, b) for a, b in zip(gl, el)),
+        "use_pallas=True: replayed logits differ from the eager route's")
+    require(gt == et, "use_pallas=True: greedy streams differ")
+    res["use_pallas_true"] = dict(launches=counts, evals_bit_equal=len(gl))
+    t0 = time.perf_counter()
+    res["device_times"] = pallas_device_times(torch, hp, params, dev)
+    res["device_times"]["seconds"] = time.perf_counter() - t0
     bf16_window = dict(window, B5=4 * layers, B1=1)
     for env, rcfg, want in (
             ({"FASTLLAMA_PREFILL_INT8": "0"}, {}, bf16_window),
@@ -4734,14 +4801,46 @@ def switches_path(torch, dev, gen):
     return res
 
 
+def pallas_device_times(torch, hp, params, dev):
+    """Device time of the 7B session under use_pallas=False (B1 at decode
+    M) and use_pallas=True (B15), one after the other: the 300-token
+    prompt's ingest
+    at n_batch 64 (five windows of M = 64 and the first token) and a decode
+    token, from torch.profiler traces of replayed graphs (profile_prefill,
+    profile_decode over 8 steps); an empty entry where the profiler saw no
+    device activity."""
+    prompt = prompt_of(N_PROMPT - 2, seed=1)
+    out = {}
+    for use_pallas in (False, True):
+        model, sess = make_session(hp, params, dev, n_batch=64,
+                                   use_pallas=use_pallas)
+        warm_up(sess, prompt)
+        window = profile_prefill(torch, sess, prompt)
+        decode = profile_decode(torch, sess, 8)
+        out[f"use_pallas_{str(use_pallas).lower()}"] = dict(
+            n_batch_64_ingest_device_ms=window.get("device_ms"),
+            decode_device_ms_per_token=decode.get("device_ms_per_token"),
+            top_kernels=decode.get("kernels", [])[:4])
+        del sess, model
+    print(f"use_pallas device times: {out}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def variants_path(torch, dev, gen):
     """Phase 14: B15-B19 against their plain versions, the variant tool
     with every variant, and the kernel switches' sessions."""
     checks = {}
+    t0 = time.perf_counter()
     check_variants(torch, dev, gen, checks)
+    t1 = time.perf_counter()
     tool = profile_variants_tool(torch)
+    t2 = time.perf_counter()
     switches = switches_path(torch, dev, gen)
-    return dict(checks=checks, tool=tool, switches=switches)
+    seconds = dict(checks=t1 - t0, tool=t2 - t1,
+                   switches=time.perf_counter() - t2)
+    print(f"phase 14 parts (s): {seconds}", flush=True)
+    return dict(checks=checks, tool=tool, switches=switches, seconds=seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -4768,7 +4867,8 @@ LONG_DEEP_ROWS, LONG_DEEP_PAGES = 4096, 528
 
 def check_b20(torch, dev, gen, results):
     """B20 (q4_variants.q4_prefill_split, the prefill split body: v1's fold
-    at prefill M; at M <= 8 B15's kernel) on the 7B planes qkv, wo, w13, w2
+    at prefill M; at M <= B20_ON_B15_MAX_M B15's kernel) on the 7B planes
+    qkv, wo, w13, w2
     at B20_ROWS and the 13B qkv at M = 512. bf16: against its plain version
     within 1e-4 of max |y|,
     run twice and bit-equal, timed beside B5 (nat) and, at M <= 64, B15 on
@@ -5532,12 +5632,14 @@ def main() -> int:
         # the variant bodies of q4_matmul_pallas (launched at :484 and
         # :498; v4 :308 and v5 :338 are bit-equal to v1) and of
         # q4_matmul_prefill_int8 (natx :715, launched at :1034; split :667,
-        # bit-equal, at :1047): B1's and B3's kernels in other modes
-        "B15": ("q4_decode_v1", "csrc/q4_decode.cu",
+        # bit-equal, at :1047): B15 and B17 their own kernel (built as
+        # csrc/q4_fold.cu and q4_fold_v3.cu), B16 and B18 B1's kernel in
+        # other modes, B19 its own
+        "B15": ("q4_decode_v1", "csrc/q4_fold.cuh",
                 "fastllama_tpu/kernels/q4_matmul.py:161"),
         "B16": ("q4_decode_v2", "csrc/q4_decode.cu",
                 "fastllama_tpu/kernels/q4_matmul.py:233"),
-        "B17": ("q4_decode_v3", "csrc/q4_decode.cu",
+        "B17": ("q4_decode_v3", "csrc/q4_fold.cuh",
                 "fastllama_tpu/kernels/q4_matmul.py:272"),
         "B18": ("q4_decode_v7", "csrc/q4_decode.cu",
                 "fastllama_tpu/kernels/q4_matmul.py:189"),
@@ -5641,7 +5743,8 @@ def main() -> int:
                                          "allocated_bytes_a_call",
                                          "clusters_a_card")})
             else:
-                kernels[-1].update(b1_ms=row["b1_ms"], vs_b1=row["vs_b1"])
+                kernels[-1].update(b1_ms=row["b1_ms"], vs_b1=row["vs_b1"],
+                                   b13_ms=row["b13_ms"])
             require(launches[key] > 0, f"kernel {key} was launched on no "
                     "path")
             continue

@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the port's wgmma kernels (B3 and B19 in
-// q4_int8.cu, B5 and B20 in q4_prefill.cu, B12 in flash_prefill.cu) and B21
-// (paged_flash.cu): mbarriers, TMA tile loads and their tensor maps, 1-D
+// q4_int8.cu, B5 and B20 in q4_prefill.cu, B12 in flash_prefill.cu, B15
+// and B17 in q4_fold.cu) and B21 (paged_flash.cu): mbarriers, TMA tile loads and their tensor maps, 1-D
 // bulk copies, shared-memory matrix descriptors, the wgmma fences, and the
 // thread block cluster's rank, distributed shared memory, cluster-scope
 // barriers and launch (B19).
@@ -64,6 +64,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
 // reads by the async proxy (wgmma reading a tile the threads wrote).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Fetch a tensor map (a kernel parameter) into the descriptor cache ahead
+// of its first copy.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,

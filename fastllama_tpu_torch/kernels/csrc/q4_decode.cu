@@ -1,12 +1,12 @@
 // Kernels B1 and B9: the decode-size 4-bit matmuls (W4A16 skinny GEMM /
 // GEMV) for q4_0 and for affine (q4_1 / GPTQ) weights, one template; B13
-// and B14, two probes of B1's tensor-core kernel, and B15-B18, the other
-// variants of the JAX decode kernel, as modes of it (below).
+// and B14, two probes of B1's tensor-core kernel, and B16 and B18, two
+// other variants of the JAX decode kernel, as modes of it (below).
 //
 // B1 (q4_gemv):
 // Replaces fastllama_tpu/kernels/q4_matmul.py::q4_matmul_pallas with the
 // function of its v0 body (_q4mm_kernel) and of q4_matmul_xla; the v1 body's
-// folded offset is B15, below. Computes y[M, n_out] f32 = x[M, K] @
+// folded offset is B15 (csrc/q4_fold.cu). Computes y[M, n_out] f32 = x[M, K] @
 // ((q - 8) * d) for M <= 64, reading the split-K packed planes as stored:
 //   qs     uint8 [K_pad/2, N]: byte (16*kb + j, n) holds element 32*kb + j in
 //          its low nibble and element 32*kb + 16 + j in its high nibble;
@@ -126,23 +126,21 @@
 // stages it (kFloor reads its low halves only), so the gaps between B13,
 // B14 and B1 are the unpack and the scale path, not x.
 //
-// B15-B18 (q4_variant_mma) replace the other bodies of q4_matmul_pallas,
-// each by its function (kernels/q4_variants.py), as modes of the same
-// kernel, B1's plan and loads; B1 itself computes v0's function:
-//   * kV1 (B15; v1, and v4 and v5, which are bit-equal to it): R(x) @ R(q d)
-//     - 8 bsum(x) @ d. B9's machinery with -8 d in place of the mins: the
-//     code q unshifted, one rounding of q d, the block sums of the
-//     unrounded x staged beside x, bsum * (-8 d) into the accumulators;
+// B16 and B18 (q4_variant_mma) replace two other bodies of
+// q4_matmul_pallas, each by its function (kernels/q4_variants.py), as modes
+// of the same kernel, B1's plan and loads; B1 itself computes v0's
+// function, and B15 (v1, v4, v5) and B17 (v3) run their own kernel
+// (csrc/q4_fold.cu):
 //   * kV2 (B16): sum_b d_b (R(x_b) @ q_b) - 8 bsum(x) @ d. The codes alone
 //     (exact in bf16) go into a fresh accumulator per m-tile and q block,
 //     both k16 steps, which is then scaled by d into the f32 accumulators
-//     (one m-tile at a time, so only 4 NT more registers);
-//   * kV3 (B17): R(x) @ R(q R(d)) - 8 bsum(x) @ d. The product of the codes
-//     and the rounded scale is one bf16 multiply (__hmul2; the product is
-//     rounded once, as XLA's bf16 multiply rounds it); the fold keeps d;
-//   * kV7 (B18): v1's weights, with the block sums of R(R(x_lo) + R(x_hi))
-//     over the 16 pairs of a q block, summed in f32 while x is staged
-//     (lane i < 4 of a q block's 8 takes its pairs from lane i + 4).
+//     (one m-tile at a time, so only 4 NT more registers); the block sums
+//     of the unrounded x are staged beside x (B9's machinery) and
+//     bsum * (-8 d) goes into the accumulators;
+//   * kV7 (B18): v1's weights R(q d) (the code unshifted, one rounding of
+//     q d), with the block sums of R(R(x_lo) + R(x_hi)) over the 16 pairs
+//     of a q block, summed in f32 while x is staged (lane i < 4 of a q
+//     block's 8 takes its pairs from lane i + 4).
 // SC16 (the "h" forms of the JAX tools, and B1 as v0h): the scales are bf16
 // [NB, N]; a ring stage carries 128 bytes of them (8 lanes' copies), read
 // as one 16-byte word a lane and widened to f32.
@@ -359,9 +357,8 @@ constexpr int kWarpCols = 64;            // columns of one warp
 constexpr int kStages = 4;
 constexpr int kRowStride = 80;           // bytes per packed row in a stage
 // The tensor-core kernel's modes: B1 (q4_0), B9 (affine), the probes B13
-// (kFloor) and B14 (kNosc), and the variants B15-B18 (kV1, kV2, kV3, kV7)
-enum Mode { kQ40 = 0, kQ41 = 1, kNosc = 2, kFloor = 3, kV1 = 4, kV2 = 5,
-            kV3 = 6, kV7 = 7 };
+// (kFloor) and B14 (kNosc), and the variants B16 (kV2) and B18 (kV7)
+enum Mode { kQ40 = 0, kQ41 = 1, kNosc = 2, kFloor = 3, kV2 = 5, kV7 = 7 };
 // planes of 64 values beside the packed rows in a ring stage: the scales
 // and, for an affine weight, the mins; none for the probes
 template <int MODE>
@@ -369,8 +366,7 @@ constexpr int kPlanes = MODE == kQ41 ? 2 : MODE == kNosc || MODE == kFloor
                                                ? 0 : 1;
 // the modes that add a term bsum(x) * p per q block (p: the mins, or -8 d)
 template <int MODE>
-constexpr bool kBsum = MODE == kQ41 || MODE == kV1 || MODE == kV2 ||
-                       MODE == kV3 || MODE == kV7;
+constexpr bool kBsum = MODE == kQ41 || MODE == kV2 || MODE == kV7;
 // a stage: 16 packed rows and the planes (SC16: 2-byte bf16 scales)
 template <int MODE, bool SC16>
 constexpr int kStageBytes =
@@ -673,13 +669,6 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
                 fmaf(z[nt][c], d[2 * mt + (c >> 1)], acc[mt][nt][c]);
       }
     } else {
-      // kV3: the scales rounded to bf16, for a bf16 x bf16 -> bf16 product
-      __nv_bfloat162 dh[8];
-      if constexpr (MODE == kV3) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          dh[c] = __bfloat162bfloat162(__float2bfloat16_rn(d[c]));
-      }
 #pragma unroll
       for (int step = 0; step < kSteps; ++step) {
 #pragma unroll
@@ -691,13 +680,7 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
             // rows; a2, a3: rows 2t+8/2t+9
             const int c = 2 * mt + (reg & 1);
             const float2 q = a_codes<RAW>(lo, hi, step, mt, reg, magic);
-            if constexpr (MODE == kV3) {
-              // R(q * R(d)): the codes are exact in bf16, one rounding of
-              // the product
-              __nv_bfloat162 p = __hmul2(
-                  __floats2bfloat162_rn(q.x, q.y), dh[c]);
-              a[reg] = *reinterpret_cast<uint32_t*>(&p);
-            } else if constexpr (SCALED) {
+            if constexpr (SCALED) {
               a[reg] = pack_bf16(q.x * d[c], q.y * d[c]);
             } else {
               a[reg] = pack_bf16(q.x, q.y);
@@ -922,10 +905,10 @@ extern "C" int q4_nosc_mma(const void* x, int M, int Kx, const void* qs,
                              n_out, stream);
 }
 
-// B1 (variant 0) with f32 or 2-byte scales and B15-B18, the modes of the
-// JAX package's q4_matmul_pallas variants (variant 1: v1's folded offset,
-// 2: v2's per-block scaling, 3: v3's bf16 product, 7: v7's block sums of
-// rounded pairs; kernels/q4_variants.py): as q4_gemv_mma, the scales f32
+// B1 (variant 0) with f32 or 2-byte scales, B16 and B18, the modes of the
+// JAX package's q4_matmul_pallas variants (2: v2's per-block scaling, 7:
+// v7's block sums of rounded pairs; kernels/q4_variants.py; v1 and v3 run
+// csrc/q4_fold.cu): as q4_gemv_mma, the scales f32
 // (sc16 = 0) or bf16 (sc16 = 1) [NB, N], 16-byte aligned. Returns the CUDA
 // error code of the launch.
 extern "C" int q4_variant_mma(const void* x, int M, int Kx, const void* qs,
@@ -940,9 +923,7 @@ extern "C" int q4_variant_mma(const void* x, int M, int Kx, const void* qs,
                                    splits, kb_per_split, nt, partial,        \
                                    counters, y, n_out, stream);
     FLTORCH_VARIANT(0, kQ40)
-    FLTORCH_VARIANT(1, kV1)
     FLTORCH_VARIANT(2, kV2)
-    FLTORCH_VARIANT(3, kV3)
     FLTORCH_VARIANT(7, kV7)
 #undef FLTORCH_VARIANT
     default: return (int)cudaErrorInvalidValue;

@@ -25,7 +25,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("q4_decode", "quant_rows", "q4_int8", "q4_prefill",
            "decode_attention", "paged_attention", "kv_write",
-           "flash_prefill", "paged_flash")
+           "flash_prefill", "paged_flash", "q4_fold", "q4_fold_v3")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,6 +40,11 @@ ARGTYPES = {
     "q4_nosc_mma": [P, I, I, P, I, I, I, I, I, I, P, P, P, I, P],
     "q4_variant_mma": [P, I, I, P, P, I, I, I, I, I, I, I, P, P, P, I, I,
                        P],
+    "q4_fold_gemm": [P, I, I, P, P, I, I, I, I, I, I, I, I, I, I, I, P, I,
+                     P, P],
+    "q4_fold_v3_gemm": [P, I, I, P, P, I, I, I, I, I, I, I, I, I, I, I, P,
+                        I, P, P],
+    "q4_fold_clusters": [I],
     "quant_rows_int8": [P, I, I, I, P, P, P],
     "q4_int8_gemm": [P, P, I, I, P, P, I, P, P, P, I, I, P],
     "q4_int8_gemm_natx": [P, P, I, I, P, P, I, P, I, P],
@@ -73,6 +78,8 @@ LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
           "q41_gemv": "q4_decode", "q41_gemv_mma": "q4_decode",
           "q4_floor_mma": "q4_decode", "q4_nosc_mma": "q4_decode",
           "q4_variant_mma": "q4_decode",
+          "q4_fold_gemm": "q4_fold", "q4_fold_clusters": "q4_fold",
+          "q4_fold_v3_gemm": "q4_fold_v3",
           "quant_rows_int8": "quant_rows", "q4_int8_gemm": "q4_int8",
           "q4_int8_gemm_natx": "q4_int8",
           "q4_int8_natx_clusters": "q4_int8",

@@ -575,10 +575,10 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
     M >= 256 in bf16 mode the int8 function its TPU computes (B2 + B3).
     The TPU's decode function, v1's fold (B15), rounds the same exact
     product in another order: the two sit within 1e-2 of max |y| of each
-    other (about 5e-3 to 7e-3 at K = 1024 and 4096, M = 1 and 8), and B15
-    took 1.03-1.07x B1's time on the 7B planes on the H100 (PERF.md), so
-    the default keeps B1 (tests/test_torch_q4_variants.py holds the bound
-    against the JAX v1 body).
+    other (about 5e-3 to 7e-3 at K = 1024 and 4096, M = 1 and 8); the
+    default keeps B1's function (tests/test_torch_q4_variants.py holds the
+    bound against the JAX v1 body), a choice of function and not of speed:
+    PERF.md times both kernels on the H100.
     The environment switches (use_int8) are read when a step runs eagerly
     or is captured, as the JAX package reads them when it traces.
 

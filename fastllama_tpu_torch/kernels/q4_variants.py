@@ -15,6 +15,11 @@ sum of the unrounded x over each 32-block of K:
   v3          R(x) @ R(q R(d)) - 8 bsum(x) @ d       B17 q4_decode_v3
   v7          R(x) @ R(q d) - 8 bsum7 @ d            B18 q4_decode_v7
 
+B15 and B17 run one kernel built for Hopper (csrc/q4_fold.cuh, on
+b15_plan: persistent blocks in clusters along K, weight stages by TMA,
+wgmma with the weight in registers); B16 and B18 are modes of B1's
+tensor-core kernel (csrc/q4_decode.cu).
+
 where x_b, q_b are the 32 columns of x and rows of the codes of q block b,
 and bsum7 sums R(R(x_lo) + R(x_hi)) in f32 over the 16 pairs of a block
 (x_lo, x_hi: its low and high halves). v4 and v5 are bit-equal to v1 in
@@ -46,6 +51,8 @@ the kernel against. Each counts its launches in `.launches`.
 """
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 
 from ..quant.tensor import QBLOCK, QuantMatmulWeight, unpack_codes
@@ -55,9 +62,11 @@ from . import q4_matmul as qm
 HALF = QBLOCK // 2
 DECODE_VARIANTS = ("v0", "v1", "v2", "v3", "v4", "v5", "v7")
 INT8_VARIANTS = ("nat", "natp", "natx", "split")
-# the kernel of each decode body in bf16 mode: its mode of the tensor-core
-# kernel (csrc/q4_decode.cu, q4_variant_mma's `variant`)
-MODE_OF = {"v0": 0, "v1": 1, "v4": 1, "v5": 1, "v2": 2, "v3": 3, "v7": 7}
+# the kernel of each decode body in bf16 mode: B15 and B17 their variant of
+# csrc/q4_fold.cuh (q4_fold_gemm, q4_fold_v3_gemm), the others their mode of
+# B1's tensor-core kernel (csrc/q4_decode.cu, q4_variant_mma's `variant`)
+FOLD_VARIANT = {"v1": 1, "v4": 1, "v5": 1, "v3": 3}
+MODE_OF = {"v0": 0, "v2": 2, "v7": 7}
 
 
 def _rounded(t: torch.Tensor) -> torch.Tensor:
@@ -171,6 +180,210 @@ def _launch_decode(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
     return y
 
 
+# ---------------------------------------------------------------------------
+# B15 and B17: the plan of csrc/q4_fold.cuh
+# ---------------------------------------------------------------------------
+
+# The kernel's constants (csrc/q4_fold.cuh): q blocks a K stage, the columns
+# of an m-tile (a consumer warpgroup takes two where M <= 32, else one; a
+# block one or two warpgroups), and the dynamic shared memory a plan may
+# lay out (the card's 232,448 bytes a block less 1024 for aligning the
+# base)
+B15_QB = 4
+B15_MTILE_COLS = 64
+B15_SMEM = 232448 - 1024
+B15_MAX_SPLITS = 8                 # a portable thread block cluster
+B15_MAX_M = 64
+# the consumer warpgroups of a block: two were the fastest on the 7B planes
+# at every M (tools_torch/b15_sweep.py, PERF.md)
+B15_WARPGROUPS = 2
+# the weight bytes a block aims to keep in flight: the ring's slots are as
+# many as reach this (and fit)
+B15_RING_BYTES = 80 * 1024
+# a split's merge (the partial tiles sent to the leader and added), in K
+# stages of one block's time
+B15_MERGE_STAGES = 2
+# mma.sync in place of wgmma at M <= this: one 8-row product a warp, 2-7%
+# faster than wgmma at M = 1 and 8 on the 7B planes
+# (tools_torch/b15_sweep.py, PERF.md)
+B15_SYNC_MAX_M = 8
+
+
+def b15_wg_cols(nw: int) -> int:
+    """The columns of a consumer warpgroup of B15's kernel at nw rows of
+    x: two m-tiles (128) at nw <= 32, else one (64) (csrc/q4_fold.cuh
+    mtiles)."""
+    return B15_MTILE_COLS * (2 if nw <= 32 else 1)
+
+
+class B15Plan(NamedTuple):
+    """A launch of B15's kernel: bn columns a tile (b15_wg_cols a consumer
+    warpgroup), qb q blocks a K stage, `stages` weight ring slots and
+    `xstages` x ring slots, `splits` blocks a cluster (each a run of `sps`
+    K stages of every tile it walks), `clusters` clusters walking the
+    column tiles, `items` tiles the busiest cluster takes, nw = M rounded
+    up to 8 (the rows of x a product takes), sync: mma.sync in place of
+    wgmma."""
+    bn: int
+    qb: int
+    stages: int
+    splits: int
+    sps: int
+    clusters: int
+    items: int
+    nw: int
+    sync: bool
+    xstages: int
+
+    @property
+    def wgs(self) -> int:
+        return self.bn // b15_wg_cols(self.nw)
+
+
+def b15_smem(wgs: int, nw: int, sc16: bool, stages: int, xstages: int,
+             splits: int) -> int:
+    """The bytes csrc/q4_fold.cuh's fold_layout lays out: `stages` weight
+    slots ([16 qb][BN] packed bytes and [qb][BN] scales, 1024-aligned),
+    `xstages` x slots (x f32 [nw][32 qb] as copied, 2 qb k16 tiles of
+    nw x 16 bf16 and [qb][nw] f32 block sums, 128-aligned), the leader's
+    S - 1 received partial tiles (BN x nw f32) and the barriers."""
+    bn = b15_wg_cols(nw) * wgs
+    ws = -(-(16 * B15_QB * bn + B15_QB * bn * (2 if sc16 else 4)) // 1024
+           ) * 1024
+    xs = -(-(nw * 32 * B15_QB * 4 + B15_QB * 32 * nw * 2 + B15_QB * nw * 4)
+           // 128) * 128
+    merge = (splits - 1) * bn * nw * 4 if splits > 1 else 0
+    return (stages * ws + xstages * xs + merge
+            + 8 * (2 * stages + 3 * xstages + 8))
+
+
+def b15_plan(m: int, n: int, nb: int, sms: int, sc16: bool = False,
+             capacity: Callable[[int], int] | None = None, *,
+             wgs: int | None = None, stages: int | None = None,
+             splits: int | None = None, clusters: int | None = None,
+             sync: bool | None = None) -> B15Plan:
+    """The plan of B15's kernel for M rows, N stored columns and nb q
+    blocks on a card of `sms` SMs. capacity(S) is how many clusters of S
+    blocks the card holds at once (the card's own answer,
+    cudaOccupancyMaxActiveClusters; sms // S without it). A block has
+    B15_WARPGROUPS consumer warpgroups (BN = 256 at M <= 32, 128 above).
+    Among S = 1..8 splits of the ceil(nb / 4) K stages the cost is the
+    rounds of tiles the busiest cluster takes times its stages and, if K is
+    split, a merge (B15_MERGE_STAGES); a tie goes to fewer splits. The
+    weight ring takes as many slots as keep B15_RING_BYTES in flight and
+    the x ring as many as the shared memory left by them and the merge
+    holds, the weight ring giving up slots where x's need them (at the
+    widest x, 32 KB of f32 a stage) to keep 3 x slots, or at least 2. The
+    keyword arguments pin a choice (tools_torch/b15_sweep.py)."""
+    if not 1 <= m <= B15_MAX_M:
+        raise ValueError(f"B15 takes 1 <= M <= {B15_MAX_M} rows")
+    if wgs not in (None, 1, 2):
+        raise ValueError("B15 takes 1 or 2 consumer warpgroups")
+    nw = -(-m // 8) * 8
+    nst = -(-nb // B15_QB)
+    cap = capacity or (lambda s: sms // s)
+    w = wgs or B15_WARPGROUPS
+    bn = b15_wg_cols(nw) * w
+    tiles = -(-n // bn)
+    # the weight bytes of a slot (the ring's depth aims at them)
+    ws = 16 * B15_QB * bn + B15_QB * bn * (2 if sc16 else 4)
+    best = None
+    for s in (splits,) if splits else range(1, B15_MAX_SPLITS + 1):
+        sps = -(-nst // s)
+        if -(-nst // sps) != s:
+            continue
+        fixed = b15_smem(w, nw, sc16, 0, 0, s)
+        wone = b15_smem(w, nw, sc16, 1, 0, s) - fixed
+        xone = b15_smem(w, nw, sc16, 0, 1, s) - fixed
+
+        def xdepth(depth):
+            return min(depth, (B15_SMEM - fixed - depth * wone) // xone)
+        if stages:
+            depth = stages
+        else:
+            # the x ring at least 3 deep where the weight ring can give up
+            # slots for it (at M = 64, 2 x slots took 1.2x the time of 3;
+            # b15_sweep.py), else at least 2
+            target = max(2, -(-B15_RING_BYTES // ws))
+            depth = next((d for d in range(target, 1, -1)
+                          if xdepth(d) >= 3), None) or next(
+                (d for d in range(target, 1, -1) if xdepth(d) >= 2), 0)
+        if depth < 2 or xdepth(depth) < 2:
+            continue
+        cl = clusters or min(tiles, cap(s))
+        if cl < 1:
+            continue
+        rounds = -(-tiles // cl)
+        cost = rounds * (sps + B15_MERGE_STAGES * (s > 1))
+        if best is None or (cost, s) < best[0]:
+            best = ((cost, s), B15Plan(
+                bn=bn, qb=B15_QB, stages=depth, splits=s, sps=sps,
+                clusters=cl, items=rounds, nw=nw,
+                sync=(m <= B15_SYNC_MAX_M if sync is None else sync),
+                xstages=xdepth(depth)))
+    if best is None:
+        raise ValueError(f"no B15 plan fits M={m}, N={n}, nb={nb} with "
+                         f"wgs={wgs}, stages={stages}, splits={splits}")
+    return best[1]
+
+
+_B15_CLUSTERS: dict[tuple[int, int], int] = {}
+_B15_PLANS: dict[tuple, B15Plan] = {}
+
+
+def b15_capacity(device) -> Callable[[int], int]:
+    """capacity(S) of `device` for b15_plan: how many of the kernel's
+    clusters of S blocks it holds at once, asked of the card once."""
+    def cap(s: int) -> int:
+        key = (device.index, s)
+        if key not in _B15_CLUSTERS:
+            _B15_CLUSTERS[key] = cuda_lib.fn("q4_fold_clusters")(s)
+        return _B15_CLUSTERS[key]
+    return cap
+
+
+def _launch_fold(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
+                 variant: int, n_out: int,
+                 plan: B15Plan | None = None) -> torch.Tensor:
+    """One launch of B15's kernel (variant 1: v1's function, 3: v3's) with
+    f32 or 2-byte scales, on b15_plan (or `plan`). The kernel reads x by
+    tensor copies, which take rows of a multiple of 16 bytes: x of another
+    K is padded with zeros to one."""
+    qm._require(x.device.type == "cuda", f"unsupported device {x.device}")
+    qm._require(all(t.is_contiguous() and t.device == x.device
+                    for t in (x, qs, scales)),
+                "x, qs and scales must be contiguous and on one card")
+    m, kx = x.shape
+    kh, n = qs.shape
+    qm._require(1 <= m <= B15_MAX_M,
+                f"x must have 1 <= M <= {B15_MAX_M} rows")
+    qm._require(n % 16 == 0 and qs.data_ptr() % 16 == 0
+                and scales.data_ptr() % 16 == 0,
+                "B15's kernel needs N % 16 == 0 and 16-byte aligned weight "
+                "planes")
+    nb = kh // HALF
+    dev = x.device
+    sc16 = scales.dtype == torch.bfloat16
+    if kx % 4 or x.data_ptr() % 16:
+        x = torch.nn.functional.pad(x, (0, -kx % 4)) if kx % 4 else x.clone()
+        kx = x.shape[1]
+    if plan is None:
+        key = (dev.index, m, n, nb, sc16)
+        plan = _B15_PLANS.get(key)
+        if plan is None:
+            plan = _B15_PLANS[key] = b15_plan(
+                m, n, nb, cuda_lib.sm_count(dev), sc16, b15_capacity(dev))
+    y = torch.empty((m, n_out), dtype=torch.float32, device=dev)
+    entry = "q4_fold_gemm" if variant == 1 else "q4_fold_v3_gemm"
+    rc = cuda_lib.fn(entry)(
+        x.data_ptr(), m, kx, qs.data_ptr(), scales.data_ptr(), int(sc16), n,
+        nb, variant, plan.wgs, plan.stages, plan.xstages, plan.splits,
+        plan.sps, plan.clusters, int(plan.sync), y.data_ptr(), n_out, None,
+        cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, entry)
+    return y
+
+
 def _decode_kernel(variant: str, doc: str):
     """The wrapper of the bf16-mode kernel of decode body `variant`."""
     def wrapper(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
@@ -179,7 +392,10 @@ def _decode_kernel(variant: str, doc: str):
         n_out = n_out or qs.shape[1]
         if x.device.type == "cpu":
             return decode_plain(x, qs, scales, variant)[:, :n_out]
-        y = _launch_decode(x, qs, scales, MODE_OF[variant], n_out)
+        if variant in FOLD_VARIANT:
+            y = _launch_fold(x, qs, scales, FOLD_VARIANT[variant], n_out)
+        else:
+            y = _launch_decode(x, qs, scales, MODE_OF[variant], n_out)
         wrapper.launches += 1
         return y
     wrapper.__name__ = wrapper.__qualname__ = f"q4_decode_{variant}"
@@ -190,17 +406,19 @@ def _decode_kernel(variant: str, doc: str):
 _SIG = ("x f32 [M <= 64, K], qs uint8 [K/2, N], scales f32 or bf16 "
         "[K/32, N] -> f32 [M, n_out or N]")
 q4_decode_v1 = _decode_kernel("v1", f"""Kernel B15 (v1, v4, v5): {_SIG}
-    = R(x) @ R(q d) - 8 bsum(x) @ d. B1's tensor-core kernel in mode kV1:
-    the weight rounded without its offset, the -8 folded back per q block
-    as bsum * (-8 d) into the f32 accumulators, as B9 adds its mins.""")
+    = R(x) @ R(q d) - 8 bsum(x) @ d. csrc/q4_fold.cuh on b15_plan: weight
+    stages by TMA into a ring on persistent blocks, R(q d) dequantized
+    into wgmma's A registers against every row of x at once, the -8 folded
+    back per q block as bsum * (-8 d) into f32 registers beside the
+    accumulators, K splits added in a thread block cluster.""")
 q4_decode_v2 = _decode_kernel("v2", f"""Kernel B16 (v2): {_SIG} =
     sum_b d_b (R(x_b) @ q_b) - 8 bsum(x) @ d. Mode kV2: the codes alone
     (exact in bf16) into a fresh MMA accumulator per q block, scaled by d
     into the f32 accumulators.""")
 q4_decode_v3 = _decode_kernel("v3", f"""Kernel B17 (v3): {_SIG} =
     R(x) @ R(q R(d)) - 8 bsum(x) @ d: a bf16 x bf16 product (one rounding)
-    of the codes and the rounded scales (mode kV3, __hmul2); the fold keeps
-    the f32 d.""")
+    of the codes and the rounded scales (one bf16x2 fma, as __hmul2
+    rounds), on B15's kernel; the fold keeps the f32 d.""")
 q4_decode_v7 = _decode_kernel("v7", f"""Kernel B18 (v7): {_SIG} =
     R(x) @ R(q d) - 8 bsum7(x) @ d, bsum7 from the bf16-rounded pair sums
     R(R(x_lo) + R(x_hi)), summed in f32 inside the kernel (mode kV7).""")
@@ -251,9 +469,16 @@ def q4_matmul_pallas(x: torch.Tensor, qs: torch.Tensor,
 
 PREFILL_CHUNK_M = 512          # natx and split take M <= 512 (the JAX assert)
 # B20 runs B15's kernel (the same function, v1's) at M <= this, where the
-# split kernel's 128-row tiles are mostly empty and B15's kernel is faster
-# (chip_smoke.py phase 15 times both; PERF.md)
-B20_ON_B15_MAX_M = 8
+# split kernel's 128-row tiles are mostly empty and B15's kernel is faster:
+# 1.0-3.2x at M = 8-32 on the 7B planes, and 1.2-2.0x slower at M = 64
+# (tools_torch/b15_sweep.py; chip_smoke.py phase 15 times both; PERF.md)
+B20_ON_B15_MAX_M = 32
+
+
+def b20_route(m: int) -> str:
+    """The kernel B20 takes at M rows in bf16 mode: "b15" (B15's kernel,
+    v1's function) or "split" (the cast pass and B5's split mode)."""
+    return "b15" if m <= B20_ON_B15_MAX_M else "split"
 
 
 def natx_scales(scales: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -352,9 +577,9 @@ def q4_prefill_split(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
     JAX host side makes), then B5's kernel in its split mode: the weight
     R(q d) and, a stage at a time, the fold as one more tensor-core slice
     of bf16 parts of bsum and -8 d (8 of their 9 part products: f32
-    summation error, as the JAX body's HIGHEST dot); at M <= 8 B15's
-    kernel; counted here. f32 mode: B5's f32 kernel, counted in
-    q4_matmul.q4_matmul_prefill.launches. M > 512 raises, as the JAX
+    summation error, as the JAX body's HIGHEST dot); at M <=
+    B20_ON_B15_MAX_M B15's kernel; counted here. f32 mode: B5's f32
+    kernel, counted in q4_matmul.q4_matmul_prefill.launches. M > 512 raises, as the JAX
     body's assert does."""
     _check_planes(x, qs, scales)
     qm._require(scales.dtype == torch.float32, "scales must be f32")
@@ -379,8 +604,8 @@ def q4_prefill_split(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
                 "x's K must be a multiple of 4, stored N of 16 and the "
                 "weight planes 16-byte aligned")
     dev = x.device
-    if m <= B20_ON_B15_MAX_M:
-        y = _launch_decode(x, qs, scales, MODE_OF["v1"], n_out)
+    if b20_route(m) == "b15":
+        y = _launch_fold(x, qs, scales, FOLD_VARIANT["v1"], n_out)
         q4_prefill_split.launches += 1
         return y
     # the fold's A operand, written by the cast pass: 4 KB a (128-row tile,

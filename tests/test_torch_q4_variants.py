@@ -603,6 +603,273 @@ def test_model_use_pallas_false_matches_the_jax_model(tmp_path, monkeypatch):
     close(tm.get_logits(), jm.get_logits(), 3e-2)
 
 
+# -- B15 and B17's kernel (csrc/q4_fold.cuh): its plan and its arithmetic ----
+
+# (K, N) planes: 7B (N padded as the tensor-core plans see them: 22016 and
+# 32000 are multiples of 64 but not of 128), 13B, and the 7B planes a rank
+# holds at tp 2 and tp 4 (tests/test_torch_q4_matmul.py's PLANES_7B_TP)
+B15_PLANES = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
+              (4096, 32000), (5120, 15360), (5120, 5120), (5120, 27648),
+              (13824, 5120), (4096, 6144), (2048, 4096), (4096, 11264),
+              (5504, 4096), (4096, 16384), (4096, 3072), (1024, 4096),
+              (4096, 5632), (2752, 4096), (4096, 8192)]
+# clusters a card holds at once, as an H100 answered for B19's clusters of 4
+# (30, not 33): a capacity below sms // S
+B15_CAPACITY = {1: 132, 2: 66, 3: 42, 4: 30, 5: 24, 6: 18, 7: 14, 8: 15}
+
+
+@pytest.mark.parametrize("k,n", B15_PLANES)
+@pytest.mark.parametrize("sc16", [False, True], ids=["f32", "bf16"])
+def test_b15_plan_covers_every_column_tile_and_q_block_once(k, n, sc16):
+    """For M = 1..64, with the card's own capacity and with sms // S: the
+    clusters' walks over the column tiles and their blocks' runs of K stages
+    cover each (column tile, q block) exactly once; clusters of at most 8,
+    at least 2 ring slots, shared memory within the 227 KB a block gets,
+    as csrc/q4_fold.cuh lays it out (what its entry points check)."""
+    nb = k // 32
+    for cap in (B15_CAPACITY.get, None):
+        for m in range(1, 65):
+            p = qv.b15_plan(m, n, nb, 132, sc16, cap)
+            assert p.nw == -(-m // 8) * 8 and p.qb == qv.B15_QB == 4
+            assert p.wgs == qv.B15_WARPGROUPS == 2
+            assert p.bn == (128 if m <= 32 else 64) * p.wgs
+            assert 1 <= p.splits <= 8 and p.stages >= 2
+            assert p.sync == (m <= qv.B15_SYNC_MAX_M == 8)
+            assert 2 <= p.xstages <= p.stages
+            assert qv.b15_smem(p.wgs, p.nw, sc16, p.stages, p.xstages,
+                               p.splits) <= qv.B15_SMEM == 232448 - 1024
+            tiles = -(-n // p.bn)
+            nst = -(-nb // 4)
+            assert p.clusters <= min(tiles, (cap or (lambda s: 132 // s))(
+                p.splits))
+            assert p.clusters * p.splits <= 132
+            assert p.items == -(-tiles // p.clusters)
+            assert (p.splits - 1) * p.sps < nst <= p.splits * p.sps
+            # the tiles of each cluster, the q blocks of each rank's run
+            walked = np.concatenate([np.arange(c, tiles, p.clusters)
+                                     for c in range(p.clusters)])
+            runs = np.concatenate([
+                np.arange(4 * z * p.sps, min(nb, 4 * (z + 1) * p.sps))
+                for z in range(p.splits)])
+            assert np.array_equal(np.sort(walked), np.arange(tiles))
+            assert np.array_equal(np.sort(runs), np.arange(nb))
+
+
+def test_b15_plan_splits_where_the_tiles_leave_sms_idle():
+    """The plan's choices on the 7B planes at M = 1 with a capacity as the
+    H100's: wo (32 tiles of 128) splits K, w13 at M = 64 fills the card
+    with tiles, and a pinned plan is taken as given or refused."""
+    wo = qv.b15_plan(1, 4096, 128, 132, False, B15_CAPACITY.get)
+    assert wo.splits > 1 and wo.clusters * wo.splits > 66
+    big = qv.b15_plan(64, 22016, 128, 132, False, B15_CAPACITY.get)
+    assert big.clusters * big.splits >= 100
+    pinned = qv.b15_plan(8, 4096, 128, 132, False, None, wgs=1, stages=3,
+                         splits=4, clusters=5, sync=True)
+    assert (pinned.bn, pinned.stages, pinned.splits, pinned.sps,
+            pinned.clusters, pinned.sync) == (128, 3, 4, 8, 5, True)
+    with pytest.raises(ValueError):
+        qv.b15_plan(64, 4096, 128, 132, wgs=2, stages=12, splits=8)
+    with pytest.raises(ValueError):
+        qv.b15_plan(65, 4096, 128, 132)
+
+
+def _bf16(a):
+    """f32 -> bf16 (round to nearest even) -> f32, in numpy."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _f32(a):
+    return np.asarray(a, dtype=np.float64).astype(np.float32)
+
+
+def b15_smem_image(rows, bn):
+    """The bytes of a stage's packed rows [R][bn] as the tensor copies lay
+    them out: boxes of 128 columns (64 where bn is not a multiple of 128),
+    one after the other, each swizzled (128-byte rows: 16-byte chunk ^ row
+    % 8; 64-byte rows: chunk ^ row / 2 % 4)."""
+    bw = 64 if bn % 128 else 128
+    img = np.zeros(rows.size, dtype=np.uint8)
+    for h in range(bn // bw):
+        box = img[h * rows.shape[0] * bw:(h + 1) * rows.shape[0] * bw]
+        for r in range(rows.shape[0]):
+            sw = (r & 7) if bw == 128 else ((r >> 1) & 3)
+            for c in range(bw // 16):
+                at = r * bw + ((c ^ sw) << 4)
+                box[at:at + 16] = rows[r, h * bw + 16 * c:h * bw + 16 * c + 16]
+    return img
+
+
+def b15_model(x, qs, sc, variant, plan, sc16=False):
+    """B15's and B17's kernel as built, in numpy: for each column tile and
+    split (the plan's), each K stage of 4 q blocks staged as the kernel
+    stages it (the packed rows in swizzled boxes, x as bf16 in wgmma's
+    K-major core-matrix layout, zeros past K and N), each consumer lane's A
+    registers (m-tile mt of its 2 MT columns c0 + 2 mt, + 1 of packed rows
+    2t, 2t+1, 2t+8, 2t+9, dequantized: v1 R(f32(q d)), v3 R(q R(d))) placed
+    by the m16n8k16 A-fragment map into its warpgroup's 64 x 16 tile, B
+    read from the x tile through the descriptor's offsets (LBO 128, SBO
+    256), the products exact and summed in float64 (the tensor cores sum in
+    f32), the fold as an f32 FMA a D register and q block in q block order,
+    acc + fold in f32, the D registers stored by the kernel's map, and the
+    leader's sum of the splits in split order. sc: f32 scales (their bf16
+    values when sc16)."""
+    m, kx = x.shape
+    k2, n = qs.shape
+    nb = k2 // 16
+    nw, bn, nst = plan.nw, plan.bn, -(-nb // 4)
+    mt_n, wgs, bw = (2 if nw <= 32 else 1), plan.wgs, 64 if bn % 128 else 128
+    tiles = -(-n // bn)
+    qpad = np.zeros((nst * 64, tiles * bn), dtype=np.uint8)
+    qpad[:k2, :n] = qs
+    spad = np.zeros((nst * 4, tiles * bn), dtype=np.float32)
+    spad[:nb, :n] = _bf16(sc) if sc16 else sc
+    xpad = np.zeros((nw, nst * 128), dtype=np.float32)
+    xpad[:m, :kx] = x
+    # the consumer threads of a warpgroup: warp w, lane (g, t)
+    tid = np.arange(128)
+    w, g, t = tid // 32, (tid % 32) // 4, tid % 4
+    rows4 = [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]
+    y = np.zeros((m, n), dtype=np.float32)
+    for tile in range(tiles):
+        parts = []
+        for z in range(plan.splits):
+            # [warpgroup, m-tile] -> D [A row, x row], fold alike
+            d_acc = np.zeros((wgs, mt_n, 64, nw))
+            fold = np.zeros((wgs, mt_n, 64, nw), dtype=np.float32)
+            for st in range(z * plan.sps, min(nst, (z + 1) * plan.sps)):
+                img = b15_smem_image(
+                    qpad[64 * st:64 * st + 64, tile * bn:(tile + 1) * bn], bn)
+                scs = spad[4 * st:4 * st + 4, tile * bn:(tile + 1) * bn]
+                xs = xpad[:, 128 * st:128 * st + 128]
+                # the x warps: bf16 tiles in the core-matrix layout, and the
+                # block sums (4 in order, then lanes ^ 1, ^ 2, ^ 4)
+                xt = np.zeros(4 * 2 * nw * 16, dtype=np.float32)
+                q4 = xs.reshape(nw, 4, 8, 4)
+                bsum = ((q4[..., 0] + q4[..., 1]) + (q4[..., 2] + q4[..., 3]))
+                for _ in range(3):
+                    bsum = bsum[..., 0::2] + bsum[..., 1::2]
+                bsum = bsum[..., 0].T                       # [b][row]
+                for b in range(4):
+                    for s in range(2):
+                        for kk in range(16):
+                            for r in range(nw):
+                                at = ((2 * b + s) * nw * 32 + (r >> 3) * 256 +
+                                      (kk >> 3) * 128 + (r & 7) * 16 +
+                                      (kk & 7) * 2) // 2
+                                xt[at] = xs[r, 32 * b + 16 * s + kk]
+                xt = _bf16(xt)
+                for wg in range(wgs):
+                    c0 = 64 * mt_n * wg + 16 * mt_n * w + 2 * mt_n * g
+                    cb = c0 % bw
+                    for b in range(4):
+                        slab = img[b * 16 * bw:]
+                        for mt in range(mt_n):
+                            byte = np.zeros((4, 2, 128), dtype=np.int64)
+                            for j, r in enumerate(rows4):
+                                sw = (r & 7) if bw == 128 else ((r >> 1) & 3)
+                                off = ((c0 // bw) * 64 * bw + r * bw +
+                                       (((cb >> 4) ^ sw) << 4) + (cb & 15) +
+                                       2 * mt)
+                                byte[j, 0] = slab[off]
+                                byte[j, 1] = slab[off + 1]
+                            d = scs[b, c0 + 2 * mt], scs[b, c0 + 2 * mt + 1]
+                            for s in range(2):
+                                # [row j][column e]
+                                code = (byte >> (4 * s)) & 15
+                                a = np.zeros((64, 16))
+                                for j in range(4):
+                                    for e in range(2):
+                                        q = code[j, e].astype(np.float64)
+                                        if variant == "v3":
+                                            v = _bf16(q * _bf16(d[e]))
+                                        else:
+                                            v = _bf16(_f32(q * d[e]))
+                                        # A row g (+ 8: column + 1), k 2t +
+                                        # j % 2 (+ 8: rows 2t+8, 2t+9)
+                                        a[16 * w + g + 8 * e,
+                                          2 * t + (j & 1) + 8 * (j >> 1)] = v
+                                kk, r = np.meshgrid(np.arange(16),
+                                                    np.arange(nw),
+                                                    indexing="ij")
+                                at = ((2 * b + s) * nw * 32 + (r >> 3) * 256 +
+                                      (kk >> 3) * 128 + (r & 7) * 16 +
+                                      (kk & 7) * 2) // 2
+                                d_acc[wg, mt] += a @ xt[at]
+                            # the fold: register 4j + c, A row g + 8 (c / 2),
+                            # x row 8j + 2t + c % 2
+                            for i in range(nw // 2):
+                                ra = 16 * w + g + 8 * ((i >> 1) & 1)
+                                xr = 8 * (i >> 2) + 2 * t + (i & 1)
+                                p = _f32(-8.0 * np.asarray(d[(i >> 1) & 1],
+                                                           dtype=np.float64))
+                                fold[wg, mt, ra, xr] = _f32(
+                                    bsum[b, xr].astype(np.float64) * p
+                                    + fold[wg, mt, ra, xr])
+            parts.append(_f32(d_acc) + fold)
+        tot = parts[0]
+        for part in parts[1:]:
+            tot = tot + part                       # f32, in split order
+        # the D registers stored: A row 16w + g + 8 (i / 2 % 2) of m-tile mt
+        # of warpgroup wg -> column c0 + 2 mt + i / 2 % 2
+        for wg in range(wgs):
+            c0 = 64 * mt_n * wg + 16 * mt_n * w + 2 * mt_n * g
+            for mt in range(mt_n):
+                for i in range(nw // 2):
+                    ra = 16 * w + g + 8 * ((i >> 1) & 1)
+                    xr = 8 * (i >> 2) + 2 * t + (i & 1)
+                    col = tile * bn + c0 + 2 * mt + ((i >> 1) & 1)
+                    ok = (xr < m) & (col < n)
+                    y[xr[ok], col[ok]] = tot[wg, mt, ra[ok], xr[ok]]
+    return y
+
+
+@pytest.mark.parametrize("m", [1, 5, 8, 13, 40, 64])
+@pytest.mark.parametrize("variant", ["v1", "v3"])
+def test_b15_model_matches_plain_and_the_jax_body(variant, m):
+    """The numpy model of B15's kernel (b15_model: the fragment maps, x's
+    K-major layout, the fold's FMAs and the split order) on a 1088 x 192
+    plane (34 q blocks; a ragged last tile) with K 1000 (x past its K is
+    zero; the last stage half past the plane), under plans of 1, 2 and 3
+    splits (an uneven last split), one and two consumer warpgroups (BN
+    128 and 256, or 64 in 64-column boxes and 128 above M = 32), f32 and
+    bf16 scales:
+    within 1e-5 of sum |R(x)| (q + 8) |d| of decode_plain and of the JAX
+    body in interpret mode (the products are exact; only the f32
+    summation order differs)."""
+    qs_full, sc_full = planes(1280, 256, seed=40)
+    qs, sc = qs_full[:544, :192].copy(), sc_full[:34, :192].copy()
+    x = acts(m, 1000, seed=41)
+    # the JAX body on the whole stored plane, x zero past its K: the rows
+    # and columns past the cut add nothing and are not compared
+    want_jax = jax_body(np.pad(x, ((0, 0), (0, 280))), qs_full, sc_full,
+                        variant, jnp.bfloat16)[:, :192]
+    for sc16, wgs, splits in ((False, 1, 1), (False, 2, 2), (True, 2, 3)):
+        tsc = torch.from_numpy(sc)
+        if sc16:
+            tsc = tsc.to(torch.bfloat16)
+        plan = qv.b15_plan(m, 192, 34, 132, sc16, wgs=wgs, splits=splits,
+                           clusters=1)
+        got = b15_model(x, qs, sc, variant, plan, sc16)
+        want = qv.decode_plain(torch.from_numpy(x), torch.from_numpy(qs), tsc,
+                               variant).numpy()
+        tol = 1e-5 * absum(np.pad(x, ((0, 0), (0, 88))), qs,
+                           tsc.float().numpy())
+        assert got.shape == want.shape == (m, 192)
+        assert np.abs(got - want).max() <= tol, (sc16, wgs, splits)
+        if not sc16:
+            assert np.abs(got - want_jax).max() <= tol, (wgs, splits)
+
+
+def test_b20_route_follows_b20_on_b15_max_m():
+    """B20 takes B15's kernel (v1's function) at M <= B20_ON_B15_MAX_M and
+    its split kernel above it; the split kernel's tiles are 128 rows."""
+    lim = qv.B20_ON_B15_MAX_M
+    assert 1 <= lim <= qv.B15_MAX_M
+    assert [qv.b20_route(m) for m in (1, lim, lim + 1, 512)] == [
+        "b15", "b15", "split", "split"]
+
+
 # -- on the card: each kernel against its plain version ----------------------
 
 @pytest.mark.cuda
@@ -630,6 +897,67 @@ def test_variant_kernels_match_plain(cuda_device, variant, m):
     assert (got - want).abs().max().item() <= 1e-5 * absum(
         x, qs, sd.float().cpu().numpy())
     assert torch.equal(got, qv.q4_matmul_pallas(xd, qd, sd, variant=base))
+
+
+# B15's kernel under pinned plans: (M, consumer warpgroups, splits, ring
+# slots, clusters, mma.sync), every row count NW = 8..64 of its products
+# among them; None: the wrapper's own plan
+B15_PINNED = [(1, 2, 1, 2, 1, False), (1, 1, 8, 4, None, False),
+              (1, 2, 3, 8, 2, True), (1, 1, 2, 6, None, False),
+              (5, 1, 2, 6, 3, True), (8, 1, 4, 4, None, False),
+              (13, 2, 2, 4, 1, False), (16, 1, 1, 4, None, False),
+              (24, 1, 1, 5, None, False), (33, 1, 3, 4, 2, False),
+              (40, 2, 1, 4, 3, False), (48, 2, 5, 2, None, False),
+              (56, 1, 2, 3, 1, False), (64, 2, 2, 3, None, False),
+              (64, 1, 8, 2, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sc16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", ["v1", "v3"])
+@pytest.mark.parametrize("pinned", B15_PINNED + [(m, None) for m in
+                                                 (1, 7, 8, 9, 16, 33, 64)],
+                         ids=str)
+def test_b15_kernel_matches_plain_under_every_plan_shape(cuda_device, pinned,
+                                                         variant, sc16):
+    """B15's kernel (v1) and B17's (v3) on a 4096 x 448 plane (a ragged
+    last tile; K 4000, or 3998, which the wrapper pads to a multiple of 4
+    for the tensor copies of x) under pinned plans (one and two consumer
+    warpgroups, 1-8 splits, 2-8 ring slots, clusters that walk several
+    tiles, mma.sync at M <= 8) and
+    under the wrapper's own plan (counted, with n_out 440): within 1e-5 of
+    sum |R(x)| (q + 8) |d| of the plain version, bit-equal twice."""
+    m = pinned[0]
+    qs, sc = planes(4096, 512, seed=42)
+    qs, sc = qs[:, :448].copy(), sc[:, :448].copy()
+    kx = 3998 if m in (5, 33) else 4000
+    x = acts(m, kx, seed=43)
+    qd, sd = (torch.from_numpy(a).to(cuda_device) for a in (qs, sc))
+    if sc16:
+        sd = sd.to(torch.bfloat16)
+    xd = torch.from_numpy(x).to(cuda_device)
+    kernel = qv.DECODE_KERNELS[variant]
+    if pinned[1] is None:
+        n_out = 440
+        before = kernel.launches
+        got = kernel(xd, qd, sd, n_out)
+        assert kernel.launches == before + 1
+        again = kernel(xd, qd, sd, n_out)
+    else:
+        _, wgs, splits, stages, clusters, sync = pinned
+        n_out = 448
+        plan = qv.b15_plan(m, 448, 128, 132, sc16, wgs=wgs, splits=splits,
+                           stages=stages, clusters=clusters, sync=sync)
+        got = qv._launch_fold(xd, qd, sd, qv.FOLD_VARIANT[variant], n_out,
+                              plan)
+        again = qv._launch_fold(xd, qd, sd, qv.FOLD_VARIANT[variant], n_out,
+                                plan)
+    want = qv.decode_plain(xd, qd, sd, variant)[:, :n_out]
+    tol = 1e-5 * absum(np.pad(x, ((0, 0), (0, 4096 - kx))), qs,
+                       sd.float().cpu().numpy())
+    assert got.shape == (m, n_out)
+    assert (got - want).abs().max().item() <= tol
+    assert torch.equal(got, again)
 
 
 # every cluster shape of B19 (1, 2 and 4 blocks of 128 rows) with its edges

@@ -30,6 +30,7 @@ from tools_torch import chat as t_chat  # noqa: E402
 from tools_torch import convert as t_convert  # noqa: E402
 from tools_torch import convert_lora as t_convert_lora  # noqa: E402
 from tools_torch import export_hf as t_export_hf  # noqa: E402
+from tools_torch import b15_sweep as t_b15_sweep  # noqa: E402
 from tools_torch import profile_prefill as t_profile_prefill  # noqa: E402
 from tools_torch import quantize as t_quantize  # noqa: E402
 
@@ -287,6 +288,63 @@ def test_profile_prefill_needs_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     assert t_profile_prefill.main(["--layers", "1"]) == 2
+    assert "no CUDA card" in capsys.readouterr().err
+
+
+def test_b15_sweep_arguments():
+    """tools_torch/b15_sweep.py: the 7B planes at M = 1, 8, 64 and B20
+    against B15 at M = 8-64 by default; planes, rows and the ablated builds
+    chosen on the command line; unknown planes and M outside 1..64
+    refused."""
+    import ast
+    ast.parse((REPO / "tools_torch" / "b15_sweep.py").read_text())
+    args = t_b15_sweep.parse_args([])
+    assert (args.planes, args.rows, args.b20_rows, args.no_builds) == (
+        ["qkv", "wo", "w13", "w2"], [1, 8, 64], [8, 16, 32, 64], False)
+    args = t_b15_sweep.parse_args(["--planes", "qkv13,wo", "--rows", "1,33",
+                                   "--b20-rows", "", "--no-builds"])
+    assert (args.planes, args.rows, args.b20_rows, args.no_builds) == (
+        ["qkv13", "wo"], [1, 33], [], True)
+    for bad in (["--planes", "qkv,head"], ["--rows", "65"], ["--rows", "0"],
+                ["--b20-rows", "128"]):
+        with pytest.raises(SystemExit):
+            t_b15_sweep.parse_args(bad)
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 33, 64])
+def test_b15_sweep_plans_fit_and_differ_as_named(m):
+    """The sweep's plans on the 7B w13 plane with the H100's cluster
+    capacity: each fits the 227 KB a block gets, each label changes what
+    it names and nothing else it can keep (stages_S the ring, splits_S the
+    split, one_cluster_an_item the grid, wgmma the product, at M <= 8
+    only)."""
+    from fastllama_tpu_torch.kernels import q4_variants as qv
+    cap = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}.get
+    plans = t_b15_sweep.plans(m, 22016, 128, 132, cap)
+    base = plans["plan"]
+    other = "wgmma" if base.sync else "mma_sync"
+    assert (other in plans) == (m <= 8) and base.sync == (m <= 8)
+    assert plans["one_cluster_an_item"] == base._replace(
+        clusters=-(-22016 // base.bn), items=1)
+    for label, p in plans.items():
+        assert 2 <= p.xstages <= p.stages
+        assert qv.b15_smem(p.wgs, p.nw, False, p.stages, p.xstages,
+                           p.splits) <= qv.B15_SMEM
+        if label.startswith("stages_"):
+            assert p._replace(xstages=0) == base._replace(
+                stages=int(label[7:]), xstages=0)
+        if label.startswith("splits_"):
+            assert p.splits == int(label[7:]) and p.bn == base.bn
+        if label == "one_warpgroup":
+            assert p.wgs == 1 and base.wgs == 2
+
+
+def test_b15_sweep_needs_a_card(capsys):
+    """Without a card the sweep refuses (exit code 2) before it builds or
+    times anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert t_b15_sweep.main(["--rows", "1"]) == 2
     assert "no CUDA card" in capsys.readouterr().err
 
 
