@@ -138,15 +138,17 @@ Phases (any failure exits nonzero before the last line):
  10. multi-GPU serving (parallel/) in worlds of ranks spawned with
      torch.multiprocessing, gloo, every rank on cuda:0 (time-slicing the
      card: their ms per token are printed as such, not as a TP speed), on
-     phase 5's 8-layer q4_0 and 2-layer q4_1 GGJT files, each held against
-     the one-card run of the same file: world (1, 2) the TP session
-     (300-token prompt, int8 then bf16-exact prefill, 64 greedy tokens;
+     a 2-layer q4_0 GGJT file written here and phase 5's 2-layer q4_1 GGJT
+     file, each held against the one-card run of the same file: world
+     (1, 2) the TP session (300-token prompt, int8 then bf16-exact
+     prefill, 16 greedy tokens;
      first-token logits within phase 5's 1e-2; saved, then loaded into a
      one-card Model: its next logits within 1e-2 of the world's), TP + LoRA
      on the q4_1 file (detach bit for bit on every rank), the engine paged
-     and slab; world (2, 1) the SP session (seq_parallel, n_ctx 2048, a
-     1024-token prompt in n_batch 512 chunks, 32 greedy tokens) and the
-     engine with dp 2; world (2, 2) the engine on the q4_1 file in f32,
+     and slab (ten requests, 16 tokens each); world (2, 1) the SP session
+     (seq_parallel, n_ctx 2048, a 1024-token prompt in n_batch 512 chunks,
+     8 greedy tokens) and the engine with dp 2; world (2, 2) the engine on
+     the q4_1 file in f32,
      whose greedy streams must equal one card's. Every rank's launches are
      read (B1-B4 > 0 in the TP session, the fused paged step > 0, the
      dequant path 0; B12 once a layer in each TP window and TP or dp
@@ -162,8 +164,8 @@ Phases (any failure exits nonzero before the last line):
      entries); the other tools_torch scripts of the path (bench_kernels,
      bench_prefill, bench_paged_attn, bench_engine plain and
      --stall-bench --chunked, profile_decode at 7B and 13B widths,
-     profile_paged) at 2-4 layers and examples_torch/python/
-     example-batch.py and perplexity.py on phase 5's 8-layer q4_0 GGJT.
+     profile_paged) at one layer and examples_torch/python/
+     example-batch.py and perplexity.py on phase 10's 2-layer q4_0 GGJT.
      Each runs as a subprocess, one at a time, that must exit 0; each
      prints its launches at its exit, counted in its own process: a
      bench_torch run must show B4 once a layer a decode step, B1 for each
@@ -2704,23 +2706,24 @@ BENCH_WINDOWS = 2 * (1 + 5)
 OFF_BENCH_PATH = ("B6", "B7", "B8", "B9", "B10", "B11", "PS", "B13", "B14",
                   "RW", "B15", "B16", "B17", "B18", "B19", "B20", "B21",
                   "B21F")
-# each tool of tools_torch/ at a small depth, run as a subprocess on the
-# card: (script, arguments, the kernels it must launch)
+# each tool of tools_torch/ at one layer (the phase is host-bound: its
+# depth is its time), run as a subprocess on the card: (script, arguments,
+# the kernels it must launch)
 BENCH_TOOLS = [
     # its default variants v0, v1 and v2
-    ("bench_kernels.py", ["--layers", "4"], ("B1", "B15", "B16")),
-    ("bench_prefill.py", ["--layers", "2"], ("B1", "B2", "B3", "B12")),
-    ("bench_paged_attn.py", ["--reps", "8"],
+    ("bench_kernels.py", ["--layers", "1"], ("B1", "B15", "B16")),
+    ("bench_prefill.py", ["--layers", "1"], ("B1", "B2", "B3", "B12")),
+    ("bench_paged_attn.py", ["--reps", "4"],
      ("B4", "B6", "B10", "PS", "B21")),
-    ("bench_engine.py", ["--layers", "2", "--max-tokens", "16"],
+    ("bench_engine.py", ["--layers", "1", "--max-tokens", "8"],
      ("B1", "B4")),
-    ("bench_engine.py", ["--layers", "2", "--max-tokens", "16",
+    ("bench_engine.py", ["--layers", "1", "--max-tokens", "16",
                          "--stall-bench", "--chunked", "--kv-mode", "paged",
                          "--admissions", "1"], ("B1", "B8", "PS")),
-    ("profile_decode.py", ["--layers", "2", "--steps", "4"], ("B1", "B4")),
-    ("profile_decode.py", ["--dims", "13b", "--layers", "2", "--steps",
-                           "4"], ("B1", "B4")),
-    ("profile_paged.py", ["--layers", "2", "--steps", "4"], ("B1", "PS")),
+    ("profile_decode.py", ["--layers", "1", "--steps", "2"], ("B1", "B4")),
+    ("profile_decode.py", ["--dims", "13b", "--layers", "1", "--steps",
+                           "2"], ("B1", "B4")),
+    ("profile_paged.py", ["--layers", "1", "--steps", "2"], ("B1", "PS")),
 ]
 # runs the script argv[1] as __main__ with argv[2:], and at its exit prints
 # every kernel wrapper's launches (counts_now) on stderr as one line
@@ -2809,7 +2812,7 @@ def bench_path(torch, tmp, model_path):
     tools_torch/bench_q4_floor.py (B13, B14, B1, B15 and B17 at its defaults K 4096,
     N 12288, M 8) in this process, every count set to 0 just before and
     read just after; the other tools at a small depth and examples_torch/
-    python/example-batch.py and perplexity.py on phase 5's 8-layer q4_0
+    python/example-batch.py and perplexity.py on phase 10's 2-layer q4_0
     GGJT. bench_torch.py and the bench_* tools run as subprocesses alone on
     the card (so the times they print are uncontended); the profilers and
     the examples, whose times nothing records, run together (their
@@ -2877,7 +2880,7 @@ def bench_path(torch, tmp, model_path):
     results += [(r, finish_counted(st)) for r, st in started]
     for (script, args, want), (rc, out, err, sec, n) in results:
         label = " ".join([script] + args).replace(
-            model_path, "<8-layer q4_0 GGJT>").replace(text, "<text>")
+            model_path, "<2-layer q4_0 GGJT>").replace(text, "<text>")
         tail = "\n".join(out.strip().splitlines()[-6:])
         print(f"{label} ({sec:.1f} s, exit {rc}, launches {n}):\n{tail}",
               flush=True)
@@ -2981,10 +2984,10 @@ ENG_PROMPTS = [300, 40, 270, 120, 20, 260, 90, 60, 30, 280, 100, 50]
 ENG_GEN = 48
 
 
-def engine_requests(sched, **kw):
+def engine_requests(sched, prompts=ENG_PROMPTS, gen=ENG_GEN, **kw):
     return [sched.Request(prompt=prompt_of(n - 2, seed=100 + i),
-                          max_tokens=ENG_GEN, **kw)
-            for i, n in enumerate(ENG_PROMPTS)]
+                          max_tokens=gen, **kw)
+            for i, n in enumerate(prompts)]
 
 
 def common_prefix(a, b) -> int:
@@ -3610,9 +3613,17 @@ def _time_attention(torch, dev, gen, da, b, s_len, h, d, qkv, q, npv, cos,
 
 # phase 5's bf16 tolerances, card against CPU (q4_0, q4_1)
 PAR_TOL, PAR_TOL_Q41 = 1e-2, 3e-2
-SP_CTX, SP_PROMPT, SP_DECODE = 2048, 1024, 32
+# the worlds' depth: a q4_0 GGJT of PAR_LAYERS 7B-wide layers (written
+# here), PAR_DECODE greedy tokens of the TP session, SP_DECODE of the SP
+# one, and engines of PAR_PROMPTS (eight fill the slots, two admissions
+# while they decode) with PAR_GEN tokens each. A mesh step is eager and
+# stages every collective through the host, a cost a layer and a token:
+# this phase is host-bound, so its depth is its time
+PAR_LAYERS, PAR_DECODE = 2, 16
+SP_CTX, SP_PROMPT, SP_DECODE = 2048, 1024, 8
+PAR_PROMPTS, PAR_GEN = ENG_PROMPTS[:10], 16
 SHARED = "ranks sharing one H100 (time-sliced; not a TP speed)"
-# bf16 mesh engines: streams of the twelve that may leave the one-card
+# bf16 mesh engines: streams of the ten that may leave the one-card
 # engine's greedy stream after their first token
 ENG_BF16_SLACK = 2
 # the run of the (1, 2) world whose launches a kernel's line reports
@@ -3718,13 +3729,14 @@ def _session_run(torch, sess, prompt, n_decode):
 
 
 def _engine_streams(torch, hp, params, vocab, rcfg, mode):
-    """ENG_PROMPTS through a greedy BatchEngine of 8 slots (n_ctx 512, pages
-    of 64 rows): streams, free pages by dp group, launches, ms a token."""
+    """PAR_PROMPTS through a greedy BatchEngine of 8 slots (n_ctx 512, pages
+    of 64 rows), PAR_GEN tokens each: streams, free pages by dp group,
+    launches, ms a token."""
     from fastllama_tpu_torch.engine import scheduler as sched
     eng = sched.BatchEngine(hp, params, vocab, n_slots=ENG_SLOTS,
                             n_ctx=ENG_CTX, rcfg=rcfg, kv_mode=mode,
                             page_size=ENG_PS, temp=0.0)
-    reqs = engine_requests(sched)
+    reqs = engine_requests(sched, PAR_PROMPTS, PAR_GEN)
     _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3732,7 +3744,7 @@ def _engine_streams(torch, hp, params, vocab, rcfg, mode):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     streams = [list(r.tokens_out) for r in reqs]
-    require(all(r.done and len(t) == ENG_GEN for r, t in zip(reqs, streams)),
+    require(all(r.done and len(t) == PAR_GEN for r, t in zip(reqs, streams)),
             f"engine {mode} {rcfg.mesh_shape}: a request did not finish")
     res = dict(streams=streams, ms_per_token=wall * 1e3 / sum(map(len, streams)),
                flash_admissions=flash_admissions(eng, reqs),
@@ -3750,8 +3762,9 @@ def _engine_streams(torch, hp, params, vocab, rcfg, mode):
 
 
 def tp_world(torch, q40, q41, adapter, state):
-    """World (1, 2): the TP session on the 8-layer q4_0 file (int8 prefill,
-    then the bf16-exact prefill; 64 greedy tokens; save), TP + LoRA on the
+    """World (1, 2): the TP session on the PAR_LAYERS q4_0 file (int8
+    prefill, then the bf16-exact prefill; PAR_DECODE greedy tokens; save),
+    TP + LoRA on the
     2-layer q4_1 file (attach, detach bit for bit), and the engine, paged
     and slab."""
     import fastllama_tpu_torch
@@ -3767,7 +3780,8 @@ def tp_world(torch, q40, q41, adapter, state):
     prompt = prompt_of(N_PROMPT - 2, seed=4)
     warm_up(model.session, prompt)
     _reset_counts()
-    first, stream, ms = _session_run(torch, model.session, prompt, N_DECODE)
+    first, stream, ms = _session_run(torch, model.session, prompt,
+                                     PAR_DECODE)
     res["int8"] = dict(first=first, stream=stream, ms_per_token=ms,
                        device=str(lm.device), **_counts_and_staged())
     require(model.save_state(state), "save_state failed")
@@ -3806,8 +3820,8 @@ def tp_world(torch, q40, q41, adapter, state):
 
 def sp_world(torch, q40):
     """World (2, 1): the SP session (seq_parallel, n_ctx 2048, a 1024-token
-    prompt in n_batch 512 chunks, 32 greedy tokens) and the engine with dp
-    2, paged and slab."""
+    prompt in n_batch 512 chunks, SP_DECODE greedy tokens) and the engine
+    with dp 2, paged and slab."""
     import fastllama_tpu_torch
     from fastllama_tpu_torch.config import RuntimeConfig
     model = fastllama_tpu_torch.Model(path=q40, n_ctx=SP_CTX, n_batch=512,
@@ -3846,12 +3860,15 @@ def rel_err(a, b) -> float:
                  / np.abs(np.asarray(b)).max())
 
 
-def parallel_path(torch, tmp, q40, q41):
+def parallel_path(torch, tmp, q41):
     """Phase 10: the port's multi-GPU serving in spawned worlds of ranks
     that share the card (gloo; NCCL refuses two ranks on one device), each
-    held against the one-card run of the same file. Budget about 150 s."""
+    held against the one-card run of the same file: a q4_0 GGJT of
+    PAR_LAYERS layers written here (its path in res["q4_0_path"]) and
+    phase 5's 2-layer q4_1 GGJT. Budget about 100 s."""
+    import dataclasses
     import fastllama_tpu_torch
-    from fastllama_tpu_torch.config import RuntimeConfig
+    from fastllama_tpu_torch.config import PRESETS, RuntimeConfig
     from fastllama_tpu_torch.engine.session import FastLlama
     from fastllama_tpu_torch.io.ggml_writer import write_ggla
     from fastllama_tpu_torch.models.loader import load_model
@@ -3859,6 +3876,10 @@ def parallel_path(torch, tmp, q40, q41):
     res = {"backend": "gloo", "note": SHARED}
     print(f"parallel: backend gloo, worlds (data, model) (1, 2), (2, 1), "
           f"(2, 2); every rank on cuda:0 ({SHARED})", flush=True)
+    q40 = res["q4_0_path"] = os.path.join(tmp, "ggjt_q4_0_par")
+    write_ggjt_file(q40, dataclasses.replace(PRESETS["7B"],
+                                             n_layer=PAR_LAYERS),
+                    6, affine=False)
 
     # one-card references on the same files
     quiet = fastllama_tpu_torch.Logger()
@@ -3866,7 +3887,7 @@ def parallel_path(torch, tmp, q40, q41):
                                     logger=quiet)
     prompt = prompt_of(N_PROMPT - 2, seed=4)
     ref_first, ref_stream, ref_ms = _session_run(torch, one.session, prompt,
-                                                 N_DECODE)
+                                                 PAR_DECODE)
     lm = one._model
     exact = LlamaModel(lm.hp, lm.params, lm.vocab, RuntimeConfig(
         n_ctx=512, n_batch=512, prefill_int8=False))
@@ -3915,7 +3936,7 @@ def parallel_path(torch, tmp, q40, q41):
             # bf16: every request's first token, and all streams but
             # ENG_BF16_SLACK in full (a sum order may flip a near tie late
             # in a stream); f32: every stream in full
-            full = sum(p == ENG_GEN for p in pre)
+            full = sum(p == PAR_GEN for p in pre)
             require(all(p >= 1 for p in pre) and full >= len(pre) - (
                 0 if equal else ENG_BF16_SLACK),
                 f"{label} {mode}: greedy streams differ from the one-card "
@@ -4426,12 +4447,13 @@ def prefill_graphs_path(torch, dev, gen):
 # phase 14: the q4 matmul variants (B15-B19) and the kernel switches
 # ---------------------------------------------------------------------------
 
+# v0h (B1 with 2-byte scales) at these rows
 VARIANT_ROWS = (1, 8, 64)
-# B15 and B17 (v1, v3 and their h forms) at row counts that take their
+# B15-B18 (v1, v2, v3, v7 and their h forms) at row counts that take their
 # kernel's plans apart: M <= 8 (8 rows of x, mma.sync), two m-tiles a
 # warpgroup (M <= 32) and one (M > 32), up to the 64 rows of one product
 FOLD_ROWS = (1, 8, 16, 33, 64)
-FOLD_KEYS = ("v1", "v1h", "v3", "v3h")
+FOLD_KEYS = ("v1", "v1h", "v2", "v2h", "v3", "v3h", "v7", "v7h")
 # the decode variants held in phase 14 and their kernels (v0h: B1 with
 # 2-byte scales); v4 and v5 run B15 as v1 does
 VARIANT_KEYS = {"v1": "B15", "v2": "B16", "v3": "B17", "v7": "B18",
@@ -4467,13 +4489,13 @@ def reset_every_count():
 
 def check_variants(torch, dev, gen, results):
     """B15-B18 and the h forms (bf16 scales; v0h is B1's 2-byte-scale mode)
-    on the 7B planes qkv, wo, w13 and w2 and the 13B qkv plane: B15 and B17
-    (csrc/q4_fold.cuh) at FOLD_ROWS on every one, B16, B18 and v0h at
-    VARIANT_ROWS on the 7B planes and M = 8 on the 13B one. Each within
-    1e-5 of sum |R(x)| (q + 8) |d| of its plain version (only the f32
-    summation order differs), run twice and bit-equal, timed over weight
-    copies cycled past the L2 (B16, B18 and v0h at M = 1 and 8) beside B1
-    (v0, B15's old skeleton), B13 (that skeleton's loads alone; on the 7B
+    on the 7B planes qkv, wo, w13 and w2 and the 13B qkv plane: B15-B18
+    (csrc/q4_fold.cuh, a build each) at FOLD_ROWS on every one, with their
+    plan, v0h at VARIANT_ROWS on the 7B planes and M = 8 on the 13B one.
+    Each within 1e-5 of sum |R(x)| (q + 8) |d| of its plain version (only
+    the f32 summation order differs), run twice and bit-equal, timed over
+    weight copies cycled past the L2 (v0h at M = 1 and 8) beside B1 (v0,
+    on B1's own skeleton), B13 (that skeleton's loads alone; on the 7B
     planes at VARIANT_ROWS) and _weight_int4pack_mm on the same plane and
     M; plain versions timed on qkv at M = 8. B20 at M <= B20_ON_B15_MAX_M
     on qkv: one B20 launch (none of B15's), bit-equal to B15's kernel on
@@ -4533,8 +4555,7 @@ def check_variants(torch, dev, gen, results):
                 require(bool(torch.isfinite(y).all()), f"{label}: not finite")
                 require(err <= tol, f"{label}: err {err} > {tol}")
                 require(torch.equal(y, again), f"{label}: not deterministic")
-                # B16, B18 and v0h timed at M = 1 and 8 (their rows of the
-                # table)
+                # v0h timed at M = 1 and 8 (its rows of the table)
                 ms = (time_ms(lambda: call(next(it) % len(ws)),
                               calls=2 * len(ws)) if fold or m in (1, 8)
                       else None)
@@ -5513,14 +5534,13 @@ def main() -> int:
         c_res = timed("8 C ABI", c_abi_path, torch, tmp,
                       file_res["ggjt_q4_0"]["path"])
         par_res = timed("10 parallel", parallel_path, torch, tmp,
-                        file_res["ggjt_q4_0"]["path"],
                         file_res["ggjt_q4_1"]["path"])
         # phase 11's bench_q4_floor holds B1 against the dequant path in
         # this process, as phase 2 does: the count of phases 3-10 is read
         # before it (phase 11's subprocesses count their own)
         dequant_calls = qm.q4_matmul_dequant.cuda_calls
         bench_res = timed("11 bench path", bench_path, torch, tmp,
-                          file_res["ggjt_q4_0"]["path"])
+                          par_res["q4_0_path"])
         graph_res = timed("12 graphs", graphs_path, torch, dev, gen)
         prefill_res = timed("13 prefill graphs", prefill_graphs_path, torch,
                             dev, gen)
@@ -5632,16 +5652,16 @@ def main() -> int:
         # the variant bodies of q4_matmul_pallas (launched at :484 and
         # :498; v4 :308 and v5 :338 are bit-equal to v1) and of
         # q4_matmul_prefill_int8 (natx :715, launched at :1034; split :667,
-        # bit-equal, at :1047): B15 and B17 their own kernel (built as
-        # csrc/q4_fold.cu and q4_fold_v3.cu), B16 and B18 B1's kernel in
-        # other modes, B19 its own
+        # bit-equal, at :1047): B15-B18 one kernel, built a variant each
+        # (csrc/q4_fold.cu, q4_fold_v2.cu, q4_fold_v3.cu, q4_fold_v7.cu),
+        # B19 its own
         "B15": ("q4_decode_v1", "csrc/q4_fold.cuh",
                 "fastllama_tpu/kernels/q4_matmul.py:161"),
-        "B16": ("q4_decode_v2", "csrc/q4_decode.cu",
+        "B16": ("q4_decode_v2", "csrc/q4_fold.cuh",
                 "fastllama_tpu/kernels/q4_matmul.py:233"),
         "B17": ("q4_decode_v3", "csrc/q4_fold.cuh",
                 "fastllama_tpu/kernels/q4_matmul.py:272"),
-        "B18": ("q4_decode_v7", "csrc/q4_decode.cu",
+        "B18": ("q4_decode_v7", "csrc/q4_fold.cuh",
                 "fastllama_tpu/kernels/q4_matmul.py:189"),
         "B19": ("q4_prefill_int8_natx", "csrc/q4_int8.cu",
                 "fastllama_tpu/kernels/q4_matmul.py:715"),

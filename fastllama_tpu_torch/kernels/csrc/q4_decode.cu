@@ -1,12 +1,11 @@
 // Kernels B1 and B9: the decode-size 4-bit matmuls (W4A16 skinny GEMM /
 // GEMV) for q4_0 and for affine (q4_1 / GPTQ) weights, one template; B13
-// and B14, two probes of B1's tensor-core kernel, and B16 and B18, two
-// other variants of the JAX decode kernel, as modes of it (below).
+// and B14, two probes of B1's tensor-core kernel, as modes of it (below).
 //
 // B1 (q4_gemv):
 // Replaces fastllama_tpu/kernels/q4_matmul.py::q4_matmul_pallas with the
-// function of its v0 body (_q4mm_kernel) and of q4_matmul_xla; the v1 body's
-// folded offset is B15 (csrc/q4_fold.cu). Computes y[M, n_out] f32 = x[M, K] @
+// function of its v0 body (_q4mm_kernel) and of q4_matmul_xla; the other
+// bodies (v1-v7: B15-B18) run csrc/q4_fold.cuh. Computes y[M, n_out] f32 = x[M, K] @
 // ((q - 8) * d) for M <= 64, reading the split-K packed planes as stored:
 //   qs     uint8 [K_pad/2, N]: byte (16*kb + j, n) holds element 32*kb + j in
 //          its low nibble and element 32*kb + 16 + j in its high nibble;
@@ -126,22 +125,8 @@
 // stages it (kFloor reads its low halves only), so the gaps between B13,
 // B14 and B1 are the unpack and the scale path, not x.
 //
-// B16 and B18 (q4_variant_mma) replace two other bodies of
-// q4_matmul_pallas, each by its function (kernels/q4_variants.py), as modes
-// of the same kernel, B1's plan and loads; B1 itself computes v0's
-// function, and B15 (v1, v4, v5) and B17 (v3) run their own kernel
-// (csrc/q4_fold.cu):
-//   * kV2 (B16): sum_b d_b (R(x_b) @ q_b) - 8 bsum(x) @ d. The codes alone
-//     (exact in bf16) go into a fresh accumulator per m-tile and q block,
-//     both k16 steps, which is then scaled by d into the f32 accumulators
-//     (one m-tile at a time, so only 4 NT more registers); the block sums
-//     of the unrounded x are staged beside x (B9's machinery) and
-//     bsum * (-8 d) goes into the accumulators;
-//   * kV7 (B18): v1's weights R(q d) (the code unshifted, one rounding of
-//     q d), with the block sums of R(R(x_lo) + R(x_hi)) over the 16 pairs
-//     of a q block, summed in f32 while x is staged (lane i < 4 of a q
-//     block's 8 takes its pairs from lane i + 4).
-// SC16 (the "h" forms of the JAX tools, and B1 as v0h): the scales are bf16
+// SC16 (the "h" forms of the JAX tools, B1 as v0h, q4_variant_mma): the
+// scales are bf16
 // [NB, N]; a ring stage carries 128 bytes of them (8 lanes' copies), read
 // as one 16-byte word a lane and widened to f32.
 
@@ -356,17 +341,14 @@ constexpr int kMmaWarps = 4, kMmaThreads = kMmaWarps * 32;
 constexpr int kWarpCols = 64;            // columns of one warp
 constexpr int kStages = 4;
 constexpr int kRowStride = 80;           // bytes per packed row in a stage
-// The tensor-core kernel's modes: B1 (q4_0), B9 (affine), the probes B13
-// (kFloor) and B14 (kNosc), and the variants B16 (kV2) and B18 (kV7)
-enum Mode { kQ40 = 0, kQ41 = 1, kNosc = 2, kFloor = 3, kV2 = 5, kV7 = 7 };
+// The tensor-core kernel's modes: B1 (q4_0), B9 (affine) and the probes
+// B13 (kFloor) and B14 (kNosc)
+enum Mode { kQ40 = 0, kQ41 = 1, kNosc = 2, kFloor = 3 };
 // planes of 64 values beside the packed rows in a ring stage: the scales
 // and, for an affine weight, the mins; none for the probes
 template <int MODE>
 constexpr int kPlanes = MODE == kQ41 ? 2 : MODE == kNosc || MODE == kFloor
                                                ? 0 : 1;
-// the modes that add a term bsum(x) * p per q block (p: the mins, or -8 d)
-template <int MODE>
-constexpr bool kBsum = MODE == kQ41 || MODE == kV2 || MODE == kV7;
 // a stage: 16 packed rows and the planes (SC16: 2-byte bf16 scales)
 template <int MODE, bool SC16>
 constexpr int kStageBytes =
@@ -442,7 +424,6 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
               uint32_t magic) {
   constexpr bool AFFINE = MODE == kQ41;
   constexpr bool SCALED = kPlanes<MODE> > 0;
-  constexpr bool BSUM = kBsum<MODE>;
   constexpr bool RAW = MODE != kQ40;
   constexpr int kSteps = MODE == kFloor ? 1 : 2;   // k16 steps a q block
   constexpr int MT = 8 * NT;
@@ -463,7 +444,7 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   uint8_t* ring = smem_raw + (size_t)warp * kStages * kSB;
   uint32_t* xs = reinterpret_cast<uint32_t*>(
       smem_raw + (size_t)kMmaWarps * kStages * kSB);
-  // BSUM: the block sums of x, [q block of the split][row of the tile]
+  // AFFINE: the block sums of x, [q block of the split][row of the tile]
   float* bs = reinterpret_cast<float*>(xs + (size_t)kb_per_split * NT * 128);
 
   // A lane copies two 16-byte pieces of the packed rows (rows lane / 4 and
@@ -511,12 +492,10 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   // + 16 * (w / 2) + 2 * (lane % 4) + 8 * (w % 2), zeros past Kx. Read as
   // coalesced float4s of the rows < M; the words of rows >= M are left as
   // they are: they only reach accumulator columns that are never stored.
-  // Every thread runs the same trip count, so that in BSUM modes the 8
-  // adjacent lanes holding the 8 float4s of one row's q block (quads is a
-  // multiple of 8 and so is the stride) can add them up by shuffles: the
-  // unrounded x, or for kV7 R(R(x_lo) + R(x_hi)) over the 16 pairs (lane
-  // i < 4 of the 8 holds x_lo[4i..4i+3], lane i + 4 the x_hi they pair
-  // with).
+  // Every thread runs the same trip count, so that for an affine weight
+  // the 8 adjacent lanes holding the 8 float4s of one row's q block (quads
+  // is a multiple of 8 and so is the stride) can add the unrounded x up by
+  // shuffles.
   const int rows = min(MT, M - m0), quads = nkb * 8;
   for (int i0 = 0; i0 < rows * quads; i0 += kMmaThreads) {
     const int i = i0 + threadIdx.x;
@@ -542,27 +521,15 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
             pack_bf16(v[2 * h], v[2 * h + 1]);
       }
     }
-    if constexpr (BSUM) {
-      float sum;
-      if constexpr (MODE == kV7) {
-        sum = 0.f;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float mine = fltorch::round_bf16(v[e]);
-          const float pair = __shfl_xor_sync(0xffffffffu, mine, 4);
-          sum += fltorch::round_bf16(mine + pair);
-        }
-        if (qd & 4) sum = 0.f;             // the x_hi lanes: counted above
-      } else {
-        sum = (v[0] + v[1]) + (v[2] + v[3]);
-      }
+    if constexpr (AFFINE) {
+      float sum = (v[0] + v[1]) + (v[2] + v[3]);
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       sum += __shfl_xor_sync(0xffffffffu, sum, 4);
       if (ok && (qd & 7) == 0) bs[(qd >> 3) * MT + r] = sum;
     }
   }
-  if constexpr (BSUM) {
+  if constexpr (AFFINE) {
     // rows >= M: a zero sum, so the term adds nothing there
     for (int i = threadIdx.x; i < (MT - rows) * nkb; i += kMmaThreads)
       bs[(i % nkb) * MT + rows + i / nkb] = 0.f;
@@ -578,7 +545,7 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
       for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
 
   // this lane's reads: rows 2t, 2t+1, 2t+8, 2t+9 at bytes g*8 .. g*8+7, the
-  // scales (and mins) of those 8 columns, its B fragments and, BSUM, the
+  // scales (and mins) of those 8 columns, its B fragments and, AFFINE, the
   // block sums of its accumulator rows 2t, 2t+1 of each n-tile (all kw q
   // blocks apart)
   const uint8_t* a_rd = ring + 2 * t * kRowStride + g * 8;
@@ -636,78 +603,38 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) xb[nt] = x_rd[nt * 32];
     x_rd += kw * NT * 32;
-    if constexpr (MODE == kV2) {
-      // the codes alone (exact in bf16) into a fresh accumulator per m-tile
-      // and q block, both k16 steps; the block's product is then scaled
-      // into acc in f32: sum_b d_b * (R(x_b) @ q_b)
+#pragma unroll
+    for (int step = 0; step < kSteps; ++step) {
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
-        float z[NT][4];
+        uint32_t a[4];
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) z[nt][c] = 0.f;
-#pragma unroll
-        for (int step = 0; step < 2; ++step) {
-          uint32_t a[4];
-#pragma unroll
-          for (int reg = 0; reg < 4; ++reg) {
-            const float2 q = a_codes<true>(lo, hi, step, mt, reg, magic);
+        for (int reg = 0; reg < 4; ++reg) {
+          // a0: column 2mt, rows 2t/2t+1; a1: column 2mt+1, the same
+          // rows; a2, a3: rows 2t+8/2t+9
+          const int c = 2 * mt + (reg & 1);
+          const float2 q = a_codes<RAW>(lo, hi, step, mt, reg, magic);
+          if constexpr (SCALED) {
+            a[reg] = pack_bf16(q.x * d[c], q.y * d[c]);
+          } else {
             a[reg] = pack_bf16(q.x, q.y);
           }
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            mma_bf16(z[nt], a, step ? xb[nt].z : xb[nt].x,
-                     step ? xb[nt].w : xb[nt].y);
         }
-        // D fragment c: column g*8 + 2mt + c/2 (see below)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[mt][nt][c] =
-                fmaf(z[nt][c], d[2 * mt + (c >> 1)], acc[mt][nt][c]);
-      }
-    } else {
-#pragma unroll
-      for (int step = 0; step < kSteps; ++step) {
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          uint32_t a[4];
-#pragma unroll
-          for (int reg = 0; reg < 4; ++reg) {
-            // a0: column 2mt, rows 2t/2t+1; a1: column 2mt+1, the same
-            // rows; a2, a3: rows 2t+8/2t+9
-            const int c = 2 * mt + (reg & 1);
-            const float2 q = a_codes<RAW>(lo, hi, step, mt, reg, magic);
-            if constexpr (SCALED) {
-              a[reg] = pack_bf16(q.x * d[c], q.y * d[c]);
-            } else {
-              a[reg] = pack_bf16(q.x, q.y);
-            }
-          }
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            mma_bf16(acc[mt][nt], a, step ? xb[nt].z : xb[nt].x,
-                     step ? xb[nt].w : xb[nt].y);
-        }
+          mma_bf16(acc[mt][nt], a, step ? xb[nt].z : xb[nt].x,
+                   step ? xb[nt].w : xb[nt].y);
       }
     }
-    if constexpr (BSUM) {
-      // + bsum[row] * p[col], p the mins (AFFINE) or -8 d (the folded
-      // offset of the variants): D fragment c of (mt, nt) is row nt*8 + 2t
-      // + c%2 and column g*8 + 2mt + c/2 (see below), so the 8 values of
-      // the lane's columns and 2 block sums per n-tile suffice
+    if constexpr (AFFINE) {
+      // + bsum[row] * m[col]: D fragment c of (mt, nt) is row nt*8 + 2t +
+      // c%2 and column g*8 + 2mt + c/2 (see below), so the 8 mins of the
+      // lane's columns and 2 block sums per n-tile suffice
       float p[8];
-      if constexpr (AFFINE) {
-        const float4 ma = *reinterpret_cast<const float4*>(s_rd + slot + 256);
-        const float4 mb = *reinterpret_cast<const float4*>(s_rd + slot + 272);
-        p[0] = ma.x; p[1] = ma.y; p[2] = ma.z; p[3] = ma.w;
-        p[4] = mb.x; p[5] = mb.y; p[6] = mb.z; p[7] = mb.w;
-      } else {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) p[c] = -8.f * d[c];
-      }
+      const float4 ma = *reinterpret_cast<const float4*>(s_rd + slot + 256);
+      const float4 mb = *reinterpret_cast<const float4*>(s_rd + slot + 272);
+      p[0] = ma.x; p[1] = ma.y; p[2] = ma.z; p[3] = ma.w;
+      p[4] = mb.x; p[5] = mb.y; p[6] = mb.z; p[7] = mb.w;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const float2 bv = *reinterpret_cast<const float2*>(bs_rd + nt * 8);
@@ -786,12 +713,12 @@ int launch_mma(const float* x, int M, int Kx, const uint8_t* qs,
                const void* scales, const float* mins, int N, int NB, int cw,
                int splits, int kb_per_split, float* partial, int* counters,
                float* y, int n_out, cudaStream_t stream) {
-  // the ring, the x slice and (BSUM) the block sums, reused afterwards for
+  // the ring, the x slice and (affine) the block sums, reused afterwards for
   // the warps' sums
   const size_t ring_x =
       (size_t)kMmaWarps * kStages * kStageBytes<MODE, SC16> +
       (size_t)kb_per_split * NT * 128 * sizeof(uint32_t) +
-      (kBsum<MODE> ? (size_t)kb_per_split * 8 * NT * 4 : 0);
+      (MODE == kQ41 ? (size_t)kb_per_split * 8 * NT * 4 : 0);
   const size_t red = (size_t)kMmaWarps * 8 * NT * kWarpCols * sizeof(float);
   const size_t smem = ring_x > red ? ring_x : red;
   if (smem + 1024 > 48 * 1024) {         // with the static shared memory
@@ -836,16 +763,16 @@ int dispatch_mma(const void* x, int M, int Kx, const void* qs,
   }
 }
 
-template <int MODE>
+// B1 with f32 (sc16 = 0) or 2-byte (sc16 = 1) scales
 int dispatch_scales(int sc16, const void* x, int M, int Kx, const void* qs,
                     const void* scales, int N, int NB, int cw, int splits,
                     int kb_per_split, int nt, void* partial, void* counters,
                     void* y, int n_out, void* stream) {
   if (sc16)
-    return dispatch_mma<MODE, true>(x, M, Kx, qs, scales, nullptr, N, NB, cw,
+    return dispatch_mma<kQ40, true>(x, M, Kx, qs, scales, nullptr, N, NB, cw,
                                     splits, kb_per_split, nt, partial,
                                     counters, y, n_out, stream);
-  return dispatch_mma<MODE, false>(x, M, Kx, qs, scales, nullptr, N, NB, cw,
+  return dispatch_mma<kQ40, false>(x, M, Kx, qs, scales, nullptr, N, NB, cw,
                                    splits, kb_per_split, nt, partial,
                                    counters, y, n_out, stream);
 }
@@ -905,29 +832,19 @@ extern "C" int q4_nosc_mma(const void* x, int M, int Kx, const void* qs,
                              n_out, stream);
 }
 
-// B1 (variant 0) with f32 or 2-byte scales, B16 and B18, the modes of the
-// JAX package's q4_matmul_pallas variants (2: v2's per-block scaling, 7:
-// v7's block sums of rounded pairs; kernels/q4_variants.py; v1 and v3 run
-// csrc/q4_fold.cu): as q4_gemv_mma, the scales f32
-// (sc16 = 0) or bf16 (sc16 = 1) [NB, N], 16-byte aligned. Returns the CUDA
-// error code of the launch.
+// B1 (variant 0, the only one taken; the JAX package's other
+// q4_matmul_pallas variants run csrc/q4_fold.cuh) with f32 or 2-byte
+// scales: as q4_gemv_mma, the scales f32 (sc16 = 0) or bf16 (sc16 = 1)
+// [NB, N], 16-byte aligned. Returns the CUDA error code of the launch.
 extern "C" int q4_variant_mma(const void* x, int M, int Kx, const void* qs,
                               const void* scales, int sc16, int N, int NB,
                               int cw, int splits, int kb_per_split, int nt,
                               void* partial, void* counters, void* y,
                               int n_out, int variant, void* stream) {
-  switch (variant) {
-#define FLTORCH_VARIANT(V, MODE)                                             \
-    case V:                                                                  \
-      return dispatch_scales<MODE>(sc16, x, M, Kx, qs, scales, N, NB, cw,    \
-                                   splits, kb_per_split, nt, partial,        \
-                                   counters, y, n_out, stream);
-    FLTORCH_VARIANT(0, kQ40)
-    FLTORCH_VARIANT(2, kV2)
-    FLTORCH_VARIANT(7, kV7)
-#undef FLTORCH_VARIANT
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  return dispatch_scales(sc16, x, M, Kx, qs, scales, N, NB, cw, splits,
+                         kb_per_split, nt, partial, counters, y, n_out,
+                         stream);
 }
 
 // x f32 [M, Kx] (Kx <= 32 * NB; the stored-K tail reads as zeros),

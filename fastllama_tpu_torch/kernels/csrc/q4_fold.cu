@@ -4,8 +4,10 @@
 
 #include "q4_fold.cuh"
 
-// Kernel B15 (variant 1; q4_fold_v3.cu's q4_fold_v3_gemm is B17, variant
-// 3, with the same arguments): y f32 [M, n_out] from x f32
+// Kernel B15 (variant 1; q4_fold_v2.cu's q4_fold_v2_gemm is B16, variant
+// 2, q4_fold_v3.cu's q4_fold_v3_gemm B17, variant 3, and q4_fold_v7.cu's
+// q4_fold_v7_gemm B18, variant 7, with the same arguments): y f32
+// [M, n_out] from x f32
 // [M, Kx] (1 <= M <= 64, Kx a multiple of 4 and at most 32 NB, x 16-byte
 // aligned; x counts as zero past Kx), qs uint8
 // [16 NB, N] and scales f32 (sc16 = 0) or bf16 (sc16 = 1) [NB, N] (N a

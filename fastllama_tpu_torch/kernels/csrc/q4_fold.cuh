@@ -1,18 +1,24 @@
-// Kernels B15 and B17: the JAX package's v1 and v3 decode bodies of
-// q4_matmul_pallas, on one decode-size kernel built for Hopper. This header
-// holds the kernel; q4_fold.cu (B15) and q4_fold_v3.cu (B17) build one
-// variant each, so that the two compile side by side.
+// Kernels B15, B16, B17 and B18: the JAX package's v1, v2, v3 and v7
+// decode bodies of q4_matmul_pallas, on one decode-size kernel built for
+// Hopper. This header holds the kernel; q4_fold.cu (B15), q4_fold_v2.cu
+// (B16), q4_fold_v3.cu (B17) and q4_fold_v7.cu (B18) build one variant each,
+// so that they compile side by side.
 //
 // Replaces fastllama_tpu/kernels/q4_matmul.py::_q4mm_kernel_v1 (v1; v4 and
-// v5 are bit-equal to it) and ::_q4mm_kernel_v3 (v3), each by its function
-// (kernels/q4_variants.py), x f32 [1 <= M <= 64, K], the planes as stored
-// (qs uint8 [K/2, N] split-K packed: byte (16 kb + j, n) holds element
-// 32 kb + j in its low nibble and 32 kb + 16 + j in its high one; scales
-// f32 or bf16 [K/32, N]):
+// v5 are bit-equal to it), ::_q4mm_kernel_v2 (v2), ::_q4mm_kernel_v3 (v3)
+// and ::_q4mm_kernel_v7 (v7), each by its function (kernels/q4_variants.py),
+// x f32 [1 <= M <= 64, K], the planes as stored (qs uint8 [K/2, N] split-K
+// packed: byte (16 kb + j, n) holds element 32 kb + j in its low nibble and
+// 32 kb + 16 + j in its high one; scales f32 or bf16 [K/32, N]):
 //   v1: y = R(x) @ R(q d) - 8 bsum(x) @ d
+//   v2: y = sum_b d_b (R(x_b) @ q_b) - 8 bsum(x) @ d
 //   v3: y = R(x) @ R(q R(d)) - 8 bsum(x) @ d
-// with q the code 0..15, R the rounding to bf16 and bsum(x) [M, K/32] the
-// f32 sums of the unrounded x over each q block.
+//   v7: y = R(x) @ R(q d) - 8 bsum7(x) @ d
+// with q the code 0..15, R the rounding to bf16, bsum(x) [M, K/32] the
+// f32 sums of the unrounded x over each q block, x_b and q_b the 32 columns
+// of x and rows of q of q block b, and bsum7(x) the f32 sums of
+// R(R(x_lo) + R(x_hi)) over the 16 pairs of each q block (x_lo, x_hi its
+// low and high 16).
 //
 // Bound on the H100: bytes. At M = 1 a weight costs 2 flops and 0.625 bytes
 // (0.5625 with bf16 scales), far below the ~295 flop/byte ridge, and at
@@ -40,7 +46,10 @@
 //     N and K, so nothing masks;
 //   * two or four x warps convert each stage's x, once landed, into bf16
 //     in the K-major core-matrix layout wgmma reads as its B operand, and
-//     sum the unrounded x over each q block (the fold's block sums); x is
+//     sum the unrounded x over each q block (the fold's block sums; v7:
+//     the pair sums R(R(x_lo) + R(x_hi)), rounded by bf16x2 instructions
+//     and summed in f32), a thread an x_lo float4 and the x_hi float4 it
+//     pairs with; x is
 //     read again for every column tile, from L2. (Read by the x warps
 //     themselves, one L2 round trip a stage set the pace: 3x the bound;
 //     copied with the weights into one ring, x's 32 KB a stage left 3
@@ -58,12 +67,23 @@
 //     once in f32 (bit for bit the plain version's f32 product), two
 //     packed into bf16 by one cvt. v3: two codes into bf16 128 + q by one
 //     permute, then one bf16x2 fma with R(d) and -128 R(d): R(q R(d)), the
-//     plain version's bf16 product (__hmul2). At NW = 8 the sync build
-//     issues mma.sync m16n8k16 per warp on the same fragments instead;
-//   * the folded offset -8 bsum(x) @ d goes into a second set of f32
-//     registers in the D fragment's layout (an FMA a register a q block,
+//     plain version's bf16 product (__hmul2). v2: the codes alone, 128 + q
+//     by one permute less 128 by one bf16x2 subtraction a pair (exact).
+//     At NW = 8 the sync build issues mma.sync m16n8k16 per warp on the
+//     same fragments instead;
+//   * v1, v3, v7: the folded offset -8 bsum(x) @ d goes into a second set
+//     of f32 registers in the D fragment's layout (an FMA a register a q block,
 //     bsum from the x warps, -8 d exact), since a wgmma in flight owns the
 //     accumulators; the two are added once at the end of a split;
+//   * v2 scales each q block's product after it is complete: the block's
+//     two k16 steps go into a fresh set z (wgmma's scale-d 0 on the first,
+//     so nothing zeroes it), then acc += z d by one FMA a D register with
+//     its column's d, and the fold goes straight into acc, which no wgmma
+//     owns. On the wgmma route block b - 1's product is waited for (and
+//     scaled) after block b's A registers are made, before block b's issue:
+//     one set of z (a build with two alternating, block b - 1's scaled
+//     while block b's runs, took 1.13-1.23x its time at M = 16 and
+//     0.96-1.03x at 33 and 64);
 //   * where K is split, the blocks of rank 1..S-1 send their partial tiles
 //     (acc + fold, f32) to the leader's shared memory by one bulk copy a
 //     warpgroup (shared::cta to shared::cluster, completing on the leader's
@@ -71,10 +91,12 @@
 //     global partials, counters, fences or re-reads. A sender reuses its
 //     buffer once the leader, done reading, arrives on its barrier.
 // The A registers are double-buffered across q blocks (wgmma_wait<1> after
-// each q block's pair), so a set outlives the next issue.
+// each q block's pair; v2: wgmma_wait<0> before it), so a set outlives the
+// next issue.
 // Products of two bf16 values are exact in f32, so the product differs from
-// the plain version by the f32 summation order alone; the fold by the order
-// of its f32 sums. Every order is fixed by the plan, so two runs agree bit
+// the plain version by the f32 summation order alone (v2: each q block's,
+// then the order of the scaled sums); the fold by the order of its f32
+// sums. Every order is fixed by the plan, so two runs agree bit
 // for bit.
 //
 // Three builds for tools_torch/b15_sweep.py only: -DFLTORCH_B15_NO_PDL,
@@ -169,23 +191,24 @@ __host__ __device__ inline Layout fold_layout(int wgs, int nw, int sbytes,
 
 // wgmma.mma_async m64nNk16 f32 += bf16 x bf16: A (4 registers a thread, the
 // m16n8k16 fragment of the warp's 16 rows) from registers, B K-major from
-// shared memory (descriptor), D in N / 2 registers a thread.
+// shared memory (descriptor), D in N / 2 registers a thread; sd = 0 (the
+// instruction's scale-d) writes D = A B, ignoring D's old values.
 template <int N> struct WgmmaRs;
 template <> struct WgmmaRs<8> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3}, "
         "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct WgmmaRs<16> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
@@ -193,12 +216,12 @@ template <> struct WgmmaRs<16> {
         "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct WgmmaRs<24> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
@@ -206,12 +229,12 @@ template <> struct WgmmaRs<24> {
         "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct WgmmaRs<32> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -221,12 +244,12 @@ template <> struct WgmmaRs<32> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct WgmmaRs<40> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
@@ -237,12 +260,12 @@ template <> struct WgmmaRs<40> {
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct WgmmaRs<48> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
@@ -253,12 +276,12 @@ template <> struct WgmmaRs<48> {
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct WgmmaRs<56> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
@@ -271,12 +294,12 @@ template <> struct WgmmaRs<56> {
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct WgmmaRs<64> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -290,7 +313,7 @@ template <> struct WgmmaRs<64> {
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 
@@ -301,6 +324,17 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma.sync m16n8k16 into a fresh accumulator: c = A B
+__device__ __forceinline__ void mma_bf16_new(float* c, const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
@@ -342,26 +376,39 @@ __device__ __forceinline__ float qd(uint32_t nib, float d, float nd) {
                    d, nd);
 }
 
+// Two codes of `nib` (the bytes that selector nibbles 0 and 2 of `sel`
+// pick) as the bf16 values 128 + q: each code under the exponent byte 0x43
+// (128, whose bf16 ulp is 1), the first in the low half.
+__device__ __forceinline__ __nv_bfloat162 code2(uint32_t nib, int sel) {
+  const uint32_t v = __byte_perm(nib, 0x43434343u, sel);
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+
 // The 4 A registers of one k16 step of one m-tile from the nibble words of
 // rows (2t, 2t+1) and (2t+8, 2t+9): byte 0 / 2 its column c (A row g), byte
-// 1 / 3 column c + 1 (A row g + 8), the lower k in the low half.
+// 1 / 3 column c + 1 (A row g + 8), the lower k in the low half. v1 and v7
+// R(q d), v3 R(q R(d)), v2 the code q itself (exact in bf16; d is applied
+// to each q block's product).
 template <int VAR>
 __device__ __forceinline__ void dequant(uint32_t n01, uint32_t n23, float d0,
                                         float d1, uint32_t* a) {
 #ifdef FLTORCH_B15_NO_DEQUANT
   a[0] = n01; a[1] = n01 ^ 1u; a[2] = n23; a[3] = n23 ^ 1u;
 #else
-  if constexpr (VAR == 3) {
-    // two codes as the bf16 values 128 + q (exponent byte 0x43), then one
-    // bf16x2 fma: (128 + q) R(d) - 128 R(d) = q R(d), rounded once
+  if constexpr (VAR == 2) {
+    // (128 + q) - 128 = q exactly: a permute and a bf16x2 subtraction a pair
+    const __nv_bfloat162 k128 = __float2bfloat162_rn(128.f);
+    a[0] = bits(__hsub2(code2(n01, 0x4240), k128));
+    a[1] = bits(__hsub2(code2(n01, 0x4341), k128));
+    a[2] = bits(__hsub2(code2(n23, 0x4240), k128));
+    a[3] = bits(__hsub2(code2(n23, 0x4341), k128));
+  } else if constexpr (VAR == 3) {
+    // two codes as 128 + q, then one bf16x2 fma: (128 + q) R(d) - 128 R(d)
+    // = q R(d), rounded once
     const __nv_bfloat162 h0 = __float2bfloat162_rn(d0);
     const __nv_bfloat162 h1 = __float2bfloat162_rn(d1);
     const __nv_bfloat162 m0 = __hmul2(h0, __float2bfloat162_rn(-128.f));
     const __nv_bfloat162 m1 = __hmul2(h1, __float2bfloat162_rn(-128.f));
-    auto code2 = [](uint32_t nib, int sel) {
-      const uint32_t v = __byte_perm(nib, 0x43434343u, sel);
-      return *reinterpret_cast<const __nv_bfloat162*>(&v);
-    };
     a[0] = bits(__hfma2(code2(n01, 0x4240), h0, m0));
     a[1] = bits(__hfma2(code2(n01, 0x4341), h1, m1));
     a[2] = bits(__hfma2(code2(n23, 0x4240), h0, m0));
@@ -488,11 +535,16 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     __syncwarp();
   } else if (warp >= cons) {                         // the x warps
-    // float4 u of a stage's x: row u / 32, q block u / 8 % 4, k quad u % 8;
-    // thread xt takes u = xt + kXThreads j. The 8 lanes of one row's q
-    // block sum its block by shuffles (lanes ^ 1, ^ 2, ^ 4)
-    constexpr int kJ = NW * 32 / kXThreads;
-    const int xt = threadIdx.x - 32 * cons, units = a.M * 32;
+    // pair u of float4s of a stage's x: row u / 16, q block u / 4 % 4, k
+    // quads q = u % 4 (x_lo[4q..4q+3]) and q + 4 (x_hi[4q..4q+3], which v7
+    // pairs with them); thread xt takes u = xt + kXThreads j. A thread sums
+    // its 8 values (v7: the 4 pair sums R(R(x_lo) + R(x_hi)), in order) and
+    // the 4 lanes of one row's q block add theirs by shuffles (lanes ^ 1,
+    // ^ 2). (A float4 a thread, 8 lanes and 3 shuffles a q block, and v7's
+    // pairs one shuffle apart, made the x warps the pace setter at M > 32:
+    // 1.2-1.4x the time at M = 33 and 64, tools_torch/b15_sweep.py.)
+    constexpr int kJ = NW * 16 / kXThreads;
+    const int xt = threadIdx.x - 32 * cons, units = a.M * 16;
     int slot = 0, ph = 0;
     for (int i = 0; i < items; ++i) {
       {
@@ -504,22 +556,37 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int j = 0; j < kJ; ++j) {
           const int u = xt + kXThreads * j;
-          const int r = u >> 5, b = (u >> 3) & 3, q = u & 7;
-          const float4 v = *reinterpret_cast<const float4*>(
-              xraw + r * 128 + 32 * b + 4 * q);
-          // element (k, row r) of k16 tile (b, s): core matrix (r / 8, k %
-          // 16 / 8) 256 and 128 bytes apart, row r % 8 16 bytes apart
-          const int off = (2 * b + (q >> 2)) * NW * 32 + (r >> 3) * 256 +
-                          ((q >> 1) & 1) * 128 + (r & 7) * 16 + (q & 1) * 8;
+          const int r = u >> 4, b = (u >> 2) & 3, q = u & 3;
+          const float* src = xraw + r * 128 + 32 * b + 4 * q;
+          const float4 v = *reinterpret_cast<const float4*>(src);
+          const float4 w = *reinterpret_cast<const float4*>(src + 16);
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+          const __nv_bfloat162 lo4 = __floats2bfloat162_rn(w.x, w.y);
+          const __nv_bfloat162 hi4 = __floats2bfloat162_rn(w.z, w.w);
           if (u < units) {
-            const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-            const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-            *reinterpret_cast<uint2*>(xs + off) = make_uint2(bits(lo), bits(hi));
+            // element (k, row r) of k16 tile (b, s): core matrix (r / 8, k %
+            // 16 / 8) 256 and 128 bytes apart, row r % 8 16 bytes apart;
+            // quad q + 4 at the same place of tile (b, 1)
+            uint8_t* dst = xs + 2 * b * NW * 32 + (r >> 3) * 256 +
+                           ((q >> 1) & 1) * 128 + (r & 7) * 16 + (q & 1) * 8;
+            *reinterpret_cast<uint2*>(dst) = make_uint2(bits(lo), bits(hi));
+            *reinterpret_cast<uint2*>(dst + NW * 32) =
+                make_uint2(bits(lo4), bits(hi4));
           }
-          float sum = (v.x + v.y) + (v.z + v.w);
+          float sum;
+          if constexpr (VAR == 7) {
+            // one bf16x2 add rounds the exact pair sum once, as the plain
+            // version's f32 sum and rounding do (f32's 24 bits hold twice
+            // bf16's 8 and one more: double rounding is innocuous)
+            const float2 s01 = __bfloat1622float2(__hadd2(lo, lo4));
+            const float2 s23 = __bfloat1622float2(__hadd2(hi, hi4));
+            sum = ((s01.x + s01.y) + s23.x) + s23.y;
+          } else {
+            sum = ((v.x + v.y) + (v.z + v.w)) + ((w.x + w.y) + (w.z + w.w));
+          }
           sum += __shfl_xor_sync(0xffffffffu, sum, 1);
           sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-          sum += __shfl_xor_sync(0xffffffffu, sum, 4);
           if (u < units && q == 0) bs[b * NW + r] = sum;
         }
         hopper::fence_proxy_async();
@@ -545,7 +612,13 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
       roff[j] = (c0 / bw) * 16 * kQB * bw + r * bw + (((cb >> 4) ^ sw) << 4) +
                 (cb & 15);
     }
-    float acc[MT][NW / 2], fold[MT][NW / 2];
+    // v2 takes each q block's product of the codes into a fresh set z,
+    // then adds it to acc scaled by d, and the fold straight into acc; the
+    // others keep the fold apart in `fold`, since a wgmma in flight owns
+    // acc. acc's order, every variant: each q block's fold, then its
+    // product
+    float acc[MT][NW / 2], fold[MT][NW / 2], z[MT][NW / 2] = {};
+    float dp[2 * MT];     // v2: the scales of the q block whose z is pending
     uint32_t afr[2][MT][8] = {};
     // a warp releases a stage's weight and x slots by one arrival each
     // (lane 0) once its reads and products of them are done (the products
@@ -556,6 +629,34 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_arrive_if(empty + 8 * (w < 0 ? 0 : w), lane == 0 && w >= 0);
       mbar_arrive_if(xempty + 8 * (x < 0 ? 0 : x), lane == 0 && x >= 0);
     };
+    // the fold of a q block (its scales d, its block sums bsb) into dst:
+    // register 4j + c of m-tile mt is x row 8j + 2t + c % 2 and column
+    // c0 + 2 mt + c / 2
+    auto add_fold = [&](float (&dst)[MT][NW / 2], const float* bsb,
+                        const float* d) {
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const float2 bv = *reinterpret_cast<const float2*>(bsb + 8 * j + 2 * t4);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float p0 = -8.f * d[2 * mt], p1 = -8.f * d[2 * mt + 1];
+          float* f = dst[mt] + 4 * j;
+          f[0] = __fmaf_rn(bv.x, p0, f[0]);
+          f[1] = __fmaf_rn(bv.y, p0, f[1]);
+          f[2] = __fmaf_rn(bv.x, p1, f[2]);
+          f[3] = __fmaf_rn(bv.y, p1, f[3]);
+        }
+      }
+    };
+    // v2: acc += z d, each D register by its column's scale
+    auto add_scaled = [&](float (&zz)[MT][NW / 2], const float* d) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < NW / 2; ++i)
+          acc[mt][i] = __fmaf_rn(zz[mt][i], d[2 * mt + ((i >> 1) & 1)],
+                                 acc[mt][i]);
+    };
     for (int t = cid; t < a.tiles; t += ncl) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -564,6 +665,10 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
           acc[mt][i] = 0.f;
           fold[mt][i] = 0.f;
         }
+      // the tile's first q block has no product pending: the z left from
+      // the tile before is added times 0
+#pragma unroll
+      for (int c = 0; c < 2 * MT; ++c) dp[c] = 0.f;
       for (int st = st0; st < st1; ++st) {
         mbar_wait(full + 8 * slot, ph);
         mbar_wait(xfull + 8 * xslot, xph);
@@ -606,22 +711,7 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
             dequant<VAR>((w01 >> 4) & 0x0F0F0F0Fu, (w23 >> 4) & 0x0F0F0F0Fu,
                          d[2 * mt], d[2 * mt + 1], A[mt] + 4);
           }
-          // the fold: register 4j + c of m-tile mt is x row 8j + 2t + c % 2
-          // and column c0 + 2 mt + c / 2
-#pragma unroll
-          for (int j = 0; j < NW / 8; ++j) {
-            const float2 bv =
-                *reinterpret_cast<const float2*>(bs + b * NW + 8 * j + 2 * t4);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              const float p0 = -8.f * d[2 * mt], p1 = -8.f * d[2 * mt + 1];
-              float* f = fold[mt] + 4 * j;
-              f[0] = __fmaf_rn(bv.x, p0, f[0]);
-              f[1] = __fmaf_rn(bv.y, p0, f[1]);
-              f[2] = __fmaf_rn(bv.x, p1, f[2]);
-              f[3] = __fmaf_rn(bv.y, p1, f[3]);
-            }
-          }
+          if constexpr (VAR != 2) add_fold(fold, bs + b * NW, d);
           if constexpr (SYNC) {
             // B fragment: x rows g, k 2t, 2t + 1 (and + 8) of tile (b, s)
             const uint8_t* xb = xs + 2 * b * NW * 32 + g * 16 + 4 * t4;
@@ -632,12 +722,41 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
               const uint32_t b1 =
                   *reinterpret_cast<const uint32_t*>(xb + s * NW * 32 + 128);
 #pragma unroll
-              for (int mt = 0; mt < MT; ++mt)
-                mma_bf16(acc[mt], A[mt] + 4 * s, b0, b1);
+              for (int mt = 0; mt < MT; ++mt) {
+                if constexpr (VAR != 2)
+                  mma_bf16(acc[mt], A[mt] + 4 * s, b0, b1);
+                else if (s == 0)
+                  mma_bf16_new(z[mt], A[mt], b0, b1);
+                else
+                  mma_bf16(z[mt], A[mt] + 4, b0, b1);
+              }
+            }
+            if constexpr (VAR == 2) {
+              add_fold(acc, bs + b * NW, d);
+              add_scaled(z, d);
             }
           } else {
+            // v2's product of block b into z, the others' into acc
+            float (&D)[MT][NW / 2] = VAR == 2 ? z : acc;
+            if constexpr (VAR == 2) {
+              // block b - 1's product done before block b's issue
+              wgmma_wait<0>();
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                fence_regs<NW / 2>(z[mt]);
+                keep(afr[(b + 1) & 1][mt]);
+              }
+              add_scaled(z, dp);
+              add_fold(acc, bs + b * NW, d);
+#pragma unroll
+              for (int c = 0; c < 2 * MT; ++c) dp[c] = d[c];
+              if (b == 0) {
+                release(pw, px);
+                pw = px = -1;
+              }
+            }
             // every input of the products (the A registers, the
-            // descriptors; acc untouched) set before their pipeline stage
+            // descriptors; D untouched) set before their pipeline stage
             // opens: the compiler would otherwise compute the second
             // step's between the two issues, and ptxas then serializes
             uint64_t dsc[2];
@@ -650,23 +769,27 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) {
               keep(A[mt]);
-              fence_regs<NW / 2>(acc[mt]);
+              fence_regs<NW / 2>(D[mt]);
             }
             wgmma_fence();
+            // v2 starts each block's z afresh (scale-d 0 on its first step)
 #pragma unroll
             for (int s = 0; s < 2; ++s)
 #pragma unroll
               for (int mt = 0; mt < MT; ++mt)
-                WgmmaRs<NW>::run(acc[mt], A[mt] + 4 * s, dsc[s]);
+                WgmmaRs<NW>::run(D[mt], A[mt] + 4 * s, dsc[s],
+                                 VAR == 2 && s == 0 ? 0 : 1);
             wgmma_commit();
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt) fence_regs<NW / 2>(acc[mt]);
-            wgmma_wait<1>();     // q block b - 1's products are done
+            for (int mt = 0; mt < MT; ++mt) fence_regs<NW / 2>(D[mt]);
+            if constexpr (VAR != 2) {
+              wgmma_wait<1>();     // q block b - 1's products are done
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt) keep(afr[(b + 1) & 1][mt]);
-            if (b == 0) {
-              release(pw, px);
-              pw = px = -1;
+              for (int mt = 0; mt < MT; ++mt) keep(afr[(b + 1) & 1][mt]);
+              if (b == 0) {
+                release(pw, px);
+                pw = px = -1;
+              }
             }
           }
         }
@@ -681,19 +804,23 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       if constexpr (!SYNC) {
         wgmma_wait<0>();
+        float (&D)[MT][NW / 2] = VAR == 2 ? z : acc;
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          fence_regs<NW / 2>(acc[mt]);
+          fence_regs<NW / 2>(D[mt]);
           keep(afr[0][mt]);
           keep(afr[1][mt]);
         }
         release(pw, px);
         pw = px = -1;
+        if constexpr (VAR == 2) add_scaled(D, dp);
       }
+      if constexpr (VAR != 2) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int i = 0; i < NW / 2; ++i) acc[mt][i] += fold[mt][i];
+          for (int i = 0; i < NW / 2; ++i) acc[mt][i] += fold[mt][i];
+      }
 
       if (S > 1) {
         // the warpgroup's partial, register i of m-tile mt of thread tid at
@@ -864,7 +991,8 @@ int dispatch_rows(const FoldArgs& a, const void* x, const void* qs,
 #undef FLTORCH_B15_LAUNCH
 }
 
-// The entry of variant VAR (1: B15, 3: B17; another variant is refused):
+// The entry of variant VAR (1: B15, 2: B16, 3: B17, 7: B18; another variant
+// is refused):
 // q4_fold_gemm's contract (q4_fold.cu).
 template <int VAR>
 int fold_gemm(const void* x, int M, int Kx, const void* qs,

@@ -15,10 +15,9 @@ sum of the unrounded x over each 32-block of K:
   v3          R(x) @ R(q R(d)) - 8 bsum(x) @ d       B17 q4_decode_v3
   v7          R(x) @ R(q d) - 8 bsum7 @ d            B18 q4_decode_v7
 
-B15 and B17 run one kernel built for Hopper (csrc/q4_fold.cuh, on
-b15_plan: persistent blocks in clusters along K, weight stages by TMA,
-wgmma with the weight in registers); B16 and B18 are modes of B1's
-tensor-core kernel (csrc/q4_decode.cu).
+B15-B18 run one kernel built for Hopper (csrc/q4_fold.cuh, one build a
+variant, on b15_plan: persistent blocks in clusters along K, weight stages
+by TMA, wgmma with the weight in registers); v0 runs B1 (csrc/q4_decode.cu).
 
 where x_b, q_b are the 32 columns of x and rows of the codes of q block b,
 and bsum7 sums R(R(x_lo) + R(x_hi)) in f32 over the 16 pairs of a block
@@ -62,11 +61,14 @@ from . import q4_matmul as qm
 HALF = QBLOCK // 2
 DECODE_VARIANTS = ("v0", "v1", "v2", "v3", "v4", "v5", "v7")
 INT8_VARIANTS = ("nat", "natp", "natx", "split")
-# the kernel of each decode body in bf16 mode: B15 and B17 their variant of
-# csrc/q4_fold.cuh (q4_fold_gemm, q4_fold_v3_gemm), the others their mode of
-# B1's tensor-core kernel (csrc/q4_decode.cu, q4_variant_mma's `variant`)
-FOLD_VARIANT = {"v1": 1, "v4": 1, "v5": 1, "v3": 3}
-MODE_OF = {"v0": 0, "v2": 2, "v7": 7}
+# the kernel of each decode body in bf16 mode: B15-B18 their variant of
+# csrc/q4_fold.cuh (built one a variant: FOLD_ENTRY), v0 (with 2-byte
+# scales, v0h) B1's tensor-core kernel (csrc/q4_decode.cu, q4_variant_mma's
+# `variant`)
+FOLD_VARIANT = {"v1": 1, "v4": 1, "v5": 1, "v2": 2, "v3": 3, "v7": 7}
+FOLD_ENTRY = {1: "q4_fold_gemm", 2: "q4_fold_v2_gemm", 3: "q4_fold_v3_gemm",
+              7: "q4_fold_v7_gemm"}
+MODE_OF = {"v0": 0}
 
 
 def _rounded(t: torch.Tensor) -> torch.Tensor:
@@ -149,7 +151,7 @@ def _check_planes(x: torch.Tensor, qs: torch.Tensor,
 
 def _launch_decode(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
                    mode: int, n_out: int) -> torch.Tensor:
-    """One launch of the tensor-core kernel in `mode` (MODE_OF's values) on
+    """One launch of B1's tensor-core kernel in `mode` (MODE_OF's values) on
     B1's plan, with f32 or 2-byte scales."""
     qm._require(x.device.type == "cuda", f"unsupported device {x.device}")
     qm._require(all(t.is_contiguous() and t.device == x.device
@@ -181,7 +183,7 @@ def _launch_decode(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# B15 and B17: the plan of csrc/q4_fold.cuh
+# B15-B18: the plan of csrc/q4_fold.cuh
 # ---------------------------------------------------------------------------
 
 # The kernel's constants (csrc/q4_fold.cuh): q blocks a K stage, the columns
@@ -345,8 +347,9 @@ def b15_capacity(device) -> Callable[[int], int]:
 def _launch_fold(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
                  variant: int, n_out: int,
                  plan: B15Plan | None = None) -> torch.Tensor:
-    """One launch of B15's kernel (variant 1: v1's function, 3: v3's) with
-    f32 or 2-byte scales, on b15_plan (or `plan`). The kernel reads x by
+    """One launch of B15's kernel (variant 1: v1's function, 2: v2's, 3:
+    v3's, 7: v7's; its build FOLD_ENTRY[variant]) with f32 or 2-byte
+    scales, on b15_plan (or `plan`). The kernel reads x by
     tensor copies, which take rows of a multiple of 16 bytes: x of another
     K is padded with zeros to one."""
     qm._require(x.device.type == "cuda", f"unsupported device {x.device}")
@@ -373,8 +376,8 @@ def _launch_fold(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
         if plan is None:
             plan = _B15_PLANS[key] = b15_plan(
                 m, n, nb, cuda_lib.sm_count(dev), sc16, b15_capacity(dev))
-    y = torch.empty((m, n_out), dtype=torch.float32, device=dev)
-    entry = "q4_fold_gemm" if variant == 1 else "q4_fold_v3_gemm"
+    y = x.new_empty((m, n_out))
+    entry = FOLD_ENTRY[variant]
     rc = cuda_lib.fn(entry)(
         x.data_ptr(), m, kx, qs.data_ptr(), scales.data_ptr(), int(sc16), n,
         nb, variant, plan.wgs, plan.stages, plan.xstages, plan.splits,
@@ -385,17 +388,15 @@ def _launch_fold(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
 
 
 def _decode_kernel(variant: str, doc: str):
-    """The wrapper of the bf16-mode kernel of decode body `variant`."""
+    """The wrapper of the bf16-mode kernel of decode body `variant` (its
+    build of csrc/q4_fold.cuh)."""
     def wrapper(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
                 n_out: int | None = None) -> torch.Tensor:
         _check_planes(x, qs, scales)
         n_out = n_out or qs.shape[1]
         if x.device.type == "cpu":
             return decode_plain(x, qs, scales, variant)[:, :n_out]
-        if variant in FOLD_VARIANT:
-            y = _launch_fold(x, qs, scales, FOLD_VARIANT[variant], n_out)
-        else:
-            y = _launch_decode(x, qs, scales, MODE_OF[variant], n_out)
+        y = _launch_fold(x, qs, scales, FOLD_VARIANT[variant], n_out)
         wrapper.launches += 1
         return y
     wrapper.__name__ = wrapper.__qualname__ = f"q4_decode_{variant}"
@@ -412,16 +413,17 @@ q4_decode_v1 = _decode_kernel("v1", f"""Kernel B15 (v1, v4, v5): {_SIG}
     back per q block as bsum * (-8 d) into f32 registers beside the
     accumulators, K splits added in a thread block cluster.""")
 q4_decode_v2 = _decode_kernel("v2", f"""Kernel B16 (v2): {_SIG} =
-    sum_b d_b (R(x_b) @ q_b) - 8 bsum(x) @ d. Mode kV2: the codes alone
-    (exact in bf16) into a fresh MMA accumulator per q block, scaled by d
-    into the f32 accumulators.""")
+    sum_b d_b (R(x_b) @ q_b) - 8 bsum(x) @ d, on B15's kernel: the codes
+    alone (exact in bf16) in the A registers, each q block's product into a
+    fresh set of f32 registers, then added to the accumulators scaled by
+    its column's d, the fold straight into them.""")
 q4_decode_v3 = _decode_kernel("v3", f"""Kernel B17 (v3): {_SIG} =
     R(x) @ R(q R(d)) - 8 bsum(x) @ d: a bf16 x bf16 product (one rounding)
     of the codes and the rounded scales (one bf16x2 fma, as __hmul2
     rounds), on B15's kernel; the fold keeps the f32 d.""")
 q4_decode_v7 = _decode_kernel("v7", f"""Kernel B18 (v7): {_SIG} =
-    R(x) @ R(q d) - 8 bsum7(x) @ d, bsum7 from the bf16-rounded pair sums
-    R(R(x_lo) + R(x_hi)), summed in f32 inside the kernel (mode kV7).""")
+    R(x) @ R(q d) - 8 bsum7(x) @ d: B15's kernel, whose x warps sum the
+    bf16-rounded pair sums R(R(x_lo) + R(x_hi)) in f32 for the fold.""")
 DECODE_KERNELS = {"v1": q4_decode_v1, "v4": q4_decode_v1,
                   "v5": q4_decode_v1, "v2": q4_decode_v2,
                   "v3": q4_decode_v3, "v7": q4_decode_v7}

@@ -18,6 +18,7 @@ from fastllama_tpu.io.checkpoint import CheckpointWriter
 from fastllama_tpu.kernels import q4_matmul as jqm
 from fastllama_tpu.quant import tensor as jt
 from fastllama_tpu.quant.q4 import quantize_q4_0, quantize_q4_1
+from fastllama_tpu_torch.kernels import cuda_lib
 from fastllama_tpu_torch.kernels import q4_matmul as tqm
 from fastllama_tpu_torch.kernels import q4_variants as qv
 from fastllama_tpu_torch.quant import tensor as tt
@@ -701,19 +702,25 @@ def b15_smem_image(rows, bn):
 
 
 def b15_model(x, qs, sc, variant, plan, sc16=False):
-    """B15's and B17's kernel as built, in numpy: for each column tile and
-    split (the plan's), each K stage of 4 q blocks staged as the kernel
-    stages it (the packed rows in swizzled boxes, x as bf16 in wgmma's
-    K-major core-matrix layout, zeros past K and N), each consumer lane's A
-    registers (m-tile mt of its 2 MT columns c0 + 2 mt, + 1 of packed rows
-    2t, 2t+1, 2t+8, 2t+9, dequantized: v1 R(f32(q d)), v3 R(q R(d))) placed
+    """The kernel of B15-B18 (csrc/q4_fold.cuh) as built, in numpy: for
+    each column tile and split (the plan's), each K stage of 4 q blocks
+    staged as the kernel stages it (the packed rows in swizzled boxes, x as
+    bf16 in wgmma's K-major core-matrix layout, zeros past K and N), the x
+    warps' block sums (a lane's quads q and q + 4: each float4 summed in
+    order, then the two; v7: the four pair sums R(R(x_lo) + R(x_hi)) in
+    order; then lanes ^ 1, ^ 2), each consumer lane's A registers (m-tile mt of its 2 MT
+    columns c0 + 2 mt, + 1 of packed rows 2t, 2t+1, 2t+8, 2t+9,
+    dequantized: v1 and v7 R(f32(q d)), v3 R(q R(d)), v2 the code q) placed
     by the m16n8k16 A-fragment map into its warpgroup's 64 x 16 tile, B
     read from the x tile through the descriptor's offsets (LBO 128, SBO
-    256), the products exact and summed in float64 (the tensor cores sum in
-    f32), the fold as an f32 FMA a D register and q block in q block order,
-    acc + fold in f32, the D registers stored by the kernel's map, and the
-    leader's sum of the splits in split order. sc: f32 scales (their bf16
-    values when sc16)."""
+    256), the products exact. v1, v3, v7: summed in float64 over the split
+    (the tensor cores sum in f32), the fold as an f32 FMA a D register and
+    q block in q block order, acc + fold in f32. v2: each q block's two k16
+    steps summed in float64 and rounded to f32 (z), then acc = fma(bsum,
+    -8 d, acc) and acc = fma(z, d, acc) in q block order, d the D
+    register's column's. Then the D registers stored by the kernel's map,
+    and the leader's sum of the splits in split order. sc: f32 scales
+    (their bf16 values when sc16)."""
     m, kx = x.shape
     k2, n = qs.shape
     nb = k2 // 16
@@ -734,20 +741,28 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
     for tile in range(tiles):
         parts = []
         for z in range(plan.splits):
-            # [warpgroup, m-tile] -> D [A row, x row], fold alike
+            # [warpgroup, m-tile] -> D [A row, x row], fold alike; v2's acc
             d_acc = np.zeros((wgs, mt_n, 64, nw))
             fold = np.zeros((wgs, mt_n, 64, nw), dtype=np.float32)
+            acc = np.zeros((wgs, mt_n, 64, nw), dtype=np.float32)
             for st in range(z * plan.sps, min(nst, (z + 1) * plan.sps)):
                 img = b15_smem_image(
                     qpad[64 * st:64 * st + 64, tile * bn:(tile + 1) * bn], bn)
                 scs = spad[4 * st:4 * st + 4, tile * bn:(tile + 1) * bn]
                 xs = xpad[:, 128 * st:128 * st + 128]
                 # the x warps: bf16 tiles in the core-matrix layout, and the
-                # block sums (4 in order, then lanes ^ 1, ^ 2, ^ 4)
+                # block sums (a lane's 4 in order, then lanes ^ 1, ^ 2, ^ 4)
                 xt = np.zeros(4 * 2 * nw * 16, dtype=np.float32)
-                q4 = xs.reshape(nw, 4, 8, 4)
-                bsum = ((q4[..., 0] + q4[..., 1]) + (q4[..., 2] + q4[..., 3]))
-                for _ in range(3):
+                q4 = xs.reshape(nw, 4, 8, 4)          # [row, block, quad, e]
+                if variant == "v7":
+                    pair = _bf16(_bf16(q4[:, :, :4]) + _bf16(q4[:, :, 4:]))
+                    bsum = (((pair[..., 0] + pair[..., 1]) + pair[..., 2])
+                            + pair[..., 3])
+                else:
+                    quad = ((q4[..., 0] + q4[..., 1])
+                            + (q4[..., 2] + q4[..., 3]))
+                    bsum = quad[..., :4] + quad[..., 4:]
+                while bsum.shape[-1] > 1:
                     bsum = bsum[..., 0::2] + bsum[..., 1::2]
                 bsum = bsum[..., 0].T                       # [b][row]
                 for b in range(4):
@@ -774,6 +789,7 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
                                 byte[j, 0] = slab[off]
                                 byte[j, 1] = slab[off + 1]
                             d = scs[b, c0 + 2 * mt], scs[b, c0 + 2 * mt + 1]
+                            prod = np.zeros((64, nw))
                             for s in range(2):
                                 # [row j][column e]
                                 code = (byte >> (4 * s)) & 15
@@ -781,7 +797,9 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
                                 for j in range(4):
                                     for e in range(2):
                                         q = code[j, e].astype(np.float64)
-                                        if variant == "v3":
+                                        if variant == "v2":
+                                            v = q
+                                        elif variant == "v3":
                                             v = _bf16(q * _bf16(d[e]))
                                         else:
                                             v = _bf16(_f32(q * d[e]))
@@ -795,18 +813,26 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
                                 at = ((2 * b + s) * nw * 32 + (r >> 3) * 256 +
                                       (kk >> 3) * 128 + (r & 7) * 16 +
                                       (kk & 7) * 2) // 2
-                                d_acc[wg, mt] += a @ xt[at]
-                            # the fold: register 4j + c, A row g + 8 (c / 2),
-                            # x row 8j + 2t + c % 2
+                                prod += a @ xt[at]
+                            d_acc[wg, mt] += prod
+                            z = _f32(prod)
+                            # the fold (v2: into acc, then z d): register
+                            # 4j + c, A row g + 8 (c / 2), x row 8j + 2t + c % 2
+                            tgt = acc if variant == "v2" else fold
                             for i in range(nw // 2):
-                                ra = 16 * w + g + 8 * ((i >> 1) & 1)
+                                e = (i >> 1) & 1
+                                ra = 16 * w + g + 8 * e
                                 xr = 8 * (i >> 2) + 2 * t + (i & 1)
-                                p = _f32(-8.0 * np.asarray(d[(i >> 1) & 1],
+                                p = _f32(-8.0 * np.asarray(d[e],
                                                            dtype=np.float64))
-                                fold[wg, mt, ra, xr] = _f32(
+                                tgt[wg, mt, ra, xr] = _f32(
                                     bsum[b, xr].astype(np.float64) * p
-                                    + fold[wg, mt, ra, xr])
-            parts.append(_f32(d_acc) + fold)
+                                    + tgt[wg, mt, ra, xr])
+                                if variant == "v2":
+                                    acc[wg, mt, ra, xr] = _f32(
+                                        z[ra, xr].astype(np.float64) * d[e]
+                                        + acc[wg, mt, ra, xr])
+            parts.append(acc if variant == "v2" else _f32(d_acc) + fold)
         tot = parts[0]
         for part in parts[1:]:
             tot = tot + part                       # f32, in split order
@@ -825,10 +851,11 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
 
 
 @pytest.mark.parametrize("m", [1, 5, 8, 13, 40, 64])
-@pytest.mark.parametrize("variant", ["v1", "v3"])
+@pytest.mark.parametrize("variant", ["v1", "v2", "v3", "v7"])
 def test_b15_model_matches_plain_and_the_jax_body(variant, m):
-    """The numpy model of B15's kernel (b15_model: the fragment maps, x's
-    K-major layout, the fold's FMAs and the split order) on a 1088 x 192
+    """The numpy model of the kernel of B15-B18 (b15_model: the fragment
+    maps, x's K-major layout, v7's pair sums, v2's product a q block
+    scaled into acc, the fold's FMAs and the split order) on a 1088 x 192
     plane (34 q blocks; a ragged last tile) with K 1000 (x past its K is
     zero; the last stage half past the plane), under plans of 1, 2 and 3
     splits (an uneven last split), one and two consumer warpgroups (BN
@@ -836,14 +863,16 @@ def test_b15_model_matches_plain_and_the_jax_body(variant, m):
     bf16 scales:
     within 1e-5 of sum |R(x)| (q + 8) |d| of decode_plain and of the JAX
     body in interpret mode (the products are exact; only the f32
-    summation order differs)."""
+    summation order differs). v7 at M = 1 feeds the JAX body 8 rows, as
+    its dispatcher does (test_decode_plain_matches_the_jax_body)."""
     qs_full, sc_full = planes(1280, 256, seed=40)
     qs, sc = qs_full[:544, :192].copy(), sc_full[:34, :192].copy()
     x = acts(m, 1000, seed=41)
     # the JAX body on the whole stored plane, x zero past its K: the rows
     # and columns past the cut add nothing and are not compared
     want_jax = jax_body(np.pad(x, ((0, 0), (0, 280))), qs_full, sc_full,
-                        variant, jnp.bfloat16)[:, :192]
+                        variant, jnp.bfloat16,
+                        m_pad=8 if (variant, m) == ("v7", 1) else 0)[:, :192]
     for sc16, wgs, splits in ((False, 1, 1), (False, 2, 2), (True, 2, 3)):
         tsc = torch.from_numpy(sc)
         if sc16:
@@ -859,6 +888,48 @@ def test_b15_model_matches_plain_and_the_jax_body(variant, m):
         assert np.abs(got - want).max() <= tol, (sc16, wgs, splits)
         if not sc16:
             assert np.abs(got - want_jax).max() <= tol, (wgs, splits)
+
+
+class _ReportsCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it takes a wrapper past its
+    CPU branch to its launch, where a spy stands in for the entry point."""
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_v1_to_v7_launch_their_build_of_the_fold_kernel(monkeypatch):
+    """B1's tensor-core kernel keeps one variant mode, v0 (v0h: its 2-byte
+    scales), and each of v1-v7 launches its own build of csrc/q4_fold.cuh
+    with its variant number (v4 and v5 v1's): the entry points a spy on
+    cuda_lib.fn records, each launch counted by its wrapper."""
+    assert qv.MODE_OF == {"v0": 0}
+    called = []
+
+    def fn(name):
+        if name == "q4_fold_clusters":
+            return lambda s: B15_CAPACITY[s]
+
+        def entry(*args):
+            called.append((name, args[8]))
+            return 0
+        return entry
+    monkeypatch.setattr(cuda_lib, "fn", fn)
+    monkeypatch.setattr(cuda_lib, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(cuda_lib, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(qv, "_B15_CLUSTERS", {})
+    monkeypatch.setattr(qv, "_B15_PLANS", {})
+    qs, sc = planes()
+    x, qd, sd = (torch.Tensor._make_subclass(
+        _ReportsCuda, torch.from_numpy(a).clone()) for a in (acts(8), qs, sc))
+    for variant in ("v1", "v2", "v3", "v4", "v5", "v7"):
+        kernel = qv.DECODE_KERNELS[variant]
+        before = kernel.launches
+        y = qv.q4_matmul_pallas(x, qd, sd, variant=variant)
+        assert y.shape == (8, N) and kernel.launches == before + 1
+    assert called == [("q4_fold_gemm", 1), ("q4_fold_v2_gemm", 2),
+                      ("q4_fold_v3_gemm", 3), ("q4_fold_gemm", 1),
+                      ("q4_fold_gemm", 1), ("q4_fold_v7_gemm", 7)]
 
 
 def test_b20_route_follows_b20_on_b15_max_m():
@@ -877,9 +948,10 @@ def test_b20_route_follows_b20_on_b15_max_m():
 @pytest.mark.parametrize("variant", ["v1", "v2", "v3", "v7", "v0h", "v1h",
                                      "v2h", "v3h", "v7h"])
 def test_variant_kernels_match_plain(cuda_device, variant, m):
-    """B15-B18 and the h forms (v0h: B1 with 2-byte scales) on the card at
-    each of B1's n-tile counts: within 1e-5 of sum |x| |w| of the plain
-    version and bit-equal across two runs; each counts its launch."""
+    """B15-B18 (csrc/q4_fold.cuh) and the h forms (v0h: B1 with 2-byte
+    scales) on the card at M = 1, 8 (mma.sync), 17 and 64 (wgmma): within
+    1e-5 of sum |x| |w| of the plain version and bit-equal across two runs;
+    each counts its launch."""
     qs, sc = planes(1024, 512, seed=17)
     x = acts(m, 1024, seed=18)
     base, h = variant.rstrip("h"), variant.endswith("h")
@@ -914,17 +986,17 @@ B15_PINNED = [(1, 2, 1, 2, 1, False), (1, 1, 8, 4, None, False),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sc16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("variant", ["v1", "v3"])
+@pytest.mark.parametrize("variant", ["v1", "v2", "v3", "v7"])
 @pytest.mark.parametrize("pinned", B15_PINNED + [(m, None) for m in
                                                  (1, 7, 8, 9, 16, 33, 64)],
                          ids=str)
 def test_b15_kernel_matches_plain_under_every_plan_shape(cuda_device, pinned,
                                                          variant, sc16):
-    """B15's kernel (v1) and B17's (v3) on a 4096 x 448 plane (a ragged
-    last tile; K 4000, or 3998, which the wrapper pads to a multiple of 4
-    for the tensor copies of x) under pinned plans (one and two consumer
-    warpgroups, 1-8 splits, 2-8 ring slots, clusters that walk several
-    tiles, mma.sync at M <= 8) and
+    """The kernel of B15 (v1), B16 (v2), B17 (v3) and B18 (v7) on a
+    4096 x 448 plane (a ragged last tile; K 4000, or 3998, which the
+    wrapper pads to a multiple of 4 for the tensor copies of x) under
+    pinned plans (one and two consumer warpgroups, 1-8 splits, 2-8 ring
+    slots, clusters that walk several tiles, mma.sync at M <= 8) and
     under the wrapper's own plan (counted, with n_out 440): within 1e-5 of
     sum |R(x)| (q + 8) |d| of the plain version, bit-equal twice."""
     m = pinned[0]

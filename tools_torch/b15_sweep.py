@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device time of the decode kernel of B15 and B17 (csrc/q4_fold.cuh) under
+"""Device time of the decode kernel of B15-B18 (csrc/q4_fold.cuh) under
 variants of its plan and its design, on one CUDA card.
 
     python3 tools_torch/b15_sweep.py [--planes qkv,wo,w13,w2] [--rows 1,8,64]
@@ -9,7 +9,8 @@ On the named 7B planes (and the 13B qkv plane, "qkv13") at the given M,
 with q4_0 weights cycled through more than the 50 MB L2, it times through
 the kernel's entry point:
 
-  * plan: B15 (v1) on q4_variants.b15_plan, and B17 (v3) on the same plan;
+  * plan: B15 (v1) on q4_variants.b15_plan, and B16 (v2), B17 (v3) and
+    B18 (v7) on the same plan (b16, b17, b18);
   * stages_S: the plan with S weight ring slots (2 to 16, where they fit
     beside an x ring of 2 or more);
   * one_warpgroup: the best plan with one consumer warpgroup in place of
@@ -56,9 +57,12 @@ from fastllama_tpu_torch.quant.tensor import QuantMatmulWeight  # noqa: E402
 
 PLANES = {"qkv": (4096, 12288), "wo": (4096, 4096), "w13": (4096, 22016),
           "w2": (11008, 4096), "qkv13": (5120, 15360)}
-BUILDS = {"no_pdl": "-DFLTORCH_B15_NO_PDL",
-          "no_dequant": "-DFLTORCH_B15_NO_DEQUANT",
-          "global_merge": "-DFLTORCH_B15_GLOBAL_MERGE"}
+# name: (source, flag, entry point)
+BUILDS = {"no_pdl": ("q4_fold", "-DFLTORCH_B15_NO_PDL", "q4_fold_gemm"),
+          "no_dequant": ("q4_fold", "-DFLTORCH_B15_NO_DEQUANT",
+                         "q4_fold_gemm"),
+          "global_merge": ("q4_fold", "-DFLTORCH_B15_GLOBAL_MERGE",
+                           "q4_fold_gemm")}
 
 
 def parse_args(argv=None):
@@ -69,7 +73,7 @@ def parse_args(argv=None):
     ap.add_argument("--b20-rows", default="8,16,32,64",
                     help="M values for B20 against B15 (empty: none)")
     ap.add_argument("--no-builds", action="store_true",
-                    help="skip the no_dequant and global_merge builds")
+                    help="skip the builds of BUILDS")
     args = ap.parse_args(argv)
     args.planes = [p for p in args.planes.split(",") if p]
     args.rows = [int(r) for r in args.rows.split(",") if r]
@@ -83,24 +87,23 @@ def parse_args(argv=None):
 
 
 def build_variants():
-    """{name: entry point} of csrc/q4_fold.cu (B15's build of the kernel of
-    csrc/q4_fold.cuh) built with each of BUILDS' flags (in parallel, into
-    the git-ignored build directory)."""
-    src = cuda_lib.CSRC / "q4_fold.cu"
+    """{name: entry point} of each of BUILDS (a build of the kernel of
+    csrc/q4_fold.cuh with one flag), built in parallel into the git-ignored
+    build directory."""
     procs = {}
-    for name, flag in BUILDS.items():
+    for name, (src, flag, fn) in BUILDS.items():
         out = cuda_lib.BUILD_DIR / f"libsweep_b15_{name}.so"
         procs[name] = (subprocess.Popen(
             [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, flag, "-o", str(out),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), out)
+             str(cuda_lib.CSRC / f"{src}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), out, fn)
     entries = {}
-    for name, (proc, out) in procs.items():
+    for name, (proc, out, fn) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"b15_sweep: {name} did not build:\n{log}")
-        entry = ctypes.CDLL(str(out)).q4_fold_gemm
-        entry.argtypes = cuda_lib.ARGTYPES["q4_fold_gemm"]
+        entry = getattr(ctypes.CDLL(str(out)), fn)
+        entry.argtypes = cuda_lib.ARGTYPES[fn]
         entry.restype = ctypes.c_int
         entries[name] = entry
     return entries
@@ -158,7 +161,9 @@ def main(argv=None):
     gen.manual_seed(0)
     cuda_lib.build()
     entry = cuda_lib.fn("q4_fold_gemm")
-    entry_v3 = cuda_lib.fn("q4_fold_v3_gemm")
+    # the other variants on the plan: (label, variant, its entry point)
+    others = [(key, v, cuda_lib.fn(qv.FOLD_ENTRY[v]))
+              for key, v in (("b16", 2), ("b17", 3), ("b18", 7))]
     builds = {} if args.no_builds else build_variants()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -189,6 +194,13 @@ def main(argv=None):
             tol = 1e-5 * (qm._pad_k(x.abs(), w.k).to(torch.bfloat16).float()
                           @ absum_w).max().item()
             want = qv.decode_plain(x, w.qs, w.scales, "v1")
+
+            def check(label, y, variant=1):
+                ref = want if variant == 1 else qv.decode_plain(
+                    x, w.qs, w.scales, f"v{variant}")
+                err = (y - ref).abs().max().item()
+                cs.require(err <= tol, f"{label} {name} M={m}: err {err} > "
+                           f"{tol}")
             row = dict(plane=name, m=m, k=k, n=n)
             done = {}
             for label, plan in plans(m, n, nb, sms, cap).items():
@@ -196,22 +208,20 @@ def main(argv=None):
                     row[label] = row[done[plan]]
                     continue
                 done[plan] = label
-                y = launch(entry, x, w.qs, w.scales, 1, plan)
-                err = (y - want).abs().max().item()
-                cs.require(err <= tol, f"{label} {name} M={m}: err {err} > "
-                           f"{tol}")
+                check(label, launch(entry, x, w.qs, w.scales, 1, plan))
                 row[label] = timed(lambda qs, sc, p=plan: launch(
                     entry, x, qs, sc, 1, p))
                 if label == "plan":
                     row["plan_is"] = plan._asdict()
-                    row["b17"] = timed(lambda qs, sc, p=plan: launch(
-                        entry_v3, x, qs, sc, 3, p))
+                    for key, v, fn in others:
+                        check(key, launch(fn, x, w.qs, w.scales, v, plan), v)
+                        row[key] = timed(lambda qs, sc, p=plan, f=fn, v=v:
+                                         launch(f, x, qs, sc, v, p))
             base = row["plan_is"]
             plan = qv.B15Plan(**base)
             if builds:
-                y = launch(builds["no_pdl"], x, w.qs, w.scales, 1, plan)
-                err = (y - want).abs().max().item()
-                cs.require(err <= tol, f"no_pdl {name} M={m}: err {err}")
+                check("no_pdl", launch(builds["no_pdl"], x, w.qs, w.scales,
+                                       1, plan))
                 row["no_pdl"] = timed(lambda qs, sc: launch(
                     builds["no_pdl"], x, qs, sc, 1, plan))
                 row["no_dequant"] = timed(lambda qs, sc: launch(
@@ -221,11 +231,8 @@ def main(argv=None):
                 scratch = torch.empty(
                     merge.clusters * merge.splits * merge.bn * merge.nw,
                     dtype=torch.float32, device=dev)
-                y = launch(builds["global_merge"], x, w.qs, w.scales, 1,
-                           merge, scratch)
-                err = (y - want).abs().max().item()
-                cs.require(err <= tol, f"global_merge {name} M={m}: err "
-                           f"{err}")
+                check("global_merge", launch(builds["global_merge"], x, w.qs,
+                                             w.scales, 1, merge, scratch))
                 row["global_merge"] = timed(lambda qs, sc: launch(
                     builds["global_merge"], x, qs, sc, 1, merge, scratch))
                 row["cluster_merge"] = timed(lambda qs, sc: launch(
