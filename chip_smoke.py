@@ -52,11 +52,13 @@ Phases (any failure exits nonzero before the last line):
      f32 softmax over an n_ctx-row cache it replaced and
      scaled_dot_product_attention (is_causal, bf16; the yardstick), with
      its bound for bf16 and for f32 operands. B13 and B14 (the probes of
-     B1's access pattern: B1's tensor-core kernel reading the packed byte
-     whole, or both nibbles, with no scales) on the 7B planes qkv, wo,
-     w13, w2 at M = 1, 8, 64 and the 13B planes at M = 8, within 1e-5 of
-     sum |x| |code|, bit-equal twice, timed beside B1 on the same plane
-     and M (no library call reads packed bytes as integer weights). At
+     the fold kernel's skeleton, csrc/q4_fold.cuh on B15's plan at f32
+     scales, printed: the packed byte whole, or both nibbles, with no
+     scales and no fold) on the 7B planes qkv, wo, w13, w2 at M = 1, 8, 64
+     and the 13B planes at M = 8, within 1e-5 of sum |x| |code|, bit-equal
+     twice, timed beside B15 (the same kernel and plan) and B1 on the same
+     plane and M (no library call reads packed bytes as integer
+     weights). At
      13B widths also B2 (timed at K = 5120 and 13824), B9 at M = 1 and 8
      on the q4_1 planes, B4 and B10 at 40 heads (n_past 0, 300, 511, past
      S; 8 x 300), the standalone B7 and B8 on 40-head pools. The slab
@@ -224,7 +226,7 @@ Phases (any failure exits nonzero before the last line):
      B15 and B17 (their own kernel, csrc/q4_fold.cuh) at M = 1, 8, 16, 33
      and 64 on the 7B planes and the 13B qkv plane, the others at M = 1, 8
      and 64 on the 7B planes and M = 8 on the 13B qkv plane, twice and
-     bit-equal, timed beside B1, B13 and _weight_int4pack_mm; B20 at
+     bit-equal, timed beside B1, B13, B14 and _weight_int4pack_mm; B20 at
      M <= 32 on qkv, one B20 launch and B15's kernel's result; B19
      (the int8 natx / split body) bit for bit on the 7B and 13B qkv planes
      at M = 512 (and 256), timed beside B2 + B3 and torch._int_mm;
@@ -622,16 +624,22 @@ NO_PROBE_LIBRARY = ("none: no PyTorch call reads packed bytes as integer "
 
 
 def check_floor_probes(torch, dev, gen, results):
-    """B13 (q4_floor) and B14 (q4_nosc) on the 7B planes qkv, wo, w13 and
-    w2 at PROBE_ROWS and on the 13B planes at M = 8: held against their
-    plain versions within 1e-5 of sum |R(x_half)| |code| (the products are
-    exact, so only the summation order differs), each run twice and
-    bit-equal; timed beside B1 on the same plane and M, over weight copies
-    cycled past the L2, with their bound (qs, x and out over the HBM rate:
-    B13's x is its low halves only; B1's adds the scale plane)."""
+    """B13 (q4_floor) and B14 (q4_nosc), the probes of the fold kernel
+    (csrc/q4_fold.cuh, on B15's plan at f32 scales, printed), on the 7B
+    planes qkv, wo, w13 and w2 at PROBE_ROWS and on the 13B planes at
+    M = 8: held against their plain versions within 1e-5 of sum |R(x_half)|
+    |code| (the products are exact, so only the summation order differs),
+    each run twice and bit-equal; timed beside B15 (q4_variants.
+    q4_decode_v1: the same kernel, plane, M and plan, with the scales and
+    the fold) and B1 on the same plane and M, over weight copies cycled
+    past the L2, with their bound (qs, x and out over the HBM rate: B13's x
+    is its low halves only; B15's and B1's add the scale plane)."""
+    from fastllama_tpu_torch.kernels import cuda_lib
     from fastllama_tpu_torch.kernels import q4_floor as qf
     from fastllama_tpu_torch.kernels import q4_matmul as qm
+    from fastllama_tpu_torch.kernels import q4_variants as qv
     out = {"B13": [], "B14": []}
+    sms = cuda_lib.sm_count(dev)
     probes = {"B13": (qf.q4_floor, qf.q4_floor_plain),
               "B14": (qf.q4_nosc, qf.q4_nosc_plain)}
     cases = [(p, PROBE_ROWS) for p in PLANES_7B[:4]] + [
@@ -652,8 +660,18 @@ def check_floor_probes(torch, dev, gen, results):
             it = iter(range(10**9))
             b1_ms = time_ms(lambda: qm.q4_matmul_decode(
                 x, ws[next(it) % len(ws)]), calls=4 * len(ws))
+            # B15's function has B1's bytes and operations
             b1_bound, _ = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
                                    2.0 * m * k * n, "bf16")
+            plan = qv.b15_plan(m, w.qs.shape[1], w.qs.shape[0] // 16, sms,
+                               False, qv.b15_capacity(dev))
+            print(f"B13/B14 {name} M={m}: B15's plan {plan._asdict()}",
+                  flush=True)
+
+            def b15():
+                ww = ws[next(it) % len(ws)]
+                return qv.q4_decode_v1(x, ww.qs, ww.scales)
+            b15_ms = time_ms(b15, calls=4 * len(ws))
             for key, (fn, plain) in probes.items():
                 y = fn(x, w.qs)
                 again = fn(x, w.qs)
@@ -677,7 +695,8 @@ def check_floor_probes(torch, dev, gen, results):
                            plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                            bound_share=bnd / ms, library_ms=None,
                            library_call=NO_PROBE_LIBRARY, b1_ms=b1_ms,
-                           b1_bound_ms=b1_bound)
+                           b1_bound_ms=b1_bound, b15_ms=b15_ms,
+                           share_of_b15=ms / b15_ms, plan=plan._asdict())
                 out[key].append(row)
                 print(f"{key} {row}", flush=True)
         del ws, w
@@ -4495,11 +4514,11 @@ def check_variants(torch, dev, gen, results):
     Each within 1e-5 of sum |R(x)| (q + 8) |d| of its plain version (only
     the f32 summation order differs), run twice and bit-equal, timed over
     weight copies cycled past the L2 (v0h at M = 1 and 8) beside B1 (v0,
-    on B1's own skeleton), B13 (that skeleton's loads alone; on the 7B
-    planes at VARIANT_ROWS) and _weight_int4pack_mm on the same plane and
-    M; plain versions timed on qkv at M = 8. B20 at M <= B20_ON_B15_MAX_M
-    on qkv: one B20 launch (none of B15's), bit-equal to B15's kernel on
-    the same inputs. B19 bit for bit on qkv at M = 512 and 256 and the 13B qkv at
+    on B1's own skeleton), B13 and B14 (the fold kernel's probes on B15's
+    plan; on the 7B planes at VARIANT_ROWS) and _weight_int4pack_mm on the
+    same plane and M; plain versions timed on qkv at M = 8. B20 at
+    M <= B20_ON_B15_MAX_M on qkv: one B20 launch (none of B15's),
+    bit-equal to B15's kernel on the same inputs. B19 bit for bit on qkv at M = 512 and 256 and the 13B qkv at
     M = 512, timed beside B2 + B3 (nat) and torch._int_mm of its int8
     plane; at qkv M = 512 the kernels of one call from a profile (B2's and
     one product kernel, no requantization pass) and the memory it
@@ -4531,9 +4550,11 @@ def check_variants(torch, dev, gen, results):
             b1_ms = time_ms(lambda: qm.q4_matmul_decode(
                 x, ws[next(it) % len(ws)]), calls=2 * len(ws))
             xk = qm._pad_k(x, w.k)
-            b13_ms = (time_ms(lambda: qf.q4_floor(
+            probe_ms = {key: (time_ms(lambda fn=fn: fn(
                 xk, ws[next(it) % len(ws)].qs), calls=2 * len(ws))
                 if m in VARIANT_ROWS and not is_13b else None)
+                for key, fn in (("b13_ms", qf.q4_floor),
+                                ("b14_ms", qf.q4_nosc))}
             lib = int4pack_row(torch, packs, x,
                                qm.q4_matmul_dequant(x, w), n)
             for variant, key in VARIANT_KEYS.items():
@@ -4569,7 +4590,7 @@ def check_variants(torch, dev, gen, results):
                            + (" bf16 scales" if h else ""), variant=variant,
                            max_abs_err=err, tol=tol, ms=ms,
                            plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                           b1_ms=b1_ms, b13_ms=b13_ms, **lib)
+                           b1_ms=b1_ms, **probe_ms, **lib)
                 if ms:
                     row.update(bound_share=bnd / ms, vs_b1=ms / b1_ms)
                     if lib.get("library_ms"):
@@ -5642,9 +5663,12 @@ def main() -> int:
         "B12": ("flash_prefill", "csrc/flash_prefill.cu",
                 "fastllama_tpu/models/llama.py:288"),
         # the probes of tools/bench_q4_floor.py (_run launches them at :87
-        # and :90); B1's kernel in its kFloor and kNosc modes
-        "B13": ("q4_floor", "csrc/q4_decode.cu", "tools/bench_q4_floor.py:37"),
-        "B14": ("q4_nosc", "csrc/q4_decode.cu", "tools/bench_q4_floor.py:49"),
+        # and :90); variants 13 and 14 of B15's kernel, built as
+        # csrc/q4_fold_probe.cu
+        "B13": ("q4_floor", "csrc/q4_fold.cuh",
+                "tools/bench_q4_floor.py:37"),
+        "B14": ("q4_nosc", "csrc/q4_fold.cuh",
+                "tools/bench_q4_floor.py:49"),
         # no Pallas kernel: the slab row write at a device offset, the
         # counterpart of the JAX forward's _write_kv scatter (mode="drop")
         "RW": ("slab_write_rows", "csrc/kv_write.cu",
@@ -5764,7 +5788,8 @@ def main() -> int:
                                          "clusters_a_card")})
             else:
                 kernels[-1].update(b1_ms=row["b1_ms"], vs_b1=row["vs_b1"],
-                                   b13_ms=row["b13_ms"])
+                                   b13_ms=row["b13_ms"],
+                                   b14_ms=row["b14_ms"])
             require(launches[key] > 0, f"kernel {key} was launched on no "
                     "path")
             continue
@@ -5815,8 +5840,10 @@ def main() -> int:
             kernels[-1].update(
                 path="tools_torch/bench_q4_floor.py (phase 11, its default "
                      "K 4096, N 12288, M 8)",
+                built_as="fastllama_tpu_torch/kernels/csrc/q4_fold_probe.cu",
                 library_call=NO_PROBE_LIBRARY, b1_ms=row["b1_ms"],
-                b1_bound_ms=row["b1_bound_ms"])
+                b1_bound_ms=row["b1_bound_ms"], b15_ms=row["b15_ms"],
+                plan=row["plan"])
         # its launches on phase 11's bench path (every script summed)
         kernels[-1].setdefault("launches_by_path", {})["bench_path"] = (
             bench_res["launches"][key])

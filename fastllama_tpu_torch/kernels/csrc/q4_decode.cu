@@ -1,6 +1,5 @@
 // Kernels B1 and B9: the decode-size 4-bit matmuls (W4A16 skinny GEMM /
-// GEMV) for q4_0 and for affine (q4_1 / GPTQ) weights, one template; B13
-// and B14, two probes of B1's tensor-core kernel, as modes of it (below).
+// GEMV) for q4_0 and for affine (q4_1 / GPTQ) weights, one template.
 //
 // B1 (q4_gemv):
 // Replaces fastllama_tpu/kernels/q4_matmul.py::q4_matmul_pallas with the
@@ -105,25 +104,6 @@
 //     MMA's accumulator itself, not a separate one: a second accumulator
 //     would cost 16 * NT more registers (64 at M > 16) for a difference of
 //     summation order only; the mins product is a true f32 one either way.
-//
-// B13 (q4_floor_mma) and B14 (q4_nosc_mma) replace the two Pallas kernels of
-// tools/bench_q4_floor.py, _floor_kernel and _nosc_kernel: probes that time
-// how fast B1's access pattern moves the packed bytes when the body does
-// less. They are the same kernel as B1 in bf16 mode (MODE kFloor and kNosc):
-// its grid and plan, its ring of the 16 packed rows of a q block, its x
-// slice and its ordered split-K merge, with the body cut as the JAX tool
-// cuts it:
-//   * kNosc: out = R(x_lo) @ (q & 15) + R(x_hi) @ (q >> 4), both nibbles
-//     against the low and high halves of each q block of x (x_lo, x_hi of
-//     split_activation), with no -8, and no scale plane loaded or applied;
-//   * kFloor: out = R(x_lo) @ q, the whole packed byte (0-255) as one bf16
-//     operand against the low halves: one k16 step a q block, no nibble
-//     split, no scales.
-// The codes are exact in bf16 and so are the products in f32, so only the
-// summation order differs from the plain version. A ring stage holds the
-// packed rows alone (no scale cp.async). The x slice is staged whole as B1
-// stages it (kFloor reads its low halves only), so the gaps between B13,
-// B14 and B1 are the unpack and the scale path, not x.
 //
 // SC16 (the "h" forms of the JAX tools, B1 as v0h, q4_variant_mma): the
 // scales are bf16
@@ -341,14 +321,12 @@ constexpr int kMmaWarps = 4, kMmaThreads = kMmaWarps * 32;
 constexpr int kWarpCols = 64;            // columns of one warp
 constexpr int kStages = 4;
 constexpr int kRowStride = 80;           // bytes per packed row in a stage
-// The tensor-core kernel's modes: B1 (q4_0), B9 (affine) and the probes
-// B13 (kFloor) and B14 (kNosc)
-enum Mode { kQ40 = 0, kQ41 = 1, kNosc = 2, kFloor = 3 };
+// The tensor-core kernel's modes: B1 (q4_0) and B9 (affine)
+enum Mode { kQ40 = 0, kQ41 = 1 };
 // planes of 64 values beside the packed rows in a ring stage: the scales
-// and, for an affine weight, the mins; none for the probes
+// and, for an affine weight, the mins
 template <int MODE>
-constexpr int kPlanes = MODE == kQ41 ? 2 : MODE == kNosc || MODE == kFloor
-                                               ? 0 : 1;
+constexpr int kPlanes = MODE == kQ41 ? 2 : 1;
 // a stage: 16 packed rows and the planes (SC16: 2-byte bf16 scales)
 template <int MODE, bool SC16>
 constexpr int kStageBytes =
@@ -376,13 +354,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// q - 8 (q4_0) or q itself (RAW: an affine code, a probe's nibble or whole
-// byte) as an exact f32 for byte C of `nibs`: the byte goes into the
-// mantissa of 2^23 (one byte permute with `magic` = 0x4B000000), then
-// 2^23 + 8 (or 2^23) is subtracted. `magic` comes in as a kernel argument
-// so that it sits in a register and the permute's selector C is the
-// instruction's immediate (a literal magic would take the immediate and
-// cost a register move of the selector per element).
+// q - 8 (q4_0) or q itself (RAW: an affine code) as an exact f32 for byte
+// C of `nibs`: the byte goes into the mantissa of 2^23 (one byte permute
+// with `magic` = 0x4B000000), then 2^23 + 8 (or 2^23) is subtracted.
+// `magic` comes in as a kernel argument so that it sits in a register and
+// the permute's selector C is the instruction's immediate (a literal magic
+// would take the immediate and cost a register move of the selector per
+// element).
 template <int C, bool RAW>
 __device__ __forceinline__ float nib_val(uint32_t nibs, uint32_t magic) {
   return __uint_as_float(__byte_perm(nibs, magic, 0x7440 | C)) -
@@ -423,9 +401,6 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
               int* __restrict__ counters, float* __restrict__ y, int n_out,
               uint32_t magic) {
   constexpr bool AFFINE = MODE == kQ41;
-  constexpr bool SCALED = kPlanes<MODE> > 0;
-  constexpr bool RAW = MODE != kQ40;
-  constexpr int kSteps = MODE == kFloor ? 1 : 2;   // k16 steps a q block
   constexpr int MT = 8 * NT;
   constexpr int kSB = kStageBytes<MODE, SC16>;
   constexpr int kSel = SC16 ? 2 : 4;               // bytes of a scale
@@ -452,17 +427,16 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   // scales (lanes < 16, or < 8 for 2-byte scales) or, for an affine
   // weight, of the mins (lanes >= 16, stored right after the scales); its
   // sources advance by kw q blocks per stage. Columns past N read as zeros
-  // (N is a multiple of 16). The probes copy the packed rows alone.
+  // (N is a multiple of 16).
   const int off = (lane & 3) * 16, sl = lane & 15;
-  const bool has_s = SCALED && (AFFINE || lane < 64 / kEpc);
+  const bool has_s = AFFINE || lane < 64 / kEpc;
   const bool q_ok = nw + off < N, s_ok = has_s && nw + sl * kEpc < N;
   const uint8_t* q_src = qs + ((size_t)(kb0 + kg) * 16 + (lane >> 2)) * N +
                          nw + off;            // advanced stage by stage
   const uint8_t* s_plane = reinterpret_cast<const uint8_t*>(
       AFFINE && lane >= 16 ? static_cast<const void*>(mins) : scales);
   const uint8_t* s_src =
-      SCALED ? s_plane + ((size_t)(kb0 + kg) * N + nw + sl * kEpc) * kSel
-             : nullptr;
+      s_plane + ((size_t)(kb0 + kg) * N + nw + sl * kEpc) * kSel;
   const size_t q_step = (size_t)kw * 16 * N, s_step = (size_t)kw * N * kSel;
   const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
   const uint32_t q_dst = ring_s + (lane >> 2) * kRowStride + off;
@@ -483,7 +457,7 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
   for (int i = 0; i < kStages - 1; ++i) {
     if (i < cnt) load_stage(i * kSB, q_src, s_src);
     q_src += q_step;
-    if constexpr (SCALED) s_src += s_step;
+    s_src += s_step;
     cp_async_commit();
   }
 
@@ -559,52 +533,44 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
     if (i + kStages - 1 < cnt) load_stage(wr_slot, q_src, s_src);
     cp_async_commit();
     q_src += q_step;
-    if constexpr (SCALED) s_src += s_step;
+    s_src += s_step;
     wr_slot = wr_slot + kSB == kRing ? 0 : wr_slot + kSB;
     const int slot = rd_slot;
     rd_slot = rd_slot + kSB == kRing ? 0 : rd_slot + kSB;
-    // low and high nibbles of the lane's 4 rows x 8 columns (kFloor: the
-    // whole bytes in lo)
+    // low and high nibbles of the lane's 4 rows x 8 columns
     uint32_t lo[4][2], hi[4][2];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const uint2 v = *reinterpret_cast<const uint2*>(
           a_rd + slot + ((r & 1) + 8 * (r >> 1)) * kRowStride);
-      if constexpr (MODE == kFloor) {
-        lo[r][0] = v.x;
-        lo[r][1] = v.y;
-      } else {
-        lo[r][0] = v.x & 0x0F0F0F0Fu;
-        lo[r][1] = v.y & 0x0F0F0F0Fu;
-        hi[r][0] = (v.x >> 4) & 0x0F0F0F0Fu;
-        hi[r][1] = (v.y >> 4) & 0x0F0F0F0Fu;
-      }
+      lo[r][0] = v.x & 0x0F0F0F0Fu;
+      lo[r][1] = v.y & 0x0F0F0F0Fu;
+      hi[r][0] = (v.x >> 4) & 0x0F0F0F0Fu;
+      hi[r][1] = (v.y >> 4) & 0x0F0F0F0Fu;
     }
     float d[8];
-    if constexpr (SCALED) {
-      if constexpr (SC16) {
-        const uint4 dv = *reinterpret_cast<const uint4*>(s_rd + slot);
-        const uint32_t w[4] = {dv.x, dv.y, dv.z, dv.w};
+    if constexpr (SC16) {
+      const uint4 dv = *reinterpret_cast<const uint4*>(s_rd + slot);
+      const uint32_t w[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
-          d[2 * e] = f.x;
-          d[2 * e + 1] = f.y;
-        }
-      } else {
-        const float4 da = *reinterpret_cast<const float4*>(s_rd + slot);
-        const float4 db = *reinterpret_cast<const float4*>(s_rd + slot + 16);
-        d[0] = da.x; d[1] = da.y; d[2] = da.z; d[3] = da.w;
-        d[4] = db.x; d[5] = db.y; d[6] = db.z; d[7] = db.w;
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+        d[2 * e] = f.x;
+        d[2 * e + 1] = f.y;
       }
+    } else {
+      const float4 da = *reinterpret_cast<const float4*>(s_rd + slot);
+      const float4 db = *reinterpret_cast<const float4*>(s_rd + slot + 16);
+      d[0] = da.x; d[1] = da.y; d[2] = da.z; d[3] = da.w;
+      d[4] = db.x; d[5] = db.y; d[6] = db.z; d[7] = db.w;
     }
     uint4 xb[NT];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) xb[nt] = x_rd[nt * 32];
     x_rd += kw * NT * 32;
 #pragma unroll
-    for (int step = 0; step < kSteps; ++step) {
+    for (int step = 0; step < 2; ++step) {
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
         uint32_t a[4];
@@ -613,12 +579,8 @@ q4_mma_kernel(const float* __restrict__ x, int M, int Kx,
           // a0: column 2mt, rows 2t/2t+1; a1: column 2mt+1, the same
           // rows; a2, a3: rows 2t+8/2t+9
           const int c = 2 * mt + (reg & 1);
-          const float2 q = a_codes<RAW>(lo, hi, step, mt, reg, magic);
-          if constexpr (SCALED) {
-            a[reg] = pack_bf16(q.x * d[c], q.y * d[c]);
-          } else {
-            a[reg] = pack_bf16(q.x, q.y);
-          }
+          const float2 q = a_codes<AFFINE>(lo, hi, step, mt, reg, magic);
+          a[reg] = pack_bf16(q.x * d[c], q.y * d[c]);
         }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
@@ -806,30 +768,6 @@ extern "C" int q41_gemv_mma(const void* x, int M, int Kx, const void* qs,
   return dispatch_mma<kQ41>(x, M, Kx, qs, scales, mins, N, NB, cw, splits,
                             kb_per_split, nt, partial, counters, y, n_out,
                             stream);
-}
-
-// B13: out f32 [M, n_out] = R(x_lo) @ qs, the packed bytes as weights, and
-// B14: R(x_lo) @ (qs & 15) + R(x_hi) @ (qs >> 4); x f32 [M, Kx] read in
-// place (x_lo, x_hi: the low and high halves of each 32-column q block),
-// qs uint8 [NB * 16, N]; no scale plane. The plan, partial and counters as
-// for q4_gemv_mma. Returns the CUDA error code of the launch.
-extern "C" int q4_floor_mma(const void* x, int M, int Kx, const void* qs,
-                            int N, int NB, int cw, int splits,
-                            int kb_per_split, int nt, void* partial,
-                            void* counters, void* y, int n_out,
-                            void* stream) {
-  return dispatch_mma<kFloor>(x, M, Kx, qs, nullptr, nullptr, N, NB, cw,
-                              splits, kb_per_split, nt, partial, counters, y,
-                              n_out, stream);
-}
-
-extern "C" int q4_nosc_mma(const void* x, int M, int Kx, const void* qs,
-                           int N, int NB, int cw, int splits,
-                           int kb_per_split, int nt, void* partial,
-                           void* counters, void* y, int n_out, void* stream) {
-  return dispatch_mma<kNosc>(x, M, Kx, qs, nullptr, nullptr, N, NB, cw,
-                             splits, kb_per_split, nt, partial, counters, y,
-                             n_out, stream);
 }
 
 // B1 (variant 0, the only one taken; the JAX package's other

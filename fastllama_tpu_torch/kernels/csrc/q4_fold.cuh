@@ -1,24 +1,29 @@
 // Kernels B15, B16, B17 and B18: the JAX package's v1, v2, v3 and v7
-// decode bodies of q4_matmul_pallas, on one decode-size kernel built for
-// Hopper. This header holds the kernel; q4_fold.cu (B15), q4_fold_v2.cu
-// (B16), q4_fold_v3.cu (B17) and q4_fold_v7.cu (B18) build one variant each,
-// so that they compile side by side.
+// decode bodies of q4_matmul_pallas, and the probes B13 and B14 of
+// tools/bench_q4_floor.py, on one decode-size kernel built for Hopper.
+// This header holds the kernel; q4_fold.cu (B15), q4_fold_v2.cu (B16),
+// q4_fold_v3.cu (B17), q4_fold_v7.cu (B18) and q4_fold_probe.cu (B13 and
+// B14) build one variant each, so that they compile side by side.
 //
 // Replaces fastllama_tpu/kernels/q4_matmul.py::_q4mm_kernel_v1 (v1; v4 and
 // v5 are bit-equal to it), ::_q4mm_kernel_v2 (v2), ::_q4mm_kernel_v3 (v3)
 // and ::_q4mm_kernel_v7 (v7), each by its function (kernels/q4_variants.py),
-// x f32 [1 <= M <= 64, K], the planes as stored (qs uint8 [K/2, N] split-K
-// packed: byte (16 kb + j, n) holds element 32 kb + j in its low nibble and
-// 32 kb + 16 + j in its high one; scales f32 or bf16 [K/32, N]):
+// and tools/bench_q4_floor.py::_floor_kernel (variant 13) and ::_nosc_kernel
+// (variant 14) (kernels/q4_floor.py), x f32 [1 <= M <= 64, K], the planes
+// as stored (qs uint8 [K/2, N] split-K packed: byte (16 kb + j, n) holds
+// element 32 kb + j in its low nibble and 32 kb + 16 + j in its high one;
+// scales f32 or bf16 [K/32, N]):
 //   v1: y = R(x) @ R(q d) - 8 bsum(x) @ d
 //   v2: y = sum_b d_b (R(x_b) @ q_b) - 8 bsum(x) @ d
 //   v3: y = R(x) @ R(q R(d)) - 8 bsum(x) @ d
 //   v7: y = R(x) @ R(q d) - 8 bsum7(x) @ d
+//   13: y = R(x_lo) @ qs                      (B13, floor: the whole byte)
+//   14: y = R(x_lo) @ (qs & 15) + R(x_hi) @ (qs >> 4)     (B14, nosc)
 // with q the code 0..15, R the rounding to bf16, bsum(x) [M, K/32] the
 // f32 sums of the unrounded x over each q block, x_b and q_b the 32 columns
 // of x and rows of q of q block b, and bsum7(x) the f32 sums of
 // R(R(x_lo) + R(x_hi)) over the 16 pairs of each q block (x_lo, x_hi its
-// low and high 16).
+// low and high 16, [M, K/2]).
 //
 // Bound on the H100: bytes. At M = 1 a weight costs 2 flops and 0.625 bytes
 // (0.5625 with bf16 scales), far below the ~295 flop/byte ridge, and at
@@ -99,11 +104,25 @@
 // sums. Every order is fixed by the plan, so two runs agree bit
 // for bit.
 //
-// Three builds for tools_torch/b15_sweep.py only: -DFLTORCH_B15_NO_PDL,
+// The probes (variants 13 and 14) run this skeleton with less body, on
+// B15's plan at f32 scales, to split B15's time into its parts. They read
+// no scale plane (no tensor map of it, no copy, no scale bytes in a
+// stage's transaction count), keep no fold, and their x warps sum nothing;
+// the x ring still copies each stage's f32 x as B15's does, so the
+// skeleton's x traffic is the same. B13 puts the whole byte of each packed
+// row into the A registers (v1's route with d = 1: the byte into the
+// mantissa of 2^23, less 2^23, exact for 0..255; v2's 128 + q holds 7
+// bits) and takes one k16 step a q block against x_lo's tile, the only
+// one its x warps convert; B14 puts v2's codes (both nibbles) there and
+// takes both steps straight into acc (no z, no d, no -8). So:
+//   B13         the weight ring, the x ring, the persistent clusters, the
+//               merge, and one k16 step of products;
+//   B14 - B13   the nibble unpack and the second k16 step;
+//   B15 - B14   the scales, the fold and the block sums.
+//
+// Two builds for tools_torch/b15_sweep.py only: -DFLTORCH_B15_NO_PDL,
 // launched as a plain stream successor (griddepcontrol then waits for
-// nothing), -DFLTORCH_B15_NO_DEQUANT,
-// whose consumers skip the dequantization (the A registers take the raw
-// bytes; wrong results, the skeleton's time), and -DFLTORCH_B15_GLOBAL_MERGE,
+// nothing), and -DFLTORCH_B15_GLOBAL_MERGE,
 // whose senders store their partial tiles to global scratch and arrive on
 // the leader's barrier, which then reads them back (the merge of B1's
 // skeleton, for comparison; `scratch` holds a tile's partials a block).
@@ -127,6 +146,10 @@ using hopper::wgmma_fence;
 using hopper::wgmma_wait;
 
 constexpr int kQB = 4;                   // q blocks a stage
+// the probes B13 (13) and B14 (14): no scale plane, no fold
+__host__ __device__ constexpr bool probe(int var) {
+  return var == 13 || var == 14;
+}
 // A consumer warpgroup takes MT m-tiles of 64 columns: 2 (a lane's 4
 // adjacent columns, one 4-byte load a packed row) where NW <= 32, 1 (2
 // columns) for the widest x, where the registers hold no more; a block
@@ -162,6 +185,7 @@ struct FoldArgs {
 struct Layout {
   int ws;          // a weight slot: the packed rows ([BN / 128 or 64 boxes]
                    // [16 kQB rows][128 or 64]), then the scales [kQB][BN]
+                   // (sbytes a scale; 0 for the probes)
   int xr;          // an x slot: x f32 [NW][128] as copied, then
   int xt;          // the bf16 tiles (kQB * 2 k16 tiles of NW x 16), then
   int xst;         // the block sums [kQB][NW]; xst the slot's bytes
@@ -388,13 +412,11 @@ __device__ __forceinline__ __nv_bfloat162 code2(uint32_t nib, int sel) {
 // rows (2t, 2t+1) and (2t+8, 2t+9): byte 0 / 2 its column c (A row g), byte
 // 1 / 3 column c + 1 (A row g + 8), the lower k in the low half. v1 and v7
 // R(q d), v3 R(q R(d)), v2 the code q itself (exact in bf16; d is applied
-// to each q block's product).
+// to each q block's product). B13 takes v1's route with d = 1 on the whole
+// bytes (exact: 8 bits), B14 v2's on the nibbles.
 template <int VAR>
 __device__ __forceinline__ void dequant(uint32_t n01, uint32_t n23, float d0,
                                         float d1, uint32_t* a) {
-#ifdef FLTORCH_B15_NO_DEQUANT
-  a[0] = n01; a[1] = n01 ^ 1u; a[2] = n23; a[3] = n23 ^ 1u;
-#else
   if constexpr (VAR == 2) {
     // (128 + q) - 128 = q exactly: a permute and a bf16x2 subtraction a pair
     const __nv_bfloat162 k128 = __float2bfloat162_rn(128.f);
@@ -420,7 +442,6 @@ __device__ __forceinline__ void dequant(uint32_t n01, uint32_t n23, float d0,
     a[2] = bits(__floats2bfloat162_rn(qd<0>(n23, d0, e0), qd<2>(n23, d0, e0)));
     a[3] = bits(__floats2bfloat162_rn(qd<1>(n23, d1, e1), qd<3>(n23, d1, e1)));
   }
-#endif
 }
 
 // Block b of the grid is rank z = b % S of cluster b / S. Every role walks
@@ -439,7 +460,9 @@ __global__ void __launch_bounds__(max_threads(NW), 1)
 q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_s,
                const __grid_constant__ CUtensorMap map_x, const FoldArgs a) {
-  constexpr int kSB = SC16 ? 2 : 4;        // bytes of a scale
+  constexpr bool PROBE = probe(VAR);
+  constexpr int kSB = PROBE ? 0 : SC16 ? 2 : 4;   // bytes of a scale
+  constexpr int kSteps = VAR == 13 ? 1 : 2;       // k16 steps a q block
   constexpr int MT = mtiles(NW);
   constexpr int kXWarps = x_warps(NW), kXThreads = 32 * kXWarps;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -470,7 +493,7 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
   if (warp == cons + kXWarps && lane == 0) {
     // the descriptors fetched while the barriers are set up
     hopper::prefetch_map(&map_q);
-    hopper::prefetch_map(&map_s);
+    if constexpr (!PROBE) hopper::prefetch_map(&map_s);
     hopper::prefetch_map(&map_x);
   }
   if (threadIdx.x == 0) {
@@ -513,7 +536,8 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int h = 0; h < bn; h += bw)          // boxes of bw columns
           tma_load_2d(dst + h * 16 * kQB, &map_q, bar, t * bn + h,
                       st * kQB * 16);
-        tma_load_2d(dst + qbytes, &map_s, bar, t * bn, st * kQB);
+        if constexpr (!PROBE)
+          tma_load_2d(dst + qbytes, &map_s, bar, t * bn, st * kQB);
         if (++slot == a.stages) { slot = 0; ph ^= 1; }
       }
     }
@@ -558,22 +582,29 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
           const int u = xt + kXThreads * j;
           const int r = u >> 4, b = (u >> 2) & 3, q = u & 3;
           const float* src = xraw + r * 128 + 32 * b + 4 * q;
+          // element (k, row r) of k16 tile (b, s): core matrix (r / 8, k %
+          // 16 / 8) 256 and 128 bytes apart, row r % 8 16 bytes apart;
+          // quad q + 4 at the same place of tile (b, 1)
+          uint8_t* dst = xs + 2 * b * NW * 32 + (r >> 3) * 256 +
+                         ((q >> 1) & 1) * 128 + (r & 7) * 16 + (q & 1) * 8;
           const float4 v = *reinterpret_cast<const float4*>(src);
-          const float4 w = *reinterpret_cast<const float4*>(src + 16);
           const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
           const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+          if constexpr (VAR == 13) {
+            // B13 reads x_lo's tile (b, 0) alone, and no block sum
+            if (u < units)
+              *reinterpret_cast<uint2*>(dst) = make_uint2(bits(lo), bits(hi));
+            continue;
+          }
+          const float4 w = *reinterpret_cast<const float4*>(src + 16);
           const __nv_bfloat162 lo4 = __floats2bfloat162_rn(w.x, w.y);
           const __nv_bfloat162 hi4 = __floats2bfloat162_rn(w.z, w.w);
           if (u < units) {
-            // element (k, row r) of k16 tile (b, s): core matrix (r / 8, k %
-            // 16 / 8) 256 and 128 bytes apart, row r % 8 16 bytes apart;
-            // quad q + 4 at the same place of tile (b, 1)
-            uint8_t* dst = xs + 2 * b * NW * 32 + (r >> 3) * 256 +
-                           ((q >> 1) & 1) * 128 + (r & 7) * 16 + (q & 1) * 8;
             *reinterpret_cast<uint2*>(dst) = make_uint2(bits(lo), bits(hi));
             *reinterpret_cast<uint2*>(dst + NW * 32) =
                 make_uint2(bits(lo4), bits(hi4));
           }
+          if constexpr (VAR == 14) continue;   // B14 sums nothing
           float sum;
           if constexpr (VAR == 7) {
             // one bf16x2 add rounds the exact pair sum once, as the plain
@@ -615,8 +646,8 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
     // v2 takes each q block's product of the codes into a fresh set z,
     // then adds it to acc scaled by d, and the fold straight into acc; the
     // others keep the fold apart in `fold`, since a wgmma in flight owns
-    // acc. acc's order, every variant: each q block's fold, then its
-    // product
+    // acc (the probes have none). acc's order, every variant: each q
+    // block's fold, then its product
     float acc[MT][NW / 2], fold[MT][NW / 2], z[MT][NW / 2] = {};
     float dp[2 * MT];     // v2: the scales of the q block whose z is pending
     uint32_t afr[2][MT][8] = {};
@@ -687,9 +718,9 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
             rw[j] = MT == 2
                         ? *reinterpret_cast<const uint32_t*>(slab + roff[j])
                         : lds_u16(slab + roff[j]);
-          float d[2 * MT];
+          float d[2 * MT] = {};
 #pragma unroll
-          for (int c = 0; c < MT; ++c) {
+          for (int c = 0; c < MT && !PROBE; ++c) {
             float2 f;
             if constexpr (SC16)
               f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
@@ -706,17 +737,24 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
             const uint32_t sel = mt ? 0x7632 : 0x5410;
             const uint32_t w01 = __byte_perm(rw[0], rw[1], sel);
             const uint32_t w23 = __byte_perm(rw[2], rw[3], sel);
-            dequant<VAR>(w01 & 0x0F0F0F0Fu, w23 & 0x0F0F0F0Fu, d[2 * mt],
-                         d[2 * mt + 1], A[mt]);
-            dequant<VAR>((w01 >> 4) & 0x0F0F0F0Fu, (w23 >> 4) & 0x0F0F0F0Fu,
-                         d[2 * mt], d[2 * mt + 1], A[mt] + 4);
+            if constexpr (VAR == 13) {
+              // the whole bytes, one k16 step
+              dequant<1>(w01, w23, 1.f, 1.f, A[mt]);
+            } else {
+              constexpr int kDq = VAR == 14 ? 2 : VAR;   // B14: v2's codes
+              dequant<kDq>(w01 & 0x0F0F0F0Fu, w23 & 0x0F0F0F0Fu, d[2 * mt],
+                           d[2 * mt + 1], A[mt]);
+              dequant<kDq>((w01 >> 4) & 0x0F0F0F0Fu,
+                           (w23 >> 4) & 0x0F0F0F0Fu, d[2 * mt],
+                           d[2 * mt + 1], A[mt] + 4);
+            }
           }
-          if constexpr (VAR != 2) add_fold(fold, bs + b * NW, d);
+          if constexpr (VAR != 2 && !PROBE) add_fold(fold, bs + b * NW, d);
           if constexpr (SYNC) {
             // B fragment: x rows g, k 2t, 2t + 1 (and + 8) of tile (b, s)
             const uint8_t* xb = xs + 2 * b * NW * 32 + g * 16 + 4 * t4;
 #pragma unroll
-            for (int s = 0; s < 2; ++s) {
+            for (int s = 0; s < kSteps; ++s) {
               const uint32_t b0 =
                   *reinterpret_cast<const uint32_t*>(xb + s * NW * 32);
               const uint32_t b1 =
@@ -759,9 +797,9 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
             // descriptors; D untouched) set before their pipeline stage
             // opens: the compiler would otherwise compute the second
             // step's between the two issues, and ptxas then serializes
-            uint64_t dsc[2];
+            uint64_t dsc[kSteps];
 #pragma unroll
-            for (int s = 0; s < 2; ++s) {
+            for (int s = 0; s < kSteps; ++s) {
               dsc[s] = hopper::plain_desc(xs_s + (2 * b + s) * NW * 32, 128,
                                           256);
               asm volatile("" : "+l"(dsc[s])::"memory");
@@ -774,7 +812,7 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
             wgmma_fence();
             // v2 starts each block's z afresh (scale-d 0 on its first step)
 #pragma unroll
-            for (int s = 0; s < 2; ++s)
+            for (int s = 0; s < kSteps; ++s)
 #pragma unroll
               for (int mt = 0; mt < MT; ++mt)
                 WgmmaRs<NW>::run(D[mt], A[mt] + 4 * s, dsc[s],
@@ -815,7 +853,7 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
         pw = px = -1;
         if constexpr (VAR == 2) add_scaled(D, dp);
       }
-      if constexpr (VAR != 2) {
+      if constexpr (VAR != 2 && !PROBE) {
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -935,18 +973,20 @@ int launch_fold(const FoldArgs& a, const void* x, const void* qs,
     ready = true;
   }
   const int bn = 64 * mtiles(NW) * a.wgs, bw = bn % 128 ? 64 : 128;
-  CUtensorMap map_q, map_s, map_x;
+  // the probes have no scale plane: their map_s is never read
+  CUtensorMap map_q, map_s = {}, map_x;
   if (!hopper::make_map(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.M,
                         a.Kx, 128, a.M, CU_TENSOR_MAP_SWIZZLE_NONE) ||
       !hopper::make_map(&map_q, qs, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
                         a.NB * 16, a.N, bw, 16 * kQB,
                         bw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                   : CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !hopper::make_map(&map_s, scales,
-                        SC16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                        SC16 ? 2 : 4, a.NB, a.N, bn, kQB,
-                        CU_TENSOR_MAP_SWIZZLE_NONE))
+      (!probe(VAR) &&
+       !hopper::make_map(&map_s, scales,
+                         SC16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                         SC16 ? 2 : 4, a.NB, a.N, bn, kQB,
+                         CU_TENSOR_MAP_SWIZZLE_NONE)))
     return (int)cudaErrorInvalidValue;
   // clusters of S blocks (none where S = 1), launched as a programmatic
   // dependent of the kernel before
@@ -991,9 +1031,9 @@ int dispatch_rows(const FoldArgs& a, const void* x, const void* qs,
 #undef FLTORCH_B15_LAUNCH
 }
 
-// The entry of variant VAR (1: B15, 2: B16, 3: B17, 7: B18; another variant
-// is refused):
-// q4_fold_gemm's contract (q4_fold.cu).
+// The entry of variant VAR (1: B15, 2: B16, 3: B17, 7: B18, 13: B13, 14:
+// B14; another variant is refused): q4_fold_gemm's contract (q4_fold.cu);
+// the probes take no scales (sc16 must be 0; `scales` is not read).
 template <int VAR>
 int fold_gemm(const void* x, int M, int Kx, const void* qs,
               const void* scales, int sc16, int N, int NB, int variant,
@@ -1007,8 +1047,9 @@ int fold_gemm(const void* x, int M, int Kx, const void* qs,
       xstages > stages || splits < 1 || splits > 8 ||
       sps < 1 || (splits - 1) * sps >= nst || splits * sps < nst ||
       clusters < 1 || (sync && M > 8) || variant != VAR ||
-      fold_layout(wgs, nw, sc16 ? 2 : 4, stages, xstages, splits).total +
-              1024 > kSmem)
+      (probe(VAR) && sc16) ||
+      fold_layout(wgs, nw, probe(VAR) ? 0 : sc16 ? 2 : 4, stages, xstages,
+                  splits).total + 1024 > kSmem)
     return (int)cudaErrorInvalidValue;
   FoldArgs a;
   a.y = (float*)y;
@@ -1027,9 +1068,13 @@ int fold_gemm(const void* x, int M, int Kx, const void* qs,
   const int bn = 64 * mtiles(nw) * wgs;
   a.tiles = (N + bn - 1) / bn;
   cudaStream_t s = (cudaStream_t)stream;
-  return sc16 ? dispatch_rows<VAR, true>(a, x, qs, scales, clusters, sync, s)
-              : dispatch_rows<VAR, false>(a, x, qs, scales, clusters, sync,
-                                          s);
+  if constexpr (probe(VAR))     // no SC16 build: the probes read no scales
+    return dispatch_rows<VAR, false>(a, x, qs, scales, clusters, sync, s);
+  else
+    return sc16 ? dispatch_rows<VAR, true>(a, x, qs, scales, clusters, sync,
+                                           s)
+                : dispatch_rows<VAR, false>(a, x, qs, scales, clusters, sync,
+                                            s);
 }
 
 

@@ -1,4 +1,4 @@
-"""B13 and B14: two probes of the decode matmul B1's access pattern.
+"""B13 and B14: two probes of the decode matmul kernel's skeleton.
 
 Ports the two Pallas kernels of tools/bench_q4_floor.py, which time how fast
 the q4 matmul's access pattern moves the packed weight bytes when its body
@@ -15,14 +15,18 @@ where x_lo, x_hi are the low and high halves of each 32-column q block of
 x (split_activation) and R rounds to bf16. x is f32 [M <= 64, K], qs uint8
 [K/2, N] in the split-K packing of quant/tensor.py, out f32 [M, N].
 
-On the card both run B1's tensor-core kernel (csrc/q4_decode.cu,
-q4_mma_kernel in the modes kFloor and kNosc): B1's grid and plan
-(q4_matmul.b1_mma_plan), its loads of the packed rows and its ordered
-split-K merge, so the gaps between B13, B14 and B1 split B1's time into
-the access pattern, the unpack and the scale path. Each wrapper launches
-its kernel for a CUDA tensor and raises on anything it does not take; for
-a CPU tensor it runs its plain version. Each counts its launches in
-`.launches`.
+On the card both run the decode kernel of B15-B18 (csrc/q4_fold.cuh, its
+variants 13 and 14, built together as csrc/q4_fold_probe.cu) on B15's plan
+at f32 scales (q4_variants.b15_plan, or a pinned `plan`): its persistent
+clusters, its TMA rings of the packed rows and of x, its x warps and its
+cluster merge, with no scale plane, no fold and no block sums. B13 puts
+the whole byte into the A registers and takes one k16 step a q block; B14
+the codes, two steps. So the gaps between B13, B14 and B15
+(q4_variants.q4_decode_v1) split B15's time into the skeleton (with one
+step of products), the unpack and second step, and the scales with the
+fold. Each wrapper launches its kernel for a CUDA tensor and raises on
+anything it does not take; for a CPU tensor it runs its plain version.
+Each counts its launches in `.launches`.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ import torch
 
 from ..quant.tensor import QBLOCK
 from . import cuda_lib
-from .q4_matmul import B1_MMA_WARP_COLS, DECODE_MAX_M, _require, b1_mma_plan
+from . import q4_variants as qv
+from .q4_matmul import _require
 
 HALF = QBLOCK // 2
 
@@ -71,45 +76,20 @@ def _check(x: torch.Tensor, qs: torch.Tensor) -> None:
     _require(x.shape[1] == 2 * qs.shape[0] and qs.shape[0] % HALF == 0,
              f"x's K={x.shape[1]} must be twice qs's {qs.shape[0]} rows, a "
              f"multiple of {QBLOCK}")
-    _require(1 <= x.shape[0] <= DECODE_MAX_M,
-             f"x must have 1 <= M <= {DECODE_MAX_M} rows (B1's plan)")
+    _require(1 <= x.shape[0] <= qv.B15_MAX_M,
+             f"x must have 1 <= M <= {qv.B15_MAX_M} rows (B15's plan)")
 
 
-def _launch(x: torch.Tensor, qs: torch.Tensor, name: str) -> torch.Tensor:
-    """One launch of B1's tensor-core kernel in a probe mode."""
-    _require(x.device.type == "cuda", f"unsupported device {x.device}")
-    _require(x.is_contiguous() and qs.is_contiguous()
-             and qs.device == x.device,
-             "x and qs must be contiguous and on one card")
-    m, k = x.shape
-    kh, n = qs.shape
-    _require(n % 16 == 0 and qs.data_ptr() % 16 == 0,
-             "the tensor-core kernel needs N % 16 == 0 and a 16-byte "
-             "aligned qs")
-    nb = kh // HALF
-    dev = x.device
-    nt, cw, splits, per = b1_mma_plan(m, n, nb)
-    tiles = -(-n // (B1_MMA_WARP_COLS * cw)) * -(-m // (8 * nt))
-    partial = cuda_lib.scratch(dev, "q4_gemv.partial", splits * m * n,
-                               torch.float32)
-    counters = cuda_lib.tile_counters(dev, tiles)
-    y = torch.empty((m, n), dtype=torch.float32, device=dev)
-    rc = cuda_lib.fn(name)(
-        x.data_ptr(), m, k, qs.data_ptr(), n, nb, cw, splits, per, nt,
-        partial.data_ptr(), counters.data_ptr(), y.data_ptr(), n,
-        cuda_lib.stream_handle(dev))
-    cuda_lib.check(rc, name)
-    return y
-
-
-def q4_floor(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
+def q4_floor(x: torch.Tensor, qs: torch.Tensor,
+             plan: qv.B15Plan | None = None) -> torch.Tensor:
     """Kernel B13: x f32 [M <= 64, K], qs uint8 [K/2, N] -> f32 [M, N] =
-    R(x_lo) @ qs. Split-K partials are added in split order (the same
-    result run to run; the sum order differs from a dense matmul)."""
+    R(x_lo) @ qs, on B15's plan at f32 scales (or `plan`; the CPU ignores
+    it). Split-K partials are added in split order (the same result run to
+    run; the sum order differs from a dense matmul)."""
     _check(x, qs)
     if x.device.type == "cpu":
         return q4_floor_plain(x, qs)
-    y = _launch(x, qs, "q4_floor_mma")
+    y = qv._launch_fold(x, qs, None, 13, qs.shape[1], plan)
     q4_floor.launches += 1
     return y
 
@@ -117,13 +97,15 @@ def q4_floor(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
 cuda_lib.counted(q4_floor)
 
 
-def q4_nosc(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
+def q4_nosc(x: torch.Tensor, qs: torch.Tensor,
+            plan: qv.B15Plan | None = None) -> torch.Tensor:
     """Kernel B14: x f32 [M <= 64, K], qs uint8 [K/2, N] -> f32 [M, N] =
-    R(x_lo) @ (qs & 15) + R(x_hi) @ (qs >> 4), in split order as B13."""
+    R(x_lo) @ (qs & 15) + R(x_hi) @ (qs >> 4), on B13's plan, in split
+    order as B13."""
     _check(x, qs)
     if x.device.type == "cpu":
         return q4_nosc_plain(x, qs)
-    y = _launch(x, qs, "q4_nosc_mma")
+    y = qv._launch_fold(x, qs, None, 14, qs.shape[1], plan)
     q4_nosc.launches += 1
     return y
 

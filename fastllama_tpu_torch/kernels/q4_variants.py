@@ -66,8 +66,11 @@ INT8_VARIANTS = ("nat", "natp", "natx", "split")
 # scales, v0h) B1's tensor-core kernel (csrc/q4_decode.cu, q4_variant_mma's
 # `variant`)
 FOLD_VARIANT = {"v1": 1, "v4": 1, "v5": 1, "v2": 2, "v3": 3, "v7": 7}
+# (and the probes B13 and B14 of kernels/q4_floor.py its variants 13 and 14,
+# one build of both, csrc/q4_fold_probe.cu, which reads no scales)
 FOLD_ENTRY = {1: "q4_fold_gemm", 2: "q4_fold_v2_gemm", 3: "q4_fold_v3_gemm",
-              7: "q4_fold_v7_gemm"}
+              7: "q4_fold_v7_gemm", 13: "q4_fold_floor_gemm",
+              14: "q4_fold_nosc_gemm"}
 MODE_OF = {"v0": 0}
 
 
@@ -344,29 +347,31 @@ def b15_capacity(device) -> Callable[[int], int]:
     return cap
 
 
-def _launch_fold(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
-                 variant: int, n_out: int,
+def _launch_fold(x: torch.Tensor, qs: torch.Tensor,
+                 scales: torch.Tensor | None, variant: int, n_out: int,
                  plan: B15Plan | None = None) -> torch.Tensor:
     """One launch of B15's kernel (variant 1: v1's function, 2: v2's, 3:
     v3's, 7: v7's; its build FOLD_ENTRY[variant]) with f32 or 2-byte
-    scales, on b15_plan (or `plan`). The kernel reads x by
-    tensor copies, which take rows of a multiple of 16 bytes: x of another
-    K is padded with zeros to one."""
+    scales, or of a probe (variant 13: B13, 14: B14; scales None), on
+    b15_plan (the probes: B15's at f32 scales) or `plan`. The
+    kernel reads x by tensor copies, which take rows of a multiple of 16
+    bytes: x of another K is padded with zeros to one."""
     qm._require(x.device.type == "cuda", f"unsupported device {x.device}")
+    planes = (x, qs) if scales is None else (x, qs, scales)
     qm._require(all(t.is_contiguous() and t.device == x.device
-                    for t in (x, qs, scales)),
+                    for t in planes),
                 "x, qs and scales must be contiguous and on one card")
     m, kx = x.shape
     kh, n = qs.shape
     qm._require(1 <= m <= B15_MAX_M,
                 f"x must have 1 <= M <= {B15_MAX_M} rows")
-    qm._require(n % 16 == 0 and qs.data_ptr() % 16 == 0
-                and scales.data_ptr() % 16 == 0,
+    qm._require(n % 16 == 0 and all(t.data_ptr() % 16 == 0
+                                    for t in planes[1:]),
                 "B15's kernel needs N % 16 == 0 and 16-byte aligned weight "
                 "planes")
     nb = kh // HALF
     dev = x.device
-    sc16 = scales.dtype == torch.bfloat16
+    sc16 = scales is not None and scales.dtype == torch.bfloat16
     if kx % 4 or x.data_ptr() % 16:
         x = torch.nn.functional.pad(x, (0, -kx % 4)) if kx % 4 else x.clone()
         kx = x.shape[1]
@@ -379,7 +384,8 @@ def _launch_fold(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
     y = x.new_empty((m, n_out))
     entry = FOLD_ENTRY[variant]
     rc = cuda_lib.fn(entry)(
-        x.data_ptr(), m, kx, qs.data_ptr(), scales.data_ptr(), int(sc16), n,
+        x.data_ptr(), m, kx, qs.data_ptr(),
+        None if scales is None else scales.data_ptr(), int(sc16), n,
         nb, variant, plan.wgs, plan.stages, plan.xstages, plan.splits,
         plan.sps, plan.clusters, int(plan.sync), y.data_ptr(), n_out, None,
         cuda_lib.stream_handle(dev))

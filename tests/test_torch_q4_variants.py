@@ -701,8 +701,13 @@ def b15_smem_image(rows, bn):
     return img
 
 
+# the probes B13 and B14 as the kernel's variants 13 and 14 (b15_model)
+PROBES = ("floor", "nosc")
+
+
 def b15_model(x, qs, sc, variant, plan, sc16=False):
-    """The kernel of B15-B18 (csrc/q4_fold.cuh) as built, in numpy: for
+    """The kernel of B15-B18 and of the probes B13 and B14
+    (csrc/q4_fold.cuh) as built, in numpy: for
     each column tile and split (the plan's), each K stage of 4 q blocks
     staged as the kernel stages it (the packed rows in swizzled boxes, x as
     bf16 in wgmma's K-major core-matrix layout, zeros past K and N), the x
@@ -720,10 +725,17 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
     -8 d, acc) and acc = fma(z, d, acc) in q block order, d the D
     register's column's. Then the D registers stored by the kernel's map,
     and the leader's sum of the splits in split order. sc: f32 scales
-    (their bf16 values when sc16)."""
+    (their bf16 values when sc16). The probes (variant "floor": B13,
+    "nosc": B14; sc None) read no scales and keep no fold: "floor" puts
+    the whole byte in the A registers and takes one k16 step a q block,
+    against x_lo's tile (b, 0); "nosc" the codes (both nibbles, no -8),
+    both steps; their products summed as v1's."""
     m, kx = x.shape
     k2, n = qs.shape
     nb = k2 // 16
+    probe = variant in PROBES
+    if probe:
+        sc = np.zeros((nb, n), dtype=np.float32)
     nw, bn, nst = plan.nw, plan.bn, -(-nb // 4)
     mt_n, wgs, bw = (2 if nw <= 32 else 1), plan.wgs, 64 if bn % 128 else 128
     tiles = -(-n // bn)
@@ -790,14 +802,15 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
                                 byte[j, 1] = slab[off + 1]
                             d = scs[b, c0 + 2 * mt], scs[b, c0 + 2 * mt + 1]
                             prod = np.zeros((64, nw))
-                            for s in range(2):
-                                # [row j][column e]
-                                code = (byte >> (4 * s)) & 15
+                            for s in range(1 if variant == "floor" else 2):
+                                # [row j][column e]; floor: the whole byte
+                                code = (byte if variant == "floor"
+                                        else (byte >> (4 * s)) & 15)
                                 a = np.zeros((64, 16))
                                 for j in range(4):
                                     for e in range(2):
                                         q = code[j, e].astype(np.float64)
-                                        if variant == "v2":
+                                        if variant == "v2" or probe:
                                             v = q
                                         elif variant == "v3":
                                             v = _bf16(q * _bf16(d[e]))
@@ -815,6 +828,8 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
                                       (kk & 7) * 2) // 2
                                 prod += a @ xt[at]
                             d_acc[wg, mt] += prod
+                            if probe:
+                                continue              # no scales, no fold
                             z = _f32(prod)
                             # the fold (v2: into acc, then z d): register
                             # 4j + c, A row g + 8 (c / 2), x row 8j + 2t + c % 2

@@ -10,7 +10,12 @@ with q4_0 weights cycled through more than the 50 MB L2, it times through
 the kernel's entry point:
 
   * plan: B15 (v1) on q4_variants.b15_plan, and B16 (v2), B17 (v3) and
-    B18 (v7) on the same plan (b16, b17, b18);
+    B18 (v7) on the same plan (b16, b17, b18), and the probes B13 (b13:
+    the skeleton, the whole byte and one k16 step, no scales or fold) and
+    B14 (b14: the codes, two steps) on it too, both checked against their
+    plain versions (kernels/q4_floor.py): b13, b14 - b13 and plan - b14
+    split B15's time into the skeleton, the unpack and the scales with the
+    fold;
   * stages_S: the plan with S weight ring slots (2 to 16, where they fit
     beside an x ring of 2 or more);
   * one_warpgroup: the best plan with one consumer warpgroup in place of
@@ -21,18 +26,16 @@ the kernel's entry point:
     grid as a wave of short-lived clusters, each filling its own ring);
   * mma_sync or wgmma (M <= 8): the plan with the other product
     (mma.sync m16n8k16 a warp, or wgmma a warpgroup);
-  * no_pdl, no_dequant, global_merge: csrc/q4_fold.cu built with
+  * no_pdl, global_merge: csrc/q4_fold.cu built with
     -DFLTORCH_B15_NO_PDL (a plain stream successor of the launch before,
-    not a programmatic dependent; checked), -DFLTORCH_B15_NO_DEQUANT (the
-    skeleton: the ring, x, the fold and the
-    products, no dequantization; wrong results, not checked) and with
+    not a programmatic dependent; checked) and with
     -DFLTORCH_B15_GLOBAL_MERGE (a split's partial tiles through global
     memory, B1's way, on the plan's splits or 2; checked), beside the
     cluster merge of the same plan ("cluster_merge");
 
-and beside them B1 (q4_matmul_decode, the old skeleton), B13 (q4_floor, the
-old skeleton's loads alone), torch.ops.aten._weight_int4pack_mm (B1's
-function with bf16 scales; the port never calls it) and the byte bound.
+and beside them B1 (q4_matmul_decode, the old skeleton),
+torch.ops.aten._weight_int4pack_mm (B1's function with bf16 scales; the
+port never calls it) and the byte bound.
 Every correct variant is first held against the plain version (1e-5 of
 sum |R(x)| (q + 8) |d|). Then, at each --b20-rows M on the 7B planes, B20's
 split kernel (q4_prefill_split past B20_ON_B15_MAX_M) beside B15 on the
@@ -59,8 +62,6 @@ PLANES = {"qkv": (4096, 12288), "wo": (4096, 4096), "w13": (4096, 22016),
           "w2": (11008, 4096), "qkv13": (5120, 15360)}
 # name: (source, flag, entry point)
 BUILDS = {"no_pdl": ("q4_fold", "-DFLTORCH_B15_NO_PDL", "q4_fold_gemm"),
-          "no_dequant": ("q4_fold", "-DFLTORCH_B15_NO_DEQUANT",
-                         "q4_fold_gemm"),
           "global_merge": ("q4_fold", "-DFLTORCH_B15_GLOBAL_MERGE",
                            "q4_fold_gemm")}
 
@@ -217,6 +218,18 @@ def main(argv=None):
                         check(key, launch(fn, x, w.qs, w.scales, v, plan), v)
                         row[key] = timed(lambda qs, sc, p=plan, f=fn, v=v:
                                          launch(f, x, qs, sc, v, p))
+                    # the probes on the same plan (x's K is the stored K)
+                    xk = qm._pad_k(x, w.k)
+                    for key, fn, plain in (
+                            ("b13", qf.q4_floor, qf.q4_floor_plain),
+                            ("b14", qf.q4_nosc, qf.q4_nosc_plain)):
+                        y, ref = fn(xk, w.qs, plan), plain(xk, w.qs)
+                        err = (y - ref).abs().max().item()
+                        lim = 1e-5 * ref.abs().max().item()
+                        cs.require(err <= lim, f"{key} {name} M={m}: err "
+                                   f"{err} > {lim}")
+                        row[key] = timed(lambda qs, sc, f=fn, p=plan: f(
+                            xk, qs, p))
             base = row["plan_is"]
             plan = qv.B15Plan(**base)
             if builds:
@@ -224,8 +237,6 @@ def main(argv=None):
                                        1, plan))
                 row["no_pdl"] = timed(lambda qs, sc: launch(
                     builds["no_pdl"], x, qs, sc, 1, plan))
-                row["no_dequant"] = timed(lambda qs, sc: launch(
-                    builds["no_dequant"], x, qs, sc, 1, plan))
                 merge = plan if plan.splits > 1 else qv.b15_plan(
                     m, n, nb, sms, False, cap, wgs=plan.wgs, splits=2)
                 scratch = torch.empty(
@@ -240,8 +251,6 @@ def main(argv=None):
                 row["merge_splits"] = merge.splits
             row["b1"] = timed(lambda qs, sc: qm.q4_matmul_decode(
                 x, QuantMatmulWeight(qs=qs, scales=sc)))
-            xk = qm._pad_k(x, w.k)
-            row["b13"] = timed(lambda qs, sc: qf.q4_floor(xk, qs))
             row.update(cs.int4pack_row(torch, packs, x,
                                        qm.q4_matmul_dequant(x, w), n))
             nbytes = (w.qs.numel() + w.scales.numel() * 4 + x.numel() * 4

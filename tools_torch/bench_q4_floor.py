@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""The q4 decode matmul's memory floor on one CUDA card: how fast does B1's
-access pattern move the packed weight bytes when the kernel body does
+"""The q4 decode matmul's memory floor on one CUDA card: how fast does the
+decode kernel's skeleton move the packed weight bytes when its body does
 (almost) nothing? The port of tools/bench_q4_floor.py.
 
     python3 tools_torch/bench_q4_floor.py [K] [N] [M] [modes] [--device D]
 
-Kernels over the same grid and loads (B1's tensor-core kernel,
-kernels/csrc/q4_decode.cu):
+The probes run the decode kernel of B15-B18 (kernels/csrc/q4_fold.cuh,
+built as csrc/q4_fold_probe.cu) on B15's plan at f32 scales: its TMA
+rings, persistent clusters, x warps and cluster merge, with less body:
   floor  B13 (kernels/q4_floor.q4_floor): the whole packed byte as a bf16
-         weight against x_lo; no unpack, no scales
+         weight against x_lo, one k16 step a q block; no unpack, no
+         scales, no fold
   nosc   B14 (q4_floor.q4_nosc): both nibbles against x_lo / x_hi, the
-         scale plane never read
+         scale plane never read, no fold
   v0 .. v5, v7
          the JAX package's q4_matmul_pallas bodies by the kernel of the
          same function (kernels/q4_variants.py, bf16 mode): v0 on B1 (the
          port's production kernel), v1/v4/v5 on B15, v2 on B16, v3 on B17,
          v7 on B18
 Defaults: K 4096, N 12288, M 8, modes floor,nosc,v0,v1,v3 (the JAX tool's
-floor,nosc,v1,v3 and B1). The gaps between floor, nosc and v0 split B1's
-time into the access pattern, the unpack and the scales.
+floor,nosc,v1,v3 and B1). The gaps between floor, nosc and v1 split B15's
+time into the skeleton, the unpack and the scales with the fold; v0 is B1
+on its own skeleton.
 
 Each mode is first held against its plain version (max error over the
 largest |output|). Timing: 64 calls chained through x (each call's first
