@@ -18,10 +18,12 @@ Phases (any failure exits nonzero before the last line):
      same codes, for B3 one torch._int_mm call (the int8 product alone),
      for B5 one torch.mm of the rounded x by the dequantized weight
      (yardsticks; the port calls none of them). B1 at M = 1, 2, 4, 8,
-     16 and 64 and B9 also at 9, 17 and 40, on every plane in bf16 (tensor
-     cores; the FFMA design timed beside them in the same call), f32 mode
-     at M = 1 and 8 on wo (B1) and qkv (B9), B9 also on planes padded to
-     256 columns, B1 also on the 13B planes; B3 bit for bit on the 7B and
+     16 and 64 and B9 also at 9, 17 and 40, on every plane in bf16 (variants
+     0 and 9 of the fold kernel, csrc/q4_fold.cuh; the FFMA design timed
+     beside them in the same call), f32 mode at M = 1 and 8 on wo (B1) and
+     qkv (B9), B9 also on planes padded to 256 columns, B1 and B9 also on
+     the 13B planes at M = 1, 8 and 64 (timed, with the library call), B1
+     with bf16 scales (v0h) on the 7B and 13B planes; B3 bit for bit on the 7B and
      13B planes at M = 512 and 256, its requantization and product timed
      apart from a torch.profiler trace; B5 (q4_0 and q4_1, bf16 and f32
      mode) on the 7B and 13B planes at M = 65, 128, 192, 255, 256, 512
@@ -362,7 +364,7 @@ B9_ROWS = (1, 2, 4, 8, 9, 16, 17, 40, 64)
 def ffma_gemv(torch, qm, x, w):
     """One launch of the FFMA kernel in bf16 mode (q4_gemv for a q4_0
     weight, q41_gemv for an affine one), the design that B1's and B9's bf16
-    mode had before the tensor-core kernel (f32 mode's kernel still): a
+    mode had before the tensor cores (f32 mode's kernel still): a
     yardstick timed beside them, not counted as a launch of either."""
     from fastllama_tpu_torch.kernels import cuda_lib
     m, kx = x.shape
@@ -510,12 +512,15 @@ PLANES_13B = [("qkv13", 5120, 15360), ("wo13", 5120, 5120),
 
 
 def check_decode_matmuls(torch, dev, gen, results):
-    """B1 and B9 on every 7B plane: bf16 mode (tensor cores) at B1_ROWS /
-    B9_ROWS, with the FFMA design and one _weight_int4pack_mm call timed
-    beside them; f32 mode (FFMA) at M = 1 and 8 on wo (B1) and qkv (B9);
-    B9 also on the planes padded to 256 columns as make_matmul_weight_q41
-    pads them."""
+    """B1 and B9 on every 7B plane: bf16 mode (variants 0 and 9 of the fold
+    kernel) at B1_ROWS / B9_ROWS, with the FFMA design and one
+    _weight_int4pack_mm call timed beside them; f32 mode (FFMA) at M = 1
+    and 8 on wo (B1) and qkv (B9); B1 with bf16 scales (v0h, variant 0's
+    2-byte-scale build) at M = 1, 8 and 64; B9 also on the planes padded to
+    256 columns as make_matmul_weight_q41 pads them; B1 and B9 on the 13B
+    planes at M = 1, 8 and 64, timed beside the library call."""
     from fastllama_tpu_torch.kernels import q4_matmul as qm
+    from fastllama_tpu_torch.kernels import q4_variants as qv
 
     def b1_case(x, w, mode):
         y = qm.q4_matmul_decode(x, w, mode)
@@ -580,6 +585,8 @@ def check_decode_matmuls(torch, dev, gen, results):
                                                     n))
                     out.append(row)
                     print(f"{key} {row}", flush=True)
+                if not affine and m in PROBE_ROWS:
+                    out.append(check_v0h(torch, qm, qv, x, w, name))
             del ws, w, packs
         results[key] = out
 
@@ -601,18 +608,61 @@ def check_decode_matmuls(torch, dev, gen, results):
                 max_abs_err=err, tol=tol))
         del w
 
-    # B1 (tensor cores, b1_mma_plan's layouts) on the 13B planes, once
-    for name, k, n in PLANES_13B:
-        w = rand_weight(torch, k, n, gen, dev)
-        for m in B1_ROWS:
-            x = torch.randn((m, k), generator=gen, device=dev)
-            y, y_ref, tol = b1_case(x, w, torch.bfloat16)
-            err = (y - y_ref).abs().max().item()
-            require(bool(torch.isfinite(y).all()) and err <= tol,
-                    f"B1 13B {name} M={m}: err {err} > {tol}")
-            results["B1"].append(dict(shape=f"{name} M={m} K={k} N={n} bf16",
-                                      max_abs_err=err, tol=tol))
-        del w
+    # B1 (and v0h) and B9 on the 13B planes at PROBE_ROWS, timed over
+    # cycled copies beside the library call
+    for key, affine, fn, case in (
+            ("B1", False, qm.q4_matmul_decode, b1_case),
+            ("B9", True, qm.q41_matmul_decode, b9_case)):
+        for name, k, n in PLANES_13B:
+            w = rand_weight(torch, k, n, gen, dev, affine)
+            wbytes = weight_bytes(w)
+            ws = [w] + [rand_weight(torch, k, n, gen, dev, affine)
+                        for _ in range(copies_for(wbytes) - 1)]
+            packs = int4pack_packs(torch, ws)
+            for m in PROBE_ROWS:
+                x = torch.randn((m, k), generator=gen, device=dev)
+                y, y_ref, tol = case(x, w, torch.bfloat16)
+                err = (y - y_ref).abs().max().item()
+                label = f"{key} 13B {name} M={m}"
+                require(bool(torch.isfinite(y).all()) and err <= tol,
+                        f"{label}: err {err} > {tol}")
+                require(torch.equal(y, fn(x, w, torch.bfloat16)),
+                        f"{label}: not deterministic")
+                it = iter(range(10**9))
+                ms = time_ms(lambda: fn(x, ws[next(it) % len(ws)],
+                                        torch.bfloat16), calls=4 * len(ws))
+                bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
+                                   2.0 * m * k * n, "bf16")
+                row = dict(shape=f"{name} M={m} K={k} N={n} bf16",
+                           max_abs_err=err, tol=tol, ms=ms, bound_ms=bnd,
+                           bound_by=by, bound_share=bnd / ms)
+                row.update(int4pack_row(torch, packs, x, y_ref, n))
+                results[key].append(row)
+                print(f"{key} 13B {row}", flush=True)
+                if not affine:
+                    results[key].append(check_v0h(torch, qm, qv, x, w,
+                                                  name))
+            del ws, w, packs
+
+
+def check_v0h(torch, qm, qv, x, w, name):
+    """B1 with bf16 scales (v0h: q4_variants.q4_decode_v0, variant 0's
+    2-byte-scale build) on w's codes against its plain version, within
+    1e-5 of sum |R(x)| |R((q - 8) R(d))|, twice and bit-equal; a row
+    without a time."""
+    sc = w.scales.to(torch.bfloat16)
+    y = qv.q4_decode_v0(x, w.qs, sc, n_out=w.n_logical)
+    y_ref = qv.decode_plain(x, w.qs, sc, "v0")[:, :w.n_logical]
+    wd = qm.dequant_matmul_weight(type(w)(qs=w.qs, scales=sc.float()))
+    tol = 1e-5 * absum_of(torch, qm, x, wd, w.n_logical, torch.bfloat16)
+    err = (y - y_ref).abs().max().item()
+    label = f"B1 v0h {name} M={x.shape[0]}"
+    require(bool(torch.isfinite(y).all()) and err <= tol,
+            f"{label}: err {err} > {tol}")
+    require(torch.equal(y, qv.q4_decode_v0(x, w.qs, sc, n_out=w.n_logical)),
+            f"{label}: not deterministic")
+    return dict(shape=f"{name} M={x.shape[0]} K={w.k} N={w.n_logical} "
+                "v0h (bf16 scales)", max_abs_err=err, tol=tol)
 
 
 # B13's and B14's rows: the single stream (1), the engine and the JAX
@@ -2953,7 +3003,7 @@ def trace_session(torch, model, sess, profile_ms, n_steps=8):
         model.rcfg = dataclasses.replace(model.rcfg, profile_dir="")
         total, top = traced_breakdown(
             os.path.join(trace_dir, "generate"), "generate",
-            ("q4_mma_kernel", "attn_split_kernel"))
+            ("q4_fold_kernel", "attn_split_kernel"))
     finally:
         shutil.rmtree(trace_dir, ignore_errors=True)
     ref_ms = profile_ms * n_steps
@@ -2985,7 +3035,7 @@ def trace_engine(torch, sched, make_traced):
                 f"traced engine run: launches {counts}")
         total, top = traced_breakdown(
             os.path.join(trace_dir, "engine_run"), "engine_run",
-            ("paged_split_kernel", "q4_mma_kernel"))
+            ("paged_split_kernel", "q4_fold_kernel"))
     finally:
         shutil.rmtree(trace_dir, ignore_errors=True)
     return dict(device_ms=total / 1e3, launches=counts, top=top,
@@ -3405,12 +3455,14 @@ SHARD_CASES = {False: (("B1", 1), ("B1", 8), ("B3", 512), ("B3", 256),
 
 
 def check_shard_planes(torch, dev, gen, results):
-    """B1 (M = 1, 8; bf16), B3 (M = 512, 256; bit for bit, with B2) and B5
-    (M = 128, 512; bf16) on the q4_0 planes a rank holds at tp = 2 and 4,
-    and B9 (M = 1, 8; bf16) on the q4_1 planes, against their plain
+    """B1 (M = 1, 8; bf16, and v0h untimed), B3 (M = 512, 256; bit for
+    bit, with B2) and B5 (M = 128, 512; bf16) on the q4_0 planes a rank
+    holds at tp = 2 and 4, and B9 (M = 1, 8; bf16) on the q4_1 planes,
+    against their plain
     versions as on the whole planes; each timed over cycled copies of the
     plane, the plain version and the bound beside it."""
     from fastllama_tpu_torch.kernels import q4_matmul as qm
+    from fastllama_tpu_torch.kernels import q4_variants as qv
     bf16 = torch.bfloat16
     rows = results.setdefault("shard_local", [])
     for tp in SHARD_TPS:
@@ -3487,6 +3539,12 @@ def check_shard_planes(torch, dev, gen, results):
                                bound_share=bnd / ms)
                     rows.append(row)
                     print(f"shard-local {row}", flush=True)
+                    if key == "B1":
+                        row = dict(check_v0h(torch, qm, qv, x, w,
+                                             f"tp={tp} {name}"),
+                                   kernel="B1", m=m)
+                        rows.append(row)
+                        print(f"shard-local {row}", flush=True)
                 del ws, w, wd
 
 
@@ -4507,14 +4565,15 @@ def reset_every_count():
 
 
 def check_variants(torch, dev, gen, results):
-    """B15-B18 and the h forms (bf16 scales; v0h is B1's 2-byte-scale mode)
+    """B15-B18 and the h forms (bf16 scales; v0h is B1 with them, variant
+    0's 2-byte-scale build)
     on the 7B planes qkv, wo, w13 and w2 and the 13B qkv plane: B15-B18
     (csrc/q4_fold.cuh, a build each) at FOLD_ROWS on every one, with their
     plan, v0h at VARIANT_ROWS on the 7B planes and M = 8 on the 13B one.
     Each within 1e-5 of sum |R(x)| (q + 8) |d| of its plain version (only
     the f32 summation order differs), run twice and bit-equal, timed over
     weight copies cycled past the L2 (v0h at M = 1 and 8) beside B1 (v0,
-    on B1's own skeleton), B13 and B14 (the fold kernel's probes on B15's
+    variant 0 of the same kernel), B13 and B14 (the fold kernel's probes on B15's
     plan; on the 7B planes at VARIANT_ROWS) and _weight_int4pack_mm on the
     same plane and M; plain versions timed on qkv at M = 8. B20 at
     M <= B20_ON_B15_MAX_M on qkv: one B20 launch (none of B15's),
@@ -5633,7 +5692,9 @@ def main() -> int:
                  "B21F": pick(long_res["checks"]["B21F"],
                               "lengths=8x300 + inactive")}
     meta = {
-        "B1": ("q4_matmul_decode", "csrc/q4_decode.cu",
+        # variant 0 of the fold kernel (built as csrc/q4_fold_v0.cu; f32
+        # mode's FFMA kernel csrc/q4_decode.cu)
+        "B1": ("q4_matmul_decode", "csrc/q4_fold.cuh",
                "fastllama_tpu/kernels/q4_matmul.py:433"),
         "B2": ("quant_rows_int8", "csrc/quant_rows.cu",
                "fastllama_tpu/kernels/q4_matmul.py:786"),
@@ -5643,7 +5704,8 @@ def main() -> int:
                "fastllama_tpu/kernels/decode_attention.py:258"),
         "B5": ("q4_matmul_prefill", "csrc/q4_prefill.cu",
                "fastllama_tpu/kernels/q4_matmul.py:578"),
-        "B9": ("q41_matmul_decode", "csrc/q4_decode.cu",
+        # variant 9 of the fold kernel (built as csrc/q4_fold_v9.cu)
+        "B9": ("q41_matmul_decode", "csrc/q4_fold.cuh",
                "fastllama_tpu/kernels/q4_matmul.py:395"),
         "B10": ("decode_attention", "csrc/decode_attention.cu",
                 "fastllama_tpu/kernels/decode_attention.py:72"),
@@ -5847,10 +5909,14 @@ def main() -> int:
         # its launches on phase 11's bench path (every script summed)
         kernels[-1].setdefault("launches_by_path", {})["bench_path"] = (
             bench_res["launches"][key])
-        if key == "B1":
-            m8 = pick(checks["B1"], "qkv M=8 ")
-            kernels[-1].update(ms_at_engine_m8=m8["ms"],
-                               bound_ms_at_engine_m8=m8["bound_ms"])
+        if key in ("B1", "B9"):
+            m8 = pick(checks[key], "qkv M=8 K=4096 N=12288 bf16")
+            kernels[-1].update(
+                built_as="fastllama_tpu_torch/kernels/csrc/q4_fold_v"
+                         f"{0 if key == 'B1' else 9}.cu",
+                ms_at_engine_m8=m8["ms"],
+                bound_ms_at_engine_m8=m8["bound_ms"],
+                library_ms_at_engine_m8=m8.get("library_ms"))
         require(launches[key] > 0, f"kernel {key} was launched on no path")
     summary = {"card": smi, "build_s": cuda_lib.build_seconds,
                "kernel_checks": checks, "main_path": main_res,

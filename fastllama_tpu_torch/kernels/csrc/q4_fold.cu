@@ -4,9 +4,11 @@
 
 #include "q4_fold.cuh"
 
-// Kernel B15 (variant 1; q4_fold_v2.cu's q4_fold_v2_gemm is B16, variant
-// 2, q4_fold_v3.cu's q4_fold_v3_gemm B17, variant 3, and q4_fold_v7.cu's
-// q4_fold_v7_gemm B18, variant 7, with the same arguments): y f32
+// Kernel B15 (variant 1; q4_fold_v0.cu's q4_fold_v0_gemm is B1, variant
+// 0, q4_fold_v2.cu's q4_fold_v2_gemm B16, variant 2, q4_fold_v3.cu's
+// q4_fold_v3_gemm B17, variant 3, and q4_fold_v7.cu's q4_fold_v7_gemm B18,
+// variant 7, with the same arguments; q4_fold_v9.cu's B9 takes the mins
+// too): y f32
 // [M, n_out] from x f32
 // [M, Kx] (1 <= M <= 64, Kx a multiple of 4 and at most 32 NB, x 16-byte
 // aligned; x counts as zero past Kx), qs uint8
@@ -26,9 +28,9 @@ extern "C" int q4_fold_gemm(const void* x, int M, int Kx, const void* qs,
                             int variant, int wgs, int stages, int xstages,
                             int splits, int sps, int clusters, int sync,
                             void* y, int n_out, void* scratch, void* stream) {
-  return fold_gemm<1>(x, M, Kx, qs, scales, sc16, N, NB, variant, wgs,
-                      stages, xstages, splits, sps, clusters, sync, y, n_out,
-                      scratch, stream);
+  return fold_gemm<1>(x, M, Kx, qs, scales, nullptr, sc16, N, NB,
+                     variant, wgs, stages, xstages, splits, sps,
+                     clusters, sync, y, n_out, scratch, stream);
 }
 
 // How many clusters of `splits` blocks the card holds at once

@@ -1,18 +1,24 @@
-// Kernels B15, B16, B17 and B18: the JAX package's v1, v2, v3 and v7
-// decode bodies of q4_matmul_pallas, and the probes B13 and B14 of
-// tools/bench_q4_floor.py, on one decode-size kernel built for Hopper.
-// This header holds the kernel; q4_fold.cu (B15), q4_fold_v2.cu (B16),
-// q4_fold_v3.cu (B17), q4_fold_v7.cu (B18) and q4_fold_probe.cu (B13 and
-// B14) build one variant each, so that they compile side by side.
+// Kernels B1 and B9 (the default decode matmuls, q4_0 and q4_1), B15, B16,
+// B17 and B18 (the JAX package's v1, v2, v3 and v7 decode bodies of
+// q4_matmul_pallas), and the probes B13 and B14 of tools/bench_q4_floor.py,
+// on one decode-size kernel built for Hopper. This header holds the kernel;
+// q4_fold_v0.cu (B1), q4_fold_v9.cu (B9), q4_fold.cu (B15), q4_fold_v2.cu
+// (B16), q4_fold_v3.cu (B17), q4_fold_v7.cu (B18) and q4_fold_probe.cu (B13
+// and B14) build one variant each, so that they compile side by side.
 //
-// Replaces fastllama_tpu/kernels/q4_matmul.py::_q4mm_kernel_v1 (v1; v4 and
-// v5 are bit-equal to it), ::_q4mm_kernel_v2 (v2), ::_q4mm_kernel_v3 (v3)
-// and ::_q4mm_kernel_v7 (v7), each by its function (kernels/q4_variants.py),
-// and tools/bench_q4_floor.py::_floor_kernel (variant 13) and ::_nosc_kernel
+// Replaces fastllama_tpu/kernels/q4_matmul.py::q4_matmul_pallas with the
+// function of its v0 body, _q4mm_kernel (variant 0; q4_matmul_xla's), and
+// ::q41_matmul_pallas (_q41mm_kernel, variant 9), ::_q4mm_kernel_v1 (v1; v4
+// and v5 are bit-equal to it), ::_q4mm_kernel_v2 (v2), ::_q4mm_kernel_v3
+// (v3) and ::_q4mm_kernel_v7 (v7), each by its function
+// (kernels/q4_matmul.py, kernels/q4_variants.py), and
+// tools/bench_q4_floor.py::_floor_kernel (variant 13) and ::_nosc_kernel
 // (variant 14) (kernels/q4_floor.py), x f32 [1 <= M <= 64, K], the planes
 // as stored (qs uint8 [K/2, N] split-K packed: byte (16 kb + j, n) holds
 // element 32 kb + j in its low nibble and 32 kb + 16 + j in its high one;
-// scales f32 or bf16 [K/32, N]):
+// scales f32 or bf16 [K/32, N]; variant 9's mins f32 [K/32, N]):
+//   v0: y = R(x) @ R((q - 8) d)                           (B1)
+//   v9: y = R(x) @ R(q d) + bsum(x) @ m                   (B9)
 //   v1: y = R(x) @ R(q d) - 8 bsum(x) @ d
 //   v2: y = sum_b d_b (R(x_b) @ q_b) - 8 bsum(x) @ d
 //   v3: y = R(x) @ R(q R(d)) - 8 bsum(x) @ d
@@ -42,7 +48,8 @@
 //   * one producer thread streams each stage's weights (4 q blocks: 16 * 4
 //     packed rows of the tile's BN columns as stored, in boxes of 128 (or
 //     64) columns swizzled by the tensor copy for the readers' banks, and
-//     their 4 scale rows) by cp.async.bulk.tensor.2d copies into an
+//     their 4 scale rows, and v9's 4 mins rows) by cp.async.bulk.tensor.2d
+//     copies into an
 //     mbarrier ring of `stages` slots (about 80 KB) that runs on across
 //     tiles, so no tile pays a ramp; a second streams each stage's x (its
 //     f32 rows < M of those 128 columns of K) into a ring of `xstages`
@@ -51,7 +58,8 @@
 //     N and K, so nothing masks;
 //   * two or four x warps convert each stage's x, once landed, into bf16
 //     in the K-major core-matrix layout wgmma reads as its B operand, and
-//     sum the unrounded x over each q block (the fold's block sums; v7:
+//     (but for v0) sum the unrounded x over each q block (the fold's block
+//     sums; v7:
 //     the pair sums R(R(x_lo) + R(x_hi)), rounded by bf16x2 instructions
 //     and summed in f32), a thread an x_lo float4 and the x_hi float4 it
 //     pairs with; x is
@@ -74,12 +82,20 @@
 //     permute, then one bf16x2 fma with R(d) and -128 R(d): R(q R(d)), the
 //     plain version's bf16 product (__hmul2). v2: the codes alone, 128 + q
 //     by one permute less 128 by one bf16x2 subtraction a pair (exact).
-//     At NW = 8 the sync build issues mma.sync m16n8k16 per warp on the
-//     same fragments instead;
-//   * v1, v3, v7: the folded offset -8 bsum(x) @ d goes into a second set
-//     of f32 registers in the D fragment's layout (an FMA a register a q block,
-//     bsum from the x warps, -8 d exact), since a wgmma in flight owns the
-//     accumulators; the two are added once at the end of a split;
+//     v0: the code into the mantissa of 2^23, less 2^23 + 8 (q - 8, exact),
+//     then one f32 product by d: R((q - 8) d) rounded once in f32 and once
+//     to bf16, bit for bit the plain version's weight (one instruction a
+//     weight more than v1: fma(2^23 + q, d, -(2^23 + 8) d) is not exact,
+//     since (2^23 + 8) d is not an f32). v9: v1's R(q d). At NW = 8 the
+//     sync build issues mma.sync m16n8k16 per warp on the same fragments
+//     instead;
+//   * v1, v3, v7, v9: the folded offset -8 bsum(x) @ d (v9: the mins term
+//     bsum(x) @ m) goes into a second set of f32 registers in the D
+//     fragment's layout (an FMA a register a q block, bsum from the x
+//     warps, -8 d exact), since a wgmma in flight owns the accumulators;
+//     the two are added once at the end of a split. v9's stage carries the
+//     tile's mins rows beside its scale rows (a fourth tensor map), 8 bytes
+//     a column a q block. v0 has no fold: its x warps sum nothing;
 //   * v2 scales each q block's product after it is complete: the block's
 //     two k16 steps go into a fresh set z (wgmma's scale-d 0 on the first,
 //     so nothing zeroes it), then acc += z d by one FMA a D register with
@@ -150,6 +166,12 @@ constexpr int kQB = 4;                   // q blocks a stage
 __host__ __device__ constexpr bool probe(int var) {
   return var == 13 || var == 14;
 }
+// the bytes a stage carries a column a q block beside the packed rows: the
+// scale (4, or 2 for bf16 scales), and variant 9's f32 min (the probes:
+// none)
+__host__ __device__ constexpr int stage_sbytes(int var, bool sc16) {
+  return probe(var) ? 0 : var == 9 ? 8 : sc16 ? 2 : 4;
+}
 // A consumer warpgroup takes MT m-tiles of 64 columns: 2 (a lane's 4
 // adjacent columns, one 4-byte load a packed row) where NW <= 32, 1 (2
 // columns) for the widest x, where the registers hold no more; a block
@@ -185,7 +207,8 @@ struct FoldArgs {
 struct Layout {
   int ws;          // a weight slot: the packed rows ([BN / 128 or 64 boxes]
                    // [16 kQB rows][128 or 64]), then the scales [kQB][BN]
-                   // (sbytes a scale; 0 for the probes)
+                   // and variant 9's mins [kQB][BN] (sbytes the two
+                   // together; 0 for the probes)
   int xr;          // an x slot: x f32 [NW][128] as copied, then
   int xt;          // the bf16 tiles (kQB * 2 k16 tiles of NW x 16), then
   int xst;         // the block sums [kQB][NW]; xst the slot's bytes
@@ -400,6 +423,17 @@ __device__ __forceinline__ float qd(uint32_t nib, float d, float nd) {
                    d, nd);
 }
 
+// v0: R((q - 8) d) of the code in byte C of `nib`: 2^23 + q by one byte
+// permute, less 2^23 + 8 (q - 8, exact), then one f32 product, rounded once
+// as the plain version's f32 weight
+template <int C>
+__device__ __forceinline__ float q8d(uint32_t nib, float d) {
+  return __fmul_rn(
+      __fadd_rn(__uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7440 | C)),
+                -8388616.f),
+      d);
+}
+
 // Two codes of `nib` (the bytes that selector nibbles 0 and 2 of `sel`
 // pick) as the bf16 values 128 + q: each code under the exponent byte 0x43
 // (128, whose bf16 ulp is 1), the first in the low half.
@@ -410,14 +444,19 @@ __device__ __forceinline__ __nv_bfloat162 code2(uint32_t nib, int sel) {
 
 // The 4 A registers of one k16 step of one m-tile from the nibble words of
 // rows (2t, 2t+1) and (2t+8, 2t+9): byte 0 / 2 its column c (A row g), byte
-// 1 / 3 column c + 1 (A row g + 8), the lower k in the low half. v1 and v7
-// R(q d), v3 R(q R(d)), v2 the code q itself (exact in bf16; d is applied
-// to each q block's product). B13 takes v1's route with d = 1 on the whole
-// bytes (exact: 8 bits), B14 v2's on the nibbles.
+// 1 / 3 column c + 1 (A row g + 8), the lower k in the low half. v1, v7
+// and v9 R(q d), v0 R((q - 8) d), v3 R(q R(d)), v2 the code q itself (exact
+// in bf16; d is applied to each q block's product). B13 takes v1's route
+// with d = 1 on the whole bytes (exact: 8 bits), B14 v2's on the nibbles.
 template <int VAR>
 __device__ __forceinline__ void dequant(uint32_t n01, uint32_t n23, float d0,
                                         float d1, uint32_t* a) {
-  if constexpr (VAR == 2) {
+  if constexpr (VAR == 0) {
+    a[0] = bits(__floats2bfloat162_rn(q8d<0>(n01, d0), q8d<2>(n01, d0)));
+    a[1] = bits(__floats2bfloat162_rn(q8d<1>(n01, d1), q8d<3>(n01, d1)));
+    a[2] = bits(__floats2bfloat162_rn(q8d<0>(n23, d0), q8d<2>(n23, d0)));
+    a[3] = bits(__floats2bfloat162_rn(q8d<1>(n23, d1), q8d<3>(n23, d1)));
+  } else if constexpr (VAR == 2) {
     // (128 + q) - 128 = q exactly: a permute and a bf16x2 subtraction a pair
     const __nv_bfloat162 k128 = __float2bfloat162_rn(128.f);
     a[0] = bits(__hsub2(code2(n01, 0x4240), k128));
@@ -459,9 +498,15 @@ template <int NW, int VAR, bool SC16, bool SYNC>
 __global__ void __launch_bounds__(max_threads(NW), 1)
 q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_s,
+               const __grid_constant__ CUtensorMap map_m,
                const __grid_constant__ CUtensorMap map_x, const FoldArgs a) {
   constexpr bool PROBE = probe(VAR);
-  constexpr int kSB = PROBE ? 0 : SC16 ? 2 : 4;   // bytes of a scale
+  // a stage's bytes a column a q block beside the packed rows (a scale and
+  // variant 9's min)
+  constexpr int kSB = stage_sbytes(VAR, SC16);
+  // the variants that fold a term into registers beside acc (v2 folds
+  // straight into acc; v0 and the probes fold nothing)
+  constexpr bool FOLD = !PROBE && VAR != 0 && VAR != 2;
   constexpr int kSteps = VAR == 13 ? 1 : 2;       // k16 steps a q block
   constexpr int MT = mtiles(NW);
   constexpr int kXWarps = x_warps(NW), kXThreads = 32 * kXWarps;
@@ -494,6 +539,7 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
     // the descriptors fetched while the barriers are set up
     hopper::prefetch_map(&map_q);
     if constexpr (!PROBE) hopper::prefetch_map(&map_s);
+    if constexpr (VAR == 9) hopper::prefetch_map(&map_m);
     hopper::prefetch_map(&map_x);
   }
   if (threadIdx.x == 0) {
@@ -538,6 +584,9 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
                       st * kQB * 16);
         if constexpr (!PROBE)
           tma_load_2d(dst + qbytes, &map_s, bar, t * bn, st * kQB);
+        if constexpr (VAR == 9)    // the mins after the f32 scales
+          tma_load_2d(dst + qbytes + kQB * bn * 4, &map_m, bar, t * bn,
+                      st * kQB);
         if (++slot == a.stages) { slot = 0; ph ^= 1; }
       }
     }
@@ -604,7 +653,7 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
             *reinterpret_cast<uint2*>(dst + NW * 32) =
                 make_uint2(bits(lo4), bits(hi4));
           }
-          if constexpr (VAR == 14) continue;   // B14 sums nothing
+          if constexpr (VAR == 14 || VAR == 0) continue;   // no fold
           float sum;
           if constexpr (VAR == 7) {
             // one bf16x2 add rounds the exact pair sum once, as the plain
@@ -646,8 +695,8 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
     // v2 takes each q block's product of the codes into a fresh set z,
     // then adds it to acc scaled by d, and the fold straight into acc; the
     // others keep the fold apart in `fold`, since a wgmma in flight owns
-    // acc (the probes have none). acc's order, every variant: each q
-    // block's fold, then its product
+    // acc (v0 and the probes have none). acc's order, every variant: each
+    // q block's fold, then its product
     float acc[MT][NW / 2], fold[MT][NW / 2], z[MT][NW / 2] = {};
     float dp[2 * MT];     // v2: the scales of the q block whose z is pending
     uint32_t afr[2][MT][8] = {};
@@ -660,9 +709,9 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_arrive_if(empty + 8 * (w < 0 ? 0 : w), lane == 0 && w >= 0);
       mbar_arrive_if(xempty + 8 * (x < 0 ? 0 : x), lane == 0 && x >= 0);
     };
-    // the fold of a q block (its scales d, its block sums bsb) into dst:
-    // register 4j + c of m-tile mt is x row 8j + 2t + c % 2 and column
-    // c0 + 2 mt + c / 2
+    // the fold of a q block (its scales d, or v9's mins, its block sums
+    // bsb) into dst: register 4j + c of m-tile mt is x row 8j + 2t + c % 2
+    // and column c0 + 2 mt + c / 2; the term bsum (-8 d), or v9's bsum m
     auto add_fold = [&](float (&dst)[MT][NW / 2], const float* bsb,
                         const float* d) {
 #pragma unroll
@@ -670,7 +719,8 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
         const float2 bv = *reinterpret_cast<const float2*>(bsb + 8 * j + 2 * t4);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          const float p0 = -8.f * d[2 * mt], p1 = -8.f * d[2 * mt + 1];
+          const float p0 = VAR == 9 ? d[2 * mt] : -8.f * d[2 * mt];
+          const float p1 = VAR == 9 ? d[2 * mt + 1] : -8.f * d[2 * mt + 1];
           float* f = dst[mt] + 4 * j;
           f[0] = __fmaf_rn(bv.x, p0, f[0]);
           f[1] = __fmaf_rn(bv.y, p0, f[1]);
@@ -731,6 +781,14 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
             d[2 * c] = f.x;
             d[2 * c + 1] = f.y;
           }
+          float mn[2 * MT] = {};      // v9: the mins, after the f32 scales
+#pragma unroll
+          for (int c = 0; c < MT && VAR == 9; ++c) {
+            const float2 f = *reinterpret_cast<const float2*>(
+                sc + kQB * bn * 4 + (b * bn + c0 + 2 * c) * 4);
+            mn[2 * c] = f.x;
+            mn[2 * c + 1] = f.y;
+          }
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
             // m-tile mt's bytes of rows (2t, 2t+1) and (2t+8, 2t+9)
@@ -749,7 +807,8 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
                            d[2 * mt + 1], A[mt] + 4);
             }
           }
-          if constexpr (VAR != 2 && !PROBE) add_fold(fold, bs + b * NW, d);
+          if constexpr (FOLD)
+            add_fold(fold, bs + b * NW, VAR == 9 ? mn : d);
           if constexpr (SYNC) {
             // B fragment: x rows g, k 2t, 2t + 1 (and + 8) of tile (b, s)
             const uint8_t* xb = xs + 2 * b * NW * 32 + g * 16 + 4 * t4;
@@ -853,7 +912,7 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
         pw = px = -1;
         if constexpr (VAR == 2) add_scaled(D, dp);
       }
-      if constexpr (VAR != 2 && !PROBE) {
+      if constexpr (FOLD) {
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -963,7 +1022,8 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
 
 template <int NW, int VAR, bool SC16, bool SYNC>
 int launch_fold(const FoldArgs& a, const void* x, const void* qs,
-                const void* scales, int clusters, cudaStream_t stream) {
+                const void* scales, const void* mins, int clusters,
+                cudaStream_t stream) {
   auto* kern = q4_fold_kernel<NW, VAR, SC16, SYNC>;
   static bool ready = false;
   if (!ready) {
@@ -973,8 +1033,9 @@ int launch_fold(const FoldArgs& a, const void* x, const void* qs,
     ready = true;
   }
   const int bn = 64 * mtiles(NW) * a.wgs, bw = bn % 128 ? 64 : 128;
-  // the probes have no scale plane: their map_s is never read
-  CUtensorMap map_q, map_s = {}, map_x;
+  // the probes have no scale plane and only variant 9 a mins plane: a map
+  // of none is never read
+  CUtensorMap map_q, map_s = {}, map_m = {}, map_x;
   if (!hopper::make_map(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.M,
                         a.Kx, 128, a.M, CU_TENSOR_MAP_SWIZZLE_NONE) ||
       !hopper::make_map(&map_q, qs, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
@@ -986,7 +1047,10 @@ int launch_fold(const FoldArgs& a, const void* x, const void* qs,
                          SC16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                          SC16 ? 2 : 4, a.NB, a.N, bn, kQB,
-                         CU_TENSOR_MAP_SWIZZLE_NONE)))
+                         CU_TENSOR_MAP_SWIZZLE_NONE)) ||
+      (VAR == 9 &&
+       !hopper::make_map(&map_m, mins, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                         a.NB, a.N, bn, kQB, CU_TENSOR_MAP_SWIZZLE_NONE)))
     return (int)cudaErrorInvalidValue;
   // clusters of S blocks (none where S = 1), launched as a programmatic
   // dependent of the kernel before
@@ -1008,14 +1072,15 @@ int launch_fold(const FoldArgs& a, const void* x, const void* qs,
   attr[1].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = a.splits > 1 ? 2 : 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, map_q, map_s, map_x, a);
+  return (int)cudaLaunchKernelEx(&cfg, kern, map_q, map_s, map_m, map_x, a);
 }
 
 template <int VAR, bool SC16>
 int dispatch_rows(const FoldArgs& a, const void* x, const void* qs,
-                  const void* scales, int clusters, int sync, cudaStream_t s) {
+                  const void* scales, const void* mins, int clusters,
+                  int sync, cudaStream_t s) {
 #define FLTORCH_B15_LAUNCH(NW, SYNC)                                         \
-  launch_fold<NW, VAR, SC16, SYNC>(a, x, qs, scales, clusters, s)
+  launch_fold<NW, VAR, SC16, SYNC>(a, x, qs, scales, mins, clusters, s)
   switch ((a.M + 7) / 8) {
     case 1: return sync ? FLTORCH_B15_LAUNCH(8, true)
                         : FLTORCH_B15_LAUNCH(8, false);
@@ -1031,15 +1096,17 @@ int dispatch_rows(const FoldArgs& a, const void* x, const void* qs,
 #undef FLTORCH_B15_LAUNCH
 }
 
-// The entry of variant VAR (1: B15, 2: B16, 3: B17, 7: B18, 13: B13, 14:
-// B14; another variant is refused): q4_fold_gemm's contract (q4_fold.cu);
-// the probes take no scales (sc16 must be 0; `scales` is not read).
+// The entry of variant VAR (0: B1, 1: B15, 2: B16, 3: B17, 7: B18, 9: B9,
+// 13: B13, 14: B14; another variant is refused): q4_fold_gemm's contract
+// (q4_fold.cu); the probes take no scales (sc16 must be 0; `scales` is not
+// read); variant 9 takes f32 scales and the mins plane, the others no mins
+// (null).
 template <int VAR>
 int fold_gemm(const void* x, int M, int Kx, const void* qs,
-              const void* scales, int sc16, int N, int NB, int variant,
-              int wgs, int stages, int xstages, int splits, int sps,
-              int clusters, int sync, void* y, int n_out, void* scratch,
-              void* stream) {
+              const void* scales, const void* mins, int sc16, int N, int NB,
+              int variant, int wgs, int stages, int xstages, int splits,
+              int sps, int clusters, int sync, void* y, int n_out,
+              void* scratch, void* stream) {
   const int nst = (NB + kQB - 1) / kQB, nw = (M + 7) / 8 * 8;
   if (M < 1 || M > 64 || Kx < 4 || Kx % 4 || Kx > 32 * NB ||
       reinterpret_cast<uintptr_t>(x) % 16 || N % 16 || n_out > N ||
@@ -1047,8 +1114,10 @@ int fold_gemm(const void* x, int M, int Kx, const void* qs,
       xstages > stages || splits < 1 || splits > 8 ||
       sps < 1 || (splits - 1) * sps >= nst || splits * sps < nst ||
       clusters < 1 || (sync && M > 8) || variant != VAR ||
-      (probe(VAR) && sc16) ||
-      fold_layout(wgs, nw, probe(VAR) ? 0 : sc16 ? 2 : 4, stages, xstages,
+      ((probe(VAR) || VAR == 9) && sc16) ||
+      (VAR == 9) != (mins != nullptr) ||
+      (mins != nullptr && reinterpret_cast<uintptr_t>(mins) % 16) ||
+      fold_layout(wgs, nw, stage_sbytes(VAR, sc16), stages, xstages,
                   splits).total + 1024 > kSmem)
     return (int)cudaErrorInvalidValue;
   FoldArgs a;
@@ -1068,13 +1137,16 @@ int fold_gemm(const void* x, int M, int Kx, const void* qs,
   const int bn = 64 * mtiles(nw) * wgs;
   a.tiles = (N + bn - 1) / bn;
   cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (probe(VAR))     // no SC16 build: the probes read no scales
-    return dispatch_rows<VAR, false>(a, x, qs, scales, clusters, sync, s);
+  // no SC16 build of the probes (they read no scales) or of variant 9
+  // (q4_1's scales are f32)
+  if constexpr (probe(VAR) || VAR == 9)
+    return dispatch_rows<VAR, false>(a, x, qs, scales, mins, clusters, sync,
+                                     s);
   else
-    return sc16 ? dispatch_rows<VAR, true>(a, x, qs, scales, clusters, sync,
-                                           s)
-                : dispatch_rows<VAR, false>(a, x, qs, scales, clusters, sync,
-                                            s);
+    return sc16 ? dispatch_rows<VAR, true>(a, x, qs, scales, mins, clusters,
+                                           sync, s)
+                : dispatch_rows<VAR, false>(a, x, qs, scales, mins, clusters,
+                                            sync, s);
 }
 
 

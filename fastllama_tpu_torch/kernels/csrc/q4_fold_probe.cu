@@ -19,9 +19,9 @@ extern "C" int q4_fold_floor_gemm(const void* x, int M, int Kx,
                                   int splits, int sps, int clusters,
                                   int sync, void* y, int n_out,
                                   void* scratch, void* stream) {
-  return fold_gemm<13>(x, M, Kx, qs, scales, sc16, N, NB, variant, wgs,
-                       stages, xstages, splits, sps, clusters, sync, y, n_out,
-                       scratch, stream);
+  return fold_gemm<13>(x, M, Kx, qs, scales, nullptr, sc16, N, NB,
+                      variant, wgs, stages, xstages, splits, sps,
+                      clusters, sync, y, n_out, scratch, stream);
 }
 
 extern "C" int q4_fold_nosc_gemm(const void* x, int M, int Kx,
@@ -30,7 +30,7 @@ extern "C" int q4_fold_nosc_gemm(const void* x, int M, int Kx,
                                  int stages, int xstages, int splits, int sps,
                                  int clusters, int sync, void* y, int n_out,
                                  void* scratch, void* stream) {
-  return fold_gemm<14>(x, M, Kx, qs, scales, sc16, N, NB, variant, wgs,
-                       stages, xstages, splits, sps, clusters, sync, y, n_out,
-                       scratch, stream);
+  return fold_gemm<14>(x, M, Kx, qs, scales, nullptr, sc16, N, NB,
+                      variant, wgs, stages, xstages, splits, sps,
+                      clusters, sync, y, n_out, scratch, stream);
 }

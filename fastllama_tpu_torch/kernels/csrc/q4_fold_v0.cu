@@ -1,0 +1,18 @@
+// Kernel B1 in bf16 mode (the JAX package's q4_matmul_pallas with its v0
+// body, q4_matmul_xla's function): the variant 0 build of the decode kernel
+// of csrc/q4_fold.cuh, y = R(x) @ R((q - 8) d), with q4_fold_gemm's
+// arguments (csrc/q4_fold.cu; variant must be 0; f32 or bf16 scales).
+// Returns the CUDA error code of the launch.
+
+#include "q4_fold.cuh"
+
+extern "C" int q4_fold_v0_gemm(const void* x, int M, int Kx, const void* qs,
+                               const void* scales, int sc16, int N, int NB,
+                               int variant, int wgs, int stages,
+                               int xstages, int splits, int sps,
+                               int clusters, int sync, void* y, int n_out,
+                               void* scratch, void* stream) {
+  return fold_gemm<0>(x, M, Kx, qs, scales, nullptr, sc16, N, NB,
+                      variant, wgs, stages, xstages, splits, sps,
+                      clusters, sync, y, n_out, scratch, stream);
+}

@@ -11,7 +11,7 @@ extern "C" int q4_fold_v3_gemm(const void* x, int M, int Kx, const void* qs,
                                int xstages, int splits, int sps,
                                int clusters, int sync, void* y, int n_out,
                                void* scratch, void* stream) {
-  return fold_gemm<3>(x, M, Kx, qs, scales, sc16, N, NB, variant, wgs,
-                      stages, xstages, splits, sps, clusters, sync, y, n_out,
-                      scratch, stream);
+  return fold_gemm<3>(x, M, Kx, qs, scales, nullptr, sc16, N, NB,
+                     variant, wgs, stages, xstages, splits, sps,
+                     clusters, sync, y, n_out, scratch, stream);
 }

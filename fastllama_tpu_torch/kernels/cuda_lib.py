@@ -25,26 +25,26 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("q4_decode", "quant_rows", "q4_int8", "q4_prefill",
            "decode_attention", "paged_attention", "kv_write",
-           "flash_prefill", "paged_flash", "q4_fold", "q4_fold_v2",
-           "q4_fold_v3", "q4_fold_v7", "q4_fold_probe")
+           "flash_prefill", "paged_flash", "q4_fold", "q4_fold_v0",
+           "q4_fold_v2", "q4_fold_v3", "q4_fold_v7", "q4_fold_v9",
+           "q4_fold_probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 L = ctypes.c_longlong
 # the entry of each build of csrc/q4_fold.cuh (one a variant; the probes'
-# build has two, which read no scales)
+# build has two, which read no scales; variant 9's takes the mins plane
+# after the scales)
 FOLD_ARGS = [P, I, I, P, P, I, I, I, I, I, I, I, I, I, I, I, P, I, P, P]
 ARGTYPES = {
     "q4_gemv": [P, I, I, P, P, I, I, I, I, P, P, P, I, I, P],
-    "q4_gemv_mma": [P, I, I, P, P, I, I, I, I, I, I, P, P, P, I, P],
-    "q41_gemv_mma": [P, I, I, P, P, P, I, I, I, I, I, I, P, P, P, I, P],
     "q41_gemv": [P, I, I, P, P, P, I, I, I, I, P, P, P, I, I, P],
-    "q4_variant_mma": [P, I, I, P, P, I, I, I, I, I, I, I, P, P, P, I, I,
-                       P],
-    "q4_fold_gemm": FOLD_ARGS, "q4_fold_v2_gemm": FOLD_ARGS,
+    "q4_fold_gemm": FOLD_ARGS, "q4_fold_v0_gemm": FOLD_ARGS,
+    "q4_fold_v2_gemm": FOLD_ARGS,
     "q4_fold_v3_gemm": FOLD_ARGS, "q4_fold_v7_gemm": FOLD_ARGS,
     "q4_fold_floor_gemm": FOLD_ARGS, "q4_fold_nosc_gemm": FOLD_ARGS,
+    "q4_fold_v9_gemm": FOLD_ARGS[:5] + [P] + FOLD_ARGS[5:],
     "q4_fold_clusters": [I],
     "quant_rows_int8": [P, I, I, I, P, P, P],
     "q4_int8_gemm": [P, P, I, I, P, P, I, P, P, P, I, I, P],
@@ -75,13 +75,13 @@ ARGTYPES = {
     "flash_prefill": [P, P, P, L, L, L, L, L, L, L, L, L, I, I, I, I, I, I,
                       I, F, P, P, P, P],
 }
-LIB_OF = {"q4_gemv": "q4_decode", "q4_gemv_mma": "q4_decode",
-          "q41_gemv": "q4_decode", "q41_gemv_mma": "q4_decode",
-          "q4_variant_mma": "q4_decode",
+LIB_OF = {"q4_gemv": "q4_decode", "q41_gemv": "q4_decode",
           "q4_fold_gemm": "q4_fold", "q4_fold_clusters": "q4_fold",
+          "q4_fold_v0_gemm": "q4_fold_v0",
           "q4_fold_v2_gemm": "q4_fold_v2",
           "q4_fold_v3_gemm": "q4_fold_v3",
           "q4_fold_v7_gemm": "q4_fold_v7",
+          "q4_fold_v9_gemm": "q4_fold_v9",
           "q4_fold_floor_gemm": "q4_fold_probe",
           "q4_fold_nosc_gemm": "q4_fold_probe",
           "quant_rows_int8": "quant_rows", "q4_int8_gemm": "q4_int8",

@@ -6,16 +6,18 @@ Ports fastllama_tpu/kernels/q4_matmul.py. The weight is a QuantMatmulWeight
 shape); activations are f32 [M, K] and outputs f32 [M, n_logical].
 
 Kernels (CUDA C++ for sm_90a, sources in csrc/, built by cuda_lib):
-  B1 q4_matmul_decode        csrc/q4_decode.cu   (q4_matmul_pallas: v0's
-                             function, q4_matmul_xla's; tensor cores in
-                             bf16 mode, FFMA in f32 mode)
+  B1 q4_matmul_decode        csrc/q4_fold.cuh    (q4_matmul_pallas: v0's
+                             function, q4_matmul_xla's; bf16 mode variant 0
+                             of the fold kernel, built as q4_fold_v0.cu;
+                             f32 mode FFMA, csrc/q4_decode.cu)
   B2 quant_rows_int8         csrc/quant_rows.cu  (quant_rows_int8)
   B3 q4_matmul_prefill_int8  csrc/q4_int8.cu     (q4_matmul_prefill_int8 nat)
   B5 q4_matmul_prefill       csrc/q4_prefill.cu  (q4_matmul_prefill_pallas nat;
                              also the affine weight's R(x) @ R(q * d + m))
-  B9 q41_matmul_decode       csrc/q4_decode.cu   (q41_matmul_pallas; B1's
-                             tensor-core kernel with the mins term in bf16
-                             mode, FFMA in f32 mode)
+  B9 q41_matmul_decode       csrc/q4_fold.cuh    (q41_matmul_pallas; bf16
+                             mode variant 9 of the fold kernel, built as
+                             q4_fold_v9.cu: the mins term in the fold's
+                             registers; f32 mode FFMA, csrc/q4_decode.cu)
 
 Each wrapper launches its kernel for a CUDA tensor and raises on anything it
 does not take; for a CPU tensor it runs its plain PyTorch version, which the
@@ -39,6 +41,16 @@ from . import cuda_lib
 # Dispatch table (fixed; see q4_matmul).
 DECODE_MAX_M = 64
 PREFILL_MIN_M = 256
+# q4_0 in bf16 mode at B1_ON_B5_MIN_M <= M <= 64 on a plane deeper than
+# wide (stored K > N: w2) runs B5, which computes B1's function: there the
+# fold kernel takes its widest product (NW = 64, two x ring slots) and B5
+# took 0.04684 ms against B1's 0.06140 on the 7B w2 plane at M = 64, while
+# B1 stayed faster at M = 48 there (0.03807 against 0.04644) and at M = 64
+# on qkv, wo and w13 (0.04566, 0.02412, 0.07278 against 0.06492, 0.02811,
+# 0.09986; tools_torch/b15_sweep.py --parts route, PERF.md; NVIDIA
+# H100 80GB HBM3 at 700 W). q4_1 stays on B9 at every M <= 64: B5's affine
+# mode computes another function (R(q d + m) rounded as a whole).
+B1_ON_B5_MIN_M = 57
 RECIP_127 = float(np.float32(1.0) / np.float32(127.0))   # exact in f32
 
 
@@ -108,8 +120,8 @@ cuda_lib.counted(q4_matmul_dequant, "cuda_calls")
 # ---------------------------------------------------------------------------
 
 def _b1_tile(m: int) -> tuple[int, int]:
-    """(rows, columns) of one block of the FFMA kernel (B1 in f32 mode, B9)
-    for M rows."""
+    """(rows, columns) of one block of the FFMA kernel (B1 and B9 in f32
+    mode) for M rows."""
     return (1, 256) if m == 1 else (4, 256) if m <= 4 else (16, 128)
 
 
@@ -125,78 +137,45 @@ def _splitk(m: int, n: int, nb: int) -> tuple[int, int]:
     return -(-nb // per), per
 
 
-# B1 and B9 in bf16 mode (the tensor-core kernel, q4_gemv_mma and
-# q41_gemv_mma): 4 warps per block, each owning 64 columns; cw column groups
-# of 4 / cw warps per block
-B1_MMA_WARPS = 4
-B1_MMA_WARP_COLS = 64
-B1_MMA_TARGET_BLOCKS = 792       # 6 per SM of the H100 (132 SMs) ...
-B1_MMA_MIN_BLOCKS = 660          # ... and at least 5 per SM
-B1_MMA_MAX_SPLITS = 8
-
-
-def b1_mma_plan(m: int, n: int, nb: int) -> tuple[int, int, int, int]:
-    """(n-tiles, column groups cw, splits, q blocks per split) of the
-    tensor-core B1 and B9 for M rows, N stored columns and nb q blocks. A
-    block takes 8 * n-tiles rows (1 n-tile for M <= 8, 2 for M <= 16, else 4:
-    32-row tiles) and 64 * cw columns. Splits aim at 6 blocks per SM (at
-    most 8); the widest cw (4, 2, 1) that reaches 5 wins, so a narrow plane
-    splits K among the warps of a block rather than across many blocks; the
-    staged x slice (q blocks per split * n-tiles * 512 bytes) stays within
-    32 KB. B9's larger stage (the mins beside the scales: 28 KB of ring
-    per block instead of 24) and its block sums (at most 2 KB) leave the
-    plan as it is: the blocks per SM it aims at still fit."""
-    nt = 1 if m <= 8 else 2 if m <= 16 else 4
-    row_tiles = -(-m // (8 * nt))
-    cap = 64 // nt
-    for cw in (4, 2, 1):
-        tiles = -(-n // (B1_MMA_WARP_COLS * cw)) * row_tiles
-        splits = min(B1_MMA_MAX_SPLITS,
-                     max(1, -(-B1_MMA_TARGET_BLOCKS // tiles)))
-        per = min(cap, -(-nb // splits))
-        splits = -(-nb // per)
-        if tiles * splits >= B1_MMA_MIN_BLOCKS or cw == 1:
-            return nt, cw, splits, per
-    raise AssertionError("unreachable")
-
-
 def _launch_gemv(x: torch.Tensor, w: QuantMatmulWeight, w_dtype,
                  affine: bool) -> torch.Tensor:
-    """Checks and launch shared by B1 (q4_gemv_mma in bf16 mode, q4_gemv in
-    f32 mode) and B9 (q41_gemv_mma in bf16 mode, q41_gemv in f32 mode)."""
+    """Checks and launch shared by B1 and B9: bf16 mode runs variant 0
+    (B1) or 9 (B9) of the fold kernel (q4_variants._launch_fold, on
+    b15_plan), f32 mode the FFMA kernel (q4_gemv, q41_gemv)."""
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
     _check_weight(w, x.device, affine)
     m, kx = x.shape
-    kh, n = w.qs.shape
-    nb = kh // (QBLOCK // 2)
+    kh = w.qs.shape[0]
     _require(x.is_contiguous() and 1 <= m <= DECODE_MAX_M,
              f"x must be contiguous with 1 <= M <= {DECODE_MAX_M}")
     _require(kx <= kh * 2, f"x K={kx} exceeds the stored K={kh * 2}")
+    if w_dtype == torch.bfloat16:
+        return _q4v._launch_fold(x, w.qs, w.scales, 9 if affine else 0,
+                                 w.n_logical, mins=w.mins)
+    return _launch_ffma(x, w, affine)
+
+
+def _launch_ffma(x: torch.Tensor, w: QuantMatmulWeight,
+                 affine: bool) -> torch.Tensor:
+    """One launch of the FFMA kernel (q4_gemv, q41_gemv) in f32 mode."""
+    m, kx = x.shape
+    kh, n = w.qs.shape
+    nb = kh // (QBLOCK // 2)
     _require(n % 8 == 0, "stored N must be a multiple of 8")
     dev = x.device
     y = torch.empty((m, w.n_logical), dtype=torch.float32, device=dev)
     planes = (w.qs, w.scales, w.mins) if affine else (w.qs, w.scales)
-    if w_dtype == torch.bfloat16:
-        _require(n % 16 == 0 and all(p.data_ptr() % 16 == 0 for p in planes),
-                 "the tensor-core kernel needs N % 16 == 0 and 16-byte "
-                 "aligned weight planes")
-        nt, cw, splits, per = b1_mma_plan(m, n, nb)
-        tiles = -(-n // (B1_MMA_WARP_COLS * cw)) * -(-m // (8 * nt))
-        name = "q41_gemv_mma" if affine else "q4_gemv_mma"
-        plan, mode = (cw, splits, per, nt), ()
-    else:
-        splits, per = _splitk(m, n, nb)
-        rows, cols = _b1_tile(m)
-        tiles = -(-n // cols) * -(-m // rows)
-        name = "q41_gemv" if affine else "q4_gemv"
-        plan, mode = (splits, per), (0,)          # f32 mode: nothing rounded
+    splits, per = _splitk(m, n, nb)
+    rows, cols = _b1_tile(m)
+    tiles = -(-n // cols) * -(-m // rows)
+    name = "q41_gemv" if affine else "q4_gemv"
     partial = cuda_lib.scratch(dev, "q4_gemv.partial", splits * m * n,
                                torch.float32)
     counters = cuda_lib.tile_counters(dev, tiles)
     rc = cuda_lib.fn(name)(
-        x.data_ptr(), m, kx, *(p.data_ptr() for p in planes), n, nb, *plan,
-        partial.data_ptr(), counters.data_ptr(), y.data_ptr(), w.n_logical,
-        *mode, cuda_lib.stream_handle(dev))
+        x.data_ptr(), m, kx, *(p.data_ptr() for p in planes), n, nb, splits,
+        per, partial.data_ptr(), counters.data_ptr(), y.data_ptr(),
+        w.n_logical, 0, cuda_lib.stream_handle(dev))  # 0: nothing rounded
     cuda_lib.check(rc, name)
     return y
 
@@ -212,12 +191,15 @@ def q4_matmul_decode(x: torch.Tensor, w: QuantMatmulWeight,
                      w_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel B1: x f32 [M <= 64, K] -> y f32 [M, n_logical].
 
-    bf16 mode runs the tensor-core kernel (mma.sync bf16, exact products);
-    f32 mode runs the FFMA kernel, since the tensor cores have no exact f32
-    product (TF32 would round the operands): a dispatch by w_dtype, not a
-    fallback. Split-K partials are added by the last block of each output
-    tile in a fixed order (deterministic; the sum order differs from a dense
-    matmul, so compare at f32 reassociation tolerance)."""
+    bf16 mode runs variant 0 of the fold kernel (csrc/q4_fold.cuh, on
+    q4_variants.b15_plan: weight stages by TMA into a ring on persistent
+    blocks, R((q - 8) d) dequantized into the A registers of wgmma or
+    mma.sync against every row of x at once, K splits added in a thread
+    block cluster; exact bf16 products); f32 mode runs the FFMA kernel,
+    since the tensor cores have no exact f32 product (TF32 would round the
+    operands): a dispatch by w_dtype, not a fallback. Splits are added in a
+    fixed order (deterministic; the sum order differs from a dense matmul,
+    so compare at f32 reassociation tolerance)."""
     _check_matmul_args(x, w_dtype)
     if x.device.type == "cpu":
         _require(w.mins is None, "B1 takes q4_0 weights (no mins plane)")
@@ -253,9 +235,11 @@ def q41_matmul_decode_plain(x: torch.Tensor, w: QuantMatmulWeight,
 def q41_matmul_decode(x: torch.Tensor, w: QuantMatmulWeight,
                       w_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel B9: x f32 [M <= 64, K], affine weight -> y f32 [M, n_logical]
-    (q41_matmul_decode_plain's formula). bf16 mode runs B1's tensor-core
-    kernel with the mins term added to its accumulators, f32 mode the FFMA
-    kernel, as B1 does (a dispatch by w_dtype, not a fallback)."""
+    (q41_matmul_decode_plain's formula). bf16 mode runs variant 9 of the
+    fold kernel: v1's weight R(q d) in the A registers, the mins rows
+    streamed beside the scale rows and bsum(x) @ m taken in the fold's f32
+    registers; f32 mode the FFMA kernel, as B1 does (a dispatch by w_dtype,
+    not a fallback)."""
     _check_matmul_args(x, w_dtype)
     _require(w.mins is not None, "B9 takes affine weights (a mins plane)")
     if x.device.type == "cpu":
@@ -519,6 +503,12 @@ cuda_lib.counted(q4_matmul_prefill)
 # Dispatcher
 # ---------------------------------------------------------------------------
 
+def b1_on_b5(m: int, w: QuantMatmulWeight) -> bool:
+    """Whether B1's call at M rows on w (q4_0, bf16 mode) runs B5 in its
+    place: at M >= B1_ON_B5_MIN_M on a plane of stored K > N."""
+    return m >= B1_ON_B5_MIN_M and 2 * w.qs.shape[0] > w.qs.shape[1]
+
+
 def use_int8(m: int, w_dtype, prefill_int8: bool | None,
              use_pallas: bool | None = None) -> bool:
     """The int8 prefill path for a q4_0 weight at M rows, with the JAX
@@ -546,7 +536,9 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
     """x [..., K_logical] -> [..., n_logical] f32, chosen by the weight and
     M = prod(lead):
 
-      q4_0, M <= 64                      -> B1 q4_matmul_decode
+      q4_0, M <= 64                      -> B1 q4_matmul_decode (bf16 mode
+                                            at M >= B1_ON_B5_MIN_M on a
+                                            plane of stored K > N: B5)
       q4_1, M <= 64                      -> B9 q41_matmul_decode
       q4_0, M >= 256 and int8 (use_int8) -> B2 quant_rows_int8 + B3
       every other M > 64: q4_0 at 64 < M < 256, q4_0 at M >= 256 without
@@ -555,7 +547,9 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
     B5 at 64 < M < 256 and for q4_1 keeps the reference's function: there
     the JAX package runs q4_matmul_xla, R(x) @ R(W) with f32 accumulation,
     which is B5's (W = (q - 8) * d, or q * d + m for q4_1; the JAX package
-    never sends q4_1 to int8, nor does the port). On the H100 B5 is faster
+    never sends q4_1 to int8, nor does the port). B1 in bf16 mode is variant
+    0 of the fold kernel and B9 its variant 9 (csrc/q4_fold.cuh); B5 takes
+    B1's calls where it is faster (b1_on_b5). On the H100 B5 is faster
     than the dequant path (q4_matmul_dequant, dequant + torch.matmul) at
     every M and plane timed, in both modes (PERF.md, the B5 table). On the
     CPU B5 runs its plain version, which is that dequant path, so every CPU
@@ -564,8 +558,9 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
     use_pallas is the JAX package's switch between its Pallas kernels and
     q4_matmul_xla, and selects the same functions here (all on kernels):
       None  the table above (B1 computes q4_matmul_xla's function);
-      False q4_matmul_xla's function at every M: q4_0 at M <= 64 on B1,
-            q4_1 at every M and q4_0 at M > 64 on B5, and int8 only where
+      False q4_matmul_xla's function at every M: q4_0 at M <= 64 on B1
+            (or B5, as above), q4_1 at every M and q4_0 at M > 64 on B5,
+            and int8 only where
             prefill_int8 or FASTLLAMA_PREFILL_INT8=1 forces it (B2 + B3);
       True  the Pallas decode kernel's function at M <= 64 for q4_0 in
             bf16 mode, v1's folded offset (q4_variants.q4_decode_v1, B15);
@@ -590,10 +585,12 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
         m *= d
     x2 = x.reshape(m, x.shape[-1]).to(torch.float32).contiguous()
     affine = w.mins is not None
+    bf16 = w_dtype == torch.bfloat16
     if m <= DECODE_MAX_M and not (affine and use_pallas is False):
-        if use_pallas and not affine and w_dtype == torch.bfloat16:
-            from .q4_variants import q4_decode_v1
-            y = q4_decode_v1(x2, w.qs, w.scales, w.n_logical)
+        if use_pallas and not affine and bf16:
+            y = _q4v.q4_decode_v1(x2, w.qs, w.scales, w.n_logical)
+        elif not affine and bf16 and b1_on_b5(m, w):
+            y = q4_matmul_prefill(x2, w, w_dtype)
         else:
             y = (q41_matmul_decode if affine else q4_matmul_decode)(
                 x2, w, w_dtype)
@@ -603,3 +600,8 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
     else:
         y = q4_matmul_prefill(x2, w, w_dtype)
     return y.reshape(*lead, w.n_logical)
+
+
+# the fold kernel's plan and launch (q4_variants imports this module, so it
+# comes last)
+from . import q4_variants as _q4v  # noqa: E402

@@ -15,9 +15,10 @@ sum of the unrounded x over each 32-block of K:
   v3          R(x) @ R(q R(d)) - 8 bsum(x) @ d       B17 q4_decode_v3
   v7          R(x) @ R(q d) - 8 bsum7 @ d            B18 q4_decode_v7
 
-B15-B18 run one kernel built for Hopper (csrc/q4_fold.cuh, one build a
-variant, on b15_plan: persistent blocks in clusters along K, weight stages
-by TMA, wgmma with the weight in registers); v0 runs B1 (csrc/q4_decode.cu).
+B1 and B15-B18 run one kernel built for Hopper (csrc/q4_fold.cuh, one
+build a variant, on b15_plan: persistent blocks in clusters along K, weight
+stages by TMA, wgmma with the weight in registers), B1 as its variant 0
+(and B9, q4_1's decode matmul, as its variant 9).
 
 where x_b, q_b are the 32 columns of x and rows of the codes of q block b,
 and bsum7 sums R(R(x_lo) + R(x_hi)) in f32 over the 16 pairs of a block
@@ -27,7 +28,8 @@ holds the identity). The "h" forms of the tools pass bf16 scales: the same
 functions on f32(d), which the kernels read as 2-byte values. In f32 mode
 (w_dtype float32) nothing is rounded to bf16, so every decode variant is
 x @ ((q - 8) d) in exact arithmetic and the variants differ only in f32
-rounding: f32 mode runs B1's f32 kernel for each of them, with f32 scales.
+rounding: f32 mode runs B1's f32 (FFMA) kernel for each of them, with f32
+scales.
 
 Prefill bodies, x f32 [M, K]:
   int8 nat, natp   B2 + B3 (q4_matmul.quant_rows_int8 and
@@ -50,6 +52,7 @@ the kernel against. Each counts its launches in `.launches`.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable, NamedTuple
 
 import torch
@@ -62,16 +65,16 @@ HALF = QBLOCK // 2
 DECODE_VARIANTS = ("v0", "v1", "v2", "v3", "v4", "v5", "v7")
 INT8_VARIANTS = ("nat", "natp", "natx", "split")
 # the kernel of each decode body in bf16 mode: B15-B18 their variant of
-# csrc/q4_fold.cuh (built one a variant: FOLD_ENTRY), v0 (with 2-byte
-# scales, v0h) B1's tensor-core kernel (csrc/q4_decode.cu, q4_variant_mma's
-# `variant`)
+# csrc/q4_fold.cuh (built one a variant: FOLD_ENTRY); v0 (and v0h, its
+# 2-byte scales) is B1, the kernel's variant 0
 FOLD_VARIANT = {"v1": 1, "v4": 1, "v5": 1, "v2": 2, "v3": 3, "v7": 7}
-# (and the probes B13 and B14 of kernels/q4_floor.py its variants 13 and 14,
-# one build of both, csrc/q4_fold_probe.cu, which reads no scales)
-FOLD_ENTRY = {1: "q4_fold_gemm", 2: "q4_fold_v2_gemm", 3: "q4_fold_v3_gemm",
-              7: "q4_fold_v7_gemm", 13: "q4_fold_floor_gemm",
+# the entry of each variant's build; also B1 and B9 (kernels/q4_matmul.py)
+# as variants 0 and 9, and the probes B13 and B14 (kernels/q4_floor.py) as
+# 13 and 14, one build of both (csrc/q4_fold_probe.cu) that reads no scales
+FOLD_ENTRY = {0: "q4_fold_v0_gemm", 1: "q4_fold_gemm", 2: "q4_fold_v2_gemm",
+              3: "q4_fold_v3_gemm", 7: "q4_fold_v7_gemm",
+              9: "q4_fold_v9_gemm", 13: "q4_fold_floor_gemm",
               14: "q4_fold_nosc_gemm"}
-MODE_OF = {"v0": 0}
 
 
 def _rounded(t: torch.Tensor) -> torch.Tensor:
@@ -152,41 +155,8 @@ def _check_planes(x: torch.Tensor, qs: torch.Tensor,
                 f"x K={x.shape[1]} exceeds the stored K={2 * qs.shape[0]}")
 
 
-def _launch_decode(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
-                   mode: int, n_out: int) -> torch.Tensor:
-    """One launch of B1's tensor-core kernel in `mode` (MODE_OF's values) on
-    B1's plan, with f32 or 2-byte scales."""
-    qm._require(x.device.type == "cuda", f"unsupported device {x.device}")
-    qm._require(all(t.is_contiguous() and t.device == x.device
-                    for t in (x, qs, scales)),
-                "x, qs and scales must be contiguous and on one card")
-    m, kx = x.shape
-    kh, n = qs.shape
-    qm._require(1 <= m <= qm.DECODE_MAX_M,
-                f"x must have 1 <= M <= {qm.DECODE_MAX_M} rows (B1's plan)")
-    qm._require(n % 16 == 0 and qs.data_ptr() % 16 == 0
-                and scales.data_ptr() % 16 == 0,
-                "the tensor-core kernel needs N % 16 == 0 and 16-byte "
-                "aligned weight planes")
-    nb = kh // HALF
-    dev = x.device
-    nt, cw, splits, per = qm.b1_mma_plan(m, n, nb)
-    tiles = -(-n // (qm.B1_MMA_WARP_COLS * cw)) * -(-m // (8 * nt))
-    partial = cuda_lib.scratch(dev, "q4_gemv.partial", splits * m * n,
-                               torch.float32)
-    counters = cuda_lib.tile_counters(dev, tiles)
-    y = torch.empty((m, n_out), dtype=torch.float32, device=dev)
-    rc = cuda_lib.fn("q4_variant_mma")(
-        x.data_ptr(), m, kx, qs.data_ptr(), scales.data_ptr(),
-        int(scales.dtype == torch.bfloat16), n, nb, cw, splits, per, nt,
-        partial.data_ptr(), counters.data_ptr(), y.data_ptr(), n_out, mode,
-        cuda_lib.stream_handle(dev))
-    cuda_lib.check(rc, "q4_variant_mma")
-    return y
-
-
 # ---------------------------------------------------------------------------
-# B15-B18: the plan of csrc/q4_fold.cuh
+# B1, B9, B15-B18: the plan of csrc/q4_fold.cuh
 # ---------------------------------------------------------------------------
 
 # The kernel's constants (csrc/q4_fold.cuh): q blocks a K stage, the columns
@@ -208,6 +178,20 @@ B15_RING_BYTES = 80 * 1024
 # a split's merge (the partial tiles sent to the leader and added), in K
 # stages of one block's time
 B15_MERGE_STAGES = 2
+# At M <= B15_SYNC_MAX_M the plan weighs one consumer warpgroup against two
+# by a cost in K stages of 128 columns (10 KB of weights at f32 scales):
+# a stage costs its columns / 128 and B15_STAGE_COST more (its waits and
+# the fill that fewer, wider stages do not hide), each split past the
+# first B15_SPLIT_COST (the leader takes one more partial tile). A least-
+# squares fit of variant 0's 32 pinned plans on the 7B qkv, wo, w13 and w2
+# planes at M = 1 (tools_torch/b15_sweep.py --parts pins, PERF.md;
+# NVIDIA H100 80GB HBM3 at 700 W) put a launch at 2.0 us + 0.0405 us a KB
+# of a block's weights + 0.21 us a stage + 0.49 us a split past the first;
+# in those units the cost picks the fastest of the 16 plans on all four
+# planes at M = 1 and 8, among them wo's one warpgroup and 3 splits (9.97
+# us at M = 1, against 10.49 for two warpgroups and 6 splits).
+B15_STAGE_COST = 0.5
+B15_SPLIT_COST = 1.2
 # mma.sync in place of wgmma at M <= this: one 8-row product a warp, 2-7%
 # faster than wgmma at M = 1 and 8 on the 7B planes
 # (tools_torch/b15_sweep.py, PERF.md)
@@ -245,16 +229,24 @@ class B15Plan(NamedTuple):
         return self.bn // b15_wg_cols(self.nw)
 
 
+def b15_stage_sbytes(sc16: bool, mins: bool = False) -> int:
+    """The bytes a weight stage of csrc/q4_fold.cuh carries a column a q
+    block beside its packed rows (stage_sbytes): a scale (4, or 2 in bf16)
+    and, for variant 9 (B9, f32 scales), a min."""
+    return 8 if mins else 2 if sc16 else 4
+
+
 def b15_smem(wgs: int, nw: int, sc16: bool, stages: int, xstages: int,
-             splits: int) -> int:
+             splits: int, mins: bool = False) -> int:
     """The bytes csrc/q4_fold.cuh's fold_layout lays out: `stages` weight
-    slots ([16 qb][BN] packed bytes and [qb][BN] scales, 1024-aligned),
-    `xstages` x slots (x f32 [nw][32 qb] as copied, 2 qb k16 tiles of
-    nw x 16 bf16 and [qb][nw] f32 block sums, 128-aligned), the leader's
-    S - 1 received partial tiles (BN x nw f32) and the barriers."""
+    slots ([16 qb][BN] packed bytes, [qb][BN] scales and variant 9's
+    [qb][BN] mins, 1024-aligned), `xstages` x slots (x f32 [nw][32 qb] as
+    copied, 2 qb k16 tiles of nw x 16 bf16 and [qb][nw] f32 block sums,
+    128-aligned), the leader's S - 1 received partial tiles (BN x nw f32)
+    and the barriers."""
     bn = b15_wg_cols(nw) * wgs
-    ws = -(-(16 * B15_QB * bn + B15_QB * bn * (2 if sc16 else 4)) // 1024
-           ) * 1024
+    ws = -(-(16 * B15_QB * bn + B15_QB * bn * b15_stage_sbytes(sc16, mins))
+           // 1024) * 1024
     xs = -(-(nw * 32 * B15_QB * 4 + B15_QB * 32 * nw * 2 + B15_QB * nw * 4)
            // 128) * 128
     merge = (splits - 1) * bn * nw * 4 if splits > 1 else 0
@@ -264,17 +256,22 @@ def b15_smem(wgs: int, nw: int, sc16: bool, stages: int, xstages: int,
 
 def b15_plan(m: int, n: int, nb: int, sms: int, sc16: bool = False,
              capacity: Callable[[int], int] | None = None, *,
+             mins: bool = False,
              wgs: int | None = None, stages: int | None = None,
              splits: int | None = None, clusters: int | None = None,
              sync: bool | None = None) -> B15Plan:
     """The plan of B15's kernel for M rows, N stored columns and nb q
     blocks on a card of `sms` SMs. capacity(S) is how many clusters of S
     blocks the card holds at once (the card's own answer,
-    cudaOccupancyMaxActiveClusters; sms // S without it). A block has
-    B15_WARPGROUPS consumer warpgroups (BN = 256 at M <= 32, 128 above).
-    Among S = 1..8 splits of the ceil(nb / 4) K stages the cost is the
-    rounds of tiles the busiest cluster takes times its stages and, if K is
-    split, a merge (B15_MERGE_STAGES); a tie goes to fewer splits. The
+    cudaOccupancyMaxActiveClusters; sms // S without it). Above
+    B15_SYNC_MAX_M rows a block has B15_WARPGROUPS consumer warpgroups (BN
+    = 256 at M <= 32, 128 above), and among S = 1..8 splits of the
+    ceil(nb / 4) K stages the cost is the rounds of tiles the busiest
+    cluster takes times its stages and, if K is split, a merge
+    (B15_MERGE_STAGES). At M <= B15_SYNC_MAX_M the plan takes one or two
+    warpgroups and S by B15_STAGE_COST's and B15_SPLIT_COST's cost. A tie
+    goes to fewer splits, then to more warpgroups. mins:
+    variant 9's stages, which carry the mins beside the f32 scales. The
     weight ring takes as many slots as keep B15_RING_BYTES in flight and
     the x ring as many as the shared memory left by them and the merge
     holds, the weight ring giving up slots where x's need them (at the
@@ -287,19 +284,21 @@ def b15_plan(m: int, n: int, nb: int, sms: int, sc16: bool = False,
     nw = -(-m // 8) * 8
     nst = -(-nb // B15_QB)
     cap = capacity or (lambda s: sms // s)
-    w = wgs or B15_WARPGROUPS
-    bn = b15_wg_cols(nw) * w
-    tiles = -(-n // bn)
-    # the weight bytes of a slot (the ring's depth aims at them)
-    ws = 16 * B15_QB * bn + B15_QB * bn * (2 if sc16 else 4)
+    fitted = m <= B15_SYNC_MAX_M
     best = None
-    for s in (splits,) if splits else range(1, B15_MAX_SPLITS + 1):
+    for w, s in itertools.product(
+            (wgs,) if wgs else (2, 1) if fitted else (B15_WARPGROUPS,),
+            (splits,) if splits else range(1, B15_MAX_SPLITS + 1)):
+        bn = b15_wg_cols(nw) * w
+        tiles = -(-n // bn)
+        # the weight bytes of a slot (the ring's depth aims at them)
+        ws = 16 * B15_QB * bn + B15_QB * bn * b15_stage_sbytes(sc16, mins)
         sps = -(-nst // s)
         if -(-nst // sps) != s:
             continue
-        fixed = b15_smem(w, nw, sc16, 0, 0, s)
-        wone = b15_smem(w, nw, sc16, 1, 0, s) - fixed
-        xone = b15_smem(w, nw, sc16, 0, 1, s) - fixed
+        fixed = b15_smem(w, nw, sc16, 0, 0, s, mins)
+        wone = b15_smem(w, nw, sc16, 1, 0, s, mins) - fixed
+        xone = b15_smem(w, nw, sc16, 0, 1, s, mins) - fixed
 
         def xdepth(depth):
             return min(depth, (B15_SMEM - fixed - depth * wone) // xone)
@@ -319,7 +318,11 @@ def b15_plan(m: int, n: int, nb: int, sms: int, sc16: bool = False,
         if cl < 1:
             continue
         rounds = -(-tiles // cl)
-        cost = rounds * (sps + B15_MERGE_STAGES * (s > 1))
+        if fitted:
+            cost = (rounds * sps * (bn / 128 + B15_STAGE_COST)
+                    + B15_SPLIT_COST * (s - 1))
+        else:
+            cost = rounds * (sps + B15_MERGE_STAGES * (s > 1))
         if best is None or (cost, s) < best[0]:
             best = ((cost, s), B15Plan(
                 bn=bn, qb=B15_QB, stages=depth, splits=s, sps=sps,
@@ -349,15 +352,19 @@ def b15_capacity(device) -> Callable[[int], int]:
 
 def _launch_fold(x: torch.Tensor, qs: torch.Tensor,
                  scales: torch.Tensor | None, variant: int, n_out: int,
-                 plan: B15Plan | None = None) -> torch.Tensor:
-    """One launch of B15's kernel (variant 1: v1's function, 2: v2's, 3:
-    v3's, 7: v7's; its build FOLD_ENTRY[variant]) with f32 or 2-byte
-    scales, or of a probe (variant 13: B13, 14: B14; scales None), on
-    b15_plan (the probes: B15's at f32 scales) or `plan`. The
-    kernel reads x by tensor copies, which take rows of a multiple of 16
-    bytes: x of another K is padded with zeros to one."""
+                 plan: B15Plan | None = None,
+                 mins: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of B15's kernel (variant 0: B1's function, 1: v1's, 2:
+    v2's, 3: v3's, 7: v7's, 9: B9's with `mins` f32 [K/32, N]; its build
+    FOLD_ENTRY[variant]) with f32 or 2-byte scales (variant 9: f32), or of
+    a probe (variant 13: B13, 14: B14; scales None), on b15_plan (the
+    probes: B15's at f32 scales) or `plan`. The kernel reads x by tensor
+    copies, which take rows of a multiple of 16 bytes: x of another K is
+    padded with zeros to one."""
     qm._require(x.device.type == "cuda", f"unsupported device {x.device}")
-    planes = (x, qs) if scales is None else (x, qs, scales)
+    qm._require((mins is not None) == (variant == 9),
+                "variant 9 (B9) takes a mins plane, no other variant does")
+    planes = tuple(t for t in (x, qs, scales, mins) if t is not None)
     qm._require(all(t.is_contiguous() and t.device == x.device
                     for t in planes),
                 "x, qs and scales must be contiguous and on one card")
@@ -375,17 +382,20 @@ def _launch_fold(x: torch.Tensor, qs: torch.Tensor,
     if kx % 4 or x.data_ptr() % 16:
         x = torch.nn.functional.pad(x, (0, -kx % 4)) if kx % 4 else x.clone()
         kx = x.shape[1]
+    affine = mins is not None
     if plan is None:
-        key = (dev.index, m, n, nb, sc16)
+        key = (dev.index, m, n, nb, sc16, affine)
         plan = _B15_PLANS.get(key)
         if plan is None:
             plan = _B15_PLANS[key] = b15_plan(
-                m, n, nb, cuda_lib.sm_count(dev), sc16, b15_capacity(dev))
+                m, n, nb, cuda_lib.sm_count(dev), sc16, b15_capacity(dev),
+                mins=affine)
     y = x.new_empty((m, n_out))
     entry = FOLD_ENTRY[variant]
     rc = cuda_lib.fn(entry)(
         x.data_ptr(), m, kx, qs.data_ptr(),
-        None if scales is None else scales.data_ptr(), int(sc16), n,
+        None if scales is None else scales.data_ptr(),
+        *((mins.data_ptr(),) if affine else ()), int(sc16), n,
         nb, variant, plan.wgs, plan.stages, plan.xstages, plan.splits,
         plan.sps, plan.clusters, int(plan.sync), y.data_ptr(), n_out, None,
         cuda_lib.stream_handle(dev))
@@ -440,8 +450,8 @@ def q4_decode_v0(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
                  n_out: int | None = None) -> torch.Tensor:
     """v0 on raw planes: B1 (R(x) @ R((q - 8) d); f32 mode x @ ((q - 8) d)),
     counted in q4_matmul.q4_matmul_decode.launches. f32 scales go through
-    q4_matmul_decode itself; bf16 scales (the v0h form) launch B1's kernel
-    in its 2-byte-scale mode (bf16 mode only)."""
+    q4_matmul_decode itself; bf16 scales (the v0h form) launch variant 0
+    of csrc/q4_fold.cuh in its 2-byte-scale build (bf16 mode only)."""
     _check_planes(x, qs, scales)
     n_out = n_out or qs.shape[1]
     if x.device.type == "cpu":
@@ -452,7 +462,7 @@ def q4_decode_v0(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
             w_dtype)
     qm._require(w_dtype == torch.bfloat16,
                 "f32 mode takes f32 scales (B1's f32 kernel)")
-    y = _launch_decode(x, qs, scales, MODE_OF["v0"], n_out)
+    y = _launch_fold(x, qs, scales, 0, n_out)
     qm.q4_matmul_decode.launches += 1
     return y
 

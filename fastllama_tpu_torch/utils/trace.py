@@ -68,8 +68,8 @@ def trace_region(profile_dir: str | None, name: str):
 def kernel_key(name: str) -> str:
     """A kernel's base name: a demangled signature loses its return type,
     namespaces, template arguments and parameters ('void (anonymous
-    namespace)::q4_mma_kernel<2, false>(float const*, ...)' ->
-    'q4_mma_kernel'), so every launch of one kernel adds up; 'Memcpy DtoH
+    namespace)::q4_fold_kernel<8, 0, false, true>(CUtensorMap, ...)' ->
+    'q4_fold_kernel'), so every launch of one kernel adds up; 'Memcpy DtoH
     (Device -> Pinned)' keeps what precedes its parenthesis; a plain name
     ('aten::mm', 'sm80_xmma_gemm_...') stays as it is."""
     name = name.strip().replace("(anonymous namespace)::", "")

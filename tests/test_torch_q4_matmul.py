@@ -11,6 +11,7 @@ from fastllama_tpu.kernels import q4_matmul as jqm
 from fastllama_tpu.quant import tensor as jt
 from fastllama_tpu.quant.q4 import quantize_q4_0
 from fastllama_tpu_torch.kernels import q4_matmul as tqm
+from fastllama_tpu_torch.kernels import q4_variants as tqv
 from fastllama_tpu_torch.quant import tensor as tt
 
 torch.set_num_threads(1)
@@ -261,7 +262,10 @@ def test_b5_kernel_matches_plain(cuda_device, m, mode):
     assert_close(got.cpu().numpy(), want.cpu().numpy(), 1e-5)
 
 
-# -- B1's tensor-core kernel: its planner and fragment map -------------------
+# -- B1 in bf16 mode: variant 0 of the fold kernel --------------------------
+
+from test_torch_q4_variants import (  # noqa: E402
+    _ReportsCuda, check_b15_plan_covers)
 
 # (K, N) stored planes at 7B widths: qkv, wo, w13, w2, head; at 13B: qkv,
 # wo, w13, w2
@@ -278,169 +282,99 @@ PLANES_7B_TP = [(4096, 6144), (2048, 4096), (4096, 11264), (5504, 4096),
 
 
 @pytest.mark.parametrize("k,n", PLANES_7B + PLANES_13B + PLANES_7B_TP)
-def test_b1_mma_plan_covers_every_row_column_and_q_block_once(k, n):
-    """Row tiles x (column tile, column group, column) x (split, warp of
-    the group, q block) of the plan cover each (row, column, q block)
-    exactly once for M = 1..64: each factor is checked to be a partition,
-    so their product is one too."""
-    nb = k // 32
-    wc = tqm.B1_MMA_WARP_COLS
-    for m in range(1, 65):
-        nt, cw, splits, per = tqm.b1_mma_plan(m, n, nb)
-        rows_per, kw = 8 * nt, tqm.B1_MMA_WARPS // cw
-        assert nt == (1 if m <= 8 else 2 if m <= 16 else 4)
-        assert cw in (1, 2, 4) and per * nt * 512 <= 32 * 1024
-        assert splits <= tqm.B1_MMA_MAX_SPLITS or per == 64 // nt
-        rows = [z * rows_per + r for z in range(-(-m // rows_per))
-                for r in range(rows_per) if z * rows_per + r < m]
-        assert rows == list(range(m))
-        cols = [x * cw * wc + c * wc + j for x in range(-(-n // (cw * wc)))
-                for c in range(cw) for j in range(wc)]
-        assert cols == list(range(n))      # N is a multiple of 256 here
-        blocks = []
-        for sp in range(splits):
-            nkb = min(nb, (sp + 1) * per) - sp * per
-            assert nkb >= 1
-            for kg in range(kw):           # the warps of one column group
-                blocks += [sp * per + b for b in range(kg, nkb, kw)]
-        assert sorted(blocks) == list(range(nb))
+@pytest.mark.parametrize("sc16", [False, True], ids=["f32", "v0h"])
+def test_b1_fold_plan_covers_every_column_tile_and_q_block_once(k, n, sc16):
+    """B1's plan in bf16 mode (variant 0 of the fold kernel, b15_plan; v0h:
+    bf16 scales) on every stored 7B and 13B plane and the 7B planes a rank
+    holds at tp 2 and 4 (w2 at tp 4: 86 q blocks, not a multiple of a
+    stage's 4), for M = 1..64: the clusters' column tiles and the splits'
+    q blocks cover the plane exactly once, within the shared memory a block
+    gets (check_b15_plan_covers)."""
+    check_b15_plan_covers(k // 32, n, sc16)
 
 
-def test_b1_mma_plan_prefers_wide_blocks_and_few_splits():
-    """The wide planes take 256-column blocks; the narrow ones split K
-    among the warps of a block instead of across more than 8 splits."""
-    assert tqm.b1_mma_plan(1, 22528, 128)[1:] == (4, 8, 16)
-    assert tqm.b1_mma_plan(8, 32768, 128)[1] == 4
-    assert tqm.b1_mma_plan(1, 12288, 128)[1:] == (2, 8, 16)
-    nt, cw, splits, per = tqm.b1_mma_plan(1, 4096, 128)
-    assert cw == 1 and splits == 8
+def reports_cuda(t):
+    """t as a CPU tensor that reports a CUDA device (test_torch_q4_variants
+    ._ReportsCuda): a wrapper takes it past its CPU branch."""
+    return torch.Tensor._make_subclass(_ReportsCuda, t.clone())
 
 
-def b1_a_fragment(lane: int, reg: int, mt: int, step: int
-                  ) -> list[tuple[int, int, int, int]]:
-    """A copy of the tensor-core B1's (csrc/q4_decode.cu) map of A register
-    `reg` (0-3) of m-tile `mt` (0-3) at k16 step `step` (0: low nibbles, 1:
-    high) for `lane`: the (column within the warp's 64, k within the q
-    block, packed row, nibble) of its low and high bf16 value. The mma.sync
-    layout puts MMA row
-    i = lane/4 + 8*(reg%2) and k = 2*(lane%4) + 8*(reg//2) + {0, 1} there;
-    the kernel stores MMA row i of m-tile mt in column 8*(i%8) + 2*mt + i//8,
-    so that a lane's columns are 8 adjacent bytes."""
-    g, t = lane >> 2, lane & 3
-    col = 8 * g + 2 * mt + (reg & 1)
-    row0 = 2 * t + 8 * (reg >> 1)
-    return [(col, 16 * step + r, r, step) for r in (row0, row0 + 1)]
+# the rows of each route test: the fold kernel's product widths, and both
+# sides of B1_ON_B5_MIN_M
+ROUTE_ROWS = (1, 8, 9, 33, 48, 56, 57, 64)
 
 
-def b1_b_fragment(lane: int, reg: int, step: int
-                  ) -> list[tuple[int, int]]:
-    """(row of x within the n-tile, k within the q block) of the low and
-    high bf16 value of B register `reg` (0-1) at k16 step `step`; the kernel
-    stages it as word 2 * step + reg of the lane's 16 bytes."""
-    g, t = lane >> 2, lane & 3
-    k0 = 16 * step + 2 * t + 8 * reg
-    return [(g, k0), (g, k0 + 1)]
+@pytest.mark.parametrize("affine", [False, True], ids=["q4_0", "q4_1"])
+@pytest.mark.parametrize("mode", ["bfloat16", "float32"])
+@pytest.mark.parametrize("use_pallas", [None, False, True])
+def test_decode_rows_launch_the_fold_variants(monkeypatch, use_pallas, mode,
+                                              affine):
+    """q4_matmul at M <= 64, by spies on the launchers: in bf16 mode q4_0
+    runs variant 0 of the fold kernel (B1; B5, the same function, at M >=
+    B1_ON_B5_MIN_M on a plane of stored K > N; use_pallas=True B15, variant
+    1) and q4_1 variant 9 (B9; use_pallas=False B5 at every M, as before);
+    f32 mode runs the FFMA kernel (q4_1 with use_pallas=False: B5). Each
+    launch is counted by the wrapper the dispatcher called."""
+    launched = []
 
+    def fold(x, qs, scales, variant, n_out, plan=None, mins=None):
+        assert (mins is not None) == (variant == 9)
+        launched.append(("fold", variant))
+        return torch.zeros((x.shape[0], n_out))
 
-def b1_c_fragment(lane: int, reg: int, mt: int) -> tuple[int, int]:
-    """(row of x within the n-tile, column within the warp's 64) of f32
-    accumulator `reg` (0-3) of m-tile mt."""
-    g, t = lane >> 2, lane & 3
-    return 2 * t + (reg & 1), 8 * g + 2 * mt + (reg >> 1)
+    def ffma(x, w, aff):
+        launched.append(("ffma", aff))
+        return torch.zeros((x.shape[0], w.n_logical))
 
-
-def test_b1_a_fragments_cover_each_q_block_tile_once():
-    """Per m-tile the A fragments of the 32 lanes, 4 registers and 2 k16
-    steps hold each of its 16 columns x 32 k exactly once, from the packed
-    row and nibble of the split-K layout (k = 16 * nibble + row), in the
-    mma.sync layout (row i, k) with column 8 * (i % 8) + 2 * mt + i // 8; the
-    four m-tiles cover the warp's 64 columns."""
-    every = []
-    for mt in range(4):
-        seen = []
-        for lane in range(32):
-            g, t = lane >> 2, lane & 3
-            for reg in range(4):
-                i = g + 8 * (reg & 1)
-                for step in range(2):
-                    vals = b1_a_fragment(lane, reg, mt, step)
-                    for e, (col, k, row, nib) in enumerate(vals):
-                        assert k == 16 * nib + row and nib == step
-                        assert col == 8 * (i % 8) + 2 * mt + i // 8
-                        assert k - 16 * step == 2 * t + 8 * (reg >> 1) + e
-                        seen.append((col, k))
-        assert len(seen) == len(set(seen)) == 16 * 32
-        every += seen
-    assert sorted(set(every)) == [(c, k) for c in range(64) for k in range(32)]
-    # each lane's columns are 8 adjacent bytes (one 8-byte shared load)
-    for lane in range(32):
-        cols = {c for mt in range(4) for reg in range(4)
-                for c, *_ in b1_a_fragment(lane, reg, mt, 0)}
-        assert cols == set(range(8 * (lane >> 2), 8 * (lane >> 2) + 8))
-
-
-@pytest.mark.parametrize("m", [1, 5, 8, 13, 40])
-def test_b1_fragment_map_products_equal_plain(m):
-    """numpy m16n8k16 products assembled through the kernel's fragment maps
-    (A from packed rows and nibbles, B from staged x, accumulators back to
-    (row, column)) equal the plain version at bf16, to 1e-5 of sum |x||W|."""
-    k, n = 96, 128
-    wt, _ = weights(k, n, seed=14)
-    x = torch.from_numpy(acts(m, k, seed=15))
-    want = tqm.q4_matmul_dequant(x, wt, torch.bfloat16).numpy()
-    kh, ns = wt.qs.shape
-    nb = kh // 16
-    codes = np.concatenate([(wt.qs.numpy() & 15)[None], (wt.qs.numpy() >> 4)
-                            [None]]).astype(np.float32)   # [nibble, row, N]
-    sc = wt.scales.numpy()
-    xb = tqm._pad_k(x, wt.k).to(torch.bfloat16).to(torch.float64).numpy()
-    nt = tqm.b1_mma_plan(m, ns, nb)[0]
-    rows_per = 8 * nt
-    y = np.zeros((-(-m // rows_per) * rows_per, ns))
-    xp = np.zeros((y.shape[0], wt.k))
-    xp[:m] = xb
-    for n0 in range(0, ns, 64):
-        for kb in range(nb):
-            for m0 in range(0, y.shape[0], 8):
-                for mt in range(4):
-                    for step in range(2):
-                        a = np.zeros((16, 16))
-                        b = np.zeros((16, 8))
-                        for lane in range(32):
-                            g, t = lane >> 2, lane & 3
-                            for reg in range(4):
-                                i = g + 8 * (reg & 1)
-                                for e, (col, kk, row, nib) in enumerate(
-                                        b1_a_fragment(lane, reg, mt,
-                                                          step)):
-                                    q = codes[nib, kb * 16 + row, n0 + col]
-                                    wv = np.float32(
-                                        (q - 8) * sc[kb, n0 + col])
-                                    a[i, 2 * t + 8 * (reg >> 1) + e] = float(
-                                        torch.tensor(wv).to(torch.bfloat16))
-                            for reg in range(2):
-                                for e, (r, kk) in enumerate(
-                                        b1_b_fragment(lane, reg, step)):
-                                    b[2 * t + 8 * reg + e, g] = xp[
-                                        m0 + r, kb * 32 + kk]
-                        d = a @ b
-                        for lane in range(32):
-                            g, t = lane >> 2, lane & 3
-                            for reg in range(4):
-                                r, col = b1_c_fragment(lane, reg, mt)
-                                y[m0 + r, n0 + col] += d[g + 8 * (reg >> 1),
-                                                         2 * t + (reg & 1)]
-    got = y[:m, :wt.n_logical]
-    dense = tqm.dequant_matmul_weight(wt, torch.bfloat16).double().numpy()
-    absum = (np.abs(xb) @ np.abs(dense))[:, :wt.n_logical].max()
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * absum)
+    def b5(x, w, w_dtype):
+        launched.append(("B5", w.mins is not None))
+        return torch.zeros((x.shape[0], w.n_logical))
+    monkeypatch.setattr(tqv, "_launch_fold", fold)
+    monkeypatch.setattr(tqm, "_launch_ffma", ffma)
+    monkeypatch.setattr(tqm, "_launch_b5", b5)
+    counters = (tqm.q4_matmul_decode, tqm.q41_matmul_decode,
+                tqm.q4_matmul_prefill, tqv.q4_decode_v1)
+    bf16 = mode == "bfloat16"
+    # a plane wider than deep and one deeper than wide (stored K 1024 > N)
+    for k, n in ((256, 512), (1024, 256)):
+        wt = (q41_weight(k, n) if affine else weights(k, n)[0])
+        w = tt.QuantMatmulWeight(
+            qs=reports_cuda(wt.qs), scales=reports_cuda(wt.scales),
+            mins=None if wt.mins is None else reports_cuda(wt.mins),
+            n_logical=wt.n_logical)
+        deep = 2 * w.qs.shape[0] > w.qs.shape[1]
+        for m in ROUTE_ROWS:
+            launched.clear()
+            before = [c.launches for c in counters]
+            y = tqm.q4_matmul(reports_cuda(torch.zeros((1, m, k))), w,
+                              w_dtype=getattr(torch, mode),
+                              use_pallas=use_pallas)
+            assert y.shape == (1, m, n)
+            if affine and use_pallas is False:
+                want, counter = ("B5", True), 2
+            elif not bf16:
+                want, counter = ("ffma", affine), int(affine)
+            elif affine:
+                want, counter = ("fold", 9), 1
+            elif use_pallas:
+                want, counter = ("fold", 1), 3
+            elif deep and m >= tqm.B1_ON_B5_MIN_M:
+                want, counter = ("B5", False), 2
+            else:
+                want, counter = ("fold", 0), 0
+            assert launched == [want], (k, n, m)
+            assert [c.launches - b for c, b in zip(counters, before)] == [
+                int(i == counter) for i in range(4)], (k, n, m)
+    assert tqm.B1_ON_B5_MIN_M == 57 and tqm.DECODE_MAX_M == 64
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 40, 64])
 def test_b1_mma_kernel_matches_plain_at_every_tile(cuda_device, m):
-    """The tensor-core B1 (bf16 mode) at each n-tile count and a partial
-    last row tile; the planes' N = 256 stored columns with 96 logical."""
+    """B1 in bf16 mode (variant 0 of the fold kernel, wgmma or mma.sync) at
+    each product width NW = 8..64 and a partial last one; the planes' N =
+    256 stored columns with 96 logical, 11 q blocks (the last stage's
+    tensor copies fill zeros past K)."""
     wt, _ = weights(352, 96, seed=16)
     w = tt.QuantMatmulWeight(wt.qs.to(cuda_device), wt.scales.to(cuda_device),
                              n_logical=wt.n_logical)

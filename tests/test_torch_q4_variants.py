@@ -619,26 +619,32 @@ B15_PLANES = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
 B15_CAPACITY = {1: 132, 2: 66, 3: 42, 4: 30, 5: 24, 6: 18, 7: 14, 8: 15}
 
 
-@pytest.mark.parametrize("k,n", B15_PLANES)
-@pytest.mark.parametrize("sc16", [False, True], ids=["f32", "bf16"])
-def test_b15_plan_covers_every_column_tile_and_q_block_once(k, n, sc16):
+def check_b15_plan_covers(nb, n, sc16, mins=False):
     """For M = 1..64, with the card's own capacity and with sms // S: the
-    clusters' walks over the column tiles and their blocks' runs of K stages
-    cover each (column tile, q block) exactly once; clusters of at most 8,
-    at least 2 ring slots, shared memory within the 227 KB a block gets,
-    as csrc/q4_fold.cuh lays it out (what its entry points check)."""
-    nb = k // 32
+    plan of the fold kernel on a plane of nb q blocks and N stored columns
+    (mins: variant 9's stages, f32 scales and mins) covers each (column
+    tile, q block) exactly once, in clusters of at most 8, with at least 2
+    ring slots and within the shared memory a block gets."""
     for cap in (B15_CAPACITY.get, None):
         for m in range(1, 65):
-            p = qv.b15_plan(m, n, nb, 132, sc16, cap)
+            p = qv.b15_plan(m, n, nb, 132, sc16, cap, mins=mins)
             assert p.nw == -(-m // 8) * 8 and p.qb == qv.B15_QB == 4
-            assert p.wgs == qv.B15_WARPGROUPS == 2
+            # two consumer warpgroups, or one where the fitted cost at
+            # M <= 8 picks it
+            assert p.wgs == qv.B15_WARPGROUPS == 2 or (
+                p.wgs == 1 and m <= qv.B15_SYNC_MAX_M)
             assert p.bn == (128 if m <= 32 else 64) * p.wgs
             assert 1 <= p.splits <= 8 and p.stages >= 2
             assert p.sync == (m <= qv.B15_SYNC_MAX_M == 8)
             assert 2 <= p.xstages <= p.stages
+            # a weight slot: the packed rows, then 4 (2) bytes of scale and
+            # variant 9's 4 bytes of min a column a q block
+            slot = 64 * p.bn + 4 * p.bn * (8 if mins else 2 if sc16 else 4)
+            assert (qv.b15_smem(p.wgs, p.nw, sc16, 1, 0, p.splits, mins)
+                    - qv.b15_smem(p.wgs, p.nw, sc16, 0, 0, p.splits, mins)
+                    == -(-slot // 1024) * 1024 + 16)
             assert qv.b15_smem(p.wgs, p.nw, sc16, p.stages, p.xstages,
-                               p.splits) <= qv.B15_SMEM == 232448 - 1024
+                               p.splits, mins) <= qv.B15_SMEM == 232448 - 1024
             tiles = -(-n // p.bn)
             nst = -(-nb // 4)
             assert p.clusters <= min(tiles, (cap or (lambda s: 132 // s))(
@@ -654,6 +660,14 @@ def test_b15_plan_covers_every_column_tile_and_q_block_once(k, n, sc16):
                 for z in range(p.splits)])
             assert np.array_equal(np.sort(walked), np.arange(tiles))
             assert np.array_equal(np.sort(runs), np.arange(nb))
+
+
+@pytest.mark.parametrize("k,n", B15_PLANES)
+@pytest.mark.parametrize("sc16", [False, True], ids=["f32", "bf16"])
+def test_b15_plan_covers_every_column_tile_and_q_block_once(k, n, sc16):
+    """check_b15_plan_covers on the 7B, 13B and tp planes (what
+    csrc/q4_fold.cuh's entry points check of a plan)."""
+    check_b15_plan_covers(k // 32, n, sc16)
 
 
 def test_b15_plan_splits_where_the_tiles_leave_sms_idle():
@@ -672,6 +686,30 @@ def test_b15_plan_splits_where_the_tiles_leave_sms_idle():
         qv.b15_plan(64, 4096, 128, 132, wgs=2, stages=12, splits=8)
     with pytest.raises(ValueError):
         qv.b15_plan(65, 4096, 128, 132)
+
+
+# the clusters of S blocks an H100 holds at once for the fold kernel, as the
+# card answered (cudaOccupancyMaxActiveClusters)
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_b15_plan_takes_the_fastest_pinned_plan_at_decode_m(m):
+    """At M <= 8 the plan weighs one warpgroup against two and 1-8 splits
+    by B15_STAGE_COST and B15_SPLIT_COST: on the 7B planes (stored) with
+    the H100's cluster capacity it picks what the card timed fastest among
+    the 16 pinned plans of variant 0 (qkv 2 warpgroups and 2 splits, wo 1
+    and 3, w13 2 and 4, w2 2 and 6), for q4_0 and q4_1 stages alike; above
+    M = 8 the plan keeps two warpgroups."""
+    want = {(4096, 12288): (2, 2), (4096, 4096): (1, 3),
+            (4096, 22528): (2, 4), (11264, 4096): (2, 6)}
+    for (k, n), choice in want.items():
+        for mins in (False, True):
+            p = qv.b15_plan(m, n, k // 32, 132, False, H100_CLUSTERS.get,
+                            mins=mins)
+            assert (p.wgs, p.splits) == choice, (k, n, mins)
+        assert qv.b15_plan(9, n, k // 32, 132, False,
+                           H100_CLUSTERS.get).wgs == qv.B15_WARPGROUPS == 2
 
 
 def _bf16(a):
@@ -705,9 +743,9 @@ def b15_smem_image(rows, bn):
 PROBES = ("floor", "nosc")
 
 
-def b15_model(x, qs, sc, variant, plan, sc16=False):
-    """The kernel of B15-B18 and of the probes B13 and B14
-    (csrc/q4_fold.cuh) as built, in numpy: for
+def b15_model(x, qs, sc, variant, plan, sc16=False, mins=None):
+    """The kernel of B1 and B9 (variants "v0" and "v9"), B15-B18 and the
+    probes B13 and B14 (csrc/q4_fold.cuh) as built, in numpy: for
     each column tile and split (the plan's), each K stage of 4 q blocks
     staged as the kernel stages it (the packed rows in swizzled boxes, x as
     bf16 in wgmma's K-major core-matrix layout, zeros past K and N), the x
@@ -715,12 +753,14 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
     order, then the two; v7: the four pair sums R(R(x_lo) + R(x_hi)) in
     order; then lanes ^ 1, ^ 2), each consumer lane's A registers (m-tile mt of its 2 MT
     columns c0 + 2 mt, + 1 of packed rows 2t, 2t+1, 2t+8, 2t+9,
-    dequantized: v1 and v7 R(f32(q d)), v3 R(q R(d)), v2 the code q) placed
+    dequantized: v1, v7 and v9 R(f32(q d)), v0 R(f32(q - 8) d) (q - 8
+    exact, one f32 product), v3 R(q R(d)), v2 the code q) placed
     by the m16n8k16 A-fragment map into its warpgroup's 64 x 16 tile, B
     read from the x tile through the descriptor's offsets (LBO 128, SBO
     256), the products exact. v1, v3, v7: summed in float64 over the split
     (the tensor cores sum in f32), the fold as an f32 FMA a D register and
-    q block in q block order, acc + fold in f32. v2: each q block's two k16
+    q block in q block order (v9: bsum m, mins f32 [K/32, N]; v0: none),
+    acc + fold in f32. v2: each q block's two k16
     steps summed in float64 and rounded to f32 (z), then acc = fma(bsum,
     -8 d, acc) and acc = fma(z, d, acc) in q block order, d the D
     register's column's. Then the D registers stored by the kernel's map,
@@ -736,6 +776,11 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
     probe = variant in PROBES
     if probe:
         sc = np.zeros((nb, n), dtype=np.float32)
+    mpad = None
+    if variant == "v9":
+        mpad = np.zeros((-(-nb // 4) * 4, -(-n // plan.bn) * plan.bn),
+                        dtype=np.float32)
+        mpad[:nb, :n] = mins
     nw, bn, nst = plan.nw, plan.bn, -(-nb // 4)
     mt_n, wgs, bw = (2 if nw <= 32 else 1), plan.wgs, 64 if bn % 128 else 128
     tiles = -(-n // bn)
@@ -761,6 +806,8 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
                 img = b15_smem_image(
                     qpad[64 * st:64 * st + 64, tile * bn:(tile + 1) * bn], bn)
                 scs = spad[4 * st:4 * st + 4, tile * bn:(tile + 1) * bn]
+                if mpad is not None:
+                    mns = mpad[4 * st:4 * st + 4, tile * bn:(tile + 1) * bn]
                 xs = xpad[:, 128 * st:128 * st + 128]
                 # the x warps: bf16 tiles in the core-matrix layout, and the
                 # block sums (a lane's 4 in order, then lanes ^ 1, ^ 2, ^ 4)
@@ -801,6 +848,9 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
                                 byte[j, 0] = slab[off]
                                 byte[j, 1] = slab[off + 1]
                             d = scs[b, c0 + 2 * mt], scs[b, c0 + 2 * mt + 1]
+                            if mpad is not None:
+                                mn = (mns[b, c0 + 2 * mt],
+                                      mns[b, c0 + 2 * mt + 1])
                             prod = np.zeros((64, nw))
                             for s in range(1 if variant == "floor" else 2):
                                 # [row j][column e]; floor: the whole byte
@@ -814,6 +864,8 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
                                             v = q
                                         elif variant == "v3":
                                             v = _bf16(q * _bf16(d[e]))
+                                        elif variant == "v0":
+                                            v = _bf16(_f32((q - 8.0) * d[e]))
                                         else:
                                             v = _bf16(_f32(q * d[e]))
                                         # A row g (+ 8: column + 1), k 2t +
@@ -828,8 +880,8 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
                                       (kk & 7) * 2) // 2
                                 prod += a @ xt[at]
                             d_acc[wg, mt] += prod
-                            if probe:
-                                continue              # no scales, no fold
+                            if probe or variant == "v0":
+                                continue              # no fold
                             z = _f32(prod)
                             # the fold (v2: into acc, then z d): register
                             # 4j + c, A row g + 8 (c / 2), x row 8j + 2t + c % 2
@@ -838,8 +890,9 @@ def b15_model(x, qs, sc, variant, plan, sc16=False):
                                 e = (i >> 1) & 1
                                 ra = 16 * w + g + 8 * e
                                 xr = 8 * (i >> 2) + 2 * t + (i & 1)
-                                p = _f32(-8.0 * np.asarray(d[e],
-                                                           dtype=np.float64))
+                                p = (_f32(mn[e]) if mpad is not None else
+                                     _f32(-8.0 * np.asarray(
+                                         d[e], dtype=np.float64)))
                                 tgt[wg, mt, ra, xr] = _f32(
                                     bsum[b, xr].astype(np.float64) * p
                                     + tgt[wg, mt, ra, xr])
@@ -905,6 +958,117 @@ def test_b15_model_matches_plain_and_the_jax_body(variant, m):
             assert np.abs(got - want_jax).max() <= tol, (wgs, splits)
 
 
+def q41_planes(k, n, seed):
+    """(qs, scales, mins) of a stored q4_1 weight from numpy-seeded data,
+    as both packages store them."""
+    rng = np.random.default_rng(seed)
+    codes, d, mn = quantize_q4_1(
+        (rng.standard_normal((n, k)) * 0.1 + 0.02).astype(np.float32))
+    wj = jt.make_matmul_weight_q41(codes, d, mn)
+    return np.array(wj.qs), np.array(wj.scales), np.array(wj.mins)
+
+
+# (stored K, stored N, the q blocks and columns cut from it, x's K): a plane
+# of 34 q blocks, and the 86 of w2 at tp 4 (K 2752, PLANES_7B_TP): neither
+# a multiple of the 4 a stage takes, so the last stage's tensor copies fill
+# zeros past the plane (codes 0 and d = 0: v0's weight (0 - 8) 0 = -0)
+FOLD_CUTS = [(1280, 256, 34, 192, 1000), (3072, 256, 86, 128, 2752)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 33, 64])
+@pytest.mark.parametrize("variant", ["v0", "v9"])
+def test_b15_model_holds_b1_and_b9(variant, m):
+    """The numpy model of the fold kernel (b15_model) for variant 0 (B1,
+    R(x) @ R((q - 8) d), no fold) and variant 9 (B9, R(x) @ R(q d) + bsum(x)
+    @ m, the mins term in the fold's registers) on FOLD_CUTS' planes, with
+    one and two consumer warpgroups and 1-3 splits (variant 0 also with
+    bf16 scales, v0h): within 1e-5 of sum |R(x)| |W| (B9: plus sum |bsum|
+    |m|) of the plain versions (q4_matmul_dequant, decode_plain's v0,
+    q41_matmul_decode_plain) and of the JAX bodies in interpret mode
+    (q4_matmul_pallas(variant="v0"), q41_matmul_pallas) on the whole stored
+    plane, x zero past its K (the rows and columns past the cut add
+    nothing and are not compared)."""
+    for kp, np_, nb, n, kx in FOLD_CUTS:
+        seed = 50 + nb
+        x = acts(m, kx, seed=seed + 1)
+        xfull = np.pad(x, ((0, 0), (0, kp - kx)))
+        if variant == "v0":
+            qs_full, sc_full = planes(kp, np_, seed=seed)
+            mn = mn_full = None
+            want_jax = jax_body(xfull, qs_full, sc_full, "v0",
+                                jnp.bfloat16)[:, :n]
+        else:
+            qs_full, sc_full, mn_full = q41_planes(kp, np_, seed)
+            mn = mn_full[:nb, :n].copy()
+            want_jax = np.asarray(jqm.q41_matmul_pallas(
+                jnp.asarray(xfull), jnp.asarray(qs_full),
+                jnp.asarray(sc_full), jnp.asarray(mn_full),
+                interpret=True))[:, :n]
+        qs, sc = qs_full[:16 * nb, :n].copy(), sc_full[:nb, :n].copy()
+        w = tt.QuantMatmulWeight(
+            qs=torch.from_numpy(qs), scales=torch.from_numpy(sc),
+            mins=None if mn is None else torch.from_numpy(mn))
+        xt = torch.from_numpy(x)
+        xk = np.pad(x, ((0, 0), (0, 32 * nb - kx)))
+        xr = np.abs(_bf16(xk))
+        if variant == "v0":
+            want = tqm.q4_matmul_dequant(xt, w).numpy()
+            scale = (xr @ np.abs(tt.dequant_matmul_weight(
+                w, torch.bfloat16).float().numpy())).max()
+        else:
+            want = tqm.q41_matmul_decode_plain(xt, w).numpy()
+            qd = np.abs(_bf16(qv._codes(w.qs).numpy()
+                              * np.repeat(sc, 32, axis=0)))
+            bsum = np.abs(xk.reshape(m, nb, 32).sum(-1))
+            scale = (xr @ qd + bsum @ np.abs(mn)).max()
+        tol = 1e-5 * scale
+        cases = ((False, 1, 1), (False, 2, 2), (True, 2, 3))
+        for sc16, wgs, splits in cases[:3 if variant == "v0" else 2]:
+            tsc = torch.from_numpy(sc)
+            if sc16:
+                tsc = tsc.to(torch.bfloat16)
+            plan = qv.b15_plan(m, n, nb, 132, sc16, mins=mn is not None,
+                               wgs=wgs, splits=splits, clusters=1)
+            got = b15_model(x, qs, sc, variant, plan, sc16, mins=mn)
+            assert got.shape == (m, n)
+            if sc16:
+                want16 = qv.decode_plain(xt, w.qs, tsc, "v0").numpy()
+                assert np.abs(got - want16).max() <= tol, (nb, wgs, splits)
+                continue
+            assert np.abs(got - want).max() <= tol, (nb, wgs, splits)
+            assert np.abs(got - want_jax).max() <= tol, (nb, wgs, splits)
+
+
+@pytest.mark.parametrize("sc16", [False, True], ids=["f32", "bf16"])
+def test_b1_weight_in_the_a_registers_is_dequant_matmul_weight(sc16):
+    """Variant 0's dequantization as the kernel computes it (the code in the
+    mantissa of 2^23, less 2^23 + 8, then one f32 product by d, then
+    cvt.rn.bf16x2) is bit-equal, weight by weight, to dequant_matmul_weight
+    (and, for bf16 scales, to decode_plain's v0 weight) on a plane holding
+    every code, with scales over many binades; v1's one-FMA route with the
+    constant -(2^23 + 8) d rounded to f32 is not."""
+    rng = np.random.default_rng(60)
+    k, n = 256, 512
+    codes = rng.integers(0, 16, (k, n)).astype(np.uint8)
+    d = (rng.uniform(0.5, 1.0, (k // 32, n))
+         * 2.0 ** rng.integers(-20, 4, (k // 32, n))).astype(np.float32)
+    if sc16:
+        d = _bf16(d)
+    qs = tt.pack_codes_split_k(codes)
+    w = tt.QuantMatmulWeight(qs=torch.from_numpy(qs),
+                             scales=torch.from_numpy(d))
+    dr = np.repeat(d, 32, axis=0)
+    q8 = (np.float32(8388608.0) + codes.astype(np.float32)) + np.float32(
+        -8388616.0)
+    mine = _bf16((q8 * dr).astype(np.float32))
+    want = tt.dequant_matmul_weight(w, torch.bfloat16).float().numpy()
+    assert np.array_equal(q8, codes.astype(np.float32) - 8.0)
+    assert np.array_equal(mine.view(np.uint32), want.view(np.uint32))
+    one_fma = _bf16(_f32(np.float64(8388608.0 + codes) * dr + _f32(
+        -8388616.0 * np.float64(dr))))
+    assert not np.array_equal(one_fma, want)
+
+
 class _ReportsCuda(torch.Tensor):
     """A CPU tensor that reports a CUDA device: it takes a wrapper past its
     CPU branch to its launch, where a spy stands in for the entry point."""
@@ -914,11 +1078,10 @@ class _ReportsCuda(torch.Tensor):
 
 
 def test_v1_to_v7_launch_their_build_of_the_fold_kernel(monkeypatch):
-    """B1's tensor-core kernel keeps one variant mode, v0 (v0h: its 2-byte
-    scales), and each of v1-v7 launches its own build of csrc/q4_fold.cuh
-    with its variant number (v4 and v5 v1's): the entry points a spy on
-    cuda_lib.fn records, each launch counted by its wrapper."""
-    assert qv.MODE_OF == {"v0": 0}
+    """Each of v1-v7 launches its own build of csrc/q4_fold.cuh with its
+    variant number (v4 and v5 v1's), and v0h (v0 with 2-byte scales) the
+    variant 0 build, B1's: the entry points a spy on cuda_lib.fn records,
+    each launch counted by its wrapper (v0h by B1's)."""
     called = []
 
     def fn(name):
@@ -942,9 +1105,13 @@ def test_v1_to_v7_launch_their_build_of_the_fold_kernel(monkeypatch):
         before = kernel.launches
         y = qv.q4_matmul_pallas(x, qd, sd, variant=variant)
         assert y.shape == (8, N) and kernel.launches == before + 1
+    before = tqm.q4_matmul_decode.launches
+    y = qv.q4_matmul_pallas(x, qd, sd.to(torch.bfloat16), variant="v0")
+    assert y.shape == (8, N) and tqm.q4_matmul_decode.launches == before + 1
     assert called == [("q4_fold_gemm", 1), ("q4_fold_v2_gemm", 2),
                       ("q4_fold_v3_gemm", 3), ("q4_fold_gemm", 1),
-                      ("q4_fold_gemm", 1), ("q4_fold_v7_gemm", 7)]
+                      ("q4_fold_gemm", 1), ("q4_fold_v7_gemm", 7),
+                      ("q4_fold_v0_gemm", 0)]
 
 
 def test_b20_route_follows_b20_on_b15_max_m():
@@ -1045,6 +1212,66 @@ def test_b15_kernel_matches_plain_under_every_plan_shape(cuda_device, pinned,
     assert got.shape == (m, n_out)
     assert (got - want).abs().max().item() <= tol
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["v0", "v0h", "v9"])
+@pytest.mark.parametrize("pinned", B15_PINNED + [(m, None) for m in
+                                                 (1, 7, 8, 9, 16, 33, 64)],
+                         ids=str)
+def test_b1_b9_fold_variants_match_plain_under_every_plan_shape(
+        cuda_device, pinned, variant):
+    """Variants 0 (B1; v0h: bf16 scales) and 9 (B9, with the mins plane)
+    of the fold kernel, launched directly, on a 2752 x 448 plane (86 q
+    blocks: the last stage's tensor copies fill zeros past K; a ragged
+    last tile) with x of K 2750 (padded by the wrapper to 2752), under
+    B15_PINNED's plans and the wrapper's own: within 1e-5 of the plain
+    version's scale (sum |R(x)| |W|, B9: plus sum |bsum| |m|), bit-equal
+    twice."""
+    m = pinned[0]
+    affine, sc16 = variant == "v9", variant == "v0h"
+    if affine:
+        qs, sc, mn = q41_planes(3072, 512, seed=44)
+    else:
+        (qs, sc), mn = planes(3072, 512, seed=44), None
+    qs, sc = qs[:1376, :448].copy(), sc[:86, :448].copy()
+    x = torch.from_numpy(acts(m, 2750, seed=45)).to(cuda_device)
+    w = tt.QuantMatmulWeight(
+        qs=torch.from_numpy(qs).to(cuda_device),
+        scales=torch.from_numpy(sc).to(cuda_device),
+        mins=None if mn is None else torch.from_numpy(
+            mn[:86, :448].copy()).to(cuda_device))
+    sd = w.scales.to(torch.bfloat16) if sc16 else w.scales
+    plan = None
+    if pinned[1] is not None:
+        _, wgs, splits, stages, clusters, sync = pinned
+        plan = qv.b15_plan(m, 448, 86, 132, sc16, mins=affine, wgs=wgs,
+                           splits=splits, stages=stages, clusters=clusters,
+                           sync=sync)
+    runs = [qv._launch_fold(x, w.qs, sd, 9 if affine else 0, 448, plan,
+                            mins=w.mins) for _ in range(2)]
+    if affine:
+        want = tqm.q41_matmul_decode_plain(x, w)
+        tol = b9_scale(x, w)
+    else:
+        want = qv.decode_plain(x, w.qs, sd, "v0")
+        wd = qv.decode_plain(torch.eye(2752, device=cuda_device), w.qs,
+                             sd, "v0")
+        tol = 1e-5 * (tqm._pad_k(x, 2752).to(torch.bfloat16).float().abs()
+                      @ wd.abs()).max().item()
+    assert runs[0].shape == (m, 448)
+    assert (runs[0] - want).abs().max().item() <= tol
+    assert torch.equal(runs[0], runs[1])
+
+
+def b9_scale(x, w):
+    """1e-5 of B9's two terms' scale: sum |R(x)| |R(q d)| + sum |bsum| |m|."""
+    qd = (qv._codes(w.qs) * w.scales.repeat_interleave(32, dim=0)).to(
+        torch.bfloat16).float().abs()
+    xk = tqm._pad_k(x, w.k)
+    bsum = xk.reshape(x.shape[0], -1, 32).sum(-1).abs()
+    return 1e-5 * (xk.to(torch.bfloat16).float().abs() @ qd
+                   + bsum @ w.mins.abs()).max().item()
 
 
 # every cluster shape of B19 (1, 2 and 4 blocks of 128 rows) with its edges

@@ -94,10 +94,10 @@ def test_breakdown_counts_device_kernels_by_base_name(tmp_path):
     events = [
         ev("aten::mm", "cpu_op", 0, 50),
         ev("cudaLaunchKernel", "cuda_runtime", 1, 5),
-        ev("void q4_mma_kernel<2, false>(float const*, int, int)", "kernel",
-           10, 20, tid=7),
-        ev("void (anonymous namespace)::q4_mma_kernel<4, true>(float "
-           "const*, int, int)", "kernel", 40, 30, tid=7),
+        ev("void q4_fold_kernel<8, 0, false, true>(float const*, int, int)",
+           "kernel", 10, 20, tid=7),
+        ev("void (anonymous namespace)::q4_fold_kernel<64, 0, true, false>("
+           "float const*, int, int)", "kernel", 40, 30, tid=7),
         ev("void attn_split_kernel<__nv_bfloat16, true>(float const*)",
            "kernel", 80, 6, tid=7),
         ev("Memcpy DtoH (Device -> Pinned)", "gpu_memcpy", 90, 4, tid=8),
@@ -113,9 +113,9 @@ def test_breakdown_counts_device_kernels_by_base_name(tmp_path):
     os.utime(old, ns=(1, 1))
     total, agg, cnt = device_op_breakdown(str(tmp_path))
     assert total == 60
-    assert dict(agg) == {"q4_mma_kernel": 50, "attn_split_kernel": 6,
+    assert dict(agg) == {"q4_fold_kernel": 50, "attn_split_kernel": 6,
                          "Memcpy DtoH": 4}
-    assert cnt["q4_mma_kernel"] == 2
+    assert cnt["q4_fold_kernel"] == 2
     assert kernel_key("ampere_sgemm_128x64_nn") == "ampere_sgemm_128x64_nn"
     assert kernel_key("void at::native::elementwise_kernel<128, 4>(int)") \
         == "elementwise_kernel"

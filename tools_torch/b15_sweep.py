@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Device time of the decode kernel of B15-B18 (csrc/q4_fold.cuh) under
-variants of its plan and its design, on one CUDA card.
+"""Device time of the decode kernel of B1, B9 and B15-B18
+(csrc/q4_fold.cuh) under variants of its plan and its design, on one CUDA
+card.
 
     python3 tools_torch/b15_sweep.py [--planes qkv,wo,w13,w2] [--rows 1,8,64]
                                      [--b20-rows 8,16,32,64] [--no-builds]
+                                     [--parts plans,route,pins]
 
 On the named 7B planes (and the 13B qkv plane, "qkv13") at the given M,
-with q4_0 weights cycled through more than the 50 MB L2, it times through
-the kernel's entry point:
+with q4_0 weights cycled through more than the 50 MB L2, the part "plans"
+times through the kernel's entry point:
 
   * plan: B15 (v1) on q4_variants.b15_plan, and B16 (v2), B17 (v3) and
     B18 (v7) on the same plan (b16, b17, b18), and the probes B13 (b13:
@@ -33,11 +35,21 @@ the kernel's entry point:
     memory, B1's way, on the plan's splits or 2; checked), beside the
     cluster merge of the same plan ("cluster_merge");
 
-and beside them B1 (q4_matmul_decode, the old skeleton),
-torch.ops.aten._weight_int4pack_mm (B1's function with bf16 scales; the
-port never calls it) and the byte bound.
+and beside them B1 (q4_matmul_decode), torch.ops.aten._weight_int4pack_mm
+(B1's function with bf16 scales; the port never calls it) and the byte
+bound. The part "route" prints, a line a plane and M, the default decode
+matmuls against what the dispatcher could run in their place: variant 0
+of the kernel on its plan (v0) beside q4_matmul_decode (b1: what B1's
+wrapper launches) and B5 (b5, q4_matmul_prefill: the same function) and
+_weight_int4pack_mm; on q4_1 weights of the plane variant 9 (v9) beside
+q41_matmul_decode (b9), B5's affine mode (b5_affine; R(x) @ R(q d + m),
+q4_matmul_xla's function) and _weight_int4pack_mm with q4_1's offsets;
+each with its byte bound. The part "pins" (M <= 8) times variant 0 under
+every consumer warpgroup count (1, 2) and split count (1-8), then the
+fastest of those under ring depths of 2-8 slots.
 Every correct variant is first held against the plain version (1e-5 of
-sum |R(x)| (q + 8) |d|). Then, at each --b20-rows M on the 7B planes, B20's
+sum |R(x)| (q + 8) |d|; B9's of its two terms). Then, at each --b20-rows M
+on the 7B planes, B20's
 split kernel (q4_prefill_split past B20_ON_B15_MAX_M) beside B15 on the
 same inputs: both compute v1's function. The card's name and power limit,
 then one JSON line per plane and M.
@@ -75,7 +87,12 @@ def parse_args(argv=None):
                     help="M values for B20 against B15 (empty: none)")
     ap.add_argument("--no-builds", action="store_true",
                     help="skip the builds of BUILDS")
+    ap.add_argument("--parts", default="plans,route",
+                    help="of plans, route, pins (module docstring)")
     args = ap.parse_args(argv)
+    args.parts = set(p for p in args.parts.split(",") if p)
+    if args.parts - {"plans", "route", "pins"}:
+        ap.error(f"unknown parts {args.parts}")
     args.planes = [p for p in args.planes.split(",") if p]
     args.rows = [int(r) for r in args.rows.split(",") if r]
     args.b20_rows = [int(r) for r in args.b20_rows.split(",") if r]
@@ -149,6 +166,84 @@ def plans(m, n, nb, sms, cap):
     return out
 
 
+def route_row(cs, qm, name, k, n, m, x, ws, packs, ws1, packs1, timed,
+              timed1):
+    """The part "route" at one plane and M (module docstring)."""
+    w, w1 = ws[0], ws1[0]
+    row = dict(route=name, m=m, k=k, n=n)
+    checks = (
+        ("v0", lambda ww: qv._launch_fold(x, ww.qs, ww.scales, 0, n),
+         qm.q4_matmul_dequant(x, w), w, timed),
+        ("b1", lambda ww: qm.q4_matmul_decode(x, ww),
+         qm.q4_matmul_dequant(x, w), w, timed),
+        ("b5", lambda ww: qm.q4_matmul_prefill(x, ww),
+         qm.q4_matmul_dequant(x, w), w, timed),
+        ("v9", lambda ww: qv._launch_fold(x, ww.qs, ww.scales, 9, n,
+                                          mins=ww.mins),
+         qm.q41_matmul_decode_plain(x, w1), w1, timed1),
+        ("b9", lambda ww: qm.q41_matmul_decode(x, ww),
+         qm.q41_matmul_decode_plain(x, w1), w1, timed1),
+        ("b5_affine", lambda ww: qm.q4_matmul_prefill(x, ww),
+         qm.q4_matmul_dequant(x, w1), w1, timed1))
+    for label, fn, ref, ww, tm in checks:
+        tol = (cs.b9_tol(torch, qm, x, ww, torch.bfloat16)
+               if ww.mins is not None else 1e-5 * cs.absum_of(
+                   torch, qm, x, qm.dequant_matmul_weight(ww), n,
+                   torch.bfloat16))
+        err = (fn(ww) - ref).abs().max().item()
+        cs.require(err <= tol, f"{label} {name} M={m}: err {err} > {tol}")
+        row[label] = tm(fn)
+    lib = cs.int4pack_row(torch, packs, x, qm.q4_matmul_dequant(x, w), n)
+    lib1 = cs.int4pack_row(torch, packs1, x,
+                           qm.q41_matmul_decode_plain(x, w1), n)
+    row.update(library_ms=lib.get("library_ms"),
+               library_q41_ms=lib1.get("library_ms"))
+    for key, ww in (("bound_ms", w), ("bound_q41_ms", w1)):
+        row[key], _ = cs.bound_ms(cs.weight_bytes(ww) + x.numel() * 4
+                                  + m * n * 4, 2.0 * m * k * n, "bf16")
+    return row
+
+
+def pin_row(cs, qm, name, m, x, w, n, nb, sms, cap, timed):
+    """The part "pins" at one plane and M <= 8: variant 0 under every
+    consumer warpgroup and split count, then the fastest under 2-8 ring
+    slots (module docstring)."""
+    ref = qm.q4_matmul_dequant(x, w)
+    tol = 1e-5 * cs.absum_of(torch, qm, x, qm.dequant_matmul_weight(w), n,
+                             torch.bfloat16)
+    row = dict(pins=name, m=m, plan=qv.b15_plan(
+        m, n, nb, sms, False, cap)._asdict(), by_plan={}, by_stages={})
+
+    def run(plan):
+        y = qv._launch_fold(x, w.qs, w.scales, 0, n, plan)
+        err = (y - ref).abs().max().item()
+        cs.require(err <= tol, f"pins {name} M={m} {plan}: err {err}")
+        return timed(lambda ww: qv._launch_fold(x, ww.qs, ww.scales, 0, n,
+                                                plan))
+    best = None
+    for wgs in (1, 2):
+        for s in range(1, qv.B15_MAX_SPLITS + 1):
+            try:
+                plan = qv.b15_plan(m, n, nb, sms, False, cap, wgs=wgs,
+                                   splits=s)
+            except ValueError:
+                continue
+            ms = run(plan)
+            row["by_plan"][f"wgs{wgs}_s{s}"] = dict(
+                ms=ms, stages=plan.stages, clusters=plan.clusters,
+                items=plan.items, sps=plan.sps)
+            if best is None or ms < best[0]:
+                best = (ms, plan)
+    for st in (2, 3, 4, 5, 6, 8):
+        try:
+            plan = qv.b15_plan(m, n, nb, sms, False, cap, wgs=best[1].wgs,
+                               splits=best[1].splits, stages=st)
+        except ValueError:
+            continue
+        row["by_stages"][f"wgs{plan.wgs}_s{plan.splits}_st{st}"] = run(plan)
+    return row
+
+
 def main(argv=None):
     args = parse_args(argv)
     if not torch.cuda.is_available():
@@ -190,8 +285,31 @@ def main(argv=None):
                 ww = ws[next(cycle) % len(ws)]
                 return fn(ww.qs, ww.scales)
             return cs.time_ms(call, calls=2 * len(ws))
+
+        def timed_w(fn, copies):
+            """fn(weight) timed over `copies` in turn."""
+            def call():
+                return fn(copies[next(cycle) % len(copies)])
+            return cs.time_ms(call, calls=2 * len(copies))
+        ws1 = packs1 = None
+        if "route" in args.parts:              # q4_1 weights of the plane
+            w1 = cs.rand_weight(torch, k, n, gen, dev, True)
+            ws1 = [w1] + [cs.rand_weight(torch, k, n, gen, dev, True) for _ in
+                          range(cs.copies_for(cs.weight_bytes(w1)) - 1)]
+            packs1 = cs.int4pack_packs(torch, ws1)
         for m in args.rows:
             x = torch.randn((m, k), generator=gen, device=dev)
+            if "route" in args.parts:
+                print(json.dumps(route_row(
+                    cs, qm, name, k, n, m, x, ws, packs, ws1, packs1,
+                    lambda fn: timed_w(fn, ws), lambda fn: timed_w(fn, ws1))),
+                    flush=True)
+            if "pins" in args.parts and m <= 8:
+                print(json.dumps(pin_row(
+                    cs, qm, name, m, x, w, n, nb, sms, cap,
+                    lambda fn: timed_w(fn, ws))), flush=True)
+            if "plans" not in args.parts:
+                continue
             tol = 1e-5 * (qm._pad_k(x.abs(), w.k).to(torch.bfloat16).float()
                           @ absum_w).max().item()
             want = qv.decode_plain(x, w.qs, w.scales, "v1")
@@ -271,7 +389,7 @@ def main(argv=None):
                 print(json.dumps(dict(b20_plane=name, m=m, split_ms=split,
                                       b15_ms=b15, split_vs_b15=split / b15)),
                       flush=True)
-        del ws, w, packs, absum_w
+        del ws, w, packs, absum_w, ws1, packs1
     return 0
 
 

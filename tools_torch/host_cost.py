@@ -55,6 +55,8 @@ def main():
     print("current_stream us",
           host_us(lambda: torch.cuda.current_stream().cuda_stream))
     print("B1 wrapper us", host_us(lambda: qm.q4_matmul_decode(x, w)))
+    w1 = cs.rand_weight(torch, 4096, 4096, g, dev, affine=True)
+    print("B9 wrapper us", host_us(lambda: qm.q41_matmul_decode(x, w1)))
     print("q4_matmul us", host_us(lambda: qm.q4_matmul(x.view(1, 1, 4096), w)))
     kc = torch.zeros((1, 512, 4096), dtype=torch.bfloat16, device=dev)
     vc = kc.clone()
