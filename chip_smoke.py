@@ -24,8 +24,9 @@ Phases (any failure exits nonzero before the last line):
      qkv (B9), B9 also on planes padded to 256 columns, B1 and B9 also on
      the 13B planes at M = 1, 8 and 64 (timed, with the library call), B1
      with bf16 scales (v0h) on the 7B and 13B planes; B3 bit for bit on the 7B and
-     13B planes at M = 512 and 256, its requantization and product timed
-     apart from a torch.profiler trace; B5 (q4_0 and q4_1, bf16 and f32
+     13B planes at M = 512 and 256 (one launch of the register-A kernel,
+     csrc/q4_prefill_ra.cuh; what an int8 call launches and allocates at
+     qkv M = 512: no requantization pass, no int8 plane); B5 (q4_0 and q4_1, bf16 and f32
      mode) on the 7B and 13B planes at M = 65, 128, 192, 255, 256, 512
      and 513, timed beside the dequant path it replaces at 64 < M < 256
      and for q4_1 (q4_matmul_dequant); B4 (bf16 and f32 caches, caches bit
@@ -835,8 +836,10 @@ def check_13b_kernels(torch, dev, gen, results):
 
 def check_prefill_matmuls(torch, dev, gen, results):
     """B2 and B3 (bit for bit) and B5 against their plain versions; B3 on
-    the 7B and 13B planes at M = 512 and 256, its two launches timed apart
-    and torch._int_mm (the int8 product alone) beside it."""
+    the 7B and 13B planes at M = 512 and 256 (the register-A kernel, one
+    launch: its device time from a profiler trace beside the wrapper's
+    graph time), torch._int_mm (the int8 product alone) beside it; at qkv
+    M = 512 what one int8 call launches and allocates (b3_call)."""
     from fastllama_tpu_torch.kernels import cuda_lib
     from fastllama_tpu_torch.kernels import q4_matmul as qm
     shapes = PLANES_7B
@@ -879,17 +882,17 @@ def check_prefill_matmuls(torch, dev, gen, results):
             acc = torch._int_mm(xq, w8_cm)
             require(torch.equal(acc.double(), qm.int8_accumulators(xq, w8)),
                     f"B3 {name} M={m}: _int_mm is not the exact product")
-            tile = qm.B3_TILES[qm.b3_plan(m, w.qs.shape[1],
-                                          cuda_lib.sm_count(dev))]
+            plan = qm.prefill_plan(m, w.qs.shape[1], w.k,
+                                   cuda_lib.sm_count(dev), int8=True)
             it = iter(range(10**9))
 
             def cycled():
                 return qm.q4_matmul_prefill_int8(xq, dx,
                                                  ws[next(it) % len(ws)])
             ms = time_ms(cycled, calls=2 * len(ws))
-            # its two launches apart, by kernel name in a profiler trace
-            split = device_ms_by_name(torch, cycled, 2 * len(ws),
-                                      ("requant_kernel", "int8_wgmma_kernel"))
+            # its one launch, by kernel name in a profiler trace
+            kern_ms = device_ms_by_name(torch, cycled, 2 * len(ws),
+                                        ("q4_prefill_int8_kernel",))
             plain_ms = (time_ms(lambda: qm.q4_matmul_prefill_int8_plain(
                 xq, dx, w), calls=2)
                 if m == 512 and name in {p[0] for p in shapes} else None)
@@ -898,21 +901,51 @@ def check_prefill_matmuls(torch, dev, gen, results):
             ops = 2.0 * m * k * n
             bnd, by = bound_ms(m * w.k + m * 4 + wbytes + m * n * 4, ops,
                                "int8")
-            gemm_ms = split["int8_wgmma_kernel"]
+            gemm_ms = kern_ms["q4_prefill_int8_kernel"]
             row = dict(shape=f"{name} M={m} K={k} N={n}", max_abs_err=0.0,
                        ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                        library_ms=time_ms(lambda: torch._int_mm(
                            xq, w8_cm), calls=10),
-                       requant_ms=split["requant_kernel"], gemm_ms=gemm_ms,
-                       tile_n=tile,
-                       gemm_int8_peak_share=ops / PEAK_OPS["int8"] * 1e3
+                       kernel_ms=gemm_ms, plan=list(plan),
+                       int8_peak_share=ops / PEAK_OPS["int8"] * 1e3
                        / gemm_ms)
+            row["vs_library"] = row["ms"] / row["library_ms"]
+            if name == "qkv" and m == 512:
+                row.update(b3_call(torch, x, w))
             b3.append(row)
             print(f"B3 {row}", flush=True)
         del ws, w, w8, w8_cm
     results["B2"], results["B3"] = b2, b3
 
     check_b5(torch, dev, gen, results)
+
+
+def b3_call(torch, x, w):
+    """What one int8 call of q4_matmul launches and allocates: B2's
+    quant_rows_kernel and one q4_prefill_int8_kernel (no requantization
+    pass) from a profile, and the bytes the allocator hands out during it
+    (xq, dx and y, and the split scratch where it grows; no int8 [N, K]
+    plane)."""
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    kernels = kernels_per_call(
+        torch, lambda: qm.q4_matmul(x, w, prefill_int8=True))
+    require(kernels == {"quant_rows_kernel": 1, "q4_prefill_int8_kernel": 1},
+            f"B3: an int8 call launches {kernels}, not B2's kernel and one "
+            "product kernel")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+    qm.q4_matmul(x, w, prefill_int8=True)
+    torch.cuda.synchronize()
+    allocated = (torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+                 - before)
+    m, k = x.shape
+    n = w.qs.shape[1]
+    outputs = m * k + 4 * m + 4 * m * n            # xq, dx, y
+    require(allocated < outputs + n * k // 2,
+            f"B3: a call allocated {allocated} bytes, its outputs "
+            f"{outputs}: an [N, K] int8 plane is {n * k}")
+    return dict(kernels_a_call=kernels, allocated_bytes_a_call=allocated,
+                output_bytes=outputs, int8_plane_bytes=n * k)
 
 
 # B5's rows: the engine's 128 bucket and its edges (65-255: q4_0 without
@@ -928,8 +961,8 @@ def check_b5(torch, dev, gen, results):
     reassociation (1e-5 of the largest |x| @ |W|); timed beside that path
     and beside the product alone as one library call (torch.mm of the
     rounded x by the already dequantized weight, f32 output); the cast and
-    the product timed apart from a profiler trace at M = 128 and 512 on
-    qkv."""
+    the product (the register-A kernel, q4_prefill_bf16_kernel) timed apart
+    from a profiler trace at M = 128 and 512 on qkv."""
     from fastllama_tpu_torch.kernels import q4_matmul as qm
     b5 = []
     for name, k, n in PLANES_7B[:4] + PLANES_13B:
@@ -967,13 +1000,20 @@ def check_b5(torch, dev, gen, results):
                                f"{quant}", max_abs_err=err, tol=tol, ms=ms,
                                plain_ms=dequant_ms, dequant_path_ms=dequant_ms,
                                bound_ms=bnd, bound_by=by,
-                               library_ms=library_ms)
+                               library_ms=library_ms,
+                               vs_library=ms / library_ms)
+                    if kind == "bf16":
+                        row["plan"] = list(qm.prefill_plan(
+                            m, w.qs.shape[1], -(-k // 32) * 32,
+                            torch.cuda.get_device_properties(
+                                dev).multi_processor_count))
                     if name == "qkv" and not affine and kind == "bf16" \
                             and m in (128, 512):
                         row.update(device_ms_by_name(
                             torch, lambda: qm.q4_matmul_prefill(
                                 x, ws[next(it) % len(ws)], mode),
-                            2 * len(ws), ("cast_kernel", "bf16_wgmma_kernel")))
+                            2 * len(ws), ("cast_kernel",
+                                          "q4_prefill_bf16_kernel")))
                     b5.append(row)
                     print(f"B5 {row}", flush=True)
                 del wd
@@ -1923,6 +1963,7 @@ def main_path(torch, dev, gen):
     require(profile, "the profiler saw no device time in the decode steps")
     traced = trace_session(torch, model, sess, profile["device_ms_per_token"])
     prefill = profile_prefill(torch, sess, prompt)
+    require_window_kernels(prefill, "q4_prefill_int8_kernel", "int8 window")
     prefill_masked = profile_prefill(torch, sess, prompt, flash=False)
     busy = profile.get("device_ms_per_token")
     med_ms = float(np.median(ms_tok))
@@ -1958,10 +1999,13 @@ def main_path(torch, dev, gen):
             f"bf16-exact run: unexpected decode launches {ecounts}")
     ettfts = [exact[0]] + [timed_run(torch, sess, prompt)[0]
                            for _ in range(2)]
+    eprof = profile_prefill(torch, sess, prompt)
+    require_window_kernels(eprof, "q4_prefill_bf16_kernel",
+                           "bf16-exact window")
     res["bf16_prefill"] = dict(
         ttft_ms=float(np.median(ettfts)), ttft_ms_runs=ettfts,
         int8_ttft_ms=res["ttft_ms"], launches=ecounts,
-        prefill_profile=profile_prefill(torch, sess, prompt),
+        prefill_profile=eprof,
         prefill_profile_masked_route=profile_prefill(torch, sess, prompt,
                                                      flash=False))
     print(f"bf16-exact prefill: {json.dumps(res['bf16_prefill'])}", flush=True)
@@ -2077,6 +2121,16 @@ def profile_decode(torch, sess, n_steps: int) -> dict:
     return {"device_ms_per_token": dev_ms,
             "kernels": [{"name": k, "ms_per_token": ms, "calls_per_token": n}
                         for k, ms, n in top]}
+
+
+def require_window_kernels(prof, product, label):
+    """A TTFT window's profile (where the profiler saw device time) names
+    the prefill matmul's kernel and no int8 weight-plane pass (the
+    requantization kernel the register-A kernel retired)."""
+    names = [k["name"] for k in prof.get("kernels", [])]
+    require(not prof or (any(product in n for n in names)
+                         and not any("requant" in n for n in names)),
+            f"{label}: the profile's kernels {names} do not show {product}")
 
 
 def profile_prefill(torch, sess, prompt, flash=True) -> dict:
@@ -5698,11 +5752,14 @@ def main() -> int:
                "fastllama_tpu/kernels/q4_matmul.py:433"),
         "B2": ("quant_rows_int8", "csrc/quant_rows.cu",
                "fastllama_tpu/kernels/q4_matmul.py:786"),
-        "B3": ("q4_matmul_prefill_int8", "csrc/q4_int8.cu",
+        # the register-A kernel in its int8 mode (built as csrc/q4_int8.cu)
+        "B3": ("q4_matmul_prefill_int8", "csrc/q4_prefill_ra.cuh",
                "fastllama_tpu/kernels/q4_matmul.py:904"),
         "B4": ("decode_attention_fused", "csrc/decode_attention.cu",
                "fastllama_tpu/kernels/decode_attention.py:258"),
-        "B5": ("q4_matmul_prefill", "csrc/q4_prefill.cu",
+        # the register-A kernel in its bf16 modes (built as
+        # csrc/q4_prefill.cu, with the cast pass and the f32 mode's kernel)
+        "B5": ("q4_matmul_prefill", "csrc/q4_prefill_ra.cuh",
                "fastllama_tpu/kernels/q4_matmul.py:578"),
         # variant 9 of the fold kernel (built as csrc/q4_fold_v9.cu)
         "B9": ("q41_matmul_decode", "csrc/q4_fold.cuh",
@@ -5909,6 +5966,15 @@ def main() -> int:
         # its launches on phase 11's bench path (every script summed)
         kernels[-1].setdefault("launches_by_path", {})["bench_path"] = (
             bench_res["launches"][key])
+        if key in ("B3", "B5"):
+            kernels[-1].update(
+                built_as="fastllama_tpu_torch/kernels/csrc/"
+                         + ("q4_int8.cu" if key == "B3" else "q4_prefill.cu"),
+                plan=row["plan"], vs_library=row["vs_library"])
+            if key == "B3":
+                kernels[-1].update({k: row[k] for k in (
+                    "kernel_ms", "kernels_a_call", "allocated_bytes_a_call",
+                    "int8_plane_bytes")})
         if key in ("B1", "B9"):
             m8 = pick(checks[key], "qkv M=8 K=4096 N=12288 bf16")
             kernels[-1].update(

@@ -1,9 +1,10 @@
-// Hopper building blocks shared by the port's wgmma kernels (B3 and B19 in
-// q4_int8.cu, B5 and B20 in q4_prefill.cu, B12 in flash_prefill.cu, B15
-// and B17 in q4_fold.cu) and B21 (paged_flash.cu): mbarriers, TMA tile loads and their tensor maps, 1-D
-// bulk copies, shared-memory matrix descriptors, the wgmma fences, and the
-// thread block cluster's rank, distributed shared memory, cluster-scope
-// barriers and launch (B19).
+// Hopper building blocks shared by the port's wgmma kernels (B3 and B5 in
+// q4_prefill_ra.cuh, B19 in q4_int8.cu, B20 in q4_prefill.cu, B12 in
+// flash_prefill.cu, the fold kernel of q4_fold.cuh) and B21
+// (paged_flash.cu): mbarriers, TMA tile loads and their tensor maps, 1-D
+// bulk copies, shared-memory matrix descriptors, the wgmma fences and the
+// register pins of a register-A pipeline, and the thread block cluster's
+// rank, distributed shared memory, cluster-scope barriers and launch.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at
@@ -144,6 +145,25 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// Keep a register set live (and in its registers) up to this point: the
+// compiler sees a wgmma that reads A from registers as done at its issue,
+// and would otherwise hand those registers to the next A fragment while
+// the product is still in flight, which ptxas answers by serializing the
+// wgmmas.
+template <int R> __device__ __forceinline__ void keep_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// An arrival on `bar` if `cond`, by a predicated instruction: a branch (or a
+// __syncwarp) while a wgmma is in flight makes ptxas serialize the wgmmas.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool cond) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %1, 0;\n"
+      "@q mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      ::"r"(bar), "r"((int)cond) : "memory");
+}
+
 // Pin the accumulators: the compiler sees wgmma as an ordinary asm that is
 // done when it returns, so without this it may read (or move) them before
 // the wait that completes the asynchronous products.

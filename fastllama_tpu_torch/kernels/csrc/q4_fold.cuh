@@ -392,23 +392,9 @@ __device__ __forceinline__ uint32_t lds_u16(const uint8_t* p) {
   return *reinterpret_cast<const uint16_t*>(p);
 }
 
-// Keep a register set live (and in its registers) up to this point: the
-// compiler sees the wgmma that reads A as done at its issue, and would
-// otherwise hand its registers to the next q block's A while the product is
-// still in flight, which ptxas answers by serializing the wgmmas.
-__device__ __forceinline__ void keep(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// An arrival on `bar` if `cond`, by a predicated instruction: a branch (or a
-// __syncwarp) while a wgmma is in flight makes ptxas serialize the wgmmas.
-__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool cond) {
-  asm volatile(
-      "{\n.reg .pred q;\nsetp.ne.b32 q, %1, 0;\n"
-      "@q mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
-      ::"r"(bar), "r"((int)cond) : "memory");
-}
+// A q block's A registers kept live past the next issue (hopper.cuh)
+__device__ __forceinline__ void keep(uint32_t* r) { hopper::keep_regs<8>(r); }
+using hopper::mbar_arrive_if;
 
 __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");

@@ -15,41 +15,13 @@
 // Bound on the H100: operations at M = 512 (2 * M * N * K against ~0.6
 // bytes of weight an element, above the bf16 ridge of ~295 operations a
 // byte), the weight bytes from M ~ 64 to ~128. No [N, K] plane goes
-// through HBM: the weight is dequantized in shared memory, next to the
-// product that reads it.
+// through HBM.
 //
-// bf16 mode, two launches:
-//   1. cast_kernel: R(x) as a bf16 [M, K] plane with zeros past x's K (TMA
-//      copies bytes: the A operand has to be bf16 in global memory);
-//   2. bf16_wgmma_kernel<MODE> (kNat, kAffine): persistent, one block an SM walking over
-//      work items (a 128 x 128 output tile and a run of its K stages, 64
-//      deep), warp-specialized:
-//      * one producer thread keeps a ring of 4 stages in flight with TMA:
-//        the x tile (128-byte swizzle, as wgmma reads it), the stage's q4
-//        bytes [32, 128] exactly as stored (N contiguous), its scale rows
-//        [2, 128] f32 and, affine, its mins rows; zeros past M, N and K;
-//      * 8 converter warps dequantize each stage into a bf16 [64, 128]
-//        tile in the layout wgmma reads as an MN-major B operand (the
-//        transpose bit): atoms of 8 K rows by 64 columns, 128 bytes a row,
-//        16-byte chunks swizzled by row. A thread owns 4 adjacent columns
-//        of 4 packed rows: one 4-byte load, then per nibble a byte permute
-//        into 2^23 + q, one add, one multiply (and one add of m), a packed
-//        bf16 conversion, and an 8-byte store a K row: the weight keeps its
-//        N-contiguous order and nothing is transposed. The writes are
-//        fenced to the async proxy before the stage's barrier;
-//      * two consumer warpgroups of 64 rows issue wgmma.mma_async
-//        m64n128k16 f32 += bf16 x bf16 (A K-major from the x tile, B
-//        MN-major from the converted tile), four per stage, release a
-//        stage once the next stage's products are in flight, and store
-//        the item.
-//      The ring runs on across items, so the next item's loads and
-//      conversions proceed under an item's epilogue. Launched one block
-//      a tile, each block paid its ring's fill and drain (~6 us, about
-//      ten stages; PERF.md), and the M = 512 qkv plane three waves of
-//      them. Where the tiles alone leave SMs idle, K is split
-//      (b5_plan): each split stores its partial tile to scratch, and
-//      the last to finish a tile, elected by a counter it resets, sums
-//      the partials in split order (deterministic, no atomic adds on y).
+// bf16 mode, two launches: cast_kernel (R(x) as a bf16 [M, K] plane with
+// zeros past x's K: TMA copies bytes, so the B operand has to be bf16 in
+// global memory), then the register-A kernel of q4_prefill_ra.cuh in its
+// q4_0 or q4_1 mode (built here; each weight dequantized straight into the
+// A registers of wgmma, x the B operand; the design is described there).
 //
 // Kernel B20, the split mode (bf16 only; entry q4_prefill_split_gemm):
 // replaces fastllama_tpu/kernels/q4_matmul.py::_q4mm_prefill_kernel, the
@@ -59,10 +31,27 @@
 // with q the code 0..15 (no -8 in the weight) and bsum(x) [K/32, M] the f32
 // sum of the caller's unrounded x over each q block. Two launches: the
 // cast pass, which also makes the fold's A operand from bsum (the JAX
-// package makes bsum with XLA before its kernel), and
-// bf16_wgmma_kernel<kSplit>, whose converters write R(__fmul_rn(q, d)) as
-// B5's do and whose products take the fold as one more k16 slice a stage
-// on the tensor cores, into the same f32 accumulators.
+// package makes bsum with XLA before its kernel), and bf16_wgmma_kernel:
+// persistent, one block an SM walking over work items (a 128 x 128 output
+// tile and a run of its K stages, 64 deep), warp-specialized:
+//   * one producer thread keeps a ring of 4 stages in flight with TMA: the
+//     x tile (128-byte swizzle), the stage's q4 bytes [32, 128] exactly as
+//     stored, its scale rows [2, 128] f32 and, by a bulk copy, its fold A
+//     tile; zeros past M, N and K;
+//   * 8 converter warps write R(__fmul_rn(q, d)) of each stage as a bf16
+//     [64, 128] tile in the layout wgmma reads as an MN-major B operand
+//     (atoms of 8 K rows by 64 columns, 128 bytes a row, 16-byte chunks
+//     swizzled by row; a thread 4 adjacent columns of 4 packed rows),
+//     fenced to the async proxy before the stage's barrier;
+//   * two consumer warpgroups of 64 rows issue wgmma.mma_async m64n128k16
+//     f32 += bf16 x bf16 (A K-major from the x tile, B MN-major from the
+//     converted tile), four a stage and the fold as a fifth k16 slice on
+//     the tensor cores, into the same f32 accumulators; a stage is
+//     released once the next stage's products are in flight.
+// Where the tiles alone leave SMs idle, K is split (b5_plan): each split
+// stores its partial tile to scratch, and the last to finish a tile,
+// elected by a counter it resets, sums the partials in split order
+// (deterministic, no atomic adds on y).
 // The TPU runs the fold as a dot at Precision.HIGHEST (bf16 multi-pass
 // products); here v = bsum and w = -8 d (exact) are each split into three
 // bf16 parts, v = h + m + l (rounded) and w = H + M + L (truncated), exact
@@ -96,6 +85,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "q4_prefill_ra.cuh"
 
 namespace {
 
@@ -110,9 +100,9 @@ using hopper::wgmma_commit;
 using hopper::wgmma_fence;
 using hopper::wgmma_wait;
 
-// The weight functions: (q - 8) * d (q4_0, B5), q * d + m (q4_1, B5's
-// affine weight) and q * d (B20's split mode, the offset folded back in
-// the epilogue).
+// The weight functions: (q - 8) * d (q4_0, B5's f32 mode), q * d + m (q4_1,
+// B5's f32 affine weight) and q * d (B20, the offset folded back by the
+// fold slice).
 enum Mode { kNat = 0, kAffine = 1, kSplit = 2 };
 
 // One weight from its code q (0..15) in the low byte of 2^23's bit pattern:
@@ -250,7 +240,7 @@ __global__ void cast_kernel(const float* __restrict__ x, int M, int Kx, int K,
 }
 
 // ---------------------------------------------------------------------------
-// 2. the bf16 product on wgmma, the weight dequantized in shared memory
+// 2. B20: the bf16 product on wgmma, the weight dequantized in shared memory
 // ---------------------------------------------------------------------------
 
 constexpr int kConsumers = 2;                    // warpgroups of 64 rows
@@ -260,23 +250,22 @@ constexpr int kConvThreads = 32 * kConvWarps;
 constexpr int kXBytes = kBM * kBK * 2;           // x tile, K-major
 constexpr int kWBytes = kBK * kBN * 2;           // converted weight tile
 constexpr int kQBytes = kBK / 2 * kBN;           // q4 bytes as stored
-constexpr int kSBytes = kBK / 32 * kBN * 4;      // scale (or mins) rows
+constexpr int kSBytes = kBK / 32 * kBN * 4;      // scale rows
 constexpr int kAtom = 1024;                      // 8 K rows x 64 columns
 constexpr int kKGroup = kBN / 64 * kAtom;        // bytes per 8 K rows
-template <int MODE> struct Ring {
-  static constexpr bool kFold = MODE == kSplit;
-  // B20: two warps that write the fold's B rows beside the converters (the
+struct Ring {
+  // two warps that write the fold's B rows beside the converters (the
   // register file is allocated for 20 warps either way)
-  static constexpr int kFoldWarps = kFold ? 2 : 0;
+  static constexpr int kFoldWarps = 2;
   static constexpr int kThreads =
       kConsThreads + kConvThreads + 32 * kFoldWarps + 32;   // + producer
-  // the converted tile (with B20's fold rows below the stage's 64), B20's
-  // fold A tile, and the raw bytes
-  static constexpr int kW = kWBytes + (kFold ? kFoldBBytes : 0);
-  static constexpr int kA = kFold ? kFoldABytes : 0;
-  static constexpr int kRaw = kQBytes + kSBytes * (MODE == kAffine ? 2 : 1);
-  // [x][converted weight][fold A][q4 | scales | mins], 1024-aligned stages
-  // (the swizzle's period, which the descriptors assume)
+  // the converted tile (with the fold rows below the stage's 64), the fold
+  // A tile, and the raw bytes
+  static constexpr int kW = kWBytes + kFoldBBytes;
+  static constexpr int kA = kFoldABytes;
+  static constexpr int kRaw = kQBytes + kSBytes;
+  // [x][converted weight][fold A][q4 | scales], 1024-aligned stages (the
+  // swizzle's period, which the descriptors assume)
   static constexpr int kStage = kXBytes + kW + kA + (kRaw + 1023) / 1024 * 1024;
   static constexpr int kTx = kXBytes + kA + kRaw;   // loaded bytes a stage
   static constexpr int kSmem = kStages * kStage + 3 * kStages * 8 + 1024;
@@ -335,18 +324,15 @@ struct Item {
 // role counts the stages it has passed in g (the ring's slot g % kStages,
 // its phase g / kStages). partial: f32 scratch of splits * 64 * 256 floats
 // a tile (splits > 1 only), counters: int32 zeros, one a tile.
-template <int MODE>
-__global__ void __launch_bounds__(Ring<MODE>::kThreads, 1)
+__global__ void __launch_bounds__(Ring::kThreads, 1)
 bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                   const __grid_constant__ CUtensorMap map_q,
-                  const __grid_constant__ CUtensorMap map_s,
-                  const __grid_constant__ CUtensorMap map_m, int M, int N,
+                  const __grid_constant__ CUtensorMap map_s, int M, int N,
                   int Kc, int splits, int k_tiles, int n_out,
                   float* __restrict__ partial, int* __restrict__ counters,
                   float* __restrict__ y, const uint8_t* __restrict__ fa,
                   int fa_stages) {
-  constexpr bool AFFINE = MODE == kAffine;
-  using R = Ring<MODE>;
+  using R = Ring;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ int is_last;
   const uint32_t raw = smem_u32(smem_raw);
@@ -383,54 +369,48 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
           tma_load_2d(st, &map_x, full, kt * kBK, t.m0);
           tma_load_2d(q, &map_q, full, t.n0, kt * (kBK / 2));
           tma_load_2d(q + kQBytes, &map_s, full, t.n0, kt * (kBK / 32));
-          if constexpr (AFFINE)
-            tma_load_2d(q + kQBytes + kSBytes, &map_m, full, t.n0,
-                        kt * (kBK / 32));
-          if constexpr (MODE == kSplit)   // the stage's fold A tile
-            hopper::bulk_load(
-                st + kXBytes + R::kW,
-                fa + ((size_t)(t.m0 / kBM) * fa_stages + kt) * kFoldABytes,
-                kFoldABytes, full);
+          hopper::bulk_load(                // the stage's fold A tile
+              st + kXBytes + R::kW,
+              fa + ((size_t)(t.m0 / kBM) * fa_stages + kt) * kFoldABytes,
+              kFoldABytes, full);
         }
       }
     }
     return;
   }
 
-  if constexpr (R::kFoldWarps > 0) {
-    if (warp >= (kConsThreads + kConvThreads) / 32) {    // B20's fold warps
-      // thread f the columns 4 (f % 32) .. + 3 and the fold rows f / 32 +
-      // kFoldWarps i: row r the kFoldB part of -8 d of q block r / 8
-      const int f = threadIdx.x - kConsThreads - kConvThreads;
-      const int n = 4 * (f & 31);
-      int n_st = 0;
-      for (int w = blockIdx.x; w < items; w += gridDim.x)
-        n_st += Item(w, M, N, nk, k_tiles).nkt;
-      for (int g = 0; g < n_st; ++g) {
-        const int s = g % kStages;
-        mbar_wait(bars + 8 * s, (g / kStages) & 1);
-        uint8_t* st = ring_p + s * R::kStage;
-        const float* sc = reinterpret_cast<const float*>(
-            st + kXBytes + R::kW + R::kA + kQBytes);
-        uint8_t* wt = st + kXBytes;
-        uint2 part[2][3];
+  if (warp >= (kConsThreads + kConvThreads) / 32) {    // the fold warps
+    // thread f the columns 4 (f % 32) .. + 3 and the fold rows f / 32 +
+    // kFoldWarps i: row r the kFoldB part of -8 d of q block r / 8
+    const int f = threadIdx.x - kConsThreads - kConvThreads;
+    const int n = 4 * (f & 31);
+    int n_st = 0;
+    for (int w = blockIdx.x; w < items; w += gridDim.x)
+      n_st += Item(w, M, N, nk, k_tiles).nkt;
+    for (int g = 0; g < n_st; ++g) {
+      const int s = g % kStages;
+      mbar_wait(bars + 8 * s, (g / kStages) & 1);
+      uint8_t* st = ring_p + s * R::kStage;
+      const float* sc = reinterpret_cast<const float*>(
+          st + kXBytes + R::kW + R::kA + kQBytes);
+      uint8_t* wt = st + kXBytes;
+      uint2 part[2][3];
 #pragma unroll
-        for (int b = 0; b < 2; ++b)
-          fold_weight_parts(
-              *reinterpret_cast<const float4*>(sc + b * kBN + n), part[b]);
+      for (int b = 0; b < 2; ++b)
+        fold_weight_parts(
+            *reinterpret_cast<const float4*>(sc + b * kBN + n), part[b]);
 #pragma unroll
-        for (int i = 0; i < kFoldRows / R::kFoldWarps; ++i) {
-          const int row = (f >> 5) + R::kFoldWarps * i;
-          const int pt = fold_part(kFoldB, row & 7);
-          const uint2* pb = part[i / (8 / R::kFoldWarps)];   // row / 8
-          *reinterpret_cast<uint2*>(wt + w_off(kBK + row, n)) =
-              pt == 0 ? pb[0] : pt == 1 ? pb[1] : pb[2];
-        }
-        hopper::fence_proxy_async();
-        mbar_arrive(bars + 8 * (kStages + s));
+      for (int i = 0; i < kFoldRows / R::kFoldWarps; ++i) {
+        const int row = (f >> 5) + R::kFoldWarps * i;
+        const int pt = fold_part(kFoldB, row & 7);
+        const uint2* pb = part[i / (8 / R::kFoldWarps)];   // row / 8
+        *reinterpret_cast<uint2*>(wt + w_off(kBK + row, n)) =
+            pt == 0 ? pb[0] : pt == 1 ? pb[1] : pb[2];
       }
-      return;
+      hopper::fence_proxy_async();
+      mbar_arrive(bars + 8 * (kStages + s));
     }
+    return;
   }
 
   if (warp >= kConsThreads / 32) {                     // the converters
@@ -453,22 +433,18 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
       uint8_t* wt = st + kXBytes;
       const float4 d0 = *reinterpret_cast<const float4*>(sc + n);
       const float4 d1 = *reinterpret_cast<const float4*>(sc + kBN + n);
-      float4 m0 = make_float4(0.f, 0.f, 0.f, 0.f), m1 = m0;
-      if constexpr (AFFINE) {
-        m0 = *reinterpret_cast<const float4*>(sc + 2 * kBN + n);
-        m1 = *reinterpret_cast<const float4*>(sc + 3 * kBN + n);
-      }
+      const float4 mn = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int r = cw; r < kBK / 2; r += kConvWarps) {
         const bool hi_blk = r >= 16;
         const int k = 32 * hi_blk + (r & 15);
-        const float4 d = hi_blk ? d1 : d0, mn = hi_blk ? m1 : m0;
+        const float4 d = hi_blk ? d1 : d0;
         const uint32_t word =
             *reinterpret_cast<const uint32_t*>(q4 + r * kBN + n);
         *reinterpret_cast<uint2*>(wt + w_off(k, n)) = pack_bf16x4(
-            weights4<MODE>(word & 0x0F0F0F0Fu, d, mn));
+            weights4<kSplit>(word & 0x0F0F0F0Fu, d, mn));
         *reinterpret_cast<uint2*>(wt + w_off(k + 16, n)) = pack_bf16x4(
-            weights4<MODE>((word >> 4) & 0x0F0F0F0Fu, d, mn));
+            weights4<kSplit>((word >> 4) & 0x0F0F0F0Fu, d, mn));
       }
       hopper::fence_proxy_async();
       mbar_arrive(bars + 8 * (kStages + s));
@@ -497,11 +473,11 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
         wgmma_bf16_n128(acc, hopper::sw128_desc(a + 32 * k),
                         hopper::sw128_mn_desc(b + 2 * kKGroup * k, kAtom,
                                               kKGroup));
-      if constexpr (MODE == kSplit)    // the fold slice: A K-major, 8-row
-        wgmma_bf16_n128(                 // groups 256 bytes apart
-            acc, hopper::plain_desc(b + R::kW + wg * 2048, 128, 256),
-            hopper::sw128_mn_desc(b + 2 * kKGroup * (kBK / 16), kAtom,
-                                  kKGroup));
+      wgmma_bf16_n128(                 // the fold slice: A K-major, 8-row
+          acc,                           // groups 256 bytes apart
+          hopper::plain_desc(b + R::kW + wg * 2048, 128, 256),
+          hopper::sw128_mn_desc(b + 2 * kKGroup * (kBK / 16), kAtom,
+                                kKGroup));
       wgmma_commit();
       fence_regs<64>(acc);
       wgmma_wait<1>();               // the previous stage's products are done
@@ -720,37 +696,31 @@ f32_gemm_kernel(const float* __restrict__ x, int M, int Kx,
 // host side
 // ---------------------------------------------------------------------------
 
-// mins: q4_1's mins [K/32, N] (kAffine); fa: B20's fold A plane (kSplit).
-template <int MODE>
-int launch_bf16(const void* xb, int M, int K, int Kc, const void* qs,
-                const void* scales, const void* mins, int N, int splits,
-                int k_tiles, int blocks, void* partial, void* counters,
-                float* y, int n_out, cudaStream_t stream,
-                const void* fa = nullptr) {
-  constexpr bool AFFINE = MODE == kAffine;
-  using R = Ring<MODE>;
+// fa: the fold's A plane, which the cast pass writes.
+int launch_split(const void* xb, int M, int K, int Kc, const void* qs,
+                 const void* scales, int N, int splits, int k_tiles,
+                 int blocks, void* partial, void* counters, float* y,
+                 int n_out, cudaStream_t stream, const void* fa) {
+  using R = Ring;
   static bool attr = false;
   if (!attr) {
     cudaError_t err = cudaFuncSetAttribute(
-        bf16_wgmma_kernel<MODE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
+        bf16_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        R::kSmem);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
-  CUtensorMap map_x, map_q, map_s, map_m;
+  CUtensorMap map_x, map_q, map_s;
   const auto none = CU_TENSOR_MAP_SWIZZLE_NONE;
   if (!hopper::make_map(&map_x, xb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M,
                         K, kBK, kBM, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !hopper::make_map(&map_q, qs, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2,
                         N, kBN, kBK / 2, none) ||
       !hopper::make_map(&map_s, scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                        K / 32, N, kBN, kBK / 32, none) ||
-      !hopper::make_map(&map_m, AFFINE ? mins : scales,
-                        CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K / 32, N, kBN,
-                        kBK / 32, none))
+                        K / 32, N, kBN, kBK / 32, none))
     return (int)cudaErrorInvalidValue;
-  bf16_wgmma_kernel<MODE><<<blocks, R::kThreads, R::kSmem, stream>>>(
-      map_x, map_q, map_s, map_m, M, N, Kc, splits, k_tiles, n_out,
+  bf16_wgmma_kernel<<<blocks, R::kThreads, R::kSmem, stream>>>(
+      map_x, map_q, map_s, M, N, Kc, splits, k_tiles, n_out,
       (float*)partial, (int*)counters, y, (const uint8_t*)fa,
       (K + kBK - 1) / kBK);
   return (int)cudaGetLastError();
@@ -778,54 +748,15 @@ int launch_f32(const float* x, int M, int Kx, const void* qs,
 
 }  // namespace
 
-// x f32 [M, Kx] (Kx a multiple of 4, Kx <= K, 16-byte aligned), qs uint8
-// [K/2, N], scales f32 [K/32, N] and mins f32 [K/32, N] or null (q4_0) (K
-// the stored K, a multiple of 32; N a multiple of 16; planes 16-byte
-// aligned), y f32 [M, n_out]. The K the product runs over (Kx rounded up
-// to 32) is cut into `splits` runs of k_steps stages (bf16 mode: 64 deep,
-// f32 mode: 32 deep; b5_plan), partial is f32 scratch of (row tiles *
-// column tiles * splits * 128 * 128) floats where splits > 1 and counters
-// int32 zeros, one per 128 x 128 output tile (left zeroed). bf16 = 1: xb
-// bf16 [M, K] scratch and `blocks` persistent blocks (at most one an SM).
-// Returns the CUDA error code of the launches.
-extern "C" int q4_prefill_gemm(const void* x, int M, int Kx, const void* qs,
-                               const void* scales, const void* mins, int N,
-                               int K, void* xb, int splits, int k_steps,
-                               int blocks, void* partial, void* counters,
-                               void* y, int n_out, int bf16, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (K % 32 || Kx % 4 || Kx > K || N % 16 || M < 1 || splits < 1 ||
-      k_steps < 1 || blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  if (!bf16) {
-    return mins ? launch_f32<true>((const float*)x, M, Kx, qs, scales, mins,
-                                   N, splits, k_steps, partial, counters,
-                                   (float*)y, n_out, s)
-                : launch_f32<false>((const float*)x, M, Kx, qs, scales,
-                                    nullptr, N, splits, k_steps, partial,
-                                    counters, (float*)y, n_out, s);
-  }
-  const size_t quads = (size_t)M * (K / 4);
-  cast_kernel<false><<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
-      (const float*)x, M, Kx, K, (__nv_bfloat16*)xb, nullptr);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int Kc = (Kx + 31) / 32 * 32;      // x is zero from Kx on
-  return mins ? launch_bf16<kAffine>(xb, M, K, Kc, qs, scales, mins, N,
-                                     splits, k_steps, blocks, partial,
-                                     counters, (float*)y, n_out, s)
-              : launch_bf16<kNat>(xb, M, K, Kc, qs, scales, nullptr, N,
-                                  splits, k_steps, blocks, partial, counters,
-                                  (float*)y, n_out, s);
-}
-
 // Kernel B20 (bf16 mode): y f32 [M, n_out] = R(x) @ R(q * d) - 8 * bsum @ d
-// for a q4_0 weight, with q4_prefill_gemm's arguments in bf16 mode (x, M,
-// Kx, qs, scales, N, K, xb, the plan's splits, k_steps and blocks, partial,
-// counters, y, n_out) and fa, scratch of ceil(M / 128) * ceil(K / 64) * 4096
-// bytes (16-byte aligned) for the fold's A tiles, which the cast pass
-// writes. The cast pass, then bf16_wgmma_kernel<kSplit>. Returns the CUDA
-// error code of the launches.
+// for a q4_0 weight: x, M, Kx, qs, scales, N, K and xb as q4_prefill_gemm
+// takes them in bf16 mode, b5_plan's splits and k_steps, `blocks`
+// persistent blocks, partial (f32 scratch of (row tiles * column tiles *
+// splits * 128 * 128) floats where splits > 1), counters (int32 zeros, one
+// a 128 x 128 tile), y, n_out, and fa, scratch of ceil(M / 128) *
+// ceil(K / 64) * 4096 bytes (16-byte aligned) for the fold's A tiles, which
+// the cast pass writes. The cast pass, then bf16_wgmma_kernel. Returns the
+// CUDA error code of the launches.
 extern "C" int q4_prefill_split_gemm(const void* x, int M, int Kx,
                                      const void* qs, const void* scales,
                                      int N, int K, void* fa, void* xb,
@@ -842,7 +773,53 @@ extern "C" int q4_prefill_split_gemm(const void* x, int M, int Kx,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int Kc = (Kx + 31) / 32 * 32;
-  return launch_bf16<kSplit>(xb, M, K, Kc, qs, scales, nullptr, N, splits,
-                             k_steps, blocks, partial, counters, (float*)y,
-                             n_out, s, fa);
+  return launch_split(xb, M, K, Kc, qs, scales, N, splits, k_steps, blocks,
+                      partial, counters, (float*)y, n_out, s, fa);
+}
+
+// Kernel B5: x f32 [M, Kx] (Kx a multiple of 4, Kx <= K, 16-byte aligned),
+// qs uint8 [K/2, N], scales f32 [K/32, N] and mins f32 [K/32, N] or null
+// (q4_0) (K the stored K, a multiple of 32; N a multiple of 16; planes
+// 16-byte aligned), y f32 [M, n_out]. The K the product runs over (Kx
+// rounded up to 32) is cut into `splits` runs of k_steps stages (bf16
+// mode: 64 deep, f32 mode: 32 deep; the plan in kernels/q4_matmul.py).
+// bf16 = 1: xb bf16 [M, K] scratch for the cast pass, then the register-A
+// kernel (q4_prefill_ra.cuh) on bx rows of x and wgs warpgroups a block,
+// the tiles from t0 on split and `blocks` persistent blocks; partial f32
+// scratch of ra::gemm's size where splits > 1, counters int32 zeros, one a
+// tile. bf16 = 0: the f32 kernel (bx, wgs and blocks unused; partial (row
+// tiles * column tiles * splits * 128 * 128) floats of 128 x 128 tiles
+// where splits > 1). Returns the CUDA error code of the launches.
+extern "C" int q4_prefill_gemm(const void* x, int M, int Kx, const void* qs,
+                               const void* scales, const void* mins, int N,
+                               int K, void* xb, int bx, int wgs, int t0,
+                               int splits, int k_steps, int blocks,
+                               void* partial, void* counters, void* y,
+                               int n_out, int bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (K % 32 || Kx % 4 || Kx > K || N % 16 || M < 1 || splits < 1 ||
+      k_steps < 1)
+    return (int)cudaErrorInvalidValue;
+  if (!bf16) {
+    return mins ? launch_f32<true>((const float*)x, M, Kx, qs, scales, mins,
+                                   N, splits, k_steps, partial, counters,
+                                   (float*)y, n_out, s)
+                : launch_f32<false>((const float*)x, M, Kx, qs, scales,
+                                    nullptr, N, splits, k_steps, partial,
+                                    counters, (float*)y, n_out, s);
+  }
+  const size_t quads = (size_t)M * (K / 4);
+  cast_kernel<false><<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
+      (const float*)x, M, Kx, K, (__nv_bfloat16*)xb, nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int Kc = (Kx + 31) / 32 * 32;      // x is zero from Kx on
+  return mins ? ra::gemm<ra::kAffine>(xb, M, K, Kc, qs, scales, mins,
+                                      nullptr, N, bx, wgs, t0, splits,
+                                      k_steps, blocks, partial,
+                                      counters, y, n_out, s)
+              : ra::gemm<ra::kNat>(xb, M, K, Kc, qs, scales, nullptr,
+                                   nullptr, N, bx, wgs, t0, splits, k_steps,
+                                   blocks, partial, counters, y,
+                                   n_out, s);
 }

@@ -47,11 +47,11 @@ ARGTYPES = {
     "q4_fold_v9_gemm": FOLD_ARGS[:5] + [P] + FOLD_ARGS[5:],
     "q4_fold_clusters": [I],
     "quant_rows_int8": [P, I, I, I, P, P, P],
-    "q4_int8_gemm": [P, P, I, I, P, P, I, P, P, P, I, I, P],
+    "q4_int8_gemm": [P, P, I, I, P, P, I, I, I, I, I, I, I, P, P, P, I, P],
     "q4_int8_gemm_natx": [P, P, I, I, P, P, I, P, I, P],
     "q4_int8_natx_clusters": [I],
-    "q4_prefill_gemm": [P, I, I, P, P, P, I, I, P, I, I, I, P, P, P, I, I,
-                        P],
+    "q4_prefill_gemm": [P, I, I, P, P, P, I, I, P, I, I, I, I, I, I, P, P,
+                        P, I, I, P],
     "q4_prefill_split_gemm": [P, I, I, P, P, I, I, P, P, I, I, I, P, P, P,
                               I, P],
     "decode_attention_fused": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P,

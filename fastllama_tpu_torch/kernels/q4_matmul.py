@@ -5,15 +5,20 @@ Ports fastllama_tpu/kernels/q4_matmul.py. The weight is a QuantMatmulWeight
 [K_pad/32, N_pad] and, for an affine q4_1 weight, f32 mins of the same
 shape); activations are f32 [M, K] and outputs f32 [M, n_logical].
 
-Kernels (CUDA C++ for sm_90a, sources in csrc/, built by cuda_lib):
+Kernels (CUDA C++ for sm_90a, sources in csrc/, built by cuda_lib; B3 and
+B5 share the register-A kernel and its plan, prefill_plan):
   B1 q4_matmul_decode        csrc/q4_fold.cuh    (q4_matmul_pallas: v0's
                              function, q4_matmul_xla's; bf16 mode variant 0
                              of the fold kernel, built as q4_fold_v0.cu;
                              f32 mode FFMA, csrc/q4_decode.cu)
   B2 quant_rows_int8         csrc/quant_rows.cu  (quant_rows_int8)
-  B3 q4_matmul_prefill_int8  csrc/q4_int8.cu     (q4_matmul_prefill_int8 nat)
-  B5 q4_matmul_prefill       csrc/q4_prefill.cu  (q4_matmul_prefill_pallas nat;
-                             also the affine weight's R(x) @ R(q * d + m))
+  B3 q4_matmul_prefill_int8  csrc/q4_prefill_ra.cuh (q4_matmul_prefill_int8
+                             nat; the register-A kernel's int8 mode, built
+                             as csrc/q4_int8.cu)
+  B5 q4_matmul_prefill       csrc/q4_prefill_ra.cuh (q4_matmul_prefill_pallas
+                             nat, also the affine weight's R(x) @ R(q * d +
+                             m): the register-A kernel's bf16 modes, built
+                             as csrc/q4_prefill.cu; f32 mode FFMA, there)
   B9 q41_matmul_decode       csrc/q4_fold.cuh    (q41_matmul_pallas; bf16
                              mode variant 9 of the fold kernel, built as
                              q4_fold_v9.cu: the mins term in the fold's
@@ -27,7 +32,9 @@ against. Each wrapper counts its launches in a plain int attribute
 """
 from __future__ import annotations
 
+import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,16 +48,18 @@ from . import cuda_lib
 # Dispatch table (fixed; see q4_matmul).
 DECODE_MAX_M = 64
 PREFILL_MIN_M = 256
-# q4_0 in bf16 mode at B1_ON_B5_MIN_M <= M <= 64 on a plane deeper than
-# wide (stored K > N: w2) runs B5, which computes B1's function: there the
-# fold kernel takes its widest product (NW = 64, two x ring slots) and B5
-# took 0.04684 ms against B1's 0.06140 on the 7B w2 plane at M = 64, while
-# B1 stayed faster at M = 48 there (0.03807 against 0.04644) and at M = 64
-# on qkv, wo and w13 (0.04566, 0.02412, 0.07278 against 0.06492, 0.02811,
-# 0.09986; tools_torch/b15_sweep.py --parts route, PERF.md; NVIDIA
-# H100 80GB HBM3 at 700 W). q4_1 stays on B9 at every M <= 64: B5's affine
-# mode computes another function (R(q d + m) rounded as a whole).
-B1_ON_B5_MIN_M = 57
+# q4_0 in bf16 mode at B1_ON_B5_MIN_M <= M <= 64 runs B5, which computes
+# B1's function, on every plane but a square one (stored K = N: wo), which
+# B5 takes from B1_ON_B5_SQUARE_MIN_M on: B5's register-A kernel (one x tile
+# of 64 rows) took 0.03460, 0.05035 and 0.02991 ms against B1's 0.03531,
+# 0.05613 and 0.03590 on the 7B qkv, w13 and w2 planes at M = 33 (0.0349,
+# 0.0508, 0.0308 against 0.0463, 0.0750, 0.0621 at M = 64), and on wo
+# 0.01731 against 0.01586 at M = 33, 0.01711 against 0.01757 at 48
+# (tools_torch/prefill_sweep.py --parts b1, PERF.md; NVIDIA H100 80GB
+# HBM3 at 700 W). q4_1 stays on B9 at every M <= 64: B5's affine mode
+# computes another function (R(q d + m) rounded as a whole).
+B1_ON_B5_MIN_M = 33
+B1_ON_B5_SQUARE_MIN_M = 48
 RECIP_127 = float(np.float32(1.0) / np.float32(127.0))   # exact in f32
 
 
@@ -297,6 +306,131 @@ cuda_lib.counted(quant_rows_int8)
 
 
 # ---------------------------------------------------------------------------
+# B3 and B5 (bf16 mode): the register-A kernel's plan
+# ---------------------------------------------------------------------------
+
+# The rows of x a tile (wgmma's N, template instances of
+# csrc/q4_prefill_ra.cuh), the most splits of K, the fewest stages a split
+# keeps (its ring fills); and the cost model's constants, fitted to
+# tools_torch/prefill_sweep.py's pinned plans on the 7B planes at M = 64-512
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md): a split item's merge in stages
+# (bf16 mode, int8 mode) and what a stage weighs beside the warpgroups that
+# run it (its x tile and barriers are the same for 64 columns and 128).
+RA_BX = (64, 96, 128, 160, 192, 224, 256)
+RA_MAX_SPLITS = 8
+RA_MIN_STAGES = 4
+RA_MERGE_STAGES = {False: 20, True: 6}
+RA_STAGE_BASE = 0.5
+
+
+class RaPlan(NamedTuple):
+    """The register-A kernel's tiles: bx rows of x and 64 wgs weight
+    columns a tile; tiles t0 .. (the rest) split into `splits` runs of K of
+    `per` stages (64 deep in bf16 mode, 128 in int8 mode), the tiles before
+    t0 run whole."""
+    bx: int
+    wgs: int
+    splits: int
+    per: int
+    t0: int = 0
+
+
+def ra_bx(m: int) -> int:
+    """The rows of x a tile at M rows: M cut into ceil(M / 256) tiles as
+    even as they go, rounded up to a built width (M = 65 -> 96, 300 -> two
+    of 160, 513 -> three of 192)."""
+    tiles = -(-m // RA_BX[-1])
+    want = -(-m // tiles)
+    return next(b for b in RA_BX if b >= want)
+
+
+def ra_item_count(tiles: int, p: RaPlan) -> int:
+    """How many work items the kernel takes on plan p (len(ra_items))."""
+    return tiles if p.splits == 1 else p.t0 + (tiles - p.t0) * p.splits
+
+
+def ra_items(tiles: int, p: RaPlan) -> list[tuple[int, int]]:
+    """The kernel's work items in order, (tile, split): tiles 0 .. t0 - 1
+    whole (split 0 of 1), then the rest a split at a time."""
+    if p.splits == 1:
+        return [(t, 0) for t in range(tiles)]
+    rest = tiles - p.t0
+    return [(t, 0) for t in range(p.t0)] + [
+        (p.t0 + u % rest, u // rest) for u in range(rest * p.splits)]
+
+
+def ra_makespan(tiles: int, nst: int, sms: int, p: RaPlan,
+                merge: int) -> int:
+    """The stages the busiest persistent block runs (a split item's merge
+    counted as `merge` stages) when block b takes items b, b + blocks, ...
+    of ra_items."""
+    items = ra_items(tiles, p)
+    blocks = min(ra_item_count(tiles, p), sms)
+    load = [0] * blocks
+    for i, (t, z) in enumerate(items):
+        if p.splits == 1 or t < p.t0:
+            load[i % blocks] += nst
+        else:
+            load[i % blocks] += min(nst, (z + 1) * p.per) - z * p.per + merge
+    return max(load)
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_plan(m: int, n: int, kc: int, sms: int, int8: bool = False, *,
+                 bx: int | None = None, wgs: int | None = None,
+                 splits: int | None = None, t0: int | None = None) -> RaPlan:
+    """The register-A kernel's plan (B5 in bf16 mode, B3 with int8=True)
+    for M rows, N stored columns and the K it runs over (kc), on a card of
+    `sms` SMs; keywords pin a part (tools_torch/prefill_sweep.py, tests).
+    Each candidate (one or two warpgroups a block; K whole, or split in 2
+    to RA_MAX_SPLITS runs of at least RA_MIN_STAGES stages, either for
+    every tile or only for the tiles past the full rounds of whole tiles)
+    is costed by its makespan (ra_makespan, a merge RA_MERGE_STAGES) times
+    wgs + RA_STAGE_BASE; ties go to the fewest splits, then to two
+    warpgroups. Cached: the makespans are counted item by item in Python,
+    and eager steps ask for the same few plans again and again."""
+    bx = bx or ra_bx(m)
+    nst = -(-kc // (128 if int8 else 64))
+    rt = -(-m // bx)
+    best = None
+    for g in (wgs,) if wgs else (2, 1):
+        tiles = rt * -(-n // (64 * g))
+        for s in (splits,) if splits else range(1, RA_MAX_SPLITS + 1):
+            per = -(-nst // s)
+            if splits is None and s > 1 and per < RA_MIN_STAGES:
+                break
+            s_eff = -(-nst // per)
+            if s_eff == 1:
+                starts = [tiles]
+            elif t0 is not None:
+                starts = [t0]
+            else:
+                starts = sorted({0, tiles // sms * sms} - {tiles})
+            for first in starts:
+                p = RaPlan(bx, g, s_eff, per, first)
+                key = ((g + RA_STAGE_BASE) * ra_makespan(
+                    tiles, nst, sms, p, RA_MERGE_STAGES[int8]), s_eff, -g,
+                    -first)
+                if best is None or key < best[0]:
+                    best = (key, p)
+    return best[1]
+
+
+def _ra_scratch(dev, name: str, m: int, n: int, p: RaPlan):
+    """(partial, counters, blocks) of one launch of the register-A kernel:
+    f32 scratch for the split items' partial tiles (bx 64 wgs floats an
+    item), the tiles' counters and the persistent grid (at most one block
+    an SM)."""
+    tiles = -(-m // p.bx) * -(-n // (64 * p.wgs))
+    split = p.splits > 1
+    partial = cuda_lib.scratch(
+        dev, name, (tiles - p.t0) * p.splits * p.bx * 64 * p.wgs
+        if split else 1, torch.float32)
+    return (partial, cuda_lib.tile_counters(dev, tiles),
+            min(ra_item_count(tiles, p), cuda_lib.sm_count(dev)))
+
+
+# ---------------------------------------------------------------------------
 # B3: int8 prefill matmul
 # ---------------------------------------------------------------------------
 
@@ -329,31 +463,17 @@ def q4_matmul_prefill_int8_plain(xq: torch.Tensor, dx: torch.Tensor,
     return y[:, :w.n_logical]
 
 
-# B3's product variants (`tile` of csrc/q4_int8.cu): the output columns of
-# a 128-row tile, one block an SM
-B3_BM = 128
-B3_TILES = (256, 128)
-
-
-def b3_plan(m: int, n: int, sms: int) -> int:
-    """The product variant (an index into B3_TILES) for M rows and N stored
-    columns on a card of `sms` SMs: the fewest waves of tiles, each wave
-    weighed by its tile's width (a tile's time follows its operations); a
-    tie takes 256 columns, which reads the activations half as often."""
-    def cost(i):
-        tiles = -(-m // B3_BM) * -(-n // B3_TILES[i])
-        return -(-tiles // sms) * B3_TILES[i]
-    return min(range(len(B3_TILES)), key=cost)
-
-
 def q4_matmul_prefill_int8(xq: torch.Tensor, dx: torch.Tensor,
-                           w: QuantMatmulWeight) -> torch.Tensor:
+                           w: QuantMatmulWeight,
+                           plan: RaPlan | None = None) -> torch.Tensor:
     """Kernel B3: xq int8 [M, K_stored], dx f32 [M] -> y f32 [M, n_logical].
 
     Exact int32 accumulators; y = (acc * dx) * s8, the JAX order, so the
-    kernel and its plain version agree bit for bit. On the card: a
-    requantization pass (s8 and the [N, K] int8 plane into scratch), then
-    the product over that plane on wgmma fed by TMA."""
+    kernel and its plain version agree bit for bit. On the card: one launch
+    of the register-A kernel (csrc/q4_prefill_ra.cuh), which takes s8 from
+    the whole K's scales and requantizes each weight straight into wgmma's
+    A registers, on prefill_plan's tiles (`plan` pins one); no int8 weight
+    plane exists anywhere."""
     _require(xq.dim() == 2 and xq.dtype == torch.int8
              and dx.dtype == torch.float32 and dx.shape == (xq.shape[0],),
              "xq must be int8 [M, K] and dx f32 [M]")
@@ -366,16 +486,17 @@ def q4_matmul_prefill_int8(xq: torch.Tensor, dx: torch.Tensor,
     _check_weight(w, xq.device)
     m, k = xq.shape
     n = w.qs.shape[1]
-    _require(k % 64 == 0 and n % 4 == 0,
-             "stored K must be a multiple of 64 and stored N of 4")
+    _require(k % 32 == 0 and n % 16 == 0 and xq.data_ptr() % 16 == 0,
+             "stored K must be a multiple of 32, stored N of 16 and xq "
+             "16-byte aligned")
     dev = xq.device
-    s8 = cuda_lib.scratch(dev, "q4_int8.s8", n, torch.float32)
-    w8t = cuda_lib.scratch(dev, "q4_int8.w8t", n * k, torch.int8)
+    p = plan or prefill_plan(m, n, k, cuda_lib.sm_count(dev), int8=True)
+    partial, counters, blocks = _ra_scratch(dev, "q4_int8.partial", m, n, p)
     y = torch.empty((m, w.n_logical), dtype=torch.float32, device=dev)
     rc = cuda_lib.fn("q4_int8_gemm")(
         xq.data_ptr(), dx.data_ptr(), m, k, w.qs.data_ptr(),
-        w.scales.data_ptr(), n, s8.data_ptr(), w8t.data_ptr(), y.data_ptr(),
-        w.n_logical, b3_plan(m, n, cuda_lib.sm_count(dev)),
+        w.scales.data_ptr(), n, p.bx, p.wgs, p.t0, p.splits, p.per, blocks,
+        partial.data_ptr(), counters.data_ptr(), y.data_ptr(), w.n_logical,
         cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, "q4_int8_gemm")
     q4_matmul_prefill_int8.launches += 1
@@ -389,11 +510,11 @@ cuda_lib.counted(q4_matmul_prefill_int8)
 # B5: bf16 / f32 prefill matmul
 # ---------------------------------------------------------------------------
 
-# B5's kernels (csrc/q4_prefill.cu) are built for one tile: 128 x 128
-# outputs; bf16 mode: two consumer warpgroups of 64 rows, K in 64-deep
-# stages through a ring of 4, one persistent block an SM; f32 mode: K in
-# 32-deep steps (one q block), two blocks an SM. The plan chooses the
-# split of K.
+# B5's f32 kernel (csrc/q4_prefill.cu f32_gemm_kernel) and B20's split
+# kernel (bf16_wgmma_kernel<kSplit>) are built for one tile: 128 x 128
+# outputs; B20: two consumer warpgroups of 64 rows, K in 64-deep stages
+# through a ring of 4, one persistent block an SM; f32 mode: K in 32-deep
+# steps (one q block), two blocks an SM. b5_plan chooses their split of K.
 B5_BM, B5_BN, B5_BK, B5_F32_BK = 128, 128, 64, 32
 B5_MAX_SPLITS = 8
 B5_MIN_STAGES_PER_SPLIT = 4          # bf16: the ring fills
@@ -407,15 +528,15 @@ B5_F32_MERGE_STEPS = 1
 
 def b5_plan(m: int, n: int, k: int, sms: int,
             f32: bool = False) -> tuple[int, int]:
-    """(splits, K stages per split) of B5 for M rows, N stored columns and
-    the K it runs over, on a card of `sms` SMs; a stage is 64 deep in bf16
-    mode and 32 in f32 mode. A split pays when the 128 x 128 tiles alone
-    leave SMs idle (M <= 128: 96 tiles on the 7B qkv plane, 32 on wo). The
-    cost is the rounds of work a busy SM takes (bf16: the persistent
-    blocks' items, f32: blocks, one at a time at the FFMA rate) times a
-    round's stages, a split's merge added to each round where K is split;
-    the fewest splits win a tie. Every split keeps enough stages for its
-    pipeline to fill."""
+    """(splits, K stages per split) of B5's f32 kernel (f32=True) and B20's
+    split kernel for M rows, N stored columns and the K it runs over, on a
+    card of `sms` SMs; a stage is 64 deep in bf16 mode and 32 in f32 mode.
+    A split pays when the 128 x 128 tiles alone leave SMs idle (M <= 128:
+    96 tiles on the 7B qkv plane, 32 on wo). The cost is the rounds of work
+    a busy SM takes (bf16: the persistent blocks' items, f32: blocks, one
+    at a time at the FFMA rate) times a round's stages, a split's merge
+    added to each round where K is split; the fewest splits win a tie.
+    Every split keeps enough stages for its pipeline to fill."""
     tiles = -(-m // B5_BM) * -(-n // B5_BN)
     nk = -(-k // (B5_F32_BK if f32 else B5_BK))
     least = B5_MIN_STEPS_PER_SPLIT if f32 else B5_MIN_STAGES_PER_SPLIT
@@ -436,29 +557,30 @@ def b5_plan(m: int, n: int, k: int, sms: int,
 
 
 def q4_matmul_prefill(x: torch.Tensor, w: QuantMatmulWeight,
-                      w_dtype=torch.bfloat16) -> torch.Tensor:
+                      w_dtype=torch.bfloat16,
+                      plan: RaPlan | None = None) -> torch.Tensor:
     """Kernel B5: x f32 [M, K], q4_0 or affine (q4_1) weight -> y f32
     [M, n_logical] = w_dtype(x) @ w_dtype(W) with f32 accumulation, W =
     (q - 8) * d or q * d + m, in natural K order; a true f32 product (no
     TF32) in f32 mode. Its plain version is q4_matmul_dequant. Any M >= 1
     is taken; the dispatcher sends M > 64 without int8.
 
-    bf16 mode: x cast to bf16, then one persistent wgmma product whose
-    weight tiles are dequantized in shared memory. f32 mode: an FFMA tile
-    that dequantizes in shared memory too. Both split K where the tiles
-    alone leave SMs idle (b5_plan) and add the splits in order."""
+    bf16 mode: x cast to bf16, then one launch of the register-A kernel
+    (csrc/q4_prefill_ra.cuh: each weight dequantized straight into wgmma's
+    A registers, x the B operand, on prefill_plan's tiles; `plan` pins
+    one). f32 mode: an FFMA tile that dequantizes in shared memory. Both
+    split K where the tiles alone leave SMs idle and add the splits in
+    order."""
     _check_matmul_args(x, w_dtype)
     if x.device.type == "cpu":
         return q4_matmul_dequant(x, w, w_dtype)
-    y = _launch_b5(x, w, w_dtype)
+    y = _launch_b5(x, w, w_dtype, plan)
     q4_matmul_prefill.launches += 1
     return y
 
 
-def _launch_b5(x, w, w_dtype, blocks=None):
-    """One launch of B5 on the card; `blocks` overrides the bf16 kernel's
-    persistent grid (at most one block an SM; tools_torch/b5_sweep.py
-    launches one block a work item beside it)."""
+def _launch_b5(x, w, w_dtype, plan=None):
+    """One launch of B5 on the card (bf16 mode on `plan` where given)."""
     _require(x.device.type == "cuda" and x.is_contiguous()
              and x.data_ptr() % 16 == 0,
              "x must be a contiguous, 16-byte aligned CUDA tensor")
@@ -475,23 +597,31 @@ def _launch_b5(x, w, w_dtype, blocks=None):
              "stored K must be a multiple of 32, stored N of 16 and the "
              "weight planes 16-byte aligned")
     dev = x.device
-    bf16 = w_dtype == torch.bfloat16
     sms = cuda_lib.sm_count(dev)
-    splits, k_steps = b5_plan(m, n, -(-kx // 32) * 32, sms, f32=not bf16)
-    tiles = -(-m // B5_BM) * -(-n // B5_BN)
-    xb = cuda_lib.scratch(dev, "q4_prefill.xb", m * k if bf16 else 1,
-                          torch.bfloat16)
-    partial = cuda_lib.scratch(
-        dev, "q4_prefill.partial",
-        tiles * splits * B5_BM * B5_BN if splits > 1 else 1, torch.float32)
-    counters = cuda_lib.tile_counters(dev, tiles)
+    kc = -(-kx // 32) * 32
     y = torch.empty((m, w.n_logical), dtype=torch.float32, device=dev)
+    if w_dtype == torch.bfloat16:
+        p = plan or prefill_plan(m, n, kc, sms)
+        partial, counters, blocks = _ra_scratch(dev, "q4_prefill.partial",
+                                                m, n, p)
+        xb = cuda_lib.scratch(dev, "q4_prefill.xb", m * k, torch.bfloat16)
+        bx, wgs, t0, splits, per, bf16 = (p.bx, p.wgs, p.t0, p.splits,
+                                          p.per, 1)
+    else:
+        splits, per = b5_plan(m, n, kc, sms, f32=True)
+        tiles = -(-m // B5_BM) * -(-n // B5_BN)
+        partial = cuda_lib.scratch(
+            dev, "q4_prefill.partial",
+            tiles * splits * B5_BM * B5_BN if splits > 1 else 1,
+            torch.float32)
+        counters = cuda_lib.tile_counters(dev, tiles)
+        xb = partial                       # unused in f32 mode
+        bx = wgs = t0 = blocks = bf16 = 0
     rc = cuda_lib.fn("q4_prefill_gemm")(
         x.data_ptr(), m, kx, w.qs.data_ptr(), w.scales.data_ptr(),
-        w.mins.data_ptr() if affine else None, n, k, xb.data_ptr(), splits,
-        k_steps, blocks or min(tiles * splits, sms), partial.data_ptr(),
-        counters.data_ptr(), y.data_ptr(), w.n_logical, int(bf16),
-        cuda_lib.stream_handle(dev))
+        w.mins.data_ptr() if affine else None, n, k, xb.data_ptr(), bx, wgs,
+        t0, splits, per, blocks, partial.data_ptr(), counters.data_ptr(),
+        y.data_ptr(), w.n_logical, bf16, cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, "q4_prefill_gemm")
     return y
 
@@ -505,8 +635,10 @@ cuda_lib.counted(q4_matmul_prefill)
 
 def b1_on_b5(m: int, w: QuantMatmulWeight) -> bool:
     """Whether B1's call at M rows on w (q4_0, bf16 mode) runs B5 in its
-    place: at M >= B1_ON_B5_MIN_M on a plane of stored K > N."""
-    return m >= B1_ON_B5_MIN_M and 2 * w.qs.shape[0] > w.qs.shape[1]
+    place: at M >= B1_ON_B5_MIN_M, on a plane of stored K = N at M >=
+    B1_ON_B5_SQUARE_MIN_M."""
+    square = 2 * w.qs.shape[0] == w.qs.shape[1]
+    return m >= (B1_ON_B5_SQUARE_MIN_M if square else B1_ON_B5_MIN_M)
 
 
 def use_int8(m: int, w_dtype, prefill_int8: bool | None,
@@ -537,8 +669,9 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
     M = prod(lead):
 
       q4_0, M <= 64                      -> B1 q4_matmul_decode (bf16 mode
-                                            at M >= B1_ON_B5_MIN_M on a
-                                            plane of stored K > N: B5)
+                                            at M >= B1_ON_B5_MIN_M, on a
+                                            square plane at M >=
+                                            B1_ON_B5_SQUARE_MIN_M: B5)
       q4_1, M <= 64                      -> B9 q41_matmul_decode
       q4_0, M >= 256 and int8 (use_int8) -> B2 quant_rows_int8 + B3
       every other M > 64: q4_0 at 64 < M < 256, q4_0 at M >= 256 without

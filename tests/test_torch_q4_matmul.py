@@ -1,6 +1,7 @@
-"""PyTorch port: the q4_0 matmuls (B1-B3 and B5 plain versions and the
-dispatcher) against the JAX package's kernels (Pallas interpret mode) and
-XLA paths. The affine kernel B9 is in test_torch_q41.py."""
+"""PyTorch port: the q4_0 matmuls (B1-B3 and B5 plain versions, the
+dispatcher, and a numpy model of B3's and B5's register-A kernel) against
+the JAX package's kernels (Pallas interpret mode) and XLA paths. The affine
+kernel B9 is in test_torch_q41.py."""
 import numpy as np
 import pytest
 import torch
@@ -9,7 +10,7 @@ import jax.numpy as jnp
 
 from fastllama_tpu.kernels import q4_matmul as jqm
 from fastllama_tpu.quant import tensor as jt
-from fastllama_tpu.quant.q4 import quantize_q4_0
+from fastllama_tpu.quant.q4 import quantize_q4_0, quantize_q4_1
 from fastllama_tpu_torch.kernels import q4_matmul as tqm
 from fastllama_tpu_torch.kernels import q4_variants as tqv
 from fastllama_tpu_torch.quant import tensor as tt
@@ -146,6 +147,16 @@ def test_b5_plain_matches_pallas(m, k, n, mode):
     want = jqm.q4_matmul_prefill_pallas(xp, wj.qs, wj.scales, interpret=True,
                                         w_dtype=jdt)
     assert_close(got, np.asarray(want)[:, :n], 1e-5)
+
+
+def _q41_weights(k, n):
+    """A q4_1 weight quantized from data for both packages (the port's and
+    the JAX package's planes, stored N padded to 256)."""
+    rng = np.random.default_rng(31)
+    codes, d, mn = quantize_q4_1(
+        (rng.standard_normal((n, k)) * 0.2 + 0.1).astype(np.float32))
+    return (tt.make_matmul_weight_q41(codes, d, mn, device="cpu"),
+            jt.make_matmul_weight_q41(codes, d, mn), (codes, d, mn))
 
 
 def q41_weight(k, n):
@@ -300,8 +311,8 @@ def reports_cuda(t):
 
 
 # the rows of each route test: the fold kernel's product widths, and both
-# sides of B1_ON_B5_MIN_M
-ROUTE_ROWS = (1, 8, 9, 33, 48, 56, 57, 64)
+# sides of B1_ON_B5_MIN_M and B1_ON_B5_SQUARE_MIN_M
+ROUTE_ROWS = (1, 8, 9, 32, 33, 47, 48, 56, 57, 64)
 
 
 @pytest.mark.parametrize("affine", [False, True], ids=["q4_0", "q4_1"])
@@ -311,8 +322,9 @@ def test_decode_rows_launch_the_fold_variants(monkeypatch, use_pallas, mode,
                                               affine):
     """q4_matmul at M <= 64, by spies on the launchers: in bf16 mode q4_0
     runs variant 0 of the fold kernel (B1; B5, the same function, at M >=
-    B1_ON_B5_MIN_M on a plane of stored K > N; use_pallas=True B15, variant
-    1) and q4_1 variant 9 (B9; use_pallas=False B5 at every M, as before);
+    B1_ON_B5_MIN_M, on a plane of stored K = N at M >=
+    B1_ON_B5_SQUARE_MIN_M; use_pallas=True B15, variant 1) and q4_1
+    variant 9 (B9; use_pallas=False B5 at every M, as before);
     f32 mode runs the FFMA kernel (q4_1 with use_pallas=False: B5). Each
     launch is counted by the wrapper the dispatcher called."""
     launched = []
@@ -326,7 +338,7 @@ def test_decode_rows_launch_the_fold_variants(monkeypatch, use_pallas, mode,
         launched.append(("ffma", aff))
         return torch.zeros((x.shape[0], w.n_logical))
 
-    def b5(x, w, w_dtype):
+    def b5(x, w, w_dtype, plan=None):
         launched.append(("B5", w.mins is not None))
         return torch.zeros((x.shape[0], w.n_logical))
     monkeypatch.setattr(tqv, "_launch_fold", fold)
@@ -335,14 +347,17 @@ def test_decode_rows_launch_the_fold_variants(monkeypatch, use_pallas, mode,
     counters = (tqm.q4_matmul_decode, tqm.q41_matmul_decode,
                 tqm.q4_matmul_prefill, tqv.q4_decode_v1)
     bf16 = mode == "bfloat16"
-    # a plane wider than deep and one deeper than wide (stored K 1024 > N)
-    for k, n in ((256, 512), (1024, 256)):
+    # a plane wider than deep, one deeper than wide (stored K 1024 > N) and
+    # a square one
+    for k, n in ((256, 512), (1024, 256), (256, 256)):
         wt = (q41_weight(k, n) if affine else weights(k, n)[0])
         w = tt.QuantMatmulWeight(
             qs=reports_cuda(wt.qs), scales=reports_cuda(wt.scales),
             mins=None if wt.mins is None else reports_cuda(wt.mins),
             n_logical=wt.n_logical)
-        deep = 2 * w.qs.shape[0] > w.qs.shape[1]
+        square = 2 * w.qs.shape[0] == w.qs.shape[1]
+        first_b5 = (tqm.B1_ON_B5_SQUARE_MIN_M if square
+                    else tqm.B1_ON_B5_MIN_M)
         for m in ROUTE_ROWS:
             launched.clear()
             before = [c.launches for c in counters]
@@ -358,14 +373,15 @@ def test_decode_rows_launch_the_fold_variants(monkeypatch, use_pallas, mode,
                 want, counter = ("fold", 9), 1
             elif use_pallas:
                 want, counter = ("fold", 1), 3
-            elif deep and m >= tqm.B1_ON_B5_MIN_M:
+            elif m >= first_b5:
                 want, counter = ("B5", False), 2
             else:
                 want, counter = ("fold", 0), 0
             assert launched == [want], (k, n, m)
             assert [c.launches - b for c, b in zip(counters, before)] == [
                 int(i == counter) for i in range(4)], (k, n, m)
-    assert tqm.B1_ON_B5_MIN_M == 57 and tqm.DECODE_MAX_M == 64
+    assert (tqm.B1_ON_B5_MIN_M, tqm.B1_ON_B5_SQUARE_MIN_M,
+            tqm.DECODE_MAX_M) == (33, 48, 64)
 
 
 @pytest.mark.cuda
@@ -385,13 +401,26 @@ def test_b1_mma_kernel_matches_plain_at_every_tile(cuda_device, m):
     assert torch.equal(got, tqm.q4_matmul_decode(x, w, torch.bfloat16))
 
 
-# -- B3's wgmma kernel: its plan, the swizzles and the fragment map ---------
+# -- B3 and B5 (bf16 mode): the register-A kernel ---------------------------
+#
+# csrc/q4_prefill_ra.cuh in numpy: the tensor copies' swizzles, the lanes'
+# loads of the packed rows, the weight made in the A registers and wgmma's
+# A fragment map, the x tile read as wgmma's K-major B operand, the D
+# fragment, the splits' merge in split order and the epilogue.
 
 def sw128(row, byte):
-    """Byte offset of (row, byte) in a K-major int8 tile of 128-byte rows as
-    TMA writes it with the 128-byte swizzle (tile base 1024-aligned): the
+    """Byte offset of (row, byte) in a K-major tile of 128-byte rows as TMA
+    writes it with the 128-byte swizzle (tile base 1024-aligned): the
     16-byte chunk index XOR the row within its 8-row group."""
     return row * 128 + (((byte >> 4) ^ (row & 7)) << 4) + (byte & 15)
+
+
+def tma_swizzle(addr, row_bytes):
+    """The hardware's swizzle of a box of `row_bytes`-wide rows (128: the
+    128-byte mode, address bits 4-6 XOR bits 7-9; 64: the 64-byte mode,
+    bits 4-5 XOR bits 7-8) at a 1024-aligned base."""
+    mask = 7 if row_bytes == 128 else 3
+    return addr ^ (((addr >> 7) & mask) << 4)
 
 
 def wgmma_read(start, row, kbyte):
@@ -405,84 +434,246 @@ def wgmma_read(start, row, kbyte):
 
 def d_fragment(i, t):
     """(row, column) of accumulator register i of thread t of a warpgroup in
-    wgmma's m64nN D fragment (csrc/q4_int8.cu's epilogue)."""
+    wgmma's m64nN D fragment."""
     return (16 * (t // 32) + (t % 32) // 4 + 8 * ((i // 2) % 2),
             8 * (i // 4) + 2 * (t % 4) + i % 2)
 
 
-def b3_emulate(xq, w8, dx, s8, n_out, bn):
-    """The wgmma kernel's data movement and arithmetic in numpy: 128 x bn
-    output tiles, K in 128-byte stages written through sw128 into a shared
-    buffer, four k32 steps read back through wgmma_read by two warpgroups of
-    64 rows, int32 sums in the D fragment, then (f32(acc) * dx) * s8 where
-    row < M and column < n_out (zeros past the edges, as TMA fills)."""
-    m, k = xq.shape
-    n = w8.shape[1]
-    y = np.zeros((m, n_out), np.float32)
-    w8t = np.ascontiguousarray(w8.T)
-    t = np.arange(128)[:, None]
-    i = np.arange(bn // 2)[None, :]
-    fr, fc = d_fragment(i, t)
-    for m0 in range(0, m, 128):
-        for n0 in range(0, n, bn):
-            acc = np.zeros((2, 128, bn // 2), np.int64)
-            for k0 in range(0, k, 128):
-                def stage(mat, r0, rows):
-                    tile = np.zeros((rows, 128), np.int64)
-                    part = mat[r0:r0 + rows, k0:k0 + 128]
-                    tile[:part.shape[0], :part.shape[1]] = part
-                    buf = np.zeros(rows * 128, np.int64)
-                    rr, bb = np.meshgrid(np.arange(rows), np.arange(128),
-                                         indexing="ij")
-                    buf[sw128(rr, bb)] = tile
-                    return buf
-                a_buf, b_buf = stage(xq, m0, 128), stage(w8t, n0, bn)
-                for ks in range(0, 128, 32):
-                    kk = np.arange(32)
-                    for wg in range(2):
-                        a = a_buf[wgmma_read(wg * 64 * 128 + ks,
-                                             fr[..., None], kk)]
-                        b = b_buf[wgmma_read(ks, fc[..., None], kk)]
-                        acc[wg] += (a * b).sum(-1)
-            for wg in range(2):
-                rows = m0 + wg * 64 + fr
-                cols = n0 + fc
-                ok = (rows < m) & (cols < n_out)
-                v = (acc[wg].astype(np.float32)
-                     * dx[np.minimum(rows, m - 1)]) \
-                    * s8[np.minimum(cols, n - 1)]
-                y[rows[ok], cols[ok]] = v[ok]
+def ra_lanes(wgs):
+    """Per consumer thread (wg, w, g, t4) and c0 = 64 wg + 16 w + 2 g, the
+    first of the lane's two weight columns."""
+    t = np.arange(128 * wgs)
+    wg, w, lane = t // 128, (t // 32) % 4, t % 32
+    g, t4 = lane // 4, lane % 4
+    return wg, w, g, t4, 64 * wg + 16 * w + 2 * g
+
+
+def ra_rows(int8, t4):
+    """The q block's packed rows of a lane's four loads: B3 4t .. 4t + 3
+    (k 4t.. of the low, 16 + 4t.. of the high nibbles), B5 2t, 2t + 1,
+    2t + 8, 2t + 9 (k 2t, 2t + 1, 2t + 8, 2t + 9 of either k16 step)."""
+    j = np.arange(4)
+    if int8:
+        return 4 * t4[:, None] + j
+    return 2 * t4[:, None] + (j & 1) + 8 * (j >> 1)
+
+
+def ra_roff(int8, cols, t4, c0):
+    """The kernel's byte offsets of the lanes' 2-byte loads in a q block's
+    16 rows (q4_prefill_ra.cuh body_rs roff)."""
+    r = ra_rows(int8, t4)
+    sw = (r & 7) if cols == 128 else ((r >> 1) & 3)
+    c0 = c0[:, None]
+    return r * cols + (((c0 >> 4) ^ sw) << 4) + (c0 & 15)
+
+
+def f32(v):
+    return np.asarray(v, np.float32)
+
+
+def to_bf16(v):
+    return torch.from_numpy(f32(v)).to(torch.bfloat16).float().numpy()
+
+
+def magic(q):
+    """2^23 + q as the f32 the byte permute makes (exact)."""
+    return (np.uint32(0x4B000000) | q.astype(np.uint32)).view(np.float32)
+
+
+def ra_weights(mode, q, d, mn):
+    """The lane's weights from codes q (0..15) and its column's d (and m):
+    bf16 R((q - 8) d) or R(q d + m), int8 rne((q - 8) d) as the int8 byte
+    (d = the scale times 1 / s8), every operation one f32 rounding."""
+    if mode == "int8":
+        v = f32(magic(q) - np.float32(8388616.0))
+        low = (f32(f32(v * d) + np.float32(12582912.0)).view(np.uint32)
+               & 0xFF).astype(np.uint8)
+        return low.view(np.int8).astype(np.int64)
+    if mode == "q4_1":
+        return to_bf16(f32(f32(f32(magic(q) - np.float32(8388608.0)) * d)
+                           + mn))
+    return to_bf16(f32(f32(magic(q) - np.float32(8388616.0)) * d))
+
+
+def ra_a_tile(mode, qbuf, sbuf, b, cols, inv=None):
+    """q block b of a stage as the consumers put it into wgmma's A
+    registers, assembled through the A fragment map into A [64 wgs rows,
+    32 k] (A row 16 w + g (+ 8) of warpgroup wg: weight column c0 (+ 1);
+    bf16: regs 0-3 the low nibbles' k16 step, 4-7 the high ones', reg 0
+    (g, k 2t, 2t + 1), 1 (g + 8, ...), 2 (g, k 2t + 8, 2t + 9), 3 (g + 8,
+    ...); int8: one k32 step, reg 0 (g, k 4t .. 4t + 3), 1 (g + 8, ...),
+    2 (g, k 16 + 4t ..), 3 (g + 8, ...)). qbuf: the stage's packed rows as
+    the tensor copy swizzled them; sbuf: its scale rows [qb][cols] (and
+    mins rows after them); inv: int8's 1 / s8 by column."""
+    int8 = mode == "int8"
+    wgs = cols // 64
+    wg, w, g, t4, c0 = ra_lanes(wgs)
+    off = b * 16 * cols + ra_roff(int8, cols, t4, c0)
+    lo, hi = qbuf[off], qbuf[off + 1]          # columns c0, c0 + 1
+    d = [sbuf[b, c0], sbuf[b, c0 + 1]]
+    mn = ([sbuf[sbuf.shape[0] // 2 + b, c0], sbuf[sbuf.shape[0] // 2 + b,
+                                                  c0 + 1]]
+          if mode == "q4_1" else [np.zeros(len(c0), np.float32)] * 2)
+    if int8:
+        d = [f32(d[0] * inv[c0]), f32(d[1] * inv[c0 + 1])]
+    a = np.zeros((64 * wgs, 32), np.float64)
+    rows = [64 * wg + 16 * w + g, 64 * wg + 16 * w + g + 8]
+    for half, byte in enumerate((lo, hi)):     # column c0, c0 + 1
+        for nib in range(2):
+            q = (byte >> (4 * nib)) & 15        # [threads, 4 rows]
+            v = ra_weights(mode, q, d[half][:, None], mn[half][:, None])
+            for j in range(4):
+                if int8:        # k 4t + j, + 16 for the high nibbles
+                    k = 16 * nib + 4 * t4 + j
+                else:           # rows 2t, 2t+1, 2t+8, 2t+9 -> k of step nib
+                    k = 16 * nib + 2 * t4 + (j & 1) + 8 * (j >> 1)
+                a[rows[half], k] = v[:, j]
+    return a
+
+
+def ra_stage_box(plane, r0, rows, c0, cols, swizzle_bytes=None):
+    """A TMA box [rows, cols] of `plane` at (r0, c0) with zeros past its
+    edges, as a flat buffer (swizzled: swizzle_bytes the row's bytes)."""
+    box = np.zeros((rows, cols), plane.dtype)
+    part = plane[r0:r0 + rows, c0:c0 + cols]
+    box[:part.shape[0], :part.shape[1]] = part
+    if swizzle_bytes is None:
+        return box
+    flat = np.zeros(rows * cols, plane.dtype)
+    rr, cc = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    flat[tma_swizzle(rr * cols + cc, swizzle_bytes)] = box
+    return flat
+
+
+def ra_model(mode, x, w, plan, dx=None):
+    """y [M, n_logical] of the register-A kernel on `plan` (q4_matmul.RaPlan):
+    mode "q4_0" / "q4_1" (B5, x f32 [M, Kx]) or "int8" (B3, x the int8
+    [M, K] plane, dx its row scales). Work items in the kernel's order
+    (ra_items: the tiles before t0 whole, then the rest a split at a time;
+    row tile fastest, then column tile), a split tile's partial D kept and
+    its splits summed in split order, then the epilogue through the D
+    fragment."""
+    int8 = mode == "int8"
+    qs = w.qs.numpy()
+    sc = w.scales.numpy()
+    kh, n = qs.shape
+    k = 2 * kh
+    m = x.shape[0]
+    cols, bx = 64 * plan.wgs, plan.bx
+    qb = 4 if int8 else 2
+    if int8:
+        kc = k
+        # s8 prologue: lane t4 of a column pair takes q blocks t4, t4 + 4,
+        # ...; then the four lanes' maxima (exact in any order)
+        mx = np.max(np.stack([np.abs(sc[t::4]).max(0) if t < sc.shape[0]
+                              else np.zeros(n, np.float32)
+                              for t in range(4)]), 0)
+        s8 = np.maximum(f32(mx * np.float32(8.0 / 127.0)),
+                        np.float32(1e-20))
+        inv = f32(np.float32(1.0) / s8)
+        xbytes = x.astype(np.int8).view(np.uint8)
+    else:
+        kx = x.shape[1]
+        kc = -(-kx // 32) * 32
+        xb = torch.from_numpy(np.pad(x, ((0, 0), (0, k - kx)))).to(
+            torch.bfloat16)
+        xbytes = xb.view(torch.int16).numpy().view(np.uint8).reshape(m, 2 * k)
+        inv = s8 = None
+    planes = [sc] + ([w.mins.numpy()] if mode == "q4_1" else [])
+    nst = -(-kc // (32 * qb))
+    rt, ct = -(-m // bx), -(-n // cols)
+    tiles = rt * ct
+    assert plan.splits == -(-nst // plan.per)
+    split_from = plan.t0 if plan.splits > 1 else tiles
+    y = np.zeros((m, w.n_logical), np.float32)
+    # the D fragment: register i of consumer thread tid holds A row (weight
+    # column) and N (x row) of d_fragment; the epilogue's own map, register
+    # 4j + 2h + c of lane (w, g, t) is x row 8j + 2t + c, column c0 + h,
+    # must say the same
+    wg, wq, g, t4, c0 = ra_lanes(plan.wgs)
+    ireg = np.arange(bx // 2)[None, :]
+    j, half, c = ireg // 4, (ireg >> 1) & 1, ireg & 1
+    xrow = 8 * j + 2 * t4[:, None] + c
+    col = c0[:, None] + half
+    frr, fcc = d_fragment(ireg, (np.arange(128 * plan.wgs) % 128)[:, None])
+    assert (frr == 16 * wq[:, None] + g[:, None] + 8 * half).all()
+    assert (fcc == xrow).all()
+    parts = {}
+    for tile, z in tqm.ra_items(tiles, plan):
+        m0, n0 = (tile % rt) * bx, (tile // rt) * cols
+        split = tile >= split_from
+        stages = (range(z * plan.per, min(nst, (z + 1) * plan.per)) if split
+                  else range(nst))
+        acc = np.zeros((64 * plan.wgs, bx), np.int64 if int8 else np.float32)
+        for st in stages:
+            xbuf = ra_stage_box(xbytes, m0, bx, st * 128, 128, 128)
+            qbuf = ra_stage_box(qs, st * qb * 16, qb * 16, n0, cols, cols)
+            sbuf = np.concatenate([ra_stage_box(p, st * qb, qb, n0, cols)
+                                   for p in planes])
+            rr = np.arange(bx)[:, None]
+            for b in range(qb):
+                a = ra_a_tile(mode, qbuf, sbuf, b, cols, None if inv is None
+                              else np.pad(inv, (0, cols))[n0:n0 + cols])
+                if int8:        # one k32 step: 32 bytes of each x row
+                    kk = np.arange(32)[None, :]
+                    bt = xbuf[wgmma_read(32 * b, rr, kk)].view(np.int8)
+                    acc += a.astype(np.int64) @ bt.astype(np.int64).T
+                    continue
+                for s in range(2):  # a k16 step: 32 bytes of each x row
+                    kk = 2 * np.arange(16)[None, :]
+                    start = 32 * (2 * b + s)
+                    lo = xbuf[wgmma_read(start, rr, kk)].astype(np.uint16)
+                    hi = xbuf[wgmma_read(start, rr, kk + 1)].astype(np.uint16)
+                    bt = torch.from_numpy((lo | (hi << 8)).view(np.int16)) \
+                        .view(torch.bfloat16).float().numpy()
+                    acc = f32(acc + f32(a[:, 16 * s:16 * s + 16]) @ bt.T)
+        parts[(tile, z)] = acc[64 * wg[:, None] + frr, fcc]   # [tid, reg]
+        if split and sum(p[0] == tile for p in parts) < plan.splits:
+            continue
+        total = parts[(tile, 0)]
+        for zz in range(1, plan.splits if split else 1):   # in split order
+            total = total + parts[(tile, zz)]
+        mm, nn = m0 + xrow, n0 + col
+        ok = (mm < m) & (nn < w.n_logical)
+        v = total[ok]
+        if int8:
+            v = f32(f32(v.astype(np.float32) * dx[mm[ok]]) * s8[nn[ok]])
+        y[mm[ok], nn[ok]] = v
     return y
 
 
 def test_b3_swizzle_maps_are_bijections_and_wgmma_reads_the_k_slice():
-    """TMA's 128-byte swizzle places a 256-row tile bijectively; wgmma,
-    with the descriptor's start advanced by 32 bytes a k step, reads
-    exactly the logical (row, k) byte for every row of a 64- or 256-row
-    operand; the requant pass's staging tile (chunk ^ (row / 4) % 32 in
-    512-byte rows) is a bijection whose stores (rows 4 l + c of lanes l)
-    and row reads meet no bank conflict (8 distinct 16-byte bank groups in
-    every quarter warp)."""
+    """TMA's 128-byte swizzle places a 256-row x tile bijectively; wgmma,
+    with the descriptor's start advanced by 32 bytes a k step (a k16 step of
+    bf16 or a k32 step of int8), reads exactly the logical (row, k) byte for
+    every row of a BX-row B operand; the 128- and 64-byte swizzles of the
+    packed rows' boxes are bijections, the lanes' offsets of their two
+    bytes (ra_roff, both modes) are where the copy put columns c0 and c0 + 1
+    of their rows, for one and two warpgroups."""
     rr, bb = np.meshgrid(np.arange(256), np.arange(128), indexing="ij")
     assert sorted(sw128(rr, bb).ravel()) == list(range(256 * 128))
+    assert (tma_swizzle(rr * 128 + bb, 128) == sw128(rr, bb)).all()
     for ks in range(0, 128, 32):
         kk = np.arange(32)[None, :]
         rows = np.arange(256)[:, None]
         assert (wgmma_read(ks, rows, kk) == sw128(rows, ks + kk)).all()
-    off = lambda row, chunk: row * 512 + ((chunk ^ ((row >> 2) & 31)) << 4)
-    rows, chunks = np.meshgrid(np.arange(128), np.arange(32), indexing="ij")
-    assert sorted((off(rows, chunks) // 16).ravel()) == list(range(4096))
-    lanes = np.arange(32)
-    for c in range(4):
-        for chunk in range(32):
-            banks = (off(4 * lanes + c, chunk) // 16) % 8
-            assert all(len(set(banks[q:q + 8])) == 8 for q in (0, 8, 16, 24))
-    for row in range(128):
-        assert len(set(off(row, lanes) % 128 // 16)) == 8
+    for cols in (64, 128):
+        rr, cc = np.meshgrid(np.arange(64), np.arange(cols), indexing="ij")
+        assert sorted(tma_swizzle(rr * cols + cc, cols).ravel()) == list(
+            range(64 * cols))
+        _, _, _, t4, c0 = ra_lanes(cols // 64)
+        for int8 in (False, True):
+            r = ra_rows(int8, t4)
+            off = ra_roff(int8, cols, t4, c0)
+            assert (off == tma_swizzle(r * cols + c0[:, None], cols)).all()
+            assert (off + 1 == tma_swizzle(r * cols + c0[:, None] + 1,
+                                           cols)).all()
 
 
-@pytest.mark.parametrize("bn", [128, 256])
+@pytest.mark.parametrize("bn", tqm.RA_BX)
 def test_b3_d_fragment_covers_the_tile_once(bn):
+    """wgmma's D fragment of a warpgroup covers its 64 x BX tile once at
+    every built BX (the register-A kernel's x rows)."""
     t = np.arange(128)[:, None]
     i = np.arange(bn // 2)[None, :]
     r, c = d_fragment(i, t)
@@ -490,21 +681,56 @@ def test_b3_d_fragment_covers_the_tile_once(bn):
     assert cells == [(a, b) for a in range(64) for b in range(bn)]
 
 
-@pytest.mark.parametrize("m,n_logical,bn", [(130, 200, 128), (256, 256, 256),
-                                            (100, 96, 256)])
-def test_b3_emulation_equals_plain(m, n_logical, bn):
-    """The kernel's maps and order of operations (b3_emulate) give
+@pytest.mark.parametrize("m,n_logical,plan", [
+    (130, 200, (160, 2, 2, 2, 0)), (256, 256, (256, 1, 4, 1, 2)),
+    (100, 96, (128, 2, 1, 4))])
+def test_b3_emulation_equals_plain(m, n_logical, plan):
+    """The register-A kernel's maps and order of operations (ra_model, int8
+    mode: s8 from the whole K in the prologue, w8 made in the A registers,
+    the x tile as the B operand, exact int32 sums, the splits merged in
+    order, the epilogue (float(acc) * dx) * s8) give
     q4_matmul_prefill_int8_plain's output bit for bit, across partial row
-    and column tiles and K padded from 320 to the stored 512."""
+    and column tiles, one and two warpgroups, K (padded from 320 to the
+    stored 512: four 128-deep stages) split in two for every tile, in four
+    for the tiles past the first two, or not."""
     k = 320
     wt, _ = weights(k, n_logical, seed=21)
     x = acts(m, k, seed=22, scale=2.0)
     xq, dx = tqm.quant_rows_int8(torch.from_numpy(x), wt.k)
-    w8, s8 = tqm.requant_weight_int8(wt)
     want = tqm.q4_matmul_prefill_int8_plain(xq, dx, wt).numpy()
-    got = b3_emulate(xq.numpy().astype(np.int64), w8.numpy().astype(np.int64),
-                     dx.numpy(), s8.numpy(), n_logical, bn)
+    got = ra_model("int8", xq.numpy(), wt, tqm.RaPlan(*plan), dx.numpy())
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode,plan", [("int8", (128, 1, 2, 2, 1)),
+                                       ("q4_0", (128, 2, 2, 4, 0)),
+                                       ("q4_1", (96, 1, 3, 2, 1))])
+def test_ra_model_at_a_shard_k_past_the_last_stage(mode, plan):
+    """ra_model on a stored K that no stage divides, as a tp shard keeps
+    it (K = 352, 11 q blocks: B3's last 128-deep stage 3/4 inside K, B5's
+    last 64-deep stage half; the copies fill zeros past K), K split so
+    that the short stage falls in the last split: B3 bit-equal to
+    q4_matmul_prefill_int8_plain, B5 within 1e-5 of q4_matmul_dequant."""
+    k, n, m = 352, 200, 130
+    rng = np.random.default_rng(29)
+    sc = rng.uniform(1e-3, 0.02, (k // 32, 208)).astype(np.float32)
+    wt = tt.QuantMatmulWeight(
+        qs=torch.from_numpy(rng.integers(0, 256, (k // 2, 208),
+                                         dtype=np.uint8)),
+        scales=torch.from_numpy(sc),
+        mins=torch.from_numpy(-7.5 * sc) if mode == "q4_1" else None,
+        n_logical=n)
+    x = acts(m, k, seed=30, scale=2.0)
+    if mode == "int8":
+        xq, dx = tqm.quant_rows_int8(torch.from_numpy(x), wt.k)
+        want = tqm.q4_matmul_prefill_int8_plain(xq, dx, wt).numpy()
+        got = ra_model("int8", xq.numpy(), wt, tqm.RaPlan(*plan), dx.numpy())
+        np.testing.assert_array_equal(got, want)
+        return
+    want = tqm.q4_matmul_dequant(torch.from_numpy(x), wt,
+                                 torch.bfloat16).numpy()
+    got = ra_model(mode, x, wt, tqm.RaPlan(*plan))
+    assert_close(got, want, 1e-5)
 
 
 def test_b3_requant_byte_rounds_half_to_even():
@@ -525,24 +751,78 @@ def test_b3_requant_byte_rounds_half_to_even():
     np.testing.assert_array_equal(low, want)
 
 
+# the rows the plan is held at: B1's rows that B5 takes (b1_on_b5), B5's
+# edges, the engine's buckets and the prefill's 512 bucket, and partial
+# tiles past them
+RA_ROWS = (57, 64, 65, 128, 192, 255, 256, 300, 512, 513)
+
+
+def ra_stages(int8, affine, bx, wgs):
+    """The ring slots of the kernel (q4_prefill_ra.cuh max_stages): a
+    stage's 1024-aligned bytes (the x tile, the packed rows, the scale and
+    mins rows) in the dynamic shared memory of a launch (231,424 bytes)
+    less 1 KB of alignment and the barriers."""
+    cols, qb = 64 * wgs, 4 if int8 else 2
+    raw = bx * 128 + qb * 16 * cols + qb * cols * 4 * (2 if affine else 1)
+    return min(8, (231424 - 1024 - 24 * 8) // (-(-raw // 1024) * 1024))
+
+
+def check_ra_plan_covers(k, n, int8):
+    """prefill_plan at RA_ROWS on a stored (K, N) plane: the row tiles,
+    column tiles and splits of K cover every output and every q block once
+    (a stage 2 q blocks in bf16 mode, 4 in int8 mode; the last may reach
+    past K, where the copies fill zeros) in the kernel's items (ra_items:
+    whole tiles, then the split ones), every split keeps RA_MIN_STAGES
+    stages, and the ring holds three stages or more (B5: in both weight
+    kinds)."""
+    nb, qb = k // 32, 4 if int8 else 2
+    for m in RA_ROWS:
+        p = tqm.prefill_plan(m, n, k, 132, int8=int8)
+        assert p.bx in tqm.RA_BX and p.wgs in (1, 2)
+        assert 1 <= p.splits <= tqm.RA_MAX_SPLITS
+        cols = 64 * p.wgs
+        rows = [z * p.bx + r for z in range(-(-m // p.bx))
+                for r in range(p.bx) if z * p.bx + r < m]
+        outs = [y * cols + c for y in range(-(-n // cols))
+                for c in range(cols) if y * cols + c < n]
+        assert rows == list(range(m)) and outs == list(range(n))
+        nst = -(-nb // qb)
+        tiles = -(-m // p.bx) * -(-n // cols)
+        assert p.splits == 1 or 0 <= p.t0 < tiles
+        blocks = {t: [] for t in range(tiles)}
+        for t, z in tqm.ra_items(tiles, p):
+            if p.splits == 1 or t < p.t0:
+                stages = range(nst)
+            else:
+                stages = range(z * p.per, min(nst, (z + 1) * p.per))
+                assert len(stages) >= tqm.RA_MIN_STAGES
+            blocks[t] += [qb * s + j for s in stages for j in range(qb)
+                          if qb * s + j < nb]
+        assert all(b == list(range(nb)) for b in blocks.values())
+        assert ra_stages(int8, False, p.bx, p.wgs) >= 3
+        assert int8 or ra_stages(int8, True, p.bx, p.wgs) >= 3
+
+
 @pytest.mark.parametrize("k,n", PLANES_7B[:4] + PLANES_13B
                          + PLANES_7B_TP[:4] + PLANES_7B_TP[5:9])
 def test_b3_plan_covers_every_output_once(k, n):
-    """The grid of B3's product (row tiles of 128 by the planned variant's
-    columns) covers M x N once at the prefill's and the admissions' M; the
-    7B qkv plane takes 128-column tiles at M = 512 (3 waves on 132 SMs
-    against 2 of 256 columns weighing 4) and 256 at M = 256."""
-    for m in (256, 300, 512, 513, 1024, 2048):
-        bn = tqm.B3_TILES[tqm.b3_plan(m, n, 132)]
-        gy = -(-n // bn)
-        assert gy <= 65535
-        rows = [z * tqm.B3_BM + r for z in range(-(-m // tqm.B3_BM))
-                for r in range(tqm.B3_BM) if z * tqm.B3_BM + r < m]
-        cols = [y * bn + c for y in range(gy) for c in range(bn)
-                if y * bn + c < n]
-        assert rows == list(range(m)) and cols == list(range(n))
-    assert tqm.B3_TILES[tqm.b3_plan(512, 12288, 132)] == 128
-    assert tqm.B3_TILES[tqm.b3_plan(256, 12288, 132)] == 256
+    """B3's plan (prefill_plan, int8 mode) on the 7B and 13B planes and the
+    tp planes covers every output and q block once at RA_ROWS and its x
+    tiles follow M: ceil(M / 256) tiles as even as they go (M = 300: two
+    of 160; 513: three of 192)."""
+    check_ra_plan_covers(k, n, True)
+    assert [tqm.ra_bx(m) for m in (57, 65, 128, 255, 256, 300, 512, 513,
+                                    1024)] == [64, 96, 128, 256, 256, 160,
+                                               256, 192, 256]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("k,n", PLANES_7B + PLANES_13B + PLANES_7B_TP)
+def test_ra_plan_covers_every_output_and_q_block_once(k, n, int8):
+    """The register-A kernel's plan in both modes (B5 in bf16 mode, B3) on
+    every stored 7B and 13B plane and the planes a rank holds at tp 2 and 4
+    (w2 at tp 4: 86 q blocks) at RA_ROWS (check_ra_plan_covers)."""
+    check_ra_plan_covers(k, n, int8)
 
 
 @pytest.mark.cuda
@@ -567,7 +847,62 @@ def test_b3_kernel_bit_exact_at_7b_and_13b_planes(cuda_device, m, k, n):
     assert torch.equal(got, tqm.q4_matmul_prefill_int8(xq, dx, w))
 
 
-# -- B5's wgmma kernel: its planner, converter tile and descriptor ----------
+# the planes a rank holds at tp 4 whose K the shard keeps unpadded: w2
+# (2752, 86 q blocks: B3's last 128-deep stage half past K, B5's whole) and
+# wo (1024)
+TP4_SHARDS = [(2752, 4096), (1024, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["q4_0", "q4_1", "int8"])
+@pytest.mark.parametrize("k,n", [(4096, 12288), (11008, 4096), (5120, 15360),
+                                 (13824, 5120), (4096, 4096)] + TP4_SHARDS)
+def test_ra_kernels_match_plain_under_pinned_plans(cuda_device, mode, k, n):
+    """B3 (bit for bit) and B5 (q4_0, q4_1; 1e-5 of the largest |x| @ |W|)
+    on 7B and 13B planes and tp 4's shards (stored K = K: the copies' zero
+    fill past K inside the tile loop) at RA_ROWS, on their plan and pinned
+    to one and two warpgroups a block with K whole and split three ways
+    (every tile, or every tile but the first), each run twice and equal."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(k + n)
+    kp = k if (k, n) in TP4_SHARDS else tt.good_pad_k(k)
+    np_ = tt.good_pad_n(n)
+    sc = torch.rand((kp // 32, np_), generator=g, device=cuda_device) \
+        * 0.019 + 1e-3
+    w = tt.QuantMatmulWeight(
+        qs=torch.randint(0, 256, (kp // 2, np_), generator=g,
+                         device=cuda_device, dtype=torch.uint8),
+        scales=sc, mins=(sc * -7.5) if mode == "q4_1" else None, n_logical=n)
+    int8 = mode == "int8"
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for m in RA_ROWS:
+        x = torch.randn((m, k), generator=g, device=cuda_device)
+        kc = kp if int8 else k
+        plans = [None] + [tqm.prefill_plan(m, np_, kc, sms, int8=int8,
+                                           wgs=wgs, splits=s, t0=t0)
+                          for wgs in (1, 2) for s, t0 in ((1, None), (3, 0),
+                                                          (3, 1))]
+        if int8:
+            xq, dx = tqm.quant_rows_int8(x, w.k)
+            want = tqm.q4_matmul_prefill_int8_plain(xq, dx, w)
+            for p in plans:
+                got = tqm.q4_matmul_prefill_int8(xq, dx, w, plan=p)
+                assert torch.equal(got, want), (m, p)
+                assert torch.equal(got, tqm.q4_matmul_prefill_int8(
+                    xq, dx, w, plan=p))
+            continue
+        want = tqm.q4_matmul_dequant(x, w, torch.bfloat16)
+        wd = tt.dequant_matmul_weight(w, torch.bfloat16).float()
+        tol = 1e-5 * (tqm._pad_k(x.abs(), kp).to(torch.bfloat16).float()
+                      @ wd.abs())[:, :n].max().item()
+        for p in plans:
+            got = tqm.q4_matmul_prefill(x, w, torch.bfloat16, plan=p)
+            assert (got - want).abs().max().item() <= tol, (m, p)
+            assert torch.equal(got, tqm.q4_matmul_prefill(
+                x, w, torch.bfloat16, plan=p))
+
+
+# -- b5_plan (B5's f32 kernel, B20's split kernel) and B20's converter tile -
 
 # (K, N) stored planes at 7B (qkv, wo, w13, w2) and 13B
 B5_PLANES = PLANES_7B[:4] + PLANES_13B
@@ -577,12 +912,13 @@ B5_PLANES = PLANES_7B[:4] + PLANES_13B
                          + PLANES_7B_TP[5:9])
 @pytest.mark.parametrize("f32", [False, True])
 def test_b5_plan_covers_every_output_and_q_block_once(k, n, f32):
-    """Row tiles x column tiles x K splits of B5 cover each output once and
-    each q block of K once at every M from 65 to 513, in bf16 mode (64-deep
-    stages of two q blocks, at least B5_MIN_STAGES_PER_SPLIT a split) and
-    f32 mode (steps of one q block, at least B5_MIN_STEPS_PER_SPLIT); on
-    the 7B qkv plane M = 128 splits K four ways in bf16 mode (96 tiles on
-    132 SMs) and M = 512 does not split (384 tiles)."""
+    """Row tiles x column tiles x K splits of b5_plan cover each output once
+    and each q block of K once at every M from 65 to 513, in bf16 mode (B20's
+    split kernel: 64-deep stages of two q blocks, at least
+    B5_MIN_STAGES_PER_SPLIT a split) and f32 mode (B5's f32 kernel: steps of
+    one q block, at least B5_MIN_STEPS_PER_SPLIT); on the 7B qkv plane
+    M = 128 splits K four ways in bf16 mode (96 tiles on 132 SMs) and
+    M = 512 does not split (384 tiles)."""
     nb = k // 32
     qb = (tqm.B5_F32_BK if f32 else tqm.B5_BK) // 32
     least = (tqm.B5_MIN_STEPS_PER_SPLIT if f32
@@ -629,7 +965,7 @@ def wgmma_read_mn(start, lbo, sbo, k, n):
 
 
 def test_b5_converter_tile_is_a_bijection_and_wgmma_reads_the_k_slice():
-    """The converter's tile places the 64 x 128 weights of a stage
+    """B20's converters' tile places the 64 x 128 weights of a stage
     bijectively in 16 KB; wgmma's MN-major descriptor (LBO 1024, SBO 2048,
     start advanced by 4096 bytes a k16 step) reads exactly the (k, n) the
     converter wrote for every k of each of the four k16 steps; a warp's
@@ -651,8 +987,9 @@ def test_b5_converter_tile_is_a_bijection_and_wgmma_reads_the_k_slice():
 
 @pytest.mark.parametrize("affine", [False, True])
 def test_b5_converter_arithmetic_equals_dequant_bit_for_bit(affine):
-    """The converter's weight without a conversion instruction: 2^23 + q
-    minus 2^23 (+ 8) is q (q - 8) exactly, then __fmul_rn by d (and
+    """The weight without a conversion instruction, as the register-A
+    kernel makes it in bf16 mode (and B5's f32 kernel before the rounding):
+    2^23 + q minus 2^23 (+ 8) is q (q - 8) exactly, then __fmul_rn by d (and
     __fadd_rn of m), each rounded in f32 (numpy f32 ops: no FMA), then one
     rounding to bf16, gives dequant_matmul_weight's bf16 weight bit for bit
     at every code."""
@@ -678,63 +1015,131 @@ def test_b5_converter_arithmetic_equals_dequant_bit_for_bit(affine):
     assert torch.equal(got, want)
 
 
-def b5_emulate(x, w, sms):
-    """B5's bf16 kernel in numpy: 128 x 128 tiles, K split as b5_plan says
-    for `sms` SMs, 64-deep stages whose weights the converter writes
-    through b5_w_off into a byte tile and wgmma reads back through
-    wgmma_read_mn four k16 steps a stage, f32 sums per split, the splits
-    added in order; zeros past M, N and K as TMA fills."""
-    m, kx = x.shape
-    kh, n = w.qs.shape
-    k = kh * 2
-    kc = -(-kx // 32) * 32
-    splits, per = tqm.b5_plan(m, n, kc, sms)
-    nk = -(-kc // 64)
-    xb = torch.from_numpy(np.pad(x, ((0, 0), (0, k - kx)))).to(
-        torch.bfloat16).float().numpy()
-    wd = tt.dequant_matmul_weight(w, torch.bfloat16).float().numpy()
-    y = np.zeros((m, n), np.float32)
-    k16, nn = np.meshgrid(np.arange(16), np.arange(128), indexing="ij")
-    for m0 in range(0, m, 128):
-        for n0 in range(0, n, 128):
-            parts = []
-            for z in range(splits):
-                acc = np.zeros((128, 128), np.float32)
-                for kt in range(z * per, min(nk, (z + 1) * per)):
-                    tile = np.zeros((64, 128), np.float32)
-                    part = wd[kt * 64:kt * 64 + 64, n0:n0 + 128]
-                    tile[:part.shape[0], :part.shape[1]] = part
-                    buf = np.zeros(8192, np.float32)
-                    kk, cc = np.meshgrid(np.arange(64), np.arange(128),
-                                         indexing="ij")
-                    buf[b5_w_off(kk, cc) // 2] = tile
-                    a = np.zeros((128, 64), np.float32)
-                    xa = xb[m0:m0 + 128, kt * 64:kt * 64 + 64]
-                    a[:xa.shape[0], :xa.shape[1]] = xa
-                    for step in range(4):
-                        b = buf[wgmma_read_mn(step * 4096, 1024, 2048, k16,
-                                              nn) // 2]
-                        acc += a[:, step * 16:step * 16 + 16] @ b
-                parts.append(acc)
-            total = parts[0]
-            for p in parts[1:]:
-                total = total + p
-            y[m0:m0 + 128, n0:n0 + 128] = total[:m - m0, :n - n0]
-    return y[:, :w.n_logical]
-
-
-@pytest.mark.parametrize("m,sms", [(130, 132), (65, 4), (260, 1)])
+@pytest.mark.parametrize("m,plan", [(130, (160, 2, 2, 5, 0)),
+                                    (65, (96, 1, 1, 10)),
+                                    (260, (128, 2, 3, 4, 3))])
 @pytest.mark.parametrize("affine", [False, True])
-def test_b5_emulation_equals_plain(m, sms, affine):
-    """The kernel's maps and order of operations (b5_emulate) against
+def test_b5_emulation_equals_plain(m, plan, affine):
+    """The register-A kernel's maps and order of operations (ra_model, bf16
+    mode: the weight made in the A registers, the x tile as the B operand,
+    f32 sums a k16 step, the splits added in order) against
     q4_matmul_dequant within f32 reassociation, across partial row and
-    column tiles, K padded from 608 to the stored K, and K split in two
-    (four tiles on 132 SMs, two on 4) or not (six tiles on one SM)."""
+    column tiles, x's K (608) short of the stored K (768), one and two
+    warpgroups, and K split in two for every tile, in three for the tiles
+    past the first three, or not."""
     wt = q41_weight(608, 200) if affine else weights(608, 200, seed=25)[0]
     x = acts(m, 608, seed=26)
     want = tqm.q4_matmul_dequant(torch.from_numpy(x), wt).numpy()
-    assert (tqm.b5_plan(m, wt.qs.shape[1], 608, sms)[0] > 1) == (sms > 1)
-    assert_close(b5_emulate(x, wt, sms), want, 1e-5)
+    got = ra_model("q4_1" if affine else "q4_0", x, wt, tqm.RaPlan(*plan))
+    assert_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["q4_0", "q4_1", "int8"])
+@pytest.mark.parametrize("wgs", [1, 2])
+def test_ra_a_fragment_holds_the_weights(mode, wgs):
+    """Row 16 w + g (+ 8) of warpgroup wg's A operand holds weight column
+    64 wg + 16 w + 2 g (+ 1) of every q block bit for bit: B5's through its
+    loads (ra_roff on the swizzled packed rows), its arithmetic in
+    registers (ra_weights) and wgmma's A fragment map,
+    dequant_matmul_weight's bf16 weight (q4_0, q4_1); B3's the same way
+    (int8), requant_weight_int8's w8; for one and two warpgroups a
+    block."""
+    k, n = 256, 256
+    wt = q41_weight(k, n) if mode == "q4_1" else weights(k, n, seed=27)[0]
+    int8 = mode == "int8"
+    if int8:
+        w8, s8 = tqm.requant_weight_int8(wt)
+        want = w8.numpy().astype(np.float64)
+        inv = f32(np.float32(1.0) / s8.numpy())
+    else:
+        want = tt.dequant_matmul_weight(wt, torch.bfloat16).float().numpy()
+        inv = None
+    qs, planes = wt.qs.numpy(), [wt.scales.numpy()]
+    if mode == "q4_1":
+        planes.append(wt.mins.numpy())
+    cols, qb = 64 * wgs, 4 if int8 else 2
+    # A row 16 w + g + 8 h of warpgroup wg holds column n0 + col[r],
+    # 64 wg + 16 w + 2 g + h
+    r = np.arange(cols)
+    rem = r % 64
+    col = 64 * (r // 64) + 16 * (rem // 16) + 2 * (rem % 8) + (rem % 16) // 8
+    for n0 in range(0, n, cols):
+        for st in range(k // (32 * qb)):
+            qbuf = ra_stage_box(qs, st * qb * 16, qb * 16, n0, cols, cols)
+            sbuf = np.concatenate([ra_stage_box(p, st * qb, qb, n0, cols)
+                                   for p in planes])
+            for b in range(qb):
+                a = ra_a_tile(mode, qbuf, sbuf, b, cols, None if inv is None
+                              else inv[n0:n0 + cols])
+                kb = st * qb + b
+                np.testing.assert_array_equal(
+                    a, want[32 * kb:32 * kb + 32, n0 + col].T)
+
+
+def test_b3_s8_prologue_equals_the_plain_scales():
+    """B3's prologue: the four lanes of a column pair take every fourth q
+    block's |d| (a max, exact in any order), s8 = max(mx * 8/127, 1e-20)
+    and 1 / s8 by one IEEE division give requant_weight_int8's s8 and its
+    d * (1 / s8) bit for bit, on a plane of 13 q blocks (not a multiple of
+    four) with a zero column (s8 at its floor)."""
+    wt, _ = weights(416, 96, seed=28)
+    sc = wt.scales.numpy().copy()
+    sc[:, 5] = 0.0
+    wt = tt.QuantMatmulWeight(wt.qs, torch.from_numpy(sc), n_logical=96)
+    lanes = [np.abs(sc[t::4]).max(0) for t in range(4)]
+    mx = np.maximum(np.maximum(lanes[0], lanes[1]),
+                    np.maximum(lanes[2], lanes[3]))
+    s8 = np.maximum(f32(mx * np.float32(8.0 / 127.0)), np.float32(1e-20))
+    inv = f32(np.float32(1.0) / s8)
+    w8, s8_plain = tqm.requant_weight_int8(wt)
+    np.testing.assert_array_equal(s8, s8_plain.numpy())
+    assert s8[5] == np.float32(1e-20)
+    np.testing.assert_array_equal(
+        f32(sc * inv[None, :]),
+        (wt.scales * (torch.ones_like(s8_plain) / s8_plain)).numpy())
+
+
+@pytest.mark.parametrize("mode", ["q4_0", "q4_1", "int8"])
+@pytest.mark.parametrize("m", [130, 256])
+def test_ra_model_matches_the_jax_kernels(mode, m):
+    """The register-A model against the JAX package at a small size (K 352
+    padded to 512, N 96 padded to 256): int8 against q4_matmul_prefill_int8
+    (its Pallas kernel in interpret mode, which quantizes x itself) within
+    2 ulps (the JAX path's (acc * dx) * s8 may be fused by XLA; the port's
+    own plain version is bit-equal, test_b3_emulation_equals_plain) and its
+    exact int32 accumulators against q4_matmul_int8_xla's; q4_0 against
+    q4_matmul_prefill_pallas in interpret mode and q4_1 against
+    q4_matmul_xla (the JAX package's function for an affine weight at M >
+    64; its Pallas prefill kernel takes q4_0 only), within 1e-5 of the
+    largest output."""
+    k, n = 352, 96
+    plan = tqm.prefill_plan(m, 256, 512 if mode == "int8" else 352, 4,
+                            int8=mode == "int8")
+    x = acts(m, k, seed=29, scale=2.0)
+    if mode == "q4_1":
+        wt, wj, _ = _q41_weights(k, n)
+    else:
+        wt, wj = weights(k, n, seed=30)
+    xp = np.pad(x, ((0, 0), (0, wt.k - k)))
+    if mode == "int8":
+        xq, dx = tqm.quant_rows_int8(torch.from_numpy(x), wt.k)
+        got = ra_model("int8", xq.numpy(), wt, plan, dx.numpy())
+        want = np.asarray(jqm.q4_matmul_prefill_int8(
+            jnp.asarray(xp), wj.qs, wj.scales, interpret=True))[:, :n]
+        assert np.all(np.abs(got - want) <= 2 * np.spacing(np.abs(want)))
+        w8, _ = tqm.requant_weight_int8(wt)
+        np.testing.assert_array_equal(
+            tqm.int8_accumulators(xq, w8).numpy().astype(np.int64),
+            np.asarray(_jax_int8_accumulators(xp, wj)))
+        return
+    got = ra_model(mode, x, wt, plan)
+    if mode == "q4_0":
+        want = jqm.q4_matmul_prefill_pallas(
+            jnp.asarray(xp).astype(jnp.bfloat16), wj.qs, wj.scales,
+            interpret=True, w_dtype=jnp.bfloat16)
+    else:
+        want = jqm.q4_matmul_xla(jnp.asarray(xp), wj, w_dtype=jnp.bfloat16)
+    assert_close(got, np.asarray(want)[:, :n], 1e-5)
 
 
 @pytest.mark.cuda

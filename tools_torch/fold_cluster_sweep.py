@@ -50,11 +50,11 @@ _NO_COPIES = (("        for (int p = 0; p < C; ++p)\n",
               ("mbar_expect_tx(conv + 8 * s, (C - 1) * bytes);",
                "mbar_expect_tx(conv + 8 * s, 0);"))
 _NO_FOLD_ROWS = (
-    "        for (int i = 0; i < kFoldRows / R::kFoldWarps; ++i) {",
-    "        for (int i = 0; i < 0; ++i) {")
+    "      for (int i = 0; i < kFoldRows / R::kFoldWarps; ++i) {",
+    "      for (int i = 0; i < 0; ++i) {")
 _NO_FOLD_SLICE = (
-    "      if constexpr (MODE == kSplit)    // the fold slice",
-    "      if constexpr (MODE == -1)    // the fold slice")
+    "      wgmma_bf16_n128(                 // the fold slice",
+    "      if (false) wgmma_bf16_n128(      // the fold slice")
 _FIVE_STAGES = ("constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 4;",
                 "constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 5;")
 # name: (source, (text to replace, replacement), ...)
