@@ -1052,7 +1052,7 @@ def check_decode_attention(torch, dev, gen, results):
                                               **kw4)
         ctx, k1, v1 = runs[0]
         err = (ctx - ref).abs().max().item()
-        # bf16: each chunk rounds its p = exp(score - chunk max) to bf16
+        # bf16: each block rounds its p = exp(score - block max) to bf16
         # before the PV dot where the plain version rounds exp(score - max),
         # and one f32 ulp of exp can move a rounding by one bf16 ulp (2^-8);
         # f32: exp within a few ulp and the sum order, as for B10
@@ -1066,7 +1066,8 @@ def check_decode_attention(torch, dev, gen, results):
                 f"B4 {label}: not deterministic")
         return err, tol
 
-    # the depths where the 64-row chunks begin and end, the last row, and
+    # no rows, one, the 64-row edges (8 rows a block of a cluster of 8 at
+    # S 512), 300, the last row, and
     # one past S (an inactive slot: all S rows attended, row S - 1 written)
     for n_past in (0, 1, 63, 64, 65, 300, 511, s_len + 88):
         qkv = torch.randn((1, 1, 3 * f), generator=gen, device=dev)
@@ -1118,7 +1119,7 @@ def check_decode_attention(torch, dev, gen, results):
             f"B10 {label}: not deterministic")
         return err, tol
 
-    # the depths where B10's 64-row chunks begin, end and go neutral, and
+    # one row, two, the 64-row edges, 300, the last row, and
     # one past S (an inactive slot: all S rows, finite)
     for n_past in (0, 1, 63, 64, 300, 511, s_len + 88):
         q = torch.randn((1, 1, f), generator=gen, device=dev)
@@ -2258,9 +2259,16 @@ def kernels_per_call(torch, fn, calls: int = 4, traces: int = 5) -> dict:
 def device_time_by_kernel(prof, n_steps: int):
     """From a torch.profiler trace of n_steps steps: (device ms per step,
     device launches per step, the twelve kernels with the most device time
-    as (name, ms per step, calls per step))."""
+    as (name, ms per step, calls per step)). The device time is the time
+    the device's events cover (overlaps once: a programmatic dependent
+    starts before the kernel ahead of it ends); a kernel's, its spans'."""
+    from torch.autograd import DeviceType
+    from fastllama_tpu_torch.utils.trace import busy_us
     by_name = kernel_device_us(prof)
-    total_us = sum(v[0] for v in by_name.values())
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    total_us = (busy_us(spans) if spans
+                else sum(v[0] for v in by_name.values()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return (total_us / 1e3 / n_steps,
             sum(v[1] for v in by_name.values()) / n_steps,
@@ -3089,7 +3097,7 @@ def trace_engine(torch, sched, make_traced):
                 f"traced engine run: launches {counts}")
         total, top = traced_breakdown(
             os.path.join(trace_dir, "engine_run"), "engine_run",
-            ("paged_split_kernel", "q4_fold_kernel"))
+            ("attn_split_kernel", "q4_fold_kernel"))
     finally:
         shutil.rmtree(trace_dir, ignore_errors=True)
     return dict(device_ms=total / 1e3, launches=counts, top=top,
@@ -3604,8 +3612,8 @@ def check_shard_planes(torch, dev, gen, results):
 
 def check_shard_attention(torch, dev, gen, results):
     """B4 and B10 at the heads a rank holds at tp = 2 and 4 (16 and 8): at
-    B = 1 (the TP session) at the depths where the 64-row chunks begin and
-    end, the last row and past S (an inactive slot), and at B = 8 (the slab
+    B = 1 (the TP session) at no rows, one, the 64-row edges, the last row
+    and past S (an inactive slot), and at B = 8 (the slab
     engine's step) with per-slot depths, one of them past S; bf16 and f32
     caches (check_attention_heads)."""
     s_len = ENG_CTX
@@ -5589,7 +5597,7 @@ def long_context_engine(torch, dev, gen):
             torch, sched, build,
             prompt_chars=LONG_DEEP_ROWS - 2 if deep else 98,
             counted=(("B21F", "paged_flash_kernel") if "long" in label
-                     else ("PS", "paged_split_kernel")))
+                     else ("PS", "attn_split_kernel")))
         print(f"long-context steady {label}: {json.dumps(steady[label])}",
               flush=True)
         torch.cuda.empty_cache()
@@ -5755,7 +5763,9 @@ def main() -> int:
         # the register-A kernel in its int8 mode (built as csrc/q4_int8.cu)
         "B3": ("q4_matmul_prefill_int8", "csrc/q4_prefill_ra.cuh",
                "fastllama_tpu/kernels/q4_matmul.py:904"),
-        "B4": ("decode_attention_fused", "csrc/decode_attention.cu",
+        # the split attention kernel in its B4 mode (built as
+        # csrc/decode_attention.cu; B10, B6, B11 and PS its other modes)
+        "B4": ("decode_attention_fused", "csrc/attn_split.cuh",
                "fastllama_tpu/kernels/decode_attention.py:258"),
         # the register-A kernel in its bf16 modes (built as
         # csrc/q4_prefill.cu, with the cast pass and the f32 mode's kernel)
@@ -5764,19 +5774,20 @@ def main() -> int:
         # variant 9 of the fold kernel (built as csrc/q4_fold_v9.cu)
         "B9": ("q41_matmul_decode", "csrc/q4_fold.cuh",
                "fastllama_tpu/kernels/q4_matmul.py:395"),
-        "B10": ("decode_attention", "csrc/decode_attention.cu",
+        "B10": ("decode_attention", "csrc/attn_split.cuh",
                 "fastllama_tpu/kernels/decode_attention.py:72"),
-        "B6": ("paged_decode_attention", "csrc/paged_attention.cu",
+        # built as csrc/paged_attention.cu, with B11 and PS
+        "B6": ("paged_decode_attention", "csrc/attn_split.cuh",
                "fastllama_tpu/kernels/paged_attention.py:333"),
         "B7": ("paged_kv_write", "csrc/kv_write.cu",
                "fastllama_tpu/kernels/kv_write.py:55"),
         "B8": ("paged_kv_write_rows", "csrc/kv_write.cu",
                "fastllama_tpu/kernels/kv_write.py:115"),
-        "B11": ("paged_decode_attention_flat", "csrc/paged_attention.cu",
+        "B11": ("paged_decode_attention_flat", "csrc/attn_split.cuh",
                 "fastllama_tpu/kernels/paged_attention.py:283"),
         # B7 folded into B6's kernel with RoPE; it also replaces the B6
         # launch of that step (fastllama_tpu/kernels/paged_attention.py:333)
-        "PS": ("paged_decode_step_fused", "csrc/paged_attention.cu",
+        "PS": ("paged_decode_step_fused", "csrc/attn_split.cuh",
                "fastllama_tpu/kernels/kv_write.py:55"),
         # the library Pallas TPU flash_attention the JAX function calls
         "B12": ("flash_prefill", "csrc/flash_prefill.cu",

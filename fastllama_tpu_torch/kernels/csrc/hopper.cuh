@@ -209,6 +209,40 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
                : "memory");
 }
 
+// 16 bytes from registers to `addr` in another block of the cluster (from
+// mapa), completing their bytes on that block's barrier `bar` (from mapa);
+// the sender may leave at once.
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32"
+      " [%0], {%1, %2, %3, %4}, [%5];\n"
+      ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what other blocks of the
+// cluster stored before completing the phase (st_async_v4) is visible.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  uint32_t done = 0;
+#ifdef FLTORCH_MBAR_TRAP
+  for (long long spin = 0;; ++spin) {
+#else
+  for (;;) {
+#endif
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64"
+        " p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+#ifdef FLTORCH_MBAR_TRAP
+    if (spin > (1LL << 22)) __trap();
+#endif
+  }
+}
+
 // `bytes` (a multiple of 16) of this block's shared memory at `src` to
 // `dst` in another block of the cluster, one bulk copy that completes its
 // bytes on that block's barrier `bar` (dst and bar from mapa). Writes of

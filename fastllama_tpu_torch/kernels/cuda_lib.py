@@ -54,15 +54,16 @@ ARGTYPES = {
                         P, I, I, P],
     "q4_prefill_split_gemm": [P, I, I, P, P, I, I, P, P, I, I, I, P, P, P,
                               I, P],
-    "decode_attention_fused": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P,
-                               P, P, P],
-    "decode_attention": [P, P, P, P, I, I, I, I, I, I, F, I, P, P, P, P],
+    "decode_attention_fused": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                               F, I, P, P],
+    "decode_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P, P],
     "paged_decode_attention": [P, I, I, P, P, P, P, I, I, I, I, I, I, I, I,
-                               F, I, P, P, P, P],
+                               I, I, I, F, I, P, P],
     "paged_decode_attention_flat": [P, I, I, P, P, P, P, I, I, I, I, I, I, I,
-                                    I, F, I, P, P, P, P],
+                                    I, I, I, I, F, I, P, P],
     "paged_decode_step_fused": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                                I, I, F, I, P, P, P, P],
+                                I, I, I, I, I, F, I, P, P],
+    "decode_attention_set_pdl": [I], "paged_attention_set_pdl": [I],
     "paged_kv_write": [P, P, P, P, P, P, I, I, I, I, I, I, P],
     "paged_kv_write_rows": [P, P, P, P, P, I, I, I, I, I, P],
     "slab_write_rows": [P, P, P, I, I, I, I, L, L, P],
@@ -94,6 +95,8 @@ LIB_OF = {"q4_gemv": "q4_decode", "q41_gemv": "q4_decode",
           "paged_decode_attention": "paged_attention",
           "paged_decode_attention_flat": "paged_attention",
           "paged_decode_step_fused": "paged_attention",
+          "decode_attention_set_pdl": "decode_attention",
+          "paged_attention_set_pdl": "paged_attention",
           "paged_kv_write": "kv_write", "paged_kv_write_rows": "kv_write",
           "slab_write_rows": "kv_write",
           "flash_prefill": "flash_prefill",

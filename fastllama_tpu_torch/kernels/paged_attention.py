@@ -11,26 +11,28 @@ before (kernels/kv_write.py runs first). The numerical contract is the TPU
 kernel's: q and the probabilities are cast to the pool dtype before the two
 dots, scores, softmax and accumulation are f32, a masked probability is
 exactly 0 and the denominator is max(sum p, 1e-30), so a sequence of length
-0 yields zeros. Pages past ceil(len/ps) are never read. On the card the
-keys are split: the pp * ps rows of a sequence are cut into chunks of whole
-pages (b6_plan, from the shapes alone), each block attends one chunk of one
-head with its own p = exp(score - chunk max) cast to the pool dtype, and the
-last block of a head merges the partial softmaxes in chunk order.
+0 yields zeros. Pages past ceil(len/ps) are never read. On the card it
+runs the split kernel of csrc/attn_split.cuh (B4's and B10's): a thread
+block cluster a (b, h) divides the live rows on the device
+(decode_attention.split_rows; attn_plan from the shapes alone), each block
+takes its rows page by page by bulk copies and rounds its own p = exp(score -
+block max) to the pool dtype, and the cluster's leader merges the partial
+softmaxes in rank order.
 
 B11 ports fastllama_tpu/kernels/paged_attention.py::
 paged_decode_attention_flat: the same contract over flat-lane pools
 [P, ps, H*D] (a page row holds every head side by side, as the slab cache
 does). No dispatch of the JAX package reaches it: it is the record of a
 round-5 layout experiment on the TPU, ported so that every TPU kernel has its
-counterpart. On the card it runs B6's kernel with B11's strides.
+counterpart. On the card it runs B6's kernel and plan with B11's strides.
 
 paged_decode_step_fused is one decode step of one layer over the pools in
 one launch: RoPE on q and the new k, B7's write of the new row
 (kernels/kv_write.py) and B6's attention over lengths + 1 keys, in the
-JAX paged step's order. On the card it is B6's kernel with FUSED: the
-chunks attend the resident rows as B6's do, the new token is one more
-partial folded in rounded to the pool dtype (as B6 would read it back), and
-the block that finishes a head writes the row. The forward takes it for a
+JAX paged step's order. On the card it is B6's kernel in its fused mode:
+the cluster attends the resident rows as B6's does, the new token is one
+more partial folded in rounded to the pool dtype (as B6 would read it back),
+and the cluster's leader writes the row. The forward takes it for a
 layer without q/k/v LoRA terms; B7 and B6 stay the LoRA step's.
 
 The CUDA kernels are in csrc/paged_attention.cu; each wrapper launches its
@@ -44,13 +46,12 @@ shapes (engine/scheduler.paged_attn_route).
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 
 from . import cuda_lib
-from .decode_attention import _rope_fma
+from .decode_attention import AttnPlan, _aligned, _rope_fma, attn_plan
 from .kv_write import paged_kv_write_plain
 
 
@@ -147,36 +148,12 @@ def library_ppcb(pp: int, ps: int, d: int) -> int:
     return min(pp, max(1, _PPCB_BUDGET // (4 * ps * d)))
 
 
-# B6's and B11's split (see csrc/paged_attention.cu): chunks of at least
-# B6_CHUNK rows where the pages allow (a chunk is a multiple of the page
-# size or a divisor of it), K and V of a chunk staged at once within
-# B6_SMEM_CAP bytes. tools_torch/paged_chunk_sweep.py times the others.
-B6_CHUNK = 64
-B6_MAX_CHUNK = 256
-B6_SMEM_CAP = 96 * 1024
-
-
-@functools.lru_cache(maxsize=None)
-def b6_plan(pp: int, ps: int, d: int, itemsize: int) -> tuple[int, int]:
-    """(splits, chunk) of B6's and B11's grid for pp pages of ps rows, head
-    dim d and pool elements of `itemsize` bytes: the smallest chunk of at
-    least B6_CHUNK rows (or the largest there is). From the shapes alone,
-    so the host never reads the lengths; chunk i takes rows [i * chunk,
-    (i + 1) * chunk)."""
-    s = pp * ps
-    cands = [c for c in range(1, min(B6_MAX_CHUNK, s) + 1)
-             if (c % ps == 0 or ps % c == 0)
-             and 2 * c * d * itemsize <= B6_SMEM_CAP]
-    chunk = next((c for c in cands if c >= B6_CHUNK), cands[-1])
-    return -(-s // chunk), chunk
-
-
 def _launch(name, q, k_pages, v_pages, lengths, page_indices, p, ps,
-            chunk=None, fused=()):
-    """One launch of B6, B11 or the fused step (`name`); `chunk` overrides
-    the plan's rows per block (tools_torch/paged_chunk_sweep.py); `fused`
-    holds the fused step's (qkv, page_ids, offsets, cos, sin), q then only
-    gives the shapes."""
+            plan: "AttnPlan | None" = None, fused=(), entry=None):
+    """One launch of B6, B11 or the fused step (`name`); `plan` pins the
+    split kernel's plan and `entry` takes another build's C entry point
+    (tools_torch/attn_sweep.py); `fused` holds the fused step's (qkv,
+    page_ids, offsets, cos, sin), q then only gives the shapes."""
     b, h, d = q.shape
     pp = page_indices.shape[1]
     tensors = (k_pages, v_pages, lengths, page_indices, *fused)
@@ -190,25 +167,29 @@ def _launch(name, q, k_pages, v_pages, lengths, page_indices, p, ps,
              "head_dim must be a multiple of 32 and <= 256 and "
              f"pages_per_seq * page_size <= 12288: got D = {d}, "
              f"{pp} x {ps}")
+    _require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+             "the pools must be 16-byte aligned")
     dev = q.device
-    if chunk is None:
-        splits, chunk = b6_plan(pp, ps, d, k_pages.element_size())
-    else:
-        splits = -(-(pp * ps) // chunk)
-    partial = cuda_lib.scratch(dev, "paged_attention.partial",
-                               b * h * splits * (d + 2), torch.float32)
-    counters = cuda_lib.tile_counters(dev, b * h)
+    if plan is None:
+        plan = attn_plan(b, h, pp * ps, d, k_pages.element_size(),
+                         cuda_lib.sm_count(dev))
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    head = ((q.data_ptr(), q.stride(0), q.stride(1), k_pages.data_ptr(),
-             v_pages.data_ptr(), lengths.data_ptr(), page_indices.data_ptr())
-            if not fused else
-            (fused[0].data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             lengths.data_ptr(), page_indices.data_ptr(),
-             *(t.data_ptr() for t in fused[1:])))
-    rc = cuda_lib.fn(name)(
-        *head, b, h, p, ps, pp, d, splits, chunk, 1.0 / math.sqrt(d),
-        int(k_pages.dtype == torch.bfloat16), partial.data_ptr(),
-        counters.data_ptr(), out.data_ptr(), cuda_lib.stream_handle(dev))
+    if not fused:
+        # the kernel reads q's rows by bulk copies: 16-byte aligned rows
+        if q.stride(0) % 4 or q.stride(1) % 4 or q.data_ptr() % 16:
+            q = _aligned(q.contiguous())
+        head = (q.data_ptr(), q.stride(0), q.stride(1), k_pages.data_ptr(),
+                v_pages.data_ptr(), lengths.data_ptr(),
+                page_indices.data_ptr())
+    else:
+        fused = tuple(_aligned(t) for t in fused)
+        head = (fused[0].data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                lengths.data_ptr(), page_indices.data_ptr(),
+                *(t.data_ptr() for t in fused[1:]))
+    rc = (entry or cuda_lib.fn(name))(
+        *head, b, h, p, ps, pp, d, *plan, 1.0 / math.sqrt(d),
+        int(k_pages.dtype == torch.bfloat16), out.data_ptr(),
+        cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, name)
     return out
 

@@ -112,7 +112,8 @@ def _innermost(events: list) -> list:
 def device_op_breakdown(trace_dir: str):
     """(total_us, Counter[kernel] -> us, Counter[kernel] -> count) over the
     device events of the newest trace under trace_dir (the innermost CPU
-    operators when the trace has no device events)."""
+    operators when the trace has no device events); total_us is the time
+    the events cover (busy_us), each kernel's us the sum of its spans."""
     path = _newest_trace(trace_dir)
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as f:
@@ -123,14 +124,26 @@ def device_op_breakdown(trace_dir: str):
         picked = _innermost([e for e in complete if e.get("cat") == "cpu_op"])
     agg = collections.Counter()
     cnt = collections.Counter()
-    total = 0.0
+    spans = []
     for e in picked:
         key = kernel_key(e.get("name", "?"))
         dur = float(e.get("dur", 0))       # microseconds
         agg[key] += dur
         cnt[key] += 1
-        total += dur
-    return total, agg, cnt
+        spans.append((float(e["ts"]), float(e["ts"]) + dur))
+    return busy_us(spans), agg, cnt
+
+
+def busy_us(spans) -> float:
+    """The time covered by the (start, end) spans, overlaps counted once:
+    a kernel launched as a programmatic dependent starts before the one
+    ahead of it ends, so summing the spans would count that time twice."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
 
 
 def print_breakdown(total: float, agg, cnt, steps: int = 1, top: int = 40,

@@ -198,52 +198,95 @@ def test_b10_kernel_matches_plain(cuda_device, cache):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-# -- B10's split over the keys: the planner and the merge rule ----------------
+# -- the split kernel's work division and B10's merge rule -----------------
 
-@pytest.mark.parametrize("s", [1, 63, 64, 65, 512, 12288])
-def test_b10_splits_cover_every_row_once(s):
-    splits, chunk = tda.b10_splits(s)
-    assert 1 <= chunk <= tda.B10_CHUNK
-    rows = [r for i in range(splits)
-            for r in range(i * chunk, min((i + 1) * chunk, s))]
-    assert rows == list(range(s))
-    assert all(i * chunk < s for i in range(splits))   # no chunk is empty
-    if s == 512:
-        assert (splits, chunk) == (8, 64)
+@pytest.mark.parametrize("n", [0, 1, 7, 63, 64, 65, 300, 511, 512, 12288])
+@pytest.mark.parametrize("cs", [1, 2, 5, 8])
+def test_split_rows_cover_every_live_row_once(n, cs):
+    """The device's division of a (b, h)'s n live rows over a cluster of cs
+    blocks (split_rows, the kernel's per = ceil(n / cs)): every live row
+    exactly once, in rank order, none at or past n; the ranks with rows
+    come first and differ by at most per rows; n = 0 gives every rank
+    none."""
+    ranks = tda.split_rows(n, cs)
+    assert len(ranks) == cs
+    rows = [s0 + i for s0, c in ranks for i in range(c)]
+    assert rows == list(range(n))
+    counts = [c for _, c in ranks]
+    act = sum(c > 0 for c in counts)
+    assert all(c > 0 for c in counts[:act]) and not any(counts[act:])
+    if n:
+        per = -(-n // cs)
+        assert counts[0] == per and act == -(-n // per)
+        assert all(s0 == r * per for r, (s0, _) in enumerate(ranks[:act]))
 
 
-def split_merge(q, k, v, n_past, scale):
-    """The kernel's split-and-merge rule in float64 numpy for one (b, h):
-    q [D], caches k, v [S, D]. Per chunk of b10_splits: m_i = max score,
-    l_i = sum exp(score - m_i), c_i = sum exp(score - m_i) v, or the neutral
-    (-inf, 0, 0) for a chunk past the length (its block exits; it adds
-    nothing). Then, over the chunks in order, 8 at a time: within a batch
-    M = the running max, weights exp(m_i - M); across batches the running
-    sums are rescaled by exp(M_old - M_new); ctx = C / L."""
+@pytest.mark.parametrize("b,h", [(1, 32), (8, 32), (1, 40), (8, 40),
+                                 (1, 16), (8, 8), (32, 32)])
+@pytest.mark.parametrize("rows", [64, 512, 2048, 12288])
+def test_attn_plan_fits_the_kernel(b, h, rows):
+    """attn_plan for 7B (32 heads), 13B (40) and the tp ranks' head counts
+    at the caches and page tables the port makes: a cluster of 1-8 blocks
+    whose rows a block (per_max, a multiple of 4) cover the rows and fit
+    the scores' room, three ring slots of at most 16 KB, and shared memory
+    that leaves room for two blocks an SM on the H100, for head dims 64,
+    128 and 256 and both cache types; from the shapes alone."""
+    for d in (64, 128, 256):
+        for isz in (2, 4):
+            cs, tr, stages, per_max, _ = plan = tda.attn_plan(
+                b, h, rows, d, isz, 132)
+            assert 1 <= cs <= tda.ATTN_MAX_CLUSTER
+            assert per_max % 4 == 0 and per_max * cs >= rows
+            assert per_max <= tda.ATTN_PER_CAP and per_max - 4 < -(-rows // cs)
+            assert 1 <= tr <= tda.ATTN_MAX_TILE
+            assert tr * d * isz <= tda.ATTN_TILE_BYTES
+            assert stages == tda.ATTN_STAGES
+            assert 2 * tda.attn_smem_bytes(plan, d, isz) <= 227 * 1024
+            # one wave: at most two blocks an SM unless the heads (and the
+            # scores' room) alone make more, and the cluster no smaller
+            # than that allows
+            fill = tda.ATTN_BLOCKS_PER_SM * 132
+            floor = max(1, -(-rows // tda.ATTN_PER_CAP))
+            assert b * h * cs <= max(fill, b * h * floor)
+            if rows >= tda.ATTN_MIN_ROWS * tda.ATTN_MAX_CLUSTER:
+                assert cs == max(min(tda.ATTN_MAX_CLUSTER, fill // (b * h)),
+                                 1, -(-rows // tda.ATTN_PER_CAP))
+    assert tda.attn_plan(1, 32, 512, 128, 2, 132) == (8, 64, 3, 64, 1)
+    assert tda.attn_plan(8, 32, 512, 128, 2, 132).cs == 1
+
+
+def merge_ranks(parts):
+    """The leader's merge of the ranks' partials (m, l, c) in rank order:
+    M = max m, L = sum l e^(m - M), C = sum c e^(m - M); (-inf, 0, 0) when
+    no rank has rows."""
+    if not parts:
+        return -np.inf, 0.0, 0.0
+    big = max(m for m, _, _ in parts)
+    l_tot, ctx = 0.0, 0.0
+    for m, l, c in parts:
+        e = np.exp(m - big)
+        l_tot, ctx = l_tot + l * e, ctx + c * e
+    return big, l_tot, ctx
+
+
+def split_merge(q, k, v, n_past, scale, cs):
+    """The kernel's split-and-merge rule for B10 in float64 numpy for one
+    (b, h): q [D], caches k, v [S, D], rows s <= n_past divided over cs
+    ranks (split_rows). Each rank with rows: m_r = max score, l_r = sum
+    exp(score - m_r), c_r = sum exp(score - m_r) v; the leader merges them
+    in rank order (merge_ranks); ctx = C / L."""
     s_len = k.shape[0]
     n = min(max(int(n_past), 0) + 1, s_len)
-    splits, chunk = tda.b10_splits(s_len)
     parts = []
-    for i in range(splits):
-        rows = np.arange(i * chunk, min((i + 1) * chunk, n))
-        if rows.size == 0:
-            parts.append((-np.inf, 0.0, np.zeros(k.shape[1])))
+    for s0, cnt in tda.split_rows(n, cs):
+        if cnt == 0:
             continue
+        rows = np.arange(s0, s0 + cnt)
         sc = k[rows] @ q * scale
         m = sc.max()
         p = np.exp(sc - m)
         parts.append((m, p.sum(), p @ v[rows]))
-    big, l_tot, ctx = -np.inf, 0.0, np.zeros(k.shape[1])
-    for i0 in range(0, splits, 8):
-        batch = parts[i0:i0 + 8]
-        mb = max([big] + [m for m, _, _ in batch])
-        r = np.exp(big - mb)
-        l_tot, ctx = l_tot * r, ctx * r
-        for m, l, c in batch:
-            e = np.exp(m - mb)                  # 0 for a neutral chunk
-            l_tot += l * e
-            ctx = ctx + c * e
-        big = mb
+    _, l_tot, ctx = merge_ranks(parts)
     return ctx / l_tot
 
 
@@ -251,10 +294,10 @@ def split_merge(q, k, v, n_past, scale):
                                       (512, 64), (512, 300), (512, 511),
                                       (512, 700), (1024, 700), (1024, 1023)])
 def test_b10_split_merge_rule_equals_plain(s, n_past):
-    """The merge of per-chunk partial softmaxes (neutral chunks included;
-    S = 1024 takes two batches of 8 chunks) equals the plain B10 at every
-    depth, n_past >= S included: to 1e-5 of the largest output, f64 merge
-    against the f32 plain version."""
+    """The rank-order merge of the ranks' partial softmaxes (clusters of 1,
+    3 and 8 blocks; ranks past the rows add nothing) equals the plain B10
+    at every depth, n_past >= S included: to 1e-5 of the largest output,
+    f64 merge against the f32 plain version."""
     b, hd, h = 1, 32, 2
     rng = np.random.default_rng(27)
     q = rng.standard_normal((b, 1, h * hd)).astype(np.float32)
@@ -264,22 +307,24 @@ def test_b10_split_merge_rule_equals_plain(s, n_past):
         torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
         torch.tensor([n_past], dtype=torch.int32), head_dim=hd,
         scale=scale).numpy().reshape(h, hd)
-    got = np.stack([split_merge(
-        q[0, 0, i * hd:(i + 1) * hd].astype(np.float64),
-        kc[0, :, i * hd:(i + 1) * hd].astype(np.float64),
-        vc[0, :, i * hd:(i + 1) * hd].astype(np.float64), n_past, scale)
-        for i in range(h)])
-    np.testing.assert_allclose(got, want, rtol=0,
-                               atol=1e-5 * np.abs(want).max())
+    for cs in (1, 3, 8):
+        got = np.stack([split_merge(
+            q[0, 0, i * hd:(i + 1) * hd].astype(np.float64),
+            kc[0, :, i * hd:(i + 1) * hd].astype(np.float64),
+            vc[0, :, i * hd:(i + 1) * hd].astype(np.float64), n_past, scale,
+            cs) for i in range(h)])
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [512, 1024])
 @pytest.mark.parametrize("cache", ["float32", "bfloat16"])
 def test_b10_split_kernel_matches_plain_at_every_depth(cuda_device, cache, s):
-    """Eight slots at the depths where chunks begin, end and go neutral, one
-    of them past S (S = 1024: two merge batches); 5e-5 of the largest output
-    (f32 rounding of exp and the sum order)."""
+    """Eight slots at no rows past the current one, one, the 64-row edges
+    and the last row, one of them past S (S = 1024: 128 rows a rank of a
+    cluster of 8); 5e-5 of the largest output (f32 rounding of exp and the
+    sum order)."""
     depths = [0, 1, 63, 64, 300, 511, 512, 700]
     b, hd, h = len(depths), 128, 2
     rng = np.random.default_rng(29)
@@ -300,7 +345,7 @@ def test_b10_split_kernel_matches_plain_at_every_depth(cuda_device, cache, s):
                                                  scale=scale))
 
 
-# -- B4's split over the keys: the per-chunk p-cast and the new token --------
+# -- B4's split over the keys: the per-rank p-cast and the new token ---------
 
 def _round_to(a, cache):
     """a rounded to the cache type, back as float64."""
@@ -317,71 +362,53 @@ def _rope_f32(x, cos, sin):
             + (partner * sin).astype(np.float32)).astype(np.float32)
 
 
-def b4_split_rule(qkv, kc, vc, n_past, cos, sin, hd, scale, cache):
+def b4_split_rule(qkv, kc, vc, n_past, cos, sin, hd, scale, cache, cs):
     """The kernel's rule for one sequence and one head in numpy: q and k_new
-    roped in f32; chunks of b10_splits(S) over rows s < n_past (one chunk,
-    empty, when there are none); per chunk m_i = max score (scores from
-    T(q)), p = exp(score - m_i) in f32, l_i = sum p, c_i = sum T(p) V; the
-    chunks merged in order 8 at a time (as for B10), then the new token as
-    one more partial (s_new, 1, v_new), unrounded. Returns (ctx [hd], the
-    written row T(k_new), T(v_new))."""
+    roped in f32; rows s < n_past divided over cs ranks (split_rows); each
+    rank with rows: m_r = max score (scores from T(q)), p = exp(score - m_r)
+    in f32, l_r = sum p, c_r = sum T(p) V; the leader merges them in rank
+    order (merge_ranks), then folds in the new token as one more partial
+    (s_new, 1, v_new), unrounded. Returns (ctx [hd], the written row
+    T(k_new), T(v_new))."""
     q, k, v = qkv[:hd], qkv[hd:2 * hd], qkv[2 * hd:]
     qr, kr = _rope_f32(q, cos, sin), _rope_f32(k, cos, sin)
     qv = _round_to(qr, cache)
     s_len = kc.shape[0]
     n = min(max(n_past, 0), s_len)
-    splits, chunk = tda.b10_splits(s_len)
-    act = max(1, -(-n // chunk))
     parts = []
-    for i in range(act):
-        rows = np.arange(i * chunk, min((i + 1) * chunk, n))
-        if rows.size == 0:
-            parts.append((-np.inf, 0.0, np.zeros(hd)))
+    for s0, cnt in tda.split_rows(n, cs):
+        if cnt == 0:
             continue
+        rows = np.arange(s0, s0 + cnt)
         sc = (kc[rows] @ qv * scale).astype(np.float32)
         m = sc.max()
         p = np.exp(sc - m, dtype=np.float32)
         parts.append((float(m), float(p.sum(dtype=np.float64)),
                       _round_to(p, cache) @ vc[rows]))
+    big, l_tot, ctx = merge_ranks(parts)
     s_new = float(np.dot(qr.astype(np.float64), kr) * scale)
-    if act == 1:
-        m, l, c = parts[0]
-        big = max(m, s_new)
-        a, e = np.exp(m - big), np.exp(s_new - big)
-        return (c * a + e * v) / (l * a + e), _round_to(kr, cache), \
-            _round_to(v, cache)
-    big, l_tot, ctx = -np.inf, 0.0, np.zeros(hd)
-    for i0 in range(0, act, 8):
-        batch = parts[i0:i0 + 8]
-        mb = max([big] + [m for m, _, _ in batch])
-        r = np.exp(big - mb)
-        l_tot, ctx = l_tot * r, ctx * r
-        for m, l, c in batch:
-            e = np.exp(m - mb)
-            l_tot += l * e
-            ctx = ctx + c * e
-        big = mb
     mb = max(big, s_new)
     r, e = np.exp(big - mb), np.exp(s_new - mb)
     return ((ctx * r + e * v) / (l_tot * r + e), _round_to(kr, cache),
             _round_to(v, cache))
 
 
-B4_S = 576          # 9 chunks of 64: two merge batches
+B4_S = 576          # 72 rows a rank in a cluster of 8
 
 
 @pytest.mark.parametrize("n_past", [0, 1, 63, 64, 65, B4_S - 1, B4_S,
                                     B4_S + 88])
 @pytest.mark.parametrize("cache", ["float32", "bfloat16"])
 def test_b4_split_rule_equals_plain_and_pallas(n_past, cache):
-    """B4's split-key rule (b4_split_rule) equals the plain B4, and the
-    plain B4 equals _fused_kernel_grouped in interpret mode, within 2^-7 of
-    the largest output for bf16 caches (each chunk rounds its own p =
-    exp(score - chunk max) to bf16 where the unsplit kernel rounds exp(score
-    - max): one bf16 rounding of each p moves) and 5e-5 for f32 caches (f32
-    rounding and sum order); the written K/V rows are equal bit for bit on
-    all three, at the depths where chunks begin and end, the last row, and
-    past S (an inactive slot: all S rows attended, row S - 1 written)."""
+    """B4's split-key rule (b4_split_rule, clusters of 1, 3 and 8 blocks)
+    equals the plain B4, and the plain B4 equals _fused_kernel_grouped in
+    interpret mode, within 2^-7 of the largest output for bf16 caches (each
+    rank rounds its own p = exp(score - rank max) to bf16 where the unsplit
+    kernel rounds exp(score - max): one bf16 rounding of each p moves) and
+    5e-5 for f32 caches (f32 rounding and sum order); the written K/V rows
+    are equal bit for bit on all three, at no rows, one, the 64-row edges,
+    the last row, and past S (an inactive slot: all S rows attended, row
+    S - 1 written)."""
     b, h, hd = 1, 2, 128
     f = h * hd
     qkv, kc, vc = inputs(b, B4_S, f, seed=40 + n_past)
@@ -397,24 +424,73 @@ def test_b4_split_rule_equals_plain_and_pallas(n_past, cache):
     # the tables run_both fed to both kernels
     cos, sin = (np.asarray(t)[0] for t in jax_tables(
         jnp.asarray([n_past], jnp.int32), hd, hd))
-    for i in range(h):
-        c = slice(i * hd, (i + 1) * hd)
-        got, k_row, v_row = b4_split_rule(
-            qkv[0, 0].reshape(3, f)[:, c].reshape(-1), kcr[:, c], vcr[:, c],
-            n_past, cos, sin, hd, 1.0 / math.sqrt(hd), cache)
-        np.testing.assert_allclose(got, ctx[0, 0, c], rtol=0, atol=tol)
-        np.testing.assert_array_equal(k_row, k[0, w, c])
-        np.testing.assert_array_equal(v_row, v[0, w, c])
+    for cs in (1, 3, 8):
+        for i in range(h):
+            c = slice(i * hd, (i + 1) * hd)
+            got, k_row, v_row = b4_split_rule(
+                qkv[0, 0].reshape(3, f)[:, c].reshape(-1), kcr[:, c],
+                vcr[:, c], n_past, cos, sin, hd, 1.0 / math.sqrt(hd), cache,
+                cs)
+            np.testing.assert_allclose(got, ctx[0, 0, c], rtol=0, atol=tol)
+            np.testing.assert_array_equal(k_row, k[0, w, c])
+            np.testing.assert_array_equal(v_row, v[0, w, c])
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+def test_split_rules_at_every_head_dim(hd, cache):
+    """B4's and B10's split rules (clusters of 1, 2, 5 and 8 blocks) equal
+    the plain versions at head dims 64, 128 and 256, at n_past 0, 1, 63,
+    S - 1 and past S: B4 within 2^-7 (bf16) or 5e-5 (f32) of the largest
+    output, its written rows bit for bit; B10 within 1e-5."""
+    s_len, h = 96, 2
+    f = h * hd
+    scale = 1.0 / math.sqrt(hd)
+    for n_past in (0, 1, 63, s_len - 1, s_len + 7):
+        qkv, kc, vc = inputs(1, s_len, f, seed=90 + n_past + hd)
+        kcr, vcr = _round_to(kc[0], cache), _round_to(vc[0], cache)
+        tn = torch.tensor([n_past], dtype=torch.int32)
+        cos, sin = tda.rope_lane_tables(tn, hd, hd)
+        tk = torch.from_numpy(kc.copy()).to(getattr(torch, cache))
+        tv = torch.from_numpy(vc.copy()).to(getattr(torch, cache))
+        ctx = tda.decode_attention_fused(
+            torch.from_numpy(qkv), tk, tv, tn, cos, sin, head_dim=hd,
+            n_rot=hd, scale=scale).numpy()[0, 0]
+        q10 = qkv[:, :, :f]
+        ctx10 = tda.decode_attention(
+            torch.from_numpy(q10), torch.from_numpy(kc), torch.from_numpy(vc),
+            tn, head_dim=hd, scale=scale).numpy()[0, 0]
+        tol = (2 ** -7 if cache == "bfloat16" else 5e-5) * np.abs(ctx).max()
+        w = min(n_past, s_len - 1)
+        for cs in (1, 2, 5, 8):
+            for i in range(h):
+                c = slice(i * hd, (i + 1) * hd)
+                got, k_row, v_row = b4_split_rule(
+                    qkv[0, 0].reshape(3, f)[:, c].reshape(-1), kcr[:, c],
+                    vcr[:, c], n_past, cos[0].numpy(), sin[0].numpy(), hd,
+                    scale, cache, cs)
+                np.testing.assert_allclose(got, ctx[c], rtol=0, atol=tol)
+                np.testing.assert_array_equal(
+                    k_row, tk[0, w, c].to(torch.float64).numpy())
+                np.testing.assert_array_equal(
+                    v_row, tv[0, w, c].to(torch.float64).numpy())
+                got10 = split_merge(
+                    q10[0, 0, c].astype(np.float64),
+                    kc[0, :, c].astype(np.float64),
+                    vc[0, :, c].astype(np.float64), n_past, scale, cs)
+                np.testing.assert_allclose(
+                    got10, ctx10[c], rtol=0,
+                    atol=1e-5 * np.abs(ctx10).max())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [512, 576])
 @pytest.mark.parametrize("cache", ["float32", "bfloat16"])
 def test_b4_split_kernel_matches_plain_at_every_depth(cuda_device, cache, s):
-    """Eight slots at the depths where chunks begin and end, the last row
-    and past S (S = 576: two merge batches); 2^-7 (bf16) or 5e-5 (f32) of
-    the largest output, caches equal bit for bit after the call, the same
-    output and caches run to run."""
+    """Eight slots at no rows, one, the 64-row edges, 300, the last row and
+    past S (S = 576: 72 rows a rank of a cluster of 8); 2^-7 (bf16) or 5e-5
+    (f32) of the largest output, caches equal bit for bit after the call,
+    the same output and caches run to run."""
     depths = [0, 1, 63, 64, 65, 300, s - 1, s + 88]
     b, hd, h = len(depths), 128, 2
     dt = getattr(torch, cache)

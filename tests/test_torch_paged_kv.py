@@ -13,6 +13,7 @@ from fastllama_tpu.kernels import paged_attention as jpa
 from fastllama_tpu.models import llama as jl
 from fastllama_tpu_torch.engine import paged_kv as tpk
 from fastllama_tpu_torch.engine import scheduler as ts
+from fastllama_tpu_torch.kernels import decode_attention as tda
 from fastllama_tpu_torch.kernels import kv_write as tkw
 from fastllama_tpu_torch.kernels import paged_attention as tpa
 from fastllama_tpu_torch.models import llama as tl
@@ -349,7 +350,7 @@ def test_b6_kernel_matches_plain(cuda_device, pool):
 
 
 # ---------------------------------------------------------------------------
-# B6's split over the keys (csrc/paged_attention.cu) and its plan
+# B6's split over the keys (csrc/attn_split.cuh) and its plan
 # ---------------------------------------------------------------------------
 
 def _as_pool(a, pool):
@@ -358,56 +359,67 @@ def _as_pool(a, pool):
         getattr(torch, pool)).to(torch.float32).numpy()
 
 
-def b6_split_rule(q, kp, vp, length, table, chunk, pool):
+def merge_ranks(parts):
+    """The cluster leader's merge of the ranks' partials (m, l, c) in rank
+    order, in f32: M = max m, L = sum l e^(m - M), C = sum c e^(m - M);
+    (-inf, 0, 0) when no rank has rows."""
+    if not parts:
+        return np.float32(-np.inf), np.float32(0), 0.0
+    big = max(m for m, _, _ in parts)
+    l_tot, c_tot = np.float32(0), 0.0
+    for m, l, c in parts:
+        e = np.exp(np.float32(m - big))
+        l_tot, c_tot = l_tot + l * e, c_tot + c * e
+    return big, l_tot, c_tot
+
+
+def rank_partials(qr, kp, vp, hh, rows, n, cs, pool):
+    """The partials of the ranks of a cluster of cs blocks over the n live
+    rows (tpa's split_rows, as the kernel divides them on the device): each
+    rank with rows takes its own max m_r, p = exp(score - m_r) cast to the
+    pool dtype for the PV dot and l_r the sum of the unrounded p."""
+    d = kp.shape[-1]
+    scale = np.float32(1.0 / np.sqrt(d))
+    parts = []
+    for s0, cnt in tda.split_rows(n, cs):
+        if cnt == 0:
+            continue
+        rr = rows[s0:s0 + cnt]
+        k = np.stack([kp[hh, a, b] for a, b in rr])
+        v = np.stack([vp[hh, a, b] for a, b in rr])
+        sc = (k @ qr[hh]).astype(np.float32) * scale
+        m = sc.max()
+        pr = np.exp(sc - m).astype(np.float32)
+        parts.append((m, pr.sum(dtype=np.float32),
+                      (_as_pool(pr, pool) @ v).astype(np.float32)))
+    return parts
+
+
+def b6_split_rule(q, kp, vp, length, table, cs, pool):
     """The card kernel's arithmetic for one sequence, in numpy f32: q [H, D],
-    pools [H, P, ps, D] holding pool-dtype values. Keys are cut into chunks
-    of `chunk` rows; chunk c has its own max m_c, p = exp(score - m_c) cast
-    to the pool dtype for the PV dot and l_c the sum of the unrounded p;
-    the partials merge in chunk order, 8 at a time (two-pass within a
-    batch, rescaled by the running max across batches), and ctx = C /
-    max(L, 1e-30). Only rows < length of pages the table names are read."""
+    pools [H, P, ps, D] holding pool-dtype values. The live rows are
+    divided over a cluster of cs ranks (rank_partials), the leader merges
+    the partials in rank order (merge_ranks) and ctx = C / max(L, 1e-30).
+    Only rows < length of pages the table names are read."""
     h, p, ps, d = kp.shape
     n = int(np.clip(length, 0, table.shape[0] * ps))
-    scale = np.float32(1.0 / np.sqrt(d))
     pages = np.clip(table, 0, p - 1)
     rows = [(pages[s // ps], s % ps) for s in range(n)]
     qr = _as_pool(q, pool)
     out = np.zeros((h, d), np.float32)
     for hh in range(h):
-        parts = []
-        for s0 in range(0, max(n, 1), chunk):
-            rr = rows[s0:s0 + chunk]
-            if not rr:
-                parts.append((np.float32(-np.inf), np.float32(0),
-                              np.zeros(d, np.float32)))
-                continue
-            k = np.stack([kp[hh, a, b] for a, b in rr])
-            v = np.stack([vp[hh, a, b] for a, b in rr])
-            sc = (k @ qr[hh]).astype(np.float32) * scale
-            m = sc.max()
-            pr = np.exp(sc - m).astype(np.float32)
-            parts.append((m, pr.sum(dtype=np.float32),
-                          (_as_pool(pr, pool) @ v).astype(np.float32)))
-        big_m, big_l, big_c = np.float32(-np.inf), np.float32(0), 0.0
-        for i0 in range(0, len(parts), 8):
-            batch = parts[i0:i0 + 8]
-            mb = max([big_m] + [m for m, _, _ in batch])
-            r = np.exp(np.float32(big_m - mb)) if big_m > -np.inf else 0
-            big_l, big_c = big_l * r, big_c * r
-            for m, l, c in batch:
-                e = np.exp(np.float32(m - mb)) if m > -np.inf else 0
-                big_l, big_c = big_l + l * e, big_c + c * e
-            big_m = mb
+        _, big_l, big_c = merge_ranks(
+            rank_partials(qr, kp, vp, hh, rows, n, cs, pool))
         out[hh] = big_c / max(big_l, np.float32(1e-30))
     return out
 
 
-def split_case(pool, seed=61):
-    """Six sequences at the page and chunk edges over a shuffled table of
-    64-row pages (+ the trash page), 10 pages each (ten 64-row chunks: two
-    merge batches); NaN in every page no sequence reaches."""
+def split_case(pool, seed=61, ps=64, d=128):
+    """Six sequences at the page edges over a shuffled table of ps-row pages
+    (+ the trash page), 10 pages each; NaN in every page no sequence
+    reaches."""
     rng = np.random.default_rng(seed)
-    h, d, ps, pp = 2, 128, 64, 10
+    h, pp = 2, 10
     lengths = np.array([0, 1, ps - 1, ps, ps + 1, pp * ps], np.int32)
     b = len(lengths)
     p = b * pp + 1
@@ -424,17 +436,19 @@ def split_case(pool, seed=61):
     return q, kp, vp, kq, vq, lengths, tables
 
 
+@pytest.mark.parametrize("ps", [16, 64])
 @pytest.mark.parametrize("pool", ["float32", "bfloat16"])
-def test_b6_split_rule_equals_plain_and_pallas(pool):
-    """B6's split-key rule (b6_split_rule, 64-row chunks as b6_plan gives
-    for 64-row pages) equals the plain B6, and the plain B6 equals the
-    Pallas kernel in interpret mode, at lengths 0, 1, ps - 1, ps, ps + 1 and
-    pp * ps: within 2^-7 of the largest output for bf16 pools (each chunk
-    rounds its own p = exp(score - chunk max) to bf16 where the unsplit
-    kernels round exp(score - max): one bf16 rounding of each p moves) and
-    5e-5 for f32 pools (f32 rounding and sum order). The rule and the
-    plain version read pools with NaN in every page no sequence reaches."""
-    q, kp, vp, kq, vq, lengths, tables = split_case(pool)
+def test_b6_split_rule_equals_plain_and_pallas(pool, ps):
+    """B6's split-key rule (b6_split_rule over clusters of 1, 2, 3 and 8
+    ranks) equals the plain B6, and the plain B6 equals the Pallas kernel in
+    interpret mode, at lengths 0, 1, ps - 1, ps, ps + 1 and pp * ps over
+    pages of 16 and 64 rows: within 2^-7 of the largest output for bf16
+    pools (each rank rounds its own p = exp(score - rank max) to bf16 where
+    the unsplit kernels round exp(score - max): one bf16 rounding of each p
+    moves) and 5e-5 for f32 pools (f32 rounding and sum order). The rule
+    and the plain version read pools with NaN in every page no sequence
+    reaches."""
+    q, kp, vp, kq, vq, lengths, tables = split_case(pool, ps=ps)
     jdt = getattr(jnp, pool)
     want = np.asarray(jpa.paged_decode_attention(
         jnp.asarray(q), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
@@ -446,39 +460,64 @@ def test_b6_split_rule_equals_plain_and_pallas(pool):
     assert np.isfinite(plain).all() and (plain[0] == 0).all()
     tol = (2 ** -7 if pool == "bfloat16" else 5e-5) * np.abs(want).max()
     np.testing.assert_allclose(plain, want, rtol=0, atol=tol)
-    assert tpa.b6_plan(10, 64, 128, 2 if pool == "bfloat16" else 4) == (
-        10, 64)
-    for i, n in enumerate(lengths):
-        got = b6_split_rule(q[i], kq, vq, n, tables[i], 64, pool)
-        assert np.isfinite(got).all()
-        np.testing.assert_allclose(got, plain[i], rtol=0, atol=tol)
-    assert (b6_split_rule(q[0], kq, vq, 0, tables[0], 64, pool) == 0).all()
+    for cs in (1, 2, 3, 8):
+        for i, n in enumerate(lengths):
+            got = b6_split_rule(q[i], kq, vq, n, tables[i], cs, pool)
+            assert np.isfinite(got).all()
+            np.testing.assert_allclose(got, plain[i], rtol=0, atol=tol)
+        assert (b6_split_rule(q[0], kq, vq, 0, tables[0], cs, pool)
+                == 0).all()
+
+
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_b6_b11_split_rules_at_head_dims(pool, d):
+    """B6's rule at head dims 64 and 256 (clusters of 1, 3 and 8 ranks)
+    equals the plain B6 at every length of split_case, and B11's (B6's rule
+    on the head-major view of the flat-lane pools, which is what the kernel
+    runs) equals the plain B11 on the flat-lane copy of the same pools."""
+    q, kp, vp, kq, vq, lengths, tables = split_case(pool, seed=62, d=d)
+    dt = getattr(torch, pool)
+    plain = tpa.paged_decode_attention(
+        to_t(q), to_t(kq).to(dt), to_t(vq).to(dt), to_t(lengths),
+        to_t(tables)).numpy()
+    h, p, ps, _ = kq.shape
+    flat = [to_t(x).to(dt).permute(1, 2, 0, 3).reshape(p, ps, h * d)
+            .contiguous() for x in (kq, vq)]
+    plain11 = tpa.paged_decode_attention_flat(
+        to_t(q), *flat, to_t(lengths), to_t(tables)).numpy()
+    tol = (2 ** -7 if pool == "bfloat16" else 5e-5) * np.abs(plain).max()
+    for cs in (1, 3, 8):
+        for i, n in enumerate(lengths):
+            got = b6_split_rule(q[i], kq, vq, n, tables[i], cs, pool)
+            np.testing.assert_allclose(got, plain[i], rtol=0, atol=tol)
+            hm = [f32(tpa.head_major(x, h)) for x in flat]
+            got11 = b6_split_rule(q[i], *hm, n, tables[i], cs, pool)
+            np.testing.assert_allclose(got11, plain11[i], rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("ps", [1, 8, 16, 48, 64, 128, 256])
 @pytest.mark.parametrize("pp", [1, 3, 8, 64])
-def test_b6_plan_covers_every_row_once(ps, pp):
-    """b6_plan's chunks cover the pp * ps rows once, each a multiple of the
-    page size or a divisor of it (a page lookup per page), at most 256 rows
-    and K and V of a chunk within the shared-memory cap, for head dims 64,
-    128 (7B, 13B) and 256 and both pool types; the engine's shape (8 pages
-    of 64 rows) gives 64-row chunks. The plan reads no head count: the grid
-    is (H, B, splits), so 32 and 40 heads split alike."""
+def test_attn_plan_covers_every_row_once(ps, pp):
+    """attn_plan on the page tables of pp pages of ps rows, for 7B's and
+    13B's heads at B = 1 and 8, head dims 64, 128 and 256 and both pool
+    types: a cluster of 1-8 blocks whose share of a full table (split_rows)
+    covers the pp * ps rows once within per_max rows a block, per_max
+    within the scores' room, and the same plan for B6 and B11 (the layout
+    does not reach it), so B11 equals B6 bit for bit."""
     s = pp * ps
-    for d in (64, 128, 256):
-        for isz in (2, 4):
-            splits, chunk = tpa.b6_plan(pp, ps, d, isz)
-            assert 1 <= chunk <= tpa.B6_MAX_CHUNK
-            assert chunk % ps == 0 or ps % chunk == 0
-            assert 2 * chunk * d * isz <= tpa.B6_SMEM_CAP
-            assert splits == -(-s // chunk) and splits <= 12288
-            covered = [r for c in range(splits)
-                       for r in range(c * chunk, min((c + 1) * chunk, s))]
-            assert covered == list(range(s))
-            if s >= tpa.B6_CHUNK and d * isz <= 512:
-                assert chunk >= min(tpa.B6_CHUNK, s) or ps % chunk == 0
-    assert tpa.b6_plan(8, 64, 128, 2) == (8, 64)       # the engine, bf16
-    assert tpa.b6_plan(8, 64, 128, 4) == (8, 64)       # f32 pools
+    for b, h in ((1, 32), (8, 32), (8, 40)):
+        for d in (64, 128, 256):
+            for isz in (2, 4):
+                plan = tda.attn_plan(b, h, s, d, isz, 132)
+                assert 1 <= plan.cs <= tda.ATTN_MAX_CLUSTER
+                assert plan.per_max <= tda.ATTN_PER_CAP
+                ranks = tda.split_rows(s, plan.cs)
+                assert [r0 + i for r0, c in ranks for i in range(c)] == \
+                    list(range(s))
+                assert max(c for _, c in ranks) <= plan.per_max
+                assert 2 * tda.attn_smem_bytes(plan, d, isz) <= 227 * 1024
+    assert tda.attn_plan(8, 32, 512, 128, 2, 132).cs == 1   # the engine
 
 
 # ---------------------------------------------------------------------------
@@ -746,12 +785,12 @@ def test_fused_step_plain_matches_jax_write_then_attention(pool, tol):
     np.testing.assert_allclose(ctx[:-1], want[:-1], rtol=tol, atol=tol)
 
 
-def fused_split_rule(q, k, v, kp, vp, length, table, chunk, pool):
+def fused_split_rule(q, k, v, kp, vp, length, table, cs, pool):
     """The fused kernel's arithmetic for one sequence in numpy f32: B6's
-    chunks over the `length` resident rows (b6_split_rule's partials and
-    merge), then the new token folded in last, rounded to the pool dtype:
-    s_new = dot(T(q), T(k)) * scale, M' = max(M, s_new), L' = L exp(M -
-    M') + exp(s_new - M'), C' = C exp(M - M') + exp(s_new - M') T(v)."""
+    ranks over the `length` resident rows (rank_partials, merge_ranks),
+    then the new token folded in last, rounded to the pool dtype: s_new =
+    dot(T(q), T(k)) * scale, M' = max(M, s_new), L' = L exp(M - M') +
+    exp(s_new - M'), C' = C exp(M - M') + exp(s_new - M') T(v)."""
     h, _, ps, d = kp.shape
     n = int(np.clip(length, 0, table.shape[0] * ps))
     scale = np.float32(1.0 / np.sqrt(d))
@@ -760,27 +799,8 @@ def fused_split_rule(q, k, v, kp, vp, length, table, chunk, pool):
     qr, kr, vr = (_as_pool(a, pool) for a in (q, k, v))
     out = np.zeros((h, d), np.float32)
     for hh in range(h):
-        big_m, big_l, big_c = np.float32(-np.inf), np.float32(0), \
-            np.zeros(d, np.float32)
-        parts = []
-        for s0 in range(0, n, chunk):
-            rr = rows[s0:s0 + chunk]
-            kk = np.stack([kp[hh, a, b] for a, b in rr])
-            vv = np.stack([vp[hh, a, b] for a, b in rr])
-            sc = (kk @ qr[hh]).astype(np.float32) * scale
-            m = sc.max()
-            pr = np.exp(sc - m).astype(np.float32)
-            parts.append((m, pr.sum(dtype=np.float32),
-                          (_as_pool(pr, pool) @ vv).astype(np.float32)))
-        for i0 in range(0, len(parts), 8):
-            batch = parts[i0:i0 + 8]
-            mb = max([big_m] + [m for m, _, _ in batch])
-            r = np.exp(np.float32(big_m - mb)) if big_m > -np.inf else 0
-            big_l, big_c = big_l * r, big_c * r
-            for m, l, c in batch:
-                e = np.exp(np.float32(m - mb))
-                big_l, big_c = big_l + l * e, big_c + c * e
-            big_m = mb
+        big_m, big_l, big_c = merge_ranks(
+            rank_partials(qr, kp, vp, hh, rows, n, cs, pool))
         s_new = np.float32(qr[hh] @ kr[hh]) * scale
         mb = max(big_m, s_new)
         r = np.exp(np.float32(big_m - mb)) if big_m > -np.inf else 0
@@ -791,28 +811,30 @@ def fused_split_rule(q, k, v, kp, vp, length, table, chunk, pool):
 
 @pytest.mark.parametrize("pool", ["float32", "bfloat16"])
 def test_fused_split_rule_folds_the_new_token_rounded(pool):
-    """The fused kernel's rule (fused_split_rule: B6's 64-row chunks over
-    the resident rows, the new token one more partial rounded to the pool
-    dtype) equals the fused step's plain version (B7's write, then B6 over
-    lengths + 1 keys, which reads the new row back from the pool) within
-    B6's tolerance at lengths 0, 1, 63, 64, 65 and pp * ps - 1: 2^-7 of the
-    largest output for bf16 pools (the new token's own p is not rounded,
-    and each chunk rounds p against its own max) and 5e-5 for f32 pools.
-    The rule reads pools with NaN in every page no sequence reaches."""
+    """The fused kernel's rule (fused_split_rule: B6's ranks of clusters of
+    1, 2 and 8 blocks over the resident rows, the new token one more
+    partial rounded to the pool dtype) equals the fused step's plain
+    version (B7's write, then B6 over lengths + 1 keys, which reads the new
+    row back from the pool) within B6's tolerance at lengths 0, 1, 63, 64,
+    65 and pp * ps - 1: 2^-7 of the largest output for bf16 pools (the new
+    token's own p is not rounded, and each rank rounds p against its own
+    max) and 5e-5 for f32 pools. The rule reads pools with NaN in every
+    page no sequence reaches."""
     case = fused_case(pool, [0, 1, 63, 64, 65, 639], seed=72)
     qkv, kp, vp, lengths, tables, _, _, cos, sin, _ = case
     h = kp.shape[0]
     q, k, v = roped_qk(qkv, cos, sin, h)
     ctx, _, _ = run_fused_plain(case, pool)
     tol = (2 ** -7 if pool == "bfloat16" else 5e-5) * np.abs(ctx).max()
-    for i in range(len(lengths) - 1):
-        got = fused_split_rule(q[i], k[i], v[i], kp, vp, lengths[i],
-                               tables[i], 64, pool)
-        assert np.isfinite(got).all()
-        np.testing.assert_allclose(got, ctx[i], rtol=0, atol=tol)
-    np.testing.assert_array_equal(
-        fused_split_rule(q[0], k[0], v[0], kp, vp, 0, tables[0], 64, pool),
-        _as_pool(v[0], pool))
+    for cs in (1, 2, 8):
+        for i in range(len(lengths) - 1):
+            got = fused_split_rule(q[i], k[i], v[i], kp, vp, lengths[i],
+                                   tables[i], cs, pool)
+            assert np.isfinite(got).all()
+            np.testing.assert_allclose(got, ctx[i], rtol=0, atol=tol)
+        np.testing.assert_array_equal(
+            fused_split_rule(q[0], k[0], v[0], kp, vp, 0, tables[0], cs,
+                             pool), _as_pool(v[0], pool))
 
 
 def test_fused_step_wrapper_rejects_wrong_shapes():

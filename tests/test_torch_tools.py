@@ -30,6 +30,7 @@ from tools_torch import chat as t_chat  # noqa: E402
 from tools_torch import convert as t_convert  # noqa: E402
 from tools_torch import convert_lora as t_convert_lora  # noqa: E402
 from tools_torch import export_hf as t_export_hf  # noqa: E402
+from tools_torch import attn_sweep as t_attn_sweep  # noqa: E402
 from tools_torch import b15_sweep as t_b15_sweep  # noqa: E402
 from tools_torch import profile_prefill as t_profile_prefill  # noqa: E402
 from tools_torch import quantize as t_quantize  # noqa: E402
@@ -288,6 +289,52 @@ def test_profile_prefill_needs_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     assert t_profile_prefill.main(["--layers", "1"]) == 2
+    assert "no CUDA card" in capsys.readouterr().err
+
+
+def test_attn_sweep_arguments():
+    """tools_torch/attn_sweep.py (which replaced attn_chunk_sweep.py and
+    paged_chunk_sweep.py): compare and pins by default, three rounds, no
+    old tree; parts, --old and --rounds on the command line; unknown
+    parts, no rounds and the paths part without an old tree refused."""
+    args = t_attn_sweep.parse_args([])
+    assert (args.parts, args.old, args.rounds) == (["compare", "pins"],
+                                                   None, 3)
+    args = t_attn_sweep.parse_args(["--parts", "compare", "--old",
+                                    "_tree_check/old", "--rounds", "5"])
+    assert (args.parts, args.old, args.rounds) == (["compare"],
+                                                   "_tree_check/old", 5)
+    for bad in (["--parts", "turns"], ["--rounds", "0"],
+                ["--parts", "paths"]):
+        with pytest.raises(SystemExit):
+            t_attn_sweep.parse_args(bad)
+    assert t_attn_sweep.parse_args(
+        ["--parts", "paths,builds", "--old", "o"]).parts == ["paths",
+                                                             "builds"]
+    assert not (REPO / "tools_torch" / "attn_chunk_sweep.py").exists()
+    assert not (REPO / "tools_torch" / "paged_chunk_sweep.py").exists()
+
+
+def test_attn_sweep_old_plans_are_the_parents():
+    """The --old tree's plans as the cp.async kernels took them: 64-row
+    chunks cut from S (8 at S 512, 192 at 12288) and B6's 64-row chunks
+    on the engine's 64-row pages (bf16 and f32), whole 16-row pages four at
+    a time, and half pages of 128 rows."""
+    assert t_attn_sweep.old_splits(512) == (8, 64)
+    assert t_attn_sweep.old_splits(12288) == (192, 64)
+    assert t_attn_sweep.old_splits(65) == (2, 33)
+    assert t_attn_sweep.old_b6_plan(8, 64, 128, 2) == (8, 64)
+    assert t_attn_sweep.old_b6_plan(8, 64, 128, 4) == (8, 64)
+    assert t_attn_sweep.old_b6_plan(24, 16, 128, 2) == (6, 64)
+    assert t_attn_sweep.old_b6_plan(3, 128, 128, 2) == (6, 64)
+
+
+def test_attn_sweep_needs_a_card(capsys):
+    """Without a card the sweep refuses (exit code 2) before it builds or
+    times anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert t_attn_sweep.main(["--parts", "pins"]) == 2
     assert "no CUDA card" in capsys.readouterr().err
 
 

@@ -123,3 +123,16 @@ def test_breakdown_counts_device_kernels_by_base_name(tmp_path):
                       "softmax_warp_forward<float, 4>(float*)") \
         == "softmax_warp_forward"
     assert kernel_key("aten::mm") == "aten::mm"
+
+
+def test_busy_us_counts_overlaps_once():
+    """The device time of a trace is the time its spans cover: a kernel
+    launched as a programmatic dependent starts before the one ahead of it
+    ends, and that stretch counts once; disjoint spans add up, a span
+    inside another adds nothing."""
+    from fastllama_tpu_torch.utils.trace import busy_us
+    assert busy_us([]) == 0
+    assert busy_us([(10, 30), (40, 70)]) == 50
+    assert busy_us([(40, 70), (10, 30), (25, 45)]) == 60
+    assert busy_us([(0, 100), (10, 20), (50, 60)]) == 100
+

@@ -14,8 +14,9 @@ At 7B heads (32 of 128) with pages of 64 rows and bf16 pools [H, P, 64,
          engine/paged_kv.py, the library kernel's function) with a bf16 q,
          as the JAX tool passes it, at pages_per_compute_block 1, 2, 4 and
          pages_per_seq;
-  plan   B6 under each chunk size its kernel takes (32 to 256 rows a
-         block, as tools_torch/paged_chunk_sweep.py; b6_plan's choice
+  plan   B6 under each cluster size its kernel takes (1, 2, 4 and 8
+         blocks a (b, h), decode_attention.attn_plan pinned, as
+         tools_torch/attn_sweep.py --parts pins; the plan's choice
          marked);
   slab   B10 (decode_attention) over slab caches [B, S, H*D] at n_past =
          the same depths, and B4 (decode_attention_fused, the slab
@@ -41,7 +42,7 @@ from tools_torch._trace_util import (  # noqa: E402
 )
 
 H, D, PS = 32, 128, 64       # 7B heads, head_dim; page size
-CHUNKS = (32, 64, 128, 192, 256)   # B6's rows a block that it takes
+CLUSTERS = (1, 2, 4, 8)      # B6's blocks a (b, h) that it takes
 
 
 def parse_args(argv=None):
@@ -68,6 +69,7 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     dev = open_device(args.device, "bench_paged_attn")
     from fastllama_tpu_torch.engine import paged_kv as pk
+    from fastllama_tpu_torch.kernels import cuda_lib
     from fastllama_tpu_torch.kernels import decode_attention as da
     from fastllama_tpu_torch.kernels import paged_attention as pa
     from fastllama_tpu_torch.kernels.rope import lane_tables
@@ -143,16 +145,18 @@ def main(argv=None) -> int:
                     kv_bytes * length / s)
 
         if on_card:
-            planned = pa.b6_plan(pps, PS, D, 2)[1]
+            sms = cuda_lib.sm_count(dev)
+            planned = da.attn_plan(b, H, s, D, 2, sms).cs
             for length in (s - PS, 64):
                 lengths = torch.full((b,), length, dtype=torch.int32,
                                      device=dev)
-                for chunk in [c for c in CHUNKS if c <= s]:
+                for cl in CLUSTERS:
+                    plan = da.attn_plan(b, H, s, D, 2, sms, cs=cl)
                     dt = time_calls(lambda: pa._launch(
                         "paged_decode_attention", q, *cycled(pools), lengths,
-                        tables, total_pages, PS, chunk=chunk), args.reps, dev)
-                    mark = " (b6_plan)" if chunk == planned else ""
-                    report(f"plan chunk={chunk}{mark}", length, dt,
+                        tables, total_pages, PS, plan=plan), args.reps, dev)
+                    mark = " (attn_plan)" if cl == planned else ""
+                    report(f"plan cs={cl}{mark}", length, dt,
                            kv_bytes * length / s)
 
         # slab decode attention over [B, S, H*D], cache depth = length
