@@ -19,9 +19,15 @@ Phases (any failure exits nonzero before the last line):
      for B5 one torch.mm of the rounded x by the dequantized weight
      (yardsticks; the port calls none of them). B1 at M = 1, 2, 4, 8,
      16 and 64 and B9 also at 9, 17 and 40, on every plane in bf16 (variants
-     0 and 9 of the fold kernel, csrc/q4_fold.cuh; the FFMA design timed
-     beside them in the same call), f32 mode at M = 1 and 8 on wo (B1) and
-     qkv (B9), B9 also on planes padded to 256 columns, B1 and B9 also on
+     0 and 9 of the fold kernel, csrc/q4_fold.cuh), f32 mode (variants 10
+     and 11: x's three exact bf16 parts on the tensor cores) at M = 1, 2, 8
+     and 64 on every 7B and 13B plane beside one torch.mm f32 call, with
+     the bytes, FFMA and three-part tensor bounds (at M = 64 B1 and B9
+     send f32 calls to B5's f32 mode), and every f32 kernel on the
+     three-part case (three_part_case: an input only a kernel that uses
+     all three parts of x passes, at 1/64 of what dropping the last part
+     misses by), B9 also on planes padded
+     to 256 columns, B1 and B9 also on
      the 13B planes at M = 1, 8 and 64 (timed, with the library call), B1
      with bf16 scales (v0h) on the 7B and 13B planes; B3 bit for bit on the 7B and
      13B planes at M = 512 and 256 (one launch of the register-A kernel,
@@ -248,7 +254,7 @@ Phases (any failure exits nonzero before the last line):
  15. B20 (the prefill split body, v1's fold at prefill M: B5's kernel in
      its split mode) against its plain version on the 7B planes at M =
      512, 256, 64 and 1 and the 13B qkv at 512, bf16 (1e-4 of max |y|)
-     and f32 (B5's f32 kernel, 1e-5), one plan splitting K, timed beside
+     and f32 (B5's f32 mode, 1e-5), one plan splitting K, timed beside
      B5 (nat), B15 at M <= 64 and torch.mm of the dequantized weight, and
      the entry point's counted run; B21 (engine/paged_kv.
      paged_attention_tpu, the library paged attention's function, split
@@ -270,6 +276,16 @@ Phases (any failure exits nonzero before the last line):
      engine with q/k/v LoRA terms (B7 and B21 2 a step);
      and the n_ctx 32768 engine's steady window with 8 sequences at about
      4096 resident rows (528 pages, 17.7 GB of pools);
+ 16. f32 mode at full 7B width (f32_path): the 32-layer q4_0 session with a
+     300-token prompt (B5's f32 mode at M = 300) and 32 greedy tokens (B1's
+     f32 mode at M = 1; the masked attention over the f32 cache, as the
+     JAX forward's gate keeps f32 off B4), TTFT, ms a token, the window's
+     and the decode steps' device time, launches a token and the idle
+     share; the 8-slot paged f32 engine (B1's f32 mode at M = 8, the fused
+     step on f32 pools), ms and device ms a step; an 8-layer q4_1 f32
+     session (B5's and B9's affine f32 modes); exact f32 launches, no
+     retired kernel in any trace; a 2-layer 7B-width f32 model's logits on
+     the card against the CPU (1e-4);
   then the whole script's seconds, one line {"kernels": [...]}, the
   nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -306,6 +322,62 @@ def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def f32_bounds(nbytes: float, flops: float) -> dict:
+    """The bounds of an f32-mode matmul of `flops` (2 M K N) operations:
+    bound_ms the larger of the bytes over the HBM rate and the operations
+    the kernels run, three bf16 products a multiply-add (x's three parts),
+    over the bf16 tensor rate; beside it the FFMA bound (the same function
+    on the CUDA cores at the f32 rate) that the replaced kernels had."""
+    bnd, by = bound_ms(nbytes, 3.0 * flops, "bf16")
+    return dict(bound_ms=bnd, bound_by=by,
+                tensor_bound_ms=3.0 * flops / PEAK_OPS["bf16"] * 1e3,
+                ffma_bound_ms=flops / PEAK_OPS["f32"] * 1e3,
+                bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+# x's values in the three-part case: 1 + t and -1 + t in pairs, t =
+# THREE_PART_TAIL, so that each of x's three bf16 parts (q4_matmul.
+# f32_parts: 1 or 1 - 2^-8, then about 2^-10 or 2^-9, then 2^-22 or about
+# -2^-17) carries bits of the product
+THREE_PART_TAIL = 2.0 ** -10 + 2.0 ** -17 + 2.0 ** -22
+
+
+def three_part_case(torch, m, k, n, affine, gen, dev):
+    """An f32-mode matmul that only a kernel using all three parts of x
+    passes. x row i is s_i 2^e_i (1 + t, -1 + t, 1 + t, ...) (t =
+    THREE_PART_TAIL, s = +-1, e in -1..1); a pair of K positions (2j,
+    2j + 1) shares one code (1..3; q4_0 stores q = c + 8, q4_1 q = c with
+    mins 0) and the scales are 1 or 1/2. A pair's upper parts cancel, so
+    y stays small and its f32 sums nearly exact, while the last part (l)
+    of every value adds to each output with one sign. Returns (x f32
+    [m, k], the weight, y_exact f64 [m, n], tol, miss): tol is 1/64 of
+    the largest |l @ W|, miss the error of the same product without l
+    (a kernel that drops l, or more for one that drops or truncates m)."""
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    from fastllama_tpu_torch.quant.tensor import QuantMatmulWeight
+    nb = k // 32
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+    pair = torch.tensor([1.0 + THREE_PART_TAIL, -1.0 + THREE_PART_TAIL],
+                        dtype=torch.float64, device=dev)
+    row = (2.0 * ints(0, 2, (m, 1)) - 1) * torch.pow(2.0, ints(-1, 2, (m, 1)))
+    x = (row.double() * pair.repeat(k // 2)[None]).float()
+    codes = ints(1, 4, (k // 2, n)).repeat_interleave(2, 0)      # [k, n]
+    d = torch.pow(2.0, -ints(0, 2, (nb, n)).float())
+    q = (codes + (0 if affine else 8)).to(torch.uint8).reshape(nb, 32, n)
+    w = QuantMatmulWeight(
+        qs=(q[:, :16] | (q[:, 16:] << 4)).reshape(k // 2, n).contiguous(),
+        scales=d.contiguous(), n_logical=n,
+        mins=torch.zeros_like(d) if affine else None)
+    wd = codes.double() * d.double().repeat_interleave(32, 0)
+    exact = x.double() @ wd
+    h, mid, low = qm.f32_parts(x)
+    tol = (low.double() @ wd).abs().max().item() / 64
+    miss = ((h.double() + mid.double()) @ wd - exact).abs().max().item()
+    return x, w, exact, tol, miss
 
 
 # ---------------------------------------------------------------------------
@@ -360,29 +432,10 @@ def prompt_of(n_chars: int, seed: int) -> str:
 # B9 adds the rows just past an n-tile (9, 17) and a partial 32-row tile (40)
 B1_ROWS = (1, 2, 4, 8, 16, 64)
 B9_ROWS = (1, 2, 4, 8, 9, 16, 17, 40, 64)
-
-
-def ffma_gemv(torch, qm, x, w):
-    """One launch of the FFMA kernel in bf16 mode (q4_gemv for a q4_0
-    weight, q41_gemv for an affine one), the design that B1's and B9's bf16
-    mode had before the tensor cores (f32 mode's kernel still): a
-    yardstick timed beside them, not counted as a launch of either."""
-    from fastllama_tpu_torch.kernels import cuda_lib
-    m, kx = x.shape
-    kh, n = w.qs.shape
-    splits, per = qm._splitk(m, n, kh // 16)
-    rows, cols = qm._b1_tile(m)
-    partial = cuda_lib.scratch(x.device, "q4_gemv.partial", splits * m * n,
-                               torch.float32)
-    counters = cuda_lib.tile_counters(x.device, -(-n // cols) * -(-m // rows))
-    y = torch.empty((m, w.n_logical), dtype=torch.float32, device=x.device)
-    planes = (w.qs, w.scales) if w.mins is None else (w.qs, w.scales, w.mins)
-    name = "q4_gemv" if w.mins is None else "q41_gemv"
-    cuda_lib.check(cuda_lib.fn(name)(
-        x.data_ptr(), m, kx, *(p.data_ptr() for p in planes), n, kh // 16,
-        splits, per, partial.data_ptr(), counters.data_ptr(), y.data_ptr(),
-        w.n_logical, 1, cuda_lib.stream_handle(x.device)), name)
-    return y
+# the rows of B1's and B9's f32 mode on every 7B plane: the single stream,
+# M = 2, the engine, and 64 (B5's f32 mode, which B1 and B9 call there)
+# (the 13B planes: PROBE_ROWS)
+F32_ROWS = (1, 2, 8, 64)
 
 
 def int4pack_planes(torch, w):
@@ -473,6 +526,7 @@ def check_kernels(torch, dev, gen, out_dir):
     check_decode_matmuls(torch, dev, gen, results)
     check_floor_probes(torch, dev, gen, results)
     check_prefill_matmuls(torch, dev, gen, results)
+    check_f32_three_parts(torch, dev, gen, results)
     check_shard_planes(torch, dev, gen, results)
     check_decode_attention(torch, dev, gen, results)
     check_flash_prefill(torch, dev, gen, results)
@@ -512,14 +566,26 @@ PLANES_13B = [("qkv13", 5120, 15360), ("wo13", 5120, 5120),
               ("w13_13", 5120, 27648), ("w2_13", 13824, 5120)]
 
 
+def f32_library_ms(torch, qm, x, w):
+    """The library yardstick of an f32-mode matmul: one torch.mm of x (f32,
+    padded to the stored K) by the dequantized f32 weight (TF32 off), on a
+    weight the port never makes."""
+    xr = qm._pad_k(x, w.k)
+    wd = qm.dequant_matmul_weight(w, torch.float32)
+    ms = time_ms(lambda: torch.mm(xr, wd), calls=4)
+    del wd
+    return ms
+
+
 def check_decode_matmuls(torch, dev, gen, results):
     """B1 and B9 on every 7B plane: bf16 mode (variants 0 and 9 of the fold
-    kernel) at B1_ROWS / B9_ROWS, with the FFMA design and one
-    _weight_int4pack_mm call timed beside them; f32 mode (FFMA) at M = 1
-    and 8 on wo (B1) and qkv (B9); B1 with bf16 scales (v0h, variant 0's
-    2-byte-scale build) at M = 1, 8 and 64; B9 also on the planes padded to
-    256 columns as make_matmul_weight_q41 pads them; B1 and B9 on the 13B
-    planes at M = 1, 8 and 64, timed beside the library call."""
+    kernel) at B1_ROWS / B9_ROWS, with one _weight_int4pack_mm call timed
+    beside them; f32 mode (variants 10 and 11) at F32_ROWS, beside one
+    torch.mm f32 call and the bf16 mode's time at the same rows; B1 with
+    bf16 scales (v0h, variant 0's 2-byte-scale build) at M = 1, 8 and 64;
+    B9 also on the planes padded to 256 columns as make_matmul_weight_q41
+    pads them; B1 and B9 on the 13B planes at M = 1, 8 and 64 in bf16 mode
+    and in f32 mode, timed beside the library calls."""
     from fastllama_tpu_torch.kernels import q4_matmul as qm
     from fastllama_tpu_torch.kernels import q4_variants as qv
 
@@ -535,9 +601,9 @@ def check_decode_matmuls(torch, dev, gen, results):
         y_ref = qm.q41_matmul_decode_plain(x, w, mode)
         return y, y_ref, b9_tol(torch, qm, x, w, mode)
 
-    for key, affine, fn, case, rows_of, f32_plane in (
-            ("B1", False, qm.q4_matmul_decode, b1_case, B1_ROWS, "wo"),
-            ("B9", True, qm.q41_matmul_decode, b9_case, B9_ROWS, "qkv")):
+    for key, affine, fn, case, rows_of in (
+            ("B1", False, qm.q4_matmul_decode, b1_case, B1_ROWS),
+            ("B9", True, qm.q41_matmul_decode, b9_case, B9_ROWS)):
         out = []
         for name, k, n in PLANES_7B:
             w = rand_weight(torch, k, n, gen, dev, affine)
@@ -545,11 +611,11 @@ def check_decode_matmuls(torch, dev, gen, results):
             ws = [w] + [rand_weight(torch, k, n, gen, dev, affine)
                         for _ in range(copies_for(wbytes) - 1)]
             packs = int4pack_packs(torch, ws)
-            for m in rows_of:
+            for m in sorted(set(rows_of) | set(F32_ROWS)):
                 x = torch.randn((m, k), generator=gen, device=dev)
-                modes = ((torch.bfloat16, torch.float32)
-                         if m in (1, 8) and name == f32_plane
-                         else (torch.bfloat16,))
+                modes = ((torch.bfloat16,) if m in rows_of else ()) + (
+                    (torch.float32,) if m in F32_ROWS else ())
+                bf16_ms = None
                 for mode in modes:
                     y, y_ref, tol = case(x, w, mode)
                     err = (y - y_ref).abs().max().item()
@@ -567,23 +633,28 @@ def check_decode_matmuls(torch, dev, gen, results):
                     plain_ms = time_ms(lambda: plain(x, w, mode),
                                        calls=2)
                     kind = "bf16" if mode == torch.bfloat16 else "f32"
-                    bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
-                                       2.0 * m * k * n, kind)
+                    nbytes = wbytes + x.numel() * 4 + m * n * 4
                     row = dict(shape=f"{name} M={m} K={k} N={n} {kind}",
                                max_abs_err=err, tol=tol, ms=ms,
-                               plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                               bound_share=bnd / ms)
+                               plain_ms=plain_ms)
                     if kind == "bf16":
-                        # the FFMA design (f32 mode's kernel) in this call,
-                        # and the library's W4A16 matmul on the same codes
-                        it = iter(range(10**9))
-                        row["ffma_design_ms"] = time_ms(
-                            lambda: ffma_gemv(
-                                torch, qm, x, ws[next(it) % len(ws)]),
-                            calls=4 * len(ws))
+                        bf16_ms = ms
+                        bnd, by = bound_ms(nbytes, 2.0 * m * k * n, kind)
+                        row.update(bound_ms=bnd, bound_by=by)
+                        # the library's W4A16 matmul on the same codes
                         if m in B1_ROWS:
                             row.update(int4pack_row(torch, packs, x, y_ref,
                                                     n))
+                    else:
+                        row.update(f32_bounds(nbytes, 2.0 * m * k * n))
+                        row.update(library_ms=f32_library_ms(torch, qm, x, w),
+                                   library_call="torch.mm f32 of x by the "
+                                   "dequantized weight (TF32 off)",
+                                   bf16_mode_ms=bf16_ms)
+                        row["vs_library"] = ms / row["library_ms"]
+                        if bf16_ms:
+                            row["vs_bf16_mode"] = ms / bf16_ms
+                    row["bound_share"] = row["bound_ms"] / ms
                     out.append(row)
                     print(f"{key} {row}", flush=True)
                 if not affine and m in PROBE_ROWS:
@@ -622,28 +693,77 @@ def check_decode_matmuls(torch, dev, gen, results):
             packs = int4pack_packs(torch, ws)
             for m in PROBE_ROWS:
                 x = torch.randn((m, k), generator=gen, device=dev)
-                y, y_ref, tol = case(x, w, torch.bfloat16)
-                err = (y - y_ref).abs().max().item()
-                label = f"{key} 13B {name} M={m}"
-                require(bool(torch.isfinite(y).all()) and err <= tol,
-                        f"{label}: err {err} > {tol}")
-                require(torch.equal(y, fn(x, w, torch.bfloat16)),
-                        f"{label}: not deterministic")
-                it = iter(range(10**9))
-                ms = time_ms(lambda: fn(x, ws[next(it) % len(ws)],
-                                        torch.bfloat16), calls=4 * len(ws))
-                bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
-                                   2.0 * m * k * n, "bf16")
-                row = dict(shape=f"{name} M={m} K={k} N={n} bf16",
-                           max_abs_err=err, tol=tol, ms=ms, bound_ms=bnd,
-                           bound_by=by, bound_share=bnd / ms)
-                row.update(int4pack_row(torch, packs, x, y_ref, n))
-                results[key].append(row)
-                print(f"{key} 13B {row}", flush=True)
+                for mode in (torch.bfloat16, torch.float32):
+                    kind = "bf16" if mode == torch.bfloat16 else "f32"
+                    y, y_ref, tol = case(x, w, mode)
+                    err = (y - y_ref).abs().max().item()
+                    label = f"{key} 13B {name} M={m} {kind}"
+                    require(bool(torch.isfinite(y).all()) and err <= tol,
+                            f"{label}: err {err} > {tol}")
+                    require(torch.equal(y, fn(x, w, mode)),
+                            f"{label}: not deterministic")
+                    it = iter(range(10**9))
+                    ms = time_ms(lambda: fn(x, ws[next(it) % len(ws)],
+                                            mode), calls=4 * len(ws))
+                    nbytes = wbytes + x.numel() * 4 + m * n * 4
+                    row = dict(shape=f"{name} M={m} K={k} N={n} {kind}",
+                               max_abs_err=err, tol=tol, ms=ms)
+                    if kind == "bf16":
+                        bnd, by = bound_ms(nbytes, 2.0 * m * k * n, "bf16")
+                        row.update(bound_ms=bnd, bound_by=by)
+                        row.update(int4pack_row(torch, packs, x, y_ref, n))
+                    else:
+                        row.update(f32_bounds(nbytes, 2.0 * m * k * n))
+                        row.update(library_ms=f32_library_ms(torch, qm, x, w))
+                        row["vs_library"] = ms / row["library_ms"]
+                    row["bound_share"] = row["bound_ms"] / ms
+                    results[key].append(row)
+                    print(f"{key} 13B {row}", flush=True)
                 if not affine:
                     results[key].append(check_v0h(torch, qm, qv, x, w,
                                                   name))
             del ws, w, packs
+
+
+# the f32 kernels on the three-part case: B1 and B9 on the fold kernel
+# (mma.sync at 1, 2 and 8, wgmma at 16 and 32), B5 (its plan, and a
+# pinned plan splitting K with tile 0 whole)
+F32_EXACT_DECODE_ROWS = (1, 2, 8, 16, 32)
+F32_EXACT_PREFILL_ROWS = (65, 300)
+
+
+def check_f32_three_parts(torch, dev, gen, results):
+    """Every f32-mode kernel on three_part_case at the 7B wo plane (K = N
+    = 4096): within its tol of the exact product, where the same product
+    without x's last part misses by 32 tol or more."""
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    out = []
+    for affine in (False, True):
+        dec = qm.q41_matmul_decode if affine else qm.q4_matmul_decode
+        for m in F32_EXACT_DECODE_ROWS + F32_EXACT_PREFILL_ROWS:
+            x, w, exact, tol, miss = three_part_case(torch, m, 4096, 4096,
+                                                     affine, gen, dev)
+            require(miss >= 32 * tol, f"three-part case M={m}: l misses by "
+                    f"{miss}, under 32 x {tol}")
+            if m in F32_EXACT_DECODE_ROWS:
+                runs = [("B9" if affine else "B1", dec(x, w, torch.float32))]
+            else:
+                split = qm.prefill_plan(m, 4096, 4096, torch.cuda.
+                                        get_device_properties(dev).
+                                        multi_processor_count, f32=True,
+                                        splits=3, t0=1)
+                runs = [("B5", qm.q4_matmul_prefill(x, w, torch.float32)),
+                        ("B5 split", qm.q4_matmul_prefill(
+                            x, w, torch.float32, plan=split))]
+            for key, y in runs:
+                err = (y.double() - exact).abs().max().item()
+                label = (f"{key} three-part case M={m} "
+                         f"{'q4_1' if affine else 'q4_0'}")
+                require(err <= tol, f"{label}: err {err} > {tol}")
+                out.append(dict(shape=label, max_abs_err=err, tol=tol,
+                                without_last_part=miss))
+                print(f"f32 {out[-1]}", flush=True)
+    results["f32_three_parts"] = out
 
 
 def check_v0h(torch, qm, qv, x, w, name):
@@ -960,9 +1080,11 @@ def check_b5(torch, dev, gen, results):
     the path it replaces at 64 < M < 256 and for q4_1) within f32
     reassociation (1e-5 of the largest |x| @ |W|); timed beside that path
     and beside the product alone as one library call (torch.mm of the
-    rounded x by the already dequantized weight, f32 output); the cast and
-    the product (the register-A kernel, q4_prefill_bf16_kernel) timed apart
-    from a profiler trace at M = 128 and 512 on qkv."""
+    rounded x by the already dequantized weight, f32 output; f32 mode: an
+    f32 torch.mm, TF32 off); the cast and the product (the register-A
+    kernel, q4_prefill_bf16_kernel, f32 mode cast3_kernel and
+    q4_prefill_f32_kernel) timed apart from a profiler trace at M = 128
+    and 512 on qkv."""
     from fastllama_tpu_torch.kernels import q4_matmul as qm
     b5 = []
     for name, k, n in PLANES_7B[:4] + PLANES_13B:
@@ -994,26 +1116,30 @@ def check_b5(torch, dev, gen, results):
                     kw = {"out_dtype": torch.float32} if kind == "bf16" else {}
                     library_ms = time_ms(lambda: torch.mm(xr, wd, **kw),
                                          calls=4)
-                    bnd, by = bound_ms(wbytes + x.numel() * 4 + m * n * 4,
-                                       2.0 * m * k * n, kind)
+                    nbytes = wbytes + x.numel() * 4 + m * n * 4
                     row = dict(shape=f"{name} M={m} K={k} N={n} {kind} "
                                f"{quant}", max_abs_err=err, tol=tol, ms=ms,
                                plain_ms=dequant_ms, dequant_path_ms=dequant_ms,
-                               bound_ms=bnd, bound_by=by,
                                library_ms=library_ms,
                                vs_library=ms / library_ms)
                     if kind == "bf16":
-                        row["plan"] = list(qm.prefill_plan(
-                            m, w.qs.shape[1], -(-k // 32) * 32,
-                            torch.cuda.get_device_properties(
-                                dev).multi_processor_count))
-                    if name == "qkv" and not affine and kind == "bf16" \
-                            and m in (128, 512):
+                        bnd, by = bound_ms(nbytes, 2.0 * m * k * n, kind)
+                        row.update(bound_ms=bnd, bound_by=by)
+                    else:
+                        row.update(f32_bounds(nbytes, 2.0 * m * k * n))
+                    row["bound_share"] = row["bound_ms"] / ms
+                    row["plan"] = list(qm.prefill_plan(
+                        m, w.qs.shape[1], -(-k // 32) * 32,
+                        torch.cuda.get_device_properties(
+                            dev).multi_processor_count, f32=kind == "f32"))
+                    if name == "qkv" and not affine and m in (128, 512):
                         row.update(device_ms_by_name(
                             torch, lambda: qm.q4_matmul_prefill(
                                 x, ws[next(it) % len(ws)], mode),
                             2 * len(ws), ("cast_kernel",
-                                          "q4_prefill_bf16_kernel")))
+                                          "q4_prefill_bf16_kernel")
+                            if kind == "bf16" else (
+                                "cast3_kernel", "q4_prefill_f32_kernel")))
                     b5.append(row)
                     print(f"B5 {row}", flush=True)
                 del wd
@@ -5621,6 +5747,238 @@ def long_context_path(torch, dev, gen):
     return dict(checks=checks, engine=engine)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the f32 mode at full 7B width
+# ---------------------------------------------------------------------------
+
+F32_PROMPT, F32_DECODE = 300, 32
+F32_Q41_LAYERS = 8
+# the kernels the f32 mode retired (csrc/q4_decode.cu's GEMV and
+# csrc/q4_prefill.cu's FFMA tile): a trace of the f32 path names neither
+F32_RETIRED = ("q4_gemv_kernel", "f32_gemm_kernel")
+
+
+def f32_counts(qm, da):
+    """Every counted kernel's launches, and B1's, B9's and B5's f32-mode
+    launches apart (f32_launches: the fold kernel's variants 10 and 11, the
+    register-A kernel's f32 mode)."""
+    out = read_counts(qm, da)
+    for key, fn in (("B1", qm.q4_matmul_decode), ("B9", qm.q41_matmul_decode),
+                    ("B5", qm.q4_matmul_prefill)):
+        out[key + "_f32"] = fn.f32_launches
+    return out
+
+
+def f32_reset(qm, da):
+    reset_counts(qm, da)
+    for fn in (qm.q4_matmul_decode, qm.q41_matmul_decode,
+               qm.q4_matmul_prefill):
+        fn.f32_launches = 0
+
+
+def f32_traced(torch, fn, steps):
+    """(device ms a step, launches a step, {kernel: calls a step}) of
+    `steps` calls of fn under torch.profiler, every kernel named; the
+    device's busy time as device_time_by_kernel counts it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    dev_ms, launches, top = device_time_by_kernel(prof, steps)
+    names = {k[:90]: c / steps for k, (_, c) in kernel_device_us(prof).items()
+             if not k.startswith("ProfilerStep")}
+    require(not any(r in k for k in names for r in F32_RETIRED),
+            f"f32 path: a retired kernel in the trace {sorted(names)}")
+    return dict(device_ms=dev_ms, launches=launches, calls=names,
+                kernels=[{"name": k, "ms": ms, "calls": n}
+                         for k, ms, n in top])
+
+
+def f32_session(torch, dev, hp, params, prompt, n_decode, runs=3):
+    """The f32 session (kv and weights f32, n_ctx 512, n_batch 512) on the
+    prompt: a warm-up, then `runs` timed runs (reset, ingest, first token:
+    TTFT; n_decode greedy tokens: ms a token) on the host clock, the first
+    counted; the streams must agree. Returns (model, session, row)."""
+    from fastllama_tpu_torch.kernels import decode_attention as da
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    model, sess = make_session(hp, params, dev, kv_dtype="float32",
+                               weight_dtype="float32")
+    warm_up(sess, prompt)
+    out = []
+    for i in range(runs):
+        if i == 0:
+            f32_reset(qm, da)
+        sess.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        require(sess.ingest(prompt), "f32 ingest failed")
+        n_prompt = sess.n_past + len(sess._embd)
+        require(sess.generate(lambda s: None, num_tokens=1, temp=0.0),
+                "f32 first token failed")
+        ttft = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        require(sess.generate(lambda s: None, num_tokens=n_decode, temp=0.0),
+                "f32 generate failed")
+        decode_s = time.perf_counter() - t1
+        logits = sess.get_logits().copy()
+        require(n_prompt == F32_PROMPT and np.isfinite(logits).all()
+                and logits.shape == (hp.n_vocab,),
+                f"f32 session: {n_prompt} prompt tokens, logits finite "
+                f"{np.isfinite(logits).all()}")
+        if i == 0:
+            counts = f32_counts(qm, da)
+        out.append((ttft, decode_s / n_decode * 1e3, list(sess._last_n)))
+    require(all(o[2] == out[0][2] for o in out),
+            "f32 session: greedy streams differ between identical runs")
+    ttfts, ms_tok = [o[0] for o in out], [o[1] for o in out]
+    row = dict(n_layer=hp.n_layer, n_prompt=F32_PROMPT,
+               decode_tokens=n_decode, ttft_ms=float(np.median(ttfts)),
+               ttft_ms_runs=ttfts, decode_ms_per_token=float(
+                   np.median(ms_tok)), decode_ms_per_token_runs=ms_tok,
+               launches=counts)
+    return model, sess, row
+
+
+def f32_path(torch, dev, gen):
+    """Phase 16: f32 mode (weight_dtype and kv_dtype float32) at full 7B
+    width, synthetic weights as bench.py builds them: the 32-layer q4_0
+    session (a 300-token prompt at n_batch 512, B5's f32 mode at M = 300,
+    then F32_DECODE greedy tokens: B1's f32 mode at M = 1, the masked
+    attention over the f32 cache, whose K and V rows RW writes) with TTFT
+    and ms a token on the host clock, the TTFT window's
+    and the decode steps' device time from traces, launches a token and
+    the idle share; the 8-slot paged engine in f32 (B1's f32 mode at M = 8,
+    the fused paged step on f32 pools): ms a step, device ms a step,
+    launches a step; an 8-layer q4_1 session (B5's and B9's affine f32
+    modes); and a 2-layer 7B-width f32 model's prefill and first decode
+    logits on the card against the same weights on the CPU (plain
+    versions), within phase 5's f32 rule (1e-4 of the largest logit).
+    The f32 launches are exact, the dequant path runs 0 times and no
+    trace names a retired kernel (F32_RETIRED)."""
+    import dataclasses
+    from fastllama_tpu_torch.config import PRESETS, RuntimeConfig
+    from fastllama_tpu_torch.engine import scheduler as sched
+    from fastllama_tpu_torch.kernels import decode_attention as da
+    from fastllama_tpu_torch.kernels import q4_matmul as qm
+    from fastllama_tpu_torch.models.runtime import LlamaModel
+    from fastllama_tpu_torch.parallel.sharding import params_to
+
+    res = {}
+    hp = PRESETS["7B"]
+    params = rand_params(torch, hp, gen, dev)
+    prompt = prompt_of(F32_PROMPT - 2, seed=16)
+    dequant0 = qm.q4_matmul_dequant.cuda_calls
+    model, sess, row = f32_session(torch, dev, hp, params, prompt,
+                                   F32_DECODE)
+    c = row["launches"]
+    # one 300-row window: four matmuls a layer on B5 (f32), the head's last
+    # row on B1; each decode token 129 matmuls on B1 (f32); the attention
+    # of f32 mode is the masked route over the f32 cache, as the JAX
+    # forward's (its gate keeps f32 off the fused decode kernel B4 and off
+    # B12), the K and V rows of every layer written by RW
+    want = dict(B5_f32=PREFILL_MATMULS, B5=PREFILL_MATMULS,
+                B1_f32=129 * F32_DECODE + 1, B1=129 * F32_DECODE + 1,
+                RW=WINDOW_ROWS * (F32_DECODE + 1), B2=0, B3=0, B4=0, B9=0,
+                B9_f32=0, B10=0, B12=0)
+    require(all(c[k] == v for k, v in want.items()),
+            f"f32 session launches {c}, want {want}")
+    window = f32_traced(torch, lambda: (sess.reset(), sess.ingest(prompt),
+                                        sess.generate(lambda s: None,
+                                                      num_tokens=1,
+                                                      temp=0.0)), 1)
+    require(any("q4_prefill_f32_kernel" in k for k in window["calls"])
+            and any("cast3_kernel" in k for k in window["calls"]),
+            f"f32 window: no f32 prefill kernel in {sorted(window['calls'])}")
+    decode = f32_traced(torch, lambda: sess.generate(
+        lambda s: None, num_tokens=1, temp=0.0), 8)
+    require(any("q4_fold_kernel" in k for k in decode["calls"]),
+            f"f32 decode: no fold kernel in {sorted(decode['calls'])}")
+    row.update(window_device_ms=window["device_ms"],
+               window_kernels=window["kernels"],
+               window_gemm_launches={k: v for k, v in window["calls"].items()
+                                     if "gemm" in k.lower()},
+               device_ms_per_token=decode["device_ms"],
+               launches_per_token=decode["launches"],
+               decode_kernels=decode["kernels"],
+               device_idle_share=1.0 - decode["device_ms"]
+               / row["decode_ms_per_token"],
+               weight_bytes_per_token=model_weight_bytes(params),
+               decode_bytes_bound_ms=model_weight_bytes(params)
+               / HBM_BYTES_PER_S * 1e3)
+    res["q4_0_session"] = row
+    print(f"f32 session: {json.dumps(row)}", flush=True)
+    del sess, model
+    torch.cuda.empty_cache()
+
+    # the 8-slot paged engine in f32
+    vocab = synthetic_vocab(hp.n_vocab)
+    rcfg = RuntimeConfig(n_ctx=ENG_CTX, n_batch=512, kv_dtype="float32",
+                         weight_dtype="float32")
+
+    def make():
+        return sched.BatchEngine(hp, params, vocab, n_slots=ENG_SLOTS,
+                                 n_ctx=ENG_CTX, rcfg=rcfg, sampling_seed=3,
+                                 kv_mode="paged", page_size=ENG_PS)
+    engine_run(torch, sched, make, "f32 warm-up", hp.n_layer, False,
+               f32=True, temp=0.0)
+    f32_reset(qm, da)
+    _, erow = engine_run(torch, sched, make, "f32 paged greedy", hp.n_layer,
+                         False, f32=True, temp=0.0)
+    ec = f32_counts(qm, da)
+    require(ec["B1_f32"] == ec["B1"] > 0 and ec["B5_f32"] == ec["B5"]
+            and ec["B9"] == ec["B2"] == ec["B3"] == 0,
+            f"f32 engine launches {ec}")
+    erow["launches"].update({k: ec[k] for k in ("B1_f32", "B5_f32")})
+    steady = engine_steady(torch, sched, make)
+    res["engine"] = dict(run=erow, steady=steady)
+    print(f"f32 engine steady: {json.dumps(steady)}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    # the q4_1 session at 8 layers: B5's and B9's affine f32 modes
+    hp8 = dataclasses.replace(hp, n_layer=F32_Q41_LAYERS)
+    params = rand_params(torch, hp8, gen, dev, affine=True)
+    model, sess, row = f32_session(torch, dev, hp8, params, prompt, 16,
+                                   runs=2)
+    c = row["launches"]
+    want = dict(B5_f32=4 * F32_Q41_LAYERS, B5=4 * F32_Q41_LAYERS,
+                B9_f32=(4 * F32_Q41_LAYERS + 1) * 16 + 1,
+                B9=(4 * F32_Q41_LAYERS + 1) * 16 + 1, B1=0, B1_f32=0, B2=0,
+                B3=0)
+    require(all(c[k] == v for k, v in want.items()),
+            f"f32 q4_1 session launches {c}, want {want}")
+    res["q4_1_session"] = row
+    print(f"f32 q4_1 session: {json.dumps(row)}", flush=True)
+    del sess, model, params
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: a 2-layer 7B-width f32 model, the same
+    # weights on both
+    hp2 = dataclasses.replace(hp, n_layer=2)
+    params = rand_params(torch, hp2, gen, dev)
+    rcfg = RuntimeConfig(n_ctx=512, n_batch=64, kv_dtype="float32",
+                         weight_dtype="float32")
+    lm_gpu = LlamaModel(hp2, params, vocab, rcfg, device=dev)
+    lm_cpu = LlamaModel(hp2, params_to(params, torch.device("cpu")), vocab,
+                        rcfg, device="cpu")
+    errs = card_vs_cpu(lm_gpu, lm_cpu)
+    require(max(errs) <= 1e-4, f"f32 2 layers, card vs CPU logits rel err "
+            f"{errs}")
+    res["card_vs_cpu_2_layers"] = dict(rel_err_prefill=errs[0],
+                                       rel_err_decode=errs[1])
+    del lm_gpu, lm_cpu, params
+    torch.cuda.empty_cache()
+    res["dequant_calls"] = qm.q4_matmul_dequant.cuda_calls - dequant0
+    require(res["dequant_calls"] == 0,
+            f"f32 path: the dequant path ran {res['dequant_calls']} times")
+    print(f"f32 path: {json.dumps({k: v for k, v in res.items() if k not in ('q4_0_session', 'q4_1_session', 'engine')})}",
+          flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5690,6 +6048,7 @@ def main() -> int:
                         dev, gen)
         long_res = timed("15 B20, B21, long-context engine",
                          long_context_path, torch, dev, gen)
+        f32_res = timed("16 f32 mode at 7B", f32_path, torch, dev, gen)
         # bench_torch.py's TTFT windows replay their graphs (phase 11)
         prefill_res["bench_7b_ttft_ms"] = {
             k: bench_res["bench"]["7b"]["line"][k]
@@ -5754,8 +6113,8 @@ def main() -> int:
                  "B21F": pick(long_res["checks"]["B21F"],
                               "lengths=8x300 + inactive")}
     meta = {
-        # variant 0 of the fold kernel (built as csrc/q4_fold_v0.cu; f32
-        # mode's FFMA kernel csrc/q4_decode.cu)
+        # variant 0 of the fold kernel (built as csrc/q4_fold_v0.cu; its
+        # f32 mode variant 10, csrc/q4_fold_f32.cu, a row of its own)
         "B1": ("q4_matmul_decode", "csrc/q4_fold.cuh",
                "fastllama_tpu/kernels/q4_matmul.py:433"),
         "B2": ("quant_rows_int8", "csrc/quant_rows.cu",
@@ -5768,7 +6127,8 @@ def main() -> int:
         "B4": ("decode_attention_fused", "csrc/attn_split.cuh",
                "fastllama_tpu/kernels/decode_attention.py:258"),
         # the register-A kernel in its bf16 modes (built as
-        # csrc/q4_prefill.cu, with the cast pass and the f32 mode's kernel)
+        # csrc/q4_prefill.cu, with the cast passes; its f32 mode a row of
+        # its own)
         "B5": ("q4_matmul_prefill", "csrc/q4_prefill_ra.cuh",
                "fastllama_tpu/kernels/q4_matmul.py:578"),
         # variant 9 of the fold kernel (built as csrc/q4_fold_v9.cu)
@@ -5927,7 +6287,7 @@ def main() -> int:
             kernels[-1].update(
                 path="q4_variants.q4_matmul_prefill_pallas(variant='split') "
                      "on the 7B planes at M = 512, bf16 and f32 (phase 15's "
-                     "counted run; f32 runs B5's f32 kernel)",
+                     "counted run; f32 runs B5's f32 mode)",
                 library_call=row["library_call"], b5_nat_ms=row["b5_nat_ms"],
                 vs_b5=row["vs_b5"], vs_library=row["vs_library"],
                 kernels_a_call=row["kernels_a_call"])
@@ -5995,6 +6355,44 @@ def main() -> int:
                 bound_ms_at_engine_m8=m8["bound_ms"],
                 library_ms_at_engine_m8=m8.get("library_ms"))
         require(launches[key] > 0, f"kernel {key} was launched on no path")
+    # the f32 modes of B1, B9 and B5 (B20's f32 route runs B5's): the fold
+    # kernel's variants 10 and 11 (built as csrc/q4_fold_f32.cu) and the
+    # register-A kernel's f32 mode, counted apart (f32_launches) on phase
+    # 16's path
+    s0, s1 = f32_res["q4_0_session"], f32_res["q4_1_session"]
+    erun = f32_res["engine"]["run"]["launches"]
+    for key, shape, built, n, by_path in (
+            ("B1", "qkv M=1 K=4096 N=12288 f32", "q4_fold_f32.cu",
+             s0["launches"]["B1_f32"],
+             {"f32_engine_8_slots": erun["B1_f32"]}),
+            ("B9", "qkv M=1 K=4096 N=12288 f32", "q4_fold_f32.cu",
+             s1["launches"]["B9_f32"], {}),
+            ("B5", "qkv M=512 K=4096 N=12288 f32 q4_0", "q4_prefill.cu",
+             s0["launches"]["B5_f32"],
+             {"f32_q4_1_session_8_layers": s1["launches"]["B5_f32"],
+              "f32_engine_8_slots": erun["B5_f32"],
+              "b20_f32_entry_point": 4})):
+        row = pick(checks[key], shape)
+        name, src, replaces = meta[key]
+        require(n > 0, f"kernel {key} (f32 mode) was launched on no path")
+        kernels.append({
+            "name": f"{name} (f32 mode)", "route": "cuda",
+            "source": "fastllama_tpu_torch/kernels/" + src,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": max(r["max_abs_err"] for r in checks[key]
+                               if r["shape"].endswith(" f32")
+                               or " f32 " in r["shape"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": row["shape"],
+            "library_call": "torch.mm f32 of x by the dequantized weight "
+                            "(TF32 off)",
+            "ffma_bound_ms": row["ffma_bound_ms"],
+            "tensor_bound_ms": row["tensor_bound_ms"],
+            "built_as": "fastllama_tpu_torch/kernels/csrc/" + built,
+            "path": "phase 16: the f32 session at 7B (q4_0, 32 layers; "
+                    "q4_1, 8 layers for B9)",
+            "launches_by_path": by_path})
     summary = {"card": smi, "build_s": cuda_lib.build_seconds,
                "kernel_checks": checks, "main_path": main_res,
                "q41_lora_path": q41_res, "file_entry_points": file_res,
@@ -6002,6 +6400,7 @@ def main() -> int:
                "c_abi": c_res, "parallel": par_res, "bench_path": bench_res,
                "graphs": graph_res, "prefill_graphs": prefill_res,
                "variants": var_res, "long_context": long_res,
+               "f32_mode": f32_res,
                "seconds": time.perf_counter() - t_start,
                "phase_seconds": phase_s}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

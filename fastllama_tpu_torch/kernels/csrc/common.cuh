@@ -52,6 +52,23 @@ template <> struct Vec16<float> {
   }
 };
 
+// The three bf16 parts of an f32 value (B1's, B9's and B5's f32 modes),
+// as bit patterns in the upper halves: h = x's upper 16 bits, m = those of
+// r = x - h, l = r - m (exact: it keeps at most 8 significant bits, so its
+// lower half is zero wherever |x| >= 2^-110); h + m + l = x, each part a
+// bf16 value, and no part overflows (truncation, not rounding).
+__device__ __forceinline__ void f32_parts(float x, uint32_t* p) {
+  p[0] = __float_as_uint(x) & 0xFFFF0000u;
+  const float r = __fsub_rn(x, __uint_as_float(p[0]));
+  p[1] = __float_as_uint(r) & 0xFFFF0000u;
+  p[2] = __float_as_uint(__fsub_rn(r, __uint_as_float(p[1])));
+}
+
+// The upper halves of two words as one bf16x2 word (a's in the low half).
+__device__ __forceinline__ uint32_t hi2(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x7632);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;

@@ -1,10 +1,12 @@
-// Kernels B1 and B9 (the default decode matmuls, q4_0 and q4_1), B15, B16,
-// B17 and B18 (the JAX package's v1, v2, v3 and v7 decode bodies of
-// q4_matmul_pallas), and the probes B13 and B14 of tools/bench_q4_floor.py,
-// on one decode-size kernel built for Hopper. This header holds the kernel;
-// q4_fold_v0.cu (B1), q4_fold_v9.cu (B9), q4_fold.cu (B15), q4_fold_v2.cu
+// Kernels B1 and B9 (the default decode matmuls, q4_0 and q4_1, in bf16
+// mode and in f32 mode), B15, B16, B17 and B18 (the JAX package's v1, v2,
+// v3 and v7 decode bodies of q4_matmul_pallas), and the probes B13 and B14
+// of tools/bench_q4_floor.py, on one decode-size kernel built for Hopper.
+// This header holds the kernel; q4_fold_v0.cu (B1), q4_fold_v9.cu (B9),
+// q4_fold_f32.cu (B1 and B9 in f32 mode), q4_fold.cu (B15), q4_fold_v2.cu
 // (B16), q4_fold_v3.cu (B17), q4_fold_v7.cu (B18) and q4_fold_probe.cu (B13
-// and B14) build one variant each, so that they compile side by side.
+// and B14) build one variant each (or a pair), so that they compile side by
+// side.
 //
 // Replaces fastllama_tpu/kernels/q4_matmul.py::q4_matmul_pallas with the
 // function of its v0 body, _q4mm_kernel (variant 0; q4_matmul_xla's), and
@@ -23,6 +25,8 @@
 //   v2: y = sum_b d_b (R(x_b) @ q_b) - 8 bsum(x) @ d
 //   v3: y = R(x) @ R(q R(d)) - 8 bsum(x) @ d
 //   v7: y = R(x) @ R(q d) - 8 bsum7(x) @ d
+//   10: y = x @ ((q - 8) d)          (B1 in f32 mode, nothing rounded)
+//   11: y = x @ (q d) + bsum(x) @ m  (B9 in f32 mode)
 //   13: y = R(x_lo) @ qs                      (B13, floor: the whole byte)
 //   14: y = R(x_lo) @ (qs & 15) + R(x_hi) @ (qs >> 4)     (B14, nosc)
 // with q the code 0..15, R the rounding to bf16, bsum(x) [M, K/32] the
@@ -111,7 +115,23 @@
 //     barrier), and the leader adds them in split order and stores y: no
 //     global partials, counters, fences or re-reads. A sender reuses its
 //     buffer once the leader, done reading, arrives on its barrier.
-// The A registers are double-buffered across q blocks (wgmma_wait<1> after
+//   * 10 and 11, f32 mode: the tensor cores have no f32 product, but an f32
+//     x is the exact sum of three bf16 parts, h its upper 16 bits, m those
+//     of x - h and l = x - h - m (each part takes the next 8 of f32's 24
+//     significant bits; exact for |x| >= 2^-110, where no part is
+//     subnormal in bf16; truncation, not rounding, so that no part
+//     overflows at f32's largest values), and a code (q - 8, or q) is an
+//     exact bf16 integer. So each part's product with the codes is exact,
+//     and v2's route computes the f32 function: the codes alone in the A
+//     registers, the three parts' k16 steps of a q block into z (summed
+//     in f32 by the tensor cores), then acc = fma(z, d, acc) and, for 11,
+//     the mins term bsum(x) m straight into acc. The x warps write each
+//     part of x as its own set of k16 tiles (three products a k16 step;
+//     at M <= 2 too: the parts packed as rows of one 8-row tile, one
+//     product a k16 step and two shuffles, took 0.98-1.08x the time,
+//     PERF.md).
+//     z differs from the plain version's x @ W only in the order of f32
+//     sums and in the skipped rounding of (q - 8) d (or q d + m);
 // each q block's pair; v2: wgmma_wait<0> before it), so a set outlives the
 // next issue.
 // Products of two bf16 values are exact in f32, so the product differs from
@@ -166,11 +186,22 @@ constexpr int kQB = 4;                   // q blocks a stage
 __host__ __device__ constexpr bool probe(int var) {
   return var == 13 || var == 14;
 }
+// the f32 modes of B1 (10) and B9 (11)
+__host__ __device__ constexpr bool f32v(int var) {
+  return var == 10 || var == 11;
+}
+// the variants that read a mins plane: B9 in either mode
+__host__ __device__ constexpr bool minsv(int var) {
+  return var == 9 || var == 11;
+}
 // the bytes a stage carries a column a q block beside the packed rows: the
-// scale (4, or 2 for bf16 scales), and variant 9's f32 min (the probes:
-// none)
+// scale (4, or 2 for bf16 scales), and B9's f32 min (the probes: none)
 __host__ __device__ constexpr int stage_sbytes(int var, bool sc16) {
-  return probe(var) ? 0 : var == 9 ? 8 : sc16 ? 2 : 4;
+  return probe(var) ? 0 : minsv(var) ? 8 : sc16 ? 2 : 4;
+}
+// the sets of k16 tiles an x slot holds: the f32 modes' three parts apart
+__host__ __device__ constexpr int x_sets(int var) {
+  return f32v(var) ? 3 : 1;
 }
 // A consumer warpgroup takes MT m-tiles of 64 columns: 2 (a lane's 4
 // adjacent columns, one 4-byte load a packed row) where NW <= 32, 1 (2
@@ -210,19 +241,20 @@ struct Layout {
                    // and variant 9's mins [kQB][BN] (sbytes the two
                    // together; 0 for the probes)
   int xr;          // an x slot: x f32 [NW][128] as copied, then
-  int xt;          // the bf16 tiles (kQB * 2 k16 tiles of NW x 16), then
+  int xt;          // the bf16 tiles (sets of kQB * 2 k16 tiles of NW x
+                   // 16), then
   int xst;         // the block sums [kQB][NW]; xst the slot's bytes
   int w, x, m, bar, total;
 };
 
 __host__ __device__ inline Layout fold_layout(int wgs, int nw, int sbytes,
                                               int stages, int xstages,
-                                              int splits) {
+                                              int splits, int sets = 1) {
   Layout L;
   const int bn = 64 * mtiles(nw) * wgs;
   L.ws = (16 * kQB * bn + kQB * bn * sbytes + 1023) / 1024 * 1024;
   L.xr = nw * 128 * 4;
-  L.xt = kQB * 32 * nw * 2;
+  L.xt = sets * kQB * 32 * nw * 2;
   L.xst = (L.xr + L.xt + kQB * nw * 4 + 127) / 128 * 128;
   L.w = 0;
   L.x = stages * L.ws;
@@ -432,8 +464,9 @@ __device__ __forceinline__ __nv_bfloat162 code2(uint32_t nib, int sel) {
 // rows (2t, 2t+1) and (2t+8, 2t+9): byte 0 / 2 its column c (A row g), byte
 // 1 / 3 column c + 1 (A row g + 8), the lower k in the low half. v1, v7
 // and v9 R(q d), v0 R((q - 8) d), v3 R(q R(d)), v2 the code q itself (exact
-// in bf16; d is applied to each q block's product). B13 takes v1's route
-// with d = 1 on the whole bytes (exact: 8 bits), B14 v2's on the nibbles.
+// in bf16; d is applied to each q block's product; so do 11, B9's f32
+// mode, and 10, B1's, with q - 8). B13 takes v1's route with d = 1 on the
+// whole bytes (exact: 8 bits), B14 v2's on the nibbles.
 template <int VAR>
 __device__ __forceinline__ void dequant(uint32_t n01, uint32_t n23, float d0,
                                         float d1, uint32_t* a) {
@@ -442,13 +475,14 @@ __device__ __forceinline__ void dequant(uint32_t n01, uint32_t n23, float d0,
     a[1] = bits(__floats2bfloat162_rn(q8d<1>(n01, d1), q8d<3>(n01, d1)));
     a[2] = bits(__floats2bfloat162_rn(q8d<0>(n23, d0), q8d<2>(n23, d0)));
     a[3] = bits(__floats2bfloat162_rn(q8d<1>(n23, d1), q8d<3>(n23, d1)));
-  } else if constexpr (VAR == 2) {
-    // (128 + q) - 128 = q exactly: a permute and a bf16x2 subtraction a pair
-    const __nv_bfloat162 k128 = __float2bfloat162_rn(128.f);
-    a[0] = bits(__hsub2(code2(n01, 0x4240), k128));
-    a[1] = bits(__hsub2(code2(n01, 0x4341), k128));
-    a[2] = bits(__hsub2(code2(n23, 0x4240), k128));
-    a[3] = bits(__hsub2(code2(n23, 0x4341), k128));
+  } else if constexpr (VAR == 2 || f32v(VAR)) {
+    // (128 + q) - 128 = q (10: - 136, q - 8) exactly: a permute and a
+    // bf16x2 subtraction a pair
+    const __nv_bfloat162 k = __float2bfloat162_rn(VAR == 10 ? 136.f : 128.f);
+    a[0] = bits(__hsub2(code2(n01, 0x4240), k));
+    a[1] = bits(__hsub2(code2(n01, 0x4341), k));
+    a[2] = bits(__hsub2(code2(n23, 0x4240), k));
+    a[3] = bits(__hsub2(code2(n23, 0x4341), k));
   } else if constexpr (VAR == 3) {
     // two codes as 128 + q, then one bf16x2 fma: (128 + q) R(d) - 128 R(d)
     // = q R(d), rounded once
@@ -469,6 +503,9 @@ __device__ __forceinline__ void dequant(uint32_t n01, uint32_t n23, float d0,
   }
 }
 
+using fltorch::f32_parts;
+using fltorch::hi2;
+
 // Block b of the grid is rank z = b % S of cluster b / S. Every role walks
 // the same work: the column tiles t = cluster, cluster + clusters, ... and,
 // in each, the K stages [z sps, min(nst, (z + 1) sps)); each counts the
@@ -487,13 +524,19 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_m,
                const __grid_constant__ CUtensorMap map_x, const FoldArgs a) {
   constexpr bool PROBE = probe(VAR);
+  constexpr bool F32 = f32v(VAR);
   // a stage's bytes a column a q block beside the packed rows (a scale and
-  // variant 9's min)
+  // B9's min)
   constexpr int kSB = stage_sbytes(VAR, SC16);
-  // the variants that fold a term into registers beside acc (v2 folds
-  // straight into acc; v0 and the probes fold nothing)
-  constexpr bool FOLD = !PROBE && VAR != 0 && VAR != 2;
+  // each q block's product into a fresh set z, then scaled into acc: v2
+  // and the f32 modes
+  constexpr bool ZED = VAR == 2 || F32;
+  // the variants that fold a term into registers beside acc (v2 and 11
+  // fold straight into acc; v0, 10 and the probes fold nothing)
+  constexpr bool FOLD = !PROBE && VAR != 0 && !ZED;
   constexpr int kSteps = VAR == 13 ? 1 : 2;       // k16 steps a q block
+  // the x tile sets (the f32 parts apart) and their bytes apart
+  constexpr int kSets = x_sets(VAR), kSetBytes = kQB * 2 * NW * 32;
   constexpr int MT = mtiles(NW);
   constexpr int kXWarps = x_warps(NW), kXThreads = 32 * kXWarps;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -501,7 +544,7 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t base = (raw + 1023) & ~1023u;
   uint8_t* basep = smem_raw + (base - raw);
   const Layout L =
-      fold_layout(a.wgs, NW, kSB, a.stages, a.xstages, a.splits);
+      fold_layout(a.wgs, NW, kSB, a.stages, a.xstages, a.splits, kSets);
   const uint32_t full = base + L.bar, empty = full + 8 * a.stages;
   const uint32_t rfull = empty + 8 * a.stages;
   const uint32_t xfull = rfull + 8 * a.xstages;
@@ -525,7 +568,7 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
     // the descriptors fetched while the barriers are set up
     hopper::prefetch_map(&map_q);
     if constexpr (!PROBE) hopper::prefetch_map(&map_s);
-    if constexpr (VAR == 9) hopper::prefetch_map(&map_m);
+    if constexpr (minsv(VAR)) hopper::prefetch_map(&map_m);
     hopper::prefetch_map(&map_x);
   }
   if (threadIdx.x == 0) {
@@ -570,7 +613,7 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
                       st * kQB * 16);
         if constexpr (!PROBE)
           tma_load_2d(dst + qbytes, &map_s, bar, t * bn, st * kQB);
-        if constexpr (VAR == 9)    // the mins after the f32 scales
+        if constexpr (minsv(VAR))    // the mins after the f32 scales
           tma_load_2d(dst + qbytes + kQB * bn * 4, &map_m, bar, t * bn,
                       st * kQB);
         if (++slot == a.stages) { slot = 0; ph ^= 1; }
@@ -634,12 +677,28 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
           const float4 w = *reinterpret_cast<const float4*>(src + 16);
           const __nv_bfloat162 lo4 = __floats2bfloat162_rn(w.x, w.y);
           const __nv_bfloat162 hi4 = __floats2bfloat162_rn(w.z, w.w);
-          if (u < units) {
+          if constexpr (F32) {
+            // the three parts of each value: part p in set p
+            const float e[8] = {v.x, v.y, v.z, v.w, w.x, w.y, w.z, w.w};
+            uint32_t pt[8][3];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) f32_parts(e[c], pt[c]);
+#pragma unroll
+            for (int p = 0; p < 3; ++p) {
+              uint8_t* dp = dst + p * kSetBytes;
+              if (u < units) {
+                *reinterpret_cast<uint2*>(dp) = make_uint2(
+                    hi2(pt[0][p], pt[1][p]), hi2(pt[2][p], pt[3][p]));
+                *reinterpret_cast<uint2*>(dp + NW * 32) = make_uint2(
+                    hi2(pt[4][p], pt[5][p]), hi2(pt[6][p], pt[7][p]));
+              }
+            }
+          } else if (u < units) {
             *reinterpret_cast<uint2*>(dst) = make_uint2(bits(lo), bits(hi));
             *reinterpret_cast<uint2*>(dst + NW * 32) =
                 make_uint2(bits(lo4), bits(hi4));
           }
-          if constexpr (VAR == 14 || VAR == 0) continue;   // no fold
+          if constexpr (VAR == 14 || VAR == 0 || VAR == 10) continue;  // no sums
           float sum;
           if constexpr (VAR == 7) {
             // one bf16x2 add rounds the exact pair sum once, as the plain
@@ -705,8 +764,8 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
         const float2 bv = *reinterpret_cast<const float2*>(bsb + 8 * j + 2 * t4);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          const float p0 = VAR == 9 ? d[2 * mt] : -8.f * d[2 * mt];
-          const float p1 = VAR == 9 ? d[2 * mt + 1] : -8.f * d[2 * mt + 1];
+          const float p0 = minsv(VAR) ? d[2 * mt] : -8.f * d[2 * mt];
+          const float p1 = minsv(VAR) ? d[2 * mt + 1] : -8.f * d[2 * mt + 1];
           float* f = dst[mt] + 4 * j;
           f[0] = __fmaf_rn(bv.x, p0, f[0]);
           f[1] = __fmaf_rn(bv.y, p0, f[1]);
@@ -732,8 +791,8 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
           acc[mt][i] = 0.f;
           fold[mt][i] = 0.f;
         }
-      // the tile's first q block has no product pending: the z left from
-      // the tile before is added times 0
+      // the tile's first q block has no product pending: z, zeroed after
+      // the tile before's last scale, is added times 0
 #pragma unroll
       for (int c = 0; c < 2 * MT; ++c) dp[c] = 0.f;
       for (int st = st0; st < st1; ++st) {
@@ -769,7 +828,7 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
           }
           float mn[2 * MT] = {};      // v9: the mins, after the f32 scales
 #pragma unroll
-          for (int c = 0; c < MT && VAR == 9; ++c) {
+          for (int c = 0; c < MT && minsv(VAR); ++c) {
             const float2 f = *reinterpret_cast<const float2*>(
                 sc + kQB * bn * 4 + (b * bn + c0 + 2 * c) * 4);
             mn[2 * c] = f.x;
@@ -785,7 +844,8 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
               // the whole bytes, one k16 step
               dequant<1>(w01, w23, 1.f, 1.f, A[mt]);
             } else {
-              constexpr int kDq = VAR == 14 ? 2 : VAR;   // B14: v2's codes
+              // B14 and 11: v2's codes
+              constexpr int kDq = VAR == 14 || VAR == 11 ? 2 : VAR;
               dequant<kDq>(w01 & 0x0F0F0F0Fu, w23 & 0x0F0F0F0Fu, d[2 * mt],
                            d[2 * mt + 1], A[mt]);
               dequant<kDq>((w01 >> 4) & 0x0F0F0F0Fu,
@@ -797,31 +857,36 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
             add_fold(fold, bs + b * NW, VAR == 9 ? mn : d);
           if constexpr (SYNC) {
             // B fragment: x rows g, k 2t, 2t + 1 (and + 8) of tile (b, s)
+            // of each set
             const uint8_t* xb = xs + 2 * b * NW * 32 + g * 16 + 4 * t4;
 #pragma unroll
-            for (int s = 0; s < kSteps; ++s) {
-              const uint32_t b0 =
-                  *reinterpret_cast<const uint32_t*>(xb + s * NW * 32);
-              const uint32_t b1 =
-                  *reinterpret_cast<const uint32_t*>(xb + s * NW * 32 + 128);
+            for (int s = 0; s < kSteps; ++s)
 #pragma unroll
-              for (int mt = 0; mt < MT; ++mt) {
-                if constexpr (VAR != 2)
-                  mma_bf16(acc[mt], A[mt] + 4 * s, b0, b1);
-                else if (s == 0)
-                  mma_bf16_new(z[mt], A[mt], b0, b1);
-                else
-                  mma_bf16(z[mt], A[mt] + 4, b0, b1);
+              for (int p = 0; p < kSets; ++p) {
+                const uint8_t* xp = xb + p * kSetBytes + s * NW * 32;
+                const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xp);
+                const uint32_t b1 =
+                    *reinterpret_cast<const uint32_t*>(xp + 128);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                  if constexpr (!ZED)
+                    mma_bf16(acc[mt], A[mt] + 4 * s, b0, b1);
+                  else if (s == 0 && p == 0)
+                    mma_bf16_new(z[mt], A[mt], b0, b1);
+                  else
+                    mma_bf16(z[mt], A[mt] + 4 * s, b0, b1);
+                }
               }
-            }
-            if constexpr (VAR == 2) {
-              add_fold(acc, bs + b * NW, d);
+            if constexpr (ZED) {
+              if constexpr (VAR != 10)
+                add_fold(acc, bs + b * NW, VAR == 11 ? mn : d);
               add_scaled(z, d);
             }
           } else {
-            // v2's product of block b into z, the others' into acc
-            float (&D)[MT][NW / 2] = VAR == 2 ? z : acc;
-            if constexpr (VAR == 2) {
+            // v2's and the f32 modes' product of block b into z, the
+            // others' into acc
+            float (&D)[MT][NW / 2] = ZED ? z : acc;
+            if constexpr (ZED) {
               // block b - 1's product done before block b's issue
               wgmma_wait<0>();
 #pragma unroll
@@ -830,7 +895,8 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
                 keep(afr[(b + 1) & 1][mt]);
               }
               add_scaled(z, dp);
-              add_fold(acc, bs + b * NW, d);
+              if constexpr (VAR != 10)
+                add_fold(acc, bs + b * NW, VAR == 11 ? mn : d);
 #pragma unroll
               for (int c = 0; c < 2 * MT; ++c) dp[c] = d[c];
               if (b == 0) {
@@ -842,30 +908,35 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
             // descriptors; D untouched) set before their pipeline stage
             // opens: the compiler would otherwise compute the second
             // step's between the two issues, and ptxas then serializes
-            uint64_t dsc[kSteps];
+            uint64_t dsc[kSteps * kSets];
 #pragma unroll
-            for (int s = 0; s < kSteps; ++s) {
-              dsc[s] = hopper::plain_desc(xs_s + (2 * b + s) * NW * 32, 128,
-                                          256);
-              asm volatile("" : "+l"(dsc[s])::"memory");
-            }
+            for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+              for (int p = 0; p < kSets; ++p) {
+                uint64_t& ds = dsc[s * kSets + p];
+                ds = hopper::plain_desc(
+                    xs_s + p * kSetBytes + (2 * b + s) * NW * 32, 128, 256);
+                asm volatile("" : "+l"(ds)::"memory");
+              }
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) {
               keep(A[mt]);
               fence_regs<NW / 2>(D[mt]);
             }
             wgmma_fence();
-            // v2 starts each block's z afresh (scale-d 0 on its first step)
+            // z starts afresh each block (scale-d 0 on its first product)
 #pragma unroll
             for (int s = 0; s < kSteps; ++s)
 #pragma unroll
-              for (int mt = 0; mt < MT; ++mt)
-                WgmmaRs<NW>::run(D[mt], A[mt] + 4 * s, dsc[s],
-                                 VAR == 2 && s == 0 ? 0 : 1);
+              for (int p = 0; p < kSets; ++p)
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+                  WgmmaRs<NW>::run(D[mt], A[mt] + 4 * s, dsc[s * kSets + p],
+                                   ZED && s == 0 && p == 0 ? 0 : 1);
             wgmma_commit();
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) fence_regs<NW / 2>(D[mt]);
-            if constexpr (VAR != 2) {
+            if constexpr (!ZED) {
               wgmma_wait<1>();     // q block b - 1's products are done
 #pragma unroll
               for (int mt = 0; mt < MT; ++mt) keep(afr[(b + 1) & 1][mt]);
@@ -887,7 +958,7 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       if constexpr (!SYNC) {
         wgmma_wait<0>();
-        float (&D)[MT][NW / 2] = VAR == 2 ? z : acc;
+        float (&D)[MT][NW / 2] = ZED ? z : acc;
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           fence_regs<NW / 2>(D[mt]);
@@ -896,7 +967,15 @@ q4_fold_kernel(const __grid_constant__ CUtensorMap map_q,
         }
         release(pw, px);
         pw = px = -1;
-        if constexpr (VAR == 2) add_scaled(D, dp);
+        if constexpr (ZED) {
+          add_scaled(D, dp);
+          // a non-finite z (an inf or NaN row) times the next tile's first
+          // 0 would be NaN there
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int i = 0; i < NW / 2; ++i) z[mt][i] = 0.f;
+        }
       }
       if constexpr (FOLD) {
 #pragma unroll
@@ -1019,8 +1098,8 @@ int launch_fold(const FoldArgs& a, const void* x, const void* qs,
     ready = true;
   }
   const int bn = 64 * mtiles(NW) * a.wgs, bw = bn % 128 ? 64 : 128;
-  // the probes have no scale plane and only variant 9 a mins plane: a map
-  // of none is never read
+  // the probes have no scale plane and only B9 (9, 11) a mins plane: a
+  // map of none is never read
   CUtensorMap map_q, map_s = {}, map_m = {}, map_x;
   if (!hopper::make_map(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.M,
                         a.Kx, 128, a.M, CU_TENSOR_MAP_SWIZZLE_NONE) ||
@@ -1034,7 +1113,7 @@ int launch_fold(const FoldArgs& a, const void* x, const void* qs,
                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                          SC16 ? 2 : 4, a.NB, a.N, bn, kQB,
                          CU_TENSOR_MAP_SWIZZLE_NONE)) ||
-      (VAR == 9 &&
+      (minsv(VAR) &&
        !hopper::make_map(&map_m, mins, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
                          a.NB, a.N, bn, kQB, CU_TENSOR_MAP_SWIZZLE_NONE)))
     return (int)cudaErrorInvalidValue;
@@ -1067,26 +1146,34 @@ int dispatch_rows(const FoldArgs& a, const void* x, const void* qs,
                   int sync, cudaStream_t s) {
 #define FLTORCH_B15_LAUNCH(NW, SYNC)                                         \
   launch_fold<NW, VAR, SC16, SYNC>(a, x, qs, scales, mins, clusters, s)
+  // the f32 modes are built to NW 32 only: above it B5's f32 mode takes
+  // their calls (q4_matmul.f32_on_b5)
+#define FLTORCH_B15_WIDE(NW)                                                 \
+  if constexpr (f32v(VAR)) return (int)cudaErrorInvalidValue;                 \
+  else return FLTORCH_B15_LAUNCH(NW, false)
   switch ((a.M + 7) / 8) {
-    case 1: return sync ? FLTORCH_B15_LAUNCH(8, true)
-                        : FLTORCH_B15_LAUNCH(8, false);
+    case 1:
+      return sync ? FLTORCH_B15_LAUNCH(8, true)
+                  : FLTORCH_B15_LAUNCH(8, false);
     case 2: return FLTORCH_B15_LAUNCH(16, false);
     case 3: return FLTORCH_B15_LAUNCH(24, false);
     case 4: return FLTORCH_B15_LAUNCH(32, false);
-    case 5: return FLTORCH_B15_LAUNCH(40, false);
-    case 6: return FLTORCH_B15_LAUNCH(48, false);
-    case 7: return FLTORCH_B15_LAUNCH(56, false);
-    case 8: return FLTORCH_B15_LAUNCH(64, false);
+    case 5: FLTORCH_B15_WIDE(40);
+    case 6: FLTORCH_B15_WIDE(48);
+    case 7: FLTORCH_B15_WIDE(56);
+    case 8: FLTORCH_B15_WIDE(64);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FLTORCH_B15_WIDE
 #undef FLTORCH_B15_LAUNCH
 }
 
 // The entry of variant VAR (0: B1, 1: B15, 2: B16, 3: B17, 7: B18, 9: B9,
-// 13: B13, 14: B14; another variant is refused): q4_fold_gemm's contract
-// (q4_fold.cu); the probes take no scales (sc16 must be 0; `scales` is not
-// read); variant 9 takes f32 scales and the mins plane, the others no mins
-// (null).
+// 10: B1 in f32 mode, 11: B9 in f32 mode, 13: B13, 14: B14; another variant
+// is refused): q4_fold_gemm's contract (q4_fold.cu); the probes take no
+// scales (sc16 must be 0; `scales` is not read); 9 and 11 take f32 scales
+// and the mins plane, the others no mins (null); 10 f32 scales; 10 and 11
+// take M <= 32.
 template <int VAR>
 int fold_gemm(const void* x, int M, int Kx, const void* qs,
               const void* scales, const void* mins, int sc16, int N, int NB,
@@ -1094,17 +1181,17 @@ int fold_gemm(const void* x, int M, int Kx, const void* qs,
               int sps, int clusters, int sync, void* y, int n_out,
               void* scratch, void* stream) {
   const int nst = (NB + kQB - 1) / kQB, nw = (M + 7) / 8 * 8;
-  if (M < 1 || M > 64 || Kx < 4 || Kx % 4 || Kx > 32 * NB ||
+  if (M < 1 || M > (f32v(VAR) ? 32 : 64) || Kx < 4 || Kx % 4 || Kx > 32 * NB ||
       reinterpret_cast<uintptr_t>(x) % 16 || N % 16 || n_out > N ||
       wgs < 1 || wgs > 2 || stages < 2 || xstages < 2 ||
       xstages > stages || splits < 1 || splits > 8 ||
       sps < 1 || (splits - 1) * sps >= nst || splits * sps < nst ||
       clusters < 1 || (sync && M > 8) || variant != VAR ||
-      ((probe(VAR) || VAR == 9) && sc16) ||
-      (VAR == 9) != (mins != nullptr) ||
+      ((probe(VAR) || minsv(VAR) || f32v(VAR)) && sc16) ||
+      minsv(VAR) != (mins != nullptr) ||
       (mins != nullptr && reinterpret_cast<uintptr_t>(mins) % 16) ||
       fold_layout(wgs, nw, stage_sbytes(VAR, sc16), stages, xstages,
-                  splits).total + 1024 > kSmem)
+                  splits, x_sets(VAR)).total + 1024 > kSmem)
     return (int)cudaErrorInvalidValue;
   FoldArgs a;
   a.y = (float*)y;
@@ -1123,9 +1210,9 @@ int fold_gemm(const void* x, int M, int Kx, const void* qs,
   const int bn = 64 * mtiles(nw) * wgs;
   a.tiles = (N + bn - 1) / bn;
   cudaStream_t s = (cudaStream_t)stream;
-  // no SC16 build of the probes (they read no scales) or of variant 9
-  // (q4_1's scales are f32)
-  if constexpr (probe(VAR) || VAR == 9)
+  // no SC16 build of the probes (they read no scales), of B9 (q4_1's
+  // scales are f32) or of the f32 modes
+  if constexpr (probe(VAR) || minsv(VAR) || f32v(VAR))
     return dispatch_rows<VAR, false>(a, x, qs, scales, mins, clusters, sync,
                                      s);
   else

@@ -71,17 +71,15 @@
 // outlive the next stage's issue, which took a branch. A K split folds
 // its own stages' blocks, so each output gains the fold once, in the
 // deterministic split merge. In f32 mode the function is x @ ((q - 8) * d)
-// in exact arithmetic, so the port runs B5's f32 kernel there
+// in exact arithmetic, so the port runs B5's f32 mode there
 // (kernels/q4_variants.py).
 //
-// f32 mode, one launch: f32_gemm_kernel<AFFINE>, a true f32 product on the
-// CUDA cores (never TF32): a 128 x 128 tile per 256-thread block, 8 x 8
-// outputs a thread, K in 32-deep steps whose x tile and q4 bytes, scales
-// (and mins) are copied with cp.async into a double-buffered ring while the
-// block dequantizes the current step's weight into shared memory (f32) and
-// runs its FFMA. Each output is summed in k order within a split; where
-// the tiles alone leave SMs idle K is split as in bf16 mode and the
-// splits are added in order.
+// f32 mode, two launches: cast3_kernel (x's three exact bf16 parts as
+// three bf16 planes [3][M][K], zeros past x's K, and for q4_1 the f32
+// block sums of x) and the register-A kernel of q4_prefill_ra.cuh in its
+// f32 mode (the codes in wgmma's A registers, each part's products into a
+// fresh set z a q block, z scaled by d into the f32 accumulators: no TF32,
+// every product exact; the design is described there).
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -100,31 +98,21 @@ using hopper::wgmma_commit;
 using hopper::wgmma_fence;
 using hopper::wgmma_wait;
 
-// The weight functions: (q - 8) * d (q4_0, B5's f32 mode), q * d + m (q4_1,
-// B5's f32 affine weight) and q * d (B20, the offset folded back by the
-// fold slice).
-enum Mode { kNat = 0, kAffine = 1, kSplit = 2 };
-
-// One weight from its code q (0..15) in the low byte of 2^23's bit pattern:
-// 2^23 + q is exact, so is subtracting 2^23 (+ 8); then the product with d
-// (and the sum with m) in the plain version's f32 roundings.
-template <int MODE>
-__device__ __forceinline__ float weight(uint32_t magic_q, float d, float m) {
-  const float f = __uint_as_float(magic_q);
-  if constexpr (MODE == kAffine) return __fadd_rn(__fmul_rn(__fadd_rn(f, -8388608.0f), d), m);
-  if constexpr (MODE == kSplit) return __fmul_rn(__fadd_rn(f, -8388608.0f), d);
-  return __fmul_rn(__fadd_rn(f, -8388616.0f), d);
+// B20's weight, q * d (the offset folded back by the fold slice), of the
+// code q (0..15) in the low byte of 2^23's bit pattern: 2^23 + q is exact,
+// so is subtracting 2^23; then the product with d, rounded once in f32 as
+// the plain version's.
+__device__ __forceinline__ float weight(uint32_t magic_q, float d) {
+  return __fmul_rn(__fadd_rn(__uint_as_float(magic_q), -8388608.0f), d);
 }
 
 // The four weights of the codes in the four bytes of `nib` (each 0..15),
-// columns c..c+3 with scales d and mins m.
-template <int MODE>
-__device__ __forceinline__ float4 weights4(uint32_t nib, float4 d, float4 m) {
-  return make_float4(
-      weight<MODE>(__byte_perm(nib, 0x4B000000u, 0x7440), d.x, m.x),
-      weight<MODE>(__byte_perm(nib, 0x4B000000u, 0x7441), d.y, m.y),
-      weight<MODE>(__byte_perm(nib, 0x4B000000u, 0x7442), d.z, m.z),
-      weight<MODE>(__byte_perm(nib, 0x4B000000u, 0x7443), d.w, m.w));
+// columns c..c+3 with scales d.
+__device__ __forceinline__ float4 weights4(uint32_t nib, float4 d) {
+  return make_float4(weight(__byte_perm(nib, 0x4B000000u, 0x7440), d.x),
+                     weight(__byte_perm(nib, 0x4B000000u, 0x7441), d.y),
+                     weight(__byte_perm(nib, 0x4B000000u, 0x7442), d.z),
+                     weight(__byte_perm(nib, 0x4B000000u, 0x7443), d.w));
 }
 
 __device__ __forceinline__ uint2 pack_bf16x4(float4 v) {
@@ -132,14 +120,6 @@ __device__ __forceinline__ uint2 pack_bf16x4(float4 v) {
   const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
   return make_uint2(*reinterpret_cast<const uint32_t*>(&a),
                     *reinterpret_cast<const uint32_t*>(&b));
-}
-
-// 16-byte cp.async with zero fill: nothing is read when pred is false.
-__device__ __forceinline__ void cp_async16z(void* smem, const void* gmem,
-                                            bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(pred ? 16 : 0));
 }
 
 constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 4;
@@ -235,6 +215,47 @@ __global__ void cast_kernel(const float* __restrict__ x, int M, int Kx, int K,
       if ((b & 1) == 0 && b + 1 == K / 32)
         *reinterpret_cast<uint4*>(fa + fold_a_off(m, b + 1, nks)) =
             make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// f32 mode's cast: xp[p][m, k] = part p of x[m, k] (fltorch::f32_parts) for
+// k < Kx, 0 for Kx <= k < K; four elements a thread. SUMS (q4_1): also
+// bs[b mr + m], the f32 sum of x[m, 32 b .. 32 b + 31] (zero past Kx; the
+// 8 threads of a q block add theirs by shuffles, as cast_kernel's FOLD);
+// where K / 32 is odd, its last block's even-index group also zeroes the
+// stage's other row.
+template <bool SUMS>
+__global__ void cast3_kernel(const float* __restrict__ x, int M, int Kx,
+                             int K, __nv_bfloat16* __restrict__ xp,
+                             float* __restrict__ bs, int mr) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int quads = K / 4;
+  if (i >= (size_t)M * quads) return;
+  const int m = (int)(i / quads), k = 4 * (int)(i - (size_t)m * quads);
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (k < Kx) v = *reinterpret_cast<const float4*>(x + (size_t)m * Kx + k);
+  uint32_t p[4][3];
+  fltorch::f32_parts(v.x, p[0]);
+  fltorch::f32_parts(v.y, p[1]);
+  fltorch::f32_parts(v.z, p[2]);
+  fltorch::f32_parts(v.w, p[3]);
+  const size_t plane = (size_t)M * K;
+#pragma unroll
+  for (int pt = 0; pt < 3; ++pt)
+    *reinterpret_cast<uint2*>(xp + pt * plane + (size_t)m * K + k) =
+        make_uint2(fltorch::hi2(p[0][pt], p[1][pt]),
+                   fltorch::hi2(p[2][pt], p[3][pt]));
+  if constexpr (SUMS) {
+    const unsigned grp = 0xFFu << (threadIdx.x & 24);
+    float sum = ((v.x + v.y) + v.z) + v.w;
+    sum += __shfl_xor_sync(grp, sum, 1);
+    sum += __shfl_xor_sync(grp, sum, 2);
+    sum += __shfl_xor_sync(grp, sum, 4);
+    if ((threadIdx.x & 7) == 0) {
+      const int b = k / 32;
+      bs[(size_t)b * mr + m] = sum;
+      if ((b & 1) == 0 && b + 1 == K / 32) bs[(size_t)(b + 1) * mr + m] = 0.f;
     }
   }
 }
@@ -433,7 +454,6 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
       uint8_t* wt = st + kXBytes;
       const float4 d0 = *reinterpret_cast<const float4*>(sc + n);
       const float4 d1 = *reinterpret_cast<const float4*>(sc + kBN + n);
-      const float4 mn = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int r = cw; r < kBK / 2; r += kConvWarps) {
         const bool hi_blk = r >= 16;
@@ -442,9 +462,9 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
         const uint32_t word =
             *reinterpret_cast<const uint32_t*>(q4 + r * kBN + n);
         *reinterpret_cast<uint2*>(wt + w_off(k, n)) = pack_bf16x4(
-            weights4<kSplit>(word & 0x0F0F0F0Fu, d, mn));
+            weights4(word & 0x0F0F0F0Fu, d));
         *reinterpret_cast<uint2*>(wt + w_off(k + 16, n)) = pack_bf16x4(
-            weights4<kSplit>((word >> 4) & 0x0F0F0F0Fu, d, mn));
+            weights4((word >> 4) & 0x0F0F0F0Fu, d));
       }
       hopper::fence_proxy_async();
       mbar_arrive(bars + 8 * (kStages + s));
@@ -540,159 +560,6 @@ bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 // ---------------------------------------------------------------------------
-// 3. the f32 product: FFMA on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kFB = 128, kFK = 32, kFThreads = 256;
-constexpr int kFRow = kFK + 4;         // floats a staged x row (16-byte rows,
-                                       // two rows of a warp's reads apart
-                                       // by 4 banks)
-
-struct FSmem {
-  float a[2][kFB][kFRow];              // x tiles [row][k]
-  uint8_t q[2][kFK / 2][kFB];          // q4 bytes as stored
-  float s[2][kFB];                     // scales of the step's q block
-  float mn[2][kFB];                    // mins (affine)
-  float w[kFK][kFB];                   // the step's weight [k][column]
-};
-
-// x f32 [M, Kx] (zero past Kx, Kx a multiple of 4), qs [K/2, N], scales
-// (and mins) [K/32, N]; the product runs over the q blocks below Kx, split
-// z of the grid over the steps [z * k_steps, (z + 1) * k_steps). Thread
-// (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i and columns 4 tx + j,
-// 64 + 4 tx + j (i, j < 8 / 4). partial and counters as for the bf16
-// kernel (64 * 256 floats a split of a tile).
-template <bool AFFINE>
-__global__ void __launch_bounds__(kFThreads, 2)
-f32_gemm_kernel(const float* __restrict__ x, int M, int Kx,
-                const uint8_t* __restrict__ qs,
-                const float* __restrict__ scales,
-                const float* __restrict__ mins, int N, int k_steps,
-                int n_out, float* __restrict__ partial,
-                int* __restrict__ counters, float* __restrict__ y) {
-  extern __shared__ __align__(16) uint8_t fsmem_raw[];
-  __shared__ int is_last;
-  FSmem& sm = *reinterpret_cast<FSmem*>(fsmem_raw);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int m0 = blockIdx.y * kFB, n0 = blockIdx.x * kFB;
-  const int kt0 = blockIdx.z * k_steps;
-  const int kt1 = min((Kx + kFK - 1) / kFK, kt0 + k_steps);
-
-  auto issue = [&](int kt, int st) {
-    const int c = tid & 7, k = kt * kFK + 4 * c;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = (tid >> 3) + 32 * i, m = m0 + r;
-      const bool ok = m < M && k < Kx;
-      cp_async16z(&sm.a[st][r][4 * c], ok ? x + (size_t)m * Kx + k : x, ok);
-    }
-    if (tid < 128) {
-      const int row = tid >> 3, n = n0 + 16 * (tid & 7);
-      cp_async16z(&sm.q[st][row][16 * (tid & 7)],
-                  qs + (size_t)(kt * 16 + row) * N + (n < N ? n : 0), n < N);
-    } else if (tid < 160 || (AFFINE && tid < 192)) {
-      const int c4 = (tid - 128) & 31, n = n0 + 4 * c4;
-      const float* src = tid < 160 ? scales : mins;
-      float* dst = tid < 160 ? &sm.s[st][4 * c4] : &sm.mn[st][4 * c4];
-      cp_async16z(dst, src + (size_t)kt * N + (n < N ? n : 0), n < N);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  issue(kt0, 0);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int st = (kt - kt0) & 1;
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();                 // step kt landed; step kt - 1 is done
-    if (kt + 1 < kt1) issue(kt + 1, st ^ 1);
-    // the step's weight: word h of 512 (16 packed rows x 32 words), its
-    // low nibbles K row j, its high nibbles K row j + 16
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int wi = tid + kFThreads * h, j = wi >> 5, c = 4 * (wi & 31);
-      const uint32_t word = *reinterpret_cast<const uint32_t*>(&sm.q[st][j][c]);
-      const float4 d = *reinterpret_cast<const float4*>(&sm.s[st][c]);
-      const float4 mn = AFFINE ? *reinterpret_cast<const float4*>(&sm.mn[st][c])
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(&sm.w[j][c]) =
-          weights4<AFFINE ? kAffine : kNat>(word & 0x0F0F0F0Fu, d, mn);
-      *reinterpret_cast<float4*>(&sm.w[j + 16][c]) =
-          weights4<AFFINE ? kAffine : kNat>((word >> 4) & 0x0F0F0F0Fu, d, mn);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; kk += 4) {
-      float4 a[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        a[i] = *reinterpret_cast<const float4*>(&sm.a[st][ty + 16 * i][kk]);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 b0 = *reinterpret_cast<const float4*>(&sm.w[kk + q][4 * tx]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&sm.w[kk + q][64 + 4 * tx]);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float av = q == 0 ? a[i].x : q == 1 ? a[i].y
-                         : q == 2 ? a[i].z : a[i].w;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
-        }
-      }
-    }
-  }
-
-  if (gridDim.z > 1) {
-    // split K as in the bf16 kernel: value (i, j) of thread tid at
-    // (8 i + j) * 256 + tid; the last split to count in sums them in order
-    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-    float* pt = partial + (size_t)tile * gridDim.z * 64 * kFThreads + tid;
-    float* mine = pt + (size_t)blockIdx.z * 64 * kFThreads;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mine[(8 * i + j) * kFThreads] = acc[i][j];
-    __threadfence();
-    __syncthreads();
-    if (tid == 0)
-      is_last = atomicAdd(&counters[tile], 1) == (int)gridDim.z - 1;
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-    for (int z = 0; z < (int)gridDim.z; ++z) {
-      const float* pz = pt + (size_t)z * 64 * kFThreads;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float v = __ldcg(pz + (8 * i + j) * kFThreads);
-          acc[i][j] = z == 0 ? v : acc[i][j] + v;
-        }
-    }
-    if (tid == 0) counters[tile] = 0;
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    float* yr = y + (size_t)m * n_out;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (n < n_out) yr[n] = acc[i][j];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -723,26 +590,6 @@ int launch_split(const void* xb, int M, int K, int Kc, const void* qs,
       map_x, map_q, map_s, M, N, Kc, splits, k_tiles, n_out,
       (float*)partial, (int*)counters, y, (const uint8_t*)fa,
       (K + kBK - 1) / kBK);
-  return (int)cudaGetLastError();
-}
-
-template <bool AFFINE>
-int launch_f32(const float* x, int M, int Kx, const void* qs,
-               const void* scales, const void* mins, int N, int splits,
-               int k_steps, void* partial, void* counters, float* y,
-               int n_out, cudaStream_t stream) {
-  static bool attr = false;
-  if (!attr) {
-    cudaError_t err = cudaFuncSetAttribute(
-        f32_gemm_kernel<AFFINE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sizeof(FSmem));
-    if (err != cudaSuccess) return (int)err;
-    attr = true;
-  }
-  dim3 grid((N + kFB - 1) / kFB, (M + kFB - 1) / kFB, splits);
-  f32_gemm_kernel<AFFINE><<<grid, kFThreads, sizeof(FSmem), stream>>>(
-      x, M, Kx, (const uint8_t*)qs, (const float*)scales, (const float*)mins,
-      N, k_steps, n_out, (float*)partial, (int*)counters, y);
   return (int)cudaGetLastError();
 }
 
@@ -781,15 +628,16 @@ extern "C" int q4_prefill_split_gemm(const void* x, int M, int Kx,
 // qs uint8 [K/2, N], scales f32 [K/32, N] and mins f32 [K/32, N] or null
 // (q4_0) (K the stored K, a multiple of 32; N a multiple of 16; planes
 // 16-byte aligned), y f32 [M, n_out]. The K the product runs over (Kx
-// rounded up to 32) is cut into `splits` runs of k_steps stages (bf16
-// mode: 64 deep, f32 mode: 32 deep; the plan in kernels/q4_matmul.py).
-// bf16 = 1: xb bf16 [M, K] scratch for the cast pass, then the register-A
-// kernel (q4_prefill_ra.cuh) on bx rows of x and wgs warpgroups a block,
-// the tiles from t0 on split and `blocks` persistent blocks; partial f32
-// scratch of ra::gemm's size where splits > 1, counters int32 zeros, one a
-// tile. bf16 = 0: the f32 kernel (bx, wgs and blocks unused; partial (row
-// tiles * column tiles * splits * 128 * 128) floats of 128 x 128 tiles
-// where splits > 1). Returns the CUDA error code of the launches.
+// rounded up to 32) is cut into `splits` runs of k_steps stages (64 deep),
+// the tiles from t0 on split, on bx rows of x and wgs warpgroups a block
+// and `blocks` persistent blocks (the plan in kernels/q4_matmul.py);
+// partial f32 scratch of ra::gemm's size where splits > 1, counters int32
+// zeros, one a tile. bf16 = 1: xb bf16 [M, K] scratch for the cast pass,
+// then the register-A kernel (q4_prefill_ra.cuh) in its bf16 mode.
+// bf16 = 0 (f32 mode, bx 64, 96 or 128): xb scratch of 6 M K bytes (the
+// three part planes) plus, for q4_1, 4 * 2 ceil(K / 64) * (M rounded up to
+// 4) bytes (the block sums) for cast3_kernel, then the register-A kernel
+// in its f32 mode. Returns the CUDA error code of the launches.
 extern "C" int q4_prefill_gemm(const void* x, int M, int Kx, const void* qs,
                                const void* scales, const void* mins, int N,
                                int K, void* xb, int bx, int wgs, int t0,
@@ -800,20 +648,35 @@ extern "C" int q4_prefill_gemm(const void* x, int M, int Kx, const void* qs,
   if (K % 32 || Kx % 4 || Kx > K || N % 16 || M < 1 || splits < 1 ||
       k_steps < 1)
     return (int)cudaErrorInvalidValue;
-  if (!bf16) {
-    return mins ? launch_f32<true>((const float*)x, M, Kx, qs, scales, mins,
-                                   N, splits, k_steps, partial, counters,
-                                   (float*)y, n_out, s)
-                : launch_f32<false>((const float*)x, M, Kx, qs, scales,
-                                    nullptr, N, splits, k_steps, partial,
-                                    counters, (float*)y, n_out, s);
-  }
   const size_t quads = (size_t)M * (K / 4);
-  cast_kernel<false><<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
-      (const float*)x, M, Kx, K, (__nv_bfloat16*)xb, nullptr);
+  const unsigned grid = (unsigned)((quads + 255) / 256);
+  const int Kc = (Kx + 31) / 32 * 32;      // x is zero from Kx on
+  if (!bf16) {
+    const int mr = (M + 3) / 4 * 4;
+    float* bs = reinterpret_cast<float*>(static_cast<uint8_t*>(xb) +
+                                         (size_t)6 * M * K);
+    if (mins)
+      cast3_kernel<true><<<grid, 256, 0, s>>>((const float*)x, M, Kx, K,
+                                              (__nv_bfloat16*)xb, bs, mr);
+    else
+      cast3_kernel<false><<<grid, 256, 0, s>>>((const float*)x, M, Kx, K,
+                                               (__nv_bfloat16*)xb, nullptr,
+                                               mr);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return mins ? ra::gemm_f32<ra::kF32A>(xb, bs, mr, M, K, Kc, qs, scales,
+                                          mins, N, bx, wgs, t0, splits,
+                                          k_steps, blocks, partial, counters,
+                                          y, n_out, s)
+                : ra::gemm_f32<ra::kF32>(xb, nullptr, mr, M, K, Kc, qs,
+                                         scales, nullptr, N, bx, wgs, t0,
+                                         splits, k_steps, blocks, partial,
+                                         counters, y, n_out, s);
+  }
+  cast_kernel<false><<<grid, 256, 0, s>>>((const float*)x, M, Kx, K,
+                                          (__nv_bfloat16*)xb, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int Kc = (Kx + 31) / 32 * 32;      // x is zero from Kx on
   return mins ? ra::gemm<ra::kAffine>(xb, M, K, Kc, qs, scales, mins,
                                       nullptr, N, bx, wgs, t0, splits,
                                       k_steps, blocks, partial,

@@ -1,7 +1,7 @@
-// Kernels B5 (bf16 mode: q4_0 and q4_1) and B3 (int8): the prefill matmuls
-// on one persistent, warp-specialized kernel for Hopper, the weight
-// converted once for up to 256 rows of x. q4_prefill.cu builds B5's two
-// modes, q4_int8.cu B3.
+// Kernels B5 (bf16 mode and f32 mode: q4_0 and q4_1) and B3 (int8): the
+// prefill matmuls on one persistent, warp-specialized kernel for Hopper,
+// the weight converted once for up to 256 rows of x. q4_prefill.cu builds
+// B5's four modes, q4_int8.cu B3.
 //
 // B5 replaces fastllama_tpu/kernels/q4_matmul.py::q4_matmul_prefill_pallas
 // (variant nat, _q4mm_prefill_nat_kernel), and B3 ::q4_matmul_prefill_int8
@@ -78,6 +78,29 @@
 //     lane is x row 8j + 2t + c, columns c0 (and c0 + 1), a float2 store;
 //     B3 in the plain version's order (float(acc) dx[m]) s8[n]. Rows past
 //     M and columns past n_out are cut.
+// f32 mode (B5 at w_dtype float32, and B20's f32 route; body_f32):
+//   B5  y[M, n_out] f32 = x @ W, W = (q - 8) d (q4_0) or q d + m (q4_1),
+//       nothing rounded to bf16
+// The tensor cores have no f32 product, but an f32 x is the exact sum of
+// three bf16 parts (fltorch::f32_parts: its upper 16 bits, those of the
+// rest, and the rest of that; exact for |x| >= 2^-110), and a code (q - 8,
+// or q) is an exact bf16 integer. So the cast pass writes x's three parts
+// as three bf16 planes [3][M][K] (and, for q4_1, the f32 block sums
+// bsum(x) [K/32][M] of the unrounded x); a stage copies the three parts'
+// x tiles by one 4-D tensor copy; the A registers hold the codes alone;
+// each q block's two k16 steps run once a part, six wgmmas into a fresh
+// set z (scale-d 0 on the first), whose products are exact and whose sums
+// are f32; then acc = fma(z, d, acc) on the CUDA cores, one FMA an
+// accumulator a q block, and for q4_1 acc += bsum m (the mins term, its
+// block sums staged with the stage). z and acc are two register sets of
+// BX / 2 (BX registers between them), so f32 mode is built at BX 64, 96
+// and 128 only (at 256 the two sets alone would pass the consumers' 232
+// registers; 160-224 were not tried). Block b - 1's z is waited for and
+// scaled after block b's A registers are made, before block b's issue
+// (one z set: the other warpgroup's products fill the tensor cores
+// meanwhile). The
+// result differs from the plain version's x @ W only in the order of f32
+// sums and in the skipped rounding of each (q - 8) d (or q d + m).
 // Registers: ptxas gives a block of 288 threads (two consumer warpgroups
 // and a producer warp) 168 a thread, and spilled at BX >= 160 (BX 256:
 // 128 accumulators, the A sets, the addressing). So the producer is a whole
@@ -107,8 +130,16 @@ using hopper::wgmma_commit;
 using hopper::wgmma_fence;
 using hopper::wgmma_wait;
 
-// The functions: B5 q4_0 and q4_1 (bf16), B3 (int8).
-enum Mode { kNat = 0, kAffine = 1, kInt8 = 2 };
+// The functions: B5 q4_0 and q4_1 (bf16), B3 (int8), B5 q4_0 and q4_1
+// (f32).
+enum Mode { kNat = 0, kAffine = 1, kInt8 = 2, kF32 = 3, kF32A = 4 };
+__host__ __device__ constexpr bool f32m(int mode) {
+  return mode == kF32 || mode == kF32A;
+}
+// the modes that stage a mins plane (q4_1)
+__host__ __device__ constexpr bool minsm(int mode) {
+  return mode == kAffine || mode == kF32A;
+}
 
 constexpr int kMaxThreads = 3 * 128;        // two consumer warpgroups and
                                             // the producer warpgroup
@@ -142,9 +173,11 @@ static_assert(kInFlight >= 1 && kInFlight < kGroups, "groups in flight");
 // rows of x and wgs consumer warpgroups.
 __host__ __device__ inline int stage_bytes(int mode, int bx, int wgs) {
   const int cols = 64 * wgs, qb = stage_qb(mode);
-  // the x tile, the packed rows, the scale (and mins) rows
-  const int raw = bx * 128 + qb * 16 * cols +
-                  qb * cols * 4 * (mode == kAffine ? 2 : 1);
+  // the x tile (f32 mode: one a part), the packed rows, the scale (and
+  // mins) rows, and f32 q4_1's block sums [qb][BX]
+  const int raw = (f32m(mode) ? 3 : 1) * bx * 128 + qb * 16 * cols +
+                  qb * cols * 4 * (minsm(mode) ? 2 : 1) +
+                  (mode == kF32A ? qb * bx * 4 : 0);
   return (raw + 1023) / 1024 * 1024;
 }
 __host__ __device__ inline int max_stages(int mode, int bx, int wgs) {
@@ -179,7 +212,7 @@ template <int BX> struct MmaBf16;
 template <int BX> struct MmaS8;
 template <> struct MmaBf16<64> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -190,12 +223,12 @@ template <> struct MmaBf16<64> {
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct MmaBf16<96> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
@@ -209,12 +242,12 @@ template <> struct MmaBf16<96> {
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct MmaBf16<128> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -231,12 +264,12 @@ template <> struct MmaBf16<128> {
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct MmaBf16<160> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
@@ -256,12 +289,12 @@ template <> struct MmaBf16<160> {
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
         "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct MmaBf16<192> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
@@ -284,12 +317,12 @@ template <> struct MmaBf16<192> {
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct MmaBf16<224> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
@@ -315,12 +348,12 @@ template <> struct MmaBf16<224> {
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
         "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct MmaBf16<256> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int sd = 1) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -349,7 +382,7 @@ template <> struct MmaBf16<256> {
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 template <> struct MmaS8<64> {
@@ -756,39 +789,50 @@ __device__ __forceinline__ bool finish(typename Acc<MODE>::T* acc,
   return true;
 }
 
-// The producer's loop (one thread): each stage's x tile, packed rows, scale
-// rows and (q4_1) mins rows into the ring.
+// The producer's loop (one thread): each stage's x tile (f32 mode: the
+// three parts' tiles, one 4-D copy), packed rows, scale rows, (q4_1) mins
+// rows and (f32 q4_1) block sums into the ring.
 template <int MODE, int BX>
 __device__ __forceinline__ void produce(const CUtensorMap* map_x,
                                         const CUtensorMap* map_q,
                                         const CUtensorMap* map_s,
                                         const CUtensorMap* map_m,
+                                        const CUtensorMap* map_b,
                                         const Args& a, uint32_t ring, int sb,
                                         uint32_t full, uint32_t empty,
                                         int items) {
   constexpr int kQB = stage_qb(MODE);
   const int cols = 64 * a.wgs;
-  // the stage's bytes: the x tile, the packed rows, the scale (and mins)
-  // rows
-  const int xb = BX * 128;
+  // the stage's bytes: the x tile(s), the packed rows, the scale (and
+  // mins) rows, the block sums
+  const int xb = (f32m(MODE) ? 3 : 1) * BX * 128;
   const int qbytes = kQB * 16 * cols, sbytes = kQB * cols * 4;
+  const int mbytes = minsm(MODE) ? sbytes : 0;
+  const int bbytes = MODE == kF32A ? kQB * BX * 4 : 0;
   hopper::prefetch_map(map_x);
   hopper::prefetch_map(map_q);
   hopper::prefetch_map(map_s);
-  if constexpr (MODE == kAffine) hopper::prefetch_map(map_m);
+  if constexpr (minsm(MODE)) hopper::prefetch_map(map_m);
+  if constexpr (MODE == kF32A) hopper::prefetch_map(map_b);
   int slot = 0, ph = 0;
   for (int w = blockIdx.x; w < items; w += gridDim.x) {
     const Item t(w, BX, a);
     for (int st = t.s0; st < t.s1; ++st) {
       mbar_wait(empty + 8 * slot, ph ^ 1);
       const uint32_t dst = ring + slot * sb, bar = full + 8 * slot;
-      mbar_expect_tx(bar, xb + qbytes + sbytes * (MODE == kAffine ? 2 : 1));
+      mbar_expect_tx(bar, xb + qbytes + sbytes + mbytes + bbytes);
       // x: 128 bytes of each row's K a stage (64 bf16, 128 int8)
-      tma_load_2d(dst, map_x, bar, st * (MODE == kInt8 ? 128 : 64), t.m0);
+      if constexpr (f32m(MODE))
+        hopper::tma_load_4d(dst, map_x, bar, st * 64, t.m0, 0, 0);
+      else
+        tma_load_2d(dst, map_x, bar, st * (MODE == kInt8 ? 128 : 64), t.m0);
       tma_load_2d(dst + xb, map_q, bar, t.n0, st * kQB * 16);
       tma_load_2d(dst + xb + qbytes, map_s, bar, t.n0, st * kQB);
-      if constexpr (MODE == kAffine)
+      if constexpr (minsm(MODE))
         tma_load_2d(dst + xb + qbytes + sbytes, map_m, bar, t.n0,
+                    st * kQB);
+      if constexpr (MODE == kF32A)
+        tma_load_2d(dst + xb + qbytes + 2 * sbytes, map_b, bar, t.m0,
                     st * kQB);
       if (++slot == a.stages) { slot = 0; ph ^= 1; }
     }
@@ -833,8 +877,8 @@ __device__ __forceinline__ void body_rs(const CUtensorMap* map_x,
   if (warp >= cons / 32) {                    // the producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == cons)
-      produce<MODE, BX>(map_x, map_q, map_s, map_m, a, ring, sb, full, empty,
-                        items);
+      produce<MODE, BX>(map_x, map_q, map_s, map_m, map_m, a, ring, sb, full,
+                        empty, items);
     return;
   }
 
@@ -968,6 +1012,201 @@ __device__ __forceinline__ void body_rs(const CUtensorMap* map_x,
   }
 }
 
+// The codes of one k16 step in the A registers (f32 mode), from the nibble
+// words n01, n23 as make_a_bf16 takes them: each code under bf16's 128
+// (ulp 1) by one byte permute, less 136 (q4_0: q - 8) or 128 (q4_1: q),
+// exact, a bf16x2 subtraction a pair.
+template <int MODE>
+__device__ __forceinline__ void make_a_codes(uint32_t n01, uint32_t n23,
+                                             uint32_t* a) {
+  const __nv_bfloat162 k =
+      __float2bfloat162_rn(MODE == kF32 ? 136.f : 128.f);
+  auto pair = [&](uint32_t nib, uint32_t sel) {
+    const uint32_t v = __byte_perm(nib, 0x43434343u, sel);
+    return bits(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), k));
+  };
+  a[0] = pair(n01, 0x4240);
+  a[1] = pair(n01, 0x4341);
+  a[2] = pair(n23, 0x4240);
+  a[3] = pair(n23, 0x4341);
+}
+
+// The f32 route's body (q4_prefill_f32_kernel): body_rs's roles, stages of
+// two q blocks, each q block's six products (two k16 steps a part) into z
+// and z scaled into acc (the header's f32 mode).
+template <int MODE, int BX>
+__device__ __forceinline__ void body_f32(const CUtensorMap* map_x,
+                                         const CUtensorMap* map_q,
+                                         const CUtensorMap* map_s,
+                                         const CUtensorMap* map_m,
+                                         const CUtensorMap* map_b,
+                                         const Args& a) {
+  static_assert(f32m(MODE) && BX <= 128, "f32 mode: BX <= 128");
+  constexpr int kQB = stage_qb(MODE);
+  constexpr int kPart = BX * 128;              // a part's x tile
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ int is_last;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  uint8_t* ring_p = smem_raw + (ring - raw);
+  const int cols = 64 * a.wgs, cons = 128 * a.wgs;
+  const int sb = stage_bytes(MODE, BX, a.wgs);
+  const int qbytes = kQB * 16 * cols, sbytes = kQB * cols * 4;
+  const uint32_t full = ring + a.stages * sb, empty = full + 8 * a.stages;
+  const int items = a.t0 + (a.rt * a.ct - a.t0) * a.splits;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, cons / 32);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= cons / 32) {                    // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == cons)
+      produce<MODE, BX>(map_x, map_q, map_s, map_m, map_b, a, ring, sb, full,
+                        empty, items);
+    return;
+  }
+
+  // the consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = warp >> 2, w = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const int tid = threadIdx.x;
+  const int c0 = 64 * wg + 16 * w + 2 * g;
+  // the lane's packed rows 2t, 2t + 1, 2t + 8, 2t + 9, as body_rs's
+  int roff[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = 2 * t4 + (j & 1) + 8 * (j >> 1);
+    const int sw = cols == 128 ? (r & 7) : ((r >> 1) & 3);
+    roff[j] = r * cols + (((c0 >> 4) ^ sw) << 4) + (c0 & 15);
+  }
+  // acc, and z: a q block's products (register i: column c0 + i / 2 % 2);
+  // z is zero at each item's start (zeroed after the item before's last
+  // scale), since the item's first q block adds it times 0
+  float acc[BX / 2], z[BX / 2];
+#pragma unroll
+  for (int i = 0; i < BX / 2; ++i) z[i] = 0.f;
+  // the A sets of two q blocks (each its two k16 steps), alternating
+  uint32_t afr[2][8];
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) afr[b][i] = 0u;
+  int slot = 0, ph = 0, pw = -1;
+  for (int wi = blockIdx.x; wi < items; wi += gridDim.x) {
+    const Item it(wi, BX, a);
+    float s8[2] = {0.f, 0.f};              // unused (B3's)
+    // the scales of the q block whose z is pending (none yet: 0)
+    float dp0 = 0.f, dp1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < BX / 2; ++i) acc[i] = 0.f;
+    for (int st = it.s0; st < it.s1; ++st) {
+      mbar_wait(full + 8 * slot, ph);
+      const uint8_t* stp = ring_p + slot * sb;
+      const uint32_t xs = ring + slot * sb;
+      const uint8_t* qsl = stp + 3 * kPart;
+      const float* sc = reinterpret_cast<const float*>(qsl + qbytes);
+      const float* bsum = reinterpret_cast<const float*>(
+          qsl + qbytes + 2 * sbytes);
+#pragma unroll
+      for (int b = 0; b < kQB; ++b) {
+        uint32_t* A = afr[b];
+        const uint8_t* slab = qsl + b * 16 * cols;
+        uint32_t rw[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) rw[r] = lds_u16(slab + roff[r]);
+        const float2 d = *reinterpret_cast<const float2*>(sc + b * cols + c0);
+        const uint32_t w01 = __byte_perm(rw[0], rw[1], 0x5410);
+        const uint32_t w23 = __byte_perm(rw[2], rw[3], 0x5410);
+        make_a_codes<MODE>(w01 & 0x0F0F0F0Fu, w23 & 0x0F0F0F0Fu, A);
+        make_a_codes<MODE>((w01 >> 4) & 0x0F0F0F0Fu,
+                           (w23 >> 4) & 0x0F0F0F0Fu, A + 4);
+        // part p, k16 step s: the s-th 32 bytes of the q block's 64 in
+        // each row of part p's tile
+        uint64_t dsc[6];
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            dsc[3 * s + p] = hopper::sw128_desc(xs + p * kPart +
+                                                32 * (2 * b + s));
+            asm volatile("" : "+l"(dsc[3 * s + p])::"memory");
+          }
+        // q block b - 1's products done; its z scaled into acc
+        wgmma_wait<0>();
+        fence_regs<BX / 2>(z);
+        keep_regs<8>(afr[b ^ 1]);
+#pragma unroll
+        for (int i = 0; i < BX / 2; ++i)
+          acc[i] = __fmaf_rn(z[i], (i >> 1) & 1 ? dp1 : dp0, acc[i]);
+        if constexpr (MODE == kF32A) {
+          // the mins term of q block b: bsum of x rows 8j + 2t (+ 1)
+          const float2 mn = *reinterpret_cast<const float2*>(
+              sc + (kQB + b) * cols + c0);
+#pragma unroll
+          for (int j = 0; j < BX / 8; ++j) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                bsum + b * BX + 8 * j + 2 * t4);
+            acc[4 * j] = __fmaf_rn(v.x, mn.x, acc[4 * j]);
+            acc[4 * j + 1] = __fmaf_rn(v.y, mn.x, acc[4 * j + 1]);
+            acc[4 * j + 2] = __fmaf_rn(v.x, mn.y, acc[4 * j + 2]);
+            acc[4 * j + 3] = __fmaf_rn(v.y, mn.y, acc[4 * j + 3]);
+          }
+        }
+        dp0 = d.x;
+        dp1 = d.y;
+        if (b == 0) {      // so is the stage before: release it
+          mbar_arrive_if(empty + 8 * (pw < 0 ? 0 : pw), lane == 0 && pw >= 0);
+          pw = -1;
+        }
+        keep_regs<8>(A);
+        fence_regs<BX / 2>(z);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+            MmaBf16<BX>::run(z, A + 4 * s, dsc[3 * s + p],
+                             s == 0 && p == 0 ? 0 : 1);
+        wgmma_commit();
+        fence_regs<BX / 2>(z);
+      }
+      pw = slot;
+      if (++slot == a.stages) { slot = 0; ph ^= 1; }
+    }
+    wgmma_wait<0>();
+    fence_regs<BX / 2>(z);
+    keep_regs<8>(afr[0]);
+    keep_regs<8>(afr[1]);
+    mbar_arrive_if(empty + 8 * (pw < 0 ? 0 : pw), lane == 0 && pw >= 0);
+    pw = -1;
+#pragma unroll
+    for (int i = 0; i < BX / 2; ++i) {
+      acc[i] = __fmaf_rn(z[i], (i >> 1) & 1 ? dp1 : dp0, acc[i]);
+      z[i] = 0.f;      // a non-finite z times the next item's first 0: NaN
+    }
+    finish<MODE, BX>(acc, it, a, tid, cons, c0, t4, s8, &is_last);
+  }
+}
+
+// B5 in f32 mode (MODE kF32: q4_0, kF32A: q4_1).
+template <int MODE, int BX>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+q4_prefill_f32_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_s,
+                      const __grid_constant__ CUtensorMap map_m,
+                      const __grid_constant__ CUtensorMap map_b,
+                      const Args a) {
+  body_f32<MODE, BX>(&map_x, &map_q, &map_s, &map_m, &map_b, a);
+}
+
 // B5 in bf16 mode (MODE kNat: q4_0, kAffine: q4_1) and B3.
 template <int MODE, int BX>
 __global__ void __launch_bounds__(kMaxThreads, 1)
@@ -1099,6 +1338,101 @@ int gemm(const void* x, int M, int K, int kc, const void* qs,
   a.splits = splits;
   a.sps = sps;
   return dispatch<MODE>(bx, a, x, K, qs, scales, mins, blocks, stream);
+}
+
+// f32 mode: one launch of q4_prefill_f32_kernel<MODE, BX> on the cast
+// pass's planes, xp bf16 [3][M][K] (x's three parts) and, for q4_1, bs f32
+// [2 ceil(K / 64)][mr] (bsum(x) of q block b and row m at b mr + m; mr = M
+// rounded up to 4), the rest as gemm's.
+template <int MODE, int BX>
+int launch_f32(const Args& a, const void* xp, const void* bs, int mr, int K,
+               const void* qs, const void* scales, const void* mins,
+               int blocks, cudaStream_t stream) {
+  auto* kern = q4_prefill_f32_kernel<MODE, BX>;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  const int cols = 64 * a.wgs, qb = stage_qb(MODE);
+  const auto none = CU_TENSOR_MAP_SWIZZLE_NONE;
+  // the parts as [1][3][M][K]: one box of 64 K x BX rows x 3 parts a stage
+  const long long dims[4] = {K, a.M, 3, 1};
+  const long long strides[3] = {2LL * K, 2LL * K * a.M, 6LL * K * a.M};
+  const int box[4] = {64, BX, 3, 1};
+  CUtensorMap map_x, map_q, map_s, map_m, map_b;
+  if (!hopper::make_map_4d(&map_x, xp, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                           dims, strides, box) ||
+      !hopper::make_map(&map_q, qs, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / 2,
+                        a.N, cols, 16 * qb,
+                        cols == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !hopper::make_map(&map_s, scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                        K / 32, a.N, cols, qb, none) ||
+      !hopper::make_map(&map_m, MODE == kF32A ? mins : scales,
+                        CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K / 32, a.N, cols,
+                        qb, none) ||
+      !hopper::make_map(&map_b, MODE == kF32A ? bs : scales,
+                        CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                        MODE == kF32A ? (K + 63) / 64 * 2 : K / 32,
+                        MODE == kF32A ? mr : a.N, BX, qb, none))
+    return (int)cudaErrorInvalidValue;
+  kern<<<blocks, 128 * a.wgs + 128, kSmemBytes, stream>>>(
+      map_x, map_q, map_s, map_m, map_b, a);
+  return (int)cudaGetLastError();
+}
+
+// f32 mode's gemm (MODE kF32 or kF32A): gemm's contract, x as the cast
+// pass's part planes xp and block sums bs (launch_f32), bx 64, 96 or 128.
+template <int MODE>
+int gemm_f32(const void* xp, const void* bs, int mr, int M, int K, int kc,
+             const void* qs, const void* scales, const void* mins, int N,
+             int bx, int wgs, int t0, int splits, int sps, int blocks,
+             void* partial, void* counters, void* y, int n_out,
+             cudaStream_t stream) {
+  const int qb = stage_qb(MODE);
+  const int nst = (kc / 32 + qb - 1) / qb;
+  const int tiles = ((M + bx - 1) / (bx > 0 ? bx : 1)) *
+                    ((N + 64 * wgs - 1) / (64 * (wgs > 0 ? wgs : 1)));
+  if (M < 1 || K % 32 || kc < 32 || kc % 32 || kc > K || N % 16 ||
+      n_out > N || wgs < 1 || wgs > 2 ||
+      (bx != 64 && bx != 96 && bx != 128) || t0 < 0 || t0 > tiles ||
+      splits < 1 || sps < 1 || (splits - 1) * sps >= nst ||
+      splits * sps < nst || blocks < 1 ||
+      (splits > 1 && (!partial || !counters)) ||
+      (MODE == kF32A) != (mins != nullptr) || mr < M || mr % 4)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.y = (float*)y;
+  a.partial = (float*)partial;
+  a.counters = (int*)counters;
+  a.dx = nullptr;
+  a.scales = (const float*)scales;
+  a.M = M;
+  a.N = N;
+  a.NB = K / 32;
+  a.n_out = n_out;
+  a.wgs = wgs;
+  a.stages = max_stages(MODE, bx, wgs);
+  a.nst = nst;
+  a.rt = (M + bx - 1) / bx;
+  a.ct = (N + 64 * wgs - 1) / (64 * wgs);
+  a.t0 = splits > 1 ? t0 : tiles;
+  a.splits = splits;
+  a.sps = sps;
+  switch (bx) {
+    case 64:
+      return launch_f32<MODE, 64>(a, xp, bs, mr, K, qs, scales, mins, blocks,
+                                  stream);
+    case 96:
+      return launch_f32<MODE, 96>(a, xp, bs, mr, K, qs, scales, mins, blocks,
+                                  stream);
+    default:
+      return launch_f32<MODE, 128>(a, xp, bs, mr, K, qs, scales, mins,
+                                   blocks, stream);
+  }
 }
 
 }  // namespace ra

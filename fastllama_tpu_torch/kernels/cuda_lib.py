@@ -23,28 +23,28 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("q4_decode", "quant_rows", "q4_int8", "q4_prefill",
+SOURCES = ("quant_rows", "q4_int8", "q4_prefill",
            "decode_attention", "paged_attention", "kv_write",
            "flash_prefill", "paged_flash", "q4_fold", "q4_fold_v0",
            "q4_fold_v2", "q4_fold_v3", "q4_fold_v7", "q4_fold_v9",
-           "q4_fold_probe")
+           "q4_fold_f32", "q4_fold_probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 L = ctypes.c_longlong
 # the entry of each build of csrc/q4_fold.cuh (one a variant; the probes'
-# build has two, which read no scales; variant 9's takes the mins plane
-# after the scales)
+# build has two, which read no scales, and the f32 modes' build two; the
+# q4_1 variants 9 and 11 take the mins plane after the scales)
 FOLD_ARGS = [P, I, I, P, P, I, I, I, I, I, I, I, I, I, I, I, P, I, P, P]
+FOLD_MINS_ARGS = FOLD_ARGS[:5] + [P] + FOLD_ARGS[5:]
 ARGTYPES = {
-    "q4_gemv": [P, I, I, P, P, I, I, I, I, P, P, P, I, I, P],
-    "q41_gemv": [P, I, I, P, P, P, I, I, I, I, P, P, P, I, I, P],
     "q4_fold_gemm": FOLD_ARGS, "q4_fold_v0_gemm": FOLD_ARGS,
     "q4_fold_v2_gemm": FOLD_ARGS,
     "q4_fold_v3_gemm": FOLD_ARGS, "q4_fold_v7_gemm": FOLD_ARGS,
     "q4_fold_floor_gemm": FOLD_ARGS, "q4_fold_nosc_gemm": FOLD_ARGS,
-    "q4_fold_v9_gemm": FOLD_ARGS[:5] + [P] + FOLD_ARGS[5:],
+    "q4_fold_v9_gemm": FOLD_MINS_ARGS,
+    "q4_fold_f32_gemm": FOLD_ARGS, "q4_fold_f32a_gemm": FOLD_MINS_ARGS,
     "q4_fold_clusters": [I],
     "quant_rows_int8": [P, I, I, I, P, P, P],
     "q4_int8_gemm": [P, P, I, I, P, P, I, I, I, I, I, I, I, P, P, P, I, P],
@@ -76,13 +76,14 @@ ARGTYPES = {
     "flash_prefill": [P, P, P, L, L, L, L, L, L, L, L, L, I, I, I, I, I, I,
                       I, F, P, P, P, P],
 }
-LIB_OF = {"q4_gemv": "q4_decode", "q41_gemv": "q4_decode",
-          "q4_fold_gemm": "q4_fold", "q4_fold_clusters": "q4_fold",
+LIB_OF = {"q4_fold_gemm": "q4_fold", "q4_fold_clusters": "q4_fold",
           "q4_fold_v0_gemm": "q4_fold_v0",
           "q4_fold_v2_gemm": "q4_fold_v2",
           "q4_fold_v3_gemm": "q4_fold_v3",
           "q4_fold_v7_gemm": "q4_fold_v7",
           "q4_fold_v9_gemm": "q4_fold_v9",
+          "q4_fold_f32_gemm": "q4_fold_f32",
+          "q4_fold_f32a_gemm": "q4_fold_f32",
           "q4_fold_floor_gemm": "q4_fold_probe",
           "q4_fold_nosc_gemm": "q4_fold_probe",
           "quant_rows_int8": "quant_rows", "q4_int8_gemm": "q4_int8",

@@ -10,19 +10,27 @@ B5 share the register-A kernel and its plan, prefill_plan):
   B1 q4_matmul_decode        csrc/q4_fold.cuh    (q4_matmul_pallas: v0's
                              function, q4_matmul_xla's; bf16 mode variant 0
                              of the fold kernel, built as q4_fold_v0.cu;
-                             f32 mode FFMA, csrc/q4_decode.cu)
+                             f32 mode variant 10, built as q4_fold_f32.cu)
   B2 quant_rows_int8         csrc/quant_rows.cu  (quant_rows_int8)
   B3 q4_matmul_prefill_int8  csrc/q4_prefill_ra.cuh (q4_matmul_prefill_int8
                              nat; the register-A kernel's int8 mode, built
                              as csrc/q4_int8.cu)
   B5 q4_matmul_prefill       csrc/q4_prefill_ra.cuh (q4_matmul_prefill_pallas
                              nat, also the affine weight's R(x) @ R(q * d +
-                             m): the register-A kernel's bf16 modes, built
-                             as csrc/q4_prefill.cu; f32 mode FFMA, there)
+                             m): the register-A kernel's bf16 and f32
+                             modes, built as csrc/q4_prefill.cu)
   B9 q41_matmul_decode       csrc/q4_fold.cuh    (q41_matmul_pallas; bf16
                              mode variant 9 of the fold kernel, built as
                              q4_fold_v9.cu: the mins term in the fold's
-                             registers; f32 mode FFMA, csrc/q4_decode.cu)
+                             registers; f32 mode variant 11, built as
+                             q4_fold_f32.cu)
+
+f32 mode (w_dtype float32) runs every matmul on the tensor cores with
+nothing rounded: x is split into three bf16 parts whose sum is x exactly
+(f32_parts), each part's product with the codes is exact, and each q
+block's sum z is scaled by d in f32 (f32_model is the arithmetic in plain
+PyTorch, which the tests hold against the plain versions and the JAX
+bodies).
 
 Each wrapper launches its kernel for a CUDA tensor and raises on anything it
 does not take; for a CPU tensor it runs its plain PyTorch version, which the
@@ -60,6 +68,18 @@ PREFILL_MIN_M = 256
 # computes another function (R(q d + m) rounded as a whole).
 B1_ON_B5_MIN_M = 33
 B1_ON_B5_SQUARE_MIN_M = 48
+# f32 mode at F32_ON_B5_MIN_M <= M <= 64 (on a plane of stored K > N: from
+# F32_ON_B5_DEEP_MIN_M) runs B5's f32 mode, q4_0 and q4_1, wherever B1 or
+# B9 is called (the fold kernel's f32 modes are built to 32 rows only):
+# B1's and B9's f32 modes compute the same function in f32 (nothing is
+# rounded to bf16 in either), and the fold kernel's three products a k16
+# step at NW > 32 make it compute-bound there: at M = 33 the fold took 1.32-1.86x B5's
+# time on the 7B qkv, wo, w13 and w2 planes, at M = 64 2.4-4.3x; at M = 24
+# 0.67-0.96x, but 1.02-1.07x on w2; at M <= 16 0.31-0.78x
+# (tools_torch/f32_sweep.py --parts route, PERF.md; NVIDIA H100 80GB HBM3
+# at 700 W)
+F32_ON_B5_MIN_M = 33
+F32_ON_B5_DEEP_MIN_M = 24
 RECIP_127 = float(np.float32(1.0) / np.float32(127.0))   # exact in f32
 
 
@@ -125,32 +145,68 @@ cuda_lib.counted(q4_matmul_dequant, "cuda_calls")
 
 
 # ---------------------------------------------------------------------------
+# f32 mode's arithmetic: three exact bf16 parts of x
+# ---------------------------------------------------------------------------
+
+def f32_parts(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(h, m, l), f32 tensors of bf16 values with h + m + l = x exactly for
+    every finite f32 x of |x| >= 2^-110: h keeps x's upper 16 bits (8
+    significant bits, truncated), m those of r = x - h (exact), l = r - m
+    (exact, at most 8 significant bits: a bf16 value). Below 2^-110 l can
+    need bf16 subnormals finer than 2^-133, and keeps its upper 16 bits
+    only (an error under 2^-133). Truncation rather than rounding, so no
+    part overflows at f32's largest values (R(3.4e38) is inf). The kernels'
+    split (csrc/common.cuh f32_parts), bit for bit."""
+    mask = torch.tensor(-65536, dtype=torch.int32)      # 0xFFFF0000
+
+    def upper(t):
+        return (t.contiguous().view(torch.int32) & mask).view(torch.float32)
+    x = x.to(torch.float32)
+    h = upper(x)
+    r = x - h
+    m = upper(r)
+    return h, m, upper(r - m)
+
+
+def f32_model(x: torch.Tensor, w: QuantMatmulWeight) -> torch.Tensor:
+    """The f32-mode kernels' arithmetic in plain PyTorch (B1 and B9 on the
+    fold kernel, B5 and B20 on the register-A kernel): x f32 [M, K] -> y f32
+    [M, n_logical] = sum_b fma(z_b, d_b) (+ bsum_b(x) m_b for an affine
+    weight), z_b = sum over x's three parts (f32_parts) of the part's q
+    block b times the codes (q - 8, or q), each product exact, summed in
+    f64 here (the tensor cores sum in f32), and the q blocks folded in
+    order. Equal to x @ W in exact arithmetic, up to f32 sums and the one
+    rounding of each weight the plain version makes."""
+    kh, n = w.qs.shape
+    nb = kh // (QBLOCK // 2)
+    xp = _pad_k(x.to(torch.float32), w.k)
+    mm = xp.shape[0]
+    codes = unpack_codes(w.qs.reshape(nb, QBLOCK // 2, n), 1).to(
+        torch.float64)
+    if w.mins is None:
+        codes = codes - 8.0
+    z = sum(torch.einsum("mbj,bjn->mbn",
+                         p.to(torch.float64).reshape(mm, nb, QBLOCK), codes)
+            for p in f32_parts(xp)).to(torch.float32)     # [M, nb, N]
+    acc = torch.zeros((mm, n), dtype=torch.float32)
+    bsum = xp.reshape(mm, nb, QBLOCK).sum(-1)
+    for b in range(nb):
+        acc = torch.addcmul(acc, z[:, b], w.scales[b])
+        if w.mins is not None:
+            acc = torch.addcmul(acc, bsum[:, b:b + 1], w.mins[b])
+    return acc[:, :w.n_logical]
+
+
+# ---------------------------------------------------------------------------
 # B1: decode-size W4A16 matmul
 # ---------------------------------------------------------------------------
 
-def _b1_tile(m: int) -> tuple[int, int]:
-    """(rows, columns) of one block of the FFMA kernel (B1 and B9 in f32
-    mode) for M rows."""
-    return (1, 256) if m == 1 else (4, 256) if m <= 4 else (16, 128)
-
-
-def _splitk(m: int, n: int, nb: int) -> tuple[int, int]:
-    """(splits, q blocks per split) for the FFMA kernel's tiles (1, 4 or 16
-    rows by 256, 256 or 128 columns, see csrc/q4_decode.cu): about 4 blocks
-    per SM of the H100 (132 SMs), at least one q block per warp (8) and at
-    most 32 q blocks of x staged per block."""
-    rows, cols = _b1_tile(m)
-    tiles = -(-n // cols) * -(-m // rows)
-    per = -(-nb // max(1, -(-528 // tiles)))
-    per = min(32, max(per, min(8, nb)))
-    return -(-nb // per), per
-
-
 def _launch_gemv(x: torch.Tensor, w: QuantMatmulWeight, w_dtype,
                  affine: bool) -> torch.Tensor:
-    """Checks and launch shared by B1 and B9: bf16 mode runs variant 0
-    (B1) or 9 (B9) of the fold kernel (q4_variants._launch_fold, on
-    b15_plan), f32 mode the FFMA kernel (q4_gemv, q41_gemv)."""
+    """Checks and launch shared by B1 and B9: the fold kernel
+    (q4_variants._launch_fold, on b15_plan), variant 0 (B1) or 9 (B9) in
+    bf16 mode, 10 or 11 in f32 mode."""
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
     _check_weight(w, x.device, affine)
     m, kx = x.shape
@@ -158,35 +214,10 @@ def _launch_gemv(x: torch.Tensor, w: QuantMatmulWeight, w_dtype,
     _require(x.is_contiguous() and 1 <= m <= DECODE_MAX_M,
              f"x must be contiguous with 1 <= M <= {DECODE_MAX_M}")
     _require(kx <= kh * 2, f"x K={kx} exceeds the stored K={kh * 2}")
-    if w_dtype == torch.bfloat16:
-        return _q4v._launch_fold(x, w.qs, w.scales, 9 if affine else 0,
-                                 w.n_logical, mins=w.mins)
-    return _launch_ffma(x, w, affine)
-
-
-def _launch_ffma(x: torch.Tensor, w: QuantMatmulWeight,
-                 affine: bool) -> torch.Tensor:
-    """One launch of the FFMA kernel (q4_gemv, q41_gemv) in f32 mode."""
-    m, kx = x.shape
-    kh, n = w.qs.shape
-    nb = kh // (QBLOCK // 2)
-    _require(n % 8 == 0, "stored N must be a multiple of 8")
-    dev = x.device
-    y = torch.empty((m, w.n_logical), dtype=torch.float32, device=dev)
-    planes = (w.qs, w.scales, w.mins) if affine else (w.qs, w.scales)
-    splits, per = _splitk(m, n, nb)
-    rows, cols = _b1_tile(m)
-    tiles = -(-n // cols) * -(-m // rows)
-    name = "q41_gemv" if affine else "q4_gemv"
-    partial = cuda_lib.scratch(dev, "q4_gemv.partial", splits * m * n,
-                               torch.float32)
-    counters = cuda_lib.tile_counters(dev, tiles)
-    rc = cuda_lib.fn(name)(
-        x.data_ptr(), m, kx, *(p.data_ptr() for p in planes), n, nb, splits,
-        per, partial.data_ptr(), counters.data_ptr(), y.data_ptr(),
-        w.n_logical, 0, cuda_lib.stream_handle(dev))  # 0: nothing rounded
-    cuda_lib.check(rc, name)
-    return y
+    variant = (9 if affine else 0) if w_dtype == torch.bfloat16 else (
+        11 if affine else 10)
+    return _q4v._launch_fold(x, w.qs, w.scales, variant, w.n_logical,
+                             mins=w.mins)
 
 
 def _check_matmul_args(x: torch.Tensor, w_dtype) -> None:
@@ -204,21 +235,28 @@ def q4_matmul_decode(x: torch.Tensor, w: QuantMatmulWeight,
     q4_variants.b15_plan: weight stages by TMA into a ring on persistent
     blocks, R((q - 8) d) dequantized into the A registers of wgmma or
     mma.sync against every row of x at once, K splits added in a thread
-    block cluster; exact bf16 products); f32 mode runs the FFMA kernel,
-    since the tensor cores have no exact f32 product (TF32 would round the
-    operands): a dispatch by w_dtype, not a fallback. Splits are added in a
-    fixed order (deterministic; the sum order differs from a dense matmul,
-    so compare at f32 reassociation tolerance)."""
+    block cluster; exact bf16 products); f32 mode its variant 10: the codes
+    q - 8 in the A registers, x's three exact bf16 parts (f32_parts) each
+    a product into a q block's z, then acc = fma(z, d, acc) (f32_model; no
+    TF32, nothing rounded); at f32_on_b5's rows B5's f32 mode, the same
+    function (counted by q4_matmul_prefill). Splits are added in a fixed order
+    (deterministic; the sum order differs from a dense matmul, so compare
+    at f32 reassociation tolerance)."""
     _check_matmul_args(x, w_dtype)
     if x.device.type == "cpu":
         _require(w.mins is None, "B1 takes q4_0 weights (no mins plane)")
         return q4_matmul_dequant(x, w, w_dtype)
+    if w_dtype == torch.float32 and f32_on_b5(x.shape[0], w):
+        return q4_matmul_prefill(x, w, w_dtype)
     y = _launch_gemv(x, w, w_dtype, affine=False)
     q4_matmul_decode.launches += 1
+    q4_matmul_decode.f32_launches += int(w_dtype == torch.float32)
     return y
 
 
+# every launch, and apart the f32 mode's (variant 10)
 cuda_lib.counted(q4_matmul_decode)
+cuda_lib.counted(q4_matmul_decode, "f32_launches")
 
 
 # ---------------------------------------------------------------------------
@@ -247,18 +285,24 @@ def q41_matmul_decode(x: torch.Tensor, w: QuantMatmulWeight,
     (q41_matmul_decode_plain's formula). bf16 mode runs variant 9 of the
     fold kernel: v1's weight R(q d) in the A registers, the mins rows
     streamed beside the scale rows and bsum(x) @ m taken in the fold's f32
-    registers; f32 mode the FFMA kernel, as B1 does (a dispatch by w_dtype,
-    not a fallback)."""
+    registers; f32 mode its variant 11: B1's f32 route with the codes q and
+    the mins term bsum(x) m added to acc a q block (f32_model), and at
+    f32_on_b5's rows B5's affine f32 mode (counted by q4_matmul_prefill)."""
     _check_matmul_args(x, w_dtype)
     _require(w.mins is not None, "B9 takes affine weights (a mins plane)")
     if x.device.type == "cpu":
         return q41_matmul_decode_plain(x, w, w_dtype)
+    if w_dtype == torch.float32 and f32_on_b5(x.shape[0], w):
+        return q4_matmul_prefill(x, w, w_dtype)
     y = _launch_gemv(x, w, w_dtype, affine=True)
     q41_matmul_decode.launches += 1
+    q41_matmul_decode.f32_launches += int(w_dtype == torch.float32)
     return y
 
 
+# every launch, and apart the f32 mode's (variant 11)
 cuda_lib.counted(q41_matmul_decode)
+cuda_lib.counted(q41_matmul_decode, "f32_launches")
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +365,17 @@ RA_MAX_SPLITS = 8
 RA_MIN_STAGES = 4
 RA_MERGE_STAGES = {False: 20, True: 6}
 RA_STAGE_BASE = 0.5
+# f32 mode (B5 at w_dtype float32): the x tiles built (two register sets
+# of BX / 2, acc and a q block's z; csrc/q4_prefill_ra.cuh body_f32);
+# always two warpgroups (one z set a warpgroup: the other's products keep
+# the tensor cores busy while one scales its z); a split's merge costed in
+# stages, fitted to pinned plans (tools_torch/f32_sweep.py --parts pins:
+# the 7B and 13B planes at M = 24-513, q4_0; of the costs 2-28, 7's plans
+# took on average 1.002x each shape's fastest pinned plan, 3-5's 1.004x,
+# bf16 mode's 20 1.021x, up to 1.20x; NVIDIA H100 80GB HBM3 at 700 W).
+# RA_STAGE_BASE is bf16 mode's fit, not refitted.
+RA_BX_F32 = (64, 96, 128)
+RA_MERGE_STAGES_F32 = 7
 
 
 class RaPlan(NamedTuple):
@@ -335,13 +390,15 @@ class RaPlan(NamedTuple):
     t0: int = 0
 
 
-def ra_bx(m: int) -> int:
+def ra_bx(m: int, f32: bool = False) -> int:
     """The rows of x a tile at M rows: M cut into ceil(M / 256) tiles as
     even as they go, rounded up to a built width (M = 65 -> 96, 300 -> two
-    of 160, 513 -> three of 192)."""
-    tiles = -(-m // RA_BX[-1])
+    of 160, 513 -> three of 192); f32 mode: ceil(M / 128) tiles of at most
+    128 (300 -> three of 128, 513 -> five of 128)."""
+    widths = RA_BX_F32 if f32 else RA_BX
+    tiles = -(-m // widths[-1])
     want = -(-m // tiles)
-    return next(b for b in RA_BX if b >= want)
+    return next(b for b in widths if b >= want)
 
 
 def ra_item_count(tiles: int, p: RaPlan) -> int:
@@ -377,23 +434,27 @@ def ra_makespan(tiles: int, nst: int, sms: int, p: RaPlan,
 
 @functools.lru_cache(maxsize=None)
 def prefill_plan(m: int, n: int, kc: int, sms: int, int8: bool = False, *,
-                 bx: int | None = None, wgs: int | None = None,
-                 splits: int | None = None, t0: int | None = None) -> RaPlan:
-    """The register-A kernel's plan (B5 in bf16 mode, B3 with int8=True)
-    for M rows, N stored columns and the K it runs over (kc), on a card of
-    `sms` SMs; keywords pin a part (tools_torch/prefill_sweep.py, tests).
-    Each candidate (one or two warpgroups a block; K whole, or split in 2
-    to RA_MAX_SPLITS runs of at least RA_MIN_STAGES stages, either for
-    every tile or only for the tiles past the full rounds of whole tiles)
-    is costed by its makespan (ra_makespan, a merge RA_MERGE_STAGES) times
-    wgs + RA_STAGE_BASE; ties go to the fewest splits, then to two
-    warpgroups. Cached: the makespans are counted item by item in Python,
-    and eager steps ask for the same few plans again and again."""
-    bx = bx or ra_bx(m)
+                 f32: bool = False, bx: int | None = None,
+                 wgs: int | None = None, splits: int | None = None,
+                 t0: int | None = None) -> RaPlan:
+    """The register-A kernel's plan (B5 in bf16 mode, B3 with int8=True,
+    B5 in f32 mode with f32=True) for M rows, N stored columns and the K it
+    runs over (kc), on a card of `sms` SMs; keywords pin a part
+    (tools_torch/prefill_sweep.py, tests). Each candidate (one or two
+    warpgroups a block, f32 mode two; K whole, or split in 2 to
+    RA_MAX_SPLITS runs of at least RA_MIN_STAGES stages, either for every
+    tile or only for the tiles past the full rounds of whole tiles) is
+    costed by its makespan (ra_makespan, a merge RA_MERGE_STAGES, f32 mode
+    RA_MERGE_STAGES_F32) times wgs + RA_STAGE_BASE; ties go to the fewest
+    splits, then to two warpgroups. Cached: the makespans are counted item
+    by item in Python, and eager steps ask for the same few plans again and
+    again."""
+    bx = bx or ra_bx(m, f32)
     nst = -(-kc // (128 if int8 else 64))
     rt = -(-m // bx)
+    merge = RA_MERGE_STAGES_F32 if f32 else RA_MERGE_STAGES[int8]
     best = None
-    for g in (wgs,) if wgs else (2, 1):
+    for g in (wgs,) if wgs else (2,) if f32 else (2, 1):
         tiles = rt * -(-n // (64 * g))
         for s in (splits,) if splits else range(1, RA_MAX_SPLITS + 1):
             per = -(-nst // s)
@@ -409,8 +470,7 @@ def prefill_plan(m: int, n: int, kc: int, sms: int, int8: bool = False, *,
             for first in starts:
                 p = RaPlan(bx, g, s_eff, per, first)
                 key = ((g + RA_STAGE_BASE) * ra_makespan(
-                    tiles, nst, sms, p, RA_MERGE_STAGES[int8]), s_eff, -g,
-                    -first)
+                    tiles, nst, sms, p, merge), s_eff, -g, -first)
                 if best is None or key < best[0]:
                     best = (key, p)
     return best[1]
@@ -510,50 +570,49 @@ cuda_lib.counted(q4_matmul_prefill_int8)
 # B5: bf16 / f32 prefill matmul
 # ---------------------------------------------------------------------------
 
-# B5's f32 kernel (csrc/q4_prefill.cu f32_gemm_kernel) and B20's split
-# kernel (bf16_wgmma_kernel<kSplit>) are built for one tile: 128 x 128
-# outputs; B20: two consumer warpgroups of 64 rows, K in 64-deep stages
-# through a ring of 4, one persistent block an SM; f32 mode: K in 32-deep
-# steps (one q block), two blocks an SM. b5_plan chooses their split of K.
-B5_BM, B5_BN, B5_BK, B5_F32_BK = 128, 128, 64, 32
+# B20's split kernel (csrc/q4_prefill.cu bf16_wgmma_kernel<kSplit>) is
+# built for one tile: 128 x 128 outputs, two consumer warpgroups of 64
+# rows, K in 64-deep stages through a ring of 4, one persistent block an
+# SM. b5_plan chooses its split of K.
+B5_BM, B5_BN, B5_BK = 128, 128, 64
 B5_MAX_SPLITS = 8
-B5_MIN_STAGES_PER_SPLIT = 4          # bf16: the ring fills
-B5_MIN_STEPS_PER_SPLIT = 8           # f32
+B5_MIN_STAGES_PER_SPLIT = 4          # the ring fills
 # the cost of a split's merge (the last split of a tile reads the others'
-# partial tiles) in the mode's stages, fitted to chip_smoke.py's B5 times
-# on the H100 (PERF.md)
+# partial tiles) in stages, fitted to chip_smoke.py's B5 times on the H100
+# (PERF.md)
 B5_MERGE_STAGES = 4
-B5_F32_MERGE_STEPS = 1
 
 
-def b5_plan(m: int, n: int, k: int, sms: int,
-            f32: bool = False) -> tuple[int, int]:
-    """(splits, K stages per split) of B5's f32 kernel (f32=True) and B20's
-    split kernel for M rows, N stored columns and the K it runs over, on a
-    card of `sms` SMs; a stage is 64 deep in bf16 mode and 32 in f32 mode.
-    A split pays when the 128 x 128 tiles alone leave SMs idle (M <= 128:
-    96 tiles on the 7B qkv plane, 32 on wo). The cost is the rounds of work
-    a busy SM takes (bf16: the persistent blocks' items, f32: blocks, one
-    at a time at the FFMA rate) times a round's stages, a split's merge
-    added to each round where K is split; the fewest splits win a tie.
-    Every split keeps enough stages for its pipeline to fill."""
+def b5_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
+    """(splits, K stages per split) of B20's split kernel for M rows, N
+    stored columns and the K it runs over, on a card of `sms` SMs; a stage
+    is 64 deep. A split pays when the 128 x 128 tiles alone leave SMs idle
+    (M <= 128: 96 tiles on the 7B qkv plane, 32 on wo). The cost is the
+    rounds of the persistent blocks' items a busy SM takes times a round's
+    stages, a split's merge added to each round where K is split; the
+    fewest splits win a tie. Every split keeps enough stages for its
+    pipeline to fill."""
     tiles = -(-m // B5_BM) * -(-n // B5_BN)
-    nk = -(-k // (B5_F32_BK if f32 else B5_BK))
-    least = B5_MIN_STEPS_PER_SPLIT if f32 else B5_MIN_STAGES_PER_SPLIT
+    nk = -(-k // B5_BK)
     best = None
     for s in range(1, B5_MAX_SPLITS + 1):
         per = -(-nk // s)
-        if s > 1 and per < least:
+        if s > 1 and per < B5_MIN_STAGES_PER_SPLIT:
             break
         splits = -(-nk // per)
         rounds = -(-(tiles * splits) // sms)
-        if f32:
-            cost = rounds * per + (splits > 1) * B5_F32_MERGE_STEPS
-        else:
-            cost = rounds * (per + (splits > 1) * B5_MERGE_STAGES)
+        cost = rounds * (per + (splits > 1) * B5_MERGE_STAGES)
         if best is None or cost < best[0]:
             best = (cost, splits, per)
     return best[1], best[2]
+
+
+def f32_scratch_bytes(m: int, k: int, affine: bool) -> int:
+    """The bytes of B5's f32-mode x scratch (csrc/q4_prefill.cu): the three
+    bf16 part planes [3][M][K] and, for an affine weight, the block sums
+    f32 [2 ceil(K / 64)][M rounded up to 4]."""
+    return 6 * m * k + (4 * 2 * -(-k // 64) * (-(-m // 4) * 4)
+                        if affine else 0)
 
 
 def q4_matmul_prefill(x: torch.Tensor, w: QuantMatmulWeight,
@@ -563,24 +622,30 @@ def q4_matmul_prefill(x: torch.Tensor, w: QuantMatmulWeight,
     [M, n_logical] = w_dtype(x) @ w_dtype(W) with f32 accumulation, W =
     (q - 8) * d or q * d + m, in natural K order; a true f32 product (no
     TF32) in f32 mode. Its plain version is q4_matmul_dequant. Any M >= 1
-    is taken; the dispatcher sends M > 64 without int8.
+    is taken; the dispatcher sends M > 64 without int8, and B1 and B9
+    their f32 calls at f32_on_b5's rows.
 
     bf16 mode: x cast to bf16, then one launch of the register-A kernel
     (csrc/q4_prefill_ra.cuh: each weight dequantized straight into wgmma's
     A registers, x the B operand, on prefill_plan's tiles; `plan` pins
-    one). f32 mode: an FFMA tile that dequantizes in shared memory. Both
-    split K where the tiles alone leave SMs idle and add the splits in
-    order."""
+    one). f32 mode: x's three exact bf16 parts (and an affine weight's
+    block sums) by a cast pass, then the register-A kernel in its f32 mode
+    (the codes in the A registers, each part's products into a q block's
+    z, z scaled by d into acc: f32_model's arithmetic) on prefill_plan's
+    f32 tiles. Both split K where the tiles alone leave SMs idle and add
+    the splits in order."""
     _check_matmul_args(x, w_dtype)
     if x.device.type == "cpu":
         return q4_matmul_dequant(x, w, w_dtype)
     y = _launch_b5(x, w, w_dtype, plan)
     q4_matmul_prefill.launches += 1
+    q4_matmul_prefill.f32_launches += int(w_dtype == torch.float32)
     return y
 
 
 def _launch_b5(x, w, w_dtype, plan=None):
-    """One launch of B5 on the card (bf16 mode on `plan` where given)."""
+    """One launch of B5 on the card (on `plan` where given: prefill_plan's
+    with f32=True in f32 mode)."""
     _require(x.device.type == "cuda" and x.is_contiguous()
              and x.data_ptr() % 16 == 0,
              "x must be a contiguous, 16-byte aligned CUDA tensor")
@@ -600,33 +665,25 @@ def _launch_b5(x, w, w_dtype, plan=None):
     sms = cuda_lib.sm_count(dev)
     kc = -(-kx // 32) * 32
     y = torch.empty((m, w.n_logical), dtype=torch.float32, device=dev)
-    if w_dtype == torch.bfloat16:
-        p = plan or prefill_plan(m, n, kc, sms)
-        partial, counters, blocks = _ra_scratch(dev, "q4_prefill.partial",
-                                                m, n, p)
-        xb = cuda_lib.scratch(dev, "q4_prefill.xb", m * k, torch.bfloat16)
-        bx, wgs, t0, splits, per, bf16 = (p.bx, p.wgs, p.t0, p.splits,
-                                          p.per, 1)
-    else:
-        splits, per = b5_plan(m, n, kc, sms, f32=True)
-        tiles = -(-m // B5_BM) * -(-n // B5_BN)
-        partial = cuda_lib.scratch(
-            dev, "q4_prefill.partial",
-            tiles * splits * B5_BM * B5_BN if splits > 1 else 1,
-            torch.float32)
-        counters = cuda_lib.tile_counters(dev, tiles)
-        xb = partial                       # unused in f32 mode
-        bx = wgs = t0 = blocks = bf16 = 0
+    bf16 = w_dtype == torch.bfloat16
+    p = plan or prefill_plan(m, n, kc, sms, f32=not bf16)
+    partial, counters, blocks = _ra_scratch(dev, "q4_prefill.partial", m, n,
+                                            p)
+    xb = cuda_lib.scratch(dev, "q4_prefill.xb", m * k * 2 if bf16
+                          else f32_scratch_bytes(m, k, affine), torch.uint8)
     rc = cuda_lib.fn("q4_prefill_gemm")(
         x.data_ptr(), m, kx, w.qs.data_ptr(), w.scales.data_ptr(),
-        w.mins.data_ptr() if affine else None, n, k, xb.data_ptr(), bx, wgs,
-        t0, splits, per, blocks, partial.data_ptr(), counters.data_ptr(),
-        y.data_ptr(), w.n_logical, bf16, cuda_lib.stream_handle(dev))
+        w.mins.data_ptr() if affine else None, n, k, xb.data_ptr(), p.bx,
+        p.wgs, p.t0, p.splits, p.per, blocks, partial.data_ptr(),
+        counters.data_ptr(), y.data_ptr(), w.n_logical, int(bf16),
+        cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, "q4_prefill_gemm")
     return y
 
 
+# every launch, and apart the f32 mode's
 cuda_lib.counted(q4_matmul_prefill)
+cuda_lib.counted(q4_matmul_prefill, "f32_launches")
 
 
 # ---------------------------------------------------------------------------
@@ -639,6 +696,14 @@ def b1_on_b5(m: int, w: QuantMatmulWeight) -> bool:
     B1_ON_B5_SQUARE_MIN_M."""
     square = 2 * w.qs.shape[0] == w.qs.shape[1]
     return m >= (B1_ON_B5_SQUARE_MIN_M if square else B1_ON_B5_MIN_M)
+
+
+def f32_on_b5(m: int, w: QuantMatmulWeight) -> bool:
+    """Whether a call at M <= 64 rows on w in f32 mode (q4_0 or q4_1) runs
+    B5's f32 mode in B1's or B9's place: at M >= F32_ON_B5_MIN_M, on a
+    plane of stored K > N at M >= F32_ON_B5_DEEP_MIN_M."""
+    deep = 2 * w.qs.shape[0] > w.qs.shape[1]
+    return m >= (F32_ON_B5_DEEP_MIN_M if deep else F32_ON_B5_MIN_M)
 
 
 def use_int8(m: int, w_dtype, prefill_int8: bool | None,
@@ -673,6 +738,9 @@ def q4_matmul(x: torch.Tensor, w: QuantMatmulWeight, *,
                                             square plane at M >=
                                             B1_ON_B5_SQUARE_MIN_M: B5)
       q4_1, M <= 64                      -> B9 q41_matmul_decode
+      (f32 mode, q4_0 and q4_1, at M >= F32_ON_B5_MIN_M, on a plane of
+      stored K > N at M >= F32_ON_B5_DEEP_MIN_M: B5, f32_on_b5, chosen in
+      B1's and B9's wrappers)
       q4_0, M >= 256 and int8 (use_int8) -> B2 quant_rows_int8 + B3
       every other M > 64: q4_0 at 64 < M < 256, q4_0 at M >= 256 without
       int8, q4_1 at M > 64               -> B5 q4_matmul_prefill

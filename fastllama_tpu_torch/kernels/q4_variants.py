@@ -18,7 +18,8 @@ sum of the unrounded x over each 32-block of K:
 B1 and B15-B18 run one kernel built for Hopper (csrc/q4_fold.cuh, one
 build a variant, on b15_plan: persistent blocks in clusters along K, weight
 stages by TMA, wgmma with the weight in registers), B1 as its variant 0
-(and B9, q4_1's decode matmul, as its variant 9).
+(and B9, q4_1's decode matmul, as its variant 9; B1 and B9 in f32 mode as
+its variants 10 and 11).
 
 where x_b, q_b are the 32 columns of x and rows of the codes of q block b,
 and bsum7 sums R(R(x_lo) + R(x_hi)) in f32 over the 16 pairs of a block
@@ -28,8 +29,8 @@ holds the identity). The "h" forms of the tools pass bf16 scales: the same
 functions on f32(d), which the kernels read as 2-byte values. In f32 mode
 (w_dtype float32) nothing is rounded to bf16, so every decode variant is
 x @ ((q - 8) d) in exact arithmetic and the variants differ only in f32
-rounding: f32 mode runs B1's f32 (FFMA) kernel for each of them, with f32
-scales.
+rounding: f32 mode runs B1's f32 mode (the fold kernel's variant 10) for
+each of them, with f32 scales.
 
 Prefill bodies, x f32 [M, K]:
   int8 nat, natp   B2 + B3 (q4_matmul.quant_rows_int8 and
@@ -42,8 +43,8 @@ Prefill bodies, x f32 [M, K]:
                    plain version); the cast pass and one product kernel
                    with the fold on the tensor cores (csrc/q4_prefill.cu).
                    In f32 mode the split body is x @ ((q - 8) d) in exact
-                   arithmetic, so it runs B5's f32 kernel (as the decode
-                   variants run B1's)
+                   arithmetic, so it runs B5's f32 mode (as the decode
+                   variants run B1's), at every M
 
 Each wrapper launches its kernel for a CUDA tensor and raises on anything it
 does not take; for a CPU tensor it runs its plain version, which the tests
@@ -69,12 +70,17 @@ INT8_VARIANTS = ("nat", "natp", "natx", "split")
 # 2-byte scales) is B1, the kernel's variant 0
 FOLD_VARIANT = {"v1": 1, "v4": 1, "v5": 1, "v2": 2, "v3": 3, "v7": 7}
 # the entry of each variant's build; also B1 and B9 (kernels/q4_matmul.py)
-# as variants 0 and 9, and the probes B13 and B14 (kernels/q4_floor.py) as
+# as variants 0 and 9 and in f32 mode as 10 and 11 (one build of both,
+# csrc/q4_fold_f32.cu), and the probes B13 and B14 (kernels/q4_floor.py) as
 # 13 and 14, one build of both (csrc/q4_fold_probe.cu) that reads no scales
 FOLD_ENTRY = {0: "q4_fold_v0_gemm", 1: "q4_fold_gemm", 2: "q4_fold_v2_gemm",
               3: "q4_fold_v3_gemm", 7: "q4_fold_v7_gemm",
-              9: "q4_fold_v9_gemm", 13: "q4_fold_floor_gemm",
+              9: "q4_fold_v9_gemm", 10: "q4_fold_f32_gemm",
+              11: "q4_fold_f32a_gemm", 13: "q4_fold_floor_gemm",
               14: "q4_fold_nosc_gemm"}
+# the variants that read a mins plane (B9, both modes) and the f32 modes
+MINS_VARIANTS = (9, 11)
+F32_VARIANTS = (10, 11)
 
 
 def _rounded(t: torch.Tensor) -> torch.Tensor:
@@ -169,6 +175,9 @@ B15_MTILE_COLS = 64
 B15_SMEM = 232448 - 1024
 B15_MAX_SPLITS = 8                 # a portable thread block cluster
 B15_MAX_M = 64
+# the f32 modes (10, 11) are built to 32 rows: B5's f32 mode takes more
+# (q4_matmul.f32_on_b5)
+B15_F32_MAX_M = 32
 # the consumer warpgroups of a block: two were the fastest on the 7B planes
 # at every M (tools_torch/b15_sweep.py, PERF.md)
 B15_WARPGROUPS = 2
@@ -236,19 +245,25 @@ def b15_stage_sbytes(sc16: bool, mins: bool = False) -> int:
     return 8 if mins else 2 if sc16 else 4
 
 
+def b15_x_sets(f32: bool) -> int:
+    """The sets of k16 tiles an x slot of csrc/q4_fold.cuh holds (x_sets):
+    in f32 mode one a part of x (three), else one."""
+    return 3 if f32 else 1
+
+
 def b15_smem(wgs: int, nw: int, sc16: bool, stages: int, xstages: int,
-             splits: int, mins: bool = False) -> int:
+             splits: int, mins: bool = False, sets: int = 1) -> int:
     """The bytes csrc/q4_fold.cuh's fold_layout lays out: `stages` weight
-    slots ([16 qb][BN] packed bytes, [qb][BN] scales and variant 9's
-    [qb][BN] mins, 1024-aligned), `xstages` x slots (x f32 [nw][32 qb] as
-    copied, 2 qb k16 tiles of nw x 16 bf16 and [qb][nw] f32 block sums,
-    128-aligned), the leader's S - 1 received partial tiles (BN x nw f32)
-    and the barriers."""
+    slots ([16 qb][BN] packed bytes, [qb][BN] scales and B9's [qb][BN]
+    mins, 1024-aligned), `xstages` x slots (x f32 [nw][32 qb] as copied,
+    `sets` (b15_x_sets) of 2 qb k16 tiles of nw x 16 bf16 and [qb][nw] f32
+    block sums, 128-aligned), the leader's S - 1 received partial tiles
+    (BN x nw f32) and the barriers."""
     bn = b15_wg_cols(nw) * wgs
     ws = -(-(16 * B15_QB * bn + B15_QB * bn * b15_stage_sbytes(sc16, mins))
            // 1024) * 1024
-    xs = -(-(nw * 32 * B15_QB * 4 + B15_QB * 32 * nw * 2 + B15_QB * nw * 4)
-           // 128) * 128
+    xs = -(-(nw * 32 * B15_QB * 4 + sets * B15_QB * 32 * nw * 2
+             + B15_QB * nw * 4) // 128) * 128
     merge = (splits - 1) * bn * nw * 4 if splits > 1 else 0
     return (stages * ws + xstages * xs + merge
             + 8 * (2 * stages + 3 * xstages + 8))
@@ -256,7 +271,7 @@ def b15_smem(wgs: int, nw: int, sc16: bool, stages: int, xstages: int,
 
 def b15_plan(m: int, n: int, nb: int, sms: int, sc16: bool = False,
              capacity: Callable[[int], int] | None = None, *,
-             mins: bool = False,
+             mins: bool = False, f32: bool = False,
              wgs: int | None = None, stages: int | None = None,
              splits: int | None = None, clusters: int | None = None,
              sync: bool | None = None) -> B15Plan:
@@ -271,7 +286,8 @@ def b15_plan(m: int, n: int, nb: int, sms: int, sc16: bool = False,
     (B15_MERGE_STAGES). At M <= B15_SYNC_MAX_M the plan takes one or two
     warpgroups and S by B15_STAGE_COST's and B15_SPLIT_COST's cost. A tie
     goes to fewer splits, then to more warpgroups. mins:
-    variant 9's stages, which carry the mins beside the f32 scales. The
+    B9's stages, which carry the mins beside the f32 scales; f32: the f32
+    modes' x slots, which hold x's three parts (b15_x_sets). The
     weight ring takes as many slots as keep B15_RING_BYTES in flight and
     the x ring as many as the shared memory left by them and the merge
     holds, the weight ring giving up slots where x's need them (at the
@@ -285,6 +301,8 @@ def b15_plan(m: int, n: int, nb: int, sms: int, sc16: bool = False,
     nst = -(-nb // B15_QB)
     cap = capacity or (lambda s: sms // s)
     fitted = m <= B15_SYNC_MAX_M
+    sync = fitted if sync is None else sync
+    sets = b15_x_sets(f32)
     best = None
     for w, s in itertools.product(
             (wgs,) if wgs else (2, 1) if fitted else (B15_WARPGROUPS,),
@@ -296,9 +314,9 @@ def b15_plan(m: int, n: int, nb: int, sms: int, sc16: bool = False,
         sps = -(-nst // s)
         if -(-nst // sps) != s:
             continue
-        fixed = b15_smem(w, nw, sc16, 0, 0, s, mins)
-        wone = b15_smem(w, nw, sc16, 1, 0, s, mins) - fixed
-        xone = b15_smem(w, nw, sc16, 0, 1, s, mins) - fixed
+        fixed = b15_smem(w, nw, sc16, 0, 0, s, mins, sets)
+        wone = b15_smem(w, nw, sc16, 1, 0, s, mins, sets) - fixed
+        xone = b15_smem(w, nw, sc16, 0, 1, s, mins, sets) - fixed
 
         def xdepth(depth):
             return min(depth, (B15_SMEM - fixed - depth * wone) // xone)
@@ -326,8 +344,7 @@ def b15_plan(m: int, n: int, nb: int, sms: int, sc16: bool = False,
         if best is None or (cost, s) < best[0]:
             best = ((cost, s), B15Plan(
                 bn=bn, qb=B15_QB, stages=depth, splits=s, sps=sps,
-                clusters=cl, items=rounds, nw=nw,
-                sync=(m <= B15_SYNC_MAX_M if sync is None else sync),
+                clusters=cl, items=rounds, nw=nw, sync=sync,
                 xstages=xdepth(depth)))
     if best is None:
         raise ValueError(f"no B15 plan fits M={m}, N={n}, nb={nb} with "
@@ -355,15 +372,15 @@ def _launch_fold(x: torch.Tensor, qs: torch.Tensor,
                  plan: B15Plan | None = None,
                  mins: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of B15's kernel (variant 0: B1's function, 1: v1's, 2:
-    v2's, 3: v3's, 7: v7's, 9: B9's with `mins` f32 [K/32, N]; its build
-    FOLD_ENTRY[variant]) with f32 or 2-byte scales (variant 9: f32), or of
-    a probe (variant 13: B13, 14: B14; scales None), on b15_plan (the
-    probes: B15's at f32 scales) or `plan`. The kernel reads x by tensor
-    copies, which take rows of a multiple of 16 bytes: x of another K is
-    padded with zeros to one."""
+    v2's, 3: v3's, 7: v7's, 9: B9's with `mins` f32 [K/32, N], 10 and 11:
+    B1's and B9's in f32 mode; its build FOLD_ENTRY[variant]) with f32 or
+    2-byte scales (9, 10, 11: f32), or of a probe (variant 13: B13, 14:
+    B14; scales None), on b15_plan (the probes: B15's at f32 scales) or
+    `plan`. The kernel reads x by tensor copies, which take rows of a
+    multiple of 16 bytes: x of another K is padded with zeros to one."""
     qm._require(x.device.type == "cuda", f"unsupported device {x.device}")
-    qm._require((mins is not None) == (variant == 9),
-                "variant 9 (B9) takes a mins plane, no other variant does")
+    qm._require((mins is not None) == (variant in MINS_VARIANTS),
+                "variants 9 and 11 (B9) take a mins plane, no other does")
     planes = tuple(t for t in (x, qs, scales, mins) if t is not None)
     qm._require(all(t.is_contiguous() and t.device == x.device
                     for t in planes),
@@ -379,17 +396,21 @@ def _launch_fold(x: torch.Tensor, qs: torch.Tensor,
     nb = kh // HALF
     dev = x.device
     sc16 = scales is not None and scales.dtype == torch.bfloat16
+    f32 = variant in F32_VARIANTS
+    qm._require(not (sc16 and f32), "f32 mode takes f32 scales")
+    qm._require(not f32 or m <= B15_F32_MAX_M,
+                f"the f32 modes take M <= {B15_F32_MAX_M} rows")
     if kx % 4 or x.data_ptr() % 16:
         x = torch.nn.functional.pad(x, (0, -kx % 4)) if kx % 4 else x.clone()
         kx = x.shape[1]
     affine = mins is not None
     if plan is None:
-        key = (dev.index, m, n, nb, sc16, affine)
+        key = (dev.index, m, n, nb, sc16, affine, f32)
         plan = _B15_PLANS.get(key)
         if plan is None:
             plan = _B15_PLANS[key] = b15_plan(
                 m, n, nb, cuda_lib.sm_count(dev), sc16, b15_capacity(dev),
-                mins=affine)
+                mins=affine, f32=f32)
     y = x.new_empty((m, n_out))
     entry = FOLD_ENTRY[variant]
     rc = cuda_lib.fn(entry)(
@@ -461,7 +482,7 @@ def q4_decode_v0(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
             x, QuantMatmulWeight(qs=qs, scales=scales, n_logical=n_out),
             w_dtype)
     qm._require(w_dtype == torch.bfloat16,
-                "f32 mode takes f32 scales (B1's f32 kernel)")
+                "f32 mode takes f32 scales (B1's f32 mode)")
     y = _launch_fold(x, qs, scales, 0, n_out)
     qm.q4_matmul_decode.launches += 1
     return y
@@ -472,7 +493,7 @@ def q4_matmul_pallas(x: torch.Tensor, qs: torch.Tensor,
                      variant: str = "v1") -> torch.Tensor:
     """The port of q4_matmul_pallas(x, qs, scales, w_dtype=, variant=): x
     f32 [M <= 64, K] -> y f32 [M, N] by the kernel of `variant` (module
-    docstring); f32 mode runs B1's f32 kernel for every variant."""
+    docstring); f32 mode runs B1's f32 mode for every variant."""
     _require_variant(variant)
     qm._require(w_dtype in (torch.bfloat16, torch.float32),
                 "w_dtype must be bfloat16 or float32")
@@ -581,7 +602,7 @@ def q4_prefill_split_plain(x: torch.Tensor, qs: torch.Tensor,
                            scales: torch.Tensor,
                            w_dtype=torch.bfloat16) -> torch.Tensor:
     """B20's function at any M: v1's (decode_plain); in f32 mode B5's f32
-    function, x @ ((q - 8) d)."""
+    function, x @ ((q - 8) d) (B5's f32 mode computes it, at every M)."""
     return decode_plain(x, qs, scales, "v1", w_dtype)
 
 
@@ -596,9 +617,10 @@ def q4_prefill_split(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
     R(q d) and, a stage at a time, the fold as one more tensor-core slice
     of bf16 parts of bsum and -8 d (8 of their 9 part products: f32
     summation error, as the JAX body's HIGHEST dot); at M <=
-    B20_ON_B15_MAX_M B15's kernel; counted here. f32 mode: B5's f32
-    kernel, counted in q4_matmul.q4_matmul_prefill.launches. M > 512 raises, as the JAX
-    body's assert does."""
+    B20_ON_B15_MAX_M B15's kernel; counted here. f32 mode: B5's f32 mode
+    (the register-A kernel's), at every M, counted in
+    q4_matmul.q4_matmul_prefill.launches. M > 512 raises, as the JAX body's
+    assert does."""
     _check_planes(x, qs, scales)
     qm._require(scales.dtype == torch.float32, "scales must be f32")
     qm._require(w_dtype in (torch.bfloat16, torch.float32),
@@ -659,7 +681,7 @@ def q4_matmul_prefill_pallas(x: torch.Tensor, qs: torch.Tensor,
                              w_dtype=torch.bfloat16,
                              variant: str = "nat") -> torch.Tensor:
     """The port of q4_matmul_prefill_pallas(x, qs, scales, w_dtype=,
-    variant=): nat runs B5, split B20 (B5's f32 kernel in f32 mode)."""
+    variant=): nat runs B5, split B20 (B5's f32 mode in f32 mode)."""
     qm._require(variant in ("nat", "split"), f"prefill variant {variant!r}: "
                 "the JAX package has nat and split")
     if variant == "split":

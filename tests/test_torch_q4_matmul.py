@@ -169,7 +169,8 @@ def q41_weight(k, n):
 
 @pytest.mark.parametrize("affine,m,mode,int8,path", [
     (False, 1, "bfloat16", None, "B1"),
-    (False, 64, "float32", None, "B1"),
+    (False, 32, "float32", None, "B1"),
+    (False, 64, "float32", None, "B1"),     # B1's wrapper sends it to B5
     (False, 65, "bfloat16", None, "B5"),
     (False, 255, "bfloat16", True, "B5"),
     (False, 256, "bfloat16", None, "B3"),
@@ -179,7 +180,8 @@ def q41_weight(k, n):
     (False, 256, "float32", None, "B5"),
     (False, 4096, "bfloat16", False, "B5"),
     (True, 1, "bfloat16", None, "B9"),
-    (True, 64, "float32", None, "B9"),
+    (True, 8, "float32", None, "B9"),
+    (True, 64, "float32", None, "B9"),      # B9's wrapper sends it to B5
     (True, 65, "bfloat16", None, "B5"),
     (True, 256, "bfloat16", None, "B5"),
     (True, 512, "float32", True, "B5"),
@@ -311,8 +313,8 @@ def reports_cuda(t):
 
 
 # the rows of each route test: the fold kernel's product widths, and both
-# sides of B1_ON_B5_MIN_M and B1_ON_B5_SQUARE_MIN_M
-ROUTE_ROWS = (1, 8, 9, 32, 33, 47, 48, 56, 57, 64)
+# sides of B1_ON_B5_MIN_M, B1_ON_B5_SQUARE_MIN_M and F32_ON_B5_DEEP_MIN_M
+ROUTE_ROWS = (1, 8, 9, 23, 24, 32, 33, 47, 48, 56, 57, 64)
 
 
 @pytest.mark.parametrize("affine", [False, True], ids=["q4_0", "q4_1"])
@@ -325,24 +327,22 @@ def test_decode_rows_launch_the_fold_variants(monkeypatch, use_pallas, mode,
     B1_ON_B5_MIN_M, on a plane of stored K = N at M >=
     B1_ON_B5_SQUARE_MIN_M; use_pallas=True B15, variant 1) and q4_1
     variant 9 (B9; use_pallas=False B5 at every M, as before);
-    f32 mode runs the FFMA kernel (q4_1 with use_pallas=False: B5). Each
-    launch is counted by the wrapper the dispatcher called."""
+    f32 mode runs the fold kernel's f32 variants, 10 (B1) and 11 (B9),
+    and B5's f32 mode at F32_ON_B5_MIN_M rows and more (on a plane of
+    stored K > N from F32_ON_B5_DEEP_MIN_M; q4_1 with use_pallas=False:
+    B5 at every M). Each launch is counted by the wrapper the dispatcher
+    called."""
     launched = []
 
     def fold(x, qs, scales, variant, n_out, plan=None, mins=None):
-        assert (mins is not None) == (variant == 9)
+        assert (mins is not None) == (variant in (9, 11))
         launched.append(("fold", variant))
         return torch.zeros((x.shape[0], n_out))
-
-    def ffma(x, w, aff):
-        launched.append(("ffma", aff))
-        return torch.zeros((x.shape[0], w.n_logical))
 
     def b5(x, w, w_dtype, plan=None):
         launched.append(("B5", w.mins is not None))
         return torch.zeros((x.shape[0], w.n_logical))
     monkeypatch.setattr(tqv, "_launch_fold", fold)
-    monkeypatch.setattr(tqm, "_launch_ffma", ffma)
     monkeypatch.setattr(tqm, "_launch_b5", b5)
     counters = (tqm.q4_matmul_decode, tqm.q41_matmul_decode,
                 tqm.q4_matmul_prefill, tqv.q4_decode_v1)
@@ -358,6 +358,9 @@ def test_decode_rows_launch_the_fold_variants(monkeypatch, use_pallas, mode,
         square = 2 * w.qs.shape[0] == w.qs.shape[1]
         first_b5 = (tqm.B1_ON_B5_SQUARE_MIN_M if square
                     else tqm.B1_ON_B5_MIN_M)
+        first_f32_b5 = (tqm.F32_ON_B5_DEEP_MIN_M
+                        if 2 * w.qs.shape[0] > w.qs.shape[1]
+                        else tqm.F32_ON_B5_MIN_M)
         for m in ROUTE_ROWS:
             launched.clear()
             before = [c.launches for c in counters]
@@ -367,8 +370,10 @@ def test_decode_rows_launch_the_fold_variants(monkeypatch, use_pallas, mode,
             assert y.shape == (1, m, n)
             if affine and use_pallas is False:
                 want, counter = ("B5", True), 2
+            elif not bf16 and m >= first_f32_b5:
+                want, counter = ("B5", affine), 2
             elif not bf16:
-                want, counter = ("ffma", affine), int(affine)
+                want, counter = ("fold", 11 if affine else 10), int(affine)
             elif affine:
                 want, counter = ("fold", 9), 1
             elif use_pallas:
@@ -381,7 +386,8 @@ def test_decode_rows_launch_the_fold_variants(monkeypatch, use_pallas, mode,
             assert [c.launches - b for c, b in zip(counters, before)] == [
                 int(i == counter) for i in range(4)], (k, n, m)
     assert (tqm.B1_ON_B5_MIN_M, tqm.B1_ON_B5_SQUARE_MIN_M,
-            tqm.DECODE_MAX_M) == (33, 48, 64)
+            tqm.F32_ON_B5_MIN_M, tqm.F32_ON_B5_DEEP_MIN_M,
+            tqm.DECODE_MAX_M) == (33, 48, 33, 24, 64)
 
 
 @pytest.mark.cuda
@@ -902,29 +908,28 @@ def test_ra_kernels_match_plain_under_pinned_plans(cuda_device, mode, k, n):
                 x, w, torch.bfloat16, plan=p))
 
 
-# -- b5_plan (B5's f32 kernel, B20's split kernel) and B20's converter tile -
+# -- b5_plan (B20's split kernel) and B20's converter tile -------------------
 
 # (K, N) stored planes at 7B (qkv, wo, w13, w2) and 13B
 B5_PLANES = PLANES_7B[:4] + PLANES_13B
 
 
+# (B5's f32 mode runs the register-A kernel on prefill_plan:
+# test_torch_f32_mode)
 @pytest.mark.parametrize("k,n", B5_PLANES + PLANES_7B_TP[:4]
                          + PLANES_7B_TP[5:9])
-@pytest.mark.parametrize("f32", [False, True])
-def test_b5_plan_covers_every_output_and_q_block_once(k, n, f32):
+def test_b5_plan_covers_every_output_and_q_block_once(k, n):
     """Row tiles x column tiles x K splits of b5_plan cover each output once
-    and each q block of K once at every M from 65 to 513, in bf16 mode (B20's
-    split kernel: 64-deep stages of two q blocks, at least
-    B5_MIN_STAGES_PER_SPLIT a split) and f32 mode (B5's f32 kernel: steps of
-    one q block, at least B5_MIN_STEPS_PER_SPLIT); on the 7B qkv plane
-    M = 128 splits K four ways in bf16 mode (96 tiles on 132 SMs) and
-    M = 512 does not split (384 tiles)."""
+    and each q block of K once at every M from 65 to 513 (B20's split
+    kernel: 64-deep stages of two q blocks, at least
+    B5_MIN_STAGES_PER_SPLIT a split); on the 7B qkv plane M = 128 splits K
+    four ways (96 tiles on 132 SMs) and M = 512 does not split (384
+    tiles)."""
     nb = k // 32
-    qb = (tqm.B5_F32_BK if f32 else tqm.B5_BK) // 32
-    least = (tqm.B5_MIN_STEPS_PER_SPLIT if f32
-             else tqm.B5_MIN_STAGES_PER_SPLIT)
+    qb = tqm.B5_BK // 32
+    least = tqm.B5_MIN_STAGES_PER_SPLIT
     for m in range(65, 514):
-        splits, per = tqm.b5_plan(m, n, k, 132, f32=f32)
+        splits, per = tqm.b5_plan(m, n, k, 132)
         nk = -(-nb // qb)
         assert 1 <= splits <= tqm.B5_MAX_SPLITS and splits == -(-nk // per)
         rows = [z * tqm.B5_BM + r for z in range(-(-m // tqm.B5_BM))
@@ -939,9 +944,8 @@ def test_b5_plan_covers_every_output_and_q_block_once(k, n, f32):
             blocks += [qb * kt + j for kt in stages for j in range(qb)
                        if qb * kt + j < nb]
         assert blocks == list(range(nb))
-    if not f32:
-        assert tqm.b5_plan(128, 12288, 4096, 132) == (4, 16)
-        assert tqm.b5_plan(512, 12288, 4096, 132)[0] == 1
+    assert tqm.b5_plan(128, 12288, 4096, 132) == (4, 16)
+    assert tqm.b5_plan(512, 12288, 4096, 132)[0] == 1
 
 
 def b5_w_off(k, n):

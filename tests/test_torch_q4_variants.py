@@ -619,15 +619,19 @@ B15_PLANES = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
 B15_CAPACITY = {1: 132, 2: 66, 3: 42, 4: 30, 5: 24, 6: 18, 7: 14, 8: 15}
 
 
-def check_b15_plan_covers(nb, n, sc16, mins=False):
-    """For M = 1..64, with the card's own capacity and with sms // S: the
-    plan of the fold kernel on a plane of nb q blocks and N stored columns
-    (mins: variant 9's stages, f32 scales and mins) covers each (column
-    tile, q block) exactly once, in clusters of at most 8, with at least 2
-    ring slots and within the shared memory a block gets."""
+def check_b15_plan_covers(nb, n, sc16, mins=False, f32=False):
+    """For M = 1..64 (f32: 1..B15_F32_MAX_M, the rows its modes are built
+    for), with the card's own capacity and with sms // S: the plan of the
+    fold kernel on a plane of nb q blocks and N stored columns (mins: B9's
+    stages, f32 scales and mins; f32: the f32 modes' x slots, three sets
+    of tiles) covers each (column tile, q block) exactly
+    once, in clusters of at most 8, with at least 2 ring slots and within
+    the shared memory a block gets."""
     for cap in (B15_CAPACITY.get, None):
-        for m in range(1, 65):
-            p = qv.b15_plan(m, n, nb, 132, sc16, cap, mins=mins)
+        for m in range(1, (qv.B15_F32_MAX_M if f32 else 64) + 1):
+            p = qv.b15_plan(m, n, nb, 132, sc16, cap, mins=mins, f32=f32)
+            sets = qv.b15_x_sets(f32)
+            assert sets == (3 if f32 else 1)
             assert p.nw == -(-m // 8) * 8 and p.qb == qv.B15_QB == 4
             # two consumer warpgroups, or one where the fitted cost at
             # M <= 8 picks it
@@ -640,11 +644,22 @@ def check_b15_plan_covers(nb, n, sc16, mins=False):
             # a weight slot: the packed rows, then 4 (2) bytes of scale and
             # variant 9's 4 bytes of min a column a q block
             slot = 64 * p.bn + 4 * p.bn * (8 if mins else 2 if sc16 else 4)
-            assert (qv.b15_smem(p.wgs, p.nw, sc16, 1, 0, p.splits, mins)
-                    - qv.b15_smem(p.wgs, p.nw, sc16, 0, 0, p.splits, mins)
+            assert (qv.b15_smem(p.wgs, p.nw, sc16, 1, 0, p.splits, mins,
+                                sets)
+                    - qv.b15_smem(p.wgs, p.nw, sc16, 0, 0, p.splits, mins,
+                                  sets)
                     == -(-slot // 1024) * 1024 + 16)
+            # an x slot: x f32 [nw][128], the sets of 8 k16 tiles of nw x 16
+            # bf16 and the block sums [4][nw], 128-aligned
+            xslot = p.nw * 512 + sets * 8 * p.nw * 32 + 16 * p.nw
+            assert (qv.b15_smem(p.wgs, p.nw, sc16, 0, 1, p.splits, mins,
+                                sets)
+                    - qv.b15_smem(p.wgs, p.nw, sc16, 0, 0, p.splits, mins,
+                                  sets)
+                    == -(-xslot // 128) * 128 + 24)
             assert qv.b15_smem(p.wgs, p.nw, sc16, p.stages, p.xstages,
-                               p.splits, mins) <= qv.B15_SMEM == 232448 - 1024
+                               p.splits, mins, sets) <= qv.B15_SMEM == \
+                232448 - 1024
             tiles = -(-n // p.bn)
             nst = -(-nb // 4)
             assert p.clusters <= min(tiles, (cap or (lambda s: 132 // s))(

@@ -32,6 +32,7 @@ from tools_torch import convert_lora as t_convert_lora  # noqa: E402
 from tools_torch import export_hf as t_export_hf  # noqa: E402
 from tools_torch import attn_sweep as t_attn_sweep  # noqa: E402
 from tools_torch import b15_sweep as t_b15_sweep  # noqa: E402
+from tools_torch import f32_sweep as t_f32_sweep  # noqa: E402
 from tools_torch import profile_prefill as t_profile_prefill  # noqa: E402
 from tools_torch import quantize as t_quantize  # noqa: E402
 
@@ -335,6 +336,57 @@ def test_attn_sweep_needs_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     assert t_attn_sweep.main(["--parts", "pins"]) == 2
+    assert "no CUDA card" in capsys.readouterr().err
+
+
+def test_f32_sweep_arguments_and_old_plans():
+    """tools_torch/f32_sweep.py: every part but paths by default, three
+    rounds, an unknown part refused, paths only with --old; the plans it
+    gives the --old checkout's f32
+    kernels are that checkout's (q4_matmul._splitk and _b1_tile, and
+    b5_plan(f32=True), before the f32 mode moved to the tensor cores): the
+    7B planes' values those functions gave."""
+    args = t_f32_sweep.parse_args([])
+    assert args.parts == "check,decode,route,prefill" and args.rounds == 3
+    assert not args.old
+    with pytest.raises(SystemExit):
+        t_f32_sweep.parse_args(["--parts", "decode,ffma"])
+    with pytest.raises(SystemExit):           # paths needs the old tree
+        t_f32_sweep.parse_args(["--parts", "paths"])
+    assert t_f32_sweep.parse_args(["--parts", "paths", "--old", "d"]).old
+    compile(t_f32_sweep.PATH_SNIPPET, "path", "exec")
+    assert t_f32_sweep.old_gemv_plan(1, 12288, 128) == (48, 11, 12)
+    assert t_f32_sweep.old_gemv_plan(8, 4096, 128) == (32, 16, 8)
+    assert t_f32_sweep.old_gemv_plan(64, 22528, 128) == (704, 4, 32)
+    assert t_f32_sweep.old_gemv_plan(2, 4096, 352) == (16, 32, 11)
+    assert t_f32_sweep.old_tile_plan(512, 12288, 4096, 132) == (384, 1, 128)
+    assert t_f32_sweep.old_tile_plan(128, 4096, 4096, 132) == (32, 4, 32)
+    assert t_f32_sweep.old_tile_plan(65, 12288, 11264, 132) == (96, 4, 88)
+
+
+def test_f32_sweep_merge_fit():
+    """tools_torch/f32_sweep.py's pins part: plans_by_merge gives each
+    candidate merge cost exactly one plan (prefill_plan's at that cost,
+    RA_MERGE_STAGES_F32 restored after), and merge_fit picks the
+    candidate whose plans come nearest each shape's fastest, a tie going
+    to the smaller."""
+    keep = t_f32_sweep.qm.RA_MERGE_STAGES_F32
+    got = t_f32_sweep.plans_by_merge(300, 12288, 4096, 132)
+    assert sorted(c for cs_ in got.values() for c in cs_) == list(
+        t_f32_sweep.MERGE_CANDIDATES)
+    assert t_f32_sweep.qm.RA_MERGE_STAGES_F32 == keep
+    assert t_f32_sweep.qm.prefill_plan(300, 12288, 4096, 132,
+                                       f32=True) in got
+    shapes = [{2: 1.0, 5: 1.2, 9: 1.5}, {2: 2.0, 5: 1.0, 9: 1.0}]
+    best, mean = t_f32_sweep.merge_fit(shapes, (2, 5, 9))
+    assert best == 5 and mean == {2: 1.5, 5: 1.1, 9: 1.25}
+    assert t_f32_sweep.merge_fit([{3: 1.0, 4: 1.0}], (3, 4))[0] == 3
+
+
+def test_f32_sweep_needs_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert t_f32_sweep.main(["--parts", "check"]) == 2
     assert "no CUDA card" in capsys.readouterr().err
 
 
