@@ -96,9 +96,11 @@ Phases (any failure exits nonzero before the last line):
      every layer) written by the port's write_ggla is attached through
      attach_lora; its 512-row prefill window runs B5 (affine) 128 times
      and B12 32 times (attached or not: the gate ignores LoRA);
-     while attached a decode step must launch B9 129 times, B10 32 times
-     and B4 never; after detach_lora the same prompt's logits
-     must equal those taken before the attach bit for bit, on B4 again;
+     while attached a decode step must launch B9 129 times and B4 32
+     times (the q and v terms added into each layer's fused projection
+     before B4 ropes it), B10 and the row write apart never; after
+     detach_lora the same prompt's logits must equal those taken before
+     the attach bit for bit;
   5. the file entry points: a 2-layer fltpu checkpoint, an 8-layer q4_0
      GGJT file and a 2-layer q4_1 GGJT file at 7B widths, each loaded with
      Model(path=...), ingested and decoded; prefill and first decode logits
@@ -119,7 +121,8 @@ Phases (any failure exits nonzero before the last line):
      300-token request in an idle engine, drain depth 0 against 2; holds a
      two-layer f32 engine's three modes to equal greedy streams; and runs
      a two-layer paged engine whose layers carry q/k/v LoRA terms, whose
-     steps take RoPE, B7 and B6 apart (the standalone kernels' caller);
+     steps take the fused step on every layer (B7 and B6 never: no model
+     path takes the standalone kernels, which phase 2 holds);
   7. the converters and the native repack: native/fastllama_native.cpp
      built with g++ (seconds printed) and its quantizer held bit for bit
      against numpy's on a w13-sized tensor; a 2-layer f16 GGJT file at 7B
@@ -155,7 +158,8 @@ Phases (any failure exits nonzero before the last line):
      prefill, 16 greedy tokens;
      first-token logits within phase 5's 1e-2; saved, then loaded into a
      one-card Model: its next logits within 1e-2 of the world's), TP + LoRA
-     on the q4_1 file (detach bit for bit on every rank), the engine paged
+     on the q4_1 file (B4 on every decode layer; detach bit for bit on
+     every rank), the engine paged
      and slab (ten requests, 16 tokens each); world (2, 1) the SP session
      (seq_parallel, n_ctx 2048, a 1024-token prompt in n_batch 512 chunks,
      8 greedy tokens) and the engine with dp 2; world (2, 2) the engine on
@@ -201,7 +205,7 @@ Phases (any failure exits nonzero before the last line):
      bench_torch.py, the C ABI's Model; the mesh paths of phase 10 stay
      eager), and its launch counts hold exactly: a capture adds no launch,
      each replay the graph's; phase 4 also holds the attached q4_1 + LoRA
-     step to a graph of its own (B9 129 and B10 32 launches a replay, one
+     step to a graph of its own (B9 129 and B4 32 launches a replay, one
      capture) and detach back to the first graph (no capture);
  13. the compiled prefill windows and admissions (utils/step_graph.
      GraphCache: one graph a bucket and configuration, the counterparts of
@@ -226,8 +230,7 @@ Phases (any failure exits nonzero before the last line):
      its windows and admissions through these graphs as a user's calls
      would (the mesh paths of phase 10 stay eager), and the exact counts
      of phases 3, 4, 6 and 11 hold: slab_write_rows launches once a layer
-     for K and once for V in every window (64 a 7B window) and in every
-     B10 layer of an attached step;
+     for K and once for V in every window (64 a 7B window);
  14. the q4 matmul variants and the kernel switches: B15-B18 (the decode
      bodies v1/v4/v5, v2, v3 and v7 of the JAX package's
      q4_matmul_pallas; kernels/q4_variants.py) and the h forms (bf16
@@ -273,7 +276,7 @@ Phases (any failure exits nonzero before the last line):
      every step's logits on the step graph bit-equal to eager, the streams
      equal to phase 6's n_ctx 512 engine's (the fused step), run() wall
      time and the steady window of both engines; a 2-layer n_ctx 32768
-     engine with q/k/v LoRA terms (B7 and B21 2 a step);
+     engine with q/k/v LoRA terms (B21F 2 a step; B7 and B21 none);
      and the n_ctx 32768 engine's steady window with 8 sequences at about
      4096 resident rows (528 pages, 17.7 GB of pools);
  16. f32 mode at full 7B width (f32_path): the 32-layer q4_0 session with a
@@ -285,7 +288,10 @@ Phases (any failure exits nonzero before the last line):
      step on f32 pools), ms and device ms a step; an 8-layer q4_1 f32
      session (B5's and B9's affine f32 modes); exact f32 launches, no
      retired kernel in any trace; a 2-layer 7B-width f32 model's logits on
-     the card against the CPU (1e-4);
+     the card against the CPU (1e-4), and again (c2_check) under
+     torch.set_float32_matmul_precision("high") with f32 LoRA terms on wq
+     and wv, eager, captured and replayed, each bit-equal to its run under
+     "highest": the f32 products pinned;
   then the whole script's seconds, one line {"kernels": [...]}, the
   nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -521,7 +527,17 @@ def sdpa_cycled(torch, q, caches, rows, h, d):
 
 
 def check_kernels(torch, dev, gen, out_dir):
-    """Phase 2: every kernel against its plain version on the card, timed."""
+    """Phase 2: every kernel against its plain version on the card, timed.
+    B6, B7 and B10 have no model path (every decode layer runs B4 or a
+    fused paged step): their launches here are the only ones, recorded as
+    B11's are."""
+    from fastllama_tpu_torch.kernels import decode_attention as da
+    from fastllama_tpu_torch.kernels import kv_write as kw
+    from fastllama_tpu_torch.kernels import paged_attention as pa
+    standalone = {"B6": pa.paged_decode_attention, "B7": kw.paged_kv_write,
+                  "B10": da.decode_attention}
+    for fn in standalone.values():
+        fn.launches = 0
     results = {}
     check_decode_matmuls(torch, dev, gen, results)
     check_floor_probes(torch, dev, gen, results)
@@ -536,6 +552,8 @@ def check_kernels(torch, dev, gen, out_dir):
     check_fused_paged_step(torch, dev, gen, results, heads=SHARD_HEADS)
     check_13b_kernels(torch, dev, gen, results)
     check_row_write(torch, dev, gen, results)
+    results["standalone_phase2_launches"] = {
+        k: fn.launches for k, fn in standalone.items()}
     with open(os.path.join(out_dir, "kernel_checks.json"), "w") as fh:
         json.dump(results, fh, indent=1)
     return results
@@ -1908,7 +1926,7 @@ def check_fused_paged_step(torch, dev, gen, results, heads=(32, 40)):
 
 def check_row_write(torch, dev, gen, results):
     """slab_write_rows (csrc/kv_write.cu: the slab caches' K/V row write at
-    an offset held on the device, every captured window's and B10 layer's)
+    an offset held on the device, every captured window's)
     bit for bit against its plain version (the dropping scatter) at the
     shapes the paths give it: the fresh 512-row window's k (a strided view
     of the RoPE pass's output) and v, a 64-row chunk inside the cache and
@@ -1994,8 +2012,8 @@ N_PROMPT, N_DECODE = 300, 64
 PREFILL_MATMULS = 4 * 32     # a 512-row window: four matmuls a layer
 FLASH_WINDOW = 32            # B12 once a layer in a fresh 512-row window
 # slab_write_rows: the K and V rows of each layer of a window replayed at a
-# tensor offset (models/llama.forward_jit), and of a decode step's layer
-# with q/k/v LoRA (B10's)
+# tensor offset (models/llama.forward_jit); a decode step's layer, with q/k/v
+# LoRA terms too, writes its row inside B4
 WINDOW_ROWS = 2 * 32
 # launches of one 300-token prefill window plus N_DECODE decode steps: four
 # matmuls per layer and the head per step, the head once per window
@@ -2143,7 +2161,10 @@ def main_path(torch, dev, gen):
 
 def q41_lora_path(torch, dev, gen, tmp):
     """32 layers of 7B-width q4_1 weights with a rank-8 A/B adapter on wq and
-    wv of every layer: detached, attached, detached again."""
+    wv of every layer: detached, attached, detached again. Attached, every
+    decode layer still runs B4, its q and v terms added into the fused
+    projection first (models/llama._fold_qkv_lora): no B10 and no row
+    write outside the windows'."""
     from fastllama_tpu_torch.config import PRESETS
     from fastllama_tpu_torch.io.ggml_writer import write_ggla
     from fastllama_tpu_torch.kernels import decode_attention as da
@@ -2166,22 +2187,19 @@ def q41_lora_path(torch, dev, gen, tmp):
         reset_counts(qm, da)
         first = timed_run(torch, sess, prompt)
         counts = read_counts(qm, da)
-        # the gate does not look at LoRA: B12 attends the window attached
+        # the gate does not look at LoRA: B12 attends the window attached;
+        # attached or not, each decode layer runs B4 and only the window
+        # writes rows apart
         want = {"B9": DECODE_MATMULS, "B1": 0, "B2": 0, "B3": 0,
                 "B5": PREFILL_MATMULS, "B12": FLASH_WINDOW,
-                "B4": 0 if attached else LAYER_CALLS,
-                "B10": LAYER_CALLS if attached else 0,
-                # the window's rows, and attached each B10 layer's K/V row
-                "RW": WINDOW_ROWS + (2 * LAYER_CALLS if attached else 0)}
+                "B4": LAYER_CALLS, "B10": 0, "RW": WINDOW_ROWS}
         require(counts == want, f"q4_1 {label}: launches {counts}, "
                 f"expected {want}")
         # the decode steps replay a graph of this state's own (phase 12):
         # attach and detach are new keys, as new pytrees retrace under jit
         per_replay = model._graphs.last.launches_per_replay()
-        attn = "decode_attention" if attached else "decode_attention_fused"
-        # attached, each B10 layer writes its K and V rows (slab_write_rows)
-        rows = {"slab_write_rows": 64} if attached else {}
-        require(per_replay == {"q41_matmul_decode": 129, attn: 32, **rows},
+        require(per_replay == {"q41_matmul_decode": 129,
+                               "decode_attention_fused": 32},
                 f"q4_1 {label}: a replay holds {per_replay}")
         runs = [first] + [timed_run(torch, sess, prompt) for _ in range(2)]
         ms_tok = [r[1] / N_DECODE * 1e3 for r in runs]
@@ -2466,19 +2484,25 @@ def write_ggjt_file(path, hp, seed, affine):
     write_ggjt(path, hp, synthetic_vocab(hp.n_vocab), tensors)
 
 
+def first_logits(lm):
+    """The prefill logits of a 21-token prompt from a reset model, then its
+    first decode step's (numpy copies)."""
+    toks = [1] + list(range(300, 320))
+    lm.reset()
+    return [lm.eval(0, toks), lm.eval(len(toks), [toks[-1]])]
+
+
+def rel_errs(got, want):
+    """Each pair's largest difference over the largest reference logit."""
+    return [float(np.abs(a - b).max() / np.abs(b).max())
+            for a, b in zip(got, want)]
+
+
 def card_vs_cpu(lm_gpu, lm_cpu):
     """Largest difference of the prefill and first decode logits of one
     model on the card and on the CPU (plain versions), over the largest
     logit."""
-    toks = [1] + list(range(300, 320))
-    errs = []
-    for lm in (lm_gpu, lm_cpu):
-        lm.reset()
-    for n_past, window in ((0, toks), (len(toks), [toks[-1]])):
-        a = lm_gpu.eval(n_past, window)
-        b = lm_cpu.eval(n_past, window)
-        errs.append(float(np.abs(a - b).max() / np.abs(b).max()))
-    return errs
+    return rel_errs(first_logits(lm_gpu), first_logits(lm_cpu))
 
 
 def file_entry_point(torch, tmp, label, n_layer, write, tol=1e-2,
@@ -3280,10 +3304,11 @@ def flash_admissions(eng, reqs) -> int:
 
 
 def engine_run(torch, sched, make, label, n_layer, chunked, f32=False,
-               lora=False, **req_kw):
+               **req_kw):
     """One engine, ENG_PROMPTS through it, with every launch counted (a
-    paged engine steps through the fused step, or with q/k/v LoRA terms
-    (lora) through B7 + B6). Returns (token streams, result row)."""
+    paged engine steps through the fused step on every layer, with q/k/v
+    LoRA terms too; never B7 or B6). Returns (token streams, result
+    row)."""
     kernels = all_kernels()
     eng = make()
     reqs = engine_requests(sched, **req_kw)
@@ -3311,16 +3336,13 @@ def engine_run(torch, sched, make, label, n_layer, chunked, f32=False,
         require(eng.pager.free_pages == eng.pager.total_pages,
                 f"engine {label}: {eng.pager.free_pages} pages free of "
                 f"{eng.pager.total_pages} after the run")
-        step = "B6" if lora else "PS"
-        standalone = counts["B6"] == counts["B7"] > 0 and counts["PS"] == 0
-        fused = counts["PS"] > 0 and counts["B6"] == counts["B7"] == 0
-        require((standalone if lora else fused)
-                and counts[step] % n_layer == 0
+        require(counts["PS"] > 0 and counts["B6"] == counts["B7"] == 0
+                and counts["PS"] % n_layer == 0
                 and counts["B4"] == 0 and counts["B10"] == 0,
                 f"engine {label}: decode launches {counts}")
         require(counts["B8"] == (n_layer * len(reqs) if chunked else 0),
                 f"engine {label}: B8 launched {counts['B8']} times")
-        steps = counts[step] // n_layer
+        steps = counts["PS"] // n_layer
     else:
         # the slab step runs the fused B4 in bf16 mode and plain attention
         # in f32 mode (no attention kernel to count the steps by)
@@ -3563,9 +3585,9 @@ def engine_path(torch, dev, gen):
                 f"{len(ENG_PROMPTS)} greedy streams are equal")
     res["f32_equal_streams_of_12"] = same
 
-    # the paged step of a layer with q/k/v LoRA terms (rank 8 on wq and wv
-    # of both layers): RoPE, B7 and B6 apart, the caller of the standalone
-    # kernels; bf16, greedy
+    # the paged step of layers with q/k/v LoRA terms (rank 8 on wq and wv
+    # of both layers): the fused step on every layer, the terms added into
+    # the fused projection first; bf16, greedy
     from fastllama_tpu_torch.models.llama import LoraTerm
     rank = 8
     for layer in params2.layers:
@@ -3577,8 +3599,7 @@ def engine_path(torch, dev, gen):
                 * 0.02))
     _, res["runs"]["paged_lora_2_layers"] = engine_run(
         torch, sched, maker(params2, hp2, "paged"),
-        "paged LoRA 2 layers greedy", hp2.n_layer, False, lora=True,
-        temp=0.0)
+        "paged LoRA 2 layers greedy", hp2.n_layer, False, temp=0.0)
     print(f"engine path: {json.dumps({k: v for k, v in res.items() if k != 'runs'})}",
           flush=True)
     del params2
@@ -3893,7 +3914,7 @@ SHARED = "ranks sharing one H100 (time-sliced; not a TP speed)"
 ENG_BF16_SLACK = 2
 # the run of the (1, 2) world whose launches a kernel's line reports
 TP_PART = {"B1": "int8", "B2": "int8", "B3": "int8", "B4": "int8",
-           "B5": "bf16_exact", "B9": "lora", "B10": "lora",
+           "B5": "bf16_exact", "B9": "lora",
            "PS": "engine_paged", "B12": "int8"}
 
 
@@ -4252,7 +4273,8 @@ def parallel_path(torch, tmp, q41):
                 and r["bf16_exact"]["launches"]["B3"] == 0,
                 f"TP bf16-exact launches {r['bf16_exact']['launches']}")
         require(r["lora"]["launches"]["B9"] > 0
-                and r["lora"]["launches"]["B10"] > 0,
+                and r["lora"]["launches"]["B4"] > 0
+                and r["lora"]["launches"]["B10"] == 0,
                 f"TP + LoRA launches {r['lora']['launches']}")
         for part in ("int8", "bf16_exact", "lora"):
             require(r[part]["dequant_cuda_calls"] == 0,
@@ -5551,7 +5573,8 @@ def long_context_engine(torch, dev, gen):
     the same requests' on phase 6's n_ctx 512 engine (the fused step), the
     first decode step's logits within 1e-2 of its largest logit. A 2-layer
     engine at n_ctx 32768 with q/k/v LoRA terms (rank 8 on wq and wv)
-    takes B7 and the unfused B21 on every layer of every step. Then the
+    takes B21F on every layer of every step too (the terms added into the
+    fused projection first), never B7 or the unfused B21. Then the
     steady window of both 32-layer engines in turns (ms a step, tok/s,
     device ms and launches a step, B21F's counted and profiled launches
     and share), and of the n_ctx 32768 engine with eight sequences at about
@@ -5598,9 +5621,7 @@ def long_context_engine(torch, dev, gen):
         hand: (engine, requests, each decode step's logits, counts, s)."""
         eng = build()
         reqs = engine_requests(sched, temp=0.0)
-        steps = every_kernel()[("B21" if eng.params.layers[0].lora_wq
-                                is not None else "B21F")
-                               if eng._paged_attn else "PS"]
+        steps = every_kernel()["B21F" if eng._paged_attn else "PS"]
         logits = []
         torch.cuda.synchronize()
         reset_every_count()
@@ -5661,8 +5682,8 @@ def long_context_engine(torch, dev, gen):
                 and counts_s["B21F"] == 0 and counts_s["PS"] > 0,
                 f"fused engine: launches {counts_s}")
         del eng_s
-        # q/k/v LoRA terms on both layers of a 2-layer engine: RoPE, B7 and
-        # the unfused B21 on every layer
+        # q/k/v LoRA terms on both layers of a 2-layer engine: B21F on every
+        # layer, the terms folded into its qkv
         hp2 = dataclasses.replace(hp, n_layer=2)
         params2 = rand_params(torch, hp2, gen, dev)
         for layer in params2.layers:
@@ -5675,14 +5696,14 @@ def long_context_engine(torch, dev, gen):
         eng_l, reqs_l, logits_l, counts_l, wall_l = drive(
             make(LONG_CTX, LONG_PAGES, hp=hp2, params=params2),
             "long LoRA 2 layers")
-        n_lora = counts_l["B21"] // hp2.n_layer
+        n_lora = counts_l["B21F"] // hp2.n_layer
         expect_counts("long LoRA engine", counts_l, dict(
-            B21=hp2.n_layer * n_lora, B7=hp2.n_layer * n_lora,
+            B21F=hp2.n_layer * n_lora,
             B1=counts_l["B1"], B2=counts_l["B2"], B3=counts_l["B3"],
             B5=counts_l["B5"], RW=counts_l["RW"],
             B12=hp2.n_layer * flash_admissions(eng_l, reqs_l)))
         require(n_lora == len(logits_l) and n_lora > 0,
-                f"long LoRA engine: {counts_l['B21']} B21 launches, "
+                f"long LoRA engine: {counts_l['B21F']} B21F launches, "
                 f"{len(logits_l)} decode steps")
         del eng_l, params2
     finally:
@@ -5739,9 +5760,14 @@ def long_context_path(torch, dev, gen):
     """Phase 15: B20, B21 and the fused B21 step against their plain
     versions and the 7B paged engine at n_ctx 32768 on the fused B21
     step."""
+    from fastllama_tpu_torch.engine import paged_kv as pk
     checks = {}
     check_b20(torch, dev, gen, checks)
+    # no model path runs the unfused B21 (every paged layer takes B21F past
+    # the gate): its launches here are its only ones, as B11's in phase 2
+    pk.paged_attention_tpu.launches = 0
     check_b21(torch, dev, gen, checks)
+    checks["B21_check_launches"] = pk.paged_attention_tpu.launches
     check_b21_fused(torch, dev, gen, checks)
     engine = long_context_engine(torch, dev, gen)
     return dict(checks=checks, engine=engine)
@@ -5756,6 +5782,78 @@ F32_Q41_LAYERS = 8
 # the kernels the f32 mode retired (csrc/q4_decode.cu's GEMV and
 # csrc/q4_prefill.cu's FFMA tile): a trace of the f32 path names neither
 F32_RETIRED = ("q4_gemv_kernel", "f32_gemm_kernel")
+
+
+def f32_pair(torch, dev, gen, n_layer=2, lora_rank=0):
+    """A 7B-width f32 LlamaModel of n_layer layers on the card and the same
+    weights on the CPU (plain versions); with lora_rank, f32 A/B terms of
+    that rank on wq and wv of every layer, on both."""
+    import dataclasses
+    from fastllama_tpu_torch.config import PRESETS, RuntimeConfig
+    from fastllama_tpu_torch.models.llama import LoraTerm
+    from fastllama_tpu_torch.models.runtime import LlamaModel
+    from fastllama_tpu_torch.parallel.sharding import params_to
+    hp = dataclasses.replace(PRESETS["7B"], n_layer=n_layer)
+    params = rand_params(torch, hp, gen, dev)
+    for layer in params.layers if lora_rank else ():
+        for field in ("lora_wq", "lora_wv"):
+            setattr(layer, field, LoraTerm(
+                a=torch.randn((hp.n_embd, lora_rank), generator=gen,
+                              device=dev) * 0.05,
+                b=torch.randn((lora_rank, hp.n_embd), generator=gen,
+                              device=dev) * 0.05))
+    rcfg = RuntimeConfig(n_ctx=512, n_batch=64, kv_dtype="float32",
+                         weight_dtype="float32")
+    vocab = synthetic_vocab(hp.n_vocab)
+    lm_gpu = LlamaModel(hp, params, vocab, rcfg, device=dev)
+    lm_cpu = LlamaModel(hp, params_to(params, torch.device("cpu")), vocab,
+                        rcfg, device="cpu")
+    return lm_gpu, lm_cpu
+
+
+def c2_check(torch, dev, gen, lora_rank=0):
+    """The f32 mode under a host program's TF32 setting: f32_pair's card
+    model run with torch.set_float32_matmul_precision("highest") and then
+    with "high" in force, each on the eager route, through step graphs
+    captured under that setting, and through their replays. The pins make
+    every "high" run's logits equal its "highest" twin's bit for bit
+    ("equal": TF32 products in any pinned product break that, where the
+    1e-4 card-against-CPU rule lets them by); each "high" run is also held
+    against the CPU as card_vs_cpu holds it. The caller's setting is
+    restored, on a failure too. Returns {"eager": [prefill, decode]
+    errors over the largest CPU logit, "captured": [...], "replayed":
+    [...], "equal": {route: bool}, "replays": graph replays under "high",
+    "precision_during": the setting read in the "high" runs}."""
+    from fastllama_tpu_torch.utils.step_graph import GraphCache
+    lm_gpu, lm_cpu = f32_pair(torch, dev, gen, lora_rank=lora_rank)
+    want = first_logits(lm_cpu)
+    graphs = lm_gpu._graphs
+    prev = torch.get_float32_matmul_precision()
+    got = {}
+    out = {"equal": {}}
+    try:
+        for setting in ("highest", "high"):
+            torch.set_float32_matmul_precision(setting)
+            eager_route(lm_gpu)
+            runs = {"eager": first_logits(lm_gpu)}
+            lm_gpu._graphs = GraphCache(graphs.device, graphs.generators,
+                                        graphs.size)
+            runs["captured"] = first_logits(lm_gpu)
+            before = lm_gpu._graphs.replays
+            runs["replayed"] = first_logits(lm_gpu)
+            got[setting] = runs
+        out["replays"] = lm_gpu._graphs.replays - before
+        out["precision_during"] = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    for route, logits in got["high"].items():
+        out[route] = rel_errs(logits, want)
+        out["equal"][route] = all(
+            np.array_equal(a, b) for a, b in zip(logits,
+                                                 got["highest"][route]))
+    del lm_gpu, lm_cpu
+    torch.cuda.empty_cache()
+    return out
 
 
 def f32_counts(qm, da):
@@ -5971,6 +6069,15 @@ def f32_path(torch, dev, gen):
                                        rel_err_decode=errs[1])
     del lm_gpu, lm_cpu, params
     torch.cuda.empty_cache()
+    # the same check under a host program's TF32 setting, with f32 LoRA
+    # terms on wq and wv: eager, captured under "high" and replayed, each
+    # equal bit for bit to the same run under "highest"
+    c2 = c2_check(torch, dev, gen, lora_rank=8)
+    require(all(max(c2[k]) <= 1e-4 and c2["equal"][k]
+                for k in ("eager", "captured", "replayed"))
+            and c2["replays"] > 0 and c2["precision_during"] == "high",
+            f"f32 2 layers under TF32 'high': {c2}")
+    res["card_vs_cpu_tf32_high"] = c2
     res["dequant_calls"] = qm.q4_matmul_dequant.cuda_calls - dequant0
     require(res["dequant_calls"] == 0,
             f"f32 path: the dequant path ran {res['dequant_calls']} times")
@@ -6063,15 +6170,16 @@ def main() -> int:
     def pick(rows, key):
         return next(r for r in rows if key in r["shape"])
 
-    # each kernel's launches in the counted run of the path that drives it
+    # each kernel's launches in the counted run of the path that drives it;
+    # B6, B7, B10 and the unfused B21 have no model path (every decode
+    # layer, with q/k/v LoRA terms too, runs B4, the fused step or B21F):
+    # their launches are their checks', as B11's
+    standalone = checks["standalone_phase2_launches"]
     launches = dict(main_res["launches"],
                     B5=main_res["bf16_prefill"]["launches"]["B5"],
                     B9=q41_res["attached"]["launches"]["B9"],
-                    B10=q41_res["attached"]["launches"]["B10"],
-                    B6=engine_res["runs"]["paged_lora_2_layers"]["launches"]
-                    ["B6"],
-                    B7=engine_res["runs"]["paged_lora_2_layers"]["launches"]
-                    ["B7"],
+                    B10=standalone["B10"], B6=standalone["B6"],
+                    B7=standalone["B7"],
                     PS=engine_res["runs"]["paged"]["launches"]["PS"],
                     B8=engine_res["runs"]["paged_chunked"]["launches"]["B8"],
                     B11=checks["B11_phase2_launches"],
@@ -6081,7 +6189,7 @@ def main() -> int:
                     **{k: var_res["tool"]["launches"][k]
                        for k in variant_kernels()},
                     B20=long_res["checks"]["B20_entry_launches"]["B20"],
-                    B21=long_res["engine"]["launches_lora_2_layers"]["B21"],
+                    B21=long_res["checks"]["B21_check_launches"],
                     B21F=long_res["engine"]["launches"]["B21F"])
     main_rows = {"B1": pick(checks["B1"], "qkv M=1"),
                  "B2": pick(checks["B2"], "K=4096"),
@@ -6219,11 +6327,25 @@ def main() -> int:
             kernels[-1]["folds"] = ("fastllama_tpu/kernels/kv_write.py:55 "
                                     "(B7) + fastllama_tpu/kernels/"
                                     "paged_attention.py:333 (B6)")
-        if key in ("B6", "B7"):
-            kernels[-1]["path"] = ("the paged step of layers with q/k/v "
-                                   "LoRA terms (phase 6, 2 layers); the "
-                                   "paged engine's other steps run the "
-                                   "fused step")
+        if key in ("B6", "B7", "B10"):
+            # a public entry point with no model path: a decode layer with
+            # q/k/v LoRA terms adds them into its fused projection and runs
+            # B4 (slab) or the fused step (paged), as its neighbours do
+            runs = engine_res["runs"]
+            kernels[-1].update(
+                path="none on the model's paths (launches: phase 2's "
+                     "checks); the q/k/v-LoRA layers run "
+                     + ("B4" if key == "B10" else "the fused step"),
+                launches_by_path={
+                    "q4_1_lora_attached": q41_res["attached"]["launches"]
+                    ["B10"] if key == "B10" else None,
+                    "engine_paged_lora_2_layers":
+                        runs["paged_lora_2_layers"]["launches"][key],
+                    "engine_paged": runs["paged"]["launches"][key]})
+            require(launches[key] > 0 and all(
+                not v for v in kernels[-1]["launches_by_path"].values()),
+                f"kernel {key}: launches {kernels[-1]['launches_by_path']} "
+                f"on the model's paths, phase 2's {launches[key]}")
         local = {s["shape"]: s["ms"] for s in checks["shard_local"]
                  if s["kernel"] == key and "ms" in s
                  and s.get("m", 1) in (1, 512)}
@@ -6296,19 +6418,22 @@ def main() -> int:
         if key == "B21":
             eng = long_res["engine"]
             kernels[-1].update(
-                path="the paged step of layers with q/k/v LoRA terms at "
-                     "n_ctx 32768 (phase 15: a 2-layer 7B-wide engine, "
-                     "twelve requests, 2 launches a decode step); the "
-                     "engine's other steps run the fused B21 step",
+                path="none on the model's paths (launches: phase 15's "
+                     "checks): the n_ctx 32768 engine's q/k/v-LoRA layers "
+                     "run B21F as its other layers do",
                 library_call=row["library_call"],
                 b6_ms_8x300_pp8=pick(long_res["checks"]["B21"],
                                      "pp=8 ")["b6_ms"],
-                launches_by_path={"bench_path": bench_res["launches"][key],
-                                  "b21f_in_that_run":
-                                      eng["launches_lora_2_layers"]["B21F"]})
+                launches_by_path={
+                    "bench_path": bench_res["launches"][key],
+                    "long_engine_lora_2_layers":
+                        eng["launches_lora_2_layers"]["B21"],
+                    "b21f_in_that_run":
+                        eng["launches_lora_2_layers"]["B21F"]})
             require(launches[key] > 0
-                    and eng["launches_lora_2_layers"]["B21F"] == 0,
-                    "kernel B21: launches on its path")
+                    and eng["launches_lora_2_layers"]["B21"] == 0
+                    and eng["launches_lora_2_layers"]["B21F"] > 0,
+                    "kernel B21: launches on the long LoRA engine")
             continue
         if key == "B21F":
             eng = long_res["engine"]

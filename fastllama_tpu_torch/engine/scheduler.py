@@ -11,8 +11,9 @@ with new requests admitted into idle slots at any step.
   * kv_mode "slab" keeps [n_slots, n_ctx] caches; "paged" shares a page pool
     (engine/paged_kv.py) and steps through forward_paged_decode, attending
     as the JAX engine does on a pool of that shape (paged_attn_route: the
-    fused step, or B21Route past the JAX kernel's gate: B21, whose layers
-    without q/k/v LoRA terms take the fused B21 step).
+    fused step, or B21Route past the JAX kernel's gate: the fused B21 step,
+    on every layer; q/k/v LoRA terms are added into a layer's projection
+    before the kernel ropes it).
   * Sampling parameters are per request (temp / top_k / top_p /
     repeat_penalty as per-slot vectors in engine/sampling.sample_device).
     The engine's top_k is the static cap per-request values are clamped to.
@@ -63,8 +64,7 @@ from ..utils.step_graph import GraphCache
 from ..utils.trace import trace_region
 from .logger import Logger, NULL_LOGGER
 from .paged_kv import (
-    PagedKVManager, paged_attention_tpu, paged_attention_tpu_fused,
-    write_tokens_paged,
+    PagedKVManager, paged_attention_tpu_fused, write_tokens_paged,
 )
 from .sampling import draw_uniforms, sample_device
 from .token_buffer import TokenBuffer
@@ -77,11 +77,11 @@ def paged_attn_route(h_local: int, pp: int, ps: int, hd: int,
     on its accelerator (fastllama_tpu/engine/scheduler.py,
     _build_decode_paged) and from the shapes and pool type alone, never the
     device, so the CPU runs the route the card runs:
-      * None, the port's own route (the fused step; B7 + B6 on layers with
-        q/k/v LoRA terms), where the JAX kernel's gate holds
-        (paged_attn_supported);
-      * a B21Route (B21, engine/paged_kv.paged_attention_tpu, the library
-        kernel's function, and its fused step) with the JAX engine's
+      * None, the port's own route (the fused step on every layer), where
+        the JAX kernel's gate holds (paged_attn_supported);
+      * a B21Route (the fused step of B21, engine/paged_kv.
+        paged_attention_tpu, the library kernel's function) with the JAX
+        engine's
         pages_per_compute_block, where the
         head dim is whole 128-lane tiles and pages whole 8-row groups but
         the gate fails: long contexts (at Dh 128 past 24,576 rows a
@@ -99,17 +99,13 @@ def paged_attn_route(h_local: int, pp: int, ps: int, hd: int,
 
 @dataclasses.dataclass(frozen=True)
 class B21Route:
-    """The library kernel's route, as forward_paged_decode takes it: called,
-    B21 (engine/paged_kv.paged_attention_tpu) over the pools; its step, the
-    fused B21 step (paged_attention_tpu_fused: RoPE, B7's write and the
-    pre-scale folded into B21), which layers without q/k/v LoRA terms take.
-    Both with the JAX engine's compute block."""
+    """The library kernel's route, as forward_paged_decode takes it: its
+    step, the fused B21 step (paged_attention_tpu_fused: RoPE, B7's write
+    and the pre-scale folded into B21), which every layer takes (a layer's
+    q/k/v LoRA terms already in its qkv, so the pre-scale applies to the
+    LoRA'd q, as after the JAX package's add), with the JAX engine's
+    compute block."""
     pages_per_compute_block: int
-
-    def __call__(self, q, k_pages, v_pages, lengths, page_indices):
-        return paged_attention_tpu(
-            q, k_pages, v_pages, lengths, page_indices,
-            pages_per_compute_block=self.pages_per_compute_block)
 
     def step(self, qkv, k_pages, v_pages, lengths, page_indices, page_ids,
              offsets, cos, sin):

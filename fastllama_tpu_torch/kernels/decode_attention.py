@@ -4,9 +4,9 @@ plain versions.
 B10 ports fastllama_tpu/kernels/decode_attention.py::decode_attention: the
 caller has roped q and k and written the current K/V row; the kernel attends
 rows s <= n_past[b] (inclusive) with q, scores, softmax and the
-probabilities all f32, whatever the cache dtype. The forward takes it for a
-decode step whose layer adds LoRA terms to q, k or v, which B4 cannot (it
-reads the raw fused projection).
+probabilities all f32, whatever the cache dtype. It is a public entry point
+that no model path takes: a decode step whose layer adds LoRA terms to q, k
+or v adds them into the raw fused projection and runs B4.
 
 B4 ports fastllama_tpu/kernels/decode_attention.py::decode_attention_fused:
 one decode step of one layer takes the raw fused projection qkv [B, 1, 3F]
@@ -254,7 +254,8 @@ def masked_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      n_head: int, scale: float) -> torch.Tensor:
     """softmax(q . K[s <= position] * scale) @ V in f32: q [B, T, H, Dh],
     caches [B, S, H*Dh], positions [B, T] -> ctx [B, T, H, Dh]. The forward's
-    prefill attention, and B10's plain version at T = 1."""
+    prefill attention and its f32-mode decode step (there under
+    utils.precision.ieee_f32), and B10's plain version at T = 1."""
     b, s, f = k_cache.shape
     hd = f // n_head
     keys = k_cache.reshape(b, s, n_head, hd).to(torch.float32)

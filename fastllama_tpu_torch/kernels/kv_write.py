@@ -6,7 +6,10 @@ writes one token's K and V vectors per sequence into the pools
 [H, P, ps, D] at (page_ids[b], offsets[b]), casting to the pool dtype. An
 inactive slot carries the manager's sentinel id, the last page of the pool
 (the trash page, never in a page table), so its write lands harmlessly; an
-id outside the pool writes nothing.
+id outside the pool writes nothing. The model's paged decode step folds this
+write into its fused kernels (kernels/paged_attention.paged_decode_step_fused,
+engine/paged_kv.paged_attention_tpu_fused) on every layer; B7 stays a public
+entry point.
 
 B8 ports paged_kv_write_rows of the same file: a finished prompt's flat rows
 [T, H*D] (T a multiple of ps, positions 0..T-1 of a fresh sequence) become

@@ -32,8 +32,9 @@ one launch: RoPE on q and the new k, B7's write of the new row
 JAX paged step's order. On the card it is B6's kernel in its fused mode:
 the cluster attends the resident rows as B6's does, the new token is one
 more partial folded in rounded to the pool dtype (as B6 would read it back),
-and the cluster's leader writes the row. The forward takes it for a
-layer without q/k/v LoRA terms; B7 and B6 stay the LoRA step's.
+and the cluster's leader writes the row. The forward takes it for every
+layer, a layer's q/k/v LoRA terms added into its qkv first; B6 (and B7)
+stay public entry points that no model path takes.
 
 The CUDA kernels are in csrc/paged_attention.cu; each wrapper launches its
 kernel for CUDA tensors and runs its plain version for CPU tensors.

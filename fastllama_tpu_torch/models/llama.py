@@ -21,16 +21,20 @@ JAX package:
 Kernel use (the same on every device; on the CPU each wrapper runs its
 plain version): every 4-bit matmul goes through kernels/q4_matmul.q4_matmul
 (B1 or B9 at decode size, B2+B3 or B5 for large-M prefill); a decode step
-(T = 1) in bf16 weight mode runs the fused decode attention B4 in a layer
-without q/k/v LoRA and, in a layer with it, adds the LoRA terms, ropes,
-writes the cache row and runs the decode attention B10. The paged decode
-step writes the new row with B7 and attends with B6. A fresh-prompt prefill
+(T = 1) in bf16 weight mode runs the fused decode attention B4 on every
+layer, a layer's q/k/v LoRA terms added into its fused projection first
+(before RoPE, as the JAX package adds them to q, k and v). The paged decode
+step runs the fused paged step (or, past the JAX kernel's gate, the fused
+B21 step) on every layer the same way. A fresh-prompt prefill
 whose caller sets ForwardConfig.flash_prefill attends over its own window
 with the flash kernel B12 where _flash_viable holds (the JAX package's
 gate), on bf16 operands: the RoPE pass stores q and k in bf16, and a bf16
 slab cache hands over the K/V rows it has just stored; every other prefill
 window (and f32-mode slab decode) is plain
-PyTorch: masked f32 softmax over the cache.
+PyTorch: masked f32 softmax over the cache. In f32 weight mode the f32
+products the JAX package pins at Precision.HIGHEST (the LoRA dots, dense f32
+weights, the attention einsums, the SP ring) run under utils.precision.
+ieee_f32, whatever the process's TF32 setting.
 """
 from __future__ import annotations
 
@@ -44,20 +48,19 @@ import torch.nn.functional as F
 
 from ..config import HyperParams, resolve_device
 from ..kernels.decode_attention import (
-    decode_attention, decode_attention_fused, masked_attention,
+    decode_attention_fused, masked_attention,
 )
 from ..kernels.flash_prefill import HEAD_DIMS as FLASH_HEAD_DIMS
 from ..kernels.flash_prefill import flash_prefill
 from ..kernels.kv_write import paged_kv_write, slab_write_rows
-from ..kernels.paged_attention import (
-    paged_decode_attention, paged_decode_step_fused,
-)
+from ..kernels.paged_attention import paged_decode_step_fused
 from ..kernels.q4_matmul import q4_matmul
 from ..kernels.rope import lane_tables, rope_interleaved, rope_interleaved_lanes
 from ..parallel.collectives import all_gather, axis_index, psum
 from ..quant.tensor import (
     QuantEmbedding, QuantMatmulWeight, dequant_embedding_rows,
 )
+from ..utils.precision import ieee_f32
 from .fuse import split_qkv, split_w13
 
 Linear = Union[QuantMatmulWeight, torch.Tensor]   # dense weights are [K, N]
@@ -74,9 +77,22 @@ class LoraTerm:
 
 
 def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x.astype(w.dtype) @ w with f32 accumulation (JAX dot with
-    preferred_element_type=f32: bf16 products are exact in f32)."""
-    return x.to(w.dtype).to(torch.float32) @ w.to(torch.float32)
+    """x.astype(w.dtype) @ w with exact products and f32 accumulation, an f32
+    result (the JAX dot with preferred_element_type=f32, at HIGHEST for an
+    f32 w). The stored operand w is read as it is, never copied: an f32 w
+    takes an IEEE f32 product (ieee_f32); a bf16 or f16 w on the card one
+    cuBLAS product of the rounded x and w with an f32 output (products of
+    16-bit values are exact in f32; the tensor cores' f32 accumulation
+    orders the sums its own way). The CPU has no such product: it
+    multiplies the f32 copies, the same function."""
+    if w.dtype == torch.float32:
+        with ieee_f32():
+            return x.to(torch.float32) @ w
+    xr = x.to(w.dtype)
+    if w.device.type != "cuda":
+        return xr.to(torch.float32) @ w.to(torch.float32)
+    out = torch.mm(xr.reshape(-1, xr.shape[-1]), w, out_dtype=torch.float32)
+    return out.reshape(*xr.shape[:-1], w.shape[1])
 
 
 def apply_lora(x: torch.Tensor, t: LoraTerm) -> torch.Tensor:
@@ -229,9 +245,35 @@ def _head(head_in: torch.Tensor, params: "LlamaParams",
     return logits.to(torch.float32)
 
 
-def _no_qkv_lora(layer: LayerParams) -> bool:
-    return (layer.lora_wq is None and layer.lora_wk is None
-            and layer.lora_wv is None)
+def _fold_qkv_lora(qkv: torch.Tensor, x: torch.Tensor,
+                   layer: LayerParams) -> torch.Tensor:
+    """The fused projection qkv [..., 3F] (its own f32 output) with each of
+    the layer's q/k/v LoRA terms added in place into its slice, [0, F),
+    [F, 2F) or [2F, 3F): the JAX package's q + lora(x), k + lora(x),
+    v + lora(x) before RoPE, so a fused kernel that ropes qkv itself gets
+    the layer's function (every route folds the terms so). Under tensor
+    parallelism qkv is a rank's [q_r | k_r | v_r] and each term's columns
+    its heads' (parallel/sharding._lora_out), so the slices are the rank's
+    own."""
+    f = qkv.shape[-1] // 3
+    for i, t in enumerate((layer.lora_wq, layer.lora_wk, layer.lora_wv)):
+        if t is not None:
+            qkv[..., i * f:(i + 1) * f] += apply_lora(x, t)
+    return qkv
+
+
+def _rope_qkv(qkv: torch.Tensor, h: int, cfg: ForwardConfig, rope_bt,
+              rope_dtype=None):
+    """(q, k, v) [B, T, H, Dh] of a fused projection qkv [B, T, 3F]: RoPE on
+    q and k in one per-lane pass over qkv's first 2F columns (the per-lane
+    form is the rope_interleaved rotation bit for bit, the minus sign folded
+    into the table; stored as rope_dtype, f32 by default), v a view."""
+    b, t, f3 = qkv.shape
+    d = f3 // 3
+    hd = d // h
+    qk = rope_interleaved_lanes(qkv[..., :2 * d].reshape(b, t, 2 * h, hd),
+                                rope_bt[0], rope_bt[1], cfg.n_rot, rope_dtype)
+    return qk[:, :, :h], qk[:, :, h:], qkv[..., 2 * d:].reshape(b, t, h, hd)
 
 
 def _project_out(ctx: torch.Tensor, layer: LayerParams, cfg: ForwardConfig,
@@ -243,19 +285,6 @@ def _project_out(ctx: torch.Tensor, layer: LayerParams, cfg: ForwardConfig,
     if layer.lora_wo is not None:
         out = out + apply_lora(ctx, layer.lora_wo)
     return _tp_sum(out, cfg).to(cfg.act_tdtype)
-
-
-def _qkv_lora(x: torch.Tensor, layer: LayerParams, q, k, v):
-    """q, k, v [B, T, H, Dh] plus the layer's attention-projection LoRA
-    terms."""
-    b, t, h, hd = q.shape
-    if layer.lora_wq is not None:
-        q = q + apply_lora(x, layer.lora_wq).reshape(b, t, h, hd)
-    if layer.lora_wk is not None:
-        k = k + apply_lora(x, layer.lora_wk).reshape(b, t, h, hd)
-    if layer.lora_wv is not None:
-        v = v + apply_lora(x, layer.lora_wv).reshape(b, t, h, hd)
-    return q, k, v
 
 
 def _write_rows_drop(cache: torch.Tensor, val: torch.Tensor,
@@ -305,7 +334,7 @@ def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
     b, t, _ = x.shape
     h = cfg.n_head
     kv_k, kv_v = kv
-    qkv = apply_linear(x, layer.wqkv, cfg)
+    qkv = _fold_qkv_lora(apply_linear(x, layer.wqkv, cfg), x, layer)
     flash = _flash_viable(cfg, t, qkv.shape[-1] // (3 * h))
     # on the flash route into a bf16 cache RoPE stores q and k in bf16: the
     # kernel's operands, and the values the cache write rounds k to
@@ -315,35 +344,20 @@ def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
     def finish(ctx):
         return _project_out(ctx, layer, cfg, b, t)
 
-    if rope_ls is not None and _no_qkv_lora(layer):
+    if rope_ls is not None:
+        # a bf16 decode step: B4 ropes, writes the row and attends
         hd = qkv.shape[-1] // (3 * h)
         return finish(decode_attention_fused(
             qkv.contiguous(), kv_k, kv_v, n_past_vec, rope_ls[0], rope_ls[1],
             head_dim=hd, n_rot=cfg.n_rot, scale=1.0 / math.sqrt(hd)))
 
-    if rope_bt is not None and _no_qkv_lora(layer):
-        d = qkv.shape[-1] // 3
-        hd = d // h
-        qk = qkv[..., :2 * d].reshape(b, t, 2 * h, hd)
-        qk = rope_interleaved_lanes(qk, rope_bt[0], rope_bt[1], cfg.n_rot,
-                                    rope_dtype)
-        q, k = qk[:, :, :h], qk[:, :, h:]
-        v = qkv[..., 2 * d:].reshape(b, t, h, hd)
+    if rope_bt is not None:
+        q, k, v = _rope_qkv(qkv, h, cfg, rope_bt, rope_dtype)
     else:
-        q, k, v = _qkv_lora(x, layer, *split_qkv(qkv, h))
-        hd = q.shape[-1]
-        # the per-lane form is the rope_interleaved rotation bit for bit
-        # (the minus sign is folded into the table); q and k in one call
-        lanes = rope_bt if rope_bt is not None else (
-            None if rope_ls is None else
-            (rope_ls[0][:, None, None, :], rope_ls[1][:, None, None, :]))
-        if lanes is None:
-            q = rope_interleaved(q, positions, cfg.n_rot)
-            k = rope_interleaved(k, positions, cfg.n_rot)
-        else:
-            qk = rope_interleaved_lanes(torch.cat([q, k], dim=2), lanes[0],
-                                        lanes[1], cfg.n_rot, rope_dtype)
-            q, k = qk[:, :, :h], qk[:, :, h:]
+        q, k, v = split_qkv(qkv, h)
+        q = rope_interleaved(q, positions, cfg.n_rot)
+        k = rope_interleaved(k, positions, cfg.n_rot)
+    hd = q.shape[-1]
 
     scale = 1.0 / math.sqrt(hd)
     if cfg.sp_group is not None:
@@ -358,13 +372,9 @@ def _attention(x: torch.Tensor, layer: LayerParams, write_kv,
         # own K/V is the whole context, so B12 attends it in place of the
         # masked softmax over the cache
         return finish(flash_prefill(*_flash_operands(q, k, v, kv_k, kv_v)))
-    if rope_ls is not None:
-        # a bf16 decode step whose layer has q/k/v LoRA: kernel B10 over
-        # the cache that now holds this token's row
-        return finish(decode_attention(
-            q.reshape(b, 1, -1).contiguous(), kv_k, kv_v, n_past_vec,
-            head_dim=hd, scale=scale))
-    return finish(masked_attention(q, kv_k, kv_v, positions, h, scale))
+    with ieee_f32(cfg.w_tdtype == torch.float32):
+        ctx = masked_attention(q, kv_k, kv_v, positions, h, scale)
+    return finish(ctx)
 
 
 def _sp_attention(q, k, v, kv_k, kv_v, positions, cfg: ForwardConfig,
@@ -378,15 +388,17 @@ def _sp_attention(q, k, v, kv_k, kv_v, positions, cfg: ForwardConfig,
         ring_prefill, sp_decode_attention, sp_write_decode,
     )
     t = q.shape[1]
-    if t == 1:
-        sp_write_decode(kv_k, kv_v, k, v, positions[:, 0], cfg.sp_group)
-        return sp_decode_attention(q, kv_k, kv_v, positions[:, 0],
-                                   cfg.sp_group, cfg.n_head, scale)
-    win_start = None
-    if cfg.sp_chunked:
-        win_start = positions[:, 0] - axis_index(cfg.sp_group) * t
-    return ring_prefill(q, k, v, kv_k, kv_v, positions, cfg.sp_group,
-                        cfg.sp_size, scale, win_start)
+    # f32 weight mode: the ring's einsums in full f32, as the JAX sp_prec
+    with ieee_f32(cfg.w_tdtype == torch.float32):
+        if t == 1:
+            sp_write_decode(kv_k, kv_v, k, v, positions[:, 0], cfg.sp_group)
+            return sp_decode_attention(q, kv_k, kv_v, positions[:, 0],
+                                       cfg.sp_group, cfg.n_head, scale)
+        win_start = None
+        if cfg.sp_chunked:
+            win_start = positions[:, 0] - axis_index(cfg.sp_group) * t
+        return ring_prefill(q, k, v, kv_k, kv_v, positions, cfg.sp_group,
+                            cfg.sp_size, scale, win_start)
 
 
 def _ffn(x: torch.Tensor, layer: LayerParams, cfg: ForwardConfig) -> torch.Tensor:
@@ -595,15 +607,11 @@ def forward_jit_decode(params: LlamaParams, tokens: torch.Tensor,
 
 def _roped_qkv(x, layer: LayerParams, cfg: ForwardConfig, rope_bt,
                rope_dtype=None):
-    """(q, k, v) [B, T, H, Dh] of one layer: the fused projection, the
-    q/k/v LoRA terms, then RoPE on q and k in one per-lane pass (stored as
-    rope_dtype, f32 by default)."""
-    h = cfg.n_head
-    q, k, v = _qkv_lora(x, layer, *split_qkv(apply_linear(x, layer.wqkv, cfg),
-                                             h))
-    qk = rope_interleaved_lanes(torch.cat([q, k], dim=2), rope_bt[0],
-                                rope_bt[1], cfg.n_rot, rope_dtype)
-    return qk[:, :, :h], qk[:, :, h:], v
+    """(q, k, v) [B, T, H, Dh] of one layer: the fused projection with its
+    q/k/v LoRA terms folded in, then RoPE on q and k in one per-lane
+    pass."""
+    qkv = _fold_qkv_lora(apply_linear(x, layer.wqkv, cfg), x, layer)
+    return _rope_qkv(qkv, cfg.n_head, cfg, rope_bt, rope_dtype)
 
 
 def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
@@ -625,18 +633,17 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
       paged_attn: the JAX argument, an attention f(q, kp, vp, lengths,
         tables) -> f32 [B, H, D] (the engine passes paged_attention_tpu,
         B21, as engine/scheduler.B21Route, on the pools the JAX engine
-        gives the library kernel). With one, a layer with q/k/v LoRA
-        terms takes RoPE, B7's write of the new row and paged_attn over
-        lengths + 1 keys; so does every layer, unless paged_attn has a
-        fused step, paged_attn.step(qkv, kp, vp, lengths, tables,
-        page_ids, offsets, cos, sin) -> f32 [B, H, D] (RoPE, the row's
-        write and the attention over lengths + 1 keys in one kernel: the
-        B21Route's fused B21 step), which the other layers take.
-    Without paged_attn, a layer without q/k/v LoRA terms runs the fused step
-    (RoPE, the new row's write and the attention over lengths + 1 keys in
-    one kernel, paged_decode_step_fused); a layer with them adds the terms
-    to q, k and v first, then writes the row with kernel B7 and attends
-    with kernel B6 (plain versions for CPU tensors).
+        gives the library kernel). If it has a fused step,
+        paged_attn.step(qkv, kp, vp, lengths, tables, page_ids, offsets,
+        cos, sin) -> f32 [B, H, D] (RoPE, the row's write and the
+        attention over lengths + 1 keys in one kernel: the B21Route's
+        fused B21 step), every layer takes that; an attention without one
+        is called on every layer after RoPE and B7's write of the new row.
+    Without paged_attn every layer runs the fused step (RoPE, the new row's
+    write and the attention over lengths + 1 keys in one kernel,
+    paged_decode_step_fused; its plain version for CPU tensors). On every
+    route a layer's q/k/v LoRA terms are added into its fused projection
+    before RoPE (_fold_qkv_lora).
     Returns (logits [B, 1, V] f32, k_pages, v_pages).
     """
     b = tokens.shape[0]
@@ -650,8 +657,9 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
 
     for layer, kp, vp in zip(params.layers, k_pages, v_pages):
         attn_in = rms_norm(x, layer.attention_norm, cfg.rms_eps)
-        if fused is not None and _no_qkv_lora(layer):
-            qkv = apply_linear(attn_in, layer.wqkv, cfg)
+        if fused is not None:
+            qkv = _fold_qkv_lora(apply_linear(attn_in, layer.wqkv, cfg),
+                                 attn_in, layer)
             ctx = fused(
                 qkv.reshape(b, -1).to(torch.float32), kp, vp, lengths,
                 page_tables, page_ids, offsets, cos[:, 0], sin[:, 0])
@@ -659,8 +667,7 @@ def forward_paged_decode(params: LlamaParams, tokens: torch.Tensor,
             q, k, v = _roped_qkv(attn_in, layer, cfg, rope_bt)
             paged_kv_write(kp, vp, k[:, 0].contiguous(),
                            v[:, 0].contiguous(), page_ids, offsets)
-            ctx = (paged_attn or paged_decode_attention)(
-                q[:, 0], kp, vp, attend, page_tables)
+            ctx = paged_attn(q[:, 0], kp, vp, attend, page_tables)
         x = x + _project_out(ctx, layer, cfg, b, 1)
         x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
 
@@ -712,13 +719,14 @@ def forward_paged_prefill(params: LlamaParams, tokens: torch.Tensor,
         if flash:
             ctx = flash_prefill(*(x_.to(torch.bfloat16) for x_ in (q, k, v)))
         else:
-            scores = torch.einsum("bthd,bshd->bhts", q.to(torch.float32),
-                                  k.to(torch.float32)) * scale
-            scores = torch.where(causal[None, None], scores,
-                                 torch.full_like(scores, -1e30))
-            ctx = torch.einsum("bhts,bshd->bthd",
-                               torch.softmax(scores, dim=-1),
-                               v.to(torch.float32))
+            with ieee_f32(cfg.w_tdtype == torch.float32):
+                scores = torch.einsum("bthd,bshd->bhts", q.to(torch.float32),
+                                      k.to(torch.float32)) * scale
+                scores = torch.where(causal[None, None], scores,
+                                     torch.full_like(scores, -1e30))
+                ctx = torch.einsum("bhts,bshd->bthd",
+                                   torch.softmax(scores, dim=-1),
+                                   v.to(torch.float32))
         x = x + _project_out(ctx, layer, cfg, b, t)
         x = x + _ffn(rms_norm(x, layer.ffn_norm, cfg.rms_eps), layer, cfg)
 

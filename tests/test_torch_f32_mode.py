@@ -9,6 +9,8 @@ parts passes), the plans of both kernels' f32 modes, the routes, and
 (marked cuda) each
 kernel against its plain version and on the three-part case on the card,
 and a NaN row kept to itself."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -487,3 +489,193 @@ def test_f32_kernels_keep_a_nan_row_to_itself(cuda_device, affine, kernel,
                   @ tt.dequant_matmul_weight(w, torch.float32).abs()).max()
     assert torch.isfinite(y[rest]).all()
     assert (y[rest] - want).abs().max().item() <= tol.item()
+
+
+# ---------------------------------------------------------------------------
+# f32 products under the process's TF32 setting: full f32 where the JAX
+# package pins Precision.HIGHEST (utils/precision.ieee_f32)
+# ---------------------------------------------------------------------------
+
+def _precision_state():
+    try:
+        legacy = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        legacy = "mixed"
+    try:
+        backend = torch.backends.cuda.matmul.fp32_precision
+    except AttributeError:
+        backend = None
+    return legacy, backend
+
+
+@pytest.mark.parametrize("setting", ["highest", "high", "medium"])
+def test_ieee_f32_pins_highest_and_restores_the_callers_setting(setting):
+    """Inside ieee_f32 the matmul precision is "highest"; after it, on a
+    normal exit and on an exception, the caller's setting is back; with
+    on=False nothing changes."""
+    from fastllama_tpu_torch.utils.precision import ieee_f32
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(setting)
+    try:
+        before = _precision_state()
+        with ieee_f32():
+            assert torch.get_float32_matmul_precision() == "highest"
+        assert _precision_state() == before
+        with pytest.raises(KeyError):
+            with ieee_f32():
+                raise KeyError("inside")
+        assert _precision_state() == before
+        with ieee_f32(False):
+            assert _precision_state() == before
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def test_ieee_f32_restores_a_per_backend_setting():
+    """A caller that set only the per-backend switch (where this PyTorch
+    has one) gets it back, though the legacy getter cannot read then."""
+    from fastllama_tpu_torch.utils.precision import ieee_f32
+    matmul = torch.backends.cuda.matmul
+    try:
+        old = matmul.fp32_precision
+    except AttributeError:
+        pytest.skip("this PyTorch has no per-backend precision switch")
+    try:
+        matmul.fp32_precision = "tf32"
+        with ieee_f32():
+            assert torch.get_float32_matmul_precision() == "highest"
+            assert matmul.fp32_precision == "ieee"
+        assert matmul.fp32_precision == "tf32"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        matmul.fp32_precision = old
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_forward_leaves_the_callers_setting_alone(mode, monkeypatch):
+    """The f32 forward pins its products and gives the setting back; the
+    bf16 forward never touches it (ieee_f32 is entered with on=False
+    there, apart from any f32 LoRA term's _dot)."""
+    import contextlib
+    from fastllama_tpu_torch.models import llama as tl
+    from fastllama_tpu_torch.utils.precision import ieee_f32
+    from test_torch_model import HP as hp, jax_params, to_numpy_tree
+    seen = []
+
+    @contextlib.contextmanager
+    def spy(on=True):
+        seen.append(on)
+        with ieee_f32(on):
+            yield
+    monkeypatch.setattr(tl, "ieee_f32", spy)
+    tp = tl.params_from_numpy(to_numpy_tree(jax_params()), device="cpu")
+    cfg = tl.ForwardConfig(n_head=hp.n_head, n_rot=hp.n_rot, w_dtype=mode)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        kv = tl.init_kv_cache(hp, 1, 16, dtype=getattr(torch, mode),
+                              device="cpu")
+        tl.forward(tp, torch.tensor([[1, 5, 9]]), 0, kv, cfg)
+        tl.forward(tp, torch.tensor([[7]]), 3, kv, cfg)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert seen and all(seen) == (mode == "float32")
+
+
+def _pinned_calls(site, mode, monkeypatch):
+    """The matmul precision in force at each product of one site the JAX
+    package pins at HIGHEST in f32 mode, while the caller has "high" set:
+    "slab", masked_attention's einsums in a prefill window and a decode
+    step of forward; "paged", forward_paged_prefill's einsums; "sp",
+    _sp_attention's calls into the ring (prefill and decode; the ring's
+    functions stand in for a world here)."""
+    import sys
+    from fastllama_tpu_torch.engine import paged_kv as tpk
+    from fastllama_tpu_torch.models import llama as tl
+    from fastllama_tpu_torch.parallel import ring
+    from test_torch_model import HP as hp, jax_params, to_numpy_tree
+    seen = []
+    real_einsum = torch.einsum
+
+    def einsum(*a, **kw):
+        caller = sys._getframe(1).f_code.co_name
+        if caller in ("masked_attention", "forward_paged_prefill"):
+            seen.append(torch.get_float32_matmul_precision())
+        return real_einsum(*a, **kw)
+
+    def ring_fn(*a, **kw):
+        seen.append(torch.get_float32_matmul_precision())
+        return torch.zeros_like(a[0])
+    monkeypatch.setattr(torch, "einsum", einsum)
+    for name in ("ring_prefill", "sp_decode_attention"):
+        monkeypatch.setattr(ring, name, ring_fn)
+    monkeypatch.setattr(ring, "sp_write_decode", lambda *a: None)
+    cfg = tl.ForwardConfig(n_head=hp.n_head, n_rot=hp.n_rot, w_dtype=mode)
+    dtype = getattr(torch, mode)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        if site == "sp":
+            g = torch.Generator().manual_seed(0)
+            q = torch.randn((1, 2, hp.n_head, 64), generator=g)
+            cache = torch.zeros((1, 8, hp.n_embd))
+            sp = dataclasses.replace(cfg, sp_group=object(), sp_size=2)
+            for t in (2, 1):
+                pos = torch.arange(t, dtype=torch.int32)[None]
+                tl._sp_attention(q[:, :t], q[:, :t], q[:, :t], cache, cache,
+                                 pos, sp, 0.125)
+            return seen
+        tp = tl.params_from_numpy(to_numpy_tree(jax_params()), device="cpu")
+        if site == "slab":
+            kv = tl.init_kv_cache(hp, 1, 16, dtype=dtype, device="cpu")
+            tl.forward(tp, torch.tensor([[1, 5, 9]]), 0, kv, cfg)
+            tl.forward(tp, torch.tensor([[7]]), 3, kv, cfg)
+            return seen
+        m = tpk.PagedKVManager(hp, n_slots=1, page_size=4, total_pages=4,
+                               pages_per_seq=4, dtype=dtype, device="cpu")
+        assert m.alloc_for(0, 5)
+        pages, offs = m.token_page_offsets(0, 0, 5)
+        tl.forward_paged_prefill(
+            tp, torch.tensor([[1, 5, 9, 20, 7]]), 4,
+            torch.as_tensor(np.asarray(pages), dtype=torch.int32),
+            torch.as_tensor(np.asarray(offs), dtype=torch.int32),
+            m.k_pages, m.v_pages, cfg)
+        return seen
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+@pytest.mark.parametrize("site", ["slab", "paged", "sp"])
+def test_attention_products_run_pinned_in_f32_mode(site, mode, monkeypatch):
+    """Under a caller's "high", every product of the site (the slab and
+    paged attention einsums, the SP ring) runs at "highest" in f32 weight
+    mode, as the JAX package pins HIGHEST there, and under the caller's
+    own setting in bf16 mode, where the JAX package pins nothing."""
+    seen = _pinned_calls(site, mode, monkeypatch)
+    want = "highest" if mode == "float32" else "high"
+    assert seen and set(seen) == {want}, seen
+    assert torch.get_float32_matmul_precision() != "high"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lora_rank", [0, 8], ids=["base", "lora"])
+def test_f32_mode_under_tf32_matches_the_cpu(cuda_device, lora_rank):
+    """A host program's torch.set_float32_matmul_precision("high") does not
+    reach the f32 mode: phase 16's 2-layer 7B-width f32 model (with f32 A/B
+    terms on wq and wv for "lora") on the card, prefill and first decode
+    step, eager, captured under "high" and replayed (chip_smoke.c2_check),
+    gives logits equal bit for bit to the same runs under "highest" (an
+    unpinned f32 product would take TF32 there) and within 1e-4 of the
+    largest logit of the same weights on the CPU; the setting is "high"
+    throughout and restored after."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    before = torch.get_float32_matmul_precision()
+    out = cs.c2_check(torch, cuda_device, gen, lora_rank=lora_rank)
+    assert torch.get_float32_matmul_precision() == before
+    assert out["precision_during"] == "high" and out["replays"] >= 2
+    for route in ("eager", "captured", "replayed"):
+        assert out["equal"][route], (route, out)
+        assert max(out[route]) <= 1e-4, (route, out)

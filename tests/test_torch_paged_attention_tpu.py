@@ -559,10 +559,10 @@ def long_engine_case(world, monkeypatch, lora):
     pages of 64 rows (pp 256; total_pages set to 32, not the slab-sized
     default): past the JAX kernel's f32 gate, so the route is B21 with the
     JAX engine's 64-page compute blocks, every layer of every step, and
-    never the port's own fused step. Without LoRA each layer takes the
-    fused B21 step (RoPE, B7's write, the pre-scale and B21 in one call),
-    never B7 or the unfused B21; with q/k/v LoRA terms it takes RoPE, B7
-    and the unfused B21. The greedy streams equal the JAX engine's on the
+    never the port's own fused step. Each layer takes the fused B21 step
+    (RoPE, B7's write, the pre-scale and B21 in one call), never B7 or the
+    unfused B21, with q/k/v LoRA terms too (added into the layer's fused
+    projection first). The greedy streams equal the JAX engine's on the
     CPU (whose step attends through its reference there)."""
     jp, tp = lora_params(world) if lora else (world["jp"], world["tp"])
     calls = {"B21": [], "B21F": [], "B7": 0, "PS": 0}
@@ -580,7 +580,7 @@ def long_engine_case(world, monkeypatch, lora):
             calls[key] += 1
             return fn(*a)
         return wrapped
-    monkeypatch.setattr(ts, "paged_attention_tpu", spy("B21", real))
+    monkeypatch.setattr(tpk, "paged_attention_tpu", spy("B21", real))
     monkeypatch.setattr(ts, "paged_attention_tpu_fused", spy("B21F", real_f))
     monkeypatch.setattr(tl, "paged_kv_write", count("B7", real_b7))
     monkeypatch.setattr(tl, "paged_decode_step_fused", count("PS", real_ps))
@@ -596,12 +596,10 @@ def long_engine_case(world, monkeypatch, lora):
                           kv_mode="paged", page_size=64, total_pages=32)
     ref = [list(r.tokens_out) for r in jeng.run(requests(js))]
     assert port == ref and all(len(t) == 6 for t in port)
-    taken, idle = ("B21", "B21F") if lora else ("B21F", "B21")
-    steps = len(calls[taken]) // HP.n_layer
-    assert steps > 0 and set(calls[taken]) == {64}
-    assert len(calls[taken]) == steps * HP.n_layer
-    assert calls[idle] == [] and calls["PS"] == 0
-    assert calls["B7"] == (steps * HP.n_layer if lora else 0)
+    steps = len(calls["B21F"]) // HP.n_layer
+    assert steps > 0 and set(calls["B21F"]) == {64}
+    assert len(calls["B21F"]) == steps * HP.n_layer
+    assert calls["B21"] == [] and calls["PS"] == 0 and calls["B7"] == 0
     assert eng.pager.free_pages == 32
 
 
@@ -611,7 +609,9 @@ def test_long_context_engine_takes_b21_and_matches_jax(world, monkeypatch):
 
 
 def test_long_context_lora_engine_takes_b7_and_b21(world, monkeypatch):
-    """long_engine_case with q/k/v LoRA terms: RoPE, B7 and B21."""
+    """long_engine_case with q/k/v LoRA terms on both layers: the fused B21
+    step on every layer as without them, B7 and the unfused B21 (the route
+    such layers took before the fold) never called."""
     long_engine_case(world, monkeypatch, lora=True)
 
 

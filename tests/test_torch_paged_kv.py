@@ -1026,17 +1026,28 @@ def test_paged_forward_ignores_lora_output(params):
         np.testing.assert_array_equal(t0, t1)
 
 
+def unfused_attention(b21):
+    """An attention f(q, kp, vp, lengths, tables) without a fused step, so
+    forward_paged_decode takes RoPE, B7's write and it on every layer: B6,
+    or B21 with the JAX engine's call (ppcb 2 on these 4-page tables)."""
+    if b21:
+        return lambda *a: tpk.paged_attention_tpu(
+            *a, pages_per_compute_block=2)
+    return lambda *a: tpa.paged_decode_attention(*a)
+
+
 def greedy_paged_stream(params, monkeypatch, fused, steps=6, b21=False):
     """A 5-token prompt prefilled into pages, then `steps` greedy decode
     steps of two slots (the second inactive) through forward_paged_decode,
     f32. fused=False sends every layer down the unfused route (RoPE, B7,
-    B6), as a layer with q/k/v LoRA terms goes. b21=True takes the engine's
-    route past the JAX kernel's gate: the fused B21 step (or RoPE, B7 and
-    B21). Returns the tokens and the last logits."""
+    B6): forward_paged_decode takes it for an attention without a fused
+    step. b21=True takes the engine's route past the JAX kernel's gate: the
+    fused B21 step (or RoPE, B7 and B21). Returns the tokens and the last
+    logits."""
     _, tp = params
     route = {"paged_attn": ts.B21Route(2)} if b21 else {}
     if not fused:
-        monkeypatch.setattr(tl, "_no_qkv_lora", lambda layer: False)
+        route = {"paged_attn": unfused_attention(b21)}
     cfg = tl.ForwardConfig(n_head=HP.n_head, n_rot=HP.n_rot,
                            w_dtype="float32", prefill_int8=False)
     m = tpk.PagedKVManager(HP, n_slots=2, page_size=4, total_pages=8,
@@ -1088,4 +1099,39 @@ def test_fused_b21_paged_decode_equals_the_unfused_b21_route(params,
     unfused, lu = greedy_paged_stream(params, monkeypatch, fused=False,
                                       b21=True)
     assert fused == unfused
+    np.testing.assert_allclose(lf, lu, rtol=0, atol=1e-4 * np.abs(lu).max())
+
+
+def qkv_lora_params(params, seed=23):
+    """The port's parameters with q/k/v LoRA terms on both layers: an A/B
+    pair on wq, a cached delta on wk and on wv."""
+    import dataclasses
+    _, tp = params
+    g = torch.Generator().manual_seed(seed)
+    d, r = HP.n_embd, 4
+
+    def arr(*shape):
+        return torch.randn(shape, generator=g) * 0.05
+    layers = [dataclasses.replace(
+        lay, lora_wq=tl.LoraTerm(a=arr(d, r), b=arr(r, d)),
+        lora_wk=tl.LoraTerm(delta=arr(d, d)),
+        lora_wv=tl.LoraTerm(delta=arr(d, d))) for lay in tp.layers]
+    return None, dataclasses.replace(tp, layers=layers)
+
+
+@pytest.mark.parametrize("b21", [False, True], ids=["fused_step", "b21f"])
+def test_fused_paged_decode_with_qkv_lora_equals_the_unfused_route(
+        params, monkeypatch, b21):
+    """Layers with q/k/v LoRA terms on the fused route (the terms added into
+    the fused projection, then one fused step a layer: the port's, or the
+    fused B21 step past the JAX kernel's gate) give the greedy tokens of the
+    unfused composition of plain versions those layers took before (the
+    terms added to q, k and v, RoPE, B7's write, then B6 or B21), and
+    logits within the tolerance of the LoRA-free comparison above (1e-4 of
+    the largest)."""
+    lp = qkv_lora_params(params)
+    fused, lf = greedy_paged_stream(lp, monkeypatch, fused=True, b21=b21)
+    unfused, lu = greedy_paged_stream(lp, monkeypatch, fused=False, b21=b21)
+    plain, _ = greedy_paged_stream(params, monkeypatch, fused=True, b21=b21)
+    assert fused == unfused and fused != plain
     np.testing.assert_allclose(lf, lu, rtol=0, atol=1e-4 * np.abs(lu).max())

@@ -418,3 +418,64 @@ def test_session_refuses_data_parallelism():
     with pytest.raises(ValueError, match="data-parallel"):
         LlamaModel(HP, port_params(jax_params(False)),
                    Vocab.from_tokens([(b"<unk>", 0.0)]), rcfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# a TP (1, 2) decode layer with q/k/v LoRA terms on B4's route
+# ---------------------------------------------------------------------------
+
+def test_tp_lora_decode_layer_sums_to_the_one_card_layer(monkeypatch):
+    """tp = 2, bf16 weight mode, a decode step of layer 0 with LoRA terms on
+    wq (a delta), wv (A/B) and wo: each rank adds its terms' columns (its
+    heads, parallel/sharding._lora_out) into the matching slices of its own
+    [q_r | k_r | v_r] projection and runs B4 on its heads (never B10), so
+    its written cache rows are the one-card rows' columns of its heads, and
+    the ranks' wo partials (the psum's operands) sum to the one-card
+    layer's output, within f32 reassociation."""
+    from fastllama_tpu_torch.kernels import decode_attention as tda
+    from fastllama_tpu_torch.kernels.rope import lane_tables
+    tp = 2
+    jp = jax_params(False)
+    full = port_params(jp)
+    attach(jp, full, lora_terms())
+    calls = []
+    real = tl.decode_attention_fused
+    monkeypatch.setattr(tl, "decode_attention_fused",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    monkeypatch.setattr(tda, "decode_attention",
+                        lambda *a, **kw: pytest.fail("B10 was called"))
+    b, s, d = 2, 16, HP.n_embd
+    hd = d // HP.n_head
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((b, 1, d)).astype(np.float32))
+    n_past = torch.tensor([3, 9], dtype=torch.int32)
+    cos, sin = lane_tables(n_past, hd, HP.n_rot)
+    caches = [torch.from_numpy(rng.standard_normal((b, s, d)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2)]
+
+    def layer_out(params, n_head, kv):
+        cfg = tl.ForwardConfig(n_head=n_head, n_rot=HP.n_rot,
+                               w_dtype="bfloat16", prefill_int8=False)
+        return tl._attention(x, params.layers[0], None, None, kv, cfg,
+                             (cos, sin), None, n_past)
+
+    one_kv = [c.clone() for c in caches]
+    want = layer_out(full, HP.n_head, one_kv)
+    parts = []
+    w_loc = d // tp
+    for r in range(tp):
+        cols = slice(r * w_loc, (r + 1) * w_loc)
+        kv = [c[:, :, cols].clone() for c in caches]
+        parts.append(layer_out(shard_params(full, r, tp), HP.n_head // tp,
+                               kv))
+        for got, ref in zip(kv, one_kv):
+            for i, n in enumerate(n_past.tolist()):
+                np.testing.assert_allclose(
+                    got[i, n].float().numpy(),
+                    ref[i, n, cols].float().numpy(), rtol=2 ** -7,
+                    atol=1e-6)
+            assert torch.equal(got[:, :3], ref[:, :3, cols])
+    assert len(calls) == 1 + tp
+    total = parts[0] + parts[1]
+    np.testing.assert_allclose(total.numpy(), want.numpy(), rtol=0,
+                               atol=1e-4 * want.abs().max().item())

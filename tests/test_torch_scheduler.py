@@ -261,6 +261,65 @@ def test_engine_greedy_streams_match_jax(world, stop_word, mode):
         assert te.pager.free_pages == je.pager.free_pages == 24
 
 
+def qkv_lora_world(world, seed=21):
+    """world with q/k/v LoRA terms on both layers, the same on both
+    packages: a cached delta on wq, an A/B pair on wk, a delta on wv."""
+    import dataclasses
+    rng = np.random.default_rng(seed)
+    d, r = HP.n_embd, 4
+
+    def arr(*shape):
+        return (rng.standard_normal(shape) * 0.05).astype(np.float32)
+    jl_layers, tl_layers = [], []
+    for jlay, tlay in zip(world["jp"].layers, world["tp"].layers):
+        terms = {"lora_wq": {"delta": arr(d, d)},
+                 "lora_wk": {"a": arr(d, r), "b": arr(r, d)},
+                 "lora_wv": {"delta": arr(d, d)}}
+        jl_layers.append(dataclasses.replace(jlay, **{
+            f: jl.LoraTerm(**{k: jnp.asarray(v) for k, v in t.items()})
+            for f, t in terms.items()}))
+        tl_layers.append(dataclasses.replace(tlay, **{
+            f: tl.LoraTerm(**{k: torch.from_numpy(v) for k, v in t.items()})
+            for f, t in terms.items()}))
+    return dict(world, jp=dataclasses.replace(world["jp"], layers=jl_layers),
+                tp=dataclasses.replace(world["tp"], layers=tl_layers))
+
+
+@pytest.mark.parametrize("mode", ["paged", "chunked_paged"])
+def test_paged_engine_with_qkv_lora_takes_the_fused_step(world, stop_word,
+                                                         mode, monkeypatch):
+    """f32 mode, temp 0, q/k/v LoRA terms on every layer: each paged decode
+    step runs the fused paged step once a layer (the terms added into the
+    layer's fused projection before it ropes), never B7's write or B6, and
+    the streams equal the JAX engine's, whose step adds the terms to q, k
+    and v, ropes, writes and attends apart."""
+    lw = qkv_lora_world(world)
+    calls = {"PS": 0, "B7": 0, "B6": 0}
+
+    def count(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+    monkeypatch.setattr(tl, "paged_decode_step_fused",
+                        count("PS", tl.paged_decode_step_fused))
+    monkeypatch.setattr(tl, "paged_kv_write", count("B7", tl.paged_kv_write))
+    from fastllama_tpu_torch.kernels import paged_attention as tpa
+    monkeypatch.setattr(tpa, "paged_decode_attention",
+                        count("B6", tpa.paged_decode_attention))
+    je = jax_engine(lw, temp=0.0, **MODES[mode])
+    jreqs = scenario(js, stop_word)
+    je.run(jreqs)
+    te = port_engine(lw, temp=0.0, **MODES[mode])
+    treqs = scenario(ts, stop_word)
+    te.run(treqs)
+    assert [r.tokens_out for r in treqs] == [r.tokens_out for r in jreqs]
+    assert sum(len(r.tokens_out) for r in treqs) > 20
+    assert calls["PS"] > 0 and calls["PS"] % HP.n_layer == 0
+    assert calls["B7"] == 0 and calls["B6"] == 0
+    assert te.pager.free_pages == je.pager.free_pages == 24
+
+
 @pytest.mark.parametrize("chunked", [False, True])
 def test_engine_out_of_pages_matches_jax(world, chunked):
     """A pool of three pages under two slots: the requests that fit run as
